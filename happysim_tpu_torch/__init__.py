@@ -1,0 +1,53 @@
+"""happysim_tpu_torch: the ensemble engine of ``happysim_tpu`` in PyTorch,
+with its event step as a hand-written CUDA kernel for NVIDIA Hopper.
+
+It runs thousands of independent Monte-Carlo replicas of a queueing
+model as one program on the card::
+
+    from happysim_tpu_torch import mm1_model, run_ensemble
+    result = run_ensemble(mm1_model(lam=8, mu=10, horizon_s=160, warmup_s=40),
+                          n_replicas=65536)          # on "cuda"
+    result.server_mean_wait_s[0]                     # ~ rho/(mu-lam) = 0.4 s
+
+It imports torch and numpy only: nothing of JAX and nothing of the JAX
+package, whose modules it mirrors (flattened out of ``tpu/``) and keeps
+the function and state-leaf names of:
+
+=================================  =========================================
+this package                       JAX package
+=================================  =========================================
+``model.py``                       ``happysim_tpu/tpu/model.py``
+``rng.py``                         ``jax.random`` (threefry2x32, as used in
+                                   ``tpu/engine.py``)
+``reduce.py``                      ``happysim_tpu/tpu/reduce.py``
+``engine.py``                      ``happysim_tpu/tpu/engine.py``
+``kernels/support.py``             ``happysim_tpu/tpu/kernels/support.py``
+``kernels/event_step.py``          ``happysim_tpu/tpu/kernels/event_step.py``
+``kernels/csrc/event_step.cu``     the Pallas kernel of ``build_block_step``
+``convert.py``                     (none: numpy state/params across)
+=================================  =========================================
+
+What runs: single-source, single-sink server chains, ``mm1_model`` up to
+``pipeline_model`` (Poisson or constant arrivals, constant or exponential
+service, any concurrency and queue capacity, zero-latency edges, warmup).
+Every other feature of the JAX package raises ``NotImplementedError``
+naming itself and its ROADMAP item. Entry points run on the CUDA card
+unless the caller passes ``device="cpu"``.
+"""
+
+from happysim_tpu_torch.engine import EnsembleResult, run_ensemble
+from happysim_tpu_torch.model import (
+    EnsembleModel,
+    NodeRef,
+    mm1_model,
+    pipeline_model,
+)
+
+__all__ = [
+    "EnsembleModel",
+    "EnsembleResult",
+    "NodeRef",
+    "mm1_model",
+    "pipeline_model",
+    "run_ensemble",
+]

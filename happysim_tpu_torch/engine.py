@@ -1,0 +1,798 @@
+"""Ensemble engine: thousands of Monte-Carlo replicas of a server chain,
+stepped together (counterpart of ``happysim_tpu/tpu/engine.py``).
+
+Per-replica state is a ``dict[str, Tensor]`` whose leaves carry the names,
+dtypes and shapes of the JAX engine's ``_Compiled.init_state``, with the
+replica axis written out as the leading axis (JAX's ``vmap`` axis). The
+next event of a replica is the argmin over a fixed candidate vector (the
+source's next arrival, each server's earliest completion), exactly as in
+the JAX engine, and one step processes one event per replica.
+
+The hot loop runs in macro-blocks of ``macro`` event steps: the block's
+uniforms are drawn by :mod:`~happysim_tpu_torch.rng` from
+``fold_in(key, block)`` (the JAX stream), and
+:func:`~happysim_tpu_torch.kernels.event_step.block_step` advances every
+replica by the block — the hand-written CUDA kernel on the card, or its
+plain torch-op version (the step below, applied ``macro`` times) for CPU
+tensors. The loop ends once every replica has halted.
+
+Reductions over replicas go through :mod:`~happysim_tpu_torch.reduce`, so
+the reported totals are order-free and exact.
+"""
+
+from __future__ import annotations
+
+import logging
+import time as _wall
+from dataclasses import dataclass
+from dataclasses import field as dataclasses_field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from happysim_tpu_torch import rng
+from happysim_tpu_torch.kernels import event_step, support
+from happysim_tpu_torch.model import SINK, EnsembleModel, NodeRef
+from happysim_tpu_torch.reduce import (
+    MAX_EXACT_REPLICAS,
+    host_f64,
+    host_i64,
+    sum_f32_fixed,
+    sum_i64_limbs,
+)
+
+logger = logging.getLogger("happysim_tpu_torch.engine")
+
+INF = float("inf")
+
+# Latency histogram: 10 bins/decade over [1e-5 s, 1e3 s] -> 80 bins.
+HIST_BINS = 80
+HIST_LO_LOG10 = -5.0
+HIST_DECADES = 8.0
+
+# Default macro-block length: event steps per kernel launch and per RNG
+# chunk. The RNG stream is keyed by (absolute block, row within block), so
+# the length is part of the stream layout.
+RNG_CHUNK = 32
+
+# Reduce-key encodings (see reduce.py): limb-encoded int counters and
+# fixed-point float sums. reduce_final encodes by these, _build_result
+# decodes by them.
+_I64_COUNTER_KEYS = frozenset({
+    "events",
+    "sink_count", "sink_hist",
+    "srv_completed", "srv_dropped", "srv_outage_dropped", "srv_started",
+    "srv_timed_out", "srv_retried", "srv_wait_n",
+    "lim_admitted", "lim_dropped",
+    "blocks_total",
+})
+_F64_SUM_KEYS = frozenset({
+    "sink_sum", "sink_sq",
+    "srv_busy_int", "srv_depth_int", "srv_wait_sum",
+})
+
+
+def macro_block_len(model: Optional[EnsembleModel] = None) -> int:
+    """Macro-block length: ``EnsembleModel.macro_block`` or :data:`RNG_CHUNK`."""
+    if model is not None and model.macro_block:
+        return max(1, int(model.macro_block))
+    return RNG_CHUNK
+
+
+def _f32(value, device) -> torch.Tensor:
+    """A 0-d float32 tensor, so every op below runs in float32 as in JAX."""
+    return torch.tensor(np.float32(value), dtype=torch.float32, device=device)
+
+
+def _hist_bin(latency: torch.Tensor) -> torch.Tensor:
+    dev = latency.device
+    logv = torch.log10(torch.maximum(latency, _f32(1e-12, dev)))
+    frac = (logv - _f32(HIST_LO_LOG10, dev)) / _f32(HIST_DECADES, dev)
+    # .to(int32) truncates toward zero, as XLA's convert does.
+    return torch.clamp((frac * _f32(HIST_BINS, dev)).to(torch.int32), 0, HIST_BINS - 1)
+
+
+def hist_percentile(hist: np.ndarray, q: float) -> float:
+    """Host-side percentile estimate from the log-spaced histogram (the
+    bin centre in log space; 0.0 for an empty histogram)."""
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"percentile q must be in [0, 1], got {q!r}")
+    total = int(hist.sum())
+    if total == 0:
+        return 0.0
+    target = min(max(total * q, 1.0), float(total))
+    cumulative = np.cumsum(hist)
+    bin_index = int(np.searchsorted(cumulative, target))
+    bin_index = min(bin_index, HIST_BINS - 1)
+    frac = (bin_index + 0.5) / HIST_BINS
+    return float(10 ** (HIST_LO_LOG10 + frac * HIST_DECADES))
+
+
+@dataclass
+class EnsembleResult:
+    """Aggregated ensemble statistics (cross-replica sums and means)."""
+
+    n_replicas: int
+    horizon_s: float
+    simulated_events: int
+    wall_seconds: float
+    events_per_second: float
+    # per sink (lists indexed by sink id)
+    sink_count: list[int]
+    sink_mean_latency_s: list[float]
+    sink_p50_s: list[float]
+    sink_p99_s: list[float]
+    sink_hist: np.ndarray  # (nK, HIST_BINS) aggregated
+    # per server
+    server_completed: list[int]
+    server_dropped: list[int]
+    server_outage_dropped: list[int]
+    server_utilization: list[float]
+    server_mean_wait_s: list[float]
+    server_mean_queue_len: list[float]
+    server_timed_out: list[int]
+    server_retried: list[int]
+    transit_dropped: list[int]
+    limiter_admitted: list[int]
+    limiter_dropped: list[int]
+    # replicas whose event budget ran out before the horizon (bias warning)
+    truncated_replicas: int = 0
+    # seconds spent building and loading the kernel library in this call,
+    # kept out of wall_seconds
+    compile_seconds: float = 0.0
+    # "scan+cuda" when the CUDA event-step kernel ran, "scan" for the
+    # plain torch-op step on the CPU
+    engine_path: str = "scan"
+    # "mm1" / "chain" on the kernel path, "" off it
+    kernel_shape: str = ""
+    # macro-block length, per-run block budget, blocks retired summed over
+    # replicas, and the occupancy histogram {blocks_run: n_replicas}
+    macro_block: int = 0
+    max_blocks: int = 0
+    blocks_total: int = 0
+    block_occupancy: dict = dataclasses_field(default_factory=dict)
+    padded_replicas: int = 0
+    # the device the run used (torch.cuda.get_device_name or "cpu")
+    device_name: str = ""
+
+    def engine_report(self) -> dict:
+        """Which path ran, where the time went, and the macro-block
+        occupancy (the fields of the JAX report this engine fills)."""
+        padded = self.padded_replicas or self.n_replicas
+        budget = self.max_blocks * self.n_replicas
+        return {
+            "engine_path": self.engine_path,
+            "kernel_shape": self.kernel_shape,
+            "device": self.device_name,
+            "compile_seconds": self.compile_seconds,
+            "run_seconds": self.wall_seconds,
+            "events_per_second": self.events_per_second,
+            "macro_block": self.macro_block,
+            "max_blocks": self.max_blocks,
+            "blocks_total": self.blocks_total,
+            "block_occupancy": dict(self.block_occupancy),
+            "events_per_block": (
+                self.simulated_events / self.blocks_total
+                if self.blocks_total
+                else 0.0
+            ),
+            "early_exit_occupancy": (
+                self.blocks_total / budget if budget else 0.0
+            ),
+            "padded_replicas": padded,
+            "padded_lane_fraction": (
+                (padded - self.n_replicas) / padded if padded else 0.0
+            ),
+        }
+
+
+# Service family ids (JAX numbering; the port runs 0 and 1).
+_SERVICE_KIND_IDS = {"constant": 0, "exponential": 1}
+_SERVICE_DRAWS = {0: 0, 1: 1}
+
+
+class _Compiled:
+    """Static arrays and the vectorised event step derived from a model.
+
+    The branch methods take the state dict and a ``lanes`` mask over the
+    replica axis and update the selected lanes IN PLACE (slice assignment
+    into the state's tensors); the other lanes keep their bits.
+    """
+
+    def __init__(self, model: EnsembleModel):
+        model.validate()
+        self.model = model
+        self.nS = len(model.sources)
+        self.nV = max(len(model.servers), 1)
+        self.nK = len(model.sinks)
+        self.nR = 1  # inert round-robin cursor (routers: ROADMAP A.5)
+        self.nL = 1  # inert limiter columns (limiters: ROADMAP A.5)
+        self.C = max(model.max_concurrency, 1)
+        self.K = max(model.max_queue_capacity, 1)
+        self.warmup = float(model.warmup_s)
+        self.horizon = float(model.horizon_s)
+
+        servers = model.servers
+        self.slot_valid = np.zeros((self.nV, self.C), np.bool_)
+        self.queue_cap = np.zeros((self.nV,), np.int32)
+        self.service_kind = np.zeros((self.nV,), np.int32)
+        self.srv_concurrency = np.ones((self.nV,), np.int32)
+        for v, spec in enumerate(servers):
+            self.slot_valid[v, : spec.concurrency] = True
+            self.queue_cap[v] = spec.queue_capacity
+            self.service_kind[v] = _SERVICE_KIND_IDS[spec.service]
+            self.srv_concurrency[v] = spec.concurrency
+        present = sorted({int(k) for k in self.service_kind[: len(servers)]}) or [1]
+        self.n_svc_draws = max(_SERVICE_DRAWS[k] for k in present)
+
+        self.arrival_is_poisson = np.array(
+            [s.arrival == "poisson" for s in model.sources], np.bool_
+        )
+        self.stop_after = np.array(
+            [
+                s.stop_after_s if s.stop_after_s is not None else np.inf
+                for s in model.sources
+            ],
+            np.float32,
+        )
+        self.lim_cap = np.ones((self.nL,), np.float32)
+
+        # Chain wiring: where the source and each server deliver
+        # (a server index, or -1 for the sink).
+        def hop(ref: NodeRef) -> int:
+            return -1 if ref.kind == SINK else ref.index
+
+        self.src_down = hop(model.sources[0].downstream)
+        self.srv_down = np.array([hop(s.downstream) for s in servers], np.int32)
+        self._assign_uniform_slots()
+
+    # -- uniform-slot layout -------------------------------------------------
+    def _assign_uniform_slots(self) -> None:
+        """Draw slots the topology consumes: the arrival gap (a Poisson
+        source), then two service windows (a delivery arrival and a
+        completion's queue pull can both sample service in one step).
+        An M/M/1 has 3 draws per step."""
+        slot = 0
+        self.U_GAP: Optional[int] = None
+        if self.arrival_is_poisson.any():
+            self.U_GAP = slot
+            slot += 1
+        self.U_SVC1: Optional[int] = None
+        self.U_SVC2: Optional[int] = None
+        if self.model.servers and self.n_svc_draws > 0:
+            self.U_SVC1 = slot
+            slot += self.n_svc_draws
+            self.U_SVC2 = slot
+            slot += self.n_svc_draws
+        self.n_draws = max(slot, 1)
+
+    # -- state -------------------------------------------------------------
+    def init_state(self, keys: torch.Tensor, params: dict) -> dict:
+        """Per-replica state for ``keys`` ``(R, 2)`` uint32: the leaves of
+        the JAX ``init_state``, each with a leading replica axis."""
+        R = keys.shape[0]
+        dev = keys.device
+        nV, C, K, nK, nR, nL = self.nV, self.C, self.K, self.nK, self.nR, self.nL
+        f32, i32 = torch.float32, torch.int32
+        gaps = self._initial_gaps(keys, params)
+        stop = torch.as_tensor(self.stop_after, device=dev)
+        gaps = torch.where(gaps > stop, torch.full_like(gaps, INF), gaps)
+        return {
+            "t": torch.zeros((R,), dtype=f32, device=dev),
+            "key": keys.clone(),
+            "src_next": gaps,
+            "srv_slot_done": torch.full((R, nV, C), INF, dtype=f32, device=dev),
+            "srv_slot_created": torch.zeros((R, nV, C), dtype=f32, device=dev),
+            "srv_q_created": torch.zeros((R, nV, K), dtype=f32, device=dev),
+            "srv_q_enq": torch.zeros((R, nV, K), dtype=f32, device=dev),
+            "srv_q_head": torch.zeros((R, nV), dtype=i32, device=dev),
+            "srv_q_len": torch.zeros((R, nV), dtype=i32, device=dev),
+            "srv_dropped": torch.zeros((R, nV), dtype=i32, device=dev),
+            "srv_outage_dropped": torch.zeros((R, nV), dtype=i32, device=dev),
+            "srv_started": torch.zeros((R, nV), dtype=i32, device=dev),
+            "srv_completed": torch.zeros((R, nV), dtype=i32, device=dev),
+            "srv_timed_out": torch.zeros((R, nV), dtype=i32, device=dev),
+            "srv_retried": torch.zeros((R, nV), dtype=i32, device=dev),
+            "srv_busy_int": torch.zeros((R, nV), dtype=f32, device=dev),
+            "srv_depth_int": torch.zeros((R, nV), dtype=f32, device=dev),
+            "srv_wait_sum": torch.zeros((R, nV), dtype=f32, device=dev),
+            "srv_wait_n": torch.zeros((R, nV), dtype=i32, device=dev),
+            "rr_next": torch.zeros((R, nR), dtype=i32, device=dev),
+            "lim_tokens": torch.as_tensor(self.lim_cap, device=dev).repeat(R, 1),
+            "lim_last": torch.zeros((R, nL), dtype=f32, device=dev),
+            "lim_admitted": torch.zeros((R, nL), dtype=i32, device=dev),
+            "lim_dropped": torch.zeros((R, nL), dtype=i32, device=dev),
+            "sink_count": torch.zeros((R, nK), dtype=i32, device=dev),
+            "sink_sum": torch.zeros((R, nK), dtype=f32, device=dev),
+            "sink_sq": torch.zeros((R, nK), dtype=f32, device=dev),
+            "sink_hist": torch.zeros((R, nK, HIST_BINS), dtype=i32, device=dev),
+            "events": torch.zeros((R,), dtype=i32, device=dev),
+        }
+
+    def _initial_gaps(self, keys: torch.Tensor, params: dict) -> torch.Tensor:
+        u = rng.uniform(keys, (self.nS,), minval=1e-12, maxval=1.0)
+        rate = params["src_rate"]
+        poisson_gap = -torch.log(u) / rate
+        constant_gap = torch.ones_like(rate) / rate
+        poisson = torch.as_tensor(self.arrival_is_poisson, device=rate.device)
+        return torch.where(poisson, poisson_gap, constant_gap)
+
+    # -- sampling ----------------------------------------------------------
+    def _sample_service(self, u, base: Optional[int], v: int, params):
+        """One service draw per lane for server ``v`` from the window at
+        ``base``: the mean (constant) or ``-log(u) * mean`` (exponential)."""
+        mean = params["srv_mean"][:, v]
+        if self.service_kind[v] == 0:
+            return mean
+        return -torch.log(u[:, base]) * mean
+
+    def _sample_gap(self, u, i: int, params):
+        rate = params["src_rate"][:, i]
+        if self.arrival_is_poisson[i]:
+            return -torch.log(u[:, self.U_GAP]) / rate
+        return torch.ones_like(rate) / rate
+
+    # -- job delivery ------------------------------------------------------
+    def _deliver(self, state, desc, lanes, t, created, u, dest: NodeRef, params):
+        """Hand a job leaving a node at ``t`` to ``dest`` across a
+        zero-latency edge (JAX ``_deliver`` / ``_deliver_chosen``)."""
+        if dest.kind == SINK:
+            self._deliver_sink(state, lanes, t, created, dest.index)
+        else:
+            self._arrive_server(state, desc, lanes, dest.index, t, created, u, params)
+
+    def _deliver_sink(self, state, lanes, arrival_t, created, k: int):
+        """Latency accounting at sink ``k``; only arrivals inside
+        [warmup, horizon] are measured."""
+        dev = arrival_t.device
+        measure = (
+            lanes
+            & (arrival_t >= _f32(self.warmup, dev))
+            & (arrival_t <= _f32(self.horizon, dev))
+        )
+        latency = torch.where(measure, arrival_t - created, torch.zeros_like(created))
+        state["sink_count"][:, k] += measure.to(torch.int32)
+        sink_sum = state["sink_sum"][:, k]
+        state["sink_sum"][:, k] = torch.where(measure, sink_sum + latency, sink_sum)
+        sink_sq = state["sink_sq"][:, k]
+        state["sink_sq"][:, k] = torch.where(measure, sink_sq + latency * latency, sink_sq)
+        state["sink_hist"][:, k, :].scatter_add_(
+            1, _hist_bin(latency)[:, None].long(), measure.to(torch.int32)[:, None]
+        )
+
+    def _arrive_server(self, state, desc, lanes, v: int, t, created, u, params):
+        """One job arriving at server ``v``: start in the first free slot,
+        else enqueue at the ring tail, else drop."""
+        dev = t.device
+        done_row = state["srv_slot_done"][:, v, :]
+        valid = torch.as_tensor(self.slot_valid[v], device=dev)
+        free = valid[None, :] & torch.isinf(done_row)
+        has_free = free.any(dim=1)
+        first_free = torch.argmax(free.to(torch.int32), dim=1)
+        service = self._sample_service(u, self.U_SVC1, v, params)
+        q_len = state["srv_q_len"][:, v]
+        has_room = q_len < int(self.queue_cap[v])
+        tail = torch.remainder(state["srv_q_head"][:, v] + q_len, self.K)
+        start = lanes & has_free
+        enq = lanes & ~has_free & has_room
+        drop = lanes & ~has_free & ~has_room
+        measured = start & (t >= _f32(self.warmup, dev))
+
+        desc["pred"] = torch.where(lanes, enq, desc["pred"])
+        desc["v"] = torch.where(lanes, torch.full_like(desc["v"], v), desc["v"])
+        desc["slot"] = torch.where(lanes, tail.long(), desc["slot"])
+        desc["created"] = torch.where(lanes, created, desc["created"])
+        desc["enq"] = torch.where(lanes, t, desc["enq"])
+
+        _set_at(done_row, first_free, start, t + service)
+        _set_at(state["srv_slot_created"][:, v, :], first_free, start, created)
+        state["srv_started"][:, v] += start.to(torch.int32)
+        state["srv_wait_n"][:, v] += measured.to(torch.int32)
+        busy = state["srv_busy_int"][:, v]
+        state["srv_busy_int"][:, v] = torch.where(measured, busy + service, busy)
+        state["srv_q_len"][:, v] += enq.to(torch.int32)
+        state["srv_dropped"][:, v] += drop.to(torch.int32)
+
+    def _read_queue_head(self, state, desc, v: int, head):
+        """The head item's (created, enqueued) times, forwarding a push the
+        same step made at ``head`` (the ring write lands after the step)."""
+        from_push = desc["pred"] & (desc["v"] == v) & (desc["slot"] == head)
+        idx = head.long()[:, None]
+        created = state["srv_q_created"][:, v, :].gather(1, idx)[:, 0]
+        enq = state["srv_q_enq"][:, v, :].gather(1, idx)[:, 0]
+        return (
+            torch.where(from_push, desc["created"], created),
+            torch.where(from_push, desc["enq"], enq),
+        )
+
+    def _apply_qpush(self, state, desc) -> None:
+        """The step's single queue-ring write (at most one per lane)."""
+        R = desc["pred"].shape[0]
+        flat = (desc["v"] * self.K + desc["slot"])[:, None]
+        for key, value in (("srv_q_created", desc["created"]), ("srv_q_enq", desc["enq"])):
+            ring = state[key].view(R, self.nV * self.K)
+            current = ring.gather(1, flat)[:, 0]
+            ring.scatter_(1, flat, torch.where(desc["pred"], value, current)[:, None])
+
+    # -- event branches ----------------------------------------------------
+    def _fire_source(self, i: int, state, desc, lanes, t, u, params):
+        gap = self._sample_gap(u, i, params)
+        next_time = t + gap
+        stopped = next_time > _f32(self.stop_after[i], t.device)
+        src_next = state["src_next"][:, i]
+        fired = torch.where(stopped, torch.full_like(next_time, INF), next_time)
+        state["src_next"][:, i] = torch.where(lanes, fired, src_next)
+        source = self.model.sources[i]
+        self._deliver(state, desc, lanes, t, t, u, source.downstream, params)
+
+    def _complete_server(self, v: int, state, desc, lanes, t, u, params):
+        dev = t.device
+        done_row = state["srv_slot_done"][:, v, :]
+        created_row = state["srv_slot_created"][:, v, :]
+        valid = torch.as_tensor(self.slot_valid[v], device=dev)
+        masked = torch.where(valid[None, :], done_row, torch.full_like(done_row, INF))
+        k = torch.argmin(masked, dim=1)
+        created = created_row.gather(1, k[:, None])[:, 0]
+        _set_at(done_row, k, lanes, torch.full_like(created, INF))
+        state["srv_completed"][:, v] += lanes.to(torch.int32)
+        spec = self.model.servers[v]
+        self._deliver(state, desc, lanes, t, created, u, spec.downstream, params)
+        # Pull the next queued job into the freed slot (FIFO), if the
+        # delivery above did not re-claim the slot.
+        q_len = state["srv_q_len"][:, v]
+        slot_still_free = torch.isinf(done_row.gather(1, k[:, None])[:, 0])
+        has_queued = lanes & (q_len > 0) & slot_still_free
+        head = state["srv_q_head"][:, v]
+        queued_created, queued_enq = self._read_queue_head(state, desc, v, head)
+        service = self._sample_service(u, self.U_SVC2, v, params)
+        measured = has_queued & (t >= _f32(self.warmup, dev))
+        _set_at(done_row, k, has_queued, t + service)
+        _set_at(created_row, k, has_queued, queued_created)
+        state["srv_q_head"][:, v] = torch.where(
+            has_queued, torch.remainder(head + 1, self.K), head
+        )
+        state["srv_q_len"][:, v] -= has_queued.to(torch.int32)
+        state["srv_started"][:, v] += has_queued.to(torch.int32)
+        busy = state["srv_busy_int"][:, v]
+        state["srv_busy_int"][:, v] = torch.where(measured, busy + service, busy)
+        wait_sum = state["srv_wait_sum"][:, v]
+        state["srv_wait_sum"][:, v] = torch.where(
+            measured, wait_sum + (t - queued_enq), wait_sum
+        )
+        state["srv_wait_n"][:, v] += measured.to(torch.int32)
+
+    # -- the step ----------------------------------------------------------
+    def next_candidates(self, state) -> torch.Tensor:
+        """``(R, nS + nV)`` next-event times: each source's next arrival,
+        then each server's earliest completion."""
+        done = state["srv_slot_done"]
+        valid = torch.as_tensor(self.slot_valid, device=done.device)
+        srv_next = torch.amin(torch.where(valid, done, torch.full_like(done, INF)), dim=2)
+        return torch.cat([state["src_next"], srv_next[:, : len(self.model.servers)]], dim=1)
+
+    def replica_halted(self, state) -> torch.Tensor:
+        """True once a replica's next event is past the horizon (or none
+        exists). Halted is absorbing: every further step is a no-op."""
+        t_min = torch.amin(self.next_candidates(state), dim=1)
+        return torch.isinf(t_min) | (t_min > _f32(self.horizon, t_min.device))
+
+    def make_step(self, horizon: Optional[float] = None):
+        """The one-event step ``step(state, params, u)`` over all replicas,
+        with ``u`` the ``(R, n_draws)`` uniform row; it updates ``state``
+        in place. A replica whose next event lies past ``horizon`` (or
+        which has none) is left unchanged."""
+        horizon = self.horizon if horizon is None else float(horizon)
+        nS = self.nS
+
+        def step(state, params, u):
+            dev = u.device
+            candidates = self.next_candidates(state)
+            event_index = torch.argmin(candidates, dim=1)
+            t_next = candidates.gather(1, event_index[:, None])[:, 0]
+            done = torch.isinf(t_next) | (t_next > _f32(horizon, dev))
+            live = ~done
+
+            # process: the depth integral over the measured (post-warmup)
+            # part of the interval, then the clock and the event count.
+            measured_lo = torch.maximum(state["t"], _f32(self.warmup, dev))
+            dt = torch.clamp_min(t_next - measured_lo, 0.0)
+            depth = state["srv_depth_int"]
+            depth.copy_(
+                torch.where(
+                    live[:, None],
+                    depth + state["srv_q_len"].to(torch.float32) * dt[:, None],
+                    depth,
+                )
+            )
+            state["t"].copy_(torch.where(live, t_next, state["t"]))
+            state["events"] += live.to(torch.int32)
+            t = state["t"]
+
+            R = t.shape[0]
+            desc = {
+                "pred": torch.zeros((R,), dtype=torch.bool, device=dev),
+                "v": torch.zeros((R,), dtype=torch.int64, device=dev),
+                "slot": torch.zeros((R,), dtype=torch.int64, device=dev),
+                "created": torch.zeros((R,), dtype=torch.float32, device=dev),
+                "enq": torch.zeros((R,), dtype=torch.float32, device=dev),
+            }
+            for i in range(nS):
+                self._fire_source(i, state, desc, live & (event_index == i), t, u, params)
+            for v in range(len(self.model.servers)):
+                self._complete_server(
+                    v, state, desc, live & (event_index == nS + v), t, u, params
+                )
+            self._apply_qpush(state, desc)
+
+        return step
+
+
+def _set_at(row: torch.Tensor, index: torch.Tensor, lanes: torch.Tensor, value):
+    """``row[r, index[r]] = value[r]`` for the selected lanes, in place
+    (``row`` is an ``(R, n)`` view into a state leaf)."""
+    idx = index.long()[:, None]
+    current = row.gather(1, idx)[:, 0]
+    row.scatter_(1, idx, torch.where(lanes, value, current)[:, None])
+
+
+# ---------------------------------------------------------------------------
+# Public entry
+# ---------------------------------------------------------------------------
+
+
+def _default_max_events(model: EnsembleModel, sweeps) -> int:
+    """Event budget: each job costs a source fire plus one completion per
+    server on the chain; 25% headroom covers Poisson variance."""
+    rates = np.asarray([s.rate for s in model.sources], np.float64)
+    if sweeps and "source_rate" in sweeps:
+        arr = np.asarray(sweeps["source_rate"], np.float64)
+        if arr.ndim == 1:
+            arr = np.tile(arr[:, None], (1, len(model.sources)))
+        rates = np.max(arr, axis=0)
+
+    def jobs(source, rate):
+        window = (
+            min(model.horizon_s, source.stop_after_s)
+            if source.stop_after_s is not None
+            else model.horizon_s
+        )
+        return rate * window
+
+    total_jobs = sum(jobs(s, rates[i]) for i, s in enumerate(model.sources))
+    events_per_job = 1 + len(model.chain_order())
+    return int(1.25 * events_per_job * total_jobs) + 64
+
+
+def _blocks_reduce(blocks: torch.Tensor, n_chunks: int) -> dict:
+    """Macro-block occupancy: a bincount of per-replica blocks run plus a
+    limb-encoded total."""
+    clipped = torch.clamp(blocks, 0, n_chunks).long()
+    hist = torch.bincount(clipped, minlength=n_chunks + 1).to(torch.int32)
+    return {"blocks_hist": hist, "blocks_total": sum_i64_limbs(blocks, axis=0)}
+
+
+def reduce_final(compiled: _Compiled, final: dict) -> dict:
+    """Every cross-replica reduction of a run, on the device."""
+    pending = torch.minimum(
+        torch.amin(final["src_next"], dim=-1),
+        torch.amin(final["srv_slot_done"], dim=(-2, -1)),
+    )
+    horizon = _f32(compiled.horizon, pending.device)
+    reduced = {"truncated": torch.sum((pending < horizon).to(torch.int32))}
+    for key in sorted(_I64_COUNTER_KEYS | _F64_SUM_KEYS):
+        if key == "blocks_total":
+            continue
+        if key in _F64_SUM_KEYS:
+            reduced[key] = sum_f32_fixed(final[key], axis=0)
+        else:
+            reduced[key] = sum_i64_limbs(final[key], axis=0)
+    return reduced
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "run_ensemble runs on a CUDA device and torch finds none; "
+                "pass device='cpu' to run the plain torch-op step on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _resolve_params(model: EnsembleModel, compiled: _Compiled, n_replicas: int, sweeps):
+    """Per-replica ``src_rate`` ``(R, nS)`` and ``srv_mean`` ``(R, nV)``
+    float32 arrays, broadcast from the model or taken from ``sweeps``."""
+    src_rate = np.broadcast_to(
+        np.asarray([s.rate for s in model.sources], np.float32),
+        (n_replicas, compiled.nS),
+    )
+    srv_mean = np.broadcast_to(
+        np.asarray([s.service_mean_s for s in model.servers] or [1.0], np.float32),
+        (n_replicas, compiled.nV),
+    )
+    sweeps = sweeps or {}
+    unknown = set(sweeps) - {"source_rate", "service_mean"}
+    if unknown:
+        raise ValueError(f"unknown sweep parameters {sorted(unknown)}")
+    if "source_rate" in sweeps:
+        arr = np.asarray(sweeps["source_rate"], np.float32)
+        if arr.ndim == 1:
+            arr = np.tile(arr[:, None], (1, compiled.nS))
+        if arr.shape[0] != n_replicas:
+            arr = np.resize(arr, (n_replicas, compiled.nS))
+        src_rate = arr
+    if "service_mean" in sweeps:
+        arr = np.asarray(sweeps["service_mean"], np.float32)
+        if arr.ndim == 1:
+            arr = np.tile(arr[:, None], (1, compiled.nV))
+        if arr.shape[0] != n_replicas:
+            arr = np.resize(arr, (n_replicas, compiled.nV))
+        srv_mean = arr
+    return {
+        "src_rate": np.ascontiguousarray(src_rate, np.float32),
+        "srv_mean": np.ascontiguousarray(srv_mean, np.float32),
+    }
+
+
+def run_ensemble(
+    model: EnsembleModel,
+    n_replicas: int = 8192,
+    seed: int = 0,
+    max_events: Optional[int] = None,
+    sweeps: Optional[dict] = None,
+    device=None,
+) -> EnsembleResult:
+    """Run ``n_replicas`` Monte-Carlo replicas of ``model``.
+
+    ``device=None`` means the CUDA card, and raises when torch finds none;
+    ``device="cpu"`` runs the plain torch-op step instead of the kernel.
+    ``sweeps`` maps ``"source_rate"`` / ``"service_mean"`` to per-replica
+    ``(R,)`` or ``(R, n)`` arrays. ``max_events`` is the per-replica event
+    budget (default: from the arrival rates and the chain length).
+    """
+    device = _resolve_device(device)
+    compiled = _Compiled(model)
+    if n_replicas > MAX_EXACT_REPLICAS:
+        raise ValueError(
+            f"n_replicas={n_replicas} exceeds the exact-reduction bound of "
+            f"{MAX_EXACT_REPLICAS} replicas (reduce.py limb sums wrap past it)"
+        )
+    if max_events is None:
+        max_events = _default_max_events(model, sweeps)
+    macro = macro_block_len(model)
+    n_chunks = -(-int(max_events) // macro)
+    on_card = device.type == "cuda"
+    if on_card:
+        support.check_kernel_bounds(compiled, macro)
+
+    compile_start = _wall.perf_counter()
+    if on_card:
+        event_step.load_library()
+    compile_seconds = _wall.perf_counter() - compile_start
+
+    start = _wall.perf_counter()
+    params = {
+        k: torch.from_numpy(v).to(device)
+        for k, v in _resolve_params(model, compiled, n_replicas, sweeps).items()
+    }
+    keys = rng.split(rng.PRNGKey(seed, device=device), n_replicas)
+    state = compiled.init_state(keys, params)
+    halted = compiled.replica_halted(state)
+    blocks = torch.zeros((n_replicas,), dtype=torch.int32, device=device)
+    for c in range(n_chunks):
+        # One host sync per block: the loop ends once every lane halted.
+        if bool(halted.all()):
+            break
+        # A lane counts a block iff it was live when the block launched.
+        blocks += (~halted).to(torch.int32)
+        U = rng.uniform(
+            rng.fold_in(keys, c), (macro, compiled.n_draws), minval=1e-12, maxval=1.0
+        )
+        halted = event_step.block_step(compiled, state, U, params)
+    reduced = reduce_final(compiled, state)
+    reduced.update(_blocks_reduce(blocks, n_chunks))
+    events_total = int(host_i64(reduced["events"]))
+    wall = _wall.perf_counter() - start
+
+    return _build_result(
+        model,
+        compiled,
+        reduced,
+        events_total,
+        wall,
+        n_replicas,
+        max_events,
+        compile_seconds=compile_seconds,
+        engine_path="scan+cuda" if on_card else "scan",
+        kernel_shape=support.kernel_plan(model)["shape"] if on_card else "",
+        macro_block=macro,
+        max_blocks=n_chunks,
+        device_name=torch.cuda.get_device_name(device) if on_card else "cpu",
+    )
+
+
+def _build_result(
+    model,
+    compiled,
+    reduced,
+    events_total,
+    wall,
+    n_replicas,
+    max_events=None,
+    compile_seconds: float = 0.0,
+    engine_path: str = "scan",
+    kernel_shape: str = "",
+    macro_block: int = 0,
+    max_blocks: int = 0,
+    device_name: str = "",
+) -> EnsembleResult:
+    """Decode the device-reduced totals into an :class:`EnsembleResult`."""
+    horizon = float(model.horizon_s)
+    truncated = int(reduced["truncated"])
+    if truncated:
+        logger.warning(
+            "run_ensemble: %d/%d replicas exhausted the event budget "
+            "(max_events=%s) before the %.3fs horizon; pass a larger max_events.",
+            truncated,
+            n_replicas,
+            max_events,
+            horizon,
+        )
+
+    def _decode(k, v):
+        if k in _I64_COUNTER_KEYS:
+            return host_i64(v)
+        if k in _F64_SUM_KEYS:
+            return host_f64(v)
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    host = {k: _decode(k, v) for k, v in reduced.items()}
+    nV_real = len(model.servers)
+    hist_counts = host.pop("blocks_hist")
+    blocks_total = int(host.pop("blocks_total"))
+    block_occupancy = {int(v): int(c) for v, c in enumerate(hist_counts) if c}
+    sink_count = host["sink_count"].astype(np.int64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sink_mean = np.where(sink_count > 0, host["sink_sum"] / sink_count, 0.0)
+        wait_n = host["srv_wait_n"][:nV_real].astype(np.int64)
+        wait_mean = np.where(wait_n > 0, host["srv_wait_sum"][:nV_real] / wait_n, 0.0)
+    # Integrals are accumulated only over the measured (post-warmup) window.
+    denom = n_replicas * (horizon - compiled.warmup)
+    return EnsembleResult(
+        n_replicas=n_replicas,
+        horizon_s=horizon,
+        simulated_events=events_total,
+        wall_seconds=wall,
+        events_per_second=events_total / wall if wall > 0 else 0.0,
+        sink_count=[int(c) for c in sink_count],
+        sink_mean_latency_s=[float(m) for m in sink_mean],
+        sink_p50_s=[hist_percentile(host["sink_hist"][k], 0.5) for k in range(compiled.nK)],
+        sink_p99_s=[hist_percentile(host["sink_hist"][k], 0.99) for k in range(compiled.nK)],
+        sink_hist=host["sink_hist"],
+        server_completed=[int(c) for c in host["srv_completed"][:nV_real]],
+        server_dropped=[int(d) for d in host["srv_dropped"][:nV_real]],
+        server_outage_dropped=[int(d) for d in host["srv_outage_dropped"][:nV_real]],
+        server_utilization=[
+            float(b) / (denom * model.servers[v].concurrency)
+            for v, b in enumerate(host["srv_busy_int"][:nV_real])
+        ],
+        server_mean_wait_s=[float(w) for w in wait_mean],
+        server_mean_queue_len=[float(d) / denom for d in host["srv_depth_int"][:nV_real]],
+        server_timed_out=[int(x) for x in host["srv_timed_out"][:nV_real]],
+        server_retried=[int(x) for x in host["srv_retried"][:nV_real]],
+        transit_dropped=[0] * nV_real,
+        limiter_admitted=[],
+        limiter_dropped=[],
+        truncated_replicas=truncated,
+        compile_seconds=compile_seconds,
+        engine_path=engine_path,
+        kernel_shape=kernel_shape,
+        macro_block=macro_block,
+        max_blocks=max_blocks,
+        blocks_total=blocks_total,
+        block_occupancy=block_occupancy,
+        padded_replicas=n_replicas,
+        device_name=device_name,
+    )

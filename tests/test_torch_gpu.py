@@ -1,0 +1,115 @@
+"""The CUDA event-step kernel against its plain torch-op version, on the card.
+
+Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
+
+    python -m pytest tests/test_torch_gpu.py -q -m gpu
+
+Whether a card is present is decided inside the ``cuda`` fixture, so
+every worker collects the same tests; without a card they skip.
+Tolerance: none. Kernel and plain version run the same float32 ops in
+the same order on the same card (no multiply-add contraction in either),
+so every leaf must match bit for bit.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from happysim_tpu_torch import rng  # noqa: E402
+from happysim_tpu_torch.engine import _Compiled, _resolve_params, run_ensemble  # noqa: E402
+from happysim_tpu_torch.kernels import event_step  # noqa: E402
+from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the event-step kernel has no CPU build)")
+    return torch.device("cuda")
+
+
+def _mixed_chain():
+    """Constant arrivals with a stop, a constant-service stage with
+    concurrency 3, a small queue that drops, declared out of order."""
+    m = EnsembleModel(horizon_s=30.0, warmup_s=3.0)
+    src = m.source(rate=20.0, kind="constant", stop_after_s=25.0)
+    tail = m.server(service_mean=0.04, queue_capacity=4)
+    head = m.server(concurrency=3, service_mean=0.12, service="constant", queue_capacity=2)
+    snk = m.sink()
+    m.connect(src, head)
+    m.connect(head, tail)
+    m.connect(tail, snk)
+    return m
+
+
+MODELS = {
+    "mm1": lambda: mm1_model(8.0, 10.0, 40.0, warmup_s=10.0),
+    "pipeline": lambda: pipeline_model(8.0, (0.05, 0.08, 0.06), 40.0),
+    "mixed-chain": _mixed_chain,
+    "eight-stage": lambda: pipeline_model(5.0, [0.02 * (i + 1) for i in range(8)], 20.0, queue_capacity=16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_kernel_matches_plain_bit_for_bit(cuda, name):
+    model = MODELS[name]()
+    compiled = _Compiled(model)
+    n = 512
+    params = {
+        k: torch.from_numpy(v).to(cuda)
+        for k, v in _resolve_params(model, compiled, n, None).items()
+    }
+    keys = rng.split(rng.PRNGKey(7, device=cuda), n)
+    kstate = compiled.init_state(keys, params)
+    pstate = {k: v.clone() for k, v in kstate.items()}
+    before = event_step.block_step.launches
+    for block in range(60):
+        U = rng.uniform(rng.fold_in(keys, block), (32, compiled.n_draws), minval=1e-12, maxval=1.0)
+        khalted = event_step.block_step(compiled, kstate, U, params)
+        phalted = event_step.plain_block_step(compiled, pstate, U, params)
+        torch.testing.assert_close(khalted, phalted, rtol=0, atol=0)
+        for leaf in pstate:
+            a, b = kstate[leaf], pstate[leaf]
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"block {block}: {leaf}")
+    assert event_step.block_step.launches - before == 60
+    assert int(kstate["srv_completed"].sum()) > 0
+
+
+def test_kernel_rejects_bad_inputs(cuda):
+    model = mm1_model()
+    compiled = _Compiled(model)
+    params = {
+        k: torch.from_numpy(v).to(cuda)
+        for k, v in _resolve_params(model, compiled, 8, None).items()
+    }
+    keys = rng.split(rng.PRNGKey(0, device=cuda), 8)
+    state = compiled.init_state(keys, params)
+    U = torch.rand((8, 32, compiled.n_draws), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        event_step.block_step(compiled, state, U.double(), params)
+    with pytest.raises(ValueError, match="shape"):
+        event_step.block_step(compiled, state, U[:, :, :2].contiguous(), params)
+    with pytest.raises(ValueError, match="contiguous"):
+        event_step.block_step(compiled, state, U.transpose(0, 1).contiguous().transpose(0, 1), params)
+    with pytest.raises(ValueError, match="cpu"):
+        event_step.block_step(compiled, state, U.cpu(), params)
+
+
+def test_run_ensemble_on_the_card_matches_the_cpu_run(cuda):
+    model = pipeline_model(8.0, (0.05, 0.08, 0.06), 20.0)
+    before = event_step.block_step.launches
+    card = run_ensemble(model, n_replicas=128, seed=5)
+    launches = event_step.block_step.launches - before
+    cpu = run_ensemble(model, n_replicas=128, seed=5, device="cpu")
+    assert card.engine_path == "scan+cuda" and card.kernel_shape == "chain"
+    assert cpu.engine_path == "scan"
+    assert launches == max(card.block_occupancy)
+    for field in ("simulated_events", "sink_count", "server_completed", "blocks_total"):
+        assert getattr(card, field) == getattr(cpu, field), field
+    assert int(card.sink_hist.sum()) == int(cpu.sink_hist.sum())
+    np.testing.assert_allclose(card.server_mean_wait_s, cpu.server_mean_wait_s, rtol=1e-5)

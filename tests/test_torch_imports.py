@@ -1,0 +1,78 @@
+"""The port and chip_smoke.py import neither JAX nor the JAX package, and
+chip_smoke.py fails without a CUDA device.
+
+Each check runs in a fresh interpreter, so nothing this test process has
+imported (JAX included) can hide an import.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import json, sys
+sys.path.insert(0, {repo!r})
+import happysim_tpu_torch
+import happysim_tpu_torch.engine, happysim_tpu_torch.convert, happysim_tpu_torch.rng
+import happysim_tpu_torch.kernels.event_step, happysim_tpu_torch.kernels.support
+import chip_smoke
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+    or m == "happysim_tpu" or m.startswith("happysim_tpu.")
+)
+print(json.dumps(bad))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(repo=str(REPO))],
+        capture_output=True,
+        text=True,
+        cwd=REPO,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Run where torch finds no CUDA device, chip_smoke exits nonzero and
+    prints no result line."""
+    code = (
+        "import runpy, sys, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        f"sys.argv = [{str(REPO / 'chip_smoke.py')!r}]\n"
+        f"runpy.run_path({str(REPO / 'chip_smoke.py')!r}, run_name='__main__')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, timeout=120
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo,
+    the script cannot import the port and exits nonzero."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    proc = subprocess.run(
+        [sys.executable, str(alone)],
+        capture_output=True,
+        text=True,
+        cwd=tmp_path,
+        timeout=120,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
