@@ -27,12 +27,15 @@ this package                       JAX package
 ``convert.py``                     (none: numpy state/params across)
 =================================  =========================================
 
-What runs: single-source, single-sink server chains, ``mm1_model`` up to
-``pipeline_model`` (Poisson or constant arrivals, constant or exponential
-service, any concurrency and queue capacity, zero-latency edges, warmup).
-Every other feature of the JAX package raises ``NotImplementedError``
-naming itself and its ROADMAP item. Entry points run on the CUDA card
-unless the caller passes ``device="cpu"``.
+What runs: single-source, single-sink graphs of servers, routers
+(random, round-robin, weighted, least-outstanding) and token-bucket
+limiters, from ``mm1_model`` and ``pipeline_model`` to load-balancer
+fan-outs, multi-tier DAGs and "done or continue" feedback (Poisson or
+constant arrivals, constant or exponential service, any concurrency and
+queue capacity, zero-latency or latency-carrying edges, warmup). Every
+other feature of the JAX package raises ``NotImplementedError`` naming
+itself and its ROADMAP item. Entry points run on the CUDA card unless
+the caller passes ``device="cpu"``.
 """
 
 from happysim_tpu_torch.engine import EnsembleResult, run_ensemble

@@ -1,12 +1,19 @@
-"""Ensemble engine: thousands of Monte-Carlo replicas of a server chain,
+"""Ensemble engine: thousands of Monte-Carlo replicas of a service graph,
 stepped together (counterpart of ``happysim_tpu/tpu/engine.py``).
 
 Per-replica state is a ``dict[str, Tensor]`` whose leaves carry the names,
 dtypes and shapes of the JAX engine's ``_Compiled.init_state``, with the
 replica axis written out as the leading axis (JAX's ``vmap`` axis). The
 next event of a replica is the argmin over a fixed candidate vector (the
-source's next arrival, each server's earliest completion), exactly as in
-the JAX engine, and one step processes one event per replica.
+source's next arrival, each server's earliest completion, then each
+server's earliest transit arrival when edges carry latency), exactly as
+in the JAX engine, and one step processes one event per replica.
+
+A job leaving a node is delivered by a walk over the static topology:
+through a limiter (admit or drop), through routers (one choice per hop),
+to a sink, a server, or a server's transit slots when the edge carries
+latency. The walk is written out per static target with the replica
+lanes that chose it, which is what JAX's per-lane selects compute.
 
 The hot loop runs in macro-blocks of ``macro`` event steps: the block's
 uniforms are drawn by :mod:`~happysim_tpu_torch.rng` from
@@ -33,7 +40,15 @@ import torch
 
 from happysim_tpu_torch import rng
 from happysim_tpu_torch.kernels import event_step, support
-from happysim_tpu_torch.model import SINK, EnsembleModel, NodeRef
+from happysim_tpu_torch.model import (
+    LIMITER,
+    ROUTER,
+    SERVER,
+    SINK,
+    EdgeLatency,
+    EnsembleModel,
+    NodeRef,
+)
 from happysim_tpu_torch.reduce import (
     MAX_EXACT_REPLICAS,
     host_f64,
@@ -65,6 +80,7 @@ _I64_COUNTER_KEYS = frozenset({
     "srv_completed", "srv_dropped", "srv_outage_dropped", "srv_started",
     "srv_timed_out", "srv_retried", "srv_wait_n",
     "lim_admitted", "lim_dropped",
+    "tr_dropped",
     "blocks_total",
 })
 _F64_SUM_KEYS = frozenset({
@@ -144,7 +160,7 @@ class EnsembleResult:
     # "scan+cuda" when the CUDA event-step kernel ran, "scan" for the
     # plain torch-op step on the CPU
     engine_path: str = "scan"
-    # "mm1" / "chain" on the kernel path, "" off it
+    # "mm1" / "chain" / "router" / "graph" on the kernel path, "" off it
     kernel_shape: str = ""
     # macro-block length, per-run block budget, blocks retired summed over
     # replicas, and the occupancy histogram {blocks_run: n_replicas}
@@ -202,14 +218,18 @@ class _Compiled:
 
     def __init__(self, model: EnsembleModel):
         model.validate()
+        # The port has no engine path besides the kernel's, so a topology
+        # its walk declines raises here, with JAX's reason.
+        self.plan = support.kernel_plan(model)
         self.model = model
         self.nS = len(model.sources)
         self.nV = max(len(model.servers), 1)
         self.nK = len(model.sinks)
-        self.nR = 1  # inert round-robin cursor (routers: ROADMAP A.5)
-        self.nL = 1  # inert limiter columns (limiters: ROADMAP A.5)
+        self.nR = max(len(model.routers), 1)
+        self.nL = max(len(model.limiters), 1)
         self.C = max(model.max_concurrency, 1)
         self.K = max(model.max_queue_capacity, 1)
+        self.TR = model.transit_capacity
         self.warmup = float(model.warmup_s)
         self.horizon = float(model.horizon_s)
 
@@ -236,27 +256,90 @@ class _Compiled:
             ],
             np.float32,
         )
-        self.lim_cap = np.ones((self.nL,), np.float32)
-
-        # Chain wiring: where the source and each server deliver
-        # (a server index, or -1 for the sink).
-        def hop(ref: NodeRef) -> int:
-            return -1 if ref.kind == SINK else ref.index
-
-        self.src_down = hop(model.sources[0].downstream)
-        self.srv_down = np.array([hop(s.downstream) for s in servers], np.int32)
+        self.lim_rate = np.array(
+            [lim.refill_rate for lim in model.limiters] or [1.0], np.float32
+        )
+        self.lim_cap = np.array(
+            [lim.capacity for lim in model.limiters] or [1.0], np.float32
+        )
+        # Whether any edge into a server carries latency (the transit
+        # registers and the transit-arrival branch). A router with any
+        # latency-carrying target edge and any server target parks every
+        # server it chooses, with zero latency behind a free edge.
+        self.has_transit = any(
+            edge.mean_s > 0 and dest is not None and self._reaches_server(dest)
+            for edge, dest in self._edges()
+        ) or any(
+            any(e.mean_s > 0 for e in r.target_latencies)
+            and any(t.kind == SERVER for t in r.targets)
+            for r in model.routers
+        )
+        self.hop_depth = self._router_hop_depth()
         self._assign_uniform_slots()
 
+    def _edges(self):
+        for s in self.model.sources:
+            yield s.latency, s.downstream
+        for v in self.model.servers:
+            yield v.latency, v.downstream
+        for lim in self.model.limiters:
+            yield lim.latency, lim.downstream
+        for r in self.model.routers:
+            yield from zip(r.target_latencies, r.targets)
+
+    def _reaches_server(self, ref: NodeRef) -> bool:
+        if ref.kind == SERVER:
+            return True
+        if ref.kind == ROUTER:
+            return any(t.kind == SERVER for t in self.model.routers[ref.index].targets)
+        if ref.kind == LIMITER:
+            down = self.model.limiters[ref.index].downstream
+            return down is not None and self._reaches_server(down)
+        return False
+
     # -- uniform-slot layout -------------------------------------------------
+    def _router_hop_depth(self) -> int:
+        """Longest chain of DIRECT router->router target edges, plus one:
+        the most router hops a single delivery can take (server arrivals,
+        sinks and transit parks end a delivery). 0 without routers."""
+        memo: dict[int, int] = {}
+
+        def depth(i: int) -> int:
+            if i not in memo:
+                nested = [
+                    depth(t.index)
+                    for t in self.model.routers[i].targets
+                    if t.kind == ROUTER
+                ]
+                memo[i] = 1 + max(nested, default=0)
+            return memo[i]
+
+        return max((depth(i) for i in range(len(self.model.routers))), default=0)
+
+    def _route_slot(self, hop: int) -> int:
+        """The choice-draw slot of a router hop at nesting depth ``hop``
+        (0 = the first router a delivery meets)."""
+        return self.U_ROUTE_HOPS[min(hop, len(self.U_ROUTE_HOPS) - 1)]
+
     def _assign_uniform_slots(self) -> None:
-        """Draw slots the topology consumes: the arrival gap (a Poisson
-        source), then two service windows (a delivery arrival and a
+        """Draw slots the topology consumes, in JAX's order: the arrival
+        gap (a Poisson source), one route draw per router hop (any
+        random or weighted router), the edge latency (any exponential
+        edge), then two service windows (a delivery arrival and a
         completion's queue pull can both sample service in one step).
         An M/M/1 has 3 draws per step."""
         slot = 0
         self.U_GAP: Optional[int] = None
         if self.arrival_is_poisson.any():
             self.U_GAP = slot
+            slot += 1
+        self.U_ROUTE_HOPS: tuple = ()
+        if any(r.policy in ("random", "weighted") for r in self.model.routers):
+            self.U_ROUTE_HOPS = tuple(range(slot, slot + self.hop_depth))
+            slot += self.hop_depth
+        self.U_LAT: Optional[int] = None
+        if any(e.mean_s > 0 and e.kind == "exponential" for e in self.model.iter_edges()):
+            self.U_LAT = slot
             slot += 1
         self.U_SVC1: Optional[int] = None
         self.U_SVC2: Optional[int] = None
@@ -278,7 +361,7 @@ class _Compiled:
         gaps = self._initial_gaps(keys, params)
         stop = torch.as_tensor(self.stop_after, device=dev)
         gaps = torch.where(gaps > stop, torch.full_like(gaps, INF), gaps)
-        return {
+        state = {
             "t": torch.zeros((R,), dtype=f32, device=dev),
             "key": keys.clone(),
             "src_next": gaps,
@@ -309,6 +392,11 @@ class _Compiled:
             "sink_hist": torch.zeros((R, nK, HIST_BINS), dtype=i32, device=dev),
             "events": torch.zeros((R,), dtype=i32, device=dev),
         }
+        if self.has_transit:
+            state["tr_time"] = torch.full((R, nV, self.TR), INF, dtype=f32, device=dev)
+            state["tr_created"] = torch.zeros((R, nV, self.TR), dtype=f32, device=dev)
+            state["tr_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
+        return state
 
     def _initial_gaps(self, keys: torch.Tensor, params: dict) -> torch.Tensor:
         u = rng.uniform(keys, (self.nS,), minval=1e-12, maxval=1.0)
@@ -333,14 +421,118 @@ class _Compiled:
             return -torch.log(u[:, self.U_GAP]) / rate
         return torch.ones_like(rate) / rate
 
+    def _edge_arrival(self, edge: EdgeLatency, t, u):
+        """``t`` plus the edge's latency draw (JAX ``_sample_edge``): a
+        free edge adds nothing, a constant edge its mean, an exponential
+        edge ``-log(u) * mean`` from the U_LAT slot."""
+        if edge.mean_s <= 0:
+            return t
+        mean = _f32(edge.mean_s, t.device)
+        if edge.kind == "exponential":
+            return t + -torch.log(u[:, self.U_LAT]) * mean
+        return t + mean
+
     # -- job delivery ------------------------------------------------------
-    def _deliver(self, state, desc, lanes, t, created, u, dest: NodeRef, params):
-        """Hand a job leaving a node at ``t`` to ``dest`` across a
-        zero-latency edge (JAX ``_deliver`` / ``_deliver_chosen``)."""
-        if dest.kind == SINK:
-            self._deliver_sink(state, lanes, t, created, dest.index)
+    def _deliver(
+        self, state, desc, lanes, t, created, u, dest: NodeRef, edge: EdgeLatency,
+        params, hop: int = 0, park: bool = False,
+    ):
+        """Hand a job leaving a node at ``t`` to ``dest`` across ``edge``
+        (JAX ``_deliver`` / ``_deliver_chosen``). A server behind a
+        latency edge, or behind a router with any latency-carrying target
+        edge (``park``), is reached through its transit slots. ``hop``
+        counts the router hops this delivery has taken."""
+        if dest.kind == LIMITER:
+            self._through_limiter(state, desc, lanes, t, created, u, dest.index, params, hop)
+        elif dest.kind == SINK:
+            self._deliver_sink(state, lanes, self._edge_arrival(edge, t, u), created, dest.index)
+        elif dest.kind == SERVER:
+            if park or edge.mean_s > 0:
+                self._into_transit(
+                    state, lanes, dest.index, self._edge_arrival(edge, t, u), created
+                )
+            else:
+                self._arrive_server(state, desc, lanes, dest.index, t, created, u, params)
         else:
-            self._arrive_server(state, desc, lanes, dest.index, t, created, u, params)
+            self._through_router(state, desc, lanes, t, created, u, dest.index, params, hop)
+
+    def _through_router(self, state, desc, lanes, t, created, u, r: int, params, hop: int):
+        """One router hop: choose a target per lane, advance the
+        round-robin cursor, then deliver each target's lanes. JAX computes
+        every target and selects per lane; delivering each target to the
+        lanes that chose it computes the same thing."""
+        router = self.model.routers[r]
+        choice = self._route_choice(state, u, r, router, hop)
+        if router.policy == "round_robin":
+            state["rr_next"][:, r] += lanes.to(torch.int32)
+        park = any(e.mean_s > 0 for e in router.target_latencies)
+        for i, (target, edge) in enumerate(zip(router.targets, router.target_latencies)):
+            picked = lanes & (choice == i)
+            if target.kind == ROUTER:
+                self._deliver(state, desc, picked, t, created, u, target, edge, params, hop + 1)
+            else:
+                self._deliver(
+                    state, desc, picked, t, created, u, target, edge, params, hop, park=park
+                )
+
+    def _route_choice(self, state, u, r: int, router, hop: int) -> torch.Tensor:
+        """The chosen target index per lane (JAX ``_route_choice``)."""
+        n = len(router.targets)
+        dev = u.device
+        if router.policy == "random":
+            scaled = u[:, self._route_slot(hop)] * n
+            return torch.clamp_max(scaled.to(torch.int32), n - 1)
+        if router.policy == "weighted":
+            # cum is formed in float64 and cast once, as in JAX.
+            weights = np.asarray(router.weights, np.float64)
+            cum = torch.as_tensor(
+                (np.cumsum(weights) / weights.sum()).astype(np.float32), device=dev
+            )
+            draw = u[:, self._route_slot(hop)]
+            return torch.clamp_max((draw[:, None] >= cum[None, :]).sum(dim=1), n - 1)
+        if router.policy == "round_robin":
+            return torch.remainder(state["rr_next"][:, r], n)
+        # least_outstanding: in-service plus queued per target server, read
+        # after a completing slot was freed; argmin keeps the first index.
+        index = [ref.index for ref in router.targets]
+        valid = torch.as_tensor(self.slot_valid[index], device=dev)
+        busy = (torch.isfinite(state["srv_slot_done"][:, index, :]) & valid).sum(dim=2)
+        return torch.argmin(busy + state["srv_q_len"][:, index], dim=1)
+
+    def _through_limiter(self, state, desc, lanes, t, created, u, l: int, params, hop: int):
+        """Token-bucket admission, inline: refill, spend a token or drop.
+        A dropped job changes only the limiter's own leaves."""
+        dev = t.device
+        tokens = state["lim_tokens"][:, l]
+        last = state["lim_last"][:, l]
+        refilled = torch.minimum(
+            tokens + (t - last) * _f32(self.lim_rate[l], dev), _f32(self.lim_cap[l], dev)
+        )
+        admit = refilled >= 1.0
+        state["lim_tokens"][:, l] = torch.where(
+            lanes, torch.where(admit, refilled - 1.0, refilled), tokens
+        )
+        state["lim_last"][:, l] = torch.where(lanes, t, last)
+        state["lim_admitted"][:, l] += (lanes & admit).to(torch.int32)
+        state["lim_dropped"][:, l] += (lanes & ~admit).to(torch.int32)
+        limiter = self.model.limiters[l]
+        self._deliver(
+            state, desc, lanes & admit, t, created, u, limiter.downstream,
+            limiter.latency, params, hop,
+        )
+
+    def _into_transit(self, state, lanes, v: int, arrival_t, created):
+        """Park a job on a latency edge in server ``v``'s first free
+        transit slot until its arrival fires; with none free the job is
+        lost and ``tr_dropped`` counts it."""
+        row = state["tr_time"][:, v, :]
+        free = torch.isinf(row)
+        has_free = free.any(dim=1)
+        first_free = torch.argmax(free.to(torch.int32), dim=1)
+        parked = lanes & has_free
+        _set_at(row, first_free, parked, arrival_t)
+        _set_at(state["tr_created"][:, v, :], first_free, parked, created)
+        state["tr_dropped"][:, v] += (lanes & ~has_free).to(torch.int32)
 
     def _deliver_sink(self, state, lanes, arrival_t, created, k: int):
         """Latency accounting at sink ``k``; only arrivals inside
@@ -424,7 +616,7 @@ class _Compiled:
         fired = torch.where(stopped, torch.full_like(next_time, INF), next_time)
         state["src_next"][:, i] = torch.where(lanes, fired, src_next)
         source = self.model.sources[i]
-        self._deliver(state, desc, lanes, t, t, u, source.downstream, params)
+        self._deliver(state, desc, lanes, t, t, u, source.downstream, source.latency, params)
 
     def _complete_server(self, v: int, state, desc, lanes, t, u, params):
         dev = t.device
@@ -437,9 +629,9 @@ class _Compiled:
         _set_at(done_row, k, lanes, torch.full_like(created, INF))
         state["srv_completed"][:, v] += lanes.to(torch.int32)
         spec = self.model.servers[v]
-        self._deliver(state, desc, lanes, t, created, u, spec.downstream, params)
-        # Pull the next queued job into the freed slot (FIFO), if the
-        # delivery above did not re-claim the slot.
+        self._deliver(state, desc, lanes, t, created, u, spec.downstream, spec.latency, params)
+        # Pull the next queued job into the freed slot (FIFO), unless a
+        # feedback delivery above re-claimed the slot.
         q_len = state["srv_q_len"][:, v]
         slot_still_free = torch.isinf(done_row.gather(1, k[:, None])[:, 0])
         has_queued = lanes & (q_len > 0) & slot_still_free
@@ -462,14 +654,28 @@ class _Compiled:
         )
         state["srv_wait_n"][:, v] += measured.to(torch.int32)
 
+    def _transit_arrive(self, v: int, state, desc, lanes, t, u, params):
+        """A job finished crossing a latency edge: free the first transit
+        slot holding the row's minimum and hand the job to server ``v``."""
+        row = state["tr_time"][:, v, :]
+        k = torch.argmin(row, dim=1)
+        created = state["tr_created"][:, v, :].gather(1, k[:, None])[:, 0]
+        _set_at(row, k, lanes, torch.full_like(created, INF))
+        self._arrive_server(state, desc, lanes, v, t, created, u, params)
+
     # -- the step ----------------------------------------------------------
     def next_candidates(self, state) -> torch.Tensor:
-        """``(R, nS + nV)`` next-event times: each source's next arrival,
-        then each server's earliest completion."""
+        """``(R, nS + nV [+ nV])`` next-event times: each source's next
+        arrival, each server's earliest completion, then (with transit)
+        each server's earliest transit arrival."""
         done = state["srv_slot_done"]
+        nV_real = len(self.model.servers)
         valid = torch.as_tensor(self.slot_valid, device=done.device)
         srv_next = torch.amin(torch.where(valid, done, torch.full_like(done, INF)), dim=2)
-        return torch.cat([state["src_next"], srv_next[:, : len(self.model.servers)]], dim=1)
+        parts = [state["src_next"], srv_next[:, :nV_real]]
+        if self.has_transit:
+            parts.append(torch.amin(state["tr_time"], dim=2)[:, :nV_real])
+        return torch.cat(parts, dim=1)
 
     def replica_halted(self, state) -> torch.Tensor:
         """True once a replica's next event is past the horizon (or none
@@ -519,10 +725,16 @@ class _Compiled:
             }
             for i in range(nS):
                 self._fire_source(i, state, desc, live & (event_index == i), t, u, params)
-            for v in range(len(self.model.servers)):
+            nV_real = len(self.model.servers)
+            for v in range(nV_real):
                 self._complete_server(
                     v, state, desc, live & (event_index == nS + v), t, u, params
                 )
+            if self.has_transit:
+                for v in range(nV_real):
+                    self._transit_arrive(
+                        v, state, desc, live & (event_index == nS + nV_real + v), t, u, params
+                    )
             self._apply_qpush(state, desc)
 
         return step
@@ -541,26 +753,49 @@ def _set_at(row: torch.Tensor, index: torch.Tensor, lanes: torch.Tensor, value):
 # ---------------------------------------------------------------------------
 
 
+def _max_server_chain(model: EnsembleModel) -> int:
+    """Longest server chain a job can traverse (for the event budget)."""
+
+    def depth_from(ref: Optional[NodeRef], seen: frozenset) -> int:
+        if ref is None or ref.kind == SINK:
+            return 0
+        if ref.kind == ROUTER:
+            return max(
+                (depth_from(t, seen) for t in model.routers[ref.index].targets),
+                default=0,
+            )
+        if ref.kind == LIMITER:
+            return depth_from(model.limiters[ref.index].downstream, seen)
+        if ref.index in seen:  # feedback loop: bounded by the budget anyway
+            return 1
+        return 1 + depth_from(model.servers[ref.index].downstream, seen | {ref.index})
+
+    return max((depth_from(s.downstream, frozenset()) for s in model.sources), default=1)
+
+
+def _source_jobs(model: EnsembleModel, source, rate: float) -> float:
+    """Expected emissions for one source over its active window."""
+    window = (
+        min(model.horizon_s, source.stop_after_s)
+        if source.stop_after_s is not None
+        else model.horizon_s
+    )
+    return rate * window
+
+
 def _default_max_events(model: EnsembleModel, sweeps) -> int:
-    """Event budget: each job costs a source fire plus one completion per
-    server on the chain; 25% headroom covers Poisson variance."""
+    """Event budget: each job costs a source fire plus, per server on its
+    path, one completion (and one transit arrival when edges carry
+    latency); 25% headroom covers Poisson variance and queue drain."""
     rates = np.asarray([s.rate for s in model.sources], np.float64)
     if sweeps and "source_rate" in sweeps:
         arr = np.asarray(sweeps["source_rate"], np.float64)
         if arr.ndim == 1:
             arr = np.tile(arr[:, None], (1, len(model.sources)))
         rates = np.max(arr, axis=0)
-
-    def jobs(source, rate):
-        window = (
-            min(model.horizon_s, source.stop_after_s)
-            if source.stop_after_s is not None
-            else model.horizon_s
-        )
-        return rate * window
-
-    total_jobs = sum(jobs(s, rates[i]) for i, s in enumerate(model.sources))
-    events_per_job = 1 + len(model.chain_order())
+    total_jobs = sum(_source_jobs(model, s, rates[i]) for i, s in enumerate(model.sources))
+    hops_per_server = 2 if any(e.mean_s > 0 for e in model.iter_edges()) else 1
+    events_per_job = 1 + hops_per_server * _max_server_chain(model)
     return int(1.25 * events_per_job * total_jobs) + 64
 
 
@@ -574,15 +809,17 @@ def _blocks_reduce(blocks: torch.Tensor, n_chunks: int) -> dict:
 
 def reduce_final(compiled: _Compiled, final: dict) -> dict:
     """Every cross-replica reduction of a run, on the device."""
+    # Pending work before the horizon (a source arrival, an occupied
+    # slot, a parked transit job) marks a replica the budget truncated.
     pending = torch.minimum(
         torch.amin(final["src_next"], dim=-1),
         torch.amin(final["srv_slot_done"], dim=(-2, -1)),
     )
+    if compiled.has_transit:
+        pending = torch.minimum(pending, torch.amin(final["tr_time"], dim=(-2, -1)))
     horizon = _f32(compiled.horizon, pending.device)
     reduced = {"truncated": torch.sum((pending < horizon).to(torch.int32))}
-    for key in sorted(_I64_COUNTER_KEYS | _F64_SUM_KEYS):
-        if key == "blocks_total":
-            continue
+    for key in sorted((_I64_COUNTER_KEYS | _F64_SUM_KEYS) & final.keys()):
         if key in _F64_SUM_KEYS:
             reduced[key] = sum_f32_fixed(final[key], axis=0)
         else:
@@ -650,7 +887,7 @@ def run_ensemble(
     ``device="cpu"`` runs the plain torch-op step instead of the kernel.
     ``sweeps`` maps ``"source_rate"`` / ``"service_mean"`` to per-replica
     ``(R,)`` or ``(R, n)`` arrays. ``max_events`` is the per-replica event
-    budget (default: from the arrival rates and the chain length).
+    budget (default: from the arrival rates and the longest server path).
     """
     device = _resolve_device(device)
     compiled = _Compiled(model)
@@ -706,7 +943,7 @@ def run_ensemble(
         max_events,
         compile_seconds=compile_seconds,
         engine_path="scan+cuda" if on_card else "scan",
-        kernel_shape=support.kernel_plan(model)["shape"] if on_card else "",
+        kernel_shape=compiled.plan["shape"] if on_card else "",
         macro_block=macro,
         max_blocks=n_chunks,
         device_name=torch.cuda.get_device_name(device) if on_card else "cpu",
@@ -750,6 +987,7 @@ def _build_result(
 
     host = {k: _decode(k, v) for k, v in reduced.items()}
     nV_real = len(model.servers)
+    nL_real = len(model.limiters)
     hist_counts = host.pop("blocks_hist")
     blocks_total = int(host.pop("blocks_total"))
     block_occupancy = {int(v): int(c) for v, c in enumerate(hist_counts) if c}
@@ -782,9 +1020,13 @@ def _build_result(
         server_mean_queue_len=[float(d) / denom for d in host["srv_depth_int"][:nV_real]],
         server_timed_out=[int(x) for x in host["srv_timed_out"][:nV_real]],
         server_retried=[int(x) for x in host["srv_retried"][:nV_real]],
-        transit_dropped=[0] * nV_real,
-        limiter_admitted=[],
-        limiter_dropped=[],
+        transit_dropped=(
+            [int(d) for d in host["tr_dropped"][:nV_real]]
+            if compiled.has_transit
+            else [0] * nV_real
+        ),
+        limiter_admitted=[int(x) for x in host["lim_admitted"][:nL_real]],
+        limiter_dropped=[int(x) for x in host["lim_dropped"][:nL_real]],
         truncated_replicas=truncated,
         compile_seconds=compile_seconds,
         engine_path=engine_path,

@@ -1,0 +1,548 @@
+// Event-step kernel: advances every replica of a single-source,
+// single-sink service graph by `macro` event steps in one launch.
+//
+// It replaces the Pallas TPU kernel
+// happysim_tpu/tpu/kernels/event_step.py::build_block_step (its
+// pl.pallas_call), which runs the JAX engine's traced one-event step
+// (_Compiled.make_step(external_u=True)) `macro` times over a
+// VMEM-resident replica tile. That body is a generic jaxpr evaluator, so
+// this file writes out what the step computes, op for op in float32, in
+// the order of the plain torch-op step
+// (kernels/event_step.py::plain_block_step): next_candidates' argmin
+// (first index wins ties), the depth integral, _fire_source,
+// _complete_server with its FIFO queue pull, _arrive_server and
+// _deliver_sink.
+//
+// event_step_kernel<MAXV, GRAPH> has two instantiations per server bound:
+// - GRAPH = false, the "mm1" and "chain" shapes (lines of servers joined
+//   by free edges): a delivery is a server arrival or the sink;
+// - GRAPH = true, the "router" and "graph" shapes and every model with a
+//   limiter or a latency edge: transit arrivals join the candidates, and
+//   a delivery is a bounded walk over the topology tables (limiter
+//   admit/drop, router choice with depth-indexed route draws, edge
+//   latency, then a transit park, a server arrival or the sink). JAX
+//   computes every router branch and selects per lane; the walk runs
+//   only the chosen one, which is the same thing.
+// Everything GRAPH adds sits under `if constexpr`, so the line
+// instantiations compile to the line-only code.
+//
+// Design. One thread per replica. The clock, the source's next arrival,
+// the sink accumulators and, per server, the queue head and length, the
+// earliest completion (and transit arrival) time, the counters and the
+// integrals live in registers for the whole launch (per-server register
+// arrays sized by the MAXV template argument and indexed only with
+// compile-time indices through pick/put). The topology tables are read
+// from the __grid_constant__ argument struct. The (nV, C) slot arrays,
+// the (nV, K) queue rings, the (nV, TR) transit rows, the (nK, 80)
+// histogram and the router/limiter registers are read and written in
+// device memory in the JAX layout, only at the entries an event touches.
+// A lane whose next event lies past the horizon stops early (the halted
+// state is absorbing) and every lane writes its halted flag after its
+// last step, so the host's early-exit test needs no second pass.
+//
+// What bounds it on this card: bytes moved per block. A block reads and
+// writes each replica's dense registers once and reads its uniforms
+// (macro * n_draws floats); the arithmetic is a few dozen float ops per
+// event against 67 TFLOP/s. What this simple design leaves on the table:
+// the per-replica rows are strided, so a warp's accesses to U, the slot
+// arrays, the rings, the transit rows and sink_hist are uncoalesced (one
+// 32-byte sector per lane), and lanes diverge on the event kind and the
+// router branch. A (..., R)-minor layout, or staging a tile of replicas
+// through shared memory, and drawing U in the kernel are later work.
+//
+// Float agreement with the plain version: build with -fmad=false and
+// without --use_fast_math (every torch op is its own kernel, so the
+// plain version never contracts a multiply-add), and use logf/log10f and
+// IEEE division as torch's CUDA ops do.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define HS_MAX_NV 8
+#define HS_MAX_ROUTERS 8
+#define HS_MAX_TARGETS 8
+#define HS_MAX_HOPS 8
+#define HS_MAX_LIMITERS 4
+#define HS_HIST_BINS 80
+#define HS_THREADS 128
+
+// Node kinds in the topology tables.
+#define HS_SINK 0
+#define HS_SERVER 1
+#define HS_ROUTER 2
+#define HS_LIMITER 3
+// Router policies.
+#define HS_RANDOM 0
+#define HS_ROUND_ROBIN 1
+#define HS_WEIGHTED 2
+#define HS_LEAST_OUTSTANDING 3
+// Edge latency kinds.
+#define HS_LAT_NONE 0
+#define HS_LAT_CONSTANT 1
+#define HS_LAT_EXPONENTIAL 2
+
+// A downstream node and the edge that leads to it.
+struct HsRef {
+  int kind;        // HS_SINK / HS_SERVER / HS_ROUTER / HS_LIMITER
+  int index;
+  float lat_mean;  // edge latency mean (s)
+  int lat_kind;    // HS_LAT_*
+};
+
+// Launch arguments. The layout must match kernels/event_step.py::_Args.
+struct EventStepArgs {
+  // state leaves, replica-major, JAX layout
+  float* t;                // (R,)
+  float* src_next;         // (R, 1)
+  int* events;             // (R,)
+  float* slot_done;        // (R, nV, C)
+  float* slot_created;     // (R, nV, C)
+  float* q_created;        // (R, nV, K)
+  float* q_enq;            // (R, nV, K)
+  int* q_head;             // (R, nV)
+  int* q_len;              // (R, nV)
+  int* started;            // (R, nV)
+  int* completed;          // (R, nV)
+  int* dropped;            // (R, nV)
+  int* wait_n;             // (R, nV)
+  float* busy_int;         // (R, nV)
+  float* depth_int;        // (R, nV)
+  float* wait_sum;         // (R, nV)
+  int* sink_count;         // (R, 1)
+  float* sink_sum;         // (R, 1)
+  float* sink_sq;          // (R, 1)
+  int* sink_hist;          // (R, 1, 80)
+  int* rr_next;            // (R, nR)
+  float* lim_tokens;       // (R, nL)
+  float* lim_last;         // (R, nL)
+  int* lim_admitted;       // (R, nL)
+  int* lim_dropped;        // (R, nL)
+  float* tr_time;          // (R, nV, TR), null without transit
+  float* tr_created;       // (R, nV, TR), null without transit
+  int* tr_dropped;         // (R, nV), null without transit
+  uint8_t* halted;         // (R,) out
+  const float* U;          // (R, macro, n_draws)
+  const float* src_rate;   // (R, 1)
+  const float* srv_mean;   // (R, nV)
+  int R, nV, C, K, macro, n_draws;
+  int src_poisson;         // 1: -log(u)/rate gaps, 0: 1/rate
+  int u_gap, u_svc1, u_svc2;  // uniform slots (-1: none)
+  float stop_after, horizon, warmup;
+  int svc_kind[HS_MAX_NV];   // 0 constant, 1 exponential
+  int conc[HS_MAX_NV];       // valid slots per server
+  int qcap[HS_MAX_NV];       // queue capacity per server
+  HsRef src_ref;             // where the source delivers
+  HsRef srv_ref[HS_MAX_NV];  // where each server delivers
+  // GRAPH only
+  int graph;                 // 1: routers, limiters or a latency edge
+  int nR, nL, TR;            // router, limiter and transit-slot counts
+  int u_lat;                 // edge-latency draw slot (-1: none)
+  int n_route_slots;         // route-draw slots, one per router hop depth
+  int max_walk;              // bound on the hops of one delivery
+  int u_route[HS_MAX_HOPS];
+  int rt_policy[HS_MAX_ROUTERS];
+  int rt_n[HS_MAX_ROUTERS];        // targets per router
+  int rt_park[HS_MAX_ROUTERS];     // 1: any target edge carries latency
+  HsRef rt_target[HS_MAX_ROUTERS][HS_MAX_TARGETS];
+  float rt_cum[HS_MAX_ROUTERS][HS_MAX_TARGETS];  // weighted: float32 cumulative weights
+  float lim_rate[HS_MAX_LIMITERS];
+  float lim_cap[HS_MAX_LIMITERS];
+  HsRef lim_ref[HS_MAX_LIMITERS];  // where each limiter delivers
+};
+
+// Register-array access with a run-time index: unrolled selects, so the
+// arrays stay in registers (the JAX step's one-hot _pick / where(row)).
+template <int MAXV, typename T>
+__device__ __forceinline__ T pick(const T (&a)[MAXV], int i) {
+  T out = a[0];
+#pragma unroll
+  for (int v = 1; v < MAXV; ++v)
+    if (v == i) out = a[v];
+  return out;
+}
+
+template <int MAXV, typename T>
+__device__ __forceinline__ void put(T (&a)[MAXV], int i, T x) {
+#pragma unroll
+  for (int v = 0; v < MAXV; ++v)
+    if (v == i) a[v] = x;
+}
+
+// The same for a per-server table in the argument struct.
+template <int MAXV, typename T>
+__device__ __forceinline__ T pick_arg(const T* a, int i) {
+  T out = a[0];
+#pragma unroll
+  for (int v = 1; v < MAXV; ++v)
+    if (v == i) out = a[v];
+  return out;
+}
+
+__device__ __forceinline__ float sample_service(int kind, float mean, float u) {
+  return kind == 0 ? mean : (-logf(u)) * mean;
+}
+
+__device__ __forceinline__ int hist_bin(float latency) {
+  const float logv = log10f(fmaxf(latency, 1e-12f));
+  const float frac = (logv - (-5.0f)) / 8.0f;
+  const int b = (int)(frac * 80.0f);  // truncation toward zero
+  return min(max(b, 0), HS_HIST_BINS - 1);
+}
+
+__device__ __forceinline__ float row_min(const float* row, int n) {
+  float m = INFINITY;
+  for (int c = 0; c < n; ++c) m = fminf(m, row[c]);
+  return m;
+}
+
+// One replica's registers and its rows in device memory.
+template <int MAXV>
+struct Lane {
+  int q_head[MAXV], q_len[MAXV], started[MAXV], completed[MAXV];
+  int dropped[MAXV], wait_n[MAXV];
+  float busy[MAXV], depth[MAXV], wsum[MAXV], mean[MAXV];
+  float smin[MAXV];  // earliest completion per server
+  float tmin[MAXV];  // earliest transit arrival per server (GRAPH)
+  int sk_count;
+  float sk_sum, sk_sq;
+  float *slot_done, *slot_created, *q_created, *q_enq, *tr_time, *tr_created;
+  float *lim_tokens, *lim_last;
+  int *hist, *rr, *lim_admitted, *lim_dropped, *tr_dropped;
+};
+
+// _deliver_sink: only arrivals inside [warmup, horizon] are measured.
+template <int MAXV>
+__device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs& a,
+                                             float arrival, float created) {
+  if (arrival >= a.warmup && arrival <= a.horizon) {
+    const float latency = arrival - created;
+    L.sk_count += 1;
+    L.sk_sum = L.sk_sum + latency;
+    L.sk_sq = L.sk_sq + latency * latency;
+    L.hist[hist_bin(latency)] += 1;
+  }
+}
+
+// _arrive_server: start in the first free slot, else enqueue at the ring
+// tail, else drop.
+template <int MAXV>
+__device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs& a, int w,
+                                              float t, float created, const float* u) {
+  const int C = a.C, K = a.K;
+  const int cw = pick_arg<MAXV>(a.conc, w);
+  float* row = L.slot_done + w * C;
+  int first_free = -1;
+  for (int c = 0; c < cw; ++c)
+    if (isinf(row[c])) { first_free = c; break; }
+  if (first_free >= 0) {
+    const float ua = a.u_svc1 >= 0 ? u[a.u_svc1] : 0.5f;
+    const float service =
+        sample_service(pick_arg<MAXV>(a.svc_kind, w), pick(L.mean, w), ua);
+    const float done_at = t + service;
+    row[first_free] = done_at;
+    L.slot_created[w * C + first_free] = created;
+    put(L.started, w, pick(L.started, w) + 1);
+    if (t >= a.warmup) {
+      put(L.wait_n, w, pick(L.wait_n, w) + 1);
+      put(L.busy, w, pick(L.busy, w) + service);
+    }
+    put(L.smin, w, fminf(pick(L.smin, w), done_at));
+  } else {
+    const int ql = pick(L.q_len, w);
+    if (ql < pick_arg<MAXV>(a.qcap, w)) {
+      const int tail = (pick(L.q_head, w) + ql) % K;
+      L.q_created[w * K + tail] = created;
+      L.q_enq[w * K + tail] = t;
+      put(L.q_len, w, ql + 1);
+    } else {
+      put(L.dropped, w, pick(L.dropped, w) + 1);
+    }
+  }
+}
+
+// t plus the edge's latency draw (_sample_edge): nothing for a free
+// edge, the mean for a constant one, -log(u) * mean for an exponential.
+__device__ __forceinline__ float edge_arrival(const HsRef& e, float t, const float* u,
+                                              int u_lat) {
+  if (e.lat_kind == HS_LAT_NONE) return t;
+  const float lat = e.lat_kind == HS_LAT_EXPONENTIAL ? (-logf(u[u_lat])) * e.lat_mean
+                                                     : e.lat_mean;
+  return t + lat;
+}
+
+// _into_transit: park in the first free transit slot of server w until
+// `arrival`; with none free the job is lost and tr_dropped counts it.
+template <int MAXV>
+__device__ __forceinline__ void into_transit(Lane<MAXV>& L, const EventStepArgs& a, int w,
+                                             float arrival, float created) {
+  float* row = L.tr_time + w * a.TR;
+  for (int c = 0; c < a.TR; ++c) {
+    if (isinf(row[c])) {
+      row[c] = arrival;
+      L.tr_created[w * a.TR + c] = created;
+      put(L.tmin, w, fminf(pick(L.tmin, w), arrival));
+      return;
+    }
+  }
+  L.tr_dropped[w] += 1;
+}
+
+// _route_choice for router `rix` at hop depth `hop`, then _bump_rr.
+template <int MAXV>
+__device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& a, int rix,
+                                            int hop, const float* u) {
+  const int n = a.rt_n[rix];
+  const int policy = a.rt_policy[rix];
+  if (policy == HS_ROUND_ROBIN) {
+    const int next = L.rr[rix];
+    L.rr[rix] = next + 1;
+    return next % n;
+  }
+  if (policy == HS_LEAST_OUTSTANDING) {
+    // In-service plus queued per target, read after a completing slot
+    // was freed; a strict < keeps the first index (argmin).
+    int choice = 0, best = 0;
+    for (int i = 0; i < n; ++i) {
+      const int w = a.rt_target[rix][i].index;
+      const float* row = L.slot_done + w * a.C;
+      int outstanding = pick(L.q_len, w);
+      const int cw = pick_arg<MAXV>(a.conc, w);
+      for (int c = 0; c < cw; ++c) outstanding += isfinite(row[c]) ? 1 : 0;
+      if (i == 0 || outstanding < best) { best = outstanding; choice = i; }
+    }
+    return choice;
+  }
+  const float ur = u[a.u_route[min(hop, a.n_route_slots - 1)]];
+  if (policy == HS_RANDOM) return min((int)(ur * (float)n), n - 1);
+  int count = 0;  // weighted: thresholds at or below the draw
+  for (int i = 0; i < n; ++i) count += ur >= a.rt_cum[rix][i] ? 1 : 0;
+  return min(count, n - 1);
+}
+
+// _deliver: hand a job leaving a node at t across the edge in `dest`.
+// On a line the edge is free and leads to a server or the sink. In a
+// graph it is a bounded walk: a limiter refills and admits or drops; a
+// router chooses and recurses into a router target with hop + 1; the
+// walk ends at a sink, a transit park, or a server arrival.
+template <int MAXV, bool GRAPH>
+__device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, HsRef dest,
+                                        float t, float created, const float* u) {
+  if constexpr (!GRAPH) {
+    if (dest.kind == HS_SINK) {
+      deliver_sink(L, a, t, created);
+    } else {
+      arrive_server(L, a, dest.index, t, created, u);
+    }
+  } else {
+    bool park = false;  // chosen by a router with a latency-carrying target edge
+    int hop = 0;
+    for (int step = 0; step < a.max_walk; ++step) {
+      if (dest.kind == HS_LIMITER) {
+        const int l = dest.index;
+        const float refilled =
+            fminf(L.lim_tokens[l] + (t - L.lim_last[l]) * a.lim_rate[l], a.lim_cap[l]);
+        const bool admit = refilled >= 1.0f;
+        L.lim_tokens[l] = admit ? refilled - 1.0f : refilled;
+        L.lim_last[l] = t;
+        if (!admit) {  // dropped: only the limiter's own registers change
+          L.lim_dropped[l] += 1;
+          return;
+        }
+        L.lim_admitted[l] += 1;
+        dest = a.lim_ref[l];
+        continue;
+      }
+      if (dest.kind == HS_ROUTER) {
+        const int rix = dest.index;
+        dest = a.rt_target[rix][route_choice(L, a, rix, hop, u)];
+        if (dest.kind == HS_ROUTER) {
+          hop += 1;
+          continue;
+        }
+        park = a.rt_park[rix] != 0;
+      }
+      if (dest.kind == HS_SINK) {
+        deliver_sink(L, a, edge_arrival(dest, t, u, a.u_lat), created);
+      } else if (park || dest.lat_kind != HS_LAT_NONE) {
+        into_transit(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat), created);
+      } else {
+        arrive_server(L, a, dest.index, t, created, u);
+      }
+      return;
+    }
+  }
+}
+
+template <int MAXV, bool GRAPH>
+__global__ void __launch_bounds__(HS_THREADS)
+event_step_kernel(const __grid_constant__ EventStepArgs a) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= a.R) return;
+  const int nV = a.nV, C = a.C, K = a.K, TR = a.TR, nd = a.n_draws;
+  const size_t rv = (size_t)r * nV;
+  const float* U = a.U + (size_t)r * a.macro * nd;
+
+  Lane<MAXV> L;
+  L.slot_done = a.slot_done + rv * C;
+  L.slot_created = a.slot_created + rv * C;
+  L.q_created = a.q_created + rv * K;
+  L.q_enq = a.q_enq + rv * K;
+  L.hist = a.sink_hist + (size_t)r * HS_HIST_BINS;
+  bool transit = false;
+  if constexpr (GRAPH) {
+    transit = a.tr_time != nullptr;
+    L.tr_time = transit ? a.tr_time + rv * TR : nullptr;
+    L.tr_created = transit ? a.tr_created + rv * TR : nullptr;
+    L.tr_dropped = transit ? a.tr_dropped + rv : nullptr;
+    L.rr = a.rr_next + (size_t)r * a.nR;
+    L.lim_tokens = a.lim_tokens + (size_t)r * a.nL;
+    L.lim_last = a.lim_last + (size_t)r * a.nL;
+    L.lim_admitted = a.lim_admitted + (size_t)r * a.nL;
+    L.lim_dropped = a.lim_dropped + (size_t)r * a.nL;
+  }
+#pragma unroll
+  for (int v = 0; v < MAXV; ++v) {
+    const bool real = v < nV;
+    L.q_head[v] = real ? a.q_head[rv + v] : 0;
+    L.q_len[v] = real ? a.q_len[rv + v] : 0;
+    L.started[v] = real ? a.started[rv + v] : 0;
+    L.completed[v] = real ? a.completed[rv + v] : 0;
+    L.dropped[v] = real ? a.dropped[rv + v] : 0;
+    L.wait_n[v] = real ? a.wait_n[rv + v] : 0;
+    L.busy[v] = real ? a.busy_int[rv + v] : 0.0f;
+    L.depth[v] = real ? a.depth_int[rv + v] : 0.0f;
+    L.wsum[v] = real ? a.wait_sum[rv + v] : 0.0f;
+    L.mean[v] = real ? a.srv_mean[rv + v] : 0.0f;
+    L.smin[v] = real ? row_min(L.slot_done + v * C, a.conc[v]) : INFINITY;
+    if constexpr (GRAPH)
+      L.tmin[v] = real && transit ? row_min(L.tr_time + v * TR, TR) : INFINITY;
+  }
+  float t = a.t[r];
+  float src_next = a.src_next[r];
+  int events = a.events[r];
+  L.sk_count = a.sink_count[r];
+  L.sk_sum = a.sink_sum[r];
+  L.sk_sq = a.sink_sq[r];
+  const float rate = a.src_rate[r];
+
+  for (int k = 0; k < a.macro; ++k) {
+    // next_candidates: the source, the servers' completions, then (GRAPH)
+    // the servers' transit arrivals; a strict < keeps the first index.
+    float tn = src_next;
+    int ev = -1;
+#pragma unroll
+    for (int v = 0; v < MAXV; ++v)
+      if (L.smin[v] < tn) { tn = L.smin[v]; ev = v; }
+    if constexpr (GRAPH) {
+#pragma unroll
+      for (int v = 0; v < MAXV; ++v)
+        if (L.tmin[v] < tn) { tn = L.tmin[v]; ev = MAXV + v; }
+    }
+    if (isinf(tn) || tn > a.horizon) break;  // halted: every later step is a no-op
+
+    const float* u = U + k * nd;
+    const float lo = fmaxf(t, a.warmup);
+    const float dt = fmaxf(tn - lo, 0.0f);
+#pragma unroll
+    for (int v = 0; v < MAXV; ++v)
+      if (v < nV) L.depth[v] = L.depth[v] + (float)L.q_len[v] * dt;
+    t = tn;
+    events += 1;
+
+    HsRef dest;
+    float created;
+    int from = -1, from_slot = 0;
+    if (ev < 0) {  // _fire_source
+      const float gap = a.src_poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
+      const float next_time = t + gap;
+      src_next = next_time > a.stop_after ? INFINITY : next_time;
+      dest = a.src_ref;
+      created = t;
+    } else if (!GRAPH || ev < MAXV) {  // _complete_server: the first slot holding the earliest time
+      from = ev;
+      const int cv = pick_arg<MAXV>(a.conc, from);
+      float* row = L.slot_done + from * C;
+      float best = INFINITY;
+      for (int c = 0; c < cv; ++c) {
+        const float x = row[c];
+        if (x < best) { best = x; from_slot = c; }
+      }
+      created = L.slot_created[from * C + from_slot];
+      row[from_slot] = INFINITY;
+      put(L.completed, from, pick(L.completed, from) + 1);
+      dest = pick_arg<MAXV>(a.srv_ref, from);
+    } else {  // _transit_arrive: the first slot holding the row's minimum
+      const int v = ev - MAXV;
+      float* trow = L.tr_time + v * TR;
+      float best = INFINITY;
+      int slot = 0;
+      for (int c = 0; c < TR; ++c) {
+        const float x = trow[c];
+        if (x < best) { best = x; slot = c; }
+      }
+      created = L.tr_created[v * TR + slot];
+      trow[slot] = INFINITY;
+      put(L.tmin, v, row_min(trow, TR));
+      dest = HsRef{HS_SERVER, v, 0.0f, HS_LAT_NONE};
+    }
+
+    deliver<MAXV, GRAPH>(L, a, dest, t, created, u);
+
+    if (from >= 0) {
+      // FIFO pull into the freed slot. On a line the delivery went to
+      // another server; in a graph a feedback delivery may have re-claimed
+      // the slot (it takes the first free one, ahead of the queue).
+      const int ql = pick(L.q_len, from);
+      float* row = L.slot_done + from * C;
+      if (ql > 0 && (!GRAPH || isinf(row[from_slot]))) {
+        const int head = pick(L.q_head, from);
+        const float ub = a.u_svc2 >= 0 ? u[a.u_svc2] : 0.5f;
+        const float service =
+            sample_service(pick_arg<MAXV>(a.svc_kind, from), pick(L.mean, from), ub);
+        row[from_slot] = t + service;
+        L.slot_created[from * C + from_slot] = L.q_created[from * K + head];
+        put(L.q_head, from, (head + 1) % K);
+        put(L.q_len, from, ql - 1);
+        put(L.started, from, pick(L.started, from) + 1);
+        if (t >= a.warmup) {
+          put(L.busy, from, pick(L.busy, from) + service);
+          put(L.wsum, from, pick(L.wsum, from) + (t - L.q_enq[from * K + head]));
+          put(L.wait_n, from, pick(L.wait_n, from) + 1);
+        }
+      }
+      put(L.smin, from, row_min(row, pick_arg<MAXV>(a.conc, from)));
+    }
+  }
+
+  float tn = src_next;
+#pragma unroll
+  for (int v = 0; v < MAXV; ++v) {
+    tn = fminf(tn, L.smin[v]);
+    if constexpr (GRAPH) tn = fminf(tn, L.tmin[v]);
+  }
+  a.halted[r] = (isinf(tn) || tn > a.horizon) ? 1 : 0;
+
+  a.t[r] = t;
+  a.src_next[r] = src_next;
+  a.events[r] = events;
+  a.sink_count[r] = L.sk_count;
+  a.sink_sum[r] = L.sk_sum;
+  a.sink_sq[r] = L.sk_sq;
+#pragma unroll
+  for (int v = 0; v < MAXV; ++v) {
+    if (v < nV) {
+      a.q_head[rv + v] = L.q_head[v];
+      a.q_len[rv + v] = L.q_len[v];
+      a.started[rv + v] = L.started[v];
+      a.completed[rv + v] = L.completed[v];
+      a.dropped[rv + v] = L.dropped[v];
+      a.wait_n[rv + v] = L.wait_n[v];
+      a.busy_int[rv + v] = L.busy[v];
+      a.depth_int[rv + v] = L.depth[v];
+      a.wait_sum[rv + v] = L.wsum[v];
+    }
+  }
+}

@@ -7,7 +7,11 @@ whose ``build_block_step`` reaches the Pallas kernel).
 mask. For CUDA tensors it launches the hand-written kernel in
 ``csrc/event_step.cu`` (or raises); for CPU tensors it runs
 :func:`plain_block_step`, the engine's torch-op step applied ``macro``
-times, which is also the kernel's yardstick on the card.
+times, which is also the kernel's yardstick on the card. Lines of
+servers joined by free edges ("mm1", "chain") launch the kernel's line
+instantiation; every model with a router, a limiter or a latency edge
+launches its graph instantiation, which walks the topology tables in its
+arguments.
 
 The kernel is compiled on first use with ``nvcc`` from this package's
 sources into ``build/`` at the repository root, bound through a plain C
@@ -21,13 +25,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from happysim_tpu_torch.kernels import support
+from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "event_step.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "event_step.cu"
+HEADERS = (CSRC / "event_step.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # No --use_fast_math, and no multiply-add contraction: the kernel must
 # round exactly as the plain version's one-op-per-kernel torch step.
@@ -38,6 +47,9 @@ NVCC_FLAGS = (
 )
 
 _MAX_NV = support.KERNEL_MAX_SERVERS
+_MAX_R = support.KERNEL_MAX_ROUTERS
+_MAX_T = support.KERNEL_MAX_TARGETS
+_MAX_L = support.KERNEL_MAX_LIMITERS
 _loaded: dict = {}
 
 # Struct fields holding state-leaf pointers, in EventStepArgs order,
@@ -49,14 +61,30 @@ _LEAF_FIELDS = tuple(
             "q_created", "q_enq", "q_head", "q_len", "started", "completed",
             "dropped", "wait_n", "busy_int", "depth_int", "wait_sum",
             "sink_count", "sink_sum", "sink_sq", "sink_hist",
+            "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
+            "tr_time", "tr_created", "tr_dropped",
         ),
         support.KERNEL_LEAVES,
     )
 )
 
+_KIND_IDS = {SINK: 0, SERVER: 1, ROUTER: 2, LIMITER: 3}
+_POLICY_IDS = {"random": 0, "round_robin": 1, "weighted": 2, "least_outstanding": 3}
+
+
+class _Ref(ctypes.Structure):
+    """Mirror of ``HsRef``: a downstream node and the edge leading to it."""
+
+    _fields_ = [
+        ("kind", ctypes.c_int),
+        ("index", ctypes.c_int),
+        ("lat_mean", ctypes.c_float),
+        ("lat_kind", ctypes.c_int),
+    ]
+
 
 class _Args(ctypes.Structure):
-    """Mirror of ``EventStepArgs`` in csrc/event_step.cu."""
+    """Mirror of ``EventStepArgs`` in csrc/event_step.cuh."""
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name, _ in _LEAF_FIELDS]
@@ -65,13 +93,26 @@ class _Args(ctypes.Structure):
             (name, ctypes.c_int)
             for name in (
                 "R", "nV", "C", "K", "macro", "n_draws",
-                "src_down", "src_poisson", "u_gap", "u_svc1", "u_svc2",
+                "src_poisson", "u_gap", "u_svc1", "u_svc2",
             )
         ]
         + [(name, ctypes.c_float) for name in ("stop_after", "horizon", "warmup")]
+        + [(name, ctypes.c_int * _MAX_NV) for name in ("svc_kind", "conc", "qcap")]
+        + [("src_ref", _Ref), ("srv_ref", _Ref * _MAX_NV)]
         + [
-            (name, ctypes.c_int * _MAX_NV)
-            for name in ("srv_down", "svc_kind", "conc", "qcap")
+            (name, ctypes.c_int)
+            for name in ("graph", "nR", "nL", "TR", "u_lat", "n_route_slots", "max_walk")
+        ]
+        + [
+            ("u_route", ctypes.c_int * support.KERNEL_MAX_HOPS),
+            ("rt_policy", ctypes.c_int * _MAX_R),
+            ("rt_n", ctypes.c_int * _MAX_R),
+            ("rt_park", ctypes.c_int * _MAX_R),
+            ("rt_target", (_Ref * _MAX_T) * _MAX_R),
+            ("rt_cum", (ctypes.c_float * _MAX_T) * _MAX_R),
+            ("lim_rate", ctypes.c_float * _MAX_L),
+            ("lim_cap", ctypes.c_float * _MAX_L),
+            ("lim_ref", _Ref * _MAX_L),
         ]
     )
 
@@ -89,11 +130,12 @@ def _nvcc() -> str:
 
 def build_library() -> tuple[Path, str]:
     """Compile ``csrc/event_step.cu`` into ``build/`` unless a library for
-    this exact source and flag set is already there. Returns the library
+    these exact sources and flag set is already there. Returns the library
     path and the compiler's log (``-Xptxas -v``: registers and spills per
     instantiation; empty when the library was already built)."""
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in (SOURCE, *HEADERS))
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"event_step_{digest}.so"
     if out.exists():
@@ -118,18 +160,157 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.hs_event_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
         lib.hs_event_step.restype = ctypes.c_int
-        lib.hs_event_step_max_servers.argtypes = []
-        lib.hs_event_step_max_servers.restype = ctypes.c_int
+        for probe in ("hs_event_step_max_servers", "hs_event_step_args_size"):
+            getattr(lib, probe).argtypes = []
+            getattr(lib, probe).restype = ctypes.c_int
         if lib.hs_event_step_max_servers() != _MAX_NV:
             raise RuntimeError("event-step library and wrapper disagree on the server bound")
+        if lib.hs_event_step_args_size() != ctypes.sizeof(_Args):
+            raise RuntimeError("event-step library and wrapper disagree on the argument layout")
         _loaded["lib"] = lib
     return _loaded["lib"]
 
 
-def _expected_shapes(compiled, R: int, macro: int) -> dict:
+def _ref(ref, edge) -> _Ref:
+    lat_kind = 0 if edge.mean_s <= 0 else (2 if edge.kind == "exponential" else 1)
+    return _Ref(_KIND_IDS[ref.kind], ref.index, float(np.float32(edge.mean_s)), lat_kind)
+
+
+def _slot(value) -> int:
+    return -1 if value is None else int(value)
+
+
+def _static_args(compiled) -> _Args:
+    """The launch arguments that depend only on the model: sizes, draw
+    slots, per-server constants and the topology tables."""
+    model = compiled.model
+    args = _Args()
+    args.nV, args.C, args.K, args.n_draws = compiled.nV, compiled.C, compiled.K, compiled.n_draws
+    args.src_poisson = int(compiled.arrival_is_poisson[0])
+    args.u_gap, args.u_svc1, args.u_svc2 = (
+        _slot(compiled.U_GAP), _slot(compiled.U_SVC1), _slot(compiled.U_SVC2)
+    )
+    args.stop_after = float(compiled.stop_after[0])
+    args.horizon = compiled.horizon
+    args.warmup = compiled.warmup
+    for v in range(compiled.nV):
+        args.svc_kind[v] = int(compiled.service_kind[v])
+        args.conc[v] = int(compiled.srv_concurrency[v])
+        args.qcap[v] = int(compiled.queue_cap[v])
+    source = model.sources[0]
+    args.src_ref = _ref(source.downstream, source.latency)
+    for v, spec in enumerate(model.servers):
+        args.srv_ref[v] = _ref(spec.downstream, spec.latency)
+    # The line instantiation follows free edges to a server or the sink;
+    # anything else walks the tables below.
+    args.graph = int(
+        bool(model.routers or model.limiters)
+        or any(edge.mean_s > 0 for edge, _dest in compiled._edges())
+    )
+    args.nR, args.nL = compiled.nR, compiled.nL
+    args.TR = compiled.TR if compiled.has_transit else 0
+    args.u_lat = _slot(compiled.U_LAT)
+    args.n_route_slots = len(compiled.U_ROUTE_HOPS)
+    for depth, slot in enumerate(compiled.U_ROUTE_HOPS):
+        args.u_route[depth] = slot
+    # At most one limiter (limiters never chain) and hop_depth routers
+    # per delivery, then its end.
+    args.max_walk = len(model.limiters) + compiled.hop_depth + 1
+    for r, router in enumerate(model.routers):
+        args.rt_policy[r] = _POLICY_IDS[router.policy]
+        args.rt_n[r] = len(router.targets)
+        args.rt_park[r] = int(any(e.mean_s > 0 for e in router.target_latencies))
+        for i, (target, edge) in enumerate(zip(router.targets, router.target_latencies)):
+            args.rt_target[r][i] = _ref(target, edge)
+        if router.policy == "weighted":
+            # Formed in float64 and cast once, as the JAX engine does.
+            weights = np.asarray(router.weights, np.float64)
+            cum = (np.cumsum(weights) / weights.sum()).astype(np.float32)
+            for i, value in enumerate(cum):
+                args.rt_cum[r][i] = float(value)
+    for l, limiter in enumerate(model.limiters):
+        args.lim_rate[l] = float(compiled.lim_rate[l])
+        args.lim_cap[l] = float(compiled.lim_cap[l])
+        args.lim_ref[l] = _ref(limiter.downstream, limiter.latency)
+    return args
+
+
+class _Checked:
+    """A compiled model's last checked launch layout: the replica count,
+    block length and device it was checked for, weak references to the
+    state and parameter tensors it was checked on, and the argument
+    struct holding their pointers."""
+
+    __slots__ = ("key", "refs", "args")
+
+    def __init__(self, key: tuple, bound: list, args: _Args):
+        self.key = key
+        self.refs = tuple(None if x is None else weakref.ref(x) for x in bound)
+        self.args = args
+
+    def holds(self, key: tuple, bound: list) -> bool:
+        return key == self.key and all(
+            x is None if ref is None else ref() is x for ref, x in zip(self.refs, bound)
+        )
+
+
+# compiled model -> [its static argument struct, its last _Checked or None]
+_LAYOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _bound_tensors(state: dict, params: dict) -> list:
+    """The tensors the struct points at besides U and halted, in field
+    order (None for a leaf the model has not got)."""
+    return [state.get(leaf) for _field, leaf in _LEAF_FIELDS] + [
+        params.get("src_rate"),
+        params.get("srv_mean"),
+    ]
+
+
+def launch_args(compiled, state: dict, U: torch.Tensor, params: dict, halted: torch.Tensor) -> _Args:
+    """The kernel's argument struct for one launch, after checking the
+    device, dtype, shape and contiguity of every tensor it points at, and
+    the launch bounds; raises on any mismatch. The state and parameter
+    tensors are checked once: a call with the very same tensor objects,
+    replica count, block length and device as the last checked call
+    reuses that call's pointers, and only ``U`` is checked again."""
+    device = state["t"].device
+    R, macro = U.shape[0], U.shape[1]
+    layout = _LAYOUTS.get(compiled)
+    if layout is None:
+        layout = _LAYOUTS[compiled] = [_static_args(compiled), None]
+    key = (R, macro, device)
+    bound = _bound_tensors(state, params)
+    checked = layout[1]
+    if checked is None or not checked.holds(key, bound):
+        support.check_kernel_bounds(compiled, macro)
+        if compiled.nS != 1 or compiled.nK != 1:
+            raise ValueError("event-step kernel: one source and one sink only")
+        tensors = {**state, **params}
+        expected = _expected_shapes(compiled, R)
+        for name, shape in expected.items():
+            if name not in tensors:
+                raise ValueError(f"event-step kernel: {name} is missing")
+            _check(name, tensors[name], shape, device)
+        args = _Args.from_buffer_copy(layout[0])
+        for (field, leaf), x in zip(_LEAF_FIELDS, bound):
+            if leaf in expected:
+                setattr(args, field, x.data_ptr())
+        args.src_rate = params["src_rate"].data_ptr()
+        args.srv_mean = params["srv_mean"].data_ptr()
+        args.R, args.macro = R, macro
+        checked = layout[1] = _Checked(key, bound, args)
+    _check("U", U, (R, macro, compiled.n_draws), device)
+    args = _Args.from_buffer_copy(checked.args)
+    args.U = U.data_ptr()
+    args.halted = halted.data_ptr()
+    return args
+
+
+def _expected_shapes(compiled, R: int) -> dict:
     nS, nV, C, K, nK = compiled.nS, compiled.nV, compiled.C, compiled.K, compiled.nK
     per_server = (R, nV)
-    return {
+    shapes = {
         "t": (R,), "src_next": (R, nS), "events": (R,),
         "srv_slot_done": (R, nV, C), "srv_slot_created": (R, nV, C),
         "srv_q_created": (R, nV, K), "srv_q_enq": (R, nV, K),
@@ -140,14 +321,23 @@ def _expected_shapes(compiled, R: int, macro: int) -> dict:
         "srv_wait_sum": per_server,
         "sink_count": (R, nK), "sink_sum": (R, nK), "sink_sq": (R, nK),
         "sink_hist": (R, nK, 80),
-        "U": (R, macro, compiled.n_draws),
+        "rr_next": (R, compiled.nR),
+        "lim_tokens": (R, compiled.nL), "lim_last": (R, compiled.nL),
+        "lim_admitted": (R, compiled.nL), "lim_dropped": (R, compiled.nL),
         "src_rate": (R, nS), "srv_mean": (R, nV),
     }
+    if compiled.has_transit:
+        shapes.update({
+            "tr_time": (R, nV, compiled.TR), "tr_created": (R, nV, compiled.TR),
+            "tr_dropped": per_server,
+        })
+    return shapes
 
 
 _INT_LEAVES = frozenset({
     "events", "srv_q_head", "srv_q_len", "srv_started", "srv_completed",
     "srv_dropped", "srv_wait_n", "sink_count", "sink_hist",
+    "rr_next", "lim_admitted", "lim_dropped", "tr_dropped",
 })
 
 
@@ -181,55 +371,30 @@ def block_step(compiled, state: dict, U: torch.Tensor, params: dict) -> torch.Te
 
     ``U`` is the block's ``(R, macro, n_draws)`` float32 uniforms. CPU
     tensors run :func:`plain_block_step`; CUDA tensors launch the kernel
-    on torch's current stream, after checking device, dtype, shape and
-    contiguity, and raise on any mismatch or launch error.
+    on torch's current stream, after the checks of :func:`launch_args`,
+    and raise on any mismatch or launch error.
     """
     device = state["t"].device
     if device.type == "cpu":
         return plain_block_step(compiled, state, U, params)
     if device.type != "cuda":
         raise ValueError(f"event-step kernel: unsupported device {device}")
-    R, macro = U.shape[0], U.shape[1]
-    support.check_kernel_bounds(compiled, macro)
-    if compiled.nS != 1 or compiled.nK != 1:
-        raise ValueError("event-step kernel: one source and one sink only")
-    shapes = _expected_shapes(compiled, R, macro)
-    tensors = {**{leaf: state[leaf] for _, leaf in _LEAF_FIELDS}, "U": U, **params}
-    for name, shape in shapes.items():
-        _check(name, tensors[name], shape, device)
+    halted = torch.empty((U.shape[0],), dtype=torch.uint8, device=device)
+    launch(launch_args(compiled, state, U, params, halted), device)
+    return halted.view(torch.bool)
 
+
+def launch(args: _Args, device) -> None:
+    """Launch the kernel with ready arguments (:func:`launch_args`) on
+    torch's current stream of ``device``; raise on a launch error. Every
+    launch adds one to ``block_step.launches``."""
     lib = load_library()
-    halted = torch.empty((R,), dtype=torch.uint8, device=device)
-    args = _Args()
-    for field, leaf in _LEAF_FIELDS:
-        setattr(args, field, state[leaf].data_ptr())
-    args.halted = halted.data_ptr()
-    args.U = U.data_ptr()
-    args.src_rate = params["src_rate"].data_ptr()
-    args.srv_mean = params["srv_mean"].data_ptr()
-    args.R, args.nV, args.C, args.K = R, compiled.nV, compiled.C, compiled.K
-    args.macro, args.n_draws = macro, compiled.n_draws
-    args.src_down = compiled.src_down
-    args.src_poisson = int(compiled.arrival_is_poisson[0])
-    slot = lambda s: -1 if s is None else int(s)  # noqa: E731
-    args.u_gap, args.u_svc1, args.u_svc2 = (
-        slot(compiled.U_GAP), slot(compiled.U_SVC1), slot(compiled.U_SVC2)
-    )
-    args.stop_after = float(compiled.stop_after[0])
-    args.horizon = compiled.horizon
-    args.warmup = compiled.warmup
-    for v in range(compiled.nV):
-        args.srv_down[v] = int(compiled.srv_down[v])
-        args.svc_kind[v] = int(compiled.service_kind[v])
-        args.conc[v] = int(compiled.srv_concurrency[v])
-        args.qcap[v] = int(compiled.queue_cap[v])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.hs_event_step(ctypes.byref(args), stream)
     if rc != 0:
         raise RuntimeError(f"event-step kernel launch failed: cudaError {rc}")
     block_step.launches += 1
-    return halted.view(torch.bool)
 
 
 #: Kernel launches since the count was last set to 0.

@@ -2,64 +2,240 @@
 (counterpart of ``happysim_tpu/tpu/kernels/support.py`` and of the sizing
 helpers in ``happysim_tpu/tpu/kernels/event_step.py``).
 
+:func:`kernel_plan` is the JAX package's topology walk: it approves any
+single-source, single-sink graph of servers, routers and limiters that
+reaches the sink and touches every node, and names its shape ("mm1",
+"chain", "router" or "graph") exactly as JAX's ``kernel_plan`` does. A
+model it declines raises :class:`NotImplementedError` with JAX's reason:
+the port has no second engine path to run it on.
+
 The JAX package sizes a replica tile against a VMEM budget. On the card
 one thread runs one replica: the kernel keeps each server's small
-registers (queue head and length, earliest completion, counters and
-integrals) in per-thread register arrays sized at compile time, and
-leaves the slot arrays, queue rings and histogram in device memory in
-the JAX layout. The budget is therefore a set of launch bounds, checked
-here before every launch, plus the device memory the state occupies.
+registers (queue head and length, earliest completion and transit
+arrival, counters and integrals) in per-thread register arrays sized at
+compile time, reads the topology tables from its launch arguments, and
+leaves the slot arrays, queue rings, transit rows, histogram and the
+router/limiter registers in device memory in the JAX layout. The budget
+is therefore a set of launch bounds, checked here before every launch,
+plus the device memory the state occupies.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
-from happysim_tpu_torch.model import EnsembleModel
+from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK, EnsembleModel
 
-#: Servers per chain: the kernel's per-server register arrays are
+#: Servers per model: the kernel's per-server register arrays are
 #: instantiated for 1, 2, 4 and 8 servers (kernels/csrc/event_step.cu).
 KERNEL_MAX_SERVERS = 8
 #: Slots per server (a loop over device memory at each event).
 KERNEL_MAX_CONCURRENCY = 1024
 #: Queue-ring length.
 KERNEL_MAX_QUEUE = 1 << 20
-#: Uniform draws per step (3 for an exponential-service chain).
-KERNEL_MAX_DRAWS = 8
+#: Uniform draws per step (3 for an exponential-service chain; a router
+#: model adds one per router hop and one for exponential edges).
+KERNEL_MAX_DRAWS = 16
 #: Event steps per launch.
 KERNEL_MAX_MACRO = 4096
+#: Router tables in the launch arguments: routers, targets per router,
+#: and route-draw slots (the router hop depth).
+KERNEL_MAX_ROUTERS = 8
+KERNEL_MAX_TARGETS = 8
+KERNEL_MAX_HOPS = 8
+#: Limiter tables in the launch arguments.
+KERNEL_MAX_LIMITERS = 4
+#: In-flight transit slots per server (a loop over device memory at each
+#: park and transit arrival).
+KERNEL_MAX_TRANSIT = 4096
 
 #: Leaves the kernel reads and writes; the other state leaves (the key and
-#: the inert brownout/deadline/router/limiter columns) are not touched.
+#: the inert brownout/deadline columns) are not touched. The transit
+#: leaves exist only when the model has latency edges into servers.
 KERNEL_LEAVES = (
     "t", "src_next", "events",
     "srv_slot_done", "srv_slot_created", "srv_q_created", "srv_q_enq",
     "srv_q_head", "srv_q_len", "srv_started", "srv_completed",
     "srv_dropped", "srv_wait_n", "srv_busy_int", "srv_depth_int",
     "srv_wait_sum", "sink_count", "sink_sum", "sink_sq", "sink_hist",
+    "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
+    "tr_time", "tr_created", "tr_dropped",
 )
 #: Leaves whose entries a block touches only at events (ring pushes and
-#: pulls, histogram bumps): left out of the bytes bound, which keeps it a
-#: lower bound.
-SPARSE_LEAVES = ("srv_q_created", "srv_q_enq", "sink_hist")
+#: pulls, transit parks and arrivals, histogram bumps, router and limiter
+#: registers): left out of the bytes bound, which keeps it a lower bound.
+SPARSE_LEAVES = (
+    "srv_q_created", "srv_q_enq", "sink_hist",
+    "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
+    "tr_time", "tr_created", "tr_dropped",
+)
+
+#: Router policies the kernel runs: all four.
+KERNEL_ROUTER_POLICIES = (
+    "random",
+    "round_robin",
+    "weighted",
+    "least_outstanding",
+)
 
 
 def kernel_plan(model: EnsembleModel) -> dict:
-    """``{"shape": "mm1" | "chain", "servers": [...]}``: the chain the
-    kernel runs, servers in the order a job visits them. Models outside
-    the chain shape raise in ``model.validate()``."""
-    servers = model.chain_order()
-    return {"shape": "mm1" if len(servers) == 1 else "chain", "servers": servers}
+    """The kernel's plan: ``{"shape": "mm1" | "chain", "servers": [...]}``
+    for router-free lines (servers in the order a job visits them),
+    ``{"shape": "router", "servers": [...], "policy": ...}`` for the pure
+    load-balancer fan-out (servers in target order), and
+    ``{"shape": "graph", "servers", "routers", "policies"}`` (BFS order)
+    for every other graph the walk approves. JAX's plan dict without its
+    ``"chaos"`` key. Raises NotImplementedError with every decline
+    reason, first reason first."""
+    reasons: list[str] = []
+    if len(model.sources) != 1:
+        reasons.append(f"{len(model.sources)} sources (kernel supports 1)")
+    if len(model.sinks) != 1:
+        reasons.append(f"{len(model.sinks)} sinks (kernel supports 1)")
+    plan: Optional[dict] = None
+    if len(model.sources) == 1:
+        plan = _graph_plan(model, reasons)
+    if reasons or plan is None:
+        raise NotImplementedError(
+            "; ".join(dict.fromkeys(reasons or ["unsupported topology"]))
+            + " — the port runs one walked source->sink graph (ROADMAP A.5b)"
+        )
+    return plan
+
+
+def _follow_limiters(model: EnsembleModel, ref, visited: list[int], reasons: list[str]):
+    """Resolve a downstream ref through any token-bucket limiters
+    (transparent admission hops), recording each limiter visited."""
+    walk: set[int] = set()
+    while ref is not None and ref.kind == LIMITER:
+        if ref.index in walk:  # unreachable via connect(), which forbids
+            # limiter->limiter edges — guards hand-mutated specs.
+            reasons.append(f"limiter[{ref.index}] is on a feedback loop")
+            return None
+        walk.add(ref.index)
+        if ref.index not in visited:
+            visited.append(ref.index)
+        ref = model.limiters[ref.index].downstream
+    return ref
+
+
+def _limiters_outside(model: EnsembleModel, visited: list[int], reasons: list[str]) -> None:
+    for index in range(len(model.limiters)):
+        if index not in visited:
+            reasons.append(f"limiter[{index}] is outside the source->sink path")
+
+
+def _graph_plan(model: EnsembleModel, reasons: list[str]) -> Optional[dict]:
+    """BFS from the single source across every node a job can reach;
+    appends a reason for every structural decline and returns the plan
+    only when it added none."""
+    before = len(reasons)
+    limiters: list[int] = []
+    seen_servers: list[int] = []
+    seen_routers: list[int] = []
+    reached_sink = False
+    visited: set[tuple[str, int]] = set()
+    queue = [model.sources[0].downstream]
+    while queue:
+        ref = _follow_limiters(model, queue.pop(0), limiters, reasons)
+        if ref is None:
+            continue
+        if (ref.kind, ref.index) in visited:
+            continue
+        visited.add((ref.kind, ref.index))
+        if ref.kind == SINK:
+            reached_sink = True
+        elif ref.kind == SERVER:
+            seen_servers.append(ref.index)
+            queue.append(model.servers[ref.index].downstream)
+        elif ref.kind == ROUTER:
+            seen_routers.append(ref.index)
+            router = model.routers[ref.index]
+            if router.policy not in KERNEL_ROUTER_POLICIES:
+                reasons.append(
+                    f"router[{ref.index}] policy {router.policy!r} is "
+                    "outside the kernel set " + "/".join(KERNEL_ROUTER_POLICIES)
+                )
+            queue.extend(router.targets)
+    if len(reasons) == before and not reached_sink:
+        reasons.append("no path from the source reaches the sink")
+    # Membership checks only when the walk itself succeeded (a broken
+    # walk reaches fewer nodes by definition).
+    if len(reasons) == before:
+        orphans = [i for i in range(len(model.servers)) if i not in seen_servers]
+        if orphans:
+            reasons.append(
+                "servers outside the source->sink graph: "
+                + ", ".join(f"server[{i}]" for i in orphans)
+            )
+        for i in range(len(model.routers)):
+            if i not in seen_routers:
+                reasons.append(f"router[{i}] is outside the source->sink graph")
+        _limiters_outside(model, limiters, reasons)
+    if len(reasons) > before:
+        return None
+    if not seen_routers:
+        # BFS order is chain order on a router-free line.
+        shape = "mm1" if len(seen_servers) == 1 else "chain"
+        return {"shape": shape, "servers": seen_servers}
+    pure = _pure_fanout_plan(model)
+    if pure is not None:
+        return pure
+    return {
+        "shape": "graph",
+        "servers": seen_servers,
+        "routers": seen_routers,
+        "policies": tuple(model.routers[i].policy for i in seen_routers),
+    }
+
+
+def _pure_fanout_plan(model: EnsembleModel) -> Optional[dict]:
+    """The classic load-balancer shape: 1 source -> (limiter?) -> the ONE
+    router -> N distinct servers (every declared server) -> (limiter?) ->
+    the sink. Returns the ``"router"`` plan (servers in target order) or
+    None for anything richer."""
+    if len(model.routers) != 1:
+        return None
+    router = model.routers[0]
+    if any(t.kind != SERVER for t in router.targets):
+        return None
+    servers = [t.index for t in router.targets]
+    if len(set(servers)) != len(servers):
+        return None
+    if set(servers) != set(range(len(model.servers))):
+        return None
+    scratch: list[str] = []
+    fed = _follow_limiters(model, model.sources[0].downstream, [], scratch)
+    if fed is None or fed.kind != ROUTER:
+        return None
+    for index in servers:
+        down = _follow_limiters(model, model.servers[index].downstream, [], scratch)
+        if down is None or down.kind != SINK:
+            return None
+    return {"shape": "router", "servers": servers, "policy": router.policy}
 
 
 def check_kernel_bounds(compiled, macro: int) -> None:
     """Raise ``ValueError`` naming the bound a launch would break."""
+    model = compiled.model
     bounds = (
         ("servers", compiled.nV, KERNEL_MAX_SERVERS),
         ("concurrency", compiled.C, KERNEL_MAX_CONCURRENCY),
         ("queue_capacity", compiled.K, KERNEL_MAX_QUEUE),
         ("uniform draws per step", compiled.n_draws, KERNEL_MAX_DRAWS),
         ("macro_block", macro, KERNEL_MAX_MACRO),
+        ("routers", len(model.routers), KERNEL_MAX_ROUTERS),
+        (
+            "targets per router",
+            max((len(r.targets) for r in model.routers), default=0),
+            KERNEL_MAX_TARGETS,
+        ),
+        ("router hop depth", compiled.hop_depth, KERNEL_MAX_HOPS),
+        ("limiters", len(model.limiters), KERNEL_MAX_LIMITERS),
+        ("transit_capacity", compiled.TR if compiled.has_transit else 0, KERNEL_MAX_TRANSIT),
     )
     for name, value, bound in bounds:
         if value > bound:
@@ -81,8 +257,12 @@ def replica_working_set_bytes(compiled, macro: int, state: dict) -> int:
     """Bytes one replica must move in one macro-block on the kernel path:
     every dense kernel leaf read once and written once, the block's
     uniform rows and the parameter rows read once. ``state`` is an
-    ``(R, ...)`` state dict; ring and histogram traffic is left out."""
-    dense = [state[name][0] for name in KERNEL_LEAVES if name not in SPARSE_LEAVES]
+    ``(R, ...)`` state dict; the sparse leaves' traffic is left out."""
+    dense = [
+        state[name][0]
+        for name in KERNEL_LEAVES
+        if name not in SPARSE_LEAVES and name in state
+    ]
     return (
         2 * replica_tile_bytes(dense)
         + macro * compiled.n_draws * 4

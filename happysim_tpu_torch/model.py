@@ -1,21 +1,29 @@
-"""Model specs for the ensemble engine (own copy of the builder subset of
+"""Model specs for the ensemble engine (own copy of the model-API subset of
 ``happysim_tpu/tpu/model.py``).
 
 Build a model exactly as with the JAX package::
 
     m = EnsembleModel(horizon_s=60.0, warmup_s=10.0)
     src = m.source(rate=8.0, kind="poisson")
-    srv = m.server(concurrency=1, service_mean=0.1, queue_capacity=64)
+    lb = m.router(policy="round_robin")
     snk = m.sink()
-    m.connect(src, srv)
-    m.connect(srv, snk)
+    m.connect(src, lb)
+    for _ in range(4):
+        srv = m.server(concurrency=1, service_mean=0.1, queue_capacity=64)
+        m.connect(lb, srv, latency_s=0.005)
+        m.connect(srv, snk)
 
-The port runs single-source, single-sink server chains: Poisson or
-constant sources (with ``stop_after_s``), servers of any concurrency and
-queue capacity with constant or exponential service, zero-latency edges,
-``warmup_s`` and ``macro_block``. Every other feature of the JAX builder
-raises :class:`NotImplementedError` naming itself and the ROADMAP item
-that ports it; the port has no second engine to fall back to.
+The port runs any single-source, single-sink graph of servers, routers
+(``random``, ``round_robin``, ``weighted``, ``least_outstanding``) and
+token-bucket limiters: Poisson or constant sources (with
+``stop_after_s``), servers of any concurrency and queue capacity with
+constant or exponential service, zero-latency or latency-carrying edges
+(constant or exponential, parked in ``transit_capacity`` in-flight slots
+per server), multi-tier router DAGs, shared backends and "done or
+continue" feedback through a server, ``warmup_s`` and ``macro_block``.
+Every other feature of the JAX model API raises
+:class:`NotImplementedError` naming itself and the ROADMAP item that
+ports it; the port has no second engine to fall back to.
 """
 
 from __future__ import annotations
@@ -26,20 +34,22 @@ from typing import Optional, Sequence
 SOURCE = "source"
 SERVER = "server"
 SINK = "sink"
+ROUTER = "router"
+LIMITER = "limiter"
 
 ARRIVAL_KINDS = ("poisson", "constant")
 #: Service families the port runs (JAX kind ids 0 and 1).
 SERVICE_KINDS = ("constant", "exponential")
 #: Service families of the JAX package that are not ported yet.
 UNPORTED_SERVICE_KINDS = ("erlang", "hyperexp", "lognormal", "pareto")
+ROUTER_POLICIES = ("random", "round_robin", "least_outstanding", "weighted")
+LATENCY_KINDS = ("constant", "exponential")
 
 # Builder features of the JAX package outside this port, each with the
 # ROADMAP item that ports it. Reaching one raises NotImplementedError.
 _UNPORTED = {
-    "router": "routers (ROADMAP A.5)",
-    "limiter": "token-bucket limiters (ROADMAP A.5)",
-    "ramp_source": "rate profiles (ROADMAP A.5)",
-    "spike_source": "rate profiles (ROADMAP A.5)",
+    "ramp_source": "rate profiles (ROADMAP A.5b)",
+    "spike_source": "rate profiles (ROADMAP A.5b)",
     "telemetry": "windowed telemetry (ROADMAP A.7)",
     "correlated_outages": "correlated outages (ROADMAP A.7)",
     "circuit_breaker": "circuit breakers (ROADMAP A.8)",
@@ -57,9 +67,9 @@ _UNPORTED_SERVER_ARGS = {
     "retry_backoff_s": "backoff retries (ROADMAP A.6)",
     "retry_jitter": "retry jitter (ROADMAP A.6)",
     "hedge_delay_s": "hedged requests (ROADMAP A.6)",
-    "service_k": "the erlang service family (ROADMAP A.5)",
-    "service_scv": "the hyperexp/lognormal service families (ROADMAP A.5)",
-    "pareto_alpha": "the pareto service family (ROADMAP A.5)",
+    "service_k": "the erlang service family (ROADMAP A.5b)",
+    "service_scv": "the hyperexp/lognormal service families (ROADMAP A.5b)",
+    "pareto_alpha": "the pareto service family (ROADMAP A.5b)",
     "outage": "brownout windows (ROADMAP A.7)",
     "fault": "fault schedules (ROADMAP A.7)",
 }
@@ -80,10 +90,11 @@ class NodeRef:
 
 @dataclass(frozen=True)
 class EdgeLatency:
-    """Link latency of an edge; the port runs zero-latency edges only."""
+    """Link latency applied while a job crosses an edge (packet loss is
+    not ported: ROADMAP A.7)."""
 
     mean_s: float = 0.0
-    kind: str = "constant"
+    kind: str = "constant"  # or "exponential"
 
 
 @dataclass
@@ -106,35 +117,65 @@ class ServerSpec:
 
 
 @dataclass
+class RouterSpec:
+    policy: str = "random"
+    targets: list[NodeRef] = field(default_factory=list)
+    target_latencies: list[EdgeLatency] = field(default_factory=list)
+    # Per-target routing weights ("weighted" policy only): target i is
+    # chosen with probability weights[i] / sum(weights); length-checked
+    # against the final target list in validate().
+    weights: tuple[float, ...] = field(default=(), repr=False)
+
+
+@dataclass
+class LimiterSpec:
+    """Token bucket: ``refill_rate``/s up to ``capacity``; one token per
+    job; jobs without a token are dropped (counted)."""
+
+    refill_rate: float = 10.0
+    capacity: float = 10.0
+    downstream: Optional[NodeRef] = None
+    latency: EdgeLatency = field(default_factory=EdgeLatency)
+
+
+@dataclass
 class SinkSpec:
     pass
 
 
 class EnsembleModel:
-    """Static topology of a single-source, single-sink server chain.
+    """Static topology of a single-source, single-sink service graph.
 
     ``warmup_s`` masks statistics before the cutoff (sink latencies,
     server waits, utilization and queue-depth integrals); server
-    started/completed/dropped counters stay whole-run. ``macro_block`` is
-    the number of fused event steps per kernel launch and per RNG chunk
-    (None = 32); it is part of the RNG stream layout.
+    started/completed/dropped counters stay whole-run.
+    ``transit_capacity`` bounds the in-flight slots per server for jobs
+    crossing latency-carrying edges. ``macro_block`` is the number of
+    fused event steps per kernel launch and per RNG chunk (None = 32); it
+    is part of the RNG stream layout.
     """
 
     def __init__(
         self,
         horizon_s: float = 60.0,
         warmup_s: float = 0.0,
+        transit_capacity: int = 256,
         macro_block: Optional[int] = None,
     ):
         if warmup_s < 0.0 or warmup_s >= horizon_s:
             raise ValueError("warmup_s must satisfy 0 <= warmup_s < horizon_s")
+        if transit_capacity < 1:
+            raise ValueError("transit_capacity must be >= 1")
         if macro_block is not None and macro_block < 1:
             raise ValueError("macro_block must be >= 1 (or None for default)")
         self.horizon_s = horizon_s
         self.warmup_s = warmup_s
+        self.transit_capacity = transit_capacity
         self.macro_block = macro_block
         self.sources: list[SourceSpec] = []
         self.servers: list[ServerSpec] = []
+        self.routers: list[RouterSpec] = []
+        self.limiters: list[LimiterSpec] = []
         self.sinks: list[SinkSpec] = []
 
     def __getattr__(self, name: str):
@@ -153,7 +194,7 @@ class EnsembleModel:
         if kind not in ARRIVAL_KINDS:
             raise ValueError(f"arrival kind {kind!r} not in {ARRIVAL_KINDS}")
         if profile is not None:
-            raise not_ported("rate profiles (ROADMAP A.5)")
+            raise not_ported("rate profiles (ROADMAP A.5b)")
         self.sources.append(
             SourceSpec(rate=rate, arrival=kind, stop_after_s=stop_after_s)
         )
@@ -172,7 +213,7 @@ class EnsembleModel:
                 raise TypeError(f"server() got an unexpected argument {name!r}")
             raise not_ported(_UNPORTED_SERVER_ARGS[name])
         if service in UNPORTED_SERVICE_KINDS:
-            raise not_ported(f"{service} service times (ROADMAP A.5)")
+            raise not_ported(f"{service} service times (ROADMAP A.5b)")
         if service not in SERVICE_KINDS:
             raise ValueError(f"service kind {service!r} not in {SERVICE_KINDS}")
         if concurrency < 1:
@@ -189,6 +230,48 @@ class EnsembleModel:
         )
         return NodeRef(SERVER, len(self.servers) - 1)
 
+    def router(
+        self,
+        policy: str = "random",
+        targets: Sequence[NodeRef] = (),
+        weights: Optional[Sequence[float]] = None,
+    ) -> NodeRef:
+        """Routing node. ``weights`` (``"weighted"`` policy only) gives
+        each target probability ``w_i / sum(w)``; targets wired later via
+        :meth:`connect` must match the weights' length at validate()."""
+        if policy not in ROUTER_POLICIES:
+            raise ValueError(f"router policy {policy!r} not in {ROUTER_POLICIES}")
+        if weights is not None and policy != "weighted":
+            raise ValueError(
+                f"router weights require policy='weighted' (got {policy!r})"
+            )
+        if policy == "weighted":
+            if not weights:
+                raise ValueError("policy='weighted' requires weights=(...)")
+            if any(w <= 0.0 for w in weights):
+                raise ValueError("router weights must all be > 0")
+        targets = list(targets)
+        self.routers.append(
+            RouterSpec(
+                policy=policy,
+                targets=targets,
+                target_latencies=[EdgeLatency() for _ in targets],
+                weights=tuple(float(w) for w in weights) if weights else (),
+            )
+        )
+        return NodeRef(ROUTER, len(self.routers) - 1)
+
+    def limiter(self, refill_rate: float, capacity: float) -> NodeRef:
+        """Token-bucket admission node (jobs without a token are dropped)."""
+        if refill_rate <= 0:
+            raise ValueError("refill_rate must be > 0")
+        if capacity < 1:
+            # Admission spends a whole token; a bucket that can never hold
+            # one would silently drop all traffic.
+            raise ValueError("capacity must be >= 1")
+        self.limiters.append(LimiterSpec(refill_rate=refill_rate, capacity=capacity))
+        return NodeRef(LIMITER, len(self.limiters) - 1)
+
     def sink(self) -> NodeRef:
         self.sinks.append(SinkSpec())
         return NodeRef(SINK, len(self.sinks) - 1)
@@ -203,13 +286,28 @@ class EnsembleModel:
         loss_p: float = 0.0,
         loss_window: Optional[tuple] = None,
     ) -> None:
-        """Wire ``origin`` -> ``downstream`` with a zero-latency edge."""
+        """Wire ``origin`` -> ``downstream``; the edge may carry latency
+        (``latency_kind`` "constant" or "exponential", mean
+        ``latency_s``). Edges INTO a limiter or a router must be
+        latency-free: put the latency on the limiter's downstream edge or
+        on the router's per-target edges. A router origin appends a
+        target."""
         if latency_s < 0:
             raise ValueError("latency_s must be >= 0")
-        if latency_s > 0:
-            raise not_ported("latency edges (ROADMAP A.5)")
+        if latency_kind not in LATENCY_KINDS:
+            raise ValueError(f"latency kind {latency_kind!r} not in {LATENCY_KINDS}")
         if loss_p > 0.0 or loss_window is not None:
             raise not_ported("packet-loss edges (ROADMAP A.7)")
+        if downstream.kind == LIMITER and latency_s > 0:
+            raise ValueError(
+                "edges into a limiter must be latency- and loss-free; put "
+                "the latency/loss on the limiter's downstream edge"
+            )
+        if downstream.kind == ROUTER and latency_s > 0:
+            raise ValueError(
+                "edges into a router must be latency- and loss-free; put "
+                "the latency/loss on the router's per-target edges instead"
+            )
         edge = EdgeLatency(mean_s=latency_s, kind=latency_kind)
         if origin.kind == SOURCE:
             self.sources[origin.index].downstream = downstream
@@ -217,74 +315,145 @@ class EnsembleModel:
         elif origin.kind == SERVER:
             self.servers[origin.index].downstream = downstream
             self.servers[origin.index].latency = edge
-        elif origin.kind == SINK:
-            raise ValueError("Sinks have no downstream")
+        elif origin.kind == LIMITER:
+            if downstream.kind == LIMITER:
+                raise ValueError("Limiters cannot chain to limiters")
+            self.limiters[origin.index].downstream = downstream
+            self.limiters[origin.index].latency = edge
+        elif origin.kind == ROUTER:
+            # Router->router edges are legal (multi-tier DAGs); validate()
+            # rejects router cycles.
+            self.routers[origin.index].targets.append(downstream)
+            self.routers[origin.index].target_latencies.append(edge)
         else:
-            raise not_ported(f"{origin.kind} nodes (ROADMAP A.5)")
+            raise ValueError("Sinks have no downstream")
 
     # -- validation --------------------------------------------------------
     def validate(self) -> None:
-        """Check the model is a chain the port runs; raise
-        NotImplementedError for every feature it does not run yet."""
+        """Check the model against JAX's validation rules for the model API
+        above. Features the port does not run yet raise
+        NotImplementedError; so does a topology the kernel's walk declines,
+        when the model is compiled (``kernels.support.kernel_plan``)."""
         if not self.sources:
             raise ValueError("Model needs at least one source")
         if not self.sinks:
             raise ValueError("Model needs at least one sink")
         if len(self.sources) > 1:
-            raise not_ported("models with several sources (ROADMAP A.5)")
+            raise not_ported("models with several sources (ROADMAP A.5b)")
         if len(self.sinks) > 1:
-            raise not_ported("models with several sinks (ROADMAP A.5)")
+            raise not_ported("models with several sinks (ROADMAP A.5b)")
         for i, source in enumerate(self.sources):
             if source.downstream is None:
                 raise ValueError(f"source[{i}] has no downstream")
+            if source.downstream.kind == ROUTER and not self.routers[
+                source.downstream.index
+            ].targets:
+                raise ValueError(f"router targeted by source[{i}] has no targets")
             if source.arrival not in ARRIVAL_KINDS:
                 raise ValueError(f"source[{i}]: arrival kind {source.arrival!r}")
         for i, server in enumerate(self.servers):
             if server.downstream is None:
                 raise ValueError(f"server[{i}] has no downstream")
             if server.service in UNPORTED_SERVICE_KINDS:
-                raise not_ported(f"{server.service} service times (ROADMAP A.5)")
+                raise not_ported(f"{server.service} service times (ROADMAP A.5b)")
             if server.service not in SERVICE_KINDS:
                 raise ValueError(f"server[{i}]: service kind {server.service!r}")
-        for edge in self.iter_edges():
-            if edge.mean_s > 0:
-                raise not_ported("latency edges (ROADMAP A.5)")
-        refs = [s.downstream for s in self.sources] + [
-            s.downstream for s in self.servers
-        ]
-        for ref in refs:
-            if ref.kind not in (SERVER, SINK):
-                raise not_ported(f"{ref.kind} nodes (ROADMAP A.5)")
-        self.chain_order()
-
-    def chain_order(self) -> list[int]:
-        """Server indices in the order a job visits them (source to sink).
-
-        Raises when the servers do not form one path from the source to
-        the sink: a source wired straight to the sink, a feedback loop,
-        or a server off the path."""
-        order: list[int] = []
+            if server.downstream.kind == ROUTER and not self.routers[
+                server.downstream.index
+            ].targets:
+                raise ValueError(f"router targeted by server[{i}] has no targets")
+        for i, limiter in enumerate(self.limiters):
+            if limiter.downstream is None:
+                raise ValueError(f"limiter[{i}] has no downstream")
+            if limiter.downstream.kind == LIMITER:
+                raise ValueError(f"limiter[{i}] chains to a limiter")
+        for i, router in enumerate(self.routers):
+            self._validate_router(i, router)
+        self._validate_router_acyclic()
         ref = self.sources[0].downstream
-        while ref.kind == SERVER:
-            if ref.index in order:
-                raise not_ported("feedback loops between servers (ROADMAP A.5)")
-            order.append(ref.index)
-            ref = self.servers[ref.index].downstream
-        if not order:
-            raise not_ported("sources wired straight to a sink (ROADMAP A.5)")
-        off_path = sorted(set(range(len(self.servers))) - set(order))
-        if off_path:
-            raise not_ported(
-                "servers outside the source->sink chain "
-                f"({', '.join(f'server[{i}]' for i in off_path)}; ROADMAP A.5)"
+        while ref.kind == LIMITER:
+            ref = self.limiters[ref.index].downstream
+        if ref.kind == SINK:
+            raise not_ported("sources wired straight to a sink (ROADMAP A.5b)")
+
+    def _validate_router(self, i: int, router: RouterSpec) -> None:
+        kinds = {t.kind for t in router.targets}
+        if LIMITER in kinds:
+            raise ValueError(
+                f"router[{i}] targets a limiter (route after, not into, admission)"
             )
-        return order
+        # Server/sink sets (including "done or continue" mixes) and
+        # downstream routers (multi-tier DAGs); a router+sink mix races a
+        # zero-work exit against a routing tier and is rejected.
+        if not kinds <= {SERVER, SINK, ROUTER}:
+            raise ValueError(
+                f"router[{i}] targets must be servers, sinks, and/or "
+                "downstream routers, or (partitioned) sinks+remotes"
+            )
+        if ROUTER in kinds and SINK in kinds:
+            raise ValueError(
+                f"router[{i}] mixes a downstream router with a sink "
+                "target — a done-or-continue exit belongs on the "
+                "downstream router's target list, not raced against it"
+            )
+        if kinds == {SERVER, SINK} and router.policy == "least_outstanding":
+            raise ValueError(
+                f"router[{i}]: least_outstanding needs all-server "
+                "targets (sinks have no outstanding work)"
+            )
+        if router.policy == "least_outstanding" and kinds - {SERVER}:
+            raise ValueError(
+                f"router[{i}]: least_outstanding requires server targets "
+                "(only servers carry outstanding work)"
+            )
+        if router.policy == "weighted" and len(router.weights) != len(router.targets):
+            raise ValueError(
+                f"router[{i}]: weighted policy has {len(router.weights)} "
+                f"weights for {len(router.targets)} targets (wire every "
+                "target before running, or pass targets to router())"
+            )
+
+    def _validate_router_acyclic(self) -> None:
+        """Reject router cycles through DIRECT router->router targets (the
+        delivery walk would never end). Cycles THROUGH a server are fine:
+        a server arrival ends the delivery."""
+        # state: 0 unvisited, 1 on the current DFS path, 2 done.
+        state = [0] * len(self.routers)
+
+        def visit(i: int, path: list[int]) -> None:
+            if state[i] == 1:
+                start = path.index(i)
+                cycle = " -> ".join(f"router[{j}]" for j in path[start:] + [i])
+                raise ValueError(
+                    f"router[{i}] is on a router cycle ({cycle}) — route "
+                    "feedback through a server, not directly between "
+                    "routers"
+                )
+            if state[i] == 2:
+                return
+            state[i] = 1
+            path.append(i)
+            for target in self.routers[i].targets:
+                if target.kind == ROUTER:
+                    visit(target.index, path)
+            path.pop()
+            state[i] = 2
+
+        for i in range(len(self.routers)):
+            if state[i] == 0:
+                visit(i, [])
 
     def iter_edges(self):
+        """Every edge spec in the model: source, server and limiter
+        downstream edges, then each router's per-target edges."""
         for s in self.sources:
             yield s.latency
         for v in self.servers:
             yield v.latency
+        for lim in self.limiters:
+            yield lim.latency
+        for r in self.routers:
+            yield from r.target_latencies
 
     @property
     def max_concurrency(self) -> int:

@@ -19,7 +19,9 @@ import jax  # noqa: E402
 import torch  # noqa: E402
 
 from happysim_tpu.tpu import engine as jengine  # noqa: E402
+from happysim_tpu.tpu import model as jmodel  # noqa: E402
 from happysim_tpu.tpu import run_ensemble as j_run  # noqa: E402
+from happysim_tpu.tpu.kernels import kernel_plan as j_kernel_plan  # noqa: E402
 from happysim_tpu.tpu.mesh import replica_mesh  # noqa: E402
 from happysim_tpu.tpu.model import mm1_model as j_mm1  # noqa: E402
 from happysim_tpu.tpu.model import pipeline_model as j_pipeline  # noqa: E402
@@ -27,6 +29,7 @@ from happysim_tpu_torch import engine as tengine  # noqa: E402
 from happysim_tpu_torch import model as tmodel  # noqa: E402
 from happysim_tpu_torch import run_ensemble as t_run  # noqa: E402
 from happysim_tpu_torch.kernels import support  # noqa: E402
+from test_torch_event_step import GRAPH_MODELS, fanout, mix, shared_backend  # noqa: E402
 
 N_REPLICAS = 256
 INT_FIELDS = (
@@ -34,6 +37,9 @@ INT_FIELDS = (
     "sink_count",
     "server_completed",
     "server_dropped",
+    "transit_dropped",
+    "limiter_admitted",
+    "limiter_dropped",
     "truncated_replicas",
     "blocks_total",
     "block_occupancy",
@@ -70,6 +76,36 @@ CASES = {
 }
 
 
+@pytest.mark.parametrize("name", sorted(GRAPH_MODELS))
+def test_graph_whole_run_matches_jax_event_scan(name):
+    """Router, limiter and transit graphs end to end: every integer total
+    equal (the routing trace, transit and limiter drops included), float
+    means within rel 1e-4. 64 replicas with an explicit budget keep the
+    JAX side on its event scan."""
+    build = GRAPH_MODELS[name]
+    mesh = replica_mesh(jax.devices("cpu")[:1])
+    expected = j_run(build(jmodel), n_replicas=64, seed=3, mesh=mesh, max_events=640)
+    got = t_run(build(tmodel), n_replicas=64, seed=3, max_events=640, device="cpu")
+    for field in INT_FIELDS:
+        assert getattr(got, field) == getattr(expected, field), field
+    np.testing.assert_array_equal(got.sink_hist, expected.sink_hist)
+    for field in FLOAT_FIELDS:
+        np.testing.assert_allclose(
+            getattr(got, field), getattr(expected, field), rtol=1e-4, err_msg=field
+        )
+    assert min(got.server_completed) > 0 and got.sink_count[0] > 0
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_MODELS))
+def test_kernel_plan_matches_jax(name):
+    """The port's plan is JAX's kernel_plan dict without its "chaos" key."""
+    expected, reason = j_kernel_plan(GRAPH_MODELS[name](jmodel))
+    assert reason == ""
+    expected = {k: v for k, v in expected.items() if k != "chaos"}
+    assert support.kernel_plan(GRAPH_MODELS[name](tmodel)) == expected
+    assert expected["shape"] == ("graph" if name in ("mix", "shared-backend") else "router")
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_whole_run_matches_jax_event_scan(case):
     build_j, build_t, max_events, sweeps = CASES[case]
@@ -100,6 +136,9 @@ def test_default_event_budget_matches_jax():
         (j_mm1(8.0, 10.0, 160.0, warmup_s=40.0), tmodel.mm1_model(8.0, 10.0, 160.0, warmup_s=40.0), None),
         (j_pipeline(8.0, (0.05, 0.08, 0.06), 160.0), tmodel.pipeline_model(8.0, (0.05, 0.08, 0.06), 160.0), None),
         (j_mm1(8.0, 10.0, 20.0), tmodel.mm1_model(8.0, 10.0, 20.0), sweep),
+        (fanout(jmodel, "random"), fanout(tmodel, "random"), sweep),
+        (shared_backend(jmodel), shared_backend(tmodel), None),
+        (mix(jmodel), mix(tmodel), None),
     ):
         assert tengine._default_max_events(tm, sweeps) == jengine._default_max_events(jm, sweeps)
 
@@ -124,14 +163,6 @@ def test_run_ensemble_rejects_unknown_sweeps_and_huge_ensembles():
         t_run(tmodel.mm1_model(), n_replicas=(1 << 23) + 1, device="cpu")
 
 
-def _router(m):
-    m.router()
-
-
-def _limiter(m):
-    m.limiter(refill_rate=5.0, capacity=5.0)
-
-
 def _two_sources(m):
     m.source(rate=1.0)
     m.validate()
@@ -150,7 +181,7 @@ def _erlang_spec(m):
 def _off_chain_server(m):
     extra = m.server()
     m.connect(extra, tmodel.NodeRef(tmodel.SINK, 0))
-    m.validate()
+    tengine._Compiled(m)
 
 
 def _source_to_sink(m):
@@ -161,8 +192,6 @@ def _source_to_sink(m):
 @pytest.mark.parametrize(
     "mutate, feature",
     [
-        (_router, "routers"),
-        (_limiter, "limiters"),
         (lambda m: m.telemetry(window_s=1.0), "telemetry"),
         (lambda m: m.circuit_breaker(), "circuit breakers"),
         (lambda m: m.load_shed(), "load shedding"),
@@ -182,7 +211,6 @@ def _source_to_sink(m):
         (lambda m: m.server(service="erlang"), "erlang"),
         (lambda m: m.server(service="lognormal"), "lognormal"),
         (_erlang_spec, "erlang"),
-        (lambda m: m.connect(tmodel.NodeRef(tmodel.SOURCE, 0), tmodel.NodeRef(tmodel.SERVER, 0), latency_s=0.01), "latency edges"),
         (lambda m: m.connect(tmodel.NodeRef(tmodel.SOURCE, 0), tmodel.NodeRef(tmodel.SERVER, 0), loss_p=0.1), "packet-loss"),
         (_two_sources, "several sources"),
         (_two_sinks, "several sinks"),
@@ -195,6 +223,104 @@ def test_out_of_slice_features_raise_naming_themselves(mutate, feature):
     with pytest.raises(NotImplementedError, match=re.escape(feature)) as info:
         mutate(model)
     assert "ROADMAP A." in str(info.value)
+
+
+def _front_router(m):
+    """source -> random router -> server[0]."""
+    router = m.router()
+    m.connect(tmodel.NodeRef(tmodel.SOURCE, 0), router)
+    m.connect(router, tmodel.NodeRef(tmodel.SERVER, 0))
+
+
+def _front_limiter(m):
+    """source -> limiter -> round-robin router -> server[0]."""
+    limiter = m.limiter(refill_rate=5.0, capacity=5.0)
+    router = m.router(policy="round_robin")
+    m.connect(tmodel.NodeRef(tmodel.SOURCE, 0), limiter)
+    m.connect(limiter, router)
+    m.connect(router, tmodel.NodeRef(tmodel.SERVER, 0))
+
+
+def _latency_exit(m):
+    """server[0] -> weighted exit router -> [sink behind a 10 ms edge,
+    server[0]] (done-or-continue feedback)."""
+    router = m.router(policy="weighted", weights=(0.9, 0.1))
+    m.connect(tmodel.NodeRef(tmodel.SERVER, 0), router)
+    m.connect(router, tmodel.NodeRef(tmodel.SINK, 0), latency_s=0.01)
+    m.connect(router, tmodel.NodeRef(tmodel.SERVER, 0))
+
+
+@pytest.mark.parametrize(
+    "mutate, shape, counter",
+    [
+        (_front_router, "router", None),
+        (_front_limiter, "router", "limiter_admitted"),
+        (_latency_exit, "graph", "transit_dropped"),
+    ],
+    ids=["routers", "limiters", "latency-edges"],
+)
+def test_slice_features_run_and_plan(mutate, shape, counter):
+    """Routers, limiters and latency edges now build, run and plan as
+    the kernel's router or graph shape."""
+    model = tmodel.mm1_model(8.0, 10.0, 5.0)
+    mutate(model)
+    assert support.kernel_plan(model)["shape"] == shape
+    result = t_run(model, n_replicas=8, seed=0, max_events=200, device="cpu")
+    assert result.sink_count[0] > 0 and result.truncated_replicas == 0
+    if counter is not None:
+        assert len(getattr(result, counter)) == 1
+
+
+def test_kernel_bounds_name_each_graph_bound(monkeypatch):
+    """Each new launch bound is checked and named: lowering one bound
+    below what the mix model needs raises naming exactly that bound."""
+    compiled = tengine._Compiled(mix(tmodel))
+    support.check_kernel_bounds(compiled, 32)
+    assert (compiled.hop_depth, compiled.n_draws, compiled.TR) == (2, 6, 16)
+    for name, attr, bound in (
+        ("routers", "KERNEL_MAX_ROUTERS", 2),
+        ("targets per router", "KERNEL_MAX_TARGETS", 1),
+        ("router hop depth", "KERNEL_MAX_HOPS", 1),
+        ("limiters", "KERNEL_MAX_LIMITERS", 0),
+        ("transit_capacity", "KERNEL_MAX_TRANSIT", 8),
+        ("uniform draws per step", "KERNEL_MAX_DRAWS", 5),
+    ):
+        with monkeypatch.context() as patch:
+            patch.setattr(support, attr, bound)
+            with pytest.raises(ValueError, match=re.escape(f"{name}=")):
+                support.check_kernel_bounds(compiled, 32)
+
+
+def test_kernel_plan_declines_like_jax():
+    """Orphan servers, orphan routers and limiters, and a graph that
+    never reaches the sink raise NotImplementedError with JAX's reason."""
+
+    def orphan_router(mod):
+        m = mod.mm1_model(8.0, 10.0, 5.0)
+        m.router(targets=[mod.NodeRef(mod.SERVER, 0)])
+        return m
+
+    def orphan_limiter(mod):
+        m = mod.mm1_model(8.0, 10.0, 5.0)
+        limiter = m.limiter(refill_rate=1.0, capacity=1.0)
+        m.connect(limiter, mod.NodeRef(mod.SERVER, 0))
+        return m
+
+    def no_sink(mod):
+        m = mod.EnsembleModel(horizon_s=5.0)
+        server = m.server()
+        router = m.router(targets=[server])
+        m.connect(m.source(rate=1.0), router)
+        m.connect(server, router)
+        m.sink()
+        return m
+
+    for build in (orphan_router, orphan_limiter, no_sink):
+        _plan, reason = j_kernel_plan(build(jmodel))
+        jax_reason = reason[reason.index("(") + 1 : reason.index("); the lax")]
+        with pytest.raises(NotImplementedError, match=re.escape(jax_reason)) as info:
+            tengine._Compiled(build(tmodel))
+        assert "ROADMAP A.5b" in str(info.value)
 
 
 def test_kernel_plan_shapes_and_bounds():

@@ -23,15 +23,105 @@ from jax import lax  # noqa: E402
 
 from happysim_tpu.tpu.engine import _Compiled as JCompiled  # noqa: E402
 from happysim_tpu.tpu.kernels import build_block_step  # noqa: E402
+from happysim_tpu.tpu import model as jmodel  # noqa: E402
 from happysim_tpu.tpu.model import mm1_model as j_mm1  # noqa: E402
 from happysim_tpu.tpu.model import pipeline_model as j_pipeline  # noqa: E402
 from happysim_tpu_torch import convert, rng  # noqa: E402
+from happysim_tpu_torch import model as tmodel  # noqa: E402
 from happysim_tpu_torch.engine import _Compiled as TCompiled  # noqa: E402
-from happysim_tpu_torch.kernels.event_step import block_step, plain_block_step  # noqa: E402
+from happysim_tpu_torch.kernels.event_step import (  # noqa: E402
+    _static_args,
+    block_step,
+    launch_args,
+    plain_block_step,
+)
 from happysim_tpu_torch.model import mm1_model as t_mm1  # noqa: E402
 from happysim_tpu_torch.model import pipeline_model as t_pipeline  # noqa: E402
 
 FLOAT_RTOL = 1e-5
+# Graph models also allow an absolute float difference of GRAPH_ULPS ulp
+# of the horizon. Their float leaves take differences of event times
+# (t - last in the limiter refill, t - enqueued in the wait sums, the
+# interval in the depth integral) after exponential edge draws, so a
+# one-ulp time difference from XLA's CPU log is large next to a small
+# result (a token count near zero, a short wait). Measured worst over
+# the graph models below: 11 ulp (the mix model's wait sums and tokens);
+# every integer leaf stays exactly equal.
+GRAPH_ULPS = 32
+
+
+# Graph models, built with the same code in both packages (``mod`` is
+# either package's model module).
+def fanout(mod, policy, horizon_s=20.0, rate=8.0):
+    """The 4-server load-balancer fan-out with the edge mix of
+    tests/regression/test_graph_regression.py::_lo_fanout (telemetry
+    left out): constant, exponential and free per-target edges."""
+    m = mod.EnsembleModel(horizon_s=horizon_s, warmup_s=2.0, transit_capacity=8)
+    src = m.source(rate=rate)
+    servers = [m.server(service_mean=0.05, queue_capacity=16) for _ in range(4)]
+    weights = {"weights": (0.4, 0.3, 0.2, 0.1)} if policy == "weighted" else {}
+    router = m.router(policy=policy, **weights)
+    snk = m.sink()
+    m.connect(src, router)
+    edge_mix = [(0.01, "constant"), (0.02, "exponential"), (0.0, "constant")]
+    for index, server in enumerate(servers):
+        latency_s, kind = edge_mix[index % len(edge_mix)]
+        m.connect(router, server, latency_s=latency_s, latency_kind=kind)
+        m.connect(server, snk)
+    return m
+
+
+def shared_backend(mod, horizon_s=20.0):
+    """The two-tier least_outstanding DAG of test_graph_regression.py
+    with a constant-rate Poisson source in place of the ramp; the back
+    router is declared first, so router indices differ from BFS order."""
+    m = mod.EnsembleModel(horizon_s=horizon_s, transit_capacity=8)
+    src = m.source(rate=12.0)
+    front = [m.server(service_mean=0.06, queue_capacity=16) for _ in range(2)]
+    back = [m.server(service_mean=0.05, queue_capacity=16) for _ in range(2)]
+    back_router = m.router(policy="least_outstanding", targets=back)
+    front_router = m.router(policy="least_outstanding", targets=front)
+    snk = m.sink()
+    m.connect(src, front_router)
+    for server in front:
+        m.connect(server, back_router)
+    for server in back:
+        m.connect(server, snk)
+    return m
+
+
+def mix(mod, horizon_s=40.0, warmup_s=10.0):
+    """Limiter -> random router over [weighted router over s0, s1; s2];
+    every server exits through a weighted router over [sink behind a
+    2 ms exponential edge, s2]: two route-draw depths, a limiter that
+    drops, zero-latency transit parks, and feedback into s2."""
+    m = mod.EnsembleModel(horizon_s=horizon_s, warmup_s=warmup_s, transit_capacity=16)
+    src = m.source(rate=20.0)
+    lim = m.limiter(refill_rate=18.0, capacity=8.0)
+    s0 = m.server(service_mean=0.05, concurrency=1)
+    s1 = m.server(service_mean=0.05, concurrency=2)
+    s2 = m.server(service_mean=0.05, concurrency=1)
+    inner = m.router(policy="weighted", targets=[s0, s1], weights=(0.7, 0.3))
+    front = m.router(policy="random", targets=[inner, s2])
+    snk = m.sink()
+    exit_router = m.router(policy="weighted", weights=(0.8, 0.2))
+    m.connect(src, lim)
+    m.connect(lim, front)
+    m.connect(exit_router, snk, latency_s=0.002, latency_kind="exponential")
+    m.connect(exit_router, s2)
+    for server in (s0, s1, s2):
+        m.connect(server, exit_router)
+    return m
+
+
+GRAPH_MODELS = {
+    **{
+        f"fanout-{policy}": (lambda mod, policy=policy: fanout(mod, policy))
+        for policy in ("random", "round_robin", "weighted", "least_outstanding")
+    },
+    "shared-backend": shared_backend,
+    "mix": lambda mod: mix(mod, horizon_s=10.0, warmup_s=2.0),
+}
 
 
 def _params(model, n):
@@ -61,7 +151,7 @@ def _block_u(keys, block, macro, n_draws):
     )(keys)
 
 
-def _assert_leaves_match(expected: dict, got: dict, context: str):
+def _assert_leaves_match(expected: dict, got: dict, context: str, atol: float = 0.0):
     assert set(expected) <= set(got), set(expected) - set(got)
     for name in sorted(expected):
         e = np.asarray(expected[name])
@@ -69,7 +159,7 @@ def _assert_leaves_match(expected: dict, got: dict, context: str):
         assert g.dtype == e.dtype and g.shape == e.shape, (name, g.dtype, e.dtype)
         if np.issubdtype(e.dtype, np.floating):
             np.testing.assert_allclose(
-                g, e, rtol=FLOAT_RTOL, atol=0, err_msg=f"{context}: {name}"
+                g, e, rtol=FLOAT_RTOL, atol=atol, err_msg=f"{context}: {name}"
             )
         else:
             np.testing.assert_array_equal(g, e, err_msg=f"{context}: {name}")
@@ -83,8 +173,10 @@ def _assert_leaves_match(expected: dict, got: dict, context: str):
             lambda: j_pipeline(8.0, (0.05, 0.08, 0.06), 20.0, concurrency=2),
             lambda: t_pipeline(8.0, (0.05, 0.08, 0.06), 20.0, concurrency=2),
         ),
+        (lambda: shared_backend(jmodel), lambda: shared_backend(tmodel)),
+        (lambda: mix(jmodel), lambda: mix(tmodel)),
     ],
-    ids=["mm1", "pipeline-c2"],
+    ids=["mm1", "pipeline-c2", "router-dag", "limiter-transit"],
 )
 def test_init_state_matches_jax(build_j, build_t):
     jm, tm = build_j(), build_t()
@@ -118,6 +210,29 @@ def test_plain_step_matches_pallas_interpret_kernel():
         jstate = block_fn(jstate, U, jparams)
         block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
         _assert_leaves_match(jstate, tstate, f"pallas block {block}")
+
+
+def test_plain_step_matches_pallas_interpret_kernel_on_a_router():
+    """build_block_step in interpret mode on the round-robin fan-out
+    (transit slots and latency draws live), MACRO=2, 4 replicas, two
+    chained blocks."""
+    macro, n = 2, 4
+    jm, tm = fanout(jmodel, "round_robin", 3.0), fanout(tmodel, "round_robin", 3.0)
+    jc, tc = JCompiled(jm), TCompiled(tm)
+    params = _params(jm, n)
+    jstate = _jax_state(jc, params, n, seed=9)
+    keys = jstate.pop("key")
+    tstate = convert.state_from_numpy({k: np.asarray(v) for k, v in jstate.items()})
+    tparams = convert.params_from_numpy(params)
+    block_fn, _meta = build_block_step(jc, float(jm.horizon_s), macro, n, interpret=True)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    for block in range(2):
+        U = _block_u(keys, block, macro, jc.n_draws)
+        jstate = block_fn(jstate, U, jparams)
+        block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        _assert_leaves_match(jstate, tstate, f"pallas block {block}")
+    # The round-robin cursor advanced once per source fire.
+    assert int(tstate["rr_next"].sum()) > 0
 
 
 def _lax_block(compiled, horizon):
@@ -166,6 +281,37 @@ def test_plain_step_matches_lax_block_scan(build_j, build_t):
     assert int(tstate["srv_completed"].min()) > 0
 
 
+@pytest.mark.parametrize("name", sorted(GRAPH_MODELS))
+def test_plain_step_matches_lax_block_scan_on_graphs(name):
+    """The same block-by-block parity on router and limiter graphs with
+    latency edges and transit slots: MACRO=32, 64 replicas, 8 chained
+    blocks, every leaf compared after every block (integer leaves
+    exactly, the routing trace included)."""
+    macro, n = 32, 64
+    jm, tm = GRAPH_MODELS[name](jmodel), GRAPH_MODELS[name](tmodel)
+    jc, tc = JCompiled(jm), TCompiled(tm)
+    assert (tc.n_draws, tc.has_transit) == (jc.n_draws, jc.has_transit)
+    assert tc.U_ROUTE_HOPS == jc.U_ROUTE_HOPS and tc.U_LAT == jc.U_LAT
+    params = _params(jm, n)
+    jstate = _jax_state(jc, params, n, seed=2)
+    keys = jstate.pop("key")
+    tstate = convert.state_from_numpy({k: np.asarray(v) for k, v in jstate.items()})
+    tparams = convert.params_from_numpy(params)
+    run_block = _lax_block(jc, float(jm.horizon_s))
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    for block in range(8):
+        U = _block_u(keys, block, macro, jc.n_draws)
+        jstate = run_block(jstate, U, jparams)
+        plain_block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        _assert_leaves_match(
+            jstate, tstate, f"{name} lax block {block}",
+            atol=GRAPH_ULPS * float(np.spacing(np.float32(jm.horizon_s))),
+        )
+    # Every replica served jobs, and every server saw work somewhere.
+    assert int(tstate["srv_completed"].sum(dim=1).min()) > 0
+    assert int(tstate["srv_completed"].sum(dim=0).min()) > 0
+
+
 def test_state_round_trips_through_numpy():
     tm = t_pipeline(8.0, (0.05, 0.08), 5.0)
     compiled = TCompiled(tm)
@@ -175,3 +321,74 @@ def test_state_round_trips_through_numpy():
     for name, value in state.items():
         assert back[name].dtype == value.dtype
         torch.testing.assert_close(back[name], value, rtol=0, atol=0)
+
+
+def test_graph_state_round_trips_through_numpy():
+    """The router, limiter and transit leaves cross between the packages
+    unchanged, and the port's leaves equal JAX's after a round trip."""
+    tm, jm = mix(tmodel), mix(jmodel)
+    compiled = TCompiled(tm)
+    params = _params(tm, 8)
+    state = compiled.init_state(rng.split(rng.PRNGKey(0), 8), convert.params_from_numpy(params))
+    assert {"rr_next", "lim_tokens", "tr_time", "tr_created", "tr_dropped"} <= set(state)
+    back = convert.state_from_numpy(convert.state_to_numpy(state))
+    for name, value in state.items():
+        assert back[name].dtype == value.dtype
+        torch.testing.assert_close(back[name], value, rtol=0, atol=0)
+    expected = _jax_state(JCompiled(jm), params, 8, seed=0)
+    _assert_leaves_match(expected, back, "round trip")
+
+
+def _sink_latency_chain(mod):
+    """Two servers joined by free edges, then a 10 ms exponential edge
+    into the sink: a "chain" plan that still needs the graph code."""
+    m = mod.EnsembleModel(horizon_s=10.0)
+    src = m.source(rate=6.0)
+    front = m.server(service_mean=0.05)
+    back = m.server(service_mean=0.08)
+    snk = m.sink()
+    m.connect(src, front)
+    m.connect(front, back)
+    m.connect(back, snk, latency_s=0.01, latency_kind="exponential")
+    return m
+
+
+@pytest.mark.parametrize(
+    "build, graph",
+    [
+        (lambda: t_mm1(8.0, 10.0, 5.0), 0),
+        (lambda: t_pipeline(8.0, (0.05, 0.08), 5.0), 0),
+        (lambda: _sink_latency_chain(tmodel), 1),
+        (lambda: fanout(tmodel, "random"), 1),
+        (lambda: mix(tmodel), 1),
+    ],
+    ids=["mm1", "pipeline", "sink-latency-chain", "fanout", "mix"],
+)
+def test_line_instantiation_only_for_lines_of_free_edges(build, graph):
+    """The kernel's line code ignores edge latency, so any model with a
+    router, a limiter or a latency edge must launch the graph code."""
+    assert _static_args(TCompiled(build())).graph == graph
+
+
+def test_launch_args_check_the_state_once_and_u_every_time():
+    model = mix(tmodel)
+    compiled = TCompiled(model)
+    n, macro = 8, 4
+    params = convert.params_from_numpy(_params(model, n))
+    state = compiled.init_state(rng.split(rng.PRNGKey(3), n), params)
+    U = torch.rand((n, macro, compiled.n_draws))
+    halted = torch.empty((n,), dtype=torch.uint8)
+    first = launch_args(compiled, state, U, params, halted)
+    assert (first.R, first.macro, first.U) == (n, macro, U.data_ptr())
+    assert first.t == state["t"].data_ptr() and first.tr_time == state["tr_time"].data_ptr()
+    fresh = U.clone()
+    again = launch_args(compiled, state, fresh, params, halted)
+    assert again.t == first.t and again.U == fresh.data_ptr()
+    # U is checked on every call, a tensor not seen before is checked
+    # again, and so is every leaf for another replica count.
+    with pytest.raises(ValueError, match="float32"):
+        launch_args(compiled, state, U.double(), params, halted)
+    with pytest.raises(ValueError, match="srv_q_len"):
+        launch_args(compiled, dict(state, srv_q_len=state["srv_q_len"].float()), U, params, halted)
+    with pytest.raises(ValueError, match="shape"):
+        launch_args(compiled, state, U[: n // 2].contiguous(), params, halted)

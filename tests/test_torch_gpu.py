@@ -45,7 +45,101 @@ def _mixed_chain():
     return m
 
 
+def _router():
+    """The round-robin load-balancer fan-out: 4 servers behind per-target
+    5 ms edges, alternately constant and exponential (the "router"
+    shape, with transit slots and the latency draw live)."""
+    m = EnsembleModel(horizon_s=40.0, warmup_s=10.0, transit_capacity=16)
+    src = m.source(rate=30.0)
+    router = m.router(policy="round_robin")
+    snk = m.sink()
+    m.connect(src, router)
+    for index in range(4):
+        server = m.server(service_mean=0.1, queue_capacity=256)
+        m.connect(router, server, latency_s=0.005,
+                  latency_kind="exponential" if index % 2 else "constant")
+        m.connect(server, snk)
+    return m
+
+
+def _graph():
+    """Two least_outstanding tiers of two servers, the back tier shared
+    (the "graph" shape)."""
+    m = EnsembleModel(horizon_s=40.0, warmup_s=10.0, transit_capacity=16)
+    src = m.source(rate=30.0)
+    front = [m.server(service_mean=0.02, queue_capacity=256) for _ in range(2)]
+    back = [m.server(service_mean=0.02, queue_capacity=256) for _ in range(2)]
+    front_lb = m.router(policy="least_outstanding", targets=front)
+    back_lb = m.router(policy="least_outstanding", targets=back)
+    snk = m.sink()
+    m.connect(src, front_lb)
+    for server in front:
+        m.connect(server, back_lb)
+    for server in back:
+        m.connect(server, snk)
+    return m
+
+
+def _mix():
+    """Limiter, random over [weighted over s0, s1; s2], and a weighted
+    exit over [sink behind a 2 ms exponential edge, s2]: route draws at
+    two depths, limiter drops, zero-latency transit parks and feedback."""
+    m = EnsembleModel(horizon_s=40.0, warmup_s=10.0, transit_capacity=16)
+    src = m.source(rate=20.0)
+    lim = m.limiter(refill_rate=18.0, capacity=8.0)
+    s0 = m.server(service_mean=0.05, concurrency=1)
+    s1 = m.server(service_mean=0.05, concurrency=2)
+    s2 = m.server(service_mean=0.05, concurrency=1)
+    inner = m.router(policy="weighted", targets=[s0, s1], weights=(0.7, 0.3))
+    front = m.router(policy="random", targets=[inner, s2])
+    snk = m.sink()
+    exit_router = m.router(policy="weighted", weights=(0.8, 0.2))
+    m.connect(src, lim)
+    m.connect(lim, front)
+    m.connect(exit_router, snk, latency_s=0.002, latency_kind="exponential")
+    m.connect(exit_router, s2)
+    for server in (s0, s1, s2):
+        m.connect(server, exit_router)
+    return m
+
+
+def _latency_chain():
+    """A chain with a limiter and latency edges (the graph kernel on the
+    "chain" shape), a transit capacity of 2 that drops."""
+    m = EnsembleModel(horizon_s=30.0, warmup_s=3.0, transit_capacity=2)
+    src = m.source(rate=9.0)
+    lim = m.limiter(refill_rate=7.0, capacity=3.0)
+    a = m.server(service_mean=0.05, concurrency=2, queue_capacity=4)
+    b = m.server(service_mean=0.04, service="constant")
+    snk = m.sink()
+    m.connect(src, lim)
+    m.connect(lim, a, latency_s=0.3, latency_kind="exponential")
+    m.connect(a, b, latency_s=0.02)
+    m.connect(b, snk, latency_s=0.01)
+    return m
+
+
+def _sink_latency_chain():
+    """Two servers joined by free edges, then a 10 ms exponential edge
+    into the sink: a "chain" plan on the graph code, which draws the
+    edge's latency."""
+    m = EnsembleModel(horizon_s=30.0, warmup_s=3.0)
+    src = m.source(rate=6.0)
+    front = m.server(service_mean=0.05)
+    back = m.server(service_mean=0.08)
+    snk = m.sink()
+    m.connect(src, front)
+    m.connect(front, back)
+    m.connect(back, snk, latency_s=0.01, latency_kind="exponential")
+    return m
+
+
 MODELS = {
+    "router": _router,
+    "graph": _graph,
+    "mix": _mix,
+    "latency-chain": _latency_chain,
+    "sink-latency-chain": _sink_latency_chain,
     "mm1": lambda: mm1_model(8.0, 10.0, 40.0, warmup_s=10.0),
     "pipeline": lambda: pipeline_model(8.0, (0.05, 0.08, 0.06), 40.0),
     "mixed-chain": _mixed_chain,
@@ -100,16 +194,27 @@ def test_kernel_rejects_bad_inputs(cuda):
         event_step.block_step(compiled, state, U.cpu(), params)
 
 
-def test_run_ensemble_on_the_card_matches_the_cpu_run(cuda):
-    model = pipeline_model(8.0, (0.05, 0.08, 0.06), 20.0)
+@pytest.mark.parametrize(
+    "build, shape",
+    [
+        (lambda: pipeline_model(8.0, (0.05, 0.08, 0.06), 20.0), "chain"),
+        (_mix, "graph"),
+    ],
+    ids=["chain", "mix"],
+)
+def test_run_ensemble_on_the_card_matches_the_cpu_run(cuda, build, shape):
+    model = build()
     before = event_step.block_step.launches
     card = run_ensemble(model, n_replicas=128, seed=5)
     launches = event_step.block_step.launches - before
     cpu = run_ensemble(model, n_replicas=128, seed=5, device="cpu")
-    assert card.engine_path == "scan+cuda" and card.kernel_shape == "chain"
+    assert card.engine_path == "scan+cuda" and card.kernel_shape == shape
     assert cpu.engine_path == "scan"
     assert launches == max(card.block_occupancy)
-    for field in ("simulated_events", "sink_count", "server_completed", "blocks_total"):
+    for field in (
+        "simulated_events", "sink_count", "server_completed", "blocks_total",
+        "transit_dropped", "limiter_admitted", "limiter_dropped",
+    ):
         assert getattr(card, field) == getattr(cpu, field), field
     assert int(card.sink_hist.sum()) == int(cpu.sink_hist.sum())
     np.testing.assert_allclose(card.server_mean_wait_s, cpu.server_mean_wait_s, rtol=1e-5)
