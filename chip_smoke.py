@@ -27,7 +27,18 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      means swept over linspace(0.1, 0.95, R) / 15, blocks 0-1 and 60;
    - mix: limiter -> random router over [weighted router over s0, s1;
      s2], every server exiting through a weighted router over [sink
-     behind a 2 ms exponential edge, s2], blocks 0-1 and 40.
+     behind a 2 ms exponential edge, s2], blocks 0-1 and 40;
+   - mg1-<family>: the M/G/1 of tests/integration/test_tpu_mg1.py
+     (lambda=8, mean 0.1, rho=0.8, queue 512, horizon 160 s, warmup
+     40 s) once per family: erlang k=2 and k=3, hyperexp service_scv=4,
+     lognormal service_scv=2, pareto pareto_alpha=3; blocks 0-3 and 80;
+   - families: the chain erlang-3 -> lognormal -> pareto (means 0.05,
+     0.08, 0.06 s, lambda=8, horizon 160 s), 3-wide service windows,
+     blocks 0 and 40;
+   - profile: bench_kernel_graph as bench.py defines it, its 20 -> 40
+     req/s ramp over 20 s included, blocks 0-1 and 60;
+   - spike: a spike of 20/s over a base of 2/s in [10, 20) wired
+     straight to the sink, horizon 30 s, blocks 0-1 and 6.
    Integer leaves must be equal and float leaves are expected bitwise
    equal; a float difference is printed and must stay within rel 1e-6;
 4. timing: the kernel's (launched with prebuilt arguments), the
@@ -36,8 +47,12 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    and router (CUDA events, after warm-up, every replica live), beside
    the kernel's bound (the bytes a block must move over 3.35 TB/s:
    every dense state leaf read and written once, the uniforms and the
-   parameters; ring, transit, histogram and router/limiter traffic left
-   out, so a lower bound);
+   parameters, and the profile tables once per launch; ring, transit,
+   histogram and router/limiter traffic left out, so a lower bound; the
+   operations bound counts the float operations a step needs, each
+   service draw's by its family and each profiled source fire's two
+   table searches, a transcendental call counted as one operation), and
+   the same for the lognormal and pareto M/G/1 and the profile graph;
 5. the main path, run_ensemble on cuda at 65,536 replicas through the
    entry point a user calls, with the launch count set to 0 just before
    each run and read just after; each must run through the kernel once
@@ -51,13 +66,28 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      exponential edge delay keeps each stream Poisson, so every server's
      mean wait must be within 1% of 0.4 s and the sink's mean latency
      within 1% of 0.5 + 0.005 = 0.505 s, with no transit drop;
-   - graph: the graph model above.
+   - graph: the graph model above;
+   - mg1-<family>: each M/G/1 above, its mean wait within a gate of the
+     Pollaczek-Khinchine value rho E[S] (1 + cv^2) / (2 (1 - rho)): 1%
+     for erlang-2 and erlang-3, 2% for hyperexp and lognormal, 5% for
+     pareto(3), whose wait has no finite variance; no drop, but for
+     pareto at most 1e-4 of its jobs (see MG1_FAMILIES);
+   - profile: bench_kernel_graph at its max_events, no transit drop;
+   - arrivals: a source wired straight to the sink (the models of
+     tests/integration/test_tpu_widened.py): a ramp 2 -> 10 over 30 s,
+     a spike of 20 over a base of 2 in [10, 20), and the constant-kind
+     ramp; the mean arrivals per replica within 0.5% of the tables'
+     Lambda(horizon) and within 1% of the analytic integral (180, 240,
+     180), and for the constant-kind ramp every replica within 3 of 180
+     (read from the state of a block loop of the same model).
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
-kernel once per shape, every number of an entry from one model: mm1,
-chain, fanout (the router shape) and graph, the models the main path
-runs. Every number printed carries the card's name and power limit.
+kernel once per shape or extension, every number of an entry from one
+model: mm1, chain, fanout (the router shape), graph, the lognormal M/G/1
+(the family sampler) and the profile graph (the profile tables), the
+models the main path runs. Every number printed carries the card's name
+and power limit.
 Details, the router and mix models' included, also go to
 chiprun_out/chip_smoke.json.
 """
@@ -91,18 +121,47 @@ PEAK_F32_OPS_PER_S = 67e12
 # operations bound stays a lower bound.
 OPS_PER_STEP_BASE = 5
 OPS_PER_STEP_PER_SERVER = 2
+# Float operations of one service draw by family id (constant,
+# exponential, erlang, hyperexp, lognormal, pareto), a transcendental
+# call counted as one: erlang-3 takes one more multiply than erlang-2,
+# and lognormal's erfinv is log1p, a root, nine multiply-adds and the
+# scaling around them.
+OPS_PER_DRAW = {0: 0, 1: 2, 2: 4, 3: 4, 4: 29, 5: 4}
+OPS_PER_ERLANG3_DRAW = 5
+# Float operations of one profiled source fire: two 9-probe searches of
+# the 512-point tables, two lerps and the gap.
+OPS_PER_PROFILE_FIRE = 35
 FLOAT_RTOL = 1e-6
 TIMED_BLOCKS = 20
-# Times per block that the first slice measured through block_step
-# (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's through the
-# wrapper, the like-for-like figure.
-EARLIER_KERNEL_MS = {"mm1": 0.0869, "chain": 0.2021}
+# Kernel times per block of the previous slice's proof run (NVIDIA H100
+# 80GB HBM3, 700 W), printed beside this run's.
+EARLIER_KERNEL_MS = {"mm1": 0.0865, "chain": 0.2032, "router": 0.3048, "graph": 0.1445}
 # bench.py's Pallas benches: horizon and fan-out width.
 BENCH_HORIZON_S = 40.0
 N_FANOUT = 4
 FANOUT_EDGE_S = 0.005
 FANOUT_LAM = 32.0
 LIBRARY_NOTE = "none: no single PyTorch call computes an event step"
+# The M/G/1 families: (server shape, the service's cv^2, the P-K gate,
+# the largest share of jobs dropped). Only pareto drops: a uniform at
+# its floor (1e-12, one draw in 2^23 of the 23-bit uniform) makes a
+# 667 s service, and the 512-slot queue behind it overflows; the JAX
+# package drops the same 165 jobs at 8,192 replicas (seed 0).
+MG1_MEAN_S = 0.1
+MG1_FAMILIES = {
+    "erlang2": ({"service": "erlang", "service_k": 2}, 0.5, 0.01, 0.0),
+    "erlang3": ({"service": "erlang", "service_k": 3}, 1.0 / 3.0, 0.01, 0.0),
+    "hyperexp": ({"service": "hyperexp", "service_scv": 4.0}, 4.0, 0.02, 0.0),
+    "lognormal": ({"service": "lognormal", "service_scv": 2.0}, 2.0, 0.02, 0.0),
+    # mean-matched pareto(a): cv^2 = (a-1)^2 / (a (a-2)) - 1
+    "pareto": ({"service": "pareto", "pareto_alpha": 3.0}, 2.0**2 / (3.0 * 1.0) - 1.0, 0.05, 1e-4),
+}
+# bench.py's bench_kernel_graph: the ramp's peak rate and its budget.
+PEAK_RATE = 40.0
+PROFILE_MAX_EVENTS = int(4.0 * PEAK_RATE * BENCH_HORIZON_S) + 64
+ARRIVALS_HORIZON_S = 30.0
+# Kernels-line entries whose main-path run has another name.
+RUN_OF_ENTRY = {"families": "mg1-lognormal"}
 
 
 class SmokeFailure(RuntimeError):
@@ -150,16 +209,20 @@ def router_model(policy: str = "round_robin", horizon_s: float = BENCH_HORIZON_S
     return model
 
 
-def graph_model() -> EnsembleModel:
+def graph_model(ramp: bool = False) -> EnsembleModel:
     """bench.py's bench_kernel_graph two-tier DAG (least_outstanding front
     tier of 2 servers -> a second least_outstanding router -> shared back
-    tier of 2 -> sink) with a constant 30 req/s Poisson source in place
-    of the 20 -> 40 req/s ramp (rate profiles are not ported yet)."""
+    tier of 2 -> sink) behind its ramp from 20 to 40 req/s over 20 s, or
+    (``ramp=False``) a constant 30 req/s Poisson source, the earlier
+    stand-in whose time stays comparable."""
     model = EnsembleModel(
         horizon_s=BENCH_HORIZON_S, warmup_s=BENCH_HORIZON_S / 4,
         transit_capacity=16, macro_block=MACRO,
     )
-    src = model.source(rate=30.0)
+    if ramp:
+        src = model.ramp_source(PEAK_RATE / 2, PEAK_RATE, BENCH_HORIZON_S / 2)
+    else:
+        src = model.source(rate=30.0)
     front = [model.server(concurrency=1, service_mean=0.02, queue_capacity=256) for _ in range(2)]
     back = [model.server(concurrency=1, service_mean=0.02, queue_capacity=256) for _ in range(2)]
     front_lb = model.router(policy="least_outstanding", targets=front)
@@ -198,6 +261,57 @@ def mix_model() -> EnsembleModel:
     for server in (s0, s1, s2):
         model.connect(server, exit_router)
     return model
+
+
+def mg1_model(family: str) -> EnsembleModel:
+    """tests/integration/test_tpu_mg1.py's M/G/1 at this script's size."""
+    model = EnsembleModel(horizon_s=HORIZON_S, warmup_s=WARMUP_S, macro_block=MACRO)
+    src = model.source(rate=LAM)
+    srv = model.server(
+        concurrency=1, service_mean=MG1_MEAN_S, queue_capacity=512,
+        **MG1_FAMILIES[family][0],
+    )
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    return model
+
+
+def families_model() -> EnsembleModel:
+    """erlang-3 -> lognormal -> pareto, means 0.05 / 0.08 / 0.06 s."""
+    model = EnsembleModel(horizon_s=HORIZON_S, macro_block=MACRO)
+    src = model.source(rate=LAM)
+    stages = [
+        model.server(service_mean=0.05, service="erlang", service_k=3, queue_capacity=512),
+        model.server(service_mean=0.08, service="lognormal", service_scv=2.0, queue_capacity=512),
+        model.server(service_mean=0.06, service="pareto", pareto_alpha=3.0, queue_capacity=512),
+    ]
+    model.connect(src, stages[0])
+    for upstream, downstream in zip(stages, stages[1:]):
+        model.connect(upstream, downstream)
+    model.connect(stages[-1], model.sink())
+    return model
+
+
+# Sources wired straight to the sink: (source constructor, analytic Lambda(horizon)).
+ARRIVALS = {
+    "ramp": (lambda m: m.ramp_source(2.0, 10.0, 30.0), (2.0 + 10.0) / 2 * 30.0),
+    "spike": (lambda m: m.spike_source(2.0, 20.0, 10.0, 20.0), 2.0 * 20.0 + 20.0 * 10.0),
+    "ramp-constant": (
+        lambda m: m.ramp_source(2.0, 10.0, 30.0, kind="constant"), (2.0 + 10.0) / 2 * 30.0
+    ),
+}
+
+
+def arrivals_model(kind: str) -> EnsembleModel:
+    model = EnsembleModel(horizon_s=ARRIVALS_HORIZON_S, macro_block=MACRO)
+    model.connect(ARRIVALS[kind][0](model), model.sink())
+    return model
+
+
+def pk_wait(scv: float) -> float:
+    """Pollaczek-Khinchine mean wait of the M/G/1 at lambda=LAM."""
+    rho = LAM * MG1_MEAN_S
+    return rho * MG1_MEAN_S * (1.0 + scv) / (2.0 * (1.0 - rho))
 
 
 ROUTER_SWEEPS = {
@@ -296,6 +410,7 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
     blocks = [draw(compiled, keys, b, macro) for b in range(TIMED_BLOCKS + 2)]
     for b in range(2):  # warm-up
         event_step.block_step(compiled, state, blocks[b], params)
+    start = {k: v.clone() for k, v in state.items()}
     plain_state = {k: v.clone() for k, v in state.items()}
     wrapper_state = {k: v.clone() for k, v in state.items()}
     # The kernel alone: launches with arguments built beforehand, so the
@@ -322,8 +437,11 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
     draw(compiled, keys, 0, macro)  # warm-up
     draw_ms = elapsed_ms(lambda i: draw(compiled, keys, i, macro), TIMED_BLOCKS)
     per_replica = support.replica_working_set_bytes(compiled, macro, state)
-    bytes_per_block = REPLICAS * per_replica
-    ops_per_block = REPLICAS * macro * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER * compiled.nV)
+    bytes_per_block = support.launch_bytes(compiled, macro, state)
+    ops_per_block = (
+        REPLICAS * macro * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER * compiled.nV)
+        + extension_ops(compiled, start, state) / TIMED_BLOCKS
+    )
     bytes_ms = bytes_per_block / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops_per_block / PEAK_F32_OPS_PER_S * 1e3
     return {
@@ -340,12 +458,36 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
     }
 
 
+def extension_ops(compiled, before: dict, after: dict) -> int:
+    """Float operations the family draws and profile lookups of the
+    blocks between ``before`` and ``after`` needed, from the work those
+    blocks did: one draw per service started, one lookup pair per
+    source fire (the events that completed no server, on a model
+    without transit)."""
+
+    def grew(leaf: str) -> torch.Tensor:
+        return (after[leaf].long() - before[leaf].long()).sum(dim=0)
+
+    started = grew("srv_started")
+    ops = 0
+    for v in range(len(compiled.model.servers)):
+        kind = int(compiled.service_kind[v])
+        per_draw = OPS_PER_DRAW[kind]
+        if kind == 2 and compiled.srv_erlang_k[v] == 3.0:
+            per_draw = OPS_PER_ERLANG3_DRAW
+        ops += per_draw * int(started[v])
+    if compiled.has_profile.any():
+        require(not compiled.has_transit, "profile fire count assumes no transit events")
+        ops += OPS_PER_PROFILE_FIRE * int(grew("events") - grew("srv_completed").sum())
+    return ops
+
+
 # -- the main path -------------------------------------------------------------
-def main_path_run(label: str, model, tag: str, shape: str, sweeps=None) -> tuple:
+def main_path_run(label: str, model, tag: str, shape: str, sweeps=None, max_events=None) -> tuple:
     """run_ensemble on cuda with the launch count set to 0 just before and
     read just after; returns (result, launches)."""
     event_step.block_step.launches = 0
-    result = run_ensemble(model, n_replicas=REPLICAS, sweeps=sweeps)
+    result = run_ensemble(model, n_replicas=REPLICAS, sweeps=sweeps, max_events=max_events)
     launches = event_step.block_step.launches
     blocks_run = max(result.block_occupancy)
     print(
@@ -365,9 +507,25 @@ def main_path_run(label: str, model, tag: str, shape: str, sweeps=None) -> tuple
     return result, launches
 
 
-def within(value: float, ref: float, label: str) -> None:
-    print(f"  {label} {value:.6f} s (analytic {ref}, {100 * (value / ref - 1):+.3f}%)")
-    require(abs(value / ref - 1.0) <= 0.01, f"{label} {value} not within 1% of {ref}")
+def within(value: float, ref: float, label: str, rel: float = 0.01, unit: str = " s") -> None:
+    print(
+        f"  {label} {value:.6f}{unit} (reference {ref:.6f}, "
+        f"{100 * (value / ref - 1):+.3f}%, gate {100 * rel:g}%)"
+    )
+    require(abs(value / ref - 1.0) <= rel, f"{label} {value} not within {100 * rel:g}% of {ref}")
+
+
+def per_replica_sink_counts(model) -> torch.Tensor:
+    """Each replica's sink count after a block loop of ``model`` to its
+    horizon (the kernel, as run_ensemble drives it)."""
+    compiled, keys, params, state = fresh_run(model)
+    macro = macro_block_len(model)
+    halted = compiled.replica_halted(state)
+    block = 0
+    while not bool(halted.all()):
+        halted = event_step.block_step(compiled, state, draw(compiled, keys, block, macro), params)
+        block += 1
+    return state["sink_count"][:, 0]
 
 
 def report(result, launches: int) -> dict:
@@ -407,16 +565,27 @@ def main() -> int:
     router = router_model()
     fanout = router_model("random", HORIZON_S, WARMUP_S)
     graph = graph_model()
+    profile = graph_model(ramp=True)
     print(f"block checks at {REPLICAS} replicas, macro_block {MACRO}:")
-    # Keyed by the shape each main-path model runs as.
+    # Keyed by the kernels-line entry each main-path model stands for.
     max_abs = {
         "mm1": check_blocks("mm1", mm1, [0, 1, 2, 3, 78, 79, 80, 81]),
         "chain": check_blocks("chain", chain, [0, 40]),
         "router": check_blocks("fanout", fanout, [0, 1, 2, 3, 250, 251]),
         "graph": check_blocks("graph", graph, [0, 1, 60], GRAPH_SWEEPS),
+        "families": check_blocks("mg1-lognormal", mg1_model("lognormal"), [0, 1, 2, 3, 80]),
+        "profile": check_blocks("profile", profile, [0, 1, 60], GRAPH_SWEEPS),
     }
-    # Off the main path: the bench's router sweep and the trap coverage.
+    # The other families, the mixed chain and the spike source; off the
+    # main path, the bench's router sweep and the trap coverage.
     extra_abs = {
+        **{
+            f"mg1-{family}": check_blocks(f"mg1-{family}", mg1_model(family), [0, 1, 2, 3, 80])
+            for family in MG1_FAMILIES
+            if family != "lognormal"
+        },
+        "families-chain": check_blocks("families", families_model(), [0, 40]),
+        "spike": check_blocks("spike", arrivals_model("spike"), [0, 1, 6]),
         "router-bench": check_blocks("router", router, [0, 1, 2, 3, 100, 101], ROUTER_SWEEPS),
         "mix": check_blocks("mix", mix_model(), [0, 1, 40]),
     }
@@ -427,14 +596,18 @@ def main() -> int:
         "router": time_blocks(fanout, "fanout"),
         "graph": time_blocks(graph, "graph", GRAPH_SWEEPS),
         "router-bench": time_blocks(router, "router", ROUTER_SWEEPS),
+        "families": time_blocks(mg1_model("lognormal"), "mg1-lognormal"),
+        "pareto": time_blocks(mg1_model("pareto"), "mg1-pareto"),
+        "profile": time_blocks(profile, "profile", GRAPH_SWEEPS),
     }
     for shape, t in timings.items():
-        earlier = (
-            f" (first slice: {EARLIER_KERNEL_MS[shape]} ms)" if shape in EARLIER_KERNEL_MS else ""
-        )
+        earlier = ""
+        if shape in EARLIER_KERNEL_MS:
+            change = 100 * (t["kernel_ms"] / EARLIER_KERNEL_MS[shape] - 1)
+            earlier = f" (previous slice: {EARLIER_KERNEL_MS[shape]} ms, {change:+.1f}%)"
         print(
-            f"timing {shape} ({t['model']}): kernel {t['kernel_ms']:.4f} ms/block, through "
-            f"the wrapper {t['wrapper_ms']:.4f} ms/block{earlier}, plain "
+            f"timing {shape} ({t['model']}): kernel {t['kernel_ms']:.4f} ms/block{earlier}, through "
+            f"the wrapper {t['wrapper_ms']:.4f} ms/block, plain "
             f"{t['plain_ms']:.3f} ms/block, threefry draw {t['draw_ms']:.4f} ms/block, "
             f"bound {t['bound_ms']:.4f} ms/block ({t['bound_by']}: "
             f"{t['bytes_per_block'] / 1e6:.1f} MB/block) {tag}"
@@ -455,6 +628,30 @@ def main() -> int:
     within(result.sink_mean_latency_s[0], 1.0 / (MU - lam) + FANOUT_EDGE_S, "fanout sink mean latency")
     runs["router"] = (result, launches)
     runs["graph"] = main_path_run("graph", graph_model(), tag, "graph", GRAPH_SWEEPS)
+    for family, (_shape, scv, gate, drop_share) in MG1_FAMILIES.items():
+        result, launches = main_path_run(f"mg1-{family}", mg1_model(family), tag, "mm1")
+        dropped, completed = result.server_dropped[0], result.server_completed[0]
+        print(f"  mg1-{family} dropped {dropped} of {dropped + completed} jobs (gate {drop_share:g})")
+        require(dropped <= drop_share * (dropped + completed), f"mg1-{family}: {dropped} drops")
+        within(result.server_mean_wait_s[0], pk_wait(scv), f"mg1-{family} mean wait (P-K)", gate)
+        runs[f"mg1-{family}"] = (result, launches)
+    result, launches = main_path_run(
+        "profile", graph_model(ramp=True), tag, "graph", GRAPH_SWEEPS, PROFILE_MAX_EVENTS
+    )
+    require(result.transit_dropped == [0] * 4, f"profile: transit drops {result.transit_dropped}")
+    runs["profile"] = (result, launches)
+    for kind, (_build, analytic) in ARRIVALS.items():
+        model = arrivals_model(kind)
+        result, launches = main_path_run(f"arrivals-{kind}", model, tag, "chain")
+        table = float(_Compiled(model).profile_cum[0, -1])
+        mean = result.sink_count[0] / REPLICAS
+        within(mean, table, f"arrivals-{kind} per replica vs the tables", 0.005, unit="")
+        within(mean, analytic, f"arrivals-{kind} per replica vs the integral", 0.01, unit="")
+        runs[f"arrivals-{kind}"] = (result, launches)
+    counts = per_replica_sink_counts(arrivals_model("ramp-constant"))
+    low, high = int(counts.min()), int(counts.max())
+    print(f"  arrivals-ramp-constant per replica: {low} to {high} (analytic 180)")
+    require(abs(low - 180) <= 3 and abs(high - 180) <= 3, f"ramp-constant counts {low}..{high}")
 
     print(f"library_ms: {LIBRARY_NOTE}")
     kernels = {
@@ -464,7 +661,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": "happysim_tpu_torch/kernels/csrc/event_step.cuh",
                 "replaces": "happysim_tpu/tpu/kernels/event_step.py:312",
-                "launches": runs[shape][1],
+                "launches": runs[RUN_OF_ENTRY.get(shape, shape)][1],
                 "max_abs_err": max_abs[shape],
                 "ms": timings[shape]["kernel_ms"],
                 "plain_ms": timings[shape]["plain_ms"],
@@ -472,7 +669,7 @@ def main() -> int:
                 "bound_by": timings[shape]["bound_by"],
                 "library_ms": None,
             }
-            for shape in ("mm1", "chain", "router", "graph")
+            for shape in ("mm1", "chain", "router", "graph", "families", "profile")
         ]
     }
     out_dir = Path("chiprun_out")

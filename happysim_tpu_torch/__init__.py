@@ -24,6 +24,7 @@ this package                       JAX package
 ``kernels/support.py``             ``happysim_tpu/tpu/kernels/support.py``
 ``kernels/event_step.py``          ``happysim_tpu/tpu/kernels/event_step.py``
 ``kernels/csrc/event_step.cu``     the Pallas kernel of ``build_block_step``
+``numerics.py``                    ``jnp.interp`` and XLA's float32 erfinv
 ``convert.py``                     (none: numpy state/params across)
 =================================  =========================================
 
@@ -31,8 +32,11 @@ What runs: single-source, single-sink graphs of servers, routers
 (random, round-robin, weighted, least-outstanding) and token-bucket
 limiters, from ``mm1_model`` and ``pipeline_model`` to load-balancer
 fan-outs, multi-tier DAGs and "done or continue" feedback (Poisson or
-constant arrivals, constant or exponential service, any concurrency and
-queue capacity, zero-latency or latency-carrying edges, warmup). Every
+constant arrivals, flat or shaped by a ramp or spike ``RateProfile``,
+wired to any node or straight to the sink; constant, exponential,
+erlang-2/3, hyperexponential, lognormal or pareto service, any
+concurrency and queue capacity, zero-latency or latency-carrying edges,
+warmup). Every
 other feature of the JAX package raises ``NotImplementedError`` naming
 itself and its ROADMAP item. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
@@ -42,6 +46,7 @@ from happysim_tpu_torch.engine import EnsembleResult, run_ensemble
 from happysim_tpu_torch.model import (
     EnsembleModel,
     NodeRef,
+    RateProfile,
     mm1_model,
     pipeline_model,
 )
@@ -50,6 +55,7 @@ __all__ = [
     "EnsembleModel",
     "EnsembleResult",
     "NodeRef",
+    "RateProfile",
     "mm1_model",
     "pipeline_model",
     "run_ensemble",

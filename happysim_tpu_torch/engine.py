@@ -30,6 +30,7 @@ the reported totals are order-free and exact.
 from __future__ import annotations
 
 import logging
+import math
 import time as _wall
 from dataclasses import dataclass
 from dataclasses import field as dataclasses_field
@@ -40,6 +41,7 @@ import torch
 
 from happysim_tpu_torch import rng
 from happysim_tpu_torch.kernels import event_step, support
+from happysim_tpu_torch.numerics import erfinv, fma_f32, interp
 from happysim_tpu_torch.model import (
     LIMITER,
     ROUTER,
@@ -65,6 +67,9 @@ INF = float("inf")
 HIST_BINS = 80
 HIST_LO_LOG10 = -5.0
 HIST_DECADES = 8.0
+
+# Grid points of a rate profile's cumulative-rate lookup tables.
+PROFILE_GRID_POINTS = 512
 
 # Default macro-block length: event steps per kernel launch and per RNG
 # chunk. The RNG stream is keyed by (absolute block, row within block), so
@@ -203,9 +208,15 @@ class EnsembleResult:
         }
 
 
-# Service family ids (JAX numbering; the port runs 0 and 1).
-_SERVICE_KIND_IDS = {"constant": 0, "exponential": 1}
-_SERVICE_DRAWS = {0: 0, 1: 1}
+# Service family ids (JAX numbering).
+_SERVICE_KIND_IDS = {
+    "constant": 0, "exponential": 1, "erlang": 2,
+    "hyperexp": 3, "lognormal": 4, "pareto": 5,
+}
+# Uniform draws each service family consumes (erlang resolved per-model).
+_SERVICE_DRAWS = {0: 0, 1: 1, 2: 2, 3: 2, 4: 1, 5: 1}
+# float32 sqrt(2), as jnp.sqrt(2.0) gives it.
+_SQRT2 = float(np.sqrt(np.float32(2.0)))
 
 
 class _Compiled:
@@ -236,15 +247,53 @@ class _Compiled:
         servers = model.servers
         self.slot_valid = np.zeros((self.nV, self.C), np.bool_)
         self.queue_cap = np.zeros((self.nV,), np.int32)
-        self.service_kind = np.zeros((self.nV,), np.int32)
         self.srv_concurrency = np.ones((self.nV,), np.int32)
+        # Service family per server and its shape constants, formed in
+        # float64 and cast once, as the JAX engine does.
+        self.service_kind = np.zeros((self.nV,), np.int32)
+        self.srv_erlang_k = np.full((self.nV,), 2.0, np.float32)
+        self.srv_hyp_p1 = np.full((self.nV,), 0.5, np.float32)
+        self.srv_hyp_f1 = np.ones((self.nV,), np.float32)
+        self.srv_hyp_f2 = np.ones((self.nV,), np.float32)
+        self.srv_ln_sigma = np.zeros((self.nV,), np.float32)
+        self.srv_par_alpha = np.full((self.nV,), 2.5, np.float32)
+        self.srv_par_xmf = np.ones((self.nV,), np.float32)
         for v, spec in enumerate(servers):
             self.slot_valid[v, : spec.concurrency] = True
             self.queue_cap[v] = spec.queue_capacity
-            self.service_kind[v] = _SERVICE_KIND_IDS[spec.service]
             self.srv_concurrency[v] = spec.concurrency
+            self.service_kind[v] = _SERVICE_KIND_IDS[spec.service]
+            if spec.service == "erlang":
+                self.srv_erlang_k[v] = float(spec.service_k)
+            elif spec.service == "hyperexp":
+                # Balanced two-phase: p1 = (1 + sqrt((c2-1)/(c2+1))) / 2,
+                # branch means m_i = mean / (2 p_i).
+                c2 = spec.service_scv
+                p1 = 0.5 * (1.0 + math.sqrt((c2 - 1.0) / (c2 + 1.0)))
+                self.srv_hyp_p1[v] = p1
+                self.srv_hyp_f1[v] = 1.0 / (2.0 * p1)
+                self.srv_hyp_f2[v] = 1.0 / (2.0 * (1.0 - p1))
+            elif spec.service == "lognormal":
+                # cv^2 = exp(sigma^2) - 1; the sampler keeps the mean.
+                self.srv_ln_sigma[v] = math.sqrt(math.log(1.0 + spec.service_scv))
+            elif spec.service == "pareto":
+                # x_m = mean (alpha-1)/alpha keeps E[S] = mean.
+                self.srv_par_alpha[v] = spec.pareto_alpha
+                self.srv_par_xmf[v] = (spec.pareto_alpha - 1.0) / spec.pareto_alpha
+        # The families present decide how many service-draw slots a step
+        # carries; erlang takes k of them.
         present = sorted({int(k) for k in self.service_kind[: len(servers)]}) or [1]
-        self.n_svc_draws = max(_SERVICE_DRAWS[k] for k in present)
+        self.families_present = present
+        draws_needed = dict(_SERVICE_DRAWS)
+        if 2 in present:
+            draws_needed[2] = int(
+                max(
+                    self.srv_erlang_k[v]
+                    for v in range(len(servers))
+                    if self.service_kind[v] == 2
+                )
+            )
+        self.n_svc_draws = max(draws_needed[k] for k in present)
 
         self.arrival_is_poisson = np.array(
             [s.arrival == "poisson" for s in model.sources], np.bool_
@@ -276,6 +325,8 @@ class _Compiled:
         )
         self.hop_depth = self._router_hop_depth()
         self._assign_uniform_slots()
+        self._build_profile_tables()
+        self._device_tables: dict = {}
 
     def _edges(self):
         for s in self.model.sources:
@@ -350,6 +401,46 @@ class _Compiled:
             slot += self.n_svc_draws
         self.n_draws = max(slot, 1)
 
+    # -- profile tables ------------------------------------------------------
+    def _build_profile_tables(self) -> None:
+        """Cumulative-rate grids of the profiled sources: Lambda(t), the
+        integral of the rate over [0, t], by the trapezoid rule on a
+        uniform float64 grid over the horizon, cast to float32. The next
+        arrival solves Lambda(t') = Lambda(t) + E by two lookups (forward,
+        then inverse), extrapolating at the final rate past the grid."""
+        horizon = float(self.model.horizon_s)
+        self.has_profile = np.array(
+            [s.profile is not None and s.profile.kind != "constant"
+             for s in self.model.sources],
+            np.bool_,
+        )
+        n_grid = PROFILE_GRID_POINTS
+        self.profile_times = np.zeros((self.nS, n_grid), np.float32)
+        self.profile_cum = np.zeros((self.nS, n_grid), np.float32)
+        self.profile_end_rate = np.zeros((self.nS,), np.float32)
+        for i, source in enumerate(self.model.sources):
+            if not self.has_profile[i]:
+                continue
+            grid = np.linspace(0.0, horizon, n_grid)
+            rates = np.array([source.profile.rate_at(source.rate, t) for t in grid])
+            cumulative = np.concatenate(
+                [[0.0], np.cumsum((rates[1:] + rates[:-1]) / 2.0 * np.diff(grid))]
+            )
+            self.profile_times[i] = grid
+            self.profile_cum[i] = cumulative
+            self.profile_end_rate[i] = max(rates[-1], 1e-9)
+
+    def profile_tensors(self, device) -> tuple:
+        """The ``(nS, G)`` float32 time and cumulative tables on
+        ``device``, made once per device and kept with the model."""
+        key = str(torch.device(device))
+        if key not in self._device_tables:
+            self._device_tables[key] = (
+                torch.from_numpy(self.profile_times).to(device),
+                torch.from_numpy(self.profile_cum).to(device),
+            )
+        return self._device_tables[key]
+
     # -- state -------------------------------------------------------------
     def init_state(self, keys: torch.Tensor, params: dict) -> dict:
         """Per-replica state for ``keys`` ``(R, 2)`` uint32: the leaves of
@@ -404,20 +495,78 @@ class _Compiled:
         poisson_gap = -torch.log(u) / rate
         constant_gap = torch.ones_like(rate) / rate
         poisson = torch.as_tensor(self.arrival_is_poisson, device=rate.device)
-        return torch.where(poisson, poisson_gap, constant_gap)
+        flat = torch.where(poisson, poisson_gap, constant_gap)
+        if not self.has_profile.any():
+            return flat
+        # Profiled sources invert their integral table from t = 0.
+        zero = torch.zeros_like(flat[:, 0])
+        gaps = []
+        for i in range(self.nS):
+            if self.has_profile[i]:
+                target = -torch.log(u[:, i]) if self.arrival_is_poisson[i] else zero + 1.0
+                gaps.append(self._invert_profile(i, zero, target))
+            else:
+                gaps.append(flat[:, i])
+        return torch.stack(gaps, dim=1)
 
     # -- sampling ----------------------------------------------------------
     def _sample_service(self, u, base: Optional[int], v: int, params):
-        """One service draw per lane for server ``v`` from the window at
-        ``base``: the mean (constant) or ``-log(u) * mean`` (exponential)."""
+        """One service draw per lane for server ``v`` from the
+        ``n_svc_draws``-wide window at ``base`` (uniforms ua, ub, uc), by
+        its family, as JAX's ``_sample_service`` computes it; JAX selects
+        among the families present by kind, which is server ``v``'s own."""
         mean = params["srv_mean"][:, v]
-        if self.service_kind[v] == 0:
+        kind = int(self.service_kind[v])
+        if kind == 0:
             return mean
-        return -torch.log(u[:, base]) * mean
+        dev = mean.device
+        ua = u[:, base]
+        if kind == 1:
+            return -torch.log(ua) * mean
+        if kind == 2:
+            if self.srv_erlang_k[v] == 2.0:
+                return -torch.log(ua * u[:, base + 1]) * mean * 0.5
+            # XLA rewrites JAX's "/ 3.0" as a multiply by float32(1/3).
+            product = ua * u[:, base + 1] * u[:, base + 2]
+            return -torch.log(product) * mean * _f32(1.0 / 3.0, dev)
+        if kind == 3:
+            factor = torch.where(
+                ua < _f32(self.srv_hyp_p1[v], dev),
+                _f32(self.srv_hyp_f1[v], dev),
+                _f32(self.srv_hyp_f2[v], dev),
+            )
+            return -torch.log(u[:, base + 1]) * mean * factor
+        if kind == 4:
+            sigma = _f32(self.srv_ln_sigma[v], dev)
+            z = _f32(_SQRT2, dev) * erfinv(2.0 * ua - 1.0)
+            return mean * torch.exp(sigma * z - 0.5 * sigma * sigma)
+        alpha = _f32(self.srv_par_alpha[v], dev)
+        return mean * _f32(self.srv_par_xmf[v], dev) * torch.pow(ua, -1.0 / alpha)
 
-    def _sample_gap(self, u, i: int, params):
+    def _profile_cum_at(self, i: int, t):
+        """Lambda_i(t), extrapolated at the final rate past the grid."""
+        times, cum = (table[i] for table in self.profile_tensors(t.device))
+        inside = interp(t, times, cum)
+        end_rate = _f32(self.profile_end_rate[i], t.device)
+        beyond = fma_f32(t - times[-1], end_rate.expand_as(t), cum[-1].expand_as(t))
+        return torch.where(t <= times[-1], inside, beyond)
+
+    def _invert_profile(self, i: int, t, target_increment):
+        """Gap g such that Lambda_i(t+g) - Lambda_i(t) = target_increment."""
+        times, cum = (table[i] for table in self.profile_tensors(t.device))
+        target = self._profile_cum_at(i, t) + target_increment
+        inside = interp(target, cum, times)
+        beyond = times[-1] + (target - cum[-1]) / _f32(self.profile_end_rate[i], t.device)
+        t_next = torch.where(target <= cum[-1], inside, beyond)
+        return torch.clamp_min(t_next - t, 1e-9)
+
+    def _sample_gap(self, u, i: int, t, params):
+        poisson = self.arrival_is_poisson[i]
+        if self.has_profile[i]:
+            increment = -torch.log(u[:, self.U_GAP]) if poisson else torch.ones_like(t)
+            return self._invert_profile(i, t, increment)
         rate = params["src_rate"][:, i]
-        if self.arrival_is_poisson[i]:
+        if poisson:
             return -torch.log(u[:, self.U_GAP]) / rate
         return torch.ones_like(rate) / rate
 
@@ -609,7 +758,7 @@ class _Compiled:
 
     # -- event branches ----------------------------------------------------
     def _fire_source(self, i: int, state, desc, lanes, t, u, params):
-        gap = self._sample_gap(u, i, params)
+        gap = self._sample_gap(u, i, t, params)
         next_time = t + gap
         stopped = next_time > _f32(self.stop_after[i], t.device)
         src_next = state["src_next"][:, i]
@@ -780,6 +929,12 @@ def _source_jobs(model: EnsembleModel, source, rate: float) -> float:
         if source.stop_after_s is not None
         else model.horizon_s
     )
+    if source.profile is not None and source.profile.kind != "constant":
+        # Trapezoid over the profile (the integral the tables encode).
+        grid = np.linspace(0.0, window, 256)
+        rates = np.array([source.profile.rate_at(source.rate, t) for t in grid])
+        trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy<2.0
+        return float(trapezoid(rates, grid))
     return rate * window
 
 
@@ -854,6 +1009,8 @@ def _resolve_params(model: EnsembleModel, compiled: _Compiled, n_replicas: int, 
     if unknown:
         raise ValueError(f"unknown sweep parameters {sorted(unknown)}")
     if "source_rate" in sweeps:
+        if compiled.has_profile.any():
+            raise ValueError("source_rate sweeps are incompatible with profiled sources")
         arr = np.asarray(sweeps["source_rate"], np.float32)
         if arr.ndim == 1:
             arr = np.tile(arr[:, None], (1, compiled.nS))

@@ -6,20 +6,36 @@
 
 extern "C" int hs_event_step_max_servers() { return HS_MAX_NV; }
 
+extern "C" int hs_event_step_max_profile_grid() { return HS_MAX_PROFILE_GRID; }
+
 extern "C" int hs_event_step_args_size() { return (int)sizeof(EventStepArgs); }
+
+template <int MAXV, bool GRAPH>
+static void launch_shape(const EventStepArgs& args, dim3 grid, dim3 block, cudaStream_t s) {
+  if (args.ext) {
+    // The profile tables' shared-memory stage, when the source has one.
+    const size_t smem = args.has_profile ? 2 * (size_t)args.prof_n * sizeof(float) : 0;
+    event_step_kernel<MAXV, GRAPH, true><<<grid, block, smem, s>>>(args);
+  } else {
+    event_step_kernel<MAXV, GRAPH, false><<<grid, block, 0, s>>>(args);
+  }
+}
 
 template <int MAXV>
 static void launch(const EventStepArgs& args, dim3 grid, dim3 block, cudaStream_t s) {
   if (args.graph) {
-    event_step_kernel<MAXV, true><<<grid, block, 0, s>>>(args);
+    launch_shape<MAXV, true>(args, grid, block, s);
   } else {
-    event_step_kernel<MAXV, false><<<grid, block, 0, s>>>(args);
+    launch_shape<MAXV, false>(args, grid, block, s);
   }
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
   if (args->R <= 0) return 0;
+  if (args->ext && args->has_profile &&
+      (args->prof_n < 2 || args->prof_n > HS_MAX_PROFILE_GRID))
+    return (int)cudaErrorInvalidValue;
   const dim3 block(HS_THREADS);
   const dim3 grid((args->R + HS_THREADS - 1) / HS_THREADS);
   cudaStream_t s = (cudaStream_t)stream;

@@ -13,18 +13,33 @@
 // _complete_server with its FIFO queue pull, _arrive_server and
 // _deliver_sink.
 //
-// event_step_kernel<MAXV, GRAPH> has two instantiations per server bound:
+// event_step_kernel<MAXV, GRAPH, EXT> has four instantiations per server
+// bound:
 // - GRAPH = false, the "mm1" and "chain" shapes (lines of servers joined
-//   by free edges): a delivery is a server arrival or the sink;
+//   by free edges, or a source wired straight to the sink): a delivery is
+//   a server arrival or the sink;
 // - GRAPH = true, the "router" and "graph" shapes and every model with a
 //   limiter or a latency edge: transit arrivals join the candidates, and
 //   a delivery is a bounded walk over the topology tables (limiter
 //   admit/drop, router choice with depth-indexed route draws, edge
 //   latency, then a transit park, a server arrival or the sink). JAX
 //   computes every router branch and selects per lane; the walk runs
-//   only the chosen one, which is the same thing.
-// Everything GRAPH adds sits under `if constexpr`, so the line
-// instantiations compile to the line-only code.
+//   only the chosen one, which is the same thing;
+// - EXT = true adds the M/G/1 family sampler (erlang-2/3, hyperexp,
+//   lognormal, pareto, by the server's kind) and the rate-profile gap
+//   (two table lookups per source fire). EXT = false keeps the constant
+//   and exponential draws and the flat-rate gap.
+// Everything GRAPH and EXT add sits under `if constexpr`, so the line
+// and flat instantiations compile to the code they had without them.
+//
+// The profile tables. JAX hoists the (G,) time and cumulative grids as
+// tile-shared kernel operands (const_spec), read once per tile. Here the
+// wrapper passes them as device tensors, and each thread block copies
+// them into shared memory once (2 G floats, 4 KB at G = 512) before its
+// lanes step: every fire makes two binary searches of ~9 probes each at
+// data-dependent addresses, and shared memory serves those without the
+// read-only cache's sector traffic. Lanes of a warp search different
+// addresses, so the cost is bank conflicts, not device-memory bytes.
 //
 // Design. One thread per replica. The clock, the source's next arrival,
 // the sink accumulators and, per server, the queue head and length, the
@@ -43,7 +58,11 @@
 // What bounds it on this card: bytes moved per block. A block reads and
 // writes each replica's dense registers once and reads its uniforms
 // (macro * n_draws floats); the arithmetic is a few dozen float ops per
-// event against 67 TFLOP/s. What this simple design leaves on the table:
+// event against 67 TFLOP/s. The extended instantiations add a few dozen
+// more per service draw (lognormal's erfinv: log1pf, a root and eight
+// double multiply-adds, then expf; pareto's powf) and per profiled fire
+// (two searches of the shared tables), which leaves bytes the bound.
+// What this simple design leaves on the table:
 // the per-replica rows are strided, so a warp's accesses to U, the slot
 // arrays, the rings, the transit rows and sink_hist are uncoalesced (one
 // 32-byte sector per lane), and lanes diverge on the event kind and the
@@ -52,8 +71,12 @@
 //
 // Float agreement with the plain version: build with -fmad=false and
 // without --use_fast_math (every torch op is its own kernel, so the
-// plain version never contracts a multiply-add), and use logf/log10f and
-// IEEE division as torch's CUDA ops do.
+// plain version never contracts a multiply-add), and use logf/log10f,
+// log1pf, sqrtf, expf, powf and IEEE division as torch's CUDA ops do.
+// Where the JAX engine's XLA contracts c + a * b into one multiply-add
+// (the erfinv polynomial, the interp lerp, the profile extrapolation),
+// both versions evaluate it in double and round once to float
+// (numerics.py::fma_f32).
 
 #pragma once
 
@@ -68,6 +91,7 @@
 #define HS_MAX_LIMITERS 4
 #define HS_HIST_BINS 80
 #define HS_THREADS 128
+#define HS_MAX_PROFILE_GRID 4096
 
 // Node kinds in the topology tables.
 #define HS_SINK 0
@@ -83,6 +107,13 @@
 #define HS_LAT_NONE 0
 #define HS_LAT_CONSTANT 1
 #define HS_LAT_EXPONENTIAL 2
+// Service families (the JAX kind ids).
+#define HS_SVC_CONSTANT 0
+#define HS_SVC_EXPONENTIAL 1
+#define HS_SVC_ERLANG 2
+#define HS_SVC_HYPEREXP 3
+#define HS_SVC_LOGNORMAL 4
+#define HS_SVC_PARETO 5
 
 // A downstream node and the edge that leads to it.
 struct HsRef {
@@ -151,7 +182,21 @@ struct EventStepArgs {
   float lim_rate[HS_MAX_LIMITERS];
   float lim_cap[HS_MAX_LIMITERS];
   HsRef lim_ref[HS_MAX_LIMITERS];  // where each limiter delivers
+  // EXT only
+  int ext;                   // 1: a family beyond constant/exponential, or a profile
+  int has_profile;           // 1: the source's rate follows the tables below
+  int prof_n;                // grid points G
+  float prof_end_rate;       // the rate past the grid
+  const float* prof_times;   // (G,) the source's time grid, device memory
+  const float* prof_cum;     // (G,) its cumulative rate
+  int erlang_k[HS_MAX_NV];   // 2 or 3
+  float hyp_p1[HS_MAX_NV], hyp_f1[HS_MAX_NV], hyp_f2[HS_MAX_NV];
+  float ln_sigma[HS_MAX_NV];
+  float par_alpha[HS_MAX_NV], par_xmf[HS_MAX_NV];
 };
+
+// The profile tables, staged per thread block (EXT instantiations).
+extern __shared__ float hs_tables[];
 
 // Register-array access with a run-time index: unrolled selects, so the
 // arrays stay in registers (the JAX step's one-hot _pick / where(row)).
@@ -183,6 +228,96 @@ __device__ __forceinline__ T pick_arg(const T* a, int i) {
 
 __device__ __forceinline__ float sample_service(int kind, float mean, float u) {
   return kind == 0 ? mean : (-logf(u)) * mean;
+}
+
+// c + a * b rounded once: exact product and sum in double, then float
+// (numerics.py::fma_f32; -fmad=false keeps the double ops apart).
+__device__ __forceinline__ float fma_f64(float a, float b, float c) {
+  return (float)((double)c + (double)a * (double)b);
+}
+
+// Giles' float32 erfinv as XLA expands it (numerics.py::erfinv).
+__device__ __forceinline__ float erfinv_f32(float x) {
+  const float w = -log1pf(x * -x);
+  const bool low = w < 5.0f;
+  const float s = low ? w - 2.5f : sqrtf(w) - 3.0f;
+  float p = low ? 2.81022636e-08f : -0.000200214257f;
+  p = fma_f64(p, s, low ? 3.43273939e-07f : 0.000100950558f);
+  p = fma_f64(p, s, low ? -3.5233877e-06f : 0.00134934322f);
+  p = fma_f64(p, s, low ? -4.39150654e-06f : -0.00367342844f);
+  p = fma_f64(p, s, low ? 0.00021858087f : 0.00573950773f);
+  p = fma_f64(p, s, low ? -0.00125372503f : -0.0076224613f);
+  p = fma_f64(p, s, low ? -0.00417768164f : 0.00943887047f);
+  p = fma_f64(p, s, low ? 0.246640727f : 1.00167406f);
+  p = fma_f64(p, s, low ? 1.50140941f : 2.83297682f);
+  return fabsf(x) == 1.0f ? x * INFINITY : p * x;
+}
+
+// One service draw of family `kind` from the window u[0..n_svc_draws)
+// (JAX _sample_service; the kind picks the family, as jnp.select does).
+template <int MAXV>
+__device__ __forceinline__ float sample_family(const EventStepArgs& a, int w, float mean,
+                                               const float* u) {
+  const int kind = pick_arg<MAXV>(a.svc_kind, w);
+  if (kind == HS_SVC_CONSTANT) return mean;
+  const float ua = u[0];
+  if (kind == HS_SVC_EXPONENTIAL) return (-logf(ua)) * mean;
+  if (kind == HS_SVC_ERLANG) {
+    if (pick_arg<MAXV>(a.erlang_k, w) == 2) return (-logf(ua * u[1])) * mean * 0.5f;
+    // XLA rewrites JAX's "/ 3.0" as a multiply by float(1/3).
+    return (-logf(ua * u[1] * u[2])) * mean * (1.0f / 3.0f);
+  }
+  if (kind == HS_SVC_HYPEREXP) {
+    const float factor = ua < pick_arg<MAXV>(a.hyp_p1, w) ? pick_arg<MAXV>(a.hyp_f1, w)
+                                                          : pick_arg<MAXV>(a.hyp_f2, w);
+    return (-logf(u[1])) * mean * factor;
+  }
+  if (kind == HS_SVC_LOGNORMAL) {
+    const float sigma = pick_arg<MAXV>(a.ln_sigma, w);
+    const float z = 1.41421354f * erfinv_f32(2.0f * ua - 1.0f);
+    return mean * expf(sigma * z - 0.5f * sigma * sigma);
+  }
+  const float alpha = pick_arg<MAXV>(a.par_alpha, w);
+  return mean * pick_arg<MAXV>(a.par_xmf, w) * powf(ua, -1.0f / alpha);
+}
+
+// numpy/jnp searchsorted(xp, x, side="right") on a sorted (n,) grid: the
+// number of entries <= x.
+__device__ __forceinline__ int search_right(const float* xp, int n, float x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (xp[mid] <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// jnp.interp(x, xp, fp) on (n,) grids (numerics.py::interp).
+__device__ __forceinline__ float interp(float x, const float* xp, const float* fp, int n) {
+  const int i = min(max(search_right(xp, n, x), 1), n - 1);
+  const float f_lo = fp[i - 1];
+  const float df = fp[i] - f_lo;
+  const float dx = xp[i] - xp[i - 1];
+  const float delta = x - xp[i - 1];
+  float f = fabsf(dx) <= 1.42108547e-14f ? f_lo : fma_f64(delta / dx, df, f_lo);
+  if (x < xp[0]) f = fp[0];
+  if (x > xp[n - 1]) f = fp[n - 1];
+  return f;
+}
+
+// JAX _invert_profile: the gap g with Lambda(t + g) - Lambda(t) = inc,
+// Lambda read forward then inverted, each extrapolated at the final rate
+// past the grid.
+__device__ __forceinline__ float invert_profile(const EventStepArgs& a, const float* times,
+                                                const float* cum, float t, float inc) {
+  const int n = a.prof_n;
+  const float t_end = times[n - 1], c_end = cum[n - 1];
+  const float at = t <= t_end ? interp(t, times, cum, n)
+                              : fma_f64(t - t_end, a.prof_end_rate, c_end);
+  const float target = at + inc;
+  const float t_next = target <= c_end ? interp(target, cum, times, n)
+                                       : t_end + (target - c_end) / a.prof_end_rate;
+  return fmaxf(t_next - t, 1e-9f);
 }
 
 __device__ __forceinline__ int hist_bin(float latency) {
@@ -228,7 +363,7 @@ __device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs&
 
 // _arrive_server: start in the first free slot, else enqueue at the ring
 // tail, else drop.
-template <int MAXV>
+template <int MAXV, bool EXT>
 __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                               float t, float created, const float* u) {
   const int C = a.C, K = a.K;
@@ -238,9 +373,13 @@ __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs
   for (int c = 0; c < cw; ++c)
     if (isinf(row[c])) { first_free = c; break; }
   if (first_free >= 0) {
-    const float ua = a.u_svc1 >= 0 ? u[a.u_svc1] : 0.5f;
-    const float service =
-        sample_service(pick_arg<MAXV>(a.svc_kind, w), pick(L.mean, w), ua);
+    float service;
+    if constexpr (EXT) {
+      service = sample_family<MAXV>(a, w, pick(L.mean, w), u + a.u_svc1);
+    } else {
+      const float ua = a.u_svc1 >= 0 ? u[a.u_svc1] : 0.5f;
+      service = sample_service(pick_arg<MAXV>(a.svc_kind, w), pick(L.mean, w), ua);
+    }
     const float done_at = t + service;
     row[first_free] = done_at;
     L.slot_created[w * C + first_free] = created;
@@ -327,14 +466,14 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
 // graph it is a bounded walk: a limiter refills and admits or drops; a
 // router chooses and recurses into a router target with hop + 1; the
 // walk ends at a sink, a transit park, or a server arrival.
-template <int MAXV, bool GRAPH>
+template <int MAXV, bool GRAPH, bool EXT>
 __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, HsRef dest,
                                         float t, float created, const float* u) {
   if constexpr (!GRAPH) {
     if (dest.kind == HS_SINK) {
       deliver_sink(L, a, t, created);
     } else {
-      arrive_server(L, a, dest.index, t, created, u);
+      arrive_server<MAXV, EXT>(L, a, dest.index, t, created, u);
     }
   } else {
     bool park = false;  // chosen by a router with a latency-carrying target edge
@@ -369,17 +508,31 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
       } else if (park || dest.lat_kind != HS_LAT_NONE) {
         into_transit(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat), created);
       } else {
-        arrive_server(L, a, dest.index, t, created, u);
+        arrive_server<MAXV, EXT>(L, a, dest.index, t, created, u);
       }
       return;
     }
   }
 }
 
-template <int MAXV, bool GRAPH>
+template <int MAXV, bool GRAPH, bool EXT>
 __global__ void __launch_bounds__(HS_THREADS)
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const float* prof_times = nullptr;
+  const float* prof_cum = nullptr;
+  if constexpr (EXT) {
+    if (a.has_profile) {  // every thread of the block stages, then syncs
+      const int n = a.prof_n;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        hs_tables[i] = a.prof_times[i];
+        hs_tables[n + i] = a.prof_cum[i];
+      }
+      __syncthreads();
+      prof_times = hs_tables;
+      prof_cum = hs_tables + n;
+    }
+  }
   if (r >= a.R) return;
   const int nV = a.nV, C = a.C, K = a.K, TR = a.TR, nd = a.n_draws;
   const size_t rv = (size_t)r * nV;
@@ -456,7 +609,17 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     float created;
     int from = -1, from_slot = 0;
     if (ev < 0) {  // _fire_source
-      const float gap = a.src_poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
+      float gap;
+      if constexpr (EXT) {
+        if (a.has_profile) {
+          const float inc = a.src_poisson ? -logf(u[a.u_gap]) : 1.0f;
+          gap = invert_profile(a, prof_times, prof_cum, t, inc);
+        } else {
+          gap = a.src_poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
+        }
+      } else {
+        gap = a.src_poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
+      }
       const float next_time = t + gap;
       src_next = next_time > a.stop_after ? INFINITY : next_time;
       dest = a.src_ref;
@@ -489,7 +652,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       dest = HsRef{HS_SERVER, v, 0.0f, HS_LAT_NONE};
     }
 
-    deliver<MAXV, GRAPH>(L, a, dest, t, created, u);
+    deliver<MAXV, GRAPH, EXT>(L, a, dest, t, created, u);
 
     if (from >= 0) {
       // FIFO pull into the freed slot. On a line the delivery went to
@@ -499,9 +662,13 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       float* row = L.slot_done + from * C;
       if (ql > 0 && (!GRAPH || isinf(row[from_slot]))) {
         const int head = pick(L.q_head, from);
-        const float ub = a.u_svc2 >= 0 ? u[a.u_svc2] : 0.5f;
-        const float service =
-            sample_service(pick_arg<MAXV>(a.svc_kind, from), pick(L.mean, from), ub);
+        float service;
+        if constexpr (EXT) {
+          service = sample_family<MAXV>(a, from, pick(L.mean, from), u + a.u_svc2);
+        } else {
+          const float ub = a.u_svc2 >= 0 ? u[a.u_svc2] : 0.5f;
+          service = sample_service(pick_arg<MAXV>(a.svc_kind, from), pick(L.mean, from), ub);
+        }
         row[from_slot] = t + service;
         L.slot_created[from * C + from_slot] = L.q_created[from * K + head];
         put(L.q_head, from, (head + 1) % K);

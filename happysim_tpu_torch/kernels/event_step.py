@@ -8,10 +8,14 @@ mask. For CUDA tensors it launches the hand-written kernel in
 ``csrc/event_step.cu`` (or raises); for CPU tensors it runs
 :func:`plain_block_step`, the engine's torch-op step applied ``macro``
 times, which is also the kernel's yardstick on the card. Lines of
-servers joined by free edges ("mm1", "chain") launch the kernel's line
-instantiation; every model with a router, a limiter or a latency edge
-launches its graph instantiation, which walks the topology tables in its
-arguments.
+servers joined by free edges ("mm1", "chain", and a source wired
+straight to the sink) launch the kernel's line instantiation; every model
+with a router, a limiter or a latency edge launches its graph
+instantiation, which walks the topology tables in its arguments. Either
+comes in an extended form, launched when a server draws from a family
+beyond constant and exponential or the source follows a rate profile:
+the family sampler and the profile lookup, with the profile tables
+passed as device tensors and staged in shared memory.
 
 The kernel is compiled on first use with ``nvcc`` from this package's
 sources into ``build/`` at the repository root, bound through a plain C
@@ -114,6 +118,16 @@ class _Args(ctypes.Structure):
             ("lim_cap", ctypes.c_float * _MAX_L),
             ("lim_ref", _Ref * _MAX_L),
         ]
+        + [(name, ctypes.c_int) for name in ("ext", "has_profile", "prof_n")]
+        + [("prof_end_rate", ctypes.c_float)]
+        + [(name, ctypes.c_void_p) for name in ("prof_times", "prof_cum")]
+        + [("erlang_k", ctypes.c_int * _MAX_NV)]
+        + [
+            (name, ctypes.c_float * _MAX_NV)
+            for name in (
+                "hyp_p1", "hyp_f1", "hyp_f2", "ln_sigma", "par_alpha", "par_xmf"
+            )
+        ]
     )
 
 
@@ -160,11 +174,16 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.hs_event_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
         lib.hs_event_step.restype = ctypes.c_int
-        for probe in ("hs_event_step_max_servers", "hs_event_step_args_size"):
+        for probe in (
+            "hs_event_step_max_servers", "hs_event_step_max_profile_grid",
+            "hs_event_step_args_size",
+        ):
             getattr(lib, probe).argtypes = []
             getattr(lib, probe).restype = ctypes.c_int
         if lib.hs_event_step_max_servers() != _MAX_NV:
             raise RuntimeError("event-step library and wrapper disagree on the server bound")
+        if lib.hs_event_step_max_profile_grid() != support.KERNEL_MAX_PROFILE_GRID:
+            raise RuntimeError("event-step library and wrapper disagree on the profile grid bound")
         if lib.hs_event_step_args_size() != ctypes.sizeof(_Args):
             raise RuntimeError("event-step library and wrapper disagree on the argument layout")
         _loaded["lib"] = lib
@@ -232,6 +251,21 @@ def _static_args(compiled) -> _Args:
         args.lim_rate[l] = float(compiled.lim_rate[l])
         args.lim_cap[l] = float(compiled.lim_cap[l])
         args.lim_ref[l] = _ref(limiter.downstream, limiter.latency)
+    # The extended instantiation: the family constants per server, and
+    # the profile's size and final rate (its table pointers are set per
+    # device in launch_args).
+    args.has_profile = int(compiled.has_profile[0])
+    args.ext = int(bool(args.has_profile) or max(compiled.families_present) > 1)
+    args.prof_n = compiled.profile_times.shape[1] if args.has_profile else 0
+    args.prof_end_rate = float(compiled.profile_end_rate[0])
+    for v in range(compiled.nV):
+        args.erlang_k[v] = int(compiled.srv_erlang_k[v])
+        args.hyp_p1[v] = float(compiled.srv_hyp_p1[v])
+        args.hyp_f1[v] = float(compiled.srv_hyp_f1[v])
+        args.hyp_f2[v] = float(compiled.srv_hyp_f2[v])
+        args.ln_sigma[v] = float(compiled.srv_ln_sigma[v])
+        args.par_alpha[v] = float(compiled.srv_par_alpha[v])
+        args.par_xmf[v] = float(compiled.srv_par_xmf[v])
     return args
 
 
@@ -298,6 +332,10 @@ def launch_args(compiled, state: dict, U: torch.Tensor, params: dict, halted: to
                 setattr(args, field, x.data_ptr())
         args.src_rate = params["src_rate"].data_ptr()
         args.srv_mean = params["srv_mean"].data_ptr()
+        if args.has_profile:
+            # Kept alive by the compiled model, one copy per device.
+            times, cum = compiled.profile_tensors(device)
+            args.prof_times, args.prof_cum = times[0].data_ptr(), cum[0].data_ptr()
         args.R, args.macro = R, macro
         checked = layout[1] = _Checked(key, bound, args)
     _check("U", U, (R, macro, compiled.n_draws), device)

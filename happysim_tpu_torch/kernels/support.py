@@ -50,6 +50,9 @@ KERNEL_MAX_LIMITERS = 4
 #: In-flight transit slots per server (a loop over device memory at each
 #: park and transit arrival).
 KERNEL_MAX_TRANSIT = 4096
+#: Grid points of a rate profile's tables: the two (G,) float32 tables
+#: are staged in a thread block's shared memory, 32 KB at this bound.
+KERNEL_MAX_PROFILE_GRID = 4096
 
 #: Leaves the kernel reads and writes; the other state leaves (the key and
 #: the inert brownout/deadline columns) are not touched. The transit
@@ -101,7 +104,7 @@ def kernel_plan(model: EnsembleModel) -> dict:
     if reasons or plan is None:
         raise NotImplementedError(
             "; ".join(dict.fromkeys(reasons or ["unsupported topology"]))
-            + " — the port runs one walked source->sink graph (ROADMAP A.5b)"
+            + " — the port runs one walked source->sink graph (ROADMAP A.5c)"
         )
     return plan
 
@@ -236,6 +239,11 @@ def check_kernel_bounds(compiled, macro: int) -> None:
         ("router hop depth", compiled.hop_depth, KERNEL_MAX_HOPS),
         ("limiters", len(model.limiters), KERNEL_MAX_LIMITERS),
         ("transit_capacity", compiled.TR if compiled.has_transit else 0, KERNEL_MAX_TRANSIT),
+        (
+            "profile grid points",
+            compiled.profile_times.shape[1] if compiled.has_profile.any() else 0,
+            KERNEL_MAX_PROFILE_GRID,
+        ),
     )
     for name, value, bound in bounds:
         if value > bound:
@@ -253,11 +261,31 @@ def replica_tile_bytes(leaves) -> int:
     )
 
 
+def shared_const_bytes(compiled) -> int:
+    """Bytes of the constants a launch shares across replicas: one ``(G,)``
+    time grid and one ``(G,)`` cumulative grid per profiled source, plus
+    16 bytes of scalars each (JAX ``shared_const_bytes``)."""
+    n_profiled = int(np.asarray(compiled.has_profile).sum())
+    if n_profiled == 0:
+        return 0
+    n_grid = int(compiled.profile_times.shape[1])
+    return n_profiled * (2 * n_grid * 4 + 16)
+
+
+def launch_bytes(compiled, macro: int, state: dict) -> int:
+    """Bytes one launch over every replica of ``state`` must move: each
+    replica's working set, and the shared profile tables read once."""
+    R = state["t"].shape[0]
+    return R * replica_working_set_bytes(compiled, macro, state) + shared_const_bytes(compiled)
+
+
 def replica_working_set_bytes(compiled, macro: int, state: dict) -> int:
     """Bytes one replica must move in one macro-block on the kernel path:
     every dense kernel leaf read once and written once, the block's
     uniform rows and the parameter rows read once. ``state`` is an
-    ``(R, ...)`` state dict; the sparse leaves' traffic is left out."""
+    ``(R, ...)`` state dict; the sparse leaves' traffic is left out, and
+    so are the shared profile tables (:func:`launch_bytes` counts them
+    once per launch)."""
     dense = [
         state[name][0]
         for name in KERNEL_LEAVES

@@ -16,14 +16,17 @@ Build a model exactly as with the JAX package::
 The port runs any single-source, single-sink graph of servers, routers
 (``random``, ``round_robin``, ``weighted``, ``least_outstanding``) and
 token-bucket limiters: Poisson or constant sources (with
-``stop_after_s``), servers of any concurrency and queue capacity with
-constant or exponential service, zero-latency or latency-carrying edges
-(constant or exponential, parked in ``transit_capacity`` in-flight slots
-per server), multi-tier router DAGs, shared backends and "done or
-continue" feedback through a server, ``warmup_s`` and ``macro_block``.
-Every other feature of the JAX model API raises
-:class:`NotImplementedError` naming itself and the ROADMAP item that
-ports it; the port has no second engine to fall back to.
+``stop_after_s``), optionally shaped by a ramp or spike
+:class:`RateProfile`, wired to a server, a router, a limiter or straight
+to the sink; servers of any concurrency and queue capacity with any of
+the six service families (constant, exponential, erlang-2/3, balanced
+hyperexponential, lognormal, mean-matched pareto), mixed freely;
+zero-latency or latency-carrying edges (constant or exponential, parked
+in ``transit_capacity`` in-flight slots per server), multi-tier router
+DAGs, shared backends and "done or continue" feedback through a server,
+``warmup_s`` and ``macro_block``. Every other feature of the JAX model
+API raises :class:`NotImplementedError` naming itself and the ROADMAP
+item that ports it; the port has no second engine to fall back to.
 """
 
 from __future__ import annotations
@@ -38,18 +41,17 @@ ROUTER = "router"
 LIMITER = "limiter"
 
 ARRIVAL_KINDS = ("poisson", "constant")
-#: Service families the port runs (JAX kind ids 0 and 1).
-SERVICE_KINDS = ("constant", "exponential")
-#: Service families of the JAX package that are not ported yet.
-UNPORTED_SERVICE_KINDS = ("erlang", "hyperexp", "lognormal", "pareto")
+# Service-time families. Beyond M/M shapes, the M/G/1 set: Erlang-k
+# (cv^2 = 1/k), balanced 2-phase hyperexponential (cv^2 = service_scv > 1),
+# lognormal (cv^2 = service_scv), and mean-matched Pareto (pareto_alpha > 2
+# for a finite-variance P-K oracle).
+SERVICE_KINDS = ("exponential", "constant", "erlang", "hyperexp", "lognormal", "pareto")
 ROUTER_POLICIES = ("random", "round_robin", "least_outstanding", "weighted")
 LATENCY_KINDS = ("constant", "exponential")
 
 # Builder features of the JAX package outside this port, each with the
 # ROADMAP item that ports it. Reaching one raises NotImplementedError.
 _UNPORTED = {
-    "ramp_source": "rate profiles (ROADMAP A.5b)",
-    "spike_source": "rate profiles (ROADMAP A.5b)",
     "telemetry": "windowed telemetry (ROADMAP A.7)",
     "correlated_outages": "correlated outages (ROADMAP A.7)",
     "circuit_breaker": "circuit breakers (ROADMAP A.8)",
@@ -67,9 +69,6 @@ _UNPORTED_SERVER_ARGS = {
     "retry_backoff_s": "backoff retries (ROADMAP A.6)",
     "retry_jitter": "retry jitter (ROADMAP A.6)",
     "hedge_delay_s": "hedged requests (ROADMAP A.6)",
-    "service_k": "the erlang service family (ROADMAP A.5b)",
-    "service_scv": "the hyperexp/lognormal service families (ROADMAP A.5b)",
-    "pareto_alpha": "the pareto service family (ROADMAP A.5b)",
     "outage": "brownout windows (ROADMAP A.7)",
     "fault": "fault schedules (ROADMAP A.7)",
 }
@@ -89,6 +88,70 @@ class NodeRef:
 
 
 @dataclass(frozen=True)
+class RateProfile:
+    """Time-varying arrival rate (host side; compiled to integral tables).
+
+    Kinds:
+      - ``constant``: rate(t) = base
+      - ``ramp``: base -> ``end_rate`` linearly over ``ramp_duration_s``,
+        then holds
+      - ``spike``: base, except ``spike_rate`` inside
+        [``spike_start_s``, ``spike_end_s``)
+    """
+
+    kind: str = "constant"
+    end_rate: float = 0.0
+    ramp_duration_s: float = 0.0
+    spike_rate: float = 0.0
+    spike_start_s: float = 0.0
+    spike_end_s: float = 0.0
+
+    def validate(self) -> None:
+        """Kind + per-kind parameter checks; every error names the
+        offending kind so a sweep over profiles reads unambiguously."""
+        if self.kind not in ("constant", "ramp", "spike"):
+            raise ValueError(
+                f"unknown profile kind {self.kind!r} "
+                "(valid kinds: 'constant', 'ramp', 'spike')"
+            )
+        if self.kind == "ramp":
+            if self.ramp_duration_s <= 0.0:
+                raise ValueError(
+                    f"profile kind 'ramp': ramp_duration_s must be > 0, "
+                    f"got {self.ramp_duration_s}"
+                )
+            if self.end_rate < 0.0:
+                raise ValueError(
+                    f"profile kind 'ramp': end_rate must be >= 0, "
+                    f"got {self.end_rate}"
+                )
+        if self.kind == "spike":
+            if self.spike_rate < 0.0:
+                raise ValueError(
+                    f"profile kind 'spike': spike_rate must be >= 0, "
+                    f"got {self.spike_rate}"
+                )
+            if not 0.0 <= self.spike_start_s < self.spike_end_s:
+                raise ValueError(
+                    f"profile kind 'spike': need 0 <= spike_start_s < "
+                    f"spike_end_s, got [{self.spike_start_s}, "
+                    f"{self.spike_end_s})"
+                )
+
+    def rate_at(self, base_rate: float, t: float) -> float:
+        if self.kind == "ramp":
+            if self.ramp_duration_s <= 0:
+                return self.end_rate
+            frac = min(t / self.ramp_duration_s, 1.0)
+            return base_rate + (self.end_rate - base_rate) * frac
+        if self.kind == "spike":
+            if self.spike_start_s <= t < self.spike_end_s:
+                return self.spike_rate
+            return base_rate
+        return base_rate
+
+
+@dataclass(frozen=True)
 class EdgeLatency:
     """Link latency applied while a job crosses an edge (packet loss is
     not ported: ROADMAP A.7)."""
@@ -104,6 +167,7 @@ class SourceSpec:
     stop_after_s: Optional[float] = None
     downstream: Optional[NodeRef] = None
     latency: EdgeLatency = field(default_factory=EdgeLatency)
+    profile: Optional[RateProfile] = None
 
 
 @dataclass
@@ -112,6 +176,9 @@ class ServerSpec:
     service_mean_s: float = 0.1
     service: str = "exponential"
     queue_capacity: int = 64
+    service_k: int = 2  # erlang phases
+    service_scv: float = 2.0  # hyperexp / lognormal squared cv
+    pareto_alpha: float = 2.5  # pareto tail index
     downstream: Optional[NodeRef] = None
     latency: EdgeLatency = field(default_factory=EdgeLatency)
 
@@ -189,16 +256,52 @@ class EnsembleModel:
         rate: float,
         kind: str = "poisson",
         stop_after_s: Optional[float] = None,
-        profile=None,
+        profile: Optional[RateProfile] = None,
     ) -> NodeRef:
         if kind not in ARRIVAL_KINDS:
             raise ValueError(f"arrival kind {kind!r} not in {ARRIVAL_KINDS}")
         if profile is not None:
-            raise not_ported("rate profiles (ROADMAP A.5b)")
+            profile.validate()
         self.sources.append(
-            SourceSpec(rate=rate, arrival=kind, stop_after_s=stop_after_s)
+            SourceSpec(rate=rate, arrival=kind, stop_after_s=stop_after_s, profile=profile)
         )
         return NodeRef(SOURCE, len(self.sources) - 1)
+
+    def ramp_source(
+        self,
+        start_rate: float,
+        end_rate: float,
+        ramp_duration_s: float,
+        kind: str = "poisson",
+    ) -> NodeRef:
+        """Arrival rate climbing linearly start->end over the ramp window."""
+        return self.source(
+            rate=start_rate,
+            kind=kind,
+            profile=RateProfile(
+                kind="ramp", end_rate=end_rate, ramp_duration_s=ramp_duration_s
+            ),
+        )
+
+    def spike_source(
+        self,
+        base_rate: float,
+        spike_rate: float,
+        spike_start_s: float,
+        spike_end_s: float,
+        kind: str = "poisson",
+    ) -> NodeRef:
+        """Constant base rate with a burst window at ``spike_rate``."""
+        return self.source(
+            rate=base_rate,
+            kind=kind,
+            profile=RateProfile(
+                kind="spike",
+                spike_rate=spike_rate,
+                spike_start_s=spike_start_s,
+                spike_end_s=spike_end_s,
+            ),
+        )
 
     def server(
         self,
@@ -206,26 +309,40 @@ class EnsembleModel:
         service_mean: float = 0.1,
         service: str = "exponential",
         queue_capacity: int = 64,
+        service_k: int = 2,
+        service_scv: float = 2.0,
+        pareto_alpha: float = 2.5,
         **unported,
     ) -> NodeRef:
         for name in unported:
             if name not in _UNPORTED_SERVER_ARGS:
                 raise TypeError(f"server() got an unexpected argument {name!r}")
             raise not_ported(_UNPORTED_SERVER_ARGS[name])
-        if service in UNPORTED_SERVICE_KINDS:
-            raise not_ported(f"{service} service times (ROADMAP A.5b)")
         if service not in SERVICE_KINDS:
             raise ValueError(f"service kind {service!r} not in {SERVICE_KINDS}")
         if concurrency < 1:
             raise ValueError("concurrency must be >= 1")
         if queue_capacity < 1:
             raise ValueError("queue_capacity must be >= 1")
+        if service == "erlang" and service_k not in (2, 3):
+            raise ValueError("erlang supports service_k in (2, 3)")
+        if service in ("hyperexp", "lognormal") and service_scv <= (
+            1.0 if service == "hyperexp" else 0.0
+        ):
+            raise ValueError(
+                "service_scv must be > 1 for hyperexp and > 0 for lognormal"
+            )
+        if service == "pareto" and pareto_alpha <= 1.0:
+            raise ValueError("pareto_alpha must be > 1 (finite mean)")
         self.servers.append(
             ServerSpec(
                 concurrency=concurrency,
                 service_mean_s=service_mean,
                 service=service,
                 queue_capacity=queue_capacity,
+                service_k=service_k,
+                service_scv=service_scv,
+                pareto_alpha=pareto_alpha,
             )
         )
         return NodeRef(SERVER, len(self.servers) - 1)
@@ -331,17 +448,17 @@ class EnsembleModel:
     # -- validation --------------------------------------------------------
     def validate(self) -> None:
         """Check the model against JAX's validation rules for the model API
-        above. Features the port does not run yet raise
-        NotImplementedError; so does a topology the kernel's walk declines,
-        when the model is compiled (``kernels.support.kernel_plan``)."""
+        above. Several sources or sinks raise NotImplementedError; so does
+        a topology the kernel's walk declines, when the model is compiled
+        (``kernels.support.kernel_plan``)."""
         if not self.sources:
             raise ValueError("Model needs at least one source")
         if not self.sinks:
             raise ValueError("Model needs at least one sink")
         if len(self.sources) > 1:
-            raise not_ported("models with several sources (ROADMAP A.5b)")
+            raise not_ported("models with several sources (ROADMAP A.5c)")
         if len(self.sinks) > 1:
-            raise not_ported("models with several sinks (ROADMAP A.5b)")
+            raise not_ported("models with several sinks (ROADMAP A.5c)")
         for i, source in enumerate(self.sources):
             if source.downstream is None:
                 raise ValueError(f"source[{i}] has no downstream")
@@ -354,8 +471,6 @@ class EnsembleModel:
         for i, server in enumerate(self.servers):
             if server.downstream is None:
                 raise ValueError(f"server[{i}] has no downstream")
-            if server.service in UNPORTED_SERVICE_KINDS:
-                raise not_ported(f"{server.service} service times (ROADMAP A.5b)")
             if server.service not in SERVICE_KINDS:
                 raise ValueError(f"server[{i}]: service kind {server.service!r}")
             if server.downstream.kind == ROUTER and not self.routers[
@@ -370,11 +485,6 @@ class EnsembleModel:
         for i, router in enumerate(self.routers):
             self._validate_router(i, router)
         self._validate_router_acyclic()
-        ref = self.sources[0].downstream
-        while ref.kind == LIMITER:
-            ref = self.limiters[ref.index].downstream
-        if ref.kind == SINK:
-            raise not_ported("sources wired straight to a sink (ROADMAP A.5b)")
 
     def _validate_router(self, i: int, router: RouterSpec) -> None:
         kinds = {t.kind for t in router.targets}

@@ -29,7 +29,13 @@ from happysim_tpu_torch import engine as tengine  # noqa: E402
 from happysim_tpu_torch import model as tmodel  # noqa: E402
 from happysim_tpu_torch import run_ensemble as t_run  # noqa: E402
 from happysim_tpu_torch.kernels import support  # noqa: E402
-from test_torch_event_step import GRAPH_MODELS, fanout, mix, shared_backend  # noqa: E402
+from test_torch_event_step import (  # noqa: E402
+    GRAPH_MODELS,
+    SLICE_MODELS,
+    fanout,
+    mix,
+    shared_backend,
+)
 
 N_REPLICAS = 256
 INT_FIELDS = (
@@ -94,6 +100,40 @@ def test_graph_whole_run_matches_jax_event_scan(name):
             getattr(got, field), getattr(expected, field), rtol=1e-4, err_msg=field
         )
     assert min(got.server_completed) > 0 and got.sink_count[0] > 0
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_MODELS))
+def test_family_and_profile_whole_run_matches_jax_event_scan(name):
+    """One model per service family, the mixed-family chain, the ramp
+    graph and sources wired straight to the sink, end to end: every
+    integer total equal (the latency histogram included), float means
+    within rel 1e-4, at the default event budget (passed explicitly,
+    which keeps the JAX side on its event scan)."""
+    build = SLICE_MODELS[name]
+    max_events = tengine._default_max_events(build(tmodel), None)
+    assert max_events == jengine._default_max_events(build(jmodel), None)
+    mesh = replica_mesh(jax.devices("cpu")[:1])
+    expected = j_run(build(jmodel), n_replicas=64, seed=3, mesh=mesh, max_events=max_events)
+    got = t_run(build(tmodel), n_replicas=64, seed=3, max_events=max_events, device="cpu")
+    assert expected.engine_path == "scan" and got.engine_path == "scan"
+    for field in INT_FIELDS:
+        assert getattr(got, field) == getattr(expected, field), field
+    np.testing.assert_array_equal(got.sink_hist, expected.sink_hist)
+    for field in FLOAT_FIELDS:
+        np.testing.assert_allclose(
+            getattr(got, field), getattr(expected, field), rtol=1e-4, err_msg=field
+        )
+    assert got.truncated_replicas == 0 and got.sink_count[0] > 0
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_MODELS))
+def test_slice_models_plan_like_jax(name):
+    """Families and profiles change no plan; a source wired to the sink
+    plans as a server-less "chain", as in JAX."""
+    expected, reason = j_kernel_plan(SLICE_MODELS[name](jmodel))
+    assert reason == ""
+    expected = {k: v for k, v in expected.items() if k != "chaos"}
+    assert support.kernel_plan(SLICE_MODELS[name](tmodel)) == expected
 
 
 @pytest.mark.parametrize("name", sorted(GRAPH_MODELS))
@@ -173,20 +213,10 @@ def _two_sinks(m):
     m.validate()
 
 
-def _erlang_spec(m):
-    m.servers[0].service = "erlang"
-    tengine._Compiled(m)
-
-
 def _off_chain_server(m):
     extra = m.server()
     m.connect(extra, tmodel.NodeRef(tmodel.SINK, 0))
     tengine._Compiled(m)
-
-
-def _source_to_sink(m):
-    m.connect(tmodel.NodeRef(tmodel.SOURCE, 0), tmodel.NodeRef(tmodel.SINK, 0))
-    m.validate()
 
 
 @pytest.mark.parametrize(
@@ -201,21 +231,15 @@ def _source_to_sink(m):
         (lambda m: m.leader_election(), "leader election"),
         (lambda m: m.trace_arrivals(None), "trace-driven arrivals"),
         (lambda m: m.correlated_outages(rate=1.0, mean_duration_s=1.0), "correlated outages"),
-        (lambda m: m.ramp_source(1.0, 2.0, 3.0), "rate profiles"),
-        (lambda m: m.source(rate=1.0, profile=object()), "rate profiles"),
         (lambda m: m.server(deadline_s=1.0), "deadlines"),
         (lambda m: m.server(max_retries=1), "retries"),
         (lambda m: m.server(hedge_delay_s=0.1), "hedged requests"),
         (lambda m: m.server(outage=(1.0, 2.0)), "brownout"),
         (lambda m: m.server(fault=object()), "fault schedules"),
-        (lambda m: m.server(service="erlang"), "erlang"),
-        (lambda m: m.server(service="lognormal"), "lognormal"),
-        (_erlang_spec, "erlang"),
         (lambda m: m.connect(tmodel.NodeRef(tmodel.SOURCE, 0), tmodel.NodeRef(tmodel.SERVER, 0), loss_p=0.1), "packet-loss"),
         (_two_sources, "several sources"),
         (_two_sinks, "several sinks"),
         (_off_chain_server, "server[1]"),
-        (_source_to_sink, "straight to a sink"),
     ],
 )
 def test_out_of_slice_features_raise_naming_themselves(mutate, feature):
@@ -320,7 +344,7 @@ def test_kernel_plan_declines_like_jax():
         jax_reason = reason[reason.index("(") + 1 : reason.index("); the lax")]
         with pytest.raises(NotImplementedError, match=re.escape(jax_reason)) as info:
             tengine._Compiled(build(tmodel))
-        assert "ROADMAP A.5b" in str(info.value)
+        assert "ROADMAP A.5c" in str(info.value)
 
 
 def test_kernel_plan_shapes_and_bounds():

@@ -124,6 +124,101 @@ GRAPH_MODELS = {
 }
 
 
+def mg1(mod, service, horizon_s=20.0, **shape):
+    """The M/G/1 of tests/integration/test_tpu_mg1.py (lambda=8, mean
+    0.1, queue 512) at a short horizon."""
+    m = mod.EnsembleModel(horizon_s=horizon_s, warmup_s=5.0)
+    src = m.source(rate=8.0)
+    srv = m.server(service_mean=0.1, service=service, queue_capacity=512, **shape)
+    m.connect(src, srv)
+    m.connect(srv, m.sink())
+    return m
+
+
+def families_chain(mod, horizon_s=20.0):
+    """erlang-3 -> lognormal -> pareto (3-wide service windows)."""
+    m = mod.EnsembleModel(horizon_s=horizon_s)
+    src = m.source(rate=8.0)
+    stages = [
+        m.server(service_mean=0.05, service="erlang", service_k=3, queue_capacity=64),
+        m.server(service_mean=0.08, service="lognormal", service_scv=2.0, queue_capacity=64),
+        m.server(service_mean=0.06, service="pareto", pareto_alpha=3.0, queue_capacity=64),
+    ]
+    m.connect(src, stages[0])
+    m.connect(stages[0], stages[1])
+    m.connect(stages[1], stages[2])
+    m.connect(stages[2], m.sink())
+    return m
+
+
+def ramp_graph(mod, horizon_s=20.0):
+    """bench.py's bench_kernel_graph DAG at a short horizon: a ramp to
+    twice the start rate over half the horizon, two least_outstanding
+    tiers of 2 servers."""
+    m = mod.EnsembleModel(horizon_s=horizon_s, warmup_s=horizon_s / 4, transit_capacity=16)
+    src = m.ramp_source(20.0, 40.0, horizon_s / 2)
+    front = [m.server(service_mean=0.02, queue_capacity=64) for _ in range(2)]
+    back = [m.server(service_mean=0.02, queue_capacity=64) for _ in range(2)]
+    front_lb = m.router(policy="least_outstanding", targets=front)
+    back_lb = m.router(policy="least_outstanding", targets=back)
+    snk = m.sink()
+    m.connect(src, front_lb)
+    for server in front:
+        m.connect(server, back_lb)
+    for server in back:
+        m.connect(server, snk)
+    return m
+
+
+def to_sink(mod, build_source, horizon_s=30.0):
+    """A source wired straight to the sink (no server)."""
+    m = mod.EnsembleModel(horizon_s=horizon_s)
+    m.connect(build_source(m), m.sink())
+    return m
+
+
+def spike_off_mixed(mod, horizon_s=30.0):
+    """A spike of rate 0 (a flat cumulative table) feeding a random
+    router over a hyperexp server behind a 10 ms exponential edge, a
+    constant one and an erlang-2 one. The constant service is 0.08 s:
+    at 0.1 s an unqueued job's latency sits on a histogram bin edge
+    (10^(k/10) s), where a one-ulp arrival-time difference from XLA's
+    CPU log moves it to the next bin (ROADMAP C)."""
+    m = mod.EnsembleModel(horizon_s=horizon_s, warmup_s=5.0, transit_capacity=8)
+    src = m.spike_source(6.0, 0.0, 10.0, 20.0)
+    servers = [
+        m.server(service_mean=0.1, service="hyperexp", service_scv=4.0),
+        m.server(service_mean=0.08, service="constant"),
+        m.server(service_mean=0.1, service="erlang", service_k=2),
+    ]
+    router = m.router(policy="random")
+    m.connect(src, router)
+    m.connect(router, servers[0], latency_s=0.01, latency_kind="exponential")
+    for server in servers[1:]:
+        m.connect(router, server)
+    snk = m.sink()
+    for server in servers:
+        m.connect(server, snk)
+    return m
+
+
+SLICE_MODELS = {
+    "mg1-erlang2": lambda mod: mg1(mod, "erlang", service_k=2),
+    "mg1-erlang3": lambda mod: mg1(mod, "erlang", service_k=3),
+    "mg1-hyperexp": lambda mod: mg1(mod, "hyperexp", service_scv=4.0),
+    "mg1-lognormal": lambda mod: mg1(mod, "lognormal", service_scv=2.0),
+    "mg1-pareto": lambda mod: mg1(mod, "pareto", pareto_alpha=3.0),
+    "families-chain": families_chain,
+    "ramp-graph": ramp_graph,
+    "ramp-sink": lambda mod: to_sink(mod, lambda m: m.ramp_source(2.0, 10.0, 30.0)),
+    "ramp-constant-sink": lambda mod: to_sink(
+        mod, lambda m: m.ramp_source(2.0, 10.0, 30.0, kind="constant")
+    ),
+    "spike-sink": lambda mod: to_sink(mod, lambda m: m.spike_source(2.0, 20.0, 10.0, 20.0)),
+    "spike-off-mixed": spike_off_mixed,
+}
+
+
 def _params(model, n):
     return {
         "src_rate": np.full((n, 1), model.sources[0].rate, np.float32),
@@ -310,6 +405,79 @@ def test_plain_step_matches_lax_block_scan_on_graphs(name):
     # Every replica served jobs, and every server saw work somewhere.
     assert int(tstate["srv_completed"].sum(dim=1).min()) > 0
     assert int(tstate["srv_completed"].sum(dim=0).min()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_MODELS))
+def test_plain_step_matches_lax_block_scan_on_families_and_profiles(name):
+    """Block-by-block parity for each service family, the mixed-family
+    chain, each profile kind (a spike of rate 0 included) and sources
+    wired straight to the sink: MACRO=32, 64 replicas, 8 chained
+    blocks, every leaf compared after every block, integer leaves
+    exactly, float leaves to rel 1e-5 plus GRAPH_ULPS ulp of the
+    horizon."""
+    macro, n = 32, 64
+    jm, tm = SLICE_MODELS[name](jmodel), SLICE_MODELS[name](tmodel)
+    jc, tc = JCompiled(jm), TCompiled(tm)
+    assert (tc.n_draws, tc.U_SVC1, tc.U_SVC2) == (jc.n_draws, jc.U_SVC1, jc.U_SVC2)
+    params = _params(jm, n)
+    jstate = _jax_state(jc, params, n, seed=2)
+    keys = jstate.pop("key")
+    tstate = convert.state_from_numpy({k: np.asarray(v) for k, v in jstate.items()})
+    tparams = convert.params_from_numpy(params)
+    run_block = _lax_block(jc, float(jm.horizon_s))
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    for block in range(8):
+        U = _block_u(keys, block, macro, jc.n_draws)
+        jstate = run_block(jstate, U, jparams)
+        plain_block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        _assert_leaves_match(
+            jstate, tstate, f"{name} lax block {block}",
+            atol=GRAPH_ULPS * float(np.spacing(np.float32(jm.horizon_s))),
+        )
+    # The blocks did real work: every server completed jobs somewhere,
+    # and without a server every replica's sink counted arrivals.
+    if tm.servers:
+        assert int(tstate["srv_completed"].sum(dim=0).min()) > 0
+    else:
+        assert int(tstate["sink_count"].min()) > 0
+
+
+@pytest.mark.parametrize("name", ["mg1-lognormal", "ramp-graph", "spike-off-mixed"])
+def test_profiled_and_family_init_state_matches_jax(name):
+    """The first gaps of profiled sources invert the table from t = 0."""
+    jm, tm = SLICE_MODELS[name](jmodel), SLICE_MODELS[name](tmodel)
+    params = _params(jm, 32)
+    expected = _jax_state(JCompiled(jm), params, 32, seed=4)
+    got = TCompiled(tm).init_state(rng.split(rng.PRNGKey(4), 32), convert.params_from_numpy(params))
+    assert set(got) == set(expected)
+    _assert_leaves_match(expected, got, "init_state")
+
+
+@pytest.mark.parametrize("name", ["mg1-lognormal", "families-chain", "ramp-graph", "spike-off-mixed"])
+def test_plain_step_matches_pallas_interpret_kernel_on_families_and_profiles(name):
+    """build_block_step in interpret mode, which hoists the profile
+    tables and the family constants as kernel operands: MACRO=2, 4
+    replicas, two chained blocks. (JAX's interpreter cannot run a model
+    without a server; the lax test above covers those.)"""
+    macro, n = 2, 4
+    jm, tm = SLICE_MODELS[name](jmodel), SLICE_MODELS[name](tmodel)
+    jc, tc = JCompiled(jm), TCompiled(tm)
+    params = _params(jm, n)
+    jstate = _jax_state(jc, params, n, seed=9)
+    keys = jstate.pop("key")
+    tstate = convert.state_from_numpy({k: np.asarray(v) for k, v in jstate.items()})
+    tparams = convert.params_from_numpy(params)
+    block_fn, _meta = build_block_step(jc, float(jm.horizon_s), macro, n, interpret=True)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    for block in range(2):
+        U = _block_u(keys, block, macro, jc.n_draws)
+        jstate = block_fn(jstate, U, jparams)
+        block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        _assert_leaves_match(
+            jstate, tstate, f"{name} pallas block {block}",
+            atol=GRAPH_ULPS * float(np.spacing(np.float32(jm.horizon_s))),
+        )
+    assert int(tstate["events"].min()) == 2 * macro
 
 
 def test_state_round_trips_through_numpy():
