@@ -38,7 +38,25 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    - profile: bench_kernel_graph as bench.py defines it, its 20 -> 40
      req/s ramp over 20 s included, blocks 0-1 and 60;
    - spike: a spike of 20/s over a base of 2/s in [10, 20) wired
-     straight to the sink, horizon 30 s, blocks 0-1 and 6.
+     straight to the sink, horizon 30 s, blocks 0-1 and 6;
+   - chaos: bench.py's bench_kernel_chaos without its telemetry (a
+     limiter before a round-robin over 4 servers with correlated
+     outage-mode faults, backoff 0.02 s with jitter 0.5 and 2 retries,
+     hedges on the even servers, 5 ms edges with 5% loss on the even
+     ones, transit capacity 16, horizon 40 s, the source swept over
+     linspace(4, 38, R)), blocks 0-3 and 150;
+   - deadline: bench.py's _hetero_model (deadline 8 s, 2 immediate
+     retries, horizon 120 s, warmup 20 s, the source swept over
+     linspace(1, 9.5, R)), blocks 0-3 and 60;
+   - backoff: a 2-server chain with deadline 0.3 s, 3 retries after a
+     0.05 s backoff with jitter 0.5, blocks 0-3 and 30;
+   - hedged-erlang2: an erlang-2 M/G/1 (lambda=4, mean 0.1) hedged at
+     0.2 s, blocks 0-3 and 30;
+   - degrade: pinned outage windows and a brownout on one server, then
+     pinned degrade windows (half the slots, 3x service) on the next,
+     blocks 0-3 and 10;
+   - lossy: a lossy line edge with a loss window and lossy router
+     targets, blocks 0-3 and 10.
    Integer leaves must be equal and float leaves are expected bitwise
    equal; a float difference is printed and must stay within rel 1e-6;
 4. timing: the kernel's (launched with prebuilt arguments), the
@@ -52,7 +70,8 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    operations bound counts the float operations a step needs, each
    service draw's by its family and each profiled source fire's two
    table searches, a transcendental call counted as one operation), and
-   the same for the lognormal and pareto M/G/1 and the profile graph;
+   the same for the lognormal and pareto M/G/1, the profile graph, and
+   the chaos and deadline models;
 5. the main path, run_ensemble on cuda at 65,536 replicas through the
    entry point a user calls, with the launch count set to 0 just before
    each run and read just after; each must run through the kernel once
@@ -79,14 +98,31 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      ramp; the mean arrivals per replica within 0.5% of the tables'
      Lambda(horizon) and within 1% of the analytic integral (180, 240,
      180), and for the constant-kind ramp every replica within 3 of 180
-     (read from the state of a block loop of the same model).
+     (read from the state of a block loop of the same model);
+   - chaos: the chaos model above at its bench budget (max_events 9,184):
+     hedge wins at most the hedges, fault retries booked, and the
+     packet losses within 3 sigma of 5% of the crossings on the lossy
+     targets (round-robin sends servers 0 and 2 every other delivery from
+     the router: ceil(admitted / 2) per replica);
+   - deadline-mm1: lambda=8, mu=10, deadline 0.5 s, no retries, horizon
+     640 s, warmup 40 s: the sojourn is Exp(mu - lam), so timed out over
+     completed within 2% of e^-1, and the mean wait within 1% of 0.4 s;
+   - hedged-mm1: lambda=4, mean 0.1, hedge 0.2 s, horizon 160 s: hedged
+     over completed within 1% of P(S > 0.2) = e^-2, and hedge wins over
+     hedges within 1% of 1/2 (memoryless service);
+   - the analytic models of tests/integration/test_tpu_faults.py at this
+     script's replica count: the fault drops of Exp(0.2)-gap /
+     Exp(1)-duration outages within 3 sigma of the two-state Markov
+     closed form, the packet losses of a 20% lossy edge within 3 sigma,
+     and a whole-horizon outage's exact retry accounting (fault retries
+     = 2 x fault drops).
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
 kernel once per shape or extension, every number of an entry from one
 model: mm1, chain, fanout (the router shape), graph, the lognormal M/G/1
-(the family sampler) and the profile graph (the profile tables), the
-models the main path runs. Every number printed carries the card's name
+(the family sampler), the profile graph (the profile tables) and the
+chaos model (the chaos branches), the models the main path runs. Every number printed carries the card's name
 and power limit.
 Details, the router and mix models' included, also go to
 chiprun_out/chip_smoke.json.
@@ -95,6 +131,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -104,6 +141,8 @@ import numpy as np
 import torch
 
 from happysim_tpu_torch import EnsembleModel, mm1_model, pipeline_model, rng, run_ensemble
+from happysim_tpu_torch.faults import duty_cycle
+from happysim_tpu_torch.model import FaultSpec
 from happysim_tpu_torch.engine import _Compiled, _resolve_params, macro_block_len
 from happysim_tpu_torch.kernels import event_step, support
 
@@ -135,7 +174,10 @@ FLOAT_RTOL = 1e-6
 TIMED_BLOCKS = 20
 # Kernel times per block of the previous slice's proof run (NVIDIA H100
 # 80GB HBM3, 700 W), printed beside this run's.
-EARLIER_KERNEL_MS = {"mm1": 0.0865, "chain": 0.2032, "router": 0.3048, "graph": 0.1445}
+EARLIER_KERNEL_MS = {
+    "mm1": 0.0855, "chain": 0.2072, "router": 0.3118, "graph": 0.1448,
+    "families": 0.1009, "pareto": 0.0921, "profile": 0.1823,
+}
 # bench.py's Pallas benches: horizon and fan-out width.
 BENCH_HORIZON_S = 40.0
 N_FANOUT = 4
@@ -162,6 +204,16 @@ PROFILE_MAX_EVENTS = int(4.0 * PEAK_RATE * BENCH_HORIZON_S) + 64
 ARRIVALS_HORIZON_S = 30.0
 # Kernels-line entries whose main-path run has another name.
 RUN_OF_ENTRY = {"families": "mg1-lognormal"}
+# bench.py's bench_kernel_chaos: servers, their mu, its budget.
+CHAOS_SERVERS, CHAOS_MU = 4, 10.0
+CHAOS_MAX_EVENTS = int(6.0 * 0.95 * CHAOS_SERVERS * CHAOS_MU * BENCH_HORIZON_S) + 64
+CHAOS_LOSS_P = 0.05
+# bench.py's _hetero_model: horizon and mu.
+HETERO_HORIZON_S, HETERO_MU = 120.0, 10.0
+# The deadline M/M/1 gate: sojourn ~ Exp(MU - LAM), so P(T > 0.5 s) = e^-1.
+DEADLINE_S, DEADLINE_HORIZON_S = 0.5, 640.0
+# The hedged M/M/1: P(S > 0.2 s) = e^-2 of starts hedge, half of those win.
+HEDGE_LAM, HEDGE_MEAN_S, HEDGE_DELAY_S = 4.0, 0.1, 0.2
 
 
 class SmokeFailure(RuntimeError):
@@ -308,6 +360,175 @@ def arrivals_model(kind: str) -> EnsembleModel:
     return model
 
 
+def chaos_model() -> EnsembleModel:
+    """bench.py:855 bench_kernel_chaos as defined, without its
+    model.telemetry(...) line: source (swept) -> limiter -> round-robin
+    over 4 servers (mu=10, queue 256) with correlated outage-mode faults,
+    backoff 0.02 s with jitter 0.5 and 2 retries, hedges at 0.03 s on the
+    even servers, 5 ms edges alternating constant and exponential with
+    5% loss on the even ones, transit capacity 16."""
+    model = EnsembleModel(horizon_s=BENCH_HORIZON_S, transit_capacity=16, macro_block=MACRO)
+    src = model.source(rate=9.5)
+    lim = model.limiter(refill_rate=1.3 * 0.95 * CHAOS_SERVERS * CHAOS_MU, capacity=16.0)
+    servers = [
+        model.server(
+            concurrency=1, service_mean=1.0 / CHAOS_MU, queue_capacity=256, max_retries=2,
+            retry_backoff_s=0.02, retry_jitter=0.5,
+            hedge_delay_s=0.3 / CHAOS_MU if index % 2 == 0 else None,
+            fault=FaultSpec(rate=0.05, mean_duration_s=0.5, correlated=True),
+        )
+        for index in range(CHAOS_SERVERS)
+    ]
+    model.correlated_outages(rate=0.02, mean_duration_s=0.5, trigger_p=0.5)
+    router = model.router(policy="round_robin")
+    snk = model.sink()
+    model.connect(src, lim)
+    model.connect(lim, router)
+    for index, server in enumerate(servers):
+        model.connect(
+            router, server, latency_s=0.005,
+            latency_kind="exponential" if index % 2 else "constant",
+            loss_p=CHAOS_LOSS_P if index % 2 == 0 else 0.0,
+        )
+        model.connect(server, snk)
+    return model
+
+
+def hetero_model() -> EnsembleModel:
+    """bench.py:357 _hetero_model: the deadline M/M/1 (deadline 8 s, 2
+    immediate retries) of the rho sweep, horizon 120 s, warmup 20 s."""
+    model = EnsembleModel(horizon_s=HETERO_HORIZON_S, warmup_s=20.0, macro_block=MACRO)
+    src = model.source(rate=9.5)
+    srv = model.server(
+        concurrency=1, service_mean=1.0 / HETERO_MU, queue_capacity=256,
+        deadline_s=8.0, max_retries=2,
+    )
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    return model
+
+
+def backoff_model() -> EnsembleModel:
+    """Two servers (means 0.08, 0.06 s, queue 64), each with deadline
+    0.3 s and 3 retries after a 0.05 s backoff with jitter 0.5."""
+    model = EnsembleModel(horizon_s=BENCH_HORIZON_S, warmup_s=10.0, transit_capacity=16, macro_block=MACRO)
+    src = model.source(rate=LAM)
+    kw = dict(queue_capacity=64, deadline_s=0.3, max_retries=3, retry_backoff_s=0.05, retry_jitter=0.5)
+    a = model.server(service_mean=0.08, **kw)
+    b = model.server(service_mean=0.06, **kw)
+    model.connect(src, a)
+    model.connect(a, b)
+    model.connect(b, model.sink())
+    return model
+
+
+def hedged_model(service: str = "exponential", horizon_s: float = HORIZON_S, **shape) -> EnsembleModel:
+    """tests/integration/test_tpu_faults.py's hedged M/M/1 (lambda=4,
+    mean 0.1, hedge 0.2 s), or its server with another family."""
+    model = EnsembleModel(horizon_s=horizon_s, macro_block=MACRO)
+    src = model.source(rate=HEDGE_LAM)
+    srv = model.server(
+        service_mean=HEDGE_MEAN_S, service=service, queue_capacity=256,
+        hedge_delay_s=HEDGE_DELAY_S, **shape,
+    )
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    return model
+
+
+def degrade_model() -> EnsembleModel:
+    """An outage-mode server with pinned windows and a brownout over its
+    first window, then a 2-slot server pinned to 1 slot and 3x service
+    inside its windows, lambda=8, horizon 20 s."""
+    model = EnsembleModel(horizon_s=20.0, warmup_s=1.0, macro_block=MACRO)
+    src = model.source(rate=LAM)
+    a = model.server(
+        service_mean=0.05, queue_capacity=64, outage=(4.0, 6.0),
+        fault=FaultSpec(windows=((3.0, 5.0), (9.0, 11.0)), mode="outage"),
+    )
+    b = model.server(
+        concurrency=2, service_mean=0.15, queue_capacity=64,
+        fault=FaultSpec(
+            windows=((2.0, 6.0), (12.0, 15.0)), mode="degrade",
+            capacity_factor=0.5, latency_factor=3.0,
+        ),
+    )
+    model.connect(src, a)
+    model.connect(a, b)
+    model.connect(b, model.sink())
+    return model
+
+
+def lossy_model() -> EnsembleModel:
+    """A 20% lossy edge open over [4, 12) into a server, a random router
+    over a 10% lossy 5 ms edge to a second server and a 30% lossy edge to
+    the sink, and a 5% lossy exit, lambda=8, horizon 20 s."""
+    model = EnsembleModel(horizon_s=20.0, transit_capacity=8, macro_block=MACRO)
+    src = model.source(rate=LAM)
+    a = model.server(service_mean=0.05, queue_capacity=64)
+    b = model.server(service_mean=0.05, queue_capacity=64)
+    router = model.router(policy="random")
+    snk = model.sink()
+    model.connect(src, a, loss_p=0.2, loss_window=(4.0, 12.0))
+    model.connect(a, router)
+    model.connect(router, b, latency_s=0.005, loss_p=0.1)
+    model.connect(router, snk, loss_p=0.3)
+    model.connect(b, snk, loss_p=0.05)
+    return model
+
+
+def deadline_mm1_model() -> EnsembleModel:
+    """The M/M/1 (lambda=8, mu=10) with a 0.5 s deadline and no retries,
+    horizon 640 s, warmup 40 s."""
+    model = EnsembleModel(horizon_s=DEADLINE_HORIZON_S, warmup_s=WARMUP_S, macro_block=MACRO)
+    src = model.source(rate=LAM)
+    srv = model.server(service_mean=1.0 / MU, queue_capacity=256, deadline_s=DEADLINE_S)
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    return model
+
+
+def duty_model() -> EnsembleModel:
+    """test_tpu_faults.py's duty-cycle model: lambda=4, Exp(0.2) gaps
+    between Exp(1) outages (up to 24 windows), horizon 30 s."""
+    model = EnsembleModel(horizon_s=30.0, macro_block=MACRO)
+    src = model.source(rate=4.0)
+    srv = model.server(
+        service_mean=0.02, queue_capacity=512,
+        fault=FaultSpec(rate=0.2, mean_duration_s=1.0, max_windows=24),
+    )
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    return model
+
+
+def loss_model() -> EnsembleModel:
+    """test_tpu_faults.py's packet-loss model: 10/s constant arrivals
+    until 28 s across a 20% lossy edge, horizon 30 s."""
+    model = EnsembleModel(horizon_s=30.0, macro_block=MACRO)
+    src = model.source(rate=10.0, kind="constant", stop_after_s=28.0)
+    srv = model.server(service_mean=0.001, service="constant", queue_capacity=256)
+    model.connect(src, srv, loss_p=0.2)
+    model.connect(srv, model.sink())
+    return model
+
+
+def retry_accounting_model() -> EnsembleModel:
+    """test_tpu_faults.py's exact retry accounting: a whole-horizon
+    outage, 2 retries after a 0.01 s backoff, 10/s constant arrivals
+    until 28 s, horizon 30 s."""
+    model = EnsembleModel(horizon_s=30.0, macro_block=MACRO)
+    src = model.source(rate=10.0, kind="constant", stop_after_s=28.0)
+    srv = model.server(
+        service_mean=0.05, queue_capacity=256,
+        fault=FaultSpec(windows=((0.0, 31.0),), mode="outage"),
+        retry_backoff_s=0.01, max_retries=2,
+    )
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    return model
+
+
 def pk_wait(scv: float) -> float:
     """Pollaczek-Khinchine mean wait of the M/G/1 at lambda=LAM."""
     rho = LAM * MG1_MEAN_S
@@ -320,6 +541,15 @@ ROUTER_SWEEPS = {
 # The ramp averages 0.75 * 40 req/s over 2 servers per tier.
 GRAPH_SWEEPS = {
     "service_mean": (np.linspace(0.1, 0.95, REPLICAS) / (0.75 * 40.0 / 2)).astype(np.float32)
+}
+# bench_kernel_chaos's and _hetero_model's rho sweeps.
+CHAOS_SWEEPS = {
+    "source_rate": np.linspace(
+        0.1 * CHAOS_SERVERS * CHAOS_MU, 0.95 * CHAOS_SERVERS * CHAOS_MU, REPLICAS
+    ).astype(np.float32)
+}
+HETERO_SWEEPS = {
+    "source_rate": np.linspace(0.1 * HETERO_MU, 0.95 * HETERO_MU, REPLICAS).astype(np.float32)
 }
 
 
@@ -470,12 +700,14 @@ def extension_ops(compiled, before: dict, after: dict) -> int:
 
     started = grew("srv_started")
     ops = 0
-    for v in range(len(compiled.model.servers)):
+    for v, spec in enumerate(compiled.model.servers):
         kind = int(compiled.service_kind[v])
         per_draw = OPS_PER_DRAW[kind]
         if kind == 2 and compiled.srv_erlang_k[v] == 3.0:
             per_draw = OPS_PER_ERLANG3_DRAW
-        ops += per_draw * int(started[v])
+        # A hedged server draws a second service at every start.
+        draws = 2 if spec.hedge_delay_s is not None else 1
+        ops += draws * per_draw * int(started[v])
     if compiled.has_profile.any():
         require(not compiled.has_transit, "profile fire count assumes no transit events")
         ops += OPS_PER_PROFILE_FIRE * int(grew("events") - grew("srv_completed").sum())
@@ -537,8 +769,93 @@ def report(result, launches: int) -> dict:
         "server_completed": result.server_completed,
         "transit_dropped": result.transit_dropped,
         "truncated_replicas": result.truncated_replicas,
+        "server_timed_out": result.server_timed_out,
+        "server_retried": result.server_retried,
+        "server_fault_dropped": result.server_fault_dropped,
+        "server_fault_retried": result.server_fault_retried,
+        "server_hedged": result.server_hedged,
+        "server_hedge_wins": result.server_hedge_wins,
+        "network_lost": result.network_lost,
         "launches": launches,
     }
+
+
+def chaos_main_path(tag: str) -> dict:
+    """The chaos runs of the main path and their gates; returns
+    {run name: (result, launches)}."""
+    runs = {}
+    result, launches = main_path_run(
+        "chaos", chaos_model(), tag, "router", CHAOS_SWEEPS, CHAOS_MAX_EVENTS
+    )
+    require(result.kernel_chaos == chaos_model().chaos_features(), f"chaos: {result.kernel_chaos}")
+    hedged, wins = sum(result.server_hedged), sum(result.server_hedge_wins)
+    print(
+        f"  chaos: {hedged} hedges, {wins} won; fault retries {result.server_fault_retried}, "
+        f"fault drops {result.server_fault_dropped}, transit drops {result.transit_dropped}"
+    )
+    require(0 < wins <= hedged, f"chaos: {wins} hedge wins of {hedged} hedges")
+    require(sum(result.server_fault_retried) > 0, "chaos: no fault retry")
+    # Servers 0 and 2 take deliveries 0, 2, 4, ... of each replica's
+    # router: ceil(admitted / 2), which is admitted / 2 plus a half for
+    # each replica with an odd count; that parity is unknown, so the
+    # expected losses carry +-R/4 crossings on top of 3 sigma.
+    crossings = result.limiter_admitted[0] / 2 + REPLICAS / 4
+    expected = CHAOS_LOSS_P * crossings
+    sigma = math.sqrt(crossings * CHAOS_LOSS_P * (1 - CHAOS_LOSS_P))
+    slack = 3 * sigma + CHAOS_LOSS_P * REPLICAS / 4
+    print(
+        f"  chaos packet losses {result.network_lost} (expected {expected:.0f} of "
+        f"{crossings:.0f} lossy crossings, gate +-{slack:.0f}: 3 sigma + the parity term)"
+    )
+    require(abs(result.network_lost - expected) <= slack, "chaos: packet losses off their rate")
+    runs["chaos"] = (result, launches)
+
+    result, launches = main_path_run("deadline-mm1", deadline_mm1_model(), tag, "mm1")
+    within(result.server_timed_out[0] / result.server_completed[0], math.exp(-1.0),
+           "deadline-mm1 timed out / completed", 0.02, unit="")
+    within(result.server_mean_wait_s[0], LAM / MU / (MU - LAM), "deadline-mm1 mean wait")
+    runs["deadline-mm1"] = (result, launches)
+
+    result, launches = main_path_run("hedged-mm1", hedged_model(), tag, "mm1")
+    hedged, wins = result.server_hedged[0], result.server_hedge_wins[0]
+    within(hedged / result.server_completed[0], math.exp(-HEDGE_DELAY_S / HEDGE_MEAN_S),
+           "hedged-mm1 hedged / completed", 0.01, unit="")
+    within(wins / hedged, 0.5, "hedged-mm1 wins / hedged", 0.01, unit="")
+    runs["hedged-mm1"] = (result, launches)
+
+    # test_tpu_faults.py's drop-rate test: two-state Markov occupation
+    # time, up rate r, down rate m, born up.
+    result, launches = main_path_run("duty-cycle", duty_model(), tag, "mm1")
+    r_up, m_down, lam, horizon = 0.2, 1.0, 4.0, 30.0
+    d = duty_cycle(r_up, 1.0 / m_down)
+    rates = r_up + m_down
+    dark = d * horizon - d / rates * (1.0 - math.exp(-rates * horizon))
+    var_dark = 2.0 * r_up * m_down / rates**3 * horizon
+    mean_drops = REPLICAS * lam * dark
+    sigma = math.sqrt(REPLICAS * (lam**2 * var_dark + lam * dark))
+    drops = result.server_fault_dropped[0]
+    print(f"  duty-cycle fault drops {drops} (expected {mean_drops:.0f}, {(drops - mean_drops) / sigma:+.2f} sigma)")
+    require(abs(drops - mean_drops) < 3 * sigma, "duty-cycle: fault drops off the closed form")
+    runs["duty-cycle"] = (result, launches)
+
+    result, launches = main_path_run("packet-loss", loss_model(), tag, "mm1")
+    crossings = result.network_lost + result.sink_count[0]
+    require(abs(crossings / REPLICAS - 280.0) <= 2.0, f"packet-loss: {crossings} crossings")
+    sigma = math.sqrt(crossings * 0.2 * 0.8)
+    print(
+        f"  packet-loss lost {result.network_lost} of {crossings} crossings "
+        f"({(result.network_lost - 0.2 * crossings) / sigma:+.2f} sigma)"
+    )
+    require(abs(result.network_lost - 0.2 * crossings) < 3 * sigma, "packet-loss: losses off p=0.2")
+    runs["packet-loss"] = (result, launches)
+
+    result, launches = main_path_run("retry-accounting", retry_accounting_model(), tag, "mm1")
+    retried, dropped = result.server_fault_retried[0], result.server_fault_dropped[0]
+    print(f"  retry-accounting: {retried} fault retries = 2 x {dropped} fault drops, sink {result.sink_count[0]}")
+    require(dropped > 0 and retried == 2 * dropped and result.sink_count[0] == 0,
+            "retry-accounting: retries are not exactly 2 x drops")
+    runs["retry-accounting"] = (result, launches)
+    return runs
 
 
 def main() -> int:
@@ -589,6 +906,18 @@ def main() -> int:
         "router-bench": check_blocks("router", router, [0, 1, 2, 3, 100, 101], ROUTER_SWEEPS),
         "mix": check_blocks("mix", mix_model(), [0, 1, 40]),
     }
+    # The chaos instantiation: the bench model on the main path, and one
+    # model per chaos branch.
+    max_abs["chaos"] = check_blocks("chaos", chaos_model(), [0, 1, 2, 3, 150], CHAOS_SWEEPS)
+    extra_abs.update({
+        "deadline": check_blocks("deadline", hetero_model(), [0, 1, 2, 3, 60], HETERO_SWEEPS),
+        "backoff": check_blocks("backoff", backoff_model(), [0, 1, 2, 3, 30]),
+        "hedged-erlang2": check_blocks(
+            "hedged-erlang2", hedged_model("erlang", BENCH_HORIZON_S, service_k=2), [0, 1, 2, 3, 30]
+        ),
+        "degrade": check_blocks("degrade", degrade_model(), [0, 1, 2, 3, 10]),
+        "lossy": check_blocks("lossy", lossy_model(), [0, 1, 2, 3, 10]),
+    })
 
     timings = {
         "mm1": time_blocks(mm1, "mm1"),
@@ -599,6 +928,8 @@ def main() -> int:
         "families": time_blocks(mg1_model("lognormal"), "mg1-lognormal"),
         "pareto": time_blocks(mg1_model("pareto"), "mg1-pareto"),
         "profile": time_blocks(profile, "profile", GRAPH_SWEEPS),
+        "chaos": time_blocks(chaos_model(), "chaos", CHAOS_SWEEPS),
+        "deadline": time_blocks(hetero_model(), "deadline", HETERO_SWEEPS),
     }
     for shape, t in timings.items():
         earlier = ""
@@ -652,6 +983,7 @@ def main() -> int:
     low, high = int(counts.min()), int(counts.max())
     print(f"  arrivals-ramp-constant per replica: {low} to {high} (analytic 180)")
     require(abs(low - 180) <= 3 and abs(high - 180) <= 3, f"ramp-constant counts {low}..{high}")
+    runs.update(chaos_main_path(tag))
 
     print(f"library_ms: {LIBRARY_NOTE}")
     kernels = {
@@ -669,7 +1001,7 @@ def main() -> int:
                 "bound_by": timings[shape]["bound_by"],
                 "library_ms": None,
             }
-            for shape in ("mm1", "chain", "router", "graph", "families", "profile")
+            for shape in ("mm1", "chain", "router", "graph", "families", "profile", "chaos")
         ]
     }
     out_dir = Path("chiprun_out")

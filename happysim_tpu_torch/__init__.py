@@ -20,6 +20,8 @@ this package                       JAX package
 ``rng.py``                         ``jax.random`` (threefry2x32, as used in
                                    ``tpu/engine.py``)
 ``reduce.py``                      ``happysim_tpu/tpu/reduce.py``
+``faults.py``                      ``happysim_tpu/tpu/faults.py``
+                                   (``FaultTable``, ``duty_cycle``)
 ``engine.py``                      ``happysim_tpu/tpu/engine.py``
 ``kernels/support.py``             ``happysim_tpu/tpu/kernels/support.py``
 ``kernels/event_step.py``          ``happysim_tpu/tpu/kernels/event_step.py``
@@ -36,15 +38,20 @@ constant arrivals, flat or shaped by a ramp or spike ``RateProfile``,
 wired to any node or straight to the sink; constant, exponential,
 erlang-2/3, hyperexponential, lognormal or pareto service, any
 concurrency and queue capacity, zero-latency or latency-carrying edges,
-warmup). Every
-other feature of the JAX package raises ``NotImplementedError`` naming
-itself and its ROADMAP item. Entry points run on the CUDA card unless
+warmup), with the chaos stack on any of them: deadlines with immediate
+or backoff (jittered) retries, hedged requests, brownout windows,
+stochastic or pinned ``FaultSpec`` schedules (outage or degrade mode),
+correlated outages and packet loss on edges. Every other feature of the
+JAX package raises ``NotImplementedError`` naming itself and its ROADMAP
+item. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
 """
 
 from happysim_tpu_torch.engine import EnsembleResult, run_ensemble
 from happysim_tpu_torch.model import (
+    CorrelatedOutages,
     EnsembleModel,
+    FaultSpec,
     NodeRef,
     RateProfile,
     mm1_model,
@@ -52,8 +59,10 @@ from happysim_tpu_torch.model import (
 )
 
 __all__ = [
+    "CorrelatedOutages",
     "EnsembleModel",
     "EnsembleResult",
+    "FaultSpec",
     "NodeRef",
     "RateProfile",
     "mm1_model",

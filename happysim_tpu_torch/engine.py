@@ -13,7 +13,12 @@ A job leaving a node is delivered by a walk over the static topology:
 through a limiter (admit or drop), through routers (one choice per hop),
 to a sink, a server, or a server's transit slots when the edge carries
 latency. The walk is written out per static target with the replica
-lanes that chose it, which is what JAX's per-lane selects compute.
+lanes that chose it, which is what JAX's per-lane selects compute. The
+chaos branches follow the same rule: where JAX computes both sides of a
+retry or a packet loss and selects per lane, the step updates each
+side's lanes in place (a deadline expiry is retried or discarded, a
+fault-window rejection parked for its retry or dropped, a lost crossing
+vanishes before it reaches its node).
 
 The hot loop runs in macro-blocks of ``macro`` event steps: the block's
 uniforms are drawn by :mod:`~happysim_tpu_torch.rng` from
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from happysim_tpu_torch import rng
+from happysim_tpu_torch.faults import FaultTable
 from happysim_tpu_torch.kernels import event_step, support
 from happysim_tpu_torch.numerics import erfinv, fma_f32, interp
 from happysim_tpu_torch.model import (
@@ -84,8 +90,9 @@ _I64_COUNTER_KEYS = frozenset({
     "sink_count", "sink_hist",
     "srv_completed", "srv_dropped", "srv_outage_dropped", "srv_started",
     "srv_timed_out", "srv_retried", "srv_wait_n",
+    "srv_fault_dropped", "srv_fault_retried", "srv_hedged", "srv_hedge_wins",
     "lim_admitted", "lim_dropped",
-    "tr_dropped",
+    "tr_dropped", "net_lost",
     "blocks_total",
 })
 _F64_SUM_KEYS = frozenset({
@@ -159,6 +166,15 @@ class EnsembleResult:
     limiter_dropped: list[int]
     # replicas whose event budget ran out before the horizon (bias warning)
     truncated_replicas: int = 0
+    # chaos accounting, per server (zeros unless the model declares the
+    # feature): terminal losses to fault windows, retries launched after
+    # fault-window rejections, hedged second attempts launched and won
+    server_fault_dropped: list[int] = dataclasses_field(default_factory=list)
+    server_fault_retried: list[int] = dataclasses_field(default_factory=list)
+    server_hedged: list[int] = dataclasses_field(default_factory=list)
+    server_hedge_wins: list[int] = dataclasses_field(default_factory=list)
+    # crossings lost on lossy edges (whole model)
+    network_lost: int = 0
     # seconds spent building and loading the kernel library in this call,
     # kept out of wall_seconds
     compile_seconds: float = 0.0
@@ -167,6 +183,8 @@ class EnsembleResult:
     engine_path: str = "scan"
     # "mm1" / "chain" / "router" / "graph" on the kernel path, "" off it
     kernel_shape: str = ""
+    # the chaos features (EnsembleModel.chaos_features) the kernel ran
+    kernel_chaos: tuple = ()
     # macro-block length, per-run block budget, blocks retired summed over
     # replicas, and the occupancy histogram {blocks_run: n_replicas}
     macro_block: int = 0
@@ -185,6 +203,7 @@ class EnsembleResult:
         return {
             "engine_path": self.engine_path,
             "kernel_shape": self.kernel_shape,
+            "kernel_chaos": tuple(self.kernel_chaos),
             "device": self.device_name,
             "compile_seconds": self.compile_seconds,
             "run_seconds": self.wall_seconds,
@@ -295,6 +314,52 @@ class _Compiled:
             )
         self.n_svc_draws = max(draws_needed[k] for k in present)
 
+        # Deadlines, retries, brownouts, hedges and fault schedules, per
+        # server. The attempt budget max_retries is shared by deadline
+        # retries and fault-rejection retries.
+        self.srv_deadline = np.full((self.nV,), np.inf, np.float32)
+        self.srv_max_retries = np.zeros((self.nV,), np.int32)
+        self.srv_outage_start = np.full((self.nV,), np.inf, np.float32)
+        self.srv_outage_end = np.full((self.nV,), np.inf, np.float32)
+        self.srv_backoff = np.zeros((self.nV,), np.float32)
+        self.srv_jitter = np.zeros((self.nV,), np.float32)
+        self.srv_hedge = np.full((self.nV,), np.inf, np.float32)
+        self.flt_can_retry = np.zeros((self.nV,), np.bool_)
+        for v, spec in enumerate(servers):
+            if spec.deadline_s is not None:
+                self.srv_deadline[v] = spec.deadline_s
+            self.srv_max_retries[v] = spec.max_retries
+            if spec.outage_start_s is not None:
+                self.srv_outage_start[v] = spec.outage_start_s
+                self.srv_outage_end[v] = spec.outage_end_s
+            if spec.retry_backoff_s is not None:
+                self.srv_backoff[v] = spec.retry_backoff_s
+            self.srv_jitter[v] = spec.retry_jitter
+            if spec.hedge_delay_s is not None:
+                self.srv_hedge[v] = spec.hedge_delay_s
+            self.flt_can_retry[v] = (
+                spec.fault is not None
+                and spec.fault.mode == "outage"
+                and spec.retry_backoff_s is not None
+                and spec.max_retries > 0
+            )
+        self.faults = FaultTable(model)
+        self.has_faults = self.faults.has_faults
+        self.has_deadlines = any(s.deadline_s is not None for s in servers)
+        self.has_outages = any(s.outage_start_s is not None for s in servers)
+        self.has_backoff = any(s.retry_backoff_s is not None for s in servers)
+        self.has_jitter = any(s.retry_jitter > 0.0 for s in servers)
+        self.has_hedge = any(s.hedge_delay_s is not None for s in servers)
+        self.has_fault_retries = bool(self.flt_can_retry.any())
+        # Attempt numbers ride with jobs whenever a budget consumes them.
+        self.has_attempts = self.has_deadlines or self.has_fault_retries
+        self.has_loss = any(e.loss_p > 0.0 for e in model.iter_edges())
+        # Any of the above runs the kernel's chaos instantiation.
+        self.has_chaos = (
+            self.has_deadlines or self.has_outages or self.has_faults
+            or self.has_backoff or self.has_hedge or self.has_loss
+        )
+
         self.arrival_is_poisson = np.array(
             [s.arrival == "poisson" for s in model.sources], np.bool_
         )
@@ -314,14 +379,19 @@ class _Compiled:
         # Whether any edge into a server carries latency (the transit
         # registers and the transit-arrival branch). A router with any
         # latency-carrying target edge and any server target parks every
-        # server it chooses, with zero latency behind a free edge.
-        self.has_transit = any(
-            edge.mean_s > 0 and dest is not None and self._reaches_server(dest)
-            for edge, dest in self._edges()
-        ) or any(
-            any(e.mean_s > 0 for e in r.target_latencies)
-            and any(t.kind == SERVER for t in r.targets)
-            for r in model.routers
+        # server it chooses, with zero latency behind a free edge. Backoff
+        # retries are delayed re-arrivals and ride the same registers.
+        self.has_transit = (
+            any(
+                edge.mean_s > 0 and dest is not None and self._reaches_server(dest)
+                for edge, dest in self._edges()
+            )
+            or any(
+                any(e.mean_s > 0 for e in r.target_latencies)
+                and any(t.kind == SERVER for t in r.targets)
+                for r in model.routers
+            )
+            or self.has_backoff
         )
         self.hop_depth = self._router_hop_depth()
         self._assign_uniform_slots()
@@ -376,9 +446,12 @@ class _Compiled:
         """Draw slots the topology consumes, in JAX's order: the arrival
         gap (a Poisson source), one route draw per router hop (any
         random or weighted router), the edge latency (any exponential
-        edge), then two service windows (a delivery arrival and a
-        completion's queue pull can both sample service in one step).
-        An M/M/1 has 3 draws per step."""
+        edge), two service windows (a delivery arrival and a completion's
+        queue pull can both sample service in one step), two more for
+        the hedges' second samples on those two start paths (any hedged
+        server), the packet-loss Bernoulli (any lossy edge), then the
+        backoff jitter (any jittered server). An M/M/1 has 3 draws per
+        step. The order is the RNG stream layout."""
         slot = 0
         self.U_GAP: Optional[int] = None
         if self.arrival_is_poisson.any():
@@ -399,6 +472,21 @@ class _Compiled:
             slot += self.n_svc_draws
             self.U_SVC2 = slot
             slot += self.n_svc_draws
+        self.U_HED1: Optional[int] = None
+        self.U_HED2: Optional[int] = None
+        if self.model.servers and self.n_svc_draws > 0 and self.has_hedge:
+            self.U_HED1 = slot
+            slot += self.n_svc_draws
+            self.U_HED2 = slot
+            slot += self.n_svc_draws
+        self.U_LOSS: Optional[int] = None
+        if self.has_loss:
+            self.U_LOSS = slot
+            slot += 1
+        self.U_JIT: Optional[int] = None
+        if self.has_jitter:
+            self.U_JIT = slot
+            slot += 1
         self.n_draws = max(slot, 1)
 
     # -- profile tables ------------------------------------------------------
@@ -483,10 +571,27 @@ class _Compiled:
             "sink_hist": torch.zeros((R, nK, HIST_BINS), dtype=i32, device=dev),
             "events": torch.zeros((R,), dtype=i32, device=dev),
         }
+        if self.has_attempts:
+            state["srv_slot_attempt"] = torch.zeros((R, nV, C), dtype=i32, device=dev)
+            state["srv_q_attempt"] = torch.zeros((R, nV, K), dtype=i32, device=dev)
         if self.has_transit:
             state["tr_time"] = torch.full((R, nV, self.TR), INF, dtype=f32, device=dev)
             state["tr_created"] = torch.zeros((R, nV, self.TR), dtype=f32, device=dev)
             state["tr_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
+            if self.has_backoff:
+                state["tr_attempt"] = torch.zeros((R, nV, self.TR), dtype=i32, device=dev)
+        if self.has_faults:
+            # Each replica's fault timeline, drawn once from its key: a
+            # fault needs no events of its own.
+            state.update(self.faults.sample_state(keys))
+            state["srv_fault_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
+        if self.has_fault_retries:
+            state["srv_fault_retried"] = torch.zeros((R, nV), dtype=i32, device=dev)
+        if self.has_hedge:
+            state["srv_hedged"] = torch.zeros((R, nV), dtype=i32, device=dev)
+            state["srv_hedge_wins"] = torch.zeros((R, nV), dtype=i32, device=dev)
+        if self.has_loss:
+            state["net_lost"] = torch.zeros((R,), dtype=i32, device=dev)
         return state
 
     def _initial_gaps(self, keys: torch.Tensor, params: dict) -> torch.Tensor:
@@ -581,6 +686,45 @@ class _Compiled:
             return t + -torch.log(u[:, self.U_LAT]) * mean
         return t + mean
 
+    # -- chaos helpers -------------------------------------------------------
+    def _edge_lost(self, u, t, loss_p, loss_start, loss_end) -> torch.Tensor:
+        """The packet-loss Bernoulli of one crossing at ``t``: the U_LOSS
+        draw below ``loss_p`` inside [loss_start, loss_end). The three
+        may be per-lane tensors (a router's chosen edge) or floats."""
+        p, start, end = (
+            x if isinstance(x, torch.Tensor) else _f32(x, t.device)
+            for x in (loss_p, loss_start, loss_end)
+        )
+        return (u[:, self.U_LOSS] < p) & (t >= start) & (t < end)
+
+    def _backoff_delay(self, u, attempt, v: int):
+        """Server ``v``'s retry delay: backoff * 2^attempt * (1 + jitter
+        * (u - 0.5)), u the U_JIT draw (0.5 without jitter anywhere), so
+        the mean is backoff * 2^attempt whatever the jitter."""
+        dev = attempt.device
+        u_jit = u[:, self.U_JIT] if self.U_JIT is not None else _f32(0.5, dev)
+        spread = 1.0 + _f32(self.srv_jitter[v], dev) * (u_jit - 0.5)
+        return _f32(self.srv_backoff[v], dev) * torch.exp2(attempt.to(torch.float32)) * spread
+
+    def _degrade_factor(self, v: int, dark) -> Optional[torch.Tensor]:
+        """The service multiplier of a degraded server ``v`` (its latency
+        factor while dark, else 1), or None where no window inflates."""
+        if dark is None or not self.faults.degrade[v] or self.faults.lat_factor[v] <= 1.0:
+            return None
+        one = _f32(1.0, dark.device)
+        return torch.where(dark, _f32(self.faults.lat_factor[v], dark.device), one)
+
+    def _hedge(self, service, second, v: int):
+        """A hedge on server ``v``: a second attempt launches when the
+        first runs past the hedge delay h; the slot is held for
+        min(S1, h + S2), and the hedge wins when h + S2 < S1 strictly.
+        Returns (service, hedged, won)."""
+        h = _f32(self.srv_hedge[v], service.device)
+        hedged = service > h
+        raced = h + second
+        won = hedged & (raced < service)
+        return torch.where(hedged, torch.minimum(service, raced), service), hedged, won
+
     # -- job delivery ------------------------------------------------------
     def _deliver(
         self, state, desc, lanes, t, created, u, dest: NodeRef, edge: EdgeLatency,
@@ -590,7 +734,16 @@ class _Compiled:
         (JAX ``_deliver`` / ``_deliver_chosen``). A server behind a
         latency edge, or behind a router with any latency-carrying target
         edge (``park``), is reached through its transit slots. ``hop``
-        counts the router hops this delivery has taken."""
+        counts the router hops this delivery has taken. A lossy edge
+        (into a sink or a server only) vanishes the crossing with its
+        probability inside its window: ``net_lost`` counts it and nothing
+        else changes."""
+        if edge.loss_p > 0.0:
+            lost = lanes & self._edge_lost(
+                u, t, float(np.float32(edge.loss_p)), edge.loss_start_s, edge.loss_end_s
+            )
+            state["net_lost"] += lost.to(torch.int32)
+            lanes = lanes & ~lost
         if dest.kind == LIMITER:
             self._through_limiter(state, desc, lanes, t, created, u, dest.index, params, hop)
         elif dest.kind == SINK:
@@ -614,6 +767,18 @@ class _Compiled:
         choice = self._route_choice(state, u, r, router, hop)
         if router.policy == "round_robin":
             state["rr_next"][:, r] += lanes.to(torch.int32)
+        if any(e.loss_p > 0.0 for e in router.target_latencies):
+            # The choice is made (and round-robin advanced), then the
+            # crossing is lost with the chosen edge's probability.
+            def column(attr):
+                values = [getattr(e, attr) for e in router.target_latencies]
+                return torch.as_tensor(np.asarray(values, np.float32), device=u.device)[choice]
+
+            lost = lanes & self._edge_lost(
+                u, t, column("loss_p"), column("loss_start_s"), column("loss_end_s")
+            )
+            state["net_lost"] += lost.to(torch.int32)
+            lanes = lanes & ~lost
         park = any(e.mean_s > 0 for e in router.target_latencies)
         for i, (target, edge) in enumerate(zip(router.targets, router.target_latencies)):
             picked = lanes & (choice == i)
@@ -670,10 +835,11 @@ class _Compiled:
             limiter.latency, params, hop,
         )
 
-    def _into_transit(self, state, lanes, v: int, arrival_t, created):
+    def _into_transit(self, state, lanes, v: int, arrival_t, created, attempt=None):
         """Park a job on a latency edge in server ``v``'s first free
         transit slot until its arrival fires; with none free the job is
-        lost and ``tr_dropped`` counts it."""
+        lost and ``tr_dropped`` counts it. Backoff retries park here too,
+        with their ``attempt`` (0 for a job crossing an edge)."""
         row = state["tr_time"][:, v, :]
         free = torch.isinf(row)
         has_free = free.any(dim=1)
@@ -681,6 +847,10 @@ class _Compiled:
         parked = lanes & has_free
         _set_at(row, first_free, parked, arrival_t)
         _set_at(state["tr_created"][:, v, :], first_free, parked, created)
+        if self.has_backoff:
+            if attempt is None:
+                attempt = torch.zeros_like(first_free, dtype=torch.int32)
+            _set_at(state["tr_attempt"][:, v, :], first_free, parked, attempt)
         state["tr_dropped"][:, v] += (lanes & ~has_free).to(torch.int32)
 
     def _deliver_sink(self, state, lanes, arrival_t, created, k: int):
@@ -702,56 +872,142 @@ class _Compiled:
             1, _hist_bin(latency)[:, None].long(), measure.to(torch.int32)[:, None]
         )
 
-    def _arrive_server(self, state, desc, lanes, v: int, t, created, u, params):
-        """One job arriving at server ``v``: start in the first free slot,
-        else enqueue at the ring tail, else drop."""
+    def _push(self, desc, lanes, pred, v: int, slot, created, t, attempt) -> None:
+        """Describe the step's queue push for ``lanes`` (written by
+        :meth:`_apply_qpush` after the step)."""
+        desc["pred"] = torch.where(lanes, pred, desc["pred"])
+        desc["v"] = torch.where(lanes, torch.full_like(desc["v"], v), desc["v"])
+        desc["slot"] = torch.where(lanes, slot.long(), desc["slot"])
+        desc["created"] = torch.where(lanes, created, desc["created"])
+        desc["enq"] = torch.where(lanes, t, desc["enq"])
+        if self.has_attempts:
+            desc["attempt"] = torch.where(lanes, attempt, desc["attempt"])
+
+    def _arrive_server(self, state, desc, lanes, v: int, t, created, u, params, attempt=None):
+        """One job arriving at server ``v`` with its ``attempt`` number
+        (None: a first attempt): start in the first free slot, else
+        enqueue at the ring tail, else drop. The chaos gates come first:
+        a brownout window loses the arrival (``srv_outage_dropped``); an
+        outage-mode fault window rejects it, and with backoff retries and
+        budget left it is parked for a re-arrival after the backoff, else
+        it is a terminal ``srv_fault_dropped``; a degrade-mode window caps
+        the active slots and inflates service; a hedged server races a
+        second sample against the first."""
         dev = t.device
+        if attempt is None:
+            attempt = torch.zeros_like(lanes, dtype=torch.int32)
         done_row = state["srv_slot_done"][:, v, :]
         valid = torch.as_tensor(self.slot_valid[v], device=dev)
         free = valid[None, :] & torch.isinf(done_row)
+        fault_dark = None  # inside a fault window (a faulted server only)
+        if self.has_faults and self.faults.faulted[v]:
+            fault_dark = self.faults.dark(state, v, t)
+        cap = int(self.faults.cap_slots[v])
+        if fault_dark is not None and self.faults.degrade[v] and cap < self.srv_concurrency[v]:
+            # No new start while dark and `cap` jobs are already active.
+            busy_count = (torch.isfinite(done_row) & valid[None, :]).sum(dim=1)
+            free = free & (~fault_dark | (busy_count < cap))[:, None]
         has_free = free.any(dim=1)
         first_free = torch.argmax(free.to(torch.int32), dim=1)
         service = self._sample_service(u, self.U_SVC1, v, params)
+        factor = self._degrade_factor(v, fault_dark)
+        if factor is not None:
+            service = service * factor
+        hedged = won = None
+        if self.has_hedge and np.isfinite(self.srv_hedge[v]):
+            second = self._sample_service(u, self.U_HED1, v, params)
+            if factor is not None:
+                second = second * factor
+            service, hedged, won = self._hedge(service, second, v)
+        spec = self.model.servers[v]
+        no = torch.zeros_like(lanes)
+        dark = no
+        if spec.outage_start_s is not None:
+            dark = (t >= _f32(self.srv_outage_start[v], dev)) & (
+                t < _f32(self.srv_outage_end[v], dev)
+            )
+        # An arrival inside both a brownout and a fault window is only an
+        # outage drop: the two ledgers stay disjoint.
+        fault_rejected = no
+        if fault_dark is not None and self.faults.drop_mode[v]:
+            fault_rejected = fault_dark & ~dark
+        retry = no
+        if self.flt_can_retry[v]:
+            retry = fault_rejected & (attempt < int(self.srv_max_retries[v]))
+        rejected = dark | fault_rejected
         q_len = state["srv_q_len"][:, v]
         has_room = q_len < int(self.queue_cap[v])
         tail = torch.remainder(state["srv_q_head"][:, v] + q_len, self.K)
-        start = lanes & has_free
-        enq = lanes & ~has_free & has_room
-        drop = lanes & ~has_free & ~has_room
+        start = lanes & has_free & ~rejected
+        enq = lanes & ~rejected & ~has_free & has_room
+        drop = lanes & ~rejected & ~has_free & ~has_room
         measured = start & (t >= _f32(self.warmup, dev))
 
-        desc["pred"] = torch.where(lanes, enq, desc["pred"])
-        desc["v"] = torch.where(lanes, torch.full_like(desc["v"], v), desc["v"])
-        desc["slot"] = torch.where(lanes, tail.long(), desc["slot"])
-        desc["created"] = torch.where(lanes, created, desc["created"])
-        desc["enq"] = torch.where(lanes, t, desc["enq"])
-
+        self._push(desc, lanes, enq, v, tail, created, t, attempt)
         _set_at(done_row, first_free, start, t + service)
         _set_at(state["srv_slot_created"][:, v, :], first_free, start, created)
+        if self.has_attempts:
+            _set_at(state["srv_slot_attempt"][:, v, :], first_free, start, attempt)
         state["srv_started"][:, v] += start.to(torch.int32)
         state["srv_wait_n"][:, v] += measured.to(torch.int32)
         busy = state["srv_busy_int"][:, v]
         state["srv_busy_int"][:, v] = torch.where(measured, busy + service, busy)
         state["srv_q_len"][:, v] += enq.to(torch.int32)
         state["srv_dropped"][:, v] += drop.to(torch.int32)
+        state["srv_outage_dropped"][:, v] += (lanes & dark).to(torch.int32)
+        if self.has_faults:
+            state["srv_fault_dropped"][:, v] += (lanes & fault_rejected & ~retry).to(torch.int32)
+        if hedged is not None:
+            state["srv_hedged"][:, v] += (start & hedged).to(torch.int32)
+            state["srv_hedge_wins"][:, v] += (start & won).to(torch.int32)
+        if self.flt_can_retry[v]:
+            # A retry counts only when a transit register takes it; with
+            # none free _into_transit books a tr_dropped instead.
+            parked = lanes & retry
+            tr_free = torch.isinf(state["tr_time"][:, v, :]).any(dim=1)
+            state["srv_fault_retried"][:, v] += (parked & tr_free).to(torch.int32)
+            self._into_transit(
+                state, parked, v, t + self._backoff_delay(u, attempt, v), created, attempt + 1
+            )
+
+    def _enqueue_retry(self, state, desc, lanes, v: int, t, created, attempt) -> None:
+        """Tail re-enqueue of a deadline-expired job (``attempt`` already
+        +1); a retry that finds the queue full is a drop."""
+        q_len = state["srv_q_len"][:, v]
+        has_room = q_len < int(self.queue_cap[v])
+        tail = torch.remainder(state["srv_q_head"][:, v] + q_len, self.K)
+        self._push(desc, lanes, has_room, v, tail, created, t, attempt)
+        pushed = lanes & has_room
+        state["srv_q_len"][:, v] += pushed.to(torch.int32)
+        state["srv_retried"][:, v] += pushed.to(torch.int32)
+        state["srv_dropped"][:, v] += (lanes & ~has_room).to(torch.int32)
 
     def _read_queue_head(self, state, desc, v: int, head):
-        """The head item's (created, enqueued) times, forwarding a push the
-        same step made at ``head`` (the ring write lands after the step)."""
+        """The head item's (created, enqueued, attempt), forwarding a push
+        the same step made at ``head`` (the ring write lands after the
+        step); attempt is None without attempt numbers."""
         from_push = desc["pred"] & (desc["v"] == v) & (desc["slot"] == head)
         idx = head.long()[:, None]
         created = state["srv_q_created"][:, v, :].gather(1, idx)[:, 0]
         enq = state["srv_q_enq"][:, v, :].gather(1, idx)[:, 0]
+        attempt = None
+        if self.has_attempts:
+            queued = state["srv_q_attempt"][:, v, :].gather(1, idx)[:, 0]
+            attempt = torch.where(from_push, desc["attempt"], queued)
         return (
             torch.where(from_push, desc["created"], created),
             torch.where(from_push, desc["enq"], enq),
+            attempt,
         )
 
     def _apply_qpush(self, state, desc) -> None:
         """The step's single queue-ring write (at most one per lane)."""
         R = desc["pred"].shape[0]
         flat = (desc["v"] * self.K + desc["slot"])[:, None]
-        for key, value in (("srv_q_created", desc["created"]), ("srv_q_enq", desc["enq"])):
+        rings = [("srv_q_created", desc["created"]), ("srv_q_enq", desc["enq"])]
+        if self.has_attempts:
+            rings.append(("srv_q_attempt", desc["attempt"]))
+        for key, value in rings:
             ring = state[key].view(R, self.nV * self.K)
             current = ring.gather(1, flat)[:, 0]
             ring.scatter_(1, flat, torch.where(desc["pred"], value, current)[:, None])
@@ -775,21 +1031,63 @@ class _Compiled:
         masked = torch.where(valid[None, :], done_row, torch.full_like(done_row, INF))
         k = torch.argmin(masked, dim=1)
         created = created_row.gather(1, k[:, None])[:, 0]
+        attempt = None
+        if self.has_attempts:
+            attempt = state["srv_slot_attempt"][:, v, :].gather(1, k[:, None])[:, 0]
         _set_at(done_row, k, lanes, torch.full_like(created, INF))
         state["srv_completed"][:, v] += lanes.to(torch.int32)
         spec = self.model.servers[v]
-        self._deliver(state, desc, lanes, t, created, u, spec.downstream, spec.latency, params)
+        forward = lanes
+        if spec.deadline_s is not None:
+            # A completion past its deadline is a timeout: retried while
+            # the budget lasts (after a backoff through the transit
+            # registers, or at once at the queue's tail), else counted
+            # and discarded, forwarding nothing.
+            expired = lanes & ((t - created) > _f32(self.srv_deadline[v], dev))
+            retry = expired & (attempt < int(self.srv_max_retries[v]))
+            state["srv_timed_out"][:, v] += (expired & ~retry).to(torch.int32)
+            if spec.retry_backoff_s is not None:
+                # A retry counts only when a transit register takes it.
+                tr_free = torch.isinf(state["tr_time"][:, v, :]).any(dim=1)
+                state["srv_retried"][:, v] += (retry & tr_free).to(torch.int32)
+                self._into_transit(
+                    state, retry, v, t + self._backoff_delay(u, attempt, v), created, attempt + 1
+                )
+            else:
+                self._enqueue_retry(state, desc, retry, v, t, created, attempt + 1)
+            forward = lanes & ~expired
+        self._deliver(state, desc, forward, t, created, u, spec.downstream, spec.latency, params)
         # Pull the next queued job into the freed slot (FIFO), unless a
-        # feedback delivery above re-claimed the slot.
+        # feedback delivery above re-claimed the slot, or a degrade-mode
+        # window caps the active slots.
         q_len = state["srv_q_len"][:, v]
         slot_still_free = torch.isinf(done_row.gather(1, k[:, None])[:, 0])
         has_queued = lanes & (q_len > 0) & slot_still_free
+        degraded = None
+        if self.has_faults and self.faults.degrade[v]:
+            degraded = self.faults.dark(state, v, t)
+            cap = int(self.faults.cap_slots[v])
+            if cap < self.srv_concurrency[v]:
+                busy_now = (torch.isfinite(done_row) & valid[None, :]).sum(dim=1)
+                has_queued = has_queued & ~(degraded & (busy_now >= cap))
         head = state["srv_q_head"][:, v]
-        queued_created, queued_enq = self._read_queue_head(state, desc, v, head)
+        queued_created, queued_enq, queued_attempt = self._read_queue_head(state, desc, v, head)
         service = self._sample_service(u, self.U_SVC2, v, params)
+        factor = self._degrade_factor(v, degraded)
+        if factor is not None:
+            service = service * factor
+        if spec.hedge_delay_s is not None:
+            second = self._sample_service(u, self.U_HED2, v, params)
+            if factor is not None:
+                second = second * factor
+            service, hedged, won = self._hedge(service, second, v)
+            state["srv_hedged"][:, v] += (has_queued & hedged).to(torch.int32)
+            state["srv_hedge_wins"][:, v] += (has_queued & won).to(torch.int32)
         measured = has_queued & (t >= _f32(self.warmup, dev))
         _set_at(done_row, k, has_queued, t + service)
         _set_at(created_row, k, has_queued, queued_created)
+        if self.has_attempts:
+            _set_at(state["srv_slot_attempt"][:, v, :], k, has_queued, queued_attempt)
         state["srv_q_head"][:, v] = torch.where(
             has_queued, torch.remainder(head + 1, self.K), head
         )
@@ -809,8 +1107,13 @@ class _Compiled:
         row = state["tr_time"][:, v, :]
         k = torch.argmin(row, dim=1)
         created = state["tr_created"][:, v, :].gather(1, k[:, None])[:, 0]
+        attempt = None
+        if self.has_backoff:
+            # A backoff retry re-arrives with its attempt number; a job
+            # that crossed an edge carries 0.
+            attempt = state["tr_attempt"][:, v, :].gather(1, k[:, None])[:, 0]
         _set_at(row, k, lanes, torch.full_like(created, INF))
-        self._arrive_server(state, desc, lanes, v, t, created, u, params)
+        self._arrive_server(state, desc, lanes, v, t, created, u, params, attempt)
 
     # -- the step ----------------------------------------------------------
     def next_candidates(self, state) -> torch.Tensor:
@@ -872,6 +1175,8 @@ class _Compiled:
                 "created": torch.zeros((R,), dtype=torch.float32, device=dev),
                 "enq": torch.zeros((R,), dtype=torch.float32, device=dev),
             }
+            if self.has_attempts:
+                desc["attempt"] = torch.zeros((R,), dtype=torch.int32, device=dev)
             for i in range(nS):
                 self._fire_source(i, state, desc, live & (event_index == i), t, u, params)
             nV_real = len(self.model.servers)
@@ -941,7 +1246,9 @@ def _source_jobs(model: EnsembleModel, source, rate: float) -> float:
 def _default_max_events(model: EnsembleModel, sweeps) -> int:
     """Event budget: each job costs a source fire plus, per server on its
     path, one completion (and one transit arrival when edges carry
-    latency); 25% headroom covers Poisson variance and queue drain."""
+    latency, or when backoff retries travel through transit even on free
+    edges); deadline retries re-run service up to 1 + max_retries times;
+    25% headroom covers Poisson variance and queue drain."""
     rates = np.asarray([s.rate for s in model.sources], np.float64)
     if sweeps and "source_rate" in sweeps:
         arr = np.asarray(sweeps["source_rate"], np.float64)
@@ -949,8 +1256,12 @@ def _default_max_events(model: EnsembleModel, sweeps) -> int:
             arr = np.tile(arr[:, None], (1, len(model.sources)))
         rates = np.max(arr, axis=0)
     total_jobs = sum(_source_jobs(model, s, rates[i]) for i, s in enumerate(model.sources))
-    hops_per_server = 2 if any(e.mean_s > 0 for e in model.iter_edges()) else 1
-    events_per_job = 1 + hops_per_server * _max_server_chain(model)
+    hops_per_server = 2 if (
+        any(e.mean_s > 0 for e in model.iter_edges())
+        or any(s.retry_backoff_s is not None for s in model.servers)
+    ) else 1
+    retry_factor = 1 + max((s.max_retries for s in model.servers), default=0)
+    events_per_job = 1 + hops_per_server * _max_server_chain(model) * retry_factor
     return int(1.25 * events_per_job * total_jobs) + 64
 
 
@@ -1101,6 +1412,7 @@ def run_ensemble(
         compile_seconds=compile_seconds,
         engine_path="scan+cuda" if on_card else "scan",
         kernel_shape=compiled.plan["shape"] if on_card else "",
+        kernel_chaos=compiled.plan["chaos"] if on_card else (),
         macro_block=macro,
         max_blocks=n_chunks,
         device_name=torch.cuda.get_device_name(device) if on_card else "cpu",
@@ -1118,6 +1430,7 @@ def _build_result(
     compile_seconds: float = 0.0,
     engine_path: str = "scan",
     kernel_shape: str = "",
+    kernel_chaos: tuple = (),
     macro_block: int = 0,
     max_blocks: int = 0,
     device_name: str = "",
@@ -1185,9 +1498,15 @@ def _build_result(
         limiter_admitted=[int(x) for x in host["lim_admitted"][:nL_real]],
         limiter_dropped=[int(x) for x in host["lim_dropped"][:nL_real]],
         truncated_replicas=truncated,
+        server_fault_dropped=_per_server(host, "srv_fault_dropped", nV_real),
+        server_fault_retried=_per_server(host, "srv_fault_retried", nV_real),
+        server_hedged=_per_server(host, "srv_hedged", nV_real),
+        server_hedge_wins=_per_server(host, "srv_hedge_wins", nV_real),
+        network_lost=int(host.get("net_lost", 0)),
         compile_seconds=compile_seconds,
         engine_path=engine_path,
         kernel_shape=kernel_shape,
+        kernel_chaos=tuple(kernel_chaos),
         macro_block=macro_block,
         max_blocks=max_blocks,
         blocks_total=blocks_total,
@@ -1195,3 +1514,11 @@ def _build_result(
         padded_replicas=n_replicas,
         device_name=device_name,
     )
+
+
+def _per_server(host: dict, key: str, nV_real: int) -> list[int]:
+    """A per-server counter column, zeros where the model has no such
+    leaf."""
+    if key not in host:
+        return [0] * nV_real
+    return [int(x) for x in host[key][:nV_real]]

@@ -12,18 +12,22 @@ extern "C" int hs_event_step_args_size() { return (int)sizeof(EventStepArgs); }
 
 template <int MAXV, bool GRAPH>
 static void launch_shape(const EventStepArgs& args, dim3 grid, dim3 block, cudaStream_t s) {
+  // The profile tables' shared-memory stage, when the source has one.
+  const size_t smem = args.has_profile ? 2 * (size_t)args.prof_n * sizeof(float) : 0;
   if (args.ext) {
-    // The profile tables' shared-memory stage, when the source has one.
-    const size_t smem = args.has_profile ? 2 * (size_t)args.prof_n * sizeof(float) : 0;
-    event_step_kernel<MAXV, GRAPH, true><<<grid, block, smem, s>>>(args);
+    event_step_kernel<MAXV, GRAPH, true, false><<<grid, block, smem, s>>>(args);
   } else {
-    event_step_kernel<MAXV, GRAPH, false><<<grid, block, 0, s>>>(args);
+    event_step_kernel<MAXV, GRAPH, false, false><<<grid, block, 0, s>>>(args);
   }
 }
 
 template <int MAXV>
 static void launch(const EventStepArgs& args, dim3 grid, dim3 block, cudaStream_t s) {
-  if (args.graph) {
+  if (args.chaos) {
+    // Every chaos model: the graph code with the family sampler.
+    const size_t smem = args.has_profile ? 2 * (size_t)args.prof_n * sizeof(float) : 0;
+    event_step_kernel<MAXV, true, true, true><<<grid, block, smem, s>>>(args);
+  } else if (args.graph) {
     launch_shape<MAXV, true>(args, grid, block, s);
   } else {
     launch_shape<MAXV, false>(args, grid, block, s);
@@ -33,7 +37,8 @@ static void launch(const EventStepArgs& args, dim3 grid, dim3 block, cudaStream_
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
   if (args->R <= 0) return 0;
-  if (args->ext && args->has_profile &&
+  if (args->chaos && !(args->graph && args->ext)) return (int)cudaErrorInvalidValue;
+  if ((args->ext || args->chaos) && args->has_profile &&
       (args->prof_n < 2 || args->prof_n > HS_MAX_PROFILE_GRID))
     return (int)cudaErrorInvalidValue;
   const dim3 block(HS_THREADS);

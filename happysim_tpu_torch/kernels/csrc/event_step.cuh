@@ -13,8 +13,8 @@
 // _complete_server with its FIFO queue pull, _arrive_server and
 // _deliver_sink.
 //
-// event_step_kernel<MAXV, GRAPH, EXT> has four instantiations per server
-// bound:
+// event_step_kernel<MAXV, GRAPH, EXT, CHAOS> has five instantiations per
+// server bound:
 // - GRAPH = false, the "mm1" and "chain" shapes (lines of servers joined
 //   by free edges, or a source wired straight to the sink): a delivery is
 //   a server arrival or the sink;
@@ -28,9 +28,25 @@
 // - EXT = true adds the M/G/1 family sampler (erlang-2/3, hyperexp,
 //   lognormal, pareto, by the server's kind) and the rate-profile gap
 //   (two table lookups per source fire). EXT = false keeps the constant
-//   and exponential draws and the flat-rate gap.
-// Everything GRAPH and EXT add sits under `if constexpr`, so the line
-// and flat instantiations compile to the code they had without them.
+//   and exponential draws and the flat-rate gap;
+// - CHAOS = true (only as <MAXV, true, true, true>) adds the chaos
+//   branches of the step: deadlines with immediate or backoff retries
+//   (attempt numbers in the slot arrays, the rings and the transit
+//   registers), hedged service starts, brownout windows, fault windows
+//   (outage-mode rejection with fault retries, degrade-mode capacity caps
+//   and service inflation, the shared correlated schedule) and packet
+//   loss on edges. Every chaos model runs it, a line of free edges
+//   included: backoff retries park in the transit registers, which only
+//   the graph code has, and one instantiation per server bound keeps the
+//   build small. JAX computes both sides of each retry or loss select
+//   and picks per lane; the kernel runs only the side taken and books
+//   exactly what that side books (a retry counts only when a transit
+//   register takes it, a lost crossing keeps the limiter and round-robin
+//   updates made before it, an expired and discarded job forwards
+//   nothing).
+// Everything GRAPH, EXT and CHAOS add sits under `if constexpr`, so the
+// line, flat and extended instantiations compile to the code they had
+// without them.
 //
 // The profile tables. JAX hoists the (G,) time and cumulative grids as
 // tile-shared kernel operands (const_spec), read once per tile. Here the
@@ -69,10 +85,16 @@
 // router branch. A (..., R)-minor layout, or staging a tile of replicas
 // through shared memory, and drawing U in the kernel are later work.
 //
+// The chaos leaves (attempt arrays, fault registers, the chaos counters)
+// stay in device memory in the JAX layout and are touched only at the
+// events that need them: the (nV, W) fault registers are read at an
+// arrival at, or a pull into, a faulted server.
+//
 // Float agreement with the plain version: build with -fmad=false and
 // without --use_fast_math (every torch op is its own kernel, so the
 // plain version never contracts a multiply-add), and use logf/log10f,
-// log1pf, sqrtf, expf, powf and IEEE division as torch's CUDA ops do.
+// log1pf, sqrtf, expf, powf, exp2f and IEEE division as torch's CUDA ops
+// do.
 // Where the JAX engine's XLA contracts c + a * b into one multiply-add
 // (the erfinv polynomial, the interp lerp, the profile extrapolation),
 // both versions evaluate it in double and round once to float
@@ -114,6 +136,15 @@
 #define HS_SVC_HYPEREXP 3
 #define HS_SVC_LOGNORMAL 4
 #define HS_SVC_PARETO 5
+// Per-server chaos flags (EventStepArgs::srv_flags).
+#define HS_F_FAULTED 1       // has a fault spec
+#define HS_F_DROP 2          // its fault mode is outage (else degrade)
+#define HS_F_SHARED 4        // subscribes to the correlated schedule
+#define HS_F_FAULT_RETRY 8   // fault rejections retry after a backoff
+#define HS_F_BACKOFF 16      // retries go through the transit registers
+#define HS_F_HEDGE 32        // hedged starts
+#define HS_F_OUTAGE 64       // a brownout window
+#define HS_F_DEADLINE 128    // a deadline
 
 // A downstream node and the edge that leads to it.
 struct HsRef {
@@ -121,6 +152,11 @@ struct HsRef {
   int index;
   float lat_mean;  // edge latency mean (s)
   int lat_kind;    // HS_LAT_*
+};
+
+// A lossy edge: the crossing is lost with probability p inside [start, end).
+struct HsLoss {
+  float p, start, end;
 };
 
 // Launch arguments. The layout must match kernels/event_step.py::_Args.
@@ -193,6 +229,37 @@ struct EventStepArgs {
   float hyp_p1[HS_MAX_NV], hyp_f1[HS_MAX_NV], hyp_f2[HS_MAX_NV];
   float ln_sigma[HS_MAX_NV];
   float par_alpha[HS_MAX_NV], par_xmf[HS_MAX_NV];
+  // CHAOS only: leaves (null where the model has none)
+  int chaos;                 // 1: deadlines, retries, hedges, brownouts, faults or loss
+  int* slot_attempt;         // (R, nV, C) attempt numbers
+  int* q_attempt;            // (R, nV, K)
+  int* tr_attempt;           // (R, nV, TR), with backoff retries
+  const float* flt_start;    // (R, nV, W) fault windows
+  const float* flt_end;      // (R, nV, W)
+  const float* flt_sh_start; // (R, W_sh) the fired shared windows
+  const float* flt_sh_end;   // (R, W_sh)
+  int* timed_out;            // (R, nV)
+  int* retried;              // (R, nV)
+  int* outage_dropped;       // (R, nV)
+  int* fault_dropped;        // (R, nV)
+  int* fault_retried;        // (R, nV)
+  int* hedged;               // (R, nV)
+  int* hedge_wins;           // (R, nV)
+  int* net_lost;             // (R,)
+  int W, W_sh;               // fault window budgets
+  int u_hed1, u_hed2, u_loss, u_jit;  // uniform slots (-1: none)
+  int srv_flags[HS_MAX_NV];  // HS_F_*
+  int max_retries[HS_MAX_NV];
+  int cap_slots[HS_MAX_NV];  // usable slots while degraded
+  float deadline[HS_MAX_NV];
+  float outage_start[HS_MAX_NV], outage_end[HS_MAX_NV];
+  float backoff[HS_MAX_NV], jitter[HS_MAX_NV];
+  float hedge[HS_MAX_NV];
+  float lat_factor[HS_MAX_NV];
+  HsLoss src_loss;                           // the source's edge
+  HsLoss srv_loss[HS_MAX_NV];                // each server's downstream edge
+  HsLoss lim_loss[HS_MAX_LIMITERS];          // each limiter's downstream edge
+  HsLoss rt_loss[HS_MAX_ROUTERS][HS_MAX_TARGETS];  // each router's target edges
 };
 
 // The profile tables, staged per thread block (EXT instantiations).
@@ -346,6 +413,11 @@ struct Lane {
   float *slot_done, *slot_created, *q_created, *q_enq, *tr_time, *tr_created;
   float *lim_tokens, *lim_last;
   int *hist, *rr, *lim_admitted, *lim_dropped, *tr_dropped;
+  // CHAOS: this replica's rows of the chaos leaves (null where absent)
+  int *slot_attempt, *q_attempt, *tr_attempt;
+  const float *flt_start, *flt_end, *flt_sh_start, *flt_sh_end;
+  int *timed_out, *retried, *outage_dropped, *fault_dropped, *fault_retried;
+  int *hedged, *hedge_wins, *net_lost;
 };
 
 // _deliver_sink: only arrivals inside [warmup, horizon] are measured.
@@ -414,19 +486,150 @@ __device__ __forceinline__ float edge_arrival(const HsRef& e, float t, const flo
 
 // _into_transit: park in the first free transit slot of server w until
 // `arrival`; with none free the job is lost and tr_dropped counts it.
-template <int MAXV>
+// A backoff retry parks here too, with its attempt number (CHAOS).
+template <int MAXV, bool CHAOS = false>
 __device__ __forceinline__ void into_transit(Lane<MAXV>& L, const EventStepArgs& a, int w,
-                                             float arrival, float created) {
+                                             float arrival, float created, int attempt = 0) {
   float* row = L.tr_time + w * a.TR;
   for (int c = 0; c < a.TR; ++c) {
     if (isinf(row[c])) {
       row[c] = arrival;
       L.tr_created[w * a.TR + c] = created;
+      if constexpr (CHAOS) {
+        if (L.tr_attempt) L.tr_attempt[w * a.TR + c] = attempt;
+      }
       put(L.tmin, w, fminf(pick(L.tmin, w), arrival));
       return;
     }
   }
   L.tr_dropped[w] += 1;
+}
+
+// Whether server w has a free transit register (the retry counters'
+// gate: a retry that finds none is a tr_dropped, not a retry).
+template <int MAXV>
+__device__ __forceinline__ bool transit_free(const Lane<MAXV>& L, const EventStepArgs& a, int w) {
+  const float* row = L.tr_time + w * a.TR;
+  for (int c = 0; c < a.TR; ++c)
+    if (isinf(row[c])) return true;
+  return false;
+}
+
+// FaultTable.dark: is server w inside one of its fault windows (or, if
+// it subscribes, a fired shared window) at t?
+template <int MAXV>
+__device__ __forceinline__ bool fault_dark(const Lane<MAXV>& L, const EventStepArgs& a, int w,
+                                           float t) {
+  bool dark = false;
+  const float* start = L.flt_start + w * a.W;
+  const float* end = L.flt_end + w * a.W;
+  for (int i = 0; i < a.W; ++i) dark |= (t >= start[i]) & (t < end[i]);
+  if (L.flt_sh_start && (pick_arg<MAXV>(a.srv_flags, w) & HS_F_SHARED)) {
+    for (int i = 0; i < a.W_sh; ++i)
+      dark |= (t >= L.flt_sh_start[i]) & (t < L.flt_sh_end[i]);
+  }
+  return dark;
+}
+
+// Active slots of server w (the degrade-mode capacity cap counts these).
+__device__ __forceinline__ int active_slots(const float* row, int cw) {
+  int n = 0;
+  for (int c = 0; c < cw; ++c) n += isfinite(row[c]) ? 1 : 0;
+  return n;
+}
+
+// The retry delay backoff * 2^attempt * (1 + jitter * (u - 0.5)).
+template <int MAXV>
+__device__ __forceinline__ float backoff_delay(const EventStepArgs& a, int w, int attempt,
+                                               const float* u) {
+  const float uj = a.u_jit >= 0 ? u[a.u_jit] : 0.5f;
+  const float spread = 1.0f + pick_arg<MAXV>(a.jitter, w) * (uj - 0.5f);
+  return pick_arg<MAXV>(a.backoff, w) * exp2f((float)attempt) * spread;
+}
+
+// A hedge with delay h: the slot is held for min(S1, h + S2); the second
+// attempt launches when S1 > h and wins when h + S2 < S1.
+__device__ __forceinline__ float hedge_race(float service, float second, float h,
+                                            bool& hedged, bool& won) {
+  hedged = service > h;
+  const float raced = h + second;
+  won = hedged && raced < service;
+  return hedged ? fminf(service, raced) : service;
+}
+
+// _arrive_server with the chaos gates: a brownout window loses the
+// arrival; an outage-mode fault window rejects it (parked for a retry
+// after the backoff while its budget lasts, else a fault drop); a
+// degrade-mode window caps the active slots and inflates service; a
+// hedged server races a second sample.
+template <int MAXV>
+__device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventStepArgs& a, int w,
+                                                    float t, float created, int attempt,
+                                                    const float* u) {
+  const int C = a.C, K = a.K;
+  const int cw = pick_arg<MAXV>(a.conc, w);
+  const int flags = pick_arg<MAXV>(a.srv_flags, w);
+  float* row = L.slot_done + w * C;
+  const bool fdark = (flags & HS_F_FAULTED) && fault_dark(L, a, w, t);
+  const bool degraded = fdark && !(flags & HS_F_DROP);
+  const bool dark = (flags & HS_F_OUTAGE) && t >= pick_arg<MAXV>(a.outage_start, w) &&
+                    t < pick_arg<MAXV>(a.outage_end, w);
+  if (dark) {  // a brownout loss, disjoint from the fault ledger
+    L.outage_dropped[w] += 1;
+    return;
+  }
+  if (fdark && (flags & HS_F_DROP)) {
+    if ((flags & HS_F_FAULT_RETRY) && attempt < pick_arg<MAXV>(a.max_retries, w)) {
+      if (transit_free(L, a, w)) L.fault_retried[w] += 1;
+      into_transit<MAXV, true>(L, a, w, t + backoff_delay<MAXV>(a, w, attempt, u), created,
+                               attempt + 1);
+    } else {
+      L.fault_dropped[w] += 1;
+    }
+    return;
+  }
+  int first_free = -1;
+  const int cap = pick_arg<MAXV>(a.cap_slots, w);
+  if (!(degraded && cap < cw && active_slots(row, cw) >= cap)) {
+    for (int c = 0; c < cw; ++c)
+      if (isinf(row[c])) { first_free = c; break; }
+  }
+  if (first_free >= 0) {
+    const float mean = pick(L.mean, w);
+    const float factor = pick_arg<MAXV>(a.lat_factor, w);
+    const bool inflate = degraded && factor > 1.0f;
+    float service = sample_family<MAXV>(a, w, mean, u + a.u_svc1);
+    if (inflate) service = service * factor;
+    if (flags & HS_F_HEDGE) {
+      float second = sample_family<MAXV>(a, w, mean, u + a.u_hed1);
+      if (inflate) second = second * factor;
+      bool hedged, won;
+      service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, w), hedged, won);
+      L.hedged[w] += hedged ? 1 : 0;
+      L.hedge_wins[w] += won ? 1 : 0;
+    }
+    const float done_at = t + service;
+    row[first_free] = done_at;
+    L.slot_created[w * C + first_free] = created;
+    if (L.slot_attempt) L.slot_attempt[w * C + first_free] = attempt;
+    put(L.started, w, pick(L.started, w) + 1);
+    if (t >= a.warmup) {
+      put(L.wait_n, w, pick(L.wait_n, w) + 1);
+      put(L.busy, w, pick(L.busy, w) + service);
+    }
+    put(L.smin, w, fminf(pick(L.smin, w), done_at));
+  } else {
+    const int ql = pick(L.q_len, w);
+    if (ql < pick_arg<MAXV>(a.qcap, w)) {
+      const int tail = (pick(L.q_head, w) + ql) % K;
+      L.q_created[w * K + tail] = created;
+      L.q_enq[w * K + tail] = t;
+      if (L.q_attempt) L.q_attempt[w * K + tail] = attempt;
+      put(L.q_len, w, ql + 1);
+    } else {
+      put(L.dropped, w, pick(L.dropped, w) + 1);
+    }
+  }
 }
 
 // _route_choice for router `rix` at hop depth `hop`, then _bump_rr.
@@ -466,9 +669,17 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
 // graph it is a bounded walk: a limiter refills and admits or drops; a
 // router chooses and recurses into a router target with hop + 1; the
 // walk ends at a sink, a transit park, or a server arrival.
-template <int MAXV, bool GRAPH, bool EXT>
+//
+// CHAOS: `loss` is the edge into `dest` and follows the walk (a limiter's
+// downstream edge, a router's chosen target edge); a lossy crossing is
+// decided where the walk ends (edges into limiters and routers are
+// loss-free), after any limiter and round-robin update, and vanishes the
+// job with only net_lost counting it. `attempt` rides to the server.
+template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false>
 __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, HsRef dest,
-                                        float t, float created, const float* u) {
+                                        float t, float created, const float* u,
+                                        HsLoss loss = HsLoss{0.0f, 0.0f, 0.0f},
+                                        int attempt = 0) {
   if constexpr (!GRAPH) {
     if (dest.kind == HS_SINK) {
       deliver_sink(L, a, t, created);
@@ -492,21 +703,32 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         }
         L.lim_admitted[l] += 1;
         dest = a.lim_ref[l];
+        if constexpr (CHAOS) loss = a.lim_loss[l];
         continue;
       }
       if (dest.kind == HS_ROUTER) {
         const int rix = dest.index;
-        dest = a.rt_target[rix][route_choice(L, a, rix, hop, u)];
+        const int choice = route_choice(L, a, rix, hop, u);
+        dest = a.rt_target[rix][choice];
+        if constexpr (CHAOS) loss = a.rt_loss[rix][choice];
         if (dest.kind == HS_ROUTER) {
           hop += 1;
           continue;
         }
         park = a.rt_park[rix] != 0;
       }
+      if constexpr (CHAOS) {
+        if (loss.p > 0.0f && u[a.u_loss] < loss.p && t >= loss.start && t < loss.end) {
+          *L.net_lost += 1;
+          return;
+        }
+      }
       if (dest.kind == HS_SINK) {
         deliver_sink(L, a, edge_arrival(dest, t, u, a.u_lat), created);
       } else if (park || dest.lat_kind != HS_LAT_NONE) {
-        into_transit(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat), created);
+        into_transit<MAXV, CHAOS>(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat), created);
+      } else if constexpr (CHAOS) {
+        arrive_server_chaos<MAXV>(L, a, dest.index, t, created, attempt, u);
       } else {
         arrive_server<MAXV, EXT>(L, a, dest.index, t, created, u);
       }
@@ -515,7 +737,7 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
   }
 }
 
-template <int MAXV, bool GRAPH, bool EXT>
+template <int MAXV, bool GRAPH, bool EXT, bool CHAOS>
 __global__ void __launch_bounds__(HS_THREADS)
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -555,6 +777,23 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.lim_last = a.lim_last + (size_t)r * a.nL;
     L.lim_admitted = a.lim_admitted + (size_t)r * a.nL;
     L.lim_dropped = a.lim_dropped + (size_t)r * a.nL;
+  }
+  if constexpr (CHAOS) {
+    L.slot_attempt = a.slot_attempt ? a.slot_attempt + rv * C : nullptr;
+    L.q_attempt = a.q_attempt ? a.q_attempt + rv * K : nullptr;
+    L.tr_attempt = a.tr_attempt ? a.tr_attempt + rv * TR : nullptr;
+    L.flt_start = a.flt_start ? a.flt_start + rv * a.W : nullptr;
+    L.flt_end = a.flt_end ? a.flt_end + rv * a.W : nullptr;
+    L.flt_sh_start = a.flt_sh_start ? a.flt_sh_start + (size_t)r * a.W_sh : nullptr;
+    L.flt_sh_end = a.flt_sh_end ? a.flt_sh_end + (size_t)r * a.W_sh : nullptr;
+    L.timed_out = a.timed_out + rv;
+    L.retried = a.retried + rv;
+    L.outage_dropped = a.outage_dropped + rv;
+    L.fault_dropped = a.fault_dropped ? a.fault_dropped + rv : nullptr;
+    L.fault_retried = a.fault_retried ? a.fault_retried + rv : nullptr;
+    L.hedged = a.hedged ? a.hedged + rv : nullptr;
+    L.hedge_wins = a.hedge_wins ? a.hedge_wins + rv : nullptr;
+    L.net_lost = a.net_lost ? a.net_lost + r : nullptr;
   }
 #pragma unroll
   for (int v = 0; v < MAXV; ++v) {
@@ -608,6 +847,9 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     HsRef dest;
     float created;
     int from = -1, from_slot = 0;
+    HsLoss loss{0.0f, 0.0f, 0.0f};  // CHAOS: the edge's packet loss
+    int attempt = 0;                // CHAOS: the attempt a transit arrival carries
+    bool forward = true;            // CHAOS: false once a deadline expired
     if (ev < 0) {  // _fire_source
       float gap;
       if constexpr (EXT) {
@@ -624,6 +866,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       src_next = next_time > a.stop_after ? INFINITY : next_time;
       dest = a.src_ref;
       created = t;
+      if constexpr (CHAOS) loss = a.src_loss;
     } else if (!GRAPH || ev < MAXV) {  // _complete_server: the first slot holding the earliest time
       from = ev;
       const int cv = pick_arg<MAXV>(a.conc, from);
@@ -637,6 +880,42 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       row[from_slot] = INFINITY;
       put(L.completed, from, pick(L.completed, from) + 1);
       dest = pick_arg<MAXV>(a.srv_ref, from);
+      if constexpr (CHAOS) {
+        loss = pick_arg<MAXV>(a.srv_loss, from);
+        // The completing job's attempt; the job it forwards arrives as a
+        // first attempt.
+        const int job_attempt = L.slot_attempt ? L.slot_attempt[from * C + from_slot] : 0;
+        // _complete_server's deadline: an expired job is retried while
+        // its budget lasts (through the transit registers after the
+        // backoff, or at once at the queue's tail), else timed out; it
+        // is not forwarded either way.
+        const int flags = pick_arg<MAXV>(a.srv_flags, from);
+        if ((flags & HS_F_DEADLINE) && (t - created) > pick_arg<MAXV>(a.deadline, from)) {
+          forward = false;
+          if (job_attempt < pick_arg<MAXV>(a.max_retries, from)) {
+            if (flags & HS_F_BACKOFF) {
+              if (transit_free(L, a, from)) L.retried[from] += 1;
+              into_transit<MAXV, true>(L, a, from,
+                                       t + backoff_delay<MAXV>(a, from, job_attempt, u), created,
+                                       job_attempt + 1);
+            } else {
+              const int ql = pick(L.q_len, from);
+              if (ql < pick_arg<MAXV>(a.qcap, from)) {
+                const int tail = (pick(L.q_head, from) + ql) % K;
+                L.q_created[from * K + tail] = created;
+                L.q_enq[from * K + tail] = t;
+                if (L.q_attempt) L.q_attempt[from * K + tail] = job_attempt + 1;
+                put(L.q_len, from, ql + 1);
+                L.retried[from] += 1;
+              } else {
+                put(L.dropped, from, pick(L.dropped, from) + 1);
+              }
+            }
+          } else {
+            L.timed_out[from] += 1;
+          }
+        }
+      }
     } else {  // _transit_arrive: the first slot holding the row's minimum
       const int v = ev - MAXV;
       float* trow = L.tr_time + v * TR;
@@ -647,12 +926,19 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         if (x < best) { best = x; slot = c; }
       }
       created = L.tr_created[v * TR + slot];
+      if constexpr (CHAOS) {
+        if (L.tr_attempt) attempt = L.tr_attempt[v * TR + slot];
+      }
       trow[slot] = INFINITY;
       put(L.tmin, v, row_min(trow, TR));
       dest = HsRef{HS_SERVER, v, 0.0f, HS_LAT_NONE};
     }
 
-    deliver<MAXV, GRAPH, EXT>(L, a, dest, t, created, u);
+    if constexpr (CHAOS) {
+      if (forward) deliver<MAXV, GRAPH, EXT, true>(L, a, dest, t, created, u, loss, attempt);
+    } else {
+      deliver<MAXV, GRAPH, EXT>(L, a, dest, t, created, u);
+    }
 
     if (from >= 0) {
       // FIFO pull into the freed slot. On a line the delivery went to
@@ -660,7 +946,19 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       // the slot (it takes the first free one, ahead of the queue).
       const int ql = pick(L.q_len, from);
       float* row = L.slot_done + from * C;
-      if (ql > 0 && (!GRAPH || isinf(row[from_slot]))) {
+      bool pull = ql > 0 && (!GRAPH || isinf(row[from_slot]));
+      bool inflate = false;  // CHAOS: a degrade-mode window inflates the pull
+      if constexpr (CHAOS) {
+        const int flags = pick_arg<MAXV>(a.srv_flags, from);
+        if (pull && (flags & HS_F_FAULTED) && !(flags & HS_F_DROP) &&
+            fault_dark(L, a, from, t)) {
+          const int cap = pick_arg<MAXV>(a.cap_slots, from);
+          const int cv = pick_arg<MAXV>(a.conc, from);
+          pull = !(cap < cv && active_slots(row, cv) >= cap);
+          inflate = pick_arg<MAXV>(a.lat_factor, from) > 1.0f;
+        }
+      }
+      if (pull) {
         const int head = pick(L.q_head, from);
         float service;
         if constexpr (EXT) {
@@ -668,6 +966,19 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         } else {
           const float ub = a.u_svc2 >= 0 ? u[a.u_svc2] : 0.5f;
           service = sample_service(pick_arg<MAXV>(a.svc_kind, from), pick(L.mean, from), ub);
+        }
+        if constexpr (CHAOS) {
+          const float factor = pick_arg<MAXV>(a.lat_factor, from);
+          if (inflate) service = service * factor;
+          if (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE) {
+            float second = sample_family<MAXV>(a, from, pick(L.mean, from), u + a.u_hed2);
+            if (inflate) second = second * factor;
+            bool hedged, won;
+            service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, from), hedged, won);
+            L.hedged[from] += hedged ? 1 : 0;
+            L.hedge_wins[from] += won ? 1 : 0;
+          }
+          if (L.slot_attempt) L.slot_attempt[from * C + from_slot] = L.q_attempt[from * K + head];
         }
         row[from_slot] = t + service;
         L.slot_created[from * C + from_slot] = L.q_created[from * K + head];

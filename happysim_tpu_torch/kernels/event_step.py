@@ -15,7 +15,11 @@ instantiation, which walks the topology tables in its arguments. Either
 comes in an extended form, launched when a server draws from a family
 beyond constant and exponential or the source follows a rate profile:
 the family sampler and the profile lookup, with the profile tables
-passed as device tensors and staged in shared memory.
+passed as device tensors and staged in shared memory. Every model with a
+chaos feature (deadlines, retries, hedges, brownouts, fault schedules,
+packet loss) launches the chaos instantiation, the extended graph code
+plus the chaos branches, whatever its shape: a line with backoff
+retries needs the transit registers, which only the graph code has.
 
 The kernel is compiled on first use with ``nvcc`` from this package's
 sources into ``build/`` at the repository root, bound through a plain C
@@ -57,20 +61,24 @@ _MAX_L = support.KERNEL_MAX_LIMITERS
 _loaded: dict = {}
 
 # Struct fields holding state-leaf pointers, in EventStepArgs order,
-# paired with the leaves they point at.
-_LEAF_FIELDS = tuple(
-    zip(
-        (
-            "t", "src_next", "events", "slot_done", "slot_created",
-            "q_created", "q_enq", "q_head", "q_len", "started", "completed",
-            "dropped", "wait_n", "busy_int", "depth_int", "wait_sum",
-            "sink_count", "sink_sum", "sink_sq", "sink_hist",
-            "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
-            "tr_time", "tr_created", "tr_dropped",
-        ),
-        support.KERNEL_LEAVES,
-    )
+# paired with the leaves they point at: the leaves of every model, then
+# (at the struct's end) the chaos leaves.
+_BASE_FIELDS = (
+    "t", "src_next", "events", "slot_done", "slot_created",
+    "q_created", "q_enq", "q_head", "q_len", "started", "completed",
+    "dropped", "wait_n", "busy_int", "depth_int", "wait_sum",
+    "sink_count", "sink_sum", "sink_sq", "sink_hist",
+    "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
+    "tr_time", "tr_created", "tr_dropped",
 )
+_CHAOS_FIELDS = (
+    "slot_attempt", "q_attempt", "tr_attempt",
+    "flt_start", "flt_end", "flt_sh_start", "flt_sh_end",
+    "timed_out", "retried", "outage_dropped",
+    "fault_dropped", "fault_retried", "hedged", "hedge_wins", "net_lost",
+)
+assert len(_BASE_FIELDS) + len(_CHAOS_FIELDS) == len(support.KERNEL_LEAVES)
+_LEAF_FIELDS = tuple(zip(_BASE_FIELDS + _CHAOS_FIELDS, support.KERNEL_LEAVES))
 
 _KIND_IDS = {SINK: 0, SERVER: 1, ROUTER: 2, LIMITER: 3}
 _POLICY_IDS = {"random": 0, "round_robin": 1, "weighted": 2, "least_outstanding": 3}
@@ -87,11 +95,17 @@ class _Ref(ctypes.Structure):
     ]
 
 
+class _Loss(ctypes.Structure):
+    """Mirror of ``HsLoss``: an edge's packet loss."""
+
+    _fields_ = [(name, ctypes.c_float) for name in ("p", "start", "end")]
+
+
 class _Args(ctypes.Structure):
     """Mirror of ``EventStepArgs`` in csrc/event_step.cuh."""
 
     _fields_ = (
-        [(name, ctypes.c_void_p) for name, _ in _LEAF_FIELDS]
+        [(name, ctypes.c_void_p) for name in _BASE_FIELDS]
         + [(name, ctypes.c_void_p) for name in ("halted", "U", "src_rate", "srv_mean")]
         + [
             (name, ctypes.c_int)
@@ -128,7 +142,32 @@ class _Args(ctypes.Structure):
                 "hyp_p1", "hyp_f1", "hyp_f2", "ln_sigma", "par_alpha", "par_xmf"
             )
         ]
+        + [("chaos", ctypes.c_int)]
+        + [(name, ctypes.c_void_p) for name in _CHAOS_FIELDS]
+        + [
+            (name, ctypes.c_int)
+            for name in ("W", "W_sh", "u_hed1", "u_hed2", "u_loss", "u_jit")
+        ]
+        + [(name, ctypes.c_int * _MAX_NV) for name in ("srv_flags", "max_retries", "cap_slots")]
+        + [
+            (name, ctypes.c_float * _MAX_NV)
+            for name in (
+                "deadline", "outage_start", "outage_end", "backoff", "jitter",
+                "hedge", "lat_factor",
+            )
+        ]
+        + [
+            ("src_loss", _Loss),
+            ("srv_loss", _Loss * _MAX_NV),
+            ("lim_loss", _Loss * _MAX_L),
+            ("rt_loss", (_Loss * _MAX_T) * _MAX_R),
+        ]
     )
+
+
+# Per-server chaos flags (HS_F_* in csrc/event_step.cuh).
+_F_FAULTED, _F_DROP, _F_SHARED, _F_FAULT_RETRY = 1, 2, 4, 8
+_F_BACKOFF, _F_HEDGE, _F_OUTAGE, _F_DEADLINE = 16, 32, 64, 128
 
 
 def _nvcc() -> str:
@@ -199,6 +238,47 @@ def _slot(value) -> int:
     return -1 if value is None else int(value)
 
 
+def _loss(edge) -> _Loss:
+    return _Loss(*(float(np.float32(x)) for x in (edge.loss_p, edge.loss_start_s, edge.loss_end_s)))
+
+
+def _chaos_args(compiled, args: _Args) -> None:
+    """The chaos instantiation's per-server constants, flags, draw slots
+    and loss tables."""
+    model, faults = compiled.model, compiled.faults
+    args.chaos = 1
+    args.W, args.W_sh = faults.W, faults.W_sh
+    args.u_hed1, args.u_hed2 = _slot(compiled.U_HED1), _slot(compiled.U_HED2)
+    args.u_loss, args.u_jit = _slot(compiled.U_LOSS), _slot(compiled.U_JIT)
+    for v, spec in enumerate(model.servers):
+        flags = 0
+        if faults.faulted[v]:
+            flags |= _F_FAULTED | (_F_DROP if faults.drop_mode[v] else 0)
+            flags |= _F_SHARED if faults.has_shared and faults.participates[v] else 0
+        flags |= _F_FAULT_RETRY if compiled.flt_can_retry[v] else 0
+        flags |= _F_BACKOFF if spec.retry_backoff_s is not None else 0
+        flags |= _F_HEDGE if spec.hedge_delay_s is not None else 0
+        flags |= _F_OUTAGE if spec.outage_start_s is not None else 0
+        flags |= _F_DEADLINE if spec.deadline_s is not None else 0
+        args.srv_flags[v] = flags
+        args.max_retries[v] = int(compiled.srv_max_retries[v])
+        args.cap_slots[v] = int(faults.cap_slots[v])
+        for name, table in (
+            ("deadline", compiled.srv_deadline), ("outage_start", compiled.srv_outage_start),
+            ("outage_end", compiled.srv_outage_end), ("backoff", compiled.srv_backoff),
+            ("jitter", compiled.srv_jitter), ("hedge", compiled.srv_hedge),
+            ("lat_factor", faults.lat_factor),
+        ):
+            getattr(args, name)[v] = float(table[v])
+        args.srv_loss[v] = _loss(spec.latency)
+    args.src_loss = _loss(model.sources[0].latency)
+    for l, limiter in enumerate(model.limiters):
+        args.lim_loss[l] = _loss(limiter.latency)
+    for r, router in enumerate(model.routers):
+        for i, edge in enumerate(router.target_latencies):
+            args.rt_loss[r][i] = _loss(edge)
+
+
 def _static_args(compiled) -> _Args:
     """The launch arguments that depend only on the model: sizes, draw
     slots, per-server constants and the topology tables."""
@@ -266,6 +346,11 @@ def _static_args(compiled) -> _Args:
         args.ln_sigma[v] = float(compiled.srv_ln_sigma[v])
         args.par_alpha[v] = float(compiled.srv_par_alpha[v])
         args.par_xmf[v] = float(compiled.srv_par_xmf[v])
+    if compiled.has_chaos:
+        # The chaos instantiation is the extended graph code plus the
+        # chaos branches, whatever the model's shape.
+        args.graph = args.ext = 1
+        _chaos_args(compiled, args)
     return args
 
 
@@ -369,6 +454,28 @@ def _expected_shapes(compiled, R: int) -> dict:
             "tr_time": (R, nV, compiled.TR), "tr_created": (R, nV, compiled.TR),
             "tr_dropped": per_server,
         })
+        if compiled.has_backoff:
+            shapes["tr_attempt"] = (R, nV, compiled.TR)
+    if not compiled.has_chaos:
+        return shapes
+    shapes.update({"srv_timed_out": per_server, "srv_retried": per_server,
+                   "srv_outage_dropped": per_server})
+    if compiled.has_attempts:
+        shapes.update({"srv_slot_attempt": (R, nV, C), "srv_q_attempt": (R, nV, K)})
+    faults = compiled.faults
+    if compiled.has_faults:
+        shapes.update({
+            "flt_start": (R, nV, faults.W), "flt_end": (R, nV, faults.W),
+            "srv_fault_dropped": per_server,
+        })
+        if faults.has_shared:
+            shapes.update({"flt_sh_start": (R, faults.W_sh), "flt_sh_end": (R, faults.W_sh)})
+    if compiled.has_fault_retries:
+        shapes["srv_fault_retried"] = per_server
+    if compiled.has_hedge:
+        shapes.update({"srv_hedged": per_server, "srv_hedge_wins": per_server})
+    if compiled.has_loss:
+        shapes["net_lost"] = (R,)
     return shapes
 
 
@@ -376,6 +483,9 @@ _INT_LEAVES = frozenset({
     "events", "srv_q_head", "srv_q_len", "srv_started", "srv_completed",
     "srv_dropped", "srv_wait_n", "sink_count", "sink_hist",
     "rr_next", "lim_admitted", "lim_dropped", "tr_dropped",
+    "srv_slot_attempt", "srv_q_attempt", "tr_attempt",
+    "srv_timed_out", "srv_retried", "srv_outage_dropped", "srv_fault_dropped",
+    "srv_fault_retried", "srv_hedged", "srv_hedge_wins", "net_lost",
 })
 
 

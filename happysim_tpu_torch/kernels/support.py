@@ -36,7 +36,8 @@ KERNEL_MAX_CONCURRENCY = 1024
 #: Queue-ring length.
 KERNEL_MAX_QUEUE = 1 << 20
 #: Uniform draws per step (3 for an exponential-service chain; a router
-#: model adds one per router hop and one for exponential edges).
+#: model adds one per router hop and one for exponential edges, a hedged
+#: model two more service windows, loss and jitter one each).
 KERNEL_MAX_DRAWS = 16
 #: Event steps per launch.
 KERNEL_MAX_MACRO = 4096
@@ -53,10 +54,16 @@ KERNEL_MAX_TRANSIT = 4096
 #: Grid points of a rate profile's tables: the two (G,) float32 tables
 #: are staged in a thread block's shared memory, 32 KB at this bound.
 KERNEL_MAX_PROFILE_GRID = 4096
+#: Fault windows per server (W) and in the shared schedule (W_sh): a loop
+#: over device memory at each arrival at, and pull into, a faulted server.
+KERNEL_MAX_FAULT_WINDOWS = 4096
 
-#: Leaves the kernel reads and writes; the other state leaves (the key and
-#: the inert brownout/deadline columns) are not touched. The transit
-#: leaves exist only when the model has latency edges into servers.
+#: Leaves the kernel reads and writes; the other state leaf (the key) is
+#: not touched. The transit leaves exist only when the model has latency
+#: edges into servers or backoff retries; the chaos leaves after
+#: "tr_dropped" (touched by the chaos instantiation only) only where the
+#: model declares the feature, except the three counters every chaos
+#: model carries (timed out, retried, brownout drops).
 KERNEL_LEAVES = (
     "t", "src_next", "events",
     "srv_slot_done", "srv_slot_created", "srv_q_created", "srv_q_enq",
@@ -65,14 +72,27 @@ KERNEL_LEAVES = (
     "srv_wait_sum", "sink_count", "sink_sum", "sink_sq", "sink_hist",
     "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
     "tr_time", "tr_created", "tr_dropped",
+    "srv_slot_attempt", "srv_q_attempt", "tr_attempt",
+    "flt_start", "flt_end", "flt_sh_start", "flt_sh_end",
+    "srv_timed_out", "srv_retried", "srv_outage_dropped",
+    "srv_fault_dropped", "srv_fault_retried", "srv_hedged", "srv_hedge_wins",
+    "net_lost",
 )
 #: Leaves whose entries a block touches only at events (ring pushes and
 #: pulls, transit parks and arrivals, histogram bumps, router and limiter
-#: registers): left out of the bytes bound, which keeps it a lower bound.
+#: registers, and every chaos leaf: attempt numbers move with jobs, the
+#: fault registers are read at arrivals and pulls of faulted servers, the
+#: chaos counters are bumped where they count): left out of the bytes
+#: bound, which keeps it a lower bound.
 SPARSE_LEAVES = (
     "srv_q_created", "srv_q_enq", "sink_hist",
     "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
     "tr_time", "tr_created", "tr_dropped",
+    "srv_slot_attempt", "srv_q_attempt", "tr_attempt",
+    "flt_start", "flt_end", "flt_sh_start", "flt_sh_end",
+    "srv_timed_out", "srv_retried", "srv_outage_dropped",
+    "srv_fault_dropped", "srv_fault_retried", "srv_hedged", "srv_hedge_wins",
+    "net_lost",
 )
 
 #: Router policies the kernel runs: all four.
@@ -90,8 +110,9 @@ def kernel_plan(model: EnsembleModel) -> dict:
     ``{"shape": "router", "servers": [...], "policy": ...}`` for the pure
     load-balancer fan-out (servers in target order), and
     ``{"shape": "graph", "servers", "routers", "policies"}`` (BFS order)
-    for every other graph the walk approves. JAX's plan dict without its
-    ``"chaos"`` key. Raises NotImplementedError with every decline
+    for every other graph the walk approves, each with ``"chaos"``: the
+    model's :meth:`~happysim_tpu_torch.model.EnsembleModel.chaos_features`
+    (JAX's plan dict). Raises NotImplementedError with every decline
     reason, first reason first."""
     reasons: list[str] = []
     if len(model.sources) != 1:
@@ -106,6 +127,7 @@ def kernel_plan(model: EnsembleModel) -> dict:
             "; ".join(dict.fromkeys(reasons or ["unsupported topology"]))
             + " — the port runs one walked source->sink graph (ROADMAP A.5c)"
         )
+    plan["chaos"] = model.chaos_features()
     return plan
 
 
@@ -239,6 +261,12 @@ def check_kernel_bounds(compiled, macro: int) -> None:
         ("router hop depth", compiled.hop_depth, KERNEL_MAX_HOPS),
         ("limiters", len(model.limiters), KERNEL_MAX_LIMITERS),
         ("transit_capacity", compiled.TR if compiled.has_transit else 0, KERNEL_MAX_TRANSIT),
+        ("fault windows W", compiled.faults.W if compiled.has_faults else 0, KERNEL_MAX_FAULT_WINDOWS),
+        (
+            "shared fault windows W_sh",
+            compiled.faults.W_sh if compiled.has_faults else 0,
+            KERNEL_MAX_FAULT_WINDOWS,
+        ),
         (
             "profile grid points",
             compiled.profile_times.shape[1] if compiled.has_profile.any() else 0,

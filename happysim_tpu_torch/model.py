@@ -24,9 +24,14 @@ hyperexponential, lognormal, mean-matched pareto), mixed freely;
 zero-latency or latency-carrying edges (constant or exponential, parked
 in ``transit_capacity`` in-flight slots per server), multi-tier router
 DAGs, shared backends and "done or continue" feedback through a server,
-``warmup_s`` and ``macro_block``. Every other feature of the JAX model
-API raises :class:`NotImplementedError` naming itself and the ROADMAP
-item that ports it; the port has no second engine to fall back to.
+``warmup_s`` and ``macro_block``. The chaos stack rides on any of them:
+deadlines with immediate or backoff (jittered) retries, hedged requests,
+brownout windows, stochastic or pinned :class:`FaultSpec` schedules in
+outage or degrade mode, :meth:`EnsembleModel.correlated_outages`, and
+per-crossing packet loss on edges (``connect(..., loss_p=...)``). Every
+other feature of the JAX model API raises :class:`NotImplementedError`
+naming itself and the ROADMAP item that ports it; the port has no second
+engine to fall back to.
 """
 
 from __future__ import annotations
@@ -53,7 +58,6 @@ LATENCY_KINDS = ("constant", "exponential")
 # ROADMAP item that ports it. Reaching one raises NotImplementedError.
 _UNPORTED = {
     "telemetry": "windowed telemetry (ROADMAP A.7)",
-    "correlated_outages": "correlated outages (ROADMAP A.7)",
     "circuit_breaker": "circuit breakers (ROADMAP A.8)",
     "load_shed": "load shedding (ROADMAP A.8)",
     "retry_budget": "retry budgets (ROADMAP A.8)",
@@ -62,15 +66,6 @@ _UNPORTED = {
     "leader_election": "leader election (ROADMAP A.11)",
     "trace_arrivals": "trace-driven arrivals (ROADMAP A.12)",
     "remote": "remote egress nodes (ROADMAP A.14)",
-}
-_UNPORTED_SERVER_ARGS = {
-    "deadline_s": "deadlines (ROADMAP A.6)",
-    "max_retries": "retries (ROADMAP A.6)",
-    "retry_backoff_s": "backoff retries (ROADMAP A.6)",
-    "retry_jitter": "retry jitter (ROADMAP A.6)",
-    "hedge_delay_s": "hedged requests (ROADMAP A.6)",
-    "outage": "brownout windows (ROADMAP A.7)",
-    "fault": "fault schedules (ROADMAP A.7)",
 }
 
 
@@ -153,11 +148,113 @@ class RateProfile:
 
 @dataclass(frozen=True)
 class EdgeLatency:
-    """Link latency applied while a job crosses an edge (packet loss is
-    not ported: ROADMAP A.7)."""
+    """Link latency applied while a job crosses an edge.
+
+    ``loss_p`` is a per-crossing Bernoulli packet-loss probability,
+    active inside [``loss_start_s``, ``loss_end_s``). Lost jobs vanish
+    (counted in ``EnsembleResult.network_lost``).
+    """
 
     mean_s: float = 0.0
     kind: str = "constant"  # or "exponential"
+    loss_p: float = 0.0
+    loss_start_s: float = 0.0
+    loss_end_s: float = float("inf")
+
+
+@dataclass(frozen=True)
+class FaultSpec:
+    """Per-replica stochastic fault schedule for one server.
+
+    Each replica draws its own timeline at init: inter-window gaps ~
+    Exp(``rate``) measured from the end of the previous window, durations
+    ~ Exp(``mean_duration_s``) or constant. The stationary dark fraction
+    is ``mean_duration_s / (1/rate + mean_duration_s)``
+    (:func:`happysim_tpu_torch.faults.duty_cycle`).
+
+    ``mode`` selects the in-window effect: ``"outage"`` drops arrivals
+    (client retries may send them again, see ``retry_backoff_s``);
+    ``"degrade"`` keeps the server up with ``capacity_factor`` of its
+    slots usable for new starts and every service started in-window
+    inflated by ``latency_factor``. ``windows`` pins a deterministic
+    schedule, identical in every replica. ``correlated=True`` also
+    subscribes the server to the model's :class:`CorrelatedOutages`.
+    ``max_windows`` bounds the compiled schedule; keep it above
+    ``rate * horizon_s`` or late windows are never drawn.
+    """
+
+    rate: float = 0.0
+    mean_duration_s: float = 0.0
+    duration: str = "exponential"  # or "constant"
+    mode: str = "outage"  # or "degrade"
+    capacity_factor: float = 1.0
+    latency_factor: float = 1.0
+    correlated: bool = False
+    max_windows: int = 4
+    windows: Optional[tuple] = None  # ((start, end), ...) deterministic
+
+    def validate(self, label: str) -> None:
+        if self.mode not in ("outage", "degrade"):
+            raise ValueError(f"{label}: fault mode {self.mode!r} not in "
+                             "('outage', 'degrade')")
+        if self.duration not in ("exponential", "constant"):
+            raise ValueError(f"{label}: fault duration {self.duration!r} "
+                             "not in ('exponential', 'constant')")
+        if self.windows is not None:
+            for start, end in self.windows:
+                if start < 0.0 or end <= start:
+                    raise ValueError(
+                        f"{label}: fault window [{start}, {end}) is empty "
+                        "or negative"
+                    )
+        else:
+            if not self.correlated and self.rate <= 0.0:
+                raise ValueError(f"{label}: stochastic fault needs rate > 0 "
+                                 "(or explicit windows=..., or correlated=True)")
+            # A correlated spec may carry its own stochastic windows on
+            # top of the shared schedule; those need a positive duration.
+            if self.rate > 0.0 and self.mean_duration_s <= 0.0:
+                raise ValueError(f"{label}: fault needs mean_duration_s > 0")
+        if self.max_windows < 1:
+            raise ValueError(f"{label}: max_windows must be >= 1")
+        if not 0.0 <= self.capacity_factor <= 1.0:
+            raise ValueError(f"{label}: capacity_factor must be in [0, 1]")
+        if self.latency_factor < 1.0:
+            raise ValueError(f"{label}: latency_factor must be >= 1")
+        if self.mode == "outage" and (
+            self.capacity_factor != 1.0 or self.latency_factor != 1.0
+        ):
+            raise ValueError(
+                f"{label}: capacity_factor/latency_factor require "
+                "mode='degrade' (an outage drops arrivals outright)"
+            )
+
+
+@dataclass(frozen=True)
+class CorrelatedOutages:
+    """Model-level correlated-failure schedule (shared Bernoulli trigger).
+
+    Each replica draws one shared sequence of candidate windows (gaps ~
+    Exp(``rate``), durations ~ Exp(``mean_duration_s``)); each candidate
+    fires with probability ``trigger_p``. While a fired window is open,
+    every server whose :class:`FaultSpec` has ``correlated=True`` is dark
+    at once.
+    """
+
+    rate: float
+    mean_duration_s: float
+    trigger_p: float = 1.0
+    max_windows: int = 4
+
+    def validate(self) -> None:
+        if self.rate <= 0.0:
+            raise ValueError("correlated_outages: rate must be > 0")
+        if self.mean_duration_s <= 0.0:
+            raise ValueError("correlated_outages: mean_duration_s must be > 0")
+        if not 0.0 < self.trigger_p <= 1.0:
+            raise ValueError("correlated_outages: trigger_p must be in (0, 1]")
+        if self.max_windows < 1:
+            raise ValueError("correlated_outages: max_windows must be >= 1")
 
 
 @dataclass
@@ -181,6 +278,23 @@ class ServerSpec:
     pareto_alpha: float = 2.5  # pareto tail index
     downstream: Optional[NodeRef] = None
     latency: EdgeLatency = field(default_factory=EdgeLatency)
+    # A completion whose sojourn exceeds deadline_s is a timeout; with
+    # max_retries > 0 it is retried until the budget runs out.
+    deadline_s: Optional[float] = None
+    max_retries: int = 0
+    # Brownout window [start, end): arrivals inside it are dropped.
+    outage_start_s: Optional[float] = None
+    outage_end_s: Optional[float] = None
+    fault: Optional[FaultSpec] = None
+    # retry_backoff_s turns every retry (deadline expiry and fault-window
+    # rejection) into a re-arrival after backoff * 2^attempt, spread by
+    # +/- retry_jitter/2; None keeps the immediate tail re-enqueue for
+    # deadline retries and makes fault rejections terminal drops.
+    retry_backoff_s: Optional[float] = None
+    retry_jitter: float = 0.0
+    # A hedged request launches a second attempt hedge_delay_s after the
+    # first; the slot is held for min(S1, delay + S2).
+    hedge_delay_s: Optional[float] = None
 
 
 @dataclass
@@ -244,6 +358,7 @@ class EnsembleModel:
         self.routers: list[RouterSpec] = []
         self.limiters: list[LimiterSpec] = []
         self.sinks: list[SinkSpec] = []
+        self.correlated_faults: Optional[CorrelatedOutages] = None
 
     def __getattr__(self, name: str):
         if name in _UNPORTED:
@@ -309,21 +424,57 @@ class EnsembleModel:
         service_mean: float = 0.1,
         service: str = "exponential",
         queue_capacity: int = 64,
+        deadline_s: Optional[float] = None,
+        max_retries: int = 0,
         service_k: int = 2,
         service_scv: float = 2.0,
         pareto_alpha: float = 2.5,
-        **unported,
+        outage: Optional[tuple] = None,
+        fault: Optional[FaultSpec] = None,
+        retry_backoff_s: Optional[float] = None,
+        retry_jitter: float = 0.0,
+        hedge_delay_s: Optional[float] = None,
     ) -> NodeRef:
-        for name in unported:
-            if name not in _UNPORTED_SERVER_ARGS:
-                raise TypeError(f"server() got an unexpected argument {name!r}")
-            raise not_ported(_UNPORTED_SERVER_ARGS[name])
         if service not in SERVICE_KINDS:
             raise ValueError(f"service kind {service!r} not in {SERVICE_KINDS}")
         if concurrency < 1:
             raise ValueError("concurrency must be >= 1")
         if queue_capacity < 1:
             raise ValueError("queue_capacity must be >= 1")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0")
+        if max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        label = f"server[{len(self.servers)}]"
+        fault_can_retry = (
+            fault is not None
+            and fault.mode == "outage"
+            and retry_backoff_s is not None
+        )
+        if (
+            max_retries > 0
+            and deadline_s is None
+            and not fault_can_retry
+            and retry_backoff_s is None
+        ):
+            raise ValueError(
+                "max_retries requires a deadline_s (timeout retries) or "
+                "retry_backoff_s plus a rejection source (an outage-mode "
+                "fault or quorum membership)"
+            )
+        if fault is not None:
+            fault.validate(label)
+        if retry_backoff_s is not None:
+            if retry_backoff_s <= 0:
+                raise ValueError("retry_backoff_s must be > 0")
+            if max_retries < 1:
+                raise ValueError("retry_backoff_s requires max_retries >= 1")
+        if not 0.0 <= retry_jitter <= 1.0:
+            raise ValueError("retry_jitter must be in [0, 1]")
+        if retry_jitter > 0.0 and retry_backoff_s is None:
+            raise ValueError("retry_jitter requires retry_backoff_s")
+        if hedge_delay_s is not None and hedge_delay_s <= 0:
+            raise ValueError("hedge_delay_s must be > 0")
         if service == "erlang" and service_k not in (2, 3):
             raise ValueError("erlang supports service_k in (2, 3)")
         if service in ("hyperexp", "lognormal") and service_scv <= (
@@ -334,6 +485,12 @@ class EnsembleModel:
             )
         if service == "pareto" and pareto_alpha <= 1.0:
             raise ValueError("pareto_alpha must be > 1 (finite mean)")
+        if outage is not None:
+            start, end = outage
+            if start < 0.0:
+                raise ValueError(f"outage window start must be >= 0, was {start}")
+            if end <= start:
+                raise ValueError(f"outage window is empty: [{start}, {end})")
         self.servers.append(
             ServerSpec(
                 concurrency=concurrency,
@@ -343,9 +500,38 @@ class EnsembleModel:
                 service_k=service_k,
                 service_scv=service_scv,
                 pareto_alpha=pareto_alpha,
+                deadline_s=deadline_s,
+                max_retries=max_retries,
+                outage_start_s=outage[0] if outage is not None else None,
+                outage_end_s=outage[1] if outage is not None else None,
+                fault=fault,
+                retry_backoff_s=retry_backoff_s,
+                retry_jitter=retry_jitter,
+                hedge_delay_s=hedge_delay_s,
             )
         )
         return NodeRef(SERVER, len(self.servers) - 1)
+
+    def correlated_outages(
+        self,
+        rate: float,
+        mean_duration_s: float,
+        trigger_p: float = 1.0,
+        max_windows: int = 4,
+    ) -> CorrelatedOutages:
+        """Install the shared Bernoulli-trigger outage schedule. Servers
+        opt in with ``fault=FaultSpec(correlated=True, ...)``; during a
+        fired window every subscribed server applies its own fault
+        ``mode`` at once."""
+        spec = CorrelatedOutages(
+            rate=rate,
+            mean_duration_s=mean_duration_s,
+            trigger_p=trigger_p,
+            max_windows=max_windows,
+        )
+        spec.validate()
+        self.correlated_faults = spec
+        return spec
 
     def router(
         self,
@@ -405,27 +591,41 @@ class EnsembleModel:
     ) -> None:
         """Wire ``origin`` -> ``downstream``; the edge may carry latency
         (``latency_kind`` "constant" or "exponential", mean
-        ``latency_s``). Edges INTO a limiter or a router must be
-        latency-free: put the latency on the limiter's downstream edge or
-        on the router's per-target edges. A router origin appends a
-        target."""
+        ``latency_s``). ``loss_p`` drops each crossing with that
+        probability while ``loss_window`` (a ``(start_s, end_s)`` pair;
+        default: the whole run) is open. Edges INTO a limiter or a router
+        must be latency- and loss-free: put the latency or loss on the
+        limiter's downstream edge or on the router's per-target edges
+        (one lossy edge per delivery hop, so each crossing spends exactly
+        one Bernoulli draw). A router origin appends a target."""
         if latency_s < 0:
             raise ValueError("latency_s must be >= 0")
         if latency_kind not in LATENCY_KINDS:
             raise ValueError(f"latency kind {latency_kind!r} not in {LATENCY_KINDS}")
-        if loss_p > 0.0 or loss_window is not None:
-            raise not_ported("packet-loss edges (ROADMAP A.7)")
-        if downstream.kind == LIMITER and latency_s > 0:
+        if not 0.0 <= loss_p < 1.0:
+            raise ValueError("loss_p must be in [0, 1)")
+        if loss_window is not None:
+            if loss_p == 0.0:
+                raise ValueError("loss_window requires loss_p > 0")
+            if loss_window[1] <= loss_window[0]:
+                raise ValueError(f"loss_window is empty: {loss_window}")
+        if downstream.kind == LIMITER and (latency_s > 0 or loss_p > 0):
             raise ValueError(
                 "edges into a limiter must be latency- and loss-free; put "
                 "the latency/loss on the limiter's downstream edge"
             )
-        if downstream.kind == ROUTER and latency_s > 0:
+        if downstream.kind == ROUTER and (latency_s > 0 or loss_p > 0):
             raise ValueError(
                 "edges into a router must be latency- and loss-free; put "
                 "the latency/loss on the router's per-target edges instead"
             )
-        edge = EdgeLatency(mean_s=latency_s, kind=latency_kind)
+        edge = EdgeLatency(
+            mean_s=latency_s,
+            kind=latency_kind,
+            loss_p=loss_p,
+            loss_start_s=loss_window[0] if loss_window else 0.0,
+            loss_end_s=loss_window[1] if loss_window else float("inf"),
+        )
         if origin.kind == SOURCE:
             self.sources[origin.index].downstream = downstream
             self.sources[origin.index].latency = edge
@@ -468,11 +668,36 @@ class EnsembleModel:
                 raise ValueError(f"router targeted by source[{i}] has no targets")
             if source.arrival not in ARRIVAL_KINDS:
                 raise ValueError(f"source[{i}]: arrival kind {source.arrival!r}")
+        if self.correlated_faults is not None:
+            self.correlated_faults.validate()
         for i, server in enumerate(self.servers):
             if server.downstream is None:
                 raise ValueError(f"server[{i}] has no downstream")
             if server.service not in SERVICE_KINDS:
                 raise ValueError(f"server[{i}]: service kind {server.service!r}")
+            if (
+                server.max_retries > 0
+                and server.deadline_s is None
+                and not (
+                    server.fault is not None
+                    and server.fault.mode == "outage"
+                    and server.retry_backoff_s is not None
+                )
+            ):
+                # The server()-time check deferred because a backoff was
+                # given; without a rejection source the retry path is dead.
+                raise ValueError(
+                    f"server[{i}]: max_retries requires a deadline_s "
+                    "(timeout retries) or retry_backoff_s plus a rejection "
+                    "source (an outage-mode fault or quorum membership)"
+                )
+            if server.fault is not None:
+                server.fault.validate(f"server[{i}]")
+                if server.fault.correlated and self.correlated_faults is None:
+                    raise ValueError(
+                        f"server[{i}]: fault.correlated=True but the model "
+                        "has no correlated_outages() schedule"
+                    )
             if server.downstream.kind == ROUTER and not self.routers[
                 server.downstream.index
             ].targets:
@@ -564,6 +789,27 @@ class EnsembleModel:
             yield lim.latency
         for r in self.routers:
             yield from r.target_latencies
+
+    def chaos_features(self) -> tuple[str, ...]:
+        """The chaos features this model declares, by JAX's stable names
+        (``EnsembleModel.chaos_features``); the kernel plan records them
+        under ``"chaos"``."""
+        features: list[str] = []
+        if any(s.fault is not None for s in self.servers):
+            features.append("faults")
+        if self.correlated_faults is not None:
+            features.append("correlated_outages")
+        if any(s.retry_backoff_s is not None for s in self.servers):
+            features.append("backoff_retries")
+        if any(s.hedge_delay_s is not None for s in self.servers):
+            features.append("hedging")
+        if any(s.outage_start_s is not None for s in self.servers):
+            features.append("brownouts")
+        if any(e.loss_p > 0.0 for e in self.iter_edges()):
+            features.append("packet_loss")
+        if self.limiters:
+            features.append("limiters")
+        return tuple(features)
 
     @property
     def max_concurrency(self) -> int:

@@ -29,6 +29,7 @@ from happysim_tpu_torch import engine as tengine  # noqa: E402
 from happysim_tpu_torch import model as tmodel  # noqa: E402
 from happysim_tpu_torch import run_ensemble as t_run  # noqa: E402
 from happysim_tpu_torch.kernels import support  # noqa: E402
+from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
 from test_torch_event_step import (  # noqa: E402
     GRAPH_MODELS,
     SLICE_MODELS,
@@ -50,6 +51,12 @@ INT_FIELDS = (
     "blocks_total",
     "block_occupancy",
     "max_blocks",
+)
+# The chaos counters (zeros on a model without the feature).
+CHAOS_FIELDS = (
+    "server_timed_out", "server_retried", "server_outage_dropped",
+    "server_fault_dropped", "server_fault_retried", "server_hedged",
+    "server_hedge_wins", "network_lost",
 )
 FLOAT_FIELDS = (
     "sink_mean_latency_s",
@@ -132,18 +139,39 @@ def test_slice_models_plan_like_jax(name):
     plans as a server-less "chain", as in JAX."""
     expected, reason = j_kernel_plan(SLICE_MODELS[name](jmodel))
     assert reason == ""
-    expected = {k: v for k, v in expected.items() if k != "chaos"}
     assert support.kernel_plan(SLICE_MODELS[name](tmodel)) == expected
 
 
 @pytest.mark.parametrize("name", sorted(GRAPH_MODELS))
 def test_kernel_plan_matches_jax(name):
-    """The port's plan is JAX's kernel_plan dict without its "chaos" key."""
+    """The port's plan is JAX's kernel_plan dict, its "chaos" key (the
+    model's chaos features: "limiters" on the mix) included."""
     expected, reason = j_kernel_plan(GRAPH_MODELS[name](jmodel))
     assert reason == ""
-    expected = {k: v for k, v in expected.items() if k != "chaos"}
     assert support.kernel_plan(GRAPH_MODELS[name](tmodel)) == expected
     assert expected["shape"] == ("graph" if name in ("mix", "shared-backend") else "router")
+
+
+@pytest.mark.parametrize("name", sorted(CHAOS_MODELS))
+def test_chaos_whole_run_matches_jax_event_scan(name):
+    """run_ensemble(device="cpu") against the JAX run_ensemble at the
+    default event budget (passed explicitly, which keeps JAX on its event
+    scan), 64 replicas: every integer total equal, the chaos counters
+    included; float means within rel 1e-4."""
+    build = CHAOS_MODELS[name]
+    max_events = tengine._default_max_events(build(tmodel), None)
+    assert max_events == jengine._default_max_events(build(jmodel), None)
+    mesh = replica_mesh(jax.devices("cpu")[:1])
+    expected = j_run(build(jmodel), n_replicas=64, seed=3, mesh=mesh, max_events=max_events)
+    got = t_run(build(tmodel), n_replicas=64, seed=3, max_events=max_events, device="cpu")
+    for field in INT_FIELDS + CHAOS_FIELDS:
+        assert getattr(got, field) == getattr(expected, field), field
+    np.testing.assert_array_equal(got.sink_hist, expected.sink_hist)
+    for field in FLOAT_FIELDS:
+        np.testing.assert_allclose(
+            getattr(got, field), getattr(expected, field), rtol=1e-4, err_msg=field
+        )
+    assert got.truncated_replicas == 0 and got.sink_count[0] > 0
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -179,6 +207,8 @@ def test_default_event_budget_matches_jax():
         (fanout(jmodel, "random"), fanout(tmodel, "random"), sweep),
         (shared_backend(jmodel), shared_backend(tmodel), None),
         (mix(jmodel), mix(tmodel), None),
+        *((build(jmodel), build(tmodel), None) for build in CHAOS_MODELS.values()),
+        *((build(jmodel), build(tmodel), sweep) for build in CHAOS_MODELS.values()),
     ):
         assert tengine._default_max_events(tm, sweeps) == jengine._default_max_events(jm, sweeps)
 
@@ -230,13 +260,7 @@ def _off_chain_server(m):
         (lambda m: m.quorum(), "quorum"),
         (lambda m: m.leader_election(), "leader election"),
         (lambda m: m.trace_arrivals(None), "trace-driven arrivals"),
-        (lambda m: m.correlated_outages(rate=1.0, mean_duration_s=1.0), "correlated outages"),
-        (lambda m: m.server(deadline_s=1.0), "deadlines"),
-        (lambda m: m.server(max_retries=1), "retries"),
-        (lambda m: m.server(hedge_delay_s=0.1), "hedged requests"),
-        (lambda m: m.server(outage=(1.0, 2.0)), "brownout"),
-        (lambda m: m.server(fault=object()), "fault schedules"),
-        (lambda m: m.connect(tmodel.NodeRef(tmodel.SOURCE, 0), tmodel.NodeRef(tmodel.SERVER, 0), loss_p=0.1), "packet-loss"),
+        (lambda m: m.remote(), "remote egress nodes"),
         (_two_sources, "several sources"),
         (_two_sinks, "several sinks"),
         (_off_chain_server, "server[1]"),
@@ -348,9 +372,9 @@ def test_kernel_plan_declines_like_jax():
 
 
 def test_kernel_plan_shapes_and_bounds():
-    assert support.kernel_plan(tmodel.mm1_model()) == {"shape": "mm1", "servers": [0]}
+    assert support.kernel_plan(tmodel.mm1_model()) == {"shape": "mm1", "servers": [0], "chaos": ()}
     pipe = tmodel.pipeline_model(8.0, (0.05, 0.08, 0.06))
-    assert support.kernel_plan(pipe) == {"shape": "chain", "servers": [0, 1, 2]}
+    assert support.kernel_plan(pipe) == {"shape": "chain", "servers": [0, 1, 2], "chaos": ()}
     wide = tmodel.pipeline_model(8.0, [0.01] * (support.KERNEL_MAX_SERVERS + 1))
     with pytest.raises(ValueError, match="servers=9 exceeds"):
         support.check_kernel_bounds(tengine._Compiled(wide), 32)

@@ -37,6 +37,7 @@ from happysim_tpu_torch.kernels.event_step import (  # noqa: E402
 )
 from happysim_tpu_torch.model import mm1_model as t_mm1  # noqa: E402
 from happysim_tpu_torch.model import pipeline_model as t_pipeline  # noqa: E402
+from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
 
 FLOAT_RTOL = 1e-5
 # Graph models also allow an absolute float difference of GRAPH_ULPS ulp
@@ -480,6 +481,32 @@ def test_plain_step_matches_pallas_interpret_kernel_on_families_and_profiles(nam
     assert int(tstate["events"].min()) == 2 * macro
 
 
+@pytest.mark.parametrize("name", ["bench-chaos", "pinned"])
+def test_plain_step_matches_pallas_interpret_kernel_on_chaos_models(name):
+    """build_block_step in interpret mode on the chaos bench model (fault
+    registers, transit retries, hedges and loss as kernel operands) and
+    the pinned-window chain: MACRO=2, 4 replicas, two chained blocks."""
+    macro, n = 2, 4
+    jm, tm = CHAOS_MODELS[name](jmodel), CHAOS_MODELS[name](tmodel)
+    jc, tc = JCompiled(jm), TCompiled(tm)
+    params = _params(jm, n)
+    jstate = _jax_state(jc, params, n, seed=9)
+    keys = jstate.pop("key")
+    tstate = convert.state_from_numpy({k: np.asarray(v) for k, v in jstate.items()})
+    block_fn, _meta = build_block_step(jc, float(jm.horizon_s), macro, n, interpret=True)
+    tparams = convert.params_from_numpy(params)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    for block in range(2):
+        U = _block_u(keys, block, macro, jc.n_draws)
+        jstate = block_fn(jstate, U, jparams)
+        block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        _assert_leaves_match(
+            jstate, tstate, f"{name} pallas block {block}",
+            atol=GRAPH_ULPS * float(np.spacing(np.float32(jm.horizon_s))),
+        )
+    assert int(tstate["events"].min()) == 2 * macro
+
+
 def test_state_round_trips_through_numpy():
     tm = t_pipeline(8.0, (0.05, 0.08), 5.0)
     compiled = TCompiled(tm)
@@ -522,20 +549,26 @@ def _sink_latency_chain(mod):
 
 
 @pytest.mark.parametrize(
-    "build, graph",
+    "build, graph, chaos",
     [
-        (lambda: t_mm1(8.0, 10.0, 5.0), 0),
-        (lambda: t_pipeline(8.0, (0.05, 0.08), 5.0), 0),
-        (lambda: _sink_latency_chain(tmodel), 1),
-        (lambda: fanout(tmodel, "random"), 1),
-        (lambda: mix(tmodel), 1),
+        (lambda: t_mm1(8.0, 10.0, 5.0), 0, 0),
+        (lambda: t_pipeline(8.0, (0.05, 0.08), 5.0), 0, 0),
+        (lambda: _sink_latency_chain(tmodel), 1, 0),
+        (lambda: fanout(tmodel, "random"), 1, 0),
+        (lambda: mix(tmodel), 1, 0),
+        (lambda: CHAOS_MODELS["deadline-mm1"](tmodel), 1, 1),
+        (lambda: CHAOS_MODELS["backoff-chain"](tmodel), 1, 1),
     ],
-    ids=["mm1", "pipeline", "sink-latency-chain", "fanout", "mix"],
+    ids=["mm1", "pipeline", "sink-latency-chain", "fanout", "mix", "deadline-mm1", "backoff-chain"],
 )
-def test_line_instantiation_only_for_lines_of_free_edges(build, graph):
+def test_line_instantiation_only_for_lines_of_free_edges(build, graph, chaos):
     """The kernel's line code ignores edge latency, so any model with a
-    router, a limiter or a latency edge must launch the graph code."""
-    assert _static_args(TCompiled(build())).graph == graph
+    router, a limiter or a latency edge must launch the graph code; so
+    does every chaos model, a line of free edges included (its chaos
+    instantiation is graph code: backoff retries park in the transit
+    registers)."""
+    args = _static_args(TCompiled(build()))
+    assert (args.graph, args.chaos) == (graph, chaos)
 
 
 def test_launch_args_check_the_state_once_and_u_every_time():

@@ -16,10 +16,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from happysim_tpu_torch import model as tmodel  # noqa: E402
 from happysim_tpu_torch import rng  # noqa: E402
 from happysim_tpu_torch.engine import _Compiled, _resolve_params, run_ensemble  # noqa: E402
 from happysim_tpu_torch.kernels import event_step  # noqa: E402
 from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  # noqa: E402
+from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -220,6 +222,9 @@ MODELS = {
     "ramp-sink": lambda: _to_sink(lambda m: m.ramp_source(2.0, 10.0, 30.0)),
     "ramp-constant-sink": lambda: _to_sink(lambda m: m.ramp_source(2.0, 10.0, 30.0, kind="constant")),
     "spike-sink": lambda: _to_sink(lambda m: m.spike_source(2.0, 20.0, 10.0, 20.0)),
+    # the chaos instantiation (deadlines, retries, hedges, brownouts,
+    # fault schedules, packet loss)
+    **{f"chaos-{name}": (lambda build=build: build(tmodel)) for name, build in CHAOS_MODELS.items()},
 }
 
 
@@ -278,8 +283,10 @@ def test_kernel_rejects_bad_inputs(cuda):
         (_mix, "graph"),
         (_families_chain, "chain"),
         (_ramp_graph, "graph"),
+        (lambda: CHAOS_MODELS["backoff-chain"](tmodel), "chain"),
+        (lambda: CHAOS_MODELS["bench-chaos"](tmodel), "router"),
     ],
-    ids=["chain", "mix", "families-chain", "ramp-graph"],
+    ids=["chain", "mix", "families-chain", "ramp-graph", "backoff-chain", "bench-chaos"],
 )
 def test_run_ensemble_on_the_card_matches_the_cpu_run(cuda, build, shape):
     model = build()
@@ -293,6 +300,8 @@ def test_run_ensemble_on_the_card_matches_the_cpu_run(cuda, build, shape):
     for field in (
         "simulated_events", "sink_count", "server_completed", "blocks_total",
         "transit_dropped", "limiter_admitted", "limiter_dropped",
+        "server_timed_out", "server_retried", "server_fault_dropped",
+        "server_fault_retried", "server_hedged", "server_hedge_wins", "network_lost",
     ):
         assert getattr(card, field) == getattr(cpu, field), field
     assert int(card.sink_hist.sum()) == int(cpu.sink_hist.sum())
