@@ -7,7 +7,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
 2. the build: the event-step kernels compiled with nvcc for sm_90a from
-   this checkout's sources, with ptxas' register and spill report;
+   this checkout's sources, one nvcc per source (the kernel without
+   telemetry, and its telemetry instantiations) started together, with
+   ptxas' register and spill report;
 3. block checks at full size, 65,536 replicas and macro_block 32: the
    kernel and its plain torch-op version advance identical copies of the
    state through the same uniform block and every leaf is compared, on
@@ -56,7 +58,19 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      pinned degrade windows (half the slots, 3x service) on the next,
      blocks 0-3 and 10;
    - lossy: a lossy line edge with a loss window and lossy router
-     targets, blocks 0-3 and 10.
+     targets, blocks 0-3 and 10;
+   - telemetry: bench.py's bench_kernel_telemetry model as defined (a
+     faulted deadline M/M/1, horizon 40 s, warmup 10 s, 64 windows of
+     0.625 s, the source swept over linspace(1, 9.5, R), max_events
+     1,584), blocks 0-3 and 24 (the run's last live replicas);
+   - chaos-telemetry: the chaos model with bench_kernel_chaos's
+     telemetry line (64 windows), blocks 0-3 and 150;
+   - hetero-telemetry: bench.py's _hetero_model(telemetry_windows=64),
+     blocks 0-3 and 60;
+   - mm1-telemetry: the M/M/1 with every metric group, 64 windows of
+     2.5 s, blocks 0-3 and 80;
+   - pareto-telemetry: the pareto M/G/1 with the same windows, blocks
+     0-3 and 80.
    Integer leaves must be equal and float leaves are expected bitwise
    equal; a float difference is printed and must stay within rel 1e-6;
 4. timing: the kernel's (launched with prebuilt arguments), the
@@ -71,7 +85,8 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    service draw's by its family and each profiled source fire's two
    table searches, a transcendental call counted as one operation), and
    the same for the lognormal and pareto M/G/1, the profile graph, and
-   the chaos and deadline models;
+   the chaos and deadline models; and the telemetry model with and
+   without its spec, and their ratio;
 5. the main path, run_ensemble on cuda at 65,536 replicas through the
    entry point a user calls, with the launch count set to 0 just before
    each run and read just after; each must run through the kernel once
@@ -115,14 +130,32 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      Exp(1)-duration outages within 3 sigma of the two-state Markov
      closed form, the packet losses of a 20% lossy edge within 3 sigma,
      and a whole-horizon outage's exact retry accounting (fault retries
-     = 2 x fault drops).
+     = 2 x fault drops);
+   - telemetry: the telemetry model at its bench budget: every windowed
+     counter sums exactly to its whole-run counter, the windowed
+     integrals to within rel 1e-5 of the whole-run ones, and every
+     whole-run number equals the same model's run without its spec;
+   - mm1-telemetry: averaged over the windows after the warmup, the
+     per-replica throughput within 1% of lambda = 8/s, the utilisation
+     within 1% of rho = 0.8 and the mean latency within 1% of 0.5 s, and
+     p10 <= mean <= p90 of the throughput in every such window;
+   - chaos-telemetry: every counter family partitions exactly over the
+     windows, packet losses, fault retries and limiter drops all happen,
+     fault occupancy lies in [0, 1], and the whole-run counters equal
+     the chaos run's without telemetry;
+   - duty-cycle-telemetry: the duty-cycle model with only the "faults"
+     group and 3 s windows: the mean fault occupancy of windows 1-4
+     within 2% of the duty cycle 1/6 (the born-up start lowers the closed
+     form there by 0.2%; the statistical spread at this replica count is
+     about 0.3%), and the fault drops equal the run without telemetry.
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
 kernel once per shape or extension, every number of an entry from one
 model: mm1, chain, fanout (the router shape), graph, the lognormal M/G/1
-(the family sampler), the profile graph (the profile tables) and the
-chaos model (the chaos branches), the models the main path runs. Every number printed carries the card's name
+(the family sampler), the profile graph (the profile tables), the
+chaos model (the chaos branches) and the telemetry model (the window
+buffers), the models the main path runs. Every number printed carries the card's name
 and power limit.
 Details, the router and mix models' included, also go to
 chiprun_out/chip_smoke.json.
@@ -172,11 +205,12 @@ OPS_PER_ERLANG3_DRAW = 5
 OPS_PER_PROFILE_FIRE = 35
 FLOAT_RTOL = 1e-6
 TIMED_BLOCKS = 20
-# Kernel times per block of the previous slice's proof run (NVIDIA H100
-# 80GB HBM3, 700 W), printed beside this run's.
+# Kernel times per block of the previous slice's run (NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's.
 EARLIER_KERNEL_MS = {
-    "mm1": 0.0855, "chain": 0.2072, "router": 0.3118, "graph": 0.1448,
-    "families": 0.1009, "pareto": 0.0921, "profile": 0.1823,
+    "mm1": 0.0856, "chain": 0.2028, "router": 0.3077, "graph": 0.1429,
+    "families": 0.1031, "pareto": 0.0900, "profile": 0.1817,
+    "chaos": 0.8173, "deadline": 0.1474,
 }
 # bench.py's Pallas benches: horizon and fan-out width.
 BENCH_HORIZON_S = 40.0
@@ -214,6 +248,13 @@ HETERO_HORIZON_S, HETERO_MU = 120.0, 10.0
 DEADLINE_S, DEADLINE_HORIZON_S = 0.5, 640.0
 # The hedged M/M/1: P(S > 0.2 s) = e^-2 of starts hedge, half of those win.
 HEDGE_LAM, HEDGE_MEAN_S, HEDGE_DELAY_S = 4.0, 0.1, 0.2
+# bench.py's bench_kernel_telemetry: its windows and budget.
+TEL_WINDOWS = 64
+TEL_MAX_EVENTS = int(4.0 * 9.5 * BENCH_HORIZON_S) + 64
+# The M/M/1 and pareto telemetry models' windows: 64 over 160 s.
+MM1_WINDOW_S = HORIZON_S / TEL_WINDOWS
+# The duty-cycle occupancy gate: windows 1-4 of 3 s against 1/6.
+DUTY_WINDOW_S, DUTY_GATE = 3.0, 0.02
 
 
 class SmokeFailure(RuntimeError):
@@ -526,6 +567,29 @@ def retry_accounting_model() -> EnsembleModel:
     )
     model.connect(src, srv)
     model.connect(srv, model.sink())
+    return model
+
+
+def telemetry_model(windows: int = TEL_WINDOWS) -> EnsembleModel:
+    """bench.py:454 bench_kernel_telemetry's model: the faulted deadline
+    M/M/1 (mu=10, queue 256, deadline 8 s, 2 immediate retries, outage
+    windows at rate 0.05 lasting 0.5 s), horizon 40 s, warmup 10 s, with
+    ``windows`` windows (0: without telemetry)."""
+    model = EnsembleModel(horizon_s=BENCH_HORIZON_S, warmup_s=BENCH_HORIZON_S / 4, macro_block=MACRO)
+    src = model.source(rate=9.5)
+    srv = model.server(
+        concurrency=1, service_mean=1.0 / HETERO_MU, queue_capacity=256, deadline_s=8.0,
+        max_retries=2, fault=FaultSpec(rate=0.05, mean_duration_s=0.5),
+    )
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    if windows:
+        model.telemetry(window_s=BENCH_HORIZON_S / windows)
+    return model
+
+
+def with_telemetry(model: EnsembleModel, window_s: float, **kw) -> EnsembleModel:
+    model.telemetry(window_s=window_s, **kw)
     return model
 
 
@@ -858,6 +922,116 @@ def chaos_main_path(tag: str) -> dict:
     return runs
 
 
+def partition_check(label: str, result, pairs) -> None:
+    """Every windowed counter sums over the windows exactly to its
+    whole-run counter."""
+    ts = result.timeseries
+    for series, whole in pairs:
+        got, want = getattr(ts, series).sum(axis=0).tolist(), getattr(result, whole)
+        require(got == want, f"{label}: {series} sums to {got}, whole run {want}")
+    require(np.array_equal(ts.sink_hist.sum(axis=0), result.sink_hist), f"{label}: sink_hist")
+    print(f"  {label}: {len(pairs) + 1} counter families partition exactly over {ts.n_windows} windows")
+
+
+def same_simulation(label: str, a, b) -> None:
+    """Every whole-run number of two runs of one model equal."""
+    for field in (
+        "simulated_events", "sink_count", "sink_mean_latency_s", "server_completed",
+        "server_dropped", "server_timed_out", "server_retried", "server_fault_dropped",
+        "server_fault_retried", "server_hedged", "server_hedge_wins", "network_lost",
+        "limiter_admitted", "limiter_dropped", "transit_dropped", "server_mean_wait_s",
+        "server_utilization", "server_mean_queue_len",
+    ):
+        require(getattr(a, field) == getattr(b, field), f"{label}: {field} differs with telemetry")
+    require(np.array_equal(a.sink_hist, b.sink_hist), f"{label}: sink_hist differs with telemetry")
+    print(f"  {label}: every whole-run number equals the run without telemetry")
+
+
+def telemetry_main_path(tag: str, earlier: dict) -> dict:
+    """The telemetry runs of the main path and their gates; ``earlier``
+    holds the runs without telemetry they are compared with."""
+    runs = {}
+    result, launches = main_path_run(
+        "telemetry", telemetry_model(), tag, "mm1", HETERO_SWEEPS, TEL_MAX_EVENTS
+    )
+    off, off_launches = main_path_run(
+        "telemetry-off", telemetry_model(0), tag, "mm1", HETERO_SWEEPS, TEL_MAX_EVENTS
+    )
+    require(result.timeseries is not None and off.timeseries is None, "telemetry: timeseries")
+    partition_check("telemetry", result, [
+        ("sink_count", "sink_count"), ("server_completed", "server_completed"),
+        ("server_dropped", "server_dropped"), ("server_timed_out", "server_timed_out"),
+        ("server_retried", "server_retried"), ("server_fault_dropped", "server_fault_dropped"),
+    ])
+    ts = result.timeseries
+    denominator = REPLICAS * ts.measured_len_s
+    for series, whole in (("server_mean_queue_len", "depth"), ("server_utilization", "busy")):
+        windowed = float((getattr(ts, series)[:, 0] * denominator).sum())
+        total = getattr(result, series)[0] * denominator.sum()
+        print(f"  telemetry windowed {whole} integral {windowed:.6f} vs whole run {total:.6f} "
+              f"({windowed / total - 1:+.3e}, gate 1e-5)")
+        require(abs(windowed / total - 1) <= 1e-5, f"telemetry: windowed {whole} integral")
+    same_simulation("telemetry", result, off)
+    require(launches == off_launches, "telemetry: launches differ with the spec")
+    runs["telemetry"] = (result, launches)
+    runs["telemetry-off"] = (off, off_launches)
+
+    result, launches = main_path_run(
+        "mm1-telemetry",
+        with_telemetry(mm1_model(LAM, MU, HORIZON_S, warmup_s=WARMUP_S), MM1_WINDOW_S), tag, "mm1",
+    )
+    ts = result.timeseries
+    post = ts.window_start_s >= WARMUP_S
+    within(float(ts.replica_throughput_mean[post, 0].mean()), LAM,
+           f"mm1-telemetry per-replica throughput over {int(post.sum())} windows", 0.01, unit=" /s")
+    within(float(ts.server_utilization[post, 0].mean()), LAM / MU, "mm1-telemetry utilisation", 0.01, unit="")
+    within(float(ts.sink_mean_latency_s[post, 0].mean()), 1.0 / (MU - LAM), "mm1-telemetry mean latency")
+    low, mean, high = (ts.replica_throughput_p10[post, 0], ts.replica_throughput_mean[post, 0],
+                       ts.replica_throughput_p90[post, 0])
+    print(f"  mm1-telemetry throughput p10 {low.min():.3f}..{low.max():.3f}, mean "
+          f"{mean.min():.4f}..{mean.max():.4f}, p90 {high.min():.3f}..{high.max():.3f} /s")
+    require(bool(((low <= mean) & (mean <= high)).all()), "mm1-telemetry: p10 <= mean <= p90 fails")
+    same_simulation("mm1-telemetry", result, earlier["mm1"][0])
+    runs["mm1-telemetry"] = (result, launches)
+
+    result, launches = main_path_run(
+        "chaos-telemetry", with_telemetry(chaos_model(), BENCH_HORIZON_S / TEL_WINDOWS), tag,
+        "router", CHAOS_SWEEPS, CHAOS_MAX_EVENTS,
+    )
+    partition_check("chaos-telemetry", result, [
+        ("sink_count", "sink_count"), ("server_completed", "server_completed"),
+        ("server_dropped", "server_dropped"), ("server_fault_dropped", "server_fault_dropped"),
+        ("server_fault_retried", "server_fault_retried"), ("server_hedged", "server_hedged"),
+        ("server_hedge_wins", "server_hedge_wins"), ("transit_dropped", "transit_dropped"),
+        ("limiter_admitted", "limiter_admitted"), ("limiter_dropped", "limiter_dropped"),
+        ("network_lost", "network_lost"),
+    ])
+    ts = result.timeseries
+    occupancy = ts.fault_occupancy
+    print(f"  chaos-telemetry: packet losses {result.network_lost}, fault retries "
+          f"{sum(result.server_fault_retried)}, limiter drops {result.limiter_dropped[0]}, fault "
+          f"occupancy {occupancy.min():.5f}..{occupancy.max():.5f}")
+    require(result.network_lost > 0 and sum(result.server_fault_retried) > 0
+            and result.limiter_dropped[0] > 0, "chaos-telemetry: a chaos family never fired")
+    require(bool(((occupancy >= 0.0) & (occupancy <= 1.0)).all()), "chaos-telemetry: occupancy outside [0, 1]")
+    same_simulation("chaos-telemetry", result, earlier["chaos"][0])
+    runs["chaos-telemetry"] = (result, launches)
+
+    result, launches = main_path_run(
+        "duty-cycle-telemetry", with_telemetry(duty_model(), DUTY_WINDOW_S, metrics=("faults",)),
+        tag, "mm1",
+    )
+    occupancy = result.timeseries.fault_occupancy[:, 0]
+    require(result.timeseries.sink_count is None, "duty-cycle-telemetry: unrequested series")
+    require(bool(((occupancy >= 0.0) & (occupancy <= 1.0)).all()), "duty-cycle-telemetry: occupancy")
+    within(float(occupancy[1:5].mean()), duty_cycle(0.2, 1.0),
+           "duty-cycle-telemetry occupancy of windows 1-4", DUTY_GATE, unit="")
+    require(result.server_fault_dropped == earlier["duty-cycle"][0].server_fault_dropped,
+            "duty-cycle-telemetry: fault drops differ with telemetry")
+    runs["duty-cycle-telemetry"] = (result, launches)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -868,13 +1042,15 @@ def main() -> int:
     print(f"device: {name}; nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    lib_path, log = event_step.build_library()
+    built = event_step.build_libraries()
     build_s = time.perf_counter() - t0
     event_step.load_library()
-    print(f"build: {lib_path.name} in {build_s:.1f} s (nvcc, sm_90a) {tag}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    names = ", ".join(path.name for path, _log in built.values())
+    print(f"build: {names} in {build_s:.1f} s (nvcc, sm_90a, one per source in parallel) {tag}")
+    for _path, log in built.values():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
 
     mm1 = mm1_model(LAM, MU, HORIZON_S, warmup_s=WARMUP_S)
     mm1.macro_block = MACRO
@@ -918,6 +1094,26 @@ def main() -> int:
         "degrade": check_blocks("degrade", degrade_model(), [0, 1, 2, 3, 10]),
         "lossy": check_blocks("lossy", lossy_model(), [0, 1, 2, 3, 10]),
     })
+    # The telemetry instantiations: the bench model on the main path, and
+    # the window buffers on the chaos, deadline, M/M/1 and pareto models.
+    max_abs["telemetry"] = check_blocks("telemetry", telemetry_model(), [0, 1, 2, 3, 24], HETERO_SWEEPS)
+    extra_abs.update({
+        "chaos-telemetry": check_blocks(
+            "chaos-telemetry", with_telemetry(chaos_model(), BENCH_HORIZON_S / TEL_WINDOWS),
+            [0, 1, 2, 3, 150], CHAOS_SWEEPS,
+        ),
+        "hetero-telemetry": check_blocks(
+            "hetero-telemetry", with_telemetry(hetero_model(), HETERO_HORIZON_S / TEL_WINDOWS),
+            [0, 1, 2, 3, 60], HETERO_SWEEPS,
+        ),
+        "mm1-telemetry": check_blocks(
+            "mm1-telemetry", with_telemetry(mm1_model(LAM, MU, HORIZON_S, warmup_s=WARMUP_S), MM1_WINDOW_S),
+            [0, 1, 2, 3, 80],
+        ),
+        "pareto-telemetry": check_blocks(
+            "pareto-telemetry", with_telemetry(mg1_model("pareto"), MM1_WINDOW_S), [0, 1, 2, 3, 80]
+        ),
+    })
 
     timings = {
         "mm1": time_blocks(mm1, "mm1"),
@@ -930,6 +1126,8 @@ def main() -> int:
         "profile": time_blocks(profile, "profile", GRAPH_SWEEPS),
         "chaos": time_blocks(chaos_model(), "chaos", CHAOS_SWEEPS),
         "deadline": time_blocks(hetero_model(), "deadline", HETERO_SWEEPS),
+        "telemetry": time_blocks(telemetry_model(), "telemetry", HETERO_SWEEPS),
+        "telemetry-off": time_blocks(telemetry_model(0), "telemetry without its spec", HETERO_SWEEPS),
     }
     for shape, t in timings.items():
         earlier = ""
@@ -943,6 +1141,13 @@ def main() -> int:
             f"bound {t['bound_ms']:.4f} ms/block ({t['bound_by']}: "
             f"{t['bytes_per_block'] / 1e6:.1f} MB/block) {tag}"
         )
+    on, off = timings["telemetry"], timings["telemetry-off"]
+    print(
+        "timing telemetry with / without its 64-window spec: kernel "
+        f"{on['kernel_ms'] / off['kernel_ms']:.3f}x, through the wrapper "
+        f"{on['wrapper_ms'] / off['wrapper_ms']:.3f}x, plain {on['plain_ms'] / off['plain_ms']:.3f}x, "
+        f"draw {on['draw_ms'] / off['draw_ms']:.3f}x {tag}"
+    )
 
     # The main path, through the entry point a user calls.
     runs = {}
@@ -984,6 +1189,7 @@ def main() -> int:
     print(f"  arrivals-ramp-constant per replica: {low} to {high} (analytic 180)")
     require(abs(low - 180) <= 3 and abs(high - 180) <= 3, f"ramp-constant counts {low}..{high}")
     runs.update(chaos_main_path(tag))
+    runs.update(telemetry_main_path(tag, runs))
 
     print(f"library_ms: {LIBRARY_NOTE}")
     kernels = {
@@ -1001,7 +1207,7 @@ def main() -> int:
                 "bound_by": timings[shape]["bound_by"],
                 "library_ms": None,
             }
-            for shape in ("mm1", "chain", "router", "graph", "families", "profile", "chaos")
+            for shape in ("mm1", "chain", "router", "graph", "families", "profile", "chaos", "telemetry")
         ]
     }
     out_dir = Path("chiprun_out")
@@ -1023,7 +1229,9 @@ def main() -> int:
     print(json.dumps(kernels))
     print(card)
     # One card drives every phase, whatever the machine holds.
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
+    print(json.dumps({
+        "ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
+    }))
     return 0
 
 

@@ -23,9 +23,10 @@ this package                       JAX package
 ``faults.py``                      ``happysim_tpu/tpu/faults.py``
                                    (``FaultTable``, ``duty_cycle``)
 ``engine.py``                      ``happysim_tpu/tpu/engine.py``
+``telemetry.py``                   ``happysim_tpu/tpu/telemetry.py``
 ``kernels/support.py``             ``happysim_tpu/tpu/kernels/support.py``
 ``kernels/event_step.py``          ``happysim_tpu/tpu/kernels/event_step.py``
-``kernels/csrc/event_step.cu``     the Pallas kernel of ``build_block_step``
+``kernels/csrc/event_step*.cu``    the Pallas kernel of ``build_block_step``
 ``numerics.py``                    ``jnp.interp`` and XLA's float32 erfinv
 ``convert.py``                     (none: numpy state/params across)
 =================================  =========================================
@@ -41,8 +42,9 @@ concurrency and queue capacity, zero-latency or latency-carrying edges,
 warmup), with the chaos stack on any of them: deadlines with immediate
 or backoff (jittered) retries, hedged requests, brownout windows,
 stochastic or pinned ``FaultSpec`` schedules (outage or degrade mode),
-correlated outages and packet loss on edges. Every other feature of the
-JAX package raises ``NotImplementedError`` naming itself and its ROADMAP
+correlated outages and packet loss on edges, and windowed telemetry
+(``model.telemetry(...)``, ``result.timeseries``) on any of them. Every
+other feature of the JAX package raises ``NotImplementedError`` naming itself and its ROADMAP
 item. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
 """

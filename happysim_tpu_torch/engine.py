@@ -20,6 +20,11 @@ side's lanes in place (a deadline expiry is retried or discarded, a
 fault-window rejection parked for its retry or dropped, a lost crossing
 vanishes before it reaches its node).
 
+A model with a :class:`~happysim_tpu_torch.telemetry.TelemetrySpec` adds
+per-replica ``(n_windows, ...)`` buffers that the step adds into at the
+same accounting sites, each event booked in the window of the time that
+JAX's step books it at; they come back as ``EnsembleResult.timeseries``.
+
 The hot loop runs in macro-blocks of ``macro`` event steps: the block's
 uniforms are drawn by :mod:`~happysim_tpu_torch.rng` from
 ``fold_in(key, block)`` (the JAX stream), and
@@ -56,6 +61,7 @@ from happysim_tpu_torch.model import (
     EdgeLatency,
     EnsembleModel,
     NodeRef,
+    not_ported,
 )
 from happysim_tpu_torch.reduce import (
     MAX_EXACT_REPLICAS,
@@ -64,6 +70,7 @@ from happysim_tpu_torch.reduce import (
     sum_f32_fixed,
     sum_i64_limbs,
 )
+from happysim_tpu_torch.telemetry import EnsembleTimeseries, build_timeseries, window_edges
 
 logger = logging.getLogger("happysim_tpu_torch.engine")
 
@@ -77,6 +84,10 @@ HIST_DECADES = 8.0
 # Grid points of a rate profile's cumulative-rate lookup tables.
 PROFILE_GRID_POINTS = 512
 
+# Elements of the (replicas, nW, nV, W) overlap tensor the fault
+# occupancy integral forms at once (256 MB of float32).
+_FAULT_INTEGRAL_CHUNK = 1 << 26
+
 # Default macro-block length: event steps per kernel launch and per RNG
 # chunk. The RNG stream is keyed by (absolute block, row within block), so
 # the length is part of the stream layout.
@@ -84,7 +95,7 @@ RNG_CHUNK = 32
 
 # Reduce-key encodings (see reduce.py): limb-encoded int counters and
 # fixed-point float sums. reduce_final encodes by these, _build_result
-# decodes by them.
+# decodes by them (JAX's registry, for the keys the port has).
 _I64_COUNTER_KEYS = frozenset({
     "events",
     "sink_count", "sink_hist",
@@ -95,10 +106,25 @@ _I64_COUNTER_KEYS = frozenset({
     "tr_dropped", "net_lost",
     "blocks_total",
 })
+# Telemetry reduce keys that are float integrals, sums or percentiles;
+# every other tel_ key is an int counter and limb-encodes.
+_TEL_FLOAT_KEYS = frozenset({
+    "tel_sink_sum", "tel_srv_depth_int", "tel_srv_busy_int",
+    "tel_fault_int", "tel_spread_p10", "tel_spread_p90",
+})
+# Fixed-point sums (the spread percentiles are plain floats, not sums).
 _F64_SUM_KEYS = frozenset({
     "sink_sum", "sink_sq",
     "srv_busy_int", "srv_depth_int", "srv_wait_sum",
+    "tel_sink_sum", "tel_srv_depth_int", "tel_srv_busy_int", "tel_fault_int",
 })
+
+
+def _is_i64_key(key: str) -> bool:
+    """Whether a reduce-output key is limb-encoded."""
+    if key in _I64_COUNTER_KEYS:
+        return True
+    return key.startswith("tel_") and key not in _TEL_FLOAT_KEYS
 
 
 def macro_block_len(model: Optional[EnsembleModel] = None) -> int:
@@ -194,6 +220,8 @@ class EnsembleResult:
     padded_replicas: int = 0
     # the device the run used (torch.cuda.get_device_name or "cpu")
     device_name: str = ""
+    # the per-window series of a model with a telemetry spec, else None
+    timeseries: Optional[EnsembleTimeseries] = None
 
     def engine_report(self) -> dict:
         """Which path ran, where the time went, and the macro-block
@@ -224,6 +252,7 @@ class EnsembleResult:
             "padded_lane_fraction": (
                 (padded - self.n_replicas) / padded if padded else 0.0
             ),
+            "telemetry_windows": self.timeseries.n_windows if self.timeseries else 0,
         }
 
 
@@ -394,9 +423,188 @@ class _Compiled:
             or self.has_backoff
         )
         self.hop_depth = self._router_hop_depth()
+        self._init_telemetry(model)
         self._assign_uniform_slots()
         self._build_profile_tables()
         self._device_tables: dict = {}
+
+    # -- windowed telemetry (telemetry.py) -----------------------------------
+    def _init_telemetry(self, model: EnsembleModel) -> None:
+        """Compile-time telemetry gating (JAX ``_init_telemetry``): every
+        ``tel_*`` leaf and every site exists only when the model carries
+        a spec, so a model without one builds the state and the kernel
+        arguments it built before. The counter keys are those of the
+        features the port runs; the resilience, consensus and trace
+        counters come with ROADMAP A.8, A.11 and A.12."""
+        self.telemetry = model.telemetry_spec
+        self.has_telemetry = self.telemetry is not None
+        # Every tel_* leaf the model has.
+        self.tel_keys: frozenset = frozenset()
+        if not self.has_telemetry:
+            self.nW = 0
+            return
+        self.telemetry.validate(model.horizon_s)
+        self.nW = self.telemetry.n_windows(model.horizon_s)
+        requested = set(self.telemetry.metrics)
+        # "spread" needs the per-window counts; "faults" is a reduce-time
+        # integral over the sampled fault registers.
+        self.tel_throughput = bool({"throughput", "spread"} & requested)
+        self.tel_spread = "spread" in requested
+        self.tel_latency = "latency" in requested
+        self.tel_queue = "queue" in requested
+        self.tel_util = "utilization" in requested
+        self.tel_rates = "rates" in requested
+        self.tel_faults = "faults" in requested and self.has_faults
+        # (nW,) float32 window starts and ends, hi[-1] = +inf.
+        self.tel_lo, self.tel_hi = window_edges(self.telemetry.window_s, self.nW)
+        # XLA turns the compiled step's division by the constant window_s
+        # into a multiply by its float32 reciprocal (ROADMAP C).
+        self.tel_inv_window = np.float32(1.0) / np.float32(self.telemetry.window_s)
+        keys: list[str] = []
+        if self.tel_throughput:
+            keys.append("tel_sink_count")
+        if self.tel_latency:
+            keys += ["tel_sink_sum", "tel_sink_hist"]
+        if self.tel_queue:
+            keys.append("tel_srv_depth_int")
+        if self.tel_util:
+            keys.append("tel_srv_busy_int")
+        if self.tel_rates:
+            keys += ["tel_srv_completed", "tel_srv_dropped"]
+            if self.has_deadlines:
+                keys += ["tel_srv_timed_out", "tel_srv_retried"]
+            if self.has_outages:
+                keys.append("tel_srv_outage_dropped")
+            if self.has_faults:
+                keys.append("tel_srv_fault_dropped")
+            if self.has_fault_retries:
+                keys.append("tel_srv_fault_retried")
+            if self.has_hedge:
+                keys += ["tel_srv_hedged", "tel_srv_hedge_wins"]
+            if model.limiters:
+                keys += ["tel_lim_admitted", "tel_lim_dropped"]
+            if self.has_transit:
+                keys.append("tel_tr_dropped")
+            if self.has_loss:
+                keys.append("tel_net_lost")
+        self.tel_keys = frozenset(keys)
+
+    def _tel_init_state(self, R: int, dev) -> dict:
+        """Zeroed per-replica window buffers, JAX's ``_tel_init_state``
+        with the replica axis in front."""
+        nW, nV, nK, nL = self.nW, self.nV, self.nK, self.nL
+        shapes = {
+            "tel_sink_count": (nW, nK), "tel_sink_sum": (nW, nK),
+            "tel_sink_hist": (nW, nK, HIST_BINS),
+            "tel_lim_admitted": (nW, nL), "tel_lim_dropped": (nW, nL),
+            "tel_net_lost": (nW,),
+        }
+        state = {}
+        for key in sorted(self.tel_keys):
+            dtype = torch.float32 if key in _TEL_FLOAT_KEYS else torch.int32
+            state[key] = torch.zeros((R, *shapes.get(key, (nW, nV))), dtype=dtype, device=dev)
+        return state
+
+    def _tel_edges(self, dev) -> tuple:
+        """The (nW,) window starts and ends on ``dev``."""
+        key = ("tel", str(torch.device(dev)))
+        if key not in self._device_tables:
+            self._device_tables[key] = (
+                torch.from_numpy(self.tel_lo).to(dev),
+                torch.from_numpy(self.tel_hi).to(dev),
+            )
+        return self._device_tables[key]
+
+    def _tel_windex(self, t: torch.Tensor) -> torch.Tensor:
+        """Each lane's window of time ``t``, as the compiled JAX step
+        computes it: ``clip(int32(t * float32(1 / window_s)), 0, nW - 1)``
+        (the host twin telemetry.window_index divides instead). Every site
+        derives its window here."""
+        w = (t * _f32(self.tel_inv_window, t.device)).to(torch.int32)
+        return torch.clamp(w, 0, self.nW - 1).long()
+
+    def _tel_overlap(self, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+        """``(R, nW)`` seconds of each lane's ``[lo, hi)`` inside each
+        window (the last window is open-ended, so the pieces sum to
+        ``hi - lo``)."""
+        lo_w, hi_w = self._tel_edges(lo.device)
+        return torch.clamp_min(
+            torch.minimum(hi[:, None], hi_w[None, :]) - torch.maximum(lo[:, None], lo_w[None, :]),
+            0.0,
+        )
+
+    def _tel_count(self, state, key: str, t, index: int, pred) -> None:
+        """One windowed counter bump per lane: ``key[r, w(t), index] +=
+        pred`` (JAX ``_tel_count``), a no-op where the model has no such
+        buffer (gated as JAX gates it)."""
+        if key not in self.tel_keys:
+            return
+        buf = state[key]
+        width = buf.shape[2] if buf.dim() == 3 else 1
+        cell = self._tel_windex(t) * width + index
+        buf.view(buf.shape[0], -1).scatter_add_(1, cell[:, None], pred.to(torch.int32)[:, None])
+
+    def _tel_integral(self, state, key: str, index: int, lo, hi, lanes) -> None:
+        """Add each selected lane's ``[lo, hi)`` to server ``index``'s
+        column of the time integral ``key``, split over the windows it
+        spans (JAX adds ``where(pred, 1, 0) * overlap``)."""
+        if key not in self.tel_keys:
+            return
+        column = state[key][:, :, index]
+        column.copy_(torch.where(lanes[:, None], column + self._tel_overlap(lo, hi), column))
+
+    def _tel_sink(self, state, measure, arrival_t, latency, k: int) -> None:
+        """The step's sink-telemetry write (JAX ``_tel_apply_sink``): the
+        delivery's count, latency and histogram bin, in the window of its
+        arrival time, for the measured lanes (``latency`` is 0 on the
+        others)."""
+        if not (self.tel_throughput or self.tel_latency):
+            return
+        R = measure.shape[0]
+        cell = (self._tel_windex(arrival_t) * self.nK + k)[:, None]
+        one = measure.to(torch.int32)[:, None]
+        if self.tel_throughput:
+            state["tel_sink_count"].view(R, -1).scatter_add_(1, cell, one)
+        if self.tel_latency:
+            state["tel_sink_sum"].view(R, -1).scatter_add_(1, cell, latency[:, None])
+            hist_cell = cell * HIST_BINS + _hist_bin(latency)[:, None].long()
+            state["tel_sink_hist"].view(R, -1).scatter_add_(1, hist_cell, one)
+
+    def _tel_fault_integral(self, final: dict) -> dict:
+        """``(nW, nV)`` expected dark seconds per window summed over
+        replicas (JAX ``_tel_fault_integral``), from the sampled fault
+        registers: a fault needs no events, so an event-driven integral
+        would miss windows opening and closing between events. A replica
+        whose own window coincides with a fired shared window counts the
+        coincidence twice, as in JAX. The ``(r, nW, nV, W)`` overlaps are
+        formed a chunk of replicas at a time; the fixed-point sum runs
+        over every replica at once, so its bits do not depend on the
+        chunking."""
+        dev = final["flt_start"].device
+        R, nV, W = final["flt_start"].shape
+        horizon = _f32(self.horizon, dev)
+        lo_w, hi_w = self._tel_edges(dev)
+        lo = lo_w[None, :, None, None]
+        hi = torch.minimum(hi_w, horizon)[None, :, None, None]
+        participates = torch.as_tensor(self.faults.participates, device=dev).to(torch.float32)
+        step = max(1, _FAULT_INTEGRAL_CHUNK // (self.nW * nV * max(W, self.faults.W_sh, 1)))
+        parts = []
+        for first in range(0, R, step):
+            rows = slice(first, first + step)
+            starts = final["flt_start"][rows, None, :, :]
+            ends = torch.minimum(final["flt_end"][rows], horizon)[:, None, :, :]
+            dark = torch.clamp_min(
+                torch.minimum(ends, hi) - torch.maximum(starts, lo), 0.0
+            ).sum(dim=-1)
+            if self.faults.has_shared:
+                sh_start = final["flt_sh_start"][rows, None, None, :]
+                sh_end = torch.minimum(final["flt_sh_end"][rows], horizon)[:, None, None, :]
+                shared = torch.clamp_min(
+                    torch.minimum(sh_end, hi) - torch.maximum(sh_start, lo), 0.0
+                ).sum(dim=-1)
+                dark = dark + shared * participates
+            parts.append(dark)
+        return sum_f32_fixed(torch.cat(parts), axis=0)
 
     def _edges(self):
         for s in self.model.sources:
@@ -592,6 +800,8 @@ class _Compiled:
             state["srv_hedge_wins"] = torch.zeros((R, nV), dtype=i32, device=dev)
         if self.has_loss:
             state["net_lost"] = torch.zeros((R,), dtype=i32, device=dev)
+        if self.has_telemetry:
+            state.update(self._tel_init_state(R, dev))
         return state
 
     def _initial_gaps(self, keys: torch.Tensor, params: dict) -> torch.Tensor:
@@ -743,6 +953,7 @@ class _Compiled:
                 u, t, float(np.float32(edge.loss_p)), edge.loss_start_s, edge.loss_end_s
             )
             state["net_lost"] += lost.to(torch.int32)
+            self._tel_count(state, "tel_net_lost", t, 0, lost)
             lanes = lanes & ~lost
         if dest.kind == LIMITER:
             self._through_limiter(state, desc, lanes, t, created, u, dest.index, params, hop)
@@ -778,6 +989,7 @@ class _Compiled:
                 u, t, column("loss_p"), column("loss_start_s"), column("loss_end_s")
             )
             state["net_lost"] += lost.to(torch.int32)
+            self._tel_count(state, "tel_net_lost", t, 0, lost)
             lanes = lanes & ~lost
         park = any(e.mean_s > 0 for e in router.target_latencies)
         for i, (target, edge) in enumerate(zip(router.targets, router.target_latencies)):
@@ -829,6 +1041,8 @@ class _Compiled:
         state["lim_last"][:, l] = torch.where(lanes, t, last)
         state["lim_admitted"][:, l] += (lanes & admit).to(torch.int32)
         state["lim_dropped"][:, l] += (lanes & ~admit).to(torch.int32)
+        self._tel_count(state, "tel_lim_admitted", t, l, lanes & admit)
+        self._tel_count(state, "tel_lim_dropped", t, l, lanes & ~admit)
         limiter = self.model.limiters[l]
         self._deliver(
             state, desc, lanes & admit, t, created, u, limiter.downstream,
@@ -852,6 +1066,8 @@ class _Compiled:
                 attempt = torch.zeros_like(first_free, dtype=torch.int32)
             _set_at(state["tr_attempt"][:, v, :], first_free, parked, attempt)
         state["tr_dropped"][:, v] += (lanes & ~has_free).to(torch.int32)
+        # Windowed at the would-be arrival, as JAX books it.
+        self._tel_count(state, "tel_tr_dropped", arrival_t, v, lanes & ~has_free)
 
     def _deliver_sink(self, state, lanes, arrival_t, created, k: int):
         """Latency accounting at sink ``k``; only arrivals inside
@@ -871,6 +1087,8 @@ class _Compiled:
         state["sink_hist"][:, k, :].scatter_add_(
             1, _hist_bin(latency)[:, None].long(), measure.to(torch.int32)[:, None]
         )
+        if self.has_telemetry:
+            self._tel_sink(state, measure, arrival_t, latency, k)
 
     def _push(self, desc, lanes, pred, v: int, slot, created, t, attempt) -> None:
         """Describe the step's queue push for ``lanes`` (written by
@@ -960,12 +1178,20 @@ class _Compiled:
         if hedged is not None:
             state["srv_hedged"][:, v] += (start & hedged).to(torch.int32)
             state["srv_hedge_wins"][:, v] += (start & won).to(torch.int32)
+        self._tel_integral(state, "tel_srv_busy_int", v, t, t + service, measured)
+        self._tel_count(state, "tel_srv_dropped", t, v, drop)
+        self._tel_count(state, "tel_srv_outage_dropped", t, v, lanes & dark)
+        self._tel_count(state, "tel_srv_fault_dropped", t, v, lanes & fault_rejected & ~retry)
+        if hedged is not None:
+            self._tel_count(state, "tel_srv_hedged", t, v, start & hedged)
+            self._tel_count(state, "tel_srv_hedge_wins", t, v, start & won)
         if self.flt_can_retry[v]:
             # A retry counts only when a transit register takes it; with
             # none free _into_transit books a tr_dropped instead.
             parked = lanes & retry
             tr_free = torch.isinf(state["tr_time"][:, v, :]).any(dim=1)
             state["srv_fault_retried"][:, v] += (parked & tr_free).to(torch.int32)
+            self._tel_count(state, "tel_srv_fault_retried", t, v, parked & tr_free)
             self._into_transit(
                 state, parked, v, t + self._backoff_delay(u, attempt, v), created, attempt + 1
             )
@@ -981,6 +1207,8 @@ class _Compiled:
         state["srv_q_len"][:, v] += pushed.to(torch.int32)
         state["srv_retried"][:, v] += pushed.to(torch.int32)
         state["srv_dropped"][:, v] += (lanes & ~has_room).to(torch.int32)
+        self._tel_count(state, "tel_srv_retried", t, v, pushed)
+        self._tel_count(state, "tel_srv_dropped", t, v, lanes & ~has_room)
 
     def _read_queue_head(self, state, desc, v: int, head):
         """The head item's (created, enqueued, attempt), forwarding a push
@@ -1036,6 +1264,7 @@ class _Compiled:
             attempt = state["srv_slot_attempt"][:, v, :].gather(1, k[:, None])[:, 0]
         _set_at(done_row, k, lanes, torch.full_like(created, INF))
         state["srv_completed"][:, v] += lanes.to(torch.int32)
+        self._tel_count(state, "tel_srv_completed", t, v, lanes)
         spec = self.model.servers[v]
         forward = lanes
         if spec.deadline_s is not None:
@@ -1046,10 +1275,12 @@ class _Compiled:
             expired = lanes & ((t - created) > _f32(self.srv_deadline[v], dev))
             retry = expired & (attempt < int(self.srv_max_retries[v]))
             state["srv_timed_out"][:, v] += (expired & ~retry).to(torch.int32)
+            self._tel_count(state, "tel_srv_timed_out", t, v, expired & ~retry)
             if spec.retry_backoff_s is not None:
                 # A retry counts only when a transit register takes it.
                 tr_free = torch.isinf(state["tr_time"][:, v, :]).any(dim=1)
                 state["srv_retried"][:, v] += (retry & tr_free).to(torch.int32)
+                self._tel_count(state, "tel_srv_retried", t, v, retry & tr_free)
                 self._into_transit(
                     state, retry, v, t + self._backoff_delay(u, attempt, v), created, attempt + 1
                 )
@@ -1083,6 +1314,8 @@ class _Compiled:
             service, hedged, won = self._hedge(service, second, v)
             state["srv_hedged"][:, v] += (has_queued & hedged).to(torch.int32)
             state["srv_hedge_wins"][:, v] += (has_queued & won).to(torch.int32)
+            self._tel_count(state, "tel_srv_hedged", t, v, has_queued & hedged)
+            self._tel_count(state, "tel_srv_hedge_wins", t, v, has_queued & won)
         measured = has_queued & (t >= _f32(self.warmup, dev))
         _set_at(done_row, k, has_queued, t + service)
         _set_at(created_row, k, has_queued, queued_created)
@@ -1095,6 +1328,7 @@ class _Compiled:
         state["srv_started"][:, v] += has_queued.to(torch.int32)
         busy = state["srv_busy_int"][:, v]
         state["srv_busy_int"][:, v] = torch.where(measured, busy + service, busy)
+        self._tel_integral(state, "tel_srv_busy_int", v, t, t + service, measured)
         wait_sum = state["srv_wait_sum"][:, v]
         state["srv_wait_sum"][:, v] = torch.where(
             measured, wait_sum + (t - queued_enq), wait_sum
@@ -1163,6 +1397,15 @@ class _Compiled:
                     depth,
                 )
             )
+            if "tel_srv_depth_int" in self.tel_keys:
+                # The same measured interval, split over the windows it
+                # spans.
+                tel = state["tel_srv_depth_int"]
+                piece = (
+                    self._tel_overlap(measured_lo, t_next)[:, :, None]
+                    * state["srv_q_len"].to(torch.float32)[:, None, :]
+                )
+                tel.copy_(torch.where(live[:, None, None], tel + piece, tel))
             state["t"].copy_(torch.where(live, t_next, state["t"]))
             state["events"] += live.to(torch.int32)
             t = state["t"]
@@ -1285,12 +1528,52 @@ def reduce_final(compiled: _Compiled, final: dict) -> dict:
         pending = torch.minimum(pending, torch.amin(final["tr_time"], dim=(-2, -1)))
     horizon = _f32(compiled.horizon, pending.device)
     reduced = {"truncated": torch.sum((pending < horizon).to(torch.int32))}
-    for key in sorted((_I64_COUNTER_KEYS | _F64_SUM_KEYS) & final.keys()):
+    per_replica = {
+        key: final[key] for key in sorted((_I64_COUNTER_KEYS | _F64_SUM_KEYS) & final.keys())
+    }
+    for key in sorted(compiled.tel_keys):
+        per_replica[key] = final[key]
+    for key, arr in per_replica.items():
         if key in _F64_SUM_KEYS:
-            reduced[key] = sum_f32_fixed(final[key], axis=0)
+            reduced[key] = sum_f32_fixed(arr, axis=0)
+        elif _is_i64_key(key):
+            reduced[key] = sum_i64_limbs(arr, axis=0)
         else:
-            reduced[key] = sum_i64_limbs(final[key], axis=0)
+            raise ValueError(
+                f"reduce key {key!r} has no declared encoding: add it to "
+                "_I64_COUNTER_KEYS or _F64_SUM_KEYS (engine.py) so _build_result "
+                "knows how to decode it"
+            )
+    if compiled.has_telemetry:
+        if compiled.tel_spread:
+            # The cross-replica spread of the per-window throughput, as
+            # percentiles of the raw counts (the host divides by the
+            # window length, which commutes with them).
+            counts = final["tel_sink_count"].to(torch.float32)
+            reduced["tel_spread_p10"] = percentile_over_replicas(counts, 10.0)
+            reduced["tel_spread_p90"] = percentile_over_replicas(counts, 90.0)
+        if compiled.tel_faults:
+            reduced["tel_fault_int"] = compiled._tel_fault_integral(final)
     return reduced
+
+
+def percentile_over_replicas(x: torch.Tensor, pct: float) -> torch.Tensor:
+    """``jnp.percentile(x, pct, axis=0)`` (linear interpolation), in float32
+    as JAX computes it: the two order statistics around
+    ``pct / 100 * (n - 1)`` from a sort along the replica axis, weighted
+    by the fractional part, ``low * low_weight + high * high_weight`` with
+    the first product fused into the add as XLA's CPU backend fuses it
+    (ROADMAP C). ``torch.quantile`` refuses inputs of more than 2**24
+    elements, which 65,536 replicas of 4,096 windows pass."""
+    n = x.shape[0]
+    ordered = torch.sort(x, dim=0).values
+    position = np.float32(np.float32(pct) / np.float32(100.0)) * np.float32(n - 1)
+    low, high = math.floor(position), math.ceil(position)
+    high_weight = np.float32(position - np.float32(low))
+    low_weight = np.float32(1.0) - high_weight
+    low, high = min(max(low, 0), n - 1), min(max(high, 0), n - 1)
+    low_w, high_w = _f32(low_weight, x.device), _f32(high_weight, x.device)
+    return fma_f32(ordered[low], low_w.expand_as(ordered[low]), ordered[high] * high_w)
 
 
 def _resolve_device(device) -> torch.device:
@@ -1348,6 +1631,9 @@ def run_ensemble(
     max_events: Optional[int] = None,
     sweeps: Optional[dict] = None,
     device=None,
+    checkpoint_every_s: Optional[float] = None,
+    checkpoint_callback=None,
+    resume_from=None,
 ) -> EnsembleResult:
     """Run ``n_replicas`` Monte-Carlo replicas of ``model``.
 
@@ -1356,7 +1642,11 @@ def run_ensemble(
     ``sweeps`` maps ``"source_rate"`` / ``"service_mean"`` to per-replica
     ``(R,)`` or ``(R, n)`` arrays. ``max_events`` is the per-replica event
     budget (default: from the arrival rates and the longest server path).
+    Checkpoints (``checkpoint_every_s``, ``checkpoint_callback``,
+    ``resume_from``) raise NotImplementedError (ROADMAP A.10).
     """
+    if checkpoint_every_s is not None or checkpoint_callback is not None or resume_from is not None:
+        raise not_ported("checkpoints and resume (ROADMAP A.10)")
     device = _resolve_device(device)
     compiled = _Compiled(model)
     if n_replicas > MAX_EXACT_REPLICAS:
@@ -1449,7 +1739,7 @@ def _build_result(
         )
 
     def _decode(k, v):
-        if k in _I64_COUNTER_KEYS:
+        if _is_i64_key(k):
             return host_i64(v)
         if k in _F64_SUM_KEYS:
             return host_f64(v)
@@ -1461,6 +1751,9 @@ def _build_result(
     hist_counts = host.pop("blocks_hist")
     blocks_total = int(host.pop("blocks_total"))
     block_occupancy = {int(v): int(c) for v, c in enumerate(hist_counts) if c}
+    timeseries = None
+    if compiled.has_telemetry:
+        timeseries = build_timeseries(compiled.telemetry, compiled, host, n_replicas)
     sink_count = host["sink_count"].astype(np.int64)
     with np.errstate(divide="ignore", invalid="ignore"):
         sink_mean = np.where(sink_count > 0, host["sink_sum"] / sink_count, 0.0)
@@ -1513,6 +1806,7 @@ def _build_result(
         block_occupancy=block_occupancy,
         padded_replicas=n_replicas,
         device_name=device_name,
+        timeseries=timeseries,
     )
 
 

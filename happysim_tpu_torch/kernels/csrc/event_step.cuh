@@ -13,8 +13,8 @@
 // _complete_server with its FIFO queue pull, _arrive_server and
 // _deliver_sink.
 //
-// event_step_kernel<MAXV, GRAPH, EXT, CHAOS> has five instantiations per
-// server bound:
+// event_step_kernel<MAXV, GRAPH, EXT, CHAOS, TEL> has seven instantiations
+// per server bound:
 // - GRAPH = false, the "mm1" and "chain" shapes (lines of servers joined
 //   by free edges, or a source wired straight to the sink): a delivery is
 //   a server arrival or the sink;
@@ -43,10 +43,18 @@
 //   exactly what that side books (a retry counts only when a transit
 //   register takes it, a lost crossing keeps the limiter and round-robin
 //   updates made before it, an expired and discarded job forwards
-//   nothing).
-// Everything GRAPH, EXT and CHAOS add sits under `if constexpr`, so the
-// line, flat and extended instantiations compile to the code they had
-// without them.
+//   nothing);
+// - TEL = true (only as <MAXV, true, true, CHAOS, true>, built from
+//   event_step_telemetry.cu into a library of its own) adds the windowed
+//   telemetry sites: every counter the step books is also booked in the
+//   (R, nW, ...) window buffer of the time JAX's step books it at, the
+//   busy and depth integrals are split over the windows their interval
+//   spans, and a measured sink delivery adds its count, latency and
+//   histogram bin in its arrival window. Every telemetry model runs the
+//   extended graph code, with or without the chaos branches.
+// Everything GRAPH, EXT, CHAOS and TEL add sits under `if constexpr`, so
+// the line, flat, extended and chaos instantiations compile to the code
+// they had without them.
 //
 // The profile tables. JAX hoists the (G,) time and cumulative grids as
 // tile-shared kernel operands (const_spec), read once per tile. Here the
@@ -89,6 +97,18 @@
 // stay in device memory in the JAX layout and are touched only at the
 // events that need them: the (nV, W) fault registers are read at an
 // arrival at, or a pull into, a faulted server.
+//
+// The telemetry buffers stay in device memory in the JAX layout,
+// (R, nW, ...) row-major, and an event touches only the windows its time
+// or interval falls in. The window of t is the compiled JAX step's
+// int(t * float32(1 / window_s)) clipped to [0, nW); the window edges
+// lo = w * window_s and hi = lo + window_s (hi = +inf for the last) are
+// single float32 roundings, equal to numpy's window_edges, so no table
+// is staged. An interval adds clip(min(hi, hi_w) - max(lo, lo_w), 0) to
+// each window; the windows outside [w(lo) - 1, w(hi) + 1] get +0.0 in
+// JAX's dense form, which leaves the (non-negative) sum unchanged, so the
+// kernel walks only the windows in that range, skips the zero pieces,
+// and stays bit-equal.
 //
 // Float agreement with the plain version: build with -fmad=false and
 // without --use_fast_math (every torch op is its own kernel, so the
@@ -157,6 +177,33 @@ struct HsRef {
 // A lossy edge: the crossing is lost with probability p inside [start, end).
 struct HsLoss {
   float p, start, end;
+};
+
+// Windowed telemetry (TEL instantiations): the window buffers, replica
+// major in the JAX layout and null where the spec or the model has none,
+// and the window grid. The layout must match kernels/event_step.py::_Tel.
+struct HsTel {
+  int* sink_count;       // (R, nW, 1)
+  float* sink_sum;       // (R, nW, 1)
+  int* sink_hist;        // (R, nW, 1, 80)
+  float* depth_int;      // (R, nW, nV)
+  float* busy_int;       // (R, nW, nV)
+  int* completed;        // (R, nW, nV), and so on to tr_dropped
+  int* dropped;
+  int* timed_out;
+  int* retried;
+  int* outage_dropped;
+  int* fault_dropped;
+  int* fault_retried;
+  int* hedged;
+  int* hedge_wins;
+  int* tr_dropped;
+  int* lim_admitted;     // (R, nW, nL)
+  int* lim_dropped;      // (R, nW, nL)
+  int* net_lost;         // (R, nW)
+  int nW;                // windows (0: the model has no telemetry)
+  float window_s;        // the window width
+  float inv_window_s;    // float32(1 / window_s)
 };
 
 // Launch arguments. The layout must match kernels/event_step.py::_Args.
@@ -260,7 +307,13 @@ struct EventStepArgs {
   HsLoss srv_loss[HS_MAX_NV];                // each server's downstream edge
   HsLoss lim_loss[HS_MAX_LIMITERS];          // each limiter's downstream edge
   HsLoss rt_loss[HS_MAX_ROUTERS][HS_MAX_TARGETS];  // each router's target edges
+  // TEL only
+  HsTel tel;
 };
+
+// The struct is passed by value as a __grid_constant__ kernel parameter;
+// staying under the classic 4 KB parameter limit keeps it portable.
+static_assert(sizeof(EventStepArgs) <= 4096, "event-step arguments exceed 4 KB");
 
 // The profile tables, staged per thread block (EXT instantiations).
 extern __shared__ float hs_tables[];
@@ -394,6 +447,41 @@ __device__ __forceinline__ int hist_bin(float latency) {
   return min(max(b, 0), HS_HIST_BINS - 1);
 }
 
+// The window of time t: the compiled JAX step's clip(int32(t * float32(1 /
+// window_s)), 0, nW - 1); a time past the grid lands in the last window.
+__device__ __forceinline__ int tel_window(const HsTel& T, float t) {
+  const float q = t * T.inv_window_s;
+  if (!(q < (float)T.nW)) return T.nW - 1;
+  return max((int)q, 0);
+}
+
+// A windowed counter (JAX _tel_count): column i of replica row `row`
+// (r * nW) of an (R, nW, width) buffer, in the window of t; a null buffer
+// is one the model has not got.
+__device__ __forceinline__ void tel_count(int* buf, const HsTel& T, size_t row, int width,
+                                          float t, int i) {
+  if (buf) buf[(row + tel_window(T, t)) * width + i] += 1;
+}
+
+// A time integral (JAX _tel_overlap): [lo, hi) split over the windows it
+// spans, each piece times `scale`, added to column i of replica row `row`
+// of an (R, nW, width) float buffer. The windows outside [w(lo) - 1,
+// w(hi) + 1] overlap by nothing, and a zero piece leaves the sum as it is.
+__device__ __forceinline__ void tel_integral(float* buf, const HsTel& T, size_t row, int width,
+                                             int i, float lo, float hi, float scale) {
+  const int first = max(tel_window(T, lo) - 1, 0);
+  const int last = min(tel_window(T, hi) + 1, T.nW - 1);
+  for (int w = first; w <= last; ++w) {
+    const float w_lo = (float)w * T.window_s;
+    const float w_hi = w == T.nW - 1 ? INFINITY : w_lo + T.window_s;
+    const float overlap = fmaxf(fminf(hi, w_hi) - fmaxf(lo, w_lo), 0.0f);
+    if (overlap > 0.0f) {
+      float* cell = buf + (row + w) * width + i;
+      *cell = *cell + overlap * scale;
+    }
+  }
+}
+
 __device__ __forceinline__ float row_min(const float* row, int n) {
   float m = INFINITY;
   for (int c = 0; c < n; ++c) m = fminf(m, row[c]);
@@ -418,10 +506,13 @@ struct Lane {
   const float *flt_start, *flt_end, *flt_sh_start, *flt_sh_end;
   int *timed_out, *retried, *outage_dropped, *fault_dropped, *fault_retried;
   int *hedged, *hedge_wins, *net_lost;
+  // TEL: this replica's first row (r * nW) of the window buffers
+  size_t tel_row;
 };
 
 // _deliver_sink: only arrivals inside [warmup, horizon] are measured.
-template <int MAXV>
+// TEL: the delivery's count, latency and bin in its arrival window.
+template <int MAXV, bool TEL = false>
 __device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs& a,
                                              float arrival, float created) {
   if (arrival >= a.warmup && arrival <= a.horizon) {
@@ -430,12 +521,21 @@ __device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs&
     L.sk_sum = L.sk_sum + latency;
     L.sk_sq = L.sk_sq + latency * latency;
     L.hist[hist_bin(latency)] += 1;
+    if constexpr (TEL) {
+      const HsTel& T = a.tel;
+      const size_t cell = L.tel_row + tel_window(T, arrival);  // one sink
+      if (T.sink_count) T.sink_count[cell] += 1;
+      if (T.sink_sum) {
+        T.sink_sum[cell] = T.sink_sum[cell] + latency;
+        T.sink_hist[cell * HS_HIST_BINS + hist_bin(latency)] += 1;
+      }
+    }
   }
 }
 
 // _arrive_server: start in the first free slot, else enqueue at the ring
 // tail, else drop.
-template <int MAXV, bool EXT>
+template <int MAXV, bool EXT, bool TEL = false>
 __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                               float t, float created, const float* u) {
   const int C = a.C, K = a.K;
@@ -459,6 +559,9 @@ __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs
     if (t >= a.warmup) {
       put(L.wait_n, w, pick(L.wait_n, w) + 1);
       put(L.busy, w, pick(L.busy, w) + service);
+      if constexpr (TEL) {
+        if (a.tel.busy_int) tel_integral(a.tel.busy_int, a.tel, L.tel_row, a.nV, w, t, done_at, 1.0f);
+      }
     }
     put(L.smin, w, fminf(pick(L.smin, w), done_at));
   } else {
@@ -470,6 +573,7 @@ __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs
       put(L.q_len, w, ql + 1);
     } else {
       put(L.dropped, w, pick(L.dropped, w) + 1);
+      if constexpr (TEL) tel_count(a.tel.dropped, a.tel, L.tel_row, a.nV, t, w);
     }
   }
 }
@@ -487,7 +591,7 @@ __device__ __forceinline__ float edge_arrival(const HsRef& e, float t, const flo
 // _into_transit: park in the first free transit slot of server w until
 // `arrival`; with none free the job is lost and tr_dropped counts it.
 // A backoff retry parks here too, with its attempt number (CHAOS).
-template <int MAXV, bool CHAOS = false>
+template <int MAXV, bool CHAOS = false, bool TEL = false>
 __device__ __forceinline__ void into_transit(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                              float arrival, float created, int attempt = 0) {
   float* row = L.tr_time + w * a.TR;
@@ -503,6 +607,8 @@ __device__ __forceinline__ void into_transit(Lane<MAXV>& L, const EventStepArgs&
     }
   }
   L.tr_dropped[w] += 1;
+  // TEL: in the window of the would-be arrival, as JAX books it.
+  if constexpr (TEL) tel_count(a.tel.tr_dropped, a.tel, L.tel_row, a.nV, arrival, w);
 }
 
 // Whether server w has a free transit register (the retry counters'
@@ -562,7 +668,7 @@ __device__ __forceinline__ float hedge_race(float service, float second, float h
 // after the backoff while its budget lasts, else a fault drop); a
 // degrade-mode window caps the active slots and inflates service; a
 // hedged server races a second sample.
-template <int MAXV>
+template <int MAXV, bool TEL = false>
 __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                                     float t, float created, int attempt,
                                                     const float* u) {
@@ -576,15 +682,20 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
                     t < pick_arg<MAXV>(a.outage_end, w);
   if (dark) {  // a brownout loss, disjoint from the fault ledger
     L.outage_dropped[w] += 1;
+    if constexpr (TEL) tel_count(a.tel.outage_dropped, a.tel, L.tel_row, a.nV, t, w);
     return;
   }
   if (fdark && (flags & HS_F_DROP)) {
     if ((flags & HS_F_FAULT_RETRY) && attempt < pick_arg<MAXV>(a.max_retries, w)) {
-      if (transit_free(L, a, w)) L.fault_retried[w] += 1;
-      into_transit<MAXV, true>(L, a, w, t + backoff_delay<MAXV>(a, w, attempt, u), created,
-                               attempt + 1);
+      if (transit_free(L, a, w)) {
+        L.fault_retried[w] += 1;
+        if constexpr (TEL) tel_count(a.tel.fault_retried, a.tel, L.tel_row, a.nV, t, w);
+      }
+      into_transit<MAXV, true, TEL>(L, a, w, t + backoff_delay<MAXV>(a, w, attempt, u), created,
+                                    attempt + 1);
     } else {
       L.fault_dropped[w] += 1;
+      if constexpr (TEL) tel_count(a.tel.fault_dropped, a.tel, L.tel_row, a.nV, t, w);
     }
     return;
   }
@@ -607,6 +718,10 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
       service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, w), hedged, won);
       L.hedged[w] += hedged ? 1 : 0;
       L.hedge_wins[w] += won ? 1 : 0;
+      if constexpr (TEL) {
+        if (hedged) tel_count(a.tel.hedged, a.tel, L.tel_row, a.nV, t, w);
+        if (won) tel_count(a.tel.hedge_wins, a.tel, L.tel_row, a.nV, t, w);
+      }
     }
     const float done_at = t + service;
     row[first_free] = done_at;
@@ -616,6 +731,9 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
     if (t >= a.warmup) {
       put(L.wait_n, w, pick(L.wait_n, w) + 1);
       put(L.busy, w, pick(L.busy, w) + service);
+      if constexpr (TEL) {
+        if (a.tel.busy_int) tel_integral(a.tel.busy_int, a.tel, L.tel_row, a.nV, w, t, done_at, 1.0f);
+      }
     }
     put(L.smin, w, fminf(pick(L.smin, w), done_at));
   } else {
@@ -628,6 +746,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
       put(L.q_len, w, ql + 1);
     } else {
       put(L.dropped, w, pick(L.dropped, w) + 1);
+      if constexpr (TEL) tel_count(a.tel.dropped, a.tel, L.tel_row, a.nV, t, w);
     }
   }
 }
@@ -675,16 +794,16 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
 // decided where the walk ends (edges into limiters and routers are
 // loss-free), after any limiter and round-robin update, and vanishes the
 // job with only net_lost counting it. `attempt` rides to the server.
-template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false>
+template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false, bool TEL = false>
 __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, HsRef dest,
                                         float t, float created, const float* u,
                                         HsLoss loss = HsLoss{0.0f, 0.0f, 0.0f},
                                         int attempt = 0) {
   if constexpr (!GRAPH) {
     if (dest.kind == HS_SINK) {
-      deliver_sink(L, a, t, created);
+      deliver_sink<MAXV, TEL>(L, a, t, created);
     } else {
-      arrive_server<MAXV, EXT>(L, a, dest.index, t, created, u);
+      arrive_server<MAXV, EXT, TEL>(L, a, dest.index, t, created, u);
     }
   } else {
     bool park = false;  // chosen by a router with a latency-carrying target edge
@@ -699,9 +818,11 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         L.lim_last[l] = t;
         if (!admit) {  // dropped: only the limiter's own registers change
           L.lim_dropped[l] += 1;
+          if constexpr (TEL) tel_count(a.tel.lim_dropped, a.tel, L.tel_row, a.nL, t, l);
           return;
         }
         L.lim_admitted[l] += 1;
+        if constexpr (TEL) tel_count(a.tel.lim_admitted, a.tel, L.tel_row, a.nL, t, l);
         dest = a.lim_ref[l];
         if constexpr (CHAOS) loss = a.lim_loss[l];
         continue;
@@ -720,24 +841,26 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
       if constexpr (CHAOS) {
         if (loss.p > 0.0f && u[a.u_loss] < loss.p && t >= loss.start && t < loss.end) {
           *L.net_lost += 1;
+          if constexpr (TEL) tel_count(a.tel.net_lost, a.tel, L.tel_row, 1, t, 0);
           return;
         }
       }
       if (dest.kind == HS_SINK) {
-        deliver_sink(L, a, edge_arrival(dest, t, u, a.u_lat), created);
+        deliver_sink<MAXV, TEL>(L, a, edge_arrival(dest, t, u, a.u_lat), created);
       } else if (park || dest.lat_kind != HS_LAT_NONE) {
-        into_transit<MAXV, CHAOS>(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat), created);
+        into_transit<MAXV, CHAOS, TEL>(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat),
+                                       created);
       } else if constexpr (CHAOS) {
-        arrive_server_chaos<MAXV>(L, a, dest.index, t, created, attempt, u);
+        arrive_server_chaos<MAXV, TEL>(L, a, dest.index, t, created, attempt, u);
       } else {
-        arrive_server<MAXV, EXT>(L, a, dest.index, t, created, u);
+        arrive_server<MAXV, EXT, TEL>(L, a, dest.index, t, created, u);
       }
       return;
     }
   }
 }
 
-template <int MAXV, bool GRAPH, bool EXT, bool CHAOS>
+template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false>
 __global__ void __launch_bounds__(HS_THREADS)
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -795,6 +918,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.hedge_wins = a.hedge_wins ? a.hedge_wins + rv : nullptr;
     L.net_lost = a.net_lost ? a.net_lost + r : nullptr;
   }
+  if constexpr (TEL) L.tel_row = (size_t)r * a.tel.nW;
 #pragma unroll
   for (int v = 0; v < MAXV; ++v) {
     const bool real = v < nV;
@@ -841,6 +965,16 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
 #pragma unroll
     for (int v = 0; v < MAXV; ++v)
       if (v < nV) L.depth[v] = L.depth[v] + (float)L.q_len[v] * dt;
+    if constexpr (TEL) {
+      // The same measured interval [lo, tn), split over the windows it
+      // spans; an empty queue adds nothing.
+      if (a.tel.depth_int) {
+#pragma unroll
+        for (int v = 0; v < MAXV; ++v)
+          if (v < nV && L.q_len[v] > 0)
+            tel_integral(a.tel.depth_int, a.tel, L.tel_row, nV, v, lo, tn, (float)L.q_len[v]);
+      }
+    }
     t = tn;
     events += 1;
 
@@ -879,6 +1013,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       created = L.slot_created[from * C + from_slot];
       row[from_slot] = INFINITY;
       put(L.completed, from, pick(L.completed, from) + 1);
+      if constexpr (TEL) tel_count(a.tel.completed, a.tel, L.tel_row, nV, t, from);
       dest = pick_arg<MAXV>(a.srv_ref, from);
       if constexpr (CHAOS) {
         loss = pick_arg<MAXV>(a.srv_loss, from);
@@ -894,10 +1029,13 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
           forward = false;
           if (job_attempt < pick_arg<MAXV>(a.max_retries, from)) {
             if (flags & HS_F_BACKOFF) {
-              if (transit_free(L, a, from)) L.retried[from] += 1;
-              into_transit<MAXV, true>(L, a, from,
-                                       t + backoff_delay<MAXV>(a, from, job_attempt, u), created,
-                                       job_attempt + 1);
+              if (transit_free(L, a, from)) {
+                L.retried[from] += 1;
+                if constexpr (TEL) tel_count(a.tel.retried, a.tel, L.tel_row, nV, t, from);
+              }
+              into_transit<MAXV, true, TEL>(L, a, from,
+                                            t + backoff_delay<MAXV>(a, from, job_attempt, u),
+                                            created, job_attempt + 1);
             } else {
               const int ql = pick(L.q_len, from);
               if (ql < pick_arg<MAXV>(a.qcap, from)) {
@@ -907,12 +1045,15 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
                 if (L.q_attempt) L.q_attempt[from * K + tail] = job_attempt + 1;
                 put(L.q_len, from, ql + 1);
                 L.retried[from] += 1;
+                if constexpr (TEL) tel_count(a.tel.retried, a.tel, L.tel_row, nV, t, from);
               } else {
                 put(L.dropped, from, pick(L.dropped, from) + 1);
+                if constexpr (TEL) tel_count(a.tel.dropped, a.tel, L.tel_row, nV, t, from);
               }
             }
           } else {
             L.timed_out[from] += 1;
+            if constexpr (TEL) tel_count(a.tel.timed_out, a.tel, L.tel_row, nV, t, from);
           }
         }
       }
@@ -935,9 +1076,9 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     }
 
     if constexpr (CHAOS) {
-      if (forward) deliver<MAXV, GRAPH, EXT, true>(L, a, dest, t, created, u, loss, attempt);
+      if (forward) deliver<MAXV, GRAPH, EXT, true, TEL>(L, a, dest, t, created, u, loss, attempt);
     } else {
-      deliver<MAXV, GRAPH, EXT>(L, a, dest, t, created, u);
+      deliver<MAXV, GRAPH, EXT, false, TEL>(L, a, dest, t, created, u);
     }
 
     if (from >= 0) {
@@ -977,6 +1118,10 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
             service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, from), hedged, won);
             L.hedged[from] += hedged ? 1 : 0;
             L.hedge_wins[from] += won ? 1 : 0;
+            if constexpr (TEL) {
+              if (hedged) tel_count(a.tel.hedged, a.tel, L.tel_row, nV, t, from);
+              if (won) tel_count(a.tel.hedge_wins, a.tel, L.tel_row, nV, t, from);
+            }
           }
           if (L.slot_attempt) L.slot_attempt[from * C + from_slot] = L.q_attempt[from * K + head];
         }
@@ -989,6 +1134,10 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
           put(L.busy, from, pick(L.busy, from) + service);
           put(L.wsum, from, pick(L.wsum, from) + (t - L.q_enq[from * K + head]));
           put(L.wait_n, from, pick(L.wait_n, from) + 1);
+          if constexpr (TEL) {
+            if (a.tel.busy_int)
+              tel_integral(a.tel.busy_int, a.tel, L.tel_row, nV, from, t, t + service, 1.0f);
+          }
         }
       }
       put(L.smin, from, row_min(row, pick_arg<MAXV>(a.conc, from)));

@@ -20,10 +20,15 @@ chaos feature (deadlines, retries, hedges, brownouts, fault schedules,
 packet loss) launches the chaos instantiation, the extended graph code
 plus the chaos branches, whatever its shape: a line with backoff
 retries needs the transit registers, which only the graph code has.
+Every model with a telemetry spec launches a telemetry instantiation:
+the extended graph code, with the chaos branches where the model has
+chaos, plus the windowed telemetry sites.
 
 The kernel is compiled on first use with ``nvcc`` from this package's
-sources into ``build/`` at the repository root, bound through a plain C
-launcher loaded with ``ctypes``.
+sources into ``build/`` at the repository root, one library per source
+(``csrc/event_step.cu`` without telemetry, ``csrc/event_step_telemetry.cu``
+with it), the two built at once, each bound through a plain C launcher
+loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ from happysim_tpu_torch.kernels import support
 from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "event_step.cu"
+# One library per source: the kernel without telemetry, and its telemetry
+# instantiations.
+SOURCES = (CSRC / "event_step.cu", CSRC / "event_step_telemetry.cu")
 HEADERS = (CSRC / "event_step.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # No --use_fast_math, and no multiply-add contraction: the kernel must
@@ -62,7 +69,8 @@ _loaded: dict = {}
 
 # Struct fields holding state-leaf pointers, in EventStepArgs order,
 # paired with the leaves they point at: the leaves of every model, then
-# (at the struct's end) the chaos leaves.
+# the chaos leaves, then (in the HsTel sub-struct at the end) the
+# telemetry leaves.
 _BASE_FIELDS = (
     "t", "src_next", "events", "slot_done", "slot_created",
     "q_created", "q_enq", "q_head", "q_len", "started", "completed",
@@ -77,8 +85,22 @@ _CHAOS_FIELDS = (
     "timed_out", "retried", "outage_dropped",
     "fault_dropped", "fault_retried", "hedged", "hedge_wins", "net_lost",
 )
-assert len(_BASE_FIELDS) + len(_CHAOS_FIELDS) == len(support.KERNEL_LEAVES)
-_LEAF_FIELDS = tuple(zip(_BASE_FIELDS + _CHAOS_FIELDS, support.KERNEL_LEAVES))
+_TEL_FIELDS = (
+    "sink_count", "sink_sum", "sink_hist", "depth_int", "busy_int",
+    "completed", "dropped", "timed_out", "retried",
+    "outage_dropped", "fault_dropped", "fault_retried",
+    "hedged", "hedge_wins", "tr_dropped",
+    "lim_admitted", "lim_dropped", "net_lost",
+)
+assert len(_BASE_FIELDS) + len(_CHAOS_FIELDS) + len(_TEL_FIELDS) == len(support.KERNEL_LEAVES)
+# (sub-struct or None, field, leaf)
+_LEAF_FIELDS = tuple(
+    zip(
+        (None,) * (len(_BASE_FIELDS) + len(_CHAOS_FIELDS)) + ("tel",) * len(_TEL_FIELDS),
+        _BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS,
+        support.KERNEL_LEAVES,
+    )
+)
 
 _KIND_IDS = {SINK: 0, SERVER: 1, ROUTER: 2, LIMITER: 3}
 _POLICY_IDS = {"random": 0, "round_robin": 1, "weighted": 2, "least_outstanding": 3}
@@ -99,6 +121,16 @@ class _Loss(ctypes.Structure):
     """Mirror of ``HsLoss``: an edge's packet loss."""
 
     _fields_ = [(name, ctypes.c_float) for name in ("p", "start", "end")]
+
+
+class _Tel(ctypes.Structure):
+    """Mirror of ``HsTel``: the telemetry window buffers and the grid."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in _TEL_FIELDS] + [
+        ("nW", ctypes.c_int),
+        ("window_s", ctypes.c_float),
+        ("inv_window_s", ctypes.c_float),
+    ]
 
 
 class _Args(ctypes.Structure):
@@ -162,6 +194,7 @@ class _Args(ctypes.Structure):
             ("lim_loss", _Loss * _MAX_L),
             ("rt_loss", (_Loss * _MAX_T) * _MAX_R),
         ]
+        + [("tel", _Tel)]
     )
 
 
@@ -181,52 +214,71 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the event-step kernel cannot be built")
 
 
-def build_library() -> tuple[Path, str]:
-    """Compile ``csrc/event_step.cu`` into ``build/`` unless a library for
-    these exact sources and flag set is already there. Returns the library
-    path and the compiler's log (``-Xptxas -v``: registers and spills per
-    instantiation; empty when the library was already built)."""
-    digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in (SOURCE, *HEADERS))
-        + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"event_step_{digest}.so"
-    if out.exists():
-        return out, ""
+def build_libraries() -> dict:
+    """Compile each of :data:`SOURCES` into ``build/`` unless a library for
+    these exact sources and flag set is already there, one ``nvcc`` per
+    source, all started together. Returns ``{source stem: (library path,
+    compiler log)}``, the log holding ``-Xptxas -v``'s registers and
+    spills per instantiation (empty for a library already built)."""
+    header_bytes = b"".join(p.read_bytes() for p in HEADERS)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    return out, proc.stdout + proc.stderr
+    jobs = {}
+    for source in SOURCES:
+        digest = hashlib.sha256(
+            source.read_bytes() + header_bytes + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        out = BUILD_DIR / f"{source.stem}_{digest}.so"
+        if out.exists():
+            jobs[source] = (out, None, None)
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE,
+            text=True,
+        )
+        jobs[source] = (out, tmp, proc)
+    built, failed = {}, []
+    for source, (out, tmp, proc) in jobs.items():  # wait for every nvcc
+        if proc is None:
+            built[source.stem] = (out, "")
+            continue
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {source.name}:\n{stderr}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+        built[source.stem] = (out, stdout + stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library, once per process."""
-    if "lib" not in _loaded:
-        path, _log = build_library()
-        lib = ctypes.CDLL(str(path))
-        lib.hs_event_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-        lib.hs_event_step.restype = ctypes.c_int
-        for probe in (
-            "hs_event_step_max_servers", "hs_event_step_max_profile_grid",
-            "hs_event_step_args_size",
-        ):
-            getattr(lib, probe).argtypes = []
-            getattr(lib, probe).restype = ctypes.c_int
-        if lib.hs_event_step_max_servers() != _MAX_NV:
-            raise RuntimeError("event-step library and wrapper disagree on the server bound")
-        if lib.hs_event_step_max_profile_grid() != support.KERNEL_MAX_PROFILE_GRID:
-            raise RuntimeError("event-step library and wrapper disagree on the profile grid bound")
-        if lib.hs_event_step_args_size() != ctypes.sizeof(_Args):
-            raise RuntimeError("event-step library and wrapper disagree on the argument layout")
-        _loaded["lib"] = lib
-    return _loaded["lib"]
+def load_library() -> dict:
+    """Build (first use) and load the kernel libraries, once per process;
+    returns ``{source stem: ctypes library}``."""
+    if "libs" not in _loaded:
+        libs = {}
+        for stem, (path, _log) in build_libraries().items():
+            lib = ctypes.CDLL(str(path))
+            lib.hs_event_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+            lib.hs_event_step.restype = ctypes.c_int
+            for probe in (
+                "hs_event_step_max_servers", "hs_event_step_max_profile_grid",
+                "hs_event_step_args_size",
+            ):
+                getattr(lib, probe).argtypes = []
+                getattr(lib, probe).restype = ctypes.c_int
+            if lib.hs_event_step_max_servers() != _MAX_NV:
+                raise RuntimeError(f"{stem} library and wrapper disagree on the server bound")
+            if lib.hs_event_step_max_profile_grid() != support.KERNEL_MAX_PROFILE_GRID:
+                raise RuntimeError(f"{stem} library and wrapper disagree on the profile grid bound")
+            if lib.hs_event_step_args_size() != ctypes.sizeof(_Args):
+                raise RuntimeError(f"{stem} library and wrapper disagree on the argument layout")
+            libs[stem] = lib
+        _loaded["libs"] = libs
+    return _loaded["libs"]
 
 
 def _ref(ref, edge) -> _Ref:
@@ -351,6 +403,12 @@ def _static_args(compiled) -> _Args:
         # chaos branches, whatever the model's shape.
         args.graph = args.ext = 1
         _chaos_args(compiled, args)
+    if compiled.has_telemetry:
+        # So are the telemetry instantiations, with or without chaos.
+        args.graph = args.ext = 1
+        args.tel.nW = compiled.nW
+        args.tel.window_s = float(np.float32(compiled.telemetry.window_s))
+        args.tel.inv_window_s = float(compiled.tel_inv_window)
     return args
 
 
@@ -380,7 +438,7 @@ _LAYOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 def _bound_tensors(state: dict, params: dict) -> list:
     """The tensors the struct points at besides U and halted, in field
     order (None for a leaf the model has not got)."""
-    return [state.get(leaf) for _field, leaf in _LEAF_FIELDS] + [
+    return [state.get(leaf) for _holder, _field, leaf in _LEAF_FIELDS] + [
         params.get("src_rate"),
         params.get("srv_mean"),
     ]
@@ -412,9 +470,9 @@ def launch_args(compiled, state: dict, U: torch.Tensor, params: dict, halted: to
                 raise ValueError(f"event-step kernel: {name} is missing")
             _check(name, tensors[name], shape, device)
         args = _Args.from_buffer_copy(layout[0])
-        for (field, leaf), x in zip(_LEAF_FIELDS, bound):
+        for (holder, field, leaf), x in zip(_LEAF_FIELDS, bound):
             if leaf in expected:
-                setattr(args, field, x.data_ptr())
+                setattr(getattr(args, holder) if holder else args, field, x.data_ptr())
         args.src_rate = params["src_rate"].data_ptr()
         args.srv_mean = params["srv_mean"].data_ptr()
         if args.has_profile:
@@ -456,6 +514,15 @@ def _expected_shapes(compiled, R: int) -> dict:
         })
         if compiled.has_backoff:
             shapes["tr_attempt"] = (R, nV, compiled.TR)
+    nW, nL = compiled.nW, compiled.nL
+    tel_shapes = {
+        "tel_sink_count": (R, nW, nK), "tel_sink_sum": (R, nW, nK),
+        "tel_sink_hist": (R, nW, nK, 80),
+        "tel_lim_admitted": (R, nW, nL), "tel_lim_dropped": (R, nW, nL),
+        "tel_net_lost": (R, nW),
+    }
+    for key in compiled.tel_keys:
+        shapes[key] = tel_shapes.get(key, (R, nW, nV))
     if not compiled.has_chaos:
         return shapes
     shapes.update({"srv_timed_out": per_server, "srv_retried": per_server,
@@ -479,6 +546,7 @@ def _expected_shapes(compiled, R: int) -> dict:
     return shapes
 
 
+_TEL_FLOAT_LEAVES = ("tel_sink_sum", "tel_srv_depth_int", "tel_srv_busy_int")
 _INT_LEAVES = frozenset({
     "events", "srv_q_head", "srv_q_len", "srv_started", "srv_completed",
     "srv_dropped", "srv_wait_n", "sink_count", "sink_hist",
@@ -486,6 +554,7 @@ _INT_LEAVES = frozenset({
     "srv_slot_attempt", "srv_q_attempt", "tr_attempt",
     "srv_timed_out", "srv_retried", "srv_outage_dropped", "srv_fault_dropped",
     "srv_fault_retried", "srv_hedged", "srv_hedge_wins", "net_lost",
+    *(k for k in support.TEL_LEAVES if k not in _TEL_FLOAT_LEAVES),
 })
 
 
@@ -534,9 +603,10 @@ def block_step(compiled, state: dict, U: torch.Tensor, params: dict) -> torch.Te
 
 def launch(args: _Args, device) -> None:
     """Launch the kernel with ready arguments (:func:`launch_args`) on
-    torch's current stream of ``device``; raise on a launch error. Every
-    launch adds one to ``block_step.launches``."""
-    lib = load_library()
+    torch's current stream of ``device`` (the telemetry library for a
+    model with a spec); raise on a launch error. Every launch adds one to
+    ``block_step.launches``."""
+    lib = load_library()["event_step_telemetry" if args.tel.nW else "event_step"]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.hs_event_step(ctypes.byref(args), stream)

@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 
 from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK, EnsembleModel
+from happysim_tpu_torch.telemetry import MAX_WINDOWS
 
 #: Servers per model: the kernel's per-server register arrays are
 #: instantiated for 1, 2, 4 and 8 servers (kernels/csrc/event_step.cu).
@@ -57,13 +58,33 @@ KERNEL_MAX_PROFILE_GRID = 4096
 #: Fault windows per server (W) and in the shared schedule (W_sh): a loop
 #: over device memory at each arrival at, and pull into, a faulted server.
 KERNEL_MAX_FAULT_WINDOWS = 4096
+#: Telemetry windows: the spec's own bound (telemetry.MAX_WINDOWS); the
+#: window buffers stay in device memory, and an interval split loops over
+#: the windows it spans.
+KERNEL_MAX_WINDOWS = MAX_WINDOWS
+
+#: The telemetry leaves, in the order of the kernel's HsTel arguments:
+#: (nW, nK) sink counts and latency sums, the (nW, nK, 80) histogram,
+#: the (nW, nV) depth and busy integrals and per-server counters, the
+#: (nW, nL) limiter counters and the (nW,) packet losses. Each exists
+#: only where the spec and the model ask for it.
+TEL_LEAVES = (
+    "tel_sink_count", "tel_sink_sum", "tel_sink_hist",
+    "tel_srv_depth_int", "tel_srv_busy_int",
+    "tel_srv_completed", "tel_srv_dropped", "tel_srv_timed_out", "tel_srv_retried",
+    "tel_srv_outage_dropped", "tel_srv_fault_dropped", "tel_srv_fault_retried",
+    "tel_srv_hedged", "tel_srv_hedge_wins", "tel_tr_dropped",
+    "tel_lim_admitted", "tel_lim_dropped", "tel_net_lost",
+)
 
 #: Leaves the kernel reads and writes; the other state leaf (the key) is
 #: not touched. The transit leaves exist only when the model has latency
 #: edges into servers or backoff retries; the chaos leaves after
 #: "tr_dropped" (touched by the chaos instantiation only) only where the
 #: model declares the feature, except the three counters every chaos
-#: model carries (timed out, retried, brownout drops).
+#: model carries (timed out, retried, brownout drops); the telemetry
+#: leaves (touched by the telemetry instantiations only) only with a
+#: spec.
 KERNEL_LEAVES = (
     "t", "src_next", "events",
     "srv_slot_done", "srv_slot_created", "srv_q_created", "srv_q_enq",
@@ -77,13 +98,16 @@ KERNEL_LEAVES = (
     "srv_timed_out", "srv_retried", "srv_outage_dropped",
     "srv_fault_dropped", "srv_fault_retried", "srv_hedged", "srv_hedge_wins",
     "net_lost",
+    *TEL_LEAVES,
 )
 #: Leaves whose entries a block touches only at events (ring pushes and
 #: pulls, transit parks and arrivals, histogram bumps, router and limiter
 #: registers, and every chaos leaf: attempt numbers move with jobs, the
 #: fault registers are read at arrivals and pulls of faulted servers, the
-#: chaos counters are bumped where they count): left out of the bytes
-#: bound, which keeps it a lower bound.
+#: chaos counters are bumped where they count; and every telemetry leaf:
+#: a counter is bumped, and an integral added to, only in the windows
+#: the event's time or interval falls in): left out of the bytes bound,
+#: which keeps it a lower bound.
 SPARSE_LEAVES = (
     "srv_q_created", "srv_q_enq", "sink_hist",
     "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
@@ -93,6 +117,7 @@ SPARSE_LEAVES = (
     "srv_timed_out", "srv_retried", "srv_outage_dropped",
     "srv_fault_dropped", "srv_fault_retried", "srv_hedged", "srv_hedge_wins",
     "net_lost",
+    *TEL_LEAVES,
 )
 
 #: Router policies the kernel runs: all four.
@@ -272,6 +297,7 @@ def check_kernel_bounds(compiled, macro: int) -> None:
             compiled.profile_times.shape[1] if compiled.has_profile.any() else 0,
             KERNEL_MAX_PROFILE_GRID,
         ),
+        ("telemetry windows nW", compiled.nW, KERNEL_MAX_WINDOWS),
     )
     for name, value, bound in bounds:
         if value > bound:
@@ -302,7 +328,10 @@ def shared_const_bytes(compiled) -> int:
 
 def launch_bytes(compiled, macro: int, state: dict) -> int:
     """Bytes one launch over every replica of ``state`` must move: each
-    replica's working set, and the shared profile tables read once."""
+    replica's working set, and the shared profile tables read once. The
+    telemetry buffers count as sparse (an event touches the windows its
+    time or interval falls in, not the buffer), so a telemetry model has
+    the bound of the same model without its spec."""
     R = state["t"].shape[0]
     return R * replica_working_set_bytes(compiled, macro, state) + shared_const_bytes(compiled)
 

@@ -28,7 +28,9 @@ DAGs, shared backends and "done or continue" feedback through a server,
 deadlines with immediate or backoff (jittered) retries, hedged requests,
 brownout windows, stochastic or pinned :class:`FaultSpec` schedules in
 outage or degrade mode, :meth:`EnsembleModel.correlated_outages`, and
-per-crossing packet loss on edges (``connect(..., loss_p=...)``). Every
+per-crossing packet loss on edges (``connect(..., loss_p=...)``). Any
+of them may carry windowed telemetry (``model.telemetry(window_s=...)``,
+:mod:`~happysim_tpu_torch.telemetry`). Every
 other feature of the JAX model API raises :class:`NotImplementedError`
 naming itself and the ROADMAP item that ports it; the port has no second
 engine to fall back to.
@@ -38,6 +40,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
+
+from happysim_tpu_torch.telemetry import DEFAULT_METRICS, TelemetrySpec
 
 SOURCE = "source"
 SERVER = "server"
@@ -57,7 +61,6 @@ LATENCY_KINDS = ("constant", "exponential")
 # Builder features of the JAX package outside this port, each with the
 # ROADMAP item that ports it. Reaching one raises NotImplementedError.
 _UNPORTED = {
-    "telemetry": "windowed telemetry (ROADMAP A.7)",
     "circuit_breaker": "circuit breakers (ROADMAP A.8)",
     "load_shed": "load shedding (ROADMAP A.8)",
     "retry_budget": "retry budgets (ROADMAP A.8)",
@@ -359,6 +362,9 @@ class EnsembleModel:
         self.limiters: list[LimiterSpec] = []
         self.sinks: list[SinkSpec] = []
         self.correlated_faults: Optional[CorrelatedOutages] = None
+        # Windowed telemetry (telemetry.py); None builds the state and the
+        # kernel arguments of a model without it.
+        self.telemetry_spec: Optional[TelemetrySpec] = None
 
     def __getattr__(self, name: str):
         if name in _UNPORTED:
@@ -579,6 +585,24 @@ class EnsembleModel:
         self.sinks.append(SinkSpec())
         return NodeRef(SINK, len(self.sinks) - 1)
 
+    def telemetry(
+        self,
+        window_s: float,
+        metrics: Sequence[str] = DEFAULT_METRICS,
+    ) -> TelemetrySpec:
+        """Enable windowed telemetry (telemetry.py): the event step adds
+        into per-replica ``(n_windows, ...)`` buffers at its accounting
+        sites, which yields per-window throughput, latency percentiles,
+        queue and utilization integrals, drop/retry/loss counts, the
+        cross-replica spread and fault-window occupancy as
+        :attr:`EnsembleResult.timeseries`. ``window_s`` must tile the
+        horizon into 2 to 4096 windows. Telemetry draws no uniform, so
+        the simulation is the same as without it."""
+        spec = TelemetrySpec(window_s=float(window_s), metrics=tuple(metrics))
+        spec.validate(self.horizon_s)
+        self.telemetry_spec = spec
+        return spec
+
     # -- wiring ------------------------------------------------------------
     def connect(
         self,
@@ -670,6 +694,8 @@ class EnsembleModel:
                 raise ValueError(f"source[{i}]: arrival kind {source.arrival!r}")
         if self.correlated_faults is not None:
             self.correlated_faults.validate()
+        if self.telemetry_spec is not None:
+            self.telemetry_spec.validate(self.horizon_s)
         for i, server in enumerate(self.servers):
             if server.downstream is None:
                 raise ValueError(f"server[{i}] has no downstream")
@@ -809,6 +835,8 @@ class EnsembleModel:
             features.append("packet_loss")
         if self.limiters:
             features.append("limiters")
+        if self.telemetry_spec is not None:
+            features.append("telemetry")
         return tuple(features)
 
     @property

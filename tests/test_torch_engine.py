@@ -30,6 +30,7 @@ from happysim_tpu_torch import model as tmodel  # noqa: E402
 from happysim_tpu_torch import run_ensemble as t_run  # noqa: E402
 from happysim_tpu_torch.kernels import support  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
+from test_torch_telemetry_models import TELEMETRY_MODELS  # noqa: E402
 from test_torch_event_step import (  # noqa: E402
     GRAPH_MODELS,
     SLICE_MODELS,
@@ -198,6 +199,67 @@ def test_whole_run_matches_jax_event_scan(case):
     assert got.macro_block == expected.macro_block == 32
 
 
+@pytest.mark.parametrize("name", sorted(TELEMETRY_MODELS))
+def test_telemetry_whole_run_matches_jax_event_scan(name):
+    """Every telemetry model end to end at its default event budget
+    (passed explicitly, which keeps JAX on its event scan), 64 replicas:
+    every whole-run integer total equal, and every integer window series
+    identical to JAX's (test_torch_telemetry.py compares the float
+    series too)."""
+    build = TELEMETRY_MODELS[name]
+    max_events = tengine._default_max_events(build(tmodel), None)
+    assert max_events == jengine._default_max_events(build(jmodel), None)
+    mesh = replica_mesh(jax.devices("cpu")[:1])
+    expected = j_run(build(jmodel), n_replicas=64, seed=3, mesh=mesh, max_events=max_events)
+    got = t_run(build(tmodel), n_replicas=64, seed=3, max_events=max_events, device="cpu")
+    for field in INT_FIELDS + CHAOS_FIELDS:
+        assert getattr(got, field) == getattr(expected, field), field
+    np.testing.assert_array_equal(got.sink_hist, expected.sink_hist)
+    js, ts = expected.timeseries, got.timeseries
+    for field in js._ARRAY_FIELDS:
+        left, right = getattr(ts, field), getattr(js, field)
+        assert (left is None) == (right is None), field
+        if right is not None and np.issubdtype(np.asarray(right).dtype, np.integer):
+            np.testing.assert_array_equal(left, right, err_msg=field)
+    assert got.truncated_replicas == 0
+
+
+@pytest.mark.parametrize("name", ["mm1-all", "chain-queue-util", "chaos-fanout", "bench-chaos"])
+def test_telemetry_models_plan_like_jax(name):
+    """A spec changes no shape; the plan's "chaos" key names "telemetry",
+    as JAX's does."""
+    expected, reason = j_kernel_plan(TELEMETRY_MODELS[name](jmodel))
+    assert reason == ""
+    got = support.kernel_plan(TELEMETRY_MODELS[name](tmodel))
+    assert got == expected and "telemetry" in got["chaos"]
+
+
+def test_kernel_bounds_name_the_window_count(monkeypatch):
+    """The window buffers' bound is the spec's MAX_WINDOWS, checked and
+    named before a launch."""
+    compiled = tengine._Compiled(TELEMETRY_MODELS["mm1-all"](tmodel))
+    support.check_kernel_bounds(compiled, 32)
+    assert support.KERNEL_MAX_WINDOWS == 4096 and compiled.nW == 8
+    monkeypatch.setattr(support, "KERNEL_MAX_WINDOWS", 7)
+    with pytest.raises(ValueError, match=re.escape("telemetry windows nW=8")):
+        support.check_kernel_bounds(compiled, 32)
+
+
+def test_reduce_registry_encodes_every_telemetry_key():
+    """Each tel_ counter is limb-encoded, each integral a fixed-point sum,
+    as in JAX's registry; a key with no encoding raises."""
+    compiled = tengine._Compiled(TELEMETRY_MODELS["chaos-fanout"](tmodel))
+    for key in compiled.tel_keys:
+        assert tengine._is_i64_key(key) == jengine._is_i64_key(key), key
+        assert (key in tengine._F64_SUM_KEYS) == (key in jengine._F64_SUM_KEYS), key
+    assert not tengine._is_i64_key("tel_spread_p10") and not jengine._is_i64_key("tel_spread_p10")
+    params = {"src_rate": torch.full((2, 1), 6.0), "srv_mean": torch.full((2, 4), 0.05)}
+    state = compiled.init_state(tengine.rng.split(tengine.rng.PRNGKey(0), 2), params)
+    compiled.tel_keys |= {"odd_key"}
+    with pytest.raises(ValueError, match="odd_key"):
+        tengine.reduce_final(compiled, dict(state, odd_key=state["events"]))
+
+
 def test_default_event_budget_matches_jax():
     sweep = {"source_rate": np.linspace(4.0, 9.0, 16)}
     for jm, tm, sweeps in (
@@ -252,7 +314,7 @@ def _off_chain_server(m):
 @pytest.mark.parametrize(
     "mutate, feature",
     [
-        (lambda m: m.telemetry(window_s=1.0), "telemetry"),
+        (lambda m: t_run(m, n_replicas=2, resume_from=object(), device="cpu"), "checkpoints"),
         (lambda m: m.circuit_breaker(), "circuit breakers"),
         (lambda m: m.load_shed(), "load shedding"),
         (lambda m: m.retry_budget(), "retry budgets"),

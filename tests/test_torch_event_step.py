@@ -38,6 +38,7 @@ from happysim_tpu_torch.kernels.event_step import (  # noqa: E402
 from happysim_tpu_torch.model import mm1_model as t_mm1  # noqa: E402
 from happysim_tpu_torch.model import pipeline_model as t_pipeline  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
+from test_torch_telemetry_models import TELEMETRY_MODELS  # noqa: E402
 
 FLOAT_RTOL = 1e-5
 # Graph models also allow an absolute float difference of GRAPH_ULPS ulp
@@ -507,6 +508,81 @@ def test_plain_step_matches_pallas_interpret_kernel_on_chaos_models(name):
     assert int(tstate["events"].min()) == 2 * macro
 
 
+@pytest.mark.parametrize("name", sorted(TELEMETRY_MODELS))
+def test_plain_step_matches_lax_block_scan_on_telemetry_models(name):
+    """Block-by-block parity of every telemetry model (each metric group,
+    a metric subset, services spanning many windows, a short last window,
+    a warmup inside a window, faults, routers, the chaos stack, the two
+    benches' models): MACRO=32, 64 replicas, 8 chained blocks, every
+    leaf compared after every block, the tel_* leaves included: integer
+    leaves exactly, float leaves to rel 1e-5 plus GRAPH_ULPS ulp of the
+    horizon (XLA's CPU backend may contract the windowed depth integral's
+    multiply-add, which the torch step rounds twice)."""
+    macro, n = 32, 64
+    jm, tm = TELEMETRY_MODELS[name](jmodel), TELEMETRY_MODELS[name](tmodel)
+    jc, tc = JCompiled(jm), TCompiled(tm)
+    assert tc.n_draws == jc.n_draws and tc.nW == jc.nW
+    assert tc.tel_keys == set(jc.tel_sum_keys) | set(jc.tel_sink_keys)
+    params = _params(jm, n)
+    jstate = _jax_state(jc, params, n, seed=2)
+    keys = jstate.pop("key")
+    tstate = convert.state_from_numpy({k: np.asarray(v) for k, v in jstate.items()})
+    tparams = convert.params_from_numpy(params)
+    run_block = _lax_block(jc, float(jm.horizon_s))
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    for block in range(8):
+        U = _block_u(keys, block, macro, jc.n_draws)
+        jstate = run_block(jstate, U, jparams)
+        plain_block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        _assert_leaves_match(
+            jstate, tstate, f"{name} lax block {block}",
+            atol=GRAPH_ULPS * float(np.spacing(np.float32(jm.horizon_s))),
+        )
+    # The windows saw work: some window counted a completion or a
+    # delivery, or the integrals grew.
+    tel = [k for k in tstate if k.startswith("tel_")]
+    assert tel and any(float(tstate[k].double().sum()) > 0 for k in tel)
+
+
+@pytest.mark.parametrize("name", ["mm1-all", "faulted-chain", "router-faulted"])
+def test_plain_step_matches_pallas_interpret_kernel_on_telemetry_models(name):
+    """build_block_step in interpret mode with the (nW, ...) window
+    buffers riding the tile: MACRO=2, 4 replicas, two chained blocks (the
+    chaos fan-out, 50 s in the interpreter, is held against the lax scan
+    above)."""
+    macro, n = 2, 4
+    jm, tm = TELEMETRY_MODELS[name](jmodel), TELEMETRY_MODELS[name](tmodel)
+    jc, tc = JCompiled(jm), TCompiled(tm)
+    params = _params(jm, n)
+    jstate = _jax_state(jc, params, n, seed=9)
+    keys = jstate.pop("key")
+    tstate = convert.state_from_numpy({k: np.asarray(v) for k, v in jstate.items()})
+    block_fn, _meta = build_block_step(jc, float(jm.horizon_s), macro, n, interpret=True)
+    tparams = convert.params_from_numpy(params)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    for block in range(2):
+        U = _block_u(keys, block, macro, jc.n_draws)
+        jstate = block_fn(jstate, U, jparams)
+        block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        _assert_leaves_match(
+            jstate, tstate, f"{name} pallas block {block}",
+            atol=GRAPH_ULPS * float(np.spacing(np.float32(jm.horizon_s))),
+        )
+    assert int(tstate["events"].min()) == 2 * macro
+
+
+@pytest.mark.parametrize("name", ["mm1-all", "chain-queue-util", "chaos-fanout", "bench-chaos"])
+def test_telemetry_init_state_matches_jax(name):
+    """The tel_* leaves JAX allocates, and only those, zeroed."""
+    jm, tm = TELEMETRY_MODELS[name](jmodel), TELEMETRY_MODELS[name](tmodel)
+    params = _params(jm, 16)
+    expected = _jax_state(JCompiled(jm), params, 16, seed=4)
+    got = TCompiled(tm).init_state(rng.split(rng.PRNGKey(4), 16), convert.params_from_numpy(params))
+    assert set(got) == set(expected)
+    assert {k for k in got if k.startswith("tel_")}
+    _assert_leaves_match(expected, got, "init_state")
+
+
 def test_state_round_trips_through_numpy():
     tm = t_pipeline(8.0, (0.05, 0.08), 5.0)
     compiled = TCompiled(tm)
@@ -558,17 +634,52 @@ def _sink_latency_chain(mod):
         (lambda: mix(tmodel), 1, 0),
         (lambda: CHAOS_MODELS["deadline-mm1"](tmodel), 1, 1),
         (lambda: CHAOS_MODELS["backoff-chain"](tmodel), 1, 1),
+        (lambda: TELEMETRY_MODELS["mm1-all"](tmodel), 1, 0),
+        (lambda: TELEMETRY_MODELS["chaos-line"](tmodel), 1, 1),
     ],
-    ids=["mm1", "pipeline", "sink-latency-chain", "fanout", "mix", "deadline-mm1", "backoff-chain"],
+    ids=[
+        "mm1", "pipeline", "sink-latency-chain", "fanout", "mix", "deadline-mm1",
+        "backoff-chain", "mm1-telemetry", "chaos-telemetry",
+    ],
 )
 def test_line_instantiation_only_for_lines_of_free_edges(build, graph, chaos):
     """The kernel's line code ignores edge latency, so any model with a
     router, a limiter or a latency edge must launch the graph code; so
     does every chaos model, a line of free edges included (its chaos
     instantiation is graph code: backoff retries park in the transit
-    registers)."""
-    args = _static_args(TCompiled(build()))
+    registers), and every telemetry model (the telemetry instantiations
+    are extended graph code, with or without the chaos branches)."""
+    compiled = TCompiled(build())
+    args = _static_args(compiled)
     assert (args.graph, args.chaos) == (graph, chaos)
+    assert args.tel.nW == compiled.nW and args.ext == (1 if compiled.nW else args.ext)
+
+
+def test_launch_args_point_the_telemetry_sub_struct_at_the_window_buffers():
+    """Each tel_* leaf's pointer sits in the HsTel sub-struct; a buffer
+    the model has not got stays null; the grid is JAX's: the float32
+    window width and the float32 reciprocal the compiled step multiplies
+    by. A model without a spec launches with nW = 0."""
+    model = TELEMETRY_MODELS["chaos-line"](tmodel)
+    compiled = TCompiled(model)
+    n, macro = 8, 4
+    params = convert.params_from_numpy(_params(model, n))
+    state = compiled.init_state(rng.split(rng.PRNGKey(3), n), params)
+    U = torch.rand((n, macro, compiled.n_draws))
+    args = launch_args(compiled, state, U, params, torch.empty((n,), dtype=torch.uint8))
+    assert args.tel.nW == compiled.nW == 10
+    assert args.tel.window_s == 2.0 and args.tel.inv_window_s == np.float32(0.5)
+    assert args.tel.completed == state["tel_srv_completed"].data_ptr()
+    assert args.tel.sink_hist == state["tel_sink_hist"].data_ptr()
+    assert args.tel.net_lost == state["tel_net_lost"].data_ptr()
+    assert args.tel.hedged is None  # no hedged server
+    with pytest.raises(ValueError, match="tel_srv_busy_int"):
+        launch_args(
+            compiled, dict(state, tel_srv_busy_int=state["tel_srv_busy_int"][:, :2].contiguous()),
+            U, params, torch.empty((n,), dtype=torch.uint8),
+        )
+    plain = TCompiled(CHAOS_MODELS["backoff-chain"](tmodel))
+    assert _static_args(plain).tel.nW == 0
 
 
 def test_launch_args_check_the_state_once_and_u_every_time():

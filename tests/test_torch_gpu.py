@@ -22,6 +22,7 @@ from happysim_tpu_torch.engine import _Compiled, _resolve_params, run_ensemble  
 from happysim_tpu_torch.kernels import event_step  # noqa: E402
 from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
+from test_torch_telemetry_models import TELEMETRY_MODELS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -225,6 +226,9 @@ MODELS = {
     # the chaos instantiation (deadlines, retries, hedges, brownouts,
     # fault schedules, packet loss)
     **{f"chaos-{name}": (lambda build=build: build(tmodel)) for name, build in CHAOS_MODELS.items()},
+    # the telemetry instantiations (the window buffers, with and without
+    # the chaos branches)
+    **{f"telemetry-{name}": (lambda build=build: build(tmodel)) for name, build in TELEMETRY_MODELS.items()},
 }
 
 
@@ -306,3 +310,30 @@ def test_run_ensemble_on_the_card_matches_the_cpu_run(cuda, build, shape):
         assert getattr(card, field) == getattr(cpu, field), field
     assert int(card.sink_hist.sum()) == int(cpu.sink_hist.sum())
     np.testing.assert_allclose(card.server_mean_wait_s, cpu.server_mean_wait_s, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["mm1-all", "chaos-line", "bench-chaos", "pareto"])
+def test_telemetry_on_the_card_matches_the_cpu_run(cuda, name):
+    """run_ensemble with a telemetry spec on the card, once per block
+    through the telemetry library, against the CPU run: the whole-run
+    totals, every integer window series and the spread equal; and the
+    same model without its spec simulates the same totals."""
+    model = TELEMETRY_MODELS[name](tmodel)
+    before = event_step.block_step.launches
+    card = run_ensemble(model, n_replicas=128, seed=5)
+    launches = event_step.block_step.launches - before
+    cpu = run_ensemble(model, n_replicas=128, seed=5, device="cpu")
+    assert card.engine_path == "scan+cuda" and launches == max(card.block_occupancy)
+    for field in ("simulated_events", "sink_count", "server_completed", "network_lost"):
+        assert getattr(card, field) == getattr(cpu, field), field
+    cs, ps = card.timeseries, cpu.timeseries
+    for field in cs._ARRAY_FIELDS:
+        left, right = getattr(cs, field), getattr(ps, field)
+        assert (left is None) == (right is None), field
+        if right is not None and (np.asarray(right).dtype.kind == "i" or "throughput_p" in field):
+            np.testing.assert_array_equal(left, right, err_msg=field)
+    model.telemetry_spec = None
+    plain = run_ensemble(model, n_replicas=128, seed=5)
+    assert plain.timeseries is None
+    for field in ("simulated_events", "sink_count", "server_completed", "server_dropped"):
+        assert getattr(plain, field) == getattr(card, field), field

@@ -22,7 +22,7 @@ import json, sys
 sys.path.insert(0, {repo!r})
 import happysim_tpu_torch
 import happysim_tpu_torch.engine, happysim_tpu_torch.convert, happysim_tpu_torch.rng
-import happysim_tpu_torch.numerics, happysim_tpu_torch.faults
+import happysim_tpu_torch.numerics, happysim_tpu_torch.faults, happysim_tpu_torch.telemetry
 import happysim_tpu_torch.kernels.event_step, happysim_tpu_torch.kernels.support
 import chip_smoke
 bad = sorted(
