@@ -8,8 +8,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
 2. the build: the event-step kernels compiled with nvcc for sm_90a from
    this checkout's sources, one nvcc per source (the kernel without
-   telemetry, and its telemetry instantiations) started together, with
-   ptxas' register and spill report;
+   telemetry or resilience, its telemetry instantiations and its
+   resilience instantiations) started together, with ptxas' register and
+   spill report;
 3. block checks at full size, 65,536 replicas and macro_block 32: the
    kernel and its plain torch-op version advance identical copies of the
    state through the same uniform block and every leaf is compared, on
@@ -70,7 +71,23 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    - mm1-telemetry: the M/M/1 with every metric group, 64 windows of
      2.5 s, blocks 0-3 and 80;
    - pareto-telemetry: the pareto M/G/1 with the same windows, blocks
-     0-3 and 80.
+     0-3 and 80;
+   - resilience-fanout: tests/unit/test_kernel_event_step.py's
+     _resilience_fanout (the chaos fan-out with 0.5 s windows, a breaker,
+     a queue-depth shed with priorities and a retry budget), blocks 0-3
+     (the whole run: every replica halts within two blocks);
+   - resilience: bench.py's bench_resilience defended arm with its
+     telemetry (the deadline M/M/1 at mu=25 behind a pinned outage over
+     [12, 18) s, 3 retries after a 1 s backoff, a breaker and a budget,
+     16 windows over 40 s, the source swept over linspace(0.45, 0.7, R)
+     x mu), blocks 0-3 and 40 (the run's last live replicas);
+   - storm: test_tpu_resilience.py's defended retry storm, blocks 0-3 and
+     24;
+   - shed-mm1: the M/M/1 (lambda=8, mu=10, horizon 160 s, warmup 40 s)
+     with utilisation shedding at 1.0, blocks 0-3 and 60;
+   - breaker-trip-on-first: the breaker matrix's trip-on-first corner on
+     the faulted telemetry chain with a 0.3 s deadline, blocks 0-3 (the
+     whole run).
    Integer leaves must be equal and float leaves are expected bitwise
    equal; a float difference is printed and must stay within rel 1e-6;
 4. timing: the kernel's (launched with prebuilt arguments), the
@@ -85,8 +102,11 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    service draw's by its family and each profiled source fire's two
    table searches, a transcendental call counted as one operation), and
    the same for the lognormal and pareto M/G/1, the profile graph, and
-   the chaos and deadline models; and the telemetry model with and
-   without its spec, and their ratio;
+   the chaos and deadline models; the telemetry model with and without
+   its spec, and their ratio; and bench_resilience's defended arm (the
+   resilience kernel) against its undefended arm (the chaos+telemetry
+   kernel), and the same model with inert defenses (the resilience kernel
+   on the undefended simulation: the defenses' own cost) against it;
 5. the main path, run_ensemble on cuda at 65,536 replicas through the
    entry point a user calls, with the launch count set to 0 just before
    each run and read just after; each must run through the kernel once
@@ -147,7 +167,21 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      group and 3 s windows: the mean fault occupancy of windows 1-4
      within 2% of the duty cycle 1/6 (the born-up start lowers the closed
      form there by 0.2%; the statistical spread at this replica count is
-     about 0.3%), and the fault drops equal the run without telemetry.
+     about 0.3%), and the fault drops equal the run without telemetry;
+   - resilience: both bench_resilience arms at their bench budget
+     (max_events 8,464): the defended arm's goodput recovery (the last
+     three windows over windows 1-3) at least 0.9 and above the
+     undefended arm's, breaker trips and budget drops above 0, and every
+     windowed counter summing exactly to its whole-run counter; with
+     inert defenses, every whole-run number equal to the undefended
+     arm's and no trip or budget drop;
+   - storm: test_tpu_resilience.py's storm pair: the undefended goodput
+     of the last three windows below 0.1 of the first two, the defended
+     one at least 0.9 of them;
+   - cascade: test_tpu_resilience.py's breaker-protected cascade: trips
+     at server 1 only, its open fraction 0 in the last two windows;
+   - shed-mm1: a mean wait of exactly 0, and the shed share of arrivals
+     within 1% of the Erlang loss probability rho / (1 + rho) = 4/9.
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
@@ -155,7 +189,8 @@ kernel once per shape or extension, every number of an entry from one
 model: mm1, chain, fanout (the router shape), graph, the lognormal M/G/1
 (the family sampler), the profile graph (the profile tables), the
 chaos model (the chaos branches) and the telemetry model (the window
-buffers), the models the main path runs. Every number printed carries the card's name
+buffers) and bench_resilience's defended arm (the defenses), the
+models the main path runs. Every number printed carries the card's name
 and power limit.
 Details, the router and mix models' included, also go to
 chiprun_out/chip_smoke.json.
@@ -208,9 +243,10 @@ TIMED_BLOCKS = 20
 # Kernel times per block of the previous slice's run (NVIDIA H100 80GB
 # HBM3, 700 W), printed beside this run's.
 EARLIER_KERNEL_MS = {
-    "mm1": 0.0856, "chain": 0.2028, "router": 0.3077, "graph": 0.1429,
-    "families": 0.1031, "pareto": 0.0900, "profile": 0.1817,
-    "chaos": 0.8173, "deadline": 0.1474,
+    "mm1": 0.0880, "chain": 0.1998, "router": 0.3072, "graph": 0.1431,
+    "families": 0.1014, "pareto": 0.0894, "profile": 0.1790,
+    "chaos": 0.8246, "deadline": 0.1488, "telemetry": 0.4602,
+    "telemetry-off": 0.1452,
 }
 # bench.py's Pallas benches: horizon and fan-out width.
 BENCH_HORIZON_S = 40.0
@@ -237,7 +273,7 @@ PEAK_RATE = 40.0
 PROFILE_MAX_EVENTS = int(4.0 * PEAK_RATE * BENCH_HORIZON_S) + 64
 ARRIVALS_HORIZON_S = 30.0
 # Kernels-line entries whose main-path run has another name.
-RUN_OF_ENTRY = {"families": "mg1-lognormal"}
+RUN_OF_ENTRY = {"families": "mg1-lognormal", "resilience": "resilience-defended"}
 # bench.py's bench_kernel_chaos: servers, their mu, its budget.
 CHAOS_SERVERS, CHAOS_MU = 4, 10.0
 CHAOS_MAX_EVENTS = int(6.0 * 0.95 * CHAOS_SERVERS * CHAOS_MU * BENCH_HORIZON_S) + 64
@@ -255,6 +291,17 @@ TEL_MAX_EVENTS = int(4.0 * 9.5 * BENCH_HORIZON_S) + 64
 MM1_WINDOW_S = HORIZON_S / TEL_WINDOWS
 # The duty-cycle occupancy gate: windows 1-4 of 3 s against 1/6.
 DUTY_WINDOW_S, DUTY_GATE = 3.0, 0.02
+# bench.py's bench_resilience: mu, windows, the outage over [0.3, 0.45)
+# of the horizon, its budget and its recovery gate (the 0.9 of
+# tests/integration/test_tpu_resilience.py).
+RES_MU, RES_WINDOWS = 25.0, 16
+RES_OUTAGE = (0.3 * BENCH_HORIZON_S, 0.45 * BENCH_HORIZON_S)
+RES_MAX_EVENTS = int(12.0 * 0.7 * RES_MU * BENCH_HORIZON_S) + 64
+RECOVERY_GATE = 0.9
+# test_tpu_resilience.py's storm: mu=50, lambda=32, the outage [2, 4),
+# horizon 12 s, and its budget; and its cascade's budget.
+STORM_MU, STORM_LAM, STORM_HORIZON_S, STORM_MAX_EVENTS = 50.0, 32.0, 12.0, 6144
+CASCADE_MAX_EVENTS = 2048
 
 
 class SmokeFailure(RuntimeError):
@@ -588,6 +635,150 @@ def telemetry_model(windows: int = TEL_WINDOWS) -> EnsembleModel:
     return model
 
 
+def resilience_bench_model(defended: bool) -> EnsembleModel:
+    """bench.py:1084 bench_resilience's model: the deadline M/M/1 at mu=25
+    (queue 512, deadline 0.5 s, 3 retries after a 1 s backoff) behind an
+    outage pinned over [12, 18) s in every replica, transit capacity 64,
+    16 windows of throughput and rates over 40 s; defended, a breaker (5
+    failures in 1 s, cooldown 0.5 s, 2 probes) and a retry budget (0.1
+    per request, 0.5/s, burst 4)."""
+    model = EnsembleModel(horizon_s=BENCH_HORIZON_S, transit_capacity=64, macro_block=MACRO)
+    src = model.source(rate=0.6 * RES_MU)
+    srv = model.server(
+        concurrency=1, service_mean=1.0 / RES_MU, queue_capacity=512, deadline_s=0.5,
+        max_retries=3, retry_backoff_s=1.0, fault=FaultSpec(windows=(RES_OUTAGE,)),
+    )
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    model.telemetry(window_s=BENCH_HORIZON_S / RES_WINDOWS, metrics=("throughput", "rates"))
+    if defended:
+        model.circuit_breaker(failure_threshold=5, window_s=1.0, cooldown_s=0.5, half_open_probes=2)
+        model.retry_budget(ratio=0.1, min_per_s=0.5, burst=4.0)
+    return model
+
+
+def inert_defenses(model: EnsembleModel) -> EnsembleModel:
+    """Install a breaker and a retry budget that can never act on
+    bench_resilience's model: 1,000 failures within 1 ms never happen
+    there, and a bucket born at 1e9 tokens never runs dry. The defenses
+    keep their books, but the simulation is the undefended one, so its
+    kernel time against the undefended arm's is the defenses' own cost."""
+    model.circuit_breaker(failure_threshold=1000, window_s=1e-3, cooldown_s=0.5, half_open_probes=2)
+    model.retry_budget(ratio=0.1, min_per_s=0.5, burst=1e9)
+    return model
+
+
+def storm_model(defended: bool) -> EnsembleModel:
+    """tests/integration/test_tpu_resilience.py:48's storm: the M/M/1 at
+    rho=0.64 (mu=50, lambda=32, queue 512) with a 0.25 s deadline and 3
+    retries after a 0.5 s backoff, an outage pinned over [2, 4), 1 s
+    windows; defended as bench_resilience is."""
+    model = EnsembleModel(horizon_s=STORM_HORIZON_S, transit_capacity=64, macro_block=MACRO)
+    src = model.source(rate=STORM_LAM)
+    srv = model.server(
+        service_mean=1.0 / STORM_MU, queue_capacity=512, deadline_s=0.25, max_retries=3,
+        retry_backoff_s=0.5, fault=FaultSpec(windows=((2.0, 4.0),)),
+    )
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    model.telemetry(window_s=1.0, metrics=("throughput", "rates"))
+    if defended:
+        model.circuit_breaker(failure_threshold=5, window_s=1.0, cooldown_s=0.5, half_open_probes=2)
+        model.retry_budget(ratio=0.1, min_per_s=0.5, burst=4.0)
+    return model
+
+
+def cascade_model() -> EnsembleModel:
+    """test_tpu_resilience.py:191's cascade: source (20/s) -> A -> B ->
+    sink (mu=50, queue 128), B browned out over [3, 4), a breaker of 4
+    failures in 0.5 s, cooldown 0.4 s, 1 probe, 1 s windows over 10 s."""
+    model = EnsembleModel(horizon_s=10.0, macro_block=MACRO)
+    src = model.source(rate=20.0)
+    first = model.server(service_mean=1.0 / STORM_MU, queue_capacity=128)
+    second = model.server(service_mean=1.0 / STORM_MU, queue_capacity=128, outage=(3.0, 4.0))
+    model.connect(src, first)
+    model.connect(first, second)
+    model.connect(second, model.sink())
+    model.telemetry(window_s=1.0, metrics=("throughput", "rates"))
+    model.circuit_breaker(failure_threshold=4, window_s=0.5, cooldown_s=0.4, half_open_probes=1)
+    return model
+
+
+def shed_mm1_model() -> EnsembleModel:
+    """The M/M/1 (lambda=8, mu=10, horizon 160 s, warmup 40 s) with
+    utilisation shedding at 1.0: an arrival that finds the server busy is
+    shed, so no job waits (an M/M/1/1 loss system)."""
+    model = mm1_model(LAM, MU, HORIZON_S, warmup_s=WARMUP_S)
+    model.macro_block = MACRO
+    model.load_shed(policy="utilization", threshold=1.0)
+    return model
+
+
+def resilience_fanout_model() -> EnsembleModel:
+    """tests/unit/test_kernel_event_step.py:161 _resilience_fanout: the
+    chaos fan-out (a limiter, a round-robin over 4 servers with deadline
+    0.6 s and 2 backoff retries with jitter 0.5, hedges on the even
+    servers, correlated faults on the first two, a brownout on the last,
+    lossy even edges, 0.5 s windows over 2 s) with a breaker (2 in 0.5 s,
+    cooldown 0.3 s, 1 probe), a queue-depth shed at 2 exempting a quarter
+    of the traffic and a budget (0.2 per request, 0.5/s, burst 2)."""
+    model = EnsembleModel(horizon_s=2.0, transit_capacity=8, macro_block=MACRO)
+    src = model.source(rate=6.0)
+    lim = model.limiter(refill_rate=8.0, capacity=4.0)
+    servers = [
+        model.server(
+            service_mean=0.05, queue_capacity=8, deadline_s=0.6, max_retries=2,
+            retry_backoff_s=0.05, retry_jitter=0.5,
+            hedge_delay_s=0.15 if index % 2 == 0 else None,
+            fault=FaultSpec(rate=0.4, mean_duration_s=0.3, correlated=True) if index < 2 else None,
+            outage=(0.8, 1.1) if index == 3 else None,
+        )
+        for index in range(4)
+    ]
+    model.correlated_outages(rate=0.3, mean_duration_s=0.3, trigger_p=0.5)
+    router = model.router(policy="round_robin")
+    snk = model.sink()
+    model.connect(src, lim)
+    model.connect(lim, router)
+    edge_mix = [(0.01, "constant"), (0.02, "exponential"), (0.0, "constant")]
+    for index, server in enumerate(servers):
+        latency_s, kind = edge_mix[index % len(edge_mix)]
+        model.connect(
+            router, server, latency_s=latency_s, latency_kind=kind,
+            loss_p=0.05 if index % 2 == 0 else 0.0,
+        )
+        model.connect(server, snk)
+    model.telemetry(window_s=0.5)
+    model.circuit_breaker(failure_threshold=2, window_s=0.5, cooldown_s=0.3, half_open_probes=1)
+    model.load_shed(policy="queue_depth", threshold=2, priority_fraction=0.25)
+    model.retry_budget(ratio=0.2, min_per_s=0.5, burst=2.0)
+    return model
+
+
+def breaker_corner_model() -> EnsembleModel:
+    """test_kernel_event_step.py:344's breaker matrix, its trip-on-first
+    corner (threshold 1, window 0.2 s, cooldown 0.2 s, 1 probe), on the
+    faulted telemetry chain (a 20 ms exponential edge into a server with
+    outage faults and a 0.3 s deadline, a 10 ms edge into an erlang-2
+    server with degrade faults, 0.5 s windows over 2 s)."""
+    model = EnsembleModel(horizon_s=2.0, macro_block=MACRO)
+    src = model.source(rate=4.0)
+    first = model.server(
+        service_mean=0.05, queue_capacity=8, deadline_s=0.3,
+        fault=FaultSpec(rate=0.8, mean_duration_s=0.2),
+    )
+    second = model.server(
+        service_mean=0.07, queue_capacity=8, service="erlang",
+        fault=FaultSpec(rate=0.5, mean_duration_s=0.3, mode="degrade", latency_factor=2.0),
+    )
+    model.connect(src, first, latency_s=0.02, latency_kind="exponential")
+    model.connect(first, second, latency_s=0.01)
+    model.connect(second, model.sink())
+    model.telemetry(window_s=0.5)
+    model.circuit_breaker(failure_threshold=1, window_s=0.2, cooldown_s=0.2, half_open_probes=1)
+    return model
+
+
 def with_telemetry(model: EnsembleModel, window_s: float, **kw) -> EnsembleModel:
     model.telemetry(window_s=window_s, **kw)
     return model
@@ -614,6 +805,10 @@ CHAOS_SWEEPS = {
 }
 HETERO_SWEEPS = {
     "source_rate": np.linspace(0.1 * HETERO_MU, 0.95 * HETERO_MU, REPLICAS).astype(np.float32)
+}
+# bench_resilience's sweep, confined to the metastable band.
+RES_SWEEPS = {
+    "source_rate": np.linspace(0.45 * RES_MU, 0.7 * RES_MU, REPLICAS).astype(np.float32)
 }
 
 
@@ -840,6 +1035,11 @@ def report(result, launches: int) -> dict:
         "server_hedged": result.server_hedged,
         "server_hedge_wins": result.server_hedge_wins,
         "network_lost": result.network_lost,
+        "server_breaker_dropped": result.server_breaker_dropped,
+        "breaker_tripped": result.breaker_tripped,
+        "breaker_open_fraction": result.breaker_open_fraction,
+        "server_shed_dropped": result.server_shed_dropped,
+        "server_budget_dropped": result.server_budget_dropped,
         "launches": launches,
     }
 
@@ -929,11 +1129,14 @@ def partition_check(label: str, result, pairs) -> None:
     for series, whole in pairs:
         got, want = getattr(ts, series).sum(axis=0).tolist(), getattr(result, whole)
         require(got == want, f"{label}: {series} sums to {got}, whole run {want}")
-    require(np.array_equal(ts.sink_hist.sum(axis=0), result.sink_hist), f"{label}: sink_hist")
-    print(f"  {label}: {len(pairs) + 1} counter families partition exactly over {ts.n_windows} windows")
+    families = len(pairs)
+    if ts.sink_hist is not None:
+        require(np.array_equal(ts.sink_hist.sum(axis=0), result.sink_hist), f"{label}: sink_hist")
+        families += 1
+    print(f"  {label}: {families} counter families partition exactly over {ts.n_windows} windows")
 
 
-def same_simulation(label: str, a, b) -> None:
+def same_simulation(label: str, a, b, other: str = "without telemetry") -> None:
     """Every whole-run number of two runs of one model equal."""
     for field in (
         "simulated_events", "sink_count", "sink_mean_latency_s", "server_completed",
@@ -942,9 +1145,9 @@ def same_simulation(label: str, a, b) -> None:
         "limiter_admitted", "limiter_dropped", "transit_dropped", "server_mean_wait_s",
         "server_utilization", "server_mean_queue_len",
     ):
-        require(getattr(a, field) == getattr(b, field), f"{label}: {field} differs with telemetry")
-    require(np.array_equal(a.sink_hist, b.sink_hist), f"{label}: sink_hist differs with telemetry")
-    print(f"  {label}: every whole-run number equals the run without telemetry")
+        require(getattr(a, field) == getattr(b, field), f"{label}: {field} differs from the run {other}")
+    require(np.array_equal(a.sink_hist, b.sink_hist), f"{label}: sink_hist differs from the run {other}")
+    print(f"  {label}: every whole-run number equals the run {other}")
 
 
 def telemetry_main_path(tag: str, earlier: dict) -> dict:
@@ -1032,6 +1235,96 @@ def telemetry_main_path(tag: str, earlier: dict) -> dict:
     return runs
 
 
+def goodput_windows(result) -> np.ndarray:
+    return result.timeseries.sink_count[:, 0].astype(np.float64)
+
+
+def resilience_main_path(tag: str) -> dict:
+    """The resilience runs of the main path and their gates."""
+    runs = {}
+    ratios = {}
+    for arm in ("undefended", "defended"):
+        result, launches = main_path_run(
+            f"resilience-{arm}", resilience_bench_model(arm == "defended"), tag, "mm1",
+            RES_SWEEPS, RES_MAX_EVENTS,
+        )
+        windows = goodput_windows(result)
+        first_dark = int(RES_OUTAGE[0] / (BENCH_HORIZON_S / RES_WINDOWS))
+        ratios[arm] = float(windows[-3:].mean() / windows[1:first_dark].mean())
+        print(
+            f"  resilience-{arm}: goodput recovery {ratios[arm]:.4f} (last three windows over "
+            f"windows 1-{first_dark - 1}), trips {result.breaker_tripped}, breaker drops "
+            f"{result.server_breaker_dropped}, budget drops {result.server_budget_dropped}, "
+            f"open fraction {result.breaker_open_fraction}"
+        )
+        runs[f"resilience-{arm}"] = (result, launches)
+    defended = runs["resilience-defended"][0]
+    require(ratios["defended"] >= RECOVERY_GATE, f"resilience: defended recovery {ratios['defended']}")
+    require(ratios["defended"] > ratios["undefended"], "resilience: the defenses bought no goodput")
+    require(sum(defended.breaker_tripped) > 0 and sum(defended.server_budget_dropped) > 0,
+            "resilience: a defense never fired")
+    for arm in ("undefended", "defended"):
+        families = [
+            ("sink_count", "sink_count"), ("server_completed", "server_completed"),
+            ("server_dropped", "server_dropped"), ("server_timed_out", "server_timed_out"),
+            ("server_retried", "server_retried"), ("server_fault_dropped", "server_fault_dropped"),
+            ("server_fault_retried", "server_fault_retried"), ("transit_dropped", "transit_dropped"),
+        ]
+        if arm == "defended":
+            families += [
+                ("server_breaker_dropped", "server_breaker_dropped"),
+                ("breaker_tripped", "breaker_tripped"),
+                ("server_budget_dropped", "server_budget_dropped"),
+            ]
+        partition_check(f"resilience-{arm}", runs[f"resilience-{arm}"][0], families)
+    result, launches = main_path_run(
+        "resilience-inert", inert_defenses(resilience_bench_model(False)), tag, "mm1",
+        RES_SWEEPS, RES_MAX_EVENTS,
+    )
+    same_simulation("resilience-inert", result, runs["resilience-undefended"][0], "without defenses")
+    require(sum(result.breaker_tripped) == 0 and sum(result.server_budget_dropped) == 0,
+            "resilience-inert: an inert defense acted")
+    runs["resilience-inert"] = (result, launches)
+    ts = defended.timeseries
+    windowed = float((ts.breaker_open_fraction[:, 0] * ts.window_len_s).sum() / BENCH_HORIZON_S)
+    print(f"  resilience-defended open fraction {defended.breaker_open_fraction[0]:.8f}, windowed "
+          f"{windowed:.8f}")
+    require(abs(windowed / defended.breaker_open_fraction[0] - 1) <= 1e-5,
+            "resilience: the windowed open time misses the whole-run one")
+
+    for arm in ("undefended", "defended"):
+        result, launches = main_path_run(
+            f"storm-{arm}", storm_model(arm == "defended"), tag, "mm1", max_events=STORM_MAX_EVENTS
+        )
+        windows = goodput_windows(result)
+        ratio = float(windows[-3:].mean() / windows[:2].mean())
+        print(f"  storm-{arm}: post / pre-outage goodput {ratio:.4f}")
+        if arm == "undefended":
+            require(ratio < 0.1, f"storm: the undefended storm recovered ({ratio})")
+        else:
+            require(ratio >= RECOVERY_GATE, f"storm: the defended storm did not recover ({ratio})")
+        runs[f"storm-{arm}"] = (result, launches)
+
+    result, launches = main_path_run(
+        "cascade", cascade_model(), tag, "chain", max_events=CASCADE_MAX_EVENTS
+    )
+    open_frac = result.timeseries.breaker_open_fraction[:, 1]
+    print(f"  cascade: trips {result.breaker_tripped}, open fraction of server 1 by window "
+          f"{np.round(open_frac, 4).tolist()}")
+    require(result.breaker_tripped[0] == 0 and result.breaker_tripped[1] > 0, "cascade: trips")
+    require(open_frac[-1] == 0.0 and open_frac[-2] == 0.0, "cascade: the breaker stayed open")
+    runs["cascade"] = (result, launches)
+
+    result, launches = main_path_run("shed-mm1", shed_mm1_model(), tag, "mm1")
+    shed, started = result.server_shed_dropped[0], result.server_completed[0]
+    print(f"  shed-mm1: mean wait {result.server_mean_wait_s[0]!r}, {shed} shed")
+    require(result.server_mean_wait_s[0] == 0.0, "shed-mm1: a job waited")
+    rho = LAM / MU
+    within(shed / (shed + started), rho / (1 + rho), "shed-mm1 shed share (Erlang loss)", 0.01, unit="")
+    runs["shed-mm1"] = (result, launches)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1114,6 +1407,20 @@ def main() -> int:
             "pareto-telemetry", with_telemetry(mg1_model("pareto"), MM1_WINDOW_S), [0, 1, 2, 3, 80]
         ),
     })
+    # The resilience instantiations: bench_resilience's defended arm on the
+    # main path, and the defenses on the chaos fan-out, the storm, the
+    # utilisation-shed M/M/1 and the breaker matrix's tightest corner.
+    max_abs["resilience"] = check_blocks(
+        "resilience", resilience_bench_model(True), [0, 1, 2, 3, 40], RES_SWEEPS
+    )
+    extra_abs.update({
+        "resilience-fanout": check_blocks("resilience-fanout", resilience_fanout_model(), [0, 1, 2, 3]),
+        "storm": check_blocks("storm", storm_model(True), [0, 1, 2, 3, 24]),
+        "shed-mm1": check_blocks("shed-mm1", shed_mm1_model(), [0, 1, 2, 3, 60]),
+        "breaker-trip-on-first": check_blocks(
+            "breaker-trip-on-first", breaker_corner_model(), [0, 1, 2, 3]
+        ),
+    })
 
     timings = {
         "mm1": time_blocks(mm1, "mm1"),
@@ -1128,6 +1435,13 @@ def main() -> int:
         "deadline": time_blocks(hetero_model(), "deadline", HETERO_SWEEPS),
         "telemetry": time_blocks(telemetry_model(), "telemetry", HETERO_SWEEPS),
         "telemetry-off": time_blocks(telemetry_model(0), "telemetry without its spec", HETERO_SWEEPS),
+        "resilience": time_blocks(resilience_bench_model(True), "resilience defended", RES_SWEEPS),
+        "resilience-off": time_blocks(
+            resilience_bench_model(False), "resilience undefended", RES_SWEEPS
+        ),
+        "resilience-inert": time_blocks(
+            inert_defenses(resilience_bench_model(False)), "resilience inert", RES_SWEEPS
+        ),
     }
     for shape, t in timings.items():
         earlier = ""
@@ -1147,6 +1461,20 @@ def main() -> int:
         f"{on['kernel_ms'] / off['kernel_ms']:.3f}x, through the wrapper "
         f"{on['wrapper_ms'] / off['wrapper_ms']:.3f}x, plain {on['plain_ms'] / off['plain_ms']:.3f}x, "
         f"draw {on['draw_ms'] / off['draw_ms']:.3f}x {tag}"
+    )
+    on, off = timings["resilience"], timings["resilience-off"]
+    print(
+        "timing bench_resilience defended / undefended (resilience kernel against the "
+        f"chaos+telemetry kernel): kernel {on['kernel_ms'] / off['kernel_ms']:.3f}x, through the "
+        f"wrapper {on['wrapper_ms'] / off['wrapper_ms']:.3f}x, plain "
+        f"{on['plain_ms'] / off['plain_ms']:.3f}x, draw {on['draw_ms'] / off['draw_ms']:.3f}x {tag}"
+    )
+    on = timings["resilience-inert"]
+    print(
+        "timing bench_resilience with inert defenses / undefended (the same simulation: the "
+        f"defenses' own cost): kernel {on['kernel_ms'] / off['kernel_ms']:.3f}x, through the "
+        f"wrapper {on['wrapper_ms'] / off['wrapper_ms']:.3f}x, plain "
+        f"{on['plain_ms'] / off['plain_ms']:.3f}x {tag}"
     )
 
     # The main path, through the entry point a user calls.
@@ -1190,6 +1518,7 @@ def main() -> int:
     require(abs(low - 180) <= 3 and abs(high - 180) <= 3, f"ramp-constant counts {low}..{high}")
     runs.update(chaos_main_path(tag))
     runs.update(telemetry_main_path(tag, runs))
+    runs.update(resilience_main_path(tag))
 
     print(f"library_ms: {LIBRARY_NOTE}")
     kernels = {
@@ -1207,7 +1536,10 @@ def main() -> int:
                 "bound_by": timings[shape]["bound_by"],
                 "library_ms": None,
             }
-            for shape in ("mm1", "chain", "router", "graph", "families", "profile", "chaos", "telemetry")
+            for shape in (
+                "mm1", "chain", "router", "graph", "families", "profile", "chaos", "telemetry",
+                "resilience",
+            )
         ]
     }
     out_dir = Path("chiprun_out")

@@ -42,8 +42,10 @@ concurrency and queue capacity, zero-latency or latency-carrying edges,
 warmup), with the chaos stack on any of them: deadlines with immediate
 or backoff (jittered) retries, hedged requests, brownout windows,
 stochastic or pinned ``FaultSpec`` schedules (outage or degrade mode),
-correlated outages and packet loss on edges, and windowed telemetry
-(``model.telemetry(...)``, ``result.timeseries``) on any of them. Every
+correlated outages and packet loss on edges, the defenses against it
+(``model.circuit_breaker(...)``, ``load_shed(...)``, ``retry_budget(...)``)
+and windowed telemetry (``model.telemetry(...)``, ``result.timeseries``)
+on any of them. Every
 other feature of the JAX package raises ``NotImplementedError`` naming itself and its ROADMAP
 item. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.

@@ -104,19 +104,23 @@ _I64_COUNTER_KEYS = frozenset({
     "srv_fault_dropped", "srv_fault_retried", "srv_hedged", "srv_hedge_wins",
     "lim_admitted", "lim_dropped",
     "tr_dropped", "net_lost",
+    "srv_breaker_dropped", "brk_tripped",
+    "srv_shed_dropped", "srv_budget_dropped",
     "blocks_total",
 })
 # Telemetry reduce keys that are float integrals, sums or percentiles;
 # every other tel_ key is an int counter and limb-encodes.
 _TEL_FLOAT_KEYS = frozenset({
     "tel_sink_sum", "tel_srv_depth_int", "tel_srv_busy_int",
-    "tel_fault_int", "tel_spread_p10", "tel_spread_p90",
+    "tel_fault_int", "tel_brk_open_int", "tel_spread_p10", "tel_spread_p90",
 })
 # Fixed-point sums (the spread percentiles are plain floats, not sums).
 _F64_SUM_KEYS = frozenset({
     "sink_sum", "sink_sq",
     "srv_busy_int", "srv_depth_int", "srv_wait_sum",
+    "brk_open_time",
     "tel_sink_sum", "tel_srv_depth_int", "tel_srv_busy_int", "tel_fault_int",
+    "tel_brk_open_int",
 })
 
 
@@ -201,6 +205,18 @@ class EnsembleResult:
     server_hedge_wins: list[int] = dataclasses_field(default_factory=list)
     # crossings lost on lossy edges (whole model)
     network_lost: int = 0
+    # resilience accounting, per server (zeros unless the model installs
+    # the spec): arrivals rejected by an open (or probe-exhausted
+    # half-open) breaker, breaker trips, the fraction of replicas x
+    # horizon each breaker spent open (not masked by the warmup),
+    # arrivals shed, and retry or hedge launches the budget suppressed
+    server_breaker_dropped: list[int] = dataclasses_field(default_factory=list)
+    breaker_tripped: list[int] = dataclasses_field(default_factory=list)
+    breaker_open_fraction: list[float] = dataclasses_field(default_factory=list)
+    server_shed_dropped: list[int] = dataclasses_field(default_factory=list)
+    server_budget_dropped: list[int] = dataclasses_field(default_factory=list)
+    # the defenses the model declared (EnsembleModel.resilience_features)
+    resilience_features: tuple = ()
     # seconds spent building and loading the kernel library in this call,
     # kept out of wall_seconds
     compile_seconds: float = 0.0
@@ -253,6 +269,18 @@ class EnsembleResult:
                 (padded - self.n_replicas) / padded if padded else 0.0
             ),
             "telemetry_windows": self.timeseries.n_windows if self.timeseries else 0,
+            # Each defense on or off, and its totals, so a run that had no
+            # defenses reads apart from one whose defenses never fired.
+            "resilience": {
+                "circuit_breaker": "circuit_breaker" in self.resilience_features,
+                "load_shed": "load_shed" in self.resilience_features,
+                "retry_budget": "retry_budget" in self.resilience_features,
+                "breaker_tripped_total": sum(self.breaker_tripped),
+                "breaker_dropped_total": sum(self.server_breaker_dropped),
+                "shed_dropped_total": sum(self.server_shed_dropped),
+                "budget_dropped_total": sum(self.server_budget_dropped),
+                "breaker_open_fraction": list(self.breaker_open_fraction),
+            },
         }
 
 
@@ -383,10 +411,30 @@ class _Compiled:
         # Attempt numbers ride with jobs whenever a budget consumes them.
         self.has_attempts = self.has_deadlines or self.has_fault_retries
         self.has_loss = any(e.loss_p > 0.0 for e in model.iter_edges())
-        # Any of the above runs the kernel's chaos instantiation.
+        # The resilience layer: per-(replica, server) leaves and gates at
+        # the accounting sites above, each only where its spec is.
+        self.breaker = model.circuit_breaker_spec
+        self.shed = model.load_shed_spec
+        self.budget = model.retry_budget_spec
+        self.has_breaker = self.breaker is not None
+        self.has_shed = self.shed is not None
+        self.has_budget = self.budget is not None
+        self.has_resilience = self.has_breaker or self.has_shed or self.has_budget
+        # The sliding-window failure ring's width: one slot per counted
+        # failure.
+        self.brk_F = self.breaker.failure_threshold if self.has_breaker else 0
+        if self.has_shed and self.shed.policy == "utilization":
+            # Busy slots at or past threshold x concurrency shed; the
+            # product is float32, as the JAX engine forms it on the host.
+            self.shed_busy_thr = self.shed.threshold * self.srv_concurrency.astype(np.float32)
+        else:
+            self.shed_busy_thr = np.zeros((self.nV,), np.float32)
+        # Any of the above runs the kernel's chaos instantiation (the
+        # resilience defenses with their leaves and gates added).
         self.has_chaos = (
             self.has_deadlines or self.has_outages or self.has_faults
             or self.has_backoff or self.has_hedge or self.has_loss
+            or self.has_resilience
         )
 
         self.arrival_is_poisson = np.array(
@@ -434,8 +482,8 @@ class _Compiled:
         ``tel_*`` leaf and every site exists only when the model carries
         a spec, so a model without one builds the state and the kernel
         arguments it built before. The counter keys are those of the
-        features the port runs; the resilience, consensus and trace
-        counters come with ROADMAP A.8, A.11 and A.12."""
+        features the port runs, in JAX's order; the consensus and trace
+        counters come with ROADMAP A.11 and A.12."""
         self.telemetry = model.telemetry_spec
         self.has_telemetry = self.telemetry is not None
         # Every tel_* leaf the model has.
@@ -487,6 +535,14 @@ class _Compiled:
                 keys.append("tel_tr_dropped")
             if self.has_loss:
                 keys.append("tel_net_lost")
+            # The defenses' drop counters, and the breaker's open time
+            # booked at trip time across the windows the interval spans.
+            if self.has_breaker:
+                keys += ["tel_srv_breaker_dropped", "tel_brk_tripped", "tel_brk_open_int"]
+            if self.has_shed:
+                keys.append("tel_srv_shed_dropped")
+            if self.has_budget:
+                keys.append("tel_srv_budget_dropped")
         self.tel_keys = frozenset(keys)
 
     def _tel_init_state(self, R: int, dev) -> dict:
@@ -657,9 +713,11 @@ class _Compiled:
         edge), two service windows (a delivery arrival and a completion's
         queue pull can both sample service in one step), two more for
         the hedges' second samples on those two start paths (any hedged
-        server), the packet-loss Bernoulli (any lossy edge), then the
-        backoff jitter (any jittered server). An M/M/1 has 3 draws per
-        step. The order is the RNG stream layout."""
+        server), the packet-loss Bernoulli (any lossy edge), the backoff
+        jitter (any jittered server), then the load shed's priority
+        Bernoulli (a shed with priority_fraction > 0, so a shed without
+        priorities keeps the stream). An M/M/1 has 3 draws per step. The
+        order is the RNG stream layout."""
         slot = 0
         self.U_GAP: Optional[int] = None
         if self.arrival_is_poisson.any():
@@ -694,6 +752,10 @@ class _Compiled:
         self.U_JIT: Optional[int] = None
         if self.has_jitter:
             self.U_JIT = slot
+            slot += 1
+        self.U_SHED: Optional[int] = None
+        if self.has_shed and self.shed.priority_fraction > 0.0:
+            self.U_SHED = slot
             slot += 1
         self.n_draws = max(slot, 1)
 
@@ -798,6 +860,28 @@ class _Compiled:
         if self.has_hedge:
             state["srv_hedged"] = torch.zeros((R, nV), dtype=i32, device=dev)
             state["srv_hedge_wins"] = torch.zeros((R, nV), dtype=i32, device=dev)
+        if self.has_breaker:
+            # State (0 closed, 1 open, 2 half-open), the exact sliding
+            # window's ring of failure times (-inf: an empty slot) and its
+            # cursor, the last trip time, the half-open probes admitted,
+            # and the trip, open-time and drop ledgers.
+            state["brk_state"] = torch.zeros((R, nV), dtype=i32, device=dev)
+            state["brk_fail_t"] = torch.full((R, nV, self.brk_F), -INF, dtype=f32, device=dev)
+            state["brk_fail_idx"] = torch.zeros((R, nV), dtype=i32, device=dev)
+            state["brk_open_t"] = torch.zeros((R, nV), dtype=f32, device=dev)
+            state["brk_probes"] = torch.zeros((R, nV), dtype=i32, device=dev)
+            state["brk_tripped"] = torch.zeros((R, nV), dtype=i32, device=dev)
+            state["brk_open_time"] = torch.zeros((R, nV), dtype=f32, device=dev)
+            state["srv_breaker_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
+        if self.has_shed:
+            state["srv_shed_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
+        if self.has_budget:
+            # The token bucket is born full.
+            state["bud_tokens"] = torch.full(
+                (R, nV), float(np.float32(self.budget.burst)), dtype=f32, device=dev
+            )
+            state["bud_last"] = torch.zeros((R, nV), dtype=f32, device=dev)
+            state["srv_budget_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
         if self.has_loss:
             state["net_lost"] = torch.zeros((R,), dtype=i32, device=dev)
         if self.has_telemetry:
@@ -907,14 +991,19 @@ class _Compiled:
         )
         return (u[:, self.U_LOSS] < p) & (t >= start) & (t < end)
 
-    def _backoff_delay(self, u, attempt, v: int):
-        """Server ``v``'s retry delay: backoff * 2^attempt * (1 + jitter
-        * (u - 0.5)), u the U_JIT draw (0.5 without jitter anywhere), so
-        the mean is backoff * 2^attempt whatever the jitter."""
+    def _backoff_arrival(self, u, attempt, v: int, t):
+        """When server ``v``'s retry re-arrives: ``t + backoff * 2^attempt
+        * (1 + jitter * (u - 0.5))``, u the U_JIT draw (0.5 without jitter
+        anywhere), so the mean delay is backoff * 2^attempt whatever the
+        jitter. Rounded as the compiled JAX step rounds it: XLA's CPU
+        backend contracts both ``1 + jitter * (u - 0.5)`` and ``t + delay
+        * spread`` into multiply-adds (ROADMAP C)."""
         dev = attempt.device
-        u_jit = u[:, self.U_JIT] if self.U_JIT is not None else _f32(0.5, dev)
-        spread = 1.0 + _f32(self.srv_jitter[v], dev) * (u_jit - 0.5)
-        return _f32(self.srv_backoff[v], dev) * torch.exp2(attempt.to(torch.float32)) * spread
+        u_jit = u[:, self.U_JIT] if self.U_JIT is not None else _f32(0.5, dev).expand_as(t)
+        one = _f32(1.0, dev).expand_as(t)
+        spread = fma_f32(_f32(self.srv_jitter[v], dev).expand_as(t), u_jit - 0.5, one)
+        scale = _f32(self.srv_backoff[v], dev) * torch.exp2(attempt.to(torch.float32))
+        return fma_f32(scale, spread, t)
 
     def _degrade_factor(self, v: int, dark) -> Optional[torch.Tensor]:
         """The service multiplier of a degraded server ``v`` (its latency
@@ -924,16 +1013,109 @@ class _Compiled:
         one = _f32(1.0, dark.device)
         return torch.where(dark, _f32(self.faults.lat_factor[v], dark.device), one)
 
-    def _hedge(self, service, second, v: int):
+    def _hedge(self, service, second, v: int, allowed=None):
         """A hedge on server ``v``: a second attempt launches when the
-        first runs past the hedge delay h; the slot is held for
-        min(S1, h + S2), and the hedge wins when h + S2 < S1 strictly.
-        Returns (service, hedged, won)."""
+        first runs past the hedge delay h (and, with a retry budget, a
+        token is there: ``allowed``); the slot is held for min(S1, h +
+        S2), and the hedge wins when h + S2 < S1 strictly. Returns
+        (service, hedged, won, would): ``would`` ignores the budget."""
         h = _f32(self.srv_hedge[v], service.device)
-        hedged = service > h
+        would = service > h
+        hedged = would if allowed is None else would & allowed
         raced = h + second
         won = hedged & (raced < service)
-        return torch.where(hedged, torch.minimum(service, raced), service), hedged, won
+        return torch.where(hedged, torch.minimum(service, raced), service), hedged, won, would
+
+    # -- resilience helpers ----------------------------------------------------
+    # JAX's _breaker_* and _budget_* helpers, written for server v and the
+    # lanes a site selects (JAX masks by the server's one-hot row).
+    def _breaker_effective(self, state, lanes, v: int, t) -> torch.Tensor:
+        """Server ``v``'s breaker state as consulted at ``t``: an open
+        breaker whose cooldown has run out reads as half-open with a fresh
+        probe quota, written back for ``lanes`` (no timer event needed).
+        Returns the ``(R,)`` effective state."""
+        bst = state["brk_state"][:, v]
+        cooldown = _f32(self.breaker.cooldown_s, t.device)
+        cooled = (bst == 1) & (t >= state["brk_open_t"][:, v] + cooldown)
+        write = lanes & cooled
+        state["brk_probes"][:, v] = torch.where(write, 0, state["brk_probes"][:, v])
+        effective = torch.where(cooled, 2, bst)
+        state["brk_state"][:, v] = torch.where(write, effective, bst)
+        return effective
+
+    def _breaker_record_failure(self, state, v: int, t, failure, bst) -> None:
+        """Book the ``failure`` lanes against server ``v``'s breaker, in
+        effective state ``bst``: a closed breaker writes the failure time
+        at the ring's cursor and trips when the oldest of the F most
+        recent failures lies within ``window_s`` (an exact sliding
+        window; an empty slot is -inf and never trips); a half-open one
+        re-trips at once. A trip resets the ring and books its open
+        interval ``min(cooldown, max(horizon - t, 0))`` at once, whole
+        and across the telemetry windows it spans: the breaker leaves
+        the open state by its cooldown alone."""
+        dev = t.device
+        F = self.brk_F
+        idx = state["brk_fail_idx"][:, v]
+        record = failure & (bst == 0)
+        ring = state["brk_fail_t"][:, v, :]
+        _set_at(ring, idx, record, t)
+        cursor = torch.remainder(idx + 1, F)
+        oldest = ring.gather(1, cursor.long()[:, None])[:, 0]
+        window = _f32(self.breaker.window_s, dev)
+        trip = (record & (oldest > t - window)) | (failure & (bst == 2))
+        open_len = torch.minimum(
+            _f32(self.breaker.cooldown_s, dev), torch.clamp_min(_f32(self.horizon, dev) - t, 0.0)
+        )
+        ring.copy_(torch.where(trip[:, None], torch.full_like(ring, -INF), ring))
+        state["brk_fail_idx"][:, v] = torch.where(trip, 0, torch.where(record, cursor, idx))
+        state["brk_state"][:, v] = torch.where(trip, 1, state["brk_state"][:, v])
+        state["brk_open_t"][:, v] = torch.where(trip, t, state["brk_open_t"][:, v])
+        state["brk_probes"][:, v] = torch.where(trip, 0, state["brk_probes"][:, v])
+        state["brk_tripped"][:, v] += trip.to(torch.int32)
+        open_time = state["brk_open_time"][:, v]
+        state["brk_open_time"][:, v] = torch.where(trip, open_time + open_len, open_time)
+        self._tel_count(state, "tel_brk_tripped", t, v, trip)
+        self._tel_integral(state, "tel_brk_open_int", v, t, t + open_len, trip)
+
+    def _breaker_close_on_success(self, state, v: int, success, bst) -> None:
+        """A half-open breaker that has admitted a probe closes on a
+        ``success`` lane (ring, cursor and probes reset); a success in
+        any other state changes nothing."""
+        close = success & (bst == 2) & (state["brk_probes"][:, v] > 0)
+        state["brk_state"][:, v] = torch.where(close, 0, state["brk_state"][:, v])
+        ring = state["brk_fail_t"][:, v, :]
+        ring.copy_(torch.where(close[:, None], torch.full_like(ring, -INF), ring))
+        state["brk_fail_idx"][:, v] = torch.where(close, 0, state["brk_fail_idx"][:, v])
+        state["brk_probes"][:, v] = torch.where(close, 0, state["brk_probes"][:, v])
+
+    def _budget_refresh(self, state, lanes, v: int, t, credit) -> torch.Tensor:
+        """Refill server ``v``'s retry-budget bucket for ``lanes`` at ``t``:
+        ``min(tokens + (t - last) * min_per_s + credit, burst)``, the
+        first multiply-add rounded once as XLA's CPU backend contracts it
+        in the JAX step (ROADMAP C); ``credit`` is ``ratio`` on a first
+        attempt's arrival, else 0. Returns the ``(R,)`` tokens."""
+        dev = t.device
+        tokens = state["bud_tokens"][:, v]
+        last = state["bud_last"][:, v]
+        rate = _f32(self.budget.min_per_s, dev).expand_as(t)
+        refilled = torch.minimum(
+            fma_f32(t - last, rate, tokens) + credit, _f32(self.budget.burst, dev)
+        )
+        state["bud_tokens"][:, v] = torch.where(lanes, refilled, tokens)
+        state["bud_last"][:, v] = torch.where(lanes, t, last)
+        return refilled
+
+    def _budget_debit(self, state, v: int, launched) -> None:
+        """One token per launch that really happens (a retry bounced by
+        full transit registers or a full queue is a drop, not a launch)."""
+        tokens = state["bud_tokens"][:, v]
+        state["bud_tokens"][:, v] = torch.where(launched, tokens - 1.0, tokens)
+
+    def _book_budget_dropped(self, state, v: int, t, suppressed) -> None:
+        """The one booking of a launch the budget suppressed, shared by
+        the four launch sites."""
+        state["srv_budget_dropped"][:, v] += suppressed.to(torch.int32)
+        self._tel_count(state, "tel_srv_budget_dropped", t, v, suppressed)
 
     # -- job delivery ------------------------------------------------------
     def _deliver(
@@ -1104,16 +1286,38 @@ class _Compiled:
     def _arrive_server(self, state, desc, lanes, v: int, t, created, u, params, attempt=None):
         """One job arriving at server ``v`` with its ``attempt`` number
         (None: a first attempt): start in the first free slot, else
-        enqueue at the ring tail, else drop. The chaos gates come first:
-        a brownout window loses the arrival (``srv_outage_dropped``); an
-        outage-mode fault window rejects it, and with backoff retries and
-        budget left it is parked for a re-arrival after the backoff, else
-        it is a terminal ``srv_fault_dropped``; a degrade-mode window caps
-        the active slots and inflates service; a hedged server races a
-        second sample against the first."""
+        enqueue at the ring tail, else drop. The gates come first: an
+        open breaker (or a half-open one whose probes are spent) rejects
+        the arrival before the server sees it (``srv_breaker_dropped``);
+        a brownout window loses it (``srv_outage_dropped``); an
+        outage-mode fault window rejects it, and with backoff retries,
+        attempts and a budget token left it is parked for a re-arrival
+        after the backoff, else it is a terminal ``srv_fault_dropped``; a
+        load shed rejects what passed those (``srv_shed_dropped``). A
+        degrade-mode window caps the active slots and inflates service; a
+        hedged server races a second sample when the budget allows it.
+        The brownout and fault rejections are the breaker's failures."""
         dev = t.device
         if attempt is None:
             attempt = torch.zeros_like(lanes, dtype=torch.int32)
+        no = torch.zeros_like(lanes)
+        brk_short = no
+        if self.has_breaker:
+            bst = self._breaker_effective(state, lanes, v, t)
+            probe_ok = state["brk_probes"][:, v] < int(self.breaker.half_open_probes)
+            brk_short = lanes & ((bst == 1) | ((bst == 2) & ~probe_ok))
+            # The probe quota is spent below, only by an arrival that
+            # takes a slot or a queue place.
+            probe = (bst == 2) & probe_ok
+            state["srv_breaker_dropped"][:, v] += brk_short.to(torch.int32)
+            self._tel_count(state, "tel_srv_breaker_dropped", t, v, brk_short)
+        bud_ok = None
+        if self.has_budget:
+            # A first attempt credits ``ratio`` tokens.
+            credit = torch.where(
+                attempt == 0, _f32(self.budget.ratio, dev), _f32(0.0, dev)
+            )
+            bud_ok = self._budget_refresh(state, lanes, v, t, credit) >= 1.0
         done_row = state["srv_slot_done"][:, v, :]
         valid = torch.as_tensor(self.slot_valid[v], device=dev)
         free = valid[None, :] & torch.isinf(done_row)
@@ -1131,29 +1335,47 @@ class _Compiled:
         factor = self._degrade_factor(v, fault_dark)
         if factor is not None:
             service = service * factor
-        hedged = won = None
+        hedged = won = would = None
         if self.has_hedge and np.isfinite(self.srv_hedge[v]):
             second = self._sample_service(u, self.U_HED1, v, params)
             if factor is not None:
                 second = second * factor
-            service, hedged, won = self._hedge(service, second, v)
+            service, hedged, won, would = self._hedge(service, second, v, bud_ok)
         spec = self.model.servers[v]
-        no = torch.zeros_like(lanes)
         dark = no
         if spec.outage_start_s is not None:
             dark = (t >= _f32(self.srv_outage_start[v], dev)) & (
                 t < _f32(self.srv_outage_end[v], dev)
-            )
+            ) & ~brk_short
         # An arrival inside both a brownout and a fault window is only an
         # outage drop: the two ledgers stay disjoint.
         fault_rejected = no
         if fault_dark is not None and self.faults.drop_mode[v]:
-            fault_rejected = fault_dark & ~dark
-        retry = no
+            fault_rejected = fault_dark & ~dark & ~brk_short
+        retry = blocked = no
         if self.flt_can_retry[v]:
             retry = fault_rejected & (attempt < int(self.srv_max_retries[v]))
-        rejected = dark | fault_rejected
+            if bud_ok is not None:
+                # Without a token the retry is not launched: the job is a
+                # fault drop, and the launch a budget drop.
+                blocked = retry & ~bud_ok
+                retry = retry & bud_ok
+        rejected = dark | fault_rejected | brk_short
         q_len = state["srv_q_len"][:, v]
+        shed = no
+        if self.has_shed:
+            if self.shed.policy == "queue_depth":
+                shed = q_len >= int(self.shed.threshold)
+            else:
+                busy = (torch.isfinite(done_row) & valid[None, :]).sum(dim=1)
+                shed = busy.to(torch.float32) >= _f32(self.shed_busy_thr[v], dev)
+            if self.U_SHED is not None:
+                # Priority traffic is never shed.
+                shed = shed & (u[:, self.U_SHED] >= _f32(self.shed.priority_fraction, dev))
+            shed = lanes & shed & ~rejected
+            rejected = rejected | shed
+        if self.has_breaker:
+            self._breaker_record_failure(state, v, t, lanes & (dark | fault_rejected), bst)
         has_room = q_len < int(self.queue_cap[v])
         tail = torch.remainder(state["srv_q_head"][:, v] + q_len, self.K)
         start = lanes & has_free & ~rejected
@@ -1175,13 +1397,21 @@ class _Compiled:
         state["srv_outage_dropped"][:, v] += (lanes & dark).to(torch.int32)
         if self.has_faults:
             state["srv_fault_dropped"][:, v] += (lanes & fault_rejected & ~retry).to(torch.int32)
+        if self.has_shed:
+            state["srv_shed_dropped"][:, v] += shed.to(torch.int32)
+        if self.has_breaker:
+            state["brk_probes"][:, v] += (probe & (start | enq)).to(torch.int32)
         if hedged is not None:
             state["srv_hedged"][:, v] += (start & hedged).to(torch.int32)
             state["srv_hedge_wins"][:, v] += (start & won).to(torch.int32)
+            if bud_ok is not None:
+                self._budget_debit(state, v, start & hedged)
+                self._book_budget_dropped(state, v, t, start & would & ~bud_ok)
         self._tel_integral(state, "tel_srv_busy_int", v, t, t + service, measured)
         self._tel_count(state, "tel_srv_dropped", t, v, drop)
         self._tel_count(state, "tel_srv_outage_dropped", t, v, lanes & dark)
         self._tel_count(state, "tel_srv_fault_dropped", t, v, lanes & fault_rejected & ~retry)
+        self._tel_count(state, "tel_srv_shed_dropped", t, v, shed)
         if hedged is not None:
             self._tel_count(state, "tel_srv_hedged", t, v, start & hedged)
             self._tel_count(state, "tel_srv_hedge_wins", t, v, start & won)
@@ -1192,8 +1422,11 @@ class _Compiled:
             tr_free = torch.isinf(state["tr_time"][:, v, :]).any(dim=1)
             state["srv_fault_retried"][:, v] += (parked & tr_free).to(torch.int32)
             self._tel_count(state, "tel_srv_fault_retried", t, v, parked & tr_free)
+            if bud_ok is not None:
+                self._budget_debit(state, v, parked & tr_free)
+                self._book_budget_dropped(state, v, t, lanes & blocked)
             self._into_transit(
-                state, parked, v, t + self._backoff_delay(u, attempt, v), created, attempt + 1
+                state, parked, v, self._backoff_arrival(u, attempt, v, t), created, attempt + 1
             )
 
     def _enqueue_retry(self, state, desc, lanes, v: int, t, created, attempt) -> None:
@@ -1266,27 +1499,49 @@ class _Compiled:
         state["srv_completed"][:, v] += lanes.to(torch.int32)
         self._tel_count(state, "tel_srv_completed", t, v, lanes)
         spec = self.model.servers[v]
+        if self.has_breaker:
+            # The breaker's cooldown transition is resolved here too; the
+            # deadline's verdict below is its failure or its success.
+            bst = self._breaker_effective(state, lanes, v, t)
+        budgeted = self.has_budget and spec.max_retries > 0
         forward = lanes
         if spec.deadline_s is not None:
             # A completion past its deadline is a timeout: retried while
-            # the budget lasts (after a backoff through the transit
-            # registers, or at once at the queue's tail), else counted
-            # and discarded, forwarding nothing.
+            # attempts (and budget tokens) last (after a backoff through
+            # the transit registers, or at once at the queue's tail), else
+            # counted and discarded, forwarding nothing.
             expired = lanes & ((t - created) > _f32(self.srv_deadline[v], dev))
             retry = expired & (attempt < int(self.srv_max_retries[v]))
+            if budgeted:
+                bud_ok = self._budget_refresh(state, lanes, v, t, _f32(0.0, dev)) >= 1.0
+                self._book_budget_dropped(state, v, t, retry & ~bud_ok)
+                retry = retry & bud_ok
             state["srv_timed_out"][:, v] += (expired & ~retry).to(torch.int32)
             self._tel_count(state, "tel_srv_timed_out", t, v, expired & ~retry)
+            if self.has_breaker:
+                self._breaker_record_failure(state, v, t, expired, bst)
+                self._breaker_close_on_success(state, v, lanes & ~expired, bst)
             if spec.retry_backoff_s is not None:
-                # A retry counts only when a transit register takes it.
+                # A retry counts (and spends a token) only when a transit
+                # register takes it.
                 tr_free = torch.isinf(state["tr_time"][:, v, :]).any(dim=1)
                 state["srv_retried"][:, v] += (retry & tr_free).to(torch.int32)
                 self._tel_count(state, "tel_srv_retried", t, v, retry & tr_free)
+                if budgeted:
+                    self._budget_debit(state, v, retry & tr_free)
                 self._into_transit(
-                    state, retry, v, t + self._backoff_delay(u, attempt, v), created, attempt + 1
+                    state, retry, v, self._backoff_arrival(u, attempt, v, t), created, attempt + 1
                 )
             else:
+                if budgeted:
+                    # Likewise only when the queue has room.
+                    room = state["srv_q_len"][:, v] < int(self.queue_cap[v])
+                    self._budget_debit(state, v, retry & room)
                 self._enqueue_retry(state, desc, retry, v, t, created, attempt + 1)
             forward = lanes & ~expired
+        elif self.has_breaker:
+            # Without a deadline every completion is a success.
+            self._breaker_close_on_success(state, v, lanes, bst)
         self._deliver(state, desc, forward, t, created, u, spec.downstream, spec.latency, params)
         # Pull the next queued job into the freed slot (FIFO), unless a
         # feedback delivery above re-claimed the slot, or a degrade-mode
@@ -1311,9 +1566,16 @@ class _Compiled:
             second = self._sample_service(u, self.U_HED2, v, params)
             if factor is not None:
                 second = second * factor
-            service, hedged, won = self._hedge(service, second, v)
+            allowed = None
+            if self.has_budget:
+                # Refreshed at every completion, a pull or not, as JAX does.
+                allowed = self._budget_refresh(state, lanes, v, t, _f32(0.0, dev)) >= 1.0
+            service, hedged, won, would = self._hedge(service, second, v, allowed)
             state["srv_hedged"][:, v] += (has_queued & hedged).to(torch.int32)
             state["srv_hedge_wins"][:, v] += (has_queued & won).to(torch.int32)
+            if allowed is not None:
+                self._budget_debit(state, v, has_queued & hedged)
+                self._book_budget_dropped(state, v, t, has_queued & would & ~allowed)
             self._tel_count(state, "tel_srv_hedged", t, v, has_queued & hedged)
             self._tel_count(state, "tel_srv_hedge_wins", t, v, has_queued & won)
         measured = has_queued & (t >= _f32(self.warmup, dev))
@@ -1796,6 +2058,18 @@ def _build_result(
         server_hedged=_per_server(host, "srv_hedged", nV_real),
         server_hedge_wins=_per_server(host, "srv_hedge_wins", nV_real),
         network_lost=int(host.get("net_lost", 0)),
+        server_breaker_dropped=_per_server(host, "srv_breaker_dropped", nV_real),
+        breaker_tripped=_per_server(host, "brk_tripped", nV_real),
+        # Open time is booked at trip time; the fraction is over the whole
+        # run (breaker openness is availability, not a latency statistic).
+        breaker_open_fraction=(
+            [float(x) / (n_replicas * horizon) for x in host["brk_open_time"][:nV_real]]
+            if "brk_open_time" in host
+            else [0.0] * nV_real
+        ),
+        server_shed_dropped=_per_server(host, "srv_shed_dropped", nV_real),
+        server_budget_dropped=_per_server(host, "srv_budget_dropped", nV_real),
+        resilience_features=tuple(model.resilience_features()),
         compile_seconds=compile_seconds,
         engine_path=engine_path,
         kernel_shape=kernel_shape,

@@ -1,7 +1,8 @@
-// C interface of the event-step kernel (event_step.cuh) without telemetry:
-// the line, graph, extended and chaos instantiations, built with nvcc into
-// a shared library and loaded through ctypes by kernels/event_step.py.
-// The telemetry instantiations are event_step_telemetry.cu's.
+// C interface of the event-step kernel (event_step.cuh) without telemetry
+// or resilience: the line, graph, extended and chaos instantiations, built
+// with nvcc into a shared library and loaded through ctypes by
+// kernels/event_step.py. The telemetry instantiations are
+// event_step_telemetry.cu's, the resilience ones event_step_resilience.cu's.
 
 #include "event_step.cuh"
 
@@ -38,8 +39,9 @@ static void launch(const EventStepArgs& args, dim3 grid, dim3 block, cudaStream_
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
   if (args->R <= 0) return 0;
-  // A telemetry model launches event_step_telemetry.cu's library.
-  if (args->tel.nW != 0) return (int)cudaErrorInvalidValue;
+  // A telemetry model launches event_step_telemetry.cu's library, a
+  // model with a defense event_step_resilience.cu's.
+  if (args->tel.nW != 0 || args->res.on) return (int)cudaErrorInvalidValue;
   if (args->chaos && !(args->graph && args->ext)) return (int)cudaErrorInvalidValue;
   if ((args->ext || args->chaos) && args->has_profile &&
       (args->prof_n < 2 || args->prof_n > HS_MAX_PROFILE_GRID))

@@ -13,8 +13,8 @@
 // _complete_server with its FIFO queue pull, _arrive_server and
 // _deliver_sink.
 //
-// event_step_kernel<MAXV, GRAPH, EXT, CHAOS, TEL> has seven instantiations
-// per server bound:
+// event_step_kernel<MAXV, GRAPH, EXT, CHAOS, TEL, RES> has nine
+// instantiations per server bound:
 // - GRAPH = false, the "mm1" and "chain" shapes (lines of servers joined
 //   by free edges, or a source wired straight to the sink): a delivery is
 //   a server arrival or the sink;
@@ -51,10 +51,20 @@
 //   busy and depth integrals are split over the windows their interval
 //   spans, and a measured sink delivery adds its count, latency and
 //   histogram bin in its arrival window. Every telemetry model runs the
-//   extended graph code, with or without the chaos branches.
-// Everything GRAPH, EXT, CHAOS and TEL add sits under `if constexpr`, so
-// the line, flat, extended and chaos instantiations compile to the code
-// they had without them.
+//   extended graph code, with or without the chaos branches;
+// - RES = true (only as <MAXV, true, true, true, TEL, true>, built from
+//   event_step_resilience.cu into a third library) adds the resilience
+//   defenses to the chaos code: the per-server circuit breaker (closed,
+//   open, half-open) over its exact sliding-window failure ring, the
+//   load-shed gate at admission and the retry budget's token bucket at
+//   the four launch sites (the fault-rejection retry, the deadline
+//   retries, the hedge at a start and the hedge at a queue pull). Every
+//   model with a defense runs it, with the telemetry sites where the
+//   model has a spec; the defenses sit at their sites in the chaos
+//   arrival and completion code.
+// Everything GRAPH, EXT, CHAOS, TEL and RES add sits under `if
+// constexpr`, so the line, flat, extended, chaos and telemetry
+// instantiations compile to the code they had without them.
 //
 // The profile tables. JAX hoists the (G,) time and cumulative grids as
 // tile-shared kernel operands (const_spec), read once per tile. Here the
@@ -98,6 +108,14 @@
 // events that need them: the (nV, W) fault registers are read at an
 // arrival at, or a pull into, a faulted server.
 //
+// The resilience leaves stay in device memory in the JAX layout, (R, nV)
+// registers and the (R, nV, F) failure ring brk_fail_t, and are read and
+// written only at an arrival at or a completion of their server: a
+// failure writes one ring slot and compares the next, a trip or a close
+// resets the server's F slots. A trip books its whole open interval
+// min(cooldown, max(horizon - t, 0)) at once, into brk_open_time and, as
+// an interval split over the windows it spans, into tel_brk_open_int.
+//
 // The telemetry buffers stay in device memory in the JAX layout,
 // (R, nW, ...) row-major, and an event touches only the windows its time
 // or interval falls in. The window of t is the compiled JAX step's
@@ -116,8 +134,9 @@
 // log1pf, sqrtf, expf, powf, exp2f and IEEE division as torch's CUDA ops
 // do.
 // Where the JAX engine's XLA contracts c + a * b into one multiply-add
-// (the erfinv polynomial, the interp lerp, the profile extrapolation),
-// both versions evaluate it in double and round once to float
+// (the erfinv polynomial, the interp lerp, the profile extrapolation, the
+// backoff's spread and re-arrival time, the budget's refill), both
+// versions evaluate it in double and round once to float
 // (numerics.py::fma_f32).
 
 #pragma once
@@ -134,6 +153,7 @@
 #define HS_HIST_BINS 80
 #define HS_THREADS 128
 #define HS_MAX_PROFILE_GRID 4096
+#define HS_MAX_BREAKER_RING 4096
 
 // Node kinds in the topology tables.
 #define HS_SINK 0
@@ -204,6 +224,41 @@ struct HsTel {
   int nW;                // windows (0: the model has no telemetry)
   float window_s;        // the window width
   float inv_window_s;    // float32(1 / window_s)
+};
+
+// The resilience defenses (RES instantiations): their leaves, replica
+// major in the JAX layout and null where the model has no such spec (the
+// tel_ ones also without telemetry), and their constants. The layout must
+// match kernels/event_step.py::_Res.
+struct HsRes {
+  int* brk_state;            // (R, nV) 0 closed, 1 open, 2 half-open
+  float* brk_fail_t;         // (R, nV, F) recent failure times, -inf: empty
+  int* brk_fail_idx;         // (R, nV) the ring's cursor
+  float* brk_open_t;         // (R, nV) the last trip time
+  int* brk_probes;           // (R, nV) half-open probes admitted
+  int* brk_tripped;          // (R, nV)
+  float* brk_open_time;      // (R, nV) open seconds, booked at trip time
+  int* breaker_dropped;      // (R, nV)
+  int* shed_dropped;         // (R, nV)
+  float* bud_tokens;         // (R, nV) the retry budget's bucket
+  float* bud_last;           // (R, nV) its last refill time
+  int* budget_dropped;       // (R, nV) launches suppressed
+  int* tel_breaker_dropped;  // (R, nW, nV), and so on
+  int* tel_brk_tripped;
+  float* tel_brk_open_int;
+  int* tel_shed_dropped;
+  int* tel_budget_dropped;
+  int on;                    // 1: the model has a defense
+  int breaker, shed, budget; // which ones
+  int F;                     // the failure ring's width (failure_threshold)
+  float brk_window, brk_cooldown;
+  int brk_max_probes;        // half_open_probes
+  int shed_policy;           // 0 queue_depth, 1 utilization
+  int shed_depth;            // queue_depth: int(threshold)
+  int u_shed;                // the priority draw's slot (-1: none)
+  float shed_priority;       // priority_fraction
+  float shed_busy_thr[HS_MAX_NV];  // utilization: float32(threshold * conc)
+  float bud_ratio, bud_min_per_s, bud_burst;
 };
 
 // Launch arguments. The layout must match kernels/event_step.py::_Args.
@@ -309,11 +364,15 @@ struct EventStepArgs {
   HsLoss rt_loss[HS_MAX_ROUTERS][HS_MAX_TARGETS];  // each router's target edges
   // TEL only
   HsTel tel;
+  // RES only
+  HsRes res;
 };
 
-// The struct is passed by value as a __grid_constant__ kernel parameter;
-// staying under the classic 4 KB parameter limit keeps it portable.
-static_assert(sizeof(EventStepArgs) <= 4096, "event-step arguments exceed 4 KB");
+// The struct is passed by value as a __grid_constant__ kernel parameter.
+// With the resilience constants it passes the classic 4 KB; CUDA 12.1
+// lifted the limit to 32,764 bytes on Volta and later (sm_90a included).
+static_assert(sizeof(EventStepArgs) <= 32764,
+              "event-step arguments exceed the 32,764-byte kernel-parameter limit");
 
 // The profile tables, staged per thread block (EXT instantiations).
 extern __shared__ float hs_tables[];
@@ -508,6 +567,8 @@ struct Lane {
   int *hedged, *hedge_wins, *net_lost;
   // TEL: this replica's first row (r * nW) of the window buffers
   size_t tel_row;
+  // RES: this replica's first row (r * nV) of the resilience leaves
+  size_t res_row;
 };
 
 // _deliver_sink: only arrivals inside [warmup, horizon] are measured.
@@ -644,13 +705,15 @@ __device__ __forceinline__ int active_slots(const float* row, int cw) {
   return n;
 }
 
-// The retry delay backoff * 2^attempt * (1 + jitter * (u - 0.5)).
+// When a retry launched at t re-arrives: t + backoff * 2^attempt * (1 +
+// jitter * (u - 0.5)), with the spread and the final sum each one
+// multiply-add, as XLA's CPU backend contracts them in the JAX step.
 template <int MAXV>
-__device__ __forceinline__ float backoff_delay(const EventStepArgs& a, int w, int attempt,
-                                               const float* u) {
+__device__ __forceinline__ float backoff_arrival(const EventStepArgs& a, int w, int attempt,
+                                                 const float* u, float t) {
   const float uj = a.u_jit >= 0 ? u[a.u_jit] : 0.5f;
-  const float spread = 1.0f + pick_arg<MAXV>(a.jitter, w) * (uj - 0.5f);
-  return pick_arg<MAXV>(a.backoff, w) * exp2f((float)attempt) * spread;
+  const float spread = fma_f64(pick_arg<MAXV>(a.jitter, w), uj - 0.5f, 1.0f);
+  return fma_f64(pick_arg<MAXV>(a.backoff, w) * exp2f((float)attempt), spread, t);
 }
 
 // A hedge with delay h: the slot is held for min(S1, h + S2); the second
@@ -663,16 +726,141 @@ __device__ __forceinline__ float hedge_race(float service, float second, float h
   return hedged ? fminf(service, raced) : service;
 }
 
+// -- resilience (RES) -------------------------------------------------------
+// JAX's _breaker_* and _budget_* helpers for server w of one replica.
+
+// _breaker_effective: an open breaker whose cooldown has run out reads
+// (and is written back) as half-open with a fresh probe quota.
+template <int MAXV>
+__device__ __forceinline__ int breaker_effective(const Lane<MAXV>& L, const EventStepArgs& a,
+                                                 int w, float t) {
+  const HsRes& B = a.res;
+  const size_t i = L.res_row + w;
+  const int bst = B.brk_state[i];
+  if (bst == 1 && t >= B.brk_open_t[i] + B.brk_cooldown) {
+    B.brk_state[i] = 2;
+    B.brk_probes[i] = 0;
+    return 2;
+  }
+  return bst;
+}
+
+// _breaker_record_failure: one failure at t in effective state bst. A
+// closed breaker writes t at the ring's cursor and trips when the oldest
+// of the F most recent failures (the next slot) lies within the window;
+// a half-open one re-trips at once. A trip resets the ring and books the
+// whole open interval.
+template <int MAXV, bool TEL>
+__device__ __forceinline__ void breaker_failure(Lane<MAXV>& L, const EventStepArgs& a, int w,
+                                                float t, int bst) {
+  const HsRes& B = a.res;
+  const size_t i = L.res_row + w;
+  float* ring = B.brk_fail_t + i * B.F;
+  bool trip = bst == 2;
+  if (bst == 0) {
+    const int idx = B.brk_fail_idx[i];
+    const int cursor = (idx + 1) % B.F;
+    ring[idx] = t;
+    B.brk_fail_idx[i] = cursor;
+    trip = ring[cursor] > t - B.brk_window;
+  }
+  if (!trip) return;
+  const float open_len = fminf(B.brk_cooldown, fmaxf(a.horizon - t, 0.0f));
+  for (int f = 0; f < B.F; ++f) ring[f] = -INFINITY;
+  B.brk_fail_idx[i] = 0;
+  B.brk_state[i] = 1;
+  B.brk_open_t[i] = t;
+  B.brk_probes[i] = 0;
+  B.brk_tripped[i] += 1;
+  B.brk_open_time[i] = B.brk_open_time[i] + open_len;
+  if constexpr (TEL) {
+    tel_count(B.tel_brk_tripped, a.tel, L.tel_row, a.nV, t, w);
+    if (B.tel_brk_open_int)
+      tel_integral(B.tel_brk_open_int, a.tel, L.tel_row, a.nV, w, t, t + open_len, 1.0f);
+  }
+}
+
+// _breaker_close_on_success: a half-open breaker that admitted a probe
+// closes (ring, cursor and probes reset).
+template <int MAXV>
+__device__ __forceinline__ void breaker_success(const Lane<MAXV>& L, const EventStepArgs& a, int w,
+                                                int bst) {
+  const HsRes& B = a.res;
+  const size_t i = L.res_row + w;
+  if (bst != 2 || B.brk_probes[i] <= 0) return;
+  float* ring = B.brk_fail_t + i * B.F;
+  for (int f = 0; f < B.F; ++f) ring[f] = -INFINITY;
+  B.brk_state[i] = 0;
+  B.brk_fail_idx[i] = 0;
+  B.brk_probes[i] = 0;
+}
+
+// _budget_refresh: min(tokens + (t - last) * min_per_s + credit, burst),
+// the first multiply-add rounded once as XLA contracts it.
+template <int MAXV>
+__device__ __forceinline__ float budget_refresh(const Lane<MAXV>& L, const EventStepArgs& a, int w,
+                                                float t, float credit) {
+  const HsRes& B = a.res;
+  const size_t i = L.res_row + w;
+  const float tokens =
+      fminf(fma_f64(t - B.bud_last[i], B.bud_min_per_s, B.bud_tokens[i]) + credit, B.bud_burst);
+  B.bud_tokens[i] = tokens;
+  B.bud_last[i] = t;
+  return tokens;
+}
+
+// _budget_debit: one token per launch that really happens.
+template <int MAXV>
+__device__ __forceinline__ void budget_debit(const Lane<MAXV>& L, const EventStepArgs& a, int w) {
+  float* tokens = a.res.bud_tokens + L.res_row + w;
+  *tokens = *tokens - 1.0f;
+}
+
+// _book_budget_dropped: a launch the budget suppressed.
+template <int MAXV, bool TEL>
+__device__ __forceinline__ void budget_dropped(const Lane<MAXV>& L, const EventStepArgs& a, int w,
+                                               float t) {
+  a.res.budget_dropped[L.res_row + w] += 1;
+  if constexpr (TEL) tel_count(a.res.tel_budget_dropped, a.tel, L.tel_row, a.nV, t, w);
+}
+
 // _arrive_server with the chaos gates: a brownout window loses the
 // arrival; an outage-mode fault window rejects it (parked for a retry
 // after the backoff while its budget lasts, else a fault drop); a
 // degrade-mode window caps the active slots and inflates service; a
 // hedged server races a second sample.
-template <int MAXV, bool TEL = false>
+//
+// RES adds the defenses at their sites. The breaker is consulted first:
+// open, or half-open with its probes spent, it rejects the arrival before
+// the server sees it. A first attempt credits the budget. Brownout and
+// fault rejections are the breaker's failures; a fault retry without a
+// budget token is a fault drop and a budget drop. The shed gate sees only
+// what those let through. A half-open probe is spent only by an arrival
+// that takes a slot or a queue place; a hedge needs a token.
+template <int MAXV, bool TEL = false, bool RES = false>
 __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                                     float t, float created, int attempt,
                                                     const float* u) {
   const int C = a.C, K = a.K;
+  int bst = 0;          // RES: the breaker's effective state
+  bool probe = false;   // RES: a half-open breaker's probe, spent if admitted
+  bool bud_ok = true;   // RES: a budget token for a retry or a hedge
+  if constexpr (RES) {
+    const HsRes& B = a.res;
+    bool shorted = false;
+    if (B.breaker) {
+      bst = breaker_effective(L, a, w, t);
+      const bool probe_ok = B.brk_probes[L.res_row + w] < B.brk_max_probes;
+      shorted = bst == 1 || (bst == 2 && !probe_ok);
+      probe = bst == 2 && probe_ok;
+    }
+    if (B.budget) bud_ok = budget_refresh(L, a, w, t, attempt == 0 ? B.bud_ratio : 0.0f) >= 1.0f;
+    if (shorted) {
+      B.breaker_dropped[L.res_row + w] += 1;
+      if constexpr (TEL) tel_count(B.tel_breaker_dropped, a.tel, L.tel_row, a.nV, t, w);
+      return;
+    }
+  }
   const int cw = pick_arg<MAXV>(a.conc, w);
   const int flags = pick_arg<MAXV>(a.srv_flags, w);
   float* row = L.slot_done + w * C;
@@ -683,21 +871,48 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
   if (dark) {  // a brownout loss, disjoint from the fault ledger
     L.outage_dropped[w] += 1;
     if constexpr (TEL) tel_count(a.tel.outage_dropped, a.tel, L.tel_row, a.nV, t, w);
+    if constexpr (RES) {
+      if (a.res.breaker) breaker_failure<MAXV, TEL>(L, a, w, t, bst);
+    }
     return;
   }
   if (fdark && (flags & HS_F_DROP)) {
-    if ((flags & HS_F_FAULT_RETRY) && attempt < pick_arg<MAXV>(a.max_retries, w)) {
+    if constexpr (RES) {
+      if (a.res.breaker) breaker_failure<MAXV, TEL>(L, a, w, t, bst);
+    }
+    const bool would = (flags & HS_F_FAULT_RETRY) && attempt < pick_arg<MAXV>(a.max_retries, w);
+    if (would && bud_ok) {
       if (transit_free(L, a, w)) {
         L.fault_retried[w] += 1;
         if constexpr (TEL) tel_count(a.tel.fault_retried, a.tel, L.tel_row, a.nV, t, w);
+        if constexpr (RES) {
+          if (a.res.budget) budget_debit(L, a, w);
+        }
       }
-      into_transit<MAXV, true, TEL>(L, a, w, t + backoff_delay<MAXV>(a, w, attempt, u), created,
+      into_transit<MAXV, true, TEL>(L, a, w, backoff_arrival<MAXV>(a, w, attempt, u, t), created,
                                     attempt + 1);
     } else {
       L.fault_dropped[w] += 1;
       if constexpr (TEL) tel_count(a.tel.fault_dropped, a.tel, L.tel_row, a.nV, t, w);
+      if constexpr (RES) {
+        if (would) budget_dropped<MAXV, TEL>(L, a, w, t);
+      }
     }
     return;
+  }
+  if constexpr (RES) {
+    const HsRes& B = a.res;
+    if (B.shed) {
+      bool shed = B.shed_policy == 0
+                      ? pick(L.q_len, w) >= B.shed_depth
+                      : (float)active_slots(row, cw) >= pick_arg<MAXV>(B.shed_busy_thr, w);
+      if (shed && B.u_shed >= 0) shed = u[B.u_shed] >= B.shed_priority;  // priority is exempt
+      if (shed) {
+        B.shed_dropped[L.res_row + w] += 1;
+        if constexpr (TEL) tel_count(B.tel_shed_dropped, a.tel, L.tel_row, a.nV, t, w);
+        return;
+      }
+    }
   }
   int first_free = -1;
   const int cap = pick_arg<MAXV>(a.cap_slots, w);
@@ -706,21 +921,32 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
       if (isinf(row[c])) { first_free = c; break; }
   }
   if (first_free >= 0) {
+    if constexpr (RES) {
+      if (probe) a.res.brk_probes[L.res_row + w] += 1;
+    }
     const float mean = pick(L.mean, w);
     const float factor = pick_arg<MAXV>(a.lat_factor, w);
     const bool inflate = degraded && factor > 1.0f;
     float service = sample_family<MAXV>(a, w, mean, u + a.u_svc1);
     if (inflate) service = service * factor;
     if (flags & HS_F_HEDGE) {
-      float second = sample_family<MAXV>(a, w, mean, u + a.u_hed1);
-      if (inflate) second = second * factor;
-      bool hedged, won;
-      service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, w), hedged, won);
-      L.hedged[w] += hedged ? 1 : 0;
-      L.hedge_wins[w] += won ? 1 : 0;
-      if constexpr (TEL) {
-        if (hedged) tel_count(a.tel.hedged, a.tel, L.tel_row, a.nV, t, w);
-        if (won) tel_count(a.tel.hedge_wins, a.tel, L.tel_row, a.nV, t, w);
+      const float h = pick_arg<MAXV>(a.hedge, w);
+      if (bud_ok) {
+        float second = sample_family<MAXV>(a, w, mean, u + a.u_hed1);
+        if (inflate) second = second * factor;
+        bool hedged, won;
+        service = hedge_race(service, second, h, hedged, won);
+        L.hedged[w] += hedged ? 1 : 0;
+        L.hedge_wins[w] += won ? 1 : 0;
+        if constexpr (RES) {
+          if (hedged && a.res.budget) budget_debit(L, a, w);
+        }
+        if constexpr (TEL) {
+          if (hedged) tel_count(a.tel.hedged, a.tel, L.tel_row, a.nV, t, w);
+          if (won) tel_count(a.tel.hedge_wins, a.tel, L.tel_row, a.nV, t, w);
+        }
+      } else if constexpr (RES) {
+        if (service > h) budget_dropped<MAXV, TEL>(L, a, w, t);
       }
     }
     const float done_at = t + service;
@@ -739,6 +965,9 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
   } else {
     const int ql = pick(L.q_len, w);
     if (ql < pick_arg<MAXV>(a.qcap, w)) {
+      if constexpr (RES) {
+        if (probe) a.res.brk_probes[L.res_row + w] += 1;
+      }
       const int tail = (pick(L.q_head, w) + ql) % K;
       L.q_created[w * K + tail] = created;
       L.q_enq[w * K + tail] = t;
@@ -794,7 +1023,8 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
 // decided where the walk ends (edges into limiters and routers are
 // loss-free), after any limiter and round-robin update, and vanishes the
 // job with only net_lost counting it. `attempt` rides to the server.
-template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false, bool TEL = false>
+// RES: the server arrival runs the defenses.
+template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false, bool TEL = false, bool RES = false>
 __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, HsRef dest,
                                         float t, float created, const float* u,
                                         HsLoss loss = HsLoss{0.0f, 0.0f, 0.0f},
@@ -851,7 +1081,7 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         into_transit<MAXV, CHAOS, TEL>(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat),
                                        created);
       } else if constexpr (CHAOS) {
-        arrive_server_chaos<MAXV, TEL>(L, a, dest.index, t, created, attempt, u);
+        arrive_server_chaos<MAXV, TEL, RES>(L, a, dest.index, t, created, attempt, u);
       } else {
         arrive_server<MAXV, EXT, TEL>(L, a, dest.index, t, created, u);
       }
@@ -860,7 +1090,7 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
   }
 }
 
-template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false>
+template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false, bool RES = false>
 __global__ void __launch_bounds__(HS_THREADS)
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -919,6 +1149,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.net_lost = a.net_lost ? a.net_lost + r : nullptr;
   }
   if constexpr (TEL) L.tel_row = (size_t)r * a.tel.nW;
+  if constexpr (RES) L.res_row = rv;
 #pragma unroll
   for (int v = 0; v < MAXV; ++v) {
     const bool real = v < nV;
@@ -1021,24 +1252,54 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         // first attempt.
         const int job_attempt = L.slot_attempt ? L.slot_attempt[from * C + from_slot] : 0;
         // _complete_server's deadline: an expired job is retried while
-        // its budget lasts (through the transit registers after the
+        // its attempts last (through the transit registers after the
         // backoff, or at once at the queue's tail), else timed out; it
         // is not forwarded either way.
         const int flags = pick_arg<MAXV>(a.srv_flags, from);
-        if ((flags & HS_F_DEADLINE) && (t - created) > pick_arg<MAXV>(a.deadline, from)) {
+        const int max_retries = pick_arg<MAXV>(a.max_retries, from);
+        const bool expired =
+            (flags & HS_F_DEADLINE) && (t - created) > pick_arg<MAXV>(a.deadline, from);
+        bool retry = expired && job_attempt < max_retries;
+        bool budgeted = false;  // RES: a retry spends a budget token
+        if constexpr (RES) {
+          // The breaker's cooldown is resolved at every completion. A
+          // server with a deadline and retries refreshes its budget; a
+          // retry without a token is a budget drop and times out. An
+          // expired job is the breaker's failure, any other its success.
+          const HsRes& B = a.res;
+          const int bst = B.breaker ? breaker_effective(L, a, from, t) : 0;
+          budgeted = B.budget && (flags & HS_F_DEADLINE) && max_retries > 0;
+          if (budgeted) {
+            const bool ok = budget_refresh(L, a, from, t, 0.0f) >= 1.0f;
+            if (retry && !ok) {
+              budget_dropped<MAXV, TEL>(L, a, from, t);
+              retry = false;
+            }
+          }
+          if (B.breaker) {
+            if (expired) {
+              breaker_failure<MAXV, TEL>(L, a, from, t, bst);
+            } else {
+              breaker_success(L, a, from, bst);
+            }
+          }
+        }
+        if (expired) {
           forward = false;
-          if (job_attempt < pick_arg<MAXV>(a.max_retries, from)) {
+          if (retry) {
             if (flags & HS_F_BACKOFF) {
               if (transit_free(L, a, from)) {
                 L.retried[from] += 1;
                 if constexpr (TEL) tel_count(a.tel.retried, a.tel, L.tel_row, nV, t, from);
+                if (budgeted) budget_debit(L, a, from);
               }
               into_transit<MAXV, true, TEL>(L, a, from,
-                                            t + backoff_delay<MAXV>(a, from, job_attempt, u),
+                                            backoff_arrival<MAXV>(a, from, job_attempt, u, t),
                                             created, job_attempt + 1);
             } else {
               const int ql = pick(L.q_len, from);
               if (ql < pick_arg<MAXV>(a.qcap, from)) {
+                if (budgeted) budget_debit(L, a, from);
                 const int tail = (pick(L.q_head, from) + ql) % K;
                 L.q_created[from * K + tail] = created;
                 L.q_enq[from * K + tail] = t;
@@ -1076,7 +1337,8 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     }
 
     if constexpr (CHAOS) {
-      if (forward) deliver<MAXV, GRAPH, EXT, true, TEL>(L, a, dest, t, created, u, loss, attempt);
+      if (forward)
+        deliver<MAXV, GRAPH, EXT, true, TEL, RES>(L, a, dest, t, created, u, loss, attempt);
     } else {
       deliver<MAXV, GRAPH, EXT, false, TEL>(L, a, dest, t, created, u);
     }
@@ -1089,6 +1351,12 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       float* row = L.slot_done + from * C;
       bool pull = ql > 0 && (!GRAPH || isinf(row[from_slot]));
       bool inflate = false;  // CHAOS: a degrade-mode window inflates the pull
+      bool pull_ok = true;   // RES: a budget token for the pull's hedge
+      if constexpr (RES) {
+        // A hedged server's budget is refreshed at every completion.
+        if (a.res.budget && (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE))
+          pull_ok = budget_refresh(L, a, from, t, 0.0f) >= 1.0f;
+      }
       if constexpr (CHAOS) {
         const int flags = pick_arg<MAXV>(a.srv_flags, from);
         if (pull && (flags & HS_F_FAULTED) && !(flags & HS_F_DROP) &&
@@ -1111,13 +1379,21 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         if constexpr (CHAOS) {
           const float factor = pick_arg<MAXV>(a.lat_factor, from);
           if (inflate) service = service * factor;
-          if (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE) {
+          if constexpr (RES) {
+            if (!pull_ok && (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE) &&
+                service > pick_arg<MAXV>(a.hedge, from))
+              budget_dropped<MAXV, TEL>(L, a, from, t);
+          }
+          if ((pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE) && pull_ok) {
             float second = sample_family<MAXV>(a, from, pick(L.mean, from), u + a.u_hed2);
             if (inflate) second = second * factor;
             bool hedged, won;
             service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, from), hedged, won);
             L.hedged[from] += hedged ? 1 : 0;
             L.hedge_wins[from] += won ? 1 : 0;
+            if constexpr (RES) {
+              if (hedged && a.res.budget) budget_debit(L, a, from);
+            }
             if constexpr (TEL) {
               if (hedged) tel_count(a.tel.hedged, a.tel, L.tel_row, nV, t, from);
               if (won) tel_count(a.tel.hedge_wins, a.tel, L.tel_row, nV, t, from);

@@ -1,0 +1,54 @@
+// C interface of the event-step kernel's resilience instantiations
+// (event_step.cuh with RES = true): the chaos code plus the circuit
+// breaker, the load shed and the retry budget, with or without the
+// telemetry sites, per server bound. Built with nvcc into a shared
+// library of its own, in parallel with event_step.cu and
+// event_step_telemetry.cu, and loaded through ctypes by
+// kernels/event_step.py, which launches it for every model with a
+// defense.
+
+#include "event_step.cuh"
+
+extern "C" int hs_event_step_max_servers() { return HS_MAX_NV; }
+
+extern "C" int hs_event_step_max_profile_grid() { return HS_MAX_PROFILE_GRID; }
+
+extern "C" int hs_event_step_args_size() { return (int)sizeof(EventStepArgs); }
+
+template <int MAXV>
+static void launch(const EventStepArgs& args, dim3 grid, dim3 block, cudaStream_t s) {
+  // The profile tables' shared-memory stage, when the source has one.
+  const size_t smem = args.has_profile ? 2 * (size_t)args.prof_n * sizeof(float) : 0;
+  if (args.tel.nW) {
+    event_step_kernel<MAXV, true, true, true, true, true><<<grid, block, smem, s>>>(args);
+  } else {
+    event_step_kernel<MAXV, true, true, true, false, true><<<grid, block, smem, s>>>(args);
+  }
+}
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
+  if (args->R <= 0) return 0;
+  // Only a model with a defense, on the chaos code.
+  if (!args->res.on || !(args->chaos && args->graph && args->ext))
+    return (int)cudaErrorInvalidValue;
+  if (args->res.breaker && (args->res.F < 1 || args->res.F > HS_MAX_BREAKER_RING))
+    return (int)cudaErrorInvalidValue;
+  if (args->has_profile && (args->prof_n < 2 || args->prof_n > HS_MAX_PROFILE_GRID))
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(HS_THREADS);
+  const dim3 grid((args->R + HS_THREADS - 1) / HS_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (args->nV <= 1) {
+    launch<1>(*args, grid, block, s);
+  } else if (args->nV <= 2) {
+    launch<2>(*args, grid, block, s);
+  } else if (args->nV <= 4) {
+    launch<4>(*args, grid, block, s);
+  } else if (args->nV <= HS_MAX_NV) {
+    launch<HS_MAX_NV>(*args, grid, block, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

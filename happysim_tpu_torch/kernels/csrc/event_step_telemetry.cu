@@ -27,7 +27,9 @@ static void launch(const EventStepArgs& args, dim3 grid, dim3 block, cudaStream_
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
   if (args->R <= 0) return 0;
-  if (args->tel.nW < 1 || !(args->graph && args->ext)) return (int)cudaErrorInvalidValue;
+  // A model with a defense launches event_step_resilience.cu's library.
+  if (args->tel.nW < 1 || args->res.on || !(args->graph && args->ext))
+    return (int)cudaErrorInvalidValue;
   if (args->has_profile && (args->prof_n < 2 || args->prof_n > HS_MAX_PROFILE_GRID))
     return (int)cudaErrorInvalidValue;
   const dim3 block(HS_THREADS);

@@ -22,13 +22,17 @@ plus the chaos branches, whatever its shape: a line with backoff
 retries needs the transit registers, which only the graph code has.
 Every model with a telemetry spec launches a telemetry instantiation:
 the extended graph code, with the chaos branches where the model has
-chaos, plus the windowed telemetry sites.
+chaos, plus the windowed telemetry sites. Every model with a circuit
+breaker, load shedding or a retry budget launches a resilience
+instantiation: the chaos code plus the defenses' gates, with or without
+the telemetry sites.
 
 The kernel is compiled on first use with ``nvcc`` from this package's
 sources into ``build/`` at the repository root, one library per source
-(``csrc/event_step.cu`` without telemetry, ``csrc/event_step_telemetry.cu``
-with it), the two built at once, each bound through a plain C launcher
-loaded with ``ctypes``.
+(``csrc/event_step.cu`` without telemetry or resilience,
+``csrc/event_step_telemetry.cu`` with telemetry,
+``csrc/event_step_resilience.cu`` with the defenses), all built at once,
+each bound through a plain C launcher loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -48,9 +52,11 @@ from happysim_tpu_torch.kernels import support
 from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-# One library per source: the kernel without telemetry, and its telemetry
-# instantiations.
-SOURCES = (CSRC / "event_step.cu", CSRC / "event_step_telemetry.cu")
+# One library per source: the kernel without telemetry or resilience, its
+# telemetry instantiations, and its resilience instantiations.
+SOURCES = (
+    CSRC / "event_step.cu", CSRC / "event_step_telemetry.cu", CSRC / "event_step_resilience.cu"
+)
 HEADERS = (CSRC / "event_step.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # No --use_fast_math, and no multiply-add contraction: the kernel must
@@ -69,8 +75,8 @@ _loaded: dict = {}
 
 # Struct fields holding state-leaf pointers, in EventStepArgs order,
 # paired with the leaves they point at: the leaves of every model, then
-# the chaos leaves, then (in the HsTel sub-struct at the end) the
-# telemetry leaves.
+# the chaos leaves, then (in the HsTel sub-struct) the telemetry leaves,
+# then (in the HsRes sub-struct at the end) the resilience leaves.
 _BASE_FIELDS = (
     "t", "src_next", "events", "slot_done", "slot_created",
     "q_created", "q_enq", "q_head", "q_len", "started", "completed",
@@ -92,12 +98,23 @@ _TEL_FIELDS = (
     "hedged", "hedge_wins", "tr_dropped",
     "lim_admitted", "lim_dropped", "net_lost",
 )
-assert len(_BASE_FIELDS) + len(_CHAOS_FIELDS) + len(_TEL_FIELDS) == len(support.KERNEL_LEAVES)
+_RES_FIELDS = (
+    "brk_state", "brk_fail_t", "brk_fail_idx", "brk_open_t", "brk_probes",
+    "brk_tripped", "brk_open_time", "breaker_dropped", "shed_dropped",
+    "bud_tokens", "bud_last", "budget_dropped",
+    "tel_breaker_dropped", "tel_brk_tripped", "tel_brk_open_int",
+    "tel_shed_dropped", "tel_budget_dropped",
+)
+assert len(_BASE_FIELDS) + len(_CHAOS_FIELDS) + len(_TEL_FIELDS) + len(_RES_FIELDS) == len(
+    support.KERNEL_LEAVES
+)
 # (sub-struct or None, field, leaf)
 _LEAF_FIELDS = tuple(
     zip(
-        (None,) * (len(_BASE_FIELDS) + len(_CHAOS_FIELDS)) + ("tel",) * len(_TEL_FIELDS),
-        _BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS,
+        (None,) * (len(_BASE_FIELDS) + len(_CHAOS_FIELDS))
+        + ("tel",) * len(_TEL_FIELDS)
+        + ("res",) * len(_RES_FIELDS),
+        _BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS + _RES_FIELDS,
         support.KERNEL_LEAVES,
     )
 )
@@ -131,6 +148,20 @@ class _Tel(ctypes.Structure):
         ("window_s", ctypes.c_float),
         ("inv_window_s", ctypes.c_float),
     ]
+
+
+class _Res(ctypes.Structure):
+    """Mirror of ``HsRes``: the resilience leaves and the defenses'
+    constants."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in _RES_FIELDS]
+        + [(name, ctypes.c_int) for name in ("on", "breaker", "shed", "budget", "F")]
+        + [(name, ctypes.c_float) for name in ("brk_window", "brk_cooldown")]
+        + [(name, ctypes.c_int) for name in ("brk_max_probes", "shed_policy", "shed_depth", "u_shed")]
+        + [("shed_priority", ctypes.c_float), ("shed_busy_thr", ctypes.c_float * _MAX_NV)]
+        + [(name, ctypes.c_float) for name in ("bud_ratio", "bud_min_per_s", "bud_burst")]
+    )
 
 
 class _Args(ctypes.Structure):
@@ -195,6 +226,7 @@ class _Args(ctypes.Structure):
             ("rt_loss", (_Loss * _MAX_T) * _MAX_R),
         ]
         + [("tel", _Tel)]
+        + [("res", _Res)]
     )
 
 
@@ -409,7 +441,36 @@ def _static_args(compiled) -> _Args:
         args.tel.nW = compiled.nW
         args.tel.window_s = float(np.float32(compiled.telemetry.window_s))
         args.tel.inv_window_s = float(compiled.tel_inv_window)
+    if compiled.has_resilience:
+        _res_args(compiled, args.res)
     return args
+
+
+def _res_args(compiled, res: _Res) -> None:
+    """The resilience instantiation's switches and constants (the
+    defenses ride the chaos code: has_chaos holds for every such model)."""
+    res.on = 1
+    res.breaker, res.shed, res.budget = (
+        int(compiled.has_breaker), int(compiled.has_shed), int(compiled.has_budget)
+    )
+    if compiled.has_breaker:
+        breaker = compiled.breaker
+        res.F = compiled.brk_F
+        res.brk_window = float(np.float32(breaker.window_s))
+        res.brk_cooldown = float(np.float32(breaker.cooldown_s))
+        res.brk_max_probes = int(breaker.half_open_probes)
+    if compiled.has_shed:
+        res.shed_policy = int(compiled.shed.policy == "utilization")
+        res.shed_depth = int(compiled.shed.threshold)
+        res.shed_priority = float(np.float32(compiled.shed.priority_fraction))
+        res.u_shed = _slot(compiled.U_SHED)
+        for v in range(compiled.nV):
+            res.shed_busy_thr[v] = float(compiled.shed_busy_thr[v])
+    if compiled.has_budget:
+        budget = compiled.budget
+        res.bud_ratio = float(np.float32(budget.ratio))
+        res.bud_min_per_s = float(np.float32(budget.min_per_s))
+        res.bud_burst = float(np.float32(budget.burst))
 
 
 class _Checked:
@@ -543,6 +604,16 @@ def _expected_shapes(compiled, R: int) -> dict:
         shapes.update({"srv_hedged": per_server, "srv_hedge_wins": per_server})
     if compiled.has_loss:
         shapes["net_lost"] = (R,)
+    if compiled.has_breaker:
+        for key in ("brk_state", "brk_fail_idx", "brk_open_t", "brk_probes", "brk_tripped",
+                    "brk_open_time", "srv_breaker_dropped"):
+            shapes[key] = per_server
+        shapes["brk_fail_t"] = (R, nV, compiled.brk_F)
+    if compiled.has_shed:
+        shapes["srv_shed_dropped"] = per_server
+    if compiled.has_budget:
+        shapes.update({"bud_tokens": per_server, "bud_last": per_server,
+                       "srv_budget_dropped": per_server})
     return shapes
 
 
@@ -555,6 +626,10 @@ _INT_LEAVES = frozenset({
     "srv_timed_out", "srv_retried", "srv_outage_dropped", "srv_fault_dropped",
     "srv_fault_retried", "srv_hedged", "srv_hedge_wins", "net_lost",
     *(k for k in support.TEL_LEAVES if k not in _TEL_FLOAT_LEAVES),
+    "brk_state", "brk_fail_idx", "brk_probes", "brk_tripped", "srv_breaker_dropped",
+    "srv_shed_dropped", "srv_budget_dropped",
+    "tel_srv_breaker_dropped", "tel_brk_tripped", "tel_srv_shed_dropped",
+    "tel_srv_budget_dropped",
 })
 
 
@@ -601,12 +676,21 @@ def block_step(compiled, state: dict, U: torch.Tensor, params: dict) -> torch.Te
     return halted.view(torch.bool)
 
 
+def library_of(args: _Args) -> str:
+    """The library whose instantiations take these arguments: the
+    resilience one for a model with a defense, else the telemetry one
+    for a model with a spec, else the kernel without either."""
+    if args.res.on:
+        return "event_step_resilience"
+    return "event_step_telemetry" if args.tel.nW else "event_step"
+
+
 def launch(args: _Args, device) -> None:
     """Launch the kernel with ready arguments (:func:`launch_args`) on
-    torch's current stream of ``device`` (the telemetry library for a
-    model with a spec); raise on a launch error. Every launch adds one to
+    torch's current stream of ``device``, from :func:`library_of`'s
+    library; raise on a launch error. Every launch adds one to
     ``block_step.launches``."""
-    lib = load_library()["event_step_telemetry" if args.tel.nW else "event_step"]
+    lib = load_library()[library_of(args)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.hs_event_step(ctypes.byref(args), stream)

@@ -62,6 +62,12 @@ KERNEL_MAX_FAULT_WINDOWS = 4096
 #: window buffers stay in device memory, and an interval split loops over
 #: the windows it spans.
 KERNEL_MAX_WINDOWS = MAX_WINDOWS
+#: The breaker's failure ring brk_fail_t, (nV, F) per replica with F the
+#: failure threshold. The kernel reads it in device memory: a failure
+#: writes one slot and compares one, but a trip or a close resets all F,
+#: and the ring takes R * nV * F * 4 bytes (8.6 GB for 65,536 replicas of
+#: 8 servers at this bound, inside the card's 80 GB), which bounds F.
+KERNEL_MAX_BREAKER_RING = 4096
 
 #: The telemetry leaves, in the order of the kernel's HsTel arguments:
 #: (nW, nK) sink counts and latency sums, the (nW, nK, 80) histogram,
@@ -76,6 +82,18 @@ TEL_LEAVES = (
     "tel_srv_hedged", "tel_srv_hedge_wins", "tel_tr_dropped",
     "tel_lim_admitted", "tel_lim_dropped", "tel_net_lost",
 )
+#: The resilience leaves, in the order of the kernel's HsRes arguments:
+#: the breaker's (nV,) registers and (nV, F) failure ring, the shed's
+#: counter, the budget's bucket, then their (nW, nV) window buffers (a
+#: model with telemetry only). Each exists only where its spec is.
+RES_LEAVES = (
+    "brk_state", "brk_fail_t", "brk_fail_idx", "brk_open_t", "brk_probes",
+    "brk_tripped", "brk_open_time", "srv_breaker_dropped",
+    "srv_shed_dropped",
+    "bud_tokens", "bud_last", "srv_budget_dropped",
+    "tel_srv_breaker_dropped", "tel_brk_tripped", "tel_brk_open_int",
+    "tel_srv_shed_dropped", "tel_srv_budget_dropped",
+)
 
 #: Leaves the kernel reads and writes; the other state leaf (the key) is
 #: not touched. The transit leaves exist only when the model has latency
@@ -84,7 +102,8 @@ TEL_LEAVES = (
 #: model declares the feature, except the three counters every chaos
 #: model carries (timed out, retried, brownout drops); the telemetry
 #: leaves (touched by the telemetry instantiations only) only with a
-#: spec.
+#: spec; the resilience leaves (the resilience instantiations only) only
+#: where their spec is.
 KERNEL_LEAVES = (
     "t", "src_next", "events",
     "srv_slot_done", "srv_slot_created", "srv_q_created", "srv_q_enq",
@@ -99,6 +118,7 @@ KERNEL_LEAVES = (
     "srv_fault_dropped", "srv_fault_retried", "srv_hedged", "srv_hedge_wins",
     "net_lost",
     *TEL_LEAVES,
+    *RES_LEAVES,
 )
 #: Leaves whose entries a block touches only at events (ring pushes and
 #: pulls, transit parks and arrivals, histogram bumps, router and limiter
@@ -106,8 +126,10 @@ KERNEL_LEAVES = (
 #: fault registers are read at arrivals and pulls of faulted servers, the
 #: chaos counters are bumped where they count; and every telemetry leaf:
 #: a counter is bumped, and an integral added to, only in the windows
-#: the event's time or interval falls in): left out of the bytes bound,
-#: which keeps it a lower bound.
+#: the event's time or interval falls in; and every resilience leaf: a
+#: breaker, shed or budget register is read and written only at an
+#: arrival at or a completion of its server): left out of the bytes
+#: bound, which keeps it a lower bound.
 SPARSE_LEAVES = (
     "srv_q_created", "srv_q_enq", "sink_hist",
     "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
@@ -118,6 +140,7 @@ SPARSE_LEAVES = (
     "srv_fault_dropped", "srv_fault_retried", "srv_hedged", "srv_hedge_wins",
     "net_lost",
     *TEL_LEAVES,
+    *RES_LEAVES,
 )
 
 #: Router policies the kernel runs: all four.
@@ -298,6 +321,7 @@ def check_kernel_bounds(compiled, macro: int) -> None:
             KERNEL_MAX_PROFILE_GRID,
         ),
         ("telemetry windows nW", compiled.nW, KERNEL_MAX_WINDOWS),
+        ("breaker ring brk_fail_t width F", compiled.brk_F, KERNEL_MAX_BREAKER_RING),
     )
     for name, value, bound in bounds:
         if value > bound:
@@ -331,7 +355,8 @@ def launch_bytes(compiled, macro: int, state: dict) -> int:
     replica's working set, and the shared profile tables read once. The
     telemetry buffers count as sparse (an event touches the windows its
     time or interval falls in, not the buffer), so a telemetry model has
-    the bound of the same model without its spec."""
+    the bound of the same model without its spec; so do the resilience
+    leaves, touched only at their server's events."""
     R = state["t"].shape[0]
     return R * replica_working_set_bytes(compiled, macro, state) + shared_const_bytes(compiled)
 

@@ -28,8 +28,12 @@ DAGs, shared backends and "done or continue" feedback through a server,
 deadlines with immediate or backoff (jittered) retries, hedged requests,
 brownout windows, stochastic or pinned :class:`FaultSpec` schedules in
 outage or degrade mode, :meth:`EnsembleModel.correlated_outages`, and
-per-crossing packet loss on edges (``connect(..., loss_p=...)``). Any
-of them may carry windowed telemetry (``model.telemetry(window_s=...)``,
+per-crossing packet loss on edges (``connect(..., loss_p=...)``), and
+the defenses against them: per-server circuit breakers
+(:meth:`EnsembleModel.circuit_breaker`), admission load shedding
+(:meth:`EnsembleModel.load_shed`) and retry budgets
+(:meth:`EnsembleModel.retry_budget`). Any of them may carry windowed
+telemetry (``model.telemetry(window_s=...)``,
 :mod:`~happysim_tpu_torch.telemetry`). Every
 other feature of the JAX model API raises :class:`NotImplementedError`
 naming itself and the ROADMAP item that ports it; the port has no second
@@ -61,9 +65,6 @@ LATENCY_KINDS = ("constant", "exponential")
 # Builder features of the JAX package outside this port, each with the
 # ROADMAP item that ports it. Reaching one raises NotImplementedError.
 _UNPORTED = {
-    "circuit_breaker": "circuit breakers (ROADMAP A.8)",
-    "load_shed": "load shedding (ROADMAP A.8)",
-    "retry_budget": "retry budgets (ROADMAP A.8)",
     "network_partition": "network partitions (ROADMAP A.11)",
     "quorum": "quorum groups (ROADMAP A.11)",
     "leader_election": "leader election (ROADMAP A.11)",
@@ -260,6 +261,113 @@ class CorrelatedOutages:
             raise ValueError("correlated_outages: max_windows must be >= 1")
 
 
+@dataclass(frozen=True)
+class CircuitBreakerSpec:
+    """Per-(replica, server) closed -> open -> half-open state machine.
+
+    Failures are fault-window rejections, brownout drops and deadline
+    expiries. The failure window is exact: a ``(nV, failure_threshold)``
+    ring of recent failure times trips the breaker when the
+    ``failure_threshold`` most recent failures all landed within
+    ``window_s``. While open, arrivals are rejected outright
+    (``srv_breaker_dropped``, terminal: the fail-fast path spawns no
+    retries). After ``cooldown_s`` the breaker reads as half-open: up to
+    ``half_open_probes`` arrivals are admitted as probes; the first
+    success closes it (failure ring reset), any failure re-trips it.
+    """
+
+    failure_threshold: int = 5
+    window_s: float = 1.0
+    cooldown_s: float = 1.0
+    half_open_probes: int = 1
+
+    def validate(self) -> None:
+        if self.failure_threshold < 1:
+            raise ValueError("circuit_breaker: failure_threshold must be >= 1")
+        if self.window_s <= 0.0:
+            raise ValueError("circuit_breaker: window_s must be > 0")
+        if self.cooldown_s <= 0.0:
+            raise ValueError("circuit_breaker: cooldown_s must be > 0")
+        if self.half_open_probes < 1:
+            raise ValueError("circuit_breaker: half_open_probes must be >= 1")
+
+
+LOAD_SHED_POLICIES = ("queue_depth", "utilization")
+
+
+@dataclass(frozen=True)
+class LoadShedSpec:
+    """Admission rejection at the server hop, before enqueue.
+
+    ``policy="queue_depth"``: an arrival is shed when the server's queue
+    already holds >= ``threshold`` jobs (a count). ``policy=
+    "utilization"``: shed when the busy-slot fraction is >= ``threshold``
+    (in (0, 1]; 1.0 sheds exactly when every slot is busy).
+    ``priority_fraction`` of the traffic is exempt (a per-arrival
+    Bernoulli on its own uniform slot). Shed jobs are terminal drops
+    (``srv_shed_dropped``) and spawn no retries.
+    """
+
+    policy: str = "queue_depth"
+    threshold: float = 1.0
+    priority_fraction: float = 0.0
+
+    def validate(self) -> None:
+        if self.policy not in LOAD_SHED_POLICIES:
+            raise ValueError(
+                f"load_shed policy {self.policy!r} not in {LOAD_SHED_POLICIES}"
+            )
+        if self.policy == "queue_depth" and self.threshold < 1:
+            raise ValueError(
+                "load_shed: queue_depth threshold must be >= 1 (a job count)"
+            )
+        if self.policy == "utilization" and not 0.0 < self.threshold <= 1.0:
+            raise ValueError(
+                "load_shed: utilization threshold must be in (0, 1]"
+            )
+        if not 0.0 <= self.priority_fraction < 1.0:
+            raise ValueError(
+                "load_shed: priority_fraction must be in [0, 1) — 1.0 "
+                "would exempt everything and the shed could never act"
+            )
+
+
+@dataclass(frozen=True)
+class RetryBudgetSpec:
+    """Token-bucket cap on the retry and hedge launch paths.
+
+    Per-(replica, server) bucket: every first-attempt arrival credits
+    ``ratio`` tokens and the bucket refills at ``min_per_s`` tokens/s
+    (both capped at ``burst``); every retry launch (fault-rejection
+    backoff retries, deadline retries, hedged second attempts) debits
+    one token. A retry with no token is not launched: the job books its
+    terminal outcome (fault drop or timeout) and the suppressed launch
+    counts as ``srv_budget_dropped``, never a parked transit job.
+    """
+
+    ratio: float = 0.1
+    min_per_s: float = 0.0
+    burst: float = 10.0
+
+    def validate(self) -> None:
+        if self.ratio < 0.0:
+            raise ValueError("retry_budget: ratio must be >= 0")
+        if self.min_per_s < 0.0:
+            raise ValueError("retry_budget: min_per_s must be >= 0")
+        if self.ratio == 0.0 and self.min_per_s == 0.0:
+            raise ValueError(
+                "retry_budget: ratio and min_per_s are both 0 — the bucket "
+                "would never refill and every retry after the initial burst "
+                "would be suppressed; set at least one"
+            )
+        if self.burst < 1.0:
+            raise ValueError(
+                "retry_budget: burst must be >= 1 (a launch spends a whole "
+                "token; a bucket that can never hold one suppresses all "
+                "retries)"
+            )
+
+
 @dataclass
 class SourceSpec:
     rate: float
@@ -365,6 +473,11 @@ class EnsembleModel:
         # Windowed telemetry (telemetry.py); None builds the state and the
         # kernel arguments of a model without it.
         self.telemetry_spec: Optional[TelemetrySpec] = None
+        # The resilience layer: each spec adds its per-(replica, server)
+        # state leaves and gates; None leaves the model without them.
+        self.circuit_breaker_spec: Optional[CircuitBreakerSpec] = None
+        self.load_shed_spec: Optional[LoadShedSpec] = None
+        self.retry_budget_spec: Optional[RetryBudgetSpec] = None
 
     def __getattr__(self, name: str):
         if name in _UNPORTED:
@@ -603,6 +716,68 @@ class EnsembleModel:
         self.telemetry_spec = spec
         return spec
 
+    def circuit_breaker(
+        self,
+        failure_threshold: int = 5,
+        window_s: float = 1.0,
+        cooldown_s: float = 1.0,
+        half_open_probes: int = 1,
+    ) -> CircuitBreakerSpec:
+        """Give every server of every replica its own closed -> open ->
+        half-open breaker, driven by the fault and timeout accounting
+        sites: ``failure_threshold`` failures inside a sliding
+        ``window_s`` trip it, arrivals while open are rejected outright
+        (``srv_breaker_dropped``), and after ``cooldown_s`` up to
+        ``half_open_probes`` probe arrivals decide whether it re-closes
+        (first success) or re-trips (any failure). :meth:`validate`
+        requires a failure site somewhere in the model (a deadline, an
+        outage-mode fault or a brownout window)."""
+        spec = CircuitBreakerSpec(
+            failure_threshold=failure_threshold,
+            window_s=window_s,
+            cooldown_s=cooldown_s,
+            half_open_probes=half_open_probes,
+        )
+        spec.validate()
+        self.circuit_breaker_spec = spec
+        return spec
+
+    def load_shed(
+        self,
+        policy: str = "queue_depth",
+        threshold: float = 1.0,
+        priority_fraction: float = 0.0,
+    ) -> LoadShedSpec:
+        """Shed arrivals at every server before enqueue when the policy's
+        signal is at or past ``threshold`` (``"queue_depth"``: a job
+        count; ``"utilization"``: the busy-slot fraction in (0, 1]);
+        ``priority_fraction`` of the traffic is exempt. Shed jobs are
+        terminal ``srv_shed_dropped`` drops."""
+        spec = LoadShedSpec(
+            policy=policy, threshold=threshold, priority_fraction=priority_fraction
+        )
+        spec.validate()
+        self.load_shed_spec = spec
+        return spec
+
+    def retry_budget(
+        self,
+        ratio: float = 0.1,
+        min_per_s: float = 0.0,
+        burst: float = 10.0,
+    ) -> RetryBudgetSpec:
+        """Cap every retry and hedge launch with a per-(replica, server)
+        token bucket: a launch debits one token, first-attempt arrivals
+        credit ``ratio`` tokens and the bucket refills at ``min_per_s``
+        tokens/s (capped at ``burst``). A launch without a token is
+        suppressed and counted as ``srv_budget_dropped``; the job's
+        terminal outcome books as usual. :meth:`validate` requires a
+        consumer (a server with ``max_retries > 0`` or a hedge delay)."""
+        spec = RetryBudgetSpec(ratio=ratio, min_per_s=min_per_s, burst=burst)
+        spec.validate()
+        self.retry_budget_spec = spec
+        return spec
+
     # -- wiring ------------------------------------------------------------
     def connect(
         self,
@@ -696,6 +871,7 @@ class EnsembleModel:
             self.correlated_faults.validate()
         if self.telemetry_spec is not None:
             self.telemetry_spec.validate(self.horizon_s)
+        self._validate_resilience()
         for i, server in enumerate(self.servers):
             if server.downstream is None:
                 raise ValueError(f"server[{i}] has no downstream")
@@ -736,6 +912,41 @@ class EnsembleModel:
         for i, router in enumerate(self.routers):
             self._validate_router(i, router)
         self._validate_router_acyclic()
+
+    def _validate_resilience(self) -> None:
+        """JAX's resilience clauses: a breaker needs a failure site (a
+        degrade-mode fault rejects nothing, so it is not one), shedding
+        needs a server, a budget needs a retry or hedge path."""
+        if self.circuit_breaker_spec is not None:
+            self.circuit_breaker_spec.validate()
+            has_failure_site = any(
+                s.deadline_s is not None
+                or (s.fault is not None and s.fault.mode == "outage")
+                or s.outage_start_s is not None
+                for s in self.servers
+            )
+            if not has_failure_site:
+                raise ValueError(
+                    "circuit_breaker: no server declares a failure site "
+                    "(deadline_s, an outage-mode fault, or outage=...) — "
+                    "the breaker could never observe a failure and would "
+                    "never trip"
+                )
+        if self.load_shed_spec is not None:
+            self.load_shed_spec.validate()
+            if not self.servers:
+                raise ValueError("load_shed: the model has no servers to shed at")
+        if self.retry_budget_spec is not None:
+            self.retry_budget_spec.validate()
+            has_consumer = any(
+                s.max_retries > 0 or s.hedge_delay_s is not None for s in self.servers
+            )
+            if not has_consumer:
+                raise ValueError(
+                    "retry_budget: no server declares a retry or hedge path "
+                    "(max_retries > 0 or hedge_delay_s) — the budget would "
+                    "gate nothing"
+                )
 
     def _validate_router(self, i: int, router: RouterSpec) -> None:
         kinds = {t.kind for t in router.targets}
@@ -835,8 +1046,21 @@ class EnsembleModel:
             features.append("packet_loss")
         if self.limiters:
             features.append("limiters")
+        features.extend(self.resilience_features())
         if self.telemetry_spec is not None:
             features.append("telemetry")
+        return tuple(features)
+
+    def resilience_features(self) -> tuple[str, ...]:
+        """The resilience defenses this model declares, by JAX's names (a
+        subset of :meth:`chaos_features`)."""
+        features: list[str] = []
+        if self.circuit_breaker_spec is not None:
+            features.append("circuit_breaker")
+        if self.load_shed_spec is not None:
+            features.append("load_shed")
+        if self.retry_budget_spec is not None:
+            features.append("retry_budget")
         return tuple(features)
 
     @property

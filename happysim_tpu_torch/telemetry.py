@@ -192,9 +192,9 @@ class EnsembleTimeseries:
 
     Array axes: ``nW`` windows x (``nK`` sinks | ``nV`` servers | ``nL``
     limiters). A field is ``None`` when its metric group was not
-    requested or the model lacks the machinery; the resilience,
-    consensus and trace fields stay ``None`` until the port runs those
-    features (ROADMAP A.8, A.11, A.12). Counter series are int64 and sum
+    requested or the model lacks the machinery; the consensus and trace
+    fields stay ``None`` until the port runs those features (ROADMAP
+    A.11, A.12). Counter series are int64 and sum
     (axis 0) exactly to the whole-run counters; the float integral
     series sum to the whole-run integrals up to float32 re-association.
     """
@@ -235,7 +235,7 @@ class EnsembleTimeseries:
     limiter_admitted: Optional[np.ndarray] = None  # (nW, nL)
     limiter_dropped: Optional[np.ndarray] = None
     network_lost: Optional[np.ndarray] = None  # (nW,)
-    # resilience defenses (ROADMAP A.8)
+    # resilience defenses
     server_breaker_dropped: Optional[np.ndarray] = None  # (nW, nV)
     breaker_tripped: Optional[np.ndarray] = None  # (nW, nV)
     breaker_open_fraction: Optional[np.ndarray] = None  # (nW, nV)
@@ -446,6 +446,10 @@ def build_timeseries(
         ("server_hedged", "tel_srv_hedged"),
         ("server_hedge_wins", "tel_srv_hedge_wins"),
         ("transit_dropped", "tel_tr_dropped"),
+        ("server_breaker_dropped", "tel_srv_breaker_dropped"),
+        ("breaker_tripped", "tel_brk_tripped"),
+        ("server_shed_dropped", "tel_srv_shed_dropped"),
+        ("server_budget_dropped", "tel_srv_budget_dropped"),
     ):
         arr = counts(key)
         if arr is not None:
@@ -459,6 +463,16 @@ def build_timeseries(
             setattr(ts, attr, arr[:, :nL])
     if "tel_net_lost" in host:
         ts.network_lost = counts("tel_net_lost")
+    if "tel_brk_open_int" in host:
+        # Open seconds over the window's [start, min(end, horizon)]
+        # coverage, averaged over replicas.
+        open_int = np.asarray(host["tel_brk_open_int"], np.float64)[:, :nV]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ts.breaker_open_fraction = np.where(
+                window_len[:, None] > 0,
+                open_int / (n_replicas * window_len[:, None]),
+                0.0,
+            )
     if "tel_fault_int" in host:
         # Dark seconds over the window's [start, min(end, horizon)]
         # coverage, averaged over replicas.

@@ -271,12 +271,15 @@ def test_duty_cycle_matches_jax():
 
 
 # -- the backoff delay ---------------------------------------------------------
-@pytest.mark.parametrize("jitter", [0.0, 0.25, 0.5, 1.0])
+@pytest.mark.parametrize("jitter", [0.0, 0.25, 0.5, 1.0, 0.3])
 def test_backoff_delay_matches_jax_bit_for_bit(jitter):
-    """backoff * 2^attempt * (1 + jitter (u - 0.5)) over 2^18 uniforms and
-    attempts 0-5, against JAX's _backoff_delay jitted with the jitter as
-    an operand (as _arrive_server picks it). XLA fuses no multiply-add
-    here: the port rounds each operation, as the source reads."""
+    """The re-arrival t + backoff * 2^attempt * (1 + jitter (u - 0.5)) over
+    2^18 uniforms and times and attempts 0-5, against JAX's t +
+    _backoff_delay(...) jitted with the jitter as an operand (as
+    _arrive_server picks it): XLA contracts the spread and the sum into
+    multiply-adds, and the port rounds them once too (ROADMAP C). A
+    jitter that is no power of two (0.3) tells one rounding from two in
+    the spread as well."""
 
     def build(mod):
         return _src_srv(
@@ -289,17 +292,18 @@ def test_backoff_delay_matches_jax_bit_for_bit(jitter):
     n = 1 << 18
     keys = rng.split(rng.PRNGKey(11), 2)
     u = rng.uniform(keys[0], (n,), minval=1e-12, maxval=1.0)
+    t = rng.uniform(keys[1], (n,), minval=0.0, maxval=20.0)
     rows = torch.full((n, tc.n_draws), 0.5)
     if tc.U_JIT is not None:
         rows[:, tc.U_JIT] = u
-    jdelay = jax.jit(
-        lambda uu, a, j: jc._backoff_delay(uu, a, jnp.float32(0.05), j)
+    jarrival = jax.jit(
+        lambda tt, uu, a, j: tt + jc._backoff_delay(uu, a, jnp.float32(0.05), j)
     )
+    u_jit = rows[:, tc.U_JIT].numpy() if tc.U_JIT is not None else np.full(n, 0.5, np.float32)
     for attempt in range(6):
-        got = tc._backoff_delay(rows, torch.full((n,), attempt, dtype=torch.int32), 0)
+        got = tc._backoff_arrival(rows, torch.full((n,), attempt, dtype=torch.int32), 0, t)
         expected = np.asarray(
-            jdelay(jnp.asarray(rows[:, tc.U_JIT].numpy() if tc.U_JIT is not None else np.full(n, 0.5, np.float32)),
-                   jnp.int32(attempt), jnp.float32(jitter))
+            jarrival(jnp.asarray(t.numpy()), jnp.asarray(u_jit), jnp.int32(attempt), jnp.float32(jitter))
         )
         np.testing.assert_array_equal(got.numpy(), expected)
 

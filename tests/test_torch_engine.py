@@ -315,9 +315,6 @@ def _off_chain_server(m):
     "mutate, feature",
     [
         (lambda m: t_run(m, n_replicas=2, resume_from=object(), device="cpu"), "checkpoints"),
-        (lambda m: m.circuit_breaker(), "circuit breakers"),
-        (lambda m: m.load_shed(), "load shedding"),
-        (lambda m: m.retry_budget(), "retry budgets"),
         (lambda m: m.network_partition(), "network partitions"),
         (lambda m: m.quorum(), "quorum"),
         (lambda m: m.leader_election(), "leader election"),

@@ -22,6 +22,7 @@ from happysim_tpu_torch.engine import _Compiled, _resolve_params, run_ensemble  
 from happysim_tpu_torch.kernels import event_step  # noqa: E402
 from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
+from test_torch_resilience_models import RESILIENCE_MODELS  # noqa: E402
 from test_torch_telemetry_models import TELEMETRY_MODELS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -229,6 +230,9 @@ MODELS = {
     # the telemetry instantiations (the window buffers, with and without
     # the chaos branches)
     **{f"telemetry-{name}": (lambda build=build: build(tmodel)) for name, build in TELEMETRY_MODELS.items()},
+    # the resilience instantiations (breakers, shedding, budgets, with and
+    # without telemetry)
+    **{f"resilience-{name}": (lambda build=build: build(tmodel)) for name, build in RESILIENCE_MODELS.items()},
 }
 
 
@@ -337,3 +341,32 @@ def test_telemetry_on_the_card_matches_the_cpu_run(cuda, name):
     assert plain.timeseries is None
     for field in ("simulated_events", "sink_count", "server_completed", "server_dropped"):
         assert getattr(plain, field) == getattr(card, field), field
+
+
+@pytest.mark.parametrize("name", ["storm-defended", "resilience-fanout", "shed-priority", "hedge-budget"])
+def test_resilience_on_the_card_matches_the_cpu_run(cuda, name):
+    """run_ensemble of a model with defenses on the card, once per block
+    through the resilience library, against the CPU run: the whole-run
+    totals, the resilience counters and every integer window series
+    equal, the open fraction to rel 1e-5."""
+    model = RESILIENCE_MODELS[name](tmodel)
+    before = event_step.block_step.launches
+    card = run_ensemble(model, n_replicas=128, seed=5)
+    launches = event_step.block_step.launches - before
+    cpu = run_ensemble(model, n_replicas=128, seed=5, device="cpu")
+    assert card.engine_path == "scan+cuda" and launches == max(card.block_occupancy)
+    for field in (
+        "simulated_events", "sink_count", "server_completed", "server_dropped",
+        "server_timed_out", "server_retried", "server_fault_dropped", "server_fault_retried",
+        "server_hedged", "server_breaker_dropped", "breaker_tripped", "server_shed_dropped",
+        "server_budget_dropped", "transit_dropped",
+    ):
+        assert getattr(card, field) == getattr(cpu, field), field
+    np.testing.assert_allclose(card.breaker_open_fraction, cpu.breaker_open_fraction, rtol=1e-5)
+    assert card.resilience_features == model.resilience_features()
+    if cpu.timeseries is not None:
+        for field in cpu.timeseries._ARRAY_FIELDS:
+            left, right = getattr(card.timeseries, field), getattr(cpu.timeseries, field)
+            assert (left is None) == (right is None), field
+            if right is not None and np.asarray(right).dtype.kind == "i":
+                np.testing.assert_array_equal(left, right, err_msg=field)
