@@ -6,14 +6,19 @@
 Phases, each of which must pass (any failure raises and exits nonzero):
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
-2. the build: the event-step kernels compiled with nvcc for sm_90a from
-   this checkout's sources, one nvcc per source (the kernel without
-   telemetry or resilience, its telemetry instantiations and its
-   resilience instantiations) started together, with ptxas' register and
-   spill report;
+2. the build: the kernels compiled with nvcc for sm_90a from this
+   checkout's sources, one nvcc per source (the event-step kernel without
+   telemetry or resilience, its telemetry instantiations, its resilience
+   instantiations, and the draw kernel) started together, with ptxas'
+   register and spill report;
+   then the draw kernel (csrc/uniform.cu) against rng.uniform, bit for
+   bit, on the M/M/1 chain form's gap block (65,536 x 1,514 uniforms),
+   timed against its plain version and its bound;
 3. block checks at full size, 65,536 replicas and macro_block 32: the
-   kernel and its plain torch-op version advance identical copies of the
-   state through the same uniform block and every leaf is compared, on
+   kernel, drawing its block's uniforms itself from the replica keys and
+   the block index, and its plain torch-op version, fed the same block
+   drawn by the torch-op threefry, advance identical copies of the state
+   and every leaf is compared, on
    - mm1: the M/M/1 (lambda=8, mu=10, horizon 160 s, warmup 40 s),
      blocks 0-3 and 78-81;
    - chain: the 3-stage pipeline, blocks 0 and 40;
@@ -92,15 +97,18 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    equal; a float difference is printed and must stay within rel 1e-6;
 4. timing: the kernel's (launched with prebuilt arguments), the
    wrapper's (block_step, tensor checks included), the plain version's
-   and the threefry draw's time per block for mm1, chain, fanout, graph
-   and router (CUDA events, after warm-up, every replica live), beside
-   the kernel's bound (the bytes a block must move over 3.35 TB/s:
-   every dense state leaf read and written once, the uniforms and the
-   parameters, and the profile tables once per launch; ring, transit,
-   histogram and router/limiter traffic left out, so a lower bound; the
-   operations bound counts the float operations a step needs, each
-   service draw's by its family and each profiled source fire's two
-   table searches, a transcendental call counted as one operation), and
+   and the plain version's torch-op draw's time per block for mm1, chain,
+   fanout, graph and router (CUDA events, after warm-up, every replica
+   live), beside the kernel's bound (the bytes a block must move over
+   3.35 TB/s: every dense state leaf read and written once, the keys and
+   the parameters, and the profile tables once per launch; ring,
+   transit, histogram and router/limiter traffic left out, so a lower
+   bound; the operations bound is the larger of the float operations a
+   step needs, each service draw's by its family and each profiled
+   source fire's two table searches, a transcendental call counted as
+   one operation, over 67 TFLOP/s, and the 32-bit integer operations of
+   the threefry evaluations the kernel counted in the same blocks, over
+   33.5 Tops/s), and
    the same for the lognormal and pareto M/G/1, the profile graph, and
    the chaos and deadline models; the telemetry model with and without
    its spec, and their ratio; and bench_resilience's defended arm (the
@@ -108,9 +116,16 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    kernel), and the same model with inert defenses (the resilience kernel
    on the undefended simulation: the defenses' own cost) against it;
 5. the main path, run_ensemble on cuda at 65,536 replicas through the
-   entry point a user calls, with the launch count set to 0 just before
-   each run and read just after; each must run through the kernel once
-   per macro-block and truncate no replica:
+   entry point a user calls, with the launch counts set to 0 just before
+   each run and read just after. The event-scan runs name their budget
+   (the one the scan takes by default unless stated), so the models the
+   chain form takes stay on the scan; each must run through the kernel
+   once per macro-block, launch no draw kernel and truncate no replica;
+   the default calls of the M/M/1, the pipeline and a constant-edge
+   random fan-out take the chain form, must launch the draw kernel and
+   no event step, and hold the M/M/1 gates, the pipeline's waits within
+   1% of its scan run's, the fan-out's gates; every scan run prints its
+   kernel share and host time per block:
    - mm1: within 1% of the analytic mean wait rho/(mu-lam) = 0.4 s and
      mean sojourn 1/(mu-lam) = 0.5 s;
    - chain: the 3-stage pipeline, horizon 160 s;
@@ -185,13 +200,14 @@ Phases, each of which must pass (any failure raises and exits nonzero):
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
-kernel once per shape or extension, every number of an entry from one
-model: mm1, chain, fanout (the router shape), graph, the lognormal M/G/1
-(the family sampler), the profile graph (the profile tables), the
-chaos model (the chaos branches) and the telemetry model (the window
-buffers) and bench_resilience's defended arm (the defenses), the
-models the main path runs. Every number printed carries the card's name
-and power limit.
+event-step kernel once per shape or extension, every number of an entry
+from one model: mm1, chain, fanout (the router shape), graph, the
+lognormal M/G/1 (the family sampler), the profile graph (the profile
+tables), the chaos model (the chaos branches) and the telemetry model
+(the window buffers) and bench_resilience's defended arm (the
+defenses), the models the main path runs; and the draw kernel, its
+launches those of the M/M/1's chain-form run. Every number printed
+carries the card's name and power limit.
 Details, the router and mix models' included, also go to
 chiprun_out/chip_smoke.json.
 """
@@ -209,19 +225,24 @@ import numpy as np
 import torch
 
 from happysim_tpu_torch import EnsembleModel, mm1_model, pipeline_model, rng, run_ensemble
+from happysim_tpu_torch.chain import fast_plan
 from happysim_tpu_torch.faults import duty_cycle
 from happysim_tpu_torch.model import FaultSpec
-from happysim_tpu_torch.engine import _Compiled, _resolve_params, macro_block_len
-from happysim_tpu_torch.kernels import event_step, support
+from happysim_tpu_torch.engine import _Compiled, _default_max_events, _resolve_params
+from happysim_tpu_torch.kernels import build, event_step, support, uniform
 
 REPLICAS = 65536
 MACRO = 32
 LAM, MU = 8.0, 10.0
 HORIZON_S, WARMUP_S = 160.0, 40.0
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 rate
-# outside the tensor cores.
+# outside the tensor cores; 32-bit integer adds, logic and shifts outside
+# the tensor cores: 132 SMs x (64 INT32 lanes + 64 FMA lanes, which issue
+# integer adds as IMAD, as the threefry's SASS does) x 1.98 GHz (the
+# data sheet's boost clock).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # Float operations one event step needs per replica, counted low (a log,
 # a multiply or divide and an add for the draw, a subtract and a max for
 # the interval, a multiply-add per server for the depth integral), so the
@@ -241,12 +262,22 @@ OPS_PER_PROFILE_FIRE = 35
 FLOAT_RTOL = 1e-6
 TIMED_BLOCKS = 20
 # Kernel times per block of the previous slice's run (NVIDIA H100 80GB
-# HBM3, 700 W), printed beside this run's.
+# HBM3, 700 W), the kernel then reading a drawn uniform block, printed
+# beside this run's.
 EARLIER_KERNEL_MS = {
-    "mm1": 0.0880, "chain": 0.1998, "router": 0.3072, "graph": 0.1431,
-    "families": 0.1014, "pareto": 0.0894, "profile": 0.1790,
-    "chaos": 0.8246, "deadline": 0.1488, "telemetry": 0.4602,
-    "telemetry-off": 0.1452,
+    "mm1": 0.0862, "chain": 0.2013, "router": 0.3066, "graph": 0.1456,
+    "families": 0.0998, "pareto": 0.0895, "profile": 0.1795,
+    "chaos": 0.8198, "deadline": 0.1467, "telemetry": 0.4563,
+    "telemetry-off": 0.1454, "resilience": 0.6416, "resilience-off": 1.1006,
+}
+# The timing of the kernel each scan run of the main path launches (the
+# deadline M/M/1 shares the deadline model's 1-server chaos code).
+TIMING_OF_RUN = {
+    "mm1": "mm1", "chain": "chain", "router": "router", "graph": "graph",
+    "mg1-lognormal": "families", "mg1-pareto": "pareto", "profile": "profile",
+    "chaos": "chaos", "deadline-mm1": "deadline", "telemetry": "telemetry",
+    "telemetry-off": "telemetry-off", "resilience-defended": "resilience",
+    "resilience-undefended": "resilience-off", "resilience-inert": "resilience-inert",
 }
 # bench.py's Pallas benches: horizon and fan-out width.
 BENCH_HORIZON_S = 40.0
@@ -325,10 +356,11 @@ def card_label() -> str:
 
 # -- models ----------------------------------------------------------------
 def router_model(policy: str = "round_robin", horizon_s: float = BENCH_HORIZON_S,
-                 warmup_s: float = BENCH_HORIZON_S / 4) -> EnsembleModel:
+                 warmup_s: float = BENCH_HORIZON_S / 4, constant_edges: bool = False) -> EnsembleModel:
     """bench.py's bench_kernel_router fan-out: one source, a router over
     4 servers (mu=10, queue 256) behind 5 ms per-target edges alternating
-    constant and exponential, each server draining to the sink."""
+    constant and exponential (all constant with ``constant_edges``: the
+    chain form's fan-out), each server draining to the sink."""
     model = EnsembleModel(
         horizon_s=horizon_s, warmup_s=warmup_s, transit_capacity=16, macro_block=MACRO
     )
@@ -343,7 +375,7 @@ def router_model(policy: str = "round_robin", horizon_s: float = BENCH_HORIZON_S
     for index, server in enumerate(servers):
         model.connect(
             router, server, latency_s=FANOUT_EDGE_S,
-            latency_kind="exponential" if index % 2 else "constant",
+            latency_kind="exponential" if index % 2 and not constant_edges else "constant",
         )
         model.connect(server, snk)
     return model
@@ -824,10 +856,10 @@ def fresh_run(model, sweeps=None, seed: int = 0):
     return compiled, keys, params, compiled.init_state(keys, params)
 
 
-def draw(compiled, keys, block: int, macro: int) -> torch.Tensor:
-    return rng.uniform(
-        rng.fold_in(keys, block), (macro, compiled.n_draws), minval=1e-12, maxval=1.0
-    )
+def draw(compiled, keys, block: int) -> torch.Tensor:
+    """The block's uniforms by the torch-op threefry: the plain step's
+    input (the kernel draws the same bits itself)."""
+    return event_step.block_uniforms(compiled, keys, block)
 
 
 def compare_states(kernel: dict, plain: dict, label: str) -> float:
@@ -861,14 +893,14 @@ def check_blocks(name: str, model, compare_at: list[int], sweeps=None) -> float:
     """Advance one full-size ensemble with the kernel; at each block in
     ``compare_at`` also run the plain version on a copy and compare."""
     compiled, keys, params, state = fresh_run(model, sweeps)
-    macro = macro_block_len(model)
     max_abs = 0.0
     for block in range(max(compare_at) + 1):
-        U = draw(compiled, keys, block, macro)
         if block in compare_at:
             plain_state = {k: v.clone() for k, v in state.items()}
-            plain_halted = event_step.plain_block_step(compiled, plain_state, U, params)
-            halted = event_step.block_step(compiled, state, U, params)
+            plain_halted = event_step.plain_block_step(
+                compiled, plain_state, draw(compiled, keys, block), params
+            )
+            halted = event_step.block_step(compiled, state, keys, block, params)
             torch.cuda.synchronize()
             err = compare_states(state, plain_state, f"{name} block {block}")
             require(bool((halted == plain_halted).all()), f"{name} block {block}: halted differs")
@@ -876,7 +908,7 @@ def check_blocks(name: str, model, compare_at: list[int], sweeps=None) -> float:
             print(f"  {name} block {block}: kernel == plain on every leaf ({live} replicas live after)")
             max_abs = max(max_abs, err)
         else:
-            event_step.block_step(compiled, state, U, params)
+            event_step.block_step(compiled, state, keys, block, params)
     torch.cuda.synchronize()
     return max_abs
 
@@ -895,44 +927,59 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
     """Per-block times at full size, from the first blocks (every replica
     live), and the bound for the same blocks."""
     compiled, keys, params, state = fresh_run(model, sweeps)
-    macro = macro_block_len(model)
-    blocks = [draw(compiled, keys, b, macro) for b in range(TIMED_BLOCKS + 2)]
+    macro = compiled.macro
     for b in range(2):  # warm-up
-        event_step.block_step(compiled, state, blocks[b], params)
+        event_step.block_step(compiled, state, keys, b, params)
     start = {k: v.clone() for k, v in state.items()}
     plain_state = {k: v.clone() for k, v in state.items()}
     wrapper_state = {k: v.clone() for k, v in state.items()}
+    count_state = {k: v.clone() for k, v in state.items()}
     # The kernel alone: launches with arguments built beforehand, so the
-    # wrapper's per-call tensor checks (host time of the order of the mm1
+    # wrapper's per-call checks (host time of the order of the mm1
     # kernel's) stay out of the device time.
     halted = torch.empty((REPLICAS,), dtype=torch.uint8, device="cuda")
     ready = [
-        event_step.launch_args(compiled, state, blocks[i + 2], params, halted)
+        event_step.launch_args(compiled, state, keys, i + 2, params, halted)
         for i in range(TIMED_BLOCKS)
     ]
     kernel_ms = elapsed_ms(lambda i: event_step.launch(ready[i], state["t"].device), TIMED_BLOCKS)
     # The same blocks through the wrapper, as run_ensemble's blocks after
-    # its first: the state's tensors checked once beforehand, U at every
-    # call.
-    event_step.launch_args(compiled, wrapper_state, blocks[2], params, halted)
+    # its first: the state's tensors checked once beforehand, the keys at
+    # every call.
+    event_step.launch_args(compiled, wrapper_state, keys, 2, params, halted)
     wrapper_ms = elapsed_ms(
-        lambda i: event_step.block_step(compiled, wrapper_state, blocks[i + 2], params),
+        lambda i: event_step.block_step(compiled, wrapper_state, keys, i + 2, params),
         TIMED_BLOCKS,
     )
-    event_step.plain_block_step(compiled, plain_state, blocks[2], params)  # warm-up
+    # The threefry the blocks needed: the same blocks again with the
+    # kernel counting each lane's draws (launches not timed).
+    drawn = torch.zeros((REPLICAS,), dtype=torch.int32, device="cuda")
+    total_drawn = 0
+    for i in range(TIMED_BLOCKS):
+        event_step.launch(
+            event_step.launch_args(compiled, count_state, keys, i + 2, params, halted, drawn),
+            count_state["t"].device,
+        )
+        total_drawn += int(drawn.sum())
+    plain_blocks = [draw(compiled, keys, b) for b in range(2, 6)]
+    event_step.plain_block_step(compiled, plain_state, plain_blocks[0], params)  # warm-up
     plain_ms = elapsed_ms(
-        lambda i: event_step.plain_block_step(compiled, plain_state, blocks[i + 3], params), 3
+        lambda i: event_step.plain_block_step(compiled, plain_state, plain_blocks[i + 1], params), 3
     )
-    draw(compiled, keys, 0, macro)  # warm-up
-    draw_ms = elapsed_ms(lambda i: draw(compiled, keys, i, macro), TIMED_BLOCKS)
-    per_replica = support.replica_working_set_bytes(compiled, macro, state)
-    bytes_per_block = support.launch_bytes(compiled, macro, state)
-    ops_per_block = (
+    draw(compiled, keys, 0)  # warm-up
+    draw_ms = elapsed_ms(lambda i: draw(compiled, keys, i), TIMED_BLOCKS)
+    per_replica = support.replica_working_set_bytes(compiled, state)
+    bytes_per_block = support.launch_bytes(compiled, state)
+    float_ops_per_block = (
         REPLICAS * macro * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER * compiled.nV)
         + extension_ops(compiled, start, state) / TIMED_BLOCKS
     )
+    drawn_per_block = total_drawn / TIMED_BLOCKS
+    int_ops_per_block = support.draw_int_ops(REPLICAS, drawn_per_block)
     bytes_ms = bytes_per_block / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops_per_block / PEAK_F32_OPS_PER_S * 1e3
+    ops_ms = max(
+        float_ops_per_block / PEAK_F32_OPS_PER_S, int_ops_per_block / PEAK_INT32_OPS_PER_S
+    ) * 1e3
     return {
         "model": label,
         "kernel_ms": kernel_ms,
@@ -941,7 +988,11 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
         "draw_ms": draw_ms,
         "bytes_per_replica": per_replica,
         "bytes_per_block": bytes_per_block,
-        "ops_per_block": ops_per_block,
+        "float_ops_per_block": float_ops_per_block,
+        "threefry_per_block": drawn_per_block,
+        "int_ops_per_block": int_ops_per_block,
+        "bytes_ms": bytes_ms,
+        "ops_ms": ops_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
@@ -973,13 +1024,74 @@ def extension_ops(compiled, before: dict, after: dict) -> int:
     return ops
 
 
+def check_uniform(tag: str) -> dict:
+    """The draw kernel against rng.uniform, bit for bit, on the M/M/1's
+    chain-form gap block: REPLICAS x n_customers uniforms of purpose 0
+    (about 10^8, 2^26 and more); its time, the plain version's and the
+    bound (4 bytes written per element; one threefry per element and one
+    fold per replica at the 32-bit integer rate)."""
+    lam = HORIZON_S * LAM
+    n = int(lam + 6.0 * math.sqrt(lam) + 20.0)  # chain.run_chain's budget
+    keys = rng.split(rng.PRNGKey(0, device="cuda"), REPLICAS)
+    got = uniform.replica_uniform(keys, 0, (n,))
+    want = uniform.plain_replica_uniform(keys, 0, (n,))
+    torch.cuda.synchronize()
+    elements = REPLICAS * n
+    require(elements >= 1 << 26, f"uniform check: {elements} elements")
+    same = bool((got.view(torch.int32) == want.view(torch.int32)).all())
+    require(same, "uniform kernel differs from rng.uniform")
+    del got, want
+    kernel_ms = elapsed_ms(lambda i: uniform.replica_uniform(keys, i, (n,)), 10)
+    plain_ms = elapsed_ms(lambda i: uniform.plain_replica_uniform(keys, i, (n,)), 2)
+    bytes_ms = (REPLICAS * 8 + elements * 4) / PEAK_BYTES_PER_S * 1e3
+    int_ops = REPLICAS * support.THREEFRY_OPS + elements * support.UNIFORM_INT_OPS
+    ops_ms = int_ops / PEAK_INT32_OPS_PER_S * 1e3
+    print(
+        f"uniform kernel == rng.uniform bit for bit on {REPLICAS} x {n} = {elements} uniforms; "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {int_ops / 1e9:.2f} G int ops, "
+        f"{elements * 4 / 1e6:.0f} MB) {tag}"
+    )
+    return {
+        "elements": elements, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def print_shares(runs: dict, timings: dict, tag: str) -> dict:
+    """Each scan run's kernel share of its wall time and the host's time
+    per block, (wall - launches x kernel ms) / launches, from the kernel
+    time per block of the timing of the same kernel and model."""
+    shares = {}
+    for run, timing in TIMING_OF_RUN.items():
+        result, launches = runs[run]
+        kernel_ms = timings[timing]["kernel_ms"]
+        wall_ms = result.wall_seconds * 1e3
+        share = launches * kernel_ms / wall_ms
+        host_ms = (wall_ms - launches * kernel_ms) / launches
+        shares[run] = {"wall_ms": wall_ms, "launches": launches, "kernel_share": share,
+                       "host_ms_per_block": host_ms}
+        print(
+            f"share {run}: {launches} blocks in {wall_ms:.1f} ms, kernel {100 * share:.1f}% "
+            f"({kernel_ms:.4f} ms/block), host {host_ms:.4f} ms/block, torch-op draw none {tag}"
+        )
+    return shares
+
+
 # -- the main path -------------------------------------------------------------
 def main_path_run(label: str, model, tag: str, shape: str, sweeps=None, max_events=None) -> tuple:
-    """run_ensemble on cuda with the launch count set to 0 just before and
-    read just after; returns (result, launches)."""
+    """run_ensemble's event scan on cuda with the launch counts set to 0
+    just before and read just after; returns (result, launches). The
+    budget is explicit, the one the scan takes by default unless given,
+    so a model the chain form takes stays on the scan."""
+    if max_events is None:
+        max_events = _default_max_events(model, sweeps)
     event_step.block_step.launches = 0
+    uniform.replica_uniform.launches = 0
     result = run_ensemble(model, n_replicas=REPLICAS, sweeps=sweeps, max_events=max_events)
     launches = event_step.block_step.launches
+    require(uniform.replica_uniform.launches == 0, f"{label}: the scan launched the draw kernel")
     blocks_run = max(result.block_occupancy)
     print(
         f"run_ensemble {label} x{REPLICAS}: engine_path {result.engine_path}, shape "
@@ -998,6 +1110,32 @@ def main_path_run(label: str, model, tag: str, shape: str, sweeps=None, max_even
     return result, launches
 
 
+def chain_run(label: str, model, tag: str) -> tuple:
+    """run_ensemble's default call, which takes the chain form, on cuda
+    with the launch counts set to 0 just before and read just after;
+    returns (result, draw kernel launches): for each block of replicas
+    the chain form draws at once, one for the gaps, one for a random
+    router's choice and one per server's service draws."""
+    require(fast_plan(model) is not None, f"{label}: no chain plan")
+    event_step.block_step.launches = 0
+    uniform.replica_uniform.launches = 0
+    result = run_ensemble(model, n_replicas=REPLICAS)
+    launches = uniform.replica_uniform.launches
+    print(
+        f"run_ensemble {label} x{REPLICAS} (default call): engine_path {result.engine_path}, "
+        f"{launches} draw kernel launches, {result.simulated_events} events in "
+        f"{result.wall_seconds:.3f} s = {result.events_per_second:.4g} events/s, draw kernel "
+        f"build and load {result.compile_seconds:.2f} s {tag}"
+    )
+    require(result.engine_path == "chain", f"{label}: engine_path {result.engine_path}")
+    require(event_step.block_step.launches == 0, f"{label}: the chain form launched the event step")
+    per_block = 1 + any(r.policy == "random" for r in model.routers) + len(model.servers)
+    require(launches > 0 and launches % per_block == 0, f"{label}: {launches} draw launches")
+    require(result.truncated_replicas == 0, f"{label}: {result.truncated_replicas} truncated replicas")
+    require(sum(result.server_dropped) == 0, f"{label}: drops in a certified run")
+    return result, launches
+
+
 def within(value: float, ref: float, label: str, rel: float = 0.01, unit: str = " s") -> None:
     print(
         f"  {label} {value:.6f}{unit} (reference {ref:.6f}, "
@@ -1010,11 +1148,10 @@ def per_replica_sink_counts(model) -> torch.Tensor:
     """Each replica's sink count after a block loop of ``model`` to its
     horizon (the kernel, as run_ensemble drives it)."""
     compiled, keys, params, state = fresh_run(model)
-    macro = macro_block_len(model)
     halted = compiled.replica_halted(state)
     block = 0
     while not bool(halted.all()):
-        halted = event_step.block_step(compiled, state, draw(compiled, keys, block, macro), params)
+        halted = event_step.block_step(compiled, state, keys, block, params)
         block += 1
     return state["sink_count"][:, 0]
 
@@ -1335,15 +1472,18 @@ def main() -> int:
     print(f"device: {name}; nvidia-smi: {card}")
 
     t0 = time.perf_counter()
-    built = event_step.build_libraries()
+    built = build.build_libraries()
     build_s = time.perf_counter() - t0
     event_step.load_library()
+    uniform.load_library()
     names = ", ".join(path.name for path, _log in built.values())
     print(f"build: {names} in {build_s:.1f} s (nvcc, sm_90a, one per source in parallel) {tag}")
     for _path, log in built.values():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
+
+    draw_check = check_uniform(tag)
 
     mm1 = mm1_model(LAM, MU, HORIZON_S, warmup_s=WARMUP_S)
     mm1.macro_block = MACRO
@@ -1451,9 +1591,10 @@ def main() -> int:
         print(
             f"timing {shape} ({t['model']}): kernel {t['kernel_ms']:.4f} ms/block{earlier}, through "
             f"the wrapper {t['wrapper_ms']:.4f} ms/block, plain "
-            f"{t['plain_ms']:.3f} ms/block, threefry draw {t['draw_ms']:.4f} ms/block, "
-            f"bound {t['bound_ms']:.4f} ms/block ({t['bound_by']}: "
-            f"{t['bytes_per_block'] / 1e6:.1f} MB/block) {tag}"
+            f"{t['plain_ms']:.3f} ms/block, the plain step's torch-op draw {t['draw_ms']:.4f} "
+            f"ms/block, bound {t['bound_ms']:.4f} ms/block ({t['bound_by']}: "
+            f"{t['bytes_per_block'] / 1e6:.1f} MB/block, {t['threefry_per_block'] / REPLICAS:.1f} "
+            f"threefry/lane, {t['int_ops_per_block'] / 1e9:.3f} G int ops) {tag}"
         )
     on, off = timings["telemetry"], timings["telemetry-off"]
     print(
@@ -1491,6 +1632,31 @@ def main() -> int:
         within(wait, (lam / MU) / (MU - lam), f"fanout server[{v}] mean wait")
     within(result.sink_mean_latency_s[0], 1.0 / (MU - lam) + FANOUT_EDGE_S, "fanout sink mean latency")
     runs["router"] = (result, launches)
+
+    # The default call: the chain form, its draws through the draw kernel.
+    chain_runs = {}
+    result, launches = chain_run("mm1-chain", mm1_model(LAM, MU, HORIZON_S, warmup_s=WARMUP_S), tag)
+    within(result.server_mean_wait_s[0], LAM / MU / (MU - LAM), "mm1-chain mean wait")
+    within(result.sink_mean_latency_s[0], 1.0 / (MU - LAM), "mm1-chain mean sojourn")
+    chain_runs["mm1-chain"] = (result, launches)
+    result, launches = chain_run(
+        "chain-chain", pipeline_model(8.0, (0.05, 0.08, 0.06), HORIZON_S), tag
+    )
+    scan = runs["chain"][0]
+    for v, wait in enumerate(result.server_mean_wait_s):
+        within(wait, scan.server_mean_wait_s[v], f"chain-chain server[{v}] mean wait vs the scan")
+    within(result.sink_mean_latency_s[0], scan.sink_mean_latency_s[0],
+           "chain-chain sink mean latency vs the scan")
+    chain_runs["chain-chain"] = (result, launches)
+    result, launches = chain_run(
+        "fanout-chain", router_model("random", HORIZON_S, WARMUP_S, constant_edges=True), tag
+    )
+    for v, wait in enumerate(result.server_mean_wait_s):
+        within(wait, (lam / MU) / (MU - lam), f"fanout-chain server[{v}] mean wait")
+    within(result.sink_mean_latency_s[0], 1.0 / (MU - lam) + FANOUT_EDGE_S,
+           "fanout-chain sink mean latency")
+    chain_runs["fanout-chain"] = (result, launches)
+
     runs["graph"] = main_path_run("graph", graph_model(), tag, "graph", GRAPH_SWEEPS)
     for family, (_shape, scv, gate, drop_share) in MG1_FAMILIES.items():
         result, launches = main_path_run(f"mg1-{family}", mg1_model(family), tag, "mm1")
@@ -1520,6 +1686,8 @@ def main() -> int:
     runs.update(telemetry_main_path(tag, runs))
     runs.update(resilience_main_path(tag))
 
+    shares = print_shares(runs, timings, tag)
+
     print(f"library_ms: {LIBRARY_NOTE}")
     kernels = {
         "kernels": [
@@ -1540,6 +1708,20 @@ def main() -> int:
                 "mm1", "chain", "router", "graph", "families", "profile", "chaos", "telemetry",
                 "resilience",
             )
+        ] + [
+            {
+                "name": "uniform",
+                "route": "cuda",
+                "source": "happysim_tpu_torch/kernels/csrc/uniform.cu",
+                "replaces": "happysim_tpu/tpu/chain.py:345 jax.random.uniform",
+                "launches": chain_runs["mm1-chain"][1],
+                "max_abs_err": 0.0,
+                "ms": draw_check["kernel_ms"],
+                "plain_ms": draw_check["plain_ms"],
+                "bound_ms": draw_check["bound_ms"],
+                "bound_by": draw_check["bound_by"],
+                "library_ms": None,
+            }
         ]
     }
     out_dir = Path("chiprun_out")
@@ -1551,8 +1733,11 @@ def main() -> int:
                 "device": name,
                 "build_seconds": build_s,
                 "timings": timings,
+                "uniform": draw_check,
+                "shares": shares,
                 "max_abs_err_off_main_path": extra_abs,
                 "run_ensemble": {shape: report(*run) for shape, run in runs.items()},
+                "chain": {name: report(*run) for name, run in chain_runs.items()},
                 **kernels,
             },
             indent=1,

@@ -23,10 +23,14 @@ this package                       JAX package
 ``faults.py``                      ``happysim_tpu/tpu/faults.py``
                                    (``FaultTable``, ``duty_cycle``)
 ``engine.py``                      ``happysim_tpu/tpu/engine.py``
+``chain.py``                       ``happysim_tpu/tpu/chain.py``
 ``telemetry.py``                   ``happysim_tpu/tpu/telemetry.py``
 ``kernels/support.py``             ``happysim_tpu/tpu/kernels/support.py``
 ``kernels/event_step.py``          ``happysim_tpu/tpu/kernels/event_step.py``
 ``kernels/csrc/event_step*.cu``    the Pallas kernel of ``build_block_step``
+``kernels/uniform.py``,            ``jax.random.uniform`` in ``chain.py``
+``kernels/csrc/uniform.cu``        (no Pallas kernel)
+``kernels/build.py``               (none: the nvcc build of ``csrc/``)
 ``numerics.py``                    ``jnp.interp`` and XLA's float32 erfinv
 ``convert.py``                     (none: numpy state/params across)
 =================================  =========================================
@@ -45,7 +49,10 @@ stochastic or pinned ``FaultSpec`` schedules (outage or degrade mode),
 correlated outages and packet loss on edges, the defenses against it
 (``model.circuit_breaker(...)``, ``load_shed(...)``, ``retry_budget(...)``)
 and windowed telemetry (``model.telemetry(...)``, ``result.timeseries``)
-on any of them. Every
+on any of them. As in the JAX package, a call with no ``max_events`` runs a
+Poisson source into a chain of FIFO single-server stations, or a random or
+round-robin router over such chains, by the max-plus closed form of
+``chain.py`` (``engine_path == "chain"``). Every
 other feature of the JAX package raises ``NotImplementedError`` naming itself and its ROADMAP
 item. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.

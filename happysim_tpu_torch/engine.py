@@ -26,12 +26,14 @@ same accounting sites, each event booked in the window of the time that
 JAX's step books it at; they come back as ``EnsembleResult.timeseries``.
 
 The hot loop runs in macro-blocks of ``macro`` event steps: the block's
-uniforms are drawn by :mod:`~happysim_tpu_torch.rng` from
-``fold_in(key, block)`` (the JAX stream), and
+uniforms are JAX's stream, ``uniform(fold_in(key, block))``, and
 :func:`~happysim_tpu_torch.kernels.event_step.block_step` advances every
-replica by the block — the hand-written CUDA kernel on the card, or its
-plain torch-op version (the step below, applied ``macro`` times) for CPU
-tensors. The loop ends once every replica has halted.
+replica by the block — the hand-written CUDA kernel on the card, which
+draws the uniforms itself, or for CPU tensors its plain torch-op version
+(the step below, applied ``macro`` times to the block drawn by
+:mod:`~happysim_tpu_torch.rng`). The loop ends once every replica has
+halted. A call with no event budget first tries the closed form of
+:mod:`~happysim_tpu_torch.chain`, as the JAX engine does.
 
 Reductions over replicas go through :mod:`~happysim_tpu_torch.reduce`, so
 the reported totals are order-free and exact.
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import time as _wall
 from dataclasses import dataclass
 from dataclasses import field as dataclasses_field
@@ -141,6 +144,16 @@ def macro_block_len(model: Optional[EnsembleModel] = None) -> int:
 def _f32(value, device) -> torch.Tensor:
     """A 0-d float32 tensor, so every op below runs in float32 as in JAX."""
     return torch.tensor(np.float32(value), dtype=torch.float32, device=device)
+
+
+def _fused(base: torch.Tensor, terms: tuple) -> torch.Tensor:
+    """``base + x * y`` for ``terms = (x, y)``, rounded once, where XLA's
+    CPU backend contracts the product into one multiply-add in the
+    compiled JAX step: a service's end, a hedge's race, an exponential
+    edge's arrival, a limiter's refill, the sink's sum of squares and the
+    depth integrals (ROADMAP C)."""
+    x, y = terms
+    return fma_f32(x, y.expand_as(x), base)
 
 
 def _hist_bin(latency: torch.Tensor) -> torch.Tensor:
@@ -309,6 +322,8 @@ class _Compiled:
         # its walk declines raises here, with JAX's reason.
         self.plan = support.kernel_plan(model)
         self.model = model
+        # Event steps per macro-block (a kernel launch, an RNG block).
+        self.macro = macro_block_len(model)
         self.nS = len(model.sources)
         self.nV = max(len(model.servers), 1)
         self.nK = len(model.sinks)
@@ -909,38 +924,54 @@ class _Compiled:
         return torch.stack(gaps, dim=1)
 
     # -- sampling ----------------------------------------------------------
-    def _sample_service(self, u, base: Optional[int], v: int, params):
+    def _service_terms(self, u, base: Optional[int], v: int, params):
         """One service draw per lane for server ``v`` from the
         ``n_svc_draws``-wide window at ``base`` (uniforms ua, ub, uc), by
-        its family, as JAX's ``_sample_service`` computes it; JAX selects
-        among the families present by kind, which is server ``v``'s own."""
+        its family, as JAX's ``_sample_service`` computes it, as the two
+        factors ``(x, y)`` of its last multiply: the service is ``x * y``
+        (a constant one is ``mean * 1``), which :func:`_fused` adds to a
+        time. JAX selects among the families present by kind; the draw is
+        the one of server ``v``'s own kind. With several families present
+        the select sits between the multiply and any add, and the terms
+        are ``(x * y, 1)``."""
+        x, y = self._family_terms(u, base, v, params)
+        if len(self.families_present) > 1:
+            return x * y, torch.ones_like(x)
+        return x, y
+
+    def _family_terms(self, u, base: Optional[int], v: int, params):
         mean = params["srv_mean"][:, v]
         kind = int(self.service_kind[v])
-        if kind == 0:
-            return mean
         dev = mean.device
+        if kind == 0:
+            return mean, _f32(1.0, dev)
         ua = u[:, base]
         if kind == 1:
-            return -torch.log(ua) * mean
+            return -torch.log(ua), mean
         if kind == 2:
             if self.srv_erlang_k[v] == 2.0:
-                return -torch.log(ua * u[:, base + 1]) * mean * 0.5
+                return -torch.log(ua * u[:, base + 1]) * mean, _f32(0.5, dev)
             # XLA rewrites JAX's "/ 3.0" as a multiply by float32(1/3).
             product = ua * u[:, base + 1] * u[:, base + 2]
-            return -torch.log(product) * mean * _f32(1.0 / 3.0, dev)
+            return -torch.log(product) * mean, _f32(1.0 / 3.0, dev)
         if kind == 3:
             factor = torch.where(
                 ua < _f32(self.srv_hyp_p1[v], dev),
                 _f32(self.srv_hyp_f1[v], dev),
                 _f32(self.srv_hyp_f2[v], dev),
             )
-            return -torch.log(u[:, base + 1]) * mean * factor
+            return -torch.log(u[:, base + 1]) * mean, factor
         if kind == 4:
             sigma = _f32(self.srv_ln_sigma[v], dev)
             z = _f32(_SQRT2, dev) * erfinv(2.0 * ua - 1.0)
-            return mean * torch.exp(sigma * z - 0.5 * sigma * sigma)
+            return mean, torch.exp(sigma * z - 0.5 * sigma * sigma)
         alpha = _f32(self.srv_par_alpha[v], dev)
-        return mean * _f32(self.srv_par_xmf[v], dev) * torch.pow(ua, -1.0 / alpha)
+        return mean * _f32(self.srv_par_xmf[v], dev), torch.pow(ua, -1.0 / alpha)
+
+    def _sample_service(self, u, base: Optional[int], v: int, params):
+        """The service draw of :meth:`_service_terms`, ``x * y``."""
+        x, y = self._service_terms(u, base, v, params)
+        return x * y
 
     def _profile_cum_at(self, i: int, t):
         """Lambda_i(t), extrapolated at the final rate past the grid."""
@@ -969,16 +1000,19 @@ class _Compiled:
             return -torch.log(u[:, self.U_GAP]) / rate
         return torch.ones_like(rate) / rate
 
-    def _edge_arrival(self, edge: EdgeLatency, t, u):
+    def _edge_arrival(self, edge: EdgeLatency, t, u, routed: bool = False):
         """``t`` plus the edge's latency draw (JAX ``_sample_edge``): a
         free edge adds nothing, a constant edge its mean, an exponential
-        edge ``-log(u) * mean`` from the U_LAT slot."""
+        edge ``-log(u) * mean`` from the U_LAT slot, rounded once with the
+        add on an edge out of a source, a server or a limiter; behind a
+        router JAX selects among the targets' draws first (``routed``)."""
         if edge.mean_s <= 0:
             return t
         mean = _f32(edge.mean_s, t.device)
-        if edge.kind == "exponential":
-            return t + -torch.log(u[:, self.U_LAT]) * mean
-        return t + mean
+        if edge.kind != "exponential":
+            return t + mean
+        draw = -torch.log(u[:, self.U_LAT])
+        return t + draw * mean if routed else _fused(t, (draw, mean))
 
     # -- chaos helpers -------------------------------------------------------
     def _edge_lost(self, u, t, loss_p, loss_start, loss_end) -> torch.Tensor:
@@ -1014,15 +1048,16 @@ class _Compiled:
         return torch.where(dark, _f32(self.faults.lat_factor[v], dark.device), one)
 
     def _hedge(self, service, second, v: int, allowed=None):
-        """A hedge on server ``v``: a second attempt launches when the
-        first runs past the hedge delay h (and, with a retry budget, a
-        token is there: ``allowed``); the slot is held for min(S1, h +
-        S2), and the hedge wins when h + S2 < S1 strictly. Returns
-        (service, hedged, won, would): ``would`` ignores the budget."""
+        """A hedge on server ``v``: a second attempt (of terms ``second``)
+        launches when the first runs past the hedge delay h (and, with a
+        retry budget, a token is there: ``allowed``); the slot is held for
+        min(S1, h + S2), and the hedge wins when h + S2 < S1 strictly.
+        Returns (service, hedged, won, would): ``would`` ignores the
+        budget."""
         h = _f32(self.srv_hedge[v], service.device)
         would = service > h
         hedged = would if allowed is None else would & allowed
-        raced = h + second
+        raced = _fused(h.expand_as(service), second)
         won = hedged & (raced < service)
         return torch.where(hedged, torch.minimum(service, raced), service), hedged, won, would
 
@@ -1120,13 +1155,14 @@ class _Compiled:
     # -- job delivery ------------------------------------------------------
     def _deliver(
         self, state, desc, lanes, t, created, u, dest: NodeRef, edge: EdgeLatency,
-        params, hop: int = 0, park: bool = False,
+        params, hop: int = 0, park: bool = False, routed: bool = False,
     ):
         """Hand a job leaving a node at ``t`` to ``dest`` across ``edge``
         (JAX ``_deliver`` / ``_deliver_chosen``). A server behind a
         latency edge, or behind a router with any latency-carrying target
         edge (``park``), is reached through its transit slots. ``hop``
-        counts the router hops this delivery has taken. A lossy edge
+        counts the router hops this delivery has taken; ``routed`` marks
+        an edge out of a router. A lossy edge
         (into a sink or a server only) vanishes the crossing with its
         probability inside its window: ``net_lost`` counts it and nothing
         else changes."""
@@ -1140,11 +1176,12 @@ class _Compiled:
         if dest.kind == LIMITER:
             self._through_limiter(state, desc, lanes, t, created, u, dest.index, params, hop)
         elif dest.kind == SINK:
-            self._deliver_sink(state, lanes, self._edge_arrival(edge, t, u), created, dest.index)
+            arrival = self._edge_arrival(edge, t, u, routed)
+            self._deliver_sink(state, lanes, arrival, created, dest.index)
         elif dest.kind == SERVER:
             if park or edge.mean_s > 0:
                 self._into_transit(
-                    state, lanes, dest.index, self._edge_arrival(edge, t, u), created
+                    state, lanes, dest.index, self._edge_arrival(edge, t, u, routed), created
                 )
             else:
                 self._arrive_server(state, desc, lanes, dest.index, t, created, u, params)
@@ -1180,7 +1217,8 @@ class _Compiled:
                 self._deliver(state, desc, picked, t, created, u, target, edge, params, hop + 1)
             else:
                 self._deliver(
-                    state, desc, picked, t, created, u, target, edge, params, hop, park=park
+                    state, desc, picked, t, created, u, target, edge, params, hop,
+                    park=park, routed=True,
                 )
 
     def _route_choice(self, state, u, r: int, router, hop: int) -> torch.Tensor:
@@ -1213,9 +1251,8 @@ class _Compiled:
         dev = t.device
         tokens = state["lim_tokens"][:, l]
         last = state["lim_last"][:, l]
-        refilled = torch.minimum(
-            tokens + (t - last) * _f32(self.lim_rate[l], dev), _f32(self.lim_cap[l], dev)
-        )
+        rate = _f32(self.lim_rate[l], dev).expand_as(tokens)
+        refilled = torch.minimum(_fused(tokens, (t - last, rate)), _f32(self.lim_cap[l], dev))
         admit = refilled >= 1.0
         state["lim_tokens"][:, l] = torch.where(
             lanes, torch.where(admit, refilled - 1.0, refilled), tokens
@@ -1265,7 +1302,9 @@ class _Compiled:
         sink_sum = state["sink_sum"][:, k]
         state["sink_sum"][:, k] = torch.where(measure, sink_sum + latency, sink_sum)
         sink_sq = state["sink_sq"][:, k]
-        state["sink_sq"][:, k] = torch.where(measure, sink_sq + latency * latency, sink_sq)
+        state["sink_sq"][:, k] = torch.where(
+            measure, _fused(sink_sq, (latency, latency)), sink_sq
+        )
         state["sink_hist"][:, k, :].scatter_add_(
             1, _hist_bin(latency)[:, None].long(), measure.to(torch.int32)[:, None]
         )
@@ -1331,16 +1370,26 @@ class _Compiled:
             free = free & (~fault_dark | (busy_count < cap))[:, None]
         has_free = free.any(dim=1)
         first_free = torch.argmax(free.to(torch.int32), dim=1)
-        service = self._sample_service(u, self.U_SVC1, v, params)
+        terms = self._service_terms(u, self.U_SVC1, v, params)
         factor = self._degrade_factor(v, fault_dark)
+        if factor is None and self.has_faults and self.faults.has_degrade_lat:
+            # JAX multiplies every server's arrivals by its factor, 1 here.
+            factor = _f32(1.0, dev)
         if factor is not None:
-            service = service * factor
+            terms = (terms[0] * terms[1], factor)
         hedged = won = would = None
         if self.has_hedge and np.isfinite(self.srv_hedge[v]):
-            second = self._sample_service(u, self.U_HED1, v, params)
+            second = self._service_terms(u, self.U_HED1, v, params)
             if factor is not None:
-                second = second * factor
-            service, hedged, won, would = self._hedge(service, second, v, bud_ok)
+                second = (second[0] * second[1], factor)
+            raced, hedged, won, would = self._hedge(terms[0] * terms[1], second, v, bud_ok)
+            terms = (raced, _f32(1.0, dev))
+        elif self.has_hedge:
+            # JAX's hedge select sits before the add at every server's
+            # arrival in a model with a hedge.
+            terms = (terms[0] * terms[1], _f32(1.0, dev))
+        service = terms[0] * terms[1]
+        done_at = _fused(t, terms)
         spec = self.model.servers[v]
         dark = no
         if spec.outage_start_s is not None:
@@ -1384,7 +1433,7 @@ class _Compiled:
         measured = start & (t >= _f32(self.warmup, dev))
 
         self._push(desc, lanes, enq, v, tail, created, t, attempt)
-        _set_at(done_row, first_free, start, t + service)
+        _set_at(done_row, first_free, start, done_at)
         _set_at(state["srv_slot_created"][:, v, :], first_free, start, created)
         if self.has_attempts:
             _set_at(state["srv_slot_attempt"][:, v, :], first_free, start, attempt)
@@ -1407,7 +1456,7 @@ class _Compiled:
             if bud_ok is not None:
                 self._budget_debit(state, v, start & hedged)
                 self._book_budget_dropped(state, v, t, start & would & ~bud_ok)
-        self._tel_integral(state, "tel_srv_busy_int", v, t, t + service, measured)
+        self._tel_integral(state, "tel_srv_busy_int", v, t, done_at, measured)
         self._tel_count(state, "tel_srv_dropped", t, v, drop)
         self._tel_count(state, "tel_srv_outage_dropped", t, v, lanes & dark)
         self._tel_count(state, "tel_srv_fault_dropped", t, v, lanes & fault_rejected & ~retry)
@@ -1558,19 +1607,20 @@ class _Compiled:
                 has_queued = has_queued & ~(degraded & (busy_now >= cap))
         head = state["srv_q_head"][:, v]
         queued_created, queued_enq, queued_attempt = self._read_queue_head(state, desc, v, head)
-        service = self._sample_service(u, self.U_SVC2, v, params)
+        terms = self._service_terms(u, self.U_SVC2, v, params)
         factor = self._degrade_factor(v, degraded)
         if factor is not None:
-            service = service * factor
+            terms = (terms[0] * terms[1], factor)
         if spec.hedge_delay_s is not None:
-            second = self._sample_service(u, self.U_HED2, v, params)
+            second = self._service_terms(u, self.U_HED2, v, params)
             if factor is not None:
-                second = second * factor
+                second = (second[0] * second[1], factor)
             allowed = None
             if self.has_budget:
                 # Refreshed at every completion, a pull or not, as JAX does.
                 allowed = self._budget_refresh(state, lanes, v, t, _f32(0.0, dev)) >= 1.0
-            service, hedged, won, would = self._hedge(service, second, v, allowed)
+            raced, hedged, won, would = self._hedge(terms[0] * terms[1], second, v, allowed)
+            terms = (raced, _f32(1.0, dev))
             state["srv_hedged"][:, v] += (has_queued & hedged).to(torch.int32)
             state["srv_hedge_wins"][:, v] += (has_queued & won).to(torch.int32)
             if allowed is not None:
@@ -1578,8 +1628,10 @@ class _Compiled:
                 self._book_budget_dropped(state, v, t, has_queued & would & ~allowed)
             self._tel_count(state, "tel_srv_hedged", t, v, has_queued & hedged)
             self._tel_count(state, "tel_srv_hedge_wins", t, v, has_queued & won)
+        service = terms[0] * terms[1]
+        done_at = _fused(t, terms)
         measured = has_queued & (t >= _f32(self.warmup, dev))
-        _set_at(done_row, k, has_queued, t + service)
+        _set_at(done_row, k, has_queued, done_at)
         _set_at(created_row, k, has_queued, queued_created)
         if self.has_attempts:
             _set_at(state["srv_slot_attempt"][:, v, :], k, has_queued, queued_attempt)
@@ -1590,7 +1642,7 @@ class _Compiled:
         state["srv_started"][:, v] += has_queued.to(torch.int32)
         busy = state["srv_busy_int"][:, v]
         state["srv_busy_int"][:, v] = torch.where(measured, busy + service, busy)
-        self._tel_integral(state, "tel_srv_busy_int", v, t, t + service, measured)
+        self._tel_integral(state, "tel_srv_busy_int", v, t, done_at, measured)
         wait_sum = state["srv_wait_sum"][:, v]
         state["srv_wait_sum"][:, v] = torch.where(
             measured, wait_sum + (t - queued_enq), wait_sum
@@ -1652,22 +1704,19 @@ class _Compiled:
             measured_lo = torch.maximum(state["t"], _f32(self.warmup, dev))
             dt = torch.clamp_min(t_next - measured_lo, 0.0)
             depth = state["srv_depth_int"]
+            q_len = state["srv_q_len"].to(torch.float32)
             depth.copy_(
                 torch.where(
-                    live[:, None],
-                    depth + state["srv_q_len"].to(torch.float32) * dt[:, None],
-                    depth,
+                    live[:, None], _fused(depth, (q_len, dt[:, None].expand_as(q_len))), depth
                 )
             )
             if "tel_srv_depth_int" in self.tel_keys:
                 # The same measured interval, split over the windows it
                 # spans.
                 tel = state["tel_srv_depth_int"]
-                piece = (
-                    self._tel_overlap(measured_lo, t_next)[:, :, None]
-                    * state["srv_q_len"].to(torch.float32)[:, None, :]
-                )
-                tel.copy_(torch.where(live[:, None, None], tel + piece, tel))
+                overlap = self._tel_overlap(measured_lo, t_next)[:, :, None].expand_as(tel)
+                piece = (overlap, q_len[:, None, :].expand_as(tel))
+                tel.copy_(torch.where(live[:, None, None], _fused(tel, piece), tel))
             state["t"].copy_(torch.where(live, t_next, state["t"]))
             state["events"] += live.to(torch.int32)
             t = state["t"]
@@ -1900,12 +1949,20 @@ def run_ensemble(
     """Run ``n_replicas`` Monte-Carlo replicas of ``model``.
 
     ``device=None`` means the CUDA card, and raises when torch finds none;
-    ``device="cpu"`` runs the plain torch-op step instead of the kernel.
+    ``device="cpu"`` runs the plain versions of the kernels instead.
     ``sweeps`` maps ``"source_rate"`` / ``"service_mean"`` to per-replica
     ``(R,)`` or ``(R, n)`` arrays. ``max_events`` is the per-replica event
     budget (default: from the arrival rates and the longest server path).
     Checkpoints (``checkpoint_every_s``, ``checkpoint_callback``,
     ``resume_from``) raise NotImplementedError (ROADMAP A.10).
+
+    As in the JAX engine, a call with no ``max_events`` runs a
+    Poisson -> FIFO chain -> sink model, or a single random or round-robin
+    router over such chains, by the closed form of
+    :mod:`~happysim_tpu_torch.chain` (``engine_path == "chain"``), unless
+    ``HS_TPU_CHAIN=0`` or its finite-capacity certificate or memory budget
+    declines; every other run is the event scan, one macro-block per
+    kernel launch.
     """
     if checkpoint_every_s is not None or checkpoint_callback is not None or resume_from is not None:
         raise not_ported("checkpoints and resume (ROADMAP A.10)")
@@ -1916,11 +1973,42 @@ def run_ensemble(
             f"n_replicas={n_replicas} exceeds the exact-reduction bound of "
             f"{MAX_EXACT_REPLICAS} replicas (reduce.py limb sums wrap past it)"
         )
+    # An explicit event budget is a contract about truncation the chain
+    # form does not implement (it has its own arrival budget).
+    explicit_max_events = max_events is not None
     if max_events is None:
         max_events = _default_max_events(model, sweeps)
-    macro = macro_block_len(model)
+    macro = compiled.macro
     n_chunks = -(-int(max_events) // macro)
     on_card = device.type == "cuda"
+    device_name = torch.cuda.get_device_name(device) if on_card else "cpu"
+
+    if not explicit_max_events and os.environ.get("HS_TPU_CHAIN", "1") != "0":
+        from happysim_tpu_torch import chain
+
+        plan = chain.fast_plan(model)
+        if plan is not None:
+            params = {
+                k: torch.from_numpy(v).to(device)
+                for k, v in _resolve_params(model, compiled, n_replicas, sweeps).items()
+            }
+            keys = rng.split(rng.PRNGKey(seed, device=device), n_replicas)
+            fast = chain.run_chain(
+                model, compiled, plan, keys, params["src_rate"], params["srv_mean"]
+            )
+            if fast is not None:
+                reduced, events_total, wall, compile_s = fast
+                return _build_result(
+                    model,
+                    compiled,
+                    reduced,
+                    events_total,
+                    wall,
+                    n_replicas,
+                    compile_seconds=compile_s,
+                    engine_path="chain",
+                    device_name=device_name,
+                )
     if on_card:
         support.check_kernel_bounds(compiled, macro)
 
@@ -1944,10 +2032,7 @@ def run_ensemble(
             break
         # A lane counts a block iff it was live when the block launched.
         blocks += (~halted).to(torch.int32)
-        U = rng.uniform(
-            rng.fold_in(keys, c), (macro, compiled.n_draws), minval=1e-12, maxval=1.0
-        )
-        halted = event_step.block_step(compiled, state, U, params)
+        halted = event_step.block_step(compiled, state, keys, c, params)
     reduced = reduce_final(compiled, state)
     reduced.update(_blocks_reduce(blocks, n_chunks))
     events_total = int(host_i64(reduced["events"]))
@@ -1967,7 +2052,7 @@ def run_ensemble(
         kernel_chaos=compiled.plan["chaos"] if on_card else (),
         macro_block=macro,
         max_blocks=n_chunks,
-        device_name=torch.cuda.get_device_name(device) if on_card else "cpu",
+        device_name=device_name,
     )
 
 
@@ -1987,7 +2072,9 @@ def _build_result(
     max_blocks: int = 0,
     device_name: str = "",
 ) -> EnsembleResult:
-    """Decode the device-reduced totals into an :class:`EnsembleResult`."""
+    """Decode the device-reduced totals into an :class:`EnsembleResult`
+    (for the event scan and the chain form, which emits the same keys and
+    encodings and runs no macro-blocks)."""
     horizon = float(model.horizon_s)
     truncated = int(reduced["truncated"])
     if truncated:
@@ -1996,7 +2083,7 @@ def _build_result(
             "(max_events=%s) before the %.3fs horizon; pass a larger max_events.",
             truncated,
             n_replicas,
-            max_events,
+            max_events if max_events is not None else "chain arrival budget",
             horizon,
         )
 
@@ -2010,9 +2097,11 @@ def _build_result(
     host = {k: _decode(k, v) for k, v in reduced.items()}
     nV_real = len(model.servers)
     nL_real = len(model.limiters)
-    hist_counts = host.pop("blocks_hist")
-    blocks_total = int(host.pop("blocks_total"))
-    block_occupancy = {int(v): int(c) for v, c in enumerate(hist_counts) if c}
+    blocks_total, block_occupancy = 0, {}
+    if "blocks_hist" in host:
+        hist_counts = host.pop("blocks_hist")
+        blocks_total = int(host.pop("blocks_total"))
+        block_occupancy = {int(v): int(c) for v, c in enumerate(hist_counts) if c}
     timeseries = None
     if compiled.has_telemetry:
         timeseries = build_timeseries(compiled.telemetry, compiled, host, n_replicas)

@@ -134,6 +134,8 @@ class FaultTable:
                 self.mean_dur[v] = spec.mean_duration_s
                 self.dur_const[v] = spec.duration == "constant"
         self.degrade = self.faulted & ~self.drop_mode
+        # Some server's degrade windows inflate its service.
+        self.has_degrade_lat = bool(np.any(self.degrade & (self.lat_factor > 1.0)))
 
     def draw_uniforms(self, keys: torch.Tensor) -> dict:
         """The schedule's uniforms for keys ``(R, 2)``: ``"servers"``

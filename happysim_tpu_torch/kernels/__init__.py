@@ -4,7 +4,11 @@
 :mod:`~happysim_tpu_torch.kernels.event_step` holds the macro-block
 event-step kernel (CUDA C++ in ``csrc/event_step.cuh``, launched from
 ``csrc/event_step.cu``, ``event_step_telemetry.cu`` and
-``event_step_resilience.cu``), its wrapper and
-its plain torch-op version; :mod:`~happysim_tpu_torch.kernels.support`
-holds its shape provenance and launch bounds.
+``event_step_resilience.cu``), which draws its own uniforms with the
+threefry of ``csrc/threefry.cuh``, its wrapper and its plain torch-op
+version; :mod:`~happysim_tpu_torch.kernels.uniform` the standalone draw
+kernel of the chain form (``csrc/uniform.cu``, the same threefry);
+:mod:`~happysim_tpu_torch.kernels.build` their nvcc build;
+:mod:`~happysim_tpu_torch.kernels.support` the event step's shape
+provenance, launch bounds and bytes and operations counts.
 """

@@ -89,19 +89,28 @@
 // state is absorbing) and every lane writes its halted flag after its
 // last step, so the host's early-exit test needs no second pass.
 //
-// What bounds it on this card: bytes moved per block. A block reads and
-// writes each replica's dense registers once and reads its uniforms
-// (macro * n_draws floats); the arithmetic is a few dozen float ops per
-// event against 67 TFLOP/s. The extended instantiations add a few dozen
-// more per service draw (lognormal's erfinv: log1pf, a root and eight
-// double multiply-adds, then expf; pareto's powf) and per profiled fire
-// (two searches of the shared tables), which leaves bytes the bound.
-// What this simple design leaves on the table:
-// the per-replica rows are strided, so a warp's accesses to U, the slot
-// arrays, the rings, the transit rows and sink_hist are uncoalesced (one
-// 32-byte sector per lane), and lanes diverge on the event kind and the
-// router branch. A (..., R)-minor layout, or staging a tile of replicas
-// through shared memory, and drawing U in the kernel are later work.
+// The uniforms. The JAX kernel reads a (macro, n_draws) block per replica
+// that the host drew from fold_in(key, block). Here each lane folds the
+// block index into its replica's key once and draws a uniform where a
+// step's branch reads it (HsDraw, csrc/threefry.cuh): element k * n_draws
+// + slot of the same stream, so the bits equal the drawn block's whatever
+// slots a step reads, and a slot no branch reads costs nothing.
+//
+// What bounds it on this card: 32-bit integer operations. A block reads
+// and writes each replica's dense registers once (about 9 MB at 65,536
+// replicas of the M/M/1) and draws one threefry2x32 (HS_THREEFRY_OPS
+// integer operations) per uniform read and one per lane for the block's
+// key, about 33 per lane on the M/M/1, against 33.5 Tops/s; the float
+// arithmetic is a few dozen operations per event against 67 TFLOP/s. The
+// extended instantiations add a few dozen more per service draw
+// (lognormal's erfinv: log1pf, a root and eight double multiply-adds,
+// then expf; pareto's powf) and per profiled fire (two searches of the
+// shared tables). What this simple design leaves on the table: the
+// per-replica rows are strided, so a warp's accesses to the slot arrays,
+// the rings, the transit rows and sink_hist are uncoalesced (one 32-byte
+// sector per lane), and lanes diverge on the event kind and the router
+// branch. A (..., R)-minor layout, or staging a tile of replicas through
+// shared memory, is later work.
 //
 // The chaos leaves (attempt arrays, fault registers, the chaos counters)
 // stay in device memory in the JAX layout and are touched only at the
@@ -135,15 +144,19 @@
 // do.
 // Where the JAX engine's XLA contracts c + a * b into one multiply-add
 // (the erfinv polynomial, the interp lerp, the profile extrapolation, the
-// backoff's spread and re-arrival time, the budget's refill), both
-// versions evaluate it in double and round once to float
-// (numerics.py::fma_f32).
+// backoff's spread and re-arrival time, the budget's refill, a service's
+// end t + x * y, a hedge's race, a direct exponential edge's arrival, the
+// limiter's refill, the sink's sum of squares and the depth integrals),
+// both versions evaluate it in double and round once to float
+// (numerics.py::fma_f32, engine.py::_fused).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 #define HS_MAX_NV 8
 #define HS_MAX_ROUTERS 8
@@ -293,10 +306,19 @@ struct EventStepArgs {
   float* tr_created;       // (R, nV, TR), null without transit
   int* tr_dropped;         // (R, nV), null without transit
   uint8_t* halted;         // (R,) out
-  const float* U;          // (R, macro, n_draws)
+  const uint32_t* keys;    // (R, 2) the replicas' threefry keys
+  int* draws;              // (R,) out: threefry evaluations per lane (null: not counted)
   const float* src_rate;   // (R, 1)
   const float* srv_mean;   // (R, nV)
   int R, nV, C, K, macro, n_draws;
+  unsigned int block;      // the absolute block index the draws are keyed by
+  // Where the compiled JAX step rounds t + x * y once (ROADMAP C): 1 when
+  // one service family is present (several: a select sits before the
+  // add), 1 when some server's degrade windows inflate its service (JAX
+  // then multiplies every arrival's service by its factor), 1 when some
+  // server hedges (JAX's hedge select then sits before every arrival's
+  // add).
+  int svc_fused, degrade_lat, hedge_any;
   int src_poisson;         // 1: -log(u)/rate gaps, 0: 1/rate
   int u_gap, u_svc1, u_svc2;  // uniform slots (-1: none)
   float stop_after, horizon, warmup;
@@ -405,8 +427,62 @@ __device__ __forceinline__ T pick_arg(const T* a, int i) {
   return out;
 }
 
-__device__ __forceinline__ float sample_service(int kind, float mean, float u) {
-  return kind == 0 ? mean : (-logf(u)) * mean;
+// The engine's uniforms: rng.uniform(fold_in(key_r, block), (macro,
+// n_draws), 1e-12, 1.0), element k * n_draws + slot for step k.
+#define HS_U_LO 1e-12f
+#define HS_U_SPAN 1.0f  // float32(1.0 - float32(1e-12))
+
+// How one of the engine's uniforms is drawn: inlined at its read site,
+// or through one called function. The CHAOS instantiations call it:
+// inlined at their many read sites (service, hedge, loss, jitter, route
+// and shed draws) it costs registers, spills and time; all others inline
+// it, and so does the 1-server chaos instantiation with telemetry and no
+// defense, which measured faster inlined (the kernel's draw_calls;
+// tools/ab_draw_inline.py times both ways). HS_DRAW_INLINE or
+// HS_DRAW_CALL forces one way on every instantiation, for that script.
+__device__ __forceinline__ float hs_draw_inline(HsKey key, uint32_t index) {
+  return hs_uniform_at(key, index, HS_U_LO, HS_U_SPAN);
+}
+
+__device__ __noinline__ float hs_draw_call(HsKey key, uint32_t index) {
+  return hs_uniform_at(key, index, HS_U_LO, HS_U_SPAN);
+}
+
+// Step k's row of the block's uniforms, drawn on demand: u[slot] is made
+// when a branch reads it, and the bits are the same whichever slots a
+// step reads. `u + base` is the window of slots from `base` on (the
+// service draws). Every draw adds one to *count.
+struct HsDraw {
+  HsKey key;       // fold_in(key_r, block)
+  uint32_t base;   // k * n_draws (+ a window's base)
+  int* count;      // this lane's threefry evaluations
+  bool call;       // draw through hs_draw_call (a constant of the instantiation)
+  __device__ __forceinline__ float operator[](int slot) const {
+    *count += 1;
+    const uint32_t index = base + (uint32_t)slot;
+#if defined(HS_DRAW_INLINE)
+    return hs_draw_inline(key, index);
+#elif defined(HS_DRAW_CALL)
+    return hs_draw_call(key, index);
+#else
+    return call ? hs_draw_call(key, index) : hs_draw_inline(key, index);
+#endif
+  }
+  __device__ __forceinline__ HsDraw operator+(int offset) const {
+    return HsDraw{key, base + (uint32_t)offset, count, call};
+  }
+};
+
+// A service draw as the two factors of its last multiply, service = x *
+// y (a constant service is mean * 1): a start adds it to t as one
+// multiply-add, as XLA contracts t + x * y in the compiled JAX step.
+struct HsSvc {
+  float x, y;
+};
+
+__device__ __forceinline__ HsSvc sample_service(int kind, float mean, const HsDraw& u, int slot) {
+  if (kind == 0) return HsSvc{mean, 1.0f};
+  return HsSvc{-logf(u[slot]), mean};
 }
 
 // c + a * b rounded once: exact product and sum in double, then float
@@ -433,31 +509,48 @@ __device__ __forceinline__ float erfinv_f32(float x) {
 }
 
 // One service draw of family `kind` from the window u[0..n_svc_draws)
-// (JAX _sample_service; the kind picks the family, as jnp.select does).
+// (JAX _sample_service; the kind picks the family, as jnp.select does),
+// as its last multiply's factors.
 template <int MAXV>
-__device__ __forceinline__ float sample_family(const EventStepArgs& a, int w, float mean,
-                                               const float* u) {
+__device__ __forceinline__ HsSvc sample_family(const EventStepArgs& a, int w, float mean,
+                                               const HsDraw& u) {
   const int kind = pick_arg<MAXV>(a.svc_kind, w);
-  if (kind == HS_SVC_CONSTANT) return mean;
+  if (kind == HS_SVC_CONSTANT) return HsSvc{mean, 1.0f};
   const float ua = u[0];
-  if (kind == HS_SVC_EXPONENTIAL) return (-logf(ua)) * mean;
+  if (kind == HS_SVC_EXPONENTIAL) return HsSvc{-logf(ua), mean};
   if (kind == HS_SVC_ERLANG) {
-    if (pick_arg<MAXV>(a.erlang_k, w) == 2) return (-logf(ua * u[1])) * mean * 0.5f;
+    if (pick_arg<MAXV>(a.erlang_k, w) == 2) return HsSvc{(-logf(ua * u[1])) * mean, 0.5f};
     // XLA rewrites JAX's "/ 3.0" as a multiply by float(1/3).
-    return (-logf(ua * u[1] * u[2])) * mean * (1.0f / 3.0f);
+    return HsSvc{(-logf(ua * u[1] * u[2])) * mean, 1.0f / 3.0f};
   }
   if (kind == HS_SVC_HYPEREXP) {
     const float factor = ua < pick_arg<MAXV>(a.hyp_p1, w) ? pick_arg<MAXV>(a.hyp_f1, w)
                                                           : pick_arg<MAXV>(a.hyp_f2, w);
-    return (-logf(u[1])) * mean * factor;
+    return HsSvc{(-logf(u[1])) * mean, factor};
   }
   if (kind == HS_SVC_LOGNORMAL) {
     const float sigma = pick_arg<MAXV>(a.ln_sigma, w);
     const float z = 1.41421354f * erfinv_f32(2.0f * ua - 1.0f);
-    return mean * expf(sigma * z - 0.5f * sigma * sigma);
+    return HsSvc{mean, expf(sigma * z - 0.5f * sigma * sigma)};
   }
   const float alpha = pick_arg<MAXV>(a.par_alpha, w);
-  return mean * pick_arg<MAXV>(a.par_xmf, w) * powf(ua, -1.0f / alpha);
+  return HsSvc{mean * pick_arg<MAXV>(a.par_xmf, w), powf(ua, -1.0f / alpha)};
+}
+
+// Server w's service draw from the window at u (EXT: any family), with
+// several families present the product rounded first (engine.py's
+// _service_terms).
+template <int MAXV, bool EXT>
+__device__ __forceinline__ HsSvc service_terms(const EventStepArgs& a, int w, float mean,
+                                               const HsDraw& u) {
+  HsSvc s;
+  if constexpr (EXT) {
+    s = sample_family<MAXV>(a, w, mean, u);
+  } else {
+    s = sample_service(pick_arg<MAXV>(a.svc_kind, w), mean, u, 0);
+  }
+  if (!a.svc_fused) s = HsSvc{s.x * s.y, 1.0f};
+  return s;
 }
 
 // numpy/jnp searchsorted(xp, x, side="right") on a sorted (n,) grid: the
@@ -536,7 +629,7 @@ __device__ __forceinline__ void tel_integral(float* buf, const HsTel& T, size_t 
     const float overlap = fmaxf(fminf(hi, w_hi) - fmaxf(lo, w_lo), 0.0f);
     if (overlap > 0.0f) {
       float* cell = buf + (row + w) * width + i;
-      *cell = *cell + overlap * scale;
+      *cell = fma_f64(overlap, scale, *cell);
     }
   }
 }
@@ -569,6 +662,7 @@ struct Lane {
   size_t tel_row;
   // RES: this replica's first row (r * nV) of the resilience leaves
   size_t res_row;
+  int drawn;  // threefry evaluations this launch (the block key's included)
 };
 
 // _deliver_sink: only arrivals inside [warmup, horizon] are measured.
@@ -580,7 +674,7 @@ __device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs&
     const float latency = arrival - created;
     L.sk_count += 1;
     L.sk_sum = L.sk_sum + latency;
-    L.sk_sq = L.sk_sq + latency * latency;
+    L.sk_sq = fma_f64(latency, latency, L.sk_sq);
     L.hist[hist_bin(latency)] += 1;
     if constexpr (TEL) {
       const HsTel& T = a.tel;
@@ -598,7 +692,7 @@ __device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs&
 // tail, else drop.
 template <int MAXV, bool EXT, bool TEL = false>
 __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs& a, int w,
-                                              float t, float created, const float* u) {
+                                              float t, float created, const HsDraw& u) {
   const int C = a.C, K = a.K;
   const int cw = pick_arg<MAXV>(a.conc, w);
   float* row = L.slot_done + w * C;
@@ -606,14 +700,9 @@ __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs
   for (int c = 0; c < cw; ++c)
     if (isinf(row[c])) { first_free = c; break; }
   if (first_free >= 0) {
-    float service;
-    if constexpr (EXT) {
-      service = sample_family<MAXV>(a, w, pick(L.mean, w), u + a.u_svc1);
-    } else {
-      const float ua = a.u_svc1 >= 0 ? u[a.u_svc1] : 0.5f;
-      service = sample_service(pick_arg<MAXV>(a.svc_kind, w), pick(L.mean, w), ua);
-    }
-    const float done_at = t + service;
+    const HsSvc s = service_terms<MAXV, EXT>(a, w, pick(L.mean, w), u + a.u_svc1);
+    const float service = s.x * s.y;
+    const float done_at = fma_f64(s.x, s.y, t);
     row[first_free] = done_at;
     L.slot_created[w * C + first_free] = created;
     put(L.started, w, pick(L.started, w) + 1);
@@ -640,13 +729,15 @@ __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs
 }
 
 // t plus the edge's latency draw (_sample_edge): nothing for a free
-// edge, the mean for a constant one, -log(u) * mean for an exponential.
-__device__ __forceinline__ float edge_arrival(const HsRef& e, float t, const float* u,
-                                              int u_lat) {
+// edge, the mean for a constant one, -log(u) * mean for an exponential,
+// added as one multiply-add except on an edge out of a router, where JAX
+// selects among the targets' draws before the add (`routed`).
+__device__ __forceinline__ float edge_arrival(const HsRef& e, float t, const HsDraw& u,
+                                              int u_lat, bool routed) {
   if (e.lat_kind == HS_LAT_NONE) return t;
-  const float lat = e.lat_kind == HS_LAT_EXPONENTIAL ? (-logf(u[u_lat])) * e.lat_mean
-                                                     : e.lat_mean;
-  return t + lat;
+  if (e.lat_kind != HS_LAT_EXPONENTIAL) return t + e.lat_mean;
+  const float draw = -logf(u[u_lat]);
+  return routed ? t + draw * e.lat_mean : fma_f64(draw, e.lat_mean, t);
 }
 
 // _into_transit: park in the first free transit slot of server w until
@@ -710,18 +801,19 @@ __device__ __forceinline__ int active_slots(const float* row, int cw) {
 // multiply-add, as XLA's CPU backend contracts them in the JAX step.
 template <int MAXV>
 __device__ __forceinline__ float backoff_arrival(const EventStepArgs& a, int w, int attempt,
-                                                 const float* u, float t) {
+                                                 const HsDraw& u, float t) {
   const float uj = a.u_jit >= 0 ? u[a.u_jit] : 0.5f;
   const float spread = fma_f64(pick_arg<MAXV>(a.jitter, w), uj - 0.5f, 1.0f);
   return fma_f64(pick_arg<MAXV>(a.backoff, w) * exp2f((float)attempt), spread, t);
 }
 
-// A hedge with delay h: the slot is held for min(S1, h + S2); the second
+// A hedge with delay h and a second draw of terms s2: the slot is held for
+// min(S1, h + S2), h + S2 one multiply-add as XLA contracts it; the second
 // attempt launches when S1 > h and wins when h + S2 < S1.
-__device__ __forceinline__ float hedge_race(float service, float second, float h,
-                                            bool& hedged, bool& won) {
+__device__ __forceinline__ float hedge_race(float service, HsSvc s2, float h, bool& hedged,
+                                            bool& won) {
   hedged = service > h;
-  const float raced = h + second;
+  const float raced = fma_f64(s2.x, s2.y, h);
   won = hedged && raced < service;
   return hedged ? fminf(service, raced) : service;
 }
@@ -840,7 +932,7 @@ __device__ __forceinline__ void budget_dropped(const Lane<MAXV>& L, const EventS
 template <int MAXV, bool TEL = false, bool RES = false>
 __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                                     float t, float created, int attempt,
-                                                    const float* u) {
+                                                    const HsDraw& u) {
   const int C = a.C, K = a.K;
   int bst = 0;          // RES: the breaker's effective state
   bool probe = false;   // RES: a half-open breaker's probe, spent if admitted
@@ -927,13 +1019,16 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
     const float mean = pick(L.mean, w);
     const float factor = pick_arg<MAXV>(a.lat_factor, w);
     const bool inflate = degraded && factor > 1.0f;
-    float service = sample_family<MAXV>(a, w, mean, u + a.u_svc1);
-    if (inflate) service = service * factor;
+    // JAX multiplies every arrival's service by its factor (1 unless
+    // inflated) once some server's degrade windows inflate.
+    HsSvc s = service_terms<MAXV, true>(a, w, mean, u + a.u_svc1);
+    if (a.degrade_lat) s = HsSvc{s.x * s.y, inflate ? factor : 1.0f};
     if (flags & HS_F_HEDGE) {
       const float h = pick_arg<MAXV>(a.hedge, w);
+      float service = s.x * s.y;
       if (bud_ok) {
-        float second = sample_family<MAXV>(a, w, mean, u + a.u_hed1);
-        if (inflate) second = second * factor;
+        HsSvc second = service_terms<MAXV, true>(a, w, mean, u + a.u_hed1);
+        if (a.degrade_lat) second = HsSvc{second.x * second.y, inflate ? factor : 1.0f};
         bool hedged, won;
         service = hedge_race(service, second, h, hedged, won);
         L.hedged[w] += hedged ? 1 : 0;
@@ -948,8 +1043,12 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
       } else if constexpr (RES) {
         if (service > h) budget_dropped<MAXV, TEL>(L, a, w, t);
       }
+      s = HsSvc{service, 1.0f};
+    } else if (a.hedge_any) {
+      s = HsSvc{s.x * s.y, 1.0f};
     }
-    const float done_at = t + service;
+    const float service = s.x * s.y;
+    const float done_at = fma_f64(s.x, s.y, t);
     row[first_free] = done_at;
     L.slot_created[w * C + first_free] = created;
     if (L.slot_attempt) L.slot_attempt[w * C + first_free] = attempt;
@@ -983,7 +1082,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
 // _route_choice for router `rix` at hop depth `hop`, then _bump_rr.
 template <int MAXV>
 __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& a, int rix,
-                                            int hop, const float* u) {
+                                            int hop, const HsDraw& u) {
   const int n = a.rt_n[rix];
   const int policy = a.rt_policy[rix];
   if (policy == HS_ROUND_ROBIN) {
@@ -1026,7 +1125,7 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
 // RES: the server arrival runs the defenses.
 template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false, bool TEL = false, bool RES = false>
 __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, HsRef dest,
-                                        float t, float created, const float* u,
+                                        float t, float created, const HsDraw& u,
                                         HsLoss loss = HsLoss{0.0f, 0.0f, 0.0f},
                                         int attempt = 0) {
   if constexpr (!GRAPH) {
@@ -1036,13 +1135,14 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
       arrive_server<MAXV, EXT, TEL>(L, a, dest.index, t, created, u);
     }
   } else {
-    bool park = false;  // chosen by a router with a latency-carrying target edge
+    bool park = false;    // chosen by a router with a latency-carrying target edge
+    bool routed = false;  // the edge into dest is a router's
     int hop = 0;
     for (int step = 0; step < a.max_walk; ++step) {
       if (dest.kind == HS_LIMITER) {
         const int l = dest.index;
         const float refilled =
-            fminf(L.lim_tokens[l] + (t - L.lim_last[l]) * a.lim_rate[l], a.lim_cap[l]);
+            fminf(fma_f64(t - L.lim_last[l], a.lim_rate[l], L.lim_tokens[l]), a.lim_cap[l]);
         const bool admit = refilled >= 1.0f;
         L.lim_tokens[l] = admit ? refilled - 1.0f : refilled;
         L.lim_last[l] = t;
@@ -1054,6 +1154,7 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         L.lim_admitted[l] += 1;
         if constexpr (TEL) tel_count(a.tel.lim_admitted, a.tel, L.tel_row, a.nL, t, l);
         dest = a.lim_ref[l];
+        routed = false;
         if constexpr (CHAOS) loss = a.lim_loss[l];
         continue;
       }
@@ -1061,6 +1162,7 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         const int rix = dest.index;
         const int choice = route_choice(L, a, rix, hop, u);
         dest = a.rt_target[rix][choice];
+        routed = true;
         if constexpr (CHAOS) loss = a.rt_loss[rix][choice];
         if (dest.kind == HS_ROUTER) {
           hop += 1;
@@ -1076,10 +1178,10 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         }
       }
       if (dest.kind == HS_SINK) {
-        deliver_sink<MAXV, TEL>(L, a, edge_arrival(dest, t, u, a.u_lat), created);
+        deliver_sink<MAXV, TEL>(L, a, edge_arrival(dest, t, u, a.u_lat, routed), created);
       } else if (park || dest.lat_kind != HS_LAT_NONE) {
-        into_transit<MAXV, CHAOS, TEL>(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat),
-                                       created);
+        into_transit<MAXV, CHAOS, TEL>(L, a, dest.index,
+                                       edge_arrival(dest, t, u, a.u_lat, routed), created);
       } else if constexpr (CHAOS) {
         arrive_server_chaos<MAXV, TEL, RES>(L, a, dest.index, t, created, attempt, u);
       } else {
@@ -1111,7 +1213,6 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   if (r >= a.R) return;
   const int nV = a.nV, C = a.C, K = a.K, TR = a.TR, nd = a.n_draws;
   const size_t rv = (size_t)r * nV;
-  const float* U = a.U + (size_t)r * a.macro * nd;
 
   Lane<MAXV> L;
   L.slot_done = a.slot_done + rv * C;
@@ -1150,6 +1251,12 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   }
   if constexpr (TEL) L.tel_row = (size_t)r * a.tel.nW;
   if constexpr (RES) L.res_row = rv;
+  // The block's key, folded once: the draws of step k are elements
+  // k * n_draws + slot of its uniforms.
+  const HsKey block_key = hs_fold_in(HsKey{a.keys[2 * (size_t)r], a.keys[2 * (size_t)r + 1]}, a.block);
+  L.drawn = 1;
+  // Whether this instantiation draws through hs_draw_call (see HsDraw).
+  constexpr bool draw_calls = CHAOS && (RES || !TEL || MAXV > 1);
 #pragma unroll
   for (int v = 0; v < MAXV; ++v) {
     const bool real = v < nV;
@@ -1190,12 +1297,12 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     }
     if (isinf(tn) || tn > a.horizon) break;  // halted: every later step is a no-op
 
-    const float* u = U + k * nd;
+    const HsDraw u{block_key, (uint32_t)(k * nd), &L.drawn, draw_calls};
     const float lo = fmaxf(t, a.warmup);
     const float dt = fmaxf(tn - lo, 0.0f);
 #pragma unroll
     for (int v = 0; v < MAXV; ++v)
-      if (v < nV) L.depth[v] = L.depth[v] + (float)L.q_len[v] * dt;
+      if (v < nV) L.depth[v] = fma_f64((float)L.q_len[v], dt, L.depth[v]);
     if constexpr (TEL) {
       // The same measured interval [lo, tn), split over the windows it
       // spans; an empty queue adds nothing.
@@ -1369,24 +1476,24 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       }
       if (pull) {
         const int head = pick(L.q_head, from);
-        float service;
-        if constexpr (EXT) {
-          service = sample_family<MAXV>(a, from, pick(L.mean, from), u + a.u_svc2);
-        } else {
-          const float ub = a.u_svc2 >= 0 ? u[a.u_svc2] : 0.5f;
-          service = sample_service(pick_arg<MAXV>(a.svc_kind, from), pick(L.mean, from), ub);
-        }
+        HsSvc s = service_terms<MAXV, EXT>(a, from, pick(L.mean, from), u + a.u_svc2);
         if constexpr (CHAOS) {
+          const int flags = pick_arg<MAXV>(a.srv_flags, from);
           const float factor = pick_arg<MAXV>(a.lat_factor, from);
-          if (inflate) service = service * factor;
+          // A server whose degrade windows inflate multiplies its pull's
+          // service by the factor, 1 while not dark.
+          if ((flags & HS_F_FAULTED) && !(flags & HS_F_DROP) && factor > 1.0f)
+            s = HsSvc{s.x * s.y, inflate ? factor : 1.0f};
+          float service = s.x * s.y;
           if constexpr (RES) {
             if (!pull_ok && (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE) &&
                 service > pick_arg<MAXV>(a.hedge, from))
               budget_dropped<MAXV, TEL>(L, a, from, t);
           }
-          if ((pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE) && pull_ok) {
-            float second = sample_family<MAXV>(a, from, pick(L.mean, from), u + a.u_hed2);
-            if (inflate) second = second * factor;
+          if ((flags & HS_F_HEDGE) && pull_ok) {
+            HsSvc second = service_terms<MAXV, EXT>(a, from, pick(L.mean, from), u + a.u_hed2);
+            if ((flags & HS_F_FAULTED) && !(flags & HS_F_DROP) && factor > 1.0f)
+              second = HsSvc{second.x * second.y, inflate ? factor : 1.0f};
             bool hedged, won;
             service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, from), hedged, won);
             L.hedged[from] += hedged ? 1 : 0;
@@ -1399,9 +1506,12 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
               if (won) tel_count(a.tel.hedge_wins, a.tel, L.tel_row, nV, t, from);
             }
           }
+          if (flags & HS_F_HEDGE) s = HsSvc{service, 1.0f};
           if (L.slot_attempt) L.slot_attempt[from * C + from_slot] = L.q_attempt[from * K + head];
         }
-        row[from_slot] = t + service;
+        const float service = s.x * s.y;
+        const float done_at = fma_f64(s.x, s.y, t);
+        row[from_slot] = done_at;
         L.slot_created[from * C + from_slot] = L.q_created[from * K + head];
         put(L.q_head, from, (head + 1) % K);
         put(L.q_len, from, ql - 1);
@@ -1412,7 +1522,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
           put(L.wait_n, from, pick(L.wait_n, from) + 1);
           if constexpr (TEL) {
             if (a.tel.busy_int)
-              tel_integral(a.tel.busy_int, a.tel, L.tel_row, nV, from, t, t + service, 1.0f);
+              tel_integral(a.tel.busy_int, a.tel, L.tel_row, nV, from, t, done_at, 1.0f);
           }
         }
       }
@@ -1427,6 +1537,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     if constexpr (GRAPH) tn = fminf(tn, L.tmin[v]);
   }
   a.halted[r] = (isinf(tn) || tn > a.horizon) ? 1 : 0;
+  if (a.draws) a.draws[r] = L.drawn;
 
   a.t[r] = t;
   a.src_next[r] = src_next;

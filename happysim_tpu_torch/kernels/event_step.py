@@ -3,11 +3,15 @@ torch-op version (counterpart of ``happysim_tpu/tpu/kernels/event_step.py``,
 whose ``build_block_step`` reaches the Pallas kernel).
 
 :func:`block_step` advances every replica by one macro-block of
-``U.shape[1]`` event steps, in place, and returns the per-replica halted
-mask. For CUDA tensors it launches the hand-written kernel in
-``csrc/event_step.cu`` (or raises); for CPU tensors it runs
-:func:`plain_block_step`, the engine's torch-op step applied ``macro``
-times, which is also the kernel's yardstick on the card. Lines of
+``macro`` event steps, in place, and returns the per-replica halted mask.
+The block's uniforms are JAX's stream, ``uniform(fold_in(key, block),
+(macro, n_draws), 1e-12, 1.0)`` per replica. For CUDA tensors it launches
+the hand-written kernel in ``csrc/event_step.cu`` (or raises), which
+draws each uniform itself (``csrc/threefry.cuh``) where a step's branch
+reads it; for CPU tensors it runs :func:`plain_block_step`, the engine's
+torch-op step applied ``macro`` times to the block drawn by the torch-op
+threefry (:func:`block_uniforms`), which is also the kernel's yardstick
+on the card. Lines of
 servers joined by free edges ("mm1", "chain", and a source wired
 straight to the sink) launch the kernel's line instantiation; every model
 with a router, a limiter or a latency edge launches its graph
@@ -27,8 +31,8 @@ breaker, load shedding or a retry budget launches a resilience
 instantiation: the chaos code plus the defenses' gates, with or without
 the telemetry sites.
 
-The kernel is compiled on first use with ``nvcc`` from this package's
-sources into ``build/`` at the repository root, one library per source
+The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
+``build/`` at the repository root, one library per source
 (``csrc/event_step.cu`` without telemetry or resilience,
 ``csrc/event_step_telemetry.cu`` with telemetry,
 ``csrc/event_step_resilience.cu`` with the defenses), all built at once,
@@ -38,34 +42,18 @@ each bound through a plain C launcher loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import weakref
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from happysim_tpu_torch.kernels import support
+from happysim_tpu_torch import rng
+from happysim_tpu_torch.kernels import build, support
+from happysim_tpu_torch.kernels.build import CSRC  # noqa: F401  (the sources' directory)
 from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-# One library per source: the kernel without telemetry or resilience, its
-# telemetry instantiations, and its resilience instantiations.
-SOURCES = (
-    CSRC / "event_step.cu", CSRC / "event_step_telemetry.cu", CSRC / "event_step_resilience.cu"
-)
-HEADERS = (CSRC / "event_step.cuh",)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-# No --use_fast_math, and no multiply-add contraction: the kernel must
-# round exactly as the plain version's one-op-per-kernel torch step.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+# The libraries of the event-step kernel (kernels/build.py builds them).
+EVENT_STEP_STEMS = ("event_step", "event_step_telemetry", "event_step_resilience")
 
 _MAX_NV = support.KERNEL_MAX_SERVERS
 _MAX_R = support.KERNEL_MAX_ROUTERS
@@ -169,11 +157,13 @@ class _Args(ctypes.Structure):
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in _BASE_FIELDS]
-        + [(name, ctypes.c_void_p) for name in ("halted", "U", "src_rate", "srv_mean")]
+        + [(name, ctypes.c_void_p) for name in ("halted", "keys", "draws", "src_rate", "srv_mean")]
+        + [(name, ctypes.c_int) for name in ("R", "nV", "C", "K", "macro", "n_draws")]
+        + [("block", ctypes.c_uint)]
         + [
             (name, ctypes.c_int)
             for name in (
-                "R", "nV", "C", "K", "macro", "n_draws",
+                "svc_fused", "degrade_lat", "hedge_any",
                 "src_poisson", "u_gap", "u_svc1", "u_svc2",
             )
         ]
@@ -235,65 +225,14 @@ _F_FAULTED, _F_DROP, _F_SHARED, _F_FAULT_RETRY = 1, 2, 4, 8
 _F_BACKOFF, _F_HEDGE, _F_OUTAGE, _F_DEADLINE = 16, 32, 64, 128
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the event-step kernel cannot be built")
-
-
-def build_libraries() -> dict:
-    """Compile each of :data:`SOURCES` into ``build/`` unless a library for
-    these exact sources and flag set is already there, one ``nvcc`` per
-    source, all started together. Returns ``{source stem: (library path,
-    compiler log)}``, the log holding ``-Xptxas -v``'s registers and
-    spills per instantiation (empty for a library already built)."""
-    header_bytes = b"".join(p.read_bytes() for p in HEADERS)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for source in SOURCES:
-        digest = hashlib.sha256(
-            source.read_bytes() + header_bytes + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"{source.stem}_{digest}.so"
-        if out.exists():
-            jobs[source] = (out, None, None)
-            continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE,
-            text=True,
-        )
-        jobs[source] = (out, tmp, proc)
-    built, failed = {}, []
-    for source, (out, tmp, proc) in jobs.items():  # wait for every nvcc
-        if proc is None:
-            built[source.stem] = (out, "")
-            continue
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed to build {source.name}:\n{stderr}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-        built[source.stem] = (out, stdout + stderr)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return built
-
-
 def load_library() -> dict:
     """Build (first use) and load the kernel libraries, once per process;
-    returns ``{source stem: ctypes library}``."""
+    returns ``{source stem: ctypes library}`` of the event-step ones."""
     if "libs" not in _loaded:
         libs = {}
-        for stem, (path, _log) in build_libraries().items():
-            lib = ctypes.CDLL(str(path))
+        for stem, lib in build.libraries().items():
+            if stem not in EVENT_STEP_STEMS:
+                continue
             lib.hs_event_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
             lib.hs_event_step.restype = ctypes.c_int
             for probe in (
@@ -369,6 +308,10 @@ def _static_args(compiled) -> _Args:
     model = compiled.model
     args = _Args()
     args.nV, args.C, args.K, args.n_draws = compiled.nV, compiled.C, compiled.K, compiled.n_draws
+    # Where the JAX step's t + x * y is one multiply-add (engine._fused).
+    args.svc_fused = int(len(compiled.families_present) == 1)
+    args.degrade_lat = int(compiled.has_faults and compiled.faults.has_degrade_lat)
+    args.hedge_any = int(compiled.has_hedge)
     args.src_poisson = int(compiled.arrival_is_poisson[0])
     args.u_gap, args.u_svc1, args.u_svc2 = (
         _slot(compiled.U_GAP), _slot(compiled.U_SVC1), _slot(compiled.U_SVC2)
@@ -497,23 +440,29 @@ _LAYOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _bound_tensors(state: dict, params: dict) -> list:
-    """The tensors the struct points at besides U and halted, in field
-    order (None for a leaf the model has not got)."""
+    """The tensors the struct points at besides the keys, the draw count
+    and halted, in field order (None for a leaf the model has not got)."""
     return [state.get(leaf) for _holder, _field, leaf in _LEAF_FIELDS] + [
         params.get("src_rate"),
         params.get("srv_mean"),
     ]
 
 
-def launch_args(compiled, state: dict, U: torch.Tensor, params: dict, halted: torch.Tensor) -> _Args:
+def launch_args(
+    compiled, state: dict, keys: torch.Tensor, block: int, params: dict,
+    halted: torch.Tensor, draws=None,
+) -> _Args:
     """The kernel's argument struct for one launch, after checking the
     device, dtype, shape and contiguity of every tensor it points at, and
-    the launch bounds; raises on any mismatch. The state and parameter
-    tensors are checked once: a call with the very same tensor objects,
-    replica count, block length and device as the last checked call
-    reuses that call's pointers, and only ``U`` is checked again."""
+    the launch bounds; raises on any mismatch. ``keys`` are the ``(R, 2)``
+    uint32 replica keys and ``block`` the absolute block index the draws
+    are keyed by; ``draws``, an optional ``(R,)`` int32 tensor, receives
+    each lane's threefry evaluations. The state and parameter tensors are
+    checked once: a call with the very same tensor objects, replica count
+    and device as the last checked call reuses that call's pointers, and
+    only the keys are checked again."""
     device = state["t"].device
-    R, macro = U.shape[0], U.shape[1]
+    R, macro = state["t"].shape[0], compiled.macro
     layout = _LAYOUTS.get(compiled)
     if layout is None:
         layout = _LAYOUTS[compiled] = [_static_args(compiled), None]
@@ -542,11 +491,28 @@ def launch_args(compiled, state: dict, U: torch.Tensor, params: dict, halted: to
             args.prof_times, args.prof_cum = times[0].data_ptr(), cum[0].data_ptr()
         args.R, args.macro = R, macro
         checked = layout[1] = _Checked(key, bound, args)
-    _check("U", U, (R, macro, compiled.n_draws), device)
+    _check_keys(keys, R, device)
+    if not 0 <= int(block) < (1 << 32):
+        raise ValueError(f"event-step kernel: block index {block} is not a uint32")
     args = _Args.from_buffer_copy(checked.args)
-    args.U = U.data_ptr()
+    args.keys = keys.data_ptr()
+    args.block = int(block)
+    if draws is not None:
+        _check("draws", draws, (R,), device)
+        args.draws = draws.data_ptr()
     args.halted = halted.data_ptr()
     return args
+
+
+def _check_keys(keys: torch.Tensor, R: int, device) -> None:
+    if keys.device != device:
+        raise ValueError(f"event-step kernel: keys are on {keys.device}, not {device}")
+    if keys.dtype != torch.uint32:
+        raise ValueError(f"event-step kernel: keys are {keys.dtype}, expected torch.uint32")
+    if tuple(keys.shape) != (R, 2):
+        raise ValueError(f"event-step kernel: keys have shape {tuple(keys.shape)}, expected {(R, 2)}")
+    if not keys.is_contiguous():
+        raise ValueError("event-step kernel: keys are not contiguous")
 
 
 def _expected_shapes(compiled, R: int) -> dict:
@@ -619,7 +585,7 @@ def _expected_shapes(compiled, R: int) -> dict:
 
 _TEL_FLOAT_LEAVES = ("tel_sink_sum", "tel_srv_depth_int", "tel_srv_busy_int")
 _INT_LEAVES = frozenset({
-    "events", "srv_q_head", "srv_q_len", "srv_started", "srv_completed",
+    "draws", "events", "srv_q_head", "srv_q_len", "srv_started", "srv_completed",
     "srv_dropped", "srv_wait_n", "sink_count", "sink_hist",
     "rr_next", "lim_admitted", "lim_dropped", "tr_dropped",
     "srv_slot_attempt", "srv_q_attempt", "tr_attempt",
@@ -647,9 +613,19 @@ def _check(name: str, tensor: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"event-step kernel: {name} is not contiguous")
 
 
+def block_uniforms(compiled, keys: torch.Tensor, block: int) -> torch.Tensor:
+    """The block's ``(R, macro, n_draws)`` uniforms as the torch-op
+    threefry draws them: ``uniform(fold_in(key, block), (macro, n_draws),
+    1e-12, 1.0)`` per replica (the JAX engine's stream)."""
+    return rng.uniform(
+        rng.fold_in(keys, block), (compiled.macro, compiled.n_draws), minval=1e-12, maxval=1.0
+    )
+
+
 def plain_block_step(compiled, state: dict, U: torch.Tensor, params: dict) -> torch.Tensor:
     """The plain torch-op version: ``compiled``'s one-event step applied
-    ``U.shape[1]`` times, updating ``state`` in place. Returns the
+    ``U.shape[1]`` times with the block's uniforms ``U`` (from
+    :func:`block_uniforms`), updating ``state`` in place. Returns the
     ``(R,)`` bool halted mask."""
     step = compiled.make_step()
     for k in range(U.shape[1]):
@@ -657,22 +633,23 @@ def plain_block_step(compiled, state: dict, U: torch.Tensor, params: dict) -> to
     return compiled.replica_halted(state)
 
 
-def block_step(compiled, state: dict, U: torch.Tensor, params: dict) -> torch.Tensor:
-    """Advance every replica by one macro-block, in place; returns the
-    ``(R,)`` bool halted mask (True: next event past the horizon).
+def block_step(compiled, state: dict, keys: torch.Tensor, block: int, params: dict) -> torch.Tensor:
+    """Advance every replica by macro-block ``block``, in place; returns
+    the ``(R,)`` bool halted mask (True: next event past the horizon).
 
-    ``U`` is the block's ``(R, macro, n_draws)`` float32 uniforms. CPU
-    tensors run :func:`plain_block_step`; CUDA tensors launch the kernel
-    on torch's current stream, after the checks of :func:`launch_args`,
-    and raise on any mismatch or launch error.
+    ``keys`` are the ``(R, 2)`` uint32 replica keys. CPU tensors run
+    :func:`plain_block_step` on :func:`block_uniforms`; CUDA tensors
+    launch the kernel, which draws the same uniforms itself, on torch's
+    current stream, after the checks of :func:`launch_args`, and raise on
+    any mismatch or launch error.
     """
     device = state["t"].device
     if device.type == "cpu":
-        return plain_block_step(compiled, state, U, params)
+        return plain_block_step(compiled, state, block_uniforms(compiled, keys, block), params)
     if device.type != "cuda":
         raise ValueError(f"event-step kernel: unsupported device {device}")
-    halted = torch.empty((U.shape[0],), dtype=torch.uint8, device=device)
-    launch(launch_args(compiled, state, U, params, halted), device)
+    halted = torch.empty((state["t"].shape[0],), dtype=torch.uint8, device=device)
+    launch(launch_args(compiled, state, keys, block, params, halted), device)
     return halted.view(torch.bool)
 
 

@@ -350,7 +350,7 @@ def shared_const_bytes(compiled) -> int:
     return n_profiled * (2 * n_grid * 4 + 16)
 
 
-def launch_bytes(compiled, macro: int, state: dict) -> int:
+def launch_bytes(compiled, state: dict) -> int:
     """Bytes one launch over every replica of ``state`` must move: each
     replica's working set, and the shared profile tables read once. The
     telemetry buffers count as sparse (an event touches the windows its
@@ -358,13 +358,14 @@ def launch_bytes(compiled, macro: int, state: dict) -> int:
     the bound of the same model without its spec; so do the resilience
     leaves, touched only at their server's events."""
     R = state["t"].shape[0]
-    return R * replica_working_set_bytes(compiled, macro, state) + shared_const_bytes(compiled)
+    return R * replica_working_set_bytes(compiled, state) + shared_const_bytes(compiled)
 
 
-def replica_working_set_bytes(compiled, macro: int, state: dict) -> int:
+def replica_working_set_bytes(compiled, state: dict) -> int:
     """Bytes one replica must move in one macro-block on the kernel path:
-    every dense kernel leaf read once and written once, the block's
-    uniform rows and the parameter rows read once. ``state`` is an
+    every dense kernel leaf read once and written once, and the replica's
+    key (two uint32 words) and parameter rows read once; the kernel draws
+    the block's uniforms from the key, so none is read. ``state`` is an
     ``(R, ...)`` state dict; the sparse leaves' traffic is left out, and
     so are the shared profile tables (:func:`launch_bytes` counts them
     once per launch)."""
@@ -373,8 +374,21 @@ def replica_working_set_bytes(compiled, macro: int, state: dict) -> int:
         for name in KERNEL_LEAVES
         if name not in SPARSE_LEAVES and name in state
     ]
-    return (
-        2 * replica_tile_bytes(dense)
-        + macro * compiled.n_draws * 4
-        + (compiled.nS + compiled.nV) * 4
-    )
+    return 2 * replica_tile_bytes(dense) + 2 * 4 + (compiled.nS + compiled.nV) * 4
+
+
+#: Integer operations of one threefry2x32 (csrc/threefry.cuh's
+#: HS_THREEFRY_OPS): the key schedule, 20 rounds of an add, a rotate and a
+#: xor, and 5 key injections.
+THREEFRY_OPS = 79
+#: Integer operations of one drawn uniform: its threefry, then b0 ^ b1, the
+#: shift, the or of the exponent and the index add.
+UNIFORM_INT_OPS = THREEFRY_OPS + 4
+
+
+def draw_int_ops(lanes: int, drawn: int) -> int:
+    """Integer operations of the draws of a launch whose ``lanes`` made
+    ``drawn`` threefry evaluations in all, as the kernel counts them
+    (``launch_args(..., draws=)``): one fold of the block index into the
+    key per lane, and one per uniform a taken branch read."""
+    return lanes * THREEFRY_OPS + (drawn - lanes) * UNIFORM_INT_OPS

@@ -537,18 +537,18 @@ def test_launch_args_point_at_the_chaos_leaves():
     model has, and a missing or mistyped one raises naming it."""
     model = bench_chaos(tmodel, horizon_s=5.0)
     compiled = TCompiled(model)
-    n, macro = 8, 4
+    n = 8
     params = convert.params_from_numpy(_params(model, n))
-    state = compiled.init_state(rng.split(rng.PRNGKey(3), n), params)
-    U = torch.rand((n, macro, compiled.n_draws))
+    keys = rng.split(rng.PRNGKey(3), n)
+    state = compiled.init_state(keys, params)
     halted = torch.empty((n,), dtype=torch.uint8)
-    args = launch_args(compiled, state, U, params, halted)
+    args = launch_args(compiled, state, keys, 0, params, halted)
     assert args.chaos == 1 and args.flt_sh_start == state["flt_sh_start"].data_ptr()
     assert args.tr_attempt == state["tr_attempt"].data_ptr()
     assert args.net_lost == state["net_lost"].data_ptr()
     assert args.u_hed1 == compiled.U_HED1 and args.u_jit == compiled.U_JIT
     with pytest.raises(ValueError, match="srv_hedged"):
-        launch_args(compiled, dict(state, srv_hedged=state["srv_hedged"].float()), U, params, halted)
+        launch_args(compiled, dict(state, srv_hedged=state["srv_hedged"].float()), keys, 0, params, halted)
     without = {k: v for k, v in state.items() if k != "tr_attempt"}
     with pytest.raises(ValueError, match="tr_attempt is missing"):
-        launch_args(compiled, without, U, params, halted)
+        launch_args(compiled, without, keys, 0, params, halted)

@@ -27,6 +27,7 @@ from happysim_tpu.tpu import model as jmodel  # noqa: E402
 from happysim_tpu.tpu.model import mm1_model as j_mm1  # noqa: E402
 from happysim_tpu.tpu.model import pipeline_model as j_pipeline  # noqa: E402
 from happysim_tpu_torch import convert, rng  # noqa: E402
+from happysim_tpu_torch import engine as tengine  # noqa: E402
 from happysim_tpu_torch import model as tmodel  # noqa: E402
 from happysim_tpu_torch.engine import _Compiled as TCompiled  # noqa: E402
 from happysim_tpu_torch.kernels.event_step import (  # noqa: E402
@@ -248,6 +249,18 @@ def _block_u(keys, block, macro, n_draws):
     )(keys)
 
 
+def _torch_keys(keys) -> torch.Tensor:
+    """JAX's (R, 2) uint32 replica keys as the port's tensor."""
+    return torch.from_numpy(np.array(keys, dtype=np.uint32))
+
+
+def _with_macro(model, macro: int):
+    """The port's model with ``macro`` event steps per block, the block
+    length the JAX kernel under test is built for."""
+    model.macro_block = macro
+    return model
+
+
 def _assert_leaves_match(expected: dict, got: dict, context: str, atol: float = 0.0):
     assert set(expected) <= set(got), set(expected) - set(got)
     for name in sorted(expected):
@@ -293,7 +306,7 @@ def test_plain_step_matches_pallas_interpret_kernel():
     macro, n = 2, 4
     jm = j_mm1(lam=5.0, mu=9.0, horizon_s=3.0, queue_capacity=8)
     tm = t_mm1(lam=5.0, mu=9.0, horizon_s=3.0, queue_capacity=8)
-    jc, tc = JCompiled(jm), TCompiled(tm)
+    jc, tc = JCompiled(jm), TCompiled(_with_macro(tm, macro))
     assert tc.n_draws == jc.n_draws == 3
     params = _params(jm, n)
     jstate = _jax_state(jc, params, n, seed=9)
@@ -305,7 +318,7 @@ def test_plain_step_matches_pallas_interpret_kernel():
     for block in range(2):
         U = _block_u(keys, block, macro, jc.n_draws)
         jstate = block_fn(jstate, U, jparams)
-        block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        block_step(tc, tstate, _torch_keys(keys), block, tparams)
         _assert_leaves_match(jstate, tstate, f"pallas block {block}")
 
 
@@ -315,7 +328,7 @@ def test_plain_step_matches_pallas_interpret_kernel_on_a_router():
     chained blocks."""
     macro, n = 2, 4
     jm, tm = fanout(jmodel, "round_robin", 3.0), fanout(tmodel, "round_robin", 3.0)
-    jc, tc = JCompiled(jm), TCompiled(tm)
+    jc, tc = JCompiled(jm), TCompiled(_with_macro(tm, macro))
     params = _params(jm, n)
     jstate = _jax_state(jc, params, n, seed=9)
     keys = jstate.pop("key")
@@ -326,7 +339,7 @@ def test_plain_step_matches_pallas_interpret_kernel_on_a_router():
     for block in range(2):
         U = _block_u(keys, block, macro, jc.n_draws)
         jstate = block_fn(jstate, U, jparams)
-        block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        block_step(tc, tstate, _torch_keys(keys), block, tparams)
         _assert_leaves_match(jstate, tstate, f"pallas block {block}")
     # The round-robin cursor advanced once per source fire.
     assert int(tstate["rr_next"].sum()) > 0
@@ -463,7 +476,7 @@ def test_plain_step_matches_pallas_interpret_kernel_on_families_and_profiles(nam
     without a server; the lax test above covers those.)"""
     macro, n = 2, 4
     jm, tm = SLICE_MODELS[name](jmodel), SLICE_MODELS[name](tmodel)
-    jc, tc = JCompiled(jm), TCompiled(tm)
+    jc, tc = JCompiled(jm), TCompiled(_with_macro(tm, macro))
     params = _params(jm, n)
     jstate = _jax_state(jc, params, n, seed=9)
     keys = jstate.pop("key")
@@ -474,7 +487,7 @@ def test_plain_step_matches_pallas_interpret_kernel_on_families_and_profiles(nam
     for block in range(2):
         U = _block_u(keys, block, macro, jc.n_draws)
         jstate = block_fn(jstate, U, jparams)
-        block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        block_step(tc, tstate, _torch_keys(keys), block, tparams)
         _assert_leaves_match(
             jstate, tstate, f"{name} pallas block {block}",
             atol=GRAPH_ULPS * float(np.spacing(np.float32(jm.horizon_s))),
@@ -489,7 +502,7 @@ def test_plain_step_matches_pallas_interpret_kernel_on_chaos_models(name):
     the pinned-window chain: MACRO=2, 4 replicas, two chained blocks."""
     macro, n = 2, 4
     jm, tm = CHAOS_MODELS[name](jmodel), CHAOS_MODELS[name](tmodel)
-    jc, tc = JCompiled(jm), TCompiled(tm)
+    jc, tc = JCompiled(jm), TCompiled(_with_macro(tm, macro))
     params = _params(jm, n)
     jstate = _jax_state(jc, params, n, seed=9)
     keys = jstate.pop("key")
@@ -500,7 +513,7 @@ def test_plain_step_matches_pallas_interpret_kernel_on_chaos_models(name):
     for block in range(2):
         U = _block_u(keys, block, macro, jc.n_draws)
         jstate = block_fn(jstate, U, jparams)
-        block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        block_step(tc, tstate, _torch_keys(keys), block, tparams)
         _assert_leaves_match(
             jstate, tstate, f"{name} pallas block {block}",
             atol=GRAPH_ULPS * float(np.spacing(np.float32(jm.horizon_s))),
@@ -552,7 +565,7 @@ def test_plain_step_matches_pallas_interpret_kernel_on_telemetry_models(name):
     above)."""
     macro, n = 2, 4
     jm, tm = TELEMETRY_MODELS[name](jmodel), TELEMETRY_MODELS[name](tmodel)
-    jc, tc = JCompiled(jm), TCompiled(tm)
+    jc, tc = JCompiled(jm), TCompiled(_with_macro(tm, macro))
     params = _params(jm, n)
     jstate = _jax_state(jc, params, n, seed=9)
     keys = jstate.pop("key")
@@ -563,7 +576,7 @@ def test_plain_step_matches_pallas_interpret_kernel_on_telemetry_models(name):
     for block in range(2):
         U = _block_u(keys, block, macro, jc.n_draws)
         jstate = block_fn(jstate, U, jparams)
-        block_step(tc, tstate, torch.from_numpy(np.array(U)), tparams)
+        block_step(tc, tstate, _torch_keys(keys), block, tparams)
         _assert_leaves_match(
             jstate, tstate, f"{name} pallas block {block}",
             atol=GRAPH_ULPS * float(np.spacing(np.float32(jm.horizon_s))),
@@ -662,11 +675,11 @@ def test_launch_args_point_the_telemetry_sub_struct_at_the_window_buffers():
     by. A model without a spec launches with nW = 0."""
     model = TELEMETRY_MODELS["chaos-line"](tmodel)
     compiled = TCompiled(model)
-    n, macro = 8, 4
+    n = 8
     params = convert.params_from_numpy(_params(model, n))
-    state = compiled.init_state(rng.split(rng.PRNGKey(3), n), params)
-    U = torch.rand((n, macro, compiled.n_draws))
-    args = launch_args(compiled, state, U, params, torch.empty((n,), dtype=torch.uint8))
+    keys = rng.split(rng.PRNGKey(3), n)
+    state = compiled.init_state(keys, params)
+    args = launch_args(compiled, state, keys, 0, params, torch.empty((n,), dtype=torch.uint8))
     assert args.tel.nW == compiled.nW == 10
     assert args.tel.window_s == 2.0 and args.tel.inv_window_s == np.float32(0.5)
     assert args.tel.completed == state["tel_srv_completed"].data_ptr()
@@ -676,31 +689,102 @@ def test_launch_args_point_the_telemetry_sub_struct_at_the_window_buffers():
     with pytest.raises(ValueError, match="tel_srv_busy_int"):
         launch_args(
             compiled, dict(state, tel_srv_busy_int=state["tel_srv_busy_int"][:, :2].contiguous()),
-            U, params, torch.empty((n,), dtype=torch.uint8),
+            keys, 0, params, torch.empty((n,), dtype=torch.uint8),
         )
     plain = TCompiled(CHAOS_MODELS["backoff-chain"](tmodel))
     assert _static_args(plain).tel.nW == 0
 
 
 def test_launch_args_check_the_state_once_and_u_every_time():
+    """The state is checked once; the keys that key the block's uniforms,
+    the block index and the draw counter at every call."""
     model = mix(tmodel)
+    model.macro_block = 4
     compiled = TCompiled(model)
-    n, macro = 8, 4
+    n = 8
     params = convert.params_from_numpy(_params(model, n))
-    state = compiled.init_state(rng.split(rng.PRNGKey(3), n), params)
-    U = torch.rand((n, macro, compiled.n_draws))
+    keys = rng.split(rng.PRNGKey(3), n)
+    state = compiled.init_state(keys, params)
     halted = torch.empty((n,), dtype=torch.uint8)
-    first = launch_args(compiled, state, U, params, halted)
-    assert (first.R, first.macro, first.U) == (n, macro, U.data_ptr())
+    first = launch_args(compiled, state, keys, 5, params, halted)
+    assert (first.R, first.macro, first.keys, first.block) == (n, 4, keys.data_ptr(), 5)
+    assert first.draws is None
     assert first.t == state["t"].data_ptr() and first.tr_time == state["tr_time"].data_ptr()
-    fresh = U.clone()
-    again = launch_args(compiled, state, fresh, params, halted)
-    assert again.t == first.t and again.U == fresh.data_ptr()
-    # U is checked on every call, a tensor not seen before is checked
-    # again, and so is every leaf for another replica count.
-    with pytest.raises(ValueError, match="float32"):
-        launch_args(compiled, state, U.double(), params, halted)
+    fresh, draws = keys.clone(), torch.zeros((n,), dtype=torch.int32)
+    again = launch_args(compiled, state, fresh, (1 << 32) - 1, params, halted, draws)
+    assert again.t == first.t and again.keys == fresh.data_ptr()
+    assert again.block == (1 << 32) - 1 and again.draws == draws.data_ptr()
+    # The keys are checked on every call, a tensor not seen before is
+    # checked again, and so is every leaf for another replica count.
+    with pytest.raises(ValueError, match="uint32"):
+        launch_args(compiled, state, keys.long(), 0, params, halted)
+    with pytest.raises(ValueError, match="uint32"):
+        launch_args(compiled, state, keys, 1 << 32, params, halted)
+    with pytest.raises(ValueError, match="draws"):
+        launch_args(compiled, state, keys, 0, params, halted, draws.float())
     with pytest.raises(ValueError, match="srv_q_len"):
-        launch_args(compiled, dict(state, srv_q_len=state["srv_q_len"].float()), U, params, halted)
+        launch_args(compiled, dict(state, srv_q_len=state["srv_q_len"].float()), keys, 0, params, halted)
     with pytest.raises(ValueError, match="shape"):
-        launch_args(compiled, state, U[: n // 2].contiguous(), params, halted)
+        launch_args(compiled, state, keys[: n // 2].contiguous(), 0, params, halted)
+
+
+def test_fused_add_matches_xla_bit_for_bit():
+    """2^20 event times t + e * m, with e JAX's own -log(u) of uniform
+    draws, t in [0, 160) and m a service mean: engine._fused rounds once,
+    bit-equal to the compiled ``t + e * m``, which XLA's CPU backend
+    contracts into one multiply-add; two roundings differ on some."""
+    n = 1 << 20
+    draws = np.random.default_rng(7)
+    u = draws.uniform(1e-7, 1.0, n).astype(np.float32)
+    e = np.array(jax.jit(lambda x: -jnp.log(x))(u))
+    t = draws.uniform(0.0, 160.0, n).astype(np.float32)
+    m = draws.uniform(0.01, 1.0, n).astype(np.float32)
+    want = np.asarray(jax.jit(lambda t, e, m: t + e * m)(t, e, m))
+    tt, te, tm_ = (torch.from_numpy(x) for x in (t, e, m))
+    got = tengine._fused(tt, (te, tm_)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert int(((tt + te * tm_).numpy() != want).sum()) > 0
+
+
+def _log_agreeing_uniforms(draws, shape):
+    """Uniforms whose float32 log torch and XLA's CPU backend round alike,
+    so a difference in the event times is one of rounding, not of log."""
+    n = int(np.prod(shape))
+    u = draws.uniform(1e-7, 1.0, 2 * n).astype(np.float32)
+    same = np.asarray(jax.jit(jnp.log)(u)) == torch.log(torch.from_numpy(u)).numpy()
+    return u[same][:n].reshape(shape)
+
+
+@pytest.mark.parametrize("name", ["mm1", "pinned", "hedged-mm1", "backoff-chain", "chaos-line"])
+def test_event_times_match_the_lax_step_bit_for_bit(name):
+    """One event step at a time from JAX's state, 256 replicas, 24 steps,
+    on uniforms whose log both packages round alike: every leaf of the
+    port's step bit-equal to the compiled lax step's. The service ends
+    (at a start, a pull and a hedge's race), an exponential edge's
+    arrival, the limiter's refill, the sink's sum of squares and the
+    depth integrals are the sums XLA contracts with a product, rounded
+    once; the degrade factor and the hedge's select as JAX places them."""
+    build = {
+        "mm1": lambda mod: mod.mm1_model(8.0, 10.0, 20.0, warmup_s=1.0),
+        "chaos-line": TELEMETRY_MODELS["chaos-line"],
+        **CHAOS_MODELS,
+    }[name]
+    jm, tm = build(jmodel), build(tmodel)
+    jc, tc = JCompiled(jm), TCompiled(tm)
+    n = 256
+    params = _params(jm, n)
+    jstate = _jax_state(jc, params, n, seed=5)
+    jstate.pop("key")
+    tparams = convert.params_from_numpy(params)
+    run_block = _lax_block(jc, float(jm.horizon_s))
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    draws = np.random.default_rng(1)
+    for step in range(24):
+        U = _log_agreeing_uniforms(draws, (n, 1, jc.n_draws))
+        tstate = convert.state_from_numpy({k: np.asarray(v) for k, v in jstate.items()})
+        jstate = run_block(jstate, jnp.asarray(U), jparams)
+        plain_block_step(tc, tstate, torch.from_numpy(U), tparams)
+        for leaf, value in jstate.items():
+            want, got = np.asarray(value), tstate[leaf].numpy()
+            same = (want == got) | (np.isnan(want) & np.isnan(got))
+            assert same.all(), f"step {step}: {leaf} differs on {int((~same).sum())} entries"

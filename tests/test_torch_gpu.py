@@ -1,4 +1,7 @@
-"""The CUDA event-step kernel against its plain torch-op version, on the card.
+"""The CUDA kernels against their plain torch-op versions, on the card: the
+event-step kernel, which draws its own uniforms, against the plain step
+fed by the torch-op threefry, and the standalone draw kernel against
+rng.uniform.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -8,7 +11,7 @@ Whether a card is present is decided inside the ``cuda`` fixture, so
 every worker collects the same tests; without a card they skip.
 Tolerance: none. Kernel and plain version run the same float32 ops in
 the same order on the same card (no multiply-add contraction in either),
-so every leaf must match bit for bit.
+and the same threefry, so every leaf must match bit for bit.
 """
 
 import numpy as np
@@ -18,8 +21,13 @@ torch = pytest.importorskip("torch")
 
 from happysim_tpu_torch import model as tmodel  # noqa: E402
 from happysim_tpu_torch import rng  # noqa: E402
-from happysim_tpu_torch.engine import _Compiled, _resolve_params, run_ensemble  # noqa: E402
-from happysim_tpu_torch.kernels import event_step  # noqa: E402
+from happysim_tpu_torch.engine import (  # noqa: E402
+    _Compiled,
+    _default_max_events,
+    _resolve_params,
+    run_ensemble,
+)
+from happysim_tpu_torch.kernels import event_step, uniform  # noqa: E402
 from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
 from test_torch_resilience_models import RESILIENCE_MODELS  # noqa: E402
@@ -238,6 +246,9 @@ MODELS = {
 
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_kernel_matches_plain_bit_for_bit(cuda, name):
+    """60 chained blocks at 512 replicas, block indices from 2^16 on: the
+    kernel drawing its own uniforms against the plain step on the
+    torch-op draw of the same block."""
     model = MODELS[name]()
     compiled = _Compiled(model)
     n = 512
@@ -249,9 +260,9 @@ def test_kernel_matches_plain_bit_for_bit(cuda, name):
     kstate = compiled.init_state(keys, params)
     pstate = {k: v.clone() for k, v in kstate.items()}
     before = event_step.block_step.launches
-    for block in range(60):
-        U = rng.uniform(rng.fold_in(keys, block), (32, compiled.n_draws), minval=1e-12, maxval=1.0)
-        khalted = event_step.block_step(compiled, kstate, U, params)
+    for block in range(1 << 16, (1 << 16) + 60):
+        U = event_step.block_uniforms(compiled, keys, block)
+        khalted = event_step.block_step(compiled, kstate, keys, block, params)
         phalted = event_step.plain_block_step(compiled, pstate, U, params)
         torch.testing.assert_close(khalted, phalted, rtol=0, atol=0)
         for leaf in pstate:
@@ -273,15 +284,91 @@ def test_kernel_rejects_bad_inputs(cuda):
     }
     keys = rng.split(rng.PRNGKey(0, device=cuda), 8)
     state = compiled.init_state(keys, params)
-    U = torch.rand((8, 32, compiled.n_draws), device=cuda)
-    with pytest.raises(ValueError, match="float32"):
-        event_step.block_step(compiled, state, U.double(), params)
+    with pytest.raises(ValueError, match="uint32"):
+        event_step.block_step(compiled, state, keys.long(), 0, params)
     with pytest.raises(ValueError, match="shape"):
-        event_step.block_step(compiled, state, U[:, :, :2].contiguous(), params)
+        event_step.block_step(compiled, state, keys[:4].contiguous(), 0, params)
     with pytest.raises(ValueError, match="contiguous"):
-        event_step.block_step(compiled, state, U.transpose(0, 1).contiguous().transpose(0, 1), params)
+        strided = torch.empty((2, 8), dtype=torch.uint32, device=cuda).t()
+        event_step.block_step(compiled, state, strided, 0, params)
     with pytest.raises(ValueError, match="cpu"):
-        event_step.block_step(compiled, state, U.cpu(), params)
+        event_step.block_step(compiled, state, keys.cpu(), 0, params)
+    with pytest.raises(ValueError, match="uint32"):
+        event_step.block_step(compiled, state, keys, 1 << 32, params)
+
+
+def test_uniform_kernel_matches_rng_bit_for_bit(cuda):
+    """The draw kernel against rng.uniform, its plain version, for row
+    lengths around its block of 1,024 elements, a trailing axis, purposes
+    up to 2^32 - 1 and another interval; each launch counted."""
+    keys = rng.split(rng.PRNGKey(11, device=cuda), 512)
+    before = uniform.replica_uniform.launches
+    cases = [
+        (0, (1,), 1e-12, 1.0), (1, (1023,), 1e-12, 1.0), (2, (1025,), 1e-12, 1.0),
+        (7, (1515, 3), 1e-12, 1.0), (0xFFFFFFFF, (4096,), 1e-12, 1.0), (3, (777,), -2.5, 3.25),
+    ]
+    for purpose, shape, lo, hi in cases:
+        got = uniform.replica_uniform(keys, purpose, shape, lo, hi)
+        want = uniform.plain_replica_uniform(keys, purpose, shape, lo, hi)
+        assert got.shape == (512, *shape) and got.dtype == torch.float32
+        torch.testing.assert_close(got.view(torch.int32), want.view(torch.int32), rtol=0, atol=0)
+    assert uniform.replica_uniform.launches - before == len(cases)
+    with pytest.raises(ValueError, match="uint32"):
+        uniform.replica_uniform(keys.long(), 0, (8,))
+
+
+def test_the_scan_on_the_card_draws_no_torch_op_uniform_per_block(cuda, monkeypatch):
+    """run_ensemble of the M/M/1 on the scan: the torch-op uniform runs
+    only at set-up (the initial gaps), the same number of times for a run
+    of 33 blocks as for one of 65; the kernel draws every block's."""
+    calls = []
+    plain = rng.uniform
+    monkeypatch.setattr(rng, "uniform", lambda *a, **k: calls.append(1) or plain(*a, **k))
+    counts = {}
+    for horizon in (20.0, 40.0):
+        model = mm1_model(8.0, 10.0, horizon, warmup_s=5.0)
+        calls.clear()
+        before = event_step.block_step.launches
+        result = run_ensemble(model, n_replicas=256, seed=2, max_events=_default_max_events(model, None))
+        launches = event_step.block_step.launches - before
+        assert result.engine_path == "scan+cuda" and launches == max(result.block_occupancy)
+        counts[horizon] = (len(calls), launches)
+    assert counts[20.0][0] == counts[40.0][0] <= 1, counts
+    assert counts[40.0][1] > counts[20.0][1], counts
+
+
+@pytest.mark.parametrize(
+    "build",
+    [
+        lambda: mm1_model(8.0, 10.0, 40.0, warmup_s=10.0),
+        lambda: pipeline_model(8.0, (0.05, 0.08, 0.06), 40.0),
+        lambda: _mg1("lognormal", service_scv=2.0),
+    ],
+    ids=["mm1", "pipeline", "mg1-lognormal"],
+)
+def test_chain_form_on_the_card_matches_the_cpu_run(cuda, build):
+    """The default call takes the chain form on the card as on the CPU,
+    its draws through the draw kernel: the integer totals equal, the
+    float statistics within rel 1e-5. The card's cumsum adds in another
+    order than XLA's CPU one, which the CPU run follows, and its logf
+    rounds otherwise than torch's CPU log on some inputs, so event times
+    differ by ulps and a latency that close to a bin edge (10^(k/10) s)
+    may sit in the next bin: at most 1e-4 of the latencies move so, each
+    by one bin."""
+    model = build()
+    before = uniform.replica_uniform.launches
+    card = run_ensemble(model, n_replicas=512, seed=4)
+    launches = uniform.replica_uniform.launches - before
+    cpu = run_ensemble(model, n_replicas=512, seed=4, device="cpu")
+    assert card.engine_path == cpu.engine_path == "chain"
+    # One launch for the gaps and one for each stage's service draws.
+    assert launches == 1 + len(model.servers)
+    for field in ("simulated_events", "sink_count", "server_completed", "truncated_replicas"):
+        assert getattr(card, field) == getattr(cpu, field), field
+    moved = np.abs(np.cumsum(card.sink_hist.ravel() - cpu.sink_hist.ravel())).sum()
+    assert card.sink_hist.sum() == cpu.sink_hist.sum() and moved <= 1e-4 * cpu.sink_count[0]
+    np.testing.assert_allclose(card.server_mean_wait_s, cpu.server_mean_wait_s, rtol=1e-5)
+    np.testing.assert_allclose(card.sink_mean_latency_s, cpu.sink_mean_latency_s, rtol=1e-5)
 
 
 @pytest.mark.parametrize(
@@ -297,11 +384,14 @@ def test_kernel_rejects_bad_inputs(cuda):
     ids=["chain", "mix", "families-chain", "ramp-graph", "backoff-chain", "bench-chaos"],
 )
 def test_run_ensemble_on_the_card_matches_the_cpu_run(cuda, build, shape):
+    """The event scan at the budget it takes by default (an explicit one
+    keeps the chain-form models on the scan)."""
     model = build()
+    budget = _default_max_events(model, None)
     before = event_step.block_step.launches
-    card = run_ensemble(model, n_replicas=128, seed=5)
+    card = run_ensemble(model, n_replicas=128, seed=5, max_events=budget)
     launches = event_step.block_step.launches - before
-    cpu = run_ensemble(model, n_replicas=128, seed=5, device="cpu")
+    cpu = run_ensemble(model, n_replicas=128, seed=5, device="cpu", max_events=budget)
     assert card.engine_path == "scan+cuda" and card.kernel_shape == shape
     assert cpu.engine_path == "scan"
     assert launches == max(card.block_occupancy)
@@ -337,7 +427,9 @@ def test_telemetry_on_the_card_matches_the_cpu_run(cuda, name):
         if right is not None and (np.asarray(right).dtype.kind == "i" or "throughput_p" in field):
             np.testing.assert_array_equal(left, right, err_msg=field)
     model.telemetry_spec = None
-    plain = run_ensemble(model, n_replicas=128, seed=5)
+    # Without its spec the M/M/1 qualifies for the chain form: the
+    # scan's own budget keeps it on the scan.
+    plain = run_ensemble(model, n_replicas=128, seed=5, max_events=_default_max_events(model, None))
     assert plain.timeseries is None
     for field in ("simulated_events", "sink_count", "server_completed", "server_dropped"):
         assert getattr(plain, field) == getattr(card, field), field

@@ -24,12 +24,14 @@ import happysim_tpu_torch
 import happysim_tpu_torch.engine, happysim_tpu_torch.convert, happysim_tpu_torch.rng
 import happysim_tpu_torch.numerics, happysim_tpu_torch.faults, happysim_tpu_torch.telemetry
 import happysim_tpu_torch.kernels.event_step, happysim_tpu_torch.kernels.support
+import happysim_tpu_torch.chain, happysim_tpu_torch.kernels.uniform
 import chip_smoke
-from happysim_tpu_torch.kernels import event_step
-# One library per source, the resilience one included, each source present.
-stems = [p.stem for p in event_step.SOURCES]
-assert stems == ["event_step", "event_step_telemetry", "event_step_resilience"], stems
-assert all(p.exists() for p in event_step.SOURCES)
+from happysim_tpu_torch.kernels import build
+# One library per source, the resilience one and the draw kernel
+# included, each source present.
+stems = [p.stem for p in build.SOURCES]
+assert stems == ["event_step", "event_step_telemetry", "event_step_resilience", "uniform"], stems
+assert all(p.exists() for p in build.SOURCES + build.HEADERS)
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")

@@ -353,14 +353,14 @@ def test_extended_instantiation_only_for_families_and_profiles(build, ext, profi
 def test_launch_args_point_at_the_compiled_tables():
     tm = _fed(tmodel, PROFILES["bench-ramp"])
     compiled = tengine._Compiled(tm)
-    n, macro = 4, 2
+    n = 4
     params = {
         "src_rate": torch.full((n, 1), 20.0),
         "srv_mean": torch.full((n, 1), 0.05),
     }
-    state = compiled.init_state(tengine.rng.split(tengine.rng.PRNGKey(1), n), params)
-    U = torch.rand((n, macro, compiled.n_draws))
-    args = launch_args(compiled, state, U, params, torch.empty((n,), dtype=torch.uint8))
+    keys = tengine.rng.split(tengine.rng.PRNGKey(1), n)
+    state = compiled.init_state(keys, params)
+    args = launch_args(compiled, state, keys, 0, params, torch.empty((n,), dtype=torch.uint8))
     times, cum = compiled.profile_tensors("cpu")
     assert (args.prof_times, args.prof_cum) == (times.data_ptr(), cum.data_ptr())
     assert args.prof_end_rate == pytest.approx(40.0) and args.prof_n == 512
@@ -380,8 +380,8 @@ def test_launch_bytes_count_the_tables_once():
     compiled = tengine._Compiled(_fed(tmodel, PROFILES["bench-ramp"]))
     params = {"src_rate": torch.full((3, 1), 20.0), "srv_mean": torch.full((3, 1), 0.05)}
     state = compiled.init_state(tengine.rng.split(tengine.rng.PRNGKey(0), 3), params)
-    per_replica = support.replica_working_set_bytes(compiled, 32, state)
-    assert support.launch_bytes(compiled, 32, state) == 3 * per_replica + 2 * 512 * 4 + 16
+    per_replica = support.replica_working_set_bytes(compiled, state)
+    assert support.launch_bytes(compiled, state) == 3 * per_replica + 2 * 512 * 4 + 16
 
 
 def test_constant_kind_ramp_is_the_same_in_every_replica():
