@@ -95,20 +95,31 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      whole run).
    Integer leaves must be equal and float leaves are expected bitwise
    equal; a float difference is printed and must stay within rel 1e-6;
-4. timing: the kernel's (launched with prebuilt arguments), the
-   wrapper's (block_step, tensor checks included), the plain version's
-   and the plain version's torch-op draw's time per block for mm1, chain,
-   fanout, graph and router (CUDA events, after warm-up, every replica
-   live), beside the kernel's bound (the bytes a block must move over
-   3.35 TB/s: every dense state leaf read and written once, the keys and
-   the parameters, and the profile tables once per launch; ring,
-   transit, histogram and router/limiter traffic left out, so a lower
-   bound; the operations bound is the larger of the float operations a
-   step needs, each service draw's by its family and each profiled
-   source fire's two table searches, a transcendental call counted as
-   one operation, over 67 TFLOP/s, and the 32-bit integer operations of
-   the threefry evaluations the kernel counted in the same blocks, over
-   33.5 Tops/s), and
+   then the whole runs: each model timed below, and the fan-out with
+   transit_capacity 64 (its transit rows exceed the shared tile and stay
+   in device memory), run at the main path's budget in one launch and by
+   chained one-block launches with every row in device memory (the
+   previous slice's structure, a host loop stopping once every replica
+   halted), and every leaf, the blocks each replica ran and the halted
+   mask must be equal bit for bit; each whole-run launch is timed (CUDA
+   events) beside its bound: the dense state moved once, the float
+   operations of the events it ran, the threefry it counted;
+4. timing: the kernel's time per block running blocks 2-21 in one launch
+   (as a run's launch runs them), and one block a launch (launched with
+   prebuilt arguments), the wrapper's (block_step, tensor checks
+   included), the plain version's and the plain version's torch-op
+   draw's time per block for mm1, chain, fanout, graph and router (CUDA
+   events, after warm-up, every replica live), beside the kernel's bound
+   (the bytes a launch must move over 3.35 TB/s: every dense state leaf
+   read and written once, the keys and the parameters, and the profile
+   tables once, shared by the launch's 20 blocks; ring, transit,
+   histogram and router/limiter traffic left out, so a lower bound; the
+   operations bound is the larger of the float operations a step needs,
+   each service draw's by its family and each profiled source fire's two
+   table searches, a transcendental call counted as one operation, over
+   67 TFLOP/s, and the 32-bit integer operations of the threefry
+   evaluations the kernel counted in the same blocks, over 33.5 Tops/s),
+   and
    the same for the lognormal and pareto M/G/1, the profile graph, and
    the chaos and deadline models; the telemetry model with and without
    its spec, and their ratio; and bench_resilience's defended arm (the
@@ -119,13 +130,15 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    entry point a user calls, with the launch counts set to 0 just before
    each run and read just after. The event-scan runs name their budget
    (the one the scan takes by default unless stated), so the models the
-   chain form takes stay on the scan; each must run through the kernel
-   once per macro-block, launch no draw kernel and truncate no replica;
+   chain form takes stay on the scan; each must run its whole budget in
+   one kernel launch (timed with CUDA events around it), launch no draw
+   kernel and truncate no replica;
    the default calls of the M/M/1, the pipeline and a constant-edge
    random fan-out take the chain form, must launch the draw kernel and
    no event step, and hold the M/M/1 gates, the pipeline's waits within
    1% of its scan run's, the fan-out's gates; every scan run prints its
-   kernel share and host time per block:
+   kernel share (its launch's device time over its wall time) and the
+   host's time, in all and per block:
    - mm1: within 1% of the analytic mean wait rho/(mu-lam) = 0.4 s and
      mean sojourn 1/(mu-lam) = 0.5 s;
    - chain: the 3-stage pipeline, horizon 160 s;
@@ -205,7 +218,9 @@ from one model: mm1, chain, fanout (the router shape), graph, the
 lognormal M/G/1 (the family sampler), the profile graph (the profile
 tables), the chaos model (the chaos branches) and the telemetry model
 (the window buffers) and bench_resilience's defended arm (the
-defenses), the models the main path runs; and the draw kernel, its
+defenses), the models the main path runs, its ms the time per block of
+a 20-block launch and its bound that of the same blocks, its launches
+those of the main path's run (one a run); and the draw kernel, its
 launches those of the M/M/1's chain-form run. Every number printed
 carries the card's name and power limit.
 Details, the router and mix models' included, also go to
@@ -214,8 +229,10 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -262,22 +279,14 @@ OPS_PER_PROFILE_FIRE = 35
 FLOAT_RTOL = 1e-6
 TIMED_BLOCKS = 20
 # Kernel times per block of the previous slice's run (NVIDIA H100 80GB
-# HBM3, 700 W), the kernel then reading a drawn uniform block, printed
-# beside this run's.
+# HBM3, 700 W), one block a launch with every row in device memory,
+# printed beside this run's.
 EARLIER_KERNEL_MS = {
-    "mm1": 0.0862, "chain": 0.2013, "router": 0.3066, "graph": 0.1456,
-    "families": 0.0998, "pareto": 0.0895, "profile": 0.1795,
-    "chaos": 0.8198, "deadline": 0.1467, "telemetry": 0.4563,
-    "telemetry-off": 0.1454, "resilience": 0.6416, "resilience-off": 1.1006,
-}
-# The timing of the kernel each scan run of the main path launches (the
-# deadline M/M/1 shares the deadline model's 1-server chaos code).
-TIMING_OF_RUN = {
-    "mm1": "mm1", "chain": "chain", "router": "router", "graph": "graph",
-    "mg1-lognormal": "families", "mg1-pareto": "pareto", "profile": "profile",
-    "chaos": "chaos", "deadline-mm1": "deadline", "telemetry": "telemetry",
-    "telemetry-off": "telemetry-off", "resilience-defended": "resilience",
-    "resilience-undefended": "resilience-off", "resilience-inert": "resilience-inert",
+    "mm1": 0.0799, "chain": 0.1593, "router": 0.2627, "graph": 0.1349,
+    "router-bench": 0.2434, "families": 0.0951, "pareto": 0.0853, "profile": 0.1820,
+    "chaos": 0.8014, "deadline": 0.1255, "telemetry": 0.4258,
+    "telemetry-off": 0.1364, "resilience": 0.6090, "resilience-off": 1.0401,
+    "resilience-inert": 1.2193,
 }
 # bench.py's Pallas benches: horizon and fan-out width.
 BENCH_HORIZON_S = 40.0
@@ -339,6 +348,29 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+def ptxas_summary(log: str) -> dict:
+    """Registers, spill stores and loads and stack of each event-step
+    instantiation, from nvcc's -Xptxas -v log, keyed by its template
+    arguments ("<4, true, true, true, false, false>")."""
+    summary, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '_Z17event_step_kernelI(.*)EEv13EventStepArgs'", line)
+        if found:
+            args = re.findall(r"L([ib])(\d+)E?", found.group(1))
+            name = "<" + ", ".join(
+                v if kind == "i" else ("true" if v == "1" else "false") for kind, v in args
+            ) + ">"
+            summary[name] = {}
+        elif "Compiling entry" in line:
+            name = None
+        elif name and "spill stores" in line and "spill_stores" not in summary[name]:
+            numbers = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            summary[name].update(stack=numbers[0], spill_stores=numbers[1], spill_loads=numbers[2])
+        elif name and "registers" in line and "registers" not in summary[name]:
+            summary[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return summary
+
+
 def require(condition: bool, message: str) -> None:
     if not condition:
         raise SmokeFailure(message)
@@ -356,13 +388,15 @@ def card_label() -> str:
 
 # -- models ----------------------------------------------------------------
 def router_model(policy: str = "round_robin", horizon_s: float = BENCH_HORIZON_S,
-                 warmup_s: float = BENCH_HORIZON_S / 4, constant_edges: bool = False) -> EnsembleModel:
+                 warmup_s: float = BENCH_HORIZON_S / 4, constant_edges: bool = False,
+                 transit_capacity: int = 16) -> EnsembleModel:
     """bench.py's bench_kernel_router fan-out: one source, a router over
     4 servers (mu=10, queue 256) behind 5 ms per-target edges alternating
     constant and exponential (all constant with ``constant_edges``: the
     chain form's fan-out), each server draining to the sink."""
     model = EnsembleModel(
-        horizon_s=horizon_s, warmup_s=warmup_s, transit_capacity=16, macro_block=MACRO
+        horizon_s=horizon_s, warmup_s=warmup_s, transit_capacity=transit_capacity,
+        macro_block=MACRO,
     )
     src = model.source(rate=FANOUT_LAM)
     servers = [
@@ -923,9 +957,25 @@ def elapsed_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def launch_ms(args: list) -> float:
+    """Device time of each launch of ``args`` (on states made
+    beforehand), summed."""
+    total = 0.0
+    for a in args:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        event_step.launch(a, torch.device("cuda"))
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total
+
+
 def time_blocks(model, label: str, sweeps=None) -> dict:
     """Per-block times at full size, from the first blocks (every replica
-    live), and the bound for the same blocks."""
+    live), and the bound for the same blocks: the kernel running blocks
+    2 to 21 in one launch, as a run's launch runs them (its time per
+    block), and one block a launch."""
     compiled, keys, params, state = fresh_run(model, sweeps)
     macro = compiled.macro
     for b in range(2):  # warm-up
@@ -934,15 +984,22 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
     plain_state = {k: v.clone() for k, v in state.items()}
     wrapper_state = {k: v.clone() for k, v in state.items()}
     count_state = {k: v.clone() for k, v in state.items()}
-    # The kernel alone: launches with arguments built beforehand, so the
-    # wrapper's per-call checks (host time of the order of the mm1
-    # kernel's) stay out of the device time.
     halted = torch.empty((REPLICAS,), dtype=torch.uint8, device="cuda")
+    # The design's time per block: TIMED_BLOCKS blocks in one launch,
+    # twice, each on its own copy of the state.
+    loop_states = [{k: v.clone() for k, v in state.items()} for _ in range(2)]
+    loop_args = [
+        event_step.launch_args(compiled, st, keys, 2, params, halted, n_blocks=TIMED_BLOCKS)
+        for st in loop_states
+    ]
+    kernel_ms = launch_ms(loop_args) / (2 * TIMED_BLOCKS)
+    # One block a launch, with arguments built beforehand, so the
+    # wrapper's per-call checks stay out of the device time.
     ready = [
         event_step.launch_args(compiled, state, keys, i + 2, params, halted)
         for i in range(TIMED_BLOCKS)
     ]
-    kernel_ms = elapsed_ms(lambda i: event_step.launch(ready[i], state["t"].device), TIMED_BLOCKS)
+    single_ms = elapsed_ms(lambda i: event_step.launch(ready[i], state["t"].device), TIMED_BLOCKS)
     # The same blocks through the wrapper, as run_ensemble's blocks after
     # its first: the state's tensors checked once beforehand, the keys at
     # every call.
@@ -951,16 +1008,17 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
         lambda i: event_step.block_step(compiled, wrapper_state, keys, i + 2, params),
         TIMED_BLOCKS,
     )
-    # The threefry the blocks needed: the same blocks again with the
-    # kernel counting each lane's draws (launches not timed).
+    # The threefry the blocks needed: the same blocks again in one launch
+    # with the kernel counting each lane's draws and blocks (not timed).
     drawn = torch.zeros((REPLICAS,), dtype=torch.int32, device="cuda")
-    total_drawn = 0
-    for i in range(TIMED_BLOCKS):
-        event_step.launch(
-            event_step.launch_args(compiled, count_state, keys, i + 2, params, halted, drawn),
-            count_state["t"].device,
-        )
-        total_drawn += int(drawn.sum())
+    ran = torch.zeros((REPLICAS,), dtype=torch.int32, device="cuda")
+    event_step.launch(
+        event_step.launch_args(
+            compiled, count_state, keys, 2, params, halted, drawn, TIMED_BLOCKS, ran
+        ),
+        count_state["t"].device,
+    )
+    total_drawn, folds = int(drawn.sum()), int(ran.sum())
     plain_blocks = [draw(compiled, keys, b) for b in range(2, 6)]
     event_step.plain_block_step(compiled, plain_state, plain_blocks[0], params)  # warm-up
     plain_ms = elapsed_ms(
@@ -969,24 +1027,31 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
     draw(compiled, keys, 0)  # warm-up
     draw_ms = elapsed_ms(lambda i: draw(compiled, keys, i), TIMED_BLOCKS)
     per_replica = support.replica_working_set_bytes(compiled, state)
-    bytes_per_block = support.launch_bytes(compiled, state)
+    # A launch moves the dense state once, whatever its block count.
+    bytes_per_launch = support.launch_bytes(compiled, state)
+    bytes_per_block = bytes_per_launch / TIMED_BLOCKS
     float_ops_per_block = (
         REPLICAS * macro * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER * compiled.nV)
         + extension_ops(compiled, start, state) / TIMED_BLOCKS
     )
     drawn_per_block = total_drawn / TIMED_BLOCKS
-    int_ops_per_block = support.draw_int_ops(REPLICAS, drawn_per_block)
+    int_ops_per_block = support.draw_int_ops(folds, total_drawn) / TIMED_BLOCKS
     bytes_ms = bytes_per_block / PEAK_BYTES_PER_S * 1e3
     ops_ms = max(
         float_ops_per_block / PEAK_F32_OPS_PER_S, int_ops_per_block / PEAK_INT32_OPS_PER_S
     ) * 1e3
+    single_bound_ms = max(bytes_per_launch / PEAK_BYTES_PER_S * 1e3, ops_ms)
     return {
         "model": label,
         "kernel_ms": kernel_ms,
+        "single_ms": single_ms,
+        "single_bound_ms": single_bound_ms,
+        "stage": staged_leaves(loop_args[0]),
         "wrapper_ms": wrapper_ms,
         "plain_ms": plain_ms,
         "draw_ms": draw_ms,
         "bytes_per_replica": per_replica,
+        "bytes_per_launch": bytes_per_launch,
         "bytes_per_block": bytes_per_block,
         "float_ops_per_block": float_ops_per_block,
         "threefry_per_block": drawn_per_block,
@@ -994,6 +1059,89 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
         "bytes_ms": bytes_ms,
         "ops_ms": ops_ms,
         "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def staged_leaves(args) -> dict:
+    """The leaves a launch's plan stages in shared memory, and the bytes
+    of a lane's column."""
+    leaves = [leaf for leaf, off in zip(support.STAGE_LEAVES, args.stage.off) if off >= 0]
+    return {"leaves": leaves, "bytes_per_lane": 4 * args.stage.words}
+
+
+def same_state(a: dict, b: dict, label: str) -> None:
+    """Every leaf bit for bit."""
+    for leaf in sorted(b):
+        x, y = a[leaf], b[leaf]
+        if y.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            first = int((x != y).reshape(x.shape[0], -1).any(dim=1).nonzero()[0, 0])
+            raise SmokeFailure(f"{label}: {leaf} differs first at replica {first}")
+
+
+def check_whole_run(label: str, model, sweeps=None, max_events=None, global_rows=False) -> dict:
+    """A whole run of ``model`` at the main path's budget in one launch
+    against the per-block structure: chained one-block launches with every row in
+    device memory, driven by a host loop that stops once every replica
+    halted and counts a replica's block iff it was live when the block
+    began. Every leaf, the blocks each replica ran and the halted mask
+    bit for bit. Returns the whole-run launch's device time and the
+    chained loop's (host wall, its syncs included), the blocks and the
+    run's bound: the dense state moved once, the float operations of the
+    events it ran and the threefry it counted. ``global_rows`` requires
+    the plan to leave tr_time in device memory (the rows-in-global
+    branch)."""
+    if max_events is None:
+        max_events = _default_max_events(model, sweeps)
+    compiled, keys, params, state = fresh_run(model, sweeps)
+    n = -(-max_events // compiled.macro)
+    initial = {k: v.clone() for k, v in state.items()}
+    chained = {k: v.clone() for k, v in state.items()}
+    blocks = torch.zeros((REPLICAS,), dtype=torch.int32, device="cuda")
+    drawn = torch.zeros((REPLICAS,), dtype=torch.int32, device="cuda")
+    halted = torch.empty((REPLICAS,), dtype=torch.uint8, device="cuda")
+    args = event_step.launch_args(compiled, state, keys, 0, params, halted, drawn, n, blocks)
+    plan = staged_leaves(args)
+    if global_rows:
+        require("tr_time" not in plan["leaves"] and plan["leaves"], f"{label}: plan {plan}")
+    run_ms = launch_ms([args])
+    empty = event_step._Stage((ctypes.c_int * len(support.STAGE_LEAVES))(*[-1] * len(support.STAGE_LEAVES)), 0)
+    chained_blocks = torch.zeros((REPLICAS,), dtype=torch.int32, device="cuda")
+    out = torch.empty((REPLICAS,), dtype=torch.uint8, device="cuda")
+    live = ~compiled.replica_halted(chained)
+    torch.cuda.synchronize()
+    wall = time.perf_counter()
+    for c in range(n):
+        if not bool(live.any()):
+            break
+        chained_blocks += live.to(torch.int32)
+        one = event_step.launch_args(compiled, chained, keys, c, params, out)
+        one.stage = empty
+        event_step.launch(one, torch.device("cuda"))
+        live = out == 0
+    torch.cuda.synchronize()
+    chained_ms = (time.perf_counter() - wall) * 1e3
+    same_state(state, chained, f"{label} whole run")
+    require(torch.equal(blocks, chained_blocks), f"{label} whole run: blocks differ")
+    require(torch.equal(halted, out), f"{label} whole run: halted differs")
+    folds, events = int(blocks.sum()), int(state["events"].long().sum() - initial["events"].long().sum())
+    float_ops = events * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER * compiled.nV) + extension_ops(
+        compiled, initial, state
+    )
+    int_ops = support.draw_int_ops(folds, int(drawn.sum()))
+    bytes_ms = support.launch_bytes(compiled, state) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = max(float_ops / PEAK_F32_OPS_PER_S, int_ops / PEAK_INT32_OPS_PER_S) * 1e3
+    max_blocks = int(blocks.max())
+    print(
+        f"  {label}: one launch of {n} blocks == {max_blocks} chained one-block launches with the "
+        f"rows in device memory, on every leaf, blocks and halted; launch {run_ms:.3f} ms, chained "
+        f"{chained_ms:.3f} ms; staged {plan['leaves'] or 'nothing'} ({plan['bytes_per_lane']} B a lane)"
+    )
+    return {
+        "run_ms": run_ms, "chained_ms": chained_ms, "blocks": max_blocks, "lane_blocks": folds,
+        "events": events, "plan": plan, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
 
@@ -1059,22 +1207,27 @@ def check_uniform(tag: str) -> dict:
     }
 
 
-def print_shares(runs: dict, timings: dict, tag: str) -> dict:
-    """Each scan run's kernel share of its wall time and the host's time
-    per block, (wall - launches x kernel ms) / launches, from the kernel
-    time per block of the timing of the same kernel and model."""
+# Each scan run of the main path by its label: (the device time of its
+# kernel launch, its result, its launches) (main_path_run).
+RUN_KERNEL_MS: dict = {}
+
+
+def print_shares(tag: str) -> dict:
+    """Each scan run's kernel share of its wall time, from the device time
+    of its one launch, and the host's time: the rest of the wall (set-up,
+    the launch's checks, the reduce), in all and per block."""
     shares = {}
-    for run, timing in TIMING_OF_RUN.items():
-        result, launches = runs[run]
-        kernel_ms = timings[timing]["kernel_ms"]
+    for run, (kernel_ms, result, launches) in RUN_KERNEL_MS.items():
         wall_ms = result.wall_seconds * 1e3
-        share = launches * kernel_ms / wall_ms
-        host_ms = (wall_ms - launches * kernel_ms) / launches
-        shares[run] = {"wall_ms": wall_ms, "launches": launches, "kernel_share": share,
-                       "host_ms_per_block": host_ms}
+        blocks = max(result.block_occupancy)
+        host_ms = wall_ms - kernel_ms
+        shares[run] = {"wall_ms": wall_ms, "launches": launches, "blocks": blocks,
+                       "kernel_ms": kernel_ms, "kernel_share": kernel_ms / wall_ms,
+                       "host_ms": host_ms, "host_ms_per_block": host_ms / blocks}
         print(
-            f"share {run}: {launches} blocks in {wall_ms:.1f} ms, kernel {100 * share:.1f}% "
-            f"({kernel_ms:.4f} ms/block), host {host_ms:.4f} ms/block, torch-op draw none {tag}"
+            f"share {run}: {blocks} blocks in {launches} launch, {wall_ms:.1f} ms, kernel "
+            f"{kernel_ms:.2f} ms ({100 * kernel_ms / wall_ms:.1f}%), host {host_ms:.2f} ms "
+            f"({host_ms / blocks:.4f} ms/block) {tag}"
         )
     return shares
 
@@ -1087,21 +1240,38 @@ def main_path_run(label: str, model, tag: str, shape: str, sweeps=None, max_even
     so a model the chain form takes stays on the scan."""
     if max_events is None:
         max_events = _default_max_events(model, sweeps)
-    event_step.block_step.launches = 0
-    uniform.replica_uniform.launches = 0
-    result = run_ensemble(model, n_replicas=REPLICAS, sweeps=sweeps, max_events=max_events)
-    launches = event_step.block_step.launches
+    # CUDA events around the kernel's launch time its device time.
+    timed = []
+    launch = event_step.launch
+
+    def timed_launch(args, device):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(args, device)
+        end.record()
+        timed.append((start, end))
+
+    event_step.launch = timed_launch
+    try:
+        event_step.block_step.launches = 0
+        uniform.replica_uniform.launches = 0
+        result = run_ensemble(model, n_replicas=REPLICAS, sweeps=sweeps, max_events=max_events)
+        launches = event_step.block_step.launches
+    finally:
+        event_step.launch = launch
     require(uniform.replica_uniform.launches == 0, f"{label}: the scan launched the draw kernel")
+    RUN_KERNEL_MS[label] = (sum(start.elapsed_time(end) for start, end in timed), result, launches)
     blocks_run = max(result.block_occupancy)
     print(
         f"run_ensemble {label} x{REPLICAS}: engine_path {result.engine_path}, shape "
-        f"{result.kernel_shape}, {launches} kernel launches for {blocks_run} blocks, "
+        f"{result.kernel_shape}, {launches} kernel launch for {blocks_run} blocks, "
         f"{result.simulated_events} events in {result.wall_seconds:.3f} s = "
         f"{result.events_per_second:.4g} events/s {tag}"
     )
     require(result.engine_path == "scan+cuda", f"{label}: engine_path {result.engine_path}")
     require(result.kernel_shape == shape, f"{label}: kernel_shape {result.kernel_shape}")
-    require(launches > 0 and launches == blocks_run, f"{label}: {launches} launches for {blocks_run} blocks")
+    # The whole budget in one launch, however many blocks the replicas ran.
+    require(launches == 1 and blocks_run > 0, f"{label}: {launches} launches for {blocks_run} blocks")
     require(result.truncated_replicas == 0, f"{label}: {result.truncated_replicas} truncated replicas")
     require(
         all(np.isfinite(result.server_mean_wait_s)) and all(np.isfinite(result.sink_mean_latency_s)),
@@ -1148,11 +1318,11 @@ def per_replica_sink_counts(model) -> torch.Tensor:
     """Each replica's sink count after a block loop of ``model`` to its
     horizon (the kernel, as run_ensemble drives it)."""
     compiled, keys, params, state = fresh_run(model)
-    halted = compiled.replica_halted(state)
-    block = 0
-    while not bool(halted.all()):
-        halted = event_step.block_step(compiled, state, keys, block, params)
-        block += 1
+    blocks = torch.zeros((REPLICAS,), dtype=torch.int32, device="cuda")
+    halted = event_step.block_steps(
+        compiled, state, keys, 0, -(-_default_max_events(model, None) // compiled.macro), params, blocks
+    )
+    require(bool(halted.all()), "ramp-constant: a replica did not halt")
     return state["sink_count"][:, 0]
 
 
@@ -1478,10 +1648,17 @@ def main() -> int:
     uniform.load_library()
     names = ", ".join(path.name for path, _log in built.values())
     print(f"build: {names} in {build_s:.1f} s (nvcc, sm_90a, one per source in parallel) {tag}")
-    for _path, log in built.values():
+    ptxas = {}
+    for stem, (_path, log) in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
+        for kernel, info in ptxas_summary(log).items():
+            ptxas[f"{stem} {kernel}"] = info
+            print(
+                f"  ptxas {stem} event_step_kernel{kernel}: {info['registers']} registers, "
+                f"{info['spill_stores']} B spill stores, {info['spill_loads']} B spill loads"
+            )
 
     draw_check = check_uniform(tag)
 
@@ -1562,6 +1739,42 @@ def main() -> int:
         ),
     })
 
+    # The whole-run launch against the per-block structure, at the main path's
+    # budgets, on every model timed below and on a fan-out whose transit
+    # rows exceed the tile (tr_time read in device memory).
+    print(f"whole runs at {REPLICAS} replicas, one launch against chained one-block launches:")
+    whole = {
+        "mm1": check_whole_run("mm1", mm1),
+        "chain": check_whole_run("chain", chain),
+        "router": check_whole_run("fanout", fanout),
+        "graph": check_whole_run("graph", graph, GRAPH_SWEEPS),
+        "router-bench": check_whole_run("router", router, ROUTER_SWEEPS),
+        "families": check_whole_run("mg1-lognormal", mg1_model("lognormal")),
+        "pareto": check_whole_run("mg1-pareto", mg1_model("pareto")),
+        "profile": check_whole_run("profile", profile, GRAPH_SWEEPS, PROFILE_MAX_EVENTS),
+        "chaos": check_whole_run("chaos", chaos_model(), CHAOS_SWEEPS, CHAOS_MAX_EVENTS),
+        "deadline": check_whole_run("deadline", hetero_model(), HETERO_SWEEPS),
+        "telemetry": check_whole_run("telemetry", telemetry_model(), HETERO_SWEEPS, TEL_MAX_EVENTS),
+        "telemetry-off": check_whole_run(
+            "telemetry without its spec", telemetry_model(0), HETERO_SWEEPS, TEL_MAX_EVENTS
+        ),
+        "resilience": check_whole_run(
+            "resilience defended", resilience_bench_model(True), RES_SWEEPS, RES_MAX_EVENTS
+        ),
+        "resilience-off": check_whole_run(
+            "resilience undefended", resilience_bench_model(False), RES_SWEEPS, RES_MAX_EVENTS
+        ),
+        "resilience-inert": check_whole_run(
+            "resilience inert", inert_defenses(resilience_bench_model(False)), RES_SWEEPS,
+            RES_MAX_EVENTS,
+        ),
+        "fanout-global-rows": check_whole_run(
+            "fanout, transit_capacity 64",
+            router_model("random", HORIZON_S, WARMUP_S, transit_capacity=64),
+            global_rows=True,
+        ),
+    }
+
     timings = {
         "mm1": time_blocks(mm1, "mm1"),
         "chain": time_blocks(chain, "chain"),
@@ -1587,14 +1800,20 @@ def main() -> int:
         earlier = ""
         if shape in EARLIER_KERNEL_MS:
             change = 100 * (t["kernel_ms"] / EARLIER_KERNEL_MS[shape] - 1)
-            earlier = f" (previous slice: {EARLIER_KERNEL_MS[shape]} ms, {change:+.1f}%)"
+            earlier = f" (previous slice, one block a launch: {EARLIER_KERNEL_MS[shape]} ms, {change:+.1f}%)"
+        w = whole[shape]
         print(
-            f"timing {shape} ({t['model']}): kernel {t['kernel_ms']:.4f} ms/block{earlier}, through "
-            f"the wrapper {t['wrapper_ms']:.4f} ms/block, plain "
-            f"{t['plain_ms']:.3f} ms/block, the plain step's torch-op draw {t['draw_ms']:.4f} "
-            f"ms/block, bound {t['bound_ms']:.4f} ms/block ({t['bound_by']}: "
-            f"{t['bytes_per_block'] / 1e6:.1f} MB/block, {t['threefry_per_block'] / REPLICAS:.1f} "
-            f"threefry/lane, {t['int_ops_per_block'] / 1e9:.3f} G int ops) {tag}"
+            f"timing {shape} ({t['model']}): kernel {t['kernel_ms']:.4f} ms/block in a "
+            f"{TIMED_BLOCKS}-block launch{earlier}, {100 * t['bound_ms'] / t['kernel_ms']:.1f}% of its "
+            f"bound {t['bound_ms']:.4f} ms/block ({t['bound_by']}: {t['bytes_per_launch'] / 1e6:.1f} "
+            f"MB a launch, {t['threefry_per_block'] / REPLICAS:.1f} threefry/lane/block, "
+            f"{t['int_ops_per_block'] / 1e9:.3f} G int ops/block); one block a launch "
+            f"{t['single_ms']:.4f} ms (bound {t['single_bound_ms']:.4f}), through the wrapper "
+            f"{t['wrapper_ms']:.4f} ms; the whole run {w['run_ms']:.3f} ms for {w['blocks']} blocks "
+            f"({w['run_ms'] / w['blocks']:.4f} ms/block, {100 * w['bound_ms'] / w['run_ms']:.1f}% of "
+            f"its bound {w['bound_ms']:.4f} ms, {w['bound_by']}); plain {t['plain_ms']:.3f} ms/block, "
+            f"the plain step's torch-op draw {t['draw_ms']:.4f} ms/block; staged "
+            f"{t['stage']['leaves'] or 'nothing'} {tag}"
         )
     on, off = timings["telemetry"], timings["telemetry-off"]
     print(
@@ -1686,7 +1905,7 @@ def main() -> int:
     runs.update(telemetry_main_path(tag, runs))
     runs.update(resilience_main_path(tag))
 
-    shares = print_shares(runs, timings, tag)
+    shares = print_shares(tag)
 
     print(f"library_ms: {LIBRARY_NOTE}")
     kernels = {
@@ -1732,7 +1951,9 @@ def main() -> int:
                 "card": card,
                 "device": name,
                 "build_seconds": build_s,
+                "ptxas": ptxas,
                 "timings": timings,
+                "whole_run": whole,
                 "uniform": draw_check,
                 "shares": shares,
                 "max_abs_err_off_main_path": extra_abs,

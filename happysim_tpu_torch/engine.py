@@ -25,14 +25,15 @@ per-replica ``(n_windows, ...)`` buffers that the step adds into at the
 same accounting sites, each event booked in the window of the time that
 JAX's step books it at; they come back as ``EnsembleResult.timeseries``.
 
-The hot loop runs in macro-blocks of ``macro`` event steps: the block's
-uniforms are JAX's stream, ``uniform(fold_in(key, block))``, and
-:func:`~happysim_tpu_torch.kernels.event_step.block_step` advances every
-replica by the block — the hand-written CUDA kernel on the card, which
-draws the uniforms itself, or for CPU tensors its plain torch-op version
-(the step below, applied ``macro`` times to the block drawn by
-:mod:`~happysim_tpu_torch.rng`). The loop ends once every replica has
-halted. A call with no event budget first tries the closed form of
+The hot loop runs in macro-blocks of ``macro`` event steps: block ``c``'s
+uniforms are JAX's stream, ``uniform(fold_in(key, c))``, and
+:func:`~happysim_tpu_torch.kernels.event_step.block_steps` runs every
+replica's blocks of the event budget, each replica until it halts (JAX's
+``replica_chunks``): one launch of the hand-written CUDA kernel on the
+card, which draws the uniforms itself, or for CPU tensors its plain
+torch-op version (the step below, applied ``macro`` times to each block
+drawn by :mod:`~happysim_tpu_torch.rng`, until every replica has
+halted). A call with no event budget first tries the closed form of
 :mod:`~happysim_tpu_torch.chain`, as the JAX engine does.
 
 Reductions over replicas go through :mod:`~happysim_tpu_torch.reduce`, so
@@ -1961,8 +1962,8 @@ def run_ensemble(
     router over such chains, by the closed form of
     :mod:`~happysim_tpu_torch.chain` (``engine_path == "chain"``), unless
     ``HS_TPU_CHAIN=0`` or its finite-capacity certificate or memory budget
-    declines; every other run is the event scan, one macro-block per
-    kernel launch.
+    declines; every other run is the event scan, the whole event budget
+    in one kernel launch.
     """
     if checkpoint_every_s is not None or checkpoint_callback is not None or resume_from is not None:
         raise not_ported("checkpoints and resume (ROADMAP A.10)")
@@ -2024,15 +2025,13 @@ def run_ensemble(
     }
     keys = rng.split(rng.PRNGKey(seed, device=device), n_replicas)
     state = compiled.init_state(keys, params)
-    halted = compiled.replica_halted(state)
+    # The whole budget in one call: on the card one kernel launch, in
+    # which each lane runs its blocks until it halts and counts those it
+    # ran (a lane counts a block iff it was live when the block began);
+    # nothing waits for the device before the reduce.
     blocks = torch.zeros((n_replicas,), dtype=torch.int32, device=device)
-    for c in range(n_chunks):
-        # One host sync per block: the loop ends once every lane halted.
-        if bool(halted.all()):
-            break
-        # A lane counts a block iff it was live when the block launched.
-        blocks += (~halted).to(torch.int32)
-        halted = event_step.block_step(compiled, state, keys, c, params)
+    if n_chunks:
+        event_step.block_steps(compiled, state, keys, 0, n_chunks, params, blocks)
     reduced = reduce_final(compiled, state)
     reduced.update(_blocks_reduce(blocks, n_chunks))
     events_total = int(host_i64(reduced["events"]))

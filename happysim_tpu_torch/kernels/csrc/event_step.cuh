@@ -75,51 +75,74 @@
 // read-only cache's sector traffic. Lanes of a warp search different
 // addresses, so the cost is bank conflicts, not device-memory bytes.
 //
-// Design. One thread per replica. The clock, the source's next arrival,
-// the sink accumulators and, per server, the queue head and length, the
-// earliest completion (and transit arrival) time, the counters and the
-// integrals live in registers for the whole launch (per-server register
-// arrays sized by the MAXV template argument and indexed only with
-// compile-time indices through pick/put). The topology tables are read
-// from the __grid_constant__ argument struct. The (nV, C) slot arrays,
-// the (nV, K) queue rings, the (nV, TR) transit rows, the (nK, 80)
-// histogram and the router/limiter registers are read and written in
-// device memory in the JAX layout, only at the entries an event touches.
-// A lane whose next event lies past the horizon stops early (the halted
-// state is absorbing) and every lane writes its halted flag after its
-// last step, so the host's early-exit test needs no second pass.
+// Design. One thread per replica, and each replica's whole block loop in
+// one launch (the counterpart of the JAX engine's replica_chunks): a
+// lane loads its register file once, then runs blocks first, first + 1,
+// ... first + n_blocks - 1 until it halts, testing before each block
+// whether its next event lies past the horizon (JAX's blocks_cond),
+// folding the block index into its key and adding one to its own
+// blocks[r] for each block it runs; it writes its registers, its staged
+// rows and its halted flag once, after the loop. A run's event budget
+// is one launch and the host waits once, at the reduce. The clock, the
+// source's next arrival, the sink accumulators and, per server, the
+// queue head and length, the earliest completion (and transit arrival)
+// time, the counters and the integrals live in registers for the whole
+// launch (per-server register arrays sized by the MAXV template argument
+// and indexed only with compile-time indices through pick/put). The
+// topology tables are read from the __grid_constant__ argument struct.
 //
+// The rows a step scans. The loops that run in lockstep across a warp
+// (the first free transit or service slot, a row's minimum after an
+// arrival or a completion, the fault windows, a breaker ring's reset)
+// read one row per lane. In the JAX layout a lane's rows sit nV * TR (or
+// nV * C, nV * W) elements from its neighbour's, so every warp-wide load
+// of such a loop touches 32 sectors. The wrapper's plan
+// (kernels/support.py::stage_plan) picks, in the order of their use per
+// step, the leaves that fit a per-lane budget of dynamic shared memory
+// (tr_time, tr_created, tr_attempt, the slot arrays, the fault windows,
+// the shared windows, the breaker ring), sized so that the launch stays
+// one wave on the card; each lane copies its own rows of those leaves
+// into the tile at the start and back at the end, lane-minor (element j
+// of lane l at j * blockDim.x + l), so a warp's lockstep scan reads 32
+// consecutive words. Every row is reached through an HsRow, a base
+// pointer and an element stride (1 in device memory, blockDim.x in the
+// tile), so one code path serves both. The (nV, K) queue rings, the
+// (nK, 80) histogram and the router/limiter registers, touched once per
+// push, pull or delivery, stay in device memory in the JAX layout, as do
+// the leaves the plan leaves out.
+
 // The uniforms. The JAX kernel reads a (macro, n_draws) block per replica
-// that the host drew from fold_in(key, block). Here each lane folds the
-// block index into its replica's key once and draws a uniform where a
+// that the host drew from fold_in(key, block). Here each lane folds each
+// block's index into its replica's key once and draws a uniform where a
 // step's branch reads it (HsDraw, csrc/threefry.cuh): element k * n_draws
 // + slot of the same stream, so the bits equal the drawn block's whatever
 // slots a step reads, and a slot no branch reads costs nothing.
 //
-// What bounds it on this card: 32-bit integer operations. A block reads
+// What bounds it on this card: 32-bit integer operations. A launch reads
 // and writes each replica's dense registers once (about 9 MB at 65,536
-// replicas of the M/M/1) and draws one threefry2x32 (HS_THREEFRY_OPS
-// integer operations) per uniform read and one per lane for the block's
-// key, about 33 per lane on the M/M/1, against 33.5 Tops/s; the float
-// arithmetic is a few dozen operations per event against 67 TFLOP/s. The
-// extended instantiations add a few dozen more per service draw
-// (lognormal's erfinv: log1pf, a root and eight double multiply-adds,
-// then expf; pareto's powf) and per profiled fire (two searches of the
-// shared tables). What this simple design leaves on the table: the
-// per-replica rows are strided, so a warp's accesses to the slot arrays,
-// the rings, the transit rows and sink_hist are uncoalesced (one 32-byte
-// sector per lane), and lanes diverge on the event kind and the router
-// branch. A (..., R)-minor layout, or staging a tile of replicas through
-// shared memory, is later work.
-//
+// replicas of the M/M/1), whatever its block count, and draws one
+// threefry2x32 (HS_THREEFRY_OPS integer operations) per uniform read and
+// one per lane and block for the block's key, about 33 per lane and
+// block on the M/M/1, against 33.5 Tops/s; the float arithmetic is a few
+// dozen operations per event against 67 TFLOP/s. The extended
+// instantiations add a few dozen more per service draw (lognormal's
+// erfinv: log1pf, a root and eight double multiply-adds, then expf;
+// pareto's powf) and per profiled fire (two searches of the shared
+// tables). What holds it below that: each step is a chain of dependent
+// loads and about four warps per scheduler cannot hide their latency,
+// lanes diverge on the event kind and the router branch, and the queue
+// rings and sink_hist stay strided per replica.
+
 // The chaos leaves (attempt arrays, fault registers, the chaos counters)
-// stay in device memory in the JAX layout and are touched only at the
-// events that need them: the (nV, W) fault registers are read at an
-// arrival at, or a pull into, a faulted server.
+// are touched only at the events that need them: the (nV, W) fault
+// registers are read at an arrival at, or a pull into, a faulted server.
+// The attempt rows and the fault windows are staged where the plan has
+// room; the counters stay in device memory in the JAX layout.
 //
-// The resilience leaves stay in device memory in the JAX layout, (R, nV)
-// registers and the (R, nV, F) failure ring brk_fail_t, and are read and
-// written only at an arrival at or a completion of their server: a
+// The resilience leaves, (R, nV) registers in device memory in the JAX
+// layout and the (R, nV, F) failure ring brk_fail_t (staged where the
+// plan has room), are read and written only at an arrival at or a
+// completion of their server: a
 // failure writes one ring slot and compares the next, a trip or a close
 // resets the server's F slots. A trip books its whole open interval
 // min(cooldown, max(horizon - t, 0)) at once, into brk_open_time and, as
@@ -156,6 +179,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "threefry.cuh"
 
 #define HS_MAX_NV 8
@@ -164,9 +189,25 @@
 #define HS_MAX_HOPS 8
 #define HS_MAX_LIMITERS 4
 #define HS_HIST_BINS 80
-#define HS_THREADS 128
+// Threads per block: 64, which tools/ab_block_loop.py timed faster than
+// 128 on the fan-out and the chaos bench (-DHS_THREADS=128 builds its
+// variant; the wrapper checks the library's value).
+#ifndef HS_THREADS
+#define HS_THREADS 64
+#endif
+// 0 leaves every row in device memory whatever the plan says (a variant
+// of tools/ab_block_loop.py, never the library's build).
+#ifndef HS_STAGE_ROWS
+#define HS_STAGE_ROWS 1
+#endif
+// 0 lifts the register cap below (a variant of tools/ab_block_loop.py).
+#ifndef HS_REG_CAP
+#define HS_REG_CAP 1
+#endif
 #define HS_MAX_PROFILE_GRID 4096
 #define HS_MAX_BREAKER_RING 4096
+// Shared memory one block may take on sm_90 (227 KB).
+#define HS_MAX_SMEM_PER_BLOCK (227 * 1024)
 
 // Node kinds in the topology tables.
 #define HS_SINK 0
@@ -198,6 +239,29 @@
 #define HS_F_HEDGE 32        // hedged starts
 #define HS_F_OUTAGE 64       // a brownout window
 #define HS_F_DEADLINE 128    // a deadline
+
+// The leaves the plan may stage in shared memory, in the order it takes
+// them (kernels/support.py::STAGE_LEAVES).
+#define HS_ST_TR_TIME 0
+#define HS_ST_TR_CREATED 1
+#define HS_ST_TR_ATTEMPT 2
+#define HS_ST_SLOT_DONE 3
+#define HS_ST_SLOT_CREATED 4
+#define HS_ST_SLOT_ATTEMPT 5
+#define HS_ST_FLT_START 6
+#define HS_ST_FLT_END 7
+#define HS_ST_FLT_SH_START 8
+#define HS_ST_FLT_SH_END 9
+#define HS_ST_BRK_FAIL_T 10
+#define HS_STAGE_LEAVES 11
+
+// The staging plan: where each leaf's rows sit in a lane's column of the
+// tile (a word offset, -1: in device memory) and the column's words. The
+// layout must match kernels/event_step.py::_Stage.
+struct HsStage {
+  int off[HS_STAGE_LEAVES];
+  int words;
+};
 
 // A downstream node and the edge that leads to it.
 struct HsRef {
@@ -308,10 +372,12 @@ struct EventStepArgs {
   uint8_t* halted;         // (R,) out
   const uint32_t* keys;    // (R, 2) the replicas' threefry keys
   int* draws;              // (R,) out: threefry evaluations per lane (null: not counted)
+  int* blocks;             // (R,) in/out: blocks each lane ran, added to (null: not counted)
   const float* src_rate;   // (R, 1)
   const float* srv_mean;   // (R, nV)
   int R, nV, C, K, macro, n_draws;
-  unsigned int block;      // the absolute block index the draws are keyed by
+  unsigned int block;      // the first block's absolute index, which keys its draws
+  int n_blocks;            // blocks block, block + 1, ..., block + n_blocks - 1
   // Where the compiled JAX step rounds t + x * y once (ROADMAP C): 1 when
   // one service family is present (several: a select sits before the
   // add), 1 when some server's degrade windows inflate its service (JAX
@@ -388,6 +454,8 @@ struct EventStepArgs {
   HsTel tel;
   // RES only
   HsRes res;
+  // The rows staged in shared memory (kernels/support.py::stage_plan).
+  HsStage stage;
 };
 
 // The struct is passed by value as a __grid_constant__ kernel parameter.
@@ -396,8 +464,41 @@ struct EventStepArgs {
 static_assert(sizeof(EventStepArgs) <= 32764,
               "event-step arguments exceed the 32,764-byte kernel-parameter limit");
 
-// The profile tables, staged per thread block (EXT instantiations).
+// The block's dynamic shared memory: the profile tables (EXT
+// instantiations with a profiled source), then the row tile.
 extern __shared__ float hs_tables[];
+
+// A row of a per-replica leaf: element j at p[j * s], with s 1 in device
+// memory and blockDim.x in the shared tile.
+template <typename T>
+struct HsRow {
+  T* p;
+  int s;
+  __device__ __forceinline__ T& operator[](int j) const { return p[j * s]; }
+  __device__ __forceinline__ HsRow operator+(int j) const { return HsRow{p + j * s, s}; }
+  __device__ __forceinline__ explicit operator bool() const { return p != nullptr; }
+};
+
+// A lane's n elements of a leaf from g (null: the model has not got it):
+// copied into its column of the tile at word `off` when the plan stages
+// the leaf, else read in place.
+template <typename T>
+__device__ __forceinline__ HsRow<T> stage_in(T* g, int off, int n, float* tile) {
+  using M = typename std::remove_const<T>::type;
+  if (!HS_STAGE_ROWS || g == nullptr || off < 0) return HsRow<T>{g, 1};
+  const int stride = (int)blockDim.x;
+  M* col = reinterpret_cast<M*>(tile + off * stride) + threadIdx.x;
+  for (int j = 0; j < n; ++j) col[j * stride] = g[j];
+  return HsRow<T>{col, stride};
+}
+
+// The staged row back to its n elements at g (nothing for a row read in
+// place).
+template <typename T>
+__device__ __forceinline__ void stage_out(const HsRow<T>& row, T* g, int n) {
+  if (row.p == g) return;
+  for (int j = 0; j < n; ++j) g[j] = row[j];
+}
 
 // Register-array access with a run-time index: unrolled selects, so the
 // arrays stay in registers (the JAX step's one-hot _pick / where(row)).
@@ -634,13 +735,14 @@ __device__ __forceinline__ void tel_integral(float* buf, const HsTel& T, size_t 
   }
 }
 
-__device__ __forceinline__ float row_min(const float* row, int n) {
+template <typename Row>
+__device__ __forceinline__ float row_min(const Row& row, int n) {
   float m = INFINITY;
   for (int c = 0; c < n; ++c) m = fminf(m, row[c]);
   return m;
 }
 
-// One replica's registers and its rows in device memory.
+// One replica's registers and its rows, staged or in device memory.
 template <int MAXV>
 struct Lane {
   int q_head[MAXV], q_len[MAXV], started[MAXV], completed[MAXV];
@@ -650,19 +752,24 @@ struct Lane {
   float tmin[MAXV];  // earliest transit arrival per server (GRAPH)
   int sk_count;
   float sk_sum, sk_sq;
-  float *slot_done, *slot_created, *q_created, *q_enq, *tr_time, *tr_created;
+  HsRow<float> slot_done, slot_created, tr_time, tr_created;  // (nV, C) and (nV, TR)
+  float *q_created, *q_enq;
   float *lim_tokens, *lim_last;
   int *hist, *rr, *lim_admitted, *lim_dropped, *tr_dropped;
   // CHAOS: this replica's rows of the chaos leaves (null where absent)
-  int *slot_attempt, *q_attempt, *tr_attempt;
-  const float *flt_start, *flt_end, *flt_sh_start, *flt_sh_end;
+  HsRow<int> slot_attempt, tr_attempt;
+  int* q_attempt;
+  HsRow<const float> flt_start, flt_end;  // (nV, W)
+  HsRow<const float> flt_sh_start, flt_sh_end;  // (W_sh,)
   int *timed_out, *retried, *outage_dropped, *fault_dropped, *fault_retried;
   int *hedged, *hedge_wins, *net_lost;
   // TEL: this replica's first row (r * nW) of the window buffers
   size_t tel_row;
-  // RES: this replica's first row (r * nV) of the resilience leaves
+  // RES: this replica's first row (r * nV) of the resilience leaves, and
+  // its (nV, F) failure rings
   size_t res_row;
-  int drawn;  // threefry evaluations this launch (the block key's included)
+  HsRow<float> brk_ring;
+  int drawn;  // threefry evaluations this launch (the block keys' included)
 };
 
 // _deliver_sink: only arrivals inside [warmup, horizon] are measured.
@@ -695,7 +802,7 @@ __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs
                                               float t, float created, const HsDraw& u) {
   const int C = a.C, K = a.K;
   const int cw = pick_arg<MAXV>(a.conc, w);
-  float* row = L.slot_done + w * C;
+  const HsRow<float> row = L.slot_done + w * C;
   int first_free = -1;
   for (int c = 0; c < cw; ++c)
     if (isinf(row[c])) { first_free = c; break; }
@@ -746,7 +853,7 @@ __device__ __forceinline__ float edge_arrival(const HsRef& e, float t, const HsD
 template <int MAXV, bool CHAOS = false, bool TEL = false>
 __device__ __forceinline__ void into_transit(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                              float arrival, float created, int attempt = 0) {
-  float* row = L.tr_time + w * a.TR;
+  const HsRow<float> row = L.tr_time + w * a.TR;
   for (int c = 0; c < a.TR; ++c) {
     if (isinf(row[c])) {
       row[c] = arrival;
@@ -767,7 +874,7 @@ __device__ __forceinline__ void into_transit(Lane<MAXV>& L, const EventStepArgs&
 // gate: a retry that finds none is a tr_dropped, not a retry).
 template <int MAXV>
 __device__ __forceinline__ bool transit_free(const Lane<MAXV>& L, const EventStepArgs& a, int w) {
-  const float* row = L.tr_time + w * a.TR;
+  const HsRow<float> row = L.tr_time + w * a.TR;
   for (int c = 0; c < a.TR; ++c)
     if (isinf(row[c])) return true;
   return false;
@@ -779,8 +886,8 @@ template <int MAXV>
 __device__ __forceinline__ bool fault_dark(const Lane<MAXV>& L, const EventStepArgs& a, int w,
                                            float t) {
   bool dark = false;
-  const float* start = L.flt_start + w * a.W;
-  const float* end = L.flt_end + w * a.W;
+  const HsRow<const float> start = L.flt_start + w * a.W;
+  const HsRow<const float> end = L.flt_end + w * a.W;
   for (int i = 0; i < a.W; ++i) dark |= (t >= start[i]) & (t < end[i]);
   if (L.flt_sh_start && (pick_arg<MAXV>(a.srv_flags, w) & HS_F_SHARED)) {
     for (int i = 0; i < a.W_sh; ++i)
@@ -790,7 +897,8 @@ __device__ __forceinline__ bool fault_dark(const Lane<MAXV>& L, const EventStepA
 }
 
 // Active slots of server w (the degrade-mode capacity cap counts these).
-__device__ __forceinline__ int active_slots(const float* row, int cw) {
+template <typename Row>
+__device__ __forceinline__ int active_slots(const Row& row, int cw) {
   int n = 0;
   for (int c = 0; c < cw; ++c) n += isfinite(row[c]) ? 1 : 0;
   return n;
@@ -847,7 +955,7 @@ __device__ __forceinline__ void breaker_failure(Lane<MAXV>& L, const EventStepAr
                                                 float t, int bst) {
   const HsRes& B = a.res;
   const size_t i = L.res_row + w;
-  float* ring = B.brk_fail_t + i * B.F;
+  const HsRow<float> ring = L.brk_ring + w * B.F;
   bool trip = bst == 2;
   if (bst == 0) {
     const int idx = B.brk_fail_idx[i];
@@ -880,7 +988,7 @@ __device__ __forceinline__ void breaker_success(const Lane<MAXV>& L, const Event
   const HsRes& B = a.res;
   const size_t i = L.res_row + w;
   if (bst != 2 || B.brk_probes[i] <= 0) return;
-  float* ring = B.brk_fail_t + i * B.F;
+  const HsRow<float> ring = L.brk_ring + w * B.F;
   for (int f = 0; f < B.F; ++f) ring[f] = -INFINITY;
   B.brk_state[i] = 0;
   B.brk_fail_idx[i] = 0;
@@ -955,7 +1063,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
   }
   const int cw = pick_arg<MAXV>(a.conc, w);
   const int flags = pick_arg<MAXV>(a.srv_flags, w);
-  float* row = L.slot_done + w * C;
+  const HsRow<float> row = L.slot_done + w * C;
   const bool fdark = (flags & HS_F_FAULTED) && fault_dark(L, a, w, t);
   const bool degraded = fdark && !(flags & HS_F_DROP);
   const bool dark = (flags & HS_F_OUTAGE) && t >= pick_arg<MAXV>(a.outage_start, w) &&
@@ -1096,7 +1204,7 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
     int choice = 0, best = 0;
     for (int i = 0; i < n; ++i) {
       const int w = a.rt_target[rix][i].index;
-      const float* row = L.slot_done + w * a.C;
+      const HsRow<float> row = L.slot_done + w * a.C;
       int outstanding = pick(L.q_len, w);
       const int cw = pick_arg<MAXV>(a.conc, w);
       for (int c = 0; c < cw; ++c) outstanding += isfinite(row[c]) ? 1 : 0;
@@ -1192,8 +1300,31 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
   }
 }
 
+// The lane's next event time: the earliest of the source's next arrival,
+// the servers' completions and (GRAPH) their transit arrivals.
+template <int MAXV, bool GRAPH>
+__device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_next) {
+  float tn = src_next;
+#pragma unroll
+  for (int v = 0; v < MAXV; ++v) {
+    tn = fminf(tn, L.smin[v]);
+    if constexpr (GRAPH) tn = fminf(tn, L.tmin[v]);
+  }
+  return tn;
+}
+
+// Registers decide how many blocks an SM holds, so whether a launch over
+// 65,536 replicas is one wave: at most 128 a thread keep 512 / HS_THREADS
+// blocks on each of the 132 SMs. The instantiations of up to four servers
+// without the chaos branches fit 128 without spilling and are held to
+// it (the profiled graph measured 0.67x its time at 141); the chaos
+// instantiations and those of eight servers would spill, which measured
+// slower (the chaos bench 1.15x at 128), and take what the compiler picks.
+#define HS_MIN_BLOCKS(MAXV, CHAOS) \
+  (HS_REG_CAP && (MAXV) <= 4 && !(CHAOS) ? 65536 / (128 * HS_THREADS) : 1)
+
 template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false, bool RES = false>
-__global__ void __launch_bounds__(HS_THREADS)
+__global__ void __launch_bounds__(HS_THREADS, HS_MIN_BLOCKS(MAXV, CHAOS))
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const float* prof_times = nullptr;
@@ -1215,16 +1346,21 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   const size_t rv = (size_t)r * nV;
 
   Lane<MAXV> L;
-  L.slot_done = a.slot_done + rv * C;
-  L.slot_created = a.slot_created + rv * C;
+  // The rows the plan stages go to this lane's column of the tile, after
+  // the profile tables.
+  float* tile = hs_tables + (a.has_profile ? 2 * a.prof_n : 0);
+  const int* off = a.stage.off;
+  L.slot_done = stage_in(a.slot_done + rv * C, off[HS_ST_SLOT_DONE], nV * C, tile);
+  L.slot_created = stage_in(a.slot_created + rv * C, off[HS_ST_SLOT_CREATED], nV * C, tile);
   L.q_created = a.q_created + rv * K;
   L.q_enq = a.q_enq + rv * K;
   L.hist = a.sink_hist + (size_t)r * HS_HIST_BINS;
   bool transit = false;
   if constexpr (GRAPH) {
     transit = a.tr_time != nullptr;
-    L.tr_time = transit ? a.tr_time + rv * TR : nullptr;
-    L.tr_created = transit ? a.tr_created + rv * TR : nullptr;
+    L.tr_time = stage_in(transit ? a.tr_time + rv * TR : nullptr, off[HS_ST_TR_TIME], nV * TR, tile);
+    L.tr_created =
+        stage_in(transit ? a.tr_created + rv * TR : nullptr, off[HS_ST_TR_CREATED], nV * TR, tile);
     L.tr_dropped = transit ? a.tr_dropped + rv : nullptr;
     L.rr = a.rr_next + (size_t)r * a.nR;
     L.lim_tokens = a.lim_tokens + (size_t)r * a.nL;
@@ -1233,13 +1369,18 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.lim_dropped = a.lim_dropped + (size_t)r * a.nL;
   }
   if constexpr (CHAOS) {
-    L.slot_attempt = a.slot_attempt ? a.slot_attempt + rv * C : nullptr;
+    L.slot_attempt = stage_in(a.slot_attempt ? a.slot_attempt + rv * C : nullptr,
+                              off[HS_ST_SLOT_ATTEMPT], nV * C, tile);
     L.q_attempt = a.q_attempt ? a.q_attempt + rv * K : nullptr;
-    L.tr_attempt = a.tr_attempt ? a.tr_attempt + rv * TR : nullptr;
-    L.flt_start = a.flt_start ? a.flt_start + rv * a.W : nullptr;
-    L.flt_end = a.flt_end ? a.flt_end + rv * a.W : nullptr;
-    L.flt_sh_start = a.flt_sh_start ? a.flt_sh_start + (size_t)r * a.W_sh : nullptr;
-    L.flt_sh_end = a.flt_sh_end ? a.flt_sh_end + (size_t)r * a.W_sh : nullptr;
+    L.tr_attempt = stage_in(a.tr_attempt ? a.tr_attempt + rv * TR : nullptr,
+                            off[HS_ST_TR_ATTEMPT], nV * TR, tile);
+    L.flt_start =
+        stage_in(a.flt_start ? a.flt_start + rv * a.W : nullptr, off[HS_ST_FLT_START], nV * a.W, tile);
+    L.flt_end = stage_in(a.flt_end ? a.flt_end + rv * a.W : nullptr, off[HS_ST_FLT_END], nV * a.W, tile);
+    L.flt_sh_start = stage_in(a.flt_sh_start ? a.flt_sh_start + (size_t)r * a.W_sh : nullptr,
+                              off[HS_ST_FLT_SH_START], a.W_sh, tile);
+    L.flt_sh_end = stage_in(a.flt_sh_end ? a.flt_sh_end + (size_t)r * a.W_sh : nullptr,
+                            off[HS_ST_FLT_SH_END], a.W_sh, tile);
     L.timed_out = a.timed_out + rv;
     L.retried = a.retried + rv;
     L.outage_dropped = a.outage_dropped + rv;
@@ -1250,11 +1391,13 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.net_lost = a.net_lost ? a.net_lost + r : nullptr;
   }
   if constexpr (TEL) L.tel_row = (size_t)r * a.tel.nW;
-  if constexpr (RES) L.res_row = rv;
-  // The block's key, folded once: the draws of step k are elements
-  // k * n_draws + slot of its uniforms.
-  const HsKey block_key = hs_fold_in(HsKey{a.keys[2 * (size_t)r], a.keys[2 * (size_t)r + 1]}, a.block);
-  L.drawn = 1;
+  if constexpr (RES) {
+    L.res_row = rv;
+    L.brk_ring = stage_in(a.res.brk_fail_t ? a.res.brk_fail_t + rv * a.res.F : nullptr,
+                          off[HS_ST_BRK_FAIL_T], nV * a.res.F, tile);
+  }
+  const HsKey key{a.keys[2 * (size_t)r], a.keys[2 * (size_t)r + 1]};
+  L.drawn = 0;
   // Whether this instantiation draws through hs_draw_call (see HsDraw).
   constexpr bool draw_calls = CHAOS && (RES || !TEL || MAXV > 1);
 #pragma unroll
@@ -1282,262 +1425,271 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   L.sk_sq = a.sink_sq[r];
   const float rate = a.src_rate[r];
 
-  for (int k = 0; k < a.macro; ++k) {
-    // next_candidates: the source, the servers' completions, then (GRAPH)
-    // the servers' transit arrivals; a strict < keeps the first index.
-    float tn = src_next;
-    int ev = -1;
-#pragma unroll
-    for (int v = 0; v < MAXV; ++v)
-      if (L.smin[v] < tn) { tn = L.smin[v]; ev = v; }
-    if constexpr (GRAPH) {
+  int ran = 0;  // blocks this lane ran
+  for (int c = 0; c < a.n_blocks; ++c) {
+    // blocks_cond: a lane whose next event lies past the horizon (or that
+    // has none) is halted for good and runs no further block.
+    const float next = next_event_time<MAXV, GRAPH>(L, src_next);
+    if (isinf(next) || next > a.horizon) break;
+    // The block's key, folded once: the draws of step k are elements
+    // k * n_draws + slot of its uniforms.
+    const HsKey block_key = hs_fold_in(key, a.block + (unsigned)c);
+    L.drawn += 1;
+    ran += 1;
+    for (int k = 0; k < a.macro; ++k) {
+      // next_candidates: the source, the servers' completions, then (GRAPH)
+      // the servers' transit arrivals; a strict < keeps the first index.
+      float tn = src_next;
+      int ev = -1;
 #pragma unroll
       for (int v = 0; v < MAXV; ++v)
-        if (L.tmin[v] < tn) { tn = L.tmin[v]; ev = MAXV + v; }
-    }
-    if (isinf(tn) || tn > a.horizon) break;  // halted: every later step is a no-op
-
-    const HsDraw u{block_key, (uint32_t)(k * nd), &L.drawn, draw_calls};
-    const float lo = fmaxf(t, a.warmup);
-    const float dt = fmaxf(tn - lo, 0.0f);
-#pragma unroll
-    for (int v = 0; v < MAXV; ++v)
-      if (v < nV) L.depth[v] = fma_f64((float)L.q_len[v], dt, L.depth[v]);
-    if constexpr (TEL) {
-      // The same measured interval [lo, tn), split over the windows it
-      // spans; an empty queue adds nothing.
-      if (a.tel.depth_int) {
+        if (L.smin[v] < tn) { tn = L.smin[v]; ev = v; }
+      if constexpr (GRAPH) {
 #pragma unroll
         for (int v = 0; v < MAXV; ++v)
-          if (v < nV && L.q_len[v] > 0)
-            tel_integral(a.tel.depth_int, a.tel, L.tel_row, nV, v, lo, tn, (float)L.q_len[v]);
+          if (L.tmin[v] < tn) { tn = L.tmin[v]; ev = MAXV + v; }
       }
-    }
-    t = tn;
-    events += 1;
+      if (isinf(tn) || tn > a.horizon) break;  // halted: every later step is a no-op
 
-    HsRef dest;
-    float created;
-    int from = -1, from_slot = 0;
-    HsLoss loss{0.0f, 0.0f, 0.0f};  // CHAOS: the edge's packet loss
-    int attempt = 0;                // CHAOS: the attempt a transit arrival carries
-    bool forward = true;            // CHAOS: false once a deadline expired
-    if (ev < 0) {  // _fire_source
-      float gap;
-      if constexpr (EXT) {
-        if (a.has_profile) {
-          const float inc = a.src_poisson ? -logf(u[a.u_gap]) : 1.0f;
-          gap = invert_profile(a, prof_times, prof_cum, t, inc);
+      const HsDraw u{block_key, (uint32_t)(k * nd), &L.drawn, draw_calls};
+      const float lo = fmaxf(t, a.warmup);
+      const float dt = fmaxf(tn - lo, 0.0f);
+#pragma unroll
+      for (int v = 0; v < MAXV; ++v)
+        if (v < nV) L.depth[v] = fma_f64((float)L.q_len[v], dt, L.depth[v]);
+      if constexpr (TEL) {
+        // The same measured interval [lo, tn), split over the windows it
+        // spans; an empty queue adds nothing.
+        if (a.tel.depth_int) {
+#pragma unroll
+          for (int v = 0; v < MAXV; ++v)
+            if (v < nV && L.q_len[v] > 0)
+              tel_integral(a.tel.depth_int, a.tel, L.tel_row, nV, v, lo, tn, (float)L.q_len[v]);
+        }
+      }
+      t = tn;
+      events += 1;
+
+      HsRef dest;
+      float created;
+      int from = -1, from_slot = 0;
+      HsLoss loss{0.0f, 0.0f, 0.0f};  // CHAOS: the edge's packet loss
+      int attempt = 0;                // CHAOS: the attempt a transit arrival carries
+      bool forward = true;            // CHAOS: false once a deadline expired
+      if (ev < 0) {  // _fire_source
+        float gap;
+        if constexpr (EXT) {
+          if (a.has_profile) {
+            const float inc = a.src_poisson ? -logf(u[a.u_gap]) : 1.0f;
+            gap = invert_profile(a, prof_times, prof_cum, t, inc);
+          } else {
+            gap = a.src_poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
+          }
         } else {
           gap = a.src_poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
         }
-      } else {
-        gap = a.src_poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
-      }
-      const float next_time = t + gap;
-      src_next = next_time > a.stop_after ? INFINITY : next_time;
-      dest = a.src_ref;
-      created = t;
-      if constexpr (CHAOS) loss = a.src_loss;
-    } else if (!GRAPH || ev < MAXV) {  // _complete_server: the first slot holding the earliest time
-      from = ev;
-      const int cv = pick_arg<MAXV>(a.conc, from);
-      float* row = L.slot_done + from * C;
-      float best = INFINITY;
-      for (int c = 0; c < cv; ++c) {
-        const float x = row[c];
-        if (x < best) { best = x; from_slot = c; }
-      }
-      created = L.slot_created[from * C + from_slot];
-      row[from_slot] = INFINITY;
-      put(L.completed, from, pick(L.completed, from) + 1);
-      if constexpr (TEL) tel_count(a.tel.completed, a.tel, L.tel_row, nV, t, from);
-      dest = pick_arg<MAXV>(a.srv_ref, from);
-      if constexpr (CHAOS) {
-        loss = pick_arg<MAXV>(a.srv_loss, from);
-        // The completing job's attempt; the job it forwards arrives as a
-        // first attempt.
-        const int job_attempt = L.slot_attempt ? L.slot_attempt[from * C + from_slot] : 0;
-        // _complete_server's deadline: an expired job is retried while
-        // its attempts last (through the transit registers after the
-        // backoff, or at once at the queue's tail), else timed out; it
-        // is not forwarded either way.
-        const int flags = pick_arg<MAXV>(a.srv_flags, from);
-        const int max_retries = pick_arg<MAXV>(a.max_retries, from);
-        const bool expired =
-            (flags & HS_F_DEADLINE) && (t - created) > pick_arg<MAXV>(a.deadline, from);
-        bool retry = expired && job_attempt < max_retries;
-        bool budgeted = false;  // RES: a retry spends a budget token
-        if constexpr (RES) {
-          // The breaker's cooldown is resolved at every completion. A
-          // server with a deadline and retries refreshes its budget; a
-          // retry without a token is a budget drop and times out. An
-          // expired job is the breaker's failure, any other its success.
-          const HsRes& B = a.res;
-          const int bst = B.breaker ? breaker_effective(L, a, from, t) : 0;
-          budgeted = B.budget && (flags & HS_F_DEADLINE) && max_retries > 0;
-          if (budgeted) {
-            const bool ok = budget_refresh(L, a, from, t, 0.0f) >= 1.0f;
-            if (retry && !ok) {
-              budget_dropped<MAXV, TEL>(L, a, from, t);
-              retry = false;
-            }
-          }
-          if (B.breaker) {
-            if (expired) {
-              breaker_failure<MAXV, TEL>(L, a, from, t, bst);
-            } else {
-              breaker_success(L, a, from, bst);
-            }
-          }
+        const float next_time = t + gap;
+        src_next = next_time > a.stop_after ? INFINITY : next_time;
+        dest = a.src_ref;
+        created = t;
+        if constexpr (CHAOS) loss = a.src_loss;
+      } else if (!GRAPH || ev < MAXV) {  // _complete_server: the first slot holding the earliest time
+        from = ev;
+        const int cv = pick_arg<MAXV>(a.conc, from);
+        const HsRow<float> row = L.slot_done + from * C;
+        float best = INFINITY;
+        for (int c = 0; c < cv; ++c) {
+          const float x = row[c];
+          if (x < best) { best = x; from_slot = c; }
         }
-        if (expired) {
-          forward = false;
-          if (retry) {
-            if (flags & HS_F_BACKOFF) {
-              if (transit_free(L, a, from)) {
-                L.retried[from] += 1;
-                if constexpr (TEL) tel_count(a.tel.retried, a.tel, L.tel_row, nV, t, from);
-                if (budgeted) budget_debit(L, a, from);
+        created = L.slot_created[from * C + from_slot];
+        row[from_slot] = INFINITY;
+        put(L.completed, from, pick(L.completed, from) + 1);
+        if constexpr (TEL) tel_count(a.tel.completed, a.tel, L.tel_row, nV, t, from);
+        dest = pick_arg<MAXV>(a.srv_ref, from);
+        if constexpr (CHAOS) {
+          loss = pick_arg<MAXV>(a.srv_loss, from);
+          // The completing job's attempt; the job it forwards arrives as a
+          // first attempt.
+          const int job_attempt = L.slot_attempt ? L.slot_attempt[from * C + from_slot] : 0;
+          // _complete_server's deadline: an expired job is retried while
+          // its attempts last (through the transit registers after the
+          // backoff, or at once at the queue's tail), else timed out; it
+          // is not forwarded either way.
+          const int flags = pick_arg<MAXV>(a.srv_flags, from);
+          const int max_retries = pick_arg<MAXV>(a.max_retries, from);
+          const bool expired =
+              (flags & HS_F_DEADLINE) && (t - created) > pick_arg<MAXV>(a.deadline, from);
+          bool retry = expired && job_attempt < max_retries;
+          bool budgeted = false;  // RES: a retry spends a budget token
+          if constexpr (RES) {
+            // The breaker's cooldown is resolved at every completion. A
+            // server with a deadline and retries refreshes its budget; a
+            // retry without a token is a budget drop and times out. An
+            // expired job is the breaker's failure, any other its success.
+            const HsRes& B = a.res;
+            const int bst = B.breaker ? breaker_effective(L, a, from, t) : 0;
+            budgeted = B.budget && (flags & HS_F_DEADLINE) && max_retries > 0;
+            if (budgeted) {
+              const bool ok = budget_refresh(L, a, from, t, 0.0f) >= 1.0f;
+              if (retry && !ok) {
+                budget_dropped<MAXV, TEL>(L, a, from, t);
+                retry = false;
               }
-              into_transit<MAXV, true, TEL>(L, a, from,
-                                            backoff_arrival<MAXV>(a, from, job_attempt, u, t),
-                                            created, job_attempt + 1);
-            } else {
-              const int ql = pick(L.q_len, from);
-              if (ql < pick_arg<MAXV>(a.qcap, from)) {
-                if (budgeted) budget_debit(L, a, from);
-                const int tail = (pick(L.q_head, from) + ql) % K;
-                L.q_created[from * K + tail] = created;
-                L.q_enq[from * K + tail] = t;
-                if (L.q_attempt) L.q_attempt[from * K + tail] = job_attempt + 1;
-                put(L.q_len, from, ql + 1);
-                L.retried[from] += 1;
-                if constexpr (TEL) tel_count(a.tel.retried, a.tel, L.tel_row, nV, t, from);
+            }
+            if (B.breaker) {
+              if (expired) {
+                breaker_failure<MAXV, TEL>(L, a, from, t, bst);
               } else {
-                put(L.dropped, from, pick(L.dropped, from) + 1);
-                if constexpr (TEL) tel_count(a.tel.dropped, a.tel, L.tel_row, nV, t, from);
+                breaker_success(L, a, from, bst);
               }
             }
-          } else {
-            L.timed_out[from] += 1;
-            if constexpr (TEL) tel_count(a.tel.timed_out, a.tel, L.tel_row, nV, t, from);
+          }
+          if (expired) {
+            forward = false;
+            if (retry) {
+              if (flags & HS_F_BACKOFF) {
+                if (transit_free(L, a, from)) {
+                  L.retried[from] += 1;
+                  if constexpr (TEL) tel_count(a.tel.retried, a.tel, L.tel_row, nV, t, from);
+                  if (budgeted) budget_debit(L, a, from);
+                }
+                into_transit<MAXV, true, TEL>(L, a, from,
+                                              backoff_arrival<MAXV>(a, from, job_attempt, u, t),
+                                              created, job_attempt + 1);
+              } else {
+                const int ql = pick(L.q_len, from);
+                if (ql < pick_arg<MAXV>(a.qcap, from)) {
+                  if (budgeted) budget_debit(L, a, from);
+                  const int tail = (pick(L.q_head, from) + ql) % K;
+                  L.q_created[from * K + tail] = created;
+                  L.q_enq[from * K + tail] = t;
+                  if (L.q_attempt) L.q_attempt[from * K + tail] = job_attempt + 1;
+                  put(L.q_len, from, ql + 1);
+                  L.retried[from] += 1;
+                  if constexpr (TEL) tel_count(a.tel.retried, a.tel, L.tel_row, nV, t, from);
+                } else {
+                  put(L.dropped, from, pick(L.dropped, from) + 1);
+                  if constexpr (TEL) tel_count(a.tel.dropped, a.tel, L.tel_row, nV, t, from);
+                }
+              }
+            } else {
+              L.timed_out[from] += 1;
+              if constexpr (TEL) tel_count(a.tel.timed_out, a.tel, L.tel_row, nV, t, from);
+            }
           }
         }
-      }
-    } else {  // _transit_arrive: the first slot holding the row's minimum
-      const int v = ev - MAXV;
-      float* trow = L.tr_time + v * TR;
-      float best = INFINITY;
-      int slot = 0;
-      for (int c = 0; c < TR; ++c) {
-        const float x = trow[c];
-        if (x < best) { best = x; slot = c; }
-      }
-      created = L.tr_created[v * TR + slot];
-      if constexpr (CHAOS) {
-        if (L.tr_attempt) attempt = L.tr_attempt[v * TR + slot];
-      }
-      trow[slot] = INFINITY;
-      put(L.tmin, v, row_min(trow, TR));
-      dest = HsRef{HS_SERVER, v, 0.0f, HS_LAT_NONE};
-    }
-
-    if constexpr (CHAOS) {
-      if (forward)
-        deliver<MAXV, GRAPH, EXT, true, TEL, RES>(L, a, dest, t, created, u, loss, attempt);
-    } else {
-      deliver<MAXV, GRAPH, EXT, false, TEL>(L, a, dest, t, created, u);
-    }
-
-    if (from >= 0) {
-      // FIFO pull into the freed slot. On a line the delivery went to
-      // another server; in a graph a feedback delivery may have re-claimed
-      // the slot (it takes the first free one, ahead of the queue).
-      const int ql = pick(L.q_len, from);
-      float* row = L.slot_done + from * C;
-      bool pull = ql > 0 && (!GRAPH || isinf(row[from_slot]));
-      bool inflate = false;  // CHAOS: a degrade-mode window inflates the pull
-      bool pull_ok = true;   // RES: a budget token for the pull's hedge
-      if constexpr (RES) {
-        // A hedged server's budget is refreshed at every completion.
-        if (a.res.budget && (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE))
-          pull_ok = budget_refresh(L, a, from, t, 0.0f) >= 1.0f;
-      }
-      if constexpr (CHAOS) {
-        const int flags = pick_arg<MAXV>(a.srv_flags, from);
-        if (pull && (flags & HS_F_FAULTED) && !(flags & HS_F_DROP) &&
-            fault_dark(L, a, from, t)) {
-          const int cap = pick_arg<MAXV>(a.cap_slots, from);
-          const int cv = pick_arg<MAXV>(a.conc, from);
-          pull = !(cap < cv && active_slots(row, cv) >= cap);
-          inflate = pick_arg<MAXV>(a.lat_factor, from) > 1.0f;
+      } else {  // _transit_arrive: the first slot holding the row's minimum
+        const int v = ev - MAXV;
+        const HsRow<float> trow = L.tr_time + v * TR;
+        float best = INFINITY;
+        int slot = 0;
+        for (int c = 0; c < TR; ++c) {
+          const float x = trow[c];
+          if (x < best) { best = x; slot = c; }
         }
+        created = L.tr_created[v * TR + slot];
+        if constexpr (CHAOS) {
+          if (L.tr_attempt) attempt = L.tr_attempt[v * TR + slot];
+        }
+        trow[slot] = INFINITY;
+        put(L.tmin, v, row_min(trow, TR));
+        dest = HsRef{HS_SERVER, v, 0.0f, HS_LAT_NONE};
       }
-      if (pull) {
-        const int head = pick(L.q_head, from);
-        HsSvc s = service_terms<MAXV, EXT>(a, from, pick(L.mean, from), u + a.u_svc2);
+
+      if constexpr (CHAOS) {
+        if (forward)
+          deliver<MAXV, GRAPH, EXT, true, TEL, RES>(L, a, dest, t, created, u, loss, attempt);
+      } else {
+        deliver<MAXV, GRAPH, EXT, false, TEL>(L, a, dest, t, created, u);
+      }
+
+      if (from >= 0) {
+        // FIFO pull into the freed slot. On a line the delivery went to
+        // another server; in a graph a feedback delivery may have re-claimed
+        // the slot (it takes the first free one, ahead of the queue).
+        const int ql = pick(L.q_len, from);
+        const HsRow<float> row = L.slot_done + from * C;
+        bool pull = ql > 0 && (!GRAPH || isinf(row[from_slot]));
+        bool inflate = false;  // CHAOS: a degrade-mode window inflates the pull
+        bool pull_ok = true;   // RES: a budget token for the pull's hedge
+        if constexpr (RES) {
+          // A hedged server's budget is refreshed at every completion.
+          if (a.res.budget && (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE))
+            pull_ok = budget_refresh(L, a, from, t, 0.0f) >= 1.0f;
+        }
         if constexpr (CHAOS) {
           const int flags = pick_arg<MAXV>(a.srv_flags, from);
-          const float factor = pick_arg<MAXV>(a.lat_factor, from);
-          // A server whose degrade windows inflate multiplies its pull's
-          // service by the factor, 1 while not dark.
-          if ((flags & HS_F_FAULTED) && !(flags & HS_F_DROP) && factor > 1.0f)
-            s = HsSvc{s.x * s.y, inflate ? factor : 1.0f};
-          float service = s.x * s.y;
-          if constexpr (RES) {
-            if (!pull_ok && (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE) &&
-                service > pick_arg<MAXV>(a.hedge, from))
-              budget_dropped<MAXV, TEL>(L, a, from, t);
+          if (pull && (flags & HS_F_FAULTED) && !(flags & HS_F_DROP) &&
+              fault_dark(L, a, from, t)) {
+            const int cap = pick_arg<MAXV>(a.cap_slots, from);
+            const int cv = pick_arg<MAXV>(a.conc, from);
+            pull = !(cap < cv && active_slots(row, cv) >= cap);
+            inflate = pick_arg<MAXV>(a.lat_factor, from) > 1.0f;
           }
-          if ((flags & HS_F_HEDGE) && pull_ok) {
-            HsSvc second = service_terms<MAXV, EXT>(a, from, pick(L.mean, from), u + a.u_hed2);
+        }
+        if (pull) {
+          const int head = pick(L.q_head, from);
+          HsSvc s = service_terms<MAXV, EXT>(a, from, pick(L.mean, from), u + a.u_svc2);
+          if constexpr (CHAOS) {
+            const int flags = pick_arg<MAXV>(a.srv_flags, from);
+            const float factor = pick_arg<MAXV>(a.lat_factor, from);
+            // A server whose degrade windows inflate multiplies its pull's
+            // service by the factor, 1 while not dark.
             if ((flags & HS_F_FAULTED) && !(flags & HS_F_DROP) && factor > 1.0f)
-              second = HsSvc{second.x * second.y, inflate ? factor : 1.0f};
-            bool hedged, won;
-            service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, from), hedged, won);
-            L.hedged[from] += hedged ? 1 : 0;
-            L.hedge_wins[from] += won ? 1 : 0;
+              s = HsSvc{s.x * s.y, inflate ? factor : 1.0f};
+            float service = s.x * s.y;
             if constexpr (RES) {
-              if (hedged && a.res.budget) budget_debit(L, a, from);
+              if (!pull_ok && (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE) &&
+                  service > pick_arg<MAXV>(a.hedge, from))
+                budget_dropped<MAXV, TEL>(L, a, from, t);
             }
+            if ((flags & HS_F_HEDGE) && pull_ok) {
+              HsSvc second = service_terms<MAXV, EXT>(a, from, pick(L.mean, from), u + a.u_hed2);
+              if ((flags & HS_F_FAULTED) && !(flags & HS_F_DROP) && factor > 1.0f)
+                second = HsSvc{second.x * second.y, inflate ? factor : 1.0f};
+              bool hedged, won;
+              service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, from), hedged, won);
+              L.hedged[from] += hedged ? 1 : 0;
+              L.hedge_wins[from] += won ? 1 : 0;
+              if constexpr (RES) {
+                if (hedged && a.res.budget) budget_debit(L, a, from);
+              }
+              if constexpr (TEL) {
+                if (hedged) tel_count(a.tel.hedged, a.tel, L.tel_row, nV, t, from);
+                if (won) tel_count(a.tel.hedge_wins, a.tel, L.tel_row, nV, t, from);
+              }
+            }
+            if (flags & HS_F_HEDGE) s = HsSvc{service, 1.0f};
+            if (L.slot_attempt) L.slot_attempt[from * C + from_slot] = L.q_attempt[from * K + head];
+          }
+          const float service = s.x * s.y;
+          const float done_at = fma_f64(s.x, s.y, t);
+          row[from_slot] = done_at;
+          L.slot_created[from * C + from_slot] = L.q_created[from * K + head];
+          put(L.q_head, from, (head + 1) % K);
+          put(L.q_len, from, ql - 1);
+          put(L.started, from, pick(L.started, from) + 1);
+          if (t >= a.warmup) {
+            put(L.busy, from, pick(L.busy, from) + service);
+            put(L.wsum, from, pick(L.wsum, from) + (t - L.q_enq[from * K + head]));
+            put(L.wait_n, from, pick(L.wait_n, from) + 1);
             if constexpr (TEL) {
-              if (hedged) tel_count(a.tel.hedged, a.tel, L.tel_row, nV, t, from);
-              if (won) tel_count(a.tel.hedge_wins, a.tel, L.tel_row, nV, t, from);
+              if (a.tel.busy_int)
+                tel_integral(a.tel.busy_int, a.tel, L.tel_row, nV, from, t, done_at, 1.0f);
             }
           }
-          if (flags & HS_F_HEDGE) s = HsSvc{service, 1.0f};
-          if (L.slot_attempt) L.slot_attempt[from * C + from_slot] = L.q_attempt[from * K + head];
         }
-        const float service = s.x * s.y;
-        const float done_at = fma_f64(s.x, s.y, t);
-        row[from_slot] = done_at;
-        L.slot_created[from * C + from_slot] = L.q_created[from * K + head];
-        put(L.q_head, from, (head + 1) % K);
-        put(L.q_len, from, ql - 1);
-        put(L.started, from, pick(L.started, from) + 1);
-        if (t >= a.warmup) {
-          put(L.busy, from, pick(L.busy, from) + service);
-          put(L.wsum, from, pick(L.wsum, from) + (t - L.q_enq[from * K + head]));
-          put(L.wait_n, from, pick(L.wait_n, from) + 1);
-          if constexpr (TEL) {
-            if (a.tel.busy_int)
-              tel_integral(a.tel.busy_int, a.tel, L.tel_row, nV, from, t, done_at, 1.0f);
-          }
-        }
+        put(L.smin, from, row_min(row, pick_arg<MAXV>(a.conc, from)));
       }
-      put(L.smin, from, row_min(row, pick_arg<MAXV>(a.conc, from)));
     }
   }
 
-  float tn = src_next;
-#pragma unroll
-  for (int v = 0; v < MAXV; ++v) {
-    tn = fminf(tn, L.smin[v]);
-    if constexpr (GRAPH) tn = fminf(tn, L.tmin[v]);
-  }
-  a.halted[r] = (isinf(tn) || tn > a.horizon) ? 1 : 0;
+  const float next = next_event_time<MAXV, GRAPH>(L, src_next);
+  a.halted[r] = (isinf(next) || next > a.horizon) ? 1 : 0;
   if (a.draws) a.draws[r] = L.drawn;
+  if (a.blocks) a.blocks[r] += ran;
+  if (ran == 0) return;  // a lane halted on entry changed nothing
 
   a.t[r] = t;
   a.src_next[r] = src_next;
@@ -1559,4 +1711,59 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       a.wait_sum[rv + v] = L.wsum[v];
     }
   }
+  // The staged rows back to device memory (the fault windows are read
+  // only).
+  stage_out(L.slot_done, a.slot_done + rv * C, nV * C);
+  stage_out(L.slot_created, a.slot_created + rv * C, nV * C);
+  if constexpr (GRAPH) {
+    if (transit) {
+      stage_out(L.tr_time, a.tr_time + rv * TR, nV * TR);
+      stage_out(L.tr_created, a.tr_created + rv * TR, nV * TR);
+    }
+  }
+  if constexpr (CHAOS) {
+    if (a.slot_attempt) stage_out(L.slot_attempt, a.slot_attempt + rv * C, nV * C);
+    if (a.tr_attempt) stage_out(L.tr_attempt, a.tr_attempt + rv * TR, nV * TR);
+  }
+  if constexpr (RES) {
+    if (a.res.brk_fail_t) stage_out(L.brk_ring, a.res.brk_fail_t + rv * a.res.F, nV * a.res.F);
+  }
 }
+
+#if defined(__CUDACC__)
+// Dynamic shared memory of a launch: the profile tables, then the row
+// tile, a column of stage.words words per thread.
+static size_t hs_smem_bytes(const EventStepArgs& a) {
+  const size_t tables = a.has_profile ? 2 * (size_t)a.prof_n * sizeof(float) : 0;
+  return tables + (HS_STAGE_ROWS ? (size_t)a.stage.words * HS_THREADS * sizeof(float) : 0);
+}
+
+// What every library checks before it launches: a block count, a plan
+// and a profile grid within the bounds.
+static bool hs_args_ok(const EventStepArgs& a) {
+  if (a.R < 0 || a.n_blocks < 1 || a.stage.words < 0) return false;
+  if (a.has_profile && (a.prof_n < 2 || a.prof_n > HS_MAX_PROFILE_GRID)) return false;
+  return hs_smem_bytes(a) <= HS_MAX_SMEM_PER_BLOCK;
+}
+
+// One instantiation over every replica on stream s, its dynamic shared
+// memory limit raised first where the launch takes more than 48 KB.
+template <typename Kernel>
+static void hs_launch(Kernel kernel, const EventStepArgs& a, cudaStream_t s) {
+  const size_t smem = hs_smem_bytes(a);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const dim3 block(HS_THREADS);
+  const dim3 grid((a.R + HS_THREADS - 1) / HS_THREADS);
+  kernel<<<grid, block, smem, s>>>(a);
+}
+
+// The library's build constants, which the wrapper checks when it loads it.
+extern "C" int hs_event_step_max_servers() { return HS_MAX_NV; }
+
+extern "C" int hs_event_step_max_profile_grid() { return HS_MAX_PROFILE_GRID; }
+
+extern "C" int hs_event_step_args_size() { return (int)sizeof(EventStepArgs); }
+
+extern "C" int hs_event_step_threads() { return HS_THREADS; }
+#endif

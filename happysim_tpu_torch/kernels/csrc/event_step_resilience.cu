@@ -9,20 +9,12 @@
 
 #include "event_step.cuh"
 
-extern "C" int hs_event_step_max_servers() { return HS_MAX_NV; }
-
-extern "C" int hs_event_step_max_profile_grid() { return HS_MAX_PROFILE_GRID; }
-
-extern "C" int hs_event_step_args_size() { return (int)sizeof(EventStepArgs); }
-
 template <int MAXV>
-static void launch(const EventStepArgs& args, dim3 grid, dim3 block, cudaStream_t s) {
-  // The profile tables' shared-memory stage, when the source has one.
-  const size_t smem = args.has_profile ? 2 * (size_t)args.prof_n * sizeof(float) : 0;
+static void launch(const EventStepArgs& args, cudaStream_t s) {
   if (args.tel.nW) {
-    event_step_kernel<MAXV, true, true, true, true, true><<<grid, block, smem, s>>>(args);
+    hs_launch(event_step_kernel<MAXV, true, true, true, true, true>, args, s);
   } else {
-    event_step_kernel<MAXV, true, true, true, false, true><<<grid, block, smem, s>>>(args);
+    hs_launch(event_step_kernel<MAXV, true, true, true, false, true>, args, s);
   }
 }
 
@@ -34,19 +26,16 @@ extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
     return (int)cudaErrorInvalidValue;
   if (args->res.breaker && (args->res.F < 1 || args->res.F > HS_MAX_BREAKER_RING))
     return (int)cudaErrorInvalidValue;
-  if (args->has_profile && (args->prof_n < 2 || args->prof_n > HS_MAX_PROFILE_GRID))
-    return (int)cudaErrorInvalidValue;
-  const dim3 block(HS_THREADS);
-  const dim3 grid((args->R + HS_THREADS - 1) / HS_THREADS);
+  if (!hs_args_ok(*args)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (args->nV <= 1) {
-    launch<1>(*args, grid, block, s);
+    launch<1>(*args, s);
   } else if (args->nV <= 2) {
-    launch<2>(*args, grid, block, s);
+    launch<2>(*args, s);
   } else if (args->nV <= 4) {
-    launch<4>(*args, grid, block, s);
+    launch<4>(*args, s);
   } else if (args->nV <= HS_MAX_NV) {
-    launch<HS_MAX_NV>(*args, grid, block, s);
+    launch<HS_MAX_NV>(*args, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -2,16 +2,20 @@
 torch-op version (counterpart of ``happysim_tpu/tpu/kernels/event_step.py``,
 whose ``build_block_step`` reaches the Pallas kernel).
 
-:func:`block_step` advances every replica by one macro-block of
-``macro`` event steps, in place, and returns the per-replica halted mask.
-The block's uniforms are JAX's stream, ``uniform(fold_in(key, block),
-(macro, n_draws), 1e-12, 1.0)`` per replica. For CUDA tensors it launches
-the hand-written kernel in ``csrc/event_step.cu`` (or raises), which
-draws each uniform itself (``csrc/threefry.cuh``) where a step's branch
-reads it; for CPU tensors it runs :func:`plain_block_step`, the engine's
-torch-op step applied ``macro`` times to the block drawn by the torch-op
-threefry (:func:`block_uniforms`), which is also the kernel's yardstick
-on the card. Lines of
+:func:`block_steps` runs every replica's macro-blocks ``first, ...,
+first + n - 1`` of ``macro`` event steps in place, each replica until it
+halts, and adds to each replica's count of blocks run: the JAX engine's
+``replica_chunks``, one launch for a whole run. :func:`block_step` is its
+one-block case and returns the per-replica halted mask. Block ``c``'s
+uniforms are JAX's stream, ``uniform(fold_in(key, c), (macro, n_draws),
+1e-12, 1.0)`` per replica. For CUDA tensors they launch the hand-written
+kernel in ``csrc/event_step.cu`` (or raise), which draws each uniform
+itself (``csrc/threefry.cuh``) where a step's branch reads it and holds
+the rows a step scans in shared memory (:func:`support.stage_plan`); for
+CPU tensors they run :func:`plain_block_steps` / :func:`plain_block_step`,
+the engine's torch-op step applied ``macro`` times to each block drawn by
+the torch-op threefry (:func:`block_uniforms`), which is also the
+kernel's yardstick on the card. Lines of
 servers joined by free edges ("mm1", "chain", and a source wired
 straight to the sink) launch the kernel's line instantiation; every model
 with a router, a limiter or a latency edge launches its graph
@@ -152,14 +156,25 @@ class _Res(ctypes.Structure):
     )
 
 
+class _Stage(ctypes.Structure):
+    """Mirror of ``HsStage``: each staged leaf's word offset in a lane's
+    column of the shared tile (-1: in device memory), and the column's
+    words."""
+
+    _fields_ = [("off", ctypes.c_int * len(support.STAGE_LEAVES)), ("words", ctypes.c_int)]
+
+
 class _Args(ctypes.Structure):
     """Mirror of ``EventStepArgs`` in csrc/event_step.cuh."""
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in _BASE_FIELDS]
-        + [(name, ctypes.c_void_p) for name in ("halted", "keys", "draws", "src_rate", "srv_mean")]
+        + [
+            (name, ctypes.c_void_p)
+            for name in ("halted", "keys", "draws", "blocks", "src_rate", "srv_mean")
+        ]
         + [(name, ctypes.c_int) for name in ("R", "nV", "C", "K", "macro", "n_draws")]
-        + [("block", ctypes.c_uint)]
+        + [("block", ctypes.c_uint), ("n_blocks", ctypes.c_int)]
         + [
             (name, ctypes.c_int)
             for name in (
@@ -217,6 +232,7 @@ class _Args(ctypes.Structure):
         ]
         + [("tel", _Tel)]
         + [("res", _Res)]
+        + [("stage", _Stage)]
     )
 
 
@@ -237,7 +253,7 @@ def load_library() -> dict:
             lib.hs_event_step.restype = ctypes.c_int
             for probe in (
                 "hs_event_step_max_servers", "hs_event_step_max_profile_grid",
-                "hs_event_step_args_size",
+                "hs_event_step_args_size", "hs_event_step_threads",
             ):
                 getattr(lib, probe).argtypes = []
                 getattr(lib, probe).restype = ctypes.c_int
@@ -247,6 +263,8 @@ def load_library() -> dict:
                 raise RuntimeError(f"{stem} library and wrapper disagree on the profile grid bound")
             if lib.hs_event_step_args_size() != ctypes.sizeof(_Args):
                 raise RuntimeError(f"{stem} library and wrapper disagree on the argument layout")
+            if lib.hs_event_step_threads() != support.KERNEL_THREADS:
+                raise RuntimeError(f"{stem} library and wrapper disagree on the block size")
             libs[stem] = lib
         _loaded["libs"] = libs
     return _loaded["libs"]
@@ -450,17 +468,20 @@ def _bound_tensors(state: dict, params: dict) -> list:
 
 def launch_args(
     compiled, state: dict, keys: torch.Tensor, block: int, params: dict,
-    halted: torch.Tensor, draws=None,
+    halted: torch.Tensor, draws=None, n_blocks: int = 1, blocks=None,
 ) -> _Args:
     """The kernel's argument struct for one launch, after checking the
     device, dtype, shape and contiguity of every tensor it points at, and
     the launch bounds; raises on any mismatch. ``keys`` are the ``(R, 2)``
-    uint32 replica keys and ``block`` the absolute block index the draws
-    are keyed by; ``draws``, an optional ``(R,)`` int32 tensor, receives
-    each lane's threefry evaluations. The state and parameter tensors are
-    checked once: a call with the very same tensor objects, replica count
-    and device as the last checked call reuses that call's pointers, and
-    only the keys are checked again."""
+    uint32 replica keys; the launch runs blocks ``block, ..., block +
+    n_blocks - 1``, each keyed by its absolute index. ``draws``, an
+    optional ``(R,)`` int32 tensor, receives each lane's threefry
+    evaluations; ``blocks``, an optional ``(R,)`` int32 tensor, has the
+    blocks each lane ran added to it. The state and parameter tensors,
+    and the staging plan (:func:`_stage`), are checked and made once: a
+    call with the very same tensor objects, replica count and device as
+    the last checked call reuses that call's pointers and plan, and only
+    the keys and the per-call tensors are checked again."""
     device = state["t"].device
     R, macro = state["t"].shape[0], compiled.macro
     layout = _LAYOUTS.get(compiled)
@@ -490,18 +511,47 @@ def launch_args(
             times, cum = compiled.profile_tensors(device)
             args.prof_times, args.prof_cum = times[0].data_ptr(), cum[0].data_ptr()
         args.R, args.macro = R, macro
+        args.stage = _stage(expected, args, R, device)
         checked = layout[1] = _Checked(key, bound, args)
     _check_keys(keys, R, device)
-    if not 0 <= int(block) < (1 << 32):
-        raise ValueError(f"event-step kernel: block index {block} is not a uint32")
+    if int(n_blocks) < 1:
+        raise ValueError(f"event-step kernel: {n_blocks} blocks to run")
+    if not 0 <= int(block) <= (1 << 32) - int(n_blocks):
+        raise ValueError(
+            f"event-step kernel: blocks {block}..{int(block) + int(n_blocks) - 1} are not uint32 indices"
+        )
     args = _Args.from_buffer_copy(checked.args)
     args.keys = keys.data_ptr()
-    args.block = int(block)
+    args.block, args.n_blocks = int(block), int(n_blocks)
     if draws is not None:
         _check("draws", draws, (R,), device)
         args.draws = draws.data_ptr()
+    if blocks is not None:
+        _check("blocks", blocks, (R,), device)
+        args.blocks = blocks.data_ptr()
     args.halted = halted.data_ptr()
     return args
+
+
+def _stage(expected: dict, args: _Args, R: int, device) -> _Stage:
+    """The launch's staging plan: the leaves of :data:`support.STAGE_LEAVES`
+    the model has, sized per replica from their checked shapes, within the
+    per-lane budget that keeps a launch over ``R`` replicas one wave on
+    ``device`` (on the CPU, for the card the kernels are built for), after
+    the profile tables."""
+    sms = (
+        torch.cuda.get_device_properties(device).multi_processor_count
+        if device.type == "cuda"
+        else support.CARD_SMS
+    )
+    table_bytes = 2 * args.prof_n * 4 if args.has_profile else 0
+    rows = {
+        leaf: int(np.prod(expected[leaf][1:]))
+        for leaf in support.STAGE_LEAVES
+        if leaf in expected
+    }
+    offsets, words = support.stage_plan(rows, support.stage_budget(R, table_bytes, sms=sms))
+    return _Stage((ctypes.c_int * len(offsets))(*offsets), words)
 
 
 def _check_keys(keys: torch.Tensor, R: int, device) -> None:
@@ -585,7 +635,7 @@ def _expected_shapes(compiled, R: int) -> dict:
 
 _TEL_FLOAT_LEAVES = ("tel_sink_sum", "tel_srv_depth_int", "tel_srv_busy_int")
 _INT_LEAVES = frozenset({
-    "draws", "events", "srv_q_head", "srv_q_len", "srv_started", "srv_completed",
+    "draws", "blocks", "events", "srv_q_head", "srv_q_len", "srv_started", "srv_completed",
     "srv_dropped", "srv_wait_n", "sink_count", "sink_hist",
     "rr_next", "lim_admitted", "lim_dropped", "tr_dropped",
     "srv_slot_attempt", "srv_q_attempt", "tr_attempt",
@@ -633,24 +683,57 @@ def plain_block_step(compiled, state: dict, U: torch.Tensor, params: dict) -> to
     return compiled.replica_halted(state)
 
 
-def block_step(compiled, state: dict, keys: torch.Tensor, block: int, params: dict) -> torch.Tensor:
-    """Advance every replica by macro-block ``block``, in place; returns
-    the ``(R,)`` bool halted mask (True: next event past the horizon).
+def plain_block_steps(
+    compiled, state: dict, keys: torch.Tensor, first: int, n: int, params: dict,
+    blocks=None,
+) -> torch.Tensor:
+    """The plain version of :func:`block_steps`: :func:`plain_block_step`
+    on each block's torch-op draw in turn, from block ``first``, until
+    ``n`` blocks ran or every replica halted (a halted replica's steps are
+    no-ops); a replica adds one to ``blocks``, where given, for each block
+    it was live at the start of. Returns the ``(R,)`` bool halted mask."""
+    halted = compiled.replica_halted(state)
+    for c in range(n):
+        if bool(halted.all()):
+            break
+        if blocks is not None:
+            blocks += (~halted).to(torch.int32)
+        halted = plain_block_step(compiled, state, block_uniforms(compiled, keys, first + c), params)
+    return halted
+
+
+def block_steps(
+    compiled, state: dict, keys: torch.Tensor, first: int, n: int, params: dict,
+    blocks=None,
+) -> torch.Tensor:
+    """Run macro-blocks ``first, ..., first + n - 1`` of every replica, in
+    place, each replica until it halts (its next event past the horizon,
+    tested before each block), adding the blocks each ran to the ``(R,)``
+    int32 ``blocks`` where given; returns the ``(R,)`` bool halted mask.
+    The JAX engine's ``replica_chunks``.
 
     ``keys`` are the ``(R, 2)`` uint32 replica keys. CPU tensors run
-    :func:`plain_block_step` on :func:`block_uniforms`; CUDA tensors
-    launch the kernel, which draws the same uniforms itself, on torch's
-    current stream, after the checks of :func:`launch_args`, and raise on
-    any mismatch or launch error.
+    :func:`plain_block_steps`; CUDA tensors make one kernel launch on
+    torch's current stream, which draws each block's uniforms itself,
+    after the checks of :func:`launch_args`, and raise on any mismatch or
+    launch error. Nothing waits for the device.
     """
     device = state["t"].device
     if device.type == "cpu":
-        return plain_block_step(compiled, state, block_uniforms(compiled, keys, block), params)
+        return plain_block_steps(compiled, state, keys, first, n, params, blocks)
     if device.type != "cuda":
         raise ValueError(f"event-step kernel: unsupported device {device}")
     halted = torch.empty((state["t"].shape[0],), dtype=torch.uint8, device=device)
-    launch(launch_args(compiled, state, keys, block, params, halted), device)
+    launch(launch_args(compiled, state, keys, first, params, halted, n_blocks=n, blocks=blocks), device)
     return halted.view(torch.bool)
+
+
+def block_step(compiled, state: dict, keys: torch.Tensor, block: int, params: dict) -> torch.Tensor:
+    """Advance every replica by macro-block ``block``, in place; returns
+    the ``(R,)`` bool halted mask (True: next event past the horizon): the
+    one-block case of :func:`block_steps`, its plain version
+    :func:`plain_block_step` on :func:`block_uniforms`."""
+    return block_steps(compiled, state, keys, block, 1, params)
 
 
 def library_of(args: _Args) -> str:
@@ -665,8 +748,8 @@ def library_of(args: _Args) -> str:
 def launch(args: _Args, device) -> None:
     """Launch the kernel with ready arguments (:func:`launch_args`) on
     torch's current stream of ``device``, from :func:`library_of`'s
-    library; raise on a launch error. Every launch adds one to
-    ``block_step.launches``."""
+    library; raise on a launch error. Every launch, of one block or of
+    many, adds one to ``block_step.launches``."""
     lib = load_library()[library_of(args)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

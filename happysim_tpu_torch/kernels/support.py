@@ -14,10 +14,14 @@ one thread runs one replica: the kernel keeps each server's small
 registers (queue head and length, earliest completion and transit
 arrival, counters and integrals) in per-thread register arrays sized at
 compile time, reads the topology tables from its launch arguments, and
-leaves the slot arrays, queue rings, transit rows, histogram and the
-router/limiter registers in device memory in the JAX layout. The budget
-is therefore a set of launch bounds, checked here before every launch,
-plus the device memory the state occupies.
+leaves the queue rings, the histogram and the router/limiter registers in
+device memory in the JAX layout. The rows a step scans in lockstep across
+a warp (transit, slot, fault-window and breaker rows) go to a tile of
+dynamic shared memory, lane-minor, as far as a per-lane budget allows:
+:func:`stage_budget` sizes it so that the launch stays one wave on the
+card, :func:`stage_plan` picks the leaves in the order a step uses them.
+The rest of the budget is a set of launch bounds, checked here before
+every launch, plus the device memory the state occupies.
 """
 
 from __future__ import annotations
@@ -28,6 +32,30 @@ import numpy as np
 
 from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK, EnsembleModel
 from happysim_tpu_torch.telemetry import MAX_WINDOWS
+
+#: Threads per block of the event-step kernel (csrc/event_step.cuh's
+#: HS_THREADS: 64, which tools/ab_block_loop.py timed faster than 128 on
+#: the fan-out and the chaos bench; the wrapper checks the library's value
+#: when it loads it).
+KERNEL_THREADS = 64
+#: The card the kernels are built for (sm_90a, the H100): its SMs, the
+#: shared memory of one SM, the most one block may take, and what the
+#: runtime reserves per resident block.
+CARD_SMS = 132
+SMEM_PER_SM = 228 * 1024
+SMEM_PER_BLOCK = 227 * 1024
+SMEM_RESERVED_PER_BLOCK = 1024
+#: Leaves the kernel may stage in shared memory, in the order its plan
+#: takes them (csrc/event_step.cuh's HS_ST_*): the transit rows a park
+#: and an arrival scan, the slot rows a start and a completion scan, the
+#: fault windows an arrival at a faulted server scans, the breaker ring
+#: a trip or a close resets.
+STAGE_LEAVES = (
+    "tr_time", "tr_created", "tr_attempt",
+    "srv_slot_done", "srv_slot_created", "srv_slot_attempt",
+    "flt_start", "flt_end", "flt_sh_start", "flt_sh_end",
+    "brk_fail_t",
+)
 
 #: Servers per model: the kernel's per-server register arrays are
 #: instantiated for 1, 2, 4 and 8 servers (kernels/csrc/event_step.cu).
@@ -330,6 +358,39 @@ def check_kernel_bounds(compiled, macro: int) -> None:
             )
 
 
+def stage_budget(
+    n_replicas: int, table_bytes: int = 0, threads: int = KERNEL_THREADS, sms: int = CARD_SMS
+) -> int:
+    """Bytes of shared memory each lane may stage so that a launch over
+    ``n_replicas`` stays one wave: the blocks of ``threads`` lanes spread
+    over ``sms`` SMs, each SM's shared memory split among the blocks it
+    then holds, less the runtime's reserve and the block's profile tables
+    (``table_bytes``), within the most one block may take."""
+    blocks = -(-n_replicas // threads)
+    per_sm = max(-(-blocks // sms), 1)
+    block_bytes = min(SMEM_PER_SM // per_sm - SMEM_RESERVED_PER_BLOCK, SMEM_PER_BLOCK)
+    return max(block_bytes - table_bytes, 0) // threads
+
+
+def stage_plan(row_words: dict, lane_bytes: int) -> tuple:
+    """The leaves a lane stages: ``row_words`` maps a leaf of
+    :data:`STAGE_LEAVES` to the 4-byte words of one replica's rows (a leaf
+    the model has not got is absent), and each leaf, in the order of
+    :data:`STAGE_LEAVES`, is staged when it fits what ``lane_bytes`` has
+    left. Returns ``(offsets, words)``: each leaf's word offset in a
+    lane's column of the tile (-1: left in device memory), and the
+    column's words."""
+    offsets, words = [], 0
+    for leaf in STAGE_LEAVES:
+        n = row_words.get(leaf, 0)
+        if n and 4 * (words + n) <= lane_bytes:
+            offsets.append(words)
+            words += n
+        else:
+            offsets.append(-1)
+    return offsets, words
+
+
 def replica_tile_bytes(leaves) -> int:
     """Bytes one replica's copy of ``leaves`` occupies (tensors without
     the replica axis)."""
@@ -362,10 +423,11 @@ def launch_bytes(compiled, state: dict) -> int:
 
 
 def replica_working_set_bytes(compiled, state: dict) -> int:
-    """Bytes one replica must move in one macro-block on the kernel path:
-    every dense kernel leaf read once and written once, and the replica's
-    key (two uint32 words) and parameter rows read once; the kernel draws
-    the block's uniforms from the key, so none is read. ``state`` is an
+    """Bytes one replica must move in one launch on the kernel path,
+    whatever its block count: every dense kernel leaf read once and
+    written once, and the replica's key (two uint32 words) and parameter
+    rows read once; the kernel draws each block's uniforms from the key,
+    so none is read. ``state`` is an
     ``(R, ...)`` state dict; the sparse leaves' traffic is left out, and
     so are the shared profile tables (:func:`launch_bytes` counts them
     once per launch)."""
@@ -386,9 +448,10 @@ THREEFRY_OPS = 79
 UNIFORM_INT_OPS = THREEFRY_OPS + 4
 
 
-def draw_int_ops(lanes: int, drawn: int) -> int:
-    """Integer operations of the draws of a launch whose ``lanes`` made
-    ``drawn`` threefry evaluations in all, as the kernel counts them
-    (``launch_args(..., draws=)``): one fold of the block index into the
-    key per lane, and one per uniform a taken branch read."""
-    return lanes * THREEFRY_OPS + (drawn - lanes) * UNIFORM_INT_OPS
+def draw_int_ops(folds: int, drawn: int) -> int:
+    """Integer operations of the draws of a launch that ran ``folds``
+    lane-blocks and made ``drawn`` threefry evaluations in all, as the
+    kernel counts them (``launch_args(..., draws=, blocks=)``): one fold
+    of the block index into the key per lane and block it ran, and one
+    per uniform a taken branch read."""
+    return folds * THREEFRY_OPS + (drawn - folds) * UNIFORM_INT_OPS

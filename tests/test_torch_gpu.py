@@ -14,6 +14,8 @@ the same order on the same card (no multiply-add contraction in either),
 and the same threefry, so every leaf must match bit for bit.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -27,7 +29,7 @@ from happysim_tpu_torch.engine import (  # noqa: E402
     _resolve_params,
     run_ensemble,
 )
-from happysim_tpu_torch.kernels import event_step, uniform  # noqa: E402
+from happysim_tpu_torch.kernels import event_step, support, uniform  # noqa: E402
 from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
 from test_torch_resilience_models import RESILIENCE_MODELS  # noqa: E402
@@ -275,6 +277,73 @@ def test_kernel_matches_plain_bit_for_bit(cuda, name):
     assert int(kstate["sink_count"].sum()) > 0
 
 
+def _chained_in_place(compiled, state, keys, params, n):
+    """The per-block structure: one block a launch with every row in device
+    memory, a host loop that stops once every replica halted and counts a
+    replica's block iff it was live when the block began."""
+    R = state["t"].shape[0]
+    blocks = torch.zeros((R,), dtype=torch.int32, device=state["t"].device)
+    out = torch.empty((R,), dtype=torch.uint8, device=state["t"].device)
+    live = ~compiled.replica_halted(state)
+    empty = event_step._Stage((ctypes.c_int * len(support.STAGE_LEAVES))(*[-1] * len(support.STAGE_LEAVES)), 0)
+    for c in range(n):
+        if not bool(live.any()):
+            break
+        blocks += live.to(torch.int32)
+        args = event_step.launch_args(compiled, state, keys, c, params, out)
+        args.stage = empty
+        event_step.launch(args, state["t"].device)
+        live = out == 0
+    return blocks, out.bool()
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["mm1", "router", "mix", "ramp-graph", "chaos-bench-chaos", "telemetry-chaos-fanout",
+     "resilience-storm-defended", "router-transit-1024"],
+)
+def test_whole_run_launch_equals_chained_one_block_launches(cuda, name):
+    """A run's whole budget in one launch, the rows the plan stages in
+    shared memory, against chained one-block launches with every row in
+    device memory, at 512 replicas: every leaf, the blocks each replica
+    ran and the halted mask bit for bit. ``router-transit-1024`` has
+    transit rows of 16 KB a lane, past the tile: its plan keeps tr_time in
+    device memory."""
+    if name == "router-transit-1024":
+        model = _router()
+        model.transit_capacity = 1024
+    else:
+        model = MODELS[name]()
+    compiled = _Compiled(model)
+    n = 512
+    params = {
+        k: torch.from_numpy(v).to(cuda)
+        for k, v in _resolve_params(model, compiled, n, None).items()
+    }
+    keys = rng.split(rng.PRNGKey(9, device=cuda), n)
+    state = compiled.init_state(keys, params)
+    chained = {k: v.clone() for k, v in state.items()}
+    budget = -(-_default_max_events(model, None) // compiled.macro)
+    blocks = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    before = event_step.block_step.launches
+    halted = event_step.block_steps(compiled, state, keys, 0, budget, params, blocks)
+    assert event_step.block_step.launches - before == 1
+    halted_out = torch.empty((n,), dtype=torch.uint8, device=cuda)
+    plan = event_step.launch_args(compiled, state, keys, 0, params, halted_out).stage
+    tr_time_in_tile = plan.off[support.STAGE_LEAVES.index("tr_time")] >= 0
+    assert tr_time_in_tile == ("tr_time" in state and name != "router-transit-1024")
+    chained_blocks, chained_halted = _chained_in_place(compiled, chained, keys, params, budget)
+    torch.cuda.synchronize()
+    for leaf in chained:
+        a, b = state[leaf], chained[leaf]
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=leaf)
+    torch.testing.assert_close(blocks, chained_blocks, rtol=0, atol=0)
+    torch.testing.assert_close(halted, chained_halted, rtol=0, atol=0)
+    assert bool(halted.all()) and int(blocks.max()) > 1
+
+
 def test_kernel_rejects_bad_inputs(cuda):
     model = mm1_model()
     compiled = _Compiled(model)
@@ -320,7 +389,8 @@ def test_uniform_kernel_matches_rng_bit_for_bit(cuda):
 def test_the_scan_on_the_card_draws_no_torch_op_uniform_per_block(cuda, monkeypatch):
     """run_ensemble of the M/M/1 on the scan: the torch-op uniform runs
     only at set-up (the initial gaps), the same number of times for a run
-    of 33 blocks as for one of 65; the kernel draws every block's."""
+    of 33 blocks as for one of 65, each run one kernel launch that draws
+    every block's."""
     calls = []
     plain = rng.uniform
     monkeypatch.setattr(rng, "uniform", lambda *a, **k: calls.append(1) or plain(*a, **k))
@@ -331,8 +401,8 @@ def test_the_scan_on_the_card_draws_no_torch_op_uniform_per_block(cuda, monkeypa
         before = event_step.block_step.launches
         result = run_ensemble(model, n_replicas=256, seed=2, max_events=_default_max_events(model, None))
         launches = event_step.block_step.launches - before
-        assert result.engine_path == "scan+cuda" and launches == max(result.block_occupancy)
-        counts[horizon] = (len(calls), launches)
+        assert result.engine_path == "scan+cuda" and launches == 1
+        counts[horizon] = (len(calls), max(result.block_occupancy))
     assert counts[20.0][0] == counts[40.0][0] <= 1, counts
     assert counts[40.0][1] > counts[20.0][1], counts
 
@@ -394,7 +464,7 @@ def test_run_ensemble_on_the_card_matches_the_cpu_run(cuda, build, shape):
     cpu = run_ensemble(model, n_replicas=128, seed=5, device="cpu", max_events=budget)
     assert card.engine_path == "scan+cuda" and card.kernel_shape == shape
     assert cpu.engine_path == "scan"
-    assert launches == max(card.block_occupancy)
+    assert launches == 1  # the whole budget in one launch
     for field in (
         "simulated_events", "sink_count", "server_completed", "blocks_total",
         "transit_dropped", "limiter_admitted", "limiter_dropped",
@@ -417,7 +487,7 @@ def test_telemetry_on_the_card_matches_the_cpu_run(cuda, name):
     card = run_ensemble(model, n_replicas=128, seed=5)
     launches = event_step.block_step.launches - before
     cpu = run_ensemble(model, n_replicas=128, seed=5, device="cpu")
-    assert card.engine_path == "scan+cuda" and launches == max(card.block_occupancy)
+    assert card.engine_path == "scan+cuda" and launches == 1
     for field in ("simulated_events", "sink_count", "server_completed", "network_lost"):
         assert getattr(card, field) == getattr(cpu, field), field
     cs, ps = card.timeseries, cpu.timeseries
@@ -446,7 +516,7 @@ def test_resilience_on_the_card_matches_the_cpu_run(cuda, name):
     card = run_ensemble(model, n_replicas=128, seed=5)
     launches = event_step.block_step.launches - before
     cpu = run_ensemble(model, n_replicas=128, seed=5, device="cpu")
-    assert card.engine_path == "scan+cuda" and launches == max(card.block_occupancy)
+    assert card.engine_path == "scan+cuda" and launches == 1
     for field in (
         "simulated_events", "sink_count", "server_completed", "server_dropped",
         "server_timed_out", "server_retried", "server_fault_dropped", "server_fault_retried",

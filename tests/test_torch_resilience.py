@@ -665,8 +665,9 @@ def _host_compiler():
 
 
 def test_argument_struct_mirror_matches_the_header(tmp_path):
-    """ctypes' _Args (and its HsTel and HsRes parts) have the size and
-    offsets the header's EventStepArgs has, compiled as host C++ (the
+    """ctypes' _Args (and its HsTel, HsRes and HsStage parts, and the
+    block loop's fields) have the size and offsets the header's
+    EventStepArgs has, compiled as host C++ (the
     card's library checks hs_event_step_args_size() against the same
     mirror when it loads), within CUDA 12.1's 32,764-byte parameter
     limit the header asserts."""
@@ -678,15 +679,16 @@ def test_argument_struct_mirror_matches_the_header(tmp_path):
     probe.write_text(
         "#include <cstddef>\n#include <cstdio>\n#include <cmath>\n"
         "#define __global__\n#define __device__\n#define __forceinline__ inline\n#define __noinline__\n"
-        "#define __launch_bounds__(x)\n#define __grid_constant__\n#define __shared__\n"
+        "#define __launch_bounds__(...)\n#define __grid_constant__\n#define __shared__\n"
         "struct dim3 { unsigned x, y, z; };\nstatic dim3 blockIdx, threadIdx, blockDim;\n"
         "inline void __syncthreads() {}\nusing std::isinf;\nusing std::isfinite;\n"
         "inline int min(int a, int b) { return a < b ? a : b; }\n"
         "inline int max(int a, int b) { return a > b ? a : b; }\n"
         '#include "event_step.cuh"\n'
-        "int main() { std::printf(\"%zu %zu %zu %zu %zu\\n\", sizeof(EventStepArgs), "
-        "offsetof(EventStepArgs, tel), offsetof(EventStepArgs, res), sizeof(HsRes), "
-        "offsetof(HsRes, shed_busy_thr)); }\n"
+        "int main() { std::printf(\"%zu %zu %zu %zu %zu %zu %zu %zu %zu\\n\", "
+        "sizeof(EventStepArgs), offsetof(EventStepArgs, tel), offsetof(EventStepArgs, res), "
+        "sizeof(HsRes), offsetof(HsRes, shed_busy_thr), offsetof(EventStepArgs, blocks), "
+        "offsetof(EventStepArgs, n_blocks), offsetof(EventStepArgs, stage), sizeof(HsStage)); }\n"
     )
     exe = tmp_path / "probe"
     subprocess.run(
@@ -699,6 +701,8 @@ def test_argument_struct_mirror_matches_the_header(tmp_path):
     mirror = [
         ctypes.sizeof(event_step._Args), event_step._Args.tel.offset, event_step._Args.res.offset,
         ctypes.sizeof(event_step._Res), event_step._Res.shed_busy_thr.offset,
+        event_step._Args.blocks.offset, event_step._Args.n_blocks.offset,
+        event_step._Args.stage.offset, ctypes.sizeof(event_step._Stage),
     ]
     assert sizes == mirror
     assert 4096 < sizes[0] <= 32764

@@ -159,7 +159,7 @@ _SHIMS = r"""
 #define __device__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __grid_constant__
 #define __shared__
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
@@ -169,26 +169,45 @@ using std::isinf;
 using std::isfinite;
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
-float hs_tables[8192];
+#define HS_HOST_SHARED_FLOATS (1 << 20)
+float hs_tables[HS_HOST_SHARED_FLOATS];
 #include "event_step.cuh"
 """
 
+# run_<name>(args, threads): the launch's thread blocks of `threads` lanes
+# in turn over the one shared buffer, each block's profile tables staged
+# before its lanes run (a lane runs its whole loop before the next
+# starts, so a lane staging only its share of the tables would read the
+# others' unstaged); returns 1 when the tables and the row tile do not fit.
+_RUN = """
+extern "C" int run_{name}(const EventStepArgs* a, int threads) {{
+  const int tables = a->has_profile ? 2 * a->prof_n : 0;
+  if (tables + a->stage.words * threads > HS_HOST_SHARED_FLOATS) return 1;
+  blockDim.x = threads;
+  for (int first = 0; first < a->R; first += threads) {{
+    blockIdx.x = first / threads;
+    for (int i = 0; i < tables / 2; ++i) {{
+      hs_tables[i] = a->prof_times[i];
+      hs_tables[tables / 2 + i] = a->prof_cum[i];
+    }}
+    for (int lane = 0; lane < threads; ++lane) {{
+      threadIdx.x = lane;
+      event_step_kernel<{maxv}, {flags}>(*a);
+    }}
+  }}
+  return 0;
+}}
+"""
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
-    """One host library with the instantiations of _INSTANTIATIONS, each
-    exported as run_<name>(args): every replica stepped in turn."""
+
+def build_host_kernel(build) -> ctypes.CDLL:
+    """The host library of _INSTANTIATIONS in directory ``build``, each
+    exported as ``run_<name>(args, threads)`` (see _RUN)."""
     compiler = _compiler()
-    build = tmp_path_factory.mktemp("event_step_host")
     (build / "cuda_runtime.h").write_text("")
     body = [_SHIMS]
     for name, (maxv, *flags) in _INSTANTIATIONS.items():
-        body.append(
-            f'extern "C" void run_{name}(const EventStepArgs* a) {{\n'
-            f"  blockDim.x = 1; threadIdx.x = 0;\n"
-            f"  for (int r = 0; r < a->R; ++r) {{ blockIdx.x = r; "
-            f"event_step_kernel<{maxv}, {', '.join(flags)}>(*a); }}\n}}\n"
-        )
+        body.append(_RUN.format(name=name, maxv=maxv, flags=", ".join(flags)))
     source = build / "host.cpp"
     source.write_text("".join(body))
     lib_path = build / "libhost.so"
@@ -199,8 +218,16 @@ def host_kernel(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(lib_path))
     for name in _INSTANTIATIONS:
-        getattr(lib, f"run_{name}").argtypes = [ctypes.POINTER(event_step._Args)]
+        getattr(lib, f"run_{name}").argtypes = [ctypes.POINTER(event_step._Args), ctypes.c_int]
+        getattr(lib, f"run_{name}").restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """One host library with the instantiations of _INSTANTIATIONS, each
+    exported as run_<name>(args, threads)."""
+    return build_host_kernel(tmp_path_factory.mktemp("event_step_host"))
 
 
 @pytest.mark.parametrize("name", sorted(_HOST_MODELS))
@@ -219,10 +246,11 @@ def test_host_kernel_drawing_its_own_uniforms_matches_the_plain_step(host_kernel
     run = getattr(host_kernel, f"run_{instantiation}")
     draws = torch.zeros((n,), dtype=torch.int32)
     for block in (70000, 70001, 70002, 70003):
+        live = ~compiled.replica_halted(kernel_state)
         halted = torch.empty((n,), dtype=torch.uint8)
         args = event_step.launch_args(compiled, kernel_state, keys, block, params, halted, draws)
-        assert args.block == block and args.keys == keys.data_ptr()
-        run(ctypes.byref(args))
+        assert args.block == block and args.keys == keys.data_ptr() and args.n_blocks == 1
+        assert run(ctypes.byref(args), 1) == 0
         plain_halted = event_step.plain_block_step(
             compiled, plain_state, event_step.block_uniforms(compiled, keys, block), params
         )
@@ -233,6 +261,7 @@ def test_host_kernel_drawing_its_own_uniforms_matches_the_plain_step(host_kernel
                 np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, err_msg=f"{block} {leaf}")
             else:
                 assert torch.equal(got, want), f"block {block}: {leaf}"
-        # Each lane folded its key once and drew at least the steps it took.
-        assert int(draws.min()) >= 1
+        # Each lane live at the block's start folded its key once and drew
+        # at least the steps it took; a halted lane drew nothing.
+        assert bool((draws[live] >= 1).all()) and bool((draws[~live] == 0).all())
     assert int(plain_state["events"].min()) > 0
