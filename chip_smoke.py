@@ -9,8 +9,8 @@ Phases, each of which must pass (any failure raises and exits nonzero):
 2. the build: the kernels compiled with nvcc for sm_90a from this
    checkout's sources, one nvcc per source (the event-step kernel without
    telemetry or resilience, its telemetry instantiations, its resilience
-   instantiations, and the draw kernel) started together, with ptxas'
-   register and spill report;
+   instantiations, the draw kernel and the M/M/1 Lindley kernel) started
+   together, with ptxas' register and spill report;
    then the draw kernel (csrc/uniform.cu) against rng.uniform, bit for
    bit, on the M/M/1 chain form's gap block (65,536 x 1,514 uniforms),
    timed against its plain version and its bound;
@@ -209,7 +209,27 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    - cascade: test_tpu_resilience.py's breaker-protected cascade: trips
      at server 1 only, its open fraction 0 in the last two windows;
    - shed-mm1: a mean wait of exactly 0, and the shed share of arrivals
-     within 1% of the Erlang loss probability rho / (1 + rho) = 4/9.
+     within 1% of the Erlang loss probability rho / (1 + rho) = 4/9;
+6. checkpoint and resume at 65,536 replicas on the M/M/1's scan, the
+   fan-out, the chaos bench, the telemetry bench model and the defended
+   resilience arm, each at the budget above: run_ensemble in
+   CHECKPOINT_SEGMENTS segments (one kernel launch each) with no snapshot
+   due, then with a snapshot every segment (checkpoint_every_s=0), each
+   equal to the one-launch run on every result field but timing, route and
+   block counts; the middle snapshot taken while a replica was live,
+   through save and load (one npz under build/), resumed and equal again;
+   each run's wall beside the one-launch run's;
+7. the M/M/1 ensemble: the Lindley kernel (csrc/mm1_scan.cu) against
+   plain_mm1_scan bit for bit on 65,536 replicas over 512 customers; its
+   time and the plain version's at 65,536 x 4,096 beside its bound; then
+   run_mm1_ensemble(8, 10, 65536, 4096), bench.py's bench_kernel call, in
+   one launch, its mean wait within 1% of rho / (mu - lambda) = 0.4 s and
+   its mean sojourn within 1% of 0.5 s;
+8. the opinion rounds (torch.matmul in full float32, no kernel of the
+   port) on 32 populations of 2,048 agents: DeGroot on the card against
+   the CPU within rtol 1e-5 and atol 1e-6, bounded confidence a round at
+   a time on the same opinions within the same, and the voter model's
+   picks at 2,048 agents equal to the CPU's.
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
@@ -220,8 +240,10 @@ tables), the chaos model (the chaos branches) and the telemetry model
 (the window buffers) and bench_resilience's defended arm (the
 defenses), the models the main path runs, its ms the time per block of
 a 20-block launch and its bound that of the same blocks, its launches
-those of the main path's run (one a run); and the draw kernel, its
-launches those of the M/M/1's chain-form run. Every number printed
+those of the main path's run (one a run); the draw kernel, its
+launches those of the M/M/1's chain-form run; and the Lindley kernel, its
+launches those of the run_mm1_ensemble call, its times at 65,536 x
+4,096. Every number printed
 carries the card's name and power limit.
 Details, the router and mix models' included, also go to
 chiprun_out/chip_smoke.json.
@@ -230,6 +252,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import re
@@ -241,12 +264,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from happysim_tpu_torch import EnsembleModel, mm1_model, pipeline_model, rng, run_ensemble
+from happysim_tpu_torch import (
+    EnsembleCheckpoint,
+    EnsembleModel,
+    mm1_model,
+    model_fingerprint,
+    opinion,
+    pipeline_model,
+    rng,
+    run_ensemble,
+    run_mm1_ensemble,
+)
 from happysim_tpu_torch.chain import fast_plan
 from happysim_tpu_torch.faults import duty_cycle
 from happysim_tpu_torch.model import FaultSpec
-from happysim_tpu_torch.engine import _Compiled, _default_max_events, _resolve_params
-from happysim_tpu_torch.kernels import build, event_step, support, uniform
+from happysim_tpu_torch.engine import (
+    CHECKPOINT_SEGMENTS,
+    resume_mismatches,
+    _Compiled,
+    _default_max_events,
+    _resolve_params,
+)
+from happysim_tpu_torch.kernels import build, event_step, mm1_scan, support, uniform
 
 REPLICAS = 65536
 MACRO = 32
@@ -1188,6 +1227,7 @@ def check_uniform(tag: str) -> dict:
     require(elements >= 1 << 26, f"uniform check: {elements} elements")
     same = bool((got.view(torch.int32) == want.view(torch.int32)).all())
     require(same, "uniform kernel differs from rng.uniform")
+    max_abs_err = float((got - want).abs().max())
     del got, want
     kernel_ms = elapsed_ms(lambda i: uniform.replica_uniform(keys, i, (n,)), 10)
     plain_ms = elapsed_ms(lambda i: uniform.plain_replica_uniform(keys, i, (n,)), 2)
@@ -1202,6 +1242,7 @@ def check_uniform(tag: str) -> dict:
     )
     return {
         "elements": elements, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "max_abs_err": max_abs_err,
         "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
@@ -1632,6 +1673,282 @@ def resilience_main_path(tag: str) -> dict:
     return runs
 
 
+# -- checkpoint and resume, the M/M/1 ensemble, the opinion rounds ------------
+# The one npz each checkpoint run writes, in the build directory.
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoints"
+
+
+class _SnapshotKept(Exception):
+    """Raised by a checkpoint callback to end a run once it holds the
+    snapshot it was waiting for."""
+
+
+def same_result(label: str, a, b) -> None:
+    """Every field of two results equal but those of the port's
+    RESUME_EXCLUDED_FIELDS, the window series field by field."""
+    diff = resume_mismatches(a, b)
+    require(not diff, f"{label}: {diff} differ from the one-launch run")
+
+
+def checkpoint_run(label: str, model, tag: str, sweeps=None, max_events=None,
+                   every_segment: bool = False) -> dict:
+    """The checkpointing path against the one-launch run at the main path's
+    budget: run_ensemble in CHECKPOINT_SEGMENTS segments with no snapshot
+    due (one launch a segment), equal to the one-launch run on every field
+    outside RESUME_EXCLUDED_FIELDS. Then a snapshot (checkpoint_every_s=0):
+    with ``every_segment`` the run takes one at every boundary, keeps the
+    middle one of those taken while a replica was live and must equal the
+    one-launch run again; otherwise the run ends at its first boundary, a
+    replica live, with that one snapshot (one copy of the state to the
+    host). The kept snapshot goes through save and load, and the run
+    resumed from it equals the one-launch run. The launch counts are set
+    to 0 just before each run and read just after."""
+    if max_events is None:
+        max_events = _default_max_events(model, sweeps)
+    kw = dict(n_replicas=REPLICAS, sweeps=sweeps, max_events=max_events)
+    event_step.block_step.launches = 0
+    one = run_ensemble(model, **kw)
+    require(event_step.block_step.launches == 1, f"{label}: the one-launch run launched more")
+    n_chunks = one.max_blocks
+    per_segment = -(-n_chunks // CHECKPOINT_SEGMENTS)
+    boundaries = list(range(per_segment, n_chunks, per_segment))
+    event_step.block_step.launches = 0
+    quiet = run_ensemble(model, **kw, checkpoint_every_s=3600.0, checkpoint_callback=lambda s: None)
+    quiet_launches = event_step.block_step.launches
+    require(quiet_launches == len(boundaries) + 1, f"{label}: {quiet_launches} segment launches")
+    require(quiet.engine_path == "scan+cuda", f"{label}: engine_path {quiet.engine_path}")
+    same_result(f"{label} in segments", one, quiet)
+    require(quiet.blocks_total == one.blocks_total, f"{label}: the segments ran other blocks")
+
+    live = [c for c in boundaries if c < max(one.block_occupancy)]
+    require(bool(live), f"{label}: no segment boundary while a replica was live")
+    target = live[len(live) // 2] if every_segment else live[0]
+    kept, taken = [], []
+
+    def keep(snapshot):
+        taken.append(snapshot.chunk_index)
+        if snapshot.chunk_index == target:
+            kept.append(snapshot)
+            if not every_segment:
+                raise _SnapshotKept
+
+    event_step.block_step.launches = 0
+    t0 = time.perf_counter()
+    try:
+        snapped = run_ensemble(model, **kw, checkpoint_every_s=0.0, checkpoint_callback=keep)
+    except _SnapshotKept:
+        snapped = None
+    snapped_ms = (time.perf_counter() - t0) * 1e3
+    snapped_launches = event_step.block_step.launches
+    require(taken == (boundaries if every_segment else [target]) and len(kept) == 1,
+            f"{label}: snapshots at {taken}")
+    if every_segment:
+        same_result(f"{label} with a snapshot every segment", one, snapped)
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = CKPT_DIR / f"{label}.npz"
+    t0 = time.perf_counter()
+    kept[0].save(str(path))
+    save_s = time.perf_counter() - t0
+    npz_bytes = path.stat().st_size
+    t0 = time.perf_counter()
+    loaded = EnsembleCheckpoint.load(str(path))
+    load_s = time.perf_counter() - t0
+    path.unlink()
+    require(loaded.model_fingerprint == model_fingerprint(model), f"{label}: fingerprint")
+    event_step.block_step.launches = 0
+    resumed = run_ensemble(model, **kw, resume_from=loaded)
+    resumed_launches = event_step.block_step.launches
+    require(resumed_launches == -(-(n_chunks - target) // per_segment),
+            f"{label}: {resumed_launches} launches resuming at block {target}")
+    same_result(f"{label} resumed at block {target}", one, resumed)
+    require(0 < resumed.blocks_total < one.blocks_total, f"{label}: resumed blocks {resumed.blocks_total}")
+    walls = {k: r.wall_seconds * 1e3 for k, r in
+             (("one_launch", one), ("segments", quiet), ("resumed", resumed))}
+    walls["snapshots"] = snapped_ms
+    snap_note = (f"snapshotted every segment ({len(taken)} snapshots, run equal too)"
+                 if every_segment else f"ended at its first boundary with one snapshot")
+    print(
+        f"checkpoint {label} x{REPLICAS}: {n_chunks} blocks in {quiet_launches} segments of "
+        f"{per_segment}; segmented run equals the one-launch run; {snap_note} of "
+        f"{npz_bytes / 1e9:.3f} GB; resumed at block {target} ({resumed_launches} launches) "
+        f"equals it too; wall ms: one launch {walls['one_launch']:.1f}, segments "
+        f"{walls['segments']:.1f}, snapshot run {snapped_ms:.1f} ({snapped_launches} launches), "
+        f"resumed {walls['resumed']:.1f}; npz write {save_s:.2f} s, read {load_s:.2f} s {tag}"
+    )
+    return {"blocks": n_chunks, "segments": quiet_launches, "per_segment": per_segment,
+            "snapshots": len(taken), "snapshot_launches": snapped_launches,
+            "resumed_at": target, "resumed_launches": resumed_launches,
+            "npz_bytes": npz_bytes, "npz_write_s": save_s, "npz_read_s": load_s,
+            "wall_ms": walls}
+
+
+def checkpoint_phase(tag: str) -> dict:
+    """checkpoint_run on the M/M/1's scan (a snapshot every segment: its
+    state is the smallest), the fan-out (its slot and transit rows
+    staged), the chaos bench, the telemetry bench model and the defended
+    resilience arm."""
+    print(f"checkpoint and resume at {REPLICAS} replicas, {CHECKPOINT_SEGMENTS} segments:")
+    t0 = time.perf_counter()
+    runs = {
+        "mm1": checkpoint_run("mm1", mm1_model(LAM, MU, HORIZON_S, warmup_s=WARMUP_S), tag,
+                              every_segment=True),
+        "fanout": checkpoint_run("fanout", router_model("random", HORIZON_S, WARMUP_S), tag),
+        "chaos": checkpoint_run("chaos", chaos_model(), tag, CHAOS_SWEEPS, CHAOS_MAX_EVENTS),
+        "telemetry": checkpoint_run("telemetry", telemetry_model(), tag, HETERO_SWEEPS,
+                                    TEL_MAX_EVENTS),
+        "resilience-defended": checkpoint_run(
+            "resilience-defended", resilience_bench_model(True), tag, RES_SWEEPS, RES_MAX_EVENTS
+        ),
+    }
+    print(f"checkpoint phase: {time.perf_counter() - t0:.1f} s {tag}")
+    return runs
+
+
+# run_mm1_ensemble as bench.py's bench_kernel calls it: 4,096 customers a
+# replica, a quarter of them warmup.
+MM1_CUSTOMERS = 4096
+# Float operations of one customer of the scan, a log counted as one: two
+# logs and negations, the two multiply-adds of the wait and its max; and
+# of a live customer: the sum, two more multiply-adds.
+MM1_OPS_PER_CUSTOMER, MM1_OPS_PER_LIVE = 9, 5
+
+
+def timed(fn) -> tuple:
+    """``fn()``'s result and its time in ms, from CUDA events around it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_mm1_scan(tag: str) -> dict:
+    """The Lindley kernel against plain_mm1_scan, bit for bit, at the main
+    path's call (REPLICAS x MM1_CUSTOMERS, a quarter warmup): the plain
+    version's one timed run is the reference, held against one kernel
+    call on the same key; then the kernel's time over 5 calls, beside the
+    bound: the threefry evaluations the kernel makes (two uniforms a
+    customer, each block's step keys folded once) at the 32-bit integer
+    rate, its float operations, and 12 bytes written a replica."""
+    key = rng.PRNGKey(0, device="cuda")
+    n, warmup = MM1_CUSTOMERS, MM1_CUSTOMERS // 4
+    want, plain_ms = timed(lambda: mm1_scan.plain_mm1_scan(key, REPLICAS, LAM, MU, n, warmup))
+    got = mm1_scan.mm1_scan(key, REPLICAS, LAM, MU, n, warmup)
+    torch.cuda.synchronize()
+    max_abs_err = 0.0
+    for label, g, w in zip(("sum_w", "sum_sq", "sum_s"), got, want):
+        max_abs_err = max(max_abs_err, float((g.double() - w.double()).abs().max()))
+        require(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                f"mm1 scan kernel differs from plain_mm1_scan on {label}")
+        require(bool((g > 0).all()), f"mm1 scan: a replica's {label} is not positive")
+    kernel_ms = elapsed_ms(lambda i: mm1_scan.mm1_scan(key, REPLICAS, LAM, MU, n, warmup), 5)
+    threads = mm1_scan.load_library().hs_mm1_scan_threads()
+    folds = -(-REPLICAS // threads) * n
+    int_ops = REPLICAS * n * 2 * support.UNIFORM_INT_OPS + folds * support.THREEFRY_OPS
+    float_ops = REPLICAS * (MM1_OPS_PER_CUSTOMER * n + MM1_OPS_PER_LIVE * (n - warmup))
+    ops_ms = max(int_ops / PEAK_INT32_OPS_PER_S, float_ops / PEAK_F32_OPS_PER_S) * 1e3
+    bytes_ms = (REPLICAS * 12 + 8) / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    print(
+        f"mm1 scan kernel == plain_mm1_scan bit for bit on {REPLICAS} replicas x {n} customers "
+        f"(warmup {warmup}; max abs err {max_abs_err}): kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms, {100 * bound_ms / kernel_ms:.1f}% of its bound {bound_ms:.4f} ms "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {int_ops / 1e9:.2f} G int ops, "
+        f"{float_ops / 1e9:.2f} G float ops) {tag}"
+    )
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": max_abs_err, "int_ops": int_ops, "float_ops": float_ops}
+
+
+def mm1_main_path(tag: str) -> tuple:
+    """run_mm1_ensemble(8, 10, REPLICAS, MM1_CUSTOMERS) on cuda with the
+    launch count set to 0 just before and read just after: one launch,
+    the mean wait within 1% of rho / (mu - lambda) = 0.4 s and the mean
+    sojourn within 1% of 1 / (mu - lambda). A first call before it loads
+    torch's kernels for the statistics (lazily, on first use); both walls
+    are printed."""
+    first = run_mm1_ensemble(LAM, MU, REPLICAS, MM1_CUSTOMERS, seed=0)
+    mm1_scan.mm1_scan.launches = 0
+    result = run_mm1_ensemble(LAM, MU, REPLICAS, MM1_CUSTOMERS, seed=0)
+    launches = mm1_scan.mm1_scan.launches
+    print(
+        f"run_mm1_ensemble x{REPLICAS} x {MM1_CUSTOMERS} customers: {launches} kernel launch, "
+        f"{result.simulated_events} events in {result.wall_seconds * 1e3:.3f} ms = "
+        f"{result.events_per_second:.4g} events/s (the process's first call "
+        f"{first.wall_seconds * 1e3:.3f} ms), library load {result.compile_seconds:.2f} s, "
+        f"device {result.device_name} {tag}"
+    )
+    require(first.mean_wait_s == result.mean_wait_s, "run_mm1_ensemble: two calls differ")
+    require(launches == 1, f"run_mm1_ensemble: {launches} kernel launches")
+    require(result.device_name == torch.cuda.get_device_name(0), "run_mm1_ensemble: device")
+    within(result.mean_wait_s, LAM / MU / (MU - LAM), "mm1-ensemble mean wait")
+    within(result.mean_sojourn_s, 1.0 / (MU - LAM), "mm1-ensemble mean sojourn")
+    require(math.isfinite(result.std_wait_s) and result.std_wait_s > 0, "mm1-ensemble std")
+    return result, launches
+
+
+# The opinion rounds: a batch of populations on one random graph, about
+# 16 influencers an agent, weights in [0.1, 2).
+OPINION_BATCH, OPINION_AGENTS, OPINION_DEGREE = 32, 2048, 16
+
+
+def opinion_phase(tag: str) -> dict:
+    """The DeGroot rounds of a (OPINION_BATCH, OPINION_AGENTS) batch on the
+    card against the same call on the CPU (rtol 1e-5, atol 1e-6, the CPU
+    tests' tolerance; float32 products in full precision on both sides);
+    the bounded-confidence rounds one call a round, the card and the CPU
+    fed the CPU's opinions each round (a confidence mask flips on an ulp
+    of the product once the two drift, so only same-input rounds compare);
+    the voter model's picks at OPINION_AGENTS agents equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    draw = np.random.default_rng(11)
+    n = OPINION_AGENTS
+    mask = draw.random((n, n)) < OPINION_DEGREE / n
+    np.fill_diagonal(mask, False)
+    weights = np.where(mask, draw.uniform(0.1, 2.0, (n, n)), 0.0).astype(np.float32)
+    x = draw.uniform(-1.0, 1.0, (OPINION_BATCH, n)).astype(np.float32)
+    w_cpu, x_cpu = torch.from_numpy(weights), torch.from_numpy(x)
+    w_gpu, x_gpu = w_cpu.cuda(), x_cpu.cuda()
+    out = {}
+
+    def close(label, card, cpu):
+        err = float((card.cpu() - cpu).abs().max())
+        require(np.allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-5, atol=1e-6),
+                f"{label}: the card differs from the CPU by {err}")
+        return err
+
+    card = opinion.degroot_rounds(x_cpu, w_cpu, 0.4, 16)  # no device named: the card
+    require(card.device.type == "cuda", f"degroot ran on {card.device}, not the card")
+    cpu = opinion.degroot_rounds(x_cpu, w_cpu, 0.4, 16, device="cpu")
+    out["degroot_max_abs"] = close("degroot", card, cpu)
+    out["degroot_ms"] = elapsed_ms(lambda i: opinion.degroot_rounds(x_gpu, w_gpu, 0.4, 16), 3)
+    worst, state = 0.0, x_cpu
+    for r in range(8):
+        cpu = opinion.bounded_confidence_rounds(state, w_cpu, 0.3, 0.5, 1, device="cpu")
+        card = opinion.bounded_confidence_rounds(state, w_gpu, 0.3, 0.5, 1)
+        worst = max(worst, close(f"bounded confidence round {r}", card, cpu))
+        state = cpu
+    out["bounded_confidence_max_abs"] = worst
+    out["bounded_confidence_ms"] = elapsed_ms(
+        lambda i: opinion.bounded_confidence_rounds(x_gpu, w_gpu, 0.3, 0.5, 8), 3
+    )
+    key_gpu, key_cpu = rng.PRNGKey(5, device="cuda"), rng.PRNGKey(5)
+    picks_card = opinion.voter_rounds(key_gpu, x_gpu[0], w_gpu, 8).cpu()
+    picks_cpu = opinion.voter_rounds(key_cpu, x_cpu[0], w_cpu, 8, device="cpu")
+    require(torch.equal(picks_card, picks_cpu), "voter: the card's picks differ from the CPU's")
+    out["voter_ms"] = elapsed_ms(lambda i: opinion.voter_rounds(key_gpu, x_gpu[0], w_gpu, 8), 3)
+    print(
+        f"opinion x{OPINION_BATCH} populations of {n} agents (~{OPINION_DEGREE} influencers): "
+        f"degroot 16 rounds == the CPU within rtol 1e-5 (max abs {out['degroot_max_abs']:.3g}), "
+        f"{out['degroot_ms']:.3f} ms; bounded confidence 8 rounds, each == the CPU's on the same "
+        f"opinions (max abs {worst:.3g}), {out['bounded_confidence_ms']:.3f} ms; voter 8 rounds "
+        f"at {n} agents: picks == the CPU's, {out['voter_ms']:.3f} ms {tag}"
+    )
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1646,6 +1963,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     event_step.load_library()
     uniform.load_library()
+    mm1_scan.load_library()
     names = ", ".join(path.name for path, _log in built.values())
     print(f"build: {names} in {build_s:.1f} s (nvcc, sm_90a, one per source in parallel) {tag}")
     ptxas = {}
@@ -1907,7 +2225,15 @@ def main() -> int:
 
     shares = print_shares(tag)
 
-    print(f"library_ms: {LIBRARY_NOTE}")
+    # Checkpointed and resumed runs, the M/M/1 ensemble and the opinion
+    # rounds, each path driven with its launch count set to 0 just before.
+    checkpoints = checkpoint_phase(tag)
+    mm1_check = check_mm1_scan(tag)
+    mm1_result, mm1_launches = mm1_main_path(tag)
+    opinions = opinion_phase(tag)
+
+    print(f"library_ms: {LIBRARY_NOTE}; mm1_scan: none: no single PyTorch call computes the "
+          "Lindley recursion")
     kernels = {
         "kernels": [
             {
@@ -1934,13 +2260,26 @@ def main() -> int:
                 "source": "happysim_tpu_torch/kernels/csrc/uniform.cu",
                 "replaces": "happysim_tpu/tpu/chain.py:345 jax.random.uniform",
                 "launches": chain_runs["mm1-chain"][1],
-                "max_abs_err": 0.0,
+                "max_abs_err": draw_check["max_abs_err"],
                 "ms": draw_check["kernel_ms"],
                 "plain_ms": draw_check["plain_ms"],
                 "bound_ms": draw_check["bound_ms"],
                 "bound_by": draw_check["bound_by"],
                 "library_ms": None,
-            }
+            },
+            {
+                "name": "mm1_scan",
+                "route": "cuda",
+                "source": "happysim_tpu_torch/kernels/csrc/mm1_scan.cu",
+                "replaces": "happysim_tpu/tpu/mm1.py:67 lax.scan",
+                "launches": mm1_launches,
+                "max_abs_err": mm1_check["max_abs_err"],
+                "ms": mm1_check["kernel_ms"],
+                "plain_ms": mm1_check["plain_ms"],
+                "bound_ms": mm1_check["bound_ms"],
+                "bound_by": mm1_check["bound_by"],
+                "library_ms": None,
+            },
         ]
     }
     out_dir = Path("chiprun_out")
@@ -1959,6 +2298,10 @@ def main() -> int:
                 "max_abs_err_off_main_path": extra_abs,
                 "run_ensemble": {shape: report(*run) for shape, run in runs.items()},
                 "chain": {name: report(*run) for name, run in chain_runs.items()},
+                "checkpoint": checkpoints,
+                "mm1_scan": mm1_check,
+                "run_mm1_ensemble": dataclasses.asdict(mm1_result),
+                "opinion": opinions,
                 **kernels,
             },
             indent=1,

@@ -22,7 +22,10 @@ this package                       JAX package
 ``reduce.py``                      ``happysim_tpu/tpu/reduce.py``
 ``faults.py``                      ``happysim_tpu/tpu/faults.py``
                                    (``FaultTable``, ``duty_cycle``)
-``engine.py``                      ``happysim_tpu/tpu/engine.py``
+``engine.py``                      ``happysim_tpu/tpu/engine.py`` (with the
+                                   checkpoint format and its fingerprints)
+``mm1.py``                         ``happysim_tpu/tpu/mm1.py``
+``opinion.py``                     ``happysim_tpu/tpu/opinion.py``
 ``chain.py``                       ``happysim_tpu/tpu/chain.py``
 ``telemetry.py``                   ``happysim_tpu/tpu/telemetry.py``
 ``kernels/support.py``             ``happysim_tpu/tpu/kernels/support.py``
@@ -30,6 +33,8 @@ this package                       JAX package
 ``kernels/csrc/event_step*.cu``    the Pallas kernel of ``build_block_step``
 ``kernels/uniform.py``,            ``jax.random.uniform`` in ``chain.py``
 ``kernels/csrc/uniform.cu``        (no Pallas kernel)
+``kernels/mm1_scan.py``,           the ``lax.scan`` of ``mm1.py``'s
+``kernels/csrc/mm1_scan.cu``       ``_mm1_scan`` (no Pallas kernel)
 ``kernels/build.py``               (none: the nvcc build of ``csrc/``)
 ``numerics.py``                    ``jnp.interp`` and XLA's float32 erfinv
 ``convert.py``                     (none: numpy state/params across)
@@ -49,16 +54,29 @@ stochastic or pinned ``FaultSpec`` schedules (outage or degrade mode),
 correlated outages and packet loss on edges, the defenses against it
 (``model.circuit_breaker(...)``, ``load_shed(...)``, ``retry_budget(...)``)
 and windowed telemetry (``model.telemetry(...)``, ``result.timeseries``)
-on any of them. As in the JAX package, a call with no ``max_events`` runs a
+on any of them, checkpointed and resumed in segments
+(``checkpoint_every_s``, ``checkpoint_callback``, ``resume_from``; the
+snapshots load in either package). As in the JAX package, a call with no
+``max_events`` runs a
 Poisson source into a chain of FIFO single-server stations, or a random or
 round-robin router over such chains, by the max-plus closed form of
-``chain.py`` (``engine_path == "chain"``). Every
+``chain.py`` (``engine_path == "chain"``). ``run_mm1_ensemble`` runs the
+M/M/1 ensemble by its Lindley recursion in one kernel launch, and
+``opinion.py`` the DeGroot, bounded-confidence and voter rounds. Every
 other feature of the JAX package raises ``NotImplementedError`` naming itself and its ROADMAP
 item. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
 """
 
-from happysim_tpu_torch.engine import EnsembleResult, run_ensemble
+from happysim_tpu_torch.engine import (
+    EnsembleCheckpoint,
+    EnsembleResult,
+    load_checkpoint_npz,
+    model_fingerprint,
+    params_fingerprint,
+    run_ensemble,
+    save_checkpoint_npz,
+)
 from happysim_tpu_torch.model import (
     CorrelatedOutages,
     EnsembleModel,
@@ -68,15 +86,23 @@ from happysim_tpu_torch.model import (
     mm1_model,
     pipeline_model,
 )
+from happysim_tpu_torch.mm1 import MM1Result, run_mm1_ensemble
 
 __all__ = [
     "CorrelatedOutages",
+    "EnsembleCheckpoint",
     "EnsembleModel",
     "EnsembleResult",
     "FaultSpec",
+    "MM1Result",
     "NodeRef",
     "RateProfile",
+    "load_checkpoint_npz",
     "mm1_model",
+    "model_fingerprint",
+    "params_fingerprint",
     "pipeline_model",
     "run_ensemble",
+    "run_mm1_ensemble",
+    "save_checkpoint_npz",
 ]

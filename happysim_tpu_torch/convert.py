@@ -23,8 +23,9 @@ def state_from_numpy(leaves: dict, device=None) -> dict:
 
 
 def state_to_numpy(state: dict) -> dict:
-    """``{name: Tensor}`` -> ``{name: np.ndarray}`` on the host."""
-    return {name: value.detach().cpu().numpy() for name, value in state.items()}
+    """``{name: Tensor}`` -> ``{name: np.ndarray}`` on the host (copies:
+    the arrays never alias a CPU state that is updated in place)."""
+    return {name: value.detach().to("cpu", copy=True).numpy() for name, value in state.items()}
 
 
 def params_from_numpy(params: dict, device=None) -> dict:

@@ -34,7 +34,10 @@ card, which draws the uniforms itself, or for CPU tensors its plain
 torch-op version (the step below, applied ``macro`` times to each block
 drawn by :mod:`~happysim_tpu_torch.rng`, until every replica has
 halted). A call with no event budget first tries the closed form of
-:mod:`~happysim_tpu_torch.chain`, as the JAX engine does.
+:mod:`~happysim_tpu_torch.chain`, as the JAX engine does. A checkpointed
+or resumed call runs the same blocks in segments, one ``block_steps``
+call each, and snapshots the state between them in the JAX package's
+checkpoint format (:class:`EnsembleCheckpoint`).
 
 Reductions over replicas go through :mod:`~happysim_tpu_torch.reduce`, so
 the reported totals are order-free and exact.
@@ -42,6 +45,9 @@ the reported totals are order-free and exact.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
 import logging
 import math
 import os
@@ -53,7 +59,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from happysim_tpu_torch import rng
+from happysim_tpu_torch import convert, rng
 from happysim_tpu_torch.faults import FaultTable
 from happysim_tpu_torch.kernels import event_step, support
 from happysim_tpu_torch.numerics import erfinv, fma_f32, interp
@@ -65,7 +71,6 @@ from happysim_tpu_torch.model import (
     EdgeLatency,
     EnsembleModel,
     NodeRef,
-    not_ported,
 )
 from happysim_tpu_torch.reduce import (
     MAX_EXACT_REPLICAS,
@@ -179,6 +184,132 @@ def hist_percentile(hist: np.ndarray, q: float) -> float:
     bin_index = min(bin_index, HIST_BINS - 1)
     frac = (bin_index + 0.5) / HIST_BINS
     return float(10 ** (HIST_LO_LOG10 + frac * HIST_DECADES))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: the JAX package's on-disk format and fingerprints, so that a
+# file written by either package resumes in the other
+# ---------------------------------------------------------------------------
+
+
+def _npz_path(path: str) -> str:
+    """np.savez appends '.npz' to a path without it; normalise so that
+    save(p) followed by load(p) round-trips."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_checkpoint_npz(path: str, meta: dict, state: dict) -> None:
+    """One npz: the meta dict as a JSON blob under ``__meta__`` and each
+    state leaf under ``state__<name>``."""
+    np.savez(
+        _npz_path(path),
+        __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+        **{f"state__{k}": v for k, v in state.items()},
+    )
+
+
+def load_checkpoint_npz(path: str) -> tuple[dict, dict]:
+    """The ``(meta, state)`` that :func:`save_checkpoint_npz` wrote."""
+    with np.load(_npz_path(path)) as archive:
+        meta = json.loads(archive["__meta__"].tobytes().decode())
+        state = {
+            k[len("state__"):]: archive[k] for k in archive.files if k.startswith("state__")
+        }
+    return meta, state
+
+
+def model_fingerprint(model: EnsembleModel) -> str:
+    """Digest of everything the step bakes in (topology, horizons, service
+    families, chaos, telemetry and resilience specs): the SHA-256 of the
+    repr the JAX package hashes, so both packages give the same digest for
+    the same model. The spec dataclasses of :mod:`~happysim_tpu_torch.model`
+    keep the JAX package's field order and ``repr=False`` flags for it.
+    The port has no remote egress nodes (ROADMAP A.14), consensus layer
+    (A.11) or trace-driven sources (A.12): it hashes JAX's value for a
+    model without them."""
+    items = (
+        model.horizon_s,
+        model.warmup_s,
+        model.transit_capacity,
+        model.sources,
+        model.servers,
+        model.routers,
+        model.limiters,
+        len(model.sinks),
+        [],  # model.remotes
+        model.correlated_faults,
+    )
+    # Appended only when present, as in the JAX package (which keeps
+    # older fingerprints stable that way).
+    if model.telemetry_spec is not None:
+        items = items + (model.telemetry_spec,)
+    weights = tuple(r.weights for r in model.routers if r.weights)
+    if weights:
+        items = items + (("router_weights",) + weights,)
+    resilience = tuple(
+        spec
+        for spec in (model.circuit_breaker_spec, model.load_shed_spec, model.retry_budget_spec)
+        if spec is not None
+    )
+    if resilience:
+        items = items + (("resilience",) + resilience,)
+    return hashlib.sha256(repr(items).encode()).hexdigest()[:16]
+
+
+def params_fingerprint(params: dict) -> str:
+    """Digest of the resolved per-replica parameter arrays (numpy, as
+    :func:`_resolve_params` returns them): a resume under other sweep
+    values would mix two parameterisations."""
+    digest = hashlib.sha256()
+    for name in sorted(params):
+        digest.update(name.encode())
+        digest.update(np.ascontiguousarray(np.asarray(params[name])).tobytes())
+    return digest.hexdigest()[:16]
+
+
+@dataclass
+class EnsembleCheckpoint:
+    """A resumable snapshot of a scan run: its state leaves as numpy
+    arrays with the replica axis leading, after ``chunk_index`` of its
+    ``n_chunks`` macro-blocks. Resuming with the same model, replicas,
+    seed and budget reproduces the uninterrupted run bit for bit: each
+    block's draws are keyed by its absolute index. The JAX package's
+    ``EnsembleCheckpoint``, field for field; ``mesh_devices`` is
+    provenance (the port writes 1)."""
+
+    chunk_index: int
+    n_chunks: int
+    n_replicas: int
+    seed: int
+    max_events: int
+    state: dict
+    model_fingerprint: str = ""
+    params_fingerprint: str = ""
+    # 0: unknown (resume skips the check).
+    macro_block: int = 0
+    # TelemetrySpec.signature(), "" for a model without telemetry.
+    telemetry: str = ""
+    mesh_devices: int = 0
+
+    def save(self, path: str) -> None:
+        meta = {
+            "chunk_index": self.chunk_index,
+            "n_chunks": self.n_chunks,
+            "n_replicas": self.n_replicas,
+            "seed": self.seed,
+            "max_events": self.max_events,
+            "model_fingerprint": self.model_fingerprint,
+            "params_fingerprint": self.params_fingerprint,
+            "macro_block": self.macro_block,
+            "telemetry": self.telemetry,
+            "mesh_devices": self.mesh_devices,
+        }
+        save_checkpoint_npz(path, meta, self.state)
+
+    @classmethod
+    def load(cls, path: str) -> "EnsembleCheckpoint":
+        meta, state = load_checkpoint_npz(path)
+        return cls(state=state, **meta)
 
 
 @dataclass
@@ -1888,12 +2019,14 @@ def percentile_over_replicas(x: torch.Tensor, pct: float) -> torch.Tensor:
     return fma_f32(ordered[low], low_w.expand_as(ordered[low]), ordered[high] * high_w)
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, entry: str = "run_ensemble") -> torch.device:
+    """``device``, or the CUDA card for None (raising where torch finds
+    none, naming the entry point)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "run_ensemble runs on a CUDA device and torch finds none; "
-                "pass device='cpu' to run the plain torch-op step on the CPU"
+                f"{entry} runs on a CUDA device and torch finds none; "
+                "pass device='cpu' to run the plain torch-op version on the CPU"
             )
         return torch.device("cuda")
     return torch.device(device)
@@ -1936,6 +2069,165 @@ def _resolve_params(model: EnsembleModel, compiled: _Compiled, n_replicas: int, 
     }
 
 
+# Segments of a checkpointed run: the granularity of its wall-clock
+# snapshot trigger (each segment is one kernel launch on the card).
+CHECKPOINT_SEGMENTS = 32
+
+# Result fields a checkpointed or resumed run may report otherwise than its
+# uninterrupted twin: the JAX package's set (its checkpoint tests') less
+# the fields the port's result lacks. Timing, the route taken, and the
+# block counts (a resumed run counts only its own blocks).
+RESUME_EXCLUDED_FIELDS = frozenset({
+    "wall_seconds",
+    "events_per_second",
+    "compile_seconds",
+    "engine_path",
+    "macro_block",
+    "max_blocks",
+    "blocks_total",
+    "block_occupancy",
+    "padded_replicas",
+})
+
+
+def _same_value(left, right) -> bool:
+    if dataclasses.is_dataclass(left):
+        return type(left) is type(right) and all(
+            _same_value(getattr(left, f.name), getattr(right, f.name))
+            for f in dataclasses.fields(left)
+        )
+    if isinstance(left, np.ndarray) or isinstance(right, np.ndarray):
+        return np.array_equal(left, right)
+    return left == right
+
+
+def resume_mismatches(a: EnsembleResult, b: EnsembleResult) -> list[str]:
+    """The fields outside :data:`RESUME_EXCLUDED_FIELDS` on which two
+    results differ (bit for bit; a window series field by field): empty
+    where a segmented or resumed run continued its twin exactly."""
+    return [
+        f.name
+        for f in dataclasses.fields(a)
+        if f.name not in RESUME_EXCLUDED_FIELDS
+        and not _same_value(getattr(a, f.name), getattr(b, f.name))
+    ]
+
+
+def _validate_resume(
+    resume_from: EnsembleCheckpoint,
+    leaves,
+    *,
+    n_replicas: int,
+    seed: int,
+    max_events: int,
+    n_chunks: int,
+    fingerprint: str,
+    p_fingerprint: str,
+    macro_block: int,
+    telemetry_sig: str,
+) -> None:
+    """The JAX package's resume gate, check for check and message for
+    message: the meta first, then the state's leaf names (``leaves``:
+    those of this run's state) and its replica axis, before anything
+    moves to the device."""
+    mismatches = {
+        "n_replicas": (resume_from.n_replicas, n_replicas),
+        "seed": (resume_from.seed, seed),
+        "max_events": (resume_from.max_events, max_events),
+        "n_chunks": (resume_from.n_chunks, n_chunks),
+        "model_fingerprint": (resume_from.model_fingerprint, fingerprint),
+        "params_fingerprint": (resume_from.params_fingerprint, p_fingerprint),
+        "macro_block": (resume_from.macro_block, macro_block),
+        "telemetry": (resume_from.telemetry, telemetry_sig),
+    }
+    # An empty fingerprint or macro_block 0 is "unknown": skipped.
+    bad = {
+        k: v
+        for k, v in mismatches.items()
+        if v[0] != v[1]
+        and not (k.endswith("fingerprint") and v[0] == "")
+        and not (k == "macro_block" and v[0] == 0)
+    }
+    if bad:
+        raise ValueError(
+            f"resume_from does not match this run: {bad} "
+            "(checkpoint value vs requested value; n_replicas counts "
+            "include mesh padding — pad_to_multiple(requested, "
+            "mesh.size) must equal the checkpoint's count)"
+        )
+    missing = sorted(set(leaves) - set(resume_from.state))
+    if missing:
+        raise ValueError(
+            f"resume_from state is missing leaves {missing}: the "
+            "archive is truncated or hand-edited (fingerprints match, "
+            "so the model expects every compiled state leaf)"
+        )
+    for name, leaf in resume_from.state.items():
+        if name not in leaves:
+            raise ValueError(
+                f"resume_from state carries unknown leaf {name!r}: "
+                "not a state leaf of this model's compiled step "
+                "(fingerprints match, so the archive itself is "
+                "corrupt or hand-edited)"
+            )
+        shape = np.shape(leaf)
+        if not shape or shape[0] != n_replicas:
+            raise ValueError(
+                f"resume_from state leaf {name!r} has shape {shape}: "
+                f"expected a leading replica axis of {n_replicas} "
+                "(the checkpoint's n_replicas) — the state cannot be "
+                "redistributed onto this mesh"
+            )
+
+
+def _run_ensemble_segmented(
+    compiled: "_Compiled",
+    state: dict,
+    keys: torch.Tensor,
+    params: dict,
+    blocks: torch.Tensor,
+    *,
+    chunk_done: int,
+    n_chunks: int,
+    checkpoint_every_s: Optional[float],
+    checkpoint_callback,
+    meta: dict,
+) -> None:
+    """The checkpointing path (the JAX engine's
+    ``_run_ensemble_segmented``): blocks ``chunk_done, ..., n_chunks - 1``
+    in segments of ``ceil(n_chunks / CHECKPOINT_SEGMENTS)``, each one
+    :func:`~happysim_tpu_torch.kernels.event_step.block_steps` call (one
+    kernel launch on the card), updating ``state`` and ``blocks`` in
+    place. Blocks are keyed by their absolute index, so the result is the
+    one-launch run's bit for bit. Nothing waits for the device between
+    segments unless a snapshot is due: then the state is copied to the
+    host into an :class:`EnsembleCheckpoint` (``meta`` holds its other
+    fields) for ``checkpoint_callback``. A callback without an interval
+    snapshots every segment; the last segment is never snapshotted."""
+    seg_chunks = max(1, -(-n_chunks // CHECKPOINT_SEGMENTS))
+    every = (
+        checkpoint_every_s
+        if checkpoint_every_s is not None
+        else (0.0 if checkpoint_callback is not None else None)
+    )
+    last_snapshot = _wall.perf_counter()
+    while chunk_done < n_chunks:
+        n_seg = min(seg_chunks, n_chunks - chunk_done)
+        event_step.block_steps(compiled, state, keys, chunk_done, n_seg, params, blocks)
+        chunk_done += n_seg
+        due = every is not None and _wall.perf_counter() - last_snapshot >= every
+        if checkpoint_callback is not None and due and chunk_done < n_chunks:
+            checkpoint_callback(
+                EnsembleCheckpoint(
+                    chunk_index=chunk_done,
+                    n_chunks=n_chunks,
+                    state=convert.state_to_numpy(state),
+                    **meta,
+                )
+            )
+            last_snapshot = _wall.perf_counter()
+
+
 def run_ensemble(
     model: EnsembleModel,
     n_replicas: int = 8192,
@@ -1954,8 +2246,14 @@ def run_ensemble(
     ``sweeps`` maps ``"source_rate"`` / ``"service_mean"`` to per-replica
     ``(R,)`` or ``(R, n)`` arrays. ``max_events`` is the per-replica event
     budget (default: from the arrival rates and the longest server path).
-    Checkpoints (``checkpoint_every_s``, ``checkpoint_callback``,
-    ``resume_from``) raise NotImplementedError (ROADMAP A.10).
+    Checkpoint and resume, as in the JAX engine: ``checkpoint_every_s``
+    (wall seconds; 0 = every segment) hands an :class:`EnsembleCheckpoint`
+    of the state at a segment boundary to ``checkpoint_callback``; passing
+    one back as ``resume_from`` (same model, replicas, seed and budget)
+    continues the run and reproduces the uninterrupted result bit for
+    bit. Such a run is the event scan in ``CHECKPOINT_SEGMENTS``
+    segments, one kernel launch each, and its ``wall_seconds`` include
+    the snapshots' copies; a resumed run counts only its own blocks.
 
     As in the JAX engine, a call with no ``max_events`` runs a
     Poisson -> FIFO chain -> sink model, or a single random or round-robin
@@ -1965,8 +2263,16 @@ def run_ensemble(
     declines; every other run is the event scan, the whole event budget
     in one kernel launch.
     """
-    if checkpoint_every_s is not None or checkpoint_callback is not None or resume_from is not None:
-        raise not_ported("checkpoints and resume (ROADMAP A.10)")
+    checkpointing = (
+        checkpoint_every_s is not None
+        or checkpoint_callback is not None
+        or resume_from is not None
+    )
+    if checkpoint_every_s is not None and checkpoint_callback is None:
+        raise ValueError(
+            "checkpoint_every_s without checkpoint_callback would take no "
+            "snapshots (pass a callback to receive them)"
+        )
     device = _resolve_device(device)
     compiled = _Compiled(model)
     if n_replicas > MAX_EXACT_REPLICAS:
@@ -1984,7 +2290,13 @@ def run_ensemble(
     on_card = device.type == "cuda"
     device_name = torch.cuda.get_device_name(device) if on_card else "cpu"
 
-    if not explicit_max_events and os.environ.get("HS_TPU_CHAIN", "1") != "0":
+    # Checkpointed and resumed runs always take the scan: its state is
+    # the snapshot.
+    if (
+        not checkpointing
+        and not explicit_max_events
+        and os.environ.get("HS_TPU_CHAIN", "1") != "0"
+    ):
         from happysim_tpu_torch import chain
 
         plan = chain.fast_plan(model)
@@ -2019,19 +2331,54 @@ def run_ensemble(
     compile_seconds = _wall.perf_counter() - compile_start
 
     start = _wall.perf_counter()
-    params = {
-        k: torch.from_numpy(v).to(device)
-        for k, v in _resolve_params(model, compiled, n_replicas, sweeps).items()
-    }
+    host_params = _resolve_params(model, compiled, n_replicas, sweeps)
+    params = {k: torch.from_numpy(v).to(device) for k, v in host_params.items()}
     keys = rng.split(rng.PRNGKey(seed, device=device), n_replicas)
-    state = compiled.init_state(keys, params)
-    # The whole budget in one call: on the card one kernel launch, in
-    # which each lane runs its blocks until it halts and counts those it
-    # ran (a lane counts a block iff it was live when the block began);
-    # nothing waits for the device before the reduce.
+    # Each lane counts a block iff it was live when the block began.
     blocks = torch.zeros((n_replicas,), dtype=torch.int32, device=device)
-    if n_chunks:
-        event_step.block_steps(compiled, state, keys, 0, n_chunks, params, blocks)
+    if not checkpointing:
+        # The whole budget in one call: on the card one kernel launch, in
+        # which each lane runs its blocks until it halts; nothing waits
+        # for the device before the reduce.
+        state = compiled.init_state(keys, params)
+        if n_chunks:
+            event_step.block_steps(compiled, state, keys, 0, n_chunks, params, blocks)
+    else:
+        meta = {
+            "n_replicas": n_replicas,
+            "seed": seed,
+            "max_events": int(max_events),
+            "model_fingerprint": model_fingerprint(model),
+            "params_fingerprint": params_fingerprint(host_params),
+            "macro_block": macro,
+            "telemetry": compiled.telemetry.signature() if compiled.has_telemetry else "",
+            "mesh_devices": 1,
+        }
+        if resume_from is not None:
+            # The leaf names of this run's state, from one replica's.
+            template = compiled.init_state(keys[:1], {k: v[:1] for k, v in params.items()})
+            _validate_resume(
+                resume_from,
+                template,
+                n_chunks=n_chunks,
+                fingerprint=meta["model_fingerprint"],
+                p_fingerprint=meta["params_fingerprint"],
+                telemetry_sig=meta["telemetry"],
+                **{k: meta[k] for k in ("n_replicas", "seed", "max_events", "macro_block")},
+            )
+            state = convert.state_from_numpy(resume_from.state, device)
+            chunk_done = resume_from.chunk_index
+        else:
+            state = compiled.init_state(keys, params)
+            chunk_done = 0
+        _run_ensemble_segmented(
+            compiled, state, keys, params, blocks,
+            chunk_done=chunk_done,
+            n_chunks=n_chunks,
+            checkpoint_every_s=checkpoint_every_s,
+            checkpoint_callback=checkpoint_callback,
+            meta=meta,
+        )
     reduced = reduce_final(compiled, state)
     reduced.update(_blocks_reduce(blocks, n_chunks))
     events_total = int(host_i64(reduced["events"]))

@@ -8,6 +8,8 @@ event-step kernel (CUDA C++ in ``csrc/event_step.cuh``, launched from
 threefry of ``csrc/threefry.cuh``, its wrapper and its plain torch-op
 version; :mod:`~happysim_tpu_torch.kernels.uniform` the standalone draw
 kernel of the chain form (``csrc/uniform.cu``, the same threefry);
+:mod:`~happysim_tpu_torch.kernels.mm1_scan` the M/M/1 ensemble's Lindley
+kernel (``csrc/mm1_scan.cu``, the same threefry) and its plain version;
 :mod:`~happysim_tpu_torch.kernels.build` their nvcc build;
 :mod:`~happysim_tpu_torch.kernels.support` the event step's shape
 provenance, launch bounds and bytes and operations counts.

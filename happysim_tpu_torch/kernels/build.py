@@ -19,12 +19,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 # One library per source: the event-step kernel without telemetry or
 # resilience, its telemetry instantiations, its resilience instantiations,
-# and the standalone draw kernel.
+# the standalone draw kernel and the M/M/1 ensemble's Lindley scan.
 SOURCES = (
     CSRC / "event_step.cu",
     CSRC / "event_step_telemetry.cu",
     CSRC / "event_step_resilience.cu",
     CSRC / "uniform.cu",
+    CSRC / "mm1_scan.cu",
 )
 HEADERS = (CSRC / "event_step.cuh", CSRC / "threefry.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"

@@ -368,14 +368,17 @@ class RetryBudgetSpec:
             )
 
 
+# The spec dataclasses keep the JAX package's field order and repr flags:
+# engine.model_fingerprint hashes their repr, and a checkpoint of either
+# package carries that digest.
 @dataclass
 class SourceSpec:
     rate: float
     arrival: str = "poisson"
     stop_after_s: Optional[float] = None
     downstream: Optional[NodeRef] = None
-    latency: EdgeLatency = field(default_factory=EdgeLatency)
     profile: Optional[RateProfile] = None
+    latency: EdgeLatency = field(default_factory=EdgeLatency)
 
 
 @dataclass
@@ -384,15 +387,15 @@ class ServerSpec:
     service_mean_s: float = 0.1
     service: str = "exponential"
     queue_capacity: int = 64
-    service_k: int = 2  # erlang phases
-    service_scv: float = 2.0  # hyperexp / lognormal squared cv
-    pareto_alpha: float = 2.5  # pareto tail index
     downstream: Optional[NodeRef] = None
     latency: EdgeLatency = field(default_factory=EdgeLatency)
     # A completion whose sojourn exceeds deadline_s is a timeout; with
     # max_retries > 0 it is retried until the budget runs out.
     deadline_s: Optional[float] = None
     max_retries: int = 0
+    service_k: int = 2  # erlang phases
+    service_scv: float = 2.0  # hyperexp / lognormal squared cv
+    pareto_alpha: float = 2.5  # pareto tail index
     # Brownout window [start, end): arrivals inside it are dropped.
     outage_start_s: Optional[float] = None
     outage_end_s: Optional[float] = None

@@ -314,7 +314,6 @@ def _off_chain_server(m):
 @pytest.mark.parametrize(
     "mutate, feature",
     [
-        (lambda m: t_run(m, n_replicas=2, resume_from=object(), device="cpu"), "checkpoints"),
         (lambda m: m.network_partition(), "network partitions"),
         (lambda m: m.quorum(), "quorum"),
         (lambda m: m.leader_election(), "leader election"),

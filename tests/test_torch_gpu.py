@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain torch-op versions, on the card: the
 event-step kernel, which draws its own uniforms, against the plain step
-fed by the torch-op threefry, and the standalone draw kernel against
-rng.uniform.
+fed by the torch-op threefry, the standalone draw kernel against
+rng.uniform, and the M/M/1 Lindley kernel against plain_mm1_scan; a
+checkpointed run's segment launches against its one launch, and the
+opinion rounds against the CPU.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -29,7 +31,9 @@ from happysim_tpu_torch.engine import (  # noqa: E402
     _resolve_params,
     run_ensemble,
 )
-from happysim_tpu_torch.kernels import event_step, support, uniform  # noqa: E402
+from happysim_tpu_torch import opinion, run_mm1_ensemble  # noqa: E402
+from happysim_tpu_torch.engine import CHECKPOINT_SEGMENTS, resume_mismatches  # noqa: E402
+from happysim_tpu_torch.kernels import event_step, mm1_scan, support, uniform  # noqa: E402
 from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
 from test_torch_resilience_models import RESILIENCE_MODELS  # noqa: E402
@@ -532,3 +536,112 @@ def test_resilience_on_the_card_matches_the_cpu_run(cuda, name):
             assert (left is None) == (right is None), field
             if right is not None and np.asarray(right).dtype.kind == "i":
                 np.testing.assert_array_equal(left, right, err_msg=field)
+
+
+@pytest.mark.parametrize("lam,mu,R", [(8.0, 10.0, 4096), (7.0, 9.0, 1000)])
+def test_mm1_scan_kernel_matches_plain_bit_for_bit(cuda, lam, mu, R):
+    """The Lindley kernel against plain_mm1_scan on the card, 384
+    customers after a warmup of 96: every per-replica sum bit for bit.
+    R = 1000 leaves the last thread block part empty."""
+    key = rng.PRNGKey(4, device=cuda)
+    before = mm1_scan.mm1_scan.launches
+    got = mm1_scan.mm1_scan(key, R, lam, mu, 384, 96)
+    assert mm1_scan.mm1_scan.launches - before == 1
+    want = mm1_scan.plain_mm1_scan(key, R, lam, mu, 384, 96)
+    torch.cuda.synchronize()
+    for label, g, w in zip(("sum_w", "sum_sq", "sum_s"), got, want):
+        torch.testing.assert_close(g.view(torch.int32), w.view(torch.int32), rtol=0, atol=0,
+                                   msg=label)
+        assert bool((g > 0).all()), label
+
+
+def test_run_mm1_ensemble_on_the_card_matches_the_cpu_run(cuda):
+    """One kernel launch a call; the statistics within rel 1e-5 of the CPU
+    run (the card's and the CPU's float32 log differ by an ulp on some
+    draws)."""
+    before = mm1_scan.mm1_scan.launches
+    card = run_mm1_ensemble(8.0, 10.0, 2048, 512, seed=3)
+    assert mm1_scan.mm1_scan.launches - before == 1
+    cpu = run_mm1_ensemble(8.0, 10.0, 2048, 512, seed=3, device="cpu")
+    assert card.device_name == torch.cuda.get_device_name(0)
+    for field in ("mean_wait_s", "std_wait_s", "mean_sojourn_s"):
+        np.testing.assert_allclose(getattr(card, field), getattr(cpu, field), rtol=1e-5,
+                                   err_msg=field)
+
+
+@pytest.mark.parametrize(
+    "name", ["mm1", "router", "chaos-bench-chaos", "telemetry-mm1-all", "resilience-storm-defended"]
+)
+def test_segmented_launches_equal_the_one_launch_run(cuda, name):
+    """A run's budget in CHECKPOINT_SEGMENTS launches, each reloading and
+    writing back the rows it stages, against the one launch, at 512
+    replicas: every leaf and the blocks each replica ran, bit for bit;
+    then run_ensemble's segmented and resumed runs against its one-launch
+    run, on every result field outside engine.RESUME_EXCLUDED_FIELDS."""
+    model = MODELS[name]()
+    compiled = _Compiled(model)
+    n = 512
+    params = {
+        k: torch.from_numpy(v).to(cuda)
+        for k, v in _resolve_params(model, compiled, n, None).items()
+    }
+    keys = rng.split(rng.PRNGKey(9, device=cuda), n)
+    state = compiled.init_state(keys, params)
+    segmented = {k: v.clone() for k, v in state.items()}
+    budget = -(-_default_max_events(model, None) // compiled.macro)
+    blocks = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    event_step.block_steps(compiled, state, keys, 0, budget, params, blocks)
+    seg_blocks = torch.zeros_like(blocks)
+    step = -(-budget // CHECKPOINT_SEGMENTS)
+    before = event_step.block_step.launches
+    for first in range(0, budget, step):
+        event_step.block_steps(compiled, segmented, keys, first, min(step, budget - first),
+                               params, seg_blocks)
+    assert event_step.block_step.launches - before == -(-budget // step)
+    torch.cuda.synchronize()
+    for leaf in state:
+        a, b = state[leaf], segmented[leaf]
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=leaf)
+    torch.testing.assert_close(blocks, seg_blocks, rtol=0, atol=0)
+
+    max_events = _default_max_events(model, None)
+    one = run_ensemble(model, n_replicas=n, seed=9, max_events=max_events)
+    snapshots = []
+    seg = run_ensemble(model, n_replicas=n, seed=9, max_events=max_events,
+                       checkpoint_every_s=0.0, checkpoint_callback=snapshots.append)
+    live = [s for s in snapshots if s.chunk_index < max(one.block_occupancy)]
+    resumed = run_ensemble(model, n_replicas=n, seed=9, max_events=max_events,
+                           resume_from=live[len(live) // 2])
+    for result in (seg, resumed):
+        assert result.engine_path == "scan+cuda"
+        assert resume_mismatches(one, result) == []
+    assert seg.blocks_total == one.blocks_total and 0 < resumed.blocks_total < one.blocks_total
+
+
+@pytest.mark.parametrize("rule", ["degroot", "bounded_confidence", "voter"])
+def test_opinion_rounds_on_the_card_match_the_cpu(cuda, rule):
+    """A batch of 8 populations of 512 agents on a ring (float32 products
+    in full precision on both sides): DeGroot and bounded confidence
+    within rtol 1e-5 and atol 1e-6, the voter's picks equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = 512
+    weights = torch.zeros((n, n))
+    for i in range(n):
+        weights[(i + 1) % n, i] = 1.0
+        weights[(i + 2) % n, i] = 0.5
+    x = torch.from_numpy(np.random.default_rng(5).uniform(-1, 1, (8, n)).astype(np.float32))
+    run = {
+        "degroot": lambda d: opinion.degroot_rounds(x, weights, 0.4, 16, d),
+        "bounded_confidence": lambda d: opinion.bounded_confidence_rounds(x, weights, 0.3, 0.5, 8, d),
+        "voter": lambda d: opinion.voter_rounds(rng.PRNGKey(2), x, weights, 4, d),
+    }[rule]
+    card = run(cuda)
+    assert card.device.type == "cuda"
+    card = card.cpu()
+    cpu = run("cpu")
+    if rule == "voter":
+        assert torch.equal(card, cpu)
+    else:
+        np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=1e-5, atol=1e-6)
