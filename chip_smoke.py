@@ -9,8 +9,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
 2. the build: the kernels compiled with nvcc for sm_90a from this
    checkout's sources, one nvcc per source (the event-step kernel without
    telemetry or resilience, its telemetry instantiations, its resilience
-   instantiations, the draw kernel and the M/M/1 Lindley kernel) started
-   together, with ptxas' register and spill report;
+   instantiations, its consensus instantiations, its instantiations for
+   several sources or sinks, the draw kernel and the M/M/1 Lindley
+   kernel) started together, with ptxas' register and spill report;
    then the draw kernel (csrc/uniform.cu) against rng.uniform, bit for
    bit, on the M/M/1 chain form's gap block (65,536 x 1,514 uniforms),
    timed against its plain version and its bound;
@@ -92,7 +93,28 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      with utilisation shedding at 1.0, blocks 0-3 and 60;
    - breaker-trip-on-first: the breaker matrix's trip-on-first corner on
      the faulted telemetry chain with a 0.3 s deadline, blocks 0-3 (the
-     whole run).
+     whole run);
+   - two-class: a two-tenant service, two sources into two sinks (source
+     0 Poisson 30/s -> least_outstanding over servers 0-3, mu=10, queue
+     256 -> sink 0; source 1 a constant 4/s batch job over a 5 ms edge ->
+     server 4, mu=8, queue 64 -> sink 1; server 5 wired to sink 1 and fed
+     by nothing), horizon 160 s, warmup 40 s, blocks 0-3 and 100, and
+     with telemetry (64 windows of 2.5 s);
+   - superpose: two Poisson sources at 5/s and 3/s into one server (mu=10,
+     queue 512) -> one sink, horizon 160 s, warmup 40 s, blocks 0-3 and
+     80, and superpose-tie: the same with two constant sources at 4/s
+     each, which fire at the same times (the kernel breaks the tie to the
+     lower source, as JAX's argmin);
+   - quorum-defended and quorum-undefended:
+     tests/integration/test_tpu_consensus.py's scenario A (a write quorum
+     of 2 of 3 servers, servers 1 and 2 cut over [4, 6), backoff retries,
+     macro_block 8; the defended arm with a breaker and a retry budget),
+     blocks 0-3, 16 and 20 (in and after the cut);
+   - election-bully: its scenario B (flapping cuts under a bully
+     election, macro_block 8), blocks 0-3;
+   - stochastic-partitions: stochastic cuts of two of three servers drawn
+     on the partition stream's salted key, a drop-mode fault schedule on
+     the third, a quorum and an election over all three, blocks 0-3.
    Integer leaves must be equal and float leaves are expected bitwise
    equal; a float difference is printed and must stay within rel 1e-6;
    then the whole runs: each model timed below, and the fan-out with
@@ -118,14 +140,17 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    each service draw's by its family and each profiled source fire's two
    table searches, a transcendental call counted as one operation, over
    67 TFLOP/s, and the 32-bit integer operations of the threefry
-   evaluations the kernel counted in the same blocks, over 33.5 Tops/s),
-   and
+   evaluations the kernel counted in the same blocks: their rotates and
+   xors over the 64 INT32 lanes an SM (16.7 Tops/s), all of them over
+   those and the FMA pipe's IMAD together (33.5 Tops/s)), and
    the same for the lognormal and pareto M/G/1, the profile graph, and
    the chaos and deadline models; the telemetry model with and without
    its spec, and their ratio; and bench_resilience's defended arm (the
    resilience kernel) against its undefended arm (the chaos+telemetry
    kernel), and the same model with inert defenses (the resilience kernel
    on the undefended simulation: the defenses' own cost) against it;
+   and the two-tenant service (several sources and sinks) and the defended
+   quorum arm (the consensus instantiation);
 5. the main path, run_ensemble on cuda at 65,536 replicas through the
    entry point a user calls, with the launch counts set to 0 just before
    each run and read just after. The event-scan runs name their budget
@@ -210,6 +235,24 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      at server 1 only, its open fraction 0 in the last two windows;
    - shed-mm1: a mean wait of exactly 0, and the shed share of arrivals
      within 1% of the Erlang loss probability rho / (1 + rho) = 4/9;
+   - superpose: the superposed Poisson pair is the M/M/1 at lambda=8, its
+     mean wait within 1% of 0.4 s and its sojourn of 0.5 s;
+   - two-class, with and without telemetry: server 5 completes nothing,
+     sink 1 counts exactly server 4's completions after the warmup (its
+     windows from 40 s on; the batch job's last edge is free), the
+     windowed counts of both sinks sum exactly to their whole-run counts,
+     sink 0's throughput is 30/s a replica within 1%, and the run with
+     telemetry equals the run without on every whole-run number;
+   - quorum-undefended and quorum-defended (their max_events 1,024): the
+     quorum is dark for exactly the cut, quorum_dark_fraction within 1e-6
+     of 2/12, partition drops and quorum rejections booked, and the
+     defended arm recovers at least 0.9 of its goodput after the heal;
+   - election-bully and election-phi_accrual (max_events 256): 6
+     elections in every replica (the first and one per flap), exactly,
+     and the time without a leader within rel 1e-4 of 6 detection delays
+     over the 12 s;
+   then the consensus sweeps' set-up time at 65,536 replicas (the
+   quorum's, the election's and the stochastic model's);
 6. checkpoint and resume at 65,536 replicas on the M/M/1's scan, the
    fan-out, the chaos bench, the telemetry bench model and the defended
    resilience arm, each at the budget above: run_ensemble in
@@ -237,8 +280,10 @@ event-step kernel once per shape or extension, every number of an entry
 from one model: mm1, chain, fanout (the router shape), graph, the
 lognormal M/G/1 (the family sampler), the profile graph (the profile
 tables), the chaos model (the chaos branches) and the telemetry model
-(the window buffers) and bench_resilience's defended arm (the
-defenses), the models the main path runs, its ms the time per block of
+(the window buffers), bench_resilience's defended arm (the defenses),
+the two-tenant service (several sources and sinks) and the defended
+quorum arm (the consensus tier), the models the main path runs, its ms
+the time per block of
 a 20-block launch and its bound that of the same blocks, its launches
 those of the main path's run (one a run); the draw kernel, its
 launches those of the M/M/1's chain-form run; and the Lindley kernel, its
@@ -277,7 +322,7 @@ from happysim_tpu_torch import (
 )
 from happysim_tpu_torch.chain import fast_plan
 from happysim_tpu_torch.faults import duty_cycle
-from happysim_tpu_torch.model import FaultSpec
+from happysim_tpu_torch.model import FaultSpec, LeaderElectionSpec
 from happysim_tpu_torch.engine import (
     CHECKPOINT_SEGMENTS,
     resume_mismatches,
@@ -292,12 +337,14 @@ MACRO = 32
 LAM, MU = 8.0, 10.0
 HORIZON_S, WARMUP_S = 160.0, 40.0
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 rate
-# outside the tensor cores; 32-bit integer adds, logic and shifts outside
-# the tensor cores: 132 SMs x (64 INT32 lanes + 64 FMA lanes, which issue
-# integer adds as IMAD, as the threefry's SASS does) x 1.98 GHz (the
-# data sheet's boost clock).
+# outside the tensor cores; 32-bit integer work at the 1.98 GHz boost
+# clock: 64 INT32 lanes an SM issue every add, logic op and shift, and
+# the FMA pipe also issues integer adds as IMAD at 64 lanes an SM (CUDA's
+# throughput table, compute capability 9.0), so a threefry's rotates and
+# xors take the INT32 lanes alone and its adds may share the load.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
 PEAK_INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # Float operations one event step needs per replica, counted low (a log,
 # a multiply or divide and an add for the draw, a subtract and a max for
@@ -352,7 +399,10 @@ PEAK_RATE = 40.0
 PROFILE_MAX_EVENTS = int(4.0 * PEAK_RATE * BENCH_HORIZON_S) + 64
 ARRIVALS_HORIZON_S = 30.0
 # Kernels-line entries whose main-path run has another name.
-RUN_OF_ENTRY = {"families": "mg1-lognormal", "resilience": "resilience-defended"}
+RUN_OF_ENTRY = {
+    "families": "mg1-lognormal", "resilience": "resilience-defended", "multi": "two-class",
+    "consensus": "quorum-defended",
+}
 # bench.py's bench_kernel_chaos: servers, their mu, its budget.
 CHAOS_SERVERS, CHAOS_MU = 4, 10.0
 CHAOS_MAX_EVENTS = int(6.0 * 0.95 * CHAOS_SERVERS * CHAOS_MU * BENCH_HORIZON_S) + 64
@@ -381,6 +431,18 @@ RECOVERY_GATE = 0.9
 # horizon 12 s, and its budget; and its cascade's budget.
 STORM_MU, STORM_LAM, STORM_HORIZON_S, STORM_MAX_EVENTS = 50.0, 32.0, 12.0, 6144
 CASCADE_MAX_EVENTS = 2048
+# The two-tenant service: the web tenant's rate over its 4 servers, the
+# batch job's constant rate, its 5 ms edge, and the telemetry windows.
+WEB_RATE, BATCH_RATE, BATCH_EDGE_S, TWO_CLASS_WINDOW_S = 30.0, 4.0, 0.005, 2.5
+# tests/integration/test_tpu_consensus.py's scenarios: the quorum's
+# horizon, its cut over [4, 6) and budget; the election's flapping cuts,
+# timeout, heartbeat and budget.
+CONSENSUS_HORIZON_S = 12.0
+QUORUM_CUT = (4.0, 6.0)
+QUORUM_MAX_EVENTS, ELECTION_MAX_EVENTS = 1024, 256
+CUT_HIGH = ((2.0, 4.0), (6.0, 8.0), (10.0, 12.0))
+CUT_MID = ((4.0, 6.0), (8.0, 10.0))
+ELECTION_HEARTBEAT_S, ELECTION_TIMEOUT_S = 0.4, 1.5
 
 
 class SmokeFailure(RuntimeError):
@@ -884,6 +946,122 @@ def breaker_corner_model() -> EnsembleModel:
     return model
 
 
+def superpose_model(kind: str = "poisson", rates=(5.0, 3.0)) -> EnsembleModel:
+    """Two sources superposed on one server (mu = 10, queue 512) -> one
+    sink, horizon 160 s, warmup 40 s: at 5/s and 3/s Poisson the M/M/1 at
+    lambda = 8; two constant sources at one rate fire at the same times
+    (the tie the kernel breaks to the lower source, as JAX's argmin)."""
+    model = EnsembleModel(horizon_s=HORIZON_S, warmup_s=WARMUP_S, macro_block=MACRO)
+    srv = model.server(service_mean=1.0 / MU, queue_capacity=512)
+    for rate in rates:
+        model.connect(model.source(rate=rate, kind=kind), srv)
+    model.connect(srv, model.sink())
+    return model
+
+
+def two_class_model(window_s=None) -> EnsembleModel:
+    """A two-tenant service, horizon 160 s, warmup 40 s: source 0 (Poisson
+    30/s) -> least_outstanding over servers 0-3 (mu = 10, queue 256) ->
+    sink 0; source 1 (a constant 4/s batch job) over a 5 ms constant edge
+    -> server 4 (mu = 8, queue 64) -> sink 1; server 5, wired to sink 1,
+    fed by nothing."""
+    model = EnsembleModel(horizon_s=HORIZON_S, warmup_s=WARMUP_S, macro_block=MACRO)
+    web = model.source(rate=WEB_RATE)
+    batch = model.source(rate=BATCH_RATE, kind="constant")
+    router = model.router(policy="least_outstanding")
+    front = [model.server(service_mean=0.1, queue_capacity=256) for _ in range(N_FANOUT)]
+    back = model.server(service_mean=0.125, queue_capacity=64)
+    spare = model.server(service_mean=0.125, queue_capacity=64)
+    web_sink, batch_sink = model.sink(), model.sink()
+    model.connect(web, router)
+    for server in front:
+        model.connect(router, server)
+        model.connect(server, web_sink)
+    model.connect(batch, back, latency_s=BATCH_EDGE_S)
+    model.connect(back, batch_sink)
+    model.connect(spare, batch_sink)
+    if window_s is not None:
+        model.telemetry(window_s=window_s)
+    return model
+
+
+def quorum_model(defended: bool) -> EnsembleModel:
+    """TestQuorumLossUnderPartition._build (tests/integration/
+    test_tpu_consensus.py:83): a constant 6/s source round-robin over 3
+    servers behind 10 ms edges (mean 0.1 s, queue 16, 3 retries after a
+    0.1 s backoff with jitter 0.5), 1 s windows over 12 s, macro_block 8,
+    servers 1 and 2 cut together over [4, 6), a write quorum of 2 of 3;
+    the defended arm adds a breaker and a retry budget."""
+    model = EnsembleModel(horizon_s=CONSENSUS_HORIZON_S, macro_block=8, transit_capacity=16)
+    src = model.source(rate=6.0, kind="constant")
+    servers = [
+        model.server(service_mean=0.1, queue_capacity=16, max_retries=3, retry_backoff_s=0.1,
+                     retry_jitter=0.5)
+        for _ in range(3)
+    ]
+    router = model.router(policy="round_robin")
+    snk = model.sink()
+    model.connect(src, router)
+    for server in servers:
+        model.connect(router, server, latency_s=0.01, latency_kind="constant")
+        model.connect(server, snk)
+    model.telemetry(window_s=1.0)
+    model.network_partition(group=[servers[1], servers[2]], windows=(QUORUM_CUT,))
+    model.quorum(servers, write=2, read=2)
+    if defended:
+        model.circuit_breaker(failure_threshold=3, window_s=0.5, cooldown_s=0.5, half_open_probes=1)
+        model.retry_budget(ratio=0.1, min_per_s=0.5, burst=2.0)
+    return model
+
+
+def election_model(strategy: str) -> EnsembleModel:
+    """TestElectionStormUnderFlappingPartitions._build (:223): a constant
+    2/s source round-robin over 3 servers, 1 s windows over 12 s,
+    macro_block 8, back-to-back 2 s cuts alternating between servers 2
+    and 1, an election over the three (heartbeat 0.4 s, timeout 1.5 s)."""
+    model = EnsembleModel(horizon_s=CONSENSUS_HORIZON_S, macro_block=8)
+    src = model.source(rate=2.0, kind="constant")
+    servers = [model.server(service_mean=0.05, queue_capacity=8) for _ in range(3)]
+    router = model.router(policy="round_robin")
+    snk = model.sink()
+    model.connect(src, router)
+    for server in servers:
+        model.connect(router, server)
+        model.connect(server, snk)
+    model.telemetry(window_s=1.0)
+    model.network_partition(group=[servers[2]], windows=CUT_HIGH)
+    model.network_partition(group=[servers[1]], windows=CUT_MID)
+    model.leader_election(servers, heartbeat_s=ELECTION_HEARTBEAT_S, timeout_s=ELECTION_TIMEOUT_S,
+                          strategy=strategy)
+    return model
+
+
+def stochastic_partition_model() -> EnsembleModel:
+    """Stochastic cuts drawn on the salted stream: servers 0 and 1 of a
+    Poisson 8/s random fan-out over 3 servers cut together (Exp gaps at
+    0.3/s, Exp durations of mean 1 s, each candidate firing with
+    probability 0.7, 6 windows), a drop-mode fault schedule on server 2,
+    and over all three a write quorum of 2 and a bully election (heartbeat
+    0.2 s, timeout 0.5 s), horizon 12 s, macro_block 16."""
+    model = EnsembleModel(horizon_s=CONSENSUS_HORIZON_S, macro_block=16)
+    src = model.source(rate=8.0)
+    servers = [model.server(service_mean=0.08, queue_capacity=16) for _ in range(2)] + [
+        model.server(service_mean=0.08, queue_capacity=16,
+                     fault=FaultSpec(rate=0.2, mean_duration_s=0.5, max_windows=6))
+    ]
+    router = model.router(policy="random")
+    snk = model.sink()
+    model.connect(src, router)
+    for server in servers:
+        model.connect(router, server)
+        model.connect(server, snk)
+    model.network_partition(group=servers[:2], rate=0.3, mean_duration_s=1.0, trigger_p=0.7,
+                            max_windows=6)
+    model.quorum(servers, write=2, read=2)
+    model.leader_election(servers, heartbeat_s=0.2, timeout_s=0.5)
+    return model
+
+
 def with_telemetry(model: EnsembleModel, window_s: float, **kw) -> EnsembleModel:
     model.telemetry(window_s=window_s, **kw)
     return model
@@ -918,6 +1096,13 @@ RES_SWEEPS = {
 
 
 # -- block checks and timing -------------------------------------------------
+def int_ms(int_ops: float, alu_ops: float) -> float:
+    """Least milliseconds for ``int_ops`` 32-bit integer operations of
+    which ``alu_ops`` only the INT32 lanes issue (the rest may also go to
+    the FMA pipe as IMAD)."""
+    return max(alu_ops / PEAK_INT32_ALU_OPS_PER_S, int_ops / PEAK_INT32_OPS_PER_S) * 1e3
+
+
 def fresh_run(model, sweeps=None, seed: int = 0):
     """(compiled, keys, params, state) for REPLICAS replicas on cuda."""
     compiled = _Compiled(model)
@@ -1075,10 +1260,11 @@ def time_blocks(model, label: str, sweeps=None) -> dict:
     )
     drawn_per_block = total_drawn / TIMED_BLOCKS
     int_ops_per_block = support.draw_int_ops(folds, total_drawn) / TIMED_BLOCKS
+    alu_ops_per_block = support.draw_alu_ops(folds, total_drawn) / TIMED_BLOCKS
     bytes_ms = bytes_per_block / PEAK_BYTES_PER_S * 1e3
     ops_ms = max(
-        float_ops_per_block / PEAK_F32_OPS_PER_S, int_ops_per_block / PEAK_INT32_OPS_PER_S
-    ) * 1e3
+        float_ops_per_block / PEAK_F32_OPS_PER_S * 1e3, int_ms(int_ops_per_block, alu_ops_per_block)
+    )
     single_bound_ms = max(bytes_per_launch / PEAK_BYTES_PER_S * 1e3, ops_ms)
     return {
         "model": label,
@@ -1170,8 +1356,9 @@ def check_whole_run(label: str, model, sweeps=None, max_events=None, global_rows
         compiled, initial, state
     )
     int_ops = support.draw_int_ops(folds, int(drawn.sum()))
+    alu_ops = support.draw_alu_ops(folds, int(drawn.sum()))
     bytes_ms = support.launch_bytes(compiled, state) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = max(float_ops / PEAK_F32_OPS_PER_S, int_ops / PEAK_INT32_OPS_PER_S) * 1e3
+    ops_ms = max(float_ops / PEAK_F32_OPS_PER_S * 1e3, int_ms(int_ops, alu_ops))
     max_blocks = int(blocks.max())
     print(
         f"  {label}: one launch of {n} blocks == {max_blocks} chained one-block launches with the "
@@ -1233,7 +1420,7 @@ def check_uniform(tag: str) -> dict:
     plain_ms = elapsed_ms(lambda i: uniform.plain_replica_uniform(keys, i, (n,)), 2)
     bytes_ms = (REPLICAS * 8 + elements * 4) / PEAK_BYTES_PER_S * 1e3
     int_ops = REPLICAS * support.THREEFRY_OPS + elements * support.UNIFORM_INT_OPS
-    ops_ms = int_ops / PEAK_INT32_OPS_PER_S * 1e3
+    ops_ms = int_ms(int_ops, REPLICAS * support.THREEFRY_ALU_OPS + elements * support.UNIFORM_ALU_OPS)
     print(
         f"uniform kernel == rng.uniform bit for bit on {REPLICAS} x {n} = {elements} uniforms; "
         f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
@@ -1388,6 +1575,11 @@ def report(result, launches: int) -> dict:
         "breaker_open_fraction": result.breaker_open_fraction,
         "server_shed_dropped": result.server_shed_dropped,
         "server_budget_dropped": result.server_budget_dropped,
+        "network_partitioned": result.network_partitioned,
+        "server_quorum_dropped": result.server_quorum_dropped,
+        "quorum_dark_fraction": result.quorum_dark_fraction,
+        "leader_changes": result.leader_changes,
+        "time_without_leader_fraction": result.time_without_leader_fraction,
         "launches": launches,
     }
 
@@ -1581,6 +1773,91 @@ def telemetry_main_path(tag: str, earlier: dict) -> dict:
             "duty-cycle-telemetry: fault drops differ with telemetry")
     runs["duty-cycle-telemetry"] = (result, launches)
     return runs
+
+
+def multi_main_path(tag: str) -> dict:
+    """The runs of several sources and sinks on the main path, and their
+    gates; returns {run name: (result, launches)}."""
+    runs = {}
+    result, launches = main_path_run("superpose", superpose_model(), tag, "multi")
+    within(result.server_mean_wait_s[0], LAM / MU / (MU - LAM), "superpose mean wait (M/M/1 at lambda=8)")
+    within(result.sink_mean_latency_s[0], 1.0 / (MU - LAM), "superpose mean sojourn")
+    runs["superpose"] = (result, launches)
+    plain, launches = main_path_run("two-class", two_class_model(), tag, "multi")
+    runs["two-class"] = (plain, launches)
+    result, launches = main_path_run(
+        "two-class-telemetry", two_class_model(TWO_CLASS_WINDOW_S), tag, "multi"
+    )
+    runs["two-class-telemetry"] = (result, launches)
+    for run in (plain, result):
+        require(run.server_completed[5] == 0, f"two-class: the spare server completed {run.server_completed[5]}")
+    partition_check("two-class-telemetry", result, [
+        ("sink_count", "sink_count"), ("server_completed", "server_completed"),
+        ("server_dropped", "server_dropped"),
+    ])
+    # The batch job's deliveries from server 4 to sink 1 are instantaneous,
+    # so sink 1 counts exactly server 4's completions after the warmup
+    # (its windows from 40 s on).
+    ts = result.timeseries
+    after = int(ts.server_completed[ts.window_start_s >= WARMUP_S, 4].sum())
+    print(f"  two-class: sink 1 {result.sink_count[1]}, server 4's completions after the warmup "
+          f"{after}, server 5 {result.server_completed[5]}")
+    require(after == result.sink_count[1], "two-class: sink 1 differs from server 4's completions")
+    within(plain.sink_count[0] / (REPLICAS * (HORIZON_S - WARMUP_S)), WEB_RATE,
+           "two-class sink 0 throughput per replica", 0.01, unit=" /s")
+    same_simulation("two-class-telemetry", result, plain)
+    return runs
+
+
+def consensus_main_path(tag: str) -> dict:
+    """The consensus runs of the main path and the gates of
+    tests/integration/test_tpu_consensus.py; returns {run name: (result,
+    launches)}."""
+    runs = {}
+    for arm in ("undefended", "defended"):
+        result, launches = main_path_run(
+            f"quorum-{arm}", quorum_model(arm == "defended"), tag, "router",
+            max_events=QUORUM_MAX_EVENTS,
+        )
+        span = (QUORUM_CUT[1] - QUORUM_CUT[0]) / CONSENSUS_HORIZON_S
+        print(f"  quorum-{arm}: quorum dark fraction {result.quorum_dark_fraction:.9f} (cut {span:.9f}), "
+              f"partition drops {result.network_partitioned}, quorum rejections "
+              f"{result.server_quorum_dropped}, trips {result.breaker_tripped}")
+        require(abs(result.quorum_dark_fraction - span) <= 1e-6, f"quorum-{arm}: dark fraction")
+        require(result.network_partitioned > 0 and sum(result.server_quorum_dropped) > 0,
+                f"quorum-{arm}: no partition drop or quorum rejection")
+        runs[f"quorum-{arm}"] = (result, launches)
+    windows = goodput_windows(runs["quorum-defended"][0])
+    pre, post = float(windows[1:4].mean()), float(windows[8:].mean())
+    print(f"  quorum-defended goodput recovery {post / pre:.4f} (gate {RECOVERY_GATE})")
+    require(post >= RECOVERY_GATE * pre, "quorum-defended: goodput not recovered")
+    for strategy in ("bully", "phi_accrual"):
+        label = f"election-{strategy}"
+        result, launches = main_path_run(
+            label, election_model(strategy), tag, "router", max_events=ELECTION_MAX_EVENTS
+        )
+        changes = REPLICAS * (1 + len(CUT_HIGH) + len(CUT_MID))
+        print(f"  {label}: leader changes {result.leader_changes} (expected {changes})")
+        require(result.leader_changes == changes, f"{label}: {result.leader_changes} leader changes")
+        delay = LeaderElectionSpec(
+            group=(0, 1, 2), heartbeat_s=ELECTION_HEARTBEAT_S, timeout_s=ELECTION_TIMEOUT_S,
+            strategy=strategy,
+        ).detection_delay_s()
+        within(result.time_without_leader_fraction, 6 * delay / CONSENSUS_HORIZON_S,
+               f"{label} time without a leader", 1e-4, unit="")
+        runs[label] = (result, launches)
+    return runs
+
+
+def sweep_ms(model) -> float:
+    """Device time of a consensus model's init sweeps at REPLICAS replicas,
+    timed alone after the state they read is made."""
+    compiled, _keys, _params, state = fresh_run(model)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    compiled._consensus_sweeps(state)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3
 
 
 def goodput_windows(result) -> np.ndarray:
@@ -1846,8 +2123,9 @@ def check_mm1_scan(tag: str) -> dict:
     threads = mm1_scan.load_library().hs_mm1_scan_threads()
     folds = -(-REPLICAS // threads) * n
     int_ops = REPLICAS * n * 2 * support.UNIFORM_INT_OPS + folds * support.THREEFRY_OPS
+    alu_ops = REPLICAS * n * 2 * support.UNIFORM_ALU_OPS + folds * support.THREEFRY_ALU_OPS
     float_ops = REPLICAS * (MM1_OPS_PER_CUSTOMER * n + MM1_OPS_PER_LIVE * (n - warmup))
-    ops_ms = max(int_ops / PEAK_INT32_OPS_PER_S, float_ops / PEAK_F32_OPS_PER_S) * 1e3
+    ops_ms = max(int_ms(int_ops, alu_ops), float_ops / PEAK_F32_OPS_PER_S * 1e3)
     bytes_ms = (REPLICAS * 12 + 8) / PEAK_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     print(
@@ -2056,6 +2334,28 @@ def main() -> int:
             "breaker-trip-on-first", breaker_corner_model(), [0, 1, 2, 3]
         ),
     })
+    # Several sources and sinks, on the line and graph codes: the
+    # two-tenant service on the main path, the superposed pair (Poisson,
+    # and constant at one rate: the tie), the tenants with telemetry; the
+    # consensus instantiations: the defended quorum arm on the main path
+    # (blocks 16 and 20 lie in and after its cut), the undefended arm, the
+    # election storm and stochastic cuts drawn on the salted stream.
+    max_abs["multi"] = check_blocks("two-class", two_class_model(), [0, 1, 2, 3, 100])
+    max_abs["consensus"] = check_blocks("quorum-defended", quorum_model(True), [0, 1, 2, 3, 16, 20])
+    extra_abs.update({
+        "superpose": check_blocks("superpose", superpose_model(), [0, 1, 2, 3, 80]),
+        "superpose-tie": check_blocks(
+            "superpose-tie", superpose_model("constant", (4.0, 4.0)), [0, 1, 2, 3, 80]
+        ),
+        "two-class-telemetry": check_blocks(
+            "two-class-telemetry", two_class_model(TWO_CLASS_WINDOW_S), [0, 1, 2, 3, 100]
+        ),
+        "quorum-undefended": check_blocks("quorum-undefended", quorum_model(False), [0, 1, 2, 3, 16, 20]),
+        "election-bully": check_blocks("election-bully", election_model("bully"), [0, 1, 2, 3]),
+        "stochastic-partitions": check_blocks(
+            "stochastic-partitions", stochastic_partition_model(), [0, 1, 2, 3]
+        ),
+    })
 
     # The whole-run launch against the per-block structure, at the main path's
     # budgets, on every model timed below and on a fan-out whose transit
@@ -2091,6 +2391,10 @@ def main() -> int:
             router_model("random", HORIZON_S, WARMUP_S, transit_capacity=64),
             global_rows=True,
         ),
+        "multi": check_whole_run("two-class", two_class_model()),
+        "consensus": check_whole_run(
+            "quorum-defended", quorum_model(True), max_events=QUORUM_MAX_EVENTS
+        ),
     }
 
     timings = {
@@ -2113,6 +2417,8 @@ def main() -> int:
         "resilience-inert": time_blocks(
             inert_defenses(resilience_bench_model(False)), "resilience inert", RES_SWEEPS
         ),
+        "multi": time_blocks(two_class_model(), "two-class"),
+        "consensus": time_blocks(quorum_model(True), "quorum-defended"),
     }
     for shape, t in timings.items():
         earlier = ""
@@ -2222,6 +2528,16 @@ def main() -> int:
     runs.update(chaos_main_path(tag))
     runs.update(telemetry_main_path(tag, runs))
     runs.update(resilience_main_path(tag))
+    runs.update(multi_main_path(tag))
+    runs.update(consensus_main_path(tag))
+    sweeps = {
+        "quorum": sweep_ms(quorum_model(True)),
+        "election": sweep_ms(election_model("bully")),
+        "stochastic": sweep_ms(stochastic_partition_model()),
+    }
+    print("consensus set-up at {} replicas: the sweeps {} {}".format(
+        REPLICAS, ", ".join(f"{name} {ms:.2f} ms" for name, ms in sweeps.items()), tag
+    ))
 
     shares = print_shares(tag)
 
@@ -2251,7 +2567,7 @@ def main() -> int:
             }
             for shape in (
                 "mm1", "chain", "router", "graph", "families", "profile", "chaos", "telemetry",
-                "resilience",
+                "resilience", "multi", "consensus",
             )
         ] + [
             {
@@ -2299,6 +2615,7 @@ def main() -> int:
                 "run_ensemble": {shape: report(*run) for shape, run in runs.items()},
                 "chain": {name: report(*run) for name, run in chain_runs.items()},
                 "checkpoint": checkpoints,
+                "consensus_sweeps_ms": sweeps,
                 "mm1_scan": mm1_check,
                 "run_mm1_ensemble": dataclasses.asdict(mm1_result),
                 "opinion": opinions,

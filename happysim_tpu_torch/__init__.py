@@ -21,7 +21,8 @@ this package                       JAX package
                                    ``tpu/engine.py``)
 ``reduce.py``                      ``happysim_tpu/tpu/reduce.py``
 ``faults.py``                      ``happysim_tpu/tpu/faults.py``
-                                   (``FaultTable``, ``duty_cycle``)
+                                   (``FaultTable``, ``PartitionTable``,
+                                   ``duty_cycle``)
 ``engine.py``                      ``happysim_tpu/tpu/engine.py`` (with the
                                    checkpoint format and its fingerprints)
 ``mm1.py``                         ``happysim_tpu/tpu/mm1.py``
@@ -40,20 +41,22 @@ this package                       JAX package
 ``convert.py``                     (none: numpy state/params across)
 =================================  =========================================
 
-What runs: single-source, single-sink graphs of servers, routers
-(random, round-robin, weighted, least-outstanding) and token-bucket
-limiters, from ``mm1_model`` and ``pipeline_model`` to load-balancer
-fan-outs, multi-tier DAGs and "done or continue" feedback (Poisson or
-constant arrivals, flat or shaped by a ramp or spike ``RateProfile``,
-wired to any node or straight to the sink; constant, exponential,
+What runs: every graph of sources, sinks, servers, routers (random,
+round-robin, weighted, least-outstanding) and token-bucket limiters that
+the JAX package's ``validate`` accepts, from ``mm1_model`` and
+``pipeline_model`` to load-balancer fan-outs, multi-tier DAGs, "done or
+continue" feedback, several tenants into their own sinks and nodes no
+source reaches (Poisson or constant arrivals, flat or shaped by a ramp or
+spike ``RateProfile``, wired to any node or straight to a sink; constant, exponential,
 erlang-2/3, hyperexponential, lognormal or pareto service, any
 concurrency and queue capacity, zero-latency or latency-carrying edges,
 warmup), with the chaos stack on any of them: deadlines with immediate
 or backoff (jittered) retries, hedged requests, brownout windows,
 stochastic or pinned ``FaultSpec`` schedules (outage or degrade mode),
 correlated outages and packet loss on edges, the defenses against it
-(``model.circuit_breaker(...)``, ``load_shed(...)``, ``retry_budget(...)``)
-and windowed telemetry (``model.telemetry(...)``, ``result.timeseries``)
+(``model.circuit_breaker(...)``, ``load_shed(...)``, ``retry_budget(...)``),
+the consensus tier (``model.network_partition(...)``, ``quorum(...)``,
+``leader_election(...)``) and windowed telemetry (``model.telemetry(...)``, ``result.timeseries``)
 on any of them, checkpointed and resumed in segments
 (``checkpoint_every_s``, ``checkpoint_callback``, ``resume_from``; the
 snapshots load in either package). As in the JAX package, a call with no
@@ -62,9 +65,9 @@ Poisson source into a chain of FIFO single-server stations, or a random or
 round-robin router over such chains, by the max-plus closed form of
 ``chain.py`` (``engine_path == "chain"``). ``run_mm1_ensemble`` runs the
 M/M/1 ensemble by its Lindley recursion in one kernel launch, and
-``opinion.py`` the DeGroot, bounded-confidence and voter rounds. Every
-other feature of the JAX package raises ``NotImplementedError`` naming itself and its ROADMAP
-item. Entry points run on the CUDA card unless
+``opinion.py`` the DeGroot, bounded-confidence and voter rounds.
+Trace-driven arrivals and remote egress nodes raise
+``NotImplementedError`` naming themselves and their ROADMAP items. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
 """
 

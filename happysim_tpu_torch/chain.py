@@ -82,8 +82,8 @@ def _source_ok(model: EnsembleModel) -> bool:
         return False  # load_shed: admission depends on live queue state
     if model.retry_budget_spec is not None:
         return False  # retry_budget: token state couples consecutive jobs
-    # The consensus layer and trace-driven arrivals (not in this port,
-    # ROADMAP A.11 and A.12) decline by name as in the JAX package.
+    # The consensus layer and trace-driven arrivals (the latter not in
+    # this port, ROADMAP A.12) decline by name as in the JAX package.
     if getattr(model, "network_partitions", None):
         return False  # network_partitions: windows drop/delay deliveries
     if getattr(model, "quorum_spec", None) is not None:

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from happysim_tpu_torch import convert, rng
-from happysim_tpu_torch.faults import FaultTable
+from happysim_tpu_torch.faults import FaultTable, PartitionTable
 from happysim_tpu_torch.kernels import event_step, support
 from happysim_tpu_torch.numerics import erfinv, fma_f32, interp
 from happysim_tpu_torch.model import (
@@ -115,21 +115,26 @@ _I64_COUNTER_KEYS = frozenset({
     "tr_dropped", "net_lost",
     "srv_breaker_dropped", "brk_tripped",
     "srv_shed_dropped", "srv_budget_dropped",
+    "net_partitioned", "qrm_dropped", "ldr_changes",
     "blocks_total",
 })
 # Telemetry reduce keys that are float integrals, sums or percentiles;
 # every other tel_ key is an int counter and limb-encodes.
 _TEL_FLOAT_KEYS = frozenset({
     "tel_sink_sum", "tel_srv_depth_int", "tel_srv_busy_int",
-    "tel_fault_int", "tel_brk_open_int", "tel_spread_p10", "tel_spread_p90",
+    "tel_fault_int", "tel_brk_open_int",
+    "tel_qrm_dark_int", "tel_ldr_uptime_int",
+    "tel_spread_p10", "tel_spread_p90",
 })
 # Fixed-point sums (the spread percentiles are plain floats, not sums).
 _F64_SUM_KEYS = frozenset({
     "sink_sum", "sink_sq",
     "srv_busy_int", "srv_depth_int", "srv_wait_sum",
     "brk_open_time",
+    "qrm_dark_time", "ldr_noleader_time",
     "tel_sink_sum", "tel_srv_depth_int", "tel_srv_busy_int", "tel_fault_int",
     "tel_brk_open_int",
+    "tel_qrm_dark_int", "tel_ldr_uptime_int",
 })
 
 
@@ -224,9 +229,8 @@ def model_fingerprint(model: EnsembleModel) -> str:
     repr the JAX package hashes, so both packages give the same digest for
     the same model. The spec dataclasses of :mod:`~happysim_tpu_torch.model`
     keep the JAX package's field order and ``repr=False`` flags for it.
-    The port has no remote egress nodes (ROADMAP A.14), consensus layer
-    (A.11) or trace-driven sources (A.12): it hashes JAX's value for a
-    model without them."""
+    The port has no remote egress nodes (ROADMAP A.14) or trace-driven
+    sources (A.12): it hashes JAX's value for a model without them."""
     items = (
         model.horizon_s,
         model.warmup_s,
@@ -253,6 +257,11 @@ def model_fingerprint(model: EnsembleModel) -> str:
     )
     if resilience:
         items = items + (("resilience",) + resilience,)
+    consensus = tuple(model.network_partitions) + tuple(
+        spec for spec in (model.quorum_spec, model.leader_election_spec) if spec is not None
+    )
+    if consensus:
+        items = items + (("consensus",) + consensus,)
     return hashlib.sha256(repr(items).encode()).hexdigest()[:16]
 
 
@@ -362,6 +371,21 @@ class EnsembleResult:
     server_budget_dropped: list[int] = dataclasses_field(default_factory=list)
     # the defenses the model declared (EnsembleModel.resilience_features)
     resilience_features: tuple = ()
+    # consensus accounting (zeros unless the model declares the feature):
+    # deliveries dropped at a drop-mode cut (whole model); arrivals a
+    # write quorum out of reach rejected, per server (retried ones
+    # included); the fraction of replicas x horizon the quorum group
+    # spent below its write quorum; elections completed over all replicas
+    # (the first included); the fraction of replicas x horizon the
+    # election group had no live leader
+    network_partitioned: int = 0
+    server_quorum_dropped: list[int] = dataclasses_field(default_factory=list)
+    quorum_dark_fraction: float = 0.0
+    leader_changes: int = 0
+    time_without_leader_fraction: float = 0.0
+    # the consensus features the model declared
+    # (EnsembleModel.consensus_features)
+    consensus_features: tuple = ()
     # seconds spent building and loading the kernel library in this call,
     # kept out of wall_seconds
     compile_seconds: float = 0.0
@@ -426,6 +450,17 @@ class EnsembleResult:
                 "budget_dropped_total": sum(self.server_budget_dropped),
                 "breaker_open_fraction": list(self.breaker_open_fraction),
             },
+            # Each consensus feature on or off, and its totals.
+            "consensus": {
+                "network_partitions": "network_partitions" in self.consensus_features,
+                "quorum": "quorum" in self.consensus_features,
+                "leader_election": "leader_election" in self.consensus_features,
+                "network_partitioned_total": self.network_partitioned,
+                "quorum_dropped_total": sum(self.server_quorum_dropped),
+                "quorum_dark_fraction": self.quorum_dark_fraction,
+                "leader_changes_total": self.leader_changes,
+                "time_without_leader_fraction": self.time_without_leader_fraction,
+            },
         }
 
 
@@ -450,8 +485,9 @@ class _Compiled:
 
     def __init__(self, model: EnsembleModel):
         model.validate()
-        # The port has no engine path besides the kernel's, so a topology
-        # its walk declines raises here, with JAX's reason.
+        # The kernel's plan (JAX's, where JAX's kernel takes the model);
+        # the port has no engine path besides the kernel's, so it runs
+        # what JAX's kernel declines too.
         self.plan = support.kernel_plan(model)
         self.model = model
         # Event steps per macro-block (a kernel launch, an RNG block).
@@ -554,7 +590,28 @@ class _Compiled:
         self.has_backoff = any(s.retry_backoff_s is not None for s in servers)
         self.has_jitter = any(s.retry_jitter > 0.0 for s in servers)
         self.has_hedge = any(s.hedge_delay_s is not None for s in servers)
-        self.has_fault_retries = bool(self.flt_can_retry.any())
+        # The consensus tier: partition windows are per-replica registers
+        # drawn at init, consulted at a delivery into a member; the
+        # quorum gate rejects arrivals at members while the write quorum
+        # is out of reach; the quorum's dark time and the election are
+        # swept over the members' dark windows at init.
+        self.partitions = PartitionTable(model)
+        self.has_partitions = self.partitions.has_partitions
+        self.quorum = model.quorum_spec
+        self.leader = model.leader_election_spec
+        self.has_quorum = self.quorum is not None
+        self.has_leader = self.leader is not None
+        self.qrm_member = np.zeros((self.nV,), np.bool_)
+        self.qrm_can_retry = np.zeros((self.nV,), np.bool_)
+        self.qrm_write = int(self.quorum.write) if self.has_quorum else 0
+        for v in self.quorum.group if self.has_quorum else ():
+            self.qrm_member[v] = True
+            self.qrm_can_retry[v] = servers[v].retry_backoff_s is not None and servers[v].max_retries > 0
+        self.ldr_group = tuple(self.leader.group) if self.has_leader else ()
+        self.ldr_delay = float(self.leader.detection_delay_s()) if self.has_leader else 0.0
+        # Quorum rejections retry as fault rejections do (attempt numbers,
+        # backoff parks, the srv_fault_retried ledger).
+        self.has_fault_retries = bool(self.flt_can_retry.any() or self.qrm_can_retry.any())
         # Attempt numbers ride with jobs whenever a budget consumes them.
         self.has_attempts = self.has_deadlines or self.has_fault_retries
         self.has_loss = any(e.loss_p > 0.0 for e in model.iter_edges())
@@ -577,11 +634,12 @@ class _Compiled:
         else:
             self.shed_busy_thr = np.zeros((self.nV,), np.float32)
         # Any of the above runs the kernel's chaos instantiation (the
-        # resilience defenses with their leaves and gates added).
+        # resilience defenses and the partition and quorum gates with
+        # their leaves added).
         self.has_chaos = (
             self.has_deadlines or self.has_outages or self.has_faults
             or self.has_backoff or self.has_hedge or self.has_loss
-            or self.has_resilience
+            or self.has_resilience or self.has_partitions or self.has_quorum
         )
 
         self.arrival_is_poisson = np.array(
@@ -616,6 +674,8 @@ class _Compiled:
                 for r in model.routers
             )
             or self.has_backoff
+            # A delay-mode cut parks deliveries in the transit registers.
+            or self.partitions.has_delay
         )
         self.hop_depth = self._router_hop_depth()
         self._init_telemetry(model)
@@ -629,8 +689,9 @@ class _Compiled:
         ``tel_*`` leaf and every site exists only when the model carries
         a spec, so a model without one builds the state and the kernel
         arguments it built before. The counter keys are those of the
-        features the port runs, in JAX's order; the consensus and trace
-        counters come with ROADMAP A.11 and A.12."""
+        features the port runs, in JAX's order; the trace counters come
+        with ROADMAP A.12. The quorum's dark time and the leader's uptime
+        per window are sweep outputs at init, not keys here."""
         self.telemetry = model.telemetry_spec
         self.has_telemetry = self.telemetry is not None
         # Every tel_* leaf the model has.
@@ -690,6 +751,10 @@ class _Compiled:
                 keys.append("tel_srv_shed_dropped")
             if self.has_budget:
                 keys.append("tel_srv_budget_dropped")
+            if self.has_partitions:
+                keys.append("tel_net_partitioned")
+            if self.has_quorum:
+                keys.append("tel_qrm_dropped")
         self.tel_keys = frozenset(keys)
 
     def _tel_init_state(self, R: int, dev) -> dict:
@@ -700,7 +765,7 @@ class _Compiled:
             "tel_sink_count": (nW, nK), "tel_sink_sum": (nW, nK),
             "tel_sink_hist": (nW, nK, HIST_BINS),
             "tel_lim_admitted": (nW, nL), "tel_lim_dropped": (nW, nL),
-            "tel_net_lost": (nW,),
+            "tel_net_lost": (nW,), "tel_net_partitioned": (nW,),
         }
         state = {}
         for key in sorted(self.tel_keys):
@@ -1031,9 +1096,141 @@ class _Compiled:
             state["srv_budget_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
         if self.has_loss:
             state["net_lost"] = torch.zeros((R,), dtype=i32, device=dev)
+        if self.has_partitions:
+            # Each replica's partition timeline, drawn once from its key
+            # on its own salted stream.
+            state.update(self.partitions.sample_state(keys))
+            state["net_partitioned"] = torch.zeros((R,), dtype=i32, device=dev)
+        if self.has_quorum:
+            state["qrm_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
+        if self.has_quorum or self.has_leader:
+            # Pure functions of the members' dark windows: swept once.
+            state.update(self._consensus_sweeps(state))
         if self.has_telemetry:
             state.update(self._tel_init_state(R, dev))
         return state
+
+    # -- consensus sweeps ------------------------------------------------------
+    def _group_dark_intervals(self, state: dict, group) -> tuple:
+        """``(R, len(group), K)`` starts and ends of each member's dark
+        windows (JAX ``_group_dark_intervals``): its drop-mode fault
+        windows (its own and, subscribed, the shared ones) and the windows
+        of every partition group holding it, padded with +inf. Degrade
+        faults and brownouts leave a member reachable."""
+        R = state["t"].shape[0]
+        dev = state["t"].device
+        inf = torch.full((R, 1), INF, dtype=torch.float32, device=dev)
+        per_starts, per_ends = [], []
+        for v in group:
+            starts, ends = [], []
+            if self.has_faults and self.faults.drop_mode[v]:
+                starts.append(state["flt_start"][:, v, :])
+                ends.append(state["flt_end"][:, v, :])
+                if self.faults.has_shared and self.faults.participates[v]:
+                    starts.append(state["flt_sh_start"])
+                    ends.append(state["flt_sh_end"])
+            if self.has_partitions:
+                for p in range(self.partitions.nP):
+                    if self.partitions.member[p, v]:
+                        starts.append(state["prt_start"][:, p, :])
+                        ends.append(state["prt_end"][:, p, :])
+            per_starts.append(torch.cat(starts or [inf], dim=1))
+            per_ends.append(torch.cat(ends or [inf], dim=1))
+        width = max(x.shape[1] for x in per_starts)
+
+        def pad(x):
+            return torch.cat([x, inf.expand(R, width - x.shape[1])], dim=1)
+
+        return (
+            torch.stack([pad(x) for x in per_starts], dim=1),
+            torch.stack([pad(x) for x in per_ends], dim=1),
+        )
+
+    def _consensus_sweeps(self, state: dict) -> dict:
+        """The quorum's dark time and the leader-election machine (JAX
+        ``_consensus_sweeps``), swept over the sorted union of the
+        members' window edges: between two edges the dark set is
+        constant, so its value at the midpoint holds over the segment.
+        The segments run in order, each a few torch ops over every
+        replica at once, and the sums add one segment at a time, as JAX's
+        scan does. The window integrals exist with telemetry."""
+        out = {}
+        R = state["t"].shape[0]
+        dev = state["t"].device
+        hz = _f32(self.horizon, dev)
+        zero = torch.zeros((R, 1), dtype=torch.float32, device=dev)
+        nW = self.nW if self.has_telemetry else 0
+
+        def segments(edges):
+            edges = torch.sort(torch.clamp(edges, 0.0, float(self.horizon)), dim=1).values
+            return edges[:, :-1], edges[:, 1:]
+
+        def dark_at(starts, ends, t0, t1):
+            mid = 0.5 * (t0 + t1)
+            inside = (mid[:, None, None] >= starts) & (mid[:, None, None] < ends)
+            return inside.any(dim=2)
+
+        if self.has_quorum:
+            starts, ends = self._group_dark_intervals(state, self.quorum.group)
+            t0s, t1s = segments(
+                torch.cat([zero, starts.flatten(1), ends.flatten(1), zero + hz], dim=1)
+            )
+            n_members = len(self.quorum.group)
+            dark_time = torch.zeros((R,), dtype=torch.float32, device=dev)
+            tel = torch.zeros((R, nW), dtype=torch.float32, device=dev)
+            for e in range(t0s.shape[1]):
+                t0, t1 = t0s[:, e], t1s[:, e]
+                alive = n_members - dark_at(starts, ends, t0, t1).sum(dim=1)
+                qdark = (alive < self.qrm_write).to(torch.float32)
+                dark_time = dark_time + torch.clamp_min(t1 - t0, 0.0) * qdark
+                if nW:
+                    tel = tel + self._tel_overlap(t0, t1) * qdark[:, None]
+            out["qrm_dark_time"] = dark_time
+            if nW:
+                out["tel_qrm_dark_int"] = tel
+        if self.has_leader:
+            starts, ends = self._group_dark_intervals(state, self.ldr_group)
+            delay = _f32(self.ldr_delay, dev)
+            # The t = 0 sentinel's shifted copy covers the first election's
+            # deadline; each shifted edge is the same float32 add that arms
+            # a deadline, so every deadline falls on a segment boundary.
+            base = torch.cat([zero, starts.flatten(1), ends.flatten(1)], dim=1)
+            t0s, t1s = segments(torch.cat([base, base + delay, zero + hz], dim=1))
+            idxs = torch.arange(len(self.ldr_group), dtype=torch.int32, device=dev)
+            leader = torch.full((R,), -1, dtype=torch.int32, device=dev)
+            pend = delay.expand(R).clone()  # the first election's deadline
+            changes = torch.zeros((R,), dtype=torch.int32, device=dev)
+            noleader = torch.zeros((R,), dtype=torch.float32, device=dev)
+            upt = torch.zeros((R, nW), dtype=torch.float32, device=dev)
+            for e in range(t0s.shape[1]):
+                t0, t1 = t0s[:, e], t1s[:, e]
+                alive = ~dark_at(starts, ends, t0, t1)
+                any_alive = alive.any(dim=1)
+                # 1. A pending election completes at its deadline: the
+                #    highest-index live member wins (none: still leaderless).
+                fire = pend <= t0
+                elect = torch.where(alive, idxs, -1).amax(dim=1).to(torch.int32)
+                leader = torch.where(fire, elect, leader)
+                changes += (fire & (elect >= 0)).to(torch.int32)
+                pend = torch.where(fire, INF, pend)
+                # 2. The leader back: no pending detection.
+                leader_alive = (alive & (idxs == leader[:, None])).any(dim=1)
+                pend = torch.where((leader >= 0) & leader_alive, INF, pend)
+                # 3. Leaderless: a dark leader arms its detection deadline,
+                #    a vacant seat arms once any member is live.
+                leaderless = (leader < 0) | ~leader_alive
+                arm = leaderless & ((leader >= 0) | any_alive) & torch.isinf(pend)
+                pend = torch.where(arm, t0 + delay, pend)
+                # 4. The segment's leaderless time and uptime.
+                frac = leaderless.to(torch.float32)
+                noleader = noleader + torch.clamp_min(t1 - t0, 0.0) * frac
+                if nW:
+                    upt = upt + self._tel_overlap(t0, t1) * (1.0 - frac)[:, None]
+            out["ldr_changes"] = changes
+            out["ldr_noleader_time"] = noleader
+            if nW:
+                out["tel_ldr_uptime_int"] = upt
+        return out
 
     def _initial_gaps(self, keys: torch.Tensor, params: dict) -> torch.Tensor:
         u = rng.uniform(keys, (self.nS,), minval=1e-12, maxval=1.0)
@@ -1311,14 +1508,32 @@ class _Compiled:
             arrival = self._edge_arrival(edge, t, u, routed)
             self._deliver_sink(state, lanes, arrival, created, dest.index)
         elif dest.kind == SERVER:
-            if park or edge.mean_s > 0:
-                self._into_transit(
-                    state, lanes, dest.index, self._edge_arrival(edge, t, u, routed), created
-                )
+            crossing = park or edge.mean_s > 0
+            arrival = self._edge_arrival(edge, t, u, routed) if crossing else t
+            if self.has_partitions and self.partitions.touched[dest.index]:
+                lanes = self._partition_select(state, lanes, dest.index, t, arrival, created)
+            if crossing:
+                self._into_transit(state, lanes, dest.index, arrival, created)
             else:
                 self._arrive_server(state, desc, lanes, dest.index, t, created, u, params)
         else:
             self._through_router(state, desc, lanes, t, created, u, dest.index, params, hop)
+
+    def _partition_select(self, state, lanes, v: int, t, arrival, created):
+        """The partition consult of a delivery into server ``v`` sent at
+        ``t`` (JAX ``_partition_select``), after any packet loss: under a
+        drop-mode cut the delivery vanishes and ``net_partitioned`` counts
+        it; under a delay-mode cut it parks in ``v``'s transit registers
+        until ``arrival`` plus the cut's delay. Returns the lanes whose
+        delivery goes on; a job already crossing when a cut opens arrives
+        as usual (transit arrivals do not consult)."""
+        dark, drop, delay = self.partitions.consult(state, v, t)
+        cut = lanes & dark & drop
+        state["net_partitioned"] += cut.to(torch.int32)
+        self._tel_count(state, "tel_net_partitioned", t, 0, cut)
+        if self.partitions.has_delay:
+            self._into_transit(state, lanes & dark & ~drop, v, arrival + delay, created)
+        return lanes & ~dark
 
     def _through_router(self, state, desc, lanes, t, created, u, r: int, params, hop: int):
         """One router hop: choose a target per lane, advance the
@@ -1533,15 +1748,25 @@ class _Compiled:
         fault_rejected = no
         if fault_dark is not None and self.faults.drop_mode[v]:
             fault_rejected = fault_dark & ~dark & ~brk_short
+        quorum_rejected = no
+        if self.has_quorum and self.qrm_member[v]:
+            # Fewer than `write` members reachable: a member rejecting for
+            # its own reasons first is not a quorum rejection.
+            quorum_rejected = (self._quorum_alive(state, t) < self.qrm_write) & ~(
+                dark | fault_rejected | brk_short
+            )
+        retryable = (fault_rejected if self.flt_can_retry[v] else no) | (
+            quorum_rejected if self.qrm_can_retry[v] else no
+        )
         retry = blocked = no
-        if self.flt_can_retry[v]:
-            retry = fault_rejected & (attempt < int(self.srv_max_retries[v]))
+        if self.flt_can_retry[v] or self.qrm_can_retry[v]:
+            retry = retryable & (attempt < int(self.srv_max_retries[v]))
             if bud_ok is not None:
                 # Without a token the retry is not launched: the job is a
-                # fault drop, and the launch a budget drop.
+                # terminal rejection, and the launch a budget drop.
                 blocked = retry & ~bud_ok
                 retry = retry & bud_ok
-        rejected = dark | fault_rejected | brk_short
+        rejected = dark | fault_rejected | brk_short | quorum_rejected
         q_len = state["srv_q_len"][:, v]
         shed = no
         if self.has_shed:
@@ -1556,7 +1781,13 @@ class _Compiled:
             shed = lanes & shed & ~rejected
             rejected = rejected | shed
         if self.has_breaker:
-            self._breaker_record_failure(state, v, t, lanes & (dark | fault_rejected), bst)
+            self._breaker_record_failure(
+                state, v, t, lanes & (dark | fault_rejected | quorum_rejected), bst
+            )
+        if self.has_quorum:
+            # Every rejection counts, retried or not.
+            state["qrm_dropped"][:, v] += (lanes & quorum_rejected).to(torch.int32)
+            self._tel_count(state, "tel_qrm_dropped", t, v, lanes & quorum_rejected)
         has_room = q_len < int(self.queue_cap[v])
         tail = torch.remainder(state["srv_q_head"][:, v] + q_len, self.K)
         start = lanes & has_free & ~rejected
@@ -1596,7 +1827,7 @@ class _Compiled:
         if hedged is not None:
             self._tel_count(state, "tel_srv_hedged", t, v, start & hedged)
             self._tel_count(state, "tel_srv_hedge_wins", t, v, start & won)
-        if self.flt_can_retry[v]:
+        if self.flt_can_retry[v] or self.qrm_can_retry[v]:
             # A retry counts only when a transit register takes it; with
             # none free _into_transit books a tr_dropped instead.
             parked = lanes & retry
@@ -1609,6 +1840,20 @@ class _Compiled:
             self._into_transit(
                 state, parked, v, self._backoff_arrival(u, attempt, v, t), created, attempt + 1
             )
+
+    def _quorum_alive(self, state, t) -> torch.Tensor:
+        """``(R,)`` quorum members reachable at ``t``: not inside a
+        drop-mode fault window and not in a cut partition group."""
+        cut = self.partitions.group_cut(state, t) if self.has_partitions else None
+        dead = torch.zeros_like(t, dtype=torch.int32)
+        for m in self.quorum.group:
+            gone = torch.zeros_like(t, dtype=torch.bool)
+            if self.has_faults and self.faults.drop_mode[m]:
+                gone = gone | self.faults.dark(state, m, t)
+            if cut is not None:
+                gone = gone | (cut & torch.from_numpy(self.partitions.member[:, m]).to(t.device)).any(dim=1)
+            dead += gone.to(torch.int32)
+        return len(self.quorum.group) - dead
 
     def _enqueue_retry(self, state, desc, lanes, v: int, t, created, attempt) -> None:
         """Tail re-enqueue of a deadline-expired job (``attempt`` already
@@ -1974,7 +2219,9 @@ def reduce_final(compiled: _Compiled, final: dict) -> dict:
     per_replica = {
         key: final[key] for key in sorted((_I64_COUNTER_KEYS | _F64_SUM_KEYS) & final.keys())
     }
-    for key in sorted(compiled.tel_keys):
+    # The sweeps' window integrals (a model with telemetry), and every
+    # tel_ counter.
+    for key in sorted(compiled.tel_keys | ({"tel_qrm_dark_int", "tel_ldr_uptime_int"} & final.keys())):
         per_replica[key] = final[key]
     for key, arr in per_replica.items():
         if key in _F64_SUM_KEYS:
@@ -2505,6 +2752,19 @@ def _build_result(
         server_shed_dropped=_per_server(host, "srv_shed_dropped", nV_real),
         server_budget_dropped=_per_server(host, "srv_budget_dropped", nV_real),
         resilience_features=tuple(model.resilience_features()),
+        network_partitioned=int(host.get("net_partitioned", 0)),
+        server_quorum_dropped=_per_server(host, "qrm_dropped", nV_real),
+        # Availability fractions over replicas x horizon, as the breaker's.
+        quorum_dark_fraction=(
+            float(host["qrm_dark_time"]) / (n_replicas * horizon) if "qrm_dark_time" in host else 0.0
+        ),
+        leader_changes=int(host.get("ldr_changes", 0)),
+        time_without_leader_fraction=(
+            float(host["ldr_noleader_time"]) / (n_replicas * horizon)
+            if "ldr_noleader_time" in host
+            else 0.0
+        ),
+        consensus_features=tuple(model.consensus_features()),
         compile_seconds=compile_seconds,
         engine_path=engine_path,
         kernel_shape=kernel_shape,

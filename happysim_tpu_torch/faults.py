@@ -1,6 +1,6 @@
-"""Per-replica fault schedules (own copy of ``FaultTable`` and
-``duty_cycle`` from ``happysim_tpu/tpu/faults.py``, with its device draw
-in torch).
+"""Per-replica fault and partition schedules (own copy of ``FaultTable``,
+``PartitionTable`` and ``duty_cycle`` from ``happysim_tpu/tpu/faults.py``,
+with their device draws in torch).
 
 Every replica draws its own fault timeline from its key at init:
 ``(nV, W)`` window start/end registers per server (inter-window gaps ~
@@ -23,6 +23,10 @@ from happysim_tpu_torch import rng
 # fold_in salt separating the fault-schedule stream from the per-block
 # streams and from the initial-gap draw (JAX's FAULT_KEY_SALT).
 FAULT_KEY_SALT = 0x7A057A57
+# The network-partition schedule's own salt (JAX's PARTITION_KEY_SALT): a
+# model with faults and partitions draws independent windows, and adding
+# a partition group leaves a fault schedule as it was.
+PARTITION_KEY_SALT = 0x9A2717E5
 # Block length of XLA's prefix sum: jnp.cumsum lowers to a reduce-window
 # that XLA's CPU backend rewrites into running sums inside blocks of 16
 # and a running sum of the block totals.
@@ -201,3 +205,103 @@ class FaultTable:
             shared = (tt >= state["flt_sh_start"]) & (tt < state["flt_sh_end"])
             dark = dark | shared.any(dim=1)
         return dark
+
+
+class PartitionTable:
+    """Static view of a model's network-partition groups (own copy of the
+    JAX package's ``PartitionTable``): each group's member servers, mode
+    and delay, and its window schedule, drawn as a fault schedule is
+    (gaps ~ Exp(rate), Exp or constant durations), each candidate kept
+    with probability ``trigger_p``, or pinned in every replica. A server
+    in several groups is cut under the OR; drop wins over delay."""
+
+    def __init__(self, model):
+        specs = list(model.network_partitions)
+        self.has_partitions = bool(specs)
+        self.nP = max(len(specs), 1)
+        self.nV = max(len(model.servers), 1)
+        widths = [1]
+        for spec in specs:
+            if spec.windows is not None:
+                widths.append(len(spec.windows))
+            elif spec.rate > 0.0:
+                widths.append(spec.max_windows)
+        self.Wp = max(widths)
+        nP, Wp = self.nP, self.Wp
+        self.member = np.zeros((nP, self.nV), np.bool_)
+        self.stochastic = np.zeros((nP,), np.bool_)
+        self.rate = np.ones((nP,), np.float32)  # 1.0 keeps unused rows finite
+        self.mean_dur = np.ones((nP,), np.float32)
+        self.dur_const = np.zeros((nP,), np.bool_)
+        self.trigger_p = np.ones((nP,), np.float32)
+        self.det_start = np.full((nP, Wp), np.inf, np.float32)
+        self.det_end = np.full((nP, Wp), np.inf, np.float32)
+        self.drop_mode = np.zeros((nP,), np.bool_)
+        self.delay_s = np.zeros((nP,), np.float32)
+        for p, spec in enumerate(specs):
+            for v in spec.group:
+                self.member[p, v] = True
+            self.drop_mode[p] = spec.mode == "drop"
+            self.delay_s[p] = spec.delay_s
+            if spec.windows is not None:
+                for w, (start, end) in enumerate(spec.windows):
+                    self.det_start[p, w] = start
+                    self.det_end[p, w] = end
+            elif spec.rate > 0.0:
+                self.stochastic[p] = True
+                self.rate[p] = spec.rate
+                self.mean_dur[p] = spec.mean_duration_s
+                self.dur_const[p] = spec.duration == "constant"
+                self.trigger_p[p] = spec.trigger_p
+        self.has_delay = self.has_partitions and bool(np.any(~self.drop_mode))
+        # Servers in at least one group: deliveries into them consult.
+        self.touched = self.member.any(axis=0)
+
+    def draw_uniforms(self, keys: torch.Tensor) -> torch.Tensor:
+        """The schedule's ``(R, nP, Wp, 3)`` uniforms (gap, duration,
+        trigger) for keys ``(R, 2)``, on the stream salted by
+        :data:`PARTITION_KEY_SALT`."""
+        pkey = rng.fold_in(keys, PARTITION_KEY_SALT)
+        return rng.uniform(rng.fold_in(pkey, 0), (self.nP, self.Wp, 3), minval=1e-12, maxval=1.0)
+
+    def sample_state(self, keys: torch.Tensor) -> dict:
+        """Each replica's ``prt_start`` / ``prt_end`` ``(R, nP, Wp)``
+        registers: windows the trigger left unfired, and a pinned row's
+        unused tail, at +inf."""
+        R, dev = keys.shape[0], keys.device
+        starts = torch.from_numpy(self.det_start).to(dev).expand(R, -1, -1).clone()
+        ends = torch.from_numpy(self.det_end).to(dev).expand(R, -1, -1).clone()
+        if self.stochastic.any():
+            u = self.draw_uniforms(keys)
+            rate = torch.from_numpy(self.rate).to(dev)[:, None]
+            mean = torch.from_numpy(self.mean_dur).to(dev)[:, None]
+            gaps = -torch.log(u[..., 0]) / rate
+            durs = torch.where(
+                torch.from_numpy(self.dur_const).to(dev)[:, None],
+                mean.expand(-1, self.Wp),
+                -torch.log(u[..., 1]) * mean,
+            )
+            start, end = windows_from(gaps, durs)
+            # Candidates keep their timeline slot whether or not they
+            # fire: the whole group cuts together when its candidate does.
+            fired = u[..., 2] < torch.from_numpy(self.trigger_p).to(dev)[:, None]
+            inf = torch.full_like(start, float("inf"))
+            stoch = torch.from_numpy(self.stochastic).to(dev)[:, None]
+            starts = torch.where(stoch, torch.where(fired, start, inf), starts)
+            ends = torch.where(stoch, torch.where(fired, end, inf), ends)
+        return {"prt_start": starts, "prt_end": ends}
+
+    def group_cut(self, state: dict, t: torch.Tensor) -> torch.Tensor:
+        """``(R, nP)`` bool: which groups are cut at ``t``."""
+        tt = t[:, None, None]
+        return ((tt >= state["prt_start"]) & (tt < state["prt_end"])).any(dim=2)
+
+    def consult(self, state: dict, v: int, t: torch.Tensor) -> tuple:
+        """Server ``v``'s partition status at ``t``, per lane: ``(dark,
+        drop, delay)``, whether a group holding it is cut, whether one of
+        those is drop-mode, and the largest delay of the cut ones."""
+        cut = self.group_cut(state, t) & torch.from_numpy(self.member[:, v]).to(t.device)
+        dark = cut.any(dim=1)
+        drop = (cut & torch.from_numpy(self.drop_mode).to(t.device)).any(dim=1)
+        delay = torch.where(cut, torch.from_numpy(self.delay_s).to(t.device), 0.0).amax(dim=1)
+        return dark, drop, delay

@@ -2,7 +2,9 @@
 // or resilience: the line, graph, extended and chaos instantiations, built
 // with nvcc into a shared library and loaded through ctypes by
 // kernels/event_step.py. The telemetry instantiations are
-// event_step_telemetry.cu's, the resilience ones event_step_resilience.cu's.
+// event_step_telemetry.cu's, the resilience ones event_step_resilience.cu's,
+// the consensus ones event_step_consensus.cu's, those for several sources
+// or sinks event_step_multi.cu's.
 
 #include "event_step.cuh"
 
@@ -31,8 +33,11 @@ static void launch(const EventStepArgs& args, cudaStream_t s) {
 extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
   if (args->R <= 0) return 0;
   // A telemetry model launches event_step_telemetry.cu's library, a
-  // model with a defense event_step_resilience.cu's.
-  if (args->tel.nW != 0 || args->res.on) return (int)cudaErrorInvalidValue;
+  // model with a defense event_step_resilience.cu's, a model with
+  // partitions or a quorum event_step_consensus.cu's.
+  if (args->tel.nW != 0 || args->res.on || args->con.on) return (int)cudaErrorInvalidValue;
+  // Several sources or sinks launch event_step_multi.cu's library.
+  if (args->nS != 1 || args->nK != 1) return (int)cudaErrorInvalidValue;
   if (args->chaos && !(args->graph && args->ext)) return (int)cudaErrorInvalidValue;
   if (args->has_profile && !args->ext) return (int)cudaErrorInvalidValue;
   if (!hs_args_ok(*args)) return (int)cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-// Event-step kernel: advances every replica of a single-source,
-// single-sink service graph by `macro` event steps in one launch.
+// Event-step kernel: advances every replica of a service graph (any
+// number of sources and sinks, nodes no source reaches included) by
+// `macro` event steps a block, its whole block loop in one launch.
 //
 // It replaces the Pallas TPU kernel
 // happysim_tpu/tpu/kernels/event_step.py::build_block_step (its
@@ -9,12 +10,23 @@
 // this file writes out what the step computes, op for op in float32, in
 // the order of the plain torch-op step
 // (kernels/event_step.py::plain_block_step): next_candidates' argmin
-// (first index wins ties), the depth integral, _fire_source,
-// _complete_server with its FIFO queue pull, _arrive_server and
-// _deliver_sink.
+// (first index wins ties: the sources, lowest index first, then the
+// servers' completions, then their transit arrivals), the depth integral,
+// _fire_source, _complete_server with its FIFO queue pull, _arrive_server
+// and _deliver_sink.
 //
-// event_step_kernel<MAXV, GRAPH, EXT, CHAOS, TEL, RES> has nine
-// instantiations per server bound:
+// Each source's constants are a row of the HsSrc table, its profile (EXT)
+// a row of the tables a thread block stages. Several sources or sinks
+// take the MULTI instantiation: sink 0 adds to a lane's registers and the
+// other sinks to their (R, nK) leaves in device memory; several sources
+// keep their next arrivals in device memory, where a fire writes its own
+// and reads all nS to find the next (the earliest, the lowest index on a
+// tie, as JAX's argmin). Every other instantiation runs one source and
+// one sink, whose code keeps only source 0's next arrival and sink 0's
+// accumulators, in registers.
+//
+// event_step_kernel<MAXV, GRAPH, EXT, CHAOS, TEL, RES, CON, MULTI> has
+// fourteen instantiations per server bound:
 // - GRAPH = false, the "mm1" and "chain" shapes (lines of servers joined
 //   by free edges, or a source wired straight to the sink): a delivery is
 //   a server arrival or the sink;
@@ -61,8 +73,23 @@
 //   retries, the hedge at a start and the hedge at a queue pull). Every
 //   model with a defense runs it, with the telemetry sites where the
 //   model has a spec; the defenses sit at their sites in the chaos
-//   arrival and completion code.
-// Everything GRAPH, EXT, CHAOS, TEL and RES add sits under `if
+//   arrival and completion code;
+// - CON = true (only as <MAXV, true, true, true, TEL, RES, true>, built
+//   from event_step_consensus.cu into a fourth library) adds the
+//   consensus tier to the chaos code: a delivery into a partition group's
+//   member consults the group's (R, nP, Wp) windows after any packet loss
+//   (dropped under a drop-mode cut, parked delay_s more in transit under
+//   a delay-mode one), and an arrival at a quorum member counts the
+//   members out of reach (drop-mode fault windows and cut groups) and is
+//   rejected, and retried after a backoff, below the write quorum. The
+//   quorum's dark time and the election are init sweeps, not the step's;
+// - MULTI = true (only as <MAXV, true, true, true, true, true, true,
+//   true>, built from event_step_multi.cu into a fifth library) runs
+//   several sources or sinks: the whole chaos code with every feature's
+//   sites, each taken only where the model has the feature (a null leaf,
+//   an unset flag), so one instantiation per server bound runs any model
+//   with them.
+// Everything GRAPH, EXT, CHAOS, TEL, RES, CON and MULTI add sits under `if
 // constexpr`, so the line, flat, extended, chaos and telemetry
 // instantiations compile to the code they had without them.
 //
@@ -84,7 +111,7 @@
 // blocks[r] for each block it runs; it writes its registers, its staged
 // rows and its halted flag once, after the loop. A run's event budget
 // is one launch and the host waits once, at the reduce. The clock, the
-// source's next arrival, the sink accumulators and, per server, the
+// sources' earliest next arrival, sink 0's accumulators and, per server, the
 // queue head and length, the earliest completion (and transit arrival)
 // time, the counters and the integrals live in registers for the whole
 // launch (per-server register arrays sized by the MAXV template argument
@@ -100,7 +127,8 @@
 // (kernels/support.py::stage_plan) picks, in the order of their use per
 // step, the leaves that fit a per-lane budget of dynamic shared memory
 // (tr_time, tr_created, tr_attempt, the slot arrays, the fault windows,
-// the shared windows, the breaker ring), sized so that the launch stays
+// the shared windows, the breaker ring, the partition windows), sized so
+// that the launch stays
 // one wave on the card; each lane copies its own rows of those leaves
 // into the tile at the start and back at the end, lane-minor (element j
 // of lane l at j * blockDim.x + l), so a warp's lockstep scan reads 32
@@ -123,7 +151,9 @@
 // replicas of the M/M/1), whatever its block count, and draws one
 // threefry2x32 (HS_THREEFRY_OPS integer operations) per uniform read and
 // one per lane and block for the block's key, about 33 per lane and
-// block on the M/M/1, against 33.5 Tops/s; the float arithmetic is a few
+// block on the M/M/1, its rotates and xors on the 64 INT32 lanes of an SM
+// (16.7 Tops/s), its adds shared with the FMA pipe's IMAD (33.5 Tops/s
+// for both); the float arithmetic is a few
 // dozen operations per event against 67 TFLOP/s. The extended
 // instantiations add a few dozen more per service draw (lognormal's
 // erfinv: log1pf, a root and eight double multiply-adds, then expf;
@@ -188,6 +218,8 @@
 #define HS_MAX_TARGETS 8
 #define HS_MAX_HOPS 8
 #define HS_MAX_LIMITERS 4
+#define HS_MAX_SOURCES 8
+#define HS_MAX_PARTITIONS 8
 #define HS_HIST_BINS 80
 // Threads per block: 64, which tools/ab_block_loop.py timed faster than
 // 128 on the fan-out and the chaos bench (-DHS_THREADS=128 builds its
@@ -253,7 +285,9 @@
 #define HS_ST_FLT_SH_START 8
 #define HS_ST_FLT_SH_END 9
 #define HS_ST_BRK_FAIL_T 10
-#define HS_STAGE_LEAVES 11
+#define HS_ST_PRT_START 11
+#define HS_ST_PRT_END 12
+#define HS_STAGE_LEAVES 13
 
 // The staging plan: where each leaf's rows sit in a lane's column of the
 // tile (a word offset, -1: in device memory) and the column's words. The
@@ -276,13 +310,24 @@ struct HsLoss {
   float p, start, end;
 };
 
+// One source: where it delivers, its arrivals and its rate profile. The
+// layout must match kernels/event_step.py::_Src.
+struct HsSrc {
+  HsRef ref;            // where it delivers
+  HsLoss loss;          // its edge's packet loss (CHAOS)
+  int poisson;          // 1: -log(u)/rate gaps, 0: 1/rate
+  float stop_after;     // no arrival after this time
+  int prof_row;         // EXT: its row of the staged profile tables (-1: a flat rate)
+  float prof_end_rate;  // EXT: the rate past the profile's grid
+};
+
 // Windowed telemetry (TEL instantiations): the window buffers, replica
 // major in the JAX layout and null where the spec or the model has none,
 // and the window grid. The layout must match kernels/event_step.py::_Tel.
 struct HsTel {
-  int* sink_count;       // (R, nW, 1)
-  float* sink_sum;       // (R, nW, 1)
-  int* sink_hist;        // (R, nW, 1, 80)
+  int* sink_count;       // (R, nW, nK)
+  float* sink_sum;       // (R, nW, nK)
+  int* sink_hist;        // (R, nW, nK, 80)
   float* depth_int;      // (R, nW, nV)
   float* busy_int;       // (R, nW, nV)
   int* completed;        // (R, nW, nV), and so on to tr_dropped
@@ -338,11 +383,35 @@ struct HsRes {
   float bud_ratio, bud_min_per_s, bud_burst;
 };
 
+// The consensus tier (CON instantiations): the partition windows and the
+// counters the step books, replica major in the JAX layout and null where
+// the model has none (the tel_ ones also without telemetry), and the
+// groups' constants. Group and quorum membership are bit masks over the
+// servers. The layout must match kernels/event_step.py::_Con.
+struct HsCon {
+  const float* prt_start;    // (R, nP, Wp) partition windows
+  const float* prt_end;      // (R, nP, Wp)
+  int* net_partitioned;      // (R,) deliveries a drop-mode cut vanished
+  int* qrm_dropped;          // (R, nV) arrivals the quorum rejected
+  int* tel_net_partitioned;  // (R, nW)
+  int* tel_qrm_dropped;      // (R, nW, nV)
+  int on;                    // 1: partition groups or a quorum
+  int nP, Wp;                // groups, windows per group
+  int prt_member[HS_MAX_PARTITIONS];  // bit v: server v is in the group
+  int prt_drop[HS_MAX_PARTITIONS];    // 1: drop-mode, 0: delay-mode
+  float prt_delay[HS_MAX_PARTITIONS]; // a delay-mode group's delay_s
+  int touched;               // bit v: server v is in some group
+  int quorum;                // 1: a quorum group
+  int qrm_member;            // bit v: server v is a quorum member
+  int qrm_n, qrm_write;      // members, and the write quorum
+  int qrm_retry;             // bit v: a member whose rejections retry after a backoff
+};
+
 // Launch arguments. The layout must match kernels/event_step.py::_Args.
 struct EventStepArgs {
   // state leaves, replica-major, JAX layout
   float* t;                // (R,)
-  float* src_next;         // (R, 1)
+  float* src_next;         // (R, nS)
   int* events;             // (R,)
   float* slot_done;        // (R, nV, C)
   float* slot_created;     // (R, nV, C)
@@ -357,10 +426,10 @@ struct EventStepArgs {
   float* busy_int;         // (R, nV)
   float* depth_int;        // (R, nV)
   float* wait_sum;         // (R, nV)
-  int* sink_count;         // (R, 1)
-  float* sink_sum;         // (R, 1)
-  float* sink_sq;          // (R, 1)
-  int* sink_hist;          // (R, 1, 80)
+  int* sink_count;         // (R, nK)
+  float* sink_sum;         // (R, nK)
+  float* sink_sq;          // (R, nK)
+  int* sink_hist;          // (R, nK, 80)
   int* rr_next;            // (R, nR)
   float* lim_tokens;       // (R, nL)
   float* lim_last;         // (R, nL)
@@ -373,11 +442,12 @@ struct EventStepArgs {
   const uint32_t* keys;    // (R, 2) the replicas' threefry keys
   int* draws;              // (R,) out: threefry evaluations per lane (null: not counted)
   int* blocks;             // (R,) in/out: blocks each lane ran, added to (null: not counted)
-  const float* src_rate;   // (R, 1)
+  const float* src_rate;   // (R, nS)
   const float* srv_mean;   // (R, nV)
   int R, nV, C, K, macro, n_draws;
   unsigned int block;      // the first block's absolute index, which keys its draws
   int n_blocks;            // blocks block, block + 1, ..., block + n_blocks - 1
+  int nS, nK;              // sources and sinks
   // Where the compiled JAX step rounds t + x * y once (ROADMAP C): 1 when
   // one service family is present (several: a select sits before the
   // add), 1 when some server's degrade windows inflate its service (JAX
@@ -385,13 +455,12 @@ struct EventStepArgs {
   // server hedges (JAX's hedge select then sits before every arrival's
   // add).
   int svc_fused, degrade_lat, hedge_any;
-  int src_poisson;         // 1: -log(u)/rate gaps, 0: 1/rate
   int u_gap, u_svc1, u_svc2;  // uniform slots (-1: none)
-  float stop_after, horizon, warmup;
+  float horizon, warmup;
   int svc_kind[HS_MAX_NV];   // 0 constant, 1 exponential
   int conc[HS_MAX_NV];       // valid slots per server
   int qcap[HS_MAX_NV];       // queue capacity per server
-  HsRef src_ref;             // where the source delivers
+  HsSrc src[HS_MAX_SOURCES]; // each source
   HsRef srv_ref[HS_MAX_NV];  // where each server delivers
   // GRAPH only
   int graph;                 // 1: routers, limiters or a latency edge
@@ -410,11 +479,10 @@ struct EventStepArgs {
   HsRef lim_ref[HS_MAX_LIMITERS];  // where each limiter delivers
   // EXT only
   int ext;                   // 1: a family beyond constant/exponential, or a profile
-  int has_profile;           // 1: the source's rate follows the tables below
+  int has_profile;           // profiled sources, each a row of the staged tables
   int prof_n;                // grid points G
-  float prof_end_rate;       // the rate past the grid
-  const float* prof_times;   // (G,) the source's time grid, device memory
-  const float* prof_cum;     // (G,) its cumulative rate
+  const float* prof_times;   // (nS, G) each source's time grid, device memory
+  const float* prof_cum;     // (nS, G) its cumulative rate
   int erlang_k[HS_MAX_NV];   // 2 or 3
   float hyp_p1[HS_MAX_NV], hyp_f1[HS_MAX_NV], hyp_f2[HS_MAX_NV];
   float ln_sigma[HS_MAX_NV];
@@ -446,7 +514,6 @@ struct EventStepArgs {
   float backoff[HS_MAX_NV], jitter[HS_MAX_NV];
   float hedge[HS_MAX_NV];
   float lat_factor[HS_MAX_NV];
-  HsLoss src_loss;                           // the source's edge
   HsLoss srv_loss[HS_MAX_NV];                // each server's downstream edge
   HsLoss lim_loss[HS_MAX_LIMITERS];          // each limiter's downstream edge
   HsLoss rt_loss[HS_MAX_ROUTERS][HS_MAX_TARGETS];  // each router's target edges
@@ -454,19 +521,39 @@ struct EventStepArgs {
   HsTel tel;
   // RES only
   HsRes res;
+  // CON only
+  HsCon con;
   // The rows staged in shared memory (kernels/support.py::stage_plan).
   HsStage stage;
 };
 
 // The struct is passed by value as a __grid_constant__ kernel parameter.
-// With the resilience constants it passes the classic 4 KB; CUDA 12.1
-// lifted the limit to 32,764 bytes on Volta and later (sm_90a included).
+// With the resilience constants it passes the classic 4 KB (about 4.5 KB
+// with the sources' and the consensus tier's); CUDA 12.1 lifted the limit
+// to 32,764 bytes on Volta and later (sm_90a included).
 static_assert(sizeof(EventStepArgs) <= 32764,
               "event-step arguments exceed the 32,764-byte kernel-parameter limit");
 
 // The block's dynamic shared memory: the profile tables (EXT
-// instantiations with a profiled source), then the row tile.
+// instantiations with a profiled source: the time grid then the
+// cumulative grid of each profiled source, in the order of their rows),
+// then the row tile.
 extern __shared__ float hs_tables[];
+
+// Lanes `lane`, `lane + lanes`, ... of a thread block copy each profiled
+// source's two (G,) tables into its row of the block's tables.
+__device__ __forceinline__ void stage_profiles(const EventStepArgs& a, int lane, int lanes) {
+  const int n = a.prof_n;
+  for (int s = 0; s < a.nS; ++s) {
+    const int row = a.src[s].prof_row;
+    if (row < 0) continue;
+    float* times = hs_tables + (size_t)2 * n * row;
+    for (int i = lane; i < n; i += lanes) {
+      times[i] = a.prof_times[(size_t)s * n + i];
+      times[n + i] = a.prof_cum[(size_t)s * n + i];
+    }
+  }
+}
 
 // A row of a per-replica leaf: element j at p[j * s], with s 1 in device
 // memory and blockDim.x in the shared tile.
@@ -681,15 +768,13 @@ __device__ __forceinline__ float interp(float x, const float* xp, const float* f
 // JAX _invert_profile: the gap g with Lambda(t + g) - Lambda(t) = inc,
 // Lambda read forward then inverted, each extrapolated at the final rate
 // past the grid.
-__device__ __forceinline__ float invert_profile(const EventStepArgs& a, const float* times,
+__device__ __forceinline__ float invert_profile(int n, float end_rate, const float* times,
                                                 const float* cum, float t, float inc) {
-  const int n = a.prof_n;
   const float t_end = times[n - 1], c_end = cum[n - 1];
-  const float at = t <= t_end ? interp(t, times, cum, n)
-                              : fma_f64(t - t_end, a.prof_end_rate, c_end);
+  const float at = t <= t_end ? interp(t, times, cum, n) : fma_f64(t - t_end, end_rate, c_end);
   const float target = at + inc;
   const float t_next = target <= c_end ? interp(target, cum, times, n)
-                                       : t_end + (target - c_end) / a.prof_end_rate;
+                                       : t_end + (target - c_end) / end_rate;
   return fmaxf(t_next - t, 1e-9f);
 }
 
@@ -750,8 +835,9 @@ struct Lane {
   float busy[MAXV], depth[MAXV], wsum[MAXV], mean[MAXV];
   float smin[MAXV];  // earliest completion per server
   float tmin[MAXV];  // earliest transit arrival per server (GRAPH)
-  int sk_count;
+  int sk_count;  // sink 0's accumulators; the other sinks' stay in device memory
   float sk_sum, sk_sq;
+  size_t sink_row;  // MULTI: this replica's first row (r * nK) of the sink leaves
   HsRow<float> slot_done, slot_created, tr_time, tr_created;  // (nV, C) and (nV, TR)
   float *q_created, *q_enq;
   float *lim_tokens, *lim_last;
@@ -769,23 +855,37 @@ struct Lane {
   // its (nV, F) failure rings
   size_t res_row;
   HsRow<float> brk_ring;
+  // CON: this replica's (nP, Wp) partition windows and its counters
+  HsRow<const float> prt_start, prt_end;
+  int *net_partitioned, *qrm_dropped;
   int drawn;  // threefry evaluations this launch (the block keys' included)
 };
 
-// _deliver_sink: only arrivals inside [warmup, horizon] are measured.
-// TEL: the delivery's count, latency and bin in its arrival window.
-template <int MAXV, bool TEL = false>
-__device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs& a,
+// _deliver_sink into sink k: only arrivals inside [warmup, horizon] are
+// measured. Sink 0 adds to the lane's registers; MULTI: another sink to
+// its leaves in device memory. TEL: the delivery's count, latency and bin
+// in its arrival window.
+template <int MAXV, bool TEL = false, bool MULTI = false>
+__device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs& a, int k,
                                              float arrival, float created) {
   if (arrival >= a.warmup && arrival <= a.horizon) {
     const float latency = arrival - created;
-    L.sk_count += 1;
-    L.sk_sum = L.sk_sum + latency;
-    L.sk_sq = fma_f64(latency, latency, L.sk_sq);
-    L.hist[hist_bin(latency)] += 1;
+    if (!MULTI || k == 0) {
+      L.sk_count += 1;
+      L.sk_sum = L.sk_sum + latency;
+      L.sk_sq = fma_f64(latency, latency, L.sk_sq);
+    } else {
+      const size_t i = L.sink_row + k;
+      a.sink_count[i] += 1;
+      a.sink_sum[i] = a.sink_sum[i] + latency;
+      a.sink_sq[i] = fma_f64(latency, latency, a.sink_sq[i]);
+    }
+    (MULTI ? L.hist + k * HS_HIST_BINS : L.hist)[hist_bin(latency)] += 1;
     if constexpr (TEL) {
       const HsTel& T = a.tel;
-      const size_t cell = L.tel_row + tel_window(T, arrival);  // one sink
+      if (!T.sink_count && !T.sink_sum) return;
+      size_t cell = L.tel_row + tel_window(T, arrival);
+      if constexpr (MULTI) cell = cell * a.nK + k;
       if (T.sink_count) T.sink_count[cell] += 1;
       if (T.sink_sum) {
         T.sink_sum[cell] = T.sink_sum[cell] + latency;
@@ -1024,6 +1124,71 @@ __device__ __forceinline__ void budget_dropped(const Lane<MAXV>& L, const EventS
   if constexpr (TEL) tel_count(a.res.tel_budget_dropped, a.tel, L.tel_row, a.nV, t, w);
 }
 
+// -- consensus (CON) ---------------------------------------------------------
+
+// PartitionTable.consult for server w at t: whether a group holding it is
+// cut (returned), whether one of the cut groups is drop-mode, and the
+// largest delay of the cut ones.
+template <int MAXV>
+__device__ __forceinline__ bool partition_consult(const Lane<MAXV>& L, const HsCon& P, int w, float t,
+                                                  bool& drop, float& delay) {
+  bool dark = false;
+  drop = false;
+  delay = 0.0f;
+  for (int g = 0; g < P.nP; ++g) {
+    if (!((P.prt_member[g] >> w) & 1)) continue;
+    const HsRow<const float> start = L.prt_start + g * P.Wp;
+    const HsRow<const float> end = L.prt_end + g * P.Wp;
+    bool cut = false;
+    for (int i = 0; i < P.Wp; ++i) cut |= (t >= start[i]) & (t < end[i]);
+    if (!cut) continue;
+    dark = true;
+    if (P.prt_drop[g]) {
+      drop = true;
+    } else {
+      delay = fmaxf(delay, P.prt_delay[g]);
+    }
+  }
+  return dark;
+}
+
+// Quorum members reachable at t: one inside a drop-mode fault window (its
+// own or a subscribed shared one) or in a cut partition group is not.
+template <int MAXV>
+__device__ __forceinline__ int quorum_alive(const Lane<MAXV>& L, const EventStepArgs& a, float t) {
+  const HsCon& Q = a.con;
+  int alive = Q.qrm_n;
+  for (int m = 0; m < a.nV; ++m) {
+    if (!((Q.qrm_member >> m) & 1)) continue;
+    const int flags = pick_arg<MAXV>(a.srv_flags, m);
+    bool gone = (flags & HS_F_FAULTED) && (flags & HS_F_DROP) && fault_dark(L, a, m, t);
+    if (!gone && ((Q.touched >> m) & 1)) {
+      bool drop;
+      float delay;
+      gone = partition_consult(L, Q, m, t, drop, delay);
+    }
+    alive -= gone ? 1 : 0;
+  }
+  return alive;
+}
+
+// A rejected arrival's retry (a fault window's or the quorum's): parked
+// in server w's transit registers until its backoff ends. It counts as a
+// fault retry, and spends a budget token, only where a register takes it.
+template <int MAXV, bool TEL, bool RES>
+__device__ __forceinline__ void retry_park(Lane<MAXV>& L, const EventStepArgs& a, int w, float t,
+                                           float created, int attempt, const HsDraw& u) {
+  if (transit_free(L, a, w)) {
+    L.fault_retried[w] += 1;
+    if constexpr (TEL) tel_count(a.tel.fault_retried, a.tel, L.tel_row, a.nV, t, w);
+    if constexpr (RES) {
+      if (a.res.budget) budget_debit(L, a, w);
+    }
+  }
+  into_transit<MAXV, true, TEL>(L, a, w, backoff_arrival<MAXV>(a, w, attempt, u, t), created,
+                                attempt + 1);
+}
+
 // _arrive_server with the chaos gates: a brownout window loses the
 // arrival; an outage-mode fault window rejects it (parked for a retry
 // after the backoff while its budget lasts, else a fault drop); a
@@ -1037,7 +1202,12 @@ __device__ __forceinline__ void budget_dropped(const Lane<MAXV>& L, const EventS
 // budget token is a fault drop and a budget drop. The shed gate sees only
 // what those let through. A half-open probe is spent only by an arrival
 // that takes a slot or a queue place; a hedge needs a token.
-template <int MAXV, bool TEL = false, bool RES = false>
+//
+// CON adds the quorum gate after the fault window's: an arrival at a
+// member while fewer than `write` members are reachable is rejected
+// (every rejection counted in qrm_dropped), a failure of the breaker's,
+// and retried after a backoff as a fault rejection is.
+template <int MAXV, bool TEL = false, bool RES = false, bool CON = false>
 __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                                     float t, float created, int attempt,
                                                     const HsDraw& u) {
@@ -1082,15 +1252,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
     }
     const bool would = (flags & HS_F_FAULT_RETRY) && attempt < pick_arg<MAXV>(a.max_retries, w);
     if (would && bud_ok) {
-      if (transit_free(L, a, w)) {
-        L.fault_retried[w] += 1;
-        if constexpr (TEL) tel_count(a.tel.fault_retried, a.tel, L.tel_row, a.nV, t, w);
-        if constexpr (RES) {
-          if (a.res.budget) budget_debit(L, a, w);
-        }
-      }
-      into_transit<MAXV, true, TEL>(L, a, w, backoff_arrival<MAXV>(a, w, attempt, u, t), created,
-                                    attempt + 1);
+      retry_park<MAXV, TEL, RES>(L, a, w, t, created, attempt, u);
     } else {
       L.fault_dropped[w] += 1;
       if constexpr (TEL) tel_count(a.tel.fault_dropped, a.tel, L.tel_row, a.nV, t, w);
@@ -1099,6 +1261,23 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
       }
     }
     return;
+  }
+  if constexpr (CON) {
+    const HsCon& Q = a.con;
+    if (Q.quorum && ((Q.qrm_member >> w) & 1) && quorum_alive(L, a, t) < Q.qrm_write) {
+      if constexpr (RES) {
+        if (a.res.breaker) breaker_failure<MAXV, TEL>(L, a, w, t, bst);
+      }
+      L.qrm_dropped[w] += 1;
+      if constexpr (TEL) tel_count(Q.tel_qrm_dropped, a.tel, L.tel_row, a.nV, t, w);
+      const bool would = ((Q.qrm_retry >> w) & 1) && attempt < pick_arg<MAXV>(a.max_retries, w);
+      if (would && bud_ok) {
+        retry_park<MAXV, TEL, RES>(L, a, w, t, created, attempt, u);
+      } else if constexpr (RES) {
+        if (would) budget_dropped<MAXV, TEL>(L, a, w, t);
+      }
+      return;
+    }
   }
   if constexpr (RES) {
     const HsRes& B = a.res;
@@ -1231,14 +1410,21 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
 // loss-free), after any limiter and round-robin update, and vanishes the
 // job with only net_lost counting it. `attempt` rides to the server.
 // RES: the server arrival runs the defenses.
-template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false, bool TEL = false, bool RES = false>
+// CON: a delivery into a server of a partition group, sent at t, consults
+// the groups after the loss (JAX's _partition_select): under a drop-mode
+// cut it vanishes with only net_partitioned counting it, under a
+// delay-mode cut it parks in the server's transit registers until its
+// arrival plus the delay. A transit arrival (`consult` false) crossed
+// before any cut and does not consult.
+template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false, bool TEL = false, bool RES = false,
+          bool CON = false, bool MULTI = false>
 __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, HsRef dest,
                                         float t, float created, const HsDraw& u,
                                         HsLoss loss = HsLoss{0.0f, 0.0f, 0.0f},
-                                        int attempt = 0) {
+                                        int attempt = 0, bool consult = true) {
   if constexpr (!GRAPH) {
     if (dest.kind == HS_SINK) {
-      deliver_sink<MAXV, TEL>(L, a, t, created);
+      deliver_sink<MAXV, TEL, MULTI>(L, a, dest.index, t, created);
     } else {
       arrive_server<MAXV, EXT, TEL>(L, a, dest.index, t, created, u);
     }
@@ -1286,12 +1472,31 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         }
       }
       if (dest.kind == HS_SINK) {
-        deliver_sink<MAXV, TEL>(L, a, edge_arrival(dest, t, u, a.u_lat, routed), created);
-      } else if (park || dest.lat_kind != HS_LAT_NONE) {
+        deliver_sink<MAXV, TEL, MULTI>(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat, routed),
+                                       created);
+        return;
+      }
+      const bool crossing = park || dest.lat_kind != HS_LAT_NONE;
+      if constexpr (CON) {
+        bool drop;
+        float delay;
+        if (consult && ((a.con.touched >> dest.index) & 1) &&
+            partition_consult(L, a.con, dest.index, t, drop, delay)) {
+          if (drop) {
+            *L.net_partitioned += 1;
+            if constexpr (TEL) tel_count(a.con.tel_net_partitioned, a.tel, L.tel_row, 1, t, 0);
+          } else {
+            const float arrival = crossing ? edge_arrival(dest, t, u, a.u_lat, routed) : t;
+            into_transit<MAXV, CHAOS, TEL>(L, a, dest.index, arrival + delay, created);
+          }
+          return;
+        }
+      }
+      if (crossing) {
         into_transit<MAXV, CHAOS, TEL>(L, a, dest.index,
                                        edge_arrival(dest, t, u, a.u_lat, routed), created);
       } else if constexpr (CHAOS) {
-        arrive_server_chaos<MAXV, TEL, RES>(L, a, dest.index, t, created, attempt, u);
+        arrive_server_chaos<MAXV, TEL, RES, CON>(L, a, dest.index, t, created, attempt, u);
       } else {
         arrive_server<MAXV, EXT, TEL>(L, a, dest.index, t, created, u);
       }
@@ -1300,7 +1505,22 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
   }
 }
 
-// The lane's next event time: the earliest of the source's next arrival,
+// The earliest of a replica's nS next arrivals and the lowest source index
+// holding it (the sources come first in next_candidates, and its argmin
+// takes the lowest index on a tie).
+__device__ __forceinline__ float earliest_source(const float* next, int nS, int& index) {
+  float tn = next[0];
+  index = 0;
+  for (int s = 1; s < nS; ++s) {
+    if (next[s] < tn) {
+      tn = next[s];
+      index = s;
+    }
+  }
+  return tn;
+}
+
+// The lane's next event time: the earliest of the sources' next arrivals,
 // the servers' completions and (GRAPH) their transit arrivals.
 template <int MAXV, bool GRAPH>
 __device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_next) {
@@ -1323,38 +1543,34 @@ __device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_
 #define HS_MIN_BLOCKS(MAXV, CHAOS) \
   (HS_REG_CAP && (MAXV) <= 4 && !(CHAOS) ? 65536 / (128 * HS_THREADS) : 1)
 
-template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false, bool RES = false>
+template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false, bool RES = false,
+          bool CON = false, bool MULTI = false>
 __global__ void __launch_bounds__(HS_THREADS, HS_MIN_BLOCKS(MAXV, CHAOS))
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const float* prof_times = nullptr;
-  const float* prof_cum = nullptr;
   if constexpr (EXT) {
     if (a.has_profile) {  // every thread of the block stages, then syncs
-      const int n = a.prof_n;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        hs_tables[i] = a.prof_times[i];
-        hs_tables[n + i] = a.prof_cum[i];
-      }
+      stage_profiles(a, threadIdx.x, blockDim.x);
       __syncthreads();
-      prof_times = hs_tables;
-      prof_cum = hs_tables + n;
     }
   }
   if (r >= a.R) return;
   const int nV = a.nV, C = a.C, K = a.K, TR = a.TR, nd = a.n_draws;
+  const int nS = MULTI ? a.nS : 1;  // one source and one sink without MULTI
   const size_t rv = (size_t)r * nV;
 
   Lane<MAXV> L;
   // The rows the plan stages go to this lane's column of the tile, after
   // the profile tables.
-  float* tile = hs_tables + (a.has_profile ? 2 * a.prof_n : 0);
+  float* tile = hs_tables + 2 * (size_t)a.prof_n * a.has_profile;
   const int* off = a.stage.off;
   L.slot_done = stage_in(a.slot_done + rv * C, off[HS_ST_SLOT_DONE], nV * C, tile);
   L.slot_created = stage_in(a.slot_created + rv * C, off[HS_ST_SLOT_CREATED], nV * C, tile);
   L.q_created = a.q_created + rv * K;
   L.q_enq = a.q_enq + rv * K;
-  L.hist = a.sink_hist + (size_t)r * HS_HIST_BINS;
+  const size_t sink_row = MULTI ? (size_t)r * a.nK : (size_t)r;
+  if constexpr (MULTI) L.sink_row = sink_row;
+  L.hist = a.sink_hist + sink_row * HS_HIST_BINS;
   bool transit = false;
   if constexpr (GRAPH) {
     transit = a.tr_time != nullptr;
@@ -1396,6 +1612,16 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.brk_ring = stage_in(a.res.brk_fail_t ? a.res.brk_fail_t + rv * a.res.F : nullptr,
                           off[HS_ST_BRK_FAIL_T], nV * a.res.F, tile);
   }
+  if constexpr (CON) {
+    const HsCon& P = a.con;
+    const size_t pw = (size_t)r * P.nP * P.Wp;
+    L.prt_start = stage_in(P.prt_start ? P.prt_start + pw : nullptr, off[HS_ST_PRT_START],
+                           P.nP * P.Wp, tile);
+    L.prt_end = stage_in(P.prt_end ? P.prt_end + pw : nullptr, off[HS_ST_PRT_END], P.nP * P.Wp,
+                         tile);
+    L.net_partitioned = P.net_partitioned ? P.net_partitioned + r : nullptr;
+    L.qrm_dropped = P.qrm_dropped ? P.qrm_dropped + rv : nullptr;
+  }
   const HsKey key{a.keys[2 * (size_t)r], a.keys[2 * (size_t)r + 1]};
   L.drawn = 0;
   // Whether this instantiation draws through hs_draw_call (see HsDraw).
@@ -1418,12 +1644,18 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       L.tmin[v] = real && transit ? row_min(L.tr_time + v * TR, TR) : INFINITY;
   }
   float t = a.t[r];
-  float src_next = a.src_next[r];
+  // The sources' earliest next arrival and its source. One source keeps
+  // its next arrival in this register alone; MULTI: several keep theirs
+  // in device memory, where a fire writes its own and reads them all.
+  const size_t src_row = (size_t)r * nS;  // this replica's first row of the (R, nS) leaves
+  int src = 0;
+  float src_next =
+      nS == 1 ? a.src_next[src_row] : earliest_source(a.src_next + src_row, nS, src);
   int events = a.events[r];
-  L.sk_count = a.sink_count[r];
-  L.sk_sum = a.sink_sum[r];
-  L.sk_sq = a.sink_sq[r];
-  const float rate = a.src_rate[r];
+  L.sk_count = a.sink_count[sink_row];
+  L.sk_sum = a.sink_sum[sink_row];
+  L.sk_sq = a.sink_sq[sink_row];
+  const float rate0 = a.src_rate[src_row];  // source 0's rate
 
   int ran = 0;  // blocks this lane ran
   for (int c = 0; c < a.n_blocks; ++c) {
@@ -1476,23 +1708,31 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       HsLoss loss{0.0f, 0.0f, 0.0f};  // CHAOS: the edge's packet loss
       int attempt = 0;                // CHAOS: the attempt a transit arrival carries
       bool forward = true;            // CHAOS: false once a deadline expired
-      if (ev < 0) {  // _fire_source
+      if (ev < 0) {  // _fire_source of the earliest source
+        const HsSrc& S = a.src[src];
+        const float rate = !MULTI || src == 0 ? rate0 : a.src_rate[src_row + src];
+        bool profiled = false;
+        if constexpr (EXT) profiled = S.prof_row >= 0;
         float gap;
-        if constexpr (EXT) {
-          if (a.has_profile) {
-            const float inc = a.src_poisson ? -logf(u[a.u_gap]) : 1.0f;
-            gap = invert_profile(a, prof_times, prof_cum, t, inc);
-          } else {
-            gap = a.src_poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
-          }
+        if (profiled) {
+          const int n = a.prof_n;
+          const float* times = hs_tables + (size_t)2 * n * S.prof_row;
+          const float inc = S.poisson ? -logf(u[a.u_gap]) : 1.0f;
+          gap = invert_profile(n, S.prof_end_rate, times, times + n, t, inc);
         } else {
-          gap = a.src_poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
+          gap = S.poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
         }
         const float next_time = t + gap;
-        src_next = next_time > a.stop_after ? INFINITY : next_time;
-        dest = a.src_ref;
+        const float fired = next_time > S.stop_after ? INFINITY : next_time;
+        if (nS == 1) {
+          src_next = fired;
+        } else {
+          a.src_next[src_row + src] = fired;
+          src_next = earliest_source(a.src_next + src_row, nS, src);
+        }
+        dest = S.ref;
         created = t;
-        if constexpr (CHAOS) loss = a.src_loss;
+        if constexpr (CHAOS) loss = S.loss;
       } else if (!GRAPH || ev < MAXV) {  // _complete_server: the first slot holding the earliest time
         from = ev;
         const int cv = pick_arg<MAXV>(a.conc, from);
@@ -1597,9 +1837,12 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         dest = HsRef{HS_SERVER, v, 0.0f, HS_LAT_NONE};
       }
 
+      // A transit arrival crossed before any partition cut: no consult.
+      const bool consult = !GRAPH || ev < MAXV;
       if constexpr (CHAOS) {
         if (forward)
-          deliver<MAXV, GRAPH, EXT, true, TEL, RES>(L, a, dest, t, created, u, loss, attempt);
+          deliver<MAXV, GRAPH, EXT, true, TEL, RES, CON, MULTI>(L, a, dest, t, created, u, loss,
+                                                                 attempt, consult);
       } else {
         deliver<MAXV, GRAPH, EXT, false, TEL>(L, a, dest, t, created, u);
       }
@@ -1692,11 +1935,11 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   if (ran == 0) return;  // a lane halted on entry changed nothing
 
   a.t[r] = t;
-  a.src_next[r] = src_next;
+  if (nS == 1) a.src_next[src_row] = src_next;
   a.events[r] = events;
-  a.sink_count[r] = L.sk_count;
-  a.sink_sum[r] = L.sk_sum;
-  a.sink_sq[r] = L.sk_sq;
+  a.sink_count[sink_row] = L.sk_count;
+  a.sink_sum[sink_row] = L.sk_sum;
+  a.sink_sq[sink_row] = L.sk_sq;
 #pragma unroll
   for (int v = 0; v < MAXV; ++v) {
     if (v < nV) {
@@ -1734,7 +1977,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
 // Dynamic shared memory of a launch: the profile tables, then the row
 // tile, a column of stage.words words per thread.
 static size_t hs_smem_bytes(const EventStepArgs& a) {
-  const size_t tables = a.has_profile ? 2 * (size_t)a.prof_n * sizeof(float) : 0;
+  const size_t tables = 2 * (size_t)a.prof_n * a.has_profile * sizeof(float);
   return tables + (HS_STAGE_ROWS ? (size_t)a.stage.words * HS_THREADS * sizeof(float) : 0);
 }
 
@@ -1742,7 +1985,9 @@ static size_t hs_smem_bytes(const EventStepArgs& a) {
 // and a profile grid within the bounds.
 static bool hs_args_ok(const EventStepArgs& a) {
   if (a.R < 0 || a.n_blocks < 1 || a.stage.words < 0) return false;
+  if (a.nS < 1 || a.nS > HS_MAX_SOURCES || a.nK < 1 || a.has_profile < 0) return false;
   if (a.has_profile && (a.prof_n < 2 || a.prof_n > HS_MAX_PROFILE_GRID)) return false;
+  if (a.con.on && (a.con.nP < 1 || a.con.nP > HS_MAX_PARTITIONS || a.con.Wp < 1)) return false;
   return hs_smem_bytes(a) <= HS_MAX_SMEM_PER_BLOCK;
 }
 
@@ -1760,6 +2005,8 @@ static void hs_launch(Kernel kernel, const EventStepArgs& a, cudaStream_t s) {
 
 // The library's build constants, which the wrapper checks when it loads it.
 extern "C" int hs_event_step_max_servers() { return HS_MAX_NV; }
+
+extern "C" int hs_event_step_max_sources() { return HS_MAX_SOURCES; }
 
 extern "C" int hs_event_step_max_profile_grid() { return HS_MAX_PROFILE_GRID; }
 

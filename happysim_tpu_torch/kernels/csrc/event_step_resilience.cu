@@ -21,11 +21,14 @@ static void launch(const EventStepArgs& args, cudaStream_t s) {
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
   if (args->R <= 0) return 0;
-  // Only a model with a defense, on the chaos code.
-  if (!args->res.on || !(args->chaos && args->graph && args->ext))
+  // Only a model with a defense and without partitions or a quorum, on the
+  // chaos code.
+  if (!args->res.on || args->con.on || !(args->chaos && args->graph && args->ext))
     return (int)cudaErrorInvalidValue;
   if (args->res.breaker && (args->res.F < 1 || args->res.F > HS_MAX_BREAKER_RING))
     return (int)cudaErrorInvalidValue;
+  // Several sources or sinks launch event_step_multi.cu's library.
+  if (args->nS != 1 || args->nK != 1) return (int)cudaErrorInvalidValue;
   if (!hs_args_ok(*args)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (args->nV <= 1) {

@@ -19,9 +19,12 @@ static void launch(const EventStepArgs& args, cudaStream_t s) {
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
   if (args->R <= 0) return 0;
-  // A model with a defense launches event_step_resilience.cu's library.
-  if (args->tel.nW < 1 || args->res.on || !(args->graph && args->ext))
+  // A model with a defense launches event_step_resilience.cu's library, a
+  // model with partitions or a quorum event_step_consensus.cu's.
+  if (args->tel.nW < 1 || args->res.on || args->con.on || !(args->graph && args->ext))
     return (int)cudaErrorInvalidValue;
+  // Several sources or sinks launch event_step_multi.cu's library.
+  if (args->nS != 1 || args->nK != 1) return (int)cudaErrorInvalidValue;
   if (!hs_args_ok(*args)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (args->nV <= 1) {

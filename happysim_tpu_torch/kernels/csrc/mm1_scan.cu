@@ -18,8 +18,10 @@
 // kernel and plain_mm1_scan agree bit for bit.
 //
 // What bounds it on this card: integer operations. A customer costs two
-// threefry2x32 evaluations (about 166 integer operations) against a dozen
-// float operations and no memory traffic: each lane keeps w and its three
+// threefry2x32 evaluations (about 166 integer operations, their rotates
+// and xors on the 64 INT32 lanes of an SM alone; tools/sass_mix.py counts
+// the compiled loop by pipe) against a dozen float operations and no
+// memory traffic: each lane keeps w and its three
 // sums in registers over the whole scan and writes 12 bytes at the end. The
 // step keys fold_in(key, i) are the same for every lane, so a block's
 // threads fold HS_MM1_TILE of them at once into shared memory, one fold a

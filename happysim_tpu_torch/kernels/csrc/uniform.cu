@@ -11,9 +11,11 @@
 //
 // What bounds it on this card: integer operations. Each element costs one
 // threefry2x32 (HS_THREEFRY_OPS operations) and a few more for the float,
-// against 4 bytes written; at 33.5 Tops/s of 32-bit integer work (the
-// integer pipe and the FMA pipe's IMAD together) that is about 2.5x the
-// 3.35 TB/s bytes bound. The design spends nothing else: a
+// against 4 bytes written. Its rotates and xors issue only on the 64
+// INT32 lanes of an SM (16.7 Tops/s on the card); its adds may also go to
+// the FMA pipe as IMAD. tools/sass_mix.py counts the compiled loop's
+// instructions by pipe: the INT32 lanes bound it, several times the 3.35
+// TB/s bytes bound. The design spends nothing else: a
 // block of HS_UNIFORM_THREADS threads covers a contiguous run of one
 // replica's row, so the stores coalesce, and one fold_in per block (made
 // by thread 0 into shared memory) serves all its elements.

@@ -21,7 +21,7 @@ straight to the sink) launch the kernel's line instantiation; every model
 with a router, a limiter or a latency edge launches its graph
 instantiation, which walks the topology tables in its arguments. Either
 comes in an extended form, launched when a server draws from a family
-beyond constant and exponential or the source follows a rate profile:
+beyond constant and exponential or a source follows a rate profile:
 the family sampler and the profile lookup, with the profile tables
 passed as device tensors and staged in shared memory. Every model with a
 chaos feature (deadlines, retries, hedges, brownouts, fault schedules,
@@ -33,14 +33,22 @@ the extended graph code, with the chaos branches where the model has
 chaos, plus the windowed telemetry sites. Every model with a circuit
 breaker, load shedding or a retry budget launches a resilience
 instantiation: the chaos code plus the defenses' gates, with or without
-the telemetry sites.
+the telemetry sites. Every model with network partitions or a quorum
+launches a consensus instantiation: the chaos code plus the partition
+consult and the quorum gate, with or without the telemetry sites and the
+defenses. Every model with several sources or sinks launches the
+instantiation for them: the chaos code with every feature's sites, each
+taken where the model has the feature. Nodes no source reaches run on
+any of them.
 
 The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``build/`` at the repository root, one library per source
 (``csrc/event_step.cu`` without telemetry or resilience,
 ``csrc/event_step_telemetry.cu`` with telemetry,
-``csrc/event_step_resilience.cu`` with the defenses), all built at once,
-each bound through a plain C launcher loaded with ``ctypes``.
+``csrc/event_step_resilience.cu`` with the defenses,
+``csrc/event_step_consensus.cu`` with partitions or a quorum,
+``csrc/event_step_multi.cu`` with several sources or sinks), all built at
+once, each bound through a plain C launcher loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -57,18 +65,24 @@ from happysim_tpu_torch.kernels.build import CSRC  # noqa: F401  (the sources' d
 from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK
 
 # The libraries of the event-step kernel (kernels/build.py builds them).
-EVENT_STEP_STEMS = ("event_step", "event_step_telemetry", "event_step_resilience")
+EVENT_STEP_STEMS = (
+    "event_step", "event_step_telemetry", "event_step_resilience", "event_step_consensus",
+    "event_step_multi",
+)
 
 _MAX_NV = support.KERNEL_MAX_SERVERS
 _MAX_R = support.KERNEL_MAX_ROUTERS
 _MAX_T = support.KERNEL_MAX_TARGETS
 _MAX_L = support.KERNEL_MAX_LIMITERS
+_MAX_S = support.KERNEL_MAX_SOURCES
+_MAX_P = support.KERNEL_MAX_PARTITIONS
 _loaded: dict = {}
 
 # Struct fields holding state-leaf pointers, in EventStepArgs order,
 # paired with the leaves they point at: the leaves of every model, then
 # the chaos leaves, then (in the HsTel sub-struct) the telemetry leaves,
-# then (in the HsRes sub-struct at the end) the resilience leaves.
+# then (in the HsRes sub-struct) the resilience leaves, then (in the HsCon
+# sub-struct) the consensus leaves.
 _BASE_FIELDS = (
     "t", "src_next", "events", "slot_done", "slot_created",
     "q_created", "q_enq", "q_head", "q_len", "started", "completed",
@@ -97,7 +111,11 @@ _RES_FIELDS = (
     "tel_breaker_dropped", "tel_brk_tripped", "tel_brk_open_int",
     "tel_shed_dropped", "tel_budget_dropped",
 )
-assert len(_BASE_FIELDS) + len(_CHAOS_FIELDS) + len(_TEL_FIELDS) + len(_RES_FIELDS) == len(
+_CON_FIELDS = (
+    "prt_start", "prt_end", "net_partitioned", "qrm_dropped",
+    "tel_net_partitioned", "tel_qrm_dropped",
+)
+assert len(_BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS + _RES_FIELDS + _CON_FIELDS) == len(
     support.KERNEL_LEAVES
 )
 # (sub-struct or None, field, leaf)
@@ -105,8 +123,9 @@ _LEAF_FIELDS = tuple(
     zip(
         (None,) * (len(_BASE_FIELDS) + len(_CHAOS_FIELDS))
         + ("tel",) * len(_TEL_FIELDS)
-        + ("res",) * len(_RES_FIELDS),
-        _BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS + _RES_FIELDS,
+        + ("res",) * len(_RES_FIELDS)
+        + ("con",) * len(_CON_FIELDS),
+        _BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS + _RES_FIELDS + _CON_FIELDS,
         support.KERNEL_LEAVES,
     )
 )
@@ -130,6 +149,39 @@ class _Loss(ctypes.Structure):
     """Mirror of ``HsLoss``: an edge's packet loss."""
 
     _fields_ = [(name, ctypes.c_float) for name in ("p", "start", "end")]
+
+
+class _Src(ctypes.Structure):
+    """Mirror of ``HsSrc``: one source's downstream edge, its loss, its
+    arrivals and its profile row."""
+
+    _fields_ = [
+        ("ref", _Ref),
+        ("loss", _Loss),
+        ("poisson", ctypes.c_int),
+        ("stop_after", ctypes.c_float),
+        ("prof_row", ctypes.c_int),
+        ("prof_end_rate", ctypes.c_float),
+    ]
+
+
+class _Con(ctypes.Structure):
+    """Mirror of ``HsCon``: the consensus leaves and the groups'
+    constants."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in _CON_FIELDS]
+        + [(name, ctypes.c_int) for name in ("on", "nP", "Wp")]
+        + [
+            ("prt_member", ctypes.c_int * _MAX_P),
+            ("prt_drop", ctypes.c_int * _MAX_P),
+            ("prt_delay", ctypes.c_float * _MAX_P),
+        ]
+        + [
+            (name, ctypes.c_int)
+            for name in ("touched", "quorum", "qrm_member", "qrm_n", "qrm_write", "qrm_retry")
+        ]
+    )
 
 
 class _Tel(ctypes.Structure):
@@ -175,16 +227,14 @@ class _Args(ctypes.Structure):
         ]
         + [(name, ctypes.c_int) for name in ("R", "nV", "C", "K", "macro", "n_draws")]
         + [("block", ctypes.c_uint), ("n_blocks", ctypes.c_int)]
+        + [(name, ctypes.c_int) for name in ("nS", "nK")]
         + [
             (name, ctypes.c_int)
-            for name in (
-                "svc_fused", "degrade_lat", "hedge_any",
-                "src_poisson", "u_gap", "u_svc1", "u_svc2",
-            )
+            for name in ("svc_fused", "degrade_lat", "hedge_any", "u_gap", "u_svc1", "u_svc2")
         ]
-        + [(name, ctypes.c_float) for name in ("stop_after", "horizon", "warmup")]
+        + [(name, ctypes.c_float) for name in ("horizon", "warmup")]
         + [(name, ctypes.c_int * _MAX_NV) for name in ("svc_kind", "conc", "qcap")]
-        + [("src_ref", _Ref), ("srv_ref", _Ref * _MAX_NV)]
+        + [("src", _Src * _MAX_S), ("srv_ref", _Ref * _MAX_NV)]
         + [
             (name, ctypes.c_int)
             for name in ("graph", "nR", "nL", "TR", "u_lat", "n_route_slots", "max_walk")
@@ -201,7 +251,6 @@ class _Args(ctypes.Structure):
             ("lim_ref", _Ref * _MAX_L),
         ]
         + [(name, ctypes.c_int) for name in ("ext", "has_profile", "prof_n")]
-        + [("prof_end_rate", ctypes.c_float)]
         + [(name, ctypes.c_void_p) for name in ("prof_times", "prof_cum")]
         + [("erlang_k", ctypes.c_int * _MAX_NV)]
         + [
@@ -225,13 +274,13 @@ class _Args(ctypes.Structure):
             )
         ]
         + [
-            ("src_loss", _Loss),
             ("srv_loss", _Loss * _MAX_NV),
             ("lim_loss", _Loss * _MAX_L),
             ("rt_loss", (_Loss * _MAX_T) * _MAX_R),
         ]
         + [("tel", _Tel)]
         + [("res", _Res)]
+        + [("con", _Con)]
         + [("stage", _Stage)]
     )
 
@@ -252,13 +301,16 @@ def load_library() -> dict:
             lib.hs_event_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
             lib.hs_event_step.restype = ctypes.c_int
             for probe in (
-                "hs_event_step_max_servers", "hs_event_step_max_profile_grid",
-                "hs_event_step_args_size", "hs_event_step_threads",
+                "hs_event_step_max_servers", "hs_event_step_max_sources",
+                "hs_event_step_max_profile_grid", "hs_event_step_args_size",
+                "hs_event_step_threads",
             ):
                 getattr(lib, probe).argtypes = []
                 getattr(lib, probe).restype = ctypes.c_int
             if lib.hs_event_step_max_servers() != _MAX_NV:
                 raise RuntimeError(f"{stem} library and wrapper disagree on the server bound")
+            if lib.hs_event_step_max_sources() != _MAX_S:
+                raise RuntimeError(f"{stem} library and wrapper disagree on the source bound")
             if lib.hs_event_step_max_profile_grid() != support.KERNEL_MAX_PROFILE_GRID:
                 raise RuntimeError(f"{stem} library and wrapper disagree on the profile grid bound")
             if lib.hs_event_step_args_size() != ctypes.sizeof(_Args):
@@ -312,7 +364,8 @@ def _chaos_args(compiled, args: _Args) -> None:
         ):
             getattr(args, name)[v] = float(table[v])
         args.srv_loss[v] = _loss(spec.latency)
-    args.src_loss = _loss(model.sources[0].latency)
+    for i, source in enumerate(model.sources):
+        args.src[i].loss = _loss(source.latency)
     for l, limiter in enumerate(model.limiters):
         args.lim_loss[l] = _loss(limiter.latency)
     for r, router in enumerate(model.routers):
@@ -326,23 +379,30 @@ def _static_args(compiled) -> _Args:
     model = compiled.model
     args = _Args()
     args.nV, args.C, args.K, args.n_draws = compiled.nV, compiled.C, compiled.K, compiled.n_draws
+    args.nS, args.nK = compiled.nS, compiled.nK
     # Where the JAX step's t + x * y is one multiply-add (engine._fused).
     args.svc_fused = int(len(compiled.families_present) == 1)
     args.degrade_lat = int(compiled.has_faults and compiled.faults.has_degrade_lat)
     args.hedge_any = int(compiled.has_hedge)
-    args.src_poisson = int(compiled.arrival_is_poisson[0])
     args.u_gap, args.u_svc1, args.u_svc2 = (
         _slot(compiled.U_GAP), _slot(compiled.U_SVC1), _slot(compiled.U_SVC2)
     )
-    args.stop_after = float(compiled.stop_after[0])
     args.horizon = compiled.horizon
     args.warmup = compiled.warmup
     for v in range(compiled.nV):
         args.svc_kind[v] = int(compiled.service_kind[v])
         args.conc[v] = int(compiled.srv_concurrency[v])
         args.qcap[v] = int(compiled.queue_cap[v])
-    source = model.sources[0]
-    args.src_ref = _ref(source.downstream, source.latency)
+    # Each source's edge and arrivals; a profiled one's row of the tables
+    # a thread block stages, in source order.
+    rows = np.cumsum(compiled.has_profile) - 1
+    for i, source in enumerate(model.sources):
+        src = args.src[i]
+        src.ref = _ref(source.downstream, source.latency)
+        src.poisson = int(compiled.arrival_is_poisson[i])
+        src.stop_after = float(compiled.stop_after[i])
+        src.prof_row = int(rows[i]) if compiled.has_profile[i] else -1
+        src.prof_end_rate = float(compiled.profile_end_rate[i])
     for v, spec in enumerate(model.servers):
         args.srv_ref[v] = _ref(spec.downstream, spec.latency)
     # The line instantiation follows free edges to a server or the sink;
@@ -376,13 +436,12 @@ def _static_args(compiled) -> _Args:
         args.lim_rate[l] = float(compiled.lim_rate[l])
         args.lim_cap[l] = float(compiled.lim_cap[l])
         args.lim_ref[l] = _ref(limiter.downstream, limiter.latency)
-    # The extended instantiation: the family constants per server, and
-    # the profile's size and final rate (its table pointers are set per
-    # device in launch_args).
-    args.has_profile = int(compiled.has_profile[0])
+    # The extended instantiation: the family constants per server, and the
+    # profiled sources' count and grid size (the tables' pointers are set
+    # per device in launch_args).
+    args.has_profile = int(compiled.has_profile.sum())
     args.ext = int(bool(args.has_profile) or max(compiled.families_present) > 1)
     args.prof_n = compiled.profile_times.shape[1] if args.has_profile else 0
-    args.prof_end_rate = float(compiled.profile_end_rate[0])
     for v in range(compiled.nV):
         args.erlang_k[v] = int(compiled.srv_erlang_k[v])
         args.hyp_p1[v] = float(compiled.srv_hyp_p1[v])
@@ -391,9 +450,10 @@ def _static_args(compiled) -> _Args:
         args.ln_sigma[v] = float(compiled.srv_ln_sigma[v])
         args.par_alpha[v] = float(compiled.srv_par_alpha[v])
         args.par_xmf[v] = float(compiled.srv_par_xmf[v])
-    if compiled.has_chaos:
+    if compiled.has_chaos or _several(compiled):
         # The chaos instantiation is the extended graph code plus the
-        # chaos branches, whatever the model's shape.
+        # chaos branches, whatever the model's shape; so is the one for
+        # several sources or sinks, which runs any model with them.
         args.graph = args.ext = 1
         _chaos_args(compiled, args)
     if compiled.has_telemetry:
@@ -404,7 +464,40 @@ def _static_args(compiled) -> _Args:
         args.tel.inv_window_s = float(compiled.tel_inv_window)
     if compiled.has_resilience:
         _res_args(compiled, args.res)
+    if compiled.has_partitions or compiled.has_quorum:
+        _con_args(compiled, args.con)
     return args
+
+
+def _several(compiled) -> bool:
+    """Whether the model has several sources or sinks (the MULTI
+    instantiation's models)."""
+    return compiled.nS > 1 or compiled.nK > 1
+
+
+def _mask(flags) -> int:
+    """A bit mask over the servers: bit v set where ``flags[v]``."""
+    return sum(1 << v for v, on in enumerate(flags) if on)
+
+
+def _con_args(compiled, con: _Con) -> None:
+    """The consensus instantiation's switches and the groups' constants
+    (partition groups and a quorum ride the chaos code: has_chaos holds
+    for every such model)."""
+    con.on = 1
+    table = compiled.partitions
+    con.nP, con.Wp = table.nP, table.Wp
+    for p in range(table.nP):
+        con.prt_member[p] = _mask(table.member[p])
+        con.prt_drop[p] = int(table.drop_mode[p])
+        con.prt_delay[p] = float(table.delay_s[p])
+    con.touched = _mask(table.touched) if compiled.has_partitions else 0
+    if compiled.has_quorum:
+        con.quorum = 1
+        con.qrm_member = _mask(compiled.qrm_member)
+        con.qrm_n = len(compiled.quorum.group)
+        con.qrm_write = compiled.qrm_write
+        con.qrm_retry = _mask(compiled.qrm_can_retry)
 
 
 def _res_args(compiled, res: _Res) -> None:
@@ -492,8 +585,6 @@ def launch_args(
     checked = layout[1]
     if checked is None or not checked.holds(key, bound):
         support.check_kernel_bounds(compiled, macro)
-        if compiled.nS != 1 or compiled.nK != 1:
-            raise ValueError("event-step kernel: one source and one sink only")
         tensors = {**state, **params}
         expected = _expected_shapes(compiled, R)
         for name, shape in expected.items():
@@ -509,7 +600,7 @@ def launch_args(
         if args.has_profile:
             # Kept alive by the compiled model, one copy per device.
             times, cum = compiled.profile_tensors(device)
-            args.prof_times, args.prof_cum = times[0].data_ptr(), cum[0].data_ptr()
+            args.prof_times, args.prof_cum = times.data_ptr(), cum.data_ptr()
         args.R, args.macro = R, macro
         args.stage = _stage(expected, args, R, device)
         checked = layout[1] = _Checked(key, bound, args)
@@ -544,7 +635,7 @@ def _stage(expected: dict, args: _Args, R: int, device) -> _Stage:
         if device.type == "cuda"
         else support.CARD_SMS
     )
-    table_bytes = 2 * args.prof_n * 4 if args.has_profile else 0
+    table_bytes = 2 * args.prof_n * 4 * args.has_profile
     rows = {
         leaf: int(np.prod(expected[leaf][1:]))
         for leaf in support.STAGE_LEAVES
@@ -596,11 +687,11 @@ def _expected_shapes(compiled, R: int) -> dict:
         "tel_sink_count": (R, nW, nK), "tel_sink_sum": (R, nW, nK),
         "tel_sink_hist": (R, nW, nK, 80),
         "tel_lim_admitted": (R, nW, nL), "tel_lim_dropped": (R, nW, nL),
-        "tel_net_lost": (R, nW),
+        "tel_net_lost": (R, nW), "tel_net_partitioned": (R, nW),
     }
     for key in compiled.tel_keys:
         shapes[key] = tel_shapes.get(key, (R, nW, nV))
-    if not compiled.has_chaos:
+    if not (compiled.has_chaos or _several(compiled)):
         return shapes
     shapes.update({"srv_timed_out": per_server, "srv_retried": per_server,
                    "srv_outage_dropped": per_server})
@@ -630,6 +721,11 @@ def _expected_shapes(compiled, R: int) -> dict:
     if compiled.has_budget:
         shapes.update({"bud_tokens": per_server, "bud_last": per_server,
                        "srv_budget_dropped": per_server})
+    if compiled.has_partitions:
+        windows = (R, compiled.partitions.nP, compiled.partitions.Wp)
+        shapes.update({"prt_start": windows, "prt_end": windows, "net_partitioned": (R,)})
+    if compiled.has_quorum:
+        shapes["qrm_dropped"] = per_server
     return shapes
 
 
@@ -646,6 +742,7 @@ _INT_LEAVES = frozenset({
     "srv_shed_dropped", "srv_budget_dropped",
     "tel_srv_breaker_dropped", "tel_brk_tripped", "tel_srv_shed_dropped",
     "tel_srv_budget_dropped",
+    "net_partitioned", "qrm_dropped", "tel_net_partitioned", "tel_qrm_dropped",
 })
 
 
@@ -737,9 +834,15 @@ def block_step(compiled, state: dict, keys: torch.Tensor, block: int, params: di
 
 
 def library_of(args: _Args) -> str:
-    """The library whose instantiations take these arguments: the
-    resilience one for a model with a defense, else the telemetry one
-    for a model with a spec, else the kernel without either."""
+    """The library whose instantiations take these arguments: the one for
+    several sources or sinks for such a model, else the consensus one for
+    a model with partitions or a quorum, else the resilience one for a
+    model with a defense, else the telemetry one for a model with a spec,
+    else the kernel without any of them."""
+    if args.nS > 1 or args.nK > 1:
+        return "event_step_multi"
+    if args.con.on:
+        return "event_step_consensus"
     if args.res.on:
         return "event_step_resilience"
     return "event_step_telemetry" if args.tel.nW else "event_step"

@@ -2,12 +2,13 @@
 (counterpart of ``happysim_tpu/tpu/kernels/support.py`` and of the sizing
 helpers in ``happysim_tpu/tpu/kernels/event_step.py``).
 
-:func:`kernel_plan` is the JAX package's topology walk: it approves any
-single-source, single-sink graph of servers, routers and limiters that
-reaches the sink and touches every node, and names its shape ("mm1",
-"chain", "router" or "graph") exactly as JAX's ``kernel_plan`` does. A
-model it declines raises :class:`NotImplementedError` with JAX's reason:
-the port has no second engine path to run it on.
+:func:`kernel_plan` is the JAX package's topology walk. For every model
+JAX's ``kernel_plan`` approves (one source, one sink, every node on a
+walked source->sink graph) it returns JAX's plan dict, shape ("mm1",
+"chain", "router" or "graph") and all. It declines nothing: a model
+JAX's kernel declines and runs on its lax step instead (several sources
+or sinks, nodes no source reaches, no path to a sink) runs on the same
+kernel here, and the plan records JAX's reason under ``"declined"``.
 
 The JAX package sizes a replica tile against a VMEM budget. On the card
 one thread runs one replica: the kernel keeps each server's small
@@ -49,17 +50,32 @@ SMEM_RESERVED_PER_BLOCK = 1024
 #: takes them (csrc/event_step.cuh's HS_ST_*): the transit rows a park
 #: and an arrival scan, the slot rows a start and a completion scan, the
 #: fault windows an arrival at a faulted server scans, the breaker ring
-#: a trip or a close resets.
+#: a trip or a close resets, the partition windows a delivery into a
+#: group's member and an arrival at a quorum member scan.
 STAGE_LEAVES = (
     "tr_time", "tr_created", "tr_attempt",
     "srv_slot_done", "srv_slot_created", "srv_slot_attempt",
     "flt_start", "flt_end", "flt_sh_start", "flt_sh_end",
     "brk_fail_t",
+    "prt_start", "prt_end",
 )
 
 #: Servers per model: the kernel's per-server register arrays are
 #: instantiated for 1, 2, 4 and 8 servers (kernels/csrc/event_step.cu).
 KERNEL_MAX_SERVERS = 8
+#: Sources per model: each source's constants are a row of the launch
+#: arguments' HsSrc table (csrc/event_step.cuh's HS_MAX_SOURCES).
+KERNEL_MAX_SOURCES = 8
+#: Sinks per model: sink 0 adds to a lane's registers and the others to
+#: their (R, nK) leaves and (R, nK, 80) histogram rows in device memory,
+#: 1.3 GB of histogram at 65,536 replicas at this bound.
+KERNEL_MAX_SINKS = 64
+#: Partition groups: each group's members, mode and delay are a row of
+#: the HsCon tables (HS_MAX_PARTITIONS); the groups' and the quorum's
+#: members are bit masks over the servers.
+KERNEL_MAX_PARTITIONS = 8
+#: Partition windows per group (Wp): a loop at each consult.
+KERNEL_MAX_PARTITION_WINDOWS = 4096
 #: Slots per server (a loop over device memory at each event).
 KERNEL_MAX_CONCURRENCY = 1024
 #: Queue-ring length.
@@ -110,6 +126,15 @@ TEL_LEAVES = (
     "tel_srv_hedged", "tel_srv_hedge_wins", "tel_tr_dropped",
     "tel_lim_admitted", "tel_lim_dropped", "tel_net_lost",
 )
+#: The consensus leaves, in the order of the kernel's HsCon arguments: the
+#: (nP, Wp) partition windows, the partition drops and the quorum's
+#: rejections, then their window buffers (a model with telemetry only).
+#: The sweeps' leaves (the quorum's dark time, the elections, their
+#: window integrals) are made at init and not touched by the kernel.
+CON_LEAVES = (
+    "prt_start", "prt_end", "net_partitioned", "qrm_dropped",
+    "tel_net_partitioned", "tel_qrm_dropped",
+)
 #: The resilience leaves, in the order of the kernel's HsRes arguments:
 #: the breaker's (nV,) registers and (nV, F) failure ring, the shed's
 #: counter, the budget's bucket, then their (nW, nV) window buffers (a
@@ -131,7 +156,8 @@ RES_LEAVES = (
 #: model carries (timed out, retried, brownout drops); the telemetry
 #: leaves (touched by the telemetry instantiations only) only with a
 #: spec; the resilience leaves (the resilience instantiations only) only
-#: where their spec is.
+#: where their spec is; the consensus leaves (the consensus
+#: instantiations only) only where the model has the feature.
 KERNEL_LEAVES = (
     "t", "src_next", "events",
     "srv_slot_done", "srv_slot_created", "srv_q_created", "srv_q_enq",
@@ -147,6 +173,7 @@ KERNEL_LEAVES = (
     "net_lost",
     *TEL_LEAVES,
     *RES_LEAVES,
+    *CON_LEAVES,
 )
 #: Leaves whose entries a block touches only at events (ring pushes and
 #: pulls, transit parks and arrivals, histogram bumps, router and limiter
@@ -156,8 +183,10 @@ KERNEL_LEAVES = (
 #: a counter is bumped, and an integral added to, only in the windows
 #: the event's time or interval falls in; and every resilience leaf: a
 #: breaker, shed or budget register is read and written only at an
-#: arrival at or a completion of its server): left out of the bytes
-#: bound, which keeps it a lower bound.
+#: arrival at or a completion of its server; and every consensus leaf:
+#: the partition windows are read at a delivery into a group's member or
+#: an arrival at a quorum member, a counter bumped where it counts): left
+#: out of the bytes bound, which keeps it a lower bound.
 SPARSE_LEAVES = (
     "srv_q_created", "srv_q_enq", "sink_hist",
     "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
@@ -169,6 +198,7 @@ SPARSE_LEAVES = (
     "net_lost",
     *TEL_LEAVES,
     *RES_LEAVES,
+    *CON_LEAVES,
 )
 
 #: Router policies the kernel runs: all four.
@@ -186,10 +216,19 @@ def kernel_plan(model: EnsembleModel) -> dict:
     ``{"shape": "router", "servers": [...], "policy": ...}`` for the pure
     load-balancer fan-out (servers in target order), and
     ``{"shape": "graph", "servers", "routers", "policies"}`` (BFS order)
-    for every other graph the walk approves, each with ``"chaos"``: the
-    model's :meth:`~happysim_tpu_torch.model.EnsembleModel.chaos_features`
-    (JAX's plan dict). Raises NotImplementedError with every decline
-    reason, first reason first."""
+    for every other graph, each with ``"chaos"``: the model's
+    :meth:`~happysim_tpu_torch.model.EnsembleModel.chaos_features` (JAX's
+    plan dict, where JAX's kernel approves the model).
+
+    A model JAX's kernel declines on its topology gets a plan too, with
+    JAX's reasons joined under ``"declined"`` and the nodes no source
+    reaches under ``"unreached"`` (they hold their state and report
+    zeros, as on JAX's lax step). Its servers and routers are those the
+    walk from every source reaches, in BFS order. A model with several
+    sources or sinks has the port's own shape, ``"multi"``, with
+    ``"sources"`` and ``"sinks"`` counts (JAX's ``kernel_shape`` is ""
+    for it: its kernel declined it); a single-source, single-sink model
+    keeps the shape the walk classifies."""
     reasons: list[str] = []
     if len(model.sources) != 1:
         reasons.append(f"{len(model.sources)} sources (kernel supports 1)")
@@ -198,11 +237,10 @@ def kernel_plan(model: EnsembleModel) -> dict:
     plan: Optional[dict] = None
     if len(model.sources) == 1:
         plan = _graph_plan(model, reasons)
-    if reasons or plan is None:
-        raise NotImplementedError(
-            "; ".join(dict.fromkeys(reasons or ["unsupported topology"]))
-            + " — the port runs one walked source->sink graph (ROADMAP A.5c)"
-        )
+    if plan is None:
+        plan = _reached_plan(model)
+    if reasons:
+        plan["declined"] = "; ".join(dict.fromkeys(reasons))
     plan["chaos"] = model.chaos_features()
     return plan
 
@@ -223,23 +261,17 @@ def _follow_limiters(model: EnsembleModel, ref, visited: list[int], reasons: lis
     return ref
 
 
-def _limiters_outside(model: EnsembleModel, visited: list[int], reasons: list[str]) -> None:
-    for index in range(len(model.limiters)):
-        if index not in visited:
-            reasons.append(f"limiter[{index}] is outside the source->sink path")
-
-
-def _graph_plan(model: EnsembleModel, reasons: list[str]) -> Optional[dict]:
-    """BFS from the single source across every node a job can reach;
-    appends a reason for every structural decline and returns the plan
-    only when it added none."""
-    before = len(reasons)
+def _walk(model: EnsembleModel, starts: list, reasons: list[str]) -> tuple:
+    """BFS from ``starts`` across every node a job can reach: returns the
+    servers, routers and limiters it visited, in BFS order, and whether
+    it reached a sink; appends a reason for a router policy outside the
+    kernel's set."""
     limiters: list[int] = []
     seen_servers: list[int] = []
     seen_routers: list[int] = []
     reached_sink = False
     visited: set[tuple[str, int]] = set()
-    queue = [model.sources[0].downstream]
+    queue = list(starts)
     while queue:
         ref = _follow_limiters(model, queue.pop(0), limiters, reasons)
         if ref is None:
@@ -261,6 +293,16 @@ def _graph_plan(model: EnsembleModel, reasons: list[str]) -> Optional[dict]:
                     "outside the kernel set " + "/".join(KERNEL_ROUTER_POLICIES)
                 )
             queue.extend(router.targets)
+    return seen_servers, seen_routers, limiters, reached_sink
+
+
+def _graph_plan(model: EnsembleModel, reasons: list[str]) -> Optional[dict]:
+    """JAX's walk from the single source; appends a reason for every
+    structural decline and returns the plan only when it added none."""
+    before = len(reasons)
+    seen_servers, seen_routers, limiters, reached_sink = _walk(
+        model, [model.sources[0].downstream], reasons
+    )
     if len(reasons) == before and not reached_sink:
         reasons.append("no path from the source reaches the sink")
     # Membership checks only when the walk itself succeeded (a broken
@@ -275,22 +317,53 @@ def _graph_plan(model: EnsembleModel, reasons: list[str]) -> Optional[dict]:
         for i in range(len(model.routers)):
             if i not in seen_routers:
                 reasons.append(f"router[{i}] is outside the source->sink graph")
-        _limiters_outside(model, limiters, reasons)
+        for i in range(len(model.limiters)):
+            if i not in limiters:
+                reasons.append(f"limiter[{i}] is outside the source->sink path")
     if len(reasons) > before:
         return None
-    if not seen_routers:
+    return _shape_plan(model, seen_servers, seen_routers)
+
+
+def _shape_plan(model: EnsembleModel, servers: list[int], routers: list[int]) -> dict:
+    """The walk's classification of a single-source, single-sink graph."""
+    if not routers:
         # BFS order is chain order on a router-free line.
-        shape = "mm1" if len(seen_servers) == 1 else "chain"
-        return {"shape": shape, "servers": seen_servers}
+        return {"shape": "mm1" if len(servers) == 1 else "chain", "servers": servers}
     pure = _pure_fanout_plan(model)
     if pure is not None:
         return pure
     return {
         "shape": "graph",
-        "servers": seen_servers,
-        "routers": seen_routers,
-        "policies": tuple(model.routers[i].policy for i in seen_routers),
+        "servers": servers,
+        "routers": routers,
+        "policies": tuple(model.routers[i].policy for i in routers),
     }
+
+
+def _reached_plan(model: EnsembleModel) -> dict:
+    """The plan of a model JAX's kernel declines on its topology: the walk
+    from every source, in source order, and the nodes it leaves out."""
+    scratch: list[str] = []
+    servers, routers, limiters, _sink = _walk(
+        model, [s.downstream for s in model.sources], scratch
+    )
+    if len(model.sources) == 1 and len(model.sinks) == 1:
+        plan = _shape_plan(model, servers, routers)
+    else:
+        plan = {
+            "shape": "multi",
+            "sources": len(model.sources),
+            "sinks": len(model.sinks),
+            "servers": servers,
+            "routers": routers,
+        }
+    plan["unreached"] = {
+        "servers": [i for i in range(len(model.servers)) if i not in servers],
+        "routers": [i for i in range(len(model.routers)) if i not in routers],
+        "limiters": [i for i in range(len(model.limiters)) if i not in limiters],
+    }
+    return plan
 
 
 def _pure_fanout_plan(model: EnsembleModel) -> Optional[dict]:
@@ -323,6 +396,8 @@ def check_kernel_bounds(compiled, macro: int) -> None:
     """Raise ``ValueError`` naming the bound a launch would break."""
     model = compiled.model
     bounds = (
+        ("sources", compiled.nS, KERNEL_MAX_SOURCES),
+        ("sinks", compiled.nK, KERNEL_MAX_SINKS),
         ("servers", compiled.nV, KERNEL_MAX_SERVERS),
         ("concurrency", compiled.C, KERNEL_MAX_CONCURRENCY),
         ("queue_capacity", compiled.K, KERNEL_MAX_QUEUE),
@@ -350,12 +425,31 @@ def check_kernel_bounds(compiled, macro: int) -> None:
         ),
         ("telemetry windows nW", compiled.nW, KERNEL_MAX_WINDOWS),
         ("breaker ring brk_fail_t width F", compiled.brk_F, KERNEL_MAX_BREAKER_RING),
+        (
+            "partition groups",
+            compiled.partitions.nP if compiled.has_partitions else 0,
+            KERNEL_MAX_PARTITIONS,
+        ),
+        (
+            "partition windows Wp",
+            compiled.partitions.Wp if compiled.has_partitions else 0,
+            KERNEL_MAX_PARTITION_WINDOWS,
+        ),
+        ("profile tables' bytes", profile_table_bytes(compiled), SMEM_PER_BLOCK),
     )
     for name, value, bound in bounds:
         if value > bound:
             raise ValueError(
                 f"event-step kernel: {name}={value} exceeds its bound {bound}"
             )
+
+
+def profile_table_bytes(compiled) -> int:
+    """Bytes of a thread block's profile tables: the (G,) time and
+    cumulative grids of every profiled source, staged in its shared
+    memory ahead of the row tile."""
+    n_profiled = int(np.asarray(compiled.has_profile).sum())
+    return 2 * n_profiled * int(compiled.profile_times.shape[1]) * 4
 
 
 def stage_budget(
@@ -446,6 +540,20 @@ THREEFRY_OPS = 79
 #: Integer operations of one drawn uniform: its threefry, then b0 ^ b1, the
 #: shift, the or of the exponent and the index add.
 UNIFORM_INT_OPS = THREEFRY_OPS + 4
+
+
+#: The integer operations of one threefry2x32 that only the integer ALU
+#: pipe issues: its 20 rotates and 20 xors and the key schedule's two xors
+#: (its adds may also issue as IMAD on the FMA pipe); one drawn uniform
+#: adds the xor, the shift and the or of its mantissa.
+THREEFRY_ALU_OPS = 42
+UNIFORM_ALU_OPS = THREEFRY_ALU_OPS + 3
+
+
+def draw_alu_ops(folds: int, drawn: int) -> int:
+    """The operations of :func:`draw_int_ops` that only the integer ALU
+    pipe issues."""
+    return folds * THREEFRY_ALU_OPS + (drawn - folds) * UNIFORM_ALU_OPS
 
 
 def draw_int_ops(folds: int, drawn: int) -> int:

@@ -13,12 +13,13 @@ Build a model exactly as with the JAX package::
         m.connect(lb, srv, latency_s=0.005)
         m.connect(srv, snk)
 
-The port runs any single-source, single-sink graph of servers, routers
+The port runs any graph of sources, sinks, servers, routers
 (``random``, ``round_robin``, ``weighted``, ``least_outstanding``) and
-token-bucket limiters: Poisson or constant sources (with
-``stop_after_s``), optionally shaped by a ramp or spike
-:class:`RateProfile`, wired to a server, a router, a limiter or straight
-to the sink; servers of any concurrency and queue capacity with any of
+token-bucket limiters that the JAX package's ``validate`` accepts, nodes
+no source reaches and graphs with no path to a sink included: Poisson or
+constant sources (with ``stop_after_s``), optionally shaped by a ramp or
+spike :class:`RateProfile`, each wired to a server, a router, a limiter
+or straight to a sink; servers of any concurrency and queue capacity with any of
 the six service families (constant, exponential, erlang-2/3, balanced
 hyperexponential, lognormal, mean-matched pareto), mixed freely;
 zero-latency or latency-carrying edges (constant or exponential, parked
@@ -32,16 +33,20 @@ per-crossing packet loss on edges (``connect(..., loss_p=...)``), and
 the defenses against them: per-server circuit breakers
 (:meth:`EnsembleModel.circuit_breaker`), admission load shedding
 (:meth:`EnsembleModel.load_shed`) and retry budgets
-(:meth:`EnsembleModel.retry_budget`). Any of them may carry windowed
+(:meth:`EnsembleModel.retry_budget`), and the consensus tier: network
+partition groups (:meth:`EnsembleModel.network_partition`), a write
+quorum (:meth:`EnsembleModel.quorum`) and leader election
+(:meth:`EnsembleModel.leader_election`). Any of them may carry windowed
 telemetry (``model.telemetry(window_s=...)``,
-:mod:`~happysim_tpu_torch.telemetry`). Every
-other feature of the JAX model API raises :class:`NotImplementedError`
-naming itself and the ROADMAP item that ports it; the port has no second
-engine to fall back to.
+:mod:`~happysim_tpu_torch.telemetry`). Trace-driven arrivals and remote
+egress nodes raise :class:`NotImplementedError` naming themselves and the
+ROADMAP item that ports them; the port has no second engine to fall back
+to.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -65,9 +70,6 @@ LATENCY_KINDS = ("constant", "exponential")
 # Builder features of the JAX package outside this port, each with the
 # ROADMAP item that ports it. Reaching one raises NotImplementedError.
 _UNPORTED = {
-    "network_partition": "network partitions (ROADMAP A.11)",
-    "quorum": "quorum groups (ROADMAP A.11)",
-    "leader_election": "leader election (ROADMAP A.11)",
     "trace_arrivals": "trace-driven arrivals (ROADMAP A.12)",
     "remote": "remote egress nodes (ROADMAP A.14)",
 }
@@ -368,6 +370,170 @@ class RetryBudgetSpec:
             )
 
 
+PARTITION_MODES = ("drop", "delay")
+
+
+@dataclass(frozen=True)
+class NetworkPartitionSpec:
+    """A network cut isolating a GROUP of servers while a window is open:
+    every delivery INTO a member is dropped (``mode="drop"``, counted in
+    ``net_partitioned``) or parked in transit for ``delay_s`` more
+    (``mode="delay"``). Windows are drawn as :class:`FaultSpec`'s are
+    (gaps ~ Exp(``rate``), Exp or constant durations), each candidate
+    kept with probability ``trigger_p`` (the whole group cuts together),
+    or pinned by ``windows`` in every replica. ``group`` holds server
+    indices; a server in several groups is cut under the OR, and drop
+    wins over delay."""
+
+    group: tuple[int, ...]
+    rate: float = 0.0
+    mean_duration_s: float = 0.0
+    duration: str = "exponential"  # or "constant"
+    trigger_p: float = 1.0
+    max_windows: int = 4
+    windows: Optional[tuple] = None  # ((start, end), ...) deterministic
+    mode: str = "drop"  # or "delay"
+    delay_s: float = 0.0
+
+    def validate(self, label: str, n_servers: int) -> None:
+        if not self.group:
+            raise ValueError(f"{label}: partition group is empty")
+        if len(set(self.group)) != len(self.group):
+            raise ValueError(f"{label}: partition group repeats a server")
+        for v in self.group:
+            if not 0 <= v < n_servers:
+                raise ValueError(f"{label}: group member {v} is not a server index")
+        if self.mode not in PARTITION_MODES:
+            raise ValueError(f"{label}: partition mode {self.mode!r} not in {PARTITION_MODES}")
+        if self.mode == "delay" and self.delay_s <= 0.0:
+            raise ValueError(f"{label}: mode='delay' requires delay_s > 0")
+        if self.mode == "drop" and self.delay_s != 0.0:
+            raise ValueError(
+                f"{label}: delay_s requires mode='delay' (a dropped "
+                "packet cannot also arrive late)"
+            )
+        if self.duration not in ("exponential", "constant"):
+            raise ValueError(
+                f"{label}: partition duration {self.duration!r} not in "
+                "('exponential', 'constant')"
+            )
+        if not 0.0 < self.trigger_p <= 1.0:
+            raise ValueError(f"{label}: trigger_p must be in (0, 1]")
+        if self.max_windows < 1:
+            raise ValueError(f"{label}: max_windows must be >= 1")
+        if self.windows is not None:
+            for start, end in self.windows:
+                if start < 0.0 or end <= start:
+                    raise ValueError(
+                        f"{label}: partition window [{start}, {end}) is empty or negative"
+                    )
+        elif self.rate <= 0.0:
+            raise ValueError(
+                f"{label}: stochastic partition needs rate > 0 (or explicit windows=...)"
+            )
+        elif self.mean_duration_s <= 0.0:
+            raise ValueError(f"{label}: partition needs mean_duration_s > 0")
+
+
+@dataclass(frozen=True)
+class QuorumSpec:
+    """Quorum replication over a GROUP of servers: an arrival at a member
+    is rejected (``server_quorum_dropped``, a retryable failure) while
+    fewer than ``write`` members are reachable (drop-mode fault windows
+    and partition windows take a member off the network), and that dark
+    time is integrated (``quorum_dark_fraction``). ``write + read > n``
+    is required for read-your-writes overlap."""
+
+    group: tuple[int, ...]
+    write: int
+    read: int
+
+    def validate(self, n_servers: int) -> None:
+        if not self.group:
+            raise ValueError("quorum: group is empty")
+        if len(set(self.group)) != len(self.group):
+            raise ValueError("quorum: group repeats a server")
+        for v in self.group:
+            if not 0 <= v < n_servers:
+                raise ValueError(f"quorum: group member {v} is not a server")
+        n = len(self.group)
+        if not 1 <= self.write <= n:
+            raise ValueError(f"quorum: write must be in [1, {n}], was {self.write}")
+        if not 1 <= self.read <= n:
+            raise ValueError(f"quorum: read must be in [1, {n}], was {self.read}")
+        if self.write + self.read <= n:
+            raise ValueError(
+                f"quorum: write + read must exceed n for overlap "
+                f"({self.write} + {self.read} <= {n})"
+            )
+
+
+ELECTION_STRATEGIES = ("bully", "phi_accrual")
+
+
+def _erfcinv(y: float) -> float:
+    """Inverse complementary error function by bisection (host side)."""
+    lo, hi = 0.0, 40.0
+    for _ in range(200):
+        mid = (lo + hi) / 2.0
+        if math.erfc(mid) > y:
+            lo = mid
+        else:
+            hi = mid
+    return (lo + hi) / 2.0
+
+
+@dataclass(frozen=True)
+class LeaderElectionSpec:
+    """Leader election over a GROUP of servers: the highest-index
+    reachable member leads; when the leader goes dark, the others elect
+    again after the strategy's detection delay (:meth:`detection_delay_s`:
+    ``timeout_s`` of silence for ``"bully"``; for ``"phi_accrual"`` the
+    silence at which phi crosses ``phi_threshold`` over a steady heartbeat
+    stream whose spread is the ``min_std_s`` floor). Reported as
+    ``leader_changes``, ``time_without_leader_fraction`` and a windowed
+    leader-uptime series."""
+
+    group: tuple[int, ...]
+    heartbeat_s: float
+    timeout_s: float
+    strategy: str = "bully"
+    phi_threshold: float = 8.0
+    min_std_s: float = 0.1
+
+    def validate(self, n_servers: int) -> None:
+        if not self.group:
+            raise ValueError("leader_election: group is empty")
+        if len(set(self.group)) != len(self.group):
+            raise ValueError("leader_election: group repeats a server")
+        for v in self.group:
+            if not 0 <= v < n_servers:
+                raise ValueError(f"leader_election: group member {v} is not a server")
+        if self.heartbeat_s <= 0.0:
+            raise ValueError("leader_election: heartbeat_s must be > 0")
+        if self.strategy not in ELECTION_STRATEGIES:
+            raise ValueError(
+                f"leader_election strategy {self.strategy!r} not in {ELECTION_STRATEGIES}"
+            )
+        if self.strategy == "bully" and self.timeout_s < self.heartbeat_s:
+            raise ValueError(
+                "leader_election: timeout_s must be >= heartbeat_s (a "
+                "timeout shorter than one heartbeat interval declares "
+                "every live leader dead)"
+            )
+        if self.phi_threshold <= 0.0:
+            raise ValueError("leader_election: phi_threshold must be > 0")
+        if self.min_std_s <= 0.0:
+            raise ValueError("leader_election: min_std_s must be > 0")
+
+    def detection_delay_s(self) -> float:
+        """Silence (seconds) after which the failure detector fires."""
+        if self.strategy == "bully":
+            return float(self.timeout_s)
+        x = _erfcinv(2.0 * 10.0 ** (-self.phi_threshold))
+        return float(self.heartbeat_s + self.min_std_s * math.sqrt(2.0) * x)
+
+
 # The spec dataclasses keep the JAX package's field order and repr flags:
 # engine.model_fingerprint hashes their repr, and a checkpoint of either
 # package carries that digest.
@@ -439,7 +605,8 @@ class SinkSpec:
 
 
 class EnsembleModel:
-    """Static topology of a single-source, single-sink service graph.
+    """Static topology of a service graph of sources, servers, routers,
+    limiters and sinks.
 
     ``warmup_s`` masks statistics before the cutoff (sink latencies,
     server waits, utilization and queue-depth integrals); server
@@ -481,6 +648,11 @@ class EnsembleModel:
         self.circuit_breaker_spec: Optional[CircuitBreakerSpec] = None
         self.load_shed_spec: Optional[LoadShedSpec] = None
         self.retry_budget_spec: Optional[RetryBudgetSpec] = None
+        # The consensus tier: partition groups, a quorum group and an
+        # election group (none by default).
+        self.network_partitions: list[NetworkPartitionSpec] = []
+        self.quorum_spec: Optional[QuorumSpec] = None
+        self.leader_election_spec: Optional[LeaderElectionSpec] = None
 
     def __getattr__(self, name: str):
         if name in _UNPORTED:
@@ -781,6 +953,78 @@ class EnsembleModel:
         self.retry_budget_spec = spec
         return spec
 
+    def network_partition(
+        self,
+        group: Sequence[NodeRef],
+        rate: float = 0.0,
+        mean_duration_s: float = 0.0,
+        duration: str = "exponential",
+        trigger_p: float = 1.0,
+        max_windows: int = 4,
+        windows: Optional[tuple] = None,
+        mode: str = "drop",
+        delay_s: float = 0.0,
+    ) -> NetworkPartitionSpec:
+        """Declare a partition group over ``group`` servers: while one of
+        its windows is open, deliveries INTO a member are dropped
+        (``mode="drop"``) or parked ``delay_s`` more in transit
+        (``mode="delay"``). Call again for further independent cuts."""
+        for ref in group:
+            if ref.kind != SERVER:
+                raise ValueError("network_partition group members must be servers")
+        spec = NetworkPartitionSpec(
+            group=tuple(ref.index for ref in group),
+            rate=rate,
+            mean_duration_s=mean_duration_s,
+            duration=duration,
+            trigger_p=trigger_p,
+            max_windows=max_windows,
+            windows=windows,
+            mode=mode,
+            delay_s=delay_s,
+        )
+        spec.validate(f"network_partition[{len(self.network_partitions)}]", len(self.servers))
+        self.network_partitions.append(spec)
+        return spec
+
+    def quorum(self, group: Sequence[NodeRef], write: int, read: int) -> QuorumSpec:
+        """Declare quorum replication over ``group`` servers; :meth:`validate`
+        requires a dark source (an outage-mode fault or a partition group)
+        touching a member."""
+        for ref in group:
+            if ref.kind != SERVER:
+                raise ValueError("quorum group members must be servers")
+        spec = QuorumSpec(group=tuple(ref.index for ref in group), write=write, read=read)
+        spec.validate(len(self.servers))
+        self.quorum_spec = spec
+        return spec
+
+    def leader_election(
+        self,
+        group: Sequence[NodeRef],
+        heartbeat_s: float,
+        timeout_s: float,
+        strategy: str = "bully",
+        phi_threshold: float = 8.0,
+        min_std_s: float = 0.1,
+    ) -> LeaderElectionSpec:
+        """Declare leader election over ``group`` servers; :meth:`validate`
+        requires a dark source touching a member."""
+        for ref in group:
+            if ref.kind != SERVER:
+                raise ValueError("leader_election group members must be servers")
+        spec = LeaderElectionSpec(
+            group=tuple(ref.index for ref in group),
+            heartbeat_s=heartbeat_s,
+            timeout_s=timeout_s,
+            strategy=strategy,
+            phi_threshold=phi_threshold,
+            min_std_s=min_std_s,
+        )
+        spec.validate(len(self.servers))
+        self.leader_election_spec = spec
+        return spec
+
     # -- wiring ------------------------------------------------------------
     def connect(
         self,
@@ -850,17 +1094,11 @@ class EnsembleModel:
     # -- validation --------------------------------------------------------
     def validate(self) -> None:
         """Check the model against JAX's validation rules for the model API
-        above. Several sources or sinks raise NotImplementedError; so does
-        a topology the kernel's walk declines, when the model is compiled
-        (``kernels.support.kernel_plan``)."""
+        above (JAX's ``EnsembleModel.validate``)."""
         if not self.sources:
             raise ValueError("Model needs at least one source")
         if not self.sinks:
             raise ValueError("Model needs at least one sink")
-        if len(self.sources) > 1:
-            raise not_ported("models with several sources (ROADMAP A.5c)")
-        if len(self.sinks) > 1:
-            raise not_ported("models with several sinks (ROADMAP A.5c)")
         for i, source in enumerate(self.sources):
             if source.downstream is None:
                 raise ValueError(f"source[{i}] has no downstream")
@@ -875,6 +1113,8 @@ class EnsembleModel:
         if self.telemetry_spec is not None:
             self.telemetry_spec.validate(self.horizon_s)
         self._validate_resilience()
+        self._validate_consensus()
+        quorum_members = set(self.quorum_spec.group) if self.quorum_spec is not None else set()
         for i, server in enumerate(self.servers):
             if server.downstream is None:
                 raise ValueError(f"server[{i}] has no downstream")
@@ -888,9 +1128,11 @@ class EnsembleModel:
                     and server.fault.mode == "outage"
                     and server.retry_backoff_s is not None
                 )
+                and i not in quorum_members
             ):
                 # The server()-time check deferred because a backoff was
-                # given; without a rejection source the retry path is dead.
+                # given; without a rejection source (a fault or quorum
+                # membership) the retry path is dead.
                 raise ValueError(
                     f"server[{i}]: max_retries requires a deadline_s "
                     "(timeout retries) or retry_backoff_s plus a rejection "
@@ -927,7 +1169,7 @@ class EnsembleModel:
                 or (s.fault is not None and s.fault.mode == "outage")
                 or s.outage_start_s is not None
                 for s in self.servers
-            )
+            ) or self.quorum_spec is not None
             if not has_failure_site:
                 raise ValueError(
                     "circuit_breaker: no server declares a failure site "
@@ -950,6 +1192,39 @@ class EnsembleModel:
                     "(max_retries > 0 or hedge_delay_s) — the budget would "
                     "gate nothing"
                 )
+
+    def _validate_consensus(self) -> None:
+        """JAX's consensus clauses: each spec's own checks, and a quorum or
+        an election group needs a member that can go dark."""
+        for i, partition in enumerate(self.network_partitions):
+            partition.validate(f"network_partition[{i}]", len(self.servers))
+        if self.quorum_spec is not None:
+            self.quorum_spec.validate(len(self.servers))
+            if not self._has_dark_source(self.quorum_spec.group):
+                raise ValueError(
+                    "quorum: no group member has a dark source (an "
+                    "outage-mode fault schedule or a network partition "
+                    "touching it) — the quorum could never lose a member"
+                )
+        if self.leader_election_spec is not None:
+            self.leader_election_spec.validate(len(self.servers))
+            if not self._has_dark_source(self.leader_election_spec.group):
+                raise ValueError(
+                    "leader_election: no group member has a dark source "
+                    "(an outage-mode fault schedule or a network "
+                    "partition touching it) — the leader could never fail"
+                )
+
+    def _has_dark_source(self, group: tuple[int, ...]) -> bool:
+        """Whether any ``group`` member can become unreachable: an
+        outage-mode fault schedule (a degraded server still answers) or
+        a partition group covering it."""
+        partitioned = {v for p in self.network_partitions for v in p.group}
+        return any(
+            (self.servers[v].fault is not None and self.servers[v].fault.mode == "outage")
+            or v in partitioned
+            for v in group
+        )
 
     def _validate_router(self, i: int, router: RouterSpec) -> None:
         kinds = {t.kind for t in router.targets}
@@ -1050,8 +1325,21 @@ class EnsembleModel:
         if self.limiters:
             features.append("limiters")
         features.extend(self.resilience_features())
+        features.extend(self.consensus_features())
         if self.telemetry_spec is not None:
             features.append("telemetry")
+        return tuple(features)
+
+    def consensus_features(self) -> tuple[str, ...]:
+        """The consensus features this model declares, by JAX's names (a
+        subset of :meth:`chaos_features`)."""
+        features: list[str] = []
+        if self.network_partitions:
+            features.append("network_partitions")
+        if self.quorum_spec is not None:
+            features.append("quorum")
+        if self.leader_election_spec is not None:
+            features.append("leader_election")
         return tuple(features)
 
     def resilience_features(self) -> tuple[str, ...]:

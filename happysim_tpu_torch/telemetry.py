@@ -192,9 +192,9 @@ class EnsembleTimeseries:
 
     Array axes: ``nW`` windows x (``nK`` sinks | ``nV`` servers | ``nL``
     limiters). A field is ``None`` when its metric group was not
-    requested or the model lacks the machinery; the consensus and trace
-    fields stay ``None`` until the port runs those features (ROADMAP
-    A.11, A.12). Counter series are int64 and sum
+    requested or the model lacks the machinery; the trace field stays
+    ``None`` until the port runs trace-driven arrivals (ROADMAP A.12).
+    Counter series are int64 and sum
     (axis 0) exactly to the whole-run counters; the float integral
     series sum to the whole-run integrals up to float32 re-association.
     """
@@ -241,7 +241,7 @@ class EnsembleTimeseries:
     breaker_open_fraction: Optional[np.ndarray] = None  # (nW, nV)
     server_shed_dropped: Optional[np.ndarray] = None  # (nW, nV)
     server_budget_dropped: Optional[np.ndarray] = None  # (nW, nV)
-    # consensus (ROADMAP A.11)
+    # consensus
     server_quorum_dropped: Optional[np.ndarray] = None  # (nW, nV)
     network_partitioned: Optional[np.ndarray] = None  # (nW,)
     quorum_dark_fraction: Optional[np.ndarray] = None  # (nW,)
@@ -450,6 +450,7 @@ def build_timeseries(
         ("breaker_tripped", "tel_brk_tripped"),
         ("server_shed_dropped", "tel_srv_shed_dropped"),
         ("server_budget_dropped", "tel_srv_budget_dropped"),
+        ("server_quorum_dropped", "tel_qrm_dropped"),
     ):
         arr = counts(key)
         if arr is not None:
@@ -473,6 +474,18 @@ def build_timeseries(
                 open_int / (n_replicas * window_len[:, None]),
                 0.0,
             )
+    if "tel_net_partitioned" in host:
+        ts.network_partitioned = counts("tel_net_partitioned")
+    # The quorum's dark and the leader's up seconds over the window's
+    # [start, min(end, horizon)] coverage, averaged over replicas.
+    for attr, key in (
+        ("quorum_dark_fraction", "tel_qrm_dark_int"),
+        ("leader_uptime_fraction", "tel_ldr_uptime_int"),
+    ):
+        if key in host:
+            seconds = np.asarray(host[key], np.float64)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                setattr(ts, attr, np.where(window_len > 0, seconds / (n_replicas * window_len), 0.0))
     if "tel_fault_int" in host:
         # Dark seconds over the window's [start, min(end, horizon)]
         # coverage, averaged over replicas.

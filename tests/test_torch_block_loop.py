@@ -131,6 +131,55 @@ def test_staged_rows_give_the_state_of_rows_in_place(host_kernel, name):
         assert torch.equal(blocks, runs[0][1]) and torch.equal(halted, runs[0][2])
 
 
+# The consensus models through their cuts and the profiled sources (two
+# rows of profile tables a thread block stages): a launch of the first
+# 24 blocks from the initial state.
+CUT_MODELS = (
+    "consensus-quorum-undefended", "consensus-quorum-defended", "consensus-election-bully",
+    "consensus-stochastic", "consensus-delay", "multi-profiled", "multi-two-class-telemetry",
+)
+CUT_BLOCKS = 24
+
+
+@pytest.mark.parametrize("name", CUT_MODELS)
+def test_host_launch_through_the_cuts_matches_plain_block_steps(host_kernel, name):
+    """16 replicas, one launch of 24 blocks from block 0 (past the pinned
+    cuts): against plain_block_steps, then with four lanes a block and
+    every stageable row (the partition windows and the profile tables
+    included) in shared memory, bit for bit against the rows read in
+    place."""
+    instantiation, build = _HOST_MODELS[name]
+    compiled = TCompiled(build())
+    n = 16
+    params = {k: torch.from_numpy(v) for k, v in _resolve_params(compiled.model, compiled, n, None).items()}
+    keys = rng.split(rng.PRNGKey(5), n)
+    state = compiled.init_state(keys, params)
+    runs = []
+    for threads, staged in ((1, False), (4, True)):
+        copy = {k: v.clone() for k, v in state.items()}
+        blocks = torch.zeros((n,), dtype=torch.int32)
+        halted = torch.empty((n,), dtype=torch.uint8)
+        args = event_step.launch_args(compiled, copy, keys, 0, params, halted, n_blocks=CUT_BLOCKS,
+                                      blocks=blocks)
+        rows = {leaf: int(np.prod(v.shape[1:])) for leaf, v in copy.items() if leaf in support.STAGE_LEAVES}
+        offsets, words = support.stage_plan(rows, 1 << 20) if staged else ([-1] * len(support.STAGE_LEAVES), 0)
+        args.stage = event_step._Stage((ctypes.c_int * len(offsets))(*offsets), words)
+        assert getattr(host_kernel, f"run_{instantiation}")(ctypes.byref(args), threads) == 0
+        runs.append((copy, blocks, halted.bool()))
+    plain = {k: v.clone() for k, v in state.items()}
+    plain_blocks = torch.zeros((n,), dtype=torch.int32)
+    plain_halted = event_step.plain_block_steps(compiled, plain, keys, 0, CUT_BLOCKS, params, plain_blocks)
+    _assert_states(runs[0][0], plain, exact=False)
+    assert torch.equal(runs[0][1], plain_blocks) and torch.equal(runs[0][2], plain_halted)
+    _assert_states(runs[1][0], runs[0][0], exact=True)
+    assert torch.equal(runs[1][1], runs[0][1]) and torch.equal(runs[1][2], runs[0][2])
+    if compiled.has_partitions:
+        assert {"prt_start", "prt_end"} <= set(rows)
+        assert int(plain["net_partitioned"].sum()) + int(plain.get("tr_dropped", plain["events"]).sum()) > 0
+    if compiled.has_quorum:
+        assert int(plain["qrm_dropped"].sum()) > 0
+
+
 @pytest.mark.parametrize("name", ["mm1", "chaos-bench"])
 def test_plain_block_steps_equal_chained_plain_block_step(name):
     """plain_block_steps from FIRST against BLOCKS calls of plain_block_step

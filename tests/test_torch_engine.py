@@ -295,33 +295,56 @@ def test_run_ensemble_rejects_unknown_sweeps_and_huge_ensembles():
         t_run(tmodel.mm1_model(), n_replicas=(1 << 23) + 1, device="cpu")
 
 
-def _two_sources(m):
-    m.source(rate=1.0)
-    m.validate()
+def _partitioned(mod, m):
+    """The M/M/1 with its server cut off over [1, 2)."""
+    server = mod.NodeRef(mod.SERVER, 0)
+    m.network_partition(group=[server], windows=((1.0, 2.0),))
+    return server
 
 
-def _two_sinks(m):
+def _quorum(mod, m):
+    m.quorum([_partitioned(mod, m)], write=1, read=1)
+
+
+def _leader_election(mod, m):
+    m.leader_election([_partitioned(mod, m)], heartbeat_s=0.1, timeout_s=0.3)
+
+
+def _two_sources(mod, m):
+    m.connect(m.source(rate=1.0), mod.NodeRef(mod.SERVER, 0))
+
+
+def _two_sinks(mod, m):
     m.sink()
-    m.validate()
 
 
-def _off_chain_server(m):
-    extra = m.server()
-    m.connect(extra, tmodel.NodeRef(tmodel.SINK, 0))
-    tengine._Compiled(m)
+def _off_chain_server(mod, m):
+    m.connect(m.server(), mod.NodeRef(mod.SINK, 0))
+
+
+def _orphan_router(mod, m):
+    m.router(targets=[mod.NodeRef(mod.SERVER, 0)])
+
+
+def _orphan_limiter(mod, m):
+    limiter = m.limiter(refill_rate=1.0, capacity=1.0)
+    m.connect(limiter, mod.NodeRef(mod.SERVER, 0))
+
+
+def _no_sink(mod, m):
+    """A server feeding itself back through a router: the sink is never
+    reached (replaces the M/M/1's wiring)."""
+    server = mod.NodeRef(mod.SERVER, 0)
+    router = m.router(targets=[server])
+    m.connect(mod.NodeRef(mod.SOURCE, 0), router)
+    m.connect(server, router)
 
 
 @pytest.mark.parametrize(
     "mutate, feature",
     [
-        (lambda m: m.network_partition(), "network partitions"),
-        (lambda m: m.quorum(), "quorum"),
-        (lambda m: m.leader_election(), "leader election"),
         (lambda m: m.trace_arrivals(None), "trace-driven arrivals"),
         (lambda m: m.remote(), "remote egress nodes"),
-        (_two_sources, "several sources"),
-        (_two_sinks, "several sinks"),
-        (_off_chain_server, "server[1]"),
     ],
 )
 def test_out_of_slice_features_raise_naming_themselves(mutate, feature):
@@ -329,6 +352,53 @@ def test_out_of_slice_features_raise_naming_themselves(mutate, feature):
     with pytest.raises(NotImplementedError, match=re.escape(feature)) as info:
         mutate(model)
     assert "ROADMAP A." in str(info.value)
+
+
+def _on_both(mutate):
+    """``mutate`` applied to either package's M/M/1 (horizon 5 s)."""
+
+    def build(mod):
+        model = mod.mm1_model(8.0, 10.0, 5.0)
+        mutate(mod, model)
+        return model
+
+    return build
+
+
+# The models the port refused before it ran several sources and sinks,
+# nodes no source reaches and the consensus tier: JAX's kernel declines
+# each, and its lax scan runs it.
+ONCE_REFUSED = {
+    "network-partitions": _partitioned,
+    "quorum": _quorum,
+    "leader-election": _leader_election,
+    "several-sources": _two_sources,
+    "several-sinks": _two_sinks,
+    "server-1-unreached": _off_chain_server,
+    "orphan-router": _orphan_router,
+    "orphan-limiter": _orphan_limiter,
+    "no-sink": _no_sink,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ONCE_REFUSED))
+def test_once_refused_models_run_like_jax(name):
+    """Each model the port once refused now runs, as JAX's lax scan runs
+    it: every integer total equal (the consensus counters included),
+    float means within rel 1e-4, at the default budget, 32 replicas."""
+    build = _on_both(ONCE_REFUSED[name])
+    max_events = tengine._default_max_events(build(tmodel), None)
+    mesh = replica_mesh(jax.devices("cpu")[:1])
+    expected = j_run(build(jmodel), n_replicas=32, seed=3, mesh=mesh, max_events=max_events)
+    got = t_run(build(tmodel), n_replicas=32, seed=3, max_events=max_events, device="cpu")
+    assert j_kernel_plan(build(jmodel))[0] is None
+    for field in INT_FIELDS + ("network_partitioned", "server_quorum_dropped", "leader_changes"):
+        assert getattr(got, field) == getattr(expected, field), field
+    np.testing.assert_array_equal(got.sink_hist, expected.sink_hist)
+    for field in FLOAT_FIELDS + ("quorum_dark_fraction", "time_without_leader_fraction"):
+        np.testing.assert_allclose(
+            getattr(got, field), getattr(expected, field), rtol=1e-4, err_msg=field
+        )
 
 
 def _front_router(m):
@@ -398,35 +468,17 @@ def test_kernel_bounds_name_each_graph_bound(monkeypatch):
 
 
 def test_kernel_plan_declines_like_jax():
-    """Orphan servers, orphan routers and limiters, and a graph that
-    never reaches the sink raise NotImplementedError with JAX's reason."""
-
-    def orphan_router(mod):
-        m = mod.mm1_model(8.0, 10.0, 5.0)
-        m.router(targets=[mod.NodeRef(mod.SERVER, 0)])
-        return m
-
-    def orphan_limiter(mod):
-        m = mod.mm1_model(8.0, 10.0, 5.0)
-        limiter = m.limiter(refill_rate=1.0, capacity=1.0)
-        m.connect(limiter, mod.NodeRef(mod.SERVER, 0))
-        return m
-
-    def no_sink(mod):
-        m = mod.EnsembleModel(horizon_s=5.0)
-        server = m.server()
-        router = m.router(targets=[server])
-        m.connect(m.source(rate=1.0), router)
-        m.connect(server, router)
-        m.sink()
-        return m
-
-    for build in (orphan_router, orphan_limiter, no_sink):
+    """Orphan servers, orphan routers and limiters, and a graph that never
+    reaches the sink: JAX's kernel declines each; the port's plan records
+    JAX's reason as data (``"declined"``) and the model compiles, to run
+    on the kernel (test_once_refused_models_run_like_jax runs them)."""
+    for name in ("server-1-unreached", "orphan-router", "orphan-limiter", "no-sink"):
+        build = _on_both(ONCE_REFUSED[name])
         _plan, reason = j_kernel_plan(build(jmodel))
         jax_reason = reason[reason.index("(") + 1 : reason.index("); the lax")]
-        with pytest.raises(NotImplementedError, match=re.escape(jax_reason)) as info:
-            tengine._Compiled(build(tmodel))
-        assert "ROADMAP A.5c" in str(info.value)
+        plan = tengine._Compiled(build(tmodel)).plan
+        assert plan["declined"] == jax_reason, name
+        assert "ROADMAP" not in plan["declined"]
 
 
 def test_kernel_plan_shapes_and_bounds():

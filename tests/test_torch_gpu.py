@@ -36,6 +36,8 @@ from happysim_tpu_torch.engine import CHECKPOINT_SEGMENTS, resume_mismatches  # 
 from happysim_tpu_torch.kernels import event_step, mm1_scan, support, uniform  # noqa: E402
 from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
+from test_torch_consensus_models import CONSENSUS_MODELS  # noqa: E402
+from test_torch_multisource_models import MULTI_MODELS, two_class  # noqa: E402
 from test_torch_resilience_models import RESILIENCE_MODELS  # noqa: E402
 from test_torch_telemetry_models import TELEMETRY_MODELS  # noqa: E402
 
@@ -247,6 +249,12 @@ MODELS = {
     # the resilience instantiations (breakers, shedding, budgets, with and
     # without telemetry)
     **{f"resilience-{name}": (lambda build=build: build(tmodel)) for name, build in RESILIENCE_MODELS.items()},
+    # several sources and sinks, and nodes no source reaches, on the line,
+    # graph, extended and telemetry codes
+    **{f"multi-{name}": (lambda build=build: build(tmodel)) for name, build in MULTI_MODELS.items()},
+    # the consensus instantiations (partition consults, the quorum gate,
+    # with and without telemetry and the defenses)
+    **{f"consensus-{name}": (lambda build=build: build(tmodel)) for name, build in CONSENSUS_MODELS.items()},
 }
 
 
@@ -278,7 +286,8 @@ def test_kernel_matches_plain_bit_for_bit(cuda, name):
             torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"block {block}: {leaf}")
     assert event_step.block_step.launches - before == 60
     assert int(kstate["srv_completed"].sum()) > 0 or not model.servers
-    assert int(kstate["sink_count"].sum()) > 0
+    # A graph with no path to a sink delivers nothing there.
+    assert int(kstate["sink_count"].sum()) > 0 or "no path" in compiled.plan.get("declined", "")
 
 
 def _chained_in_place(compiled, state, keys, params, n):
@@ -304,7 +313,8 @@ def _chained_in_place(compiled, state, keys, params, n):
 @pytest.mark.parametrize(
     "name",
     ["mm1", "router", "mix", "ramp-graph", "chaos-bench-chaos", "telemetry-chaos-fanout",
-     "resilience-storm-defended", "router-transit-1024"],
+     "resilience-storm-defended", "router-transit-1024", "multi-two-class-telemetry",
+     "multi-profiled", "consensus-quorum-defended", "consensus-delay"],
 )
 def test_whole_run_launch_equals_chained_one_block_launches(cuda, name):
     """A run's whole budget in one launch, the rows the plan stages in
@@ -312,7 +322,7 @@ def test_whole_run_launch_equals_chained_one_block_launches(cuda, name):
     device memory, at 512 replicas: every leaf, the blocks each replica
     ran and the halted mask bit for bit. ``router-transit-1024`` has
     transit rows of 16 KB a lane, past the tile: its plan keeps tr_time in
-    device memory."""
+    device memory, as does the two-tenant service's (6 KB a lane)."""
     if name == "router-transit-1024":
         model = _router()
         model.transit_capacity = 1024
@@ -335,7 +345,9 @@ def test_whole_run_launch_equals_chained_one_block_launches(cuda, name):
     halted_out = torch.empty((n,), dtype=torch.uint8, device=cuda)
     plan = event_step.launch_args(compiled, state, keys, 0, params, halted_out).stage
     tr_time_in_tile = plan.off[support.STAGE_LEAVES.index("tr_time")] >= 0
-    assert tr_time_in_tile == ("tr_time" in state and name != "router-transit-1024")
+    assert tr_time_in_tile == (
+        "tr_time" in state and name not in ("router-transit-1024", "multi-two-class-telemetry")
+    )
     chained_blocks, chained_halted = _chained_in_place(compiled, chained, keys, params, budget)
     torch.cuda.synchronize()
     for leaf in chained:
@@ -530,6 +542,47 @@ def test_resilience_on_the_card_matches_the_cpu_run(cuda, name):
         assert getattr(card, field) == getattr(cpu, field), field
     np.testing.assert_allclose(card.breaker_open_fraction, cpu.breaker_open_fraction, rtol=1e-5)
     assert card.resilience_features == model.resilience_features()
+    if cpu.timeseries is not None:
+        for field in cpu.timeseries._ARRAY_FIELDS:
+            left, right = getattr(card.timeseries, field), getattr(cpu.timeseries, field)
+            assert (left is None) == (right is None), field
+            if right is not None and np.asarray(right).dtype.kind == "i":
+                np.testing.assert_array_equal(left, right, err_msg=field)
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["superpose-tie", "two-class-wide", "profiled", "no-sink", "quorum-defended", "election-phi",
+     "stochastic", "delay"],
+)
+def test_multisource_and_consensus_on_the_card_match_the_cpu_run(cuda, name):
+    """run_ensemble of several sources and sinks and of the consensus tier
+    on the card (one launch of the kernel's line, graph, telemetry or
+    consensus library) against the CPU run: every integer total per
+    source, sink and server equal, the quorum's dark and the leaderless
+    fractions within rel 1e-6 (the cut and fault windows are drawn with
+    each device's float32 log, which differ by an ulp on some draws), and
+    the kernel shape the plan names."""
+    if name == "two-class-wide":
+        model = two_class(tmodel, horizon_s=20.0, window_s=2.5)
+    else:
+        model = {**MULTI_MODELS, **CONSENSUS_MODELS}[name](tmodel)
+    budget = _default_max_events(model, None)
+    before = event_step.block_step.launches
+    card = run_ensemble(model, n_replicas=256, seed=5, max_events=budget)
+    launches = event_step.block_step.launches - before
+    cpu = run_ensemble(model, n_replicas=256, seed=5, device="cpu", max_events=budget)
+    assert card.engine_path == "scan+cuda" and launches == 1
+    assert card.kernel_shape == _Compiled(model).plan["shape"]
+    for field in (
+        "simulated_events", "sink_count", "server_completed", "server_dropped", "transit_dropped",
+        "limiter_admitted", "server_fault_dropped", "server_fault_retried", "breaker_tripped",
+        "server_budget_dropped", "network_partitioned", "server_quorum_dropped", "leader_changes",
+    ):
+        assert getattr(card, field) == getattr(cpu, field), field
+    for field in ("quorum_dark_fraction", "time_without_leader_fraction"):
+        np.testing.assert_allclose(getattr(card, field), getattr(cpu, field), rtol=1e-6, err_msg=field)
+    np.testing.assert_array_equal(card.sink_hist, cpu.sink_hist)
     if cpu.timeseries is not None:
         for field in cpu.timeseries._ARRAY_FIELDS:
             left, right = getattr(card.timeseries, field), getattr(cpu.timeseries, field)

@@ -363,7 +363,7 @@ def test_launch_args_point_at_the_compiled_tables():
     args = launch_args(compiled, state, keys, 0, params, torch.empty((n,), dtype=torch.uint8))
     times, cum = compiled.profile_tensors("cpu")
     assert (args.prof_times, args.prof_cum) == (times.data_ptr(), cum.data_ptr())
-    assert args.prof_end_rate == pytest.approx(40.0) and args.prof_n == 512
+    assert args.src[0].prof_end_rate == pytest.approx(40.0) and args.prof_n == 512
     # The tables are made once per device and kept with the model.
     assert compiled.profile_tensors(torch.device("cpu"))[0] is times
 

@@ -665,8 +665,8 @@ def _host_compiler():
 
 
 def test_argument_struct_mirror_matches_the_header(tmp_path):
-    """ctypes' _Args (and its HsTel, HsRes and HsStage parts, and the
-    block loop's fields) have the size and offsets the header's
+    """ctypes' _Args (and its HsTel, HsRes, HsStage, HsSrc and HsCon parts,
+    and the block loop's fields) have the size and offsets the header's
     EventStepArgs has, compiled as host C++ (the
     card's library checks hs_event_step_args_size() against the same
     mirror when it loads), within CUDA 12.1's 32,764-byte parameter
@@ -685,10 +685,12 @@ def test_argument_struct_mirror_matches_the_header(tmp_path):
         "inline int min(int a, int b) { return a < b ? a : b; }\n"
         "inline int max(int a, int b) { return a > b ? a : b; }\n"
         '#include "event_step.cuh"\n'
-        "int main() { std::printf(\"%zu %zu %zu %zu %zu %zu %zu %zu %zu\\n\", "
+        "int main() { std::printf(\"%zu %zu %zu %zu %zu %zu %zu %zu %zu %zu %zu %zu %zu\\n\", "
         "sizeof(EventStepArgs), offsetof(EventStepArgs, tel), offsetof(EventStepArgs, res), "
         "sizeof(HsRes), offsetof(HsRes, shed_busy_thr), offsetof(EventStepArgs, blocks), "
-        "offsetof(EventStepArgs, n_blocks), offsetof(EventStepArgs, stage), sizeof(HsStage)); }\n"
+        "offsetof(EventStepArgs, n_blocks), offsetof(EventStepArgs, stage), sizeof(HsStage), "
+        "offsetof(EventStepArgs, src), sizeof(HsSrc), offsetof(EventStepArgs, con), "
+        "sizeof(HsCon)); }\n"
     )
     exe = tmp_path / "probe"
     subprocess.run(
@@ -703,6 +705,8 @@ def test_argument_struct_mirror_matches_the_header(tmp_path):
         ctypes.sizeof(event_step._Res), event_step._Res.shed_busy_thr.offset,
         event_step._Args.blocks.offset, event_step._Args.n_blocks.offset,
         event_step._Args.stage.offset, ctypes.sizeof(event_step._Stage),
+        event_step._Args.src.offset, ctypes.sizeof(event_step._Src), event_step._Args.con.offset,
+        ctypes.sizeof(event_step._Con),
     ]
     assert sizes == mirror
     assert 4096 < sizes[0] <= 32764

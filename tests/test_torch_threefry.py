@@ -32,7 +32,9 @@ from happysim_tpu_torch.engine import _resolve_params  # noqa: E402
 from happysim_tpu_torch.kernels import event_step  # noqa: E402
 from happysim_tpu_torch.kernels.build import CSRC  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
+from test_torch_consensus_models import CONSENSUS_MODELS  # noqa: E402
 from test_torch_event_step import fanout  # noqa: E402
+from test_torch_multisource_models import MULTI_MODELS  # noqa: E402
 from test_torch_resilience_models import RESILIENCE_MODELS  # noqa: E402
 from test_torch_telemetry_models import TELEMETRY_MODELS  # noqa: E402
 
@@ -132,13 +134,17 @@ def test_uniform_with_another_span_matches_rng(threefry_lib):
 
 
 # -- the event-step kernel, built for the host --------------------------------
-# (MAXV, GRAPH, EXT, CHAOS, TEL, RES) of each model below.
+# (MAXV, GRAPH, EXT, CHAOS, TEL, RES, CON, MULTI) of each model below.
 _INSTANTIATIONS = {
-    "mm1": (1, "false", "false", "false", "false", "false"),
-    "fanout": (4, "true", "false", "false", "false", "false"),
-    "chaos": (4, "true", "true", "true", "false", "false"),
-    "telemetry": (4, "true", "true", "true", "true", "false"),
-    "resilience": (4, "true", "true", "true", "true", "true"),
+    "mm1": (1, "false", "false", "false", "false", "false", "false", "false"),
+    "fanout": (4, "true", "false", "false", "false", "false", "false", "false"),
+    "chaos": (4, "true", "true", "true", "false", "false", "false", "false"),
+    "telemetry": (4, "true", "true", "true", "true", "false", "false", "false"),
+    "resilience": (4, "true", "true", "true", "true", "true", "false", "false"),
+    "consensus": (4, "true", "true", "true", "true", "false", "true", "false"),
+    "consensus_plain": (4, "true", "true", "true", "false", "false", "true", "false"),
+    "consensus_resilience": (4, "true", "true", "true", "true", "true", "true", "false"),
+    "multi": (4, "true", "true", "true", "true", "true", "true", "true"),
 }
 _HOST_MODELS = {
     "mm1": ("mm1", lambda: tmodel.mm1_model(8.0, 10.0, 20.0, warmup_s=5.0)),
@@ -150,6 +156,25 @@ _HOST_MODELS = {
     "telemetry-chaos-fanout": ("telemetry", lambda: TELEMETRY_MODELS["chaos-fanout"](tmodel)),
     "resilience-fanout": ("resilience", lambda: RESILIENCE_MODELS["resilience-fanout"](tmodel)),
     "resilience-storm": ("resilience", lambda: RESILIENCE_MODELS["storm-defended"](tmodel)),
+    # Several sources and sinks on the instantiation for them, nodes no
+    # source reaches on the graph code; the consensus tier on its
+    # instantiations.
+    **{
+        f"multi-{name}": (instantiation, lambda name=name: MULTI_MODELS[name](tmodel))
+        for name, instantiation in (
+            ("superpose", "multi"), ("superpose-tie", "multi"), ("two-class", "multi"),
+            ("two-class-telemetry", "multi"), ("profiled", "multi"),
+            ("orphan-router", "fanout"), ("orphan-limiter", "fanout"), ("no-sink", "fanout"),
+        )
+    },
+    **{
+        f"consensus-{name}": (instantiation, lambda name=name: CONSENSUS_MODELS[name](tmodel))
+        for name, instantiation in (
+            ("quorum-undefended", "consensus"), ("quorum-defended", "consensus_resilience"),
+            ("election-bully", "consensus"), ("stochastic", "consensus_plain"),
+            ("delay", "consensus_plain"),
+        )
+    },
 }
 
 _SHIMS = r"""
@@ -181,15 +206,12 @@ float hs_tables[HS_HOST_SHARED_FLOATS];
 # others' unstaged); returns 1 when the tables and the row tile do not fit.
 _RUN = """
 extern "C" int run_{name}(const EventStepArgs* a, int threads) {{
-  const int tables = a->has_profile ? 2 * a->prof_n : 0;
+  const int tables = 2 * a->prof_n * a->has_profile;
   if (tables + a->stage.words * threads > HS_HOST_SHARED_FLOATS) return 1;
   blockDim.x = threads;
   for (int first = 0; first < a->R; first += threads) {{
     blockIdx.x = first / threads;
-    for (int i = 0; i < tables / 2; ++i) {{
-      hs_tables[i] = a->prof_times[i];
-      hs_tables[tables / 2 + i] = a->prof_cum[i];
-    }}
+    stage_profiles(*a, 0, 1);
     for (int lane = 0; lane < threads; ++lane) {{
       threadIdx.x = lane;
       event_step_kernel<{maxv}, {flags}>(*a);
