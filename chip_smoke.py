@@ -10,8 +10,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    checkout's sources, one nvcc per source (the event-step kernel without
    telemetry or resilience, its telemetry instantiations, its resilience
    instantiations, its consensus instantiations, its instantiations for
-   several sources or sinks, the draw kernel and the M/M/1 Lindley
-   kernel) started together, with ptxas' register and spill report;
+   several sources or sinks, its trace-driven instantiations, the draw
+   kernel and the M/M/1 Lindley kernel) started together, with ptxas'
+   register and spill report;
    then the draw kernel (csrc/uniform.cu) against rng.uniform, bit for
    bit, on the M/M/1 chain form's gap block (65,536 x 1,514 uniforms),
    timed against its plain version and its bound;
@@ -262,13 +263,36 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    block counts; the middle snapshot taken while a replica was live,
    through save and load (one npz under build/), resumed and equal again;
    each run's wall beside the one-launch run's;
-7. the M/M/1 ensemble: the Lindley kernel (csrc/mm1_scan.cu) against
+7. trace-driven arrivals at 65,536 replicas (bench.py's _trace_measure:
+   the diurnal trace, 200/s with amplitude 0.6 and period 8 s, and the
+   flash crowd, 100/s with 500/s over [4, 6) s, both over 16 s, seed 11,
+   in pages of 64 arrivals, into a four-slot server of 4 ms with queue 64
+   and a sink, macro_block 16, 2 s windows of throughput, latency and
+   rates, max_events 16,384): the trace branch (csrc/event_step_trace.cu)
+   against plain_trace_steps from the same state and pages, bit for bit,
+   over a whole flash-crowd run (every stream step; every lane stalls at
+   the window's edge and ends past the trace's end), a diurnal run and a
+   run of the flash crowd beside a Poisson source at 50/s (the code for
+   several sources; every 8th stream step); the branch's time per block
+   in a 20-block launch with pages of 2,048 (no lane stalls) beside its
+   bound and the plain version's; then both scenarios through
+   run_ensemble in pages of 2,048 (the process's first traced runs, which
+   pay the pinned allocator's and the side stream's first use) and of 64,
+   the trace library's launches counted and timed: the
+   tenants' arrivals exactly 65,536 x the trace's, each window's exactly
+   65,536 x the trace's instants in it, at most 2 pages resident, pages
+   of 64 and of 2,048 giving the same counters, histograms and window
+   series, and a snapshot after the fifth stream step (lanes frozen
+   mid-page) saved, loaded and resumed equal to the uninterrupted run;
+   each run's wall, kernel and host time, stream steps, buffer stall and
+   events/s;
+8. the M/M/1 ensemble: the Lindley kernel (csrc/mm1_scan.cu) against
    plain_mm1_scan bit for bit on 65,536 replicas over 512 customers; its
    time and the plain version's at 65,536 x 4,096 beside its bound; then
    run_mm1_ensemble(8, 10, 65536, 4096), bench.py's bench_kernel call, in
    one launch, its mean wait within 1% of rho / (mu - lambda) = 0.4 s and
    its mean sojourn within 1% of 0.5 s;
-8. the opinion rounds (torch.matmul in full float32, no kernel of the
+9. the opinion rounds (torch.matmul in full float32, no kernel of the
    port) on 32 populations of 2,048 agents: DeGroot on the card against
    the CPU within rtol 1e-5 and atol 1e-6, bounded confidence a round at
    a time on the same opinions within the same, and the voter model's
@@ -281,11 +305,12 @@ from one model: mm1, chain, fanout (the router shape), graph, the
 lognormal M/G/1 (the family sampler), the profile graph (the profile
 tables), the chaos model (the chaos branches) and the telemetry model
 (the window buffers), bench_resilience's defended arm (the defenses),
-the two-tenant service (several sources and sinks) and the defended
-quorum arm (the consensus tier), the models the main path runs, its ms
-the time per block of
-a 20-block launch and its bound that of the same blocks, its launches
-those of the main path's run (one a run); the draw kernel, its
+the two-tenant service (several sources and sinks), the defended
+quorum arm (the consensus tier) and the flash crowd (the trace branch),
+the models the main path runs, its ms the time per block of a 20-block
+launch and its bound that of the same blocks, its launches those of the
+main path's run (one a run; for the trace branch one a stream step of
+the flash crowd's run); the draw kernel, its
 launches those of the M/M/1's chain-form run; and the Lindley kernel, its
 launches those of the run_mm1_ensemble call, its times at 65,536 x
 4,096. Every number printed
@@ -312,6 +337,9 @@ import torch
 from happysim_tpu_torch import (
     EnsembleCheckpoint,
     EnsembleModel,
+    TraceSpec,
+    diurnal_trace,
+    flash_crowd_trace,
     mm1_model,
     model_fingerprint,
     opinion,
@@ -325,6 +353,7 @@ from happysim_tpu_torch.faults import duty_cycle
 from happysim_tpu_torch.model import FaultSpec, LeaderElectionSpec
 from happysim_tpu_torch.engine import (
     CHECKPOINT_SEGMENTS,
+    TRACE_PAGING_FIELDS,
     resume_mismatches,
     _Compiled,
     _default_max_events,
@@ -2081,6 +2110,340 @@ def checkpoint_phase(tag: str) -> dict:
     return runs
 
 
+# -- trace-driven arrivals -------------------------------------------------------
+# bench.py's _trace_measure: its horizon, page length and budget, and the
+# telemetry window of its model.
+TRACE_HORIZON_S, TRACE_CHUNK_LEN, TRACE_MAX_EVENTS, TRACE_WINDOW_S = 16.0, 64, 16384, 2.0
+# The page length of the paging-independence run: a page of 2,048 covers
+# more than a block loop of 20 blocks reads, so the timed launches of
+# time_trace_blocks never stall.
+TRACE_LONG_CHUNK = 2048
+# The stream step whose snapshot the checkpointed traced run keeps.
+TRACE_SNAPSHOT_STEP = 5
+
+
+def bench_trace(kind: str, chunk_len: int = TRACE_CHUNK_LEN) -> TraceSpec:
+    """_trace_measure's traces: the diurnal sinusoid (200/s, amplitude
+    0.6, period 8 s) and the flash crowd (100/s, 500/s over [4, 6) s),
+    over 16 s, seed 11."""
+    if kind == "diurnal":
+        return diurnal_trace(200.0, 0.6, TRACE_HORIZON_S / 2, TRACE_HORIZON_S, seed=11,
+                             chunk_len=chunk_len)
+    return flash_crowd_trace(100.0, 500.0, TRACE_HORIZON_S / 4, TRACE_HORIZON_S * 3 / 8,
+                             TRACE_HORIZON_S, seed=11, chunk_len=chunk_len)
+
+
+def trace_model(kind: str, chunk_len: int = TRACE_CHUNK_LEN, poisson_rate: float = 0.0) -> EnsembleModel:
+    """_trace_measure's model: the trace into a four-slot server (4 ms,
+    queue 64) -> sink, macro_block 16, 2 s windows of throughput, latency
+    and rates; with ``poisson_rate``, a Poisson source at that rate
+    superposed on the server ahead of the trace (several sources: the
+    trace code for them)."""
+    model = EnsembleModel(horizon_s=TRACE_HORIZON_S, macro_block=16)
+    srv = model.server(concurrency=4, service_mean=0.004, queue_capacity=64)
+    if poisson_rate:
+        model.connect(model.source(rate=poisson_rate), srv)
+    model.connect(model.trace_arrivals(bench_trace(kind, chunk_len)), srv)
+    model.connect(srv, model.sink())
+    model.telemetry(window_s=TRACE_WINDOW_S, metrics=("throughput", "latency", "rates"))
+    return model
+
+
+def trace_pages(compiled, base_page: int) -> tuple:
+    """The resident pages base_page and base_page + 1 on the card, +inf
+    padded past the trace's end."""
+    P = compiled.trace_chunk_len
+    out = []
+    for page in (base_page, base_page + 1):
+        times, tenants = np.full(P, np.inf, np.float32), np.zeros(P, np.int32)
+        if page < compiled.trace_pages:
+            times = compiled.trace_times[page * P : (page + 1) * P]
+            tenants = compiled.trace_tenants[page * P : (page + 1) * P]
+        out += [torch.from_numpy(np.ascontiguousarray(times)).cuda(),
+                torch.from_numpy(np.ascontiguousarray(tenants)).cuda()]
+    return tuple(out)
+
+
+def check_trace_stream(name: str, model, every: int = 1) -> float:
+    """The trace branch against plain_trace_steps over a whole traced run
+    at REPLICAS replicas and TRACE_MAX_EVENTS: every ``every``-th stream
+    step (and the first two) runs the plain version on a copy of the state
+    and the same pages, and every leaf and the halted mask are compared;
+    the window moves on as the engine moves it. The run must stall lanes
+    at the window's edge and end with every lane past the trace's end."""
+    compiled, keys, params, state = fresh_run(model)
+    P, macro, ti = compiled.trace_chunk_len, compiled.macro, compiled.trace_src
+    n_chunks = -(-TRACE_MAX_EVENTS // macro)
+    n_arrivals = compiled.trace.n_arrivals
+    base_page, step, max_abs, compared, stalled_seen = 0, 0, 0.0, 0, 0
+    while True:
+        pages = trace_pages(compiled, base_page)
+        compare = step < 2 or step % every == 0
+        if compare:
+            plain = {k: v.clone() for k, v in state.items()}
+            plain_halted = event_step.plain_trace_steps(
+                compiled, plain, keys, params, pages, base_page * P, n_chunks
+            )
+        halted = event_step.trace_steps(compiled, state, keys, params, pages, base_page * P, n_chunks)
+        torch.cuda.synchronize()
+        cursor = state["trc_cursor"].to(torch.int64)
+        reads = torch.isfinite(state["src_next"][:, ti]) & (state["trc_blocks"] < n_chunks) & ~halted
+        stalled = int((reads & (cursor + macro >= base_page * P + 2 * P)).sum())
+        require(stalled == int(reads.sum()), f"{name} step {step}: a reading lane is not stalled")
+        stalled_seen = max(stalled_seen, stalled)
+        past_end = int((~torch.isfinite(state["src_next"][:, ti]) & (cursor >= n_arrivals)).sum())
+        if compare:
+            max_abs = max(max_abs, compare_states(state, plain, f"{name} stream step {step}"))
+            require(bool((halted == plain_halted).all()), f"{name} stream step {step}: halted differs")
+            compared += 1
+            print(
+                f"  {name} stream step {step} (window from arrival {base_page * P}): kernel == plain "
+                f"on every leaf; {stalled} lanes stalled at the window's edge, {past_end} past the "
+                f"trace's end"
+            )
+        if not bool(reads.any()):
+            break
+        base_page = max(int(cursor[reads].min()) // P, base_page + 1)
+        step += 1
+    require(stalled_seen > 0, f"{name}: no lane stalled")
+    require(past_end == REPLICAS, f"{name}: {past_end} lanes read past the trace's end")
+    print(f"  {name}: {compared} of {step + 1} stream steps compared, every lane past the "
+          f"trace's end ({n_arrivals} arrivals) at the last")
+    return max_abs
+
+
+def time_trace_blocks(kind: str) -> dict:
+    """The trace branch's time per block at REPLICAS replicas, every lane
+    live: from the first two blocks of the model with pages of
+    TRACE_LONG_CHUNK arrivals (20 blocks never reach the window's edge), a
+    launch with a budget of 20 more blocks, twice, each on its own copy
+    of the state; its bound, reckoned as time_blocks reckons it (the dense
+    state moved once, the float operations of the steps, the threefry the
+    kernel counted); and the plain version's time per block."""
+    model = trace_model(kind, TRACE_LONG_CHUNK)
+    compiled, keys, params, state = fresh_run(model)
+    pages = trace_pages(compiled, 0)
+    halted = torch.empty((REPLICAS,), dtype=torch.uint8, device="cuda")
+    event_step.trace_steps(compiled, state, keys, params, pages, 0, 2)  # warm-up
+    budget = 2 + TIMED_BLOCKS
+    states = [{k: v.clone() for k, v in state.items()} for _ in range(3)]
+    args = [
+        event_step.trace_launch_args(compiled, st, keys, params, pages, 0, budget, halted)
+        for st in states[:2]
+    ]
+    kernel_ms = launch_ms(args) / (2 * TIMED_BLOCKS)
+    require(bool((states[0]["trc_blocks"] == budget).all()), f"trace {kind}: a lane stopped early")
+    drawn = torch.zeros((REPLICAS,), dtype=torch.int32, device="cuda")
+    event_step.launch(
+        event_step.trace_launch_args(compiled, states[2], keys, params, pages, 0, budget, halted, drawn),
+        torch.device("cuda"),
+    )
+    folds = TIMED_BLOCKS * REPLICAS
+    total_drawn = int(drawn.sum())
+    plain = {k: v.clone() for k, v in state.items()}
+    event_step.plain_trace_steps(compiled, plain, keys, params, pages, 0, 3)  # warm-up
+    plain_ms = elapsed_ms(
+        lambda i: event_step.plain_trace_steps(compiled, plain, keys, params, pages, 0, 4 + i), 3
+    )
+    # The two resident pages, 4-byte times and tenants, read once.
+    bytes_per_block = (support.launch_bytes(compiled, state) + 2 * 8 * compiled.trace_chunk_len) / TIMED_BLOCKS
+    float_ops_per_block = (
+        REPLICAS * compiled.macro * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER * compiled.nV)
+        + extension_ops(compiled, state, states[0]) / TIMED_BLOCKS
+    )
+    bytes_ms = bytes_per_block / PEAK_BYTES_PER_S * 1e3
+    ops_ms = max(
+        float_ops_per_block / PEAK_F32_OPS_PER_S * 1e3,
+        int_ms(support.draw_int_ops(folds, total_drawn) / TIMED_BLOCKS,
+               support.draw_alu_ops(folds, total_drawn) / TIMED_BLOCKS),
+    )
+    return {
+        "model": f"trace-{kind}, pages of {TRACE_LONG_CHUNK}",
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "threefry_per_lane_block": total_drawn / folds,
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "int_ops_per_lane_block": support.draw_int_ops(folds, total_drawn) / folds,
+        "alu_ops_per_lane_block": support.draw_alu_ops(folds, total_drawn) / folds,
+        "float_ops_per_block": float_ops_per_block,
+    }
+
+
+def launch_bytes_of(model) -> int:
+    """support.launch_bytes of a launch over REPLICAS replicas of
+    ``model``, from one replica's state on the host."""
+    compiled = _Compiled(model)
+    params = {k: torch.from_numpy(v) for k, v in _resolve_params(model, compiled, 1, None).items()}
+    state = compiled.init_state(rng.split(rng.PRNGKey(0), 1), params)
+    return REPLICAS * support.replica_working_set_bytes(compiled, state) + support.shared_const_bytes(compiled)
+
+
+def traced_run(label: str, model, tag: str, **kw) -> tuple:
+    """run_ensemble on cuda for a traced model at REPLICAS replicas and
+    TRACE_MAX_EVENTS, with the launch counts set to 0 just before and read
+    just after, each launch timed with CUDA events; returns (result,
+    launches, kernel ms)."""
+    timed_launches = []
+    launch = event_step.launch
+
+    def timed_launch(args, device):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(args, device)
+        end.record()
+        timed_launches.append((start, end))
+
+    event_step.launch = timed_launch
+    try:
+        event_step.block_step.launches = 0
+        event_step.trace_steps.launches = 0
+        uniform.replica_uniform.launches = 0
+        result = run_ensemble(model, n_replicas=REPLICAS, max_events=TRACE_MAX_EVENTS, **kw)
+        launches = event_step.trace_steps.launches
+    finally:
+        event_step.launch = launch
+    require(event_step.block_step.launches == 0 and uniform.replica_uniform.launches == 0,
+            f"{label}: a launch off the trace library")
+    torch.cuda.synchronize()
+    kernel_ms = sum(start.elapsed_time(end) for start, end in timed_launches)
+    require(result.engine_path == "scan+cuda" and result.kernel_decline == "",
+            f"{label}: engine_path {result.engine_path}, decline {result.kernel_decline!r}")
+    report = result.engine_report()["trace"]
+    require(launches == result.trace_stream_steps > 0, f"{label}: {launches} launches")
+    require(result.trace_max_resident_chunks <= 2, f"{label}: {report}")
+    require(result.truncated_replicas == 0, f"{label}: {result.truncated_replicas} truncated replicas")
+    return result, launches, kernel_ms
+
+
+def trace_run_gates(label: str, result, trace) -> None:
+    """Every replica replays the whole trace: its arrivals per tenant are
+    REPLICAS x the trace's, and each window's are REPLICAS x the trace's
+    instants in that window (the window of t as the step computes it)."""
+    want = REPLICAS * np.bincount(trace.tenants, minlength=trace.n_tenants)
+    require(result.trace_tenant_arrivals == want.tolist(),
+            f"{label}: tenant arrivals {result.trace_tenant_arrivals} != {want.tolist()}")
+    ts = result.timeseries
+    inv = np.float32(1.0) / np.float32(TRACE_WINDOW_S)
+    windows = np.clip((trace.times * inv).astype(np.int32), 0, ts.n_windows - 1)
+    per_window = REPLICAS * np.bincount(windows, minlength=ts.n_windows)
+    require(np.array_equal(ts.trace_tenant_arrivals[:, 0], per_window),
+            f"{label}: window arrivals {ts.trace_tenant_arrivals[:, 0]} != {per_window}")
+    require(ts.trace_tenant_arrivals.sum(axis=0).tolist() == result.trace_tenant_arrivals,
+            f"{label}: the windows do not sum to the whole run")
+    print(f"  {label}: tenant arrivals {result.trace_tenant_arrivals} = {REPLICAS} x "
+          f"{trace.n_arrivals}; each of {ts.n_windows} windows = {REPLICAS} x the trace's "
+          f"instants in it")
+
+
+def trace_checkpoint(label: str, kind: str, one, tag: str) -> dict:
+    """A snapshot after stream step TRACE_SNAPSHOT_STEP (lanes frozen
+    mid-page), through save and load, resumed: equal to the
+    uninterrupted run on every field but RESUME_EXCLUDED_FIELDS and the
+    paging counts."""
+    kept = []
+
+    def keep(snapshot):
+        kept.append(snapshot)
+        if len(kept) == TRACE_SNAPSHOT_STEP:
+            raise _SnapshotKept
+
+    try:
+        run_ensemble(trace_model(kind), n_replicas=REPLICAS, max_events=TRACE_MAX_EVENTS,
+                     checkpoint_every_s=0.0, checkpoint_callback=keep)
+    except _SnapshotKept:
+        pass
+    require(len(kept) == TRACE_SNAPSHOT_STEP, f"{label}: {len(kept)} snapshots")
+    snap = kept[-1]
+    cursors = snap.state["trc_cursor"].astype(np.int64)
+    mid_page = int((cursors % TRACE_CHUNK_LEN != 0).sum())
+    require(mid_page > 0, f"{label}: no lane frozen mid-page")
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = CKPT_DIR / f"{label}.npz"
+    snap.save(str(path))
+    loaded = EnsembleCheckpoint.load(str(path))
+    path.unlink()
+    resumed, launches, _ms = traced_run(f"{label} resumed", trace_model(kind), tag, resume_from=loaded)
+    diff = resume_mismatches(one, resumed, TRACE_PAGING_FIELDS)
+    require(not diff, f"{label}: the resumed run differs on {diff}")
+    print(f"  {label}: snapshot after stream step {TRACE_SNAPSHOT_STEP} (chunk_index "
+          f"{snap.chunk_index}, {mid_page} lanes frozen mid-page, cursors "
+          f"{int(cursors.min())}..{int(cursors.max())}), saved, loaded and resumed in {launches} "
+          f"launches: equal to the uninterrupted run {tag}")
+    return {"chunk_index": snap.chunk_index, "mid_page_lanes": mid_page, "resumed_launches": launches}
+
+
+def trace_phase(tag: str) -> dict:
+    """The trace branch: block checks over whole traced runs, its time
+    per block, then _trace_measure's two scenarios through run_ensemble
+    with their exact gates, paging independence and a mid-chunk resume."""
+    t0 = time.perf_counter()
+    print(f"trace branch against plain_trace_steps at {REPLICAS} replicas, pages of {TRACE_CHUNK_LEN}:")
+    max_abs = max(
+        check_trace_stream("trace-flash", trace_model("flash")),
+        check_trace_stream("trace-diurnal", trace_model("diurnal"), every=8),
+        check_trace_stream("trace-poisson", trace_model("flash", poisson_rate=50.0), every=8),
+    )
+    timing = {kind: time_trace_blocks(kind) for kind in ("flash", "diurnal")}
+    out = {"max_abs_err": max_abs, "timing": timing, "runs": {}}
+    for kind, t in timing.items():
+        print(
+            f"timing trace-{kind} ({t['model']}): kernel {t['kernel_ms']:.4f} ms/block in a "
+            f"{TIMED_BLOCKS}-block launch, {100 * t['bound_ms'] / t['kernel_ms']:.1f}% of its bound "
+            f"{t['bound_ms']:.4f} ms/block ({t['bound_by']}, {t['threefry_per_lane_block']:.1f} "
+            f"threefry/lane/block); plain {t['plain_ms']:.3f} ms/block {tag}"
+        )
+    for kind in ("diurnal", "flash"):
+        label = f"trace-{kind}"
+        trace = bench_trace(kind)
+        # Pages of 2,048 first: the process's first traced run pays the
+        # pinned allocator's and the side stream's first use, and the
+        # timed run below finds them warm.
+        long_pages, _launches, _ms = traced_run(f"{label} pages of {TRACE_LONG_CHUNK}",
+                                                trace_model(kind, TRACE_LONG_CHUNK), tag)
+        result, launches, kernel_ms = traced_run(label, trace_model(kind), tag)
+        wall_ms = result.wall_seconds * 1e3
+        blocks = max(result.block_occupancy)
+        report = result.engine_report()["trace"]
+        # The run's bound: each launch moves the dense state once, the
+        # float operations of its events, and the threefry of its
+        # lane-blocks at the timed launch's rate per lane-block.
+        t = timing[kind]
+        run_bound_ms = max(
+            launch_bytes_of(trace_model(kind)) * launches / PEAK_BYTES_PER_S * 1e3,
+            result.simulated_events * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER)
+            / PEAK_F32_OPS_PER_S * 1e3,
+            int_ms(t["int_ops_per_lane_block"] * result.blocks_total,
+                   t["alu_ops_per_lane_block"] * result.blocks_total),
+        )
+        print(
+            f"trace {kind} x{REPLICAS}: {trace.n_arrivals} arrivals in {trace.n_chunks} pages of "
+            f"{TRACE_CHUNK_LEN}, engine_path {result.engine_path}; wall {wall_ms:.1f} ms, kernel "
+            f"{kernel_ms:.2f} ms ({100 * kernel_ms / wall_ms:.1f}%) in {launches} launches = "
+            f"stream steps, host {wall_ms - kernel_ms:.2f} ms; {blocks} blocks (the most a lane "
+            f"ran), kernel {kernel_ms / blocks:.4f} ms a block against a bound of "
+            f"{run_bound_ms / blocks:.4f}; buffer stall {report['buffer_stall_seconds']:.6f} s "
+            f"(fraction {report['stall_fraction']:.6f}), {report['chunks_streamed']} pages "
+            f"uploaded, at most {report['max_resident_chunks']} resident; "
+            f"{result.simulated_events} events = {result.events_per_second:.4g} events/s {tag}"
+        )
+        trace_run_gates(label, result, trace)
+        diff = resume_mismatches(result, long_pages, TRACE_PAGING_FIELDS)
+        require(not diff, f"{label}: pages of {TRACE_CHUNK_LEN} and {TRACE_LONG_CHUNK} differ on {diff}")
+        print(f"  {label}: pages of {TRACE_CHUNK_LEN} and {TRACE_LONG_CHUNK} give the same counters, "
+              f"histograms and window series (the run in pages of {TRACE_LONG_CHUNK}, before it: "
+              f"{long_pages.trace_stream_steps} stream step, wall "
+              f"{long_pages.wall_seconds * 1e3:.1f} ms) {tag}")
+        out["runs"][label] = {
+            "wall_ms": wall_ms, "kernel_ms": kernel_ms, "host_ms": wall_ms - kernel_ms,
+            "launches": launches, "blocks": blocks, "run_bound_ms": run_bound_ms,
+            "events_per_second": result.events_per_second, **report,
+            "long_pages_wall_ms": long_pages.wall_seconds * 1e3,
+            "checkpoint": trace_checkpoint(label, kind, result, tag),
+        }
+    print(f"trace phase: {time.perf_counter() - t0:.1f} s {tag}")
+    return out
+
+
 # run_mm1_ensemble as bench.py's bench_kernel calls it: 4,096 customers a
 # replica, a quarter of them warmup.
 MM1_CUSTOMERS = 4096
@@ -2544,6 +2907,7 @@ def main() -> int:
     # Checkpointed and resumed runs, the M/M/1 ensemble and the opinion
     # rounds, each path driven with its launch count set to 0 just before.
     checkpoints = checkpoint_phase(tag)
+    traces = trace_phase(tag)
     mm1_check = check_mm1_scan(tag)
     mm1_result, mm1_launches = mm1_main_path(tag)
     opinions = opinion_phase(tag)
@@ -2570,6 +2934,19 @@ def main() -> int:
                 "resilience", "multi", "consensus",
             )
         ] + [
+            {
+                "name": "event_step[trace]",
+                "route": "cuda",
+                "source": "happysim_tpu_torch/kernels/csrc/event_step.cuh",
+                "replaces": "happysim_tpu/tpu/kernels/event_step.py:312",
+                "launches": traces["runs"]["trace-flash"]["launches"],
+                "max_abs_err": traces["max_abs_err"],
+                "ms": traces["timing"]["flash"]["kernel_ms"],
+                "plain_ms": traces["timing"]["flash"]["plain_ms"],
+                "bound_ms": traces["timing"]["flash"]["bound_ms"],
+                "bound_by": traces["timing"]["flash"]["bound_by"],
+                "library_ms": None,
+            },
             {
                 "name": "uniform",
                 "route": "cuda",
@@ -2615,6 +2992,7 @@ def main() -> int:
                 "run_ensemble": {shape: report(*run) for shape, run in runs.items()},
                 "chain": {name: report(*run) for name, run in chain_runs.items()},
                 "checkpoint": checkpoints,
+                "trace": traces,
                 "consensus_sweeps_ms": sweeps,
                 "mm1_scan": mm1_check,
                 "run_mm1_ensemble": dataclasses.asdict(mm1_result),

@@ -29,6 +29,7 @@ this package                       JAX package
 ``opinion.py``                     ``happysim_tpu/tpu/opinion.py``
 ``chain.py``                       ``happysim_tpu/tpu/chain.py``
 ``telemetry.py``                   ``happysim_tpu/tpu/telemetry.py``
+``traces.py``                      ``happysim_tpu/tpu/traces.py``
 ``kernels/support.py``             ``happysim_tpu/tpu/kernels/support.py``
 ``kernels/event_step.py``          ``happysim_tpu/tpu/kernels/event_step.py``
 ``kernels/csrc/event_step*.cu``    the Pallas kernel of ``build_block_step``
@@ -65,42 +66,93 @@ Poisson source into a chain of FIFO single-server stations, or a random or
 round-robin router over such chains, by the max-plus closed form of
 ``chain.py`` (``engine_path == "chain"``). ``run_mm1_ensemble`` runs the
 M/M/1 ensemble by its Lindley recursion in one kernel launch, and
-``opinion.py`` the DeGroot, bounded-confidence and voter rounds.
-Trace-driven arrivals and remote egress nodes raise
-``NotImplementedError`` naming themselves and their ROADMAP items. Entry points run on the CUDA card unless
-the caller passes ``device="cpu"``.
+``opinion.py`` the DeGroot, bounded-confidence and voter rounds. A source
+may replay a recorded or synthesized trace (``model.trace_arrivals(...)``
+with a ``TraceSpec`` or the ``diurnal_trace``, ``flash_crowd_trace`` and
+``zipf_tenant_trace`` synthesizers), streamed to the card in pages
+between kernel launches. Entry points run on the CUDA card unless the
+caller passes ``device="cpu"``.
+
+The package exports the JAX package's names that it ports. Left out by
+design: ``KERNEL_ENV``, ``pallas_available`` and
+``maybe_enable_compile_cache`` (XLA and Pallas switches), and
+``kernel_decision`` (the Pallas dispatch, which takes a JAX mesh; the
+port runs every model on its CUDA kernel, and
+``EnsembleModel.kernel_supported()`` names a model's refusal). Not yet
+ported: remote egress nodes, which raise ``NotImplementedError`` naming
+their ROADMAP item, the mesh names of ``mesh.py`` (ROADMAP A.13) and the
+partitioned names of ``partitioned.py`` (A.14).
 """
 
 from happysim_tpu_torch.engine import (
     EnsembleCheckpoint,
     EnsembleResult,
+    hist_percentile,
     load_checkpoint_npz,
+    macro_block_len,
     model_fingerprint,
     params_fingerprint,
     run_ensemble,
     save_checkpoint_npz,
 )
+from happysim_tpu_torch.faults import duty_cycle
+from happysim_tpu_torch.kernels.support import kernel_plan
+from happysim_tpu_torch.mm1 import MM1Result, run_mm1_ensemble
 from happysim_tpu_torch.model import (
+    CircuitBreakerSpec,
     CorrelatedOutages,
     EnsembleModel,
     FaultSpec,
+    LoadShedSpec,
     NodeRef,
     RateProfile,
+    RetryBudgetSpec,
     mm1_model,
     pipeline_model,
 )
-from happysim_tpu_torch.mm1 import MM1Result, run_mm1_ensemble
+from happysim_tpu_torch.reduce import (
+    MAX_EXACT_REPLICAS,
+    host_f64,
+    host_i64,
+    sum_f32_fixed,
+    sum_i64_limbs,
+)
+from happysim_tpu_torch.telemetry import DEFAULT_METRICS, EnsembleTimeseries, TelemetrySpec
+from happysim_tpu_torch.traces import (
+    DEFAULT_CHUNK_LEN,
+    TraceSpec,
+    diurnal_trace,
+    flash_crowd_trace,
+    zipf_tenant_trace,
+)
 
 __all__ = [
+    "CircuitBreakerSpec",
     "CorrelatedOutages",
+    "DEFAULT_CHUNK_LEN",
+    "DEFAULT_METRICS",
     "EnsembleCheckpoint",
     "EnsembleModel",
     "EnsembleResult",
+    "EnsembleTimeseries",
     "FaultSpec",
+    "LoadShedSpec",
+    "MAX_EXACT_REPLICAS",
     "MM1Result",
     "NodeRef",
     "RateProfile",
+    "RetryBudgetSpec",
+    "TelemetrySpec",
+    "TraceSpec",
+    "diurnal_trace",
+    "duty_cycle",
+    "flash_crowd_trace",
+    "hist_percentile",
+    "host_f64",
+    "host_i64",
+    "kernel_plan",
     "load_checkpoint_npz",
+    "macro_block_len",
     "mm1_model",
     "model_fingerprint",
     "params_fingerprint",
@@ -108,4 +160,7 @@ __all__ = [
     "run_ensemble",
     "run_mm1_ensemble",
     "save_checkpoint_npz",
+    "sum_f32_fixed",
+    "sum_i64_limbs",
+    "zipf_tenant_trace",
 ]

@@ -37,7 +37,11 @@ halted). A call with no event budget first tries the closed form of
 :mod:`~happysim_tpu_torch.chain`, as the JAX engine does. A checkpointed
 or resumed call runs the same blocks in segments, one ``block_steps``
 call each, and snapshots the state between them in the JAX package's
-checkpoint format (:class:`EnsembleCheckpoint`).
+checkpoint format (:class:`EnsembleCheckpoint`). A model with a traced
+source (:meth:`~happysim_tpu_torch.model.EnsembleModel.trace_arrivals`)
+streams its trace to the device in pages, two resident at a time, and
+runs one stall-gated launch (:func:`~happysim_tpu_torch.kernels.event_step.trace_steps`)
+a stream step (:func:`_run_ensemble_traced`).
 
 Reductions over replicas go through :mod:`~happysim_tpu_torch.reduce`, so
 the reported totals are order-free and exact.
@@ -116,6 +120,7 @@ _I64_COUNTER_KEYS = frozenset({
     "srv_breaker_dropped", "brk_tripped",
     "srv_shed_dropped", "srv_budget_dropped",
     "net_partitioned", "qrm_dropped", "ldr_changes",
+    "trc_arrivals",
     "blocks_total",
 })
 # Telemetry reduce keys that are float integrals, sums or percentiles;
@@ -228,9 +233,10 @@ def model_fingerprint(model: EnsembleModel) -> str:
     families, chaos, telemetry and resilience specs): the SHA-256 of the
     repr the JAX package hashes, so both packages give the same digest for
     the same model. The spec dataclasses of :mod:`~happysim_tpu_torch.model`
-    keep the JAX package's field order and ``repr=False`` flags for it.
-    The port has no remote egress nodes (ROADMAP A.14) or trace-driven
-    sources (A.12): it hashes JAX's value for a model without them."""
+    keep the JAX package's field order and ``repr=False`` flags for it; a
+    trace enters through its :meth:`~happysim_tpu_torch.traces.TraceSpec.signature`.
+    The port has no remote egress nodes (ROADMAP A.14): it hashes JAX's
+    value for a model without them."""
     items = (
         model.horizon_s,
         model.warmup_s,
@@ -262,6 +268,11 @@ def model_fingerprint(model: EnsembleModel) -> str:
     )
     if consensus:
         items = items + (("consensus",) + consensus,)
+    traces = tuple(
+        (i, s.trace.signature()) for i, s in enumerate(model.sources) if s.trace is not None
+    )
+    if traces:
+        items = items + (("trace",) + traces,)
     return hashlib.sha256(repr(items).encode()).hexdigest()[:16]
 
 
@@ -392,6 +403,9 @@ class EnsembleResult:
     # "scan+cuda" when the CUDA event-step kernel ran, "scan" for the
     # plain torch-op step on the CPU
     engine_path: str = "scan"
+    # why the CUDA kernel did not run: "" when it ran (or the run took
+    # the chain form, which reaches no kernel dispatch), else the reason
+    kernel_decline: str = ""
     # "mm1" / "chain" / "router" / "graph" on the kernel path, "" off it
     kernel_shape: str = ""
     # the chaos features (EnsembleModel.chaos_features) the kernel ran
@@ -407,6 +421,32 @@ class EnsembleResult:
     device_name: str = ""
     # the per-window series of a model with a telemetry spec, else None
     timeseries: Optional[EnsembleTimeseries] = None
+    # trace-driven arrivals (a model with a traced source): the pages
+    # uploaded, their length and count, the most the scan could address
+    # at once, the seconds a launch waited on a page's upload, the
+    # stream steps (launches), and the arrivals per tenant over all
+    # replicas
+    trace: bool = False
+    trace_chunks_streamed: int = 0
+    trace_chunk_len: int = 0
+    trace_n_chunks: int = 0
+    trace_max_resident_chunks: int = 0
+    trace_buffer_stall_seconds: float = 0.0
+    trace_stream_steps: int = 0
+    trace_tenant_arrivals: list = dataclasses_field(default_factory=list)
+
+    def summary(self):
+        """Not in the port: the JAX package's ``summary`` builds its host
+        instrumentation's ``SimulationSummary``
+        (``happysim_tpu.instrumentation.summary``), which this package
+        does not carry. Read the result's fields or
+        :meth:`engine_report`."""
+        raise NotImplementedError(
+            "EnsembleResult.summary builds the JAX package's host "
+            "instrumentation SimulationSummary "
+            "(happysim_tpu.instrumentation.summary), which is not part of "
+            "happysim_tpu_torch; read the result's fields or engine_report()"
+        )
 
     def engine_report(self) -> dict:
         """Which path ran, where the time went, and the macro-block
@@ -415,6 +455,7 @@ class EnsembleResult:
         budget = self.max_blocks * self.n_replicas
         return {
             "engine_path": self.engine_path,
+            "kernel_decline": self.kernel_decline,
             "kernel_shape": self.kernel_shape,
             "kernel_chaos": tuple(self.kernel_chaos),
             "device": self.device_name,
@@ -460,6 +501,24 @@ class EnsembleResult:
                 "quorum_dark_fraction": self.quorum_dark_fraction,
                 "leader_changes_total": self.leader_changes,
                 "time_without_leader_fraction": self.time_without_leader_fraction,
+            },
+            # Trace ingestion, present (all zero) for a run without a
+            # trace too.
+            "trace": {
+                "enabled": self.trace,
+                "chunks_streamed": self.trace_chunks_streamed,
+                "chunk_len": self.trace_chunk_len,
+                "n_chunks": self.trace_n_chunks,
+                "max_resident_chunks": self.trace_max_resident_chunks,
+                "buffer_stall_seconds": self.trace_buffer_stall_seconds,
+                "stream_steps": self.trace_stream_steps,
+                "tenant_arrivals": list(self.trace_tenant_arrivals),
+                # The share of the run's wall a launch waited on a page.
+                "stall_fraction": (
+                    self.trace_buffer_stall_seconds / self.wall_seconds
+                    if self.wall_seconds > 0
+                    else 0.0
+                ),
             },
         }
 
@@ -652,6 +711,23 @@ class _Compiled:
             ],
             np.float32,
         )
+        # Trace-driven arrivals: the padded host arrays stay on the host,
+        # and the stream loop pages them to the device two at a time.
+        self.trace_src = model.traced_source_index()
+        self.has_trace = self.trace_src is not None
+        self.trace = None
+        self.n_tenants = 0
+        if self.has_trace:
+            trace = model.sources[self.trace_src].trace
+            self.trace = trace
+            self.trace_times = trace.padded_times()  # +inf padded
+            self.trace_tenants = trace.padded_tenants()
+            self.trace_chunk_len = int(trace.chunk_len)
+            self.trace_pages = int(trace.n_chunks)
+            self.n_tenants = int(trace.n_tenants)
+            # The traced source's first arrival (no page is resident at
+            # init).
+            self.trace_first_time = float(trace.times[0])
         self.lim_rate = np.array(
             [lim.refill_rate for lim in model.limiters] or [1.0], np.float32
         )
@@ -689,9 +765,9 @@ class _Compiled:
         ``tel_*`` leaf and every site exists only when the model carries
         a spec, so a model without one builds the state and the kernel
         arguments it built before. The counter keys are those of the
-        features the port runs, in JAX's order; the trace counters come
-        with ROADMAP A.12. The quorum's dark time and the leader's uptime
-        per window are sweep outputs at init, not keys here."""
+        features the port runs, in JAX's order. The quorum's dark time
+        and the leader's uptime per window are sweep outputs at init, not
+        keys here."""
         self.telemetry = model.telemetry_spec
         self.has_telemetry = self.telemetry is not None
         # Every tel_* leaf the model has.
@@ -755,6 +831,9 @@ class _Compiled:
                 keys.append("tel_net_partitioned")
             if self.has_quorum:
                 keys.append("tel_qrm_dropped")
+            # The traced arrivals per (window, tenant).
+            if self.has_trace:
+                keys.append("tel_trc_arrivals")
         self.tel_keys = frozenset(keys)
 
     def _tel_init_state(self, R: int, dev) -> dict:
@@ -766,6 +845,7 @@ class _Compiled:
             "tel_sink_hist": (nW, nK, HIST_BINS),
             "tel_lim_admitted": (nW, nL), "tel_lim_dropped": (nW, nL),
             "tel_net_lost": (nW,), "tel_net_partitioned": (nW,),
+            "tel_trc_arrivals": (nW, self.n_tenants),
         }
         state = {}
         for key in sorted(self.tel_keys):
@@ -1020,6 +1100,11 @@ class _Compiled:
         nV, C, K, nK, nR, nL = self.nV, self.C, self.K, self.nK, self.nR, self.nL
         f32, i32 = torch.float32, torch.int32
         gaps = self._initial_gaps(keys, params)
+        if self.has_trace:
+            # The traced source's first arrival is the trace's first
+            # instant; its gap draw is discarded, so every other draw
+            # keeps its slot.
+            gaps[:, self.trace_src] = float(np.float32(self.trace_first_time))
         stop = torch.as_tensor(self.stop_after, device=dev)
         gaps = torch.where(gaps > stop, torch.full_like(gaps, INF), gaps)
         state = {
@@ -1106,6 +1191,13 @@ class _Compiled:
         if self.has_quorum or self.has_leader:
             # Pure functions of the members' dark windows: swept once.
             state.update(self._consensus_sweeps(state))
+        if self.has_trace:
+            # The read cursor (arrivals fired), the lane's own block count
+            # (its RNG stream index, so stalls and resumes never shift
+            # the keys), and the arrivals per tenant.
+            state["trc_cursor"] = torch.zeros((R,), dtype=torch.uint32, device=dev)
+            state["trc_blocks"] = torch.zeros((R,), dtype=i32, device=dev)
+            state["trc_arrivals"] = torch.zeros((R, self.n_tenants), dtype=i32, device=dev)
         if self.has_telemetry:
             state.update(self._tel_init_state(R, dev))
         return state
@@ -1900,13 +1992,41 @@ class _Compiled:
             ring.scatter_(1, flat, torch.where(desc["pred"], value, current)[:, None])
 
     # -- event branches ----------------------------------------------------
-    def _fire_source(self, i: int, state, desc, lanes, t, u, params):
+    def _fire_source(self, i: int, state, desc, lanes, t, u, params, trace_ctx=None):
+        if trace_ctx is not None and i == self.trace_src:
+            self._fire_trace_source(i, state, desc, lanes, t, u, params, trace_ctx)
+            return
         gap = self._sample_gap(u, i, t, params)
         next_time = t + gap
         stopped = next_time > _f32(self.stop_after[i], t.device)
         src_next = state["src_next"][:, i]
         fired = torch.where(stopped, torch.full_like(next_time, INF), next_time)
         state["src_next"][:, i] = torch.where(lanes, fired, src_next)
+        source = self.model.sources[i]
+        self._deliver(state, desc, lanes, t, t, u, source.downstream, source.latency, params)
+
+    def _fire_trace_source(self, i: int, state, desc, lanes, t, u, params, trace_ctx):
+        """Fire the traced source (JAX ``_fire_trace_source``): count the
+        arrival at the cursor for its tenant, advance the cursor, and read
+        the next instant from the resident pages; ``+inf`` padding past
+        the trace's end, or an instant past ``stop_after``, stops the
+        source. ``trace_ctx = (resident_t, resident_g, base)``: the two
+        resident pages' ``(2P,)`` times and tenants, and the absolute
+        index of their first arrival. Offsets are clipped into the window,
+        as JAX clips them for the lanes its vmap evaluates without firing.
+        No uniform is consumed."""
+        resident_t, resident_g, base = trace_ctx
+        span = resident_t.shape[0]
+        cursor = state["trc_cursor"].to(torch.int64)
+        tenant = resident_g[torch.clamp(cursor - base, 0, span - 1)].long()
+        advanced = cursor + 1
+        next_time = resident_t[torch.clamp(advanced - base, 0, span - 1)]
+        stopped = next_time > _f32(self.stop_after[i], t.device)
+        state["trc_cursor"].copy_(torch.where(lanes, advanced, cursor).to(torch.uint32))
+        state["trc_arrivals"].scatter_add_(1, tenant[:, None], lanes.to(torch.int32)[:, None])
+        self._tel_count(state, "tel_trc_arrivals", t, tenant, lanes)
+        fired = torch.where(stopped, torch.full_like(next_time, INF), next_time)
+        state["src_next"][:, i] = torch.where(lanes, fired, state["src_next"][:, i])
         source = self.model.sources[i]
         self._deliver(state, desc, lanes, t, t, u, source.downstream, source.latency, params)
 
@@ -2060,21 +2180,24 @@ class _Compiled:
         t_min = torch.amin(self.next_candidates(state), dim=1)
         return torch.isinf(t_min) | (t_min > _f32(self.horizon, t_min.device))
 
-    def make_step(self, horizon: Optional[float] = None):
-        """The one-event step ``step(state, params, u)`` over all replicas,
-        with ``u`` the ``(R, n_draws)`` uniform row; it updates ``state``
-        in place. A replica whose next event lies past ``horizon`` (or
-        which has none) is left unchanged."""
+    def make_step(self, horizon: Optional[float] = None, trace_ctx=None):
+        """The one-event step ``step(state, params, u, gate=None)`` over
+        all replicas, with ``u`` the ``(R, n_draws)`` uniform row; it
+        updates ``state`` in place. A replica whose next event lies past
+        ``horizon`` (or which has none), or outside the ``(R,)`` bool
+        ``gate`` where one is given, is left unchanged. ``trace_ctx``:
+        the resident trace pages a traced model's step reads
+        (:meth:`_fire_trace_source`)."""
         horizon = self.horizon if horizon is None else float(horizon)
         nS = self.nS
 
-        def step(state, params, u):
+        def step(state, params, u, gate=None):
             dev = u.device
             candidates = self.next_candidates(state)
             event_index = torch.argmin(candidates, dim=1)
             t_next = candidates.gather(1, event_index[:, None])[:, 0]
             done = torch.isinf(t_next) | (t_next > _f32(horizon, dev))
-            live = ~done
+            live = ~done if gate is None else gate & ~done
 
             # process: the depth integral over the measured (post-warmup)
             # part of the interval, then the clock and the event count.
@@ -2109,7 +2232,9 @@ class _Compiled:
             if self.has_attempts:
                 desc["attempt"] = torch.zeros((R,), dtype=torch.int32, device=dev)
             for i in range(nS):
-                self._fire_source(i, state, desc, live & (event_index == i), t, u, params)
+                self._fire_source(
+                    i, state, desc, live & (event_index == i), t, u, params, trace_ctx
+                )
             nV_real = len(self.model.servers)
             for v in range(nV_real):
                 self._complete_server(
@@ -2165,6 +2290,9 @@ def _source_jobs(model: EnsembleModel, source, rate: float) -> float:
         if source.stop_after_s is not None
         else model.horizon_s
     )
+    if source.trace is not None:
+        # A trace is exact: the instants inside the active window.
+        return float(np.searchsorted(source.trace.times, window, side="right"))
     if source.profile is not None and source.profile.kind != "constant":
         # Trapezoid over the profile (the integral the tables encode).
         grid = np.linspace(0.0, window, 256)
@@ -2329,6 +2457,7 @@ RESUME_EXCLUDED_FIELDS = frozenset({
     "events_per_second",
     "compile_seconds",
     "engine_path",
+    "kernel_decline",
     "macro_block",
     "max_blocks",
     "blocks_total",
@@ -2348,14 +2477,28 @@ def _same_value(left, right) -> bool:
     return left == right
 
 
-def resume_mismatches(a: EnsembleResult, b: EnsembleResult) -> list[str]:
-    """The fields outside :data:`RESUME_EXCLUDED_FIELDS` on which two
-    results differ (bit for bit; a window series field by field): empty
-    where a segmented or resumed run continued its twin exactly."""
+# The trace fields that account for the paging, not the simulation: a
+# traced run resumed from a snapshot, or paged in other lengths, streams
+# other pages in another number of steps and gives the same bits.
+TRACE_PAGING_FIELDS = frozenset({
+    "trace_chunks_streamed",
+    "trace_chunk_len",
+    "trace_n_chunks",
+    "trace_max_resident_chunks",
+    "trace_buffer_stall_seconds",
+    "trace_stream_steps",
+})
+
+
+def resume_mismatches(a: EnsembleResult, b: EnsembleResult, ignore=frozenset()) -> list[str]:
+    """The fields outside :data:`RESUME_EXCLUDED_FIELDS` and ``ignore``
+    on which two results differ (bit for bit; a window series field by
+    field): empty where a segmented or resumed run continued its twin
+    exactly. Traced runs pass :data:`TRACE_PAGING_FIELDS` as ``ignore``."""
     return [
         f.name
         for f in dataclasses.fields(a)
-        if f.name not in RESUME_EXCLUDED_FIELDS
+        if f.name not in RESUME_EXCLUDED_FIELDS | ignore
         and not _same_value(getattr(a, f.name), getattr(b, f.name))
     ]
 
@@ -2475,6 +2618,222 @@ def _run_ensemble_segmented(
             last_snapshot = _wall.perf_counter()
 
 
+class _TracePages:
+    """The padded trace's pages on the run's device: a ring of three page
+    slots, filled from one pinned host copy of the trace made once a run.
+    A launch reads two pages, ``base`` and ``base + 1``; the third slot
+    takes the prefetch of ``base + 2`` while that launch runs, so an
+    upload never overwrites a page a running launch reads. On the card
+    each upload is a non-blocking copy on a side stream, ordered by
+    events: a launch waits for the uploads of the pages it reads, and an
+    upload into a slot waits for the last launch that read the slot. A
+    page the window needs and no slot holds (a miss) is uploaded and
+    waited for at once, its time counted as a buffer stall. Pages past
+    the trace's end are ``+inf`` padding, the end-of-trace sentinel. On
+    the CPU the copies are plain."""
+
+    SLOTS = 3
+
+    def __init__(self, compiled: "_Compiled", device: torch.device):
+        P = self.P = compiled.trace_chunk_len
+        self.n_pages = compiled.trace_pages
+        self.on_card = device.type == "cuda"
+        self.device = device
+        host = [
+            torch.from_numpy(compiled.trace_times),
+            torch.from_numpy(compiled.trace_tenants),
+            torch.full((P,), INF, dtype=torch.float32),
+            torch.zeros((P,), dtype=torch.int32),
+        ]
+        if self.on_card:
+            host = [x.pin_memory() for x in host]
+        self.host = host
+        self.times = torch.empty((self.SLOTS, P), dtype=torch.float32, device=device)
+        self.tenants = torch.empty((self.SLOTS, P), dtype=torch.int32, device=device)
+        self.page = [-1] * self.SLOTS  # the page each slot holds
+        self.copied = [None] * self.SLOTS  # event: the slot's upload done
+        self.read = [None] * self.SLOTS  # event: the last launch reading it done
+        self.stream = torch.cuda.Stream(device) if self.on_card else None
+        self.slots: tuple = ()
+        self.chunks_streamed = 0
+        self.stall_seconds = 0.0
+
+    def _upload(self, idx: int, keep: tuple) -> int:
+        """Page ``idx`` into the slot holding the lowest page outside
+        ``keep``; returns the slot."""
+        free = [s for s in range(self.SLOTS) if self.page[s] not in keep]
+        slot = min(free, key=self.page.__getitem__)
+        rows = slice(idx * self.P, (idx + 1) * self.P)
+        if idx < self.n_pages:
+            times, tenants = self.host[0][rows], self.host[1][rows]
+        else:
+            times, tenants = self.host[2], self.host[3]
+        if self.on_card:
+            with torch.cuda.stream(self.stream):
+                if self.read[slot] is not None:
+                    self.stream.wait_event(self.read[slot])
+                self.times[slot].copy_(times, non_blocking=True)
+                self.tenants[slot].copy_(tenants, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            self.copied[slot] = done
+        else:
+            self.times[slot].copy_(times)
+            self.tenants[slot].copy_(tenants)
+        self.page[slot] = idx
+        self.chunks_streamed += 1
+        return slot
+
+    def prefetch(self, idx: int, keep: tuple) -> None:
+        """Start the upload of page ``idx`` unless a slot holds it, keeping
+        the pages of ``keep``."""
+        if idx not in self.page:
+            self._upload(idx, keep)
+
+    def window(self, base_page: int) -> tuple:
+        """The ``(t0, g0, t1, g1)`` pages ``base_page`` and ``base_page +
+        1`` for the next launch, which waits (on the card) for their
+        uploads; a page no slot holds is a miss."""
+        keep = (base_page, base_page + 1)
+        slots = []
+        for idx in keep:
+            if idx in self.page:
+                slots.append(self.page.index(idx))
+                continue
+            begin = _wall.perf_counter()
+            slot = self._upload(idx, keep)
+            if self.on_card:
+                self.copied[slot].synchronize()
+            self.stall_seconds += _wall.perf_counter() - begin
+            slots.append(slot)
+        if self.on_card:
+            current = torch.cuda.current_stream(self.device)
+            for slot in slots:
+                current.wait_event(self.copied[slot])
+        self.slots = tuple(slots)
+        first, second = slots
+        return self.times[first], self.tenants[first], self.times[second], self.tenants[second]
+
+    def launched(self) -> None:
+        """Mark the window's slots read by the launch just issued."""
+        if self.on_card:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            for slot in self.slots:
+                self.read[slot] = done
+
+    def resident(self, base_page: int) -> int:
+        """The pages of the window at ``base_page`` a slot holds."""
+        return sum(base_page <= p <= base_page + 1 for p in self.page)
+
+    def close(self) -> None:
+        """Order the ring's release after any upload still in flight."""
+        if self.on_card:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+
+def _trace_base_page(compiled: "_Compiled", state: dict, n_chunks: int) -> int:
+    """The window a resumed traced run starts from: the page of the least
+    cursor among the lanes still reading the trace in the snapshot
+    (``state``, numpy). Halted lanes are included: a base too low costs
+    at most one stream step without progress, never a wrong read."""
+    cursor = np.asarray(state["trc_cursor"], np.uint32).astype(np.int64)
+    blocks = np.asarray(state["trc_blocks"], np.int32)
+    reads = np.isfinite(np.asarray(state["src_next"], np.float32)[:, compiled.trace_src])
+    reads &= blocks < n_chunks
+    return int(cursor[reads].min()) // compiled.trace_chunk_len if reads.any() else 0
+
+
+def _run_ensemble_traced(
+    compiled: "_Compiled",
+    state: dict,
+    keys: torch.Tensor,
+    params: dict,
+    *,
+    base_page: int,
+    n_chunks: int,
+    checkpoint_every_s: Optional[float],
+    checkpoint_callback,
+    meta: Optional[dict],
+) -> dict:
+    """The trace path (the JAX engine's ``_run_ensemble_traced``): the
+    trace is paged to the device in pages of ``P = chunk_len`` arrivals
+    (:class:`_TracePages`), two resident, and each stream step is one
+    :func:`~happysim_tpu_torch.kernels.event_step.trace_steps` call (one
+    kernel launch on the card) in which every replica runs stall-gated
+    blocks against the resident window, updating ``state`` in place.
+    Then comes the step's one host sync, three numbers: the lanes still
+    reading the trace, the least cursor among them, and the least block
+    count. The window moves on to the least cursor's page; the prefetch
+    of the page after the window is issued before that sync, so that it
+    overlaps the launch. A lane reading the trace is stalled at the end
+    of a step, so its cursor is at least ``base + P`` and the window
+    always moves on, except on the first step after a resume whose base
+    a halted lane held back (then it moves one page). Each lane keys its
+    blocks by its own count, so the result does not depend on the paging.
+
+    With a callback, a mid-chunk snapshot of the state is taken after a
+    step (``chunk_index`` the least block count; ``meta`` holds the
+    checkpoint's other fields) where ``checkpoint_every_s`` has passed (0
+    or None: after every step), while lanes still read the trace.
+    Returns the paging counts."""
+    P, ti = compiled.trace_chunk_len, compiled.trace_src
+    pages = _TracePages(compiled, state["t"].device)
+    pages.prefetch(base_page, ())
+    pages.prefetch(base_page + 1, (base_page,))
+    stats = {"max_resident_chunks": 2, "stream_steps": 0}
+    every = (
+        checkpoint_every_s
+        if checkpoint_every_s is not None
+        else (0.0 if checkpoint_callback is not None else None)
+    )
+    last_snapshot = _wall.perf_counter()
+    try:
+        while True:
+            window = pages.window(base_page)
+            halted = event_step.trace_steps(
+                compiled, state, keys, params, window, base_page * P, n_chunks
+            )
+            pages.launched()
+            stats["stream_steps"] += 1
+            reads = (
+                torch.isfinite(state["src_next"][:, ti])
+                & (state["trc_blocks"] < n_chunks)
+                & ~halted
+            )
+            cursor = state["trc_cursor"].to(torch.int64)
+            summary = torch.stack([
+                reads.sum().to(torch.int64),
+                torch.where(reads, cursor, torch.full_like(cursor, 0xFFFFFFFF)).min(),
+                state["trc_blocks"].min().to(torch.int64),
+            ])
+            pages.prefetch(base_page + 2, (base_page, base_page + 1))
+            active, min_read, min_blocks = summary.tolist()  # the step's one sync
+            due = every is not None and _wall.perf_counter() - last_snapshot >= every
+            if checkpoint_callback is not None and due and active > 0:
+                checkpoint_callback(
+                    EnsembleCheckpoint(
+                        chunk_index=int(min_blocks),
+                        n_chunks=n_chunks,
+                        state=convert.state_to_numpy(state),
+                        **meta,
+                    )
+                )
+                last_snapshot = _wall.perf_counter()
+            if active == 0:
+                break
+            new_page = int(min_read) // P
+            base_page = new_page if new_page != base_page else base_page + 1
+            stats["max_resident_chunks"] = max(
+                stats["max_resident_chunks"], pages.resident(base_page)
+            )
+    finally:
+        pages.close()
+    stats["chunks_streamed"] = pages.chunks_streamed
+    stats["buffer_stall_seconds"] = pages.stall_seconds
+    return stats
+
+
 def run_ensemble(
     model: EnsembleModel,
     n_replicas: int = 8192,
@@ -2501,6 +2860,11 @@ def run_ensemble(
     bit. Such a run is the event scan in ``CHECKPOINT_SEGMENTS``
     segments, one kernel launch each, and its ``wall_seconds`` include
     the snapshots' copies; a resumed run counts only its own blocks.
+
+    A model with a traced source streams its trace in pages, one
+    stall-gated kernel launch a stream step (:func:`_run_ensemble_traced`);
+    its snapshots are taken mid-chunk between steps, and its block counts
+    are each lane's own.
 
     As in the JAX engine, a call with no ``max_events`` runs a
     Poisson -> FIFO chain -> sink model, or a single random or round-robin
@@ -2571,6 +2935,13 @@ def run_ensemble(
                 )
     if on_card:
         support.check_kernel_bounds(compiled, macro)
+    if compiled.has_trace and compiled.trace_chunk_len < macro:
+        raise ValueError(
+            f"trace_arrivals: chunk_len={compiled.trace_chunk_len} is smaller than the "
+            f"macro-block length {macro} — a replica could stall with "
+            "the window unable to cover one block (deadlock). Raise "
+            "chunk_len or lower macro_block/HS_TPU_MACRO_BLOCK."
+        )
 
     compile_start = _wall.perf_counter()
     if on_card:
@@ -2583,7 +2954,26 @@ def run_ensemble(
     keys = rng.split(rng.PRNGKey(seed, device=device), n_replicas)
     # Each lane counts a block iff it was live when the block began.
     blocks = torch.zeros((n_replicas,), dtype=torch.int32, device=device)
-    if not checkpointing:
+    trace_stats = None
+    if compiled.has_trace:
+        meta = _checkpoint_meta(compiled, n_replicas, seed, max_events, host_params)
+        if resume_from is not None:
+            state = _resume_state(compiled, resume_from, keys, params, meta, n_chunks, device)
+            base_page = _trace_base_page(compiled, resume_from.state, n_chunks)
+        else:
+            state = compiled.init_state(keys, params)
+            base_page = 0
+        trace_stats = _run_ensemble_traced(
+            compiled, state, keys, params,
+            base_page=base_page,
+            n_chunks=n_chunks,
+            checkpoint_every_s=checkpoint_every_s,
+            checkpoint_callback=checkpoint_callback,
+            meta=meta,
+        )
+        # Each lane's own block count rides the state on this path.
+        blocks = state["trc_blocks"]
+    elif not checkpointing:
         # The whole budget in one call: on the card one kernel launch, in
         # which each lane runs its blocks until it halts; nothing waits
         # for the device before the reduce.
@@ -2591,29 +2981,9 @@ def run_ensemble(
         if n_chunks:
             event_step.block_steps(compiled, state, keys, 0, n_chunks, params, blocks)
     else:
-        meta = {
-            "n_replicas": n_replicas,
-            "seed": seed,
-            "max_events": int(max_events),
-            "model_fingerprint": model_fingerprint(model),
-            "params_fingerprint": params_fingerprint(host_params),
-            "macro_block": macro,
-            "telemetry": compiled.telemetry.signature() if compiled.has_telemetry else "",
-            "mesh_devices": 1,
-        }
+        meta = _checkpoint_meta(compiled, n_replicas, seed, max_events, host_params)
         if resume_from is not None:
-            # The leaf names of this run's state, from one replica's.
-            template = compiled.init_state(keys[:1], {k: v[:1] for k, v in params.items()})
-            _validate_resume(
-                resume_from,
-                template,
-                n_chunks=n_chunks,
-                fingerprint=meta["model_fingerprint"],
-                p_fingerprint=meta["params_fingerprint"],
-                telemetry_sig=meta["telemetry"],
-                **{k: meta[k] for k in ("n_replicas", "seed", "max_events", "macro_block")},
-            )
-            state = convert.state_from_numpy(resume_from.state, device)
+            state = _resume_state(compiled, resume_from, keys, params, meta, n_chunks, device)
             chunk_done = resume_from.chunk_index
         else:
             state = compiled.init_state(keys, params)
@@ -2641,12 +3011,57 @@ def run_ensemble(
         max_events,
         compile_seconds=compile_seconds,
         engine_path="scan+cuda" if on_card else "scan",
+        kernel_decline="" if on_card else _cpu_decline(compiled, macro),
         kernel_shape=compiled.plan["shape"] if on_card else "",
         kernel_chaos=compiled.plan["chaos"] if on_card else (),
         macro_block=macro,
         max_blocks=n_chunks,
         device_name=device_name,
+        trace_stats=trace_stats,
     )
+
+
+def _cpu_decline(compiled: "_Compiled", macro: int) -> str:
+    """Why a CPU run did not launch the kernel: the device, and the
+    kernel's bound the model is past, where it is past one."""
+    try:
+        support.check_kernel_bounds(compiled, macro)
+    except ValueError as exc:
+        return f'device="cpu"; {exc}'
+    return 'device="cpu"'
+
+
+def _checkpoint_meta(
+    compiled: "_Compiled", n_replicas: int, seed: int, max_events, host_params: dict
+) -> dict:
+    """The fields of a run's snapshots besides the state and the chunk."""
+    return {
+        "n_replicas": n_replicas,
+        "seed": seed,
+        "max_events": int(max_events),
+        "model_fingerprint": model_fingerprint(compiled.model),
+        "params_fingerprint": params_fingerprint(host_params),
+        "macro_block": compiled.macro,
+        "telemetry": compiled.telemetry.signature() if compiled.has_telemetry else "",
+        "mesh_devices": 1,
+    }
+
+
+def _resume_state(compiled, resume_from, keys, params, meta: dict, n_chunks: int, device) -> dict:
+    """The snapshot's state on ``device``, after JAX's resume checks
+    against this run (``meta``, :func:`_checkpoint_meta`)."""
+    # The leaf names of this run's state, from one replica's.
+    template = compiled.init_state(keys[:1], {k: v[:1] for k, v in params.items()})
+    _validate_resume(
+        resume_from,
+        template,
+        n_chunks=n_chunks,
+        fingerprint=meta["model_fingerprint"],
+        p_fingerprint=meta["params_fingerprint"],
+        telemetry_sig=meta["telemetry"],
+        **{k: meta[k] for k in ("n_replicas", "seed", "max_events", "macro_block")},
+    )
+    return convert.state_from_numpy(resume_from.state, device)
 
 
 def _build_result(
@@ -2659,11 +3074,13 @@ def _build_result(
     max_events=None,
     compile_seconds: float = 0.0,
     engine_path: str = "scan",
+    kernel_decline: str = "",
     kernel_shape: str = "",
     kernel_chaos: tuple = (),
     macro_block: int = 0,
     max_blocks: int = 0,
     device_name: str = "",
+    trace_stats: Optional[dict] = None,
 ) -> EnsembleResult:
     """Decode the device-reduced totals into an :class:`EnsembleResult`
     (for the event scan and the chain form, which emits the same keys and
@@ -2767,6 +3184,7 @@ def _build_result(
         consensus_features=tuple(model.consensus_features()),
         compile_seconds=compile_seconds,
         engine_path=engine_path,
+        kernel_decline=kernel_decline,
         kernel_shape=kernel_shape,
         kernel_chaos=tuple(kernel_chaos),
         macro_block=macro_block,
@@ -2776,6 +3194,20 @@ def _build_result(
         padded_replicas=n_replicas,
         device_name=device_name,
         timeseries=timeseries,
+        trace=compiled.has_trace,
+        trace_chunks_streamed=int(trace_stats["chunks_streamed"]) if trace_stats else 0,
+        trace_chunk_len=compiled.trace_chunk_len if compiled.has_trace else 0,
+        trace_n_chunks=compiled.trace_pages if compiled.has_trace else 0,
+        trace_max_resident_chunks=int(trace_stats["max_resident_chunks"]) if trace_stats else 0,
+        trace_buffer_stall_seconds=(
+            float(trace_stats["buffer_stall_seconds"]) if trace_stats else 0.0
+        ),
+        trace_stream_steps=int(trace_stats["stream_steps"]) if trace_stats else 0,
+        # Every replica replays the same trace: n_replicas times the
+        # trace's arrivals per tenant, where the budget let them all fire.
+        trace_tenant_arrivals=(
+            [int(x) for x in host["trc_arrivals"]] if "trc_arrivals" in host else []
+        ),
     )
 
 

@@ -20,13 +20,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # One library per source: the event-step kernel without telemetry or
 # resilience, its telemetry instantiations, its resilience instantiations,
 # its consensus instantiations, its instantiations for several sources or
-# sinks, the standalone draw kernel and the M/M/1 ensemble's Lindley scan.
+# sinks, its trace-driven instantiations, the standalone draw kernel and
+# the M/M/1 ensemble's Lindley scan.
 SOURCES = (
     CSRC / "event_step.cu",
     CSRC / "event_step_telemetry.cu",
     CSRC / "event_step_resilience.cu",
     CSRC / "event_step_consensus.cu",
     CSRC / "event_step_multi.cu",
+    CSRC / "event_step_trace.cu",
     CSRC / "uniform.cu",
     CSRC / "mm1_scan.cu",
 )

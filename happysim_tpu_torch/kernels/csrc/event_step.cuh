@@ -25,8 +25,8 @@
 // one sink, whose code keeps only source 0's next arrival and sink 0's
 // accumulators, in registers.
 //
-// event_step_kernel<MAXV, GRAPH, EXT, CHAOS, TEL, RES, CON, MULTI> has
-// fourteen instantiations per server bound:
+// event_step_kernel<MAXV, GRAPH, EXT, CHAOS, TEL, RES, CON, MULTI, TRC>
+// has seventeen instantiations per server bound:
 // - GRAPH = false, the "mm1" and "chain" shapes (lines of servers joined
 //   by free edges, or a source wired straight to the sink): a delivery is
 //   a server arrival or the sink;
@@ -88,10 +88,27 @@
 //   several sources or sinks: the whole chaos code with every feature's
 //   sites, each taken only where the model has the feature (a null leaf,
 //   an unset flag), so one instantiation per server bound runs any model
-//   with them.
-// Everything GRAPH, EXT, CHAOS, TEL, RES, CON and MULTI add sits under `if
-// constexpr`, so the line, flat, extended, chaos and telemetry
+//   with them;
+// - TRC = true (built from event_step_trace.cu into a sixth library, as
+//   <MAXV, true, true, false, TEL, false, false, false, true> for a
+//   single-source traced model without chaos, and as the MULTI code with
+//   it for every other traced model) replays a trace: the traced source's
+//   fire reads its next instant and the arrival's tenant from the two
+//   resident pages of the trace (HsTrc) instead of drawing a gap, and a
+//   lane enters a block only while its block budget lasts and while the
+//   block cannot read past the resident pages (the stall gate). A stalled
+//   lane leaves the launch unhalted and resumes in the next one, after
+//   the host has moved the window on. Each lane keys its blocks by its own
+//   block count (trc_blocks), not by the launch's first block, so the
+//   bits do not depend on the paging.
+// Everything GRAPH, EXT, CHAOS, TEL, RES, CON, MULTI and TRC add sits under
+// `if constexpr`, so the line, flat, extended, chaos and telemetry
 // instantiations compile to the code they had without them.
+//
+// The trace pages. Lanes of a warp fire the traced source at nearby
+// cursors of one small page, so the pages are read from device memory
+// through the read-only cache (__ldg): two words a fire, against the
+// dozens of dependent loads of a step.
 //
 // The profile tables. JAX hoists the (G,) time and cumulative grids as
 // tile-shared kernel operands (const_spec), read once per tile. Here the
@@ -407,6 +424,27 @@ struct HsCon {
   int qrm_retry;             // bit v: a member whose rejections retry after a backoff
 };
 
+// Trace-driven arrivals (TRC instantiations): the traced source's leaves,
+// replica major in the JAX layout, and the two resident pages of the
+// trace, the window [base, base + 2P) of its arrivals. The layout must
+// match kernels/event_step.py::_Trc.
+struct HsTrc {
+  uint32_t* cursor;   // (R,) arrivals fired, the read cursor
+  int* blocks;        // (R,) blocks run, the lane's RNG stream index
+  int* arrivals;      // (R, nT) arrivals per tenant
+  int* tel_arrivals;  // (R, nW, nT), null without telemetry rates
+  const float* t0;    // (P,) the times of the page at base
+  const int* g0;      // (P,) its tenants
+  const float* t1;    // (P,) the next page's times
+  const int* g1;      // (P,) its tenants
+  int on;             // 1: a traced source
+  int src;            // the traced source's index
+  int base;           // the absolute index of t0[0]
+  int P;              // arrivals a page
+  int nT;             // tenants
+  int n_chunks;       // the run's block budget per lane
+};
+
 // Launch arguments. The layout must match kernels/event_step.py::_Args.
 struct EventStepArgs {
   // state leaves, replica-major, JAX layout
@@ -523,14 +561,16 @@ struct EventStepArgs {
   HsRes res;
   // CON only
   HsCon con;
+  // TRC only
+  HsTrc trc;
   // The rows staged in shared memory (kernels/support.py::stage_plan).
   HsStage stage;
 };
 
 // The struct is passed by value as a __grid_constant__ kernel parameter.
-// With the resilience constants it passes the classic 4 KB (about 4.5 KB
-// with the sources' and the consensus tier's); CUDA 12.1 lifted the limit
-// to 32,764 bytes on Volta and later (sm_90a included).
+// With the resilience constants it passes the classic 4 KB (4,808 bytes
+// with the sources', the consensus tier's and the trace's); CUDA 12.1
+// lifted the limit to 32,764 bytes on Volta and later (sm_90a included).
 static_assert(sizeof(EventStepArgs) <= 32764,
               "event-step arguments exceed the 32,764-byte kernel-parameter limit");
 
@@ -799,6 +839,39 @@ __device__ __forceinline__ int tel_window(const HsTel& T, float t) {
 __device__ __forceinline__ void tel_count(int* buf, const HsTel& T, size_t row, int width,
                                           float t, int i) {
   if (buf) buf[(row + tel_window(T, t)) * width + i] += 1;
+}
+
+// A read of the trace pages through the read-only cache (a plain load in
+// the host build).
+template <typename T>
+__device__ __forceinline__ T hs_ldg(const T* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// TRC: the traced source's fire (JAX _fire_trace_source). The arrival at
+// the cursor counts for its tenant (and, with TEL, in the window of t),
+// the cursor advances, and the next instant is read from the resident
+// pages: +inf padding past the trace's end, or an instant past
+// stop_after, stops the source. Both offsets are clipped into the window
+// [base, base + 2P), as JAX clips them; the stall gate keeps a firing
+// lane inside it. Returns the source's next arrival.
+template <bool TEL>
+__device__ __forceinline__ float trace_fire(const EventStepArgs& a, size_t r, size_t tel_row,
+                                            float t, uint32_t& cursor, float stop_after) {
+  const HsTrc& T = a.trc;
+  const int span = 2 * T.P;
+  const int off = min(max((int)cursor - T.base, 0), span - 1);
+  const int tenant = off < T.P ? hs_ldg(T.g0 + off) : hs_ldg(T.g1 + (off - T.P));
+  cursor += 1u;
+  const int next = min(max((int)cursor - T.base, 0), span - 1);
+  const float at = next < T.P ? hs_ldg(T.t0 + next) : hs_ldg(T.t1 + (next - T.P));
+  T.arrivals[r * T.nT + tenant] += 1;
+  if constexpr (TEL) tel_count(T.tel_arrivals, a.tel, tel_row, T.nT, t, tenant);
+  return at > stop_after ? INFINITY : at;
 }
 
 // A time integral (JAX _tel_overlap): [lo, hi) split over the windows it
@@ -1544,7 +1617,7 @@ __device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_
   (HS_REG_CAP && (MAXV) <= 4 && !(CHAOS) ? 65536 / (128 * HS_THREADS) : 1)
 
 template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false, bool RES = false,
-          bool CON = false, bool MULTI = false>
+          bool CON = false, bool MULTI = false, bool TRC = false>
 __global__ void __launch_bounds__(HS_THREADS, HS_MIN_BLOCKS(MAXV, CHAOS))
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1656,6 +1729,13 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   L.sk_sum = a.sink_sum[sink_row];
   L.sk_sq = a.sink_sq[sink_row];
   const float rate0 = a.src_rate[src_row];  // source 0's rate
+  // TRC: the lane's read cursor and its block count.
+  uint32_t trc_cursor = 0;
+  int trc_blocks = 0;
+  if constexpr (TRC) {
+    trc_cursor = a.trc.cursor[r];
+    trc_blocks = a.trc.blocks[r];
+  }
 
   int ran = 0;  // blocks this lane ran
   for (int c = 0; c < a.n_blocks; ++c) {
@@ -1663,9 +1743,21 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     // has none) is halted for good and runs no further block.
     const float next = next_event_time<MAXV, GRAPH>(L, src_next);
     if (isinf(next) || next > a.horizon) break;
+    unsigned block = a.block + (unsigned)c;
+    if constexpr (TRC) {
+      // The stream step's gate: the lane's block budget, and the stall.
+      // A lane whose traced source is live and whose block could read
+      // past the resident pages leaves unhalted, frozen until the next
+      // launch; the block is keyed by the lane's own count.
+      if (trc_blocks >= a.trc.n_chunks) break;
+      const float traced = nS == 1 ? src_next : a.src_next[src_row + a.trc.src];
+      if (isfinite(traced) && (int)trc_cursor + a.macro >= a.trc.base + 2 * a.trc.P) break;
+      block = (unsigned)trc_blocks;
+      trc_blocks += 1;
+    }
     // The block's key, folded once: the draws of step k are elements
     // k * n_draws + slot of its uniforms.
-    const HsKey block_key = hs_fold_in(key, a.block + (unsigned)c);
+    const HsKey block_key = hs_fold_in(key, block);
     L.drawn += 1;
     ran += 1;
     for (int k = 0; k < a.macro; ++k) {
@@ -1710,20 +1802,29 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       bool forward = true;            // CHAOS: false once a deadline expired
       if (ev < 0) {  // _fire_source of the earliest source
         const HsSrc& S = a.src[src];
-        const float rate = !MULTI || src == 0 ? rate0 : a.src_rate[src_row + src];
-        bool profiled = false;
-        if constexpr (EXT) profiled = S.prof_row >= 0;
-        float gap;
-        if (profiled) {
-          const int n = a.prof_n;
-          const float* times = hs_tables + (size_t)2 * n * S.prof_row;
-          const float inc = S.poisson ? -logf(u[a.u_gap]) : 1.0f;
-          gap = invert_profile(n, S.prof_end_rate, times, times + n, t, inc);
+        bool traced = false;  // TRC: the traced source reads its pages
+        if constexpr (TRC) traced = src == a.trc.src;
+        float fired;
+        if (traced) {
+          size_t tel_row = 0;
+          if constexpr (TEL) tel_row = L.tel_row;
+          fired = trace_fire<TEL>(a, (size_t)r, tel_row, t, trc_cursor, S.stop_after);
         } else {
-          gap = S.poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
+          const float rate = !MULTI || src == 0 ? rate0 : a.src_rate[src_row + src];
+          bool profiled = false;
+          if constexpr (EXT) profiled = S.prof_row >= 0;
+          float gap;
+          if (profiled) {
+            const int n = a.prof_n;
+            const float* times = hs_tables + (size_t)2 * n * S.prof_row;
+            const float inc = S.poisson ? -logf(u[a.u_gap]) : 1.0f;
+            gap = invert_profile(n, S.prof_end_rate, times, times + n, t, inc);
+          } else {
+            gap = S.poisson ? (-logf(u[a.u_gap])) / rate : 1.0f / rate;
+          }
+          const float next_time = t + gap;
+          fired = next_time > S.stop_after ? INFINITY : next_time;
         }
-        const float next_time = t + gap;
-        const float fired = next_time > S.stop_after ? INFINITY : next_time;
         if (nS == 1) {
           src_next = fired;
         } else {
@@ -1934,6 +2035,10 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   if (a.blocks) a.blocks[r] += ran;
   if (ran == 0) return;  // a lane halted on entry changed nothing
 
+  if constexpr (TRC) {
+    a.trc.cursor[r] = trc_cursor;
+    a.trc.blocks[r] = trc_blocks;
+  }
   a.t[r] = t;
   if (nS == 1) a.src_next[src_row] = src_next;
   a.events[r] = events;
@@ -1982,12 +2087,17 @@ static size_t hs_smem_bytes(const EventStepArgs& a) {
 }
 
 // What every library checks before it launches: a block count, a plan
-// and a profile grid within the bounds.
-static bool hs_args_ok(const EventStepArgs& a) {
+// and a profile grid within the bounds, and a trace only on the trace
+// library (`trace`), which needs one.
+static bool hs_args_ok(const EventStepArgs& a, bool trace = false) {
   if (a.R < 0 || a.n_blocks < 1 || a.stage.words < 0) return false;
+  if (a.trc.on != (trace ? 1 : 0)) return false;
   if (a.nS < 1 || a.nS > HS_MAX_SOURCES || a.nK < 1 || a.has_profile < 0) return false;
   if (a.has_profile && (a.prof_n < 2 || a.prof_n > HS_MAX_PROFILE_GRID)) return false;
   if (a.con.on && (a.con.nP < 1 || a.con.nP > HS_MAX_PARTITIONS || a.con.Wp < 1)) return false;
+  if (a.trc.on && (a.trc.src < 0 || a.trc.src >= a.nS || a.trc.P < 1 || a.trc.nT < 1 ||
+                   a.trc.n_chunks < 0 || !a.trc.t0 || !a.trc.g0 || !a.trc.t1 || !a.trc.g1))
+    return false;
   return hs_smem_bytes(a) <= HS_MAX_SMEM_PER_BLOCK;
 }
 

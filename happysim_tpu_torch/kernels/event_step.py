@@ -39,7 +39,11 @@ consult and the quorum gate, with or without the telemetry sites and the
 defenses. Every model with several sources or sinks launches the
 instantiation for them: the chaos code with every feature's sites, each
 taken where the model has the feature. Nodes no source reaches run on
-any of them.
+any of them. A model with a traced source runs :func:`trace_steps`, one
+launch of the trace instantiations a stream step: the extended graph
+code with the trace's fire and stall gate for a single-source model
+without chaos, defenses or the consensus tier, else the code for several
+sources or sinks with them; its plain version is :func:`plain_trace_steps`.
 
 The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``build/`` at the repository root, one library per source
@@ -47,8 +51,9 @@ The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``csrc/event_step_telemetry.cu`` with telemetry,
 ``csrc/event_step_resilience.cu`` with the defenses,
 ``csrc/event_step_consensus.cu`` with partitions or a quorum,
-``csrc/event_step_multi.cu`` with several sources or sinks), all built at
-once, each bound through a plain C launcher loaded with ``ctypes``.
+``csrc/event_step_multi.cu`` with several sources or sinks,
+``csrc/event_step_trace.cu`` with a traced source), all built at once,
+each bound through a plain C launcher loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK
 # The libraries of the event-step kernel (kernels/build.py builds them).
 EVENT_STEP_STEMS = (
     "event_step", "event_step_telemetry", "event_step_resilience", "event_step_consensus",
-    "event_step_multi",
+    "event_step_multi", "event_step_trace",
 )
 
 _MAX_NV = support.KERNEL_MAX_SERVERS
@@ -82,7 +87,8 @@ _loaded: dict = {}
 # paired with the leaves they point at: the leaves of every model, then
 # the chaos leaves, then (in the HsTel sub-struct) the telemetry leaves,
 # then (in the HsRes sub-struct) the resilience leaves, then (in the HsCon
-# sub-struct) the consensus leaves.
+# sub-struct) the consensus leaves, then (in the HsTrc sub-struct) the
+# trace leaves.
 _BASE_FIELDS = (
     "t", "src_next", "events", "slot_done", "slot_created",
     "q_created", "q_enq", "q_head", "q_len", "started", "completed",
@@ -115,17 +121,19 @@ _CON_FIELDS = (
     "prt_start", "prt_end", "net_partitioned", "qrm_dropped",
     "tel_net_partitioned", "tel_qrm_dropped",
 )
-assert len(_BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS + _RES_FIELDS + _CON_FIELDS) == len(
-    support.KERNEL_LEAVES
-)
+_TRC_FIELDS = ("cursor", "blocks", "arrivals", "tel_arrivals")
+assert len(
+    _BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS + _RES_FIELDS + _CON_FIELDS + _TRC_FIELDS
+) == len(support.KERNEL_LEAVES)
 # (sub-struct or None, field, leaf)
 _LEAF_FIELDS = tuple(
     zip(
         (None,) * (len(_BASE_FIELDS) + len(_CHAOS_FIELDS))
         + ("tel",) * len(_TEL_FIELDS)
         + ("res",) * len(_RES_FIELDS)
-        + ("con",) * len(_CON_FIELDS),
-        _BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS + _RES_FIELDS + _CON_FIELDS,
+        + ("con",) * len(_CON_FIELDS)
+        + ("trc",) * len(_TRC_FIELDS),
+        _BASE_FIELDS + _CHAOS_FIELDS + _TEL_FIELDS + _RES_FIELDS + _CON_FIELDS + _TRC_FIELDS,
         support.KERNEL_LEAVES,
     )
 )
@@ -182,6 +190,15 @@ class _Con(ctypes.Structure):
             for name in ("touched", "quorum", "qrm_member", "qrm_n", "qrm_write", "qrm_retry")
         ]
     )
+
+
+class _Trc(ctypes.Structure):
+    """Mirror of ``HsTrc``: the trace leaves, the two resident pages and
+    the window's constants."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p) for name in _TRC_FIELDS + ("t0", "g0", "t1", "g1")
+    ] + [(name, ctypes.c_int) for name in ("on", "src", "base", "P", "nT", "n_chunks")]
 
 
 class _Tel(ctypes.Structure):
@@ -281,6 +298,7 @@ class _Args(ctypes.Structure):
         + [("tel", _Tel)]
         + [("res", _Res)]
         + [("con", _Con)]
+        + [("trc", _Trc)]
         + [("stage", _Stage)]
     )
 
@@ -466,6 +484,14 @@ def _static_args(compiled) -> _Args:
         _res_args(compiled, args.res)
     if compiled.has_partitions or compiled.has_quorum:
         _con_args(compiled, args.con)
+    if compiled.has_trace:
+        # The trace instantiations are the extended graph code too; the
+        # pages, their base and the budget are set per launch.
+        args.graph = args.ext = 1
+        args.trc.on = 1
+        args.trc.src = compiled.trace_src
+        args.trc.P = compiled.trace_chunk_len
+        args.trc.nT = compiled.n_tenants
     return args
 
 
@@ -688,7 +714,12 @@ def _expected_shapes(compiled, R: int) -> dict:
         "tel_sink_hist": (R, nW, nK, 80),
         "tel_lim_admitted": (R, nW, nL), "tel_lim_dropped": (R, nW, nL),
         "tel_net_lost": (R, nW), "tel_net_partitioned": (R, nW),
+        "tel_trc_arrivals": (R, nW, compiled.n_tenants),
     }
+    if compiled.has_trace:
+        shapes.update({
+            "trc_cursor": (R,), "trc_blocks": (R,), "trc_arrivals": (R, compiled.n_tenants),
+        })
     for key in compiled.tel_keys:
         shapes[key] = tel_shapes.get(key, (R, nW, nV))
     if not (compiled.has_chaos or _several(compiled)):
@@ -743,11 +774,16 @@ _INT_LEAVES = frozenset({
     "tel_srv_breaker_dropped", "tel_brk_tripped", "tel_srv_shed_dropped",
     "tel_srv_budget_dropped",
     "net_partitioned", "qrm_dropped", "tel_net_partitioned", "tel_qrm_dropped",
+    "trc_blocks", "trc_arrivals", "tel_trc_arrivals", "trace tenants",
 })
+_UINT_LEAVES = frozenset({"trc_cursor"})
 
 
 def _check(name: str, tensor: torch.Tensor, shape: tuple, device) -> None:
-    dtype = torch.int32 if name in _INT_LEAVES else torch.float32
+    if name in _UINT_LEAVES:
+        dtype = torch.uint32
+    else:
+        dtype = torch.int32 if name in _INT_LEAVES else torch.float32
     if tensor.device != device:
         raise ValueError(f"event-step kernel: {name} is on {tensor.device}, not {device}")
     if tensor.dtype != dtype:
@@ -773,7 +809,9 @@ def plain_block_step(compiled, state: dict, U: torch.Tensor, params: dict) -> to
     """The plain torch-op version: ``compiled``'s one-event step applied
     ``U.shape[1]`` times with the block's uniforms ``U`` (from
     :func:`block_uniforms`), updating ``state`` in place. Returns the
-    ``(R,)`` bool halted mask."""
+    ``(R,)`` bool halted mask. A traced model's blocks read trace pages:
+    they run :func:`plain_trace_steps`, and this raises."""
+    _refuse_trace(compiled)
     step = compiled.make_step()
     for k in range(U.shape[1]):
         step(state, params, U[:, k, :])
@@ -816,6 +854,7 @@ def block_steps(
     launch error. Nothing waits for the device.
     """
     device = state["t"].device
+    _refuse_trace(compiled)
     if device.type == "cpu":
         return plain_block_steps(compiled, state, keys, first, n, params, blocks)
     if device.type != "cuda":
@@ -833,12 +872,105 @@ def block_step(compiled, state: dict, keys: torch.Tensor, block: int, params: di
     return block_steps(compiled, state, keys, block, 1, params)
 
 
+def _refuse_trace(compiled) -> None:
+    if compiled.has_trace:
+        raise ValueError(
+            "event-step kernel: a model with a traced source runs trace_steps, "
+            "whose blocks read the resident trace pages"
+        )
+
+
+def plain_trace_steps(
+    compiled, state: dict, keys: torch.Tensor, params: dict, pages: tuple, base: int,
+    n_chunks: int,
+) -> torch.Tensor:
+    """The plain version of :func:`trace_steps`: the stall-gated block
+    loop of the JAX engine's traced stream step, in place. A lane enters a
+    block while its ``trc_blocks`` is under ``n_chunks``, it has not
+    halted, and it is not stalled: it stalls where its traced source is
+    live and the block could read past the two resident pages
+    (``trc_cursor + macro >= base + 2P``). Each lane keys its block by its
+    own count, ``fold_in(key, trc_blocks)``, so a stall never shifts a
+    draw. A stalled lane is left as it is, unhalted. ``pages`` are the
+    resident pages' ``(t0, g0, t1, g1)``, times and tenants of ``P``
+    arrivals each, ``base`` the absolute index of ``t0[0]``. Returns the
+    ``(R,)`` bool halted mask."""
+    t0, g0, t1, g1 = pages
+    resident_t, resident_g = torch.cat([t0, t1]), torch.cat([g0, g1])
+    span = resident_t.shape[0]
+    step = compiled.make_step(trace_ctx=(resident_t, resident_g, int(base)))
+    ti, macro = compiled.trace_src, compiled.macro
+    while True:
+        halted = compiled.replica_halted(state)
+        stalled = torch.isfinite(state["src_next"][:, ti]) & (
+            state["trc_cursor"].to(torch.int64) + macro >= int(base) + span
+        )
+        live = (state["trc_blocks"] < n_chunks) & ~halted & ~stalled
+        if not bool(live.any()):
+            return halted
+        U = rng.uniform(
+            rng.fold_in(keys, state["trc_blocks"].to(torch.int64)),
+            (macro, compiled.n_draws), minval=1e-12, maxval=1.0,
+        )
+        state["trc_blocks"] += live.to(torch.int32)
+        for k in range(macro):
+            step(state, params, U[:, k, :], live)
+
+
+def trace_steps(
+    compiled, state: dict, keys: torch.Tensor, params: dict, pages: tuple, base: int,
+    n_chunks: int,
+) -> torch.Tensor:
+    """One stream step of a traced model, in place: every replica runs
+    stall-gated macro-blocks against the resident pages until its budget
+    of ``n_chunks`` blocks is spent, it halts, or it stalls at the
+    window's edge (:func:`plain_trace_steps` says how). Returns the
+    ``(R,)`` bool halted mask. CPU tensors run :func:`plain_trace_steps`;
+    CUDA tensors make one launch of the trace library on torch's current
+    stream, which reads the pages in place, after the checks of
+    :func:`launch_args`, and raise on any mismatch or launch error.
+    Nothing waits for the device."""
+    device = state["t"].device
+    if device.type == "cpu":
+        return plain_trace_steps(compiled, state, keys, params, pages, base, n_chunks)
+    if device.type != "cuda":
+        raise ValueError(f"event-step kernel: unsupported device {device}")
+    halted = torch.empty((state["t"].shape[0],), dtype=torch.uint8, device=device)
+    launch(trace_launch_args(compiled, state, keys, params, pages, base, n_chunks, halted), device)
+    return halted.view(torch.bool)
+
+
+def trace_launch_args(
+    compiled, state: dict, keys: torch.Tensor, params: dict, pages: tuple, base: int,
+    n_chunks: int, halted: torch.Tensor, draws=None,
+) -> _Args:
+    """The argument struct of one :func:`trace_steps` launch: that of
+    :func:`launch_args` (block budget ``n_chunks``, the blocks keyed by
+    each lane's ``trc_blocks``), with the resident pages ``(t0, g0, t1,
+    g1)`` checked and their window start ``base``."""
+    device = state["t"].device
+    args = launch_args(
+        compiled, state, keys, 0, params, halted, draws, n_blocks=max(int(n_chunks), 1)
+    )
+    P = compiled.trace_chunk_len
+    for name, page in zip(("trace times", "trace tenants") * 2, pages):
+        _check(name, page, (P,), device)
+    if not 0 <= int(base) <= (1 << 31) - 1 - 2 * P:
+        raise ValueError(f"event-step kernel: trace base {base} is not an int32 window start")
+    args.trc.t0, args.trc.g0, args.trc.t1, args.trc.g1 = (p.data_ptr() for p in pages)
+    args.trc.base, args.trc.n_chunks = int(base), int(n_chunks)
+    return args
+
+
 def library_of(args: _Args) -> str:
-    """The library whose instantiations take these arguments: the one for
+    """The library whose instantiations take these arguments: the trace
+    one for a model with a traced source, else the one for
     several sources or sinks for such a model, else the consensus one for
     a model with partitions or a quorum, else the resilience one for a
     model with a defense, else the telemetry one for a model with a spec,
     else the kernel without any of them."""
+    if args.trc.on:
+        return "event_step_trace"
     if args.nS > 1 or args.nK > 1:
         return "event_step_multi"
     if args.con.on:
@@ -852,15 +984,21 @@ def launch(args: _Args, device) -> None:
     """Launch the kernel with ready arguments (:func:`launch_args`) on
     torch's current stream of ``device``, from :func:`library_of`'s
     library; raise on a launch error. Every launch, of one block or of
-    many, adds one to ``block_step.launches``."""
+    many, adds one to ``block_step.launches``, or for a traced model to
+    ``trace_steps.launches``."""
     lib = load_library()[library_of(args)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.hs_event_step(ctypes.byref(args), stream)
     if rc != 0:
         raise RuntimeError(f"event-step kernel launch failed: cudaError {rc}")
-    block_step.launches += 1
+    if args.trc.on:
+        trace_steps.launches += 1
+    else:
+        block_step.launches += 1
 
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0 (the trace library's
+#: in ``trace_steps.launches``).
 block_step.launches = 0
+trace_steps.launches = 0

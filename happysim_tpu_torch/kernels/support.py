@@ -147,6 +147,11 @@ RES_LEAVES = (
     "tel_srv_breaker_dropped", "tel_brk_tripped", "tel_brk_open_int",
     "tel_srv_shed_dropped", "tel_srv_budget_dropped",
 )
+#: The trace-driven leaves, in the order of the kernel's HsTrc arguments:
+#: the read cursor (uint32) and the lane's block count, its arrivals per
+#: tenant, and their (nW, nT) window buffer (a model with telemetry
+#: rates only).
+TRC_LEAVES = ("trc_cursor", "trc_blocks", "trc_arrivals", "tel_trc_arrivals")
 
 #: Leaves the kernel reads and writes; the other state leaf (the key) is
 #: not touched. The transit leaves exist only when the model has latency
@@ -157,7 +162,8 @@ RES_LEAVES = (
 #: leaves (touched by the telemetry instantiations only) only with a
 #: spec; the resilience leaves (the resilience instantiations only) only
 #: where their spec is; the consensus leaves (the consensus
-#: instantiations only) only where the model has the feature.
+#: instantiations only) only where the model has the feature; the trace
+#: leaves (the trace instantiations only) only with a traced source.
 KERNEL_LEAVES = (
     "t", "src_next", "events",
     "srv_slot_done", "srv_slot_created", "srv_q_created", "srv_q_enq",
@@ -174,6 +180,7 @@ KERNEL_LEAVES = (
     *TEL_LEAVES,
     *RES_LEAVES,
     *CON_LEAVES,
+    *TRC_LEAVES,
 )
 #: Leaves whose entries a block touches only at events (ring pushes and
 #: pulls, transit parks and arrivals, histogram bumps, router and limiter
@@ -185,8 +192,9 @@ KERNEL_LEAVES = (
 #: breaker, shed or budget register is read and written only at an
 #: arrival at or a completion of its server; and every consensus leaf:
 #: the partition windows are read at a delivery into a group's member or
-#: an arrival at a quorum member, a counter bumped where it counts): left
-#: out of the bytes bound, which keeps it a lower bound.
+#: an arrival at a quorum member, a counter bumped where it counts; and
+#: the traced arrivals per tenant, bumped at a traced fire): left out of
+#: the bytes bound, which keeps it a lower bound.
 SPARSE_LEAVES = (
     "srv_q_created", "srv_q_enq", "sink_hist",
     "rr_next", "lim_tokens", "lim_last", "lim_admitted", "lim_dropped",
@@ -199,6 +207,7 @@ SPARSE_LEAVES = (
     *TEL_LEAVES,
     *RES_LEAVES,
     *CON_LEAVES,
+    "trc_arrivals", "tel_trc_arrivals",
 )
 
 #: Router policies the kernel runs: all four.
@@ -228,8 +237,15 @@ def kernel_plan(model: EnsembleModel) -> dict:
     sources or sinks has the port's own shape, ``"multi"``, with
     ``"sources"`` and ``"sinks"`` counts (JAX's ``kernel_shape`` is ""
     for it: its kernel declined it); a single-source, single-sink model
-    keeps the shape the walk classifies."""
+    keeps the shape the walk classifies. A traced model's plan records
+    JAX's trace decline too: the port runs it on the kernel, its pages
+    streamed between launches."""
     reasons: list[str] = []
+    if model.traced_source_index() is not None:
+        reasons.append(
+            "model has trace-driven arrivals (streamed trace pages are "
+            "not fused in the kernel yet)"
+        )
     if len(model.sources) != 1:
         reasons.append(f"{len(model.sources)} sources (kernel supports 1)")
     if len(model.sinks) != 1:

@@ -36,12 +36,13 @@ the defenses against them: per-server circuit breakers
 (:meth:`EnsembleModel.retry_budget`), and the consensus tier: network
 partition groups (:meth:`EnsembleModel.network_partition`), a write
 quorum (:meth:`EnsembleModel.quorum`) and leader election
-(:meth:`EnsembleModel.leader_election`). Any of them may carry windowed
+(:meth:`EnsembleModel.leader_election`). A source may replay a recorded
+or synthesized arrival stream (:meth:`EnsembleModel.trace_arrivals`,
+:mod:`~happysim_tpu_torch.traces`). Any of them may carry windowed
 telemetry (``model.telemetry(window_s=...)``,
-:mod:`~happysim_tpu_torch.telemetry`). Trace-driven arrivals and remote
-egress nodes raise :class:`NotImplementedError` naming themselves and the
-ROADMAP item that ports them; the port has no second engine to fall back
-to.
+:mod:`~happysim_tpu_torch.telemetry`). Remote egress nodes raise
+:class:`NotImplementedError` naming themselves and the ROADMAP item that
+ports them; the port has no second engine to fall back to.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 from happysim_tpu_torch.telemetry import DEFAULT_METRICS, TelemetrySpec
+from happysim_tpu_torch.traces import TraceSpec
 
 SOURCE = "source"
 SERVER = "server"
@@ -70,7 +72,6 @@ LATENCY_KINDS = ("constant", "exponential")
 # Builder features of the JAX package outside this port, each with the
 # ROADMAP item that ports it. Reaching one raises NotImplementedError.
 _UNPORTED = {
-    "trace_arrivals": "trace-driven arrivals (ROADMAP A.12)",
     "remote": "remote egress nodes (ROADMAP A.14)",
 }
 
@@ -545,6 +546,10 @@ class SourceSpec:
     downstream: Optional[NodeRef] = None
     profile: Optional[RateProfile] = None
     latency: EdgeLatency = field(default_factory=EdgeLatency)
+    # A TraceSpec the source replays (arrival kind "trace"), else None;
+    # out of the repr, which the fingerprint hashes: the trace enters it
+    # through TraceSpec.signature().
+    trace: Optional[TraceSpec] = field(default=None, repr=False)
 
 
 @dataclass
@@ -673,6 +678,22 @@ class EnsembleModel:
             profile.validate()
         self.sources.append(
             SourceSpec(rate=rate, arrival=kind, stop_after_s=stop_after_s, profile=profile)
+        )
+        return NodeRef(SOURCE, len(self.sources) - 1)
+
+    def trace_arrivals(self, trace: TraceSpec, stop_after_s: Optional[float] = None) -> NodeRef:
+        """A source replaying ``trace`` (a :class:`TraceSpec`): every
+        replica fires the same instants, streamed to the device in pages.
+        Its arrival kind is ``"trace"``: the trace is its only arrival
+        authority (no rate, no profile), and it draws no gap.
+        ``stop_after_s`` still ends the replay early."""
+        if not isinstance(trace, TraceSpec):
+            raise TypeError(
+                f"trace_arrivals: expected a TraceSpec, got {type(trace).__name__}"
+            )
+        trace.validate()
+        self.sources.append(
+            SourceSpec(rate=0.0, arrival="trace", stop_after_s=stop_after_s, trace=trace)
         )
         return NodeRef(SOURCE, len(self.sources) - 1)
 
@@ -1099,6 +1120,13 @@ class EnsembleModel:
             raise ValueError("Model needs at least one source")
         if not self.sinks:
             raise ValueError("Model needs at least one sink")
+        traced = [i for i, s in enumerate(self.sources) if s.trace is not None]
+        if len(traced) > 1:
+            raise ValueError(
+                f"trace_arrivals: at most one traced source per model "
+                f"(sources {traced} all carry traces) — merge the streams "
+                "into one TraceSpec with tenant ids"
+            )
         for i, source in enumerate(self.sources):
             if source.downstream is None:
                 raise ValueError(f"source[{i}] has no downstream")
@@ -1106,7 +1134,27 @@ class EnsembleModel:
                 source.downstream.index
             ].targets:
                 raise ValueError(f"router targeted by source[{i}] has no targets")
-            if source.arrival not in ARRIVAL_KINDS:
+            if source.trace is not None:
+                if source.profile is not None:
+                    raise ValueError(
+                        f"source[{i}]: profile (kind "
+                        f"{source.profile.kind!r}) and trace_arrivals "
+                        f"({source.trace!r}) on the same source — one "
+                        "arrival authority per source; drop one of them"
+                    )
+                if source.arrival != "trace":
+                    raise ValueError(
+                        f"source[{i}]: carries a trace but arrival kind is "
+                        f"{source.arrival!r} — build traced sources via "
+                        "model.trace_arrivals(...)"
+                    )
+                source.trace.validate()
+            elif source.arrival == "trace":
+                raise ValueError(
+                    f"source[{i}]: arrival kind 'trace' without a TraceSpec "
+                    "— build traced sources via model.trace_arrivals(...)"
+                )
+            elif source.arrival not in ARRIVAL_KINDS:
                 raise ValueError(f"source[{i}]: arrival kind {source.arrival!r}")
         if self.correlated_faults is not None:
             self.correlated_faults.validate()
@@ -1328,7 +1376,34 @@ class EnsembleModel:
         features.extend(self.consensus_features())
         if self.telemetry_spec is not None:
             features.append("telemetry")
+        if self.traced_source_index() is not None:
+            features.append("trace_arrivals")
         return tuple(features)
+
+    def traced_source_index(self) -> Optional[int]:
+        """The index of the traced source (at most one: validate), or
+        None for a model without a trace."""
+        for i, source in enumerate(self.sources):
+            if source.trace is not None:
+                return i
+        return None
+
+    def kernel_supported(self) -> tuple[bool, str]:
+        """Whether the CUDA event-step kernel runs this model: ``(True,
+        "")`` when every fixed bound of the kernel holds
+        (:func:`~happysim_tpu_torch.kernels.support.check_kernel_bounds`),
+        else ``(False, the bound's message)``. The port runs every model
+        ``validate`` accepts on the kernel, so the bounds are its only
+        refusal; a refused model still runs with ``device="cpu"``."""
+        from happysim_tpu_torch.engine import _Compiled
+        from happysim_tpu_torch.kernels import support
+
+        compiled = _Compiled(self)
+        try:
+            support.check_kernel_bounds(compiled, compiled.macro)
+        except ValueError as exc:
+            return False, str(exc)
+        return True, ""
 
     def consensus_features(self) -> tuple[str, ...]:
         """The consensus features this model declares, by JAX's names (a

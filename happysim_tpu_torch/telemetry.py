@@ -192,8 +192,7 @@ class EnsembleTimeseries:
 
     Array axes: ``nW`` windows x (``nK`` sinks | ``nV`` servers | ``nL``
     limiters). A field is ``None`` when its metric group was not
-    requested or the model lacks the machinery; the trace field stays
-    ``None`` until the port runs trace-driven arrivals (ROADMAP A.12).
+    requested or the model lacks the machinery.
     Counter series are int64 and sum
     (axis 0) exactly to the whole-run counters; the float integral
     series sum to the whole-run integrals up to float32 re-association.
@@ -246,7 +245,7 @@ class EnsembleTimeseries:
     network_partitioned: Optional[np.ndarray] = None  # (nW,)
     quorum_dark_fraction: Optional[np.ndarray] = None  # (nW,)
     leader_uptime_fraction: Optional[np.ndarray] = None  # (nW,)
-    # trace-driven load (ROADMAP A.12)
+    # trace-driven load: arrivals per (window, tenant) over all replicas
     trace_tenant_arrivals: Optional[np.ndarray] = None  # (nW, nT) int64
     # faults
     fault_occupancy: Optional[np.ndarray] = None  # (nW, nV) fraction
@@ -476,6 +475,9 @@ def build_timeseries(
             )
     if "tel_net_partitioned" in host:
         ts.network_partitioned = counts("tel_net_partitioned")
+    if "tel_trc_arrivals" in host:
+        # The raw reduced counts (every replica replays the same trace).
+        ts.trace_tenant_arrivals = counts("tel_trc_arrivals")
     # The quorum's dark and the leader's up seconds over the window's
     # [start, min(end, horizon)] coverage, averaged over replicas.
     for attr, key in (

@@ -343,7 +343,6 @@ def _no_sink(mod, m):
 @pytest.mark.parametrize(
     "mutate, feature",
     [
-        (lambda m: m.trace_arrivals(None), "trace-driven arrivals"),
         (lambda m: m.remote(), "remote egress nodes"),
     ],
 )
@@ -352,6 +351,25 @@ def test_out_of_slice_features_raise_naming_themselves(mutate, feature):
     with pytest.raises(NotImplementedError, match=re.escape(feature)) as info:
         mutate(model)
     assert "ROADMAP A." in str(info.value)
+
+
+def test_trace_arrivals_is_ported():
+    """trace_arrivals, which raised before the port ran traces, builds a
+    traced source whose run_ensemble streams the trace: every replica
+    fires each instant once, and the plan names JAX's decline."""
+    from happysim_tpu_torch.traces import TraceSpec
+
+    model = tmodel.EnsembleModel(horizon_s=2.0, macro_block=8)
+    times = np.asarray([0.1, 0.2, 0.4, 0.8, 1.5], np.float32)
+    src = model.trace_arrivals(TraceSpec(times=times, tenants=None, chunk_len=8))
+    srv = model.server(service_mean=0.01)
+    model.connect(src, srv)
+    model.connect(srv, model.sink())
+    result = tengine.run_ensemble(model, n_replicas=4, device="cpu")
+    assert result.trace and result.trace_tenant_arrivals == [4 * times.size]
+    assert result.sink_count == [4 * times.size]
+    assert result.engine_report()["trace"]["max_resident_chunks"] == 2
+    assert support.kernel_plan(model)["declined"].startswith("model has trace-driven arrivals")
 
 
 def _on_both(mutate):

@@ -3,7 +3,9 @@ event-step kernel, which draws its own uniforms, against the plain step
 fed by the torch-op threefry, the standalone draw kernel against
 rng.uniform, and the M/M/1 Lindley kernel against plain_mm1_scan; a
 checkpointed run's segment launches against its one launch, and the
-opinion rounds against the CPU.
+opinion rounds against the CPU; the event-step kernel's trace branch
+against plain_trace_steps over whole traced runs, traced runs on the card
+against the CPU's, and a traced run resumed mid-chunk.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -32,7 +34,11 @@ from happysim_tpu_torch.engine import (  # noqa: E402
     run_ensemble,
 )
 from happysim_tpu_torch import opinion, run_mm1_ensemble  # noqa: E402
-from happysim_tpu_torch.engine import CHECKPOINT_SEGMENTS, resume_mismatches  # noqa: E402
+from happysim_tpu_torch.engine import (  # noqa: E402
+    CHECKPOINT_SEGMENTS,
+    TRACE_PAGING_FIELDS,
+    resume_mismatches,
+)
 from happysim_tpu_torch.kernels import event_step, mm1_scan, support, uniform  # noqa: E402
 from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
@@ -40,6 +46,7 @@ from test_torch_consensus_models import CONSENSUS_MODELS  # noqa: E402
 from test_torch_multisource_models import MULTI_MODELS, two_class  # noqa: E402
 from test_torch_resilience_models import RESILIENCE_MODELS  # noqa: E402
 from test_torch_telemetry_models import TELEMETRY_MODELS  # noqa: E402
+from test_torch_trace_models import TRACE_MODELS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -698,3 +705,103 @@ def test_opinion_rounds_on_the_card_match_the_cpu(cuda, rule):
         assert torch.equal(card, cpu)
     else:
         np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _trace_pages(compiled, base_page: int, device) -> tuple:
+    """The resident pages base_page and base_page + 1 on ``device``, +inf
+    padded past the trace's end."""
+    P = compiled.trace_chunk_len
+    out = []
+    for page in (base_page, base_page + 1):
+        times, tenants = np.full(P, np.inf, np.float32), np.zeros(P, np.int32)
+        if page < compiled.trace_pages:
+            times = compiled.trace_times[page * P : (page + 1) * P].copy()
+            tenants = compiled.trace_tenants[page * P : (page + 1) * P].copy()
+        out += [torch.from_numpy(times).to(device), torch.from_numpy(tenants).to(device)]
+    return tuple(out)
+
+
+@pytest.mark.parametrize("name", sorted(TRACE_MODELS))
+def test_trace_branch_matches_plain_bit_for_bit(cuda, name):
+    """Every stream step of a traced run at 256 replicas: the trace
+    library's launch against plain_trace_steps on a copy of the state and
+    the same pages, every leaf and the halted mask bit for bit, the window
+    moved on as the engine moves it; lanes stall at its edge."""
+    model = TRACE_MODELS[name](tmodel)
+    compiled = _Compiled(model)
+    n, P, macro = 256, compiled.trace_chunk_len, compiled.macro
+    params = {k: torch.from_numpy(v).to(cuda) for k, v in _resolve_params(model, compiled, n, None).items()}
+    keys = rng.split(rng.PRNGKey(13, device=cuda), n)
+    state = compiled.init_state(keys, params)
+    n_chunks = -(-_default_max_events(model, None) // macro)
+    ti = compiled.trace_src
+    base_page, steps = 0, 0
+    while True:
+        pages = _trace_pages(compiled, base_page, cuda)
+        plain = {k: v.clone() for k, v in state.items()}
+        plain_halted = event_step.plain_trace_steps(compiled, plain, keys, params, pages, base_page * P, n_chunks)
+        before = event_step.trace_steps.launches
+        halted = event_step.trace_steps(compiled, state, keys, params, pages, base_page * P, n_chunks)
+        assert event_step.trace_steps.launches == before + 1
+        torch.cuda.synchronize()
+        steps += 1
+        assert torch.equal(halted, plain_halted), f"step {steps}: halted"
+        for leaf in plain:
+            a, b = state[leaf], plain[leaf]
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), f"step {steps}: {leaf}"
+        reads = torch.isfinite(state["src_next"][:, ti]) & (state["trc_blocks"] < n_chunks) & ~halted
+        if not bool(reads.any()):
+            break
+        cursor = state["trc_cursor"].to(torch.int64)
+        assert bool((cursor[reads] + macro >= base_page * P + 2 * P).all())
+        base_page = max(int(cursor[reads].min()) // P, base_page + 1)
+    assert steps > 2
+
+
+@pytest.mark.parametrize("name", sorted(TRACE_MODELS))
+def test_traced_run_on_the_card_matches_the_cpu_run(cuda, name):
+    """run_ensemble of a traced model on the card (one trace launch a
+    stream step, its pages uploaded on a side stream) against the CPU
+    run: every integer total, the tenants' arrivals, the paging counts
+    and the integer window series equal."""
+    model = TRACE_MODELS[name](tmodel)
+    budget = _default_max_events(model, None)
+    before = event_step.trace_steps.launches
+    card = run_ensemble(model, n_replicas=256, seed=5, max_events=budget)
+    launches = event_step.trace_steps.launches - before
+    cpu = run_ensemble(model, n_replicas=256, seed=5, device="cpu", max_events=budget)
+    assert card.engine_path == "scan+cuda" and card.kernel_decline == ""
+    assert launches == card.trace_stream_steps == cpu.trace_stream_steps
+    for field in (
+        "simulated_events", "sink_count", "server_completed", "server_dropped", "transit_dropped",
+        "server_timed_out", "server_retried", "blocks_total", "block_occupancy",
+        "trace_tenant_arrivals", "trace_chunks_streamed", "trace_max_resident_chunks",
+    ):
+        assert getattr(card, field) == getattr(cpu, field), field
+    np.testing.assert_array_equal(card.sink_hist, cpu.sink_hist)
+    if cpu.timeseries is not None:
+        for field in cpu.timeseries._ARRAY_FIELDS:
+            left, right = getattr(card.timeseries, field), getattr(cpu.timeseries, field)
+            assert (left is None) == (right is None), field
+            if right is not None and np.asarray(right).dtype.kind == "i":
+                np.testing.assert_array_equal(left, right, err_msg=field)
+
+
+@pytest.mark.parametrize("name", ["flash-regression", "trace-poisson"])
+def test_traced_run_resumed_mid_chunk_equals_the_run(cuda, name):
+    """A snapshot taken with lanes frozen mid-page, resumed on the card:
+    every field outside RESUME_EXCLUDED_FIELDS and the paging counts bit
+    for bit; pages of 2,048 give the same bits too."""
+    build = TRACE_MODELS[name]
+    kw = dict(n_replicas=512, seed=9, max_events=_default_max_events(build(tmodel), None))
+    snapshots = []
+    one = run_ensemble(build(tmodel), **kw, checkpoint_every_s=0.0, checkpoint_callback=snapshots.append)
+    P = build(tmodel).sources[build(tmodel).traced_source_index()].trace.chunk_len
+    mid = [s for s in snapshots if (s.state["trc_cursor"].astype(np.int64) % P != 0).any()]
+    resumed = run_ensemble(build(tmodel), **kw, resume_from=mid[len(mid) // 2])
+    assert resume_mismatches(one, resumed, TRACE_PAGING_FIELDS) == []
+    long = build(tmodel)
+    long.sources[long.traced_source_index()].trace.chunk_len = 2048
+    assert resume_mismatches(one, run_ensemble(long, **kw), TRACE_PAGING_FIELDS) == []
