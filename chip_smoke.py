@@ -10,9 +10,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    checkout's sources, one nvcc per source (the event-step kernel without
    telemetry or resilience, its telemetry instantiations, its resilience
    instantiations, its consensus instantiations, its instantiations for
-   several sources or sinks, its trace-driven instantiations, the draw
-   kernel and the M/M/1 Lindley kernel) started together, with ptxas'
-   register and spill report;
+   several sources or sinks, its trace-driven instantiations, its wide
+   code, the draw kernel and the M/M/1 Lindley kernel) started together,
+   with ptxas' register and spill report;
    then the draw kernel (csrc/uniform.cu) against rng.uniform, bit for
    bit, on the M/M/1 chain form's gap block (65,536 x 1,514 uniforms),
    timed against its plain version and its bound;
@@ -296,7 +296,38 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    port) on 32 populations of 2,048 agents: DeGroot on the card against
    the CPU within rtol 1e-5 and atol 1e-6, bounded confidence a round at
    a time on the same opinions within the same, and the voter model's
-   picks at 2,048 agents equal to the CPU's.
+   picks at 2,048 agents equal to the CPU's;
+10. the wide code (csrc/event_step_wide.cu) at 65,536 replicas, on the
+   models past a lean table of the argument struct: wide-fleet (one
+   random router over 32 servers, mu = 6, rho = 0.8 each, queue 256,
+   horizon 40 s, warmup 10 s), wide-chain (16 exponential stages of mean
+   0.1 s at lambda = 8, horizon 160 s, warmup 40 s), wide-tenants (12
+   Poisson sources at 1..12/s round-robin over 8 servers of mean 1/15 s,
+   horizon 40 s) and wide-quorum (quorum_model's undefended arm over 9
+   servers, a write quorum of 5, one partition group a server cut over
+   [1 + i, 2 + i)), and wide-draws (the 17-draw hedged erlang-3 fleet, on
+   the lean chaos code now that no draw count bounds the kernel), each
+   launching the library its tables pick: block checks (blocks 0-3 and a
+   third of the budget), the whole run in one launch against chained
+   one-block launches, and run_ensemble with the port's default budget
+   named; the fleet's pooled mean wait within 1% of a numpy Lindley
+   reference of its M/M/1 over [10, 40) s (each server within 3%), each
+   chain stage's within 1% of the chain form's run of the same model,
+   each tenant server's utilization within 1% of 0.65, the quorum's dark
+   fraction within rel 1e-6 of the CPU's init sweep, hedges and losses in
+   the 17-draw run; the wide code's time a block on the fleet;
+11. the replica mesh: meshes of cuda:0 repeated 1 and 4 times at full
+   width, one launch a shard: bench.py's _multichip_measure workload (a
+   faulted, telemetered rho-sweep M/M/1, mu = 10, queue 256, deadline 8
+   s, 2 retries, FaultSpec(rate 0.05, mean 0.5 s), horizon 30 s, warmup
+   5 s, 32 windows, max_events 640, 65,536 replicas, seed 0) with the same
+   counters, histogram and every window series on both (bench.py's
+   assertion, and every other result field but the mesh's provenance);
+   run_mm1_ensemble(8, 10, 65536, 4096) the same on both; a snapshot of
+   the 1-shard run resumed on 4 shards and of the 4-shard run on 1, each
+   landing on the uninterrupted bits; and the flash crowd of
+   _trace_measure the same on both; each wall and redistribution_seconds
+   printed.
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
@@ -306,7 +337,8 @@ lognormal M/G/1 (the family sampler), the profile graph (the profile
 tables), the chaos model (the chaos branches) and the telemetry model
 (the window buffers), bench_resilience's defended arm (the defenses),
 the two-tenant service (several sources and sinks), the defended
-quorum arm (the consensus tier) and the flash crowd (the trace branch),
+quorum arm (the consensus tier), the flash crowd (the trace branch) and
+the wide fleet (the wide code),
 the models the main path runs, its ms the time per block of a 20-block
 launch and its bound that of the same blocks, its launches those of the
 main path's run (one a run; for the trace branch one a stream step of
@@ -340,6 +372,7 @@ from happysim_tpu_torch import (
     TraceSpec,
     diurnal_trace,
     flash_crowd_trace,
+    host_f64,
     mm1_model,
     model_fingerprint,
     opinion,
@@ -347,6 +380,7 @@ from happysim_tpu_torch import (
     rng,
     run_ensemble,
     run_mm1_ensemble,
+    sum_f32_fixed,
 )
 from happysim_tpu_torch.chain import fast_plan
 from happysim_tpu_torch.faults import duty_cycle
@@ -1088,6 +1122,117 @@ def stochastic_partition_model() -> EnsembleModel:
                             max_windows=6)
     model.quorum(servers, write=2, read=2)
     model.leader_election(servers, heartbeat_s=0.2, timeout_s=0.5)
+    return model
+
+
+# The wide code's models, each past a lean table of the argument struct
+# (kernels/support.py::wide_reasons) but the draws' (past the old bound of
+# 16 uniforms a step, which bounds nothing now). Each function takes the
+# EnsembleModel class, so the CPU tests build the same model in the JAX
+# package. The fleet: test_tpu_widened.py's fleet (mu = 6) widened to 32
+# servers behind one random router at rho = 0.8 each; the chain: 16
+# exponential stages of mean 0.1 s at lambda = 8; the tenants: 12 Poisson
+# sources at 1, 2, ..., 12/s round-robin over 8 servers of mean 1/15 s
+# (rho = 0.65); the quorum: quorum_model widened to 9 servers and a write
+# quorum of 5, a group a server, group i cut over [1 + i, 2 + i).
+WIDE_SERVERS, WIDE_FLEET_MU, WIDE_RHO = 32, 6.0, 0.8
+WIDE_STAGES = 16
+WIDE_TENANTS, WIDE_TENANT_SERVERS, WIDE_TENANT_MU = 12, 8, 15.0
+WIDE_QUORUM_SERVERS, WIDE_QUORUM_WRITE = 9, 5
+WIDE_HORIZON_S = 40.0
+
+
+def wide_fleet_model(cls=EnsembleModel, servers: int = WIDE_SERVERS,
+                     horizon_s: float = WIDE_HORIZON_S) -> EnsembleModel:
+    """A Poisson source at 0.8 * servers * 6/s -> one random router ->
+    ``servers`` servers (mu = 6, queue 256) -> the sink, warmup a quarter
+    of the horizon (10 s):
+    each server an M/M/1 at rho = 0.8, its mean wait 0.8 / (6 - 4.8)."""
+    model = cls(horizon_s=horizon_s, warmup_s=horizon_s / 4.0, macro_block=MACRO)
+    src = model.source(rate=WIDE_RHO * servers * WIDE_FLEET_MU)
+    router = model.router(policy="random")
+    snk = model.sink()
+    model.connect(src, router)
+    for _ in range(servers):
+        srv = model.server(service_mean=1.0 / WIDE_FLEET_MU, queue_capacity=256)
+        model.connect(router, srv)
+        model.connect(srv, snk)
+    return model
+
+
+def wide_chain_model(cls=EnsembleModel, stages: int = WIDE_STAGES,
+                     horizon_s: float = HORIZON_S) -> EnsembleModel:
+    """A Poisson 8/s source through ``stages`` FIFO servers of
+    exponential mean 0.1 s (queue 512) to the sink, warmup a quarter of
+    the horizon: each stage an M/M/1 at rho = 0.8, its mean wait 0.4 s."""
+    model = cls(horizon_s=horizon_s, warmup_s=horizon_s / 4.0, macro_block=MACRO)
+    node = model.source(rate=LAM)
+    for _ in range(stages):
+        srv = model.server(service_mean=1.0 / MU, queue_capacity=512)
+        model.connect(node, srv)
+        node = srv
+    model.connect(node, model.sink())
+    return model
+
+
+def wide_draws_model(cls=EnsembleModel, horizon_s: float = WIDE_HORIZON_S) -> EnsembleModel:
+    """tests/test_torch_chaos.py's _wide_draws: erlang-3 hedged servers
+    behind two levels of random routers with exponential, lossy edges,
+    1 + 2 + 2*3 + 2*3 + 1 + 1 = 17 uniforms a step."""
+    model = cls(horizon_s=horizon_s, macro_block=MACRO)
+    src = model.source(rate=5.0)
+    inner = model.router(policy="random")
+    outer = model.router(policy="random")
+    snk = model.sink()
+    model.connect(src, outer)
+    model.connect(outer, inner)
+    for _ in range(2):
+        srv = model.server(service="erlang", service_k=3, hedge_delay_s=0.1)
+        model.connect(inner, srv, latency_s=0.01, latency_kind="exponential", loss_p=0.1)
+        model.connect(srv, snk)
+    return model
+
+
+def wide_tenants_model(cls=EnsembleModel, tenants: int = WIDE_TENANTS,
+                       horizon_s: float = WIDE_HORIZON_S) -> EnsembleModel:
+    """``tenants`` Poisson sources at 1, 2, ..., tenants/s -> one
+    round-robin router -> 8 servers (mu = 15, queue 256) -> one sink: 78/s
+    in all at 12 tenants, each server at rho = 78 / 8 / 15 = 0.65."""
+    model = cls(horizon_s=horizon_s, macro_block=MACRO)
+    router = model.router(policy="round_robin")
+    for rate in range(1, tenants + 1):
+        model.connect(model.source(rate=float(rate)), router)
+    snk = model.sink()
+    for _ in range(WIDE_TENANT_SERVERS):
+        srv = model.server(service_mean=1.0 / WIDE_TENANT_MU, queue_capacity=256)
+        model.connect(router, srv)
+        model.connect(srv, snk)
+    return model
+
+
+def wide_quorum_model(cls=EnsembleModel, servers: int = WIDE_QUORUM_SERVERS,
+                      write: int = WIDE_QUORUM_WRITE) -> EnsembleModel:
+    """quorum_model's undefended arm widened: a constant 2 * servers/s
+    source round-robin over ``servers`` servers behind 10 ms edges (each
+    still sees 2/s), a write quorum of ``write``, and one partition group
+    a server, group i cutting server i off over [1 + i, 2 + i)."""
+    model = cls(horizon_s=CONSENSUS_HORIZON_S, macro_block=8, transit_capacity=16)
+    src = model.source(rate=2.0 * servers, kind="constant")
+    members = [
+        model.server(service_mean=0.1, queue_capacity=16, max_retries=3, retry_backoff_s=0.1,
+                     retry_jitter=0.5)
+        for _ in range(servers)
+    ]
+    router = model.router(policy="round_robin")
+    snk = model.sink()
+    model.connect(src, router)
+    for server in members:
+        model.connect(router, server, latency_s=0.01, latency_kind="constant")
+        model.connect(server, snk)
+    model.telemetry(window_s=1.0)
+    for i, server in enumerate(members):
+        model.network_partition(group=[server], windows=((1.0 + i, 2.0 + i),))
+    model.quorum(members, write=write, read=write)
     return model
 
 
@@ -2590,6 +2735,256 @@ def opinion_phase(tag: str) -> dict:
     return out
 
 
+# -- the wide code (lifted bounds) -------------------------------------------------
+def wide_models() -> dict:
+    """The five wide models at full width, each with the kernel shape its
+    plan reports and the library its launches take."""
+    models = {
+        "wide-fleet": wide_fleet_model(),
+        "wide-chain": wide_chain_model(),
+        "wide-draws": wide_draws_model(),
+        "wide-tenants": wide_tenants_model(),
+        "wide-quorum": wide_quorum_model(),
+    }
+    out = {}
+    for name, model in models.items():
+        compiled = _Compiled(model)
+        library = "event_step_wide" if support.wide_reasons(compiled) else "event_step"
+        out[name] = (model, compiled.plan["shape"], library)
+    return out
+
+
+def mm1_window_wait(lam: float, mu: float, warmup: float, horizon: float, replicas: int,
+                    seed: int = 12) -> float:
+    """The mean queue wait of an M/M/1 started empty, over the customers
+    whose service starts in [warmup, horizon], as run_ensemble books it:
+    numpy's own Lindley recursion over ``replicas`` replicas, in chunks."""
+    rng_np = np.random.default_rng(seed)
+    n = int(lam * horizon + 8 * math.sqrt(lam * horizon) + 20)
+    total, count = 0.0, 0
+    for first in range(0, replicas, 1 << 16):
+        r = min(1 << 16, replicas - first)
+        arrivals = np.cumsum(rng_np.exponential(1.0 / lam, (r, n)), axis=1)
+        service = rng_np.exponential(1.0 / mu, (r, n))
+        free = np.zeros(r)
+        for k in range(n):
+            start = np.maximum(arrivals[:, k], free)
+            free = start + service[:, k]
+            measured = (start >= warmup) & (start <= horizon)
+            total += float((start - arrivals[:, k])[measured].sum())
+            count += int(measured.sum())
+    return total / count
+
+
+def wide_phase(tag: str) -> dict:
+    """The wide code (csrc/event_step_wide.cu) and the 17-draw model, at
+    65,536 replicas: each model's block checks (blocks 0-3 and one near
+    the middle of its budget), its whole run in one launch against chained
+    one-block launches, its run through run_ensemble with an explicit
+    budget (the port's default, so a chain-form model stays on the scan)
+    and its gate; the wide code's time a block on the fleet."""
+    t0 = time.perf_counter()
+    models = wide_models()
+    out = {"max_abs_err": 0.0, "runs": {}, "whole": {}}
+    print(f"wide code at {REPLICAS} replicas (the lean tables each model is past):")
+    for name, (model, shape, library) in models.items():
+        compiled = _Compiled(model)
+        state_args = fresh_run(model)
+        halted = torch.empty((REPLICAS,), dtype=torch.uint8, device="cuda")
+        args = event_step.launch_args(compiled, state_args[3], state_args[1], 0, state_args[2], halted)
+        got = event_step.library_of(args)
+        print(f"  {name}: {support.wide_reasons(compiled) or 'no lean table'}, "
+              f"{compiled.n_draws} draws a step, library {got}")
+        require(got == library, f"{name}: library {got}, expected {library}")
+        n = -(-_default_max_events(model, None) // compiled.macro)
+        out["max_abs_err"] = max(out["max_abs_err"], check_blocks(name, model, [0, 1, 2, 3, n // 3]))
+        out["whole"][name] = check_whole_run(name, model)
+        out["runs"][name] = main_path_run(name, model, tag, shape)
+    runs = out["runs"]
+    # The fleet's servers, each an M/M/1 at rho = 0.8 on its way from
+    # empty over [0, 40) s, against an independent numpy Lindley reference
+    # of that M/M/1 over the same window at 4 x 65,536 replicas (the
+    # steady-state wait, 0.667 s, is some 4% above what a 10 s warmup
+    # leaves); one server's mean over 65,536 replicas is good to about
+    # 0.35%, the pooled mean of the 32 to about 0.07%, the reference to 0.17%.
+    scan = runs["wide-fleet"][0].server_mean_wait_s
+    lam = WIDE_RHO * WIDE_FLEET_MU
+    ref = mm1_window_wait(lam, WIDE_FLEET_MU, WIDE_HORIZON_S / 4, WIDE_HORIZON_S, 4 * REPLICAS)
+    print(f"  wide-fleet: steady-state M/M/1 wait {WIDE_RHO / (WIDE_FLEET_MU - lam):.6f} s; "
+          f"the numpy reference over [10, 40) s {ref:.6f} s; the servers {min(scan):.6f}..{max(scan):.6f}")
+    within(float(np.mean(scan)), ref, "wide-fleet pooled mean wait vs the reference")
+    for v, wait in enumerate(scan):
+        require(abs(wait - ref) <= 0.03 * ref, f"wide-fleet server[{v}] wait {wait} vs {ref}")
+    # The chain against the chain form of the same model (an independent
+    # algorithm and draw): its later stages fill from empty too.
+    chain_form, _launches = chain_run("wide-chain-chain", models["wide-chain"][0], tag)
+    print(f"  wide-chain: steady-state M/M/1 wait {LAM / MU / (MU - LAM):.6f} s")
+    for v, (a, b) in enumerate(zip(runs["wide-chain"][0].server_mean_wait_s,
+                                   chain_form.server_mean_wait_s)):
+        within(a, b, f"wide-chain stage[{v}] mean wait vs the chain form")
+    tenants = runs["wide-tenants"][0]
+    rho = sum(range(1, WIDE_TENANTS + 1)) / WIDE_TENANT_SERVERS / WIDE_TENANT_MU
+    for v, util in enumerate(tenants.server_utilization):
+        within(util, rho, f"wide-tenants server[{v}] utilization", unit="")
+    quorum = runs["wide-quorum"][0]
+    compiled = _Compiled(models["wide-quorum"][0])
+    keys = rng.split(rng.PRNGKey(0), REPLICAS)
+    params = {k: torch.from_numpy(v) for k, v in _resolve_params(
+        compiled.model, compiled, REPLICAS, None).items()}
+    cpu_dark = compiled.init_state(keys, params)["qrm_dark_time"]
+    cpu_fraction = float(host_f64(sum_f32_fixed(cpu_dark))) / (REPLICAS * CONSENSUS_HORIZON_S)
+    print(f"  wide-quorum dark fraction {quorum.quorum_dark_fraction:.9f} (the CPU path "
+          f"{cpu_fraction:.9f}), quorum drops {sum(quorum.server_quorum_dropped)}, partition "
+          f"drops {quorum.network_partitioned}")
+    require(abs(quorum.quorum_dark_fraction - cpu_fraction) <= 1e-6 * max(cpu_fraction, 1e-30),
+            "wide-quorum dark fraction")
+    draws = runs["wide-draws"][0]
+    require(sum(draws.server_hedged) > 0 and draws.network_lost > 0, "wide-draws: no hedge or loss")
+    out["timing"] = time_blocks(models["wide-fleet"][0], "wide-fleet")
+    t = out["timing"]
+    w = out["whole"]["wide-fleet"]
+    print(
+        f"timing wide (wide-fleet): kernel {t['kernel_ms']:.4f} ms/block in a {TIMED_BLOCKS}-block "
+        f"launch, {100 * t['bound_ms'] / t['kernel_ms']:.2f}% of its bound {t['bound_ms']:.4f} "
+        f"ms/block ({t['bound_by']}); the whole run {w['run_ms']:.3f} ms for {w['blocks']} blocks "
+        f"(bound {w['bound_ms']:.4f} ms); plain {t['plain_ms']:.3f} ms/block {tag}"
+    )
+    out["seconds"] = time.perf_counter() - t0
+    print(f"wide phase: {out['seconds']:.1f} s {tag}")
+    return out
+
+
+# -- the replica mesh ----------------------------------------------------------------
+# bench.py's _multichip_measure: replicas, horizon, windows and budget.
+MESH_REPLICAS, MESH_HORIZON_S, MESH_WINDOWS, MESH_MAX_EVENTS = 65536, 30.0, 32, 640
+# The shard counts of the one card's virtual meshes.
+MESH_SHARDS = (1, 4)
+
+
+def multichip_model() -> EnsembleModel:
+    """_multichip_measure's workload: a faulted, telemetered rho-sweep
+    M/M/1 (mu = 10, queue 256, deadline 8 s, 2 retries, FaultSpec(rate
+    0.05, mean 0.5 s)), horizon 30 s, warmup 5 s, 32 windows."""
+    model = EnsembleModel(horizon_s=MESH_HORIZON_S, warmup_s=MESH_HORIZON_S / 6)
+    srv = model.server(service_mean=1.0 / MU, queue_capacity=256, deadline_s=8.0, max_retries=2,
+                       fault=FaultSpec(rate=0.05, mean_duration_s=0.5))
+    model.connect(model.source(rate=0.95 * MU), srv)
+    model.connect(srv, model.sink())
+    model.telemetry(window_s=MESH_HORIZON_S / MESH_WINDOWS)
+    return model
+
+
+MESH_SWEEPS = {"source_rate": np.linspace(0.1 * MU, 0.95 * MU, MESH_REPLICAS).astype(np.float32)}
+# The mesh's own provenance, which differs between shard counts by design.
+MESH_FIELDS = frozenset({"mesh_devices", "mesh_shape", "per_shard_replicas"})
+
+
+def card_mesh(shards: int):
+    """``shards`` shards of cuda:0 (the one card's virtual mesh)."""
+    from happysim_tpu_torch.mesh import replica_mesh
+
+    return replica_mesh(["cuda:0"] * shards)
+
+
+def mesh_same(label: str, a, b) -> None:
+    """bench.py's assertion (counters, histogram and every window
+    series) and every other result field but the mesh's provenance."""
+    require(
+        a.sink_count == b.sink_count and a.simulated_events == b.simulated_events
+        and a.server_fault_dropped == b.server_fault_dropped
+        and a.server_timed_out == b.server_timed_out
+        and a.sink_mean_latency_s == b.sink_mean_latency_s
+        and np.array_equal(a.sink_hist, b.sink_hist),
+        f"{label}: the counters differ",
+    )
+    require(a.timeseries == b.timeseries, f"{label}: a window series differs")
+    bad = resume_mismatches(a, b, MESH_FIELDS)
+    require(not bad, f"{label}: {bad} differ")
+
+
+def mesh_phase(tag: str) -> dict:
+    """run_ensemble and run_mm1_ensemble on meshes of cuda:0 repeated 1 and
+    4 times at full width: _multichip_measure's workload, the M/M/1
+    ensemble, checkpoints resumed 1 -> 4 and 4 -> 1 shards, and the flash
+    crowd of _trace_measure; every pair the same bits, one launch a shard."""
+    t0 = time.perf_counter()
+    print(f"replica mesh of cuda:0 at {MESH_REPLICAS} replicas, {MESH_SHARDS} shards:")
+    out = {"walls": {}, "launches": {}}
+    runs = {}
+    for shards in MESH_SHARDS:
+        event_step.block_step.launches = 0
+        result = run_ensemble(multichip_model(), n_replicas=MESH_REPLICAS, seed=0,
+                              mesh=card_mesh(shards), max_events=MESH_MAX_EVENTS, sweeps=MESH_SWEEPS)
+        launches = event_step.block_step.launches
+        require(result.engine_path == "scan+cuda" and launches == shards,
+                f"multichip x{shards}: {result.engine_path}, {launches} launches")
+        runs[shards] = result
+        out["walls"][f"multichip x{shards}"] = result.wall_seconds
+        out["launches"][f"multichip x{shards}"] = launches
+        print(f"  multichip {shards} shard(s): wall {result.wall_seconds * 1e3:.3f} ms, {launches} "
+              f"launches, {result.simulated_events} events, {result.events_per_second:.4g} events/s, "
+              f"reduce {result.reduce_path} {tag}")
+    mesh_same("multichip 1 vs 4 shards", runs[1], runs[4])
+    print("  multichip 1 vs 4 shards: counters, histogram and every window series identical")
+
+    mm1 = {}
+    for shards in MESH_SHARDS:
+        mm1_scan.mm1_scan.launches = 0
+        mm1[shards] = run_mm1_ensemble(LAM, MU, REPLICAS, 4096, mesh=card_mesh(shards))
+        require(mm1_scan.mm1_scan.launches == shards, f"mm1 x{shards}: launches")
+        out["walls"][f"mm1 x{shards}"] = mm1[shards].wall_seconds
+        print(f"  run_mm1_ensemble {shards} shard(s): wall {mm1[shards].wall_seconds * 1e3:.3f} ms, "
+              f"mean wait {mm1[shards].mean_wait_s:.9f} s {tag}")
+    fields = ("mean_wait_s", "std_wait_s", "mean_sojourn_s", "n_replicas", "simulated_events")
+    require([getattr(mm1[1], f) for f in fields] == [getattr(mm1[4], f) for f in fields],
+            "run_mm1_ensemble: 1 vs 4 shards differ")
+    print("  run_mm1_ensemble 1 vs 4 shards: identical")
+
+    for source, target in ((1, 4), (4, 1)):
+        snaps = []
+
+        def keep(snapshot, snaps=snaps):
+            snaps.append(snapshot)
+            if len(snaps) >= 3:
+                raise _SnapshotKept
+
+        try:
+            run_ensemble(multichip_model(), n_replicas=MESH_REPLICAS, seed=0,
+                         mesh=card_mesh(source), max_events=MESH_MAX_EVENTS, sweeps=MESH_SWEEPS,
+                         checkpoint_every_s=0.0, checkpoint_callback=keep)
+        except _SnapshotKept:
+            pass
+        snapshot = snaps[-1]
+        require(snapshot.mesh_devices == source, f"snapshot of {source} shards: {snapshot.mesh_devices}")
+        resumed = run_ensemble(multichip_model(), n_replicas=MESH_REPLICAS, seed=0,
+                               mesh=card_mesh(target), max_events=MESH_MAX_EVENTS,
+                               sweeps=MESH_SWEEPS, resume_from=snapshot)
+        mesh_same(f"resume {source} -> {target} shards", runs[1], resumed)
+        out["walls"][f"resume {source}->{target}"] = resumed.wall_seconds
+        out[f"redistribution {source}->{target}"] = resumed.redistribution_seconds
+        print(f"  resume {source} -> {target} shards from chunk {snapshot.chunk_index} of "
+              f"{snapshot.n_chunks}: the uninterrupted bits; wall {resumed.wall_seconds * 1e3:.3f} ms, "
+              f"redistribution_seconds {resumed.redistribution_seconds:.6f} {tag}")
+
+    traced = {}
+    for shards in MESH_SHARDS:
+        trace_steps_launches = event_step.trace_steps.launches
+        traced[shards] = run_ensemble(trace_model("flash"), n_replicas=MESH_REPLICAS,
+                                      mesh=card_mesh(shards), max_events=TRACE_MAX_EVENTS)
+        launches = event_step.trace_steps.launches - trace_steps_launches
+        result = traced[shards]
+        require(launches == shards * result.trace_stream_steps, f"trace x{shards}: launches")
+        require(result.trace_max_resident_chunks <= 2, f"trace x{shards}: pages resident")
+        out["walls"][f"trace-flash x{shards}"] = result.wall_seconds
+        print(f"  trace-flash {shards} shard(s): wall {result.wall_seconds * 1e3:.3f} ms, "
+              f"{result.trace_stream_steps} stream steps, {launches} launches {tag}")
+    mesh_same("trace-flash 1 vs 4 shards", traced[1], traced[4])
+    print("  trace-flash 1 vs 4 shards: identical")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"mesh phase: {out['seconds']:.1f} s {tag}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2911,6 +3306,10 @@ def main() -> int:
     mm1_check = check_mm1_scan(tag)
     mm1_result, mm1_launches = mm1_main_path(tag)
     opinions = opinion_phase(tag)
+    # The wide code's models, then the replica mesh, each run driven with
+    # its launch count set to 0 just before (main_path_run, mesh_phase).
+    wide = wide_phase(tag)
+    meshes = mesh_phase(tag)
 
     print(f"library_ms: {LIBRARY_NOTE}; mm1_scan: none: no single PyTorch call computes the "
           "Lindley recursion")
@@ -2945,6 +3344,19 @@ def main() -> int:
                 "plain_ms": traces["timing"]["flash"]["plain_ms"],
                 "bound_ms": traces["timing"]["flash"]["bound_ms"],
                 "bound_by": traces["timing"]["flash"]["bound_by"],
+                "library_ms": None,
+            },
+            {
+                "name": "event_step[wide]",
+                "route": "cuda",
+                "source": "happysim_tpu_torch/kernels/csrc/event_step_wide.cu",
+                "replaces": "happysim_tpu/tpu/kernels/event_step.py:312",
+                "launches": wide["runs"]["wide-fleet"][1],
+                "max_abs_err": wide["max_abs_err"],
+                "ms": wide["timing"]["kernel_ms"],
+                "plain_ms": wide["timing"]["plain_ms"],
+                "bound_ms": wide["timing"]["bound_ms"],
+                "bound_by": wide["timing"]["bound_by"],
                 "library_ms": None,
             },
             {
@@ -2997,6 +3409,12 @@ def main() -> int:
                 "mm1_scan": mm1_check,
                 "run_mm1_ensemble": dataclasses.asdict(mm1_result),
                 "opinion": opinions,
+                "wide": {
+                    "timing": wide["timing"], "whole_run": wide["whole"],
+                    "runs": {name: report(*run) for name, run in wide["runs"].items()},
+                    "seconds": wide["seconds"],
+                },
+                "mesh": meshes,
                 **kernels,
             },
             indent=1,

@@ -71,7 +71,12 @@ may replay a recorded or synthesized trace (``model.trace_arrivals(...)``
 with a ``TraceSpec`` or the ``diurnal_trace``, ``flash_crowd_trace`` and
 ``zipf_tenant_trace`` synthesizers), streamed to the card in pages
 between kernel launches. Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``. ``run_ensemble`` and ``run_mm1_ensemble``
+take a ``mesh`` (``replica_mesh``, ``host_replica_mesh``; ``mesh.py``)
+that cuts the replicas into shards, one launch a shard, on several
+devices, several shards of one device, or the devices of several
+processes joined by ``distributed_initialize``, with the same bits on
+any shard count.
 
 The package exports the JAX package's names that it ports. Left out by
 design: ``KERNEL_ENV``, ``pallas_available`` and
@@ -80,8 +85,8 @@ design: ``KERNEL_ENV``, ``pallas_available`` and
 port runs every model on its CUDA kernel, and
 ``EnsembleModel.kernel_supported()`` names a model's refusal). Not yet
 ported: remote egress nodes, which raise ``NotImplementedError`` naming
-their ROADMAP item, the mesh names of ``mesh.py`` (ROADMAP A.13) and the
-partitioned names of ``partitioned.py`` (A.14).
+their ROADMAP item, and the partitioned names of ``partitioned.py``
+(A.14).
 """
 
 from happysim_tpu_torch.engine import (
@@ -97,6 +102,20 @@ from happysim_tpu_torch.engine import (
 )
 from happysim_tpu_torch.faults import duty_cycle
 from happysim_tpu_torch.kernels.support import kernel_plan
+from happysim_tpu_torch.mesh import (
+    HOST_AXIS,
+    REPLICA_AXIS,
+    STATE_PARTITION_RULES,
+    distributed_initialize,
+    ensemble_state_shardings,
+    ensemble_state_specs,
+    host_replica_mesh,
+    match_partition_rules,
+    pad_to_multiple,
+    replica_mesh,
+    replica_sharding,
+    replicated_sharding,
+)
 from happysim_tpu_torch.mm1 import MM1Result, run_mm1_ensemble
 from happysim_tpu_torch.model import (
     CircuitBreakerSpec,
@@ -127,6 +146,18 @@ from happysim_tpu_torch.traces import (
 )
 
 __all__ = [
+    "HOST_AXIS",
+    "REPLICA_AXIS",
+    "STATE_PARTITION_RULES",
+    "distributed_initialize",
+    "ensemble_state_shardings",
+    "ensemble_state_specs",
+    "host_replica_mesh",
+    "match_partition_rules",
+    "pad_to_multiple",
+    "replica_mesh",
+    "replica_sharding",
+    "replicated_sharding",
     "CircuitBreakerSpec",
     "CorrelatedOutages",
     "DEFAULT_CHUNK_LEN",

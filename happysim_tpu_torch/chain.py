@@ -45,7 +45,7 @@ from happysim_tpu_torch.faults import cumsum_like_xla
 from happysim_tpu_torch.kernels import uniform as uniform_kernel
 from happysim_tpu_torch.model import ROUTER, SERVER, SINK, EnsembleModel
 from happysim_tpu_torch.numerics import erfinv
-from happysim_tpu_torch.reduce import N_LIMBS, host_i64, sum_i64_limbs
+from happysim_tpu_torch.reduce import N_LIMBS, host_i64, reduce_over_processes, sum_i64_limbs
 
 logger = logging.getLogger("happysim_tpu_torch.chain")
 
@@ -241,22 +241,32 @@ def run_chain(
     model: EnsembleModel,
     compiled,
     plan,
-    keys: torch.Tensor,
-    src_rate: torch.Tensor,
-    srv_mean: torch.Tensor,
+    keys,
+    src_rate,
+    srv_mean,
+    group=None,
 ):
     """Closed-form chain / fan-out execution.
 
     ``plan`` is :func:`fast_plan`'s dict (a bare server list is taken for
     a single chain), ``keys`` the ``(R, 2)`` per-replica keys of
     ``split(PRNGKey(seed), R)``, ``src_rate`` ``(R, 1)`` and ``srv_mean``
-    ``(R, nV)`` on the run's device. Returns ``(reduced, events_total,
+    ``(R, nV)`` on the run's device; or each a list of the shards' slices
+    of them, each on its shard's device, in shard order (a replica mesh),
+    with the process ``group`` of a mesh across processes. The (R, N)
+    blocks go by shard, each on its shard's device, and their totals add
+    on the first shard's device in block order: a replica's draws are
+    keyed by its own key, so where the blocks are the same the bits are
+    whatever the shard count. Returns ``(reduced, events_total,
     wall_seconds, compile_seconds)`` in the shape of the event scan's
     ``reduce_final`` output, or None when the block memory budget or the
     finite-capacity certificate declines (the caller runs the scan).
     """
-    device = keys.device
-    n_replicas = keys.shape[0]
+    shard_keys = keys if isinstance(keys, (list, tuple)) else [keys]
+    shard_rates = src_rate if isinstance(src_rate, (list, tuple)) else [src_rate]
+    shard_means = srv_mean if isinstance(srv_mean, (list, tuple)) else [srv_mean]
+    device = shard_keys[0].device
+    per_shard = shard_keys[0].shape[0]
     horizon = float(model.horizon_s)
     warmup = float(compiled.warmup)
     source = model.sources[0]
@@ -264,7 +274,11 @@ def run_chain(
     if source.stop_after_s is not None:
         stop = min(stop, float(source.stop_after_s))
 
-    max_rate = float(src_rate.max())
+    max_rate = max(float(rate.max()) for rate in shard_rates)
+    if group is not None:
+        max_rate = float(
+            reduce_over_processes(torch.tensor(max_rate, dtype=torch.float64, device=device), "MAX", group)
+        )
     lam = stop * max_rate
     # The Poisson count at ~6 sigma; a replica that would have produced
     # more arrivals counts as truncated.
@@ -287,17 +301,18 @@ def run_chain(
             n_customers,
         )
         return None
-    block = min(n_replicas, max(1, _BLOCK_ELEMENTS // max(n_customers, 1)))
+    block = min(per_shard, max(1, _BLOCK_ELEMENTS // max(n_customers, 1)))
 
     on_card = device.type == "cuda"
     cumsum = (lambda x: torch.cumsum(x, dim=1)) if on_card else cumsum_like_xla
-    f32 = lambda value: _f32(value, device)  # noqa: E731
-    stop_t, horizon_t, warmup_t = f32(stop), f32(horizon), f32(warmup)
-    inf = f32(float("inf"))
 
     def run_block(keys_b, rate, means):
         B = rate.shape[0]
         shape = (B, n_customers)
+        device = keys_b.device
+        f32 = lambda value: _f32(value, device)  # noqa: E731
+        stop_t, horizon_t, warmup_t = f32(stop), f32(horizon), f32(warmup)
+        inf = f32(float("inf"))
 
         def replica_uniform(purpose, extra=()):
             return uniform_kernel.replica_uniform(keys_b, purpose, (n_customers, *extra))
@@ -441,10 +456,19 @@ def run_chain(
 
     start_t = _wall.perf_counter()
     partials = [
-        run_block(keys[b : b + block], src_rate[b : b + block, 0], srv_mean[b : b + block])
-        for b in range(0, n_replicas, block)
+        {
+            name: value.to(device)
+            for name, value in run_block(
+                k[b : b + block], rate[b : b + block, 0], means[b : b + block]
+            ).items()
+        }
+        for k, rate, means in zip(shard_keys, shard_rates, shard_means)
+        for b in range(0, per_shard, block)
     ]
     overflow = any(bool(p["overflow"]) for p in partials)
+    if group is not None:
+        flag = torch.tensor(int(overflow), dtype=torch.int32, device=device)
+        overflow = bool(reduce_over_processes(flag, "MAX", group))
     wall = _wall.perf_counter() - start_t
     if overflow:
         logger.info(
@@ -454,18 +478,30 @@ def run_chain(
         return None
 
     # Each block's int totals are < 2**31 (the block cap), so their limb
-    # columns add exactly across blocks; floats add in block order.
+    # columns add exactly across blocks (and processes); floats add in
+    # block order, every process's blocks gathered in rank order.
     def total_i64(name):
-        return sum_i64_limbs(torch.stack([p[name] for p in partials]), axis=0)
+        limbs = sum_i64_limbs(torch.stack([p[name] for p in partials]), axis=0)
+        return reduce_over_processes(limbs, "SUM", group)
 
     def total_f(name):
-        return torch.sum(torch.stack([p[name] for p in partials]), dim=0).cpu().numpy()
+        stacked = torch.stack([p[name] for p in partials])
+        if group is not None:
+            import torch.distributed as dist
+
+            parts = [torch.empty_like(stacked) for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, stacked, group=group)
+            stacked = torch.cat(parts)
+        return torch.sum(stacked, dim=0).cpu().numpy()
 
     limb_zeros_v = np.zeros((N_LIMBS, nV), np.int32)
-    events_limbs = sum_i64_limbs(torch.cat([p["events"] for p in partials]), axis=0)
+    events_limbs = reduce_over_processes(
+        sum_i64_limbs(torch.cat([p["events"] for p in partials]), axis=0), "SUM", group
+    )
     events_total = int(host_i64(events_limbs))
+    truncated = torch.stack([p["truncated"] for p in partials]).sum(dtype=torch.int32)
     reduced = {
-        "truncated": int(sum(int(p["truncated"]) for p in partials)),
+        "truncated": int(reduce_over_processes(truncated, "SUM", group)),
         "events": events_limbs,
         "sink_count": total_i64("sink_count"),
         "sink_sum": total_f("sink_sum"),

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from happysim_tpu_torch import convert, rng
+from happysim_tpu_torch import mesh as mesh_lib
 from happysim_tpu_torch.faults import FaultTable, PartitionTable
 from happysim_tpu_torch.kernels import event_step, support
 from happysim_tpu_torch.numerics import erfinv, fma_f32, interp
@@ -80,7 +81,9 @@ from happysim_tpu_torch.reduce import (
     MAX_EXACT_REPLICAS,
     host_f64,
     host_i64,
-    sum_f32_fixed,
+    reduce_over_processes,
+    shard_sum_f32_fixed,
+    shard_sum_i64_limbs,
     sum_i64_limbs,
 )
 from happysim_tpu_torch.telemetry import EnsembleTimeseries, build_timeseries, window_edges
@@ -295,7 +298,8 @@ class EnsembleCheckpoint:
     seed and budget reproduces the uninterrupted run bit for bit: each
     block's draws are keyed by its absolute index. The JAX package's
     ``EnsembleCheckpoint``, field for field; ``mesh_devices`` is
-    provenance (the port writes 1)."""
+    provenance, the shard count that wrote it (a snapshot resumes on any
+    shard count)."""
 
     chunk_index: int
     n_chunks: int
@@ -417,6 +421,18 @@ class EnsembleResult:
     blocks_total: int = 0
     block_occupancy: dict = dataclasses_field(default_factory=dict)
     padded_replicas: int = 0
+    # Mesh provenance (engine_report()["mesh"], JAX's fields): the shards
+    # the replica axis was cut into, the mesh's axes and shape, the
+    # replicas a shard, the reduce path ("device-limb-sum": exact limb
+    # sums on the device, added across shards; "+all-reduce" across
+    # processes), and on a resumed run the seconds spent cutting the
+    # snapshot's state into this mesh's shards.
+    mesh_devices: int = 1
+    mesh_axes: tuple = ()
+    mesh_shape: tuple = ()
+    per_shard_replicas: int = 0
+    reduce_path: str = "device-limb-sum"
+    redistribution_seconds: float = 0.0
     # the device the run used (torch.cuda.get_device_name or "cpu")
     device_name: str = ""
     # the per-window series of a model with a telemetry spec, else None
@@ -479,6 +495,14 @@ class EnsembleResult:
                 (padded - self.n_replicas) / padded if padded else 0.0
             ),
             "telemetry_windows": self.timeseries.n_windows if self.timeseries else 0,
+            "mesh": {
+                "devices": self.mesh_devices,
+                "axes": tuple(self.mesh_axes),
+                "shape": tuple(self.mesh_shape),
+                "per_shard_replicas": self.per_shard_replicas,
+                "reduce_path": self.reduce_path,
+                "redistribution_seconds": self.redistribution_seconds,
+            },
             # Each defense on or off, and its totals, so a run that had no
             # defenses reads apart from one whose defenses never fired.
             "resilience": {
@@ -918,9 +942,10 @@ class _Compiled:
             hist_cell = cell * HIST_BINS + _hist_bin(latency)[:, None].long()
             state["tel_sink_hist"].view(R, -1).scatter_add_(1, hist_cell, one)
 
-    def _tel_fault_integral(self, final: dict) -> dict:
-        """``(nW, nV)`` expected dark seconds per window summed over
-        replicas (JAX ``_tel_fault_integral``), from the sampled fault
+    def _tel_fault_dark(self, final: dict) -> torch.Tensor:
+        """Each replica's ``(nW, nV)`` expected dark seconds per window
+        (the terms of JAX ``_tel_fault_integral``, whose fixed-point sum
+        over replicas :func:`reduce_final` takes), from the sampled fault
         registers: a fault needs no events, so an event-driven integral
         would miss windows opening and closing between events. A replica
         whose own window coincides with a fired shared window counts the
@@ -952,7 +977,7 @@ class _Compiled:
                 ).sum(dim=-1)
                 dark = dark + shared * participates
             parts.append(dark)
-        return sum_f32_fixed(torch.cat(parts), axis=0)
+        return torch.cat(parts)
 
     def _edges(self):
         for s in self.model.sources:
@@ -2324,38 +2349,85 @@ def _default_max_events(model: EnsembleModel, sweeps) -> int:
     return int(1.25 * events_per_job * total_jobs) + 64
 
 
-def _blocks_reduce(blocks: torch.Tensor, n_chunks: int) -> dict:
-    """Macro-block occupancy: a bincount of per-replica blocks run plus a
-    limb-encoded total."""
-    clipped = torch.clamp(blocks, 0, n_chunks).long()
-    hist = torch.bincount(clipped, minlength=n_chunks + 1).to(torch.int32)
-    return {"blocks_hist": hist, "blocks_total": sum_i64_limbs(blocks, axis=0)}
+def _shards(final) -> list:
+    """A run's final state as the list of this process's shards' states
+    (one dict: one shard)."""
+    return list(final) if isinstance(final, (list, tuple)) else [final]
 
 
-def reduce_final(compiled: _Compiled, final: dict) -> dict:
-    """Every cross-replica reduction of a run, on the device."""
-    # Pending work before the horizon (a source arrival, an occupied
-    # slot, a parked transit job) marks a replica the budget truncated.
-    pending = torch.minimum(
-        torch.amin(final["src_next"], dim=-1),
-        torch.amin(final["srv_slot_done"], dim=(-2, -1)),
-    )
-    if compiled.has_transit:
-        pending = torch.minimum(pending, torch.amin(final["tr_time"], dim=(-2, -1)))
-    horizon = _f32(compiled.horizon, pending.device)
-    reduced = {"truncated": torch.sum((pending < horizon).to(torch.int32))}
-    per_replica = {
-        key: final[key] for key in sorted((_I64_COUNTER_KEYS | _F64_SUM_KEYS) & final.keys())
-    }
+def _blocks_reduce(blocks, n_chunks: int, group=None) -> dict:
+    """Macro-block occupancy over every shard's ``(r,)`` blocks run (one
+    tensor: one shard): a bincount of per-replica blocks run plus a
+    limb-encoded total, on the first shard's device."""
+    parts = _shards(blocks)
+    device = parts[0].device
+    hist = None
+    for part in parts:
+        counts = torch.bincount(torch.clamp(part, 0, n_chunks).long(), minlength=n_chunks + 1)
+        counts = counts.to(torch.int32).to(device)
+        hist = counts if hist is None else hist + counts
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(hist, group=group)
+    return {"blocks_hist": hist, "blocks_total": shard_sum_i64_limbs(parts, device, group)}
+
+
+def _gather_replicas(xs: list, device, group=None) -> torch.Tensor:
+    """Every shard's ``(r, ...)`` rows in shard order on ``device``, from
+    every process of ``group`` where given (each holds as many rows)."""
+    local = torch.cat([x.to(device) for x in xs])
+    if group is None:
+        return local
+    import torch.distributed as dist
+
+    # The collectives carry no uint32 (the keys, the trace cursors): their
+    # bits travel as int32.
+    wire = local.view(torch.int32) if local.dtype == torch.uint32 else local
+    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat(parts).view(local.dtype)
+
+
+def reduce_final(compiled: _Compiled, final, group=None) -> dict:
+    """Every cross-replica reduction of a run, on the device: ``final`` is
+    the state of one shard, or the list of this process's shards' states
+    (in shard order), reduced on the first shard's device and, with a
+    process ``group``, across the processes. The sums are exact across
+    shards (:func:`~happysim_tpu_torch.reduce.shard_sum_i64_limbs`,
+    :func:`~happysim_tpu_torch.reduce.shard_sum_f32_fixed`), so the
+    result is the same bits whatever the shard count."""
+    shards = _shards(final)
+    device = shards[0]["t"].device
+    truncated = None
+    for part in shards:
+        # Pending work before the horizon (a source arrival, an occupied
+        # slot, a parked transit job) marks a replica the budget truncated.
+        pending = torch.minimum(
+            torch.amin(part["src_next"], dim=-1),
+            torch.amin(part["srv_slot_done"], dim=(-2, -1)),
+        )
+        if compiled.has_transit:
+            pending = torch.minimum(pending, torch.amin(part["tr_time"], dim=(-2, -1)))
+        count = torch.sum((pending < _f32(compiled.horizon, pending.device)).to(torch.int32))
+        truncated = count.to(device) if truncated is None else truncated + count.to(device)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(truncated, group=group)
+    reduced = {"truncated": truncated}
+    keys = sorted((_I64_COUNTER_KEYS | _F64_SUM_KEYS) & shards[0].keys())
     # The sweeps' window integrals (a model with telemetry), and every
     # tel_ counter.
-    for key in sorted(compiled.tel_keys | ({"tel_qrm_dark_int", "tel_ldr_uptime_int"} & final.keys())):
-        per_replica[key] = final[key]
-    for key, arr in per_replica.items():
+    keys += sorted(
+        compiled.tel_keys | ({"tel_qrm_dark_int", "tel_ldr_uptime_int"} & shards[0].keys())
+    )
+    for key in keys:
+        column = [part[key] for part in shards]
         if key in _F64_SUM_KEYS:
-            reduced[key] = sum_f32_fixed(arr, axis=0)
+            reduced[key] = shard_sum_f32_fixed(column, device, group)
         elif _is_i64_key(key):
-            reduced[key] = sum_i64_limbs(arr, axis=0)
+            reduced[key] = shard_sum_i64_limbs(column, device, group)
         else:
             raise ValueError(
                 f"reduce key {key!r} has no declared encoding: add it to "
@@ -2366,12 +2438,17 @@ def reduce_final(compiled: _Compiled, final: dict) -> dict:
         if compiled.tel_spread:
             # The cross-replica spread of the per-window throughput, as
             # percentiles of the raw counts (the host divides by the
-            # window length, which commutes with them).
-            counts = final["tel_sink_count"].to(torch.float32)
+            # window length, which commutes with them), over every
+            # replica gathered in order.
+            counts = _gather_replicas(
+                [part["tel_sink_count"] for part in shards], device, group
+            ).to(torch.float32)
             reduced["tel_spread_p10"] = percentile_over_replicas(counts, 10.0)
             reduced["tel_spread_p90"] = percentile_over_replicas(counts, 90.0)
         if compiled.tel_faults:
-            reduced["tel_fault_int"] = compiled._tel_fault_integral(final)
+            reduced["tel_fault_int"] = shard_sum_f32_fixed(
+                [compiled._tel_fault_dark(part) for part in shards], device, group
+            )
     return reduced
 
 
@@ -2456,6 +2533,7 @@ RESUME_EXCLUDED_FIELDS = frozenset({
     "wall_seconds",
     "events_per_second",
     "compile_seconds",
+    "redistribution_seconds",
     "engine_path",
     "kernel_decline",
     "macro_block",
@@ -2570,30 +2648,55 @@ def _validate_resume(
             )
 
 
+@dataclass
+class _Shard:
+    """One shard of a run on this process: its index in the mesh, its
+    device, its replicas' keys and parameters there, its state and its
+    per-replica block counts."""
+
+    index: int
+    device: torch.device
+    keys: torch.Tensor
+    params: dict
+    blocks: torch.Tensor
+    state: Optional[dict] = None
+
+
+def _host_state(shards: list, group=None) -> dict:
+    """The run's state on the host, ``{leaf: (R, ...) numpy}``: every
+    shard's rows in shard order, from every process of ``group`` where
+    given (a snapshot holds the whole run)."""
+    return {
+        key: _gather_replicas([sh.state[key] for sh in shards], shards[0].device, group)
+        .cpu()
+        .numpy()
+        for key in shards[0].state
+    }
+
+
 def _run_ensemble_segmented(
     compiled: "_Compiled",
-    state: dict,
-    keys: torch.Tensor,
-    params: dict,
-    blocks: torch.Tensor,
+    shards: list,
     *,
     chunk_done: int,
     n_chunks: int,
     checkpoint_every_s: Optional[float],
     checkpoint_callback,
     meta: dict,
+    group=None,
 ) -> None:
     """The checkpointing path (the JAX engine's
     ``_run_ensemble_segmented``): blocks ``chunk_done, ..., n_chunks - 1``
     in segments of ``ceil(n_chunks / CHECKPOINT_SEGMENTS)``, each one
-    :func:`~happysim_tpu_torch.kernels.event_step.block_steps` call (one
-    kernel launch on the card), updating ``state`` and ``blocks`` in
-    place. Blocks are keyed by their absolute index, so the result is the
-    one-launch run's bit for bit. Nothing waits for the device between
-    segments unless a snapshot is due: then the state is copied to the
-    host into an :class:`EnsembleCheckpoint` (``meta`` holds its other
-    fields) for ``checkpoint_callback``. A callback without an interval
-    snapshots every segment; the last segment is never snapshotted."""
+    :func:`~happysim_tpu_torch.kernels.event_step.block_steps` call a
+    shard (one kernel launch a shard on the card), updating each shard's
+    state and blocks in place. Blocks are keyed by their absolute index,
+    so the result is the one-launch run's bit for bit. Nothing waits for
+    the device between segments unless a snapshot is due: then every
+    shard's state is copied to the host into one
+    :class:`EnsembleCheckpoint` (``meta`` holds its other fields) for
+    ``checkpoint_callback``. A callback without an interval snapshots
+    every segment; the last segment is never snapshotted."""
     seg_chunks = max(1, -(-n_chunks // CHECKPOINT_SEGMENTS))
     every = (
         checkpoint_every_s
@@ -2603,7 +2706,10 @@ def _run_ensemble_segmented(
     last_snapshot = _wall.perf_counter()
     while chunk_done < n_chunks:
         n_seg = min(seg_chunks, n_chunks - chunk_done)
-        event_step.block_steps(compiled, state, keys, chunk_done, n_seg, params, blocks)
+        for sh in shards:
+            event_step.block_steps(
+                compiled, sh.state, sh.keys, chunk_done, n_seg, sh.params, sh.blocks
+            )
         chunk_done += n_seg
         due = every is not None and _wall.perf_counter() - last_snapshot >= every
         if checkpoint_callback is not None and due and chunk_done < n_chunks:
@@ -2611,7 +2717,7 @@ def _run_ensemble_segmented(
                 EnsembleCheckpoint(
                     chunk_index=chunk_done,
                     n_chunks=n_chunks,
-                    state=convert.state_to_numpy(state),
+                    state=_host_state(shards, group),
                     **meta,
                 )
             )
@@ -2746,41 +2852,49 @@ def _trace_base_page(compiled: "_Compiled", state: dict, n_chunks: int) -> int:
 
 def _run_ensemble_traced(
     compiled: "_Compiled",
-    state: dict,
-    keys: torch.Tensor,
-    params: dict,
+    shards: list,
     *,
     base_page: int,
     n_chunks: int,
     checkpoint_every_s: Optional[float],
     checkpoint_callback,
     meta: Optional[dict],
+    group=None,
 ) -> dict:
     """The trace path (the JAX engine's ``_run_ensemble_traced``): the
-    trace is paged to the device in pages of ``P = chunk_len`` arrivals
-    (:class:`_TracePages`), two resident, and each stream step is one
-    :func:`~happysim_tpu_torch.kernels.event_step.trace_steps` call (one
-    kernel launch on the card) in which every replica runs stall-gated
-    blocks against the resident window, updating ``state`` in place.
-    Then comes the step's one host sync, three numbers: the lanes still
-    reading the trace, the least cursor among them, and the least block
-    count. The window moves on to the least cursor's page; the prefetch
-    of the page after the window is issued before that sync, so that it
-    overlaps the launch. A lane reading the trace is stalled at the end
-    of a step, so its cursor is at least ``base + P`` and the window
-    always moves on, except on the first step after a resume whose base
-    a halted lane held back (then it moves one page). Each lane keys its
-    blocks by its own count, so the result does not depend on the paging.
+    trace is paged to each of the shards' devices in pages of ``P =
+    chunk_len`` arrivals (:class:`_TracePages`, one ring a device, the
+    mesh's ``trace_chunk_sharding``), two resident, and each stream step
+    is one :func:`~happysim_tpu_torch.kernels.event_step.trace_steps`
+    call a shard (one kernel launch a shard on the card) in which every
+    replica runs stall-gated blocks against the resident window, updating
+    the shard's state in place. Then comes the step's one host sync,
+    three numbers reduced over the shards (and the processes of
+    ``group``): the lanes still reading the trace, the least cursor among
+    them, and the least block count. The window moves on to the least
+    cursor's page; the prefetch of the page after the window is issued
+    before that sync, so that it overlaps the launches. A lane reading the
+    trace is stalled at the end of a step, so its cursor is at least
+    ``base + P`` and the window always moves on, except on the first step
+    after a resume whose base a halted lane held back (then it moves one
+    page). Each lane keys its blocks by its own count, so the result does
+    not depend on the paging or on the shards.
 
     With a callback, a mid-chunk snapshot of the state is taken after a
     step (``chunk_index`` the least block count; ``meta`` holds the
     checkpoint's other fields) where ``checkpoint_every_s`` has passed (0
     or None: after every step), while lanes still read the trace.
-    Returns the paging counts."""
+    Returns the paging counts (the pages uploaded to the first shard's
+    device, and the stall seconds of every ring)."""
     P, ti = compiled.trace_chunk_len, compiled.trace_src
-    pages = _TracePages(compiled, state["t"].device)
-    pages.prefetch(base_page, ())
-    pages.prefetch(base_page + 1, (base_page,))
+    device = shards[0].device
+    rings = {}
+    for sh in shards:
+        if sh.device not in rings:
+            rings[sh.device] = _TracePages(compiled, sh.device)
+    for pages in rings.values():
+        pages.prefetch(base_page, ())
+        pages.prefetch(base_page + 1, (base_page,))
     stats = {"max_resident_chunks": 2, "stream_steps": 0}
     every = (
         checkpoint_every_s
@@ -2790,24 +2904,35 @@ def _run_ensemble_traced(
     last_snapshot = _wall.perf_counter()
     try:
         while True:
-            window = pages.window(base_page)
-            halted = event_step.trace_steps(
-                compiled, state, keys, params, window, base_page * P, n_chunks
-            )
-            pages.launched()
+            windows = {dev: pages.window(base_page) for dev, pages in rings.items()}
+            summaries = []
+            for sh in shards:
+                state = sh.state
+                halted = event_step.trace_steps(
+                    compiled, state, sh.keys, sh.params, windows[sh.device], base_page * P,
+                    n_chunks,
+                )
+                reads = (
+                    torch.isfinite(state["src_next"][:, ti])
+                    & (state["trc_blocks"] < n_chunks)
+                    & ~halted
+                )
+                cursor = state["trc_cursor"].to(torch.int64)
+                summaries.append(torch.stack([
+                    reads.sum().to(torch.int64),
+                    torch.where(reads, cursor, torch.full_like(cursor, 0xFFFFFFFF)).min(),
+                    state["trc_blocks"].min().to(torch.int64),
+                ]).to(device))
+            for pages in rings.values():
+                pages.launched()
             stats["stream_steps"] += 1
-            reads = (
-                torch.isfinite(state["src_next"][:, ti])
-                & (state["trc_blocks"] < n_chunks)
-                & ~halted
-            )
-            cursor = state["trc_cursor"].to(torch.int64)
-            summary = torch.stack([
-                reads.sum().to(torch.int64),
-                torch.where(reads, cursor, torch.full_like(cursor, 0xFFFFFFFF)).min(),
-                state["trc_blocks"].min().to(torch.int64),
+            table = torch.stack(summaries)
+            summary = torch.cat([
+                reduce_over_processes(table[:, 0].sum().reshape(1), "SUM", group),
+                reduce_over_processes(torch.amin(table[:, 1:], dim=0), "MIN", group),
             ])
-            pages.prefetch(base_page + 2, (base_page, base_page + 1))
+            for pages in rings.values():
+                pages.prefetch(base_page + 2, (base_page, base_page + 1))
             active, min_read, min_blocks = summary.tolist()  # the step's one sync
             due = every is not None and _wall.perf_counter() - last_snapshot >= every
             if checkpoint_callback is not None and due and active > 0:
@@ -2815,7 +2940,7 @@ def _run_ensemble_traced(
                     EnsembleCheckpoint(
                         chunk_index=int(min_blocks),
                         n_chunks=n_chunks,
-                        state=convert.state_to_numpy(state),
+                        state=_host_state(shards, group),
                         **meta,
                     )
                 )
@@ -2825,13 +2950,58 @@ def _run_ensemble_traced(
             new_page = int(min_read) // P
             base_page = new_page if new_page != base_page else base_page + 1
             stats["max_resident_chunks"] = max(
-                stats["max_resident_chunks"], pages.resident(base_page)
+                stats["max_resident_chunks"],
+                *(pages.resident(base_page) for pages in rings.values()),
             )
     finally:
-        pages.close()
-    stats["chunks_streamed"] = pages.chunks_streamed
-    stats["buffer_stall_seconds"] = pages.stall_seconds
+        for pages in rings.values():
+            pages.close()
+    stats["chunks_streamed"] = rings[device].chunks_streamed
+    stats["buffer_stall_seconds"] = sum(pages.stall_seconds for pages in rings.values())
     return stats
+
+
+def _resolve_mesh(mesh, device, entry: str = "run_ensemble") -> "mesh_lib.ReplicaMesh":
+    """The run's replica mesh: ``mesh``, or one shard on ``device``
+    (resolved by :func:`_resolve_device`). A mesh whose shards this
+    process runs lie elsewhere than an explicit ``device`` raises."""
+    if mesh is None:
+        return mesh_lib.ReplicaMesh((_resolve_device(device, entry),))
+    if device is not None:
+        want = torch.device(device)
+        for shard in mesh.local_shards:
+            got = mesh.devices[shard]
+            if got.type != want.type or None not in (got.index, want.index) and got.index != want.index:
+                raise ValueError(
+                    f"{entry}: mesh shard {shard} is on {got}, and device={device!r} "
+                    "asks for another device; pass the mesh alone"
+                )
+    return mesh
+
+
+def _mesh_fields(mesh: "mesh_lib.ReplicaMesh", n_replicas: int) -> dict:
+    """The result's mesh provenance (JAX's fields): the shards, the axes
+    and shape, the replicas a shard, and the reduce path: limb sums on
+    the device, added across processes by all_reduce where the mesh spans
+    them."""
+    return {
+        "mesh_devices": mesh.size,
+        "mesh_axes": tuple(mesh.axis_names),
+        "mesh_shape": tuple(mesh.shape),
+        "per_shard_replicas": n_replicas // mesh.size,
+        "reduce_path": "device-limb-sum+all-reduce" if mesh.spans_processes else "device-limb-sum",
+    }
+
+
+def _partition_gate(compiled: "_Compiled", host_params: dict, mesh) -> None:
+    """Every leaf of the run's state has a placement in
+    :data:`~happysim_tpu_torch.mesh.STATE_PARTITION_RULES` (raises
+    naming the first that has none): the leaf names of one replica's
+    state on the CPU."""
+    template = compiled.init_state(
+        rng.split(rng.PRNGKey(0), 1), {k: torch.from_numpy(v[:1]) for k, v in host_params.items()}
+    )
+    mesh_lib.ensemble_state_specs(tuple(template), mesh)
 
 
 def run_ensemble(
@@ -2844,11 +3014,20 @@ def run_ensemble(
     checkpoint_every_s: Optional[float] = None,
     checkpoint_callback=None,
     resume_from=None,
+    mesh=None,
 ) -> EnsembleResult:
     """Run ``n_replicas`` Monte-Carlo replicas of ``model``.
 
     ``device=None`` means the CUDA card, and raises when torch finds none;
     ``device="cpu"`` runs the plain versions of the kernels instead.
+    ``mesh`` (:mod:`happysim_tpu_torch.mesh`) cuts the replicas into
+    shards, padded to a multiple of its size before the keys are split
+    (as the JAX engine pads), each a contiguous slab on its device with
+    its slice of the keys and sweeps: one launch a shard, shards on
+    distinct devices at once and shards of one device in turn, and the
+    reductions exact across the shards (and processes), so the result is
+    the same bits on any shard count; ``mesh=None`` is one shard on
+    ``device``.
     ``sweeps`` maps ``"source_rate"`` / ``"service_mean"`` to per-replica
     ``(R,)`` or ``(R, n)`` arrays. ``max_events`` is the per-replica event
     budget (default: from the arrival rates and the longest server path).
@@ -2856,15 +3035,17 @@ def run_ensemble(
     (wall seconds; 0 = every segment) hands an :class:`EnsembleCheckpoint`
     of the state at a segment boundary to ``checkpoint_callback``; passing
     one back as ``resume_from`` (same model, replicas, seed and budget)
-    continues the run and reproduces the uninterrupted result bit for
-    bit. Such a run is the event scan in ``CHECKPOINT_SEGMENTS``
-    segments, one kernel launch each, and its ``wall_seconds`` include
-    the snapshots' copies; a resumed run counts only its own blocks.
+    continues the run, on any shard count, and reproduces the
+    uninterrupted result bit for bit. Such a run is the event scan in
+    ``CHECKPOINT_SEGMENTS`` segments, one kernel launch a shard each, and
+    its ``wall_seconds`` include the snapshots' copies; a resumed run
+    counts only its own blocks, and its ``redistribution_seconds`` are
+    the seconds it took to cut the snapshot into this mesh's shards.
 
     A model with a traced source streams its trace in pages, one
-    stall-gated kernel launch a stream step (:func:`_run_ensemble_traced`);
-    its snapshots are taken mid-chunk between steps, and its block counts
-    are each lane's own.
+    stall-gated kernel launch a shard a stream step
+    (:func:`_run_ensemble_traced`); its snapshots are taken mid-chunk
+    between steps, and its block counts are each lane's own.
 
     As in the JAX engine, a call with no ``max_events`` runs a
     Poisson -> FIFO chain -> sink model, or a single random or round-robin
@@ -2872,7 +3053,7 @@ def run_ensemble(
     :mod:`~happysim_tpu_torch.chain` (``engine_path == "chain"``), unless
     ``HS_TPU_CHAIN=0`` or its finite-capacity certificate or memory budget
     declines; every other run is the event scan, the whole event budget
-    in one kernel launch.
+    in one kernel launch a shard.
     """
     checkpointing = (
         checkpoint_every_s is not None
@@ -2884,8 +3065,12 @@ def run_ensemble(
             "checkpoint_every_s without checkpoint_callback would take no "
             "snapshots (pass a callback to receive them)"
         )
-    device = _resolve_device(device)
+    mesh = _resolve_mesh(mesh, device)
+    # The first shard's device: the run's keys are split and its
+    # reductions meet there.
+    device = mesh.devices[mesh.local_shards[0]]
     compiled = _Compiled(model)
+    n_replicas = mesh_lib.pad_to_multiple(n_replicas, mesh.size)
     if n_replicas > MAX_EXACT_REPLICAS:
         raise ValueError(
             f"n_replicas={n_replicas} exceeds the exact-reduction bound of "
@@ -2900,6 +3085,25 @@ def run_ensemble(
     n_chunks = -(-int(max_events) // macro)
     on_card = device.type == "cuda"
     device_name = torch.cuda.get_device_name(device) if on_card else "cpu"
+    group = mesh.group
+    host_params = _resolve_params(model, compiled, n_replicas, sweeps)
+    _partition_gate(compiled, host_params, mesh)
+    mesh_fields = _mesh_fields(mesh, n_replicas)
+
+    def shard_inputs() -> list:
+        """This process's shards, each with its slice of the keys and the
+        parameters on its device."""
+        keys = rng.split(rng.PRNGKey(seed, device=device), n_replicas)
+        shards = []
+        for index in mesh.local_shards:
+            rows = mesh.shard_slice(index, n_replicas)
+            dev = mesh.devices[index]
+            shards.append(_Shard(
+                index, dev, keys[rows].to(dev),
+                {k: torch.from_numpy(v[rows]).to(dev) for k, v in host_params.items()},
+                torch.zeros((rows.stop - rows.start,), dtype=torch.int32, device=dev),
+            ))
+        return shards
 
     # Checkpointed and resumed runs always take the scan: its state is
     # the snapshot.
@@ -2912,13 +3116,11 @@ def run_ensemble(
 
         plan = chain.fast_plan(model)
         if plan is not None:
-            params = {
-                k: torch.from_numpy(v).to(device)
-                for k, v in _resolve_params(model, compiled, n_replicas, sweeps).items()
-            }
-            keys = rng.split(rng.PRNGKey(seed, device=device), n_replicas)
+            shards = shard_inputs()
             fast = chain.run_chain(
-                model, compiled, plan, keys, params["src_rate"], params["srv_mean"]
+                model, compiled, plan, [sh.keys for sh in shards],
+                [sh.params["src_rate"] for sh in shards],
+                [sh.params["srv_mean"] for sh in shards], group=group,
             )
             if fast is not None:
                 reduced, events_total, wall, compile_s = fast
@@ -2932,6 +3134,7 @@ def run_ensemble(
                     compile_seconds=compile_s,
                     engine_path="chain",
                     device_name=device_name,
+                    mesh_fields=mesh_fields,
                 )
     if on_card:
         support.check_kernel_bounds(compiled, macro)
@@ -2949,55 +3152,54 @@ def run_ensemble(
     compile_seconds = _wall.perf_counter() - compile_start
 
     start = _wall.perf_counter()
-    host_params = _resolve_params(model, compiled, n_replicas, sweeps)
-    params = {k: torch.from_numpy(v).to(device) for k, v in host_params.items()}
-    keys = rng.split(rng.PRNGKey(seed, device=device), n_replicas)
-    # Each lane counts a block iff it was live when the block began.
-    blocks = torch.zeros((n_replicas,), dtype=torch.int32, device=device)
+    shards = shard_inputs()
+    meta = _checkpoint_meta(compiled, n_replicas, seed, max_events, host_params, mesh.size)
+    redistribution_seconds = 0.0
+    if resume_from is not None:
+        begin = _wall.perf_counter()
+        _resume_state(compiled, resume_from, shards, meta, n_chunks, mesh, n_replicas)
+        redistribution_seconds = _wall.perf_counter() - begin
+    else:
+        for sh in shards:
+            sh.state = compiled.init_state(sh.keys, sh.params)
     trace_stats = None
     if compiled.has_trace:
-        meta = _checkpoint_meta(compiled, n_replicas, seed, max_events, host_params)
-        if resume_from is not None:
-            state = _resume_state(compiled, resume_from, keys, params, meta, n_chunks, device)
-            base_page = _trace_base_page(compiled, resume_from.state, n_chunks)
-        else:
-            state = compiled.init_state(keys, params)
-            base_page = 0
+        base_page = (
+            _trace_base_page(compiled, resume_from.state, n_chunks) if resume_from is not None else 0
+        )
         trace_stats = _run_ensemble_traced(
-            compiled, state, keys, params,
+            compiled, shards,
             base_page=base_page,
             n_chunks=n_chunks,
             checkpoint_every_s=checkpoint_every_s,
             checkpoint_callback=checkpoint_callback,
             meta=meta,
+            group=group,
         )
         # Each lane's own block count rides the state on this path.
-        blocks = state["trc_blocks"]
+        for sh in shards:
+            sh.blocks = sh.state["trc_blocks"]
     elif not checkpointing:
-        # The whole budget in one call: on the card one kernel launch, in
-        # which each lane runs its blocks until it halts; nothing waits
-        # for the device before the reduce.
-        state = compiled.init_state(keys, params)
+        # The whole budget in one call a shard: on the card one kernel
+        # launch, in which each lane runs its blocks until it halts;
+        # nothing waits for the device before the reduce.
         if n_chunks:
-            event_step.block_steps(compiled, state, keys, 0, n_chunks, params, blocks)
+            for sh in shards:
+                event_step.block_steps(
+                    compiled, sh.state, sh.keys, 0, n_chunks, sh.params, sh.blocks
+                )
     else:
-        meta = _checkpoint_meta(compiled, n_replicas, seed, max_events, host_params)
-        if resume_from is not None:
-            state = _resume_state(compiled, resume_from, keys, params, meta, n_chunks, device)
-            chunk_done = resume_from.chunk_index
-        else:
-            state = compiled.init_state(keys, params)
-            chunk_done = 0
         _run_ensemble_segmented(
-            compiled, state, keys, params, blocks,
-            chunk_done=chunk_done,
+            compiled, shards,
+            chunk_done=resume_from.chunk_index if resume_from is not None else 0,
             n_chunks=n_chunks,
             checkpoint_every_s=checkpoint_every_s,
             checkpoint_callback=checkpoint_callback,
             meta=meta,
+            group=group,
         )
-    reduced = reduce_final(compiled, state)
-    reduced.update(_blocks_reduce(blocks, n_chunks))
+    reduced = reduce_final(compiled, [sh.state for sh in shards], group)
+    reduced.update(_blocks_reduce([sh.blocks for sh in shards], n_chunks, group))
     events_total = int(host_i64(reduced["events"]))
     wall = _wall.perf_counter() - start
 
@@ -3018,6 +3220,7 @@ def run_ensemble(
         max_blocks=n_chunks,
         device_name=device_name,
         trace_stats=trace_stats,
+        mesh_fields=dict(mesh_fields, redistribution_seconds=redistribution_seconds),
     )
 
 
@@ -3032,7 +3235,8 @@ def _cpu_decline(compiled: "_Compiled", macro: int) -> str:
 
 
 def _checkpoint_meta(
-    compiled: "_Compiled", n_replicas: int, seed: int, max_events, host_params: dict
+    compiled: "_Compiled", n_replicas: int, seed: int, max_events, host_params: dict,
+    mesh_devices: int = 1,
 ) -> dict:
     """The fields of a run's snapshots besides the state and the chunk."""
     return {
@@ -3043,15 +3247,19 @@ def _checkpoint_meta(
         "params_fingerprint": params_fingerprint(host_params),
         "macro_block": compiled.macro,
         "telemetry": compiled.telemetry.signature() if compiled.has_telemetry else "",
-        "mesh_devices": 1,
+        "mesh_devices": mesh_devices,
     }
 
 
-def _resume_state(compiled, resume_from, keys, params, meta: dict, n_chunks: int, device) -> dict:
-    """The snapshot's state on ``device``, after JAX's resume checks
+def _resume_state(
+    compiled, resume_from, shards: list, meta: dict, n_chunks: int, mesh, n_replicas: int
+) -> None:
+    """The snapshot's state cut into this mesh's shards, each on its
+    device (whatever shard count wrote it), after JAX's resume checks
     against this run (``meta``, :func:`_checkpoint_meta`)."""
     # The leaf names of this run's state, from one replica's.
-    template = compiled.init_state(keys[:1], {k: v[:1] for k, v in params.items()})
+    first = shards[0]
+    template = compiled.init_state(first.keys[:1], {k: v[:1] for k, v in first.params.items()})
     _validate_resume(
         resume_from,
         template,
@@ -3061,7 +3269,11 @@ def _resume_state(compiled, resume_from, keys, params, meta: dict, n_chunks: int
         telemetry_sig=meta["telemetry"],
         **{k: meta[k] for k in ("n_replicas", "seed", "max_events", "macro_block")},
     )
-    return convert.state_from_numpy(resume_from.state, device)
+    for sh in shards:
+        rows = mesh.shard_slice(sh.index, n_replicas)
+        sh.state = convert.state_from_numpy(
+            {k: np.asarray(v)[rows] for k, v in resume_from.state.items()}, sh.device
+        )
 
 
 def _build_result(
@@ -3081,6 +3293,7 @@ def _build_result(
     max_blocks: int = 0,
     device_name: str = "",
     trace_stats: Optional[dict] = None,
+    mesh_fields: Optional[dict] = None,
 ) -> EnsembleResult:
     """Decode the device-reduced totals into an :class:`EnsembleResult`
     (for the event scan and the chain form, which emits the same keys and
@@ -3192,6 +3405,7 @@ def _build_result(
         blocks_total=blocks_total,
         block_occupancy=block_occupancy,
         padded_replicas=n_replicas,
+        **(mesh_fields or {"per_shard_replicas": n_replicas}),
         device_name=device_name,
         timeseries=timeseries,
         trace=compiled.has_trace,

@@ -20,8 +20,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # One library per source: the event-step kernel without telemetry or
 # resilience, its telemetry instantiations, its resilience instantiations,
 # its consensus instantiations, its instantiations for several sources or
-# sinks, its trace-driven instantiations, the standalone draw kernel and
-# the M/M/1 ensemble's Lindley scan.
+# sinks, its trace-driven instantiations, its wide code, the standalone
+# draw kernel and the M/M/1 ensemble's Lindley scan.
 SOURCES = (
     CSRC / "event_step.cu",
     CSRC / "event_step_telemetry.cu",
@@ -29,6 +29,7 @@ SOURCES = (
     CSRC / "event_step_consensus.cu",
     CSRC / "event_step_multi.cu",
     CSRC / "event_step_trace.cu",
+    CSRC / "event_step_wide.cu",
     CSRC / "uniform.cu",
     CSRC / "mm1_scan.cu",
 )

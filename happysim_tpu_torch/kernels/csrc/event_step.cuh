@@ -230,6 +230,10 @@
 
 #include "threefry.cuh"
 
+// The lean instantiations' tables in the argument struct. A model past
+// one of them runs the wide code (MAXV = HS_WIDE), which reads its
+// tables from device memory (HsWide) and bounds none of these counts.
+#define HS_WIDE 0
 #define HS_MAX_NV 8
 #define HS_MAX_ROUTERS 8
 #define HS_MAX_TARGETS 8
@@ -445,6 +449,41 @@ struct HsTrc {
   int n_chunks;       // the run's block budget per lane
 };
 
+// The wide code's tables (MAXV = HS_WIDE): the model's constants, one
+// device buffer uploaded once per model and device, each table a pointer
+// into it read through the read-only cache; per-server tables have nV
+// rows, the router tables nR rows of nT, the group table nP rows of nV
+// (1: server v is in group p). `smin` and `tmin` are the lanes' earliest
+// completion and transit arrival per server, (nV, R) lane-minor scratch
+// that stands in for the lean code's register arrays. Null everywhere in
+// the lean instantiations. The layout must match
+// kernels/event_step.py::_Wide.
+struct HsWide {
+  const HsSrc* src;                 // (nS,)
+  const HsRef* srv_ref;             // (nV,)
+  const int *svc_kind, *conc, *qcap, *erlang_k;
+  const float *hyp_p1, *hyp_f1, *hyp_f2, *ln_sigma, *par_alpha, *par_xmf;
+  const int *srv_flags, *max_retries, *cap_slots;
+  const float *deadline, *outage_start, *outage_end, *backoff, *jitter, *hedge, *lat_factor;
+  const HsLoss* srv_loss;           // (nV,)
+  const int* u_route;               // (hop depth,)
+  const int *rt_policy, *rt_n, *rt_park;  // (nR,)
+  const HsRef* rt_target;           // (nR, nT)
+  const float* rt_cum;              // (nR, nT)
+  const HsLoss* rt_loss;            // (nR, nT)
+  const float *lim_rate, *lim_cap;  // (nL,)
+  const HsRef* lim_ref;
+  const HsLoss* lim_loss;
+  const float* shed_busy_thr;       // (nV,)
+  const int* prt_member;            // (nP, nV)
+  const int* prt_drop;              // (nP,)
+  const float* prt_delay;           // (nP,)
+  const int *touched, *qrm_member, *qrm_retry;  // (nV,) 0 or 1
+  float *smin, *tmin;               // (nV, R) scratch
+  int nT;                           // the router tables' row length
+  int on;                           // 1: the wide code's launch
+};
+
 // Launch arguments. The layout must match kernels/event_step.py::_Args.
 struct EventStepArgs {
   // state leaves, replica-major, JAX layout
@@ -563,6 +602,8 @@ struct EventStepArgs {
   HsCon con;
   // TRC only
   HsTrc trc;
+  // MAXV = HS_WIDE only
+  HsWide wide;
   // The rows staged in shared memory (kernels/support.py::stage_plan).
   HsStage stage;
 };
@@ -581,11 +622,13 @@ static_assert(sizeof(EventStepArgs) <= 32764,
 extern __shared__ float hs_tables[];
 
 // Lanes `lane`, `lane + lanes`, ... of a thread block copy each profiled
-// source's two (G,) tables into its row of the block's tables.
+// source's two (G,) tables into its row of the block's tables (the
+// sources' rows in the arguments, or in the wide code's tables).
 __device__ __forceinline__ void stage_profiles(const EventStepArgs& a, int lane, int lanes) {
   const int n = a.prof_n;
+  const HsSrc* srcs = a.wide.on ? a.wide.src : a.src;
   for (int s = 0; s < a.nS; ++s) {
-    const int row = a.src[s].prof_row;
+    const int row = srcs[s].prof_row;
     if (row < 0) continue;
     float* times = hs_tables + (size_t)2 * n * row;
     for (int i = lane; i < n; i += lanes) {
@@ -593,6 +636,17 @@ __device__ __forceinline__ void stage_profiles(const EventStepArgs& a, int lane,
       times[n + i] = a.prof_cum[(size_t)s * n + i];
     }
   }
+}
+
+// A read through the read-only cache (a plain load in the host build):
+// the trace pages and the wide code's tables.
+template <typename T>
+__device__ __forceinline__ T hs_ldg(const T* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  return *p;
+#endif
 }
 
 // A row of a per-replica leaf: element j at p[j * s], with s 1 in device
@@ -653,6 +707,56 @@ __device__ __forceinline__ T pick_arg(const T* a, int i) {
   for (int v = 1; v < MAXV; ++v)
     if (v == i) out = a[v];
   return out;
+}
+
+// The wide code's per-server registers are rows in device memory (the
+// state leaves, or the (nV, R) scratch), read and written in place.
+template <typename T>
+__device__ __forceinline__ T pick(const HsRow<T>& a, int i) {
+  return a[i];
+}
+
+template <typename T>
+__device__ __forceinline__ void put(const HsRow<T>& a, int i, T x) {
+  a[i] = x;
+}
+
+// Entry i of a table: `lean`'s in the argument struct (a per-server table
+// through pick_arg; `direct`: indexed as it stands), or the wide code's in
+// device memory. Scalars go through the read-only cache.
+template <int MAXV, bool direct = false, typename T>
+__device__ __forceinline__ T hs_tab(const T* lean, const T* wide, int i) {
+  if constexpr (MAXV == HS_WIDE) {
+    if constexpr (std::is_arithmetic<T>::value) {
+      return hs_ldg(wide + i);
+    } else {
+      return wide[i];
+    }
+  } else if constexpr (direct) {
+    return lean[i];
+  } else {
+    return pick_arg<MAXV>(lean, i);
+  }
+}
+
+// Server w's constant `field` of the arguments (the lean code) or of the
+// wide code's tables.
+#define HS_SRV(field, w) hs_tab<MAXV>(a.field, a.wide.field, w)
+// Entry i of a router, limiter, hop or group table.
+#define HS_ARR(lean, field, i) hs_tab<MAXV, true>(lean, a.wide.field, i)
+// Entry (row, i) of a router's target tables.
+#define HS_RT(field, row, i) \
+  (MAXV == HS_WIDE ? a.wide.field[(row) * a.wide.nT + (i)] : a.field[row][i])
+
+// Whether server w is in a set: bit w of the lean code's mask, or entry w
+// of the wide code's (nV,) table.
+template <int MAXV>
+__device__ __forceinline__ bool hs_bit(int mask, const int* wide, int w) {
+  if constexpr (MAXV == HS_WIDE) {
+    return hs_ldg(wide + w) != 0;
+  } else {
+    return (mask >> w) & 1;
+  }
 }
 
 // The engine's uniforms: rng.uniform(fold_in(key_r, block), (macro,
@@ -742,27 +846,27 @@ __device__ __forceinline__ float erfinv_f32(float x) {
 template <int MAXV>
 __device__ __forceinline__ HsSvc sample_family(const EventStepArgs& a, int w, float mean,
                                                const HsDraw& u) {
-  const int kind = pick_arg<MAXV>(a.svc_kind, w);
+  const int kind = HS_SRV(svc_kind, w);
   if (kind == HS_SVC_CONSTANT) return HsSvc{mean, 1.0f};
   const float ua = u[0];
   if (kind == HS_SVC_EXPONENTIAL) return HsSvc{-logf(ua), mean};
   if (kind == HS_SVC_ERLANG) {
-    if (pick_arg<MAXV>(a.erlang_k, w) == 2) return HsSvc{(-logf(ua * u[1])) * mean, 0.5f};
+    if (HS_SRV(erlang_k, w) == 2) return HsSvc{(-logf(ua * u[1])) * mean, 0.5f};
     // XLA rewrites JAX's "/ 3.0" as a multiply by float(1/3).
     return HsSvc{(-logf(ua * u[1] * u[2])) * mean, 1.0f / 3.0f};
   }
   if (kind == HS_SVC_HYPEREXP) {
-    const float factor = ua < pick_arg<MAXV>(a.hyp_p1, w) ? pick_arg<MAXV>(a.hyp_f1, w)
-                                                          : pick_arg<MAXV>(a.hyp_f2, w);
+    const float factor = ua < HS_SRV(hyp_p1, w) ? HS_SRV(hyp_f1, w)
+                                                          : HS_SRV(hyp_f2, w);
     return HsSvc{(-logf(u[1])) * mean, factor};
   }
   if (kind == HS_SVC_LOGNORMAL) {
-    const float sigma = pick_arg<MAXV>(a.ln_sigma, w);
+    const float sigma = HS_SRV(ln_sigma, w);
     const float z = 1.41421354f * erfinv_f32(2.0f * ua - 1.0f);
     return HsSvc{mean, expf(sigma * z - 0.5f * sigma * sigma)};
   }
-  const float alpha = pick_arg<MAXV>(a.par_alpha, w);
-  return HsSvc{mean * pick_arg<MAXV>(a.par_xmf, w), powf(ua, -1.0f / alpha)};
+  const float alpha = HS_SRV(par_alpha, w);
+  return HsSvc{mean * HS_SRV(par_xmf, w), powf(ua, -1.0f / alpha)};
 }
 
 // Server w's service draw from the window at u (EXT: any family), with
@@ -775,7 +879,7 @@ __device__ __forceinline__ HsSvc service_terms(const EventStepArgs& a, int w, fl
   if constexpr (EXT) {
     s = sample_family<MAXV>(a, w, mean, u);
   } else {
-    s = sample_service(pick_arg<MAXV>(a.svc_kind, w), mean, u, 0);
+    s = sample_service(HS_SRV(svc_kind, w), mean, u, 0);
   }
   if (!a.svc_fused) s = HsSvc{s.x * s.y, 1.0f};
   return s;
@@ -841,17 +945,6 @@ __device__ __forceinline__ void tel_count(int* buf, const HsTel& T, size_t row, 
   if (buf) buf[(row + tel_window(T, t)) * width + i] += 1;
 }
 
-// A read of the trace pages through the read-only cache (a plain load in
-// the host build).
-template <typename T>
-__device__ __forceinline__ T hs_ldg(const T* p) {
-#if defined(__CUDA_ARCH__)
-  return __ldg(p);
-#else
-  return *p;
-#endif
-}
-
 // TRC: the traced source's fire (JAX _fire_trace_source). The arrival at
 // the cursor counts for its tenant (and, with TEL, in the window of t),
 // the cursor advances, and the next instant is read from the resident
@@ -900,14 +993,20 @@ __device__ __forceinline__ float row_min(const Row& row, int n) {
   return m;
 }
 
+// A lane's per-server register: an array of MAXV registers, or in the
+// wide code a row in device memory.
+template <int MAXV, typename T>
+using HsReg = typename std::conditional<MAXV == HS_WIDE, HsRow<T>,
+                                        T[MAXV == HS_WIDE ? 1 : MAXV]>::type;
+
 // One replica's registers and its rows, staged or in device memory.
 template <int MAXV>
 struct Lane {
-  int q_head[MAXV], q_len[MAXV], started[MAXV], completed[MAXV];
-  int dropped[MAXV], wait_n[MAXV];
-  float busy[MAXV], depth[MAXV], wsum[MAXV], mean[MAXV];
-  float smin[MAXV];  // earliest completion per server
-  float tmin[MAXV];  // earliest transit arrival per server (GRAPH)
+  HsReg<MAXV, int> q_head, q_len, started, completed, dropped, wait_n;
+  HsReg<MAXV, float> busy, depth, wsum;
+  typename std::conditional<MAXV == HS_WIDE, HsRow<const float>, HsReg<MAXV, float>>::type mean;
+  HsReg<MAXV, float> smin;  // earliest completion per server
+  HsReg<MAXV, float> tmin;  // earliest transit arrival per server (GRAPH)
   int sk_count;  // sink 0's accumulators; the other sinks' stay in device memory
   float sk_sum, sk_sq;
   size_t sink_row;  // MULTI: this replica's first row (r * nK) of the sink leaves
@@ -974,7 +1073,7 @@ template <int MAXV, bool EXT, bool TEL = false>
 __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                               float t, float created, const HsDraw& u) {
   const int C = a.C, K = a.K;
-  const int cw = pick_arg<MAXV>(a.conc, w);
+  const int cw = HS_SRV(conc, w);
   const HsRow<float> row = L.slot_done + w * C;
   int first_free = -1;
   for (int c = 0; c < cw; ++c)
@@ -996,7 +1095,7 @@ __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs
     put(L.smin, w, fminf(pick(L.smin, w), done_at));
   } else {
     const int ql = pick(L.q_len, w);
-    if (ql < pick_arg<MAXV>(a.qcap, w)) {
+    if (ql < HS_SRV(qcap, w)) {
       const int tail = (pick(L.q_head, w) + ql) % K;
       L.q_created[w * K + tail] = created;
       L.q_enq[w * K + tail] = t;
@@ -1062,7 +1161,7 @@ __device__ __forceinline__ bool fault_dark(const Lane<MAXV>& L, const EventStepA
   const HsRow<const float> start = L.flt_start + w * a.W;
   const HsRow<const float> end = L.flt_end + w * a.W;
   for (int i = 0; i < a.W; ++i) dark |= (t >= start[i]) & (t < end[i]);
-  if (L.flt_sh_start && (pick_arg<MAXV>(a.srv_flags, w) & HS_F_SHARED)) {
+  if (L.flt_sh_start && (HS_SRV(srv_flags, w) & HS_F_SHARED)) {
     for (int i = 0; i < a.W_sh; ++i)
       dark |= (t >= L.flt_sh_start[i]) & (t < L.flt_sh_end[i]);
   }
@@ -1084,8 +1183,8 @@ template <int MAXV>
 __device__ __forceinline__ float backoff_arrival(const EventStepArgs& a, int w, int attempt,
                                                  const HsDraw& u, float t) {
   const float uj = a.u_jit >= 0 ? u[a.u_jit] : 0.5f;
-  const float spread = fma_f64(pick_arg<MAXV>(a.jitter, w), uj - 0.5f, 1.0f);
-  return fma_f64(pick_arg<MAXV>(a.backoff, w) * exp2f((float)attempt), spread, t);
+  const float spread = fma_f64(HS_SRV(jitter, w), uj - 0.5f, 1.0f);
+  return fma_f64(HS_SRV(backoff, w) * exp2f((float)attempt), spread, t);
 }
 
 // A hedge with delay h and a second draw of terms s2: the slot is held for
@@ -1203,23 +1302,28 @@ __device__ __forceinline__ void budget_dropped(const Lane<MAXV>& L, const EventS
 // cut (returned), whether one of the cut groups is drop-mode, and the
 // largest delay of the cut ones.
 template <int MAXV>
-__device__ __forceinline__ bool partition_consult(const Lane<MAXV>& L, const HsCon& P, int w, float t,
-                                                  bool& drop, float& delay) {
+__device__ __forceinline__ bool partition_consult(const Lane<MAXV>& L, const EventStepArgs& a, int w,
+                                                  float t, bool& drop, float& delay) {
+  const HsCon& P = a.con;
   bool dark = false;
   drop = false;
   delay = 0.0f;
   for (int g = 0; g < P.nP; ++g) {
-    if (!((P.prt_member[g] >> w) & 1)) continue;
+    if constexpr (MAXV == HS_WIDE) {
+      if (!hs_ldg(a.wide.prt_member + (size_t)g * a.nV + w)) continue;
+    } else {
+      if (!((P.prt_member[g] >> w) & 1)) continue;
+    }
     const HsRow<const float> start = L.prt_start + g * P.Wp;
     const HsRow<const float> end = L.prt_end + g * P.Wp;
     bool cut = false;
     for (int i = 0; i < P.Wp; ++i) cut |= (t >= start[i]) & (t < end[i]);
     if (!cut) continue;
     dark = true;
-    if (P.prt_drop[g]) {
+    if (HS_ARR(P.prt_drop, prt_drop, g)) {
       drop = true;
     } else {
-      delay = fmaxf(delay, P.prt_delay[g]);
+      delay = fmaxf(delay, HS_ARR(P.prt_delay, prt_delay, g));
     }
   }
   return dark;
@@ -1232,13 +1336,13 @@ __device__ __forceinline__ int quorum_alive(const Lane<MAXV>& L, const EventStep
   const HsCon& Q = a.con;
   int alive = Q.qrm_n;
   for (int m = 0; m < a.nV; ++m) {
-    if (!((Q.qrm_member >> m) & 1)) continue;
-    const int flags = pick_arg<MAXV>(a.srv_flags, m);
+    if (!hs_bit<MAXV>(Q.qrm_member, a.wide.qrm_member, m)) continue;
+    const int flags = HS_SRV(srv_flags, m);
     bool gone = (flags & HS_F_FAULTED) && (flags & HS_F_DROP) && fault_dark(L, a, m, t);
-    if (!gone && ((Q.touched >> m) & 1)) {
+    if (!gone && hs_bit<MAXV>(Q.touched, a.wide.touched, m)) {
       bool drop;
       float delay;
-      gone = partition_consult(L, Q, m, t, drop, delay);
+      gone = partition_consult(L, a, m, t, drop, delay);
     }
     alive -= gone ? 1 : 0;
   }
@@ -1304,13 +1408,13 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
       return;
     }
   }
-  const int cw = pick_arg<MAXV>(a.conc, w);
-  const int flags = pick_arg<MAXV>(a.srv_flags, w);
+  const int cw = HS_SRV(conc, w);
+  const int flags = HS_SRV(srv_flags, w);
   const HsRow<float> row = L.slot_done + w * C;
   const bool fdark = (flags & HS_F_FAULTED) && fault_dark(L, a, w, t);
   const bool degraded = fdark && !(flags & HS_F_DROP);
-  const bool dark = (flags & HS_F_OUTAGE) && t >= pick_arg<MAXV>(a.outage_start, w) &&
-                    t < pick_arg<MAXV>(a.outage_end, w);
+  const bool dark = (flags & HS_F_OUTAGE) && t >= HS_SRV(outage_start, w) &&
+                    t < HS_SRV(outage_end, w);
   if (dark) {  // a brownout loss, disjoint from the fault ledger
     L.outage_dropped[w] += 1;
     if constexpr (TEL) tel_count(a.tel.outage_dropped, a.tel, L.tel_row, a.nV, t, w);
@@ -1323,7 +1427,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
     if constexpr (RES) {
       if (a.res.breaker) breaker_failure<MAXV, TEL>(L, a, w, t, bst);
     }
-    const bool would = (flags & HS_F_FAULT_RETRY) && attempt < pick_arg<MAXV>(a.max_retries, w);
+    const bool would = (flags & HS_F_FAULT_RETRY) && attempt < HS_SRV(max_retries, w);
     if (would && bud_ok) {
       retry_park<MAXV, TEL, RES>(L, a, w, t, created, attempt, u);
     } else {
@@ -1337,13 +1441,15 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
   }
   if constexpr (CON) {
     const HsCon& Q = a.con;
-    if (Q.quorum && ((Q.qrm_member >> w) & 1) && quorum_alive(L, a, t) < Q.qrm_write) {
+    if (Q.quorum && hs_bit<MAXV>(Q.qrm_member, a.wide.qrm_member, w) &&
+        quorum_alive(L, a, t) < Q.qrm_write) {
       if constexpr (RES) {
         if (a.res.breaker) breaker_failure<MAXV, TEL>(L, a, w, t, bst);
       }
       L.qrm_dropped[w] += 1;
       if constexpr (TEL) tel_count(Q.tel_qrm_dropped, a.tel, L.tel_row, a.nV, t, w);
-      const bool would = ((Q.qrm_retry >> w) & 1) && attempt < pick_arg<MAXV>(a.max_retries, w);
+      const bool would =
+          hs_bit<MAXV>(Q.qrm_retry, a.wide.qrm_retry, w) && attempt < HS_SRV(max_retries, w);
       if (would && bud_ok) {
         retry_park<MAXV, TEL, RES>(L, a, w, t, created, attempt, u);
       } else if constexpr (RES) {
@@ -1357,7 +1463,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
     if (B.shed) {
       bool shed = B.shed_policy == 0
                       ? pick(L.q_len, w) >= B.shed_depth
-                      : (float)active_slots(row, cw) >= pick_arg<MAXV>(B.shed_busy_thr, w);
+                      : (float)active_slots(row, cw) >= hs_tab<MAXV>(B.shed_busy_thr, a.wide.shed_busy_thr, w);
       if (shed && B.u_shed >= 0) shed = u[B.u_shed] >= B.shed_priority;  // priority is exempt
       if (shed) {
         B.shed_dropped[L.res_row + w] += 1;
@@ -1367,7 +1473,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
     }
   }
   int first_free = -1;
-  const int cap = pick_arg<MAXV>(a.cap_slots, w);
+  const int cap = HS_SRV(cap_slots, w);
   if (!(degraded && cap < cw && active_slots(row, cw) >= cap)) {
     for (int c = 0; c < cw; ++c)
       if (isinf(row[c])) { first_free = c; break; }
@@ -1377,14 +1483,14 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
       if (probe) a.res.brk_probes[L.res_row + w] += 1;
     }
     const float mean = pick(L.mean, w);
-    const float factor = pick_arg<MAXV>(a.lat_factor, w);
+    const float factor = HS_SRV(lat_factor, w);
     const bool inflate = degraded && factor > 1.0f;
     // JAX multiplies every arrival's service by its factor (1 unless
     // inflated) once some server's degrade windows inflate.
     HsSvc s = service_terms<MAXV, true>(a, w, mean, u + a.u_svc1);
     if (a.degrade_lat) s = HsSvc{s.x * s.y, inflate ? factor : 1.0f};
     if (flags & HS_F_HEDGE) {
-      const float h = pick_arg<MAXV>(a.hedge, w);
+      const float h = HS_SRV(hedge, w);
       float service = s.x * s.y;
       if (bud_ok) {
         HsSvc second = service_terms<MAXV, true>(a, w, mean, u + a.u_hed1);
@@ -1423,7 +1529,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
     put(L.smin, w, fminf(pick(L.smin, w), done_at));
   } else {
     const int ql = pick(L.q_len, w);
-    if (ql < pick_arg<MAXV>(a.qcap, w)) {
+    if (ql < HS_SRV(qcap, w)) {
       if constexpr (RES) {
         if (probe) a.res.brk_probes[L.res_row + w] += 1;
       }
@@ -1443,8 +1549,8 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
 template <int MAXV>
 __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& a, int rix,
                                             int hop, const HsDraw& u) {
-  const int n = a.rt_n[rix];
-  const int policy = a.rt_policy[rix];
+  const int n = HS_ARR(a.rt_n, rt_n, rix);
+  const int policy = HS_ARR(a.rt_policy, rt_policy, rix);
   if (policy == HS_ROUND_ROBIN) {
     const int next = L.rr[rix];
     L.rr[rix] = next + 1;
@@ -1455,19 +1561,19 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
     // was freed; a strict < keeps the first index (argmin).
     int choice = 0, best = 0;
     for (int i = 0; i < n; ++i) {
-      const int w = a.rt_target[rix][i].index;
+      const int w = HS_RT(rt_target, rix, i).index;
       const HsRow<float> row = L.slot_done + w * a.C;
       int outstanding = pick(L.q_len, w);
-      const int cw = pick_arg<MAXV>(a.conc, w);
+      const int cw = HS_SRV(conc, w);
       for (int c = 0; c < cw; ++c) outstanding += isfinite(row[c]) ? 1 : 0;
       if (i == 0 || outstanding < best) { best = outstanding; choice = i; }
     }
     return choice;
   }
-  const float ur = u[a.u_route[min(hop, a.n_route_slots - 1)]];
+  const float ur = u[HS_ARR(a.u_route, u_route, min(hop, a.n_route_slots - 1))];
   if (policy == HS_RANDOM) return min((int)(ur * (float)n), n - 1);
   int count = 0;  // weighted: thresholds at or below the draw
-  for (int i = 0; i < n; ++i) count += ur >= a.rt_cum[rix][i] ? 1 : 0;
+  for (int i = 0; i < n; ++i) count += ur >= HS_RT(rt_cum, rix, i) ? 1 : 0;
   return min(count, n - 1);
 }
 
@@ -1509,7 +1615,8 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
       if (dest.kind == HS_LIMITER) {
         const int l = dest.index;
         const float refilled =
-            fminf(fma_f64(t - L.lim_last[l], a.lim_rate[l], L.lim_tokens[l]), a.lim_cap[l]);
+            fminf(fma_f64(t - L.lim_last[l], HS_ARR(a.lim_rate, lim_rate, l), L.lim_tokens[l]),
+                  HS_ARR(a.lim_cap, lim_cap, l));
         const bool admit = refilled >= 1.0f;
         L.lim_tokens[l] = admit ? refilled - 1.0f : refilled;
         L.lim_last[l] = t;
@@ -1520,22 +1627,22 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         }
         L.lim_admitted[l] += 1;
         if constexpr (TEL) tel_count(a.tel.lim_admitted, a.tel, L.tel_row, a.nL, t, l);
-        dest = a.lim_ref[l];
+        dest = HS_ARR(a.lim_ref, lim_ref, l);
         routed = false;
-        if constexpr (CHAOS) loss = a.lim_loss[l];
+        if constexpr (CHAOS) loss = HS_ARR(a.lim_loss, lim_loss, l);
         continue;
       }
       if (dest.kind == HS_ROUTER) {
         const int rix = dest.index;
         const int choice = route_choice(L, a, rix, hop, u);
-        dest = a.rt_target[rix][choice];
+        dest = HS_RT(rt_target, rix, choice);
         routed = true;
-        if constexpr (CHAOS) loss = a.rt_loss[rix][choice];
+        if constexpr (CHAOS) loss = HS_RT(rt_loss, rix, choice);
         if (dest.kind == HS_ROUTER) {
           hop += 1;
           continue;
         }
-        park = a.rt_park[rix] != 0;
+        park = HS_ARR(a.rt_park, rt_park, rix) != 0;
       }
       if constexpr (CHAOS) {
         if (loss.p > 0.0f && u[a.u_loss] < loss.p && t >= loss.start && t < loss.end) {
@@ -1553,8 +1660,8 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
       if constexpr (CON) {
         bool drop;
         float delay;
-        if (consult && ((a.con.touched >> dest.index) & 1) &&
-            partition_consult(L, a.con, dest.index, t, drop, delay)) {
+        if (consult && hs_bit<MAXV>(a.con.touched, a.wide.touched, dest.index) &&
+            partition_consult(L, a, dest.index, t, drop, delay)) {
           if (drop) {
             *L.net_partitioned += 1;
             if constexpr (TEL) tel_count(a.con.tel_net_partitioned, a.tel, L.tel_row, 1, t, 0);
@@ -1594,14 +1701,22 @@ __device__ __forceinline__ float earliest_source(const float* next, int nS, int&
 }
 
 // The lane's next event time: the earliest of the sources' next arrivals,
-// the servers' completions and (GRAPH) their transit arrivals.
+// the servers' completions and (GRAPH) their transit arrivals (the wide
+// code: of its nV servers, and their transit arrivals where it has any).
 template <int MAXV, bool GRAPH>
-__device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_next) {
+__device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_next, int nV,
+                                                 bool transit) {
   float tn = src_next;
+  if constexpr (MAXV == HS_WIDE) {
+    for (int v = 0; v < nV; ++v) tn = fminf(tn, L.smin[v]);
+    if (transit)
+      for (int v = 0; v < nV; ++v) tn = fminf(tn, L.tmin[v]);
+  } else {
 #pragma unroll
-  for (int v = 0; v < MAXV; ++v) {
-    tn = fminf(tn, L.smin[v]);
-    if constexpr (GRAPH) tn = fminf(tn, L.tmin[v]);
+    for (int v = 0; v < MAXV; ++v) {
+      tn = fminf(tn, L.smin[v]);
+      if constexpr (GRAPH) tn = fminf(tn, L.tmin[v]);
+    }
   }
   return tn;
 }
@@ -1620,6 +1735,7 @@ template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false, bool RES
           bool CON = false, bool MULTI = false, bool TRC = false>
 __global__ void __launch_bounds__(HS_THREADS, HS_MIN_BLOCKS(MAXV, CHAOS))
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
+  constexpr bool WIDE = MAXV == HS_WIDE;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (EXT) {
     if (a.has_profile) {  // every thread of the block stages, then syncs
@@ -1631,6 +1747,8 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   const int nV = a.nV, C = a.C, K = a.K, TR = a.TR, nd = a.n_draws;
   const int nS = MULTI ? a.nS : 1;  // one source and one sink without MULTI
   const size_t rv = (size_t)r * nV;
+  // The servers a step scans: MAXV registers, or the wide code's nV rows.
+  const int VB = WIDE ? nV : MAXV;
 
   Lane<MAXV> L;
   // The rows the plan stages go to this lane's column of the tile, after
@@ -1699,22 +1817,43 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   L.drawn = 0;
   // Whether this instantiation draws through hs_draw_call (see HsDraw).
   constexpr bool draw_calls = CHAOS && (RES || !TEL || MAXV > 1);
+  if constexpr (WIDE) {
+    // The registers are the state leaves' rows, and the earliest times
+    // lane-minor scratch.
+    L.q_head = HsRow<int>{a.q_head + rv, 1};
+    L.q_len = HsRow<int>{a.q_len + rv, 1};
+    L.started = HsRow<int>{a.started + rv, 1};
+    L.completed = HsRow<int>{a.completed + rv, 1};
+    L.dropped = HsRow<int>{a.dropped + rv, 1};
+    L.wait_n = HsRow<int>{a.wait_n + rv, 1};
+    L.busy = HsRow<float>{a.busy_int + rv, 1};
+    L.depth = HsRow<float>{a.depth_int + rv, 1};
+    L.wsum = HsRow<float>{a.wait_sum + rv, 1};
+    L.mean = HsRow<const float>{a.srv_mean + rv, 1};
+    L.smin = HsRow<float>{a.wide.smin + r, a.R};
+    L.tmin = HsRow<float>{a.wide.tmin + r, a.R};
+    for (int v = 0; v < nV; ++v) {
+      L.smin[v] = row_min(L.slot_done + v * C, hs_ldg(a.wide.conc + v));
+      if (transit) L.tmin[v] = row_min(L.tr_time + v * TR, TR);
+    }
+  } else {
 #pragma unroll
-  for (int v = 0; v < MAXV; ++v) {
-    const bool real = v < nV;
-    L.q_head[v] = real ? a.q_head[rv + v] : 0;
-    L.q_len[v] = real ? a.q_len[rv + v] : 0;
-    L.started[v] = real ? a.started[rv + v] : 0;
-    L.completed[v] = real ? a.completed[rv + v] : 0;
-    L.dropped[v] = real ? a.dropped[rv + v] : 0;
-    L.wait_n[v] = real ? a.wait_n[rv + v] : 0;
-    L.busy[v] = real ? a.busy_int[rv + v] : 0.0f;
-    L.depth[v] = real ? a.depth_int[rv + v] : 0.0f;
-    L.wsum[v] = real ? a.wait_sum[rv + v] : 0.0f;
-    L.mean[v] = real ? a.srv_mean[rv + v] : 0.0f;
-    L.smin[v] = real ? row_min(L.slot_done + v * C, a.conc[v]) : INFINITY;
-    if constexpr (GRAPH)
-      L.tmin[v] = real && transit ? row_min(L.tr_time + v * TR, TR) : INFINITY;
+    for (int v = 0; v < MAXV; ++v) {
+      const bool real = v < nV;
+      L.q_head[v] = real ? a.q_head[rv + v] : 0;
+      L.q_len[v] = real ? a.q_len[rv + v] : 0;
+      L.started[v] = real ? a.started[rv + v] : 0;
+      L.completed[v] = real ? a.completed[rv + v] : 0;
+      L.dropped[v] = real ? a.dropped[rv + v] : 0;
+      L.wait_n[v] = real ? a.wait_n[rv + v] : 0;
+      L.busy[v] = real ? a.busy_int[rv + v] : 0.0f;
+      L.depth[v] = real ? a.depth_int[rv + v] : 0.0f;
+      L.wsum[v] = real ? a.wait_sum[rv + v] : 0.0f;
+      L.mean[v] = real ? a.srv_mean[rv + v] : 0.0f;
+      L.smin[v] = real ? row_min(L.slot_done + v * C, a.conc[v]) : INFINITY;
+      if constexpr (GRAPH)
+        L.tmin[v] = real && transit ? row_min(L.tr_time + v * TR, TR) : INFINITY;
+    }
   }
   float t = a.t[r];
   // The sources' earliest next arrival and its source. One source keeps
@@ -1741,7 +1880,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   for (int c = 0; c < a.n_blocks; ++c) {
     // blocks_cond: a lane whose next event lies past the horizon (or that
     // has none) is halted for good and runs no further block.
-    const float next = next_event_time<MAXV, GRAPH>(L, src_next);
+    const float next = next_event_time<MAXV, GRAPH>(L, src_next, nV, transit);
     if (isinf(next) || next > a.horizon) break;
     unsigned block = a.block + (unsigned)c;
     if constexpr (TRC) {
@@ -1766,12 +1905,14 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       float tn = src_next;
       int ev = -1;
 #pragma unroll
-      for (int v = 0; v < MAXV; ++v)
+      for (int v = 0; v < VB; ++v)
         if (L.smin[v] < tn) { tn = L.smin[v]; ev = v; }
       if constexpr (GRAPH) {
+        if (!WIDE || transit) {
 #pragma unroll
-        for (int v = 0; v < MAXV; ++v)
-          if (L.tmin[v] < tn) { tn = L.tmin[v]; ev = MAXV + v; }
+          for (int v = 0; v < VB; ++v)
+            if (L.tmin[v] < tn) { tn = L.tmin[v]; ev = VB + v; }
+        }
       }
       if (isinf(tn) || tn > a.horizon) break;  // halted: every later step is a no-op
 
@@ -1779,14 +1920,14 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       const float lo = fmaxf(t, a.warmup);
       const float dt = fmaxf(tn - lo, 0.0f);
 #pragma unroll
-      for (int v = 0; v < MAXV; ++v)
+      for (int v = 0; v < VB; ++v)
         if (v < nV) L.depth[v] = fma_f64((float)L.q_len[v], dt, L.depth[v]);
       if constexpr (TEL) {
         // The same measured interval [lo, tn), split over the windows it
         // spans; an empty queue adds nothing.
         if (a.tel.depth_int) {
 #pragma unroll
-          for (int v = 0; v < MAXV; ++v)
+          for (int v = 0; v < VB; ++v)
             if (v < nV && L.q_len[v] > 0)
               tel_integral(a.tel.depth_int, a.tel, L.tel_row, nV, v, lo, tn, (float)L.q_len[v]);
         }
@@ -1801,7 +1942,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       int attempt = 0;                // CHAOS: the attempt a transit arrival carries
       bool forward = true;            // CHAOS: false once a deadline expired
       if (ev < 0) {  // _fire_source of the earliest source
-        const HsSrc& S = a.src[src];
+        const HsSrc& S = WIDE ? a.wide.src[src] : a.src[src];
         bool traced = false;  // TRC: the traced source reads its pages
         if constexpr (TRC) traced = src == a.trc.src;
         float fired;
@@ -1834,9 +1975,9 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         dest = S.ref;
         created = t;
         if constexpr (CHAOS) loss = S.loss;
-      } else if (!GRAPH || ev < MAXV) {  // _complete_server: the first slot holding the earliest time
+      } else if (!GRAPH || ev < VB) {  // _complete_server: the first slot holding the earliest time
         from = ev;
-        const int cv = pick_arg<MAXV>(a.conc, from);
+        const int cv = HS_SRV(conc, from);
         const HsRow<float> row = L.slot_done + from * C;
         float best = INFINITY;
         for (int c = 0; c < cv; ++c) {
@@ -1847,9 +1988,9 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         row[from_slot] = INFINITY;
         put(L.completed, from, pick(L.completed, from) + 1);
         if constexpr (TEL) tel_count(a.tel.completed, a.tel, L.tel_row, nV, t, from);
-        dest = pick_arg<MAXV>(a.srv_ref, from);
+        dest = HS_SRV(srv_ref, from);
         if constexpr (CHAOS) {
-          loss = pick_arg<MAXV>(a.srv_loss, from);
+          loss = HS_SRV(srv_loss, from);
           // The completing job's attempt; the job it forwards arrives as a
           // first attempt.
           const int job_attempt = L.slot_attempt ? L.slot_attempt[from * C + from_slot] : 0;
@@ -1857,10 +1998,10 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
           // its attempts last (through the transit registers after the
           // backoff, or at once at the queue's tail), else timed out; it
           // is not forwarded either way.
-          const int flags = pick_arg<MAXV>(a.srv_flags, from);
-          const int max_retries = pick_arg<MAXV>(a.max_retries, from);
+          const int flags = HS_SRV(srv_flags, from);
+          const int max_retries = HS_SRV(max_retries, from);
           const bool expired =
-              (flags & HS_F_DEADLINE) && (t - created) > pick_arg<MAXV>(a.deadline, from);
+              (flags & HS_F_DEADLINE) && (t - created) > HS_SRV(deadline, from);
           bool retry = expired && job_attempt < max_retries;
           bool budgeted = false;  // RES: a retry spends a budget token
           if constexpr (RES) {
@@ -1900,7 +2041,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
                                               created, job_attempt + 1);
               } else {
                 const int ql = pick(L.q_len, from);
-                if (ql < pick_arg<MAXV>(a.qcap, from)) {
+                if (ql < HS_SRV(qcap, from)) {
                   if (budgeted) budget_debit(L, a, from);
                   const int tail = (pick(L.q_head, from) + ql) % K;
                   L.q_created[from * K + tail] = created;
@@ -1921,7 +2062,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
           }
         }
       } else {  // _transit_arrive: the first slot holding the row's minimum
-        const int v = ev - MAXV;
+        const int v = ev - VB;
         const HsRow<float> trow = L.tr_time + v * TR;
         float best = INFINITY;
         int slot = 0;
@@ -1939,7 +2080,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       }
 
       // A transit arrival crossed before any partition cut: no consult.
-      const bool consult = !GRAPH || ev < MAXV;
+      const bool consult = !GRAPH || ev < VB;
       if constexpr (CHAOS) {
         if (forward)
           deliver<MAXV, GRAPH, EXT, true, TEL, RES, CON, MULTI>(L, a, dest, t, created, u, loss,
@@ -1959,33 +2100,33 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         bool pull_ok = true;   // RES: a budget token for the pull's hedge
         if constexpr (RES) {
           // A hedged server's budget is refreshed at every completion.
-          if (a.res.budget && (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE))
+          if (a.res.budget && (HS_SRV(srv_flags, from) & HS_F_HEDGE))
             pull_ok = budget_refresh(L, a, from, t, 0.0f) >= 1.0f;
         }
         if constexpr (CHAOS) {
-          const int flags = pick_arg<MAXV>(a.srv_flags, from);
+          const int flags = HS_SRV(srv_flags, from);
           if (pull && (flags & HS_F_FAULTED) && !(flags & HS_F_DROP) &&
               fault_dark(L, a, from, t)) {
-            const int cap = pick_arg<MAXV>(a.cap_slots, from);
-            const int cv = pick_arg<MAXV>(a.conc, from);
+            const int cap = HS_SRV(cap_slots, from);
+            const int cv = HS_SRV(conc, from);
             pull = !(cap < cv && active_slots(row, cv) >= cap);
-            inflate = pick_arg<MAXV>(a.lat_factor, from) > 1.0f;
+            inflate = HS_SRV(lat_factor, from) > 1.0f;
           }
         }
         if (pull) {
           const int head = pick(L.q_head, from);
           HsSvc s = service_terms<MAXV, EXT>(a, from, pick(L.mean, from), u + a.u_svc2);
           if constexpr (CHAOS) {
-            const int flags = pick_arg<MAXV>(a.srv_flags, from);
-            const float factor = pick_arg<MAXV>(a.lat_factor, from);
+            const int flags = HS_SRV(srv_flags, from);
+            const float factor = HS_SRV(lat_factor, from);
             // A server whose degrade windows inflate multiplies its pull's
             // service by the factor, 1 while not dark.
             if ((flags & HS_F_FAULTED) && !(flags & HS_F_DROP) && factor > 1.0f)
               s = HsSvc{s.x * s.y, inflate ? factor : 1.0f};
             float service = s.x * s.y;
             if constexpr (RES) {
-              if (!pull_ok && (pick_arg<MAXV>(a.srv_flags, from) & HS_F_HEDGE) &&
-                  service > pick_arg<MAXV>(a.hedge, from))
+              if (!pull_ok && (HS_SRV(srv_flags, from) & HS_F_HEDGE) &&
+                  service > HS_SRV(hedge, from))
                 budget_dropped<MAXV, TEL>(L, a, from, t);
             }
             if ((flags & HS_F_HEDGE) && pull_ok) {
@@ -1993,7 +2134,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
               if ((flags & HS_F_FAULTED) && !(flags & HS_F_DROP) && factor > 1.0f)
                 second = HsSvc{second.x * second.y, inflate ? factor : 1.0f};
               bool hedged, won;
-              service = hedge_race(service, second, pick_arg<MAXV>(a.hedge, from), hedged, won);
+              service = hedge_race(service, second, HS_SRV(hedge, from), hedged, won);
               L.hedged[from] += hedged ? 1 : 0;
               L.hedge_wins[from] += won ? 1 : 0;
               if constexpr (RES) {
@@ -2024,12 +2165,12 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
             }
           }
         }
-        put(L.smin, from, row_min(row, pick_arg<MAXV>(a.conc, from)));
+        put(L.smin, from, row_min(row, HS_SRV(conc, from)));
       }
     }
   }
 
-  const float next = next_event_time<MAXV, GRAPH>(L, src_next);
+  const float next = next_event_time<MAXV, GRAPH>(L, src_next, nV, transit);
   a.halted[r] = (isinf(next) || next > a.horizon) ? 1 : 0;
   if (a.draws) a.draws[r] = L.drawn;
   if (a.blocks) a.blocks[r] += ran;
@@ -2045,8 +2186,9 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   a.sink_count[sink_row] = L.sk_count;
   a.sink_sum[sink_row] = L.sk_sum;
   a.sink_sq[sink_row] = L.sk_sq;
+  // The wide code wrote its registers in place.
 #pragma unroll
-  for (int v = 0; v < MAXV; ++v) {
+  for (int v = 0; v < (WIDE ? 0 : MAXV); ++v) {
     if (v < nV) {
       a.q_head[rv + v] = L.q_head[v];
       a.q_len[rv + v] = L.q_len[v];
@@ -2087,14 +2229,25 @@ static size_t hs_smem_bytes(const EventStepArgs& a) {
 }
 
 // What every library checks before it launches: a block count, a plan
-// and a profile grid within the bounds, and a trace only on the trace
-// library (`trace`), which needs one.
-static bool hs_args_ok(const EventStepArgs& a, bool trace = false) {
+// and a profile grid within the bounds, a trace only on the trace
+// library (`trace`), which needs one, and the wide code's tables only on
+// the wide library (`wide`), which needs them; the lean libraries' tables
+// in the arguments bound the sources and the partition groups.
+static bool hs_args_ok(const EventStepArgs& a, bool trace = false, bool wide = false) {
   if (a.R < 0 || a.n_blocks < 1 || a.stage.words < 0) return false;
   if (a.trc.on != (trace ? 1 : 0)) return false;
-  if (a.nS < 1 || a.nS > HS_MAX_SOURCES || a.nK < 1 || a.has_profile < 0) return false;
+  if (a.wide.on != (wide ? 1 : 0)) return false;
+  if (wide) {
+    const HsWide& w = a.wide;
+    if (!w.src || !w.srv_ref || !w.conc || !w.qcap || !w.srv_flags || !w.smin || !w.tmin ||
+        w.nT < 0 || (a.nR > 0 && (!w.rt_target || w.nT < 1)))
+      return false;
+  } else if (a.nS > HS_MAX_SOURCES || (a.con.on && a.con.nP > HS_MAX_PARTITIONS)) {
+    return false;
+  }
+  if (a.nS < 1 || a.nK < 1 || a.has_profile < 0) return false;
   if (a.has_profile && (a.prof_n < 2 || a.prof_n > HS_MAX_PROFILE_GRID)) return false;
-  if (a.con.on && (a.con.nP < 1 || a.con.nP > HS_MAX_PARTITIONS || a.con.Wp < 1)) return false;
+  if (a.con.on && (a.con.nP < 1 || a.con.Wp < 1)) return false;
   if (a.trc.on && (a.trc.src < 0 || a.trc.src >= a.nS || a.trc.P < 1 || a.trc.nT < 1 ||
                    a.trc.n_chunks < 0 || !a.trc.t0 || !a.trc.g0 || !a.trc.t1 || !a.trc.g1))
     return false;

@@ -40,17 +40,22 @@ __device__ __forceinline__ float hs_fma_f64(float a, float b, float c) {
   return (float)((double)c + (double)a * (double)b);
 }
 
-// Lane r = blockIdx.x * blockDim.x + threadIdx.x runs replica r. The
+// Lane r = blockIdx.x * blockDim.x + threadIdx.x runs replica first + r
+// of R (a shard of a replica mesh runs its slab, `count` lanes from
+// `first`; -1: every replica from `first`) and writes its sums at r. The
 // block's threads fold the tile's step keys in turn (one each on the card;
 // a block of one thread folds them all, as the host build of the tests
 // runs it).
 __global__ void __launch_bounds__(HS_MM1_THREADS)
 mm1_scan_kernel(const uint32_t* __restrict__ run_key, int R, int n, int warmup, float lo,
                 float span, float inv_lam, float inv_mu, float* __restrict__ sum_w,
-                float* __restrict__ sum_sq, float* __restrict__ sum_s) {
+                float* __restrict__ sum_sq, float* __restrict__ sum_s, int first = 0,
+                int count = -1) {
   __shared__ HsKey step_keys[HS_MM1_TILE];
   const HsKey key{run_key[0], run_key[1]};
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lanes = count < 0 ? R - first : count;
+  const int r = first + lane;  // the replica, which keys its draws
   float w = 0.0f, sw = 0.0f, sq = 0.0f, ss = 0.0f;
   for (int base = 0; base < n; base += HS_MM1_TILE) {
     const int tile = min(HS_MM1_TILE, n - base);
@@ -58,7 +63,7 @@ mm1_scan_kernel(const uint32_t* __restrict__ run_key, int R, int n, int warmup, 
     for (int j = threadIdx.x; j < tile; j += blockDim.x)
       step_keys[j] = hs_fold_in(key, (uint32_t)(base + j));
     __syncthreads();
-    if (r >= R) continue;
+    if (lane >= lanes) continue;
     for (int j = 0; j < tile; ++j) {
       const HsKey k = step_keys[j];
       const float a = -logf(hs_uniform_at(k, (uint32_t)r, lo, span));
@@ -71,10 +76,10 @@ mm1_scan_kernel(const uint32_t* __restrict__ run_key, int R, int n, int warmup, 
       }
     }
   }
-  if (r < R) {
-    sum_w[r] = sw;
-    sum_sq[r] = sq;
-    sum_s[r] = ss;
+  if (lane < lanes) {
+    sum_w[lane] = sw;
+    sum_sq[lane] = sq;
+    sum_s[lane] = ss;
   }
 }
 
@@ -82,17 +87,18 @@ mm1_scan_kernel(const uint32_t* __restrict__ run_key, int R, int n, int warmup, 
 // Lanes a thread block: each block folds every step key once.
 extern "C" int hs_mm1_scan_threads() { return HS_MM1_THREADS; }
 
-// key: the run's (2,) uint32 key in device memory; sums: (R,) float32 each,
-// 2R < 2^32. Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
-extern "C" int hs_mm1_scan(const uint32_t* key, int R, int n, int warmup, float lo, float span,
-                           float inv_lam, float inv_mu, float* sum_w, float* sum_sq, float* sum_s,
-                           void* stream) {
-  if (R <= 0) return 0;
-  if ((long long)R * 2 > 0xFFFFFFFFLL || n < 0) return (int)cudaErrorInvalidValue;
-  const int grid = (R + HS_MM1_THREADS - 1) / HS_MM1_THREADS;
+// key: the run's (2,) uint32 key in device memory; replicas first, ...,
+// first + count - 1 of R; sums: (count,) float32 each, 2R < 2^32.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int hs_mm1_scan(const uint32_t* key, int R, int first, int count, int n, int warmup,
+                           float lo, float span, float inv_lam, float inv_mu, float* sum_w,
+                           float* sum_sq, float* sum_s, void* stream) {
+  if (count <= 0) return 0;
+  if ((long long)R * 2 > 0xFFFFFFFFLL || n < 0 || first < 0 || (long long)first + count > R)
+    return (int)cudaErrorInvalidValue;
+  const int grid = (count + HS_MM1_THREADS - 1) / HS_MM1_THREADS;
   mm1_scan_kernel<<<grid, HS_MM1_THREADS, 0, (cudaStream_t)stream>>>(
-      key, R, n, warmup, lo, span, inv_lam, inv_mu, sum_w, sum_sq, sum_s);
+      key, R, n, warmup, lo, span, inv_lam, inv_mu, sum_w, sum_sq, sum_s, first, count);
   return (int)cudaGetLastError();
 }
 #endif

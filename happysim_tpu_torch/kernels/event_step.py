@@ -44,6 +44,11 @@ launch of the trace instantiations a stream step: the extended graph
 code with the trace's fire and stall gate for a single-source model
 without chaos, defenses or the consensus tier, else the code for several
 sources or sinks with them; its plain version is :func:`plain_trace_steps`.
+A model past one of the lean instantiations' tables in the argument
+struct (:func:`support.wide_reasons`) launches the wide code instead, with
+or without the trace: the code for several sources or sinks with the
+per-server registers as rows in device memory and the model's tables in
+one device buffer (:class:`_Wide`), uploaded once per model and device.
 
 The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``build/`` at the repository root, one library per source
@@ -52,7 +57,8 @@ The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``csrc/event_step_resilience.cu`` with the defenses,
 ``csrc/event_step_consensus.cu`` with partitions or a quorum,
 ``csrc/event_step_multi.cu`` with several sources or sinks,
-``csrc/event_step_trace.cu`` with a traced source), all built at once,
+``csrc/event_step_trace.cu`` with a traced source,
+``csrc/event_step_wide.cu`` past a lean table), all built at once,
 each bound through a plain C launcher loaded with ``ctypes``.
 """
 
@@ -72,15 +78,17 @@ from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK
 # The libraries of the event-step kernel (kernels/build.py builds them).
 EVENT_STEP_STEMS = (
     "event_step", "event_step_telemetry", "event_step_resilience", "event_step_consensus",
-    "event_step_multi", "event_step_trace",
+    "event_step_multi", "event_step_trace", "event_step_wide",
 )
 
-_MAX_NV = support.KERNEL_MAX_SERVERS
-_MAX_R = support.KERNEL_MAX_ROUTERS
-_MAX_T = support.KERNEL_MAX_TARGETS
-_MAX_L = support.KERNEL_MAX_LIMITERS
-_MAX_S = support.KERNEL_MAX_SOURCES
-_MAX_P = support.KERNEL_MAX_PARTITIONS
+# The lean instantiations' tables in the argument struct.
+_MAX_NV = support.LEAN_MAX_SERVERS
+_MAX_R = support.LEAN_MAX_ROUTERS
+_MAX_T = support.LEAN_MAX_TARGETS
+_MAX_L = support.LEAN_MAX_LIMITERS
+_MAX_S = support.LEAN_MAX_SOURCES
+_MAX_P = support.LEAN_MAX_PARTITIONS
+_MAX_H = support.LEAN_MAX_HOPS
 _loaded: dict = {}
 
 # Struct fields holding state-leaf pointers, in EventStepArgs order,
@@ -225,6 +233,70 @@ class _Res(ctypes.Structure):
     )
 
 
+# The wide code's tables (HsWide), in its field order: each a pointer
+# into one device buffer, then its scratch.
+_WIDE_TABLES = (
+    "src", "srv_ref", "svc_kind", "conc", "qcap", "erlang_k",
+    "hyp_p1", "hyp_f1", "hyp_f2", "ln_sigma", "par_alpha", "par_xmf",
+    "srv_flags", "max_retries", "cap_slots",
+    "deadline", "outage_start", "outage_end", "backoff", "jitter", "hedge", "lat_factor",
+    "srv_loss", "u_route", "rt_policy", "rt_n", "rt_park", "rt_target", "rt_cum", "rt_loss",
+    "lim_rate", "lim_cap", "lim_ref", "lim_loss", "shed_busy_thr",
+    "prt_member", "prt_drop", "prt_delay", "touched", "qrm_member", "qrm_retry",
+)
+
+
+class _Wide(ctypes.Structure):
+    """Mirror of ``HsWide``: the wide code's tables, its (nV, R) scratch,
+    the router tables' row length and its switch."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in _WIDE_TABLES + ("smin", "tmin")] + [
+        ("nT", ctypes.c_int), ("on", ctypes.c_int),
+    ]
+
+
+def _wide_table_type(compiled) -> type:
+    """A ctypes struct of the wide code's tables sized for ``compiled``,
+    with the names (and the indexing) of the argument struct's tables, so
+    that :func:`_static_args` fills either; the group and quorum sets are
+    (nP, nV) and (nV,) tables of 0 or 1 instead of bit masks."""
+    nV, nS, nR, nL = compiled.nV, compiled.nS, compiled.nR, compiled.nL
+    nT = _wide_row(compiled)
+    nP = compiled.partitions.nP if compiled.has_partitions else 0
+    hops = max(len(compiled.U_ROUTE_HOPS), 1)
+    i32, f32 = ctypes.c_int, ctypes.c_float
+    fields = [("src", _Src * nS), ("srv_ref", _Ref * nV)]
+    fields += [(name, i32 * nV) for name in ("svc_kind", "conc", "qcap", "erlang_k")]
+    fields += [
+        (name, f32 * nV)
+        for name in ("hyp_p1", "hyp_f1", "hyp_f2", "ln_sigma", "par_alpha", "par_xmf")
+    ]
+    fields += [(name, i32 * nV) for name in ("srv_flags", "max_retries", "cap_slots")]
+    fields += [
+        (name, f32 * nV)
+        for name in ("deadline", "outage_start", "outage_end", "backoff", "jitter", "hedge",
+                     "lat_factor")
+    ]
+    fields += [("srv_loss", _Loss * nV), ("u_route", i32 * hops)]
+    fields += [(name, i32 * nR) for name in ("rt_policy", "rt_n", "rt_park")]
+    fields += [
+        ("rt_target", (_Ref * nT) * nR), ("rt_cum", (f32 * nT) * nR),
+        ("rt_loss", (_Loss * nT) * nR),
+        ("lim_rate", f32 * nL), ("lim_cap", f32 * nL), ("lim_ref", _Ref * nL),
+        ("lim_loss", _Loss * nL), ("shed_busy_thr", f32 * nV),
+        ("prt_member", (i32 * nV) * nP), ("prt_drop", i32 * nP), ("prt_delay", f32 * nP),
+    ]
+    fields += [(name, i32 * nV) for name in ("touched", "qrm_member", "qrm_retry")]
+    assert tuple(name for name, _ in fields) == _WIDE_TABLES
+    return type("_WideTables", (ctypes.Structure,), {"_fields_": fields})
+
+
+def _wide_row(compiled) -> int:
+    """The row length of the wide code's router tables: the most targets
+    of any router (at least 1)."""
+    return max([len(r.targets) for r in compiled.model.routers] + [1])
+
+
 class _Stage(ctypes.Structure):
     """Mirror of ``HsStage``: each staged leaf's word offset in a lane's
     column of the shared tile (-1: in device memory), and the column's
@@ -257,7 +329,7 @@ class _Args(ctypes.Structure):
             for name in ("graph", "nR", "nL", "TR", "u_lat", "n_route_slots", "max_walk")
         ]
         + [
-            ("u_route", ctypes.c_int * support.KERNEL_MAX_HOPS),
+            ("u_route", ctypes.c_int * _MAX_H),
             ("rt_policy", ctypes.c_int * _MAX_R),
             ("rt_n", ctypes.c_int * _MAX_R),
             ("rt_park", ctypes.c_int * _MAX_R),
@@ -299,6 +371,7 @@ class _Args(ctypes.Structure):
         + [("res", _Res)]
         + [("con", _Con)]
         + [("trc", _Trc)]
+        + [("wide", _Wide)]
         + [("stage", _Stage)]
     )
 
@@ -353,9 +426,10 @@ def _loss(edge) -> _Loss:
     return _Loss(*(float(np.float32(x)) for x in (edge.loss_p, edge.loss_start_s, edge.loss_end_s)))
 
 
-def _chaos_args(compiled, args: _Args) -> None:
+def _chaos_args(compiled, args: _Args, tab) -> None:
     """The chaos instantiation's per-server constants, flags, draw slots
-    and loss tables."""
+    and loss tables (the tables into ``tab``: the arguments, or the wide
+    code's tables)."""
     model, faults = compiled.model, compiled.faults
     args.chaos = 1
     args.W, args.W_sh = faults.W, faults.W_sh
@@ -371,31 +445,43 @@ def _chaos_args(compiled, args: _Args) -> None:
         flags |= _F_HEDGE if spec.hedge_delay_s is not None else 0
         flags |= _F_OUTAGE if spec.outage_start_s is not None else 0
         flags |= _F_DEADLINE if spec.deadline_s is not None else 0
-        args.srv_flags[v] = flags
-        args.max_retries[v] = int(compiled.srv_max_retries[v])
-        args.cap_slots[v] = int(faults.cap_slots[v])
+        tab.srv_flags[v] = flags
+        tab.max_retries[v] = int(compiled.srv_max_retries[v])
+        tab.cap_slots[v] = int(faults.cap_slots[v])
         for name, table in (
             ("deadline", compiled.srv_deadline), ("outage_start", compiled.srv_outage_start),
             ("outage_end", compiled.srv_outage_end), ("backoff", compiled.srv_backoff),
             ("jitter", compiled.srv_jitter), ("hedge", compiled.srv_hedge),
             ("lat_factor", faults.lat_factor),
         ):
-            getattr(args, name)[v] = float(table[v])
-        args.srv_loss[v] = _loss(spec.latency)
+            getattr(tab, name)[v] = float(table[v])
+        tab.srv_loss[v] = _loss(spec.latency)
     for i, source in enumerate(model.sources):
-        args.src[i].loss = _loss(source.latency)
+        tab.src[i].loss = _loss(source.latency)
     for l, limiter in enumerate(model.limiters):
-        args.lim_loss[l] = _loss(limiter.latency)
+        tab.lim_loss[l] = _loss(limiter.latency)
     for r, router in enumerate(model.routers):
         for i, edge in enumerate(router.target_latencies):
-            args.rt_loss[r][i] = _loss(edge)
+            tab.rt_loss[r][i] = _loss(edge)
 
 
 def _static_args(compiled) -> _Args:
     """The launch arguments that depend only on the model: sizes, draw
-    slots, per-server constants and the topology tables."""
+    slots, per-server constants and the topology tables (the wide code's
+    tables are :func:`_model_args`'s)."""
+    return _model_args(compiled)[0]
+
+
+def _model_args(compiled) -> tuple:
+    """:func:`_static_args` and the wide code's tables: ``(args,
+    tables)``, ``tables`` None for a model the lean instantiations run
+    (its tables sit in ``args``), else a :func:`_wide_table_type`
+    struct, uploaded per device by :func:`launch_args`."""
     model = compiled.model
     args = _Args()
+    wide = bool(support.wide_reasons(compiled))
+    tables = _wide_table_type(compiled)() if wide else None
+    tab = tables if wide else args
     args.nV, args.C, args.K, args.n_draws = compiled.nV, compiled.C, compiled.K, compiled.n_draws
     args.nS, args.nK = compiled.nS, compiled.nK
     # Where the JAX step's t + x * y is one multiply-add (engine._fused).
@@ -408,21 +494,21 @@ def _static_args(compiled) -> _Args:
     args.horizon = compiled.horizon
     args.warmup = compiled.warmup
     for v in range(compiled.nV):
-        args.svc_kind[v] = int(compiled.service_kind[v])
-        args.conc[v] = int(compiled.srv_concurrency[v])
-        args.qcap[v] = int(compiled.queue_cap[v])
+        tab.svc_kind[v] = int(compiled.service_kind[v])
+        tab.conc[v] = int(compiled.srv_concurrency[v])
+        tab.qcap[v] = int(compiled.queue_cap[v])
     # Each source's edge and arrivals; a profiled one's row of the tables
     # a thread block stages, in source order.
     rows = np.cumsum(compiled.has_profile) - 1
     for i, source in enumerate(model.sources):
-        src = args.src[i]
+        src = tab.src[i]
         src.ref = _ref(source.downstream, source.latency)
         src.poisson = int(compiled.arrival_is_poisson[i])
         src.stop_after = float(compiled.stop_after[i])
         src.prof_row = int(rows[i]) if compiled.has_profile[i] else -1
         src.prof_end_rate = float(compiled.profile_end_rate[i])
     for v, spec in enumerate(model.servers):
-        args.srv_ref[v] = _ref(spec.downstream, spec.latency)
+        tab.srv_ref[v] = _ref(spec.downstream, spec.latency)
     # The line instantiation follows free edges to a server or the sink;
     # anything else walks the tables below.
     args.graph = int(
@@ -434,26 +520,26 @@ def _static_args(compiled) -> _Args:
     args.u_lat = _slot(compiled.U_LAT)
     args.n_route_slots = len(compiled.U_ROUTE_HOPS)
     for depth, slot in enumerate(compiled.U_ROUTE_HOPS):
-        args.u_route[depth] = slot
+        tab.u_route[depth] = slot
     # At most one limiter (limiters never chain) and hop_depth routers
     # per delivery, then its end.
     args.max_walk = len(model.limiters) + compiled.hop_depth + 1
     for r, router in enumerate(model.routers):
-        args.rt_policy[r] = _POLICY_IDS[router.policy]
-        args.rt_n[r] = len(router.targets)
-        args.rt_park[r] = int(any(e.mean_s > 0 for e in router.target_latencies))
+        tab.rt_policy[r] = _POLICY_IDS[router.policy]
+        tab.rt_n[r] = len(router.targets)
+        tab.rt_park[r] = int(any(e.mean_s > 0 for e in router.target_latencies))
         for i, (target, edge) in enumerate(zip(router.targets, router.target_latencies)):
-            args.rt_target[r][i] = _ref(target, edge)
+            tab.rt_target[r][i] = _ref(target, edge)
         if router.policy == "weighted":
             # Formed in float64 and cast once, as the JAX engine does.
             weights = np.asarray(router.weights, np.float64)
             cum = (np.cumsum(weights) / weights.sum()).astype(np.float32)
             for i, value in enumerate(cum):
-                args.rt_cum[r][i] = float(value)
+                tab.rt_cum[r][i] = float(value)
     for l, limiter in enumerate(model.limiters):
-        args.lim_rate[l] = float(compiled.lim_rate[l])
-        args.lim_cap[l] = float(compiled.lim_cap[l])
-        args.lim_ref[l] = _ref(limiter.downstream, limiter.latency)
+        tab.lim_rate[l] = float(compiled.lim_rate[l])
+        tab.lim_cap[l] = float(compiled.lim_cap[l])
+        tab.lim_ref[l] = _ref(limiter.downstream, limiter.latency)
     # The extended instantiation: the family constants per server, and the
     # profiled sources' count and grid size (the tables' pointers are set
     # per device in launch_args).
@@ -461,19 +547,20 @@ def _static_args(compiled) -> _Args:
     args.ext = int(bool(args.has_profile) or max(compiled.families_present) > 1)
     args.prof_n = compiled.profile_times.shape[1] if args.has_profile else 0
     for v in range(compiled.nV):
-        args.erlang_k[v] = int(compiled.srv_erlang_k[v])
-        args.hyp_p1[v] = float(compiled.srv_hyp_p1[v])
-        args.hyp_f1[v] = float(compiled.srv_hyp_f1[v])
-        args.hyp_f2[v] = float(compiled.srv_hyp_f2[v])
-        args.ln_sigma[v] = float(compiled.srv_ln_sigma[v])
-        args.par_alpha[v] = float(compiled.srv_par_alpha[v])
-        args.par_xmf[v] = float(compiled.srv_par_xmf[v])
-    if compiled.has_chaos or _several(compiled):
+        tab.erlang_k[v] = int(compiled.srv_erlang_k[v])
+        tab.hyp_p1[v] = float(compiled.srv_hyp_p1[v])
+        tab.hyp_f1[v] = float(compiled.srv_hyp_f1[v])
+        tab.hyp_f2[v] = float(compiled.srv_hyp_f2[v])
+        tab.ln_sigma[v] = float(compiled.srv_ln_sigma[v])
+        tab.par_alpha[v] = float(compiled.srv_par_alpha[v])
+        tab.par_xmf[v] = float(compiled.srv_par_xmf[v])
+    if compiled.has_chaos or _multi_code(compiled):
         # The chaos instantiation is the extended graph code plus the
         # chaos branches, whatever the model's shape; so is the one for
-        # several sources or sinks, which runs any model with them.
+        # several sources or sinks, which runs any model with them, and so
+        # is the wide code.
         args.graph = args.ext = 1
-        _chaos_args(compiled, args)
+        _chaos_args(compiled, args, tab)
     if compiled.has_telemetry:
         # So are the telemetry instantiations, with or without chaos.
         args.graph = args.ext = 1
@@ -481,9 +568,9 @@ def _static_args(compiled) -> _Args:
         args.tel.window_s = float(np.float32(compiled.telemetry.window_s))
         args.tel.inv_window_s = float(compiled.tel_inv_window)
     if compiled.has_resilience:
-        _res_args(compiled, args.res)
+        _res_args(compiled, args.res, tables)
     if compiled.has_partitions or compiled.has_quorum:
-        _con_args(compiled, args.con)
+        _con_args(compiled, args.con, tables)
     if compiled.has_trace:
         # The trace instantiations are the extended graph code too; the
         # pages, their base and the budget are set per launch.
@@ -492,7 +579,10 @@ def _static_args(compiled) -> _Args:
         args.trc.src = compiled.trace_src
         args.trc.P = compiled.trace_chunk_len
         args.trc.nT = compiled.n_tenants
-    return args
+    if wide:
+        args.wide.on = 1
+        args.wide.nT = _wide_row(compiled)
+    return args, tables
 
 
 def _several(compiled) -> bool:
@@ -501,32 +591,49 @@ def _several(compiled) -> bool:
     return compiled.nS > 1 or compiled.nK > 1
 
 
+def _multi_code(compiled) -> bool:
+    """Whether the model runs the MULTI code: several sources or sinks, or
+    past a lean table (the wide code is the MULTI code)."""
+    return _several(compiled) or bool(support.wide_reasons(compiled))
+
+
 def _mask(flags) -> int:
     """A bit mask over the servers: bit v set where ``flags[v]``."""
     return sum(1 << v for v, on in enumerate(flags) if on)
 
 
-def _con_args(compiled, con: _Con) -> None:
+def _con_args(compiled, con: _Con, tables=None) -> None:
     """The consensus instantiation's switches and the groups' constants
     (partition groups and a quorum ride the chaos code: has_chaos holds
-    for every such model)."""
+    for every such model): bit masks over the servers in ``con``, or, for
+    the wide code, rows of 0 or 1 in its ``tables``."""
     con.on = 1
     table = compiled.partitions
     con.nP, con.Wp = table.nP, table.Wp
+    tab = con if tables is None else tables
     for p in range(table.nP):
-        con.prt_member[p] = _mask(table.member[p])
-        con.prt_drop[p] = int(table.drop_mode[p])
-        con.prt_delay[p] = float(table.delay_s[p])
-    con.touched = _mask(table.touched) if compiled.has_partitions else 0
+        if tables is None:
+            con.prt_member[p] = _mask(table.member[p])
+        else:
+            for v, on in enumerate(table.member[p]):
+                tables.prt_member[p][v] = int(bool(on))
+        tab.prt_drop[p] = int(table.drop_mode[p])
+        tab.prt_delay[p] = float(table.delay_s[p])
+    sets = {"touched": table.touched if compiled.has_partitions else ()}
     if compiled.has_quorum:
         con.quorum = 1
-        con.qrm_member = _mask(compiled.qrm_member)
         con.qrm_n = len(compiled.quorum.group)
         con.qrm_write = compiled.qrm_write
-        con.qrm_retry = _mask(compiled.qrm_can_retry)
+        sets.update(qrm_member=compiled.qrm_member, qrm_retry=compiled.qrm_can_retry)
+    for name, flags in sets.items():
+        if tables is None:
+            setattr(con, name, _mask(flags))
+        else:
+            for v, on in enumerate(flags):
+                getattr(tables, name)[v] = int(bool(on))
 
 
-def _res_args(compiled, res: _Res) -> None:
+def _res_args(compiled, res: _Res, tables=None) -> None:
     """The resilience instantiation's switches and constants (the
     defenses ride the chaos code: has_chaos holds for every such model)."""
     res.on = 1
@@ -545,7 +652,9 @@ def _res_args(compiled, res: _Res) -> None:
         res.shed_priority = float(np.float32(compiled.shed.priority_fraction))
         res.u_shed = _slot(compiled.U_SHED)
         for v in range(compiled.nV):
-            res.shed_busy_thr[v] = float(compiled.shed_busy_thr[v])
+            (res if tables is None else tables).shed_busy_thr[v] = float(
+                compiled.shed_busy_thr[v]
+            )
     if compiled.has_budget:
         budget = compiled.budget
         res.bud_ratio = float(np.float32(budget.ratio))
@@ -559,12 +668,13 @@ class _Checked:
     state and parameter tensors it was checked on, and the argument
     struct holding their pointers."""
 
-    __slots__ = ("key", "refs", "args")
+    __slots__ = ("key", "refs", "args", "scratch")
 
-    def __init__(self, key: tuple, bound: list, args: _Args):
+    def __init__(self, key: tuple, bound: list, args: _Args, scratch=None):
         self.key = key
         self.refs = tuple(None if x is None else weakref.ref(x) for x in bound)
         self.args = args
+        self.scratch = scratch  # the wide code's (2, nV, R) scratch, kept alive
 
     def holds(self, key: tuple, bound: list) -> bool:
         return key == self.key and all(
@@ -572,8 +682,15 @@ class _Checked:
         )
 
 
-# compiled model -> [its static argument struct, its last _Checked or None]
+# compiled model -> [its static argument struct, the wide code's tables or
+# None, {device: the tables uploaded there}, {(device, the state's first
+# leaf's address): the last _Checked of that state}] (one entry a shard
+# of a replica mesh)
 _LAYOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+# The states a compiled model keeps checked layouts of (a mesh's shards).
+_CHECKED_STATES = 64
 
 
 def _bound_tensors(state: dict, params: dict) -> list:
@@ -600,15 +717,17 @@ def launch_args(
     and the staging plan (:func:`_stage`), are checked and made once: a
     call with the very same tensor objects, replica count and device as
     the last checked call reuses that call's pointers and plan, and only
-    the keys and the per-call tensors are checked again."""
+    the keys and the per-call tensors are checked again (a layout is kept
+    for each state, as for each shard of a replica mesh)."""
     device = state["t"].device
     R, macro = state["t"].shape[0], compiled.macro
     layout = _LAYOUTS.get(compiled)
     if layout is None:
-        layout = _LAYOUTS[compiled] = [_static_args(compiled), None]
+        layout = _LAYOUTS[compiled] = [*_model_args(compiled), {}, {}]
     key = (R, macro, device)
     bound = _bound_tensors(state, params)
-    checked = layout[1]
+    slot = (str(device), state["t"].data_ptr())
+    checked = layout[3].get(slot)
     if checked is None or not checked.holds(key, bound):
         support.check_kernel_bounds(compiled, macro)
         tensors = {**state, **params}
@@ -629,7 +748,13 @@ def launch_args(
             args.prof_times, args.prof_cum = times.data_ptr(), cum.data_ptr()
         args.R, args.macro = R, macro
         args.stage = _stage(expected, args, R, device)
-        checked = layout[1] = _Checked(key, bound, args)
+        scratch = None
+        if args.wide.on:
+            scratch = torch.empty((2, compiled.nV, R), dtype=torch.float32, device=device)
+            _wide_pointers(args.wide, layout[1], layout[2], device, scratch)
+        if len(layout[3]) >= _CHECKED_STATES:
+            layout[3].clear()
+        checked = layout[3][slot] = _Checked(key, bound, args, scratch)
     _check_keys(keys, R, device)
     if int(n_blocks) < 1:
         raise ValueError(f"event-step kernel: {n_blocks} blocks to run")
@@ -648,6 +773,21 @@ def launch_args(
         args.blocks = blocks.data_ptr()
     args.halted = halted.data_ptr()
     return args
+
+
+def _wide_pointers(wide: _Wide, tables, uploaded: dict, device, scratch: torch.Tensor) -> None:
+    """Point the wide code's tables into their device buffer (uploaded
+    once per device and kept in ``uploaded``) and its scratch rows into
+    ``scratch``."""
+    key = str(device)
+    if key not in uploaded:
+        raw = torch.frombuffer(bytearray(bytes(tables)), dtype=torch.uint8)
+        uploaded[key] = raw.to(device)
+    base = uploaded[key].data_ptr()
+    table_type = type(tables)
+    for name in _WIDE_TABLES:
+        setattr(wide, name, base + getattr(table_type, name).offset)
+    wide.smin, wide.tmin = scratch[0].data_ptr(), scratch[1].data_ptr()
 
 
 def _stage(expected: dict, args: _Args, R: int, device) -> _Stage:
@@ -722,7 +862,7 @@ def _expected_shapes(compiled, R: int) -> dict:
         })
     for key in compiled.tel_keys:
         shapes[key] = tel_shapes.get(key, (R, nW, nV))
-    if not (compiled.has_chaos or _several(compiled)):
+    if not (compiled.has_chaos or _multi_code(compiled)):
         return shapes
     shapes.update({"srv_timed_out": per_server, "srv_retried": per_server,
                    "srv_outage_dropped": per_server})
@@ -963,12 +1103,16 @@ def trace_launch_args(
 
 
 def library_of(args: _Args) -> str:
-    """The library whose instantiations take these arguments: the trace
+    """The library whose instantiations take these arguments: the wide
+    code's for a model past one of the lean tables (with or without a
+    traced source), else the trace
     one for a model with a traced source, else the one for
     several sources or sinks for such a model, else the consensus one for
     a model with partitions or a quorum, else the resilience one for a
     model with a defense, else the telemetry one for a model with a spec,
     else the kernel without any of them."""
+    if args.wide.on:
+        return "event_step_wide"
     if args.trc.on:
         return "event_step_trace"
     if args.nS > 1 or args.nK > 1:

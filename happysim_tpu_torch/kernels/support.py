@@ -60,39 +60,33 @@ STAGE_LEAVES = (
     "prt_start", "prt_end",
 )
 
-#: Servers per model: the kernel's per-server register arrays are
-#: instantiated for 1, 2, 4 and 8 servers (kernels/csrc/event_step.cu).
-KERNEL_MAX_SERVERS = 8
-#: Sources per model: each source's constants are a row of the launch
-#: arguments' HsSrc table (csrc/event_step.cuh's HS_MAX_SOURCES).
-KERNEL_MAX_SOURCES = 8
+#: The lean instantiations' tables in the launch arguments: their
+#: per-server register arrays are instantiated for 1, 2, 4 and 8 servers,
+#: and each source, router, router target, router hop, limiter and
+#: partition group is a row of a table in the argument struct
+#: (csrc/event_step.cuh's HS_MAX_*). A model past one of them runs the
+#: wide code (csrc/event_step_wide.cu: the per-server registers in device
+#: memory, the tables in one device buffer), which bounds none of these
+#: counts; :func:`wide_reasons` names the tables a model is past.
+LEAN_MAX_SERVERS = 8
+LEAN_MAX_SOURCES = 8
+LEAN_MAX_ROUTERS = 8
+LEAN_MAX_TARGETS = 8
+LEAN_MAX_HOPS = 8
+LEAN_MAX_LIMITERS = 4
+LEAN_MAX_PARTITIONS = 8
 #: Sinks per model: sink 0 adds to a lane's registers and the others to
 #: their (R, nK) leaves and (R, nK, 80) histogram rows in device memory,
 #: 1.3 GB of histogram at 65,536 replicas at this bound.
 KERNEL_MAX_SINKS = 64
-#: Partition groups: each group's members, mode and delay are a row of
-#: the HsCon tables (HS_MAX_PARTITIONS); the groups' and the quorum's
-#: members are bit masks over the servers.
-KERNEL_MAX_PARTITIONS = 8
 #: Partition windows per group (Wp): a loop at each consult.
 KERNEL_MAX_PARTITION_WINDOWS = 4096
 #: Slots per server (a loop over device memory at each event).
 KERNEL_MAX_CONCURRENCY = 1024
 #: Queue-ring length.
 KERNEL_MAX_QUEUE = 1 << 20
-#: Uniform draws per step (3 for an exponential-service chain; a router
-#: model adds one per router hop and one for exponential edges, a hedged
-#: model two more service windows, loss and jitter one each).
-KERNEL_MAX_DRAWS = 16
 #: Event steps per launch.
 KERNEL_MAX_MACRO = 4096
-#: Router tables in the launch arguments: routers, targets per router,
-#: and route-draw slots (the router hop depth).
-KERNEL_MAX_ROUTERS = 8
-KERNEL_MAX_TARGETS = 8
-KERNEL_MAX_HOPS = 8
-#: Limiter tables in the launch arguments.
-KERNEL_MAX_LIMITERS = 4
 #: In-flight transit slots per server (a loop over device memory at each
 #: park and transit arrival).
 KERNEL_MAX_TRANSIT = 4096
@@ -408,25 +402,35 @@ def _pure_fanout_plan(model: EnsembleModel) -> Optional[dict]:
     return {"shape": "router", "servers": servers, "policy": router.policy}
 
 
-def check_kernel_bounds(compiled, macro: int) -> None:
-    """Raise ``ValueError`` naming the bound a launch would break."""
+def wide_reasons(compiled) -> list:
+    """The lean tables a model is past, each as ``"name=value > bound"``
+    (empty: the lean instantiations run it; else the wide code does)."""
     model = compiled.model
+    counts = (
+        ("servers", compiled.nV, LEAN_MAX_SERVERS),
+        ("sources", compiled.nS, LEAN_MAX_SOURCES),
+        ("routers", len(model.routers), LEAN_MAX_ROUTERS),
+        ("targets per router", max((len(r.targets) for r in model.routers), default=0),
+         LEAN_MAX_TARGETS),
+        ("router hop depth", compiled.hop_depth, LEAN_MAX_HOPS),
+        ("limiters", len(model.limiters), LEAN_MAX_LIMITERS),
+        ("partition groups", compiled.partitions.nP if compiled.has_partitions else 0,
+         LEAN_MAX_PARTITIONS),
+    )
+    return [f"{name}={value} > {bound}" for name, value, bound in counts if value > bound]
+
+
+def check_kernel_bounds(compiled, macro: int) -> None:
+    """Raise ``ValueError`` naming the bound a launch would break: what
+    device memory, shared memory or a loop at each event bounds. The
+    model's counts of servers, sources, routers, targets,
+    hops, limiters, partition groups and uniform draws bound nothing: past
+    the lean tables a model runs the wide code (:func:`wide_reasons`)."""
     bounds = (
-        ("sources", compiled.nS, KERNEL_MAX_SOURCES),
         ("sinks", compiled.nK, KERNEL_MAX_SINKS),
-        ("servers", compiled.nV, KERNEL_MAX_SERVERS),
         ("concurrency", compiled.C, KERNEL_MAX_CONCURRENCY),
         ("queue_capacity", compiled.K, KERNEL_MAX_QUEUE),
-        ("uniform draws per step", compiled.n_draws, KERNEL_MAX_DRAWS),
         ("macro_block", macro, KERNEL_MAX_MACRO),
-        ("routers", len(model.routers), KERNEL_MAX_ROUTERS),
-        (
-            "targets per router",
-            max((len(r.targets) for r in model.routers), default=0),
-            KERNEL_MAX_TARGETS,
-        ),
-        ("router hop depth", compiled.hop_depth, KERNEL_MAX_HOPS),
-        ("limiters", len(model.limiters), KERNEL_MAX_LIMITERS),
         ("transit_capacity", compiled.TR if compiled.has_transit else 0, KERNEL_MAX_TRANSIT),
         ("fault windows W", compiled.faults.W if compiled.has_faults else 0, KERNEL_MAX_FAULT_WINDOWS),
         (
@@ -441,11 +445,6 @@ def check_kernel_bounds(compiled, macro: int) -> None:
         ),
         ("telemetry windows nW", compiled.nW, KERNEL_MAX_WINDOWS),
         ("breaker ring brk_fail_t width F", compiled.brk_F, KERNEL_MAX_BREAKER_RING),
-        (
-            "partition groups",
-            compiled.partitions.nP if compiled.has_partitions else 0,
-            KERNEL_MAX_PARTITIONS,
-        ),
         (
             "partition windows Wp",
             compiled.partitions.Wp if compiled.has_partitions else 0,

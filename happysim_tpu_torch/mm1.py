@@ -21,8 +21,9 @@ from typing import Optional
 import torch
 
 from happysim_tpu_torch import rng
-from happysim_tpu_torch.engine import _resolve_device
+from happysim_tpu_torch.engine import _gather_replicas, _resolve_mesh
 from happysim_tpu_torch.kernels import mm1_scan as _scan
+from happysim_tpu_torch.mesh import pad_to_multiple
 
 
 @dataclass(frozen=True)
@@ -66,22 +67,29 @@ def run_mm1_ensemble(
     warmup: Optional[int] = None,
     seed: int = 0,
     device=None,
+    mesh=None,
 ) -> MM1Result:
     """Run ``n_replicas`` M/M/1 replicas of ``n_customers`` customers each
     and return the aggregate statistics. ``warmup`` (default a quarter of
     the customers) leaves the first customers out of the statistics.
 
     ``device=None`` means the CUDA card, and raises when torch finds none;
-    ``device="cpu"`` runs the plain torch-op scan. The JAX package's
-    ``mesh`` pads the replicas to a multiple of its devices; over the one
-    device here that is the identity. ``compile_seconds`` is the kernel
-    library's build and load, and ``wall_seconds`` covers the launch and
-    the fetch of the three statistics."""
+    ``device="cpu"`` runs the plain torch-op scan. A ``mesh``
+    (:mod:`happysim_tpu_torch.mesh`) pads the replicas to a multiple of
+    its shards, as the JAX package's does, and runs one launch a shard on
+    the shard's device; the per-replica sums are gathered in shard order
+    onto the first shard's device and averaged there, as on one shard, so
+    the statistics are the same bits whatever the shard count.
+    ``compile_seconds`` is the kernel library's build and load, and
+    ``wall_seconds`` covers the launches and the fetch of the three
+    statistics."""
     if lam >= mu:
         raise ValueError(f"Unstable queue: lambda={lam} >= mu={mu}")
     if warmup is None:
         warmup = n_customers // 4
-    device = _resolve_device(device, "run_mm1_ensemble")
+    mesh = _resolve_mesh(mesh, device, "run_mm1_ensemble")
+    n_replicas = pad_to_multiple(n_replicas, mesh.size)
+    device = mesh.devices[mesh.local_shards[0]]
     on_card = device.type == "cuda"
     compile_start = _wall.perf_counter()
     if on_card:
@@ -89,8 +97,18 @@ def run_mm1_ensemble(
     compile_seconds = _wall.perf_counter() - compile_start
 
     start = _wall.perf_counter()
-    key = rng.PRNGKey(seed, device=device)
-    sums = _scan.mm1_scan(key, n_replicas, lam, mu, n_customers, warmup)
+    shards = []
+    for shard in mesh.local_shards:
+        rows = mesh.shard_slice(shard, n_replicas)
+        key = rng.PRNGKey(seed, device=mesh.devices[shard])
+        shards.append(
+            _scan.mm1_scan(
+                key, n_replicas, lam, mu, n_customers, warmup, rows.start, rows.stop - rows.start
+            )
+        )
+    sums = [
+        _gather_replicas([part[i] for part in shards], device, mesh.group) for i in range(3)
+    ]
     mean, std, sojourn = (float(x) for x in _mm1_stats(*sums, n_customers, warmup))
     wall = _wall.perf_counter() - start
 

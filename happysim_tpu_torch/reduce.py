@@ -19,6 +19,15 @@ Two properties have to hold, on one card or on many later:
 The functions take and return torch tensors on any device and give the
 JAX package's bits on the same arrays. Inputs to :func:`sum_f32_fixed`
 must be non-negative, as every engine accumulator is.
+
+Across the shards of a replica mesh (:mod:`happysim_tpu_torch.mesh`),
+:func:`shard_sum_i64_limbs` adds each shard's limb totals, and
+:func:`shard_sum_f32_fixed` first takes the column maximum over every
+shard (a per-shard maximum would pick another scale, so other bits),
+then quantises and limb-sums each shard: both give the bits of the
+one-shot sum over all replicas. Across processes the shard totals meet
+in ``torch.distributed.all_reduce`` (``MAX`` for the maximum, ``SUM``
+for the limbs) on the process's own device.
 """
 
 from __future__ import annotations
@@ -94,3 +103,43 @@ def host_f64(packed) -> np.ndarray:
     q = host_i64(packed["q"]).astype(np.float64)
     with np.errstate(divide="ignore", invalid="ignore"):
         return np.where(scale > 0, q / np.maximum(scale, 1e-300), 0.0)
+
+
+def reduce_over_processes(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``x`` reduced in place over the processes of ``group`` by ``op``
+    ("SUM" or "MAX"); ``x`` itself without a group."""
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(x, op=getattr(dist.ReduceOp, op), group=group)
+    return x
+
+
+def shard_sum_i64_limbs(xs, device, group=None) -> torch.Tensor:
+    """:func:`sum_i64_limbs` over the replica axis of every shard's array
+    in ``xs`` (this process's shards), on ``device``, and over the
+    processes of ``group`` where given."""
+    total = None
+    for x in xs:
+        part = sum_i64_limbs(x, axis=0).to(device)
+        total = part if total is None else total + part
+    return reduce_over_processes(total, "SUM", group)
+
+
+def shard_max(xs, device, group=None) -> torch.Tensor:
+    """The column maximum over the replica axis of every shard."""
+    m = None
+    for x in xs:
+        part = torch.amax(x, dim=0).to(device)
+        m = part if m is None else torch.maximum(m, part)
+    return reduce_over_processes(m, "MAX", group)
+
+
+def shard_sum_f32_fixed(xs, device, group=None) -> dict:
+    """:func:`sum_f32_fixed` over the replica axis of every shard's array
+    in ``xs``: the scale from the maximum over all shards, then each
+    shard's quanta limb-summed on its device and added on ``device``."""
+    xs = [x.to(torch.float32) for x in xs]
+    scale = _pow2_scale(shard_max(xs, device, group))
+    quanta = [torch.round(x * scale.to(x.device)[None]).to(torch.int32) for x in xs]
+    return {"q": shard_sum_i64_limbs(quanta, device, group), "scale": scale}

@@ -466,23 +466,27 @@ def test_slice_features_run_and_plan(mutate, shape, counter):
 
 
 def test_kernel_bounds_name_each_graph_bound(monkeypatch):
-    """Each new launch bound is checked and named: lowering one bound
-    below what the mix model needs raises naming exactly that bound."""
+    """Each graph count past the lean tables is named as the reason the
+    model runs the wide code, and bounds no launch; the transit rows
+    remain a launch bound, checked and named."""
     compiled = tengine._Compiled(mix(tmodel))
     support.check_kernel_bounds(compiled, 32)
+    assert support.wide_reasons(compiled) == []
     assert (compiled.hop_depth, compiled.n_draws, compiled.TR) == (2, 6, 16)
     for name, attr, bound in (
-        ("routers", "KERNEL_MAX_ROUTERS", 2),
-        ("targets per router", "KERNEL_MAX_TARGETS", 1),
-        ("router hop depth", "KERNEL_MAX_HOPS", 1),
-        ("limiters", "KERNEL_MAX_LIMITERS", 0),
-        ("transit_capacity", "KERNEL_MAX_TRANSIT", 8),
-        ("uniform draws per step", "KERNEL_MAX_DRAWS", 5),
+        ("routers", "LEAN_MAX_ROUTERS", 2),
+        ("targets per router", "LEAN_MAX_TARGETS", 1),
+        ("router hop depth", "LEAN_MAX_HOPS", 1),
+        ("limiters", "LEAN_MAX_LIMITERS", 0),
     ):
         with monkeypatch.context() as patch:
             patch.setattr(support, attr, bound)
-            with pytest.raises(ValueError, match=re.escape(f"{name}=")):
-                support.check_kernel_bounds(compiled, 32)
+            support.check_kernel_bounds(compiled, 32)
+            assert [r.split("=")[0] for r in support.wide_reasons(compiled)] == [name]
+    with monkeypatch.context() as patch:
+        patch.setattr(support, "KERNEL_MAX_TRANSIT", 8)
+        with pytest.raises(ValueError, match=re.escape("transit_capacity=")):
+            support.check_kernel_bounds(compiled, 32)
 
 
 def test_kernel_plan_declines_like_jax():
@@ -503,9 +507,9 @@ def test_kernel_plan_shapes_and_bounds():
     assert support.kernel_plan(tmodel.mm1_model()) == {"shape": "mm1", "servers": [0], "chaos": ()}
     pipe = tmodel.pipeline_model(8.0, (0.05, 0.08, 0.06))
     assert support.kernel_plan(pipe) == {"shape": "chain", "servers": [0, 1, 2], "chaos": ()}
-    wide = tmodel.pipeline_model(8.0, [0.01] * (support.KERNEL_MAX_SERVERS + 1))
-    with pytest.raises(ValueError, match="servers=9 exceeds"):
-        support.check_kernel_bounds(tengine._Compiled(wide), 32)
+    wide = tengine._Compiled(tmodel.pipeline_model(8.0, [0.01] * (support.LEAN_MAX_SERVERS + 1)))
+    support.check_kernel_bounds(wide, 32)
+    assert support.wide_reasons(wide) == ["servers=9 > 8"]
     with pytest.raises(ValueError, match="macro_block"):
         support.check_kernel_bounds(tengine._Compiled(pipe), support.KERNEL_MAX_MACRO + 1)
 

@@ -5,7 +5,10 @@ rng.uniform, and the M/M/1 Lindley kernel against plain_mm1_scan; a
 checkpointed run's segment launches against its one launch, and the
 opinion rounds against the CPU; the event-step kernel's trace branch
 against plain_trace_steps over whole traced runs, traced runs on the card
-against the CPU's, and a traced run resumed mid-chunk.
+against the CPU's, and a traced run resumed mid-chunk; the wide code (the
+models past the lean tables) against the plain step and its whole runs
+against chained launches; and run_ensemble and run_mm1_ensemble on 4
+shards of the card against 1.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -805,3 +808,121 @@ def test_traced_run_resumed_mid_chunk_equals_the_run(cuda, name):
     long = build(tmodel)
     long.sources[long.traced_source_index()].trace.chunk_len = 2048
     assert resume_mismatches(one, run_ensemble(long, **kw), TRACE_PAGING_FIELDS) == []
+
+
+# -- the wide code and the replica mesh -----------------------------------------
+def _wide_models() -> dict:
+    import chip_smoke
+    from test_torch_wide import _limiters
+
+    return {
+        "wide-fleet": lambda: chip_smoke.wide_fleet_model(EnsembleModel),
+        "wide-chain": lambda: chip_smoke.wide_chain_model(EnsembleModel),
+        "wide-draws": lambda: chip_smoke.wide_draws_model(EnsembleModel),
+        "wide-tenants": lambda: chip_smoke.wide_tenants_model(EnsembleModel),
+        "wide-quorum": lambda: chip_smoke.wide_quorum_model(EnsembleModel),
+        "wide-limiters": lambda: _limiters(tmodel),
+    }
+
+
+WIDE_NAMES = ("wide-fleet", "wide-chain", "wide-draws", "wide-tenants", "wide-quorum", "wide-limiters")
+
+
+@pytest.mark.parametrize("name", WIDE_NAMES)
+def test_wide_kernel_matches_plain_bit_for_bit(cuda, name):
+    """40 chained blocks at 512 replicas: the wide code (the 17-draw model
+    the lean chaos code) drawing its own uniforms against the plain step
+    on the torch-op draw of the same block, every leaf bit for bit."""
+    model = _wide_models()[name]()
+    compiled = _Compiled(model)
+    n = 512
+    params = {k: torch.from_numpy(v).to(cuda) for k, v in _resolve_params(model, compiled, n, None).items()}
+    keys = rng.split(rng.PRNGKey(7, device=cuda), n)
+    kstate = compiled.init_state(keys, params)
+    pstate = {k: v.clone() for k, v in kstate.items()}
+    halted = torch.empty((n,), dtype=torch.uint8, device=cuda)
+    library = event_step.library_of(event_step.launch_args(compiled, kstate, keys, 0, params, halted))
+    assert library == ("event_step" if name == "wide-draws" else "event_step_wide")
+    for block in range(40):
+        U = event_step.block_uniforms(compiled, keys, block)
+        khalted = event_step.block_step(compiled, kstate, keys, block, params)
+        phalted = event_step.plain_block_step(compiled, pstate, U, params)
+        torch.testing.assert_close(khalted, phalted, rtol=0, atol=0)
+        for leaf in pstate:
+            a, b = kstate[leaf], pstate[leaf]
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"block {block}: {leaf}")
+    assert int(kstate["srv_completed"].sum()) > 0
+
+
+@pytest.mark.parametrize("name", ["wide-fleet", "wide-tenants", "wide-quorum", "wide-limiters"])
+def test_wide_whole_run_equals_chained_one_block_launches(cuda, name):
+    """The wide code's whole budget in one launch against chained
+    one-block launches with every row in device memory, 512 replicas."""
+    model = _wide_models()[name]()
+    compiled = _Compiled(model)
+    n = 512
+    params = {k: torch.from_numpy(v).to(cuda) for k, v in _resolve_params(model, compiled, n, None).items()}
+    keys = rng.split(rng.PRNGKey(3, device=cuda), n)
+    one = compiled.init_state(keys, params)
+    chained = {k: v.clone() for k, v in one.items()}
+    n_chunks = -(-_default_max_events(model, None) // compiled.macro)
+    blocks = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    halted = event_step.block_steps(compiled, one, keys, 0, n_chunks, params, blocks)
+    chained_blocks, chained_halted = _chained_in_place(compiled, chained, keys, params, n_chunks)
+    assert torch.equal(halted, chained_halted) and torch.equal(blocks, chained_blocks)
+    for leaf in one:
+        a, b = one[leaf], chained[leaf]
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), leaf
+
+
+def test_wide_traced_run_on_the_card_matches_the_cpu_run(cuda):
+    from test_torch_wide import _traced_fleet
+
+    model = _traced_fleet(tmodel)
+    kw = dict(n_replicas=256, seed=5, max_events=4096)
+    card = run_ensemble(model, **kw)
+    cpu = run_ensemble(model, **kw, device="cpu")
+    assert card.engine_path == "scan+cuda"
+    for field in ("simulated_events", "sink_count", "server_completed", "server_dropped",
+                  "blocks_total", "trace_tenant_arrivals", "trace_stream_steps"):
+        assert getattr(card, field) == getattr(cpu, field), field
+
+
+def _card_mesh(shards: int):
+    from happysim_tpu_torch.mesh import replica_mesh
+
+    return replica_mesh(["cuda:0"] * shards)
+
+
+@pytest.mark.parametrize("name", ["wide-fleet", "telemetry-chaos-fanout", "consensus-quorum-defended"])
+def test_run_ensemble_on_4_shards_of_the_card_equals_1(cuda, name):
+    """One launch a shard on cuda:0 repeated 4 times, the same bits as one
+    shard, every result field but the mesh's provenance."""
+    model = _wide_models()[name]() if name in WIDE_NAMES else MODELS[name]()
+    budget = _default_max_events(model, None)
+    before = event_step.block_step.launches
+    one = run_ensemble(model, n_replicas=1024, seed=2, max_events=budget, mesh=_card_mesh(1))
+    assert event_step.block_step.launches - before == 1
+    four = run_ensemble(model, n_replicas=1024, seed=2, max_events=budget, mesh=_card_mesh(4))
+    assert event_step.block_step.launches - before == 5
+    assert four.per_shard_replicas == 256 and four.mesh_devices == 4
+    assert resume_mismatches(one, four, frozenset({"mesh_devices", "mesh_shape", "per_shard_replicas"})) == []
+
+
+def test_run_mm1_ensemble_on_4_shards_of_the_card_equals_1(cuda):
+    before = mm1_scan.mm1_scan.launches
+    one = run_mm1_ensemble(8.0, 10.0, 4096, 512, mesh=_card_mesh(1))
+    four = run_mm1_ensemble(8.0, 10.0, 4096, 512, mesh=_card_mesh(4))
+    assert mm1_scan.mm1_scan.launches - before == 5
+    for field in ("mean_wait_s", "std_wait_s", "mean_sojourn_s", "n_replicas"):
+        assert getattr(one, field) == getattr(four, field), field
+    # Each shard's lanes draw what they draw in the whole run.
+    key = rng.PRNGKey(0, device=cuda)
+    whole = mm1_scan.mm1_scan(key, 4096, 8.0, 10.0, 512, 128)
+    part = mm1_scan.mm1_scan(key, 4096, 8.0, 10.0, 512, 128, 1024, 1024)
+    for a, b in zip(whole, part):
+        assert torch.equal(a[1024:2048], b)

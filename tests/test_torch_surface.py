@@ -1,7 +1,8 @@
 """The port's public surface against the JAX package's: ``__all__`` holds
 every name of JAX's ``happysim_tpu.tpu.__all__`` but those left out by
 design (XLA and Pallas switches, the Pallas dispatch) and those of the
-mesh (ROADMAP A.13) and partitioned (A.14) modules still to port; and the
+partitioned module (ROADMAP A.14) still to port, the mesh's (A.13)
+included; and the
 result's ``kernel_decline``, the model's ``kernel_supported()`` and the
 result's ``summary()``, which says why it is not in the port.
 """
@@ -19,7 +20,7 @@ from happysim_tpu_torch.kernels import support  # noqa: E402
 
 # XLA and Pallas switches, and the Pallas dispatch (it takes a JAX mesh).
 LEFT_OUT = {"KERNEL_ENV", "pallas_available", "maybe_enable_compile_cache", "kernel_decision"}
-# mesh.py (ROADMAP A.13) and partitioned.py (A.14).
+# mesh.py (ROADMAP A.13), ported, and partitioned.py (A.14), not yet.
 MESH_NAMES = {
     "STATE_PARTITION_RULES", "ensemble_state_shardings", "ensemble_state_specs",
     "match_partition_rules", "HOST_AXIS", "REPLICA_AXIS", "distributed_initialize",
@@ -33,9 +34,10 @@ PARTITIONED_NAMES = {
 
 
 def test_all_holds_every_ported_name_of_jax():
-    missing = set(jtpu.__all__) - LEFT_OUT - MESH_NAMES - PARTITIONED_NAMES - set(port.__all__)
+    missing = set(jtpu.__all__) - LEFT_OUT - PARTITIONED_NAMES - set(port.__all__)
     assert not missing, sorted(missing)
-    assert not (set(port.__all__) & (LEFT_OUT | MESH_NAMES | PARTITIONED_NAMES))
+    assert MESH_NAMES <= set(port.__all__)
+    assert not (set(port.__all__) & (LEFT_OUT | PARTITIONED_NAMES))
     for name in port.__all__:
         assert getattr(port, name) is not None, name
     # The left-out and unported names are all JAX's.
@@ -71,13 +73,15 @@ def test_kernel_decline_names_the_cpu():
 def test_kernel_decline_names_the_bound_past_which_a_model_is():
     model = tmodel.EnsembleModel(horizon_s=2.0)
     src = model.source(rate=5.0)
-    servers = [model.server(service_mean=0.01) for _ in range(support.KERNEL_MAX_SERVERS + 1)]
+    servers = [model.server(service_mean=0.01) for _ in range(2)]
+    servers.append(model.server(service_mean=0.01,
+                                concurrency=support.KERNEL_MAX_CONCURRENCY + 1))
     model.connect(src, servers[0])
     for a, b in zip(servers, servers[1:]):
         model.connect(a, b)
     model.connect(servers[-1], model.sink())
     supported, reason = model.kernel_supported()
-    assert not supported and f"servers={support.KERNEL_MAX_SERVERS + 1}" in reason
+    assert not supported and f"concurrency={support.KERNEL_MAX_CONCURRENCY + 1}" in reason
     result = run_ensemble(model, n_replicas=2, device="cpu", max_events=64)
     assert result.kernel_decline == f'device="cpu"; {reason}'
 

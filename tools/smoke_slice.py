@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""The newest phase of chip_smoke.py alone, for a quick check of a change to
-the trace-driven path:
+"""The newest phases of chip_smoke.py alone, for a quick check of a change
+to the wide code or the replica mesh:
 
     python3 tools/smoke_slice.py      # on a machine with one NVIDIA GPU
 
 Builds the libraries and prints each instantiation's registers and spills,
 then runs chip_smoke's block checks (kernel against plain version, bit for
 bit, at 65,536 replicas) on one model of each earlier instantiation, and
-chip_smoke's trace phase: the trace branch against its plain version over
-whole traced runs (the lean code and the code for several sources), its
-time per block, and bench.py's two _trace_measure scenarios through
-run_ensemble with their exact gates, paging independence and a mid-chunk
-resume. Any failure raises.
+chip_smoke's wide phase (the five wide models: block checks, a whole run
+in one launch against chained launches, the run through run_ensemble and
+its gate, the wide code's time a block) and mesh phase (meshes of cuda:0
+repeated 1 and 4 times: _multichip_measure's workload, the M/M/1 ensemble,
+checkpoints resumed across shard counts and the flash crowd, each pair the
+same bits). Any failure raises.
 """
 
 import sys
@@ -45,7 +46,8 @@ def main() -> int:
     ):
         c.check_blocks(name, model, blocks, sweeps)
     print(f"block checks {time.perf_counter() - start:.1f} s", flush=True)
-    c.trace_phase(tag)
+    c.wide_phase(tag)
+    c.mesh_phase(tag)
     print("slice ok")
     return 0
 
