@@ -327,7 +327,28 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    the 1-shard run resumed on 4 shards and of the 4-shard run on 1, each
    landing on the uninterrupted bits; and the flash crowd of
    _trace_measure the same on both; each wall and redistribution_seconds
-   printed.
+   printed;
+12. the partitioned executor (run_partitioned) on 8 partitions of cuda:0:
+   the window kernel (csrc/event_step_partitioned.cu) and the barrier
+   (csrc/partition_barrier.cu) against plain_window_steps and
+   plain_barrier after each launch of the first 16 windows at the main
+   path's 8 x 8,192 lanes, and over whole runs of 3 s (60 windows) at
+   8 x 128 lanes, on
+   the JAX package's example ring (examples/tpu/partitioned_ring.py:
+   lambda 5, mu 20, queue 256, a random router over the sink and a remote
+   of 50 ms), a chaos ring (a brownout, a deadline with backoff retries)
+   and a two-tenant ring (the code for several sources and sinks), each
+   whole run's totals also through run_partitioned; a ring run at 8 x
+   8,192 lanes snapshotted every 75 windows, equal to the uninterrupted
+   run, and resumed from an npz; the ring at 8 x 8,192 lanes over 30 s
+   (600 windows, outboxes of 128) through run_partitioned with both launch
+   counts set to 0 just before, one window launch and one barrier launch
+   a window, its pooled sink latency within 2% of the product form's
+   0.25 s, no remote or transit drop and no truncated window; the run
+   again with every launch timed (CUDA events), and each kernel's device
+   time a window over windows 100-119 beside its bound and the plain
+   versions' time a window, their state after window 100 equal to the
+   kernels'.
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
@@ -337,15 +358,17 @@ lognormal M/G/1 (the family sampler), the profile graph (the profile
 tables), the chaos model (the chaos branches) and the telemetry model
 (the window buffers), bench_resilience's defended arm (the defenses),
 the two-tenant service (several sources and sinks), the defended
-quorum arm (the consensus tier), the flash crowd (the trace branch) and
-the wide fleet (the wide code),
+quorum arm (the consensus tier), the flash crowd (the trace branch),
+the wide fleet (the wide code) and the partitioned ring (the partitioned
+instantiation, its launches the run's windows, its time a window),
 the models the main path runs, its ms the time per block of a 20-block
 launch and its bound that of the same blocks, its launches those of the
 main path's run (one a run; for the trace branch one a stream step of
 the flash crowd's run); the draw kernel, its
-launches those of the M/M/1's chain-form run; and the Lindley kernel, its
-launches those of the run_mm1_ensemble call, its times at 65,536 x
-4,096. Every number printed
+launches those of the M/M/1's chain-form run; the window barrier, its
+launches those of the partitioned ring's run, its time a window; and the
+Lindley kernel, its launches those of the run_mm1_ensemble call, its
+times at 65,536 x 4,096. Every number printed
 carries the card's name and power limit.
 Details, the router and mix models' included, also go to
 chiprun_out/chip_smoke.json.
@@ -369,6 +392,7 @@ import torch
 from happysim_tpu_torch import (
     EnsembleCheckpoint,
     EnsembleModel,
+    PartitionedCheckpoint,
     TraceSpec,
     diurnal_trace,
     flash_crowd_trace,
@@ -376,10 +400,12 @@ from happysim_tpu_torch import (
     mm1_model,
     model_fingerprint,
     opinion,
+    partition_mesh,
     pipeline_model,
     rng,
     run_ensemble,
     run_mm1_ensemble,
+    run_partitioned,
     sum_f32_fixed,
 )
 from happysim_tpu_torch.chain import fast_plan
@@ -393,7 +419,21 @@ from happysim_tpu_torch.engine import (
     _default_max_events,
     _resolve_params,
 )
-from happysim_tpu_torch.kernels import build, event_step, mm1_scan, support, uniform
+from happysim_tpu_torch.kernels import (
+    build,
+    event_step,
+    mm1_scan,
+    partition_barrier,
+    support,
+    uniform,
+)
+from happysim_tpu_torch.partitioned import (
+    _PartitionCompiled,
+    default_max_events_per_window,
+    init_partitions,
+    partitioned_result,
+    window_end,
+)
 
 REPLICAS = 65536
 MACRO = 32
@@ -2985,6 +3025,379 @@ def mesh_phase(tag: str) -> dict:
     return out
 
 
+# -- the partitioned executor -------------------------------------------------------
+# The JAX package's example ring (examples/tpu/partitioned_ring.py): lambda
+# 5, mu 20, queue 256, hop latency 50 ms, a random router over [sink,
+# remote]; 8 partitions on cuda:0, 8,192 replicas each (65,536 lanes),
+# horizon 30 s in windows of the hop (600), outboxes of 128 entries.
+PART_P, PART_R = 8, REPLICAS // 8
+PART_LAM, PART_MU, PART_HOP_S, PART_HORIZON_S, PART_OUTBOX = 5.0, 20.0, 0.05, 30.0, 128
+# Jackson's product form: two visits of 1 / (mu - 2 lam) and one hop.
+PART_PRODUCT_FORM_S = 2.0 / (PART_MU - 2.0 * PART_LAM) + PART_HOP_S
+# The bit checks: the first 16 windows at the main path's 8 x 8,192 lanes
+# (and window 100 of the timed ring, in time_partitioned); the whole runs
+# over 3 s (60 windows) at 8 x 128 lanes, where the plain versions' torch
+# ops keep the phase inside its minute.
+PART_CHECK_WINDOWS = 16
+PART_RUN_R, PART_RUN_HORIZON_S = 128, 3.0
+# Windows before the timed ones (the ring near its steady state), and the
+# timed windows.
+PART_WARM_WINDOWS, PART_TIMED_WINDOWS = 100, 20
+PART_LIBRARY_NOTE = "none: no single PyTorch call computes a window or its barrier"
+
+
+def partitioned_ring_model(horizon_s: float = PART_HORIZON_S) -> EnsembleModel:
+    """examples/tpu/partitioned_ring.py's ring, a partition's topology."""
+    m = EnsembleModel(horizon_s=horizon_s)
+    src = m.source(rate=PART_LAM)
+    srv = m.server(service_mean=1.0 / PART_MU, queue_capacity=256)
+    snk = m.sink()
+    remote = m.remote(ingress=srv, latency_s=PART_HOP_S)
+    router = m.router(policy="random")
+    m.connect(src, srv)
+    m.connect(srv, router)
+    m.connect(router, snk)
+    m.connect(router, remote)
+    return m
+
+
+def partitioned_chaos_model(horizon_s: float = PART_HORIZON_S) -> EnsembleModel:
+    """The ring at lambda 8 with chaos on its server: a brownout over the
+    second fifth of the horizon, a 0.3 s deadline with two retries after a
+    20 ms backoff (retries park in the transit registers beside the jobs
+    the neighbour sends)."""
+    m = EnsembleModel(horizon_s=horizon_s)
+    src = m.source(rate=8.0)
+    srv = m.server(service_mean=1.0 / PART_MU, queue_capacity=256, deadline_s=0.3,
+                   max_retries=2, retry_backoff_s=0.02, outage=(horizon_s / 5, 2 * horizon_s / 5))
+    snk = m.sink()
+    remote = m.remote(ingress=srv, latency_s=PART_HOP_S)
+    router = m.router(policy="random")
+    m.connect(src, srv)
+    m.connect(srv, router)
+    m.connect(router, snk)
+    m.connect(router, remote)
+    return m
+
+
+def partitioned_two_sink_model(horizon_s: float = PART_HORIZON_S) -> EnsembleModel:
+    """Two tenants a partition (the code for several sources and sinks): a
+    Poisson 4/s source -> server 0 -> random over [sink 0, remote into the
+    neighbour's server 0], and a constant 3/s source -> server 1 -> random
+    over [sink 1 behind a 10 ms exponential edge, remote into the
+    neighbour's server 1 after 80 ms]."""
+    m = EnsembleModel(horizon_s=horizon_s)
+    sources = (m.source(rate=4.0), m.source(rate=3.0, kind="constant"))
+    servers = (m.server(service_mean=0.04, queue_capacity=128),
+               m.server(service_mean=0.05, queue_capacity=128))
+    sinks = (m.sink(), m.sink())
+    remotes = (m.remote(ingress=servers[0], latency_s=PART_HOP_S),
+               m.remote(ingress=servers[1], latency_s=0.08))
+    for i, (src, srv, snk, remote) in enumerate(zip(sources, servers, sinks, remotes)):
+        router = m.router(policy="random")
+        m.connect(src, srv)
+        m.connect(srv, router)
+        if i == 0:
+            m.connect(router, snk)
+        else:
+            m.connect(router, snk, latency_s=0.01, latency_kind="exponential")
+        m.connect(router, remote)
+    return m
+
+
+def card_partitions(partitions: int = PART_P):
+    """``partitions`` partitions of cuda:0."""
+    return partition_mesh(["cuda:0"] * partitions)
+
+
+def partitioned_setup(model, replicas: int) -> tuple:
+    """(compiled, state, params, budget) of PART_P partitions of
+    ``replicas`` replicas on cuda, seed 0 (run_partitioned's lanes)."""
+    compiled = _PartitionCompiled(model, PART_OUTBOX)
+    state, params = init_partitions(compiled, 0, PART_P, replicas, 0, "cuda")
+    return compiled, state, params, default_max_events_per_window(model, PART_HOP_S)
+
+
+def partitioned_window(compiled, state, params, budget: int, w: int, plain: bool = False,
+                       prepared: tuple = (None, None)) -> None:
+    """Window ``w`` and its barrier: the kernels (through run_partitioned's
+    wrappers, with its ``prepared`` argument dicts where given), or their
+    plain versions."""
+    limit = window_end(w, PART_HOP_S)
+    if plain:
+        event_step.plain_window_steps(compiled, state, params, limit, budget)
+        partition_barrier.plain_barrier(compiled, state, PART_P, limit)
+    else:
+        event_step.window_steps(compiled, state, state["key"], params, limit, budget, prepared[0])
+        partition_barrier.barrier(compiled, state, PART_P, limit, prepared=prepared[1])
+
+
+def check_windows(name: str, model) -> float:
+    """The first PART_CHECK_WINDOWS windows at the main path's PART_P x
+    PART_R lanes: after each window launch and after each barrier launch,
+    the kernel's state against the plain versions' on every leaf. The
+    kernels go through the wrappers as run_partitioned calls them, their
+    arguments checked once."""
+    compiled, state, params, budget = partitioned_setup(model, PART_R)
+    plain = {k: v.clone() for k, v in state.items()}
+    max_abs = 0.0
+    wprep, bprep = {}, {}
+    for w in range(PART_CHECK_WINDOWS):
+        limit = window_end(w, PART_HOP_S)
+        event_step.window_steps(compiled, state, state["key"], params, limit, budget, wprep)
+        event_step.plain_window_steps(compiled, plain, params, limit, budget)
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, compare_states(state, plain, f"{name} window {w}"))
+        queued = int(state["ob_len"].sum())
+        partition_barrier.barrier(compiled, state, PART_P, limit, prepared=bprep)
+        partition_barrier.plain_barrier(compiled, plain, PART_P, limit)
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, compare_states(state, plain, f"{name} barrier {w}"))
+        if w in (0, PART_CHECK_WINDOWS - 1):
+            print(f"  {name} window {w} at {PART_P} x {PART_R} lanes: kernel == plain on every leaf "
+                  f"after the window and after the barrier ({queued} jobs crossed, "
+                  f"{int(state['events'].sum())} events so far)")
+    require(int(state["ob_sent"].sum()) > 0, f"{name}: nothing crossed")
+    return max_abs
+
+
+def check_partitioned_run(name: str, model) -> float:
+    """A whole run of PART_RUN_HORIZON_S at PART_P x PART_RUN_R lanes: the
+    kernels' window loop against the plain versions' on every leaf, and
+    run_partitioned on the same model and seed reporting the loop's
+    totals."""
+    compiled, state, params, budget = partitioned_setup(model, PART_RUN_R)
+    plain = {k: v.clone() for k, v in state.items()}
+    n_windows = int(np.ceil(model.horizon_s / PART_HOP_S))
+    for w in range(n_windows):
+        partitioned_window(compiled, state, params, budget, w)
+        partitioned_window(compiled, plain, params, budget, w, plain=True)
+    torch.cuda.synchronize()
+    max_abs = compare_states(state, plain, f"{name} whole run")
+    result = run_partitioned(model, PART_HOP_S, mesh=card_partitions(), n_replicas=PART_RUN_R)
+    host = {k: v.cpu().numpy().reshape((PART_P, PART_RUN_R) + tuple(v.shape[1:]))
+            for k, v in state.items()}
+    want = partitioned_result(model, compiled, host, PART_P, PART_RUN_R, n_windows, PART_HOP_S,
+                              result.wall_seconds, budget)
+    bad = [f.name for f in dataclasses.fields(result)
+           if f.name not in ("wall_seconds", "events_per_second", "per_partition_sink_count")
+           and getattr(result, f.name) != getattr(want, f.name)]
+    require(not bad and np.array_equal(result.per_partition_sink_count, want.per_partition_sink_count),
+            f"{name}: run_partitioned differs from the checked loop on {bad}")
+    print(f"  {name}: {n_windows} windows at {PART_P} x {PART_RUN_R} lanes, kernel == plain on "
+          f"every leaf; run_partitioned's totals equal the loop's ({result.simulated_events} events, "
+          f"{result.remote_sent} crossed, sinks {result.sink_count})")
+    return max_abs
+
+
+def timed_partitioned_run(model, tag: str) -> tuple:
+    """run_partitioned at full width with CUDA events around every launch:
+    (result, window kernel ms, barrier ms), the device times summed."""
+    times = {"window": [], "barrier": []}
+    launches = {"window": event_step.launch, "barrier": partition_barrier.launch}
+
+    def timed(kind):
+        def launch(args, device):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            launches[kind](args, device)
+            end.record()
+            times[kind].append((start, end))
+        return launch
+
+    event_step.launch, partition_barrier.launch = timed("window"), timed("barrier")
+    try:
+        result = run_partitioned(model, PART_HOP_S, mesh=card_partitions(), n_replicas=PART_R)
+    finally:
+        event_step.launch, partition_barrier.launch = launches["window"], launches["barrier"]
+    return result, *(sum(a.elapsed_time(b) for a, b in times[k]) for k in ("window", "barrier"))
+
+
+def time_partitioned(model) -> dict:
+    """The window kernel's and the barrier's device time a window at full
+    width over windows PART_WARM_WINDOWS.. + PART_TIMED_WINDOWS, CUDA
+    events around each launch of a queue the host keeps full (the
+    wrappers' arguments checked once, in the last warm window, as
+    run_partitioned's window loop checks them; no sync until the last),
+    beside their bounds for the same windows (counted on a copy of the
+    state, launch by launch) and the plain versions' time a window, whose
+    state after window PART_WARM_WINDOWS must equal the kernels'. The
+    kernel's bound: the dense state moved once a launch
+    (support.launch_bytes, 3.35 TB/s) and the float operations of the
+    events run and the threefry the kernel counted (a fold an event); the
+    barrier's: its bytes, the clock, the depth integrals, the queue
+    lengths and the outbox lengths, each merged job read, parked and
+    reset."""
+    compiled, state, params, budget = partitioned_setup(model, PART_R)
+    prepared = ({}, {})
+    for w in range(PART_WARM_WINDOWS):
+        partitioned_window(compiled, state, params, budget, w, prepared=prepared)
+    lanes, n = PART_P * PART_R, PART_TIMED_WINDOWS
+    windows = range(PART_WARM_WINDOWS, PART_WARM_WINDOWS + n)
+    counted = {k: v.clone() for k, v in state.items()}
+    plain = {k: v.clone() for k, v in state.items()}
+    marks = []
+    for w in windows:
+        limit = window_end(w, PART_HOP_S)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        event_step.window_steps(compiled, state, state["key"], params, limit, budget, prepared[0])
+        events[1].record()
+        partition_barrier.barrier(compiled, state, PART_P, limit, prepared=prepared[1])
+        events[2].record()
+        marks.append(events)
+    torch.cuda.synchronize()
+    kernel_ms = sum(a.elapsed_time(b) for a, b, _c in marks)
+    barrier_ms = sum(b.elapsed_time(c) for _a, b, c in marks)
+    limit = window_end(PART_WARM_WINDOWS, PART_HOP_S)
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start.record()
+    event_step.plain_window_steps(compiled, plain, params, limit, budget)
+    mid.record()
+    partition_barrier.plain_barrier(compiled, plain, PART_P, limit)
+    end.record()
+    torch.cuda.synchronize()
+    halted = torch.empty((lanes,), dtype=torch.uint8, device="cuda")
+    drawn = torch.zeros((lanes,), dtype=torch.int32, device="cuda")
+    events = merged = draws = 0
+    max_abs = None
+    for w in windows:
+        limit = window_end(w, PART_HOP_S)
+        before = int(counted["events"].to(torch.int64).sum())
+        event_step.launch(event_step.window_launch_args(
+            compiled, counted, counted["key"], params, limit, budget, halted, drawn
+        ), torch.device("cuda"))
+        events += int(counted["events"].to(torch.int64).sum()) - before
+        draws += int(drawn.to(torch.int64).sum())
+        merged += int(counted["ob_len"].to(torch.int64).sum())
+        partition_barrier.barrier(compiled, counted, PART_P, limit)
+        if max_abs is None:
+            torch.cuda.synchronize()
+            max_abs = compare_states(counted, plain, f"ring window {w} at {PART_P} x {PART_R} lanes")
+    same_state(counted, state, "the timed windows against the counted ones")
+    float_ops = events * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER * compiled.nV)
+    int_ops, alu_ops = support.draw_int_ops(events, draws), support.draw_alu_ops(events, draws)
+    bytes_ms = n * support.launch_bytes(compiled, state) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = max(float_ops / PEAK_F32_OPS_PER_S * 1e3, int_ms(int_ops, alu_ops))
+    lane_bytes = 4 * (2 + 3 * compiled.nV + 2)
+    barrier_bytes = n * lanes * lane_bytes + merged * 4 * (3 + 2 + 3)
+    return {
+        "kernel_ms": kernel_ms / n, "barrier_ms": barrier_ms / n,
+        "plain_ms": start.elapsed_time(mid), "plain_barrier_ms": mid.elapsed_time(end),
+        "plain_max_abs_err": max_abs,
+        "bound_ms": max(bytes_ms, ops_ms) / n, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "barrier_bound_ms": barrier_bytes / PEAK_BYTES_PER_S * 1e3 / n, "barrier_bound_by": "bytes",
+        "events_per_window": events / n, "jobs_crossed_per_window": merged / n,
+        "threefry_per_window": draws / n,
+    }
+
+
+def partitioned_phase(tag: str) -> dict:
+    """run_partitioned (happysim_tpu_torch/partitioned.py) on 8 partitions
+    of cuda:0: the window kernel (csrc/event_step_partitioned.cu) and the
+    barrier (csrc/partition_barrier.cu) against their plain versions on
+    the ring, a chaos ring and a two-tenant ring (window by window, then
+    whole runs); a checkpointed ring run against the uninterrupted one;
+    the timed ring at 65,536 lanes with its gates; each kernel's time a
+    window beside its bound."""
+    t0 = time.perf_counter()
+    out = {"max_abs_err": {}, "whole_max_abs_err": {}}
+    print(f"partitioned executor: {PART_P} partitions of cuda:0, window {PART_HOP_S} s:")
+    models = {
+        "ring": partitioned_ring_model,
+        "chaos-ring": partitioned_chaos_model,
+        "two-sink-ring": partitioned_two_sink_model,
+    }
+    for name, build_model in models.items():
+        model = build_model()
+        compiled = _PartitionCompiled(model, PART_OUTBOX)
+        state, params = init_partitions(compiled, 0, 1, 64, 0, "cuda")
+        halted = torch.empty((64,), dtype=torch.uint8, device="cuda")
+        args = event_step.window_launch_args(compiled, state, state["key"], params,
+                                             window_end(0, PART_HOP_S), 8, halted)
+        require(event_step.library_of(args) == "event_step_partitioned", f"{name}: library")
+        out["max_abs_err"][name] = check_windows(name, model)
+        out["whole_max_abs_err"][name] = check_partitioned_run(name, build_model(PART_RUN_HORIZON_S))
+
+    # A checkpointed ring run at the main path's 8 x 8,192 lanes over the
+    # full horizon: a snapshot every 75 windows, equal to the uninterrupted
+    # run, and the middle snapshot saved, loaded and resumed to the same
+    # totals.
+    kw = dict(mesh=card_partitions(), n_replicas=PART_R)
+    one = run_partitioned(partitioned_ring_model(), PART_HOP_S, **kw)
+    snaps = []
+    event_step.window_steps.launches = partition_barrier.barrier.launches = 0
+    checkpointed = run_partitioned(partitioned_ring_model(), PART_HOP_S, **kw,
+                                   checkpoint_every_windows=75, checkpoint_callback=snaps.append)
+    require((event_step.window_steps.launches, partition_barrier.barrier.launches) == (600, 600),
+            "checkpointed ring: launches")
+    fields = [f.name for f in dataclasses.fields(one)
+              if f.name not in ("wall_seconds", "events_per_second", "per_partition_sink_count")]
+    require([getattr(one, f) for f in fields] == [getattr(checkpointed, f) for f in fields]
+            and np.array_equal(one.per_partition_sink_count, checkpointed.per_partition_sink_count),
+            "checkpointed ring differs from the uninterrupted run")
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = CKPT_DIR / "partitioned.npz"
+    snaps[len(snaps) // 2].save(str(path))
+    loaded = PartitionedCheckpoint.load(str(path))
+    path.unlink()
+    resumed = run_partitioned(partitioned_ring_model(), PART_HOP_S, **kw, resume_from=loaded)
+    require([getattr(one, f) for f in fields] == [getattr(resumed, f) for f in fields],
+            "resumed ring differs from the uninterrupted run")
+    print(f"  ring at {PART_P} x {PART_R} lanes: {len(snaps)} snapshots every 75 windows, the "
+          f"run equal to the uninterrupted one; resumed at window {loaded.window_index} from an npz "
+          f"equal too; walls {one.wall_seconds * 1e3:.1f} / {checkpointed.wall_seconds * 1e3:.1f} / "
+          f"{resumed.wall_seconds * 1e3:.1f} ms {tag}")
+
+    # The main path: the ring at full width through run_partitioned.
+    event_step.window_steps.launches = partition_barrier.barrier.launches = 0
+    ring = run_partitioned(partitioned_ring_model(), PART_HOP_S, mesh=card_partitions(),
+                           n_replicas=PART_R)
+    out["launches"] = {"window": event_step.window_steps.launches,
+                       "barrier": partition_barrier.barrier.launches}
+    require(out["launches"] == {"window": ring.n_windows, "barrier": ring.n_windows},
+            f"ring: launches {out['launches']} for {ring.n_windows} windows")
+    print(f"run_partitioned ring {PART_P} x {PART_R}: {ring.n_windows} windows, "
+          f"{out['launches']['window']} window and {out['launches']['barrier']} barrier launches, "
+          f"{ring.simulated_events} events in {ring.wall_seconds * 1e3:.3f} ms = "
+          f"{ring.events_per_second:.4g} events/s, {ring.remote_sent} jobs crossed {tag}")
+    within(ring.sink_mean_latency_s[0], PART_PRODUCT_FORM_S, "ring pooled sink latency (product form)",
+           0.02)
+    require(ring.remote_dropped == 0 and ring.transit_dropped == 0 and ring.truncated_windows == 0,
+            f"ring: remote_dropped {ring.remote_dropped}, transit_dropped {ring.transit_dropped}, "
+            f"truncated_windows {ring.truncated_windows}")
+    counts = ring.per_partition_sink_count[:, 0]
+    require(counts.min() > 0.9 * counts.max(), f"ring: partitions unbalanced {counts.tolist()}")
+    timed_result, window_ms, barrier_ms = timed_partitioned_run(partitioned_ring_model(), tag)
+    require(timed_result.sink_count == ring.sink_count, "ring: the timed run differs")
+    out["walls_ms"] = {"ring": ring.wall_seconds * 1e3, "ring, each launch timed": timed_result.wall_seconds * 1e3,
+                       "checkpoint one run": one.wall_seconds * 1e3,
+                       "checkpointed": checkpointed.wall_seconds * 1e3}
+    out["run"] = {
+        "events": ring.simulated_events, "events_per_second": ring.events_per_second,
+        "sink_mean_latency_s": ring.sink_mean_latency_s[0], "remote_sent": ring.remote_sent,
+        "window_kernel_ms_per_window": window_ms / ring.n_windows,
+        "barrier_ms_per_window": barrier_ms / ring.n_windows,
+    }
+    print(f"  ring device time: window kernel {window_ms:.3f} ms ({window_ms / ring.n_windows * 1e3:.2f} "
+          f"us a window), barrier {barrier_ms:.3f} ms ({barrier_ms / ring.n_windows * 1e3:.2f} us a "
+          f"window), of a {timed_result.wall_seconds * 1e3:.3f} ms wall with every launch timed, "
+          f"{100 * (window_ms + barrier_ms) / (timed_result.wall_seconds * 1e3):.1f}% device {tag}")
+    t = out["timing"] = time_partitioned(partitioned_ring_model())
+    print(f"timing partitioned (ring, windows {PART_WARM_WINDOWS}-{PART_WARM_WINDOWS + PART_TIMED_WINDOWS - 1} "
+          f"at {PART_P} x {PART_R}): window kernel {t['kernel_ms'] * 1e3:.2f} us a window, "
+          f"{100 * t['bound_ms'] / t['kernel_ms']:.2f}% of its bound {t['bound_ms'] * 1e3:.3f} us "
+          f"({t['bound_by']}; {t['events_per_window']:.0f} events, {t['threefry_per_window']:.0f} "
+          f"threefry a window); barrier {t['barrier_ms'] * 1e3:.2f} us a window, "
+          f"{100 * t['barrier_bound_ms'] / t['barrier_ms']:.2f}% of its bound "
+          f"{t['barrier_bound_ms'] * 1e3:.3f} us ({t['jobs_crossed_per_window']:.0f} jobs crossed a "
+          f"window); plain window {t['plain_ms']:.3f} ms, plain barrier {t['plain_barrier_ms']:.3f} ms, "
+          f"their state after window {PART_WARM_WINDOWS} == the kernels' {tag}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"partitioned phase: {out['seconds']:.1f} s {tag}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3310,9 +3723,12 @@ def main() -> int:
     # its launch count set to 0 just before (main_path_run, mesh_phase).
     wide = wide_phase(tag)
     meshes = mesh_phase(tag)
+    # The partitioned executor, its run driven with both launch counts set
+    # to 0 just before (partitioned_phase).
+    parts = partitioned_phase(tag)
 
     print(f"library_ms: {LIBRARY_NOTE}; mm1_scan: none: no single PyTorch call computes the "
-          "Lindley recursion")
+          f"Lindley recursion; partitioned and partition_barrier: {PART_LIBRARY_NOTE}")
     kernels = {
         "kernels": [
             {
@@ -3357,6 +3773,36 @@ def main() -> int:
                 "plain_ms": wide["timing"]["plain_ms"],
                 "bound_ms": wide["timing"]["bound_ms"],
                 "bound_by": wide["timing"]["bound_by"],
+                "library_ms": None,
+            },
+            {
+                "name": "event_step[partitioned]",
+                "route": "cuda",
+                "source": "happysim_tpu_torch/kernels/csrc/event_step.cuh",
+                "replaces": "happysim_tpu/tpu/kernels/event_step.py:312",
+                "launches": parts["launches"]["window"],
+                "max_abs_err": max(list(parts["max_abs_err"].values())
+                                   + list(parts["whole_max_abs_err"].values())
+                                   + [parts["timing"]["plain_max_abs_err"]]),
+                "ms": parts["timing"]["kernel_ms"],
+                "plain_ms": parts["timing"]["plain_ms"],
+                "bound_ms": parts["timing"]["bound_ms"],
+                "bound_by": parts["timing"]["bound_by"],
+                "library_ms": None,
+            },
+            {
+                "name": "partition_barrier",
+                "route": "cuda",
+                "source": "happysim_tpu_torch/kernels/csrc/partition_barrier.cu",
+                "replaces": "happysim_tpu/tpu/partitioned.py:533 one_window's barrier (lax)",
+                "launches": parts["launches"]["barrier"],
+                "max_abs_err": max(list(parts["max_abs_err"].values())
+                                   + list(parts["whole_max_abs_err"].values())
+                                   + [parts["timing"]["plain_max_abs_err"]]),
+                "ms": parts["timing"]["barrier_ms"],
+                "plain_ms": parts["timing"]["plain_barrier_ms"],
+                "bound_ms": parts["timing"]["barrier_bound_ms"],
+                "bound_by": parts["timing"]["barrier_bound_by"],
                 "library_ms": None,
             },
             {
@@ -3415,6 +3861,7 @@ def main() -> int:
                     "seconds": wide["seconds"],
                 },
                 "mesh": meshes,
+                "partitioned": parts,
                 **kernels,
             },
             indent=1,

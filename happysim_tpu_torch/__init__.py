@@ -37,6 +37,9 @@ this package                       JAX package
 ``kernels/csrc/uniform.cu``        (no Pallas kernel)
 ``kernels/mm1_scan.py``,           the ``lax.scan`` of ``mm1.py``'s
 ``kernels/csrc/mm1_scan.cu``       ``_mm1_scan`` (no Pallas kernel)
+``partitioned.py``                 ``happysim_tpu/tpu/partitioned.py``
+``kernels/partition_barrier.py``,  the barrier of ``partitioned.py``'s
+``kernels/csrc/partition_barrier.cu``  ``one_window`` (no Pallas kernel)
 ``kernels/build.py``               (none: the nvcc build of ``csrc/``)
 ``numerics.py``                    ``jnp.interp`` and XLA's float32 erfinv
 ``convert.py``                     (none: numpy state/params across)
@@ -83,10 +86,13 @@ design: ``KERNEL_ENV``, ``pallas_available`` and
 ``maybe_enable_compile_cache`` (XLA and Pallas switches), and
 ``kernel_decision`` (the Pallas dispatch, which takes a JAX mesh; the
 port runs every model on its CUDA kernel, and
-``EnsembleModel.kernel_supported()`` names a model's refusal). Not yet
-ported: remote egress nodes, which raise ``NotImplementedError`` naming
-their ROADMAP item, and the partitioned names of ``partitioned.py``
-(A.14).
+``EnsembleModel.kernel_supported()`` names a model's refusal).
+``run_partitioned`` (``partitioned.py``, with ``partition_mesh``,
+``PARTITION_AXIS``, ``PartitionedCheckpoint`` and ``PartitionedResult``)
+runs one simulation per replica whose entities are cut into partitions
+around a ring: jobs leave a partition through ``model.remote(...)``
+egress nodes and cross at window barriers, each window one launch of the
+event-step kernel and one of the barrier kernel a device.
 """
 
 from happysim_tpu_torch.engine import (
@@ -117,6 +123,13 @@ from happysim_tpu_torch.mesh import (
     replicated_sharding,
 )
 from happysim_tpu_torch.mm1 import MM1Result, run_mm1_ensemble
+from happysim_tpu_torch.partitioned import (
+    PARTITION_AXIS,
+    PartitionedCheckpoint,
+    PartitionedResult,
+    partition_mesh,
+    run_partitioned,
+)
 from happysim_tpu_torch.model import (
     CircuitBreakerSpec,
     CorrelatedOutages,
@@ -146,6 +159,11 @@ from happysim_tpu_torch.traces import (
 )
 
 __all__ = [
+    "PARTITION_AXIS",
+    "PartitionedCheckpoint",
+    "PartitionedResult",
+    "partition_mesh",
+    "run_partitioned",
     "HOST_AXIS",
     "REPLICA_AXIS",
     "STATE_PARTITION_RULES",

@@ -237,9 +237,9 @@ def model_fingerprint(model: EnsembleModel) -> str:
     repr the JAX package hashes, so both packages give the same digest for
     the same model. The spec dataclasses of :mod:`~happysim_tpu_torch.model`
     keep the JAX package's field order and ``repr=False`` flags for it; a
-    trace enters through its :meth:`~happysim_tpu_torch.traces.TraceSpec.signature`.
-    The port has no remote egress nodes (ROADMAP A.14): it hashes JAX's
-    value for a model without them."""
+    trace enters through its :meth:`~happysim_tpu_torch.traces.TraceSpec.signature`,
+    a remote egress node through :class:`~happysim_tpu_torch.model.RemoteSpec`'s
+    repr, JAX's."""
     items = (
         model.horizon_s,
         model.warmup_s,
@@ -249,7 +249,7 @@ def model_fingerprint(model: EnsembleModel) -> str:
         model.routers,
         model.limiters,
         len(model.sinks),
-        [],  # model.remotes
+        model.remotes,
         model.correlated_faults,
     )
     # Appended only when present, as in the JAX package (which keeps
@@ -566,8 +566,8 @@ class _Compiled:
     into the state's tensors); the other lanes keep their bits.
     """
 
-    def __init__(self, model: EnsembleModel):
-        model.validate()
+    def __init__(self, model: EnsembleModel, allow_remote: bool = False):
+        model.validate(allow_remote=allow_remote)
         # The kernel's plan (JAX's, where JAX's kernel takes the model);
         # the port has no engine path besides the kernel's, so it runs
         # what JAX's kernel declines too.
@@ -2205,14 +2205,31 @@ class _Compiled:
         t_min = torch.amin(self.next_candidates(state), dim=1)
         return torch.isinf(t_min) | (t_min > _f32(self.horizon, t_min.device))
 
-    def make_step(self, horizon: Optional[float] = None, trace_ctx=None):
+    def make_step(self, horizon: Optional[float] = None, trace_ctx=None, windowed: bool = False):
         """The one-event step ``step(state, params, u, gate=None)`` over
         all replicas, with ``u`` the ``(R, n_draws)`` uniform row; it
         updates ``state`` in place. A replica whose next event lies past
         ``horizon`` (or which has none), or outside the ``(R,)`` bool
         ``gate`` where one is given, is left unchanged. ``trace_ctx``:
         the resident trace pages a traced model's step reads
-        (:meth:`_fire_trace_source`)."""
+        (:meth:`_fire_trace_source`).
+
+        ``windowed=True`` (the partitioned executor, JAX's
+        ``make_step(windowed=True)``): ``step(state, params, limit)``
+        stops a replica at the window end ``limit`` instead (a sink still
+        measures up to the model's horizon) and draws its own row,
+        ``uniform(fold_in(key, events), (n_draws,), 1e-12, 1.0)`` keyed by
+        the replica's event count before this event, so a window's rerun
+        of the step never replays a stream."""
+        if windowed:
+            def windowed_step(state, params, limit):
+                u = rng.uniform(
+                    rng.fold_in(state["key"], state["events"].to(torch.int64)),
+                    (self.n_draws,), minval=1e-12, maxval=1.0,
+                )
+                self.make_step(float(limit), trace_ctx)(state, params, u)
+
+            return windowed_step
         horizon = self.horizon if horizon is None else float(horizon)
         nS = self.nS
 

@@ -10,7 +10,11 @@ version; :mod:`~happysim_tpu_torch.kernels.uniform` the standalone draw
 kernel of the chain form (``csrc/uniform.cu``, the same threefry);
 :mod:`~happysim_tpu_torch.kernels.mm1_scan` the M/M/1 ensemble's Lindley
 kernel (``csrc/mm1_scan.cu``, the same threefry) and its plain version;
-:mod:`~happysim_tpu_torch.kernels.build` their nvcc build;
+:mod:`~happysim_tpu_torch.kernels.partition_barrier` the partitioned
+executor's window barrier (``csrc/partition_barrier.cu``, parking
+merged jobs as the event step parks them, ``csrc/transit.cuh``) and its
+plain version; :mod:`~happysim_tpu_torch.kernels.build` their nvcc
+build;
 :mod:`~happysim_tpu_torch.kernels.support` the event step's shape
 provenance, launch bounds and bytes and operations counts.
 """

@@ -20,8 +20,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # One library per source: the event-step kernel without telemetry or
 # resilience, its telemetry instantiations, its resilience instantiations,
 # its consensus instantiations, its instantiations for several sources or
-# sinks, its trace-driven instantiations, its wide code, the standalone
-# draw kernel and the M/M/1 ensemble's Lindley scan.
+# sinks, its trace-driven instantiations, its wide code, its partitioned
+# instantiations, the standalone draw kernel, the M/M/1 ensemble's Lindley
+# scan and the partitioned executor's window barrier.
 SOURCES = (
     CSRC / "event_step.cu",
     CSRC / "event_step_telemetry.cu",
@@ -30,8 +31,10 @@ SOURCES = (
     CSRC / "event_step_multi.cu",
     CSRC / "event_step_trace.cu",
     CSRC / "event_step_wide.cu",
+    CSRC / "event_step_partitioned.cu",
     CSRC / "uniform.cu",
     CSRC / "mm1_scan.cu",
+    CSRC / "partition_barrier.cu",
 )
 HEADERS = (CSRC / "event_step.cuh", CSRC / "threefry.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"

@@ -242,6 +242,8 @@
 #define HS_MAX_SOURCES 8
 #define HS_MAX_PARTITIONS 8
 #define HS_HIST_BINS 80
+// Remote egress nodes of a partitioned model (the HsPrt tables).
+#define HS_MAX_REMOTES 8
 // Threads per block: 64, which tools/ab_block_loop.py timed faster than
 // 128 on the fan-out and the chaos bench (-DHS_THREADS=128 builds its
 // variant; the wrapper checks the library's value).
@@ -267,6 +269,7 @@
 #define HS_SERVER 1
 #define HS_ROUTER 2
 #define HS_LIMITER 3
+#define HS_REMOTE 4  // PRT: the outbox to the neighbour partition
 // Router policies.
 #define HS_RANDOM 0
 #define HS_ROUND_ROBIN 1
@@ -449,6 +452,27 @@ struct HsTrc {
   int n_chunks;       // the run's block budget per lane
 };
 
+// The partitioned executor (PRT instantiations): the outbox leaves,
+// replica major in the JAX layout, the truncated-window counter, the
+// window's end and event budget, and the remote egress nodes' tables.
+// The layout must match kernels/event_step.py::_Prt.
+struct HsPrt {
+  float* ob_arrival;  // (R, OB) when each queued job reaches the neighbour
+  float* ob_created;  // (R, OB) its creation time
+  int* ob_ingress;    // (R, OB) the neighbour's server it enters
+  int* ob_len;        // (R,) jobs queued this window
+  int* ob_sent;       // (R,) jobs sent
+  int* ob_dropped;    // (R,) jobs a full outbox dropped
+  int* truncated;     // (R,) windows whose budget ran out with an event due
+  int on;             // 1: a window launch of the partitioned executor
+  int OB;             // outbox capacity
+  int budget;         // events a lane may run this window
+  float limit;        // the window's end
+  int nRm;            // remote egress nodes
+  float rm_latency[HS_MAX_REMOTES];  // float32 latency_s of each
+  int rm_ingress[HS_MAX_REMOTES];    // its ingress server
+};
+
 // The wide code's tables (MAXV = HS_WIDE): the model's constants, one
 // device buffer uploaded once per model and device, each table a pointer
 // into it read through the read-only cache; per-server tables have nV
@@ -606,6 +630,8 @@ struct EventStepArgs {
   HsWide wide;
   // The rows staged in shared memory (kernels/support.py::stage_plan).
   HsStage stage;
+  // PRT only
+  HsPrt prt;
 };
 
 // The struct is passed by value as a __grid_constant__ kernel parameter.
@@ -1030,6 +1056,9 @@ struct Lane {
   // CON: this replica's (nP, Wp) partition windows and its counters
   HsRow<const float> prt_start, prt_end;
   int *net_partitioned, *qrm_dropped;
+  // PRT: this replica's outbox rows and counters
+  float *ob_arrival, *ob_created;
+  int *ob_ingress, *ob_len, *ob_sent, *ob_dropped;
   int drawn;  // threefry evaluations this launch (the block keys' included)
 };
 
@@ -1150,6 +1179,24 @@ __device__ __forceinline__ bool transit_free(const Lane<MAXV>& L, const EventSte
   for (int c = 0; c < a.TR; ++c)
     if (isinf(row[c])) return true;
   return false;
+}
+
+// PRT: _into_outbox, a job for the neighbour partition through remote rm:
+// the outbox's next slot, arriving t + the remote's latency at its
+// ingress; a full outbox drops it.
+template <int MAXV>
+__device__ __forceinline__ void into_outbox(Lane<MAXV>& L, const EventStepArgs& a, int rm,
+                                            float t, float created) {
+  const int slot = *L.ob_len;
+  if (slot < a.prt.OB) {
+    L.ob_arrival[slot] = t + a.prt.rm_latency[rm];
+    L.ob_created[slot] = created;
+    L.ob_ingress[slot] = a.prt.rm_ingress[rm];
+    *L.ob_len = slot + 1;
+    *L.ob_sent += 1;
+  } else {
+    *L.ob_dropped += 1;
+  }
 }
 
 // FaultTable.dark: is server w inside one of its fault windows (or, if
@@ -1595,8 +1642,10 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
 // delay-mode cut it parks in the server's transit registers until its
 // arrival plus the delay. A transit arrival (`consult` false) crossed
 // before any cut and does not consult.
+// PRT: a remote egress node (reached straight, or as a random router's
+// choice among sinks and remotes) queues the job in the outbox.
 template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false, bool TEL = false, bool RES = false,
-          bool CON = false, bool MULTI = false>
+          bool CON = false, bool MULTI = false, bool PRT = false>
 __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, HsRef dest,
                                         float t, float created, const HsDraw& u,
                                         HsLoss loss = HsLoss{0.0f, 0.0f, 0.0f},
@@ -1648,6 +1697,12 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         if (loss.p > 0.0f && u[a.u_loss] < loss.p && t >= loss.start && t < loss.end) {
           *L.net_lost += 1;
           if constexpr (TEL) tel_count(a.tel.net_lost, a.tel, L.tel_row, 1, t, 0);
+          return;
+        }
+      }
+      if constexpr (PRT) {
+        if (dest.kind == HS_REMOTE) {
+          into_outbox(L, a, dest.index, t, created);
           return;
         }
       }
@@ -1732,7 +1787,7 @@ __device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_
   (HS_REG_CAP && (MAXV) <= 4 && !(CHAOS) ? 65536 / (128 * HS_THREADS) : 1)
 
 template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false, bool RES = false,
-          bool CON = false, bool MULTI = false, bool TRC = false>
+          bool CON = false, bool MULTI = false, bool TRC = false, bool PRT = false>
 __global__ void __launch_bounds__(HS_THREADS, HS_MIN_BLOCKS(MAXV, CHAOS))
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   constexpr bool WIDE = MAXV == HS_WIDE;
@@ -1813,6 +1868,15 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.net_partitioned = P.net_partitioned ? P.net_partitioned + r : nullptr;
     L.qrm_dropped = P.qrm_dropped ? P.qrm_dropped + rv : nullptr;
   }
+  if constexpr (PRT) {
+    const HsPrt& X = a.prt;
+    L.ob_arrival = X.ob_arrival + (size_t)r * X.OB;
+    L.ob_created = X.ob_created + (size_t)r * X.OB;
+    L.ob_ingress = X.ob_ingress + (size_t)r * X.OB;
+    L.ob_len = X.ob_len + r;
+    L.ob_sent = X.ob_sent + r;
+    L.ob_dropped = X.ob_dropped + r;
+  }
   const HsKey key{a.keys[2 * (size_t)r], a.keys[2 * (size_t)r + 1]};
   L.drawn = 0;
   // Whether this instantiation draws through hs_draw_call (see HsDraw).
@@ -1876,12 +1940,17 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     trc_blocks = a.trc.blocks[r];
   }
 
+  // PRT: one window, a loop of up to `budget` events that stops at the
+  // window's end (JAX's windowed step; a sink still measures up to the
+  // horizon), run as one block.
+  const float limit = PRT ? a.prt.limit : a.horizon;
+  const int steps = PRT ? a.prt.budget : a.macro;
   int ran = 0;  // blocks this lane ran
   for (int c = 0; c < a.n_blocks; ++c) {
     // blocks_cond: a lane whose next event lies past the horizon (or that
     // has none) is halted for good and runs no further block.
     const float next = next_event_time<MAXV, GRAPH>(L, src_next, nV, transit);
-    if (isinf(next) || next > a.horizon) break;
+    if (isinf(next) || next > limit) break;
     unsigned block = a.block + (unsigned)c;
     if constexpr (TRC) {
       // The stream step's gate: the lane's block budget, and the stall.
@@ -1895,11 +1964,11 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       trc_blocks += 1;
     }
     // The block's key, folded once: the draws of step k are elements
-    // k * n_draws + slot of its uniforms.
-    const HsKey block_key = hs_fold_in(key, block);
-    L.drawn += 1;
+    // k * n_draws + slot of its uniforms. PRT: each event folds its own.
+    const HsKey block_key = PRT ? HsKey{0u, 0u} : hs_fold_in(key, block);
+    if constexpr (!PRT) L.drawn += 1;
     ran += 1;
-    for (int k = 0; k < a.macro; ++k) {
+    for (int k = 0; k < steps; ++k) {
       // next_candidates: the source, the servers' completions, then (GRAPH)
       // the servers' transit arrivals; a strict < keeps the first index.
       float tn = src_next;
@@ -1914,9 +1983,13 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
             if (L.tmin[v] < tn) { tn = L.tmin[v]; ev = VB + v; }
         }
       }
-      if (isinf(tn) || tn > a.horizon) break;  // halted: every later step is a no-op
+      if (isinf(tn) || tn > limit) break;  // halted: every later step is a no-op
 
-      const HsDraw u{block_key, (uint32_t)(k * nd), &L.drawn, draw_calls};
+      // PRT: the event's row is uniform(fold_in(key, events), (n_draws,)),
+      // keyed by the lane's event count before this event.
+      const HsDraw u = PRT ? HsDraw{hs_fold_in(key, (uint32_t)events), 0u, &L.drawn, draw_calls}
+                           : HsDraw{block_key, (uint32_t)(k * nd), &L.drawn, draw_calls};
+      if constexpr (PRT) L.drawn += 1;
       const float lo = fmaxf(t, a.warmup);
       const float dt = fmaxf(tn - lo, 0.0f);
 #pragma unroll
@@ -2083,10 +2156,10 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       const bool consult = !GRAPH || ev < VB;
       if constexpr (CHAOS) {
         if (forward)
-          deliver<MAXV, GRAPH, EXT, true, TEL, RES, CON, MULTI>(L, a, dest, t, created, u, loss,
-                                                                 attempt, consult);
+          deliver<MAXV, GRAPH, EXT, true, TEL, RES, CON, MULTI, PRT>(L, a, dest, t, created, u,
+                                                                      loss, attempt, consult);
       } else {
-        deliver<MAXV, GRAPH, EXT, false, TEL>(L, a, dest, t, created, u);
+        deliver<MAXV, GRAPH, EXT, false, TEL, false, false, false, PRT>(L, a, dest, t, created, u);
       }
 
       if (from >= 0) {
@@ -2172,6 +2245,10 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
 
   const float next = next_event_time<MAXV, GRAPH>(L, src_next, nV, transit);
   a.halted[r] = (isinf(next) || next > a.horizon) ? 1 : 0;
+  // PRT: the budget ran out with an event still due in the window.
+  if constexpr (PRT) {
+    if (next <= limit) a.prt.truncated[r] += 1;
+  }
   if (a.draws) a.draws[r] = L.drawn;
   if (a.blocks) a.blocks[r] += ran;
   if (ran == 0) return;  // a lane halted on entry changed nothing
@@ -2233,9 +2310,18 @@ static size_t hs_smem_bytes(const EventStepArgs& a) {
 // library (`trace`), which needs one, and the wide code's tables only on
 // the wide library (`wide`), which needs them; the lean libraries' tables
 // in the arguments bound the sources and the partition groups.
-static bool hs_args_ok(const EventStepArgs& a, bool trace = false, bool wide = false) {
+static bool hs_args_ok(const EventStepArgs& a, bool trace = false, bool wide = false,
+                       bool prt = false) {
   if (a.R < 0 || a.n_blocks < 1 || a.stage.words < 0) return false;
   if (a.trc.on != (trace ? 1 : 0)) return false;
+  if (a.prt.on != (prt ? 1 : 0)) return false;
+  if (prt) {
+    const HsPrt& x = a.prt;
+    if (x.OB < 1 || x.budget < 1 || x.nRm < 1 || x.nRm > HS_MAX_REMOTES || !x.ob_arrival ||
+        !x.ob_created || !x.ob_ingress || !x.ob_len || !x.ob_sent || !x.ob_dropped ||
+        !x.truncated || !a.tr_time)
+      return false;
+  }
   if (a.wide.on != (wide ? 1 : 0)) return false;
   if (wide) {
     const HsWide& w = a.wide;
@@ -2268,6 +2354,8 @@ static void hs_launch(Kernel kernel, const EventStepArgs& a, cudaStream_t s) {
 
 // The library's build constants, which the wrapper checks when it loads it.
 extern "C" int hs_event_step_max_servers() { return HS_MAX_NV; }
+
+extern "C" int hs_event_step_max_remotes() { return HS_MAX_REMOTES; }
 
 extern "C" int hs_event_step_max_sources() { return HS_MAX_SOURCES; }
 

@@ -49,6 +49,13 @@ struct (:func:`support.wide_reasons`) launches the wide code instead, with
 or without the trace: the code for several sources or sinks with the
 per-server registers as rows in device memory and the model's tables in
 one device buffer (:class:`_Wide`), uploaded once per model and device.
+A window of the partitioned executor (:mod:`happysim_tpu_torch.partitioned`)
+runs :func:`window_steps`, one launch of the partitioned instantiations:
+the graph code (transit always on) in its lean, several-source and wide
+forms, each lane running up to the window's event budget before the
+window's end, each event's draws keyed by the lane's event count, each
+delivery to a remote egress node queued in the outbox; its plain version
+is :func:`plain_window_steps`.
 
 The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``build/`` at the repository root, one library per source
@@ -58,7 +65,9 @@ The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``csrc/event_step_consensus.cu`` with partitions or a quorum,
 ``csrc/event_step_multi.cu`` with several sources or sinks,
 ``csrc/event_step_trace.cu`` with a traced source,
-``csrc/event_step_wide.cu`` past a lean table), all built at once,
+``csrc/event_step_wide.cu`` past a lean table,
+``csrc/event_step_partitioned.cu`` for a window of a partitioned run),
+all built at once,
 each bound through a plain C launcher loaded with ``ctypes``.
 """
 
@@ -73,12 +82,12 @@ import torch
 from happysim_tpu_torch import rng
 from happysim_tpu_torch.kernels import build, support
 from happysim_tpu_torch.kernels.build import CSRC  # noqa: F401  (the sources' directory)
-from happysim_tpu_torch.model import LIMITER, ROUTER, SERVER, SINK
+from happysim_tpu_torch.model import LIMITER, REMOTE, ROUTER, SERVER, SINK
 
 # The libraries of the event-step kernel (kernels/build.py builds them).
 EVENT_STEP_STEMS = (
     "event_step", "event_step_telemetry", "event_step_resilience", "event_step_consensus",
-    "event_step_multi", "event_step_trace", "event_step_wide",
+    "event_step_multi", "event_step_trace", "event_step_wide", "event_step_partitioned",
 )
 
 # The lean instantiations' tables in the argument struct.
@@ -89,6 +98,7 @@ _MAX_L = support.LEAN_MAX_LIMITERS
 _MAX_S = support.LEAN_MAX_SOURCES
 _MAX_P = support.LEAN_MAX_PARTITIONS
 _MAX_H = support.LEAN_MAX_HOPS
+_MAX_RM = support.KERNEL_MAX_REMOTES
 _loaded: dict = {}
 
 # Struct fields holding state-leaf pointers, in EventStepArgs order,
@@ -146,7 +156,7 @@ _LEAF_FIELDS = tuple(
     )
 )
 
-_KIND_IDS = {SINK: 0, SERVER: 1, ROUTER: 2, LIMITER: 3}
+_KIND_IDS = {SINK: 0, SERVER: 1, ROUTER: 2, LIMITER: 3, REMOTE: 4}
 _POLICY_IDS = {"random": 0, "round_robin": 1, "weighted": 2, "least_outstanding": 3}
 
 
@@ -297,6 +307,25 @@ def _wide_row(compiled) -> int:
     return max([len(r.targets) for r in compiled.model.routers] + [1])
 
 
+# The partitioned executor's leaves, in HsPrt's order.
+_PRT_FIELDS = (
+    ("ob_arrival", "ob_arrival"), ("ob_created", "ob_created"), ("ob_ingress", "ob_ingress"),
+    ("ob_len", "ob_len"), ("ob_sent", "ob_sent"), ("ob_dropped", "ob_dropped"),
+    ("truncated", "truncated_windows"),
+)
+
+
+class _Prt(ctypes.Structure):
+    """Mirror of ``HsPrt``: the outbox leaves, the truncated-window
+    counter, the window's end and budget, and the remotes' tables."""
+
+    _fields_ = [(field, ctypes.c_void_p) for field, _leaf in _PRT_FIELDS] + [
+        ("on", ctypes.c_int), ("OB", ctypes.c_int), ("budget", ctypes.c_int),
+        ("limit", ctypes.c_float), ("nRm", ctypes.c_int),
+        ("rm_latency", ctypes.c_float * _MAX_RM), ("rm_ingress", ctypes.c_int * _MAX_RM),
+    ]
+
+
 class _Stage(ctypes.Structure):
     """Mirror of ``HsStage``: each staged leaf's word offset in a lane's
     column of the shared tile (-1: in device memory), and the column's
@@ -373,6 +402,7 @@ class _Args(ctypes.Structure):
         + [("trc", _Trc)]
         + [("wide", _Wide)]
         + [("stage", _Stage)]
+        + [("prt", _Prt)]
     )
 
 
@@ -394,7 +424,7 @@ def load_library() -> dict:
             for probe in (
                 "hs_event_step_max_servers", "hs_event_step_max_sources",
                 "hs_event_step_max_profile_grid", "hs_event_step_args_size",
-                "hs_event_step_threads",
+                "hs_event_step_threads", "hs_event_step_max_remotes",
             ):
                 getattr(lib, probe).argtypes = []
                 getattr(lib, probe).restype = ctypes.c_int
@@ -408,6 +438,8 @@ def load_library() -> dict:
                 raise RuntimeError(f"{stem} library and wrapper disagree on the argument layout")
             if lib.hs_event_step_threads() != support.KERNEL_THREADS:
                 raise RuntimeError(f"{stem} library and wrapper disagree on the block size")
+            if lib.hs_event_step_max_remotes() != _MAX_RM:
+                raise RuntimeError(f"{stem} library and wrapper disagree on the remote bound")
             libs[stem] = lib
         _loaded["libs"] = libs
     return _loaded["libs"]
@@ -582,7 +614,29 @@ def _model_args(compiled) -> tuple:
     if wide:
         args.wide.on = 1
         args.wide.nT = _wide_row(compiled)
+    if getattr(compiled, "OB", 0):
+        _prt_args(compiled, args.prt)
+        # A window runs the graph code: remote arrivals land in the
+        # transit registers.
+        args.graph = 1
     return args, tables
+
+
+def _prt_args(compiled, prt: _Prt) -> None:
+    """The partitioned instantiation's switch, outbox size and remote
+    tables (the window's end and budget are set per launch)."""
+    remotes = compiled.model.remotes
+    if len(remotes) > _MAX_RM:
+        raise ValueError(
+            f"event-step kernel: {len(remotes)} remote egress nodes exceed the partitioned "
+            f"instantiation's table of {_MAX_RM} (ROADMAP B.12)"
+        )
+    prt.on = 1
+    prt.OB = compiled.OB
+    prt.nRm = len(remotes)
+    for i in range(len(remotes)):
+        prt.rm_latency[i] = float(compiled.remote_latency[i])
+        prt.rm_ingress[i] = int(compiled.remote_ingress[i])
 
 
 def _several(compiled) -> bool:
@@ -915,6 +969,7 @@ _INT_LEAVES = frozenset({
     "tel_srv_budget_dropped",
     "net_partitioned", "qrm_dropped", "tel_net_partitioned", "tel_qrm_dropped",
     "trc_blocks", "trc_arrivals", "tel_trc_arrivals", "trace tenants",
+    "ob_ingress", "ob_len", "ob_sent", "ob_dropped", "truncated_windows",
 })
 _UINT_LEAVES = frozenset({"trc_cursor"})
 
@@ -1103,7 +1158,8 @@ def trace_launch_args(
 
 
 def library_of(args: _Args) -> str:
-    """The library whose instantiations take these arguments: the wide
+    """The library whose instantiations take these arguments: the
+    partitioned one for a window of a partitioned run, else the wide
     code's for a model past one of the lean tables (with or without a
     traced source), else the trace
     one for a model with a traced source, else the one for
@@ -1111,6 +1167,8 @@ def library_of(args: _Args) -> str:
     a model with partitions or a quorum, else the resilience one for a
     model with a defense, else the telemetry one for a model with a spec,
     else the kernel without any of them."""
+    if args.prt.on:
+        return "event_step_partitioned"
     if args.wide.on:
         return "event_step_wide"
     if args.trc.on:
@@ -1128,21 +1186,109 @@ def launch(args: _Args, device) -> None:
     """Launch the kernel with ready arguments (:func:`launch_args`) on
     torch's current stream of ``device``, from :func:`library_of`'s
     library; raise on a launch error. Every launch, of one block or of
-    many, adds one to ``block_step.launches``, or for a traced model to
-    ``trace_steps.launches``."""
+    many, adds one to ``block_step.launches``, for a traced model to
+    ``trace_steps.launches``, for a window of a partitioned run to
+    ``window_steps.launches``."""
     lib = load_library()[library_of(args)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.hs_event_step(ctypes.byref(args), stream)
     if rc != 0:
         raise RuntimeError(f"event-step kernel launch failed: cudaError {rc}")
-    if args.trc.on:
+    if args.prt.on:
+        window_steps.launches += 1
+    elif args.trc.on:
         trace_steps.launches += 1
     else:
         block_step.launches += 1
 
 
+def plain_window_steps(compiled, state: dict, params: dict, limit, budget: int) -> None:
+    """The plain version of :func:`window_steps`: ``compiled``'s windowed
+    step (``make_step(windowed=True)``, which draws each event's row from
+    the lane's key and event count) up to ``budget`` times, each lane until
+    its next event lies past ``limit``, in place; then every lane whose
+    next event is still at or before ``limit`` adds one to
+    ``truncated_windows`` (JAX's budget-exhaustion test)."""
+    step = compiled.make_step(windowed=True)
+    bound = torch.tensor(np.float32(limit), device=state["t"].device)
+    for _ in range(int(budget)):
+        if not bool((torch.amin(compiled.next_candidates(state), dim=1) <= bound).any()):
+            break
+        step(state, params, limit)
+    pending = torch.amin(compiled.next_candidates(state), dim=1)
+    state["truncated_windows"] += (pending <= bound).to(torch.int32)
+
+
+def window_launch_args(
+    compiled, state: dict, keys: torch.Tensor, params: dict, limit, budget: int,
+    halted: torch.Tensor, draws=None,
+) -> _Args:
+    """The argument struct of one :func:`window_steps` launch: that of
+    :func:`launch_args` (one block; the draws keyed per event), with the
+    outbox leaves and ``truncated_windows`` checked and pointed at, the
+    window's end ``limit`` and the event ``budget``."""
+    if not getattr(compiled, "OB", 0):
+        raise ValueError("event-step kernel: a window launch needs a partitioned model")
+    device = state["t"].device
+    R = state["t"].shape[0]
+    args = launch_args(compiled, state, keys, 0, params, halted, draws)
+    shapes = {
+        "ob_arrival": (R, compiled.OB), "ob_created": (R, compiled.OB),
+        "ob_ingress": (R, compiled.OB),
+        "ob_len": (R,), "ob_sent": (R,), "ob_dropped": (R,), "truncated_windows": (R,),
+    }
+    for field, leaf in _PRT_FIELDS:
+        if leaf not in state:
+            raise ValueError(f"event-step kernel: {leaf} is missing")
+        _check(leaf, state[leaf], shapes[leaf], device)
+        setattr(args.prt, field, state[leaf].data_ptr())
+    if int(budget) < 1:
+        raise ValueError(f"event-step kernel: an event budget of {budget} a window")
+    args.prt.budget = int(budget)
+    args.prt.limit = float(np.float32(limit))
+    return args
+
+
+def window_steps(
+    compiled, state: dict, keys: torch.Tensor, params: dict, limit, budget: int,
+    prepared: dict | None = None,
+) -> None:
+    """One window of a partitioned run, in place: every lane runs up to
+    ``budget`` events while its next event lies at or before ``limit`` (a
+    sink still measures up to the model's horizon), each event's uniforms
+    drawn from ``fold_in(key, events)``, each delivery to a remote queued
+    in the lane's outbox; a lane whose budget ran out with an event still
+    due adds one to ``truncated_windows``. ``keys`` are the lanes' ``(R,
+    2)`` uint32 keys (the state's ``key``). CPU tensors run
+    :func:`plain_window_steps`; CUDA tensors make one launch of the
+    partitioned library on torch's current stream, after the checks of
+    :func:`window_launch_args`, and raise on any mismatch or launch
+    error. Nothing waits for the device.
+
+    ``prepared``, a dict the caller keeps for one ``state`` whose tensors
+    stay in place, holds the checked arguments from the first call on:
+    later calls on the same ``state`` change only the window's end."""
+    device = state["t"].device
+    if device.type == "cpu":
+        plain_window_steps(compiled, state, params, limit, budget)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"event-step kernel: unsupported device {device}")
+    if prepared is None or prepared.get("state") is not state:
+        halted = torch.empty((state["t"].shape[0],), dtype=torch.uint8, device=device)
+        args = window_launch_args(compiled, state, keys, params, limit, budget, halted)
+        if prepared is not None:
+            prepared.update(state=state, args=args, halted=halted)
+    else:
+        args = prepared["args"]
+        args.prt.limit = float(np.float32(limit))
+    launch(args, device)
+
+
 #: Kernel launches since the count was last set to 0 (the trace library's
-#: in ``trace_steps.launches``).
+#: in ``trace_steps.launches``, the partitioned library's in
+#: ``window_steps.launches``).
 block_step.launches = 0
 trace_steps.launches = 0
+window_steps.launches = 0

@@ -75,6 +75,10 @@ LEAN_MAX_TARGETS = 8
 LEAN_MAX_HOPS = 8
 LEAN_MAX_LIMITERS = 4
 LEAN_MAX_PARTITIONS = 8
+#: Remote egress nodes of a partitioned model: a table of their latencies
+#: and ingress servers in the argument struct (csrc/event_step.cuh's
+#: HS_MAX_REMOTES), of every code, the wide one included.
+KERNEL_MAX_REMOTES = 8
 #: Sinks per model: sink 0 adds to a lane's registers and the others to
 #: their (R, nK) leaves and (R, nK, 80) histogram rows in device memory,
 #: 1.3 GB of histogram at 65,536 replicas at this bound.

@@ -40,9 +40,10 @@ quorum (:meth:`EnsembleModel.quorum`) and leader election
 or synthesized arrival stream (:meth:`EnsembleModel.trace_arrivals`,
 :mod:`~happysim_tpu_torch.traces`). Any of them may carry windowed
 telemetry (``model.telemetry(window_s=...)``,
-:mod:`~happysim_tpu_torch.telemetry`). Remote egress nodes raise
-:class:`NotImplementedError` naming themselves and the ROADMAP item that
-ports them; the port has no second engine to fall back to.
+:mod:`~happysim_tpu_torch.telemetry`). Remote egress nodes
+(:meth:`EnsembleModel.remote`) send jobs to the neighbour partition of a
+partitioned run (:mod:`~happysim_tpu_torch.partitioned`); ``validate``
+refuses them elsewhere, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ SERVER = "server"
 SINK = "sink"
 ROUTER = "router"
 LIMITER = "limiter"
+REMOTE = "remote"
 
 ARRIVAL_KINDS = ("poisson", "constant")
 # Service-time families. Beyond M/M shapes, the M/G/1 set: Erlang-k
@@ -68,20 +70,6 @@ ARRIVAL_KINDS = ("poisson", "constant")
 SERVICE_KINDS = ("exponential", "constant", "erlang", "hyperexp", "lognormal", "pareto")
 ROUTER_POLICIES = ("random", "round_robin", "least_outstanding", "weighted")
 LATENCY_KINDS = ("constant", "exponential")
-
-# Builder features of the JAX package outside this port, each with the
-# ROADMAP item that ports it. Reaching one raises NotImplementedError.
-_UNPORTED = {
-    "remote": "remote egress nodes (ROADMAP A.14)",
-}
-
-
-def not_ported(feature: str) -> NotImplementedError:
-    """The error every out-of-slice feature raises."""
-    return NotImplementedError(
-        f"{feature} are not ported to happysim_tpu_torch yet"
-    )
-
 
 @dataclass(frozen=True)
 class NodeRef:
@@ -594,6 +582,17 @@ class RouterSpec:
 
 
 @dataclass
+class RemoteSpec:
+    """Cross-partition egress point (partitioned execution only): jobs
+    delivered here ride the outbox to the neighbour partition, arriving
+    at its ``ingress`` server after ``latency_s``. The conservative-window
+    contract requires ``latency_s >= window_s``."""
+
+    latency_s: float = 0.01
+    ingress: Optional[NodeRef] = None
+
+
+@dataclass
 class LimiterSpec:
     """Token bucket: ``refill_rate``/s up to ``capacity``; one token per
     job; jobs without a token are dropped (counted)."""
@@ -644,6 +643,7 @@ class EnsembleModel:
         self.routers: list[RouterSpec] = []
         self.limiters: list[LimiterSpec] = []
         self.sinks: list[SinkSpec] = []
+        self.remotes: list[RemoteSpec] = []
         self.correlated_faults: Optional[CorrelatedOutages] = None
         # Windowed telemetry (telemetry.py); None builds the state and the
         # kernel arguments of a model without it.
@@ -658,11 +658,6 @@ class EnsembleModel:
         self.network_partitions: list[NetworkPartitionSpec] = []
         self.quorum_spec: Optional[QuorumSpec] = None
         self.leader_election_spec: Optional[LeaderElectionSpec] = None
-
-    def __getattr__(self, name: str):
-        if name in _UNPORTED:
-            raise not_ported(_UNPORTED[name])
-        raise AttributeError(name)
 
     # -- builders ----------------------------------------------------------
     def source(
@@ -1046,6 +1041,17 @@ class EnsembleModel:
         self.leader_election_spec = spec
         return spec
 
+    def remote(self, ingress: NodeRef, latency_s: float) -> NodeRef:
+        """Cross-partition egress: jobs exit here and arrive at the
+        NEIGHBOR partition's ``ingress`` server after ``latency_s``
+        (partitioned execution only)."""
+        if ingress.kind != SERVER:
+            raise ValueError("remote ingress must be a server")
+        if latency_s <= 0:
+            raise ValueError("remote latency_s must be > 0 (window contract)")
+        self.remotes.append(RemoteSpec(latency_s=latency_s, ingress=ingress))
+        return NodeRef(REMOTE, len(self.remotes) - 1)
+
     # -- wiring ------------------------------------------------------------
     def connect(
         self,
@@ -1086,6 +1092,11 @@ class EnsembleModel:
                 "edges into a router must be latency- and loss-free; put "
                 "the latency/loss on the router's per-target edges instead"
             )
+        if downstream.kind == REMOTE and (latency_s > 0 or loss_p > 0):
+            raise ValueError(
+                "edges into a remote are latency- and loss-free; the remote "
+                "itself carries the cross-partition latency"
+            )
         edge = EdgeLatency(
             mean_s=latency_s,
             kind=latency_kind,
@@ -1109,17 +1120,31 @@ class EnsembleModel:
             # rejects router cycles.
             self.routers[origin.index].targets.append(downstream)
             self.routers[origin.index].target_latencies.append(edge)
+        elif origin.kind == REMOTE:
+            raise ValueError(
+                "a remote's destination is fixed: jobs arrive at its "
+                "ingress server on the neighbor partition"
+            )
         else:
             raise ValueError("Sinks have no downstream")
 
     # -- validation --------------------------------------------------------
-    def validate(self) -> None:
+    def validate(self, allow_remote: bool = False) -> None:
         """Check the model against JAX's validation rules for the model API
-        above (JAX's ``EnsembleModel.validate``)."""
+        above (JAX's ``EnsembleModel.validate``); remote egress nodes only
+        with ``allow_remote`` (a partitioned run)."""
         if not self.sources:
             raise ValueError("Model needs at least one source")
         if not self.sinks:
             raise ValueError("Model needs at least one sink")
+        if self.remotes and not allow_remote:
+            raise ValueError(
+                "model has remote() egress nodes — use run_partitioned, "
+                "not run_ensemble"
+            )
+        for i, remote in enumerate(self.remotes):
+            if remote.ingress is None or remote.ingress.kind != SERVER:
+                raise ValueError(f"remote[{i}] needs a server ingress")
         traced = [i for i, s in enumerate(self.sources) if s.trace is not None]
         if len(traced) > 1:
             raise ValueError(
@@ -1203,7 +1228,7 @@ class EnsembleModel:
             if limiter.downstream.kind == LIMITER:
                 raise ValueError(f"limiter[{i}] chains to a limiter")
         for i, router in enumerate(self.routers):
-            self._validate_router(i, router)
+            self._validate_router(i, router, allow_remote)
         self._validate_router_acyclic()
 
     def _validate_resilience(self) -> None:
@@ -1274,16 +1299,20 @@ class EnsembleModel:
             for v in group
         )
 
-    def _validate_router(self, i: int, router: RouterSpec) -> None:
+    def _validate_router(self, i: int, router: RouterSpec, allow_remote: bool = False) -> None:
         kinds = {t.kind for t in router.targets}
         if LIMITER in kinds:
             raise ValueError(
                 f"router[{i}] targets a limiter (route after, not into, admission)"
             )
-        # Server/sink sets (including "done or continue" mixes) and
-        # downstream routers (multi-tier DAGs); a router+sink mix races a
-        # zero-work exit against a routing tier and is rejected.
-        if not kinds <= {SERVER, SINK, ROUTER}:
+        if REMOTE in kinds and not allow_remote:
+            raise ValueError(f"router[{i}] targets a remote — partitioned mode only")
+        # Server/sink sets (including "done or continue" mixes),
+        # downstream routers (multi-tier DAGs) and (partitioned)
+        # sink+remote mixes, "stay local or hop to the neighbor"; a
+        # router+sink mix races a zero-work exit against a routing tier
+        # and is rejected.
+        if not (kinds <= {SERVER, SINK, ROUTER} or (allow_remote and kinds <= {SINK, REMOTE})):
             raise ValueError(
                 f"router[{i}] targets must be servers, sinks, and/or "
                 "downstream routers, or (partitioned) sinks+remotes"
@@ -1299,6 +1328,8 @@ class EnsembleModel:
                 f"router[{i}]: least_outstanding needs all-server "
                 "targets (sinks have no outstanding work)"
             )
+        if REMOTE in kinds and router.policy != "random":
+            raise ValueError(f"router[{i}]: remote targets require the 'random' policy")
         if router.policy == "least_outstanding" and kinds - {SERVER}:
             raise ValueError(
                 f"router[{i}]: least_outstanding requires server targets "

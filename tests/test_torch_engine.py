@@ -340,17 +340,24 @@ def _no_sink(mod, m):
     m.connect(server, router)
 
 
-@pytest.mark.parametrize(
-    "mutate, feature",
-    [
-        (lambda m: m.remote(), "remote egress nodes"),
-    ],
-)
-def test_out_of_slice_features_raise_naming_themselves(mutate, feature):
-    model = tmodel.mm1_model(8.0, 10.0, 5.0)
-    with pytest.raises(NotImplementedError, match=re.escape(feature)) as info:
-        mutate(model)
-    assert "ROADMAP A." in str(info.value)
+def test_remote_builds_a_remote_node_as_jax():
+    """remote(), which raised before the partitioned executor was ported,
+    builds JAX's REMOTE node and RemoteSpec, and run_ensemble refuses a
+    model holding one with JAX's message (it runs on run_partitioned)."""
+    models = {}
+    for mod in (jmodel, tmodel):
+        m = mod.mm1_model(8.0, 10.0, 5.0)
+        server = mod.NodeRef(mod.SERVER, 0)
+        refs = [m.remote(ingress=server, latency_s=0.05), m.remote(ingress=server, latency_s=0.1)]
+        models[mod] = (m, refs)
+    (jm, jrefs), (tm, trefs) = models[jmodel], models[tmodel]
+    assert [(r.kind, r.index) for r in trefs] == [(r.kind, r.index) for r in jrefs]
+    assert tmodel.REMOTE == jmodel.REMOTE == trefs[0].kind
+    assert repr(tm.remotes) == repr(jm.remotes)
+    with pytest.raises(ValueError, match="use run_partitioned"):
+        t_run(tm, n_replicas=2, device="cpu", max_events=64)
+    with pytest.raises(ValueError, match="use run_partitioned"):
+        j_run(jm, n_replicas=2, max_events=64)
 
 
 def test_trace_arrivals_is_ported():

@@ -7,8 +7,10 @@ opinion rounds against the CPU; the event-step kernel's trace branch
 against plain_trace_steps over whole traced runs, traced runs on the card
 against the CPU's, and a traced run resumed mid-chunk; the wide code (the
 models past the lean tables) against the plain step and its whole runs
-against chained launches; and run_ensemble and run_mm1_ensemble on 4
-shards of the card against 1.
+against chained launches; run_ensemble and run_mm1_ensemble on 4
+shards of the card against 1; and the partitioned executor's window
+kernel and barrier against their plain versions, window by window and
+over a whole ring run through run_partitioned.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
@@ -47,6 +49,7 @@ from happysim_tpu_torch.model import EnsembleModel, mm1_model, pipeline_model  #
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
 from test_torch_consensus_models import CONSENSUS_MODELS  # noqa: E402
 from test_torch_multisource_models import MULTI_MODELS, two_class  # noqa: E402
+from test_torch_partitioned_models import HOP_S, PARTITIONED_MODELS  # noqa: E402
 from test_torch_resilience_models import RESILIENCE_MODELS  # noqa: E402
 from test_torch_telemetry_models import TELEMETRY_MODELS  # noqa: E402
 from test_torch_trace_models import TRACE_MODELS  # noqa: E402
@@ -926,3 +929,73 @@ def test_run_mm1_ensemble_on_4_shards_of_the_card_equals_1(cuda):
     part = mm1_scan.mm1_scan(key, 4096, 8.0, 10.0, 512, 128, 1024, 1024)
     for a, b in zip(whole, part):
         assert torch.equal(a[1024:2048], b)
+
+
+# -- the partitioned executor ------------------------------------------------
+def _partitioned(name: str, P: int, R: int, horizon_s: float, device):
+    from happysim_tpu_torch import partitioned
+
+    model = PARTITIONED_MODELS[name](tmodel, horizon_s)
+    compiled = partitioned._PartitionCompiled(model, 8)
+    state, params = partitioned.init_partitions(compiled, 0, P, R, 3, device)
+    return compiled, state, params, partitioned.default_max_events_per_window(model, HOP_S)
+
+
+def _same_bits(a: dict, b: dict, context: str) -> None:
+    for leaf in sorted(b):
+        x, y = a[leaf], b[leaf]
+        if y.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), f"{context}: {leaf}"
+
+
+@pytest.mark.parametrize("name", sorted(PARTITIONED_MODELS))
+def test_partitioned_windows_match_plain_bit_for_bit(cuda, name):
+    """4 partitions of 256 replicas, 12 windows: each window launch and
+    each barrier launch against plain_window_steps and plain_barrier on a
+    copy, every leaf bit for bit; a budget of 2 events in every third
+    window truncates some."""
+    from happysim_tpu_torch import partitioned
+    from happysim_tpu_torch.kernels import partition_barrier
+
+    compiled, state, params, budget = _partitioned(name, 4, 256, 2.0, cuda)
+    plain = {k: v.clone() for k, v in state.items()}
+    for w in range(12):
+        limit = partitioned.window_end(w, HOP_S)
+        step_budget = 2 if w % 3 == 2 else budget
+        event_step.window_steps(compiled, state, state["key"], params, limit, step_budget)
+        event_step.plain_window_steps(compiled, plain, params, limit, step_budget)
+        torch.cuda.synchronize()
+        _same_bits(state, plain, f"{name} window {w}")
+        partition_barrier.barrier(compiled, state, 4, limit)
+        partition_barrier.plain_barrier(compiled, plain, 4, limit)
+        torch.cuda.synchronize()
+        _same_bits(state, plain, f"{name} barrier {w}")
+    assert int(plain["ob_sent"].sum()) > 0 and int(plain["truncated_windows"].sum()) > 0
+
+
+@pytest.mark.parametrize("name", ["ring", "two-sink-ring"])
+def test_partitioned_run_on_the_card_matches_the_plain_loop(cuda, name):
+    """run_partitioned on 4 partitions of the card (one window launch and
+    one barrier launch a window) against the plain versions' window loop
+    on the card, bit for bit on every total and mean."""
+    from happysim_tpu_torch import partition_mesh, partitioned, run_partitioned
+    from happysim_tpu_torch.kernels import partition_barrier
+
+    compiled, state, params, budget = _partitioned(name, 4, 64, 1.5, cuda)
+    n_windows = int(np.ceil(1.5 / HOP_S))
+    for w in range(n_windows):
+        limit = partitioned.window_end(w, HOP_S)
+        event_step.plain_window_steps(compiled, state, params, limit, budget)
+        partition_barrier.plain_barrier(compiled, state, 4, limit)
+    host = {k: v.cpu().numpy().reshape((4, 64) + tuple(v.shape[1:])) for k, v in state.items()}
+    event_step.window_steps.launches = partition_barrier.barrier.launches = 0
+    got = run_partitioned(PARTITIONED_MODELS[name](tmodel, 1.5), window_s=HOP_S, n_replicas=64,
+                          seed=3, outbox_capacity=8, mesh=partition_mesh([cuda] * 4))
+    assert (event_step.window_steps.launches, partition_barrier.barrier.launches) == (n_windows,) * 2
+    want = partitioned.partitioned_result(compiled.model, compiled, host, 4, 64, n_windows, HOP_S,
+                               got.wall_seconds, budget)
+    for field in ("simulated_events", "sink_count", "sink_mean_latency_s", "server_completed",
+                  "remote_sent", "remote_dropped", "transit_dropped", "truncated_windows"):
+        assert getattr(got, field) == getattr(want, field), field
+    np.testing.assert_array_equal(got.per_partition_sink_count, want.per_partition_sink_count)

@@ -27,15 +27,17 @@ import happysim_tpu_torch.kernels.event_step, happysim_tpu_torch.kernels.support
 import happysim_tpu_torch.chain, happysim_tpu_torch.kernels.uniform
 import happysim_tpu_torch.mm1, happysim_tpu_torch.opinion, happysim_tpu_torch.kernels.mm1_scan
 import happysim_tpu_torch.traces, happysim_tpu_torch.mesh, happysim_tpu_torch.reduce
+import happysim_tpu_torch.partitioned, happysim_tpu_torch.kernels.partition_barrier
 import chip_smoke
 from happysim_tpu_torch.kernels import build
 # One library per source, the resilience, consensus, several-source,
-# trace and wide ones, the draw kernel and the M/M/1 scan included, each
-# source present.
+# trace, wide and partitioned ones, the draw kernel, the M/M/1 scan and
+# the partitioned executor's barrier included, each source present.
 stems = [p.stem for p in build.SOURCES]
 assert stems == [
     "event_step", "event_step_telemetry", "event_step_resilience", "event_step_consensus",
-    "event_step_multi", "event_step_trace", "event_step_wide", "uniform", "mm1_scan",
+    "event_step_multi", "event_step_trace", "event_step_wide", "event_step_partitioned",
+    "uniform", "mm1_scan", "partition_barrier",
 ], stems
 assert all(p.exists() for p in build.SOURCES + build.HEADERS)
 bad = sorted(

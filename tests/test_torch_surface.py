@@ -1,8 +1,7 @@
 """The port's public surface against the JAX package's: ``__all__`` holds
 every name of JAX's ``happysim_tpu.tpu.__all__`` but those left out by
-design (XLA and Pallas switches, the Pallas dispatch) and those of the
-partitioned module (ROADMAP A.14) still to port, the mesh's (A.13)
-included; and the
+design (XLA and Pallas switches, the Pallas dispatch), the mesh's (A.13)
+and the partitioned module's (A.14) included; and the
 result's ``kernel_decline``, the model's ``kernel_supported()`` and the
 result's ``summary()``, which says why it is not in the port.
 """
@@ -20,7 +19,7 @@ from happysim_tpu_torch.kernels import support  # noqa: E402
 
 # XLA and Pallas switches, and the Pallas dispatch (it takes a JAX mesh).
 LEFT_OUT = {"KERNEL_ENV", "pallas_available", "maybe_enable_compile_cache", "kernel_decision"}
-# mesh.py (ROADMAP A.13), ported, and partitioned.py (A.14), not yet.
+# mesh.py (ROADMAP A.13) and partitioned.py (A.14), ported.
 MESH_NAMES = {
     "STATE_PARTITION_RULES", "ensemble_state_shardings", "ensemble_state_specs",
     "match_partition_rules", "HOST_AXIS", "REPLICA_AXIS", "distributed_initialize",
@@ -34,13 +33,14 @@ PARTITIONED_NAMES = {
 
 
 def test_all_holds_every_ported_name_of_jax():
-    missing = set(jtpu.__all__) - LEFT_OUT - PARTITIONED_NAMES - set(port.__all__)
+    missing = set(jtpu.__all__) - LEFT_OUT - set(port.__all__)
     assert not missing, sorted(missing)
     assert MESH_NAMES <= set(port.__all__)
-    assert not (set(port.__all__) & (LEFT_OUT | PARTITIONED_NAMES))
+    assert PARTITIONED_NAMES <= set(port.__all__)
+    assert not (set(port.__all__) & LEFT_OUT)
     for name in port.__all__:
         assert getattr(port, name) is not None, name
-    # The left-out and unported names are all JAX's.
+    # The left-out and the mesh's and partitioned module's names are all JAX's.
     assert (LEFT_OUT | MESH_NAMES | PARTITIONED_NAMES) <= set(jtpu.__all__)
 
 

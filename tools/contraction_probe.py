@@ -2,7 +2,8 @@
 """Where the port's plain event step and the compiled JAX step round an
 event time differently, model by model, on the CPU:
 
-    JAX_PLATFORMS=cpu python3 tools/contraction_probe.py [model ...]
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=2 \
+        python3 tools/contraction_probe.py [model ...]
 
 For each model (default: every model below), 1,024 replicas start from
 JAX's initial state; then, 60 times, both packages take one event step
@@ -14,6 +15,14 @@ is one where the two steps round a float differently (XLA contracts
 each such sum once where ``engine._fused`` says so), or where another
 float32 function (``log1p``, ``exp``, ``pow``, ``log`` of a product)
 differs. Prints the count of differing entries per leaf and model.
+
+``partitioned-barrier`` probes the partitioned executor's window barrier
+instead: JAX's ``run_partitioned`` resumes a two-partition ring from a
+snapshot whose lanes hold random queue lengths, depth integrals and
+clocks and no event, so its last window is the barrier alone, and the
+port's ``plain_barrier`` runs the same barrier with the close-out
+``depth + q_len * gap`` rounded once (as ``engine._fused`` rounds it) and
+rounded twice; prints how many depth integrals each way differs from JAX.
 """
 
 from __future__ import annotations
@@ -78,10 +87,54 @@ def probe(name: str) -> dict:
     return differ
 
 
+def probe_barrier() -> dict:
+    """Depth integrals where the port's barrier differs from JAX's, with
+    the close-out rounded once and rounded twice."""
+    from happysim_tpu.tpu import partitioned as jpart
+    from happysim_tpu_torch import partitioned as tpart
+    from happysim_tpu_torch.kernels import partition_barrier
+    from test_torch_partitioned_models import HOP_S, ring
+
+    P, R = 2, 4096
+    kw = dict(window_s=HOP_S, n_replicas=R, seed=1, checkpoint_every_windows=1)
+    mesh = jpart.partition_mesh(jax.devices("cpu")[:P])
+    snaps: list = []
+    jpart.run_partitioned(ring(jmodel, 2 * HOP_S), mesh=mesh, checkpoint_callback=snaps.append, **kw)
+    state = {k: v.copy() for k, v in snaps[0].state.items()}
+    draws = np.random.default_rng(0)
+    for leaf in ("src_next", "srv_slot_done", "tr_time"):
+        state[leaf][:] = np.inf
+    state["srv_q_len"][:] = draws.integers(0, 200, state["srv_q_len"].shape)
+    state["srv_depth_int"][:] = draws.uniform(0, 50, state["srv_depth_int"].shape).astype(np.float32)
+    state["t"][:] = draws.uniform(0.0, 2 * HOP_S, state["t"].shape).astype(np.float32)
+    n_windows = int(np.ceil(3 * HOP_S / HOP_S))
+    start = jpart.PartitionedCheckpoint(window_index=1, n_windows=n_windows, n_partitions=P,
+                                        n_replicas=R, seed=1, state=state)
+    out: list = []
+    jpart.run_partitioned(ring(jmodel, 3 * HOP_S), mesh=mesh, resume_from=start,
+                          checkpoint_callback=out.append, **kw)
+    want = out[0].state["srv_depth_int"]  # after window 1's barrier
+    compiled = tpart._PartitionCompiled(ring(tmodel, 3 * HOP_S), 128)
+    counts = {}
+    fused = partition_barrier._fused
+    for name, close in (("rounded once", fused), ("rounded twice", lambda b, t: b + t[0] * t[1])):
+        flat = {k: torch.from_numpy(v.reshape((P * R,) + v.shape[2:]).copy()) for k, v in state.items()}
+        partition_barrier._fused = close
+        try:
+            partition_barrier.plain_barrier(compiled, flat, P, tpart.window_end(1, HOP_S))
+        finally:
+            partition_barrier._fused = fused
+        got = flat["srv_depth_int"].numpy().reshape(want.shape)
+        counts[name] = int((got.view(np.int32) != want.view(np.int32)).sum())
+    counts["entries"] = int(want.size)
+    return counts
+
+
 def main() -> None:
     jax.config.update("jax_platforms", "cpu")
-    for name in sys.argv[1:] or list(MODELS):
-        print(f"{name}: {probe(name)}", flush=True)
+    for name in sys.argv[1:] or list(MODELS) + ["partitioned-barrier"]:
+        result = probe_barrier() if name == "partitioned-barrier" else probe(name)
+        print(f"{name}: {result}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,18 +1,17 @@
 #!/usr/bin/env python3
-"""The newest phases of chip_smoke.py alone, for a quick check of a change
-to the wide code or the replica mesh:
+"""The newest phase of chip_smoke.py alone, for a quick check of a change
+to the partitioned executor:
 
     python3 tools/smoke_slice.py      # on a machine with one NVIDIA GPU
 
 Builds the libraries and prints each instantiation's registers and spills,
 then runs chip_smoke's block checks (kernel against plain version, bit for
 bit, at 65,536 replicas) on one model of each earlier instantiation, and
-chip_smoke's wide phase (the five wide models: block checks, a whole run
-in one launch against chained launches, the run through run_ensemble and
-its gate, the wide code's time a block) and mesh phase (meshes of cuda:0
-repeated 1 and 4 times: _multichip_measure's workload, the M/M/1 ensemble,
-checkpoints resumed across shard counts and the flash crowd, each pair the
-same bits). Any failure raises.
+chip_smoke's partitioned phase (the window kernel and the barrier against
+their plain versions window by window and over whole runs on three
+models, a checkpointed ring run, the ring at 65,536 lanes through
+run_partitioned with its gates, and each kernel's time a window). Any
+failure raises.
 """
 
 import sys
@@ -33,6 +32,10 @@ def main() -> int:
     for stem, (_path, log) in built.items():
         for kernel, info in c.ptxas_summary(log).items():
             print(f"  ptxas {stem} {kernel}: {info}")
+        if stem == "partition_barrier":
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {stem}: {line.strip()}")
     event_step.load_library()
     start = time.perf_counter()
     for name, model, blocks, sweeps in (
@@ -43,11 +46,11 @@ def main() -> int:
         ("resilience-fanout", c.resilience_fanout_model(), [0, 1, 2, 3], None),
         ("two-class", c.two_class_model(), [0, 1, 2, 3], None),
         ("quorum-defended", c.quorum_model(True), [0, 1, 2, 3, 16], None),
+        ("wide-fleet", c.wide_fleet_model(), [0, 1], None),
     ):
         c.check_blocks(name, model, blocks, sweeps)
     print(f"block checks {time.perf_counter() - start:.1f} s", flush=True)
-    c.wide_phase(tag)
-    c.mesh_phase(tag)
+    c.partitioned_phase(tag)
     print("slice ok")
     return 0
 
