@@ -10,8 +10,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    checkout's sources, one nvcc per source (the event-step kernel without
    telemetry or resilience, its telemetry instantiations, its resilience
    instantiations, its consensus instantiations, its instantiations for
-   several sources or sinks, its trace-driven instantiations, its wide
-   code, the draw kernel and the M/M/1 Lindley kernel) started together,
+   several sources or sinks with chaos and without, its trace-driven
+   instantiations, its wide code, its partitioned instantiations, the draw
+   kernel, the M/M/1 Lindley kernel and the window barrier) started together,
    with ptxas' register and spill report;
    then the draw kernel (csrc/uniform.cu) against rng.uniform, bit for
    bit, on the M/M/1 chain form's gap block (65,536 x 1,514 uniforms),
@@ -100,7 +101,10 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      256 -> sink 0; source 1 a constant 4/s batch job over a 5 ms edge ->
      server 4, mu=8, queue 64 -> sink 1; server 5 wired to sink 1 and fed
      by nothing), horizon 160 s, warmup 40 s, blocks 0-3 and 100, and
-     with telemetry (64 windows of 2.5 s);
+     with telemetry (64 windows of 2.5 s), both on the chaos-free code for
+     several sources or sinks, and two-class-chaos, its chaos arm (1% loss
+     on the batch edge, a 0.5 s deadline with one immediate retry on
+     server 4) on the chaos code, both codes in csrc/event_step_multi.cu;
    - superpose: two Poisson sources at 5/s and 3/s into one server (mu=10,
      queue 512) -> one sink, horizon 160 s, warmup 40 s, blocks 0-3 and
      80, and superpose-tie: the same with two constant sources at 4/s
@@ -244,6 +248,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      windowed counts of both sinks sum exactly to their whole-run counts,
      sink 0's throughput is 30/s a replica within 1%, and the run with
      telemetry equals the run without on every whole-run number;
+   - two-class-chaos: the batch edge's losses within 5% of 1% of the
+     batch jobs sent, timeouts and retries at server 4, and sink 0's
+     throughput still 30/s a replica within 1%;
    - quorum-undefended and quorum-defended (their max_events 1,024): the
      quorum is dark for exactly the cut, quorum_dark_fraction within 1e-6
      of 2/12, partition drops and quorum rejections booked, and the
@@ -307,7 +314,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    servers, a write quorum of 5, one partition group a server cut over
    [1 + i, 2 + i)), and wide-draws (the 17-draw hedged erlang-3 fleet, on
    the lean chaos code now that no draw count bounds the kernel), each
-   launching the library its tables pick: block checks (blocks 0-3 and a
+   launching the library its tables pick (the wide code's chaos-free
+   instantiation for the fleet, the chain and the tenants, its chaos
+   code for the quorum): block checks (blocks 0-3 and a
    third of the budget), the whole run in one launch against chained
    one-block launches, and run_ensemble with the port's default budget
    named; the fleet's pooled mean wait within 1% of a numpy Lindley
@@ -315,7 +324,8 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    chain stage's within 1% of the chain form's run of the same model,
    each tenant server's utilization within 1% of 0.65, the quorum's dark
    fraction within rel 1e-6 of the CPU's init sweep, hedges and losses in
-   the 17-draw run; the wide code's time a block on the fleet;
+   the 17-draw run; the chaos-free wide code's time a block on the fleet
+   and the chaos code's on the quorum;
 11. the replica mesh: meshes of cuda:0 repeated 1 and 4 times at full
    width, one launch a shard: bench.py's _multichip_measure workload (a
    faulted, telemetered rho-sweep M/M/1, mu = 10, queue 256, deadline 8
@@ -338,7 +348,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    lambda 5, mu 20, queue 256, a random router over the sink and a remote
    of 50 ms), a chaos ring (a brownout, a deadline with backoff retries)
    and a two-tenant ring (the code for several sources and sinks), each
-   whole run's totals also through run_partitioned; a ring run at 8 x
+   whole run's totals also through run_partitioned, and the window checks
+   alone on a ring of nine remote egress nodes (past the lean code's table
+   of eight: the wide code's remote tables); a ring run at 8 x
    8,192 lanes snapshotted every 75 windows, equal to the uninterrupted
    run, and resumed from an npz; the ring at 8 x 8,192 lanes over 30 s
    (600 windows, outboxes of 128) through run_partitioned with both launch
@@ -357,9 +369,11 @@ from one model: mm1, chain, fanout (the router shape), graph, the
 lognormal M/G/1 (the family sampler), the profile graph (the profile
 tables), the chaos model (the chaos branches) and the telemetry model
 (the window buffers), bench_resilience's defended arm (the defenses),
-the two-tenant service (several sources and sinks), the defended
+the two-tenant service (several sources and sinks without chaos:
+multi-lean) and its chaos arm (with chaos: multi), the defended
 quorum arm (the consensus tier), the flash crowd (the trace branch),
-the wide fleet (the wide code) and the partitioned ring (the partitioned
+the wide fleet (the chaos-free wide code: wide-lean), the wide quorum
+(the wide chaos code: wide) and the partitioned ring (the partitioned
 instantiation, its launches the run's windows, its time a window),
 the models the main path runs, its ms the time per block of a 20-block
 launch and its bound that of the same blocks, its launches those of the
@@ -503,8 +517,8 @@ PROFILE_MAX_EVENTS = int(4.0 * PEAK_RATE * BENCH_HORIZON_S) + 64
 ARRIVALS_HORIZON_S = 30.0
 # Kernels-line entries whose main-path run has another name.
 RUN_OF_ENTRY = {
-    "families": "mg1-lognormal", "resilience": "resilience-defended", "multi": "two-class",
-    "consensus": "quorum-defended",
+    "families": "mg1-lognormal", "resilience": "resilience-defended", "multi": "two-class-chaos",
+    "multi-lean": "two-class", "consensus": "quorum-defended",
 }
 # bench.py's bench_kernel_chaos: servers, their mu, its budget.
 CHAOS_SERVERS, CHAOS_MU = 4, 10.0
@@ -537,6 +551,8 @@ CASCADE_MAX_EVENTS = 2048
 # The two-tenant service: the web tenant's rate over its 4 servers, the
 # batch job's constant rate, its 5 ms edge, and the telemetry windows.
 WEB_RATE, BATCH_RATE, BATCH_EDGE_S, TWO_CLASS_WINDOW_S = 30.0, 4.0, 0.005, 2.5
+# Its chaos arm: the batch server's deadline and the batch edge's loss.
+TWO_CLASS_DEADLINE_S, TWO_CLASS_LOSS_P = 0.5, 0.01
 # tests/integration/test_tpu_consensus.py's scenarios: the quorum's
 # horizon, its cut over [4, 6) and budget; the election's flapping cuts,
 # timeout, heartbeat and budget.
@@ -1062,25 +1078,29 @@ def superpose_model(kind: str = "poisson", rates=(5.0, 3.0)) -> EnsembleModel:
     return model
 
 
-def two_class_model(window_s=None) -> EnsembleModel:
+def two_class_model(window_s=None, chaos: bool = False) -> EnsembleModel:
     """A two-tenant service, horizon 160 s, warmup 40 s: source 0 (Poisson
     30/s) -> least_outstanding over servers 0-3 (mu = 10, queue 256) ->
     sink 0; source 1 (a constant 4/s batch job) over a 5 ms constant edge
     -> server 4 (mu = 8, queue 64) -> sink 1; server 5, wired to sink 1,
-    fed by nothing."""
+    fed by nothing. ``chaos``: the batch edge loses 1% of its jobs and
+    server 4 times a job out after 0.5 s and retries it once at its
+    queue's tail (the code for several sources or sinks with chaos)."""
     model = EnsembleModel(horizon_s=HORIZON_S, warmup_s=WARMUP_S, macro_block=MACRO)
     web = model.source(rate=WEB_RATE)
     batch = model.source(rate=BATCH_RATE, kind="constant")
     router = model.router(policy="least_outstanding")
     front = [model.server(service_mean=0.1, queue_capacity=256) for _ in range(N_FANOUT)]
-    back = model.server(service_mean=0.125, queue_capacity=64)
+    retry = dict(deadline_s=TWO_CLASS_DEADLINE_S, max_retries=1) if chaos else {}
+    back = model.server(service_mean=0.125, queue_capacity=64, **retry)
     spare = model.server(service_mean=0.125, queue_capacity=64)
     web_sink, batch_sink = model.sink(), model.sink()
     model.connect(web, router)
     for server in front:
         model.connect(router, server)
         model.connect(server, web_sink)
-    model.connect(batch, back, latency_s=BATCH_EDGE_S)
+    loss = dict(loss_p=TWO_CLASS_LOSS_P) if chaos else {}
+    model.connect(batch, back, latency_s=BATCH_EDGE_S, **loss)
     model.connect(back, batch_sink)
     model.connect(spare, batch_sink)
     if window_s is not None:
@@ -1654,12 +1674,15 @@ def check_uniform(tag: str) -> dict:
 RUN_KERNEL_MS: dict = {}
 
 
-def print_shares(tag: str) -> dict:
-    """Each scan run's kernel share of its wall time, from the device time
-    of its one launch, and the host's time: the rest of the wall (set-up,
-    the launch's checks, the reduce), in all and per block."""
+def print_shares(tag: str, runs=None) -> dict:
+    """Each scan run's kernel share of its wall time (of ``runs``' labels
+    where given), from the device time of its one launch, and the host's
+    time: the rest of the wall (set-up, the launch's checks, the reduce),
+    in all and per block."""
     shares = {}
     for run, (kernel_ms, result, launches) in RUN_KERNEL_MS.items():
+        if runs is not None and run not in runs:
+            continue
         wall_ms = result.wall_seconds * 1e3
         blocks = max(result.block_occupancy)
         host_ms = wall_ms - kernel_ms
@@ -2020,6 +2043,19 @@ def multi_main_path(tag: str) -> dict:
     within(plain.sink_count[0] / (REPLICAS * (HORIZON_S - WARMUP_S)), WEB_RATE,
            "two-class sink 0 throughput per replica", 0.01, unit=" /s")
     same_simulation("two-class-telemetry", result, plain)
+    # The chaos arm (the code for several sources or sinks with chaos):
+    # the web tenant is untouched, so its throughput holds; the batch edge
+    # loses about 1% of the batch job's jobs, and its server times jobs out.
+    result, launches = main_path_run("two-class-chaos", two_class_model(chaos=True), tag, "multi")
+    runs["two-class-chaos"] = (result, launches)
+    lost = result.network_lost / (REPLICAS * BATCH_RATE * HORIZON_S)
+    print(f"  two-class-chaos: {result.network_lost} batch jobs lost ({lost:.5f} of those sent), "
+          f"server 4 timed out {result.server_timed_out[4]} and retried {result.server_retried[4]}")
+    require(abs(lost - TWO_CLASS_LOSS_P) <= 0.05 * TWO_CLASS_LOSS_P, "two-class-chaos: loss share")
+    require(result.server_timed_out[4] > 0 and result.server_retried[4] > 0,
+            "two-class-chaos: no timeout or retry")
+    within(result.sink_count[0] / (REPLICAS * (HORIZON_S - WARMUP_S)), WEB_RATE,
+           "two-class-chaos sink 0 throughput per replica", 0.01, unit=" /s")
     return runs
 
 
@@ -2833,8 +2869,11 @@ def wide_phase(tag: str) -> dict:
         halted = torch.empty((REPLICAS,), dtype=torch.uint8, device="cuda")
         args = event_step.launch_args(compiled, state_args[3], state_args[1], 0, state_args[2], halted)
         got = event_step.library_of(args)
+        chaos = bool(args.chaos or args.res.on or args.con.on)
+        code = ("the chaos code" if chaos else "the chaos-free code") + (
+            " with telemetry" if args.tel.nW else "")
         print(f"  {name}: {support.wide_reasons(compiled) or 'no lean table'}, "
-              f"{compiled.n_draws} draws a step, library {got}")
+              f"{compiled.n_draws} draws a step, library {got}, {code}")
         require(got == library, f"{name}: library {got}, expected {library}")
         n = -(-_default_max_events(model, None) // compiled.macro)
         out["max_abs_err"] = max(out["max_abs_err"], check_blocks(name, model, [0, 1, 2, 3, n // 3]))
@@ -2880,15 +2919,19 @@ def wide_phase(tag: str) -> dict:
             "wide-quorum dark fraction")
     draws = runs["wide-draws"][0]
     require(sum(draws.server_hedged) > 0 and draws.network_lost > 0, "wide-draws: no hedge or loss")
-    out["timing"] = time_blocks(models["wide-fleet"][0], "wide-fleet")
-    t = out["timing"]
-    w = out["whole"]["wide-fleet"]
-    print(
-        f"timing wide (wide-fleet): kernel {t['kernel_ms']:.4f} ms/block in a {TIMED_BLOCKS}-block "
-        f"launch, {100 * t['bound_ms'] / t['kernel_ms']:.2f}% of its bound {t['bound_ms']:.4f} "
-        f"ms/block ({t['bound_by']}); the whole run {w['run_ms']:.3f} ms for {w['blocks']} blocks "
-        f"(bound {w['bound_ms']:.4f} ms); plain {t['plain_ms']:.3f} ms/block {tag}"
-    )
+    # The chaos-free wide code on the fleet, the chaos code (with the
+    # telemetry and consensus sites) on the quorum.
+    out["timing"] = {}
+    for variant, name in (("wide-lean", "wide-fleet"), ("wide", "wide-quorum")):
+        t = out["timing"][name] = time_blocks(models[name][0], name)
+        w = out["whole"][name]
+        print(
+            f"timing {variant} ({name}): kernel {t['kernel_ms']:.4f} ms/block in a "
+            f"{TIMED_BLOCKS}-block launch, {100 * t['bound_ms'] / t['kernel_ms']:.2f}% of its bound "
+            f"{t['bound_ms']:.4f} ms/block ({t['bound_by']}); the whole run {w['run_ms']:.3f} ms for "
+            f"{w['blocks']} blocks (bound {w['bound_ms']:.4f} ms); plain {t['plain_ms']:.3f} "
+            f"ms/block {tag}"
+        )
     out["seconds"] = time.perf_counter() - t0
     print(f"wide phase: {out['seconds']:.1f} s {tag}")
     return out
@@ -3105,6 +3148,27 @@ def partitioned_two_sink_model(horizon_s: float = PART_HORIZON_S) -> EnsembleMod
     return m
 
 
+def partitioned_nine_remote_model(horizon_s: float = PART_HORIZON_S) -> EnsembleModel:
+    """Nine remote egress nodes, past the lean code's table of eight (the
+    wide code's device tables hold them): a Poisson 6/s source -> server
+    0; server i (mu = 20, queue 128) -> a random router over [the sink,
+    three remotes into the neighbour's servers 0, 1 and 2], the remotes'
+    latencies the hop plus 5 ms a remote."""
+    m = EnsembleModel(horizon_s=horizon_s)
+    src = m.source(rate=6.0)
+    servers = [m.server(service_mean=1.0 / PART_MU, queue_capacity=128) for _ in range(3)]
+    snk = m.sink()
+    m.connect(src, servers[0])
+    for i, srv in enumerate(servers):
+        router = m.router(policy="random")
+        m.connect(srv, router)
+        m.connect(router, snk)
+        for j in range(3):
+            rm = 3 * i + j
+            m.connect(router, m.remote(ingress=servers[j], latency_s=PART_HOP_S + 0.005 * rm))
+    return m
+
+
 def card_partitions(partitions: int = PART_P):
     """``partitions`` partitions of cuda:0."""
     return partition_mesh(["cuda:0"] * partitions)
@@ -3308,7 +3372,7 @@ def partitioned_phase(tag: str) -> dict:
         "chaos-ring": partitioned_chaos_model,
         "two-sink-ring": partitioned_two_sink_model,
     }
-    for name, build_model in models.items():
+    for name, build_model in {**models, "nine-remote-ring": partitioned_nine_remote_model}.items():
         model = build_model()
         compiled = _PartitionCompiled(model, PART_OUTBOX)
         state, params = init_partitions(compiled, 0, 1, 64, 0, "cuda")
@@ -3316,8 +3380,11 @@ def partitioned_phase(tag: str) -> dict:
         args = event_step.window_launch_args(compiled, state, state["key"], params,
                                              window_end(0, PART_HOP_S), 8, halted)
         require(event_step.library_of(args) == "event_step_partitioned", f"{name}: library")
+        # More than the lean table's 8 remotes run the wide code.
+        require(bool(args.wide.on) == (name == "nine-remote-ring"), f"{name}: wide {args.wide.on}")
         out["max_abs_err"][name] = check_windows(name, model)
-        out["whole_max_abs_err"][name] = check_partitioned_run(name, build_model(PART_RUN_HORIZON_S))
+        if name in models:
+            out["whole_max_abs_err"][name] = check_partitioned_run(name, build_model(PART_RUN_HORIZON_S))
 
     # A checkpointed ring run at the main path's 8 x 8,192 lanes over the
     # full horizon: a snapshot every 75 windows, equal to the uninterrupted
@@ -3505,13 +3572,17 @@ def main() -> int:
             "breaker-trip-on-first", breaker_corner_model(), [0, 1, 2, 3]
         ),
     })
-    # Several sources and sinks, on the line and graph codes: the
-    # two-tenant service on the main path, the superposed pair (Poisson,
-    # and constant at one rate: the tie), the tenants with telemetry; the
-    # consensus instantiations: the defended quorum arm on the main path
-    # (blocks 16 and 20 lie in and after its cut), the undefended arm, the
-    # election storm and stochastic cuts drawn on the salted stream.
-    max_abs["multi"] = check_blocks("two-class", two_class_model(), [0, 1, 2, 3, 100])
+    # Several sources and sinks: the two-tenant service on the main path,
+    # the superposed pair (Poisson, and constant at one rate: the tie) and
+    # the tenants with telemetry on the chaos-free code, the tenants with
+    # chaos on the chaos code (both in event_step_multi.cu); the consensus
+    # instantiations: the defended quorum arm on the main path (blocks 16
+    # and 20 lie in and after its cut), the undefended arm, the election
+    # storm and stochastic cuts drawn on the salted stream.
+    max_abs["multi-lean"] = check_blocks("two-class", two_class_model(), [0, 1, 2, 3, 100])
+    max_abs["multi"] = check_blocks(
+        "two-class-chaos", two_class_model(chaos=True), [0, 1, 2, 3, 100]
+    )
     max_abs["consensus"] = check_blocks("quorum-defended", quorum_model(True), [0, 1, 2, 3, 16, 20])
     extra_abs.update({
         "superpose": check_blocks("superpose", superpose_model(), [0, 1, 2, 3, 80]),
@@ -3562,7 +3633,8 @@ def main() -> int:
             router_model("random", HORIZON_S, WARMUP_S, transit_capacity=64),
             global_rows=True,
         ),
-        "multi": check_whole_run("two-class", two_class_model()),
+        "multi-lean": check_whole_run("two-class", two_class_model()),
+        "multi": check_whole_run("two-class-chaos", two_class_model(chaos=True)),
         "consensus": check_whole_run(
             "quorum-defended", quorum_model(True), max_events=QUORUM_MAX_EVENTS
         ),
@@ -3588,7 +3660,8 @@ def main() -> int:
         "resilience-inert": time_blocks(
             inert_defenses(resilience_bench_model(False)), "resilience inert", RES_SWEEPS
         ),
-        "multi": time_blocks(two_class_model(), "two-class"),
+        "multi-lean": time_blocks(two_class_model(), "two-class"),
+        "multi": time_blocks(two_class_model(chaos=True), "two-class-chaos"),
         "consensus": time_blocks(quorum_model(True), "quorum-defended"),
     }
     for shape, t in timings.items():
@@ -3722,6 +3795,7 @@ def main() -> int:
     # The wide code's models, then the replica mesh, each run driven with
     # its launch count set to 0 just before (main_path_run, mesh_phase).
     wide = wide_phase(tag)
+    shares.update(print_shares(tag, wide["runs"]))
     meshes = mesh_phase(tag)
     # The partitioned executor, its run driven with both launch counts set
     # to 0 just before (partitioned_phase).
@@ -3746,7 +3820,7 @@ def main() -> int:
             }
             for shape in (
                 "mm1", "chain", "router", "graph", "families", "profile", "chaos", "telemetry",
-                "resilience", "multi", "consensus",
+                "resilience", "multi-lean", "multi", "consensus",
             )
         ] + [
             {
@@ -3762,19 +3836,22 @@ def main() -> int:
                 "bound_by": traces["timing"]["flash"]["bound_by"],
                 "library_ms": None,
             },
+        ] + [
             {
-                "name": "event_step[wide]",
+                "name": f"event_step[{variant}]",
                 "route": "cuda",
                 "source": "happysim_tpu_torch/kernels/csrc/event_step_wide.cu",
                 "replaces": "happysim_tpu/tpu/kernels/event_step.py:312",
-                "launches": wide["runs"]["wide-fleet"][1],
+                "launches": wide["runs"][run][1],
                 "max_abs_err": wide["max_abs_err"],
-                "ms": wide["timing"]["kernel_ms"],
-                "plain_ms": wide["timing"]["plain_ms"],
-                "bound_ms": wide["timing"]["bound_ms"],
-                "bound_by": wide["timing"]["bound_by"],
+                "ms": wide["timing"][run]["kernel_ms"],
+                "plain_ms": wide["timing"][run]["plain_ms"],
+                "bound_ms": wide["timing"][run]["bound_ms"],
+                "bound_by": wide["timing"][run]["bound_by"],
                 "library_ms": None,
-            },
+            }
+            for variant, run in (("wide-lean", "wide-fleet"), ("wide", "wide-quorum"))
+        ] + [
             {
                 "name": "event_step[partitioned]",
                 "route": "cuda",

@@ -20,9 +20,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # One library per source: the event-step kernel without telemetry or
 # resilience, its telemetry instantiations, its resilience instantiations,
 # its consensus instantiations, its instantiations for several sources or
-# sinks, its trace-driven instantiations, its wide code, its partitioned
-# instantiations, the standalone draw kernel, the M/M/1 ensemble's Lindley
-# scan and the partitioned executor's window barrier.
+# sinks (with chaos and without), its trace-driven instantiations, its wide
+# code, its partitioned instantiations, the standalone draw kernel, the
+# M/M/1 ensemble's Lindley scan and the partitioned executor's window
+# barrier.
 SOURCES = (
     CSRC / "event_step.cu",
     CSRC / "event_step_telemetry.cu",

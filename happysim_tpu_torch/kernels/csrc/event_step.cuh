@@ -17,13 +17,14 @@
 //
 // Each source's constants are a row of the HsSrc table, its profile (EXT)
 // a row of the tables a thread block stages. Several sources or sinks
-// take the MULTI instantiation: sink 0 adds to a lane's registers and the
-// other sinks to their (R, nK) leaves in device memory; several sources
-// keep their next arrivals in device memory, where a fire writes its own
-// and reads all nS to find the next (the earliest, the lowest index on a
-// tie, as JAX's argmin). Every other instantiation runs one source and
-// one sink, whose code keeps only source 0's next arrival and sink 0's
-// accumulators, in registers.
+// take the MULTI instantiations: sink 0 adds to a lane's registers and the
+// other sinks to their (R, nK) leaves in device memory; the sources' next
+// arrivals sit in an HS_MAX_SOURCES register array, loaded and written
+// back once a launch, where a fire puts its own and takes the earliest
+// (the lowest index on a tie, as JAX's argmin) (the wide code, whose
+// source count has no bound: in device memory). Every other
+// instantiation runs one source and one sink, whose code keeps only
+// source 0's next arrival and sink 0's accumulators, in registers.
 //
 // event_step_kernel<MAXV, GRAPH, EXT, CHAOS, TEL, RES, CON, MULTI, TRC>
 // has seventeen instantiations per server bound:
@@ -83,12 +84,15 @@
 //   members out of reach (drop-mode fault windows and cut groups) and is
 //   rejected, and retried after a backoff, below the write quorum. The
 //   quorum's dark time and the election are init sweeps, not the step's;
-// - MULTI = true (only as <MAXV, true, true, true, true, true, true,
-//   true>, built from event_step_multi.cu into a fifth library) runs
-//   several sources or sinks: the whole chaos code with every feature's
-//   sites, each taken only where the model has the feature (a null leaf,
-//   an unset flag), so one instantiation per server bound runs any model
-//   with them;
+// - MULTI = true runs several sources or sinks, by feature set: a model
+//   with chaos (and the defenses and the consensus tier, which ride on
+//   it) takes <MAXV, true, true, true, true, true, true, true>, built
+//   from event_step_multi.cu into a fifth library, the whole chaos code
+//   with every feature's sites, each taken only where the model has the
+//   feature (a null leaf, an unset flag); a model without chaos takes
+//   the extended graph code with MULTI, with or without the telemetry
+//   sites (<MAXV, true, true, false, TEL, false, false, true>, in the
+//   same library), at the graph code's register count;
 // - TRC = true (built from event_step_trace.cu into a sixth library, as
 //   <MAXV, true, true, false, TEL, false, false, false, true> for a
 //   single-source traced model without chaos, and as the MULTI code with
@@ -242,7 +246,8 @@
 #define HS_MAX_SOURCES 8
 #define HS_MAX_PARTITIONS 8
 #define HS_HIST_BINS 80
-// Remote egress nodes of a partitioned model (the HsPrt tables).
+// Remote egress nodes of a partitioned model in the lean code's HsPrt
+// tables (the wide code reads its remotes from HsWide and bounds none).
 #define HS_MAX_REMOTES 8
 // Threads per block: 64, which tools/ab_block_loop.py timed faster than
 // 128 on the fan-out and the chaos bench (-DHS_THREADS=128 builds its
@@ -259,6 +264,9 @@
 #ifndef HS_REG_CAP
 #define HS_REG_CAP 1
 #endif
+// The servers the wide code's loops over every server (the search and the
+// depth integral) load at once before they use them.
+#define HS_WIDE_CHUNK 8
 #define HS_MAX_PROFILE_GRID 4096
 #define HS_MAX_BREAKER_RING 4096
 // Shared memory one block may take on sm_90 (227 KB).
@@ -477,10 +485,16 @@ struct HsPrt {
 // device buffer uploaded once per model and device, each table a pointer
 // into it read through the read-only cache; per-server tables have nV
 // rows, the router tables nR rows of nT, the group table nP rows of nV
-// (1: server v is in group p). `smin` and `tmin` are the lanes' earliest
-// completion and transit arrival per server, (nV, R) lane-minor scratch
-// that stands in for the lean code's register arrays. Null everywhere in
-// the lean instantiations. The layout must match
+// (1: server v is in group p), the remote tables nRm rows. Then the
+// launch's scratch, which stands in for the lean code's register arrays,
+// each array over the replicas rounded up to whole warps, in warp tiles
+// (a warp reads one server's register of its 32 lanes as 32 consecutive
+// words): `regs`, the nine per-server registers in HS_WIDE_REGS (nV,
+// lanes) planes (copied from the state leaves at a launch's start and
+// back at its end), and `smin`
+// and `tmin`, the earliest completion and transit arrival per server (nV,
+// lanes), derived at the start and scanned at every step. Null everywhere
+// in the lean instantiations. The layout must match
 // kernels/event_step.py::_Wide.
 struct HsWide {
   const HsSrc* src;                 // (nS,)
@@ -503,7 +517,10 @@ struct HsWide {
   const int* prt_drop;              // (nP,)
   const float* prt_delay;           // (nP,)
   const int *touched, *qrm_member, *qrm_retry;  // (nV,) 0 or 1
-  float *smin, *tmin;               // (nV, R) scratch
+  const float* rm_latency;          // (nRm,) PRT: float32 latency_s of each remote
+  const int* rm_ingress;            // (nRm,) its ingress server
+  float *smin, *tmin;               // (nV, lanes) scratch
+  float* regs;                      // (HS_WIDE_REGS, nV, lanes) scratch
   int nT;                           // the router tables' row length
   int on;                           // 1: the wide code's launch
 };
@@ -633,6 +650,13 @@ struct EventStepArgs {
   // PRT only
   HsPrt prt;
 };
+
+// The planes of the wide code's `regs` scratch: q_len and depth, which the
+// loops over every server read, then one 8-word record a lane and server
+// holding q_head, started, completed, dropped, wait_n (int), busy and wsum
+// (float), which an event reads at its own server, so a start or a pull
+// touches one 32-byte sector of them, not five.
+#define HS_WIDE_REGS 10
 
 // The struct is passed by value as a __grid_constant__ kernel parameter.
 // With the resilience constants it passes the classic 4 KB (4,808 bytes
@@ -1183,15 +1207,16 @@ __device__ __forceinline__ bool transit_free(const Lane<MAXV>& L, const EventSte
 
 // PRT: _into_outbox, a job for the neighbour partition through remote rm:
 // the outbox's next slot, arriving t + the remote's latency at its
-// ingress; a full outbox drops it.
+// ingress (the lean code's HsPrt tables, or the wide code's); a full
+// outbox drops it.
 template <int MAXV>
 __device__ __forceinline__ void into_outbox(Lane<MAXV>& L, const EventStepArgs& a, int rm,
                                             float t, float created) {
   const int slot = *L.ob_len;
   if (slot < a.prt.OB) {
-    L.ob_arrival[slot] = t + a.prt.rm_latency[rm];
+    L.ob_arrival[slot] = t + HS_ARR(a.prt.rm_latency, rm_latency, rm);
     L.ob_created[slot] = created;
-    L.ob_ingress[slot] = a.prt.rm_ingress[rm];
+    L.ob_ingress[slot] = HS_ARR(a.prt.rm_ingress, rm_ingress, rm);
     *L.ob_len = slot + 1;
     *L.ob_sent += 1;
   } else {
@@ -1755,6 +1780,38 @@ __device__ __forceinline__ float earliest_source(const float* next, int nS, int&
   return tn;
 }
 
+// The same over the sources' register array (MULTI: HS_MAX_SOURCES
+// entries, +inf past the model's nS).
+template <int N>
+__device__ __forceinline__ float earliest_source(const float (&next)[N], int& index) {
+  float tn = next[0];
+  index = 0;
+#pragma unroll
+  for (int s = 1; s < N; ++s) {
+    if (next[s] < tn) {
+      tn = next[s];
+      index = s;
+    }
+  }
+  return tn;
+}
+
+// The wide code's search over n servers' earliest times in `row` (its
+// lane's smin or tmin), candidates base + v after those already in (tn,
+// ev): HS_WIDE_CHUNK times loaded at once, then compared in order with a
+// strict <, so the first index wins a tie.
+__device__ __forceinline__ void wide_earliest(const HsRow<float>& row, int n, int base, float& tn,
+                                              int& ev) {
+  for (int v0 = 0; v0 < n; v0 += HS_WIDE_CHUNK) {
+    float x[HS_WIDE_CHUNK];
+#pragma unroll
+    for (int j = 0; j < HS_WIDE_CHUNK; ++j) x[j] = v0 + j < n ? row[v0 + j] : INFINITY;
+#pragma unroll
+    for (int j = 0; j < HS_WIDE_CHUNK; ++j)
+      if (x[j] < tn) { tn = x[j]; ev = base + v0 + j; }
+  }
+}
+
 // The lane's next event time: the earliest of the sources' next arrivals,
 // the servers' completions and (GRAPH) their transit arrivals (the wide
 // code: of its nV servers, and their transit arrivals where it has any).
@@ -1780,9 +1837,11 @@ __device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_
 // 65,536 replicas is one wave: at most 128 a thread keep 512 / HS_THREADS
 // blocks on each of the 132 SMs. The instantiations of up to four servers
 // without the chaos branches fit 128 without spilling and are held to
-// it (the profiled graph measured 0.67x its time at 141); the chaos
-// instantiations and those of eight servers would spill, which measured
-// slower (the chaos bench 1.15x at 128), and take what the compiler picks.
+// it (the profiled graph measured 0.67x its time at 141), and so is the
+// wide code without them (MAXV = HS_WIDE = 0: its per-server registers
+// are rows in device memory); the chaos instantiations and those of eight
+// servers would spill, which measured slower (the chaos bench 1.15x at
+// 128), and take what the compiler picks.
 #define HS_MIN_BLOCKS(MAXV, CHAOS) \
   (HS_REG_CAP && (MAXV) <= 4 && !(CHAOS) ? 65536 / (128 * HS_THREADS) : 1)
 
@@ -1882,22 +1941,46 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   // Whether this instantiation draws through hs_draw_call (see HsDraw).
   constexpr bool draw_calls = CHAOS && (RES || !TEL || MAXV > 1);
   if constexpr (WIDE) {
-    // The registers are the state leaves' rows, and the earliest times
-    // lane-minor scratch.
-    L.q_head = HsRow<int>{a.q_head + rv, 1};
-    L.q_len = HsRow<int>{a.q_len + rv, 1};
-    L.started = HsRow<int>{a.started + rv, 1};
-    L.completed = HsRow<int>{a.completed + rv, 1};
-    L.dropped = HsRow<int>{a.dropped + rv, 1};
-    L.wait_n = HsRow<int>{a.wait_n + rv, 1};
-    L.busy = HsRow<float>{a.busy_int + rv, 1};
-    L.depth = HsRow<float>{a.depth_int + rv, 1};
-    L.wsum = HsRow<float>{a.wait_sum + rv, 1};
+    // The registers in the warp-tiled scratch, copied from the state
+    // leaves' rows here and back after the loop, so the loop over every
+    // server (the depth integral, the search) reads 32 consecutive words
+    // a warp; the earliest times derived.
+    const HsWide& X = a.wide;
+    // Each scratch array holds (n, lanes) words, lanes the replica count
+    // rounded up to whole warps; this lane's first element and stride.
+    const int lanes = (a.R + 31) & ~31;
+    // Warp tiles: element v of lane r at ((r / 32) * nV + v) * 32 + r % 32
+    // of an (nV, lanes) array, so a warp reads one server's register of its
+    // 32 lanes as 32 consecutive words, and its scattered accesses (each
+    // lane at its own server) stay inside one block of nV * 32 words.
+    const size_t at_v = (size_t)(r >> 5) * nV * 32 + (r & 31);
+    const size_t plane = (size_t)nV * lanes;
+    int* iregs = reinterpret_cast<int*>(X.regs);
+    L.q_len = HsRow<int>{iregs + at_v, 32};
+    L.depth = HsRow<float>{X.regs + plane + at_v, 32};
+    // Field f of the record of server v at 2 * plane + 8 * (at_v + 32 * v) + f.
+    const size_t at = 2 * plane + 8 * at_v;
+    L.q_head = HsRow<int>{iregs + at, 8 * 32};
+    L.started = HsRow<int>{iregs + at + 1, 8 * 32};
+    L.completed = HsRow<int>{iregs + at + 2, 8 * 32};
+    L.dropped = HsRow<int>{iregs + at + 3, 8 * 32};
+    L.wait_n = HsRow<int>{iregs + at + 4, 8 * 32};
+    L.busy = HsRow<float>{X.regs + at + 5, 8 * 32};
+    L.wsum = HsRow<float>{X.regs + at + 6, 8 * 32};
     L.mean = HsRow<const float>{a.srv_mean + rv, 1};
-    L.smin = HsRow<float>{a.wide.smin + r, a.R};
-    L.tmin = HsRow<float>{a.wide.tmin + r, a.R};
+    L.smin = HsRow<float>{X.smin + at_v, 32};
+    L.tmin = HsRow<float>{X.tmin + at_v, 32};
     for (int v = 0; v < nV; ++v) {
-      L.smin[v] = row_min(L.slot_done + v * C, hs_ldg(a.wide.conc + v));
+      L.q_head[v] = a.q_head[rv + v];
+      L.q_len[v] = a.q_len[rv + v];
+      L.started[v] = a.started[rv + v];
+      L.completed[v] = a.completed[rv + v];
+      L.dropped[v] = a.dropped[rv + v];
+      L.wait_n[v] = a.wait_n[rv + v];
+      L.busy[v] = a.busy_int[rv + v];
+      L.depth[v] = a.depth_int[rv + v];
+      L.wsum[v] = a.wait_sum[rv + v];
+      L.smin[v] = row_min(L.slot_done + v * C, hs_ldg(X.conc + v));
       if (transit) L.tmin[v] = row_min(L.tr_time + v * TR, TR);
     }
   } else {
@@ -1922,11 +2005,20 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   float t = a.t[r];
   // The sources' earliest next arrival and its source. One source keeps
   // its next arrival in this register alone; MULTI: several keep theirs
-  // in device memory, where a fire writes its own and reads them all.
+  // in a register array (the wide code: in device memory, where a fire
+  // writes its own and reads them all).
   const size_t src_row = (size_t)r * nS;  // this replica's first row of the (R, nS) leaves
+  constexpr bool SREG = MULTI && !WIDE;
+  float snext[SREG ? HS_MAX_SOURCES : 1];
   int src = 0;
-  float src_next =
-      nS == 1 ? a.src_next[src_row] : earliest_source(a.src_next + src_row, nS, src);
+  float src_next;
+  if constexpr (SREG) {
+#pragma unroll
+    for (int s = 0; s < HS_MAX_SOURCES; ++s) snext[s] = s < nS ? a.src_next[src_row + s] : INFINITY;
+    src_next = earliest_source(snext, src);
+  } else {
+    src_next = nS == 1 ? a.src_next[src_row] : earliest_source(a.src_next + src_row, nS, src);
+  }
   int events = a.events[r];
   L.sk_count = a.sink_count[sink_row];
   L.sk_sum = a.sink_sum[sink_row];
@@ -1958,7 +2050,16 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       // past the resident pages leaves unhalted, frozen until the next
       // launch; the block is keyed by the lane's own count.
       if (trc_blocks >= a.trc.n_chunks) break;
-      const float traced = nS == 1 ? src_next : a.src_next[src_row + a.trc.src];
+      // One source keeps its next arrival in src_next alone (a fire never
+      // writes snext then), several theirs in snext or device memory.
+      float traced = src_next;
+      if (nS > 1) {
+        if constexpr (SREG) {
+          traced = pick<HS_MAX_SOURCES>(snext, a.trc.src);
+        } else {
+          traced = a.src_next[src_row + a.trc.src];
+        }
+      }
       if (isfinite(traced) && (int)trc_cursor + a.macro >= a.trc.base + 2 * a.trc.P) break;
       block = (unsigned)trc_blocks;
       trc_blocks += 1;
@@ -1973,11 +2074,16 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       // the servers' transit arrivals; a strict < keeps the first index.
       float tn = src_next;
       int ev = -1;
+      if constexpr (WIDE) {
+        // HS_WIDE_CHUNK servers' times loaded at once, then compared in
+        // order: the loads overlap instead of each waiting on the last.
+        wide_earliest(L.smin, nV, 0, tn, ev);
+        if (transit) wide_earliest(L.tmin, nV, nV, tn, ev);
+      } else {
 #pragma unroll
-      for (int v = 0; v < VB; ++v)
-        if (L.smin[v] < tn) { tn = L.smin[v]; ev = v; }
-      if constexpr (GRAPH) {
-        if (!WIDE || transit) {
+        for (int v = 0; v < VB; ++v)
+          if (L.smin[v] < tn) { tn = L.smin[v]; ev = v; }
+        if constexpr (GRAPH) {
 #pragma unroll
           for (int v = 0; v < VB; ++v)
             if (L.tmin[v] < tn) { tn = L.tmin[v]; ev = VB + v; }
@@ -1992,9 +2098,28 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       if constexpr (PRT) L.drawn += 1;
       const float lo = fmaxf(t, a.warmup);
       const float dt = fmaxf(tn - lo, 0.0f);
+      if constexpr (WIDE) {
+        // HS_WIDE_CHUNK servers' queue lengths and integrals loaded at
+        // once, then added to. Every queue, the empty ones too: skipping
+        // them (0 * dt leaves the integral as it is) measured slower.
+        for (int v0 = 0; v0 < nV; v0 += HS_WIDE_CHUNK) {
+          int ql[HS_WIDE_CHUNK];
+          float depth[HS_WIDE_CHUNK];
 #pragma unroll
-      for (int v = 0; v < VB; ++v)
-        if (v < nV) L.depth[v] = fma_f64((float)L.q_len[v], dt, L.depth[v]);
+          for (int j = 0; j < HS_WIDE_CHUNK; ++j) {
+            const bool in = v0 + j < nV;
+            ql[j] = in ? L.q_len[v0 + j] : 0;
+            depth[j] = in ? L.depth[v0 + j] : 0.0f;
+          }
+#pragma unroll
+          for (int j = 0; j < HS_WIDE_CHUNK; ++j)
+            if (v0 + j < nV) L.depth[v0 + j] = fma_f64((float)ql[j], dt, depth[j]);
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < VB; ++v)
+          if (v < nV) L.depth[v] = fma_f64((float)L.q_len[v], dt, L.depth[v]);
+      }
       if constexpr (TEL) {
         // The same measured interval [lo, tn), split over the windows it
         // spans; an empty queue adds nothing.
@@ -2041,6 +2166,9 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         }
         if (nS == 1) {
           src_next = fired;
+        } else if constexpr (SREG) {
+          put(snext, src, fired);
+          src_next = earliest_source(snext, src);
         } else {
           a.src_next[src_row + src] = fired;
           src_next = earliest_source(a.src_next + src_row, nS, src);
@@ -2159,7 +2287,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
           deliver<MAXV, GRAPH, EXT, true, TEL, RES, CON, MULTI, PRT>(L, a, dest, t, created, u,
                                                                       loss, attempt, consult);
       } else {
-        deliver<MAXV, GRAPH, EXT, false, TEL, false, false, false, PRT>(L, a, dest, t, created, u);
+        deliver<MAXV, GRAPH, EXT, false, TEL, false, false, MULTI, PRT>(L, a, dest, t, created, u);
       }
 
       if (from >= 0) {
@@ -2258,12 +2386,30 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     a.trc.blocks[r] = trc_blocks;
   }
   a.t[r] = t;
-  if (nS == 1) a.src_next[src_row] = src_next;
+  if (nS == 1) {
+    a.src_next[src_row] = src_next;
+  } else if constexpr (SREG) {
+#pragma unroll
+    for (int s = 0; s < HS_MAX_SOURCES; ++s)
+      if (s < nS) a.src_next[src_row + s] = snext[s];
+  }
   a.events[r] = events;
   a.sink_count[sink_row] = L.sk_count;
   a.sink_sum[sink_row] = L.sk_sum;
   a.sink_sq[sink_row] = L.sk_sq;
-  // The wide code wrote its registers in place.
+  if constexpr (WIDE) {  // the scratch registers back to the leaves' rows
+    for (int v = 0; v < nV; ++v) {
+      a.q_head[rv + v] = L.q_head[v];
+      a.q_len[rv + v] = L.q_len[v];
+      a.started[rv + v] = L.started[v];
+      a.completed[rv + v] = L.completed[v];
+      a.dropped[rv + v] = L.dropped[v];
+      a.wait_n[rv + v] = L.wait_n[v];
+      a.busy_int[rv + v] = L.busy[v];
+      a.depth_int[rv + v] = L.depth[v];
+      a.wait_sum[rv + v] = L.wsum[v];
+    }
+  }
 #pragma unroll
   for (int v = 0; v < (WIDE ? 0 : MAXV); ++v) {
     if (v < nV) {
@@ -2307,9 +2453,10 @@ static size_t hs_smem_bytes(const EventStepArgs& a) {
 
 // What every library checks before it launches: a block count, a plan
 // and a profile grid within the bounds, a trace only on the trace
-// library (`trace`), which needs one, and the wide code's tables only on
-// the wide library (`wide`), which needs them; the lean libraries' tables
-// in the arguments bound the sources and the partition groups.
+// library (`trace`), which needs one, and the wide code's tables and
+// scratch only on a library's wide instantiations (`wide`), which need
+// them; the lean code's tables in the arguments bound the sources, the
+// partition groups and the remotes.
 static bool hs_args_ok(const EventStepArgs& a, bool trace = false, bool wide = false,
                        bool prt = false) {
   if (a.R < 0 || a.n_blocks < 1 || a.stage.words < 0) return false;
@@ -2317,7 +2464,8 @@ static bool hs_args_ok(const EventStepArgs& a, bool trace = false, bool wide = f
   if (a.prt.on != (prt ? 1 : 0)) return false;
   if (prt) {
     const HsPrt& x = a.prt;
-    if (x.OB < 1 || x.budget < 1 || x.nRm < 1 || x.nRm > HS_MAX_REMOTES || !x.ob_arrival ||
+    if (x.OB < 1 || x.budget < 1 || x.nRm < 1 || (!wide && x.nRm > HS_MAX_REMOTES) ||
+        (wide && (!a.wide.rm_latency || !a.wide.rm_ingress)) || !x.ob_arrival ||
         !x.ob_created || !x.ob_ingress || !x.ob_len || !x.ob_sent || !x.ob_dropped ||
         !x.truncated || !a.tr_time)
       return false;
@@ -2326,7 +2474,8 @@ static bool hs_args_ok(const EventStepArgs& a, bool trace = false, bool wide = f
   if (wide) {
     const HsWide& w = a.wide;
     if (!w.src || !w.srv_ref || !w.conc || !w.qcap || !w.srv_flags || !w.smin || !w.tmin ||
-        w.nT < 0 || (a.nR > 0 && (!w.rt_target || w.nT < 1)))
+        !w.regs || w.nT < 0 ||
+        (a.nR > 0 && (!w.rt_target || w.nT < 1)))
       return false;
   } else if (a.nS > HS_MAX_SOURCES || (a.con.on && a.con.nP > HS_MAX_PARTITIONS)) {
     return false;

@@ -1,24 +1,36 @@
 // C interface of the event-step kernel's instantiations for several
-// sources or sinks (event_step.cuh with MULTI = true): the chaos code with
-// the telemetry, resilience and consensus sites, each taken only where the
-// model has the feature, per server bound. Built with nvcc into a shared
-// library of its own, in parallel with the other event-step libraries,
-// and loaded through ctypes by kernels/event_step.py, which launches it
-// for every model with more than one source or sink.
+// sources or sinks (event_step.cuh with MULTI = true), per server bound:
+// with chaos, the chaos code with the telemetry, resilience and consensus
+// sites, each taken only where the model has the feature; without it, the
+// extended graph code, with or without the telemetry sites, which has none
+// of the chaos code's sites and so none of its registers (the chaos code
+// took 154-242 registers whatever the model had). Every one keeps the
+// sources' next arrivals in a register array and the other sinks'
+// accumulators in device memory. Built with nvcc into a shared library of
+// its own, in parallel with the other event-step libraries, and loaded
+// through ctypes by kernels/event_step.py.
 
 #include "event_step.cuh"
 
 template <int MAXV>
 static void launch(const EventStepArgs& args, cudaStream_t s) {
-  hs_launch(event_step_kernel<MAXV, true, true, true, true, true, true, true>, args, s);
+  if (args.chaos) {
+    hs_launch(event_step_kernel<MAXV, true, true, true, true, true, true, true>, args, s);
+  } else if (args.tel.nW) {
+    hs_launch(event_step_kernel<MAXV, true, true, false, true, false, false, true>, args, s);
+  } else {
+    hs_launch(event_step_kernel<MAXV, true, true, false, false, false, false, true>, args, s);
+  }
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
   if (args->R <= 0) return 0;
-  // Only a model with several sources or sinks, on the chaos code.
-  if ((args->nS == 1 && args->nK == 1) || !(args->chaos && args->graph && args->ext))
+  // Only a model with several sources or sinks, on the extended graph code.
+  if ((args->nS == 1 && args->nK == 1) || !(args->graph && args->ext))
     return (int)cudaErrorInvalidValue;
+  // The defenses and the consensus tier ride on chaos.
+  if (!args->chaos && (args->res.on || args->con.on)) return (int)cudaErrorInvalidValue;
   if (args->res.on && args->res.breaker && (args->res.F < 1 || args->res.F > HS_MAX_BREAKER_RING))
     return (int)cudaErrorInvalidValue;
   if (!hs_args_ok(*args)) return (int)cudaErrorInvalidValue;

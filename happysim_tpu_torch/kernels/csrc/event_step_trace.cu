@@ -7,8 +7,9 @@
 //   consensus tier runs the lean extended graph code with the trace, with
 //   or without the telemetry sites;
 // - every other traced model (several sources or sinks, the chaos stack,
-//   the defenses, the consensus tier) runs the MULTI code with the trace,
-//   each feature's sites taken only where the model has the feature.
+//   the defenses, the consensus tier) runs the MULTI chaos code with the
+//   trace, each feature's sites taken only where the model has the
+//   feature.
 // The libraries without the trace keep their code: TRC sits under `if
 // constexpr`.
 
@@ -16,7 +17,7 @@
 
 template <int MAXV>
 static void launch(const EventStepArgs& args, cudaStream_t s) {
-  if (args.chaos) {
+  if (args.chaos || args.nS != 1 || args.nK != 1) {
     hs_launch(event_step_kernel<MAXV, true, true, true, true, true, true, true, true>, args, s);
   } else if (args.tel.nW) {
     hs_launch(event_step_kernel<MAXV, true, true, false, true, false, false, false, true>, args, s);
@@ -32,8 +33,7 @@ extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {
   // A traced model on the extended graph code; several sources or sinks,
   // the defenses and the consensus tier ride the chaos code.
   if (!(args->graph && args->ext)) return (int)cudaErrorInvalidValue;
-  if (!args->chaos && (args->nS != 1 || args->nK != 1 || args->res.on || args->con.on))
-    return (int)cudaErrorInvalidValue;
+  if (!args->chaos && (args->res.on || args->con.on)) return (int)cudaErrorInvalidValue;
   if (args->res.on && args->res.breaker && (args->res.F < 1 || args->res.F > HS_MAX_BREAKER_RING))
     return (int)cudaErrorInvalidValue;
   if (!hs_args_ok(*args, true)) return (int)cudaErrorInvalidValue;

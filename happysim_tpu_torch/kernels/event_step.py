@@ -36,19 +36,21 @@ instantiation: the chaos code plus the defenses' gates, with or without
 the telemetry sites. Every model with network partitions or a quorum
 launches a consensus instantiation: the chaos code plus the partition
 consult and the quorum gate, with or without the telemetry sites and the
-defenses. Every model with several sources or sinks launches the
-instantiation for them: the chaos code with every feature's sites, each
-taken where the model has the feature. Nodes no source reaches run on
-any of them. A model with a traced source runs :func:`trace_steps`, one
+defenses. Every model with several sources or sinks launches an
+instantiation for them: with chaos, the chaos code with every feature's
+sites, each taken where the model has the feature; without, the extended
+graph code with or without the telemetry sites. Nodes no source reaches
+run on any of them. A model with a traced source runs :func:`trace_steps`, one
 launch of the trace instantiations a stream step: the extended graph
 code with the trace's fire and stall gate for a single-source model
 without chaos, defenses or the consensus tier, else the code for several
 sources or sinks with them; its plain version is :func:`plain_trace_steps`.
 A model past one of the lean instantiations' tables in the argument
 struct (:func:`support.wide_reasons`) launches the wide code instead, with
-or without the trace: the code for several sources or sinks with the
-per-server registers as rows in device memory and the model's tables in
-one device buffer (:class:`_Wide`), uploaded once per model and device.
+or without the trace: the code for several sources or sinks (chaos-free
+for a model without chaos) with the per-server registers in device
+scratch laid out in warp tiles and the model's tables in one device
+buffer (:class:`_Wide`), uploaded once per model and device.
 A window of the partitioned executor (:mod:`happysim_tpu_torch.partitioned`)
 runs :func:`window_steps`, one launch of the partitioned instantiations:
 the graph code (transit always on) in its lean, several-source and wide
@@ -63,7 +65,8 @@ The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``csrc/event_step_telemetry.cu`` with telemetry,
 ``csrc/event_step_resilience.cu`` with the defenses,
 ``csrc/event_step_consensus.cu`` with partitions or a quorum,
-``csrc/event_step_multi.cu`` with several sources or sinks,
+``csrc/event_step_multi.cu`` with several sources or sinks (with chaos
+and without),
 ``csrc/event_step_trace.cu`` with a traced source,
 ``csrc/event_step_wide.cu`` past a lean table,
 ``csrc/event_step_partitioned.cu`` for a window of a partitioned run),
@@ -253,14 +256,21 @@ _WIDE_TABLES = (
     "srv_loss", "u_route", "rt_policy", "rt_n", "rt_park", "rt_target", "rt_cum", "rt_loss",
     "lim_rate", "lim_cap", "lim_ref", "lim_loss", "shed_busy_thr",
     "prt_member", "prt_drop", "prt_delay", "touched", "qrm_member", "qrm_retry",
+    "rm_latency", "rm_ingress",
 )
+# The wide code's scratch (HsWide), over the replicas rounded up to whole
+# warps: the earliest times (nV, lanes) each and the per-server registers
+# (HS_WIDE_REGS, nV, lanes), every array in warp tiles (csrc/event_step.cuh's
+# wide set-up).
+_WIDE_SCRATCH = ("smin", "tmin", "regs")
+_WIDE_REGS = 10
 
 
 class _Wide(ctypes.Structure):
-    """Mirror of ``HsWide``: the wide code's tables, its (nV, R) scratch,
-    the router tables' row length and its switch."""
+    """Mirror of ``HsWide``: the wide code's tables, its scratch, the
+    router tables' row length and its switch."""
 
-    _fields_ = [(name, ctypes.c_void_p) for name in _WIDE_TABLES + ("smin", "tmin")] + [
+    _fields_ = [(name, ctypes.c_void_p) for name in _WIDE_TABLES + _WIDE_SCRATCH] + [
         ("nT", ctypes.c_int), ("on", ctypes.c_int),
     ]
 
@@ -269,10 +279,12 @@ def _wide_table_type(compiled) -> type:
     """A ctypes struct of the wide code's tables sized for ``compiled``,
     with the names (and the indexing) of the argument struct's tables, so
     that :func:`_static_args` fills either; the group and quorum sets are
-    (nP, nV) and (nV,) tables of 0 or 1 instead of bit masks."""
+    (nP, nV) and (nV,) tables of 0 or 1 instead of bit masks, and the
+    remote tables have a row for each remote egress node."""
     nV, nS, nR, nL = compiled.nV, compiled.nS, compiled.nR, compiled.nL
     nT = _wide_row(compiled)
     nP = compiled.partitions.nP if compiled.has_partitions else 0
+    nRm = len(getattr(compiled.model, "remotes", ()))
     hops = max(len(compiled.U_ROUTE_HOPS), 1)
     i32, f32 = ctypes.c_int, ctypes.c_float
     fields = [("src", _Src * nS), ("srv_ref", _Ref * nV)]
@@ -297,6 +309,7 @@ def _wide_table_type(compiled) -> type:
         ("prt_member", (i32 * nV) * nP), ("prt_drop", i32 * nP), ("prt_delay", f32 * nP),
     ]
     fields += [(name, i32 * nV) for name in ("touched", "qrm_member", "qrm_retry")]
+    fields += [("rm_latency", f32 * nRm), ("rm_ingress", i32 * nRm)]
     assert tuple(name for name, _ in fields) == _WIDE_TABLES
     return type("_WideTables", (ctypes.Structure,), {"_fields_": fields})
 
@@ -459,11 +472,13 @@ def _loss(edge) -> _Loss:
 
 
 def _chaos_args(compiled, args: _Args, tab) -> None:
-    """The chaos instantiation's per-server constants, flags, draw slots
-    and loss tables (the tables into ``tab``: the arguments, or the wide
-    code's tables)."""
+    """The chaos code's per-server constants, flags, draw slots and loss
+    tables (the tables into ``tab``: the arguments, or the wide code's
+    tables), and its switch: set where the model has chaos (a model with
+    several sources or sinks, or past a lean table, takes its constants
+    either way, and the chaos-free code where the switch is unset)."""
     model, faults = compiled.model, compiled.faults
-    args.chaos = 1
+    args.chaos = int(compiled.has_chaos)
     args.W, args.W_sh = faults.W, faults.W_sh
     args.u_hed1, args.u_hed2 = _slot(compiled.U_HED1), _slot(compiled.U_HED2)
     args.u_loss, args.u_jit = _slot(compiled.U_LOSS), _slot(compiled.U_JIT)
@@ -588,9 +603,9 @@ def _model_args(compiled) -> tuple:
         tab.par_xmf[v] = float(compiled.srv_par_xmf[v])
     if compiled.has_chaos or _multi_code(compiled):
         # The chaos instantiation is the extended graph code plus the
-        # chaos branches, whatever the model's shape; so is the one for
-        # several sources or sinks, which runs any model with them, and so
-        # is the wide code.
+        # chaos branches, whatever the model's shape; the code for several
+        # sources or sinks and the wide code are the extended graph code,
+        # with the chaos branches where the model has chaos.
         args.graph = args.ext = 1
         _chaos_args(compiled, args, tab)
     if compiled.has_telemetry:
@@ -615,28 +630,27 @@ def _model_args(compiled) -> tuple:
         args.wide.on = 1
         args.wide.nT = _wide_row(compiled)
     if getattr(compiled, "OB", 0):
-        _prt_args(compiled, args.prt)
+        _prt_args(compiled, args.prt, tables)
         # A window runs the graph code: remote arrivals land in the
         # transit registers.
         args.graph = 1
     return args, tables
 
 
-def _prt_args(compiled, prt: _Prt) -> None:
+def _prt_args(compiled, prt: _Prt, tables=None) -> None:
     """The partitioned instantiation's switch, outbox size and remote
-    tables (the window's end and budget are set per launch)."""
+    tables (the window's end and budget are set per launch): in ``prt``,
+    or, for the wide code (past the lean table of
+    :data:`support.KERNEL_MAX_REMOTES` remotes among others), in its
+    ``tables``."""
     remotes = compiled.model.remotes
-    if len(remotes) > _MAX_RM:
-        raise ValueError(
-            f"event-step kernel: {len(remotes)} remote egress nodes exceed the partitioned "
-            f"instantiation's table of {_MAX_RM} (ROADMAP B.12)"
-        )
     prt.on = 1
     prt.OB = compiled.OB
     prt.nRm = len(remotes)
+    tab = prt if tables is None else tables
     for i in range(len(remotes)):
-        prt.rm_latency[i] = float(compiled.remote_latency[i])
-        prt.rm_ingress[i] = int(compiled.remote_ingress[i])
+        tab.rm_latency[i] = float(compiled.remote_latency[i])
+        tab.rm_ingress[i] = int(compiled.remote_ingress[i])
 
 
 def _several(compiled) -> bool:
@@ -728,7 +742,7 @@ class _Checked:
         self.key = key
         self.refs = tuple(None if x is None else weakref.ref(x) for x in bound)
         self.args = args
-        self.scratch = scratch  # the wide code's (2, nV, R) scratch, kept alive
+        self.scratch = scratch  # the wide code's scratch, kept alive
 
     def holds(self, key: tuple, bound: list) -> bool:
         return key == self.key and all(
@@ -804,7 +818,10 @@ def launch_args(
         args.stage = _stage(expected, args, R, device)
         scratch = None
         if args.wide.on:
-            scratch = torch.empty((2, compiled.nV, R), dtype=torch.float32, device=device)
+            lanes = -(-R // 32) * 32  # whole warps
+            scratch = torch.empty(
+                (2 + _WIDE_REGS, compiled.nV, lanes), dtype=torch.float32, device=device
+            )
             _wide_pointers(args.wide, layout[1], layout[2], device, scratch)
         if len(layout[3]) >= _CHECKED_STATES:
             layout[3].clear()
@@ -831,8 +848,8 @@ def launch_args(
 
 def _wide_pointers(wide: _Wide, tables, uploaded: dict, device, scratch: torch.Tensor) -> None:
     """Point the wide code's tables into their device buffer (uploaded
-    once per device and kept in ``uploaded``) and its scratch rows into
-    ``scratch``."""
+    once per device and kept in ``uploaded``) and its scratch into
+    ``scratch``: the earliest times, then the registers."""
     key = str(device)
     if key not in uploaded:
         raw = torch.frombuffer(bytearray(bytes(tables)), dtype=torch.uint8)
@@ -841,7 +858,7 @@ def _wide_pointers(wide: _Wide, tables, uploaded: dict, device, scratch: torch.T
     table_type = type(tables)
     for name in _WIDE_TABLES:
         setattr(wide, name, base + getattr(table_type, name).offset)
-    wide.smin, wide.tmin = scratch[0].data_ptr(), scratch[1].data_ptr()
+    wide.smin, wide.tmin, wide.regs = (scratch[i].data_ptr() for i in range(3))
 
 
 def _stage(expected: dict, args: _Args, R: int, device) -> _Stage:
@@ -1162,8 +1179,9 @@ def library_of(args: _Args) -> str:
     partitioned one for a window of a partitioned run, else the wide
     code's for a model past one of the lean tables (with or without a
     traced source), else the trace
-    one for a model with a traced source, else the one for
-    several sources or sinks for such a model, else the consensus one for
+    one for a model with a traced source, else the one for several
+    sources or sinks (its chaos code for a model with chaos, its
+    chaos-free code for one without), else the consensus one for
     a model with partitions or a quorum, else the resilience one for a
     model with a defense, else the telemetry one for a model with a spec,
     else the kernel without any of them."""

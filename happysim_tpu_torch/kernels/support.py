@@ -75,9 +75,10 @@ LEAN_MAX_TARGETS = 8
 LEAN_MAX_HOPS = 8
 LEAN_MAX_LIMITERS = 4
 LEAN_MAX_PARTITIONS = 8
-#: Remote egress nodes of a partitioned model: a table of their latencies
-#: and ingress servers in the argument struct (csrc/event_step.cuh's
-#: HS_MAX_REMOTES), of every code, the wide one included.
+#: Remote egress nodes of a partitioned model in the lean code's table of
+#: their latencies and ingress servers in the argument struct
+#: (csrc/event_step.cuh's HS_MAX_REMOTES); a model with more runs the wide
+#: code, which reads them from its device tables and bounds none.
 KERNEL_MAX_REMOTES = 8
 #: Sinks per model: sink 0 adds to a lane's registers and the others to
 #: their (R, nK) leaves and (R, nK, 80) histogram rows in device memory,
@@ -420,6 +421,7 @@ def wide_reasons(compiled) -> list:
         ("limiters", len(model.limiters), LEAN_MAX_LIMITERS),
         ("partition groups", compiled.partitions.nP if compiled.has_partitions else 0,
          LEAN_MAX_PARTITIONS),
+        ("remote egress nodes", len(getattr(model, "remotes", ())), KERNEL_MAX_REMOTES),
     )
     return [f"{name}={value} > {bound}" for name, value, bound in counts if value > bound]
 

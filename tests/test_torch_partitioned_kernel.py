@@ -8,7 +8,8 @@ window, then the plain barrier), and every leaf must agree (integer
 leaves exactly, floats within rel 1e-5: host libm against torch's CPU
 math). Three partitions of eight replicas, on the lean graph code
 without and with the family sampler and with the chaos branches, the
-code for several sources and sinks and the wide code."""
+code for several sources and sinks and the wide code (a model past the
+servers' table, and one past the remotes' table of eight)."""
 
 import ctypes
 import subprocess
@@ -21,7 +22,7 @@ pytest.importorskip("torch")
 import torch  # noqa: E402
 
 from happysim_tpu_torch import model as tmodel  # noqa: E402
-from happysim_tpu_torch.kernels import event_step, partition_barrier  # noqa: E402
+from happysim_tpu_torch.kernels import event_step, partition_barrier, support  # noqa: E402
 from happysim_tpu_torch.kernels.build import CSRC  # noqa: E402
 from happysim_tpu_torch.partitioned import (  # noqa: E402
     _PartitionCompiled,
@@ -47,6 +48,7 @@ _MODELS = {
     "chaos-ring": "chaos",
     "two-sink-ring": "multi",
     "wide-ring": "wide",
+    "nine-remote-ring": "wide",
 }
 _BARRIER = """
 #include "partition_barrier.cu"
@@ -125,7 +127,7 @@ def test_host_window_and_barrier_match_the_plain_versions(host_kernel, name):
             compiled, kernel_state, kernel_state["key"], params, limit, step_budget, halted
         )
         assert event_step.library_of(args) == "event_step_partitioned"
-        assert bool(args.wide.on) == (name == "wide-ring")
+        assert bool(args.wide.on) == (_MODELS[name] == "wide")
         assert run(ctypes.byref(args), 16) == 0
         event_step.plain_window_steps(compiled, plain_state, params, limit, step_budget)
         _assert_same(kernel_state, plain_state, f"{name} window {w}")
@@ -169,17 +171,24 @@ def test_host_barrier_takes_an_inbox_slab(host_kernel):
     assert int(plain["ob_len"].sum()) == 0
 
 
-def test_more_remotes_than_the_table_raise_naming_the_roadmap():
-    """The partitioned instantiation's remote table holds 8 egress nodes;
-    a window launch of a model with more raises naming its ROADMAP item
-    (the CPU's plain path has no such table)."""
+def test_more_remotes_than_the_lean_table_take_the_wide_code():
+    """The lean code's remote table holds 8 egress nodes; a model with more
+    no longer raises: its window launch takes the wide code, whose device
+    tables hold every remote's latency and ingress server, and the plain
+    path runs it as before."""
     model = PARTITIONED_MODELS["ring"](tmodel)
-    for _ in range(8):
-        model.remote(ingress=tmodel.NodeRef(tmodel.SERVER, 0), latency_s=HOP_S)
+    for i in range(8):
+        model.remote(ingress=tmodel.NodeRef(tmodel.SERVER, 0), latency_s=HOP_S + 0.01 * i)
     compiled = _PartitionCompiled(model, outbox_capacity=4)
+    assert support.wide_reasons(compiled) == ["remote egress nodes=9 > 8"]
     state, params = init_partitions(compiled, 0, 1, 2, seed=1, device="cpu")
     halted = torch.empty((2,), dtype=torch.uint8)
-    with pytest.raises(ValueError, match=r"9 remote egress nodes .*ROADMAP B\.12"):
-        event_step.window_launch_args(compiled, state, state["key"], params,
-                                      window_end(0, HOP_S), 8, halted)
+    args = event_step.window_launch_args(compiled, state, state["key"], params,
+                                         window_end(0, HOP_S), 8, halted)
+    assert event_step.library_of(args) == "event_step_partitioned"
+    assert (args.wide.on, args.prt.nRm) == (1, 9)
+    _args, tables = event_step._model_args(compiled)
+    assert list(tables.rm_ingress) == [0] * 9
+    want = np.float32([HOP_S] + [HOP_S + 0.01 * i for i in range(8)])
+    np.testing.assert_array_equal(np.array(tables.rm_latency, np.float32), want)
     event_step.plain_window_steps(compiled, state, params, window_end(0, HOP_S), 8)

@@ -111,10 +111,32 @@ def wide_ring(mod, horizon_s=5.0, stages=9):
     return m
 
 
+def nine_remote_ring(mod, horizon_s=5.0):
+    """Nine remote egress nodes, past the lean code's table of eight (the
+    wide code): a Poisson 6/s source -> server 0; server i (mu = 20, queue
+    128) -> a random router over [the sink, three remotes into the
+    neighbour's servers 0, 1 and 2], the remotes' latencies 50 ms plus
+    5 ms a remote. A job visits four servers on average, about 8/s each."""
+    m = mod.EnsembleModel(horizon_s=horizon_s)
+    src = m.source(rate=6.0)
+    servers = [m.server(service_mean=1.0 / MU, queue_capacity=128) for _ in range(3)]
+    snk = m.sink()
+    m.connect(src, servers[0])
+    for i, srv in enumerate(servers):
+        router = m.router(policy="random")
+        m.connect(srv, router)
+        m.connect(router, snk)
+        for j in range(3):
+            rm = 3 * i + j
+            m.connect(router, m.remote(ingress=servers[j], latency_s=HOP_S + 0.005 * rm))
+    return m
+
+
 PARTITIONED_MODELS = {
     "ring": ring,
     "chaos-ring": chaos_ring,
     "two-sink-ring": two_sink_ring,
     "relay": relay,
     "wide-ring": wide_ring,
+    "nine-remote-ring": nine_remote_ring,
 }

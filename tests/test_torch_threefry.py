@@ -145,6 +145,16 @@ _INSTANTIATIONS = {
     "consensus_plain": (4, "true", "true", "true", "false", "false", "true", "false"),
     "consensus_resilience": (4, "true", "true", "true", "true", "true", "true", "false"),
     "multi": (4, "true", "true", "true", "true", "true", "true", "true"),
+    "multi_lean": (4, "true", "true", "false", "false", "false", "false", "true"),
+    "multi_lean_tel": (4, "true", "true", "false", "true", "false", "false", "true"),
+}
+# Where the test holds the launcher's choice for an instantiation's
+# models: the library, then whether its launch takes the chaos code and
+# the telemetry sites (the chaos-free code for several sources or sinks,
+# csrc/event_step_multi.cu's `launch`).
+_LIBRARIES = {
+    "multi_lean": ("event_step_multi", False, False),
+    "multi_lean_tel": ("event_step_multi", False, True),
 }
 _HOST_MODELS = {
     "mm1": ("mm1", lambda: tmodel.mm1_model(8.0, 10.0, 20.0, warmup_s=5.0)),
@@ -165,6 +175,17 @@ _HOST_MODELS = {
             ("superpose", "multi"), ("superpose-tie", "multi"), ("two-class", "multi"),
             ("two-class-telemetry", "multi"), ("profiled", "multi"),
             ("orphan-router", "fanout"), ("orphan-limiter", "fanout"), ("no-sink", "fanout"),
+        )
+    },
+    # The same models without chaos on the chaos-free code for several
+    # sources or sinks (event_step_multi.cu), with the telemetry
+    # sites where the model has a spec.
+    **{
+        f"multi-lean-{name}": (instantiation, lambda name=name: MULTI_MODELS[name](tmodel))
+        for name, instantiation in (
+            ("superpose", "multi_lean"), ("superpose-tie", "multi_lean"),
+            ("two-class", "multi_lean"), ("two-class-telemetry", "multi_lean_tel"),
+            ("profiled", "multi_lean"),
         )
     },
     **{
@@ -272,6 +293,10 @@ def test_host_kernel_drawing_its_own_uniforms_matches_the_plain_step(host_kernel
         halted = torch.empty((n,), dtype=torch.uint8)
         args = event_step.launch_args(compiled, kernel_state, keys, block, params, halted, draws)
         assert args.block == block and args.keys == keys.data_ptr() and args.n_blocks == 1
+        if instantiation in _LIBRARIES:
+            library, chaos, tel = _LIBRARIES[instantiation]
+            assert event_step.library_of(args) == library
+            assert (bool(args.chaos), bool(args.tel.nW)) == (chaos, tel)
         assert run(ctypes.byref(args), 1) == 0
         plain_halted = event_step.plain_block_step(
             compiled, plain_state, event_step.block_uniforms(compiled, keys, block), params

@@ -7,7 +7,8 @@ within rel 1e-5: host libm against torch's CPU math). The models stall
 lanes at the window's edge, read past the trace's end, stop the trace
 early, spend their block budget, count several tenants, and run the lean
 trace instantiation (with and without telemetry) and the code for
-several sources or sinks and chaos with the trace."""
+several sources or sinks and chaos with the trace (one traced source
+on it whose trace ends inside a launch among them)."""
 
 import ctypes
 import subprocess
@@ -43,6 +44,7 @@ _MODELS = {
     "short-trace-budget": ("lean", 160),
     "trace-poisson": ("multi", 4096),
     "trace-chaos": ("multi", 4096),
+    "short-trace-chaos": ("multi", 4096),
 }
 
 

@@ -114,6 +114,22 @@ def trace_chaos(mod, chunk_len=16):
     return m
 
 
+def short_trace_chaos(mod, chunk_len=16):
+    """A diurnal trace over 3 s in a 6 s run into a server with a 60 ms
+    deadline and two retries (30 ms service, queue 16) over a 5 ms
+    exponential edge into the sink: one traced source on the chaos code
+    with the trace, each lane's trace ending inside a launch with less
+    than a block of the resident window after its end, and its lanes
+    draining after it."""
+    trace = traces_of(mod).diurnal_trace(40.0, 0.5, 2.0, 3.0, seed=5, chunk_len=chunk_len)
+    m = mod.EnsembleModel(horizon_s=6.0, macro_block=16)
+    src = m.trace_arrivals(trace)
+    srv = m.server(service_mean=0.03, queue_capacity=16, deadline_s=0.06, max_retries=2)
+    m.connect(src, srv)
+    m.connect(srv, m.sink(), latency_s=0.005, latency_kind="exponential")
+    return m
+
+
 # name -> builder(mod); the CPU parity tests and the card's tests run each.
 TRACE_MODELS = {
     "flash-regression": flash_regression,
@@ -123,4 +139,5 @@ TRACE_MODELS = {
     "short-trace": short_trace,
     "trace-poisson": trace_poisson,
     "trace-chaos": trace_chaos,
+    "short-trace-chaos": short_trace_chaos,
 }

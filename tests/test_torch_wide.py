@@ -145,14 +145,17 @@ _FLAGS = "true, true, true, true, true, true, true"
 _HOST = {
     "wide": ("HS_WIDE", _FLAGS),
     "wide_trace": ("HS_WIDE", _FLAGS + ", true"),
+    "wide_lean": ("HS_WIDE", "true, true, false, false, false, false, true"),
+    "wide_lean_tel": ("HS_WIDE", "true, true, false, true, false, false, true"),
     "chaos": ("2", "true, true, true"),
 }
 
 
 @pytest.fixture(scope="module")
 def wide_host(tmp_path_factory):
-    """The wide instantiations, with and without the trace (and the lean
-    chaos one the 17-draw model runs), as host C++, each exported as
+    """The wide instantiations, with and without the trace, the chaos-free
+    ones with and without the telemetry sites (and the lean chaos one the
+    17-draw model runs), as host C++, each exported as
     run_<name>(args, threads)."""
     build = tmp_path_factory.mktemp("event_step_wide_host")
     (build / "cuda_runtime.h").write_text("")
@@ -175,6 +178,8 @@ def wide_host(tmp_path_factory):
 
 _HOST_MODELS = {
     "fleet": lambda: chip_smoke.wide_fleet_model(tmodel.EnsembleModel, servers=10, horizon_s=8.0),
+    # A fleet of 40 servers.
+    "fleet40": lambda: chip_smoke.wide_fleet_model(tmodel.EnsembleModel, servers=40, horizon_s=4.0),
     "chain": lambda: chip_smoke.wide_chain_model(tmodel.EnsembleModel, stages=9, horizon_s=8.0),
     "draws": lambda: chip_smoke.wide_draws_model(tmodel.EnsembleModel, horizon_s=8.0),
     "tenants": lambda: chip_smoke.wide_tenants_model(tmodel.EnsembleModel, horizon_s=4.0),
@@ -202,6 +207,67 @@ def test_host_wide_code_matches_the_plain_step(wide_host, name):
         assert event_step.library_of(args) == ("event_step" if name == "draws" else "event_step_wide")
         run = wide_host.run_chaos if name == "draws" else wide_host.run_wide
         assert run(ctypes.byref(args), 8) == 0
+        plain_halted = plain_block_step(
+            compiled, plain_state, event_step.block_uniforms(compiled, keys, block), params
+        )
+        assert torch.equal(halted.bool(), plain_halted), f"block {block}: halted"
+        for leaf in sorted(plain_state):
+            got, want = kernel_state[leaf], plain_state[leaf]
+            if want.is_floating_point():
+                np.testing.assert_allclose(
+                    got.numpy(), want.numpy(), rtol=1e-5, err_msg=f"{block} {leaf}"
+                )
+            else:
+                assert torch.equal(got, want), f"{name} block {block}: {leaf}"
+    assert int(plain_state["events"].min()) > 0
+
+
+# The chaos-free models, on the wide code without the chaos sites, with
+# the telemetry sites where the model has a spec.
+_LEAN_MODELS = {
+    "fleet": "wide_lean",
+    "fleet40": "wide_lean",
+    "chain": "wide_lean",
+    "tenants": "wide_lean",
+    "limiters": "wide_lean",
+    "fleet-telemetry": "wide_lean_tel",
+}
+
+
+@pytest.mark.parametrize("name", sorted(_LEAN_MODELS))
+def test_host_chaos_free_wide_code_matches_the_plain_step(wide_host, name):
+    """The chaos-free wide instantiations (the one hs_event_step takes
+    for a model without chaos) built for the host, 24 replicas in blocks
+    of 8 lanes over 8 blocks from the initial state (the keys of
+    test_host_wide_code_matches_the_plain_step), against the full wide
+    code on a copy bit for bit (one host libm on both sides) and against
+    plain_block_step on the torch-op draw (integer leaves exactly; floats
+    within rel 1e-5, host libm against torch's CPU math)."""
+    if name == "fleet-telemetry":
+        model = chip_smoke.wide_fleet_model(tmodel.EnsembleModel, servers=12, horizon_s=4.0)
+        model.telemetry(window_s=0.5)
+    else:
+        model = _HOST_MODELS[name]()
+    compiled = TCompiled(model)
+    assert not compiled.has_chaos and support.wide_reasons(compiled)
+    n = 24
+    params = {k: torch.from_numpy(v) for k, v in _resolve_params(model, compiled, n, None).items()}
+    keys = rng.split(rng.PRNGKey(5), n)
+    kernel_state = compiled.init_state(keys, params)
+    plain_state = {k: v.clone() for k, v in kernel_state.items()}
+    full_state = {k: v.clone() for k, v in kernel_state.items()}
+    run = getattr(wide_host, f"run_{_LEAN_MODELS[name]}")
+    for block in range(8):
+        halted = torch.empty((n,), dtype=torch.uint8)
+        args = event_step.launch_args(compiled, kernel_state, keys, block, params, halted)
+        assert event_step.library_of(args) == "event_step_wide" and args.chaos == 0
+        assert run(ctypes.byref(args), 8) == 0
+        full_halted = torch.empty((n,), dtype=torch.uint8)
+        full = event_step.launch_args(compiled, full_state, keys, block, params, full_halted)
+        assert wide_host.run_wide(ctypes.byref(full), 8) == 0
+        for leaf in sorted(full_state):
+            assert torch.equal(kernel_state[leaf], full_state[leaf]), f"{name} {block}: {leaf}"
+        assert torch.equal(halted, full_halted)
         plain_halted = plain_block_step(
             compiled, plain_state, event_step.block_uniforms(compiled, keys, block), params
         )

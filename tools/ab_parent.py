@@ -10,9 +10,12 @@ Each turn is a fresh process in its checkout's root, which builds that
 checkout's libraries (kernels/build.py, into its own build/) and runs its
 chip_smoke.time_blocks on the models below at chip_smoke's full width:
 the kernel's time per block in a 20-block launch, the plain version's
-and the bound, for models both checkouts run. Prints one line a model
-with the two checkouts' mean kernel ms and their ratio, and writes
-chiprun_out/ab_parent.json.
+and the bound, for models both checkouts run; then, for the models of
+RUNS, chip_smoke.check_whole_run's whole run in one launch (its device
+time and blocks). Prints one line a model with the two checkouts' mean
+kernel ms and their ratio, one a whole run, and the registers and
+spills ptxas reported for each instantiation of each checkout (from the
+turn that built its libraries), and writes chiprun_out/ab_parent.json.
 """
 
 from __future__ import annotations
@@ -33,23 +36,37 @@ MODELS = (
     ("chaos", "c.chaos_model()", "CHAOS_SWEEPS"),
     ("telemetry", "c.telemetry_model()", "HETERO_SWEEPS"),
     ("resilience", "c.resilience_bench_model(True)", "RES_SWEEPS"),
+    ("two-class", "c.two_class_model()", None),
+    ("two-class-telemetry", "c.two_class_model(c.TWO_CLASS_WINDOW_S)", None),
+    ("superpose", "c.superpose_model()", None),
+    ("wide-fleet", "c.wide_fleet_model()", None),
 )
+# Models whose whole run (one launch of the main path's budget) is timed.
+RUNS = ("two-class", "wide-fleet")
 
 _TURN = """
 import json, sys
 sys.path.insert(0, ".")
 import chip_smoke as c
-out = {}
+from happysim_tpu_torch.kernels import build
+ptxas = {}
+for stem, (_path, log) in build.build_libraries().items():
+    for kernel, info in c.ptxas_summary(log).items():
+        ptxas[stem + " " + kernel] = info
+out = {"ptxas": ptxas, "runs": {}}
 for label, expr, sweeps in %r:
     t = c.time_blocks(eval(expr), label, getattr(c, sweeps) if sweeps else None)
     out[label] = {k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms")}
+    if label in %r:
+        w = c.check_whole_run(label, eval(expr), getattr(c, sweeps) if sweeps else None)
+        out["runs"][label] = {k: w[k] for k in ("run_ms", "blocks", "bound_ms")}
 print("AB " + json.dumps(out))
 """
 
 
 def turn(root: Path) -> dict:
     done = subprocess.run(
-        [sys.executable, "-c", _TURN % (MODELS,)], cwd=root, capture_output=True, text=True
+        [sys.executable, "-c", _TURN % (MODELS, RUNS)], cwd=root, capture_output=True, text=True
     )
     if done.returncode != 0:
         raise RuntimeError(f"turn in {root} failed:\n{done.stderr[-4000:]}")
@@ -77,6 +94,26 @@ def main() -> int:
             f"{label}: kernel {mean['this']:.4f} ms/block here, {mean['other']:.4f} in the other "
             f"checkout ({mean['this'] / mean['other']:.3f}x) [{card}]"
         )
+    for label in RUNS:
+        mean = {
+            who: sum(t["runs"][label]["run_ms"] for w, t in turns if w == who) / 2
+            for who in ("this", "other")
+        }
+        report[f"{label} run"] = mean
+        blocks = turns[1][1]["runs"][label]["blocks"]
+        print(
+            f"{label} whole run: {mean['this']:.3f} ms here ({blocks} blocks), {mean['other']:.3f} "
+            f"in the other checkout ({mean['this'] / mean['other']:.3f}x) [{card}]"
+        )
+    for who in ("other", "this"):
+        built = {}
+        for w, t in turns:
+            if w == who:
+                built.update(t["ptxas"])
+        report[f"ptxas {who}"] = built
+        for kernel, info in sorted(built.items()):
+            print(f"ptxas {who} {kernel}: {info.get('registers')} registers, "
+                  f"{info.get('spill_stores')} B spill stores, {info.get('spill_loads')} B spill loads")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "ab_parent.json").write_text(json.dumps(report, indent=1))

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""The newest phase of chip_smoke.py alone, for a quick check of a change
-to the partitioned executor:
+"""The newest checks of chip_smoke.py alone, for a quick check of a
+change to the event-step kernel's MULTI and wide codes:
 
     python3 tools/smoke_slice.py      # on a machine with one NVIDIA GPU
 
 Builds the libraries and prints each instantiation's registers and spills,
 then runs chip_smoke's block checks (kernel against plain version, bit for
-bit, at 65,536 replicas) on one model of each earlier instantiation, and
-chip_smoke's partitioned phase (the window kernel and the barrier against
-their plain versions window by window and over whole runs on three
-models, a checkpointed ring run, the ring at 65,536 lanes through
+bit, at 65,536 replicas) on one model of each earlier instantiation and on
+every variant of the codes for several sources or sinks (chaos-free, with
+telemetry, with chaos) and of the wide code (chaos-free on the fleet, the
+chain and the tenants, the chaos code on the quorum), the whole runs of
+two-class and wide-fleet in one launch against chained one-block
+launches, and chip_smoke's partitioned phase (the window kernel and the
+barrier against their plain versions window by window on four models,
+the nine-remote ring's wide code among them, and over whole runs on
+three, a checkpointed ring run, the ring at 65,536 lanes through
 run_partitioned with its gates, and each kernel's time a window). Any
 failure raises.
 """
@@ -44,12 +49,20 @@ def main() -> int:
         ("chaos", c.chaos_model(), [0, 1, 2, 3], c.CHAOS_SWEEPS),
         ("telemetry", c.telemetry_model(), [0, 1, 2, 3], c.HETERO_SWEEPS),
         ("resilience-fanout", c.resilience_fanout_model(), [0, 1, 2, 3], None),
-        ("two-class", c.two_class_model(), [0, 1, 2, 3], None),
         ("quorum-defended", c.quorum_model(True), [0, 1, 2, 3, 16], None),
-        ("wide-fleet", c.wide_fleet_model(), [0, 1], None),
+        ("two-class", c.two_class_model(), [0, 1, 2, 3, 100], None),
+        ("two-class-telemetry", c.two_class_model(c.TWO_CLASS_WINDOW_S), [0, 1, 2, 3, 100], None),
+        ("superpose-tie", c.superpose_model("constant", (4.0, 4.0)), [0, 1, 2, 3, 80], None),
+        ("two-class-chaos", c.two_class_model(chaos=True), [0, 1, 2, 3, 100], None),
+        ("wide-fleet", c.wide_fleet_model(), [0, 1, 2, 3, 130], None),
+        ("wide-chain", c.wide_chain_model(), [0, 1, 2, 3, 200], None),
+        ("wide-tenants", c.wide_tenants_model(), [0, 1, 2, 3, 60], None),
+        ("wide-quorum", c.wide_quorum_model(), [0, 1, 2, 3, 40], None),
     ):
         c.check_blocks(name, model, blocks, sweeps)
     print(f"block checks {time.perf_counter() - start:.1f} s", flush=True)
+    for name, model in (("two-class", c.two_class_model()), ("wide-fleet", c.wide_fleet_model())):
+        c.check_whole_run(name, model)
     c.partitioned_phase(tag)
     print("slice ok")
     return 0
