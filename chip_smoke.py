@@ -346,21 +346,31 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    8 x 128 lanes, on
    the JAX package's example ring (examples/tpu/partitioned_ring.py:
    lambda 5, mu 20, queue 256, a random router over the sink and a remote
-   of 50 ms), a chaos ring (a brownout, a deadline with backoff retries)
-   and a two-tenant ring (the code for several sources and sinks), each
-   whole run's totals also through run_partitioned, and the window checks
-   alone on a ring of nine remote egress nodes (past the lean code's table
-   of eight: the wide code's remote tables); a ring run at 8 x
+   of 50 ms), a chaos ring (a brownout, a deadline with backoff retries),
+   a two-tenant ring (the code for several sources and sinks) and a ring
+   whose two transit registers a server fill (a remote of 200 ms: full
+   rows drop, the highest slot pops), each whole run's totals also
+   through run_partitioned, and the window checks alone on a ring of nine
+   remote egress nodes (past the lean code's table of eight: the wide
+   code's remote tables); after every checked launch the transit rows'
+   occupancy bound both kernels share and keep (tied to the state's
+   tr_time) equals its recomputation; a ring run at 8 x
    8,192 lanes snapshotted every 75 windows, equal to the uninterrupted
    run, and resumed from an npz; the ring at 8 x 8,192 lanes over 30 s
    (600 windows, outboxes of 128) through run_partitioned with both launch
-   counts set to 0 just before, one window launch and one barrier launch
-   a window, its pooled sink latency within 2% of the product form's
-   0.25 s, no remote or transit drop and no truncated window; the run
+   counts set to 0 just before, one window launch a window, each running
+   the previous window's barrier first, and one barrier launch for the
+   last window, its pooled sink latency within 2% of the product form's
+   0.25 s, no remote or transit drop and no truncated window; the ring's
+   600 windows folded and unfolded in turns, four runs each, every run in
+   the same state bit for bit, their walls and spread; the run
    again with every launch timed (CUDA events), and each kernel's device
-   time a window over windows 100-119 beside its bound and the plain
+   time a window over windows 100-119, and the gap between the barrier's
+   end and the next window's start, both in the window loop and the
+   device alone, unfolded and folded, beside their bounds and the plain
    versions' time a window, their state after window 100 equal to the
-   kernels'.
+   kernels'; the folded launches also against the plain versions window
+   by window in each window check.
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
@@ -374,13 +384,19 @@ multi-lean) and its chaos arm (with chaos: multi), the defended
 quorum arm (the consensus tier), the flash crowd (the trace branch),
 the wide fleet (the chaos-free wide code: wide-lean), the wide quorum
 (the wide chaos code: wide) and the partitioned ring (the partitioned
-instantiation, its launches the run's windows, its time a window),
+instantiation, its launches the run's windows, its time that of a
+window's launch with the previous window's barrier folded in, its plain
+time that of the window and the barrier together, its bound the window's
+bytes and the barrier's merged jobs and outbox lengths, or its
+operations),
 the models the main path runs, its ms the time per block of a 20-block
 launch and its bound that of the same blocks, its launches those of the
 main path's run (one a run; for the trace branch one a stream step of
 the flash crowd's run); the draw kernel, its
 launches those of the M/M/1's chain-form run; the window barrier, its
-launches those of the partitioned ring's run, its time a window; and the
+launches those of the partitioned ring's run (one: the last window's
+barrier, the others folded), its time a window as a launch of its own;
+and the
 Lindley kernel, its launches those of the run_mm1_ensemble call, its
 times at 65,536 x 4,096. Every number printed
 carries the card's name and power limit.
@@ -3087,6 +3103,11 @@ PART_RUN_R, PART_RUN_HORIZON_S = 128, 3.0
 # timed windows.
 PART_WARM_WINDOWS, PART_TIMED_WINDOWS = 100, 20
 PART_LIBRARY_NOTE = "none: no single PyTorch call computes a window or its barrier"
+# Cycles the device sleeps before held timings (about 20 ms at 1.98 GHz),
+# longer than the host takes to queue the timed windows behind it.
+PART_HOLD_CYCLES = 40_000_000
+# Folded and unfolded runs of the ring, in turns, for its walls.
+PART_WALL_PAIRS = 4
 
 
 def partitioned_ring_model(horizon_s: float = PART_HORIZON_S) -> EnsembleModel:
@@ -3148,6 +3169,24 @@ def partitioned_two_sink_model(horizon_s: float = PART_HORIZON_S) -> EnsembleMod
     return m
 
 
+def partitioned_full_row_model(horizon_s: float = PART_HORIZON_S) -> EnsembleModel:
+    """The ring at lambda 8 with two transit registers a server and a
+    remote of four windows (200 ms): about 1.6 jobs in flight into each
+    server fill its registers, so full rows drop into tr_dropped and pops
+    of the highest occupied slot lower the row's occupancy bound."""
+    m = EnsembleModel(horizon_s=horizon_s, transit_capacity=2)
+    src = m.source(rate=8.0)
+    srv = m.server(service_mean=1.0 / PART_MU, queue_capacity=256)
+    snk = m.sink()
+    remote = m.remote(ingress=srv, latency_s=4 * PART_HOP_S)
+    router = m.router(policy="random")
+    m.connect(src, srv)
+    m.connect(srv, router)
+    m.connect(router, snk)
+    m.connect(router, remote)
+    return m
+
+
 def partitioned_nine_remote_model(horizon_s: float = PART_HORIZON_S) -> EnsembleModel:
     """Nine remote egress nodes, past the lean code's table of eight (the
     wide code's device tables hold them): a Poisson 6/s source -> server
@@ -3183,44 +3222,81 @@ def partitioned_setup(model, replicas: int) -> tuple:
 
 
 def partitioned_window(compiled, state, params, budget: int, w: int, plain: bool = False,
-                       prepared: tuple = (None, None)) -> None:
+                       prepared=None) -> None:
     """Window ``w`` and its barrier: the kernels (through run_partitioned's
-    wrappers, with its ``prepared`` argument dicts where given), or their
-    plain versions."""
+    wrappers, with its ``prepared`` dict, shared by both, where given), or
+    their plain versions."""
     limit = window_end(w, PART_HOP_S)
     if plain:
         event_step.plain_window_steps(compiled, state, params, limit, budget)
         partition_barrier.plain_barrier(compiled, state, PART_P, limit)
     else:
-        event_step.window_steps(compiled, state, state["key"], params, limit, budget, prepared[0])
-        partition_barrier.barrier(compiled, state, PART_P, limit, prepared=prepared[1])
+        event_step.window_steps(compiled, state, state["key"], params, limit, budget, prepared)
+        partition_barrier.barrier(compiled, state, PART_P, limit, prepared=prepared)
+
+
+def check_bound(state: dict, context: str) -> int:
+    """The occupancy bound the kernels keep for ``state``'s tr_time against
+    its recomputation; returns its largest entry."""
+    kept = event_step.kept_bound(state)
+    require(torch.equal(kept, event_step.transit_bound(state)),
+            f"{context}: the kept occupancy bound differs from tr_time's")
+    return int(kept.max())
+
+
+PART_OUTBOX_LEAVES = ("ob_arrival", "ob_created", "ob_ingress", "ob_len")
 
 
 def check_windows(name: str, model) -> float:
     """The first PART_CHECK_WINDOWS windows at the main path's PART_P x
     PART_R lanes: after each window launch and after each barrier launch,
-    the kernel's state against the plain versions' on every leaf. The
+    the kernel's state against the plain versions' on every leaf, and the
+    occupancy bound the kernels keep against its recomputation; and on a
+    copy, the folded ring's launches (each window's launch running the
+    previous window's barrier first, as run_partitioned runs a ring on
+    one card): after folded launch w, every leaf but the outbox against
+    the plain state after window w, the window's outbox (in the scratch
+    slab of its parity) against the plain outbox leaves, and after the
+    flush every leaf against the plain state after the last barrier. The
     kernels go through the wrappers as run_partitioned calls them, their
-    arguments checked once."""
+    arguments checked once and the bound shared."""
     compiled, state, params, budget = partitioned_setup(model, PART_R)
     plain = {k: v.clone() for k, v in state.items()}
+    folded = {k: v.clone() for k, v in state.items()}
+    ring = partition_barrier.folded_ring(compiled, folded, folded["key"], params, PART_P, budget, {})
     max_abs = 0.0
-    wprep, bprep = {}, {}
+    prepared: dict = {}
+    highest = 0
     for w in range(PART_CHECK_WINDOWS):
         limit = window_end(w, PART_HOP_S)
-        event_step.window_steps(compiled, state, state["key"], params, limit, budget, wprep)
+        event_step.window_steps(compiled, state, state["key"], params, limit, budget, prepared)
+        ring.window(limit)
         event_step.plain_window_steps(compiled, plain, params, limit, budget)
         torch.cuda.synchronize()
         max_abs = max(max_abs, compare_states(state, plain, f"{name} window {w}"))
+        highest = max(highest, check_bound(state, f"{name} window {w}"))
+        slab = dict(zip(PART_OUTBOX_LEAVES, ring.outboxes[ring.pending[1]]))
+        max_abs = max(max_abs, compare_states(
+            {**folded, **slab}, plain, f"{name} folded window {w}"))
+        check_bound(folded, f"{name} folded window {w}")
         queued = int(state["ob_len"].sum())
-        partition_barrier.barrier(compiled, state, PART_P, limit, prepared=bprep)
+        partition_barrier.barrier(compiled, state, PART_P, limit, prepared=prepared)
         partition_barrier.plain_barrier(compiled, plain, PART_P, limit)
         torch.cuda.synchronize()
         max_abs = max(max_abs, compare_states(state, plain, f"{name} barrier {w}"))
+        highest = max(highest, check_bound(state, f"{name} barrier {w}"))
+        require(all(int(folded[leaf].abs().sum()) == 0 for leaf in PART_OUTBOX_LEAVES[1:]),
+                f"{name} folded window {w}: the state's own outbox was written")
         if w in (0, PART_CHECK_WINDOWS - 1):
             print(f"  {name} window {w} at {PART_P} x {PART_R} lanes: kernel == plain on every leaf "
-                  f"after the window and after the barrier ({queued} jobs crossed, "
-                  f"{int(state['events'].sum())} events so far)")
+                  f"after the window and after the barrier, the kept occupancy bound == tr_time's "
+                  f"({queued} jobs crossed, {int(state['events'].sum())} events, "
+                  f"{int(state['tr_dropped'].sum())} transit drops so far; highest bound {highest} "
+                  f"of {compiled.TR}); the folded launch == plain too")
+    ring.flush()
+    torch.cuda.synchronize()
+    max_abs = max(max_abs, compare_states(folded, plain, f"{name} folded, flushed"))
+    check_bound(folded, f"{name} folded, flushed")
     require(int(state["ob_sent"].sum()) > 0, f"{name}: nothing crossed")
     return max_abs
 
@@ -3277,42 +3353,140 @@ def timed_partitioned_run(model, tag: str) -> tuple:
     return result, *(sum(a.elapsed_time(b) for a, b in times[k]) for k in ("window", "barrier"))
 
 
+def _window_marks(windows, launches, held: bool) -> tuple:
+    """Each window's launches (``launches(w)``: callables of one launch
+    each) with a CUDA event before the first and after each. ``held``:
+    behind a torch.cuda._sleep that keeps the device busy until the host
+    has queued every window, so the events time the device alone; else
+    as a window loop issues them, the device waiting on the host where
+    the host is slower. Returns (each window's events, the host's seconds
+    to issue them)."""
+    if held:
+        torch.cuda._sleep(PART_HOLD_CYCLES)
+    marks = []
+    start = time.perf_counter()
+    for w in windows:
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+        for launch_one in launches(w):
+            launch_one()
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        marks.append(events)
+    host = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return marks, host
+
+
+def _mark_ms(marks: list) -> tuple:
+    """(each launch's device ms a window, the gap's ms a window: from a
+    window's last launch to the next window's first)."""
+    n = len(marks)
+    per_launch = [sum(m[k].elapsed_time(m[k + 1]) for m in marks) / n
+                  for k in range(len(marks[0]) - 1)]
+    gap = sum(a[-1].elapsed_time(b[0]) for a, b in zip(marks, marks[1:])) / (n - 1)
+    return per_launch, gap
+
+
+def ring_walls(model) -> dict:
+    """The ring's whole run (PART_HORIZON_S in windows of PART_HOP_S) on
+    PART_P x PART_R lanes of the card, from one initial state, in turns
+    folded (partition_barrier.FoldedRing: a launch a window with the
+    previous window's barrier folded in, then one barrier launch, as
+    run_partitioned runs a ring that one card holds) and unfolded (a
+    window_steps and a barrier launch a window, the loop of a ring across
+    devices), PART_WALL_PAIRS pairs in the order folded, unfolded,
+    unfolded, folded, ...: each wall from the first launch (its arguments
+    checked and its occupancy bound built there, as in run_partitioned) to
+    the sync after the last. Every run must end in the first folded run's state, bit for bit,
+    and launch what its form launches."""
+    compiled, initial, params, budget = partitioned_setup(model, PART_R)
+    n_windows = int(np.ceil(model.horizon_s / PART_HOP_S))
+    walls = {"folded": [], "unfolded": []}
+    first = None
+    for k in range(2 * PART_WALL_PAIRS):
+        folded = (k % 4) in (0, 3)
+        st = {leaf: v.clone() for leaf, v in initial.items()}
+        torch.cuda.synchronize()
+        event_step.window_steps.launches = partition_barrier.barrier.launches = 0
+        t0 = time.perf_counter()
+        if folded:
+            ring = partition_barrier.folded_ring(compiled, st, st["key"], params, PART_P, budget, {})
+            for w in range(n_windows):
+                ring.window(window_end(w, PART_HOP_S))
+            ring.flush()
+        else:
+            prepared: dict = {}
+            for w in range(n_windows):
+                partitioned_window(compiled, st, params, budget, w, prepared=prepared)
+        torch.cuda.synchronize()
+        walls["folded" if folded else "unfolded"].append((time.perf_counter() - t0) * 1e3)
+        launches = (event_step.window_steps.launches, partition_barrier.barrier.launches)
+        require(launches == (n_windows, 1 if folded else n_windows),
+                f"ring walls, {'folded' if folded else 'unfolded'}: launches {launches}")
+        if first is None:
+            first = st
+        else:
+            same_state(first, st, f"ring walls, run {k} against the first")
+    return {"windows": n_windows, **walls}
+
+
 def time_partitioned(model) -> dict:
     """The window kernel's and the barrier's device time a window at full
     width over windows PART_WARM_WINDOWS.. + PART_TIMED_WINDOWS, CUDA
-    events around each launch of a queue the host keeps full (the
-    wrappers' arguments checked once, in the last warm window, as
-    run_partitioned's window loop checks them; no sync until the last),
-    beside their bounds for the same windows (counted on a copy of the
-    state, launch by launch) and the plain versions' time a window, whose
-    state after window PART_WARM_WINDOWS must equal the kernels'. The
-    kernel's bound: the dense state moved once a launch
-    (support.launch_bytes, 3.35 TB/s) and the float operations of the
-    events run and the threefry the kernel counted (a fold an event); the
-    barrier's: its bytes, the clock, the depth integrals, the queue
-    lengths and the outbox lengths, each merged job read, parked and
-    reset."""
+    events around each launch (the wrappers' arguments checked once, in
+    the last warm window, as run_partitioned's window loop checks them; no
+    sync until the last), each timed from a copy of the state after the
+    warm windows in four ways: the window then the barrier launch, and the
+    folded ring's one launch a window (partition_barrier.FoldedRing, then
+    its flush), each as the window loop issues them (``loop_*``) and held
+    behind a sleep so that the device runs them back to back (the device
+    alone); and the host's ms to issue a window. Beside them the bounds
+    for the same windows (counted on a copy of the state, launch by
+    launch) and the plain versions' time a window, whose state after
+    window PART_WARM_WINDOWS must equal the kernels'; every timed copy
+    must end in the counted copy's state. The kernel's bound: the dense
+    state moved once a launch (support.launch_bytes, 3.35 TB/s) and the
+    float operations of the events run and the threefry the kernel
+    counted (a fold an event); the barrier's: its bytes, the clock, the
+    depth integrals, the queue lengths and the outbox lengths, each
+    merged job read, parked and reset; the folded launch's: the window's
+    bytes, to which the barrier adds only the merged jobs and the scratch
+    outbox's lengths read and reset, or its operations."""
     compiled, state, params, budget = partitioned_setup(model, PART_R)
-    prepared = ({}, {})
+    prepared: dict = {}
     for w in range(PART_WARM_WINDOWS):
         partitioned_window(compiled, state, params, budget, w, prepared=prepared)
     lanes, n = PART_P * PART_R, PART_TIMED_WINDOWS
     windows = range(PART_WARM_WINDOWS, PART_WARM_WINDOWS + n)
-    counted = {k: v.clone() for k, v in state.items()}
-    plain = {k: v.clone() for k, v in state.items()}
-    marks = []
-    for w in windows:
-        limit = window_end(w, PART_HOP_S)
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        events[0].record()
-        event_step.window_steps(compiled, state, state["key"], params, limit, budget, prepared[0])
-        events[1].record()
-        partition_barrier.barrier(compiled, state, PART_P, limit, prepared=prepared[1])
-        events[2].record()
-        marks.append(events)
-    torch.cuda.synchronize()
-    kernel_ms = sum(a.elapsed_time(b) for a, b, _c in marks)
-    barrier_ms = sum(b.elapsed_time(c) for _a, b, c in marks)
+    copies = {kind: {k: v.clone() for k, v in state.items()}
+              for kind in ("counted", "plain", "held", "folded", "folded held")}
+    times = {}
+    for kind, st, held in (("loop", state, False), ("held", copies["held"], True)):
+        prep = prepared if st is state else {}
+
+        def split(w, st=st, prep=prep):
+            limit = window_end(w, PART_HOP_S)
+            return (
+                lambda: event_step.window_steps(compiled, st, st["key"], params, limit, budget, prep),
+                lambda: partition_barrier.barrier(compiled, st, PART_P, limit, prepared=prep),
+            )
+
+        if held:  # the bound built before the clock
+            event_step.occupancy_bound(st)
+        marks, host = _window_marks(windows, split, held)
+        (window_ms, barrier_ms), gap_ms = _mark_ms(marks)
+        times[kind] = {"kernel_ms": window_ms, "barrier_ms": barrier_ms, "gap_ms": gap_ms,
+                       "host_ms": host * 1e3 / n}
+    for kind, held in (("folded", False), ("folded held", True)):
+        st = copies[kind]
+        ring = partition_barrier.folded_ring(compiled, st, st["key"], params, PART_P, budget, {})
+        marks, host = _window_marks(windows, lambda w, ring=ring: (
+            lambda: ring.window(window_end(w, PART_HOP_S)),), held)
+        ring.flush()
+        (fold_ms,), gap_ms = _mark_ms(marks)
+        times[kind] = {"kernel_ms": fold_ms, "gap_ms": gap_ms, "host_ms": host * 1e3 / n}
+    counted, plain = copies["counted"], copies["plain"]
     limit = window_end(PART_WARM_WINDOWS, PART_HOP_S)
     start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     start.record()
@@ -3325,32 +3499,50 @@ def time_partitioned(model) -> dict:
     drawn = torch.zeros((lanes,), dtype=torch.int32, device="cuda")
     events = merged = draws = 0
     max_abs = None
+    cprep: dict = {}
     for w in windows:
         limit = window_end(w, PART_HOP_S)
         before = int(counted["events"].to(torch.int64).sum())
         event_step.launch(event_step.window_launch_args(
-            compiled, counted, counted["key"], params, limit, budget, halted, drawn
+            compiled, counted, counted["key"], params, limit, budget, halted,
+            event_step.occupancy_bound(counted), drawn,
         ), torch.device("cuda"))
         events += int(counted["events"].to(torch.int64).sum()) - before
         draws += int(drawn.to(torch.int64).sum())
         merged += int(counted["ob_len"].to(torch.int64).sum())
-        partition_barrier.barrier(compiled, counted, PART_P, limit)
+        partition_barrier.barrier(compiled, counted, PART_P, limit, prepared=cprep)
         if max_abs is None:
             torch.cuda.synchronize()
             max_abs = compare_states(counted, plain, f"ring window {w} at {PART_P} x {PART_R} lanes")
-    same_state(counted, state, "the timed windows against the counted ones")
+    for kind, st in (("loop", state), *((k, copies[k]) for k in ("held", "folded", "folded held"))):
+        same_state(counted, st, f"the timed windows ({kind}) against the counted ones")
     float_ops = events * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER * compiled.nV)
     int_ops, alu_ops = support.draw_int_ops(events, draws), support.draw_alu_ops(events, draws)
     bytes_ms = n * support.launch_bytes(compiled, state) / PEAK_BYTES_PER_S * 1e3
     ops_ms = max(float_ops / PEAK_F32_OPS_PER_S * 1e3, int_ms(int_ops, alu_ops))
     lane_bytes = 4 * (2 + 3 * compiled.nV + 2)
-    barrier_bytes = n * lanes * lane_bytes + merged * 4 * (3 + 2 + 3)
+    job_bytes = merged * 4 * (3 + 2 + 3)
+    barrier_bytes = n * lanes * lane_bytes + job_bytes
+    # Folded, the barrier's clock, depth integrals and queue lengths are
+    # the window's own dense leaves, moved once by the launch: it adds the
+    # merged jobs and the scratch outbox's length read and reset.
+    fold_bytes_ms = (n * support.launch_bytes(compiled, state) + n * lanes * 4 * 2
+                     + job_bytes) / PEAK_BYTES_PER_S * 1e3
+    held, loop = times["held"], times["loop"]
     return {
-        "kernel_ms": kernel_ms / n, "barrier_ms": barrier_ms / n,
+        "kernel_ms": held["kernel_ms"], "barrier_ms": held["barrier_ms"], "gap_ms": held["gap_ms"],
+        "host_ms": held["host_ms"],
+        "loop_kernel_ms": loop["kernel_ms"], "loop_barrier_ms": loop["barrier_ms"],
+        "loop_gap_ms": loop["gap_ms"], "loop_host_ms": loop["host_ms"],
+        "fold_ms": times["folded held"]["kernel_ms"], "fold_gap_ms": times["folded held"]["gap_ms"],
+        "fold_host_ms": times["folded held"]["host_ms"],
+        "loop_fold_ms": times["folded"]["kernel_ms"], "loop_fold_gap_ms": times["folded"]["gap_ms"],
         "plain_ms": start.elapsed_time(mid), "plain_barrier_ms": mid.elapsed_time(end),
         "plain_max_abs_err": max_abs,
         "bound_ms": max(bytes_ms, ops_ms) / n, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "barrier_bound_ms": barrier_bytes / PEAK_BYTES_PER_S * 1e3 / n, "barrier_bound_by": "bytes",
+        "fold_bound_ms": max(fold_bytes_ms, ops_ms) / n,
+        "fold_bound_by": "bytes" if fold_bytes_ms >= ops_ms else "operations",
         "events_per_window": events / n, "jobs_crossed_per_window": merged / n,
         "threefry_per_window": draws / n,
     }
@@ -3360,10 +3552,11 @@ def partitioned_phase(tag: str) -> dict:
     """run_partitioned (happysim_tpu_torch/partitioned.py) on 8 partitions
     of cuda:0: the window kernel (csrc/event_step_partitioned.cu) and the
     barrier (csrc/partition_barrier.cu) against their plain versions on
-    the ring, a chaos ring and a two-tenant ring (window by window, then
-    whole runs); a checkpointed ring run against the uninterrupted one;
-    the timed ring at 65,536 lanes with its gates; each kernel's time a
-    window beside its bound."""
+    the ring, a chaos ring, a two-tenant ring and a ring of full transit
+    rows (window by window, then whole runs), and the nine-remote ring
+    (window by window); a checkpointed ring run against the uninterrupted
+    one; the timed ring at 65,536 lanes with its gates; each kernel's
+    time a window, and the gap between them, beside its bound."""
     t0 = time.perf_counter()
     out = {"max_abs_err": {}, "whole_max_abs_err": {}}
     print(f"partitioned executor: {PART_P} partitions of cuda:0, window {PART_HOP_S} s:")
@@ -3371,6 +3564,7 @@ def partitioned_phase(tag: str) -> dict:
         "ring": partitioned_ring_model,
         "chaos-ring": partitioned_chaos_model,
         "two-sink-ring": partitioned_two_sink_model,
+        "full-row-ring": partitioned_full_row_model,
     }
     for name, build_model in {**models, "nine-remote-ring": partitioned_nine_remote_model}.items():
         model = build_model()
@@ -3378,7 +3572,8 @@ def partitioned_phase(tag: str) -> dict:
         state, params = init_partitions(compiled, 0, 1, 64, 0, "cuda")
         halted = torch.empty((64,), dtype=torch.uint8, device="cuda")
         args = event_step.window_launch_args(compiled, state, state["key"], params,
-                                             window_end(0, PART_HOP_S), 8, halted)
+                                             window_end(0, PART_HOP_S), 8, halted,
+                                             event_step.transit_bound(state))
         require(event_step.library_of(args) == "event_step_partitioned", f"{name}: library")
         # More than the lean table's 8 remotes run the wide code.
         require(bool(args.wide.on) == (name == "nine-remote-ring"), f"{name}: wide {args.wide.on}")
@@ -3396,7 +3591,9 @@ def partitioned_phase(tag: str) -> dict:
     event_step.window_steps.launches = partition_barrier.barrier.launches = 0
     checkpointed = run_partitioned(partitioned_ring_model(), PART_HOP_S, **kw,
                                    checkpoint_every_windows=75, checkpoint_callback=snaps.append)
-    require((event_step.window_steps.launches, partition_barrier.barrier.launches) == (600, 600),
+    # One card holds the ring: a folded launch a window, and a barrier
+    # launch at the end of each of the 8 runs of windows.
+    require((event_step.window_steps.launches, partition_barrier.barrier.launches) == (600, 8),
             "checkpointed ring: launches")
     fields = [f.name for f in dataclasses.fields(one)
               if f.name not in ("wall_seconds", "events_per_second", "per_partition_sink_count")]
@@ -3422,10 +3619,11 @@ def partitioned_phase(tag: str) -> dict:
                            n_replicas=PART_R)
     out["launches"] = {"window": event_step.window_steps.launches,
                        "barrier": partition_barrier.barrier.launches}
-    require(out["launches"] == {"window": ring.n_windows, "barrier": ring.n_windows},
+    require(out["launches"] == {"window": ring.n_windows, "barrier": 1},
             f"ring: launches {out['launches']} for {ring.n_windows} windows")
     print(f"run_partitioned ring {PART_P} x {PART_R}: {ring.n_windows} windows, "
-          f"{out['launches']['window']} window and {out['launches']['barrier']} barrier launches, "
+          f"{out['launches']['window']} window launches (each with the previous window's barrier "
+          f"folded in) and {out['launches']['barrier']} barrier launch (the last window's), "
           f"{ring.simulated_events} events in {ring.wall_seconds * 1e3:.3f} ms = "
           f"{ring.events_per_second:.4g} events/s, {ring.remote_sent} jobs crossed {tag}")
     within(ring.sink_mean_latency_s[0], PART_PRODUCT_FORM_S, "ring pooled sink latency (product form)",
@@ -3435,9 +3633,21 @@ def partitioned_phase(tag: str) -> dict:
             f"truncated_windows {ring.truncated_windows}")
     counts = ring.per_partition_sink_count[:, 0]
     require(counts.min() > 0.9 * counts.max(), f"ring: partitions unbalanced {counts.tolist()}")
+    walls = out["ring_walls"] = ring_walls(partitioned_ring_model())
+    spread = {k: (min(walls[k]), max(walls[k]), sum(walls[k]) / len(walls[k]))
+              for k in ("folded", "unfolded")}
+    for k in ("folded", "unfolded"):
+        print(f"  ring walls in turns, {k}: " + ", ".join(f"{x:.3f}" for x in walls[k])
+              + f" ms for {walls['windows']} windows (mean {spread[k][2]:.3f}, range "
+              f"{spread[k][0]:.3f}-{spread[k][1]:.3f}) {tag}")
+    print(f"  ring walls: folded over unfolded {spread['folded'][2] / spread['unfolded'][2]:.3f}x by "
+          f"their means; the slowest folded run {spread['folded'][1]:.3f} ms against the fastest "
+          f"unfolded {spread['unfolded'][0]:.3f}; every run in the same state, bit for bit {tag}")
     timed_result, window_ms, barrier_ms = timed_partitioned_run(partitioned_ring_model(), tag)
     require(timed_result.sink_count == ring.sink_count, "ring: the timed run differs")
     out["walls_ms"] = {"ring": ring.wall_seconds * 1e3, "ring, each launch timed": timed_result.wall_seconds * 1e3,
+                       "ring, folded in turns": spread["folded"][2],
+                       "ring, unfolded in turns": spread["unfolded"][2],
                        "checkpoint one run": one.wall_seconds * 1e3,
                        "checkpointed": checkpointed.wall_seconds * 1e3}
     out["run"] = {
@@ -3446,13 +3656,26 @@ def partitioned_phase(tag: str) -> dict:
         "window_kernel_ms_per_window": window_ms / ring.n_windows,
         "barrier_ms_per_window": barrier_ms / ring.n_windows,
     }
-    print(f"  ring device time: window kernel {window_ms:.3f} ms ({window_ms / ring.n_windows * 1e3:.2f} "
-          f"us a window), barrier {barrier_ms:.3f} ms ({barrier_ms / ring.n_windows * 1e3:.2f} us a "
-          f"window), of a {timed_result.wall_seconds * 1e3:.3f} ms wall with every launch timed, "
-          f"{100 * (window_ms + barrier_ms) / (timed_result.wall_seconds * 1e3):.1f}% device {tag}")
+    print(f"  ring device time: folded window launches {window_ms:.3f} ms "
+          f"({window_ms / ring.n_windows * 1e3:.2f} us a window), barrier {barrier_ms:.3f} ms (the "
+          f"last window's), of a {timed_result.wall_seconds * 1e3:.3f} ms wall with every launch "
+          f"timed, {100 * (window_ms + barrier_ms) / (timed_result.wall_seconds * 1e3):.1f}% device {tag}")
     t = out["timing"] = time_partitioned(partitioned_ring_model())
-    print(f"timing partitioned (ring, windows {PART_WARM_WINDOWS}-{PART_WARM_WINDOWS + PART_TIMED_WINDOWS - 1} "
-          f"at {PART_P} x {PART_R}): window kernel {t['kernel_ms'] * 1e3:.2f} us a window, "
+    span = f"windows {PART_WARM_WINDOWS}-{PART_WARM_WINDOWS + PART_TIMED_WINDOWS - 1} at {PART_P} x {PART_R}"
+    for label, k, b, g in (("in the window loop", "loop_kernel_ms", "loop_barrier_ms", "loop_gap_ms"),
+                           ("the device alone", "kernel_ms", "barrier_ms", "gap_ms")):
+        device_ms = t[k] + t[b] + t[g]
+        print(f"timing partitioned (ring, {span}), {label}: window kernel {t[k] * 1e3:.2f} us, barrier "
+              f"{t[b] * 1e3:.2f} us, gap between launches {t[g] * 1e3:.2f} us a window; the barrier "
+              f"with its gap {100 * (t[b] + t[g]) / device_ms:.1f}% of the window's "
+              f"{device_ms * 1e3:.2f} us {tag}")
+    print(f"timing partitioned (ring, {span}), folded: one launch {t['loop_fold_ms'] * 1e3:.2f} us and "
+          f"gap {t['loop_fold_gap_ms'] * 1e3:.2f} us a window in the window loop, "
+          f"{t['fold_ms'] * 1e3:.2f} us and {t['fold_gap_ms'] * 1e3:.2f} us the device alone, "
+          f"{100 * t['fold_bound_ms'] / t['fold_ms']:.2f}% of its bound {t['fold_bound_ms'] * 1e3:.3f} us "
+          f"({t['fold_bound_by']}); the host issues a window in {t['fold_host_ms'] * 1e3:.2f} us folded, "
+          f"{t['host_ms'] * 1e3:.2f} us unfolded {tag}")
+    print(f"timing partitioned (ring, {span}): window kernel {t['kernel_ms'] * 1e3:.2f} us a window, "
           f"{100 * t['bound_ms'] / t['kernel_ms']:.2f}% of its bound {t['bound_ms'] * 1e3:.3f} us "
           f"({t['bound_by']}; {t['events_per_window']:.0f} events, {t['threefry_per_window']:.0f} "
           f"threefry a window); barrier {t['barrier_ms'] * 1e3:.2f} us a window, "
@@ -3861,10 +4084,13 @@ def main() -> int:
                 "max_abs_err": max(list(parts["max_abs_err"].values())
                                    + list(parts["whole_max_abs_err"].values())
                                    + [parts["timing"]["plain_max_abs_err"]]),
-                "ms": parts["timing"]["kernel_ms"],
-                "plain_ms": parts["timing"]["plain_ms"],
-                "bound_ms": parts["timing"]["bound_ms"],
-                "bound_by": parts["timing"]["bound_by"],
+                # The main path's launch: a window with the previous
+                # window's barrier folded in, against both plain versions
+                # and the folded launch's own bound.
+                "ms": parts["timing"]["fold_ms"],
+                "plain_ms": parts["timing"]["plain_ms"] + parts["timing"]["plain_barrier_ms"],
+                "bound_ms": parts["timing"]["fold_bound_ms"],
+                "bound_by": parts["timing"]["fold_bound_by"],
                 "library_ms": None,
             },
             {

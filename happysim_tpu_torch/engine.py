@@ -1117,14 +1117,17 @@ class _Compiled:
         return self._device_tables[key]
 
     # -- state -------------------------------------------------------------
-    def init_state(self, keys: torch.Tensor, params: dict) -> dict:
+    def init_state(self, keys: torch.Tensor, params: dict, draw: bool = True) -> dict:
         """Per-replica state for ``keys`` ``(R, 2)`` uint32: the leaves of
-        the JAX ``init_state``, each with a leading replica axis."""
+        the JAX ``init_state``, each with a leading replica axis.
+        ``draw=False`` builds the same leaves without drawing a uniform
+        (the initial gaps zero, the fault and partition windows none
+        fired): a template whose leaf names are read, not its values."""
         R = keys.shape[0]
         dev = keys.device
         nV, C, K, nK, nR, nL = self.nV, self.C, self.K, self.nK, self.nR, self.nL
         f32, i32 = torch.float32, torch.int32
-        gaps = self._initial_gaps(keys, params)
+        gaps = self._initial_gaps(keys, params) if draw else torch.zeros_like(params["src_rate"])
         if self.has_trace:
             # The traced source's first arrival is the trace's first
             # instant; its gap draw is discarded, so every other draw
@@ -1175,7 +1178,7 @@ class _Compiled:
         if self.has_faults:
             # Each replica's fault timeline, drawn once from its key: a
             # fault needs no events of its own.
-            state.update(self.faults.sample_state(keys))
+            state.update(self.faults.sample_state(keys, draw))
             state["srv_fault_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
         if self.has_fault_retries:
             state["srv_fault_retried"] = torch.zeros((R, nV), dtype=i32, device=dev)
@@ -1209,7 +1212,7 @@ class _Compiled:
         if self.has_partitions:
             # Each replica's partition timeline, drawn once from its key
             # on its own salted stream.
-            state.update(self.partitions.sample_state(keys))
+            state.update(self.partitions.sample_state(keys, draw))
             state["net_partitioned"] = torch.zeros((R,), dtype=i32, device=dev)
         if self.has_quorum:
             state["qrm_dropped"] = torch.zeros((R, nV), dtype=i32, device=dev)
@@ -3014,9 +3017,12 @@ def _partition_gate(compiled: "_Compiled", host_params: dict, mesh) -> None:
     """Every leaf of the run's state has a placement in
     :data:`~happysim_tpu_torch.mesh.STATE_PARTITION_RULES` (raises
     naming the first that has none): the leaf names of one replica's
-    state on the CPU."""
+    state on the CPU, built without a draw (the run's own set-up draws
+    the initial gaps once)."""
     template = compiled.init_state(
-        rng.split(rng.PRNGKey(0), 1), {k: torch.from_numpy(v[:1]) for k, v in host_params.items()}
+        rng.split(rng.PRNGKey(0), 1),
+        {k: torch.from_numpy(v[:1]) for k, v in host_params.items()},
+        draw=False,
     )
     mesh_lib.ensemble_state_specs(tuple(template), mesh)
 

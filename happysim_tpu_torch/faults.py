@@ -158,13 +158,15 @@ class FaultTable:
             )
         return out
 
-    def sample_state(self, keys: torch.Tensor) -> dict:
+    def sample_state(self, keys: torch.Tensor, draw: bool = True) -> dict:
         """Each replica's window registers: ``flt_start`` / ``flt_end``
         ``(R, nV, W)`` (+inf rows for unfaulted servers) and, with a
         correlated schedule, ``flt_sh_start`` / ``flt_sh_end`` ``(R,
-        W_sh)`` holding only the candidates the trigger fired."""
+        W_sh)`` holding only the candidates the trigger fired.
+        ``draw=False``: the same leaves without a draw, the sampled
+        windows left at their pinned values and no shared one fired."""
         R, dev = keys.shape[0], keys.device
-        u = self.draw_uniforms(keys)
+        u = self.draw_uniforms(keys) if draw else {}
         starts = torch.from_numpy(self.det_start).to(dev).expand(R, -1, -1).clone()
         ends = torch.from_numpy(self.det_end).to(dev).expand(R, -1, -1).clone()
         if "servers" in u:
@@ -194,6 +196,9 @@ class FaultTable:
             inf = torch.full_like(start, float("inf"))
             state["flt_sh_start"] = torch.where(fired, start, inf)
             state["flt_sh_end"] = torch.where(fired, end, inf)
+        elif self.has_shared:
+            inf = torch.full((R, self.W_sh), float("inf"), device=dev)
+            state["flt_sh_start"], state["flt_sh_end"] = inf, inf.clone()
         return state
 
     def dark(self, state: dict, v: int, t: torch.Tensor) -> torch.Tensor:
@@ -264,14 +269,15 @@ class PartitionTable:
         pkey = rng.fold_in(keys, PARTITION_KEY_SALT)
         return rng.uniform(rng.fold_in(pkey, 0), (self.nP, self.Wp, 3), minval=1e-12, maxval=1.0)
 
-    def sample_state(self, keys: torch.Tensor) -> dict:
+    def sample_state(self, keys: torch.Tensor, draw: bool = True) -> dict:
         """Each replica's ``prt_start`` / ``prt_end`` ``(R, nP, Wp)``
         registers: windows the trigger left unfired, and a pinned row's
-        unused tail, at +inf."""
+        unused tail, at +inf (``draw=False``: the same leaves without a
+        draw, the stochastic rows at their pinned values)."""
         R, dev = keys.shape[0], keys.device
         starts = torch.from_numpy(self.det_start).to(dev).expand(R, -1, -1).clone()
         ends = torch.from_numpy(self.det_end).to(dev).expand(R, -1, -1).clone()
-        if self.stochastic.any():
+        if draw and self.stochastic.any():
             u = self.draw_uniforms(keys)
             rate = torch.from_numpy(self.rate).to(dev)[:, None]
             mean = torch.from_numpy(self.mean_dur).to(dev)[:, None]

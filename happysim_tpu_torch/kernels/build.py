@@ -37,7 +37,7 @@ SOURCES = (
     CSRC / "mm1_scan.cu",
     CSRC / "partition_barrier.cu",
 )
-HEADERS = (CSRC / "event_step.cuh", CSRC / "threefry.cuh")
+HEADERS = (CSRC / "event_step.cuh", CSRC / "threefry.cuh", CSRC / "partition_barrier.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # No --use_fast_math, and no multiply-add contraction: the kernels must
 # round exactly as their plain versions' one-op-per-kernel torch code.

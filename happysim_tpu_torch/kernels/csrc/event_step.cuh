@@ -232,6 +232,7 @@
 
 #include <type_traits>
 
+#include "partition_barrier.cuh"
 #include "threefry.cuh"
 
 // The lean instantiations' tables in the argument struct. A model past
@@ -461,9 +462,12 @@ struct HsTrc {
 };
 
 // The partitioned executor (PRT instantiations): the outbox leaves,
-// replica major in the JAX layout, the truncated-window counter, the
-// window's end and event budget, and the remote egress nodes' tables.
-// The layout must match kernels/event_step.py::_Prt.
+// replica major in the JAX layout (or, with the barrier folded in, a
+// scratch outbox of the window's parity), the truncated-window counter,
+// the transit rows' occupancy bounds, the window's end and event budget,
+// the remote egress nodes' tables, and the previous window's barrier when
+// it is folded into this launch. The layout must match
+// kernels/event_step.py::_Prt.
 struct HsPrt {
   float* ob_arrival;  // (R, OB) when each queued job reaches the neighbour
   float* ob_created;  // (R, OB) its creation time
@@ -472,6 +476,10 @@ struct HsPrt {
   int* ob_sent;       // (R,) jobs sent
   int* ob_dropped;    // (R,) jobs a full outbox dropped
   int* truncated;     // (R,) windows whose budget ran out with an event due
+  // (R, nV) 1 + the highest occupied (not +inf) slot of each transit row
+  // (0: empty), kept across windows beside the state (not a leaf); the
+  // barrier keeps it too. Every scan of a row stops there.
+  int* tr_hi;
   int on;             // 1: a window launch of the partitioned executor
   int OB;             // outbox capacity
   int budget;         // events a lane may run this window
@@ -479,6 +487,11 @@ struct HsPrt {
   int nRm;            // remote egress nodes
   float rm_latency[HS_MAX_REMOTES];  // float32 latency_s of each
   int rm_ingress[HS_MAX_REMOTES];    // its ingress server
+  // 1: each lane first runs its barrier of the previous window (`bar`:
+  // the state's rows, and the other parity's scratch outbox to merge and
+  // reset), as the barrier kernel would have before this launch.
+  int fold;
+  BarrierArgs bar;
 };
 
 // The wide code's tables (MAXV = HS_WIDE): the model's constants, one
@@ -1080,9 +1093,10 @@ struct Lane {
   // CON: this replica's (nP, Wp) partition windows and its counters
   HsRow<const float> prt_start, prt_end;
   int *net_partitioned, *qrm_dropped;
-  // PRT: this replica's outbox rows and counters
+  // PRT: this replica's outbox rows and counters, and its transit rows'
+  // occupancy bounds
   float *ob_arrival, *ob_created;
-  int *ob_ingress, *ob_len, *ob_sent, *ob_dropped;
+  int *ob_ingress, *ob_len, *ob_sent, *ob_dropped, *tr_hi;
   int drawn;  // threefry evaluations this launch (the block keys' included)
 };
 
@@ -1172,21 +1186,45 @@ __device__ __forceinline__ float edge_arrival(const HsRef& e, float t, const HsD
   return routed ? t + draw * e.lat_mean : fma_f64(draw, e.lat_mean, t);
 }
 
+// How far server w's transit row is scanned: PRT, its occupancy bound
+// (every slot from it on is free); else the whole row.
+template <int MAXV, bool PRT>
+__device__ __forceinline__ int transit_hi(const Lane<MAXV>& L, const EventStepArgs& a, int w) {
+  if constexpr (PRT) {
+    return L.tr_hi[w];
+  } else {
+    return a.TR;
+  }
+}
+
 // _into_transit: park in the first free transit slot of server w until
 // `arrival`; with none free the job is lost and tr_dropped counts it.
 // A backoff retry parks here too, with its attempt number (CHAOS).
-template <int MAXV, bool CHAOS = false, bool TEL = false>
+// PRT: the first free slot below the row's occupancy bound, else the
+// bound's own slot, which raises it (JAX's first free slot either way).
+template <int MAXV, bool CHAOS = false, bool TEL = false, bool PRT = false>
 __device__ __forceinline__ void into_transit(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                              float arrival, float created, int attempt = 0) {
   const HsRow<float> row = L.tr_time + w * a.TR;
-  for (int c = 0; c < a.TR; ++c) {
+  const int hi = transit_hi<MAXV, PRT>(L, a, w);
+  auto park = [&](int c) {
+    row[c] = arrival;
+    L.tr_created[w * a.TR + c] = created;
+    if constexpr (CHAOS) {
+      if (L.tr_attempt) L.tr_attempt[w * a.TR + c] = attempt;
+    }
+    put(L.tmin, w, fminf(pick(L.tmin, w), arrival));
+  };
+  for (int c = 0; c < hi; ++c) {
     if (isinf(row[c])) {
-      row[c] = arrival;
-      L.tr_created[w * a.TR + c] = created;
-      if constexpr (CHAOS) {
-        if (L.tr_attempt) L.tr_attempt[w * a.TR + c] = attempt;
-      }
-      put(L.tmin, w, fminf(pick(L.tmin, w), arrival));
+      park(c);
+      return;
+    }
+  }
+  if constexpr (PRT) {
+    if (hi < a.TR) {
+      park(hi);
+      if (!isinf(arrival)) L.tr_hi[w] = hi + 1;
       return;
     }
   }
@@ -1197,10 +1235,14 @@ __device__ __forceinline__ void into_transit(Lane<MAXV>& L, const EventStepArgs&
 
 // Whether server w has a free transit register (the retry counters'
 // gate: a retry that finds none is a tr_dropped, not a retry).
-template <int MAXV>
+template <int MAXV, bool PRT = false>
 __device__ __forceinline__ bool transit_free(const Lane<MAXV>& L, const EventStepArgs& a, int w) {
   const HsRow<float> row = L.tr_time + w * a.TR;
-  for (int c = 0; c < a.TR; ++c)
+  const int hi = transit_hi<MAXV, PRT>(L, a, w);
+  if constexpr (PRT) {
+    if (hi < a.TR) return true;
+  }
+  for (int c = 0; c < hi; ++c)
     if (isinf(row[c])) return true;
   return false;
 }
@@ -1424,18 +1466,18 @@ __device__ __forceinline__ int quorum_alive(const Lane<MAXV>& L, const EventStep
 // A rejected arrival's retry (a fault window's or the quorum's): parked
 // in server w's transit registers until its backoff ends. It counts as a
 // fault retry, and spends a budget token, only where a register takes it.
-template <int MAXV, bool TEL, bool RES>
+template <int MAXV, bool TEL, bool RES, bool PRT = false>
 __device__ __forceinline__ void retry_park(Lane<MAXV>& L, const EventStepArgs& a, int w, float t,
                                            float created, int attempt, const HsDraw& u) {
-  if (transit_free(L, a, w)) {
+  if (transit_free<MAXV, PRT>(L, a, w)) {
     L.fault_retried[w] += 1;
     if constexpr (TEL) tel_count(a.tel.fault_retried, a.tel, L.tel_row, a.nV, t, w);
     if constexpr (RES) {
       if (a.res.budget) budget_debit(L, a, w);
     }
   }
-  into_transit<MAXV, true, TEL>(L, a, w, backoff_arrival<MAXV>(a, w, attempt, u, t), created,
-                                attempt + 1);
+  into_transit<MAXV, true, TEL, PRT>(L, a, w, backoff_arrival<MAXV>(a, w, attempt, u, t), created,
+                                     attempt + 1);
 }
 
 // _arrive_server with the chaos gates: a brownout window loses the
@@ -1456,7 +1498,7 @@ __device__ __forceinline__ void retry_park(Lane<MAXV>& L, const EventStepArgs& a
 // member while fewer than `write` members are reachable is rejected
 // (every rejection counted in qrm_dropped), a failure of the breaker's,
 // and retried after a backoff as a fault rejection is.
-template <int MAXV, bool TEL = false, bool RES = false, bool CON = false>
+template <int MAXV, bool TEL = false, bool RES = false, bool CON = false, bool PRT = false>
 __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                                     float t, float created, int attempt,
                                                     const HsDraw& u) {
@@ -1501,7 +1543,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
     }
     const bool would = (flags & HS_F_FAULT_RETRY) && attempt < HS_SRV(max_retries, w);
     if (would && bud_ok) {
-      retry_park<MAXV, TEL, RES>(L, a, w, t, created, attempt, u);
+      retry_park<MAXV, TEL, RES, PRT>(L, a, w, t, created, attempt, u);
     } else {
       L.fault_dropped[w] += 1;
       if constexpr (TEL) tel_count(a.tel.fault_dropped, a.tel, L.tel_row, a.nV, t, w);
@@ -1523,7 +1565,7 @@ __device__ __forceinline__ void arrive_server_chaos(Lane<MAXV>& L, const EventSt
       const bool would =
           hs_bit<MAXV>(Q.qrm_retry, a.wide.qrm_retry, w) && attempt < HS_SRV(max_retries, w);
       if (would && bud_ok) {
-        retry_park<MAXV, TEL, RES>(L, a, w, t, created, attempt, u);
+        retry_park<MAXV, TEL, RES, PRT>(L, a, w, t, created, attempt, u);
       } else if constexpr (RES) {
         if (would) budget_dropped<MAXV, TEL>(L, a, w, t);
       }
@@ -1747,16 +1789,16 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
             if constexpr (TEL) tel_count(a.con.tel_net_partitioned, a.tel, L.tel_row, 1, t, 0);
           } else {
             const float arrival = crossing ? edge_arrival(dest, t, u, a.u_lat, routed) : t;
-            into_transit<MAXV, CHAOS, TEL>(L, a, dest.index, arrival + delay, created);
+            into_transit<MAXV, CHAOS, TEL, PRT>(L, a, dest.index, arrival + delay, created);
           }
           return;
         }
       }
       if (crossing) {
-        into_transit<MAXV, CHAOS, TEL>(L, a, dest.index,
-                                       edge_arrival(dest, t, u, a.u_lat, routed), created);
+        into_transit<MAXV, CHAOS, TEL, PRT>(L, a, dest.index,
+                                            edge_arrival(dest, t, u, a.u_lat, routed), created);
       } else if constexpr (CHAOS) {
-        arrive_server_chaos<MAXV, TEL, RES, CON>(L, a, dest.index, t, created, attempt, u);
+        arrive_server_chaos<MAXV, TEL, RES, CON, PRT>(L, a, dest.index, t, created, attempt, u);
       } else {
         arrive_server<MAXV, EXT, TEL>(L, a, dest.index, t, created, u);
       }
@@ -1858,6 +1900,12 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     }
   }
   if (r >= a.R) return;
+  if constexpr (PRT) {
+    // The previous window's barrier for this lane, folded into this
+    // launch: it writes only this lane's rows and the outbox it reads,
+    // which no other lane of the launch touches.
+    if (a.prt.fold) hs_barrier_lane(a.prt.bar, r);
+  }
   const int nV = a.nV, C = a.C, K = a.K, TR = a.TR, nd = a.n_draws;
   const int nS = MULTI ? a.nS : 1;  // one source and one sink without MULTI
   const size_t rv = (size_t)r * nV;
@@ -1935,6 +1983,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.ob_len = X.ob_len + r;
     L.ob_sent = X.ob_sent + r;
     L.ob_dropped = X.ob_dropped + r;
+    L.tr_hi = X.tr_hi + rv;
   }
   const HsKey key{a.keys[2 * (size_t)r], a.keys[2 * (size_t)r + 1]};
   L.drawn = 0;
@@ -1946,6 +1995,10 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     // server (the depth integral, the search) reads 32 consecutive words
     // a warp; the earliest times derived.
     const HsWide& X = a.wide;
+    // PRT: a window runs about one event a lane, so its registers are read
+    // in place in the state leaves' rows (the copy in and out measured
+    // 1.17x the window's time on the nine-remote ring); the earliest times
+    // stay in the scratch.
     // Each scratch array holds (n, lanes) words, lanes the replica count
     // rounded up to whole warps; this lane's first element and stride.
     const int lanes = (a.R + 31) & ~31;
@@ -1970,18 +2023,31 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.mean = HsRow<const float>{a.srv_mean + rv, 1};
     L.smin = HsRow<float>{X.smin + at_v, 32};
     L.tmin = HsRow<float>{X.tmin + at_v, 32};
+    if constexpr (PRT) {
+      L.q_head = HsRow<int>{a.q_head + rv, 1};
+      L.q_len = HsRow<int>{a.q_len + rv, 1};
+      L.started = HsRow<int>{a.started + rv, 1};
+      L.completed = HsRow<int>{a.completed + rv, 1};
+      L.dropped = HsRow<int>{a.dropped + rv, 1};
+      L.wait_n = HsRow<int>{a.wait_n + rv, 1};
+      L.busy = HsRow<float>{a.busy_int + rv, 1};
+      L.depth = HsRow<float>{a.depth_int + rv, 1};
+      L.wsum = HsRow<float>{a.wait_sum + rv, 1};
+    }
     for (int v = 0; v < nV; ++v) {
-      L.q_head[v] = a.q_head[rv + v];
-      L.q_len[v] = a.q_len[rv + v];
-      L.started[v] = a.started[rv + v];
-      L.completed[v] = a.completed[rv + v];
-      L.dropped[v] = a.dropped[rv + v];
-      L.wait_n[v] = a.wait_n[rv + v];
-      L.busy[v] = a.busy_int[rv + v];
-      L.depth[v] = a.depth_int[rv + v];
-      L.wsum[v] = a.wait_sum[rv + v];
+      if constexpr (!PRT) {
+        L.q_head[v] = a.q_head[rv + v];
+        L.q_len[v] = a.q_len[rv + v];
+        L.started[v] = a.started[rv + v];
+        L.completed[v] = a.completed[rv + v];
+        L.dropped[v] = a.dropped[rv + v];
+        L.wait_n[v] = a.wait_n[rv + v];
+        L.busy[v] = a.busy_int[rv + v];
+        L.depth[v] = a.depth_int[rv + v];
+        L.wsum[v] = a.wait_sum[rv + v];
+      }
       L.smin[v] = row_min(L.slot_done + v * C, hs_ldg(X.conc + v));
-      if (transit) L.tmin[v] = row_min(L.tr_time + v * TR, TR);
+      if (transit) L.tmin[v] = row_min(L.tr_time + v * TR, transit_hi<MAXV, PRT>(L, a, v));
     }
   } else {
 #pragma unroll
@@ -1999,7 +2065,8 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       L.mean[v] = real ? a.srv_mean[rv + v] : 0.0f;
       L.smin[v] = real ? row_min(L.slot_done + v * C, a.conc[v]) : INFINITY;
       if constexpr (GRAPH)
-        L.tmin[v] = real && transit ? row_min(L.tr_time + v * TR, TR) : INFINITY;
+        L.tmin[v] =
+            real && transit ? row_min(L.tr_time + v * TR, transit_hi<MAXV, PRT>(L, a, v)) : INFINITY;
     }
   }
   float t = a.t[r];
@@ -2232,14 +2299,14 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
             forward = false;
             if (retry) {
               if (flags & HS_F_BACKOFF) {
-                if (transit_free(L, a, from)) {
+                if (transit_free<MAXV, PRT>(L, a, from)) {
                   L.retried[from] += 1;
                   if constexpr (TEL) tel_count(a.tel.retried, a.tel, L.tel_row, nV, t, from);
                   if (budgeted) budget_debit(L, a, from);
                 }
-                into_transit<MAXV, true, TEL>(L, a, from,
-                                              backoff_arrival<MAXV>(a, from, job_attempt, u, t),
-                                              created, job_attempt + 1);
+                into_transit<MAXV, true, TEL, PRT>(L, a, from,
+                                                   backoff_arrival<MAXV>(a, from, job_attempt, u, t),
+                                                   created, job_attempt + 1);
               } else {
                 const int ql = pick(L.q_len, from);
                 if (ql < HS_SRV(qcap, from)) {
@@ -2265,9 +2332,10 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
       } else {  // _transit_arrive: the first slot holding the row's minimum
         const int v = ev - VB;
         const HsRow<float> trow = L.tr_time + v * TR;
+        int hi = transit_hi<MAXV, PRT>(L, a, v);
         float best = INFINITY;
         int slot = 0;
-        for (int c = 0; c < TR; ++c) {
+        for (int c = 0; c < hi; ++c) {
           const float x = trow[c];
           if (x < best) { best = x; slot = c; }
         }
@@ -2276,7 +2344,15 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
           if (L.tr_attempt) attempt = L.tr_attempt[v * TR + slot];
         }
         trow[slot] = INFINITY;
-        put(L.tmin, v, row_min(trow, TR));
+        if constexpr (PRT) {
+          // The highest slot popped: the bound falls past the free slots
+          // below it.
+          if (slot == hi - 1) {
+            while (hi > 0 && isinf(trow[hi - 1])) --hi;
+            L.tr_hi[v] = hi;
+          }
+        }
+        put(L.tmin, v, row_min(trow, hi));
         dest = HsRef{HS_SERVER, v, 0.0f, HS_LAT_NONE};
       }
 
@@ -2397,7 +2473,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   a.sink_count[sink_row] = L.sk_count;
   a.sink_sum[sink_row] = L.sk_sum;
   a.sink_sq[sink_row] = L.sk_sq;
-  if constexpr (WIDE) {  // the scratch registers back to the leaves' rows
+  if constexpr (WIDE && !PRT) {  // the scratch registers back to the leaves' rows
     for (int v = 0; v < nV; ++v) {
       a.q_head[rv + v] = L.q_head[v];
       a.q_len[rv + v] = L.q_len[v];
@@ -2467,7 +2543,13 @@ static bool hs_args_ok(const EventStepArgs& a, bool trace = false, bool wide = f
     if (x.OB < 1 || x.budget < 1 || x.nRm < 1 || (!wide && x.nRm > HS_MAX_REMOTES) ||
         (wide && (!a.wide.rm_latency || !a.wide.rm_ingress)) || !x.ob_arrival ||
         !x.ob_created || !x.ob_ingress || !x.ob_len || !x.ob_sent || !x.ob_dropped ||
-        !x.truncated || !a.tr_time)
+        !x.truncated || !x.tr_hi || !a.tr_time)
+      return false;
+    // A folded barrier covers this launch's lanes, its state rows the
+    // launch's own.
+    if (x.fold && (!hs_barrier_args_ok(x.bar) || (long long)x.bar.P * x.bar.R != a.R ||
+                   x.bar.nV != a.nV || x.bar.TR != a.TR || x.bar.OB != x.OB ||
+                   x.bar.t != a.t || x.bar.tr_time != a.tr_time || x.bar.tr_hi != x.tr_hi))
       return false;
   }
   if (a.wide.on != (wide ? 1 : 0)) return false;

@@ -56,8 +56,11 @@ runs :func:`window_steps`, one launch of the partitioned instantiations:
 the graph code (transit always on) in its lean, several-source and wide
 forms, each lane running up to the window's event budget before the
 window's end, each event's draws keyed by the lane's event count, each
-delivery to a remote egress node queued in the outbox; its plain version
-is :func:`plain_window_steps`.
+delivery to a remote egress node queued in the outbox, each transit row
+scanned only up to its occupancy bound (:func:`occupancy_bound`, kept
+beside the state across windows, tied to its ``tr_time`` tensor and
+shared with the barrier); its plain version is
+:func:`plain_window_steps`, which needs no bound.
 
 The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``build/`` at the repository root, one library per source
@@ -81,6 +84,7 @@ import weakref
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from happysim_tpu_torch import rng
 from happysim_tpu_torch.kernels import build, support
@@ -328,14 +332,37 @@ _PRT_FIELDS = (
 )
 
 
+class _BarrierArgs(ctypes.Structure):
+    """Mirror of ``BarrierArgs`` in csrc/partition_barrier.cuh: the window
+    barrier's arguments (kernels/partition_barrier.py), which a window
+    launch also carries when the previous window's barrier is folded into
+    it (``_Prt.bar``)."""
+
+    _fields_ = (
+        [
+            (name, ctypes.c_void_p)
+            for name in (
+                "t", "depth_int", "q_len", "tr_time", "tr_created", "tr_attempt", "tr_dropped",
+                "tr_hi", "ob_arrival", "ob_created", "ob_ingress", "ob_len",
+                "in_arrival", "in_created", "in_ingress", "in_len",
+            )
+        ]
+        + [(name, ctypes.c_int) for name in ("P", "R", "nV", "TR", "OB")]
+        + [(name, ctypes.c_float) for name in ("window_end", "warmup")]
+    )
+
+
 class _Prt(ctypes.Structure):
     """Mirror of ``HsPrt``: the outbox leaves, the truncated-window
-    counter, the window's end and budget, and the remotes' tables."""
+    counter, the transit rows' occupancy bounds, the window's end and
+    budget, the remotes' tables, and the folded barrier."""
 
     _fields_ = [(field, ctypes.c_void_p) for field, _leaf in _PRT_FIELDS] + [
+        ("tr_hi", ctypes.c_void_p),
         ("on", ctypes.c_int), ("OB", ctypes.c_int), ("budget", ctypes.c_int),
         ("limit", ctypes.c_float), ("nRm", ctypes.c_int),
         ("rm_latency", ctypes.c_float * _MAX_RM), ("rm_ingress", ctypes.c_int * _MAX_RM),
+        ("fold", ctypes.c_int), ("bar", _BarrierArgs),
     ]
 
 
@@ -986,7 +1013,7 @@ _INT_LEAVES = frozenset({
     "tel_srv_budget_dropped",
     "net_partitioned", "qrm_dropped", "tel_net_partitioned", "tel_qrm_dropped",
     "trc_blocks", "trc_arrivals", "tel_trc_arrivals", "trace tenants",
-    "ob_ingress", "ob_len", "ob_sent", "ob_dropped", "truncated_windows",
+    "ob_ingress", "ob_len", "ob_sent", "ob_dropped", "truncated_windows", "tr_hi",
 })
 _UINT_LEAVES = frozenset({"trc_cursor"})
 
@@ -1238,14 +1265,63 @@ def plain_window_steps(compiled, state: dict, params: dict, limit, budget: int) 
     state["truncated_windows"] += (pending <= bound).to(torch.int32)
 
 
+def transit_bound(state: dict) -> torch.Tensor:
+    """``(lanes, nV)`` int32: 1 + the highest occupied (not +inf) slot of
+    each transit row of ``state["tr_time"]``, 0 for an empty row. Every
+    slot from the bound on is free, so the partitioned window kernel and
+    the barrier scan a row only up to it."""
+    rows = state["tr_time"]
+    slots = torch.arange(1, rows.shape[-1] + 1, dtype=torch.int32, device=rows.device)
+    return torch.amax(~torch.isinf(rows) * slots, dim=-1).to(torch.int32).contiguous()
+
+
+# The occupancy bounds the kernels keep, keyed by the ``tr_time`` tensor
+# they bound (compared by identity; an entry goes with its tensor):
+# [bounds, ``tr_time``'s version counter when they were last rebuilt].
+_BOUNDS = WeakIdKeyDictionary()
+
+
+def occupancy_bound(state: dict) -> torch.Tensor:
+    """The occupancy bounds of ``state``'s transit rows
+    (:func:`transit_bound`) that the partitioned window kernel and the
+    barrier keep across windows, tied to the ``tr_time`` tensor itself, so
+    every wrapper call on that tensor (through any ``prepared`` dict, or
+    none) reads and updates the same bounds: scratch beside the state,
+    never a leaf of it, of a snapshot or of a result. Built from
+    ``tr_time`` the first time, and rebuilt in place (launch arguments
+    keep its address) whenever a torch op changed ``tr_time`` since (its
+    version counter moved; the kernels' own writes do not move it): a
+    resume holds other tensors and builds its own."""
+    rows = state["tr_time"]
+    kept = _BOUNDS.get(rows)
+    if kept is None:
+        kept = _BOUNDS[rows] = [transit_bound(state), rows._version]
+    elif kept[1] != rows._version:
+        kept[0].copy_(transit_bound(state))
+        kept[1] = rows._version
+    return kept[0]
+
+
+def kept_bound(state: dict):
+    """The occupancy bounds kept for ``state``'s ``tr_time`` as the last
+    launch left them (None before the first), without a rebuild: what a
+    check holds against :func:`transit_bound`."""
+    kept = _BOUNDS.get(state["tr_time"])
+    return None if kept is None else kept[0]
+
+
 def window_launch_args(
     compiled, state: dict, keys: torch.Tensor, params: dict, limit, budget: int,
-    halted: torch.Tensor, draws=None,
+    halted: torch.Tensor, tr_hi: torch.Tensor, draws=None, outbox=None,
 ) -> _Args:
     """The argument struct of one :func:`window_steps` launch: that of
     :func:`launch_args` (one block; the draws keyed per event), with the
-    outbox leaves and ``truncated_windows`` checked and pointed at, the
-    window's end ``limit`` and the event ``budget``."""
+    outbox leaves, ``truncated_windows`` and the transit rows' occupancy
+    bounds ``tr_hi`` (:func:`transit_bound`, which the kernel keeps up to
+    date) checked and pointed at, the window's end ``limit`` and the event
+    ``budget``. ``outbox``, a slab ``(arrival, created, ingress, length)``
+    shaped as the outbox leaves, takes the window's outbox instead of the
+    state's leaves (a folded ring's scratch)."""
     if not getattr(compiled, "OB", 0):
         raise ValueError("event-step kernel: a window launch needs a partitioned model")
     device = state["t"].device
@@ -1256,16 +1332,25 @@ def window_launch_args(
         "ob_ingress": (R, compiled.OB),
         "ob_len": (R,), "ob_sent": (R,), "ob_dropped": (R,), "truncated_windows": (R,),
     }
+    rows = dict(zip(("ob_arrival", "ob_created", "ob_ingress", "ob_len"), outbox or ()))
     for field, leaf in _PRT_FIELDS:
-        if leaf not in state:
+        x = rows.get(leaf, state.get(leaf))
+        if x is None:
             raise ValueError(f"event-step kernel: {leaf} is missing")
-        _check(leaf, state[leaf], shapes[leaf], device)
-        setattr(args.prt, field, state[leaf].data_ptr())
+        _check(leaf, x, shapes[leaf], device)
+        setattr(args.prt, field, x.data_ptr())
+    _check("tr_hi", tr_hi, (R, compiled.nV), device)
+    args.prt.tr_hi = tr_hi.data_ptr()
+    _set_window(args, limit, budget)
+    return args
+
+
+def _set_window(args: _Args, limit, budget: int) -> None:
+    """A window launch's end and event budget (at least one event)."""
     if int(budget) < 1:
         raise ValueError(f"event-step kernel: an event budget of {budget} a window")
     args.prt.budget = int(budget)
     args.prt.limit = float(np.float32(limit))
-    return args
 
 
 def window_steps(
@@ -1285,22 +1370,30 @@ def window_steps(
     error. Nothing waits for the device.
 
     ``prepared``, a dict the caller keeps for one ``state`` whose tensors
-    stay in place, holds the checked arguments from the first call on:
-    later calls on the same ``state`` change only the window's end."""
+    stay in place (it may share it with the barrier's calls), holds the
+    checked arguments from the first call on (``prepared["window"]``:
+    later calls on the same ``state`` change only the window's end and
+    budget). The transit rows' occupancy bounds both kernels keep are
+    tied to ``state["tr_time"]`` (:func:`occupancy_bound`), not to the
+    dict, so a call with or without one reads the bounds the last launch
+    left. The plain version neither reads nor keeps them."""
     device = state["t"].device
     if device.type == "cpu":
         plain_window_steps(compiled, state, params, limit, budget)
         return
     if device.type != "cuda":
         raise ValueError(f"event-step kernel: unsupported device {device}")
-    if prepared is None or prepared.get("state") is not state:
+    tr_hi = occupancy_bound(state)
+    mine = None if prepared is None else prepared.setdefault("window", {})
+    if mine is None or mine.get("state") is not state:
         halted = torch.empty((state["t"].shape[0],), dtype=torch.uint8, device=device)
-        args = window_launch_args(compiled, state, keys, params, limit, budget, halted)
-        if prepared is not None:
-            prepared.update(state=state, args=args, halted=halted)
+        args = window_launch_args(compiled, state, keys, params, limit, budget, halted, tr_hi)
+        if mine is not None:
+            mine.update(state=state, args=args, halted=halted)
     else:
-        args = prepared["args"]
-        args.prt.limit = float(np.float32(limit))
+        args = mine["args"]
+        _set_window(args, limit, budget)
+        args.prt.tr_hi = tr_hi.data_ptr()
     launch(args, device)
 
 

@@ -27,9 +27,12 @@ the neighbour's outbox merged into the transit registers, the outbox
 reset). A partition whose ring neighbour lies on another device reads a
 copy of that device's boundary outbox, and across processes (a mesh with
 a ``torch.distributed`` group) the boundary outboxes travel by
-``send``/``recv``. CPU tensors run the plain torch-op versions of both.
-Nothing waits for the device between windows: the host syncs at the end
-of a run and at each checkpoint.
+``send``/``recv``. Both kernels of a device scan each transit row only up
+to its occupancy bound, which they keep across windows beside the state
+(never in it, nor in a snapshot: a resume rebuilds it from ``tr_time``).
+CPU tensors run the plain torch-op versions of both. Nothing waits for
+the device between windows: the host syncs at the end of a run and at
+each checkpoint.
 """
 
 from __future__ import annotations
@@ -196,8 +199,8 @@ class _PartitionCompiled(_Compiled):
             [r.ingress.index for r in model.remotes] or [0], np.int32
         )
 
-    def init_state(self, keys: torch.Tensor, params: dict) -> dict:
-        state = super().init_state(keys, params)
+    def init_state(self, keys: torch.Tensor, params: dict, draw: bool = True) -> dict:
+        state = super().init_state(keys, params, draw)
         R, dev = keys.shape[0], keys.device
         state["ob_arrival"] = torch.full((R, self.OB), INF, dtype=torch.float32, device=dev)
         state["ob_created"] = torch.zeros((R, self.OB), dtype=torch.float32, device=dev)
@@ -471,24 +474,42 @@ def _validate_resume(resume_from: PartitionedCheckpoint, **run) -> None:
 class _Runner:
     """The window loop of one run: per window, the event-step launch of
     every group, the ring's copies, then every group's barrier. On the
-    card each group's launch arguments are checked once (``prepared``)
-    and only the window end changes between windows (a barrier reading
-    an inbox slab, a new tensor each window, is checked each window)."""
+    card each group has one ``prepared`` dict for its two kernels'
+    wrappers: their launch arguments, checked once (only the window end
+    changes between windows; a barrier reading an inbox slab, a new
+    tensor each window, is checked each window). The transit rows'
+    occupancy bounds both kernels keep across windows are tied to the
+    group's ``tr_time`` (``event_step.occupancy_bound``), outside the
+    state and every snapshot. Where one card holds the whole ring (one
+    group, one process), each barrier is folded into the next window's
+    launch (:class:`~happysim_tpu_torch.kernels.partition_barrier.FoldedRing`)
+    and a barrier launch ends each run of windows, so the state between
+    runs of windows, and every snapshot, is the unfolded loop's."""
 
     def __init__(self, compiled: _PartitionCompiled, groups: list, mesh, budget: int):
         self.compiled, self.groups, self.mesh, self.budget = compiled, groups, mesh, budget
-        self.window_args = [{} for _ in groups]
-        self.barrier_args = [{} for _ in groups]
+        self.prepared = [{} for _ in groups]
+        self.folded = (
+            len(groups) == 1 and groups[0].device.type == "cuda" and not mesh.spans_processes
+        )
 
     def run(self, w_first: int, n: int, window_s: float) -> None:
         compiled, groups = self.compiled, self.groups
+        if self.folded:
+            g = groups[0]
+            ring = partition_barrier.folded_ring(compiled, g.state, g.state["key"], g.params, g.P,
+                                                 self.budget, self.prepared[0])
+            for w in range(w_first, w_first + n):
+                ring.window(window_end(w, window_s))
+            ring.flush()
+            return
         for w in range(w_first, w_first + n):
             limit = window_end(w, window_s)
-            for g, prepared in zip(groups, self.window_args):
+            for g, prepared in zip(groups, self.prepared):
                 event_step.window_steps(compiled, g.state, g.state["key"], g.params, limit,
                                         self.budget, prepared)
             inboxes = _ring_inboxes(groups, self.mesh, compiled.OB)
-            for g, inbox, prepared in zip(groups, inboxes, self.barrier_args):
+            for g, inbox, prepared in zip(groups, inboxes, self.prepared):
                 partition_barrier.barrier(compiled, g.state, g.P, limit, inbox, prepared)
 
 

@@ -954,31 +954,103 @@ def test_partitioned_windows_match_plain_bit_for_bit(cuda, name):
     """4 partitions of 256 replicas, 12 windows: each window launch and
     each barrier launch against plain_window_steps and plain_barrier on a
     copy, every leaf bit for bit; a budget of 2 events in every third
-    window truncates some."""
+    window truncates some. Both wrappers share one prepared dict, as
+    run_partitioned's window loop does, so the transit rows' occupancy
+    bound is kept across the windows: after every launch it equals its
+    recomputation from tr_time."""
     from happysim_tpu_torch import partitioned
     from happysim_tpu_torch.kernels import partition_barrier
 
     compiled, state, params, budget = _partitioned(name, 4, 256, 2.0, cuda)
     plain = {k: v.clone() for k, v in state.items()}
+    prepared = {}
     for w in range(12):
         limit = partitioned.window_end(w, HOP_S)
         step_budget = 2 if w % 3 == 2 else budget
-        event_step.window_steps(compiled, state, state["key"], params, limit, step_budget)
+        event_step.window_steps(compiled, state, state["key"], params, limit, step_budget, prepared)
         event_step.plain_window_steps(compiled, plain, params, limit, step_budget)
         torch.cuda.synchronize()
         _same_bits(state, plain, f"{name} window {w}")
-        partition_barrier.barrier(compiled, state, 4, limit)
+        assert torch.equal(event_step.kept_bound(state), event_step.transit_bound(state)), w
+        partition_barrier.barrier(compiled, state, 4, limit, prepared=prepared)
         partition_barrier.plain_barrier(compiled, plain, 4, limit)
         torch.cuda.synchronize()
         _same_bits(state, plain, f"{name} barrier {w}")
+        assert torch.equal(event_step.kept_bound(state), event_step.transit_bound(state)), w
     assert int(plain["ob_sent"].sum()) > 0 and int(plain["truncated_windows"].sum()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(PARTITIONED_MODELS))
+def test_partitioned_bound_is_the_state_s_whatever_the_dicts(cuda, name):
+    """4 partitions of 256 replicas, 12 windows whose window launches
+    share one prepared dict while the barrier runs with none, with a
+    second dict, or with the window's, in turns: the occupancy bound is
+    tied to tr_time, not to a dict, so every launch reads what the last
+    one left; bit for bit against the plain loop after every launch, and
+    the kept bound equal to its recomputation."""
+    from happysim_tpu_torch import partitioned
+    from happysim_tpu_torch.kernels import partition_barrier
+
+    compiled, state, params, budget = _partitioned(name, 4, 256, 2.0, cuda)
+    plain = {k: v.clone() for k, v in state.items()}
+    window_prepared, other = {}, {}
+    for w in range(12):
+        limit = partitioned.window_end(w, HOP_S)
+        event_step.window_steps(compiled, state, state["key"], params, limit, budget,
+                                window_prepared)
+        event_step.plain_window_steps(compiled, plain, params, limit, budget)
+        torch.cuda.synchronize()
+        _same_bits(state, plain, f"{name} window {w}")
+        barrier_prepared = (None, other, window_prepared)[w % 3]
+        partition_barrier.barrier(compiled, state, 4, limit, prepared=barrier_prepared)
+        partition_barrier.plain_barrier(compiled, plain, 4, limit)
+        torch.cuda.synchronize()
+        _same_bits(state, plain, f"{name} barrier {w}")
+        assert torch.equal(event_step.kept_bound(state), event_step.transit_bound(state)), w
+    assert int(plain["ob_sent"].sum()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(PARTITIONED_MODELS))
+def test_folded_ring_matches_plain_bit_for_bit(cuda, name):
+    """4 partitions of 256 replicas on the card, 12 windows through the
+    folded ring (each window's launch running the previous window's
+    barrier first): after folded launch w every leaf but the outbox
+    against the plain loop after window w, the window's outbox in the
+    scratch slab of its parity against the plain outbox leaves, and after
+    the flush every leaf against the plain loop after barrier 11, bit for
+    bit; the kept occupancy bound equals its recomputation."""
+    from happysim_tpu_torch import partitioned
+    from happysim_tpu_torch.kernels import partition_barrier
+
+    compiled, state, params, budget = _partitioned(name, 4, 256, 2.0, cuda)
+    plain = {k: v.clone() for k, v in state.items()}
+    prepared = {}
+    ring = partition_barrier.folded_ring(compiled, state, state["key"], params, 4, budget, prepared)
+    outbox = ("ob_arrival", "ob_created", "ob_ingress", "ob_len")
+    for w in range(12):
+        if w:
+            partition_barrier.plain_barrier(compiled, plain, 4, partitioned.window_end(w - 1, HOP_S))
+        ring.window(partitioned.window_end(w, HOP_S))
+        event_step.plain_window_steps(compiled, plain, params, partitioned.window_end(w, HOP_S),
+                                      budget)
+        torch.cuda.synchronize()
+        slab = dict(zip(outbox, ring.outboxes[ring.pending[1]]))
+        _same_bits({**state, **slab}, plain, f"{name} folded window {w}")
+        assert torch.equal(event_step.kept_bound(state), event_step.transit_bound(state)), w
+    ring.flush()
+    partition_barrier.plain_barrier(compiled, plain, 4, partitioned.window_end(11, HOP_S))
+    torch.cuda.synchronize()
+    _same_bits(state, plain, f"{name} flushed")
+    assert int(plain["ob_sent"].sum()) > 0
 
 
 @pytest.mark.parametrize("name", ["ring", "two-sink-ring"])
 def test_partitioned_run_on_the_card_matches_the_plain_loop(cuda, name):
-    """run_partitioned on 4 partitions of the card (one window launch and
-    one barrier launch a window) against the plain versions' window loop
-    on the card, bit for bit on every total and mean."""
+    """run_partitioned on 4 partitions of the card (one card holds the
+    ring: one window launch a window, each with the previous window's
+    barrier folded in, and one barrier launch for the last window) against
+    the plain versions' window loop on the card, bit for bit on every
+    total and mean."""
     from happysim_tpu_torch import partition_mesh, partitioned, run_partitioned
     from happysim_tpu_torch.kernels import partition_barrier
 
@@ -992,7 +1064,7 @@ def test_partitioned_run_on_the_card_matches_the_plain_loop(cuda, name):
     event_step.window_steps.launches = partition_barrier.barrier.launches = 0
     got = run_partitioned(PARTITIONED_MODELS[name](tmodel, 1.5), window_s=HOP_S, n_replicas=64,
                           seed=3, outbox_capacity=8, mesh=partition_mesh([cuda] * 4))
-    assert (event_step.window_steps.launches, partition_barrier.barrier.launches) == (n_windows,) * 2
+    assert (event_step.window_steps.launches, partition_barrier.barrier.launches) == (n_windows, 1)
     want = partitioned.partitioned_result(compiled.model, compiled, host, 4, 64, n_windows, HOP_S,
                                got.wall_seconds, budget)
     for field in ("simulated_events", "sink_count", "sink_mean_latency_s", "server_completed",

@@ -38,7 +38,7 @@ SNAPSHOT_WINDOWS = (6, 17)
 HORIZON_S = 1.0
 # Models whose windows and barriers the JAX package's step can trace (the
 # wide ring runs through the same step; its nine servers only cost time).
-MODELS = ("ring", "chaos-ring", "two-sink-ring", "relay")
+MODELS = ("ring", "chaos-ring", "two-sink-ring", "relay", "full-row-ring")
 
 
 def _atol(horizon_s: float) -> float:

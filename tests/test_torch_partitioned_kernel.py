@@ -7,9 +7,15 @@ after window (the kernel's window, then its barrier, against the plain
 window, then the plain barrier), and every leaf must agree (integer
 leaves exactly, floats within rel 1e-5: host libm against torch's CPU
 math). Three partitions of eight replicas, on the lean graph code
-without and with the family sampler and with the chaos branches, the
-code for several sources and sinks and the wide code (a model past the
-servers' table, and one past the remotes' table of eight)."""
+without and with the family sampler and with the chaos branches (and a
+ring whose two transit registers a server fill), the code for several
+sources and sinks and the wide code (a model past the servers' table,
+and one past the remotes' table of eight). Both kernels share one
+occupancy bound a transit row (event_step.occupancy_bound, tied to the
+state's tr_time), kept across the windows as run_partitioned keeps it:
+after every launch it must equal the bound recomputed from tr_time. The same windows with each barrier folded
+into the next window's launch (partition_barrier.FoldedRing, as
+run_partitioned runs a ring held by one card) match the plain loop too."""
 
 import ctypes
 import subprocess
@@ -49,6 +55,7 @@ _MODELS = {
     "two-sink-ring": "multi",
     "wide-ring": "wide",
     "nine-remote-ring": "wide",
+    "full-row-ring": "lean",
 }
 _BARRIER = """
 #include "partition_barrier.cu"
@@ -105,43 +112,202 @@ def _assert_same(kernel_state: dict, plain_state: dict, context: str) -> None:
             assert torch.equal(got, want), f"{context}: {leaf}"
 
 
+def _host_window(host_kernel, name, compiled, state, params, w, budget, tr_hi):
+    """Window ``w`` of ``state`` on the host build of ``name``'s
+    instantiation (16 lanes a thread block), the bound ``tr_hi`` kept."""
+    halted = torch.empty((state["t"].shape[0],), dtype=torch.uint8)
+    args = event_step.window_launch_args(
+        compiled, state, state["key"], params, window_end(w, HOP_S), budget, halted, tr_hi
+    )
+    assert event_step.library_of(args) == "event_step_partitioned"
+    assert bool(args.wide.on) == (_MODELS[name] == "wide")
+    assert getattr(host_kernel, f"run_{_MODELS[name]}")(ctypes.byref(args), 16) == 0
+
+
+def _host_barrier(host_kernel, compiled, state, P_, w, tr_hi, inbox=None, threads=32):
+    args = partition_barrier.barrier_args(compiled, state, P_, window_end(w, HOP_S), tr_hi, inbox)
+    host_kernel.run_barrier(ctypes.byref(args), threads)
+
+
+def _assert_bound(state: dict, tr_hi: torch.Tensor, context: str) -> None:
+    assert torch.equal(tr_hi, event_step.transit_bound(state)), context
+
+
 @pytest.mark.parametrize("name", sorted(_MODELS))
 def test_host_window_and_barrier_match_the_plain_versions(host_kernel, name):
     """24 windows of three partitions of eight replicas: each window the
     host build of the partitioned instantiation (16 lanes a thread block),
     then the barrier (32 lanes a block), against the plain window and
     barrier on a copy; the default budget and one of 3 events, which
-    truncates windows."""
+    truncates windows. The occupancy bound, built once before the first
+    window and kept for tr_time (event_step.occupancy_bound, which every
+    launch reads), equals its recomputation after every launch."""
     model = PARTITIONED_MODELS[name](tmodel)
     compiled = _PartitionCompiled(model, outbox_capacity=4)
     kernel_state, params = init_partitions(compiled, 0, P, R, seed=7, device="cpu")
     plain_state = {k: v.clone() for k, v in kernel_state.items()}
-    run = getattr(host_kernel, f"run_{_MODELS[name]}")
+    tr_hi = event_step.occupancy_bound(kernel_state)
     budget = default_max_events_per_window(model, HOP_S)
     sent = 0
     for w in range(WINDOWS):
         limit = window_end(w, HOP_S)
         step_budget = 3 if w % 5 == 4 else budget
-        halted = torch.empty((P * R,), dtype=torch.uint8)
-        args = event_step.window_launch_args(
-            compiled, kernel_state, kernel_state["key"], params, limit, step_budget, halted
-        )
-        assert event_step.library_of(args) == "event_step_partitioned"
-        assert bool(args.wide.on) == (_MODELS[name] == "wide")
-        assert run(ctypes.byref(args), 16) == 0
+        # Each launch reads the bound kept for tr_time, as the wrappers do.
+        _host_window(host_kernel, name, compiled, kernel_state, params, w, step_budget,
+                     event_step.occupancy_bound(kernel_state))
         event_step.plain_window_steps(compiled, plain_state, params, limit, step_budget)
         _assert_same(kernel_state, plain_state, f"{name} window {w}")
+        _assert_bound(kernel_state, event_step.kept_bound(kernel_state), f"{name} window {w}")
         sent = max(sent, int(plain_state["ob_len"].max()))
-        host_kernel.run_barrier(
-            ctypes.byref(partition_barrier.barrier_args(compiled, kernel_state, P, limit)), 32
-        )
+        _host_barrier(host_kernel, compiled, kernel_state, P, w,
+                      event_step.occupancy_bound(kernel_state))
         partition_barrier.plain_barrier(compiled, plain_state, P, limit)
         _assert_same(kernel_state, plain_state, f"{name} barrier {w}")
+        _assert_bound(kernel_state, event_step.kept_bound(kernel_state), f"{name} barrier {w}")
         assert int(plain_state["ob_len"].max()) == 0
         assert bool((plain_state["t"] >= torch.tensor(limit)).all())
     assert sent > 0 and int(plain_state["ob_sent"].sum()) > 0
     assert int(plain_state["truncated_windows"].sum()) > 0
     assert int(plain_state["events"].min()) > 0
+    assert event_step.kept_bound(kernel_state) is tr_hi and int(tr_hi.max()) > 0
+    if name == "full-row-ring":  # the rows filled: full rows dropped jobs
+        assert int(tr_hi.max()) == compiled.TR == 2
+        assert int(plain_state["tr_dropped"].sum()) > 0
+
+
+_OUTBOX = ("ob_arrival", "ob_created", "ob_ingress", "ob_len")
+
+
+@pytest.mark.parametrize("name", sorted(_MODELS))
+def test_host_folded_ring_matches_the_plain_loop(host_kernel, name):
+    """The windows with each barrier folded into the next window's launch
+    (partition_barrier.FoldedRing, its launches on the host build): after
+    folded launch w, every leaf but the outbox equals the plain loop's
+    after window w, the window's outbox sits in the scratch slab of its
+    parity and equals the plain loop's outbox leaves, and the state's own
+    outbox leaves stay reset; the flush (a barrier launch) then gives the
+    plain loop's state after barrier 23 on every leaf, and the kept bound
+    equals its recomputation throughout."""
+    model = PARTITIONED_MODELS[name](tmodel)
+    compiled = _PartitionCompiled(model, outbox_capacity=4)
+    kernel_state, params = init_partitions(compiled, 0, P, R, seed=7, device="cpu")
+    plain_state = {k: v.clone() for k, v in kernel_state.items()}
+    reset = {leaf: kernel_state[leaf].clone() for leaf in _OUTBOX}
+    run = getattr(host_kernel, f"run_{_MODELS[name]}")
+    budget = default_max_events_per_window(model, HOP_S)
+    ring = partition_barrier.FoldedRing(compiled, kernel_state, kernel_state["key"], params, P,
+                                        budget)
+    bound = event_step.kept_bound(kernel_state)
+    for w in range(WINDOWS):
+        if w:
+            partition_barrier.plain_barrier(compiled, plain_state, P, window_end(w - 1, HOP_S))
+        args = ring.window_args(window_end(w, HOP_S))
+        assert args.prt.fold == (1 if w else 0)
+        assert args.prt.tr_hi == args.prt.bar.tr_hi == bound.data_ptr()
+        assert run(ctypes.byref(args), 16) == 0
+        event_step.plain_window_steps(compiled, plain_state, params, window_end(w, HOP_S), budget)
+        slab = dict(zip(_OUTBOX, ring.outboxes[ring.pending[1]]))
+        _assert_same({k: v for k, v in kernel_state.items() if k not in _OUTBOX},
+                     {k: v for k, v in plain_state.items() if k not in _OUTBOX},
+                     f"{name} folded window {w}")
+        _assert_same(slab, {leaf: plain_state[leaf] for leaf in _OUTBOX}, f"{name} outbox {w}")
+        _assert_same({leaf: kernel_state[leaf] for leaf in _OUTBOX}, reset, f"{name} leaves {w}")
+        _assert_bound(kernel_state, bound, f"{name} folded window {w}")
+    host_kernel.run_barrier(ctypes.byref(ring.flush_args()), 32)
+    assert ring.flush_args() is None
+    partition_barrier.plain_barrier(compiled, plain_state, P, window_end(WINDOWS - 1, HOP_S))
+    _assert_same(kernel_state, plain_state, f"{name} flushed")
+    _assert_bound(kernel_state, bound, f"{name} flushed")
+    for slab in ring.outboxes:  # both scratch outboxes reset again
+        _assert_same(dict(zip(_OUTBOX, slab)), reset, f"{name} scratch")
+    assert int(plain_state["ob_sent"].sum()) > 0
+
+
+def test_host_bound_falls_when_the_highest_slot_pops(host_kernel):
+    """On the full-row ring, window by window: some row's bound falls
+    after a window (its highest occupied slot popped, the free slots
+    below it skipped), some rise at a barrier (a merged job parked at the
+    bound), and a bound of 2 falls to 0 in one window where slot 0 was
+    already free."""
+    model = PARTITIONED_MODELS["full-row-ring"](tmodel)
+    compiled = _PartitionCompiled(model, outbox_capacity=4)
+    state, params = init_partitions(compiled, 0, P, R, seed=7, device="cpu")
+    tr_hi = event_step.transit_bound(state)
+    budget = default_max_events_per_window(model, HOP_S)
+    fell = rose = two_to_zero = 0
+    for w in range(WINDOWS):
+        before = tr_hi.clone()
+        _host_window(host_kernel, "full-row-ring", compiled, state, params, w, budget, tr_hi)
+        _assert_bound(state, tr_hi, f"window {w}")
+        fell += int((tr_hi < before).sum())
+        two_to_zero += int(((before == 2) & (tr_hi == 0)).sum())
+        before = tr_hi.clone()
+        _host_barrier(host_kernel, compiled, state, P, w, tr_hi)
+        _assert_bound(state, tr_hi, f"barrier {w}")
+        rose += int((tr_hi > before).sum())
+    assert fell > 0 and rose > 0 and two_to_zero > 0, (fell, rose, two_to_zero)
+
+
+@pytest.mark.parametrize("name", ["full-row-ring", "chaos-ring", "nine-remote-ring"])
+def test_host_resume_rebuilds_the_bound(host_kernel, name):
+    """A snapshot at the barrier of window 9 (the state's leaves alone, as
+    a PartitionedCheckpoint holds them: no bound among them) resumed into
+    new tensors: the resumed tr_time gets a bound of its own, built from
+    it, and windows 10-23 give the uninterrupted run's bits on every
+    leaf."""
+    model = PARTITIONED_MODELS[name](tmodel)
+    compiled = _PartitionCompiled(model, outbox_capacity=4)
+    state, params = init_partitions(compiled, 0, P, R, seed=7, device="cpu")
+    budget = default_max_events_per_window(model, HOP_S)
+    snapshot = None
+    for w in range(WINDOWS):
+        _host_window(host_kernel, name, compiled, state, params, w, budget,
+                     event_step.occupancy_bound(state))
+        _host_barrier(host_kernel, compiled, state, P, w, event_step.occupancy_bound(state))
+        if w == 9:
+            snapshot = {k: v.numpy().copy() for k, v in state.items()}
+    assert "tr_hi" not in snapshot and set(snapshot) == set(state)
+    resumed = {k: torch.from_numpy(v) for k, v in snapshot.items()}
+    assert event_step.kept_bound(resumed) is None
+    hi = event_step.occupancy_bound(resumed)
+    assert hi is not event_step.kept_bound(state)
+    assert torch.equal(hi, event_step.transit_bound(resumed))
+    for w in range(10, WINDOWS):
+        _host_window(host_kernel, name, compiled, resumed, params, w, budget,
+                     event_step.occupancy_bound(resumed))
+        _host_barrier(host_kernel, compiled, resumed, P, w, event_step.occupancy_bound(resumed))
+    for leaf, value in state.items():
+        assert torch.equal(resumed[leaf], value), leaf
+    assert event_step.kept_bound(resumed) is hi
+    _assert_bound(resumed, hi, name)
+
+
+def test_occupancy_bound_rebuilds_after_a_torch_op_only():
+    """occupancy_bound keeps its tensor while tr_time is the same tensor
+    unchanged by torch ops (the kernels keep it then), rebuilds it in
+    place when a torch op wrote tr_time, gives another tr_time tensor a
+    bound of its own, and keeps no tr_time alive."""
+    import weakref
+
+    model = PARTITIONED_MODELS["full-row-ring"](tmodel)
+    compiled = _PartitionCompiled(model, outbox_capacity=4)
+    state, _params = init_partitions(compiled, 0, 1, 4, seed=1, device="cpu")
+    assert event_step.kept_bound(state) is None
+    hi = event_step.occupancy_bound(state)
+    assert int(hi.sum()) == 0 and event_step.kept_bound(state) is hi
+    hi.fill_(7)  # a stale value the kernels would keep: not rebuilt
+    assert event_step.occupancy_bound(dict(state)) is hi and int(hi.max()) == 7
+    state["tr_time"][2, 0, 1] = 0.5  # a torch op: rebuilt in place
+    assert event_step.occupancy_bound(state) is hi and hi.tolist() == [[0], [0], [2], [0]]
+    old = state["tr_time"]
+    state["tr_time"] = old.clone()
+    state["tr_time"][1, 0, 0] = 0.25
+    fresh = event_step.occupancy_bound(state)
+    assert fresh is not hi and fresh.tolist() == [[0], [1], [2], [0]]
+    assert event_step.kept_bound({"tr_time": old}) is hi and hi.tolist() == [[0], [0], [2], [0]]
+    gone = weakref.ref(old)
+    del old
+    assert gone() is None
 
 
 def test_host_barrier_takes_an_inbox_slab(host_kernel):
@@ -163,11 +329,11 @@ def test_host_barrier_takes_an_inbox_slab(host_kernel):
     )
     plain = {k: v.clone() for k, v in state.items()}
     limit = window_end(6, HOP_S)
-    host_kernel.run_barrier(
-        ctypes.byref(partition_barrier.barrier_args(compiled, state, 2, limit, slab)), 8
-    )
+    tr_hi = event_step.transit_bound(state)
+    _host_barrier(host_kernel, compiled, state, 2, 6, tr_hi, slab, threads=8)
     partition_barrier.plain_barrier(compiled, plain, 2, limit, slab)
     _assert_same(state, plain, "slab barrier")
+    _assert_bound(state, tr_hi, "slab barrier")
     assert int(plain["ob_len"].sum()) == 0
 
 
@@ -184,7 +350,8 @@ def test_more_remotes_than_the_lean_table_take_the_wide_code():
     state, params = init_partitions(compiled, 0, 1, 2, seed=1, device="cpu")
     halted = torch.empty((2,), dtype=torch.uint8)
     args = event_step.window_launch_args(compiled, state, state["key"], params,
-                                         window_end(0, HOP_S), 8, halted)
+                                         window_end(0, HOP_S), 8, halted,
+                                         event_step.transit_bound(state))
     assert event_step.library_of(args) == "event_step_partitioned"
     assert (args.wide.on, args.prt.nRm) == (1, 9)
     _args, tables = event_step._model_args(compiled)

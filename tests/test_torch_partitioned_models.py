@@ -132,6 +132,26 @@ def nine_remote_ring(mod, horizon_s=5.0):
     return m
 
 
+def full_row_ring(mod, horizon_s=5.0):
+    """The ring with two transit registers a server and a remote latency
+    of four windows: a Poisson 8/s source -> a server (mu = 20, queue
+    256) -> a random router over [sink, remote into the neighbour's
+    server after 200 ms]. About 1.6 jobs are in flight into each server,
+    so its two registers fill: full rows drop into tr_dropped, and pops
+    of the highest occupied slot lower the row's occupancy bound."""
+    m = mod.EnsembleModel(horizon_s=horizon_s, transit_capacity=2)
+    src = m.source(rate=8.0)
+    srv = m.server(service_mean=1.0 / MU, queue_capacity=256)
+    snk = m.sink()
+    remote = m.remote(ingress=srv, latency_s=4 * HOP_S)
+    router = m.router(policy="random")
+    m.connect(src, srv)
+    m.connect(srv, router)
+    m.connect(router, snk)
+    m.connect(router, remote)
+    return m
+
+
 PARTITIONED_MODELS = {
     "ring": ring,
     "chaos-ring": chaos_ring,
@@ -139,4 +159,5 @@ PARTITIONED_MODELS = {
     "relay": relay,
     "wide-ring": wide_ring,
     "nine-remote-ring": nine_remote_ring,
+    "full-row-ring": full_row_ring,
 }

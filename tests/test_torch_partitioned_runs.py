@@ -1,9 +1,10 @@
 """Whole partitioned runs of the port (``run_partitioned(..., device=
 "cpu")``: the plain window and barrier) against the JAX package's
 ``run_partitioned`` on ``partition_mesh`` of the conftest's CPU devices:
-the example ring, a chaos ring, a two-tenant ring, and an outbox that
-overflows with a budget that truncates windows, each run shared by the
-tests through a module-scoped fixture.
+the example ring, a chaos ring, a two-tenant ring, a ring whose two
+transit registers a server fill and drop, and an outbox that overflows
+with a budget that truncates windows, each run shared by the tests
+through a module-scoped fixture.
 
 Integer totals must be equal; means within rel 1e-4 (XLA's CPU ``log``
 differs from torch's by an ulp on some draws: ROADMAP C).
@@ -27,6 +28,7 @@ RUNS = {
     "ring": ("ring", 4, 8, 4.0, {}),
     "chaos-ring": ("chaos-ring", 3, 8, 4.0, {}),
     "two-sink-ring": ("two-sink-ring", 2, 16, 4.0, {}),
+    "full-row-ring": ("full-row-ring", 3, 8, 4.0, {}),
     # A one-entry outbox overflows, and a two-event budget truncates windows.
     "overflow-truncated": ("ring", 2, 8, 4.0, {"outbox_capacity": 1, "max_events_per_window": 2}),
 }
@@ -74,11 +76,12 @@ def test_run_matches_jax(jax_runs, torch_runs, name):
 
 def test_runs_exercise_what_they_name(jax_runs):
     """The overflow drops at the outbox, the small budget truncates
-    windows, the chaos ring drops in its brownout, and the default runs
-    do neither."""
+    windows, the chaos ring drops in its brownout, the full rows drop in
+    transit, and the default runs do none of these."""
     assert jax_runs["overflow-truncated"].remote_dropped > 0
     assert jax_runs["overflow-truncated"].truncated_windows > 0
     assert sum(jax_runs["chaos-ring"].server_outage_dropped) > 0
+    assert jax_runs["full-row-ring"].transit_dropped > 0
     for name in ("ring", "two-sink-ring"):
         run = jax_runs[name]
         assert run.remote_dropped == run.truncated_windows == run.transit_dropped == 0, name

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The event-step kernel's time per block in this checkout against
 another (a parent commit), on one card in turns: other, this, this,
-other.
+other; and the partitioned executor's two kernels a window.
 
     git archive <parent> | tar -x -C build/parent
     python3 tools/ab_parent.py --root build/parent
+    python3 tools/ab_parent.py --root build/parent --partitioned   # the rings alone
 
 Each turn is a fresh process in its checkout's root, which builds that
 checkout's libraries (kernels/build.py, into its own build/) and runs its
@@ -12,10 +13,23 @@ chip_smoke.time_blocks on the models below at chip_smoke's full width:
 the kernel's time per block in a 20-block launch, the plain version's
 and the bound, for models both checkouts run; then, for the models of
 RUNS, chip_smoke.check_whole_run's whole run in one launch (its device
-time and blocks). Prints one line a model with the two checkouts' mean
-kernel ms and their ratio, one a whole run, and the registers and
-spills ptxas reported for each instantiation of each checkout (from the
-turn that built its libraries), and writes chiprun_out/ab_parent.json.
+time and blocks); then, for the partitioned rings of RINGS a checkout
+defines, at 8 x 8,192 lanes, timed by this script's own code through
+the checkout's two wrappers (event_step.window_steps and
+partition_barrier.barrier, so both checkouts are measured the same way):
+the window kernel's and the barrier's device time a window over windows
+100-119 (CUDA events) as a window loop issues them and the device alone
+(the windows queued behind a torch.cuda._sleep), with the gap between
+launches, and where the checkout has partition_barrier.FoldedRing the
+folded launch's the same two ways; then the ring's whole run, WALL_RUNS
+times unfolded (a window and a barrier launch a window) and, where the
+checkout folds, WALL_RUNS times folded, in turns, each from the set-up
+state; and run_partitioned's wall. Prints one line a model with the two
+checkouts' mean kernel ms and their ratio, one a whole run, a few a
+ring, and the registers and spills ptxas reported for each
+instantiation of each checkout (from the turn that built its
+libraries), and writes chiprun_out/ab_parent.json. ``--partitioned``
+times the rings alone.
 """
 
 from __future__ import annotations
@@ -43,6 +57,17 @@ MODELS = (
 )
 # Models whose whole run (one launch of the main path's budget) is timed.
 RUNS = ("two-class", "wide-fleet")
+# Partitioned rings timed a window: (label, chip_smoke's builder).
+RINGS = (
+    ("ring", "partitioned_ring_model"),
+    ("nine-remote-ring", "partitioned_nine_remote_model"),
+    ("full-row-ring", "partitioned_full_row_model"),
+)
+# Cycles of the torch.cuda._sleep that holds the device while the timed
+# windows are queued (about 20 ms at 1.98 GHz).
+HOLD_CYCLES = 40_000_000
+# Whole runs of a ring in each form a turn.
+WALL_RUNS = 3
 
 _TURN = """
 import json, sys
@@ -53,20 +78,112 @@ ptxas = {}
 for stem, (_path, log) in build.build_libraries().items():
     for kernel, info in c.ptxas_summary(log).items():
         ptxas[stem + " " + kernel] = info
-out = {"ptxas": ptxas, "runs": {}}
+out = {"ptxas": ptxas, "runs": {}, "rings": {}}
 for label, expr, sweeps in %r:
     t = c.time_blocks(eval(expr), label, getattr(c, sweeps) if sweeps else None)
     out[label] = {k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms")}
     if label in %r:
         w = c.check_whole_run(label, eval(expr), getattr(c, sweeps) if sweeps else None)
         out["runs"][label] = {k: w[k] for k in ("run_ms", "blocks", "bound_ms")}
+import math, time, torch
+ew, pb = c.event_step, c.partition_barrier
+HOLD_CYCLES = %r
+
+# Each window's launches with a CUDA event before the first and after
+# each (behind a sleep that holds the device until all are queued where
+# held): each launch's ms a window, the gap's, and the host's ms a window.
+def marks_of(windows, launches, held):
+    if held:
+        torch.cuda._sleep(HOLD_CYCLES)
+    marks, t0 = [], time.perf_counter()
+    for w in windows:
+        ev = [torch.cuda.Event(enable_timing=True)]
+        ev[0].record()
+        for launch_one in launches(w):
+            launch_one()
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+        marks.append(ev)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    n = len(marks)
+    per = [sum(m[k].elapsed_time(m[k + 1]) for m in marks) / n for k in range(len(marks[0]) - 1)]
+    gap = sum(x[-1].elapsed_time(y[0]) for x, y in zip(marks, marks[1:])) / (n - 1)
+    return per, gap, host * 1e3 / n
+
+def ring_times(model):
+    compiled, state, params, budget = c.partitioned_setup(model, c.PART_R)
+    initial = {k: v.clone() for k, v in state.items()}
+    folds = hasattr(pb, "FoldedRing")
+
+    def split(st, wp, bp):
+        def launches(w):
+            limit = c.window_end(w, c.PART_HOP_S)
+            return (lambda: ew.window_steps(compiled, st, st["key"], params, limit, budget, wp),
+                    lambda: pb.barrier(compiled, st, c.PART_P, limit, prepared=bp))
+        return launches
+
+    warm = split(state, {}, {})  # the loop's arguments checked here, as run_partitioned's
+    for w in range(c.PART_WARM_WINDOWS):
+        for launch_one in warm(w):
+            launch_one()
+    windows = range(c.PART_WARM_WINDOWS, c.PART_WARM_WINDOWS + c.PART_TIMED_WINDOWS)
+    copies = {k: {leaf: v.clone() for leaf, v in state.items()}
+              for k in ("held", "loop_fold", "held_fold")}
+    r = {}
+    for st in copies.values():  # the occupancy bound a checkout keeps, built before the clock
+        if hasattr(ew, "occupancy_bound"):
+            ew.occupancy_bound(st)
+    for kind, held in (("loop", False), ("held", True)):
+        launches = warm if kind == "loop" else split(copies[kind], {}, {})
+        (r[kind + "_window_ms"], r[kind + "_barrier_ms"]), r[kind + "_gap_ms"], r[kind + "_host_ms"] = (
+            marks_of(windows, launches, held))
+        if folds:
+            st = copies[kind + "_fold"]
+            ring = pb.folded_ring(compiled, st, st["key"], params, c.PART_P, budget, {})
+            (r[kind + "_fold_ms"],), r[kind + "_fold_gap_ms"], r[kind + "_fold_host_ms"] = marks_of(
+                windows, lambda w, ring=ring: (lambda: ring.window(c.window_end(w, c.PART_HOP_S)),), held)
+            ring.flush()
+    n_windows = math.ceil(model.horizon_s / c.PART_HOP_S)
+    r["walls_unfolded"], r["walls_folded"] = [], []
+    for k in range(2 * %r):
+        folded = folds and k %% 4 in (1, 2)
+        if not folds and k %% 2:
+            continue
+        st = {leaf: v.clone() for leaf, v in initial.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if folded:
+            ring = pb.folded_ring(compiled, st, st["key"], params, c.PART_P, budget, {})
+            for w in range(n_windows):
+                ring.window(c.window_end(w, c.PART_HOP_S))
+            ring.flush()
+        else:
+            launches = split(st, {}, {})
+            for w in range(n_windows):
+                for launch_one in launches(w):
+                    launch_one()
+        torch.cuda.synchronize()
+        r["walls_folded" if folded else "walls_unfolded"].append((time.perf_counter() - t0) * 1e3)
+    r["wall_ms"] = c.run_partitioned(model, c.PART_HOP_S, mesh=c.card_partitions(),
+                                     n_replicas=c.PART_R).wall_seconds * 1e3
+    return r
+
+for label, builder in %r:
+    if hasattr(c, builder):
+        out["rings"][label] = ring_times(getattr(c, builder)())
 print("AB " + json.dumps(out))
 """
 
 
-def turn(root: Path) -> dict:
+def us(ms) -> str:
+    return "not measured" if ms is None else f"{ms * 1e3:.3f} us"
+
+
+def turn(root: Path, models: tuple, runs: tuple) -> dict:
     done = subprocess.run(
-        [sys.executable, "-c", _TURN % (MODELS, RUNS)], cwd=root, capture_output=True, text=True
+        [sys.executable, "-c", _TURN % (models, runs, HOLD_CYCLES, WALL_RUNS, RINGS)], cwd=root, capture_output=True,
+        text=True,
     )
     if done.returncode != 0:
         raise RuntimeError(f"turn in {root} failed:\n{done.stderr[-4000:]}")
@@ -77,15 +194,19 @@ def turn(root: Path) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", required=True, help="the other checkout's root")
-    other = Path(parser.parse_args().root).resolve()
+    parser.add_argument("--partitioned", action="store_true", help="time the rings alone")
+    options = parser.parse_args()
+    other = Path(options.root).resolve()
+    models, runs = ((), ()) if options.partitioned else (MODELS, RUNS)
     here = Path(__file__).resolve().parents[1]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    turns = [("other", turn(other)), ("this", turn(here)), ("this", turn(here)), ("other", turn(other))]
+    turns = [(who, turn(root, models, runs))
+             for who, root in (("other", other), ("this", here), ("this", here), ("other", other))]
     report = {"card": card, "turns": turns}
-    for label, *_rest in MODELS:
+    for label, *_rest in models:
         mean = {
             who: sum(t[label]["kernel_ms"] for w, t in turns if w == who) / 2 for who in ("this", "other")
         }
@@ -94,7 +215,7 @@ def main() -> int:
             f"{label}: kernel {mean['this']:.4f} ms/block here, {mean['other']:.4f} in the other "
             f"checkout ({mean['this'] / mean['other']:.3f}x) [{card}]"
         )
-    for label in RUNS:
+    for label in runs:
         mean = {
             who: sum(t["runs"][label]["run_ms"] for w, t in turns if w == who) / 2
             for who in ("this", "other")
@@ -105,6 +226,49 @@ def main() -> int:
             f"{label} whole run: {mean['this']:.3f} ms here ({blocks} blocks), {mean['other']:.3f} "
             f"in the other checkout ({mean['this'] / mean['other']:.3f}x) [{card}]"
         )
+    for label, _builder in RINGS:
+        if not all(label in t["rings"] for _w, t in turns):
+            continue
+        rings = {who: [t["rings"][label] for w, t in turns if w == who] for who in ("this", "other")}
+
+        def mean(who, key):
+            values = [r[key] for r in rings[who] if key in r]
+            return sum(values) / len(values) if values else None
+
+        def walls(who, key):
+            return [x for r in rings[who] for x in r[key]]
+
+        report[f"{label} windows"] = {
+            who: {key: mean(who, key) for key in rings[who][0] if not key.startswith("walls")}
+            for who in ("this", "other")
+        }
+        for who in ("this", "other"):
+            print(f"{label} ({who} checkout), a window: the device alone, window kernel "
+                  f"{us(mean(who, 'held_window_ms'))}, barrier {us(mean(who, 'held_barrier_ms'))}, gap "
+                  f"{us(mean(who, 'held_gap_ms'))}, folded launch {us(mean(who, 'held_fold_ms'))}; in the "
+                  f"window loop, window kernel {us(mean(who, 'loop_window_ms'))}, barrier "
+                  f"{us(mean(who, 'loop_barrier_ms'))}, gap {us(mean(who, 'loop_gap_ms'))}, folded launch "
+                  f"{us(mean(who, 'loop_fold_ms'))}; the host issues a window in "
+                  f"{us(mean(who, 'loop_host_ms'))} unfolded, {us(mean(who, 'loop_fold_host_ms'))} folded "
+                  f"[{card}]")
+            for form in ("unfolded", "folded"):
+                runs_ms = walls(who, "walls_" + form)
+                if runs_ms:
+                    report[f"{label} walls {form} {who}"] = runs_ms
+                    print(f"{label} ({who} checkout) whole runs {form}, in turns: "
+                          + ", ".join(f"{x:.3f}" for x in runs_ms)
+                          + f" ms (mean {sum(runs_ms) / len(runs_ms):.3f}, range {min(runs_ms):.3f}-"
+                          f"{max(runs_ms):.3f}) [{card}]")
+            print(f"{label} ({who} checkout): run_partitioned wall {mean(who, 'wall_ms'):.3f} ms [{card}]")
+        ratios = ", ".join(
+            f"{name} {mean('this', key) / mean('other', key):.3f}x"
+            for name, key in (("window kernel the device alone", "held_window_ms"),
+                              ("barrier the device alone", "held_barrier_ms"),
+                              ("window kernel in the loop", "loop_window_ms"),
+                              ("barrier in the loop", "loop_barrier_ms"),
+                              ("run_partitioned wall", "wall_ms"))
+        )
+        print(f"{label}: this checkout over the other: {ratios} [{card}]")
     for who in ("other", "this"):
         built = {}
         for w, t in turns:

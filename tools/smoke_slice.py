@@ -3,6 +3,7 @@
 change to the event-step kernel's MULTI and wide codes:
 
     python3 tools/smoke_slice.py      # on a machine with one NVIDIA GPU
+    python3 tools/smoke_slice.py --partitioned    # the build and the partitioned phase alone
 
 Builds the libraries and prints each instantiation's registers and spills,
 then runs chip_smoke's block checks (kernel against plain version, bit for
@@ -12,11 +13,11 @@ telemetry, with chaos) and of the wide code (chaos-free on the fleet, the
 chain and the tenants, the chaos code on the quorum), the whole runs of
 two-class and wide-fleet in one launch against chained one-block
 launches, and chip_smoke's partitioned phase (the window kernel and the
-barrier against their plain versions window by window on four models,
-the nine-remote ring's wide code among them, and over whole runs on
-three, a checkpointed ring run, the ring at 65,536 lanes through
-run_partitioned with its gates, and each kernel's time a window). Any
-failure raises.
+barrier against their plain versions window by window on five models,
+the nine-remote ring's wide code and a ring of full transit rows among
+them, and over whole runs on four, a checkpointed ring run, the ring at
+65,536 lanes through run_partitioned with its gates, and each kernel's
+time a window). Any failure raises.
 """
 
 import sys
@@ -42,6 +43,10 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {stem}: {line.strip()}")
     event_step.load_library()
+    if "--partitioned" in sys.argv[1:]:
+        c.partitioned_phase(tag)
+        print("slice ok")
+        return 0
     start = time.perf_counter()
     for name, model, blocks, sweeps in (
         ("mm1", c.mm1_model(c.LAM, c.MU, c.HORIZON_S, warmup_s=c.WARMUP_S), [0, 1, 2, 3], None),
