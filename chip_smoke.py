@@ -10,8 +10,8 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    checkout's sources, one nvcc per source (the event-step kernel without
    telemetry or resilience, its telemetry instantiations, its resilience
    instantiations, its consensus instantiations, its instantiations for
-   several sources or sinks with chaos and without, its trace-driven
-   instantiations, its wide code, its partitioned instantiations, the draw
+   several sources or sinks (three codes by feature set), its
+   trace-driven instantiations, its wide code, its partitioned instantiations, the draw
    kernel, the M/M/1 Lindley kernel and the window barrier) started together,
    with ptxas' register and spill report;
    then the draw kernel (csrc/uniform.cu) against rng.uniform, bit for
@@ -102,9 +102,13 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      server 4, mu=8, queue 64 -> sink 1; server 5 wired to sink 1 and fed
      by nothing), horizon 160 s, warmup 40 s, blocks 0-3 and 100, and
      with telemetry (64 windows of 2.5 s), both on the chaos-free code for
-     several sources or sinks, and two-class-chaos, its chaos arm (1% loss
-     on the batch edge, a 0.5 s deadline with one immediate retry on
-     server 4) on the chaos code, both codes in csrc/event_step_multi.cu;
+     several sources or sinks, two-class-chaos, its chaos arm (1% loss on
+     the batch edge, a 0.5 s deadline with one immediate retry on server
+     4) on the chaos code without the defenses' and the consensus tier's
+     sites, the chaos arm with telemetry (the same code with the
+     telemetry sites), and two-class-defended, the chaos arm with a retry
+     budget (0.2 tokens a second, bursts of one) on the chaos code with
+     every feature's sites, all three codes in csrc/event_step_multi.cu;
    - superpose: two Poisson sources at 5/s and 3/s into one server (mu=10,
      queue 512) -> one sink, horizon 160 s, warmup 40 s, blocks 0-3 and
      80, and superpose-tie: the same with two constant sources at 4/s
@@ -248,9 +252,13 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      windowed counts of both sinks sum exactly to their whole-run counts,
      sink 0's throughput is 30/s a replica within 1%, and the run with
      telemetry equals the run without on every whole-run number;
-   - two-class-chaos: the batch edge's losses within 5% of 1% of the
-     batch jobs sent, timeouts and retries at server 4, and sink 0's
-     throughput still 30/s a replica within 1%;
+   - two-class-chaos and two-class-defended: the batch edge's losses
+     within 5% of 1% of the batch jobs sent, timeouts and retries at
+     server 4 and none at the front servers, and sink 0's throughput
+     still 30/s a replica within 1%; the defended arm's budget drops at
+     server 4 alone, and fewer retries than the chaos arm's; each run of
+     several sources or sinks all on its code of the multi library
+     (event_step.launches_by_code);
    - quorum-undefended and quorum-defended (their max_events 1,024): the
      quorum is dark for exactly the cut, quorum_dark_fraction within 1e-6
      of 2/12, partition drops and quorum rejections booked, and the
@@ -278,11 +286,23 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    rates, max_events 16,384): the trace branch (csrc/event_step_trace.cu)
    against plain_trace_steps from the same state and pages, bit for bit,
    over a whole flash-crowd run (every stream step; every lane stalls at
-   the window's edge and ends past the trace's end), a diurnal run and a
-   run of the flash crowd beside a Poisson source at 50/s (the code for
-   several sources; every 8th stream step); the branch's time per block
-   in a 20-block launch with pages of 2,048 (no lane stalls) beside its
-   bound and the plain version's; then both scenarios through
+   the window's edge and ends past the trace's end), a diurnal run, a
+   run of the flash crowd beside a Poisson source at 50/s (trace-poisson:
+   the chaos-free MULTI code with the trace; every 8th stream step) and
+   beside it with a 10 ms deadline and one retry at the server
+   (trace-chaos: the MULTI chaos code with the trace; every 8th stream
+   step) and with a retry budget besides (trace-defended, 2 tokens a
+   second, bursts of two: the whole MULTI chaos code with the trace;
+   every 8th stream step); the time per block of the flash crowd, the
+   diurnal trace, trace-poisson, trace-chaos and trace-defended in a
+   20-block launch with pages of 2,048 (no lane stalls) beside its bound
+   and the plain version's; then trace-poisson, trace-chaos and
+   trace-defended through run_ensemble, the trace library's launches
+   counted by code and timed, the tenants' arrivals exactly 65,536 x the
+   trace's, each window's exactly 65,536 x the trace's instants in it,
+   timeouts and retries in trace-chaos and trace-defended, budget drops
+   in trace-defended and fewer retries than in trace-chaos, each run's
+   bound; then both scenarios through
    run_ensemble in pages of 2,048 (the process's first traced runs, which
    pay the pinned allocator's and the side stream's first use) and of 64,
    the trace library's launches counted and timed: the
@@ -380,8 +400,13 @@ lognormal M/G/1 (the family sampler), the profile graph (the profile
 tables), the chaos model (the chaos branches) and the telemetry model
 (the window buffers), bench_resilience's defended arm (the defenses),
 the two-tenant service (several sources and sinks without chaos:
-multi-lean) and its chaos arm (with chaos: multi), the defended
+multi-lean), its chaos arm (with chaos: multi) and its defended arm
+(the code with every feature's sites: multi-defended), the defended
 quorum arm (the consensus tier), the flash crowd (the trace branch),
+trace-poisson (the trace library's chaos-free MULTI code:
+trace-multi-lean), trace-chaos (its MULTI chaos code: trace-multi) and
+trace-defended (its code with every feature's sites:
+trace-multi-defended),
 the wide fleet (the chaos-free wide code: wide-lean), the wide quorum
 (the wide chaos code: wide) and the partitioned ring (the partitioned
 instantiation, its launches the run's windows, its time that of a
@@ -392,7 +417,8 @@ operations),
 the models the main path runs, its ms the time per block of a 20-block
 launch and its bound that of the same blocks, its launches those of the
 main path's run (one a run; for the trace branch one a stream step of
-the flash crowd's run); the draw kernel, its
+the flash crowd's, trace-poisson's, trace-chaos's or trace-defended's
+run); the draw kernel, its
 launches those of the M/M/1's chain-form run; the window barrier, its
 launches those of the partitioned ring's run (one: the last window's
 barrier, the others folded), its time a window as a launch of its own;
@@ -513,6 +539,9 @@ N_FANOUT = 4
 FANOUT_EDGE_S = 0.005
 FANOUT_LAM = 32.0
 LIBRARY_NOTE = "none: no single PyTorch call computes an event step"
+# The chaos-free code for several sources or sinks without telemetry (a
+# key of event_step.launches_by_code).
+MULTI_LEAN = ("event_step_multi", "lean", False)
 # The M/G/1 families: (server shape, the service's cv^2, the P-K gate,
 # the largest share of jobs dropped). Only pareto drops: a uniform at
 # its floor (1e-12, one draw in 2^23 of the 23-bit uniform) makes a
@@ -534,7 +563,8 @@ ARRIVALS_HORIZON_S = 30.0
 # Kernels-line entries whose main-path run has another name.
 RUN_OF_ENTRY = {
     "families": "mg1-lognormal", "resilience": "resilience-defended", "multi": "two-class-chaos",
-    "multi-lean": "two-class", "consensus": "quorum-defended",
+    "multi-lean": "two-class", "multi-defended": "two-class-defended",
+    "consensus": "quorum-defended",
 }
 # bench.py's bench_kernel_chaos: servers, their mu, its budget.
 CHAOS_SERVERS, CHAOS_MU = 4, 10.0
@@ -567,8 +597,11 @@ CASCADE_MAX_EVENTS = 2048
 # The two-tenant service: the web tenant's rate over its 4 servers, the
 # batch job's constant rate, its 5 ms edge, and the telemetry windows.
 WEB_RATE, BATCH_RATE, BATCH_EDGE_S, TWO_CLASS_WINDOW_S = 30.0, 4.0, 0.005, 2.5
-# Its chaos arm: the batch server's deadline and the batch edge's loss.
+# Its chaos arm: the batch server's deadline and the batch edge's loss;
+# its defended arm adds a retry budget of 0.2 tokens a second, bursts of
+# one (the whole chaos code for several sources or sinks).
 TWO_CLASS_DEADLINE_S, TWO_CLASS_LOSS_P = 0.5, 0.01
+TWO_CLASS_BUDGET = {"ratio": 0.0, "min_per_s": 0.2, "burst": 1.0}
 # tests/integration/test_tpu_consensus.py's scenarios: the quorum's
 # horizon, its cut over [4, 6) and budget; the election's flapping cuts,
 # timeout, heartbeat and budget.
@@ -1094,14 +1127,16 @@ def superpose_model(kind: str = "poisson", rates=(5.0, 3.0)) -> EnsembleModel:
     return model
 
 
-def two_class_model(window_s=None, chaos: bool = False) -> EnsembleModel:
+def two_class_model(window_s=None, chaos: bool = False, defended: bool = False) -> EnsembleModel:
     """A two-tenant service, horizon 160 s, warmup 40 s: source 0 (Poisson
     30/s) -> least_outstanding over servers 0-3 (mu = 10, queue 256) ->
     sink 0; source 1 (a constant 4/s batch job) over a 5 ms constant edge
     -> server 4 (mu = 8, queue 64) -> sink 1; server 5, wired to sink 1,
     fed by nothing. ``chaos``: the batch edge loses 1% of its jobs and
     server 4 times a job out after 0.5 s and retries it once at its
-    queue's tail (the code for several sources or sinks with chaos)."""
+    queue's tail (the chaos code for several sources or sinks without
+    the defenses' sites); ``defended`` (with chaos): a retry budget
+    (TWO_CLASS_BUDGET) holds the retries back (the whole chaos code)."""
     model = EnsembleModel(horizon_s=HORIZON_S, warmup_s=WARMUP_S, macro_block=MACRO)
     web = model.source(rate=WEB_RATE)
     batch = model.source(rate=BATCH_RATE, kind="constant")
@@ -1121,6 +1156,8 @@ def two_class_model(window_s=None, chaos: bool = False) -> EnsembleModel:
     model.connect(spare, batch_sink)
     if window_s is not None:
         model.telemetry(window_s=window_s)
+    if defended:
+        model.retry_budget(**TWO_CLASS_BUDGET)
     return model
 
 
@@ -1714,11 +1751,14 @@ def print_shares(tag: str, runs=None) -> dict:
 
 
 # -- the main path -------------------------------------------------------------
-def main_path_run(label: str, model, tag: str, shape: str, sweeps=None, max_events=None) -> tuple:
+def main_path_run(label: str, model, tag: str, shape: str, sweeps=None, max_events=None,
+                  code=None) -> tuple:
     """run_ensemble's event scan on cuda with the launch counts set to 0
     just before and read just after; returns (result, launches). The
     budget is explicit, the one the scan takes by default unless given,
-    so a model the chain form takes stays on the scan."""
+    so a model the chain form takes stays on the scan. ``code``, a key of
+    event_step.launches_by_code ((library, code, telemetry sites)): every
+    launch of the run must have taken that code."""
     if max_events is None:
         max_events = _default_max_events(model, sweeps)
     # CUDA events around the kernel's launch time its device time.
@@ -1736,11 +1776,15 @@ def main_path_run(label: str, model, tag: str, shape: str, sweeps=None, max_even
     try:
         event_step.block_step.launches = 0
         uniform.replica_uniform.launches = 0
+        event_step.launches_by_code.clear()
         result = run_ensemble(model, n_replicas=REPLICAS, sweeps=sweeps, max_events=max_events)
         launches = event_step.block_step.launches
+        by_code = dict(event_step.launches_by_code)
     finally:
         event_step.launch = launch
     require(uniform.replica_uniform.launches == 0, f"{label}: the scan launched the draw kernel")
+    if code is not None:
+        require(by_code == {code: launches}, f"{label}: launches by code {by_code}, not all {code}")
     RUN_KERNEL_MS[label] = (sum(start.elapsed_time(end) for start, end in timed), result, launches)
     blocks_run = max(result.block_occupancy)
     print(
@@ -2032,14 +2076,15 @@ def multi_main_path(tag: str) -> dict:
     """The runs of several sources and sinks on the main path, and their
     gates; returns {run name: (result, launches)}."""
     runs = {}
-    result, launches = main_path_run("superpose", superpose_model(), tag, "multi")
+    result, launches = main_path_run("superpose", superpose_model(), tag, "multi", code=MULTI_LEAN)
     within(result.server_mean_wait_s[0], LAM / MU / (MU - LAM), "superpose mean wait (M/M/1 at lambda=8)")
     within(result.sink_mean_latency_s[0], 1.0 / (MU - LAM), "superpose mean sojourn")
     runs["superpose"] = (result, launches)
-    plain, launches = main_path_run("two-class", two_class_model(), tag, "multi")
+    plain, launches = main_path_run("two-class", two_class_model(), tag, "multi", code=MULTI_LEAN)
     runs["two-class"] = (plain, launches)
     result, launches = main_path_run(
-        "two-class-telemetry", two_class_model(TWO_CLASS_WINDOW_S), tag, "multi"
+        "two-class-telemetry", two_class_model(TWO_CLASS_WINDOW_S), tag, "multi",
+        code=("event_step_multi", "lean", True),
     )
     runs["two-class-telemetry"] = (result, launches)
     for run in (plain, result):
@@ -2059,19 +2104,34 @@ def multi_main_path(tag: str) -> dict:
     within(plain.sink_count[0] / (REPLICAS * (HORIZON_S - WARMUP_S)), WEB_RATE,
            "two-class sink 0 throughput per replica", 0.01, unit=" /s")
     same_simulation("two-class-telemetry", result, plain)
-    # The chaos arm (the code for several sources or sinks with chaos):
+    # The chaos arm (the chaos code for several sources or sinks without
+    # the defenses' sites), and its defended arm (the whole chaos code):
     # the web tenant is untouched, so its throughput holds; the batch edge
-    # loses about 1% of the batch job's jobs, and its server times jobs out.
-    result, launches = main_path_run("two-class-chaos", two_class_model(chaos=True), tag, "multi")
-    runs["two-class-chaos"] = (result, launches)
-    lost = result.network_lost / (REPLICAS * BATCH_RATE * HORIZON_S)
-    print(f"  two-class-chaos: {result.network_lost} batch jobs lost ({lost:.5f} of those sent), "
-          f"server 4 timed out {result.server_timed_out[4]} and retried {result.server_retried[4]}")
-    require(abs(lost - TWO_CLASS_LOSS_P) <= 0.05 * TWO_CLASS_LOSS_P, "two-class-chaos: loss share")
-    require(result.server_timed_out[4] > 0 and result.server_retried[4] > 0,
-            "two-class-chaos: no timeout or retry")
-    within(result.sink_count[0] / (REPLICAS * (HORIZON_S - WARMUP_S)), WEB_RATE,
-           "two-class-chaos sink 0 throughput per replica", 0.01, unit=" /s")
+    # loses about 1% of the batch job's jobs, and its server times jobs
+    # out; in the defended arm the budget suppresses retries.
+    for label, model, code in (
+        ("two-class-chaos", two_class_model(chaos=True), ("event_step_multi", "chaos", False)),
+        ("two-class-defended", two_class_model(chaos=True, defended=True),
+         ("event_step_multi", "full", False)),
+    ):
+        result, launches = main_path_run(label, model, tag, "multi", code=code)
+        runs[label] = (result, launches)
+        lost = result.network_lost / (REPLICAS * BATCH_RATE * HORIZON_S)
+        print(f"  {label}: {result.network_lost} batch jobs lost ({lost:.5f} of those sent), "
+              f"server 4 timed out {result.server_timed_out[4]}, retried {result.server_retried[4]}, "
+              f"budget drops {result.server_budget_dropped or 'none'}")
+        require(abs(lost - TWO_CLASS_LOSS_P) <= 0.05 * TWO_CLASS_LOSS_P, f"{label}: loss share")
+        require(result.server_timed_out[4] > 0 and result.server_retried[4] > 0,
+                f"{label}: no timeout or retry")
+        require(result.server_timed_out[:4] == [0] * 4 and result.server_retried[:4] == [0] * 4,
+                f"{label}: a front server timed out or retried")
+        within(result.sink_count[0] / (REPLICAS * (HORIZON_S - WARMUP_S)), WEB_RATE,
+               f"{label} sink 0 throughput per replica", 0.01, unit=" /s")
+    chaos, defended = runs["two-class-chaos"][0], runs["two-class-defended"][0]
+    require(defended.server_budget_dropped[4] > 0 and sum(defended.server_budget_dropped[:4]) == 0,
+            f"two-class-defended: budget drops {defended.server_budget_dropped}")
+    require(defended.server_retried[4] < chaos.server_retried[4],
+            "two-class-defended: the budget held no retry back")
     return runs
 
 
@@ -2357,6 +2417,13 @@ TRACE_HORIZON_S, TRACE_CHUNK_LEN, TRACE_MAX_EVENTS, TRACE_WINDOW_S = 16.0, 64, 1
 TRACE_LONG_CHUNK = 2048
 # The stream step whose snapshot the checkpointed traced run keeps.
 TRACE_SNAPSHOT_STEP = 5
+# The traced chaos model: the flash crowd beside a Poisson source at 50/s
+# into the server, which times a job out after 10 ms and retries it once
+# (about 8% of the 4 ms services outlast the deadline).
+TRACE_CHAOS = {"poisson_rate": 50.0, "deadline_s": 0.01}
+# The traced defended model: the traced chaos model with a retry budget
+# of 2 tokens a second, bursts of two, which holds most retries back.
+TRACE_DEFENDED = {**TRACE_CHAOS, "budget": {"ratio": 0.0, "min_per_s": 2.0, "burst": 2.0}}
 
 
 def bench_trace(kind: str, chunk_len: int = TRACE_CHUNK_LEN) -> TraceSpec:
@@ -2370,19 +2437,27 @@ def bench_trace(kind: str, chunk_len: int = TRACE_CHUNK_LEN) -> TraceSpec:
                              TRACE_HORIZON_S, seed=11, chunk_len=chunk_len)
 
 
-def trace_model(kind: str, chunk_len: int = TRACE_CHUNK_LEN, poisson_rate: float = 0.0) -> EnsembleModel:
+def trace_model(kind: str, chunk_len: int = TRACE_CHUNK_LEN, poisson_rate: float = 0.0,
+                deadline_s=None, budget=None) -> EnsembleModel:
     """_trace_measure's model: the trace into a four-slot server (4 ms,
     queue 64) -> sink, macro_block 16, 2 s windows of throughput, latency
     and rates; with ``poisson_rate``, a Poisson source at that rate
     superposed on the server ahead of the trace (several sources: the
-    trace code for them)."""
+    trace library's chaos-free MULTI code); with ``deadline_s``, the
+    server times a job out after it and retries it once at its queue's
+    tail (the trace library's MULTI chaos code without the defenses'
+    sites); with ``budget``, a retry budget of those arguments (its whole
+    MULTI chaos code)."""
     model = EnsembleModel(horizon_s=TRACE_HORIZON_S, macro_block=16)
-    srv = model.server(concurrency=4, service_mean=0.004, queue_capacity=64)
+    retry = {} if deadline_s is None else {"deadline_s": deadline_s, "max_retries": 1}
+    srv = model.server(concurrency=4, service_mean=0.004, queue_capacity=64, **retry)
     if poisson_rate:
         model.connect(model.source(rate=poisson_rate), srv)
     model.connect(model.trace_arrivals(bench_trace(kind, chunk_len)), srv)
     model.connect(srv, model.sink())
     model.telemetry(window_s=TRACE_WINDOW_S, metrics=("throughput", "latency", "rates"))
+    if budget is not None:
+        model.retry_budget(**budget)
     return model
 
 
@@ -2449,15 +2524,16 @@ def check_trace_stream(name: str, model, every: int = 1) -> float:
     return max_abs
 
 
-def time_trace_blocks(kind: str) -> dict:
+def time_trace_blocks(kind: str, **model_kw) -> dict:
     """The trace branch's time per block at REPLICAS replicas, every lane
-    live: from the first two blocks of the model with pages of
-    TRACE_LONG_CHUNK arrivals (20 blocks never reach the window's edge), a
-    launch with a budget of 20 more blocks, twice, each on its own copy
-    of the state; its bound, reckoned as time_blocks reckons it (the dense
-    state moved once, the float operations of the steps, the threefry the
-    kernel counted); and the plain version's time per block."""
-    model = trace_model(kind, TRACE_LONG_CHUNK)
+    live: from the first two blocks of the model (trace_model's, with
+    ``model_kw``) with pages of TRACE_LONG_CHUNK arrivals (20 blocks never
+    reach the window's edge), a launch with a budget of 20 more blocks,
+    twice, each on its own copy of the state; its bound, reckoned as
+    time_blocks reckons it (the dense state moved once, the float
+    operations of the steps, the threefry the kernel counted); and the
+    plain version's time per block."""
+    model = trace_model(kind, TRACE_LONG_CHUNK, **model_kw)
     compiled, keys, params, state = fresh_run(model)
     pages = trace_pages(compiled, 0)
     halted = torch.empty((REPLICAS,), dtype=torch.uint8, device="cuda")
@@ -2515,11 +2591,12 @@ def launch_bytes_of(model) -> int:
     return REPLICAS * support.replica_working_set_bytes(compiled, state) + support.shared_const_bytes(compiled)
 
 
-def traced_run(label: str, model, tag: str, **kw) -> tuple:
+def traced_run(label: str, model, tag: str, code=None, **kw) -> tuple:
     """run_ensemble on cuda for a traced model at REPLICAS replicas and
     TRACE_MAX_EVENTS, with the launch counts set to 0 just before and read
     just after, each launch timed with CUDA events; returns (result,
-    launches, kernel ms)."""
+    launches, kernel ms). ``code``, a key of event_step.launches_by_code:
+    every launch must have taken that code of the trace library."""
     timed_launches = []
     launch = event_step.launch
 
@@ -2535,10 +2612,14 @@ def traced_run(label: str, model, tag: str, **kw) -> tuple:
         event_step.block_step.launches = 0
         event_step.trace_steps.launches = 0
         uniform.replica_uniform.launches = 0
+        event_step.launches_by_code.clear()
         result = run_ensemble(model, n_replicas=REPLICAS, max_events=TRACE_MAX_EVENTS, **kw)
         launches = event_step.trace_steps.launches
+        by_code = dict(event_step.launches_by_code)
     finally:
         event_step.launch = launch
+    if code is not None:
+        require(by_code == {code: launches}, f"{label}: launches by code {by_code}, not all {code}")
     require(event_step.block_step.launches == 0 and uniform.replica_uniform.launches == 0,
             f"{label}: a launch off the trace library")
     torch.cuda.synchronize()
@@ -2619,8 +2700,13 @@ def trace_phase(tag: str) -> dict:
         check_trace_stream("trace-flash", trace_model("flash")),
         check_trace_stream("trace-diurnal", trace_model("diurnal"), every=8),
         check_trace_stream("trace-poisson", trace_model("flash", poisson_rate=50.0), every=8),
+        check_trace_stream("trace-chaos", trace_model("flash", **TRACE_CHAOS), every=8),
+        check_trace_stream("trace-defended", trace_model("flash", **TRACE_DEFENDED), every=8),
     )
     timing = {kind: time_trace_blocks(kind) for kind in ("flash", "diurnal")}
+    timing["poisson"] = time_trace_blocks("flash", poisson_rate=50.0)
+    timing["chaos"] = time_trace_blocks("flash", **TRACE_CHAOS)
+    timing["defended"] = time_trace_blocks("flash", **TRACE_DEFENDED)
     out = {"max_abs_err": max_abs, "timing": timing, "runs": {}}
     for kind, t in timing.items():
         print(
@@ -2637,32 +2723,11 @@ def trace_phase(tag: str) -> dict:
         # timed run below finds them warm.
         long_pages, _launches, _ms = traced_run(f"{label} pages of {TRACE_LONG_CHUNK}",
                                                 trace_model(kind, TRACE_LONG_CHUNK), tag)
-        result, launches, kernel_ms = traced_run(label, trace_model(kind), tag)
-        wall_ms = result.wall_seconds * 1e3
-        blocks = max(result.block_occupancy)
-        report = result.engine_report()["trace"]
-        # The run's bound: each launch moves the dense state once, the
-        # float operations of its events, and the threefry of its
-        # lane-blocks at the timed launch's rate per lane-block.
-        t = timing[kind]
-        run_bound_ms = max(
-            launch_bytes_of(trace_model(kind)) * launches / PEAK_BYTES_PER_S * 1e3,
-            result.simulated_events * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER)
-            / PEAK_F32_OPS_PER_S * 1e3,
-            int_ms(t["int_ops_per_lane_block"] * result.blocks_total,
-                   t["alu_ops_per_lane_block"] * result.blocks_total),
+        result, launches, kernel_ms = traced_run(
+            label, trace_model(kind), tag, code=("event_step_trace", "line", True)
         )
-        print(
-            f"trace {kind} x{REPLICAS}: {trace.n_arrivals} arrivals in {trace.n_chunks} pages of "
-            f"{TRACE_CHUNK_LEN}, engine_path {result.engine_path}; wall {wall_ms:.1f} ms, kernel "
-            f"{kernel_ms:.2f} ms ({100 * kernel_ms / wall_ms:.1f}%) in {launches} launches = "
-            f"stream steps, host {wall_ms - kernel_ms:.2f} ms; {blocks} blocks (the most a lane "
-            f"ran), kernel {kernel_ms / blocks:.4f} ms a block against a bound of "
-            f"{run_bound_ms / blocks:.4f}; buffer stall {report['buffer_stall_seconds']:.6f} s "
-            f"(fraction {report['stall_fraction']:.6f}), {report['chunks_streamed']} pages "
-            f"uploaded, at most {report['max_resident_chunks']} resident; "
-            f"{result.simulated_events} events = {result.events_per_second:.4g} events/s {tag}"
-        )
+        report = trace_run_report(kind, trace_model(kind), result, launches, kernel_ms,
+                                  timing[kind], tag)
         trace_run_gates(label, result, trace)
         diff = resume_mismatches(result, long_pages, TRACE_PAGING_FIELDS)
         require(not diff, f"{label}: pages of {TRACE_CHUNK_LEN} and {TRACE_LONG_CHUNK} differ on {diff}")
@@ -2671,14 +2736,73 @@ def trace_phase(tag: str) -> dict:
               f"{long_pages.trace_stream_steps} stream step, wall "
               f"{long_pages.wall_seconds * 1e3:.1f} ms) {tag}")
         out["runs"][label] = {
-            "wall_ms": wall_ms, "kernel_ms": kernel_ms, "host_ms": wall_ms - kernel_ms,
-            "launches": launches, "blocks": blocks, "run_bound_ms": run_bound_ms,
-            "events_per_second": result.events_per_second, **report,
-            "long_pages_wall_ms": long_pages.wall_seconds * 1e3,
+            **report, "long_pages_wall_ms": long_pages.wall_seconds * 1e3,
             "checkpoint": trace_checkpoint(label, kind, result, tag),
         }
+    # The flash crowd beside a Poisson source (the chaos-free MULTI code
+    # with the trace), beside it with a deadline and a retry at the server
+    # (the MULTI chaos code with the trace), and with a retry budget
+    # besides (the whole MULTI chaos code with the trace): the trace's
+    # gates, timeouts and retries at the server, and the budget's drops.
+    for name, model_kw, code in (
+        ("poisson", {"poisson_rate": 50.0}, ("event_step_trace", "lean", True)),
+        ("chaos", TRACE_CHAOS, ("event_step_trace", "chaos", True)),
+        ("defended", TRACE_DEFENDED, ("event_step_trace", "full", True)),
+    ):
+        label = f"trace-{name}"
+        result, launches, kernel_ms = traced_run(label, trace_model("flash", **model_kw), tag,
+                                                 code=code)
+        out["runs"][label] = trace_run_report(
+            label, trace_model("flash", **model_kw), result, launches, kernel_ms, timing[name], tag
+        )
+        trace_run_gates(label, result, bench_trace("flash"))
+        if name != "poisson":
+            print(f"  {label}: timed out {result.server_timed_out[0]}, retried "
+                  f"{result.server_retried[0]}, budget drops {result.server_budget_dropped or 'none'}")
+            require(result.server_timed_out[0] > 0 and result.server_retried[0] > 0,
+                    f"{label}: no timeout or retry")
+            out["runs"][label]["retried"] = result.server_retried[0]
+        if name == "defended":
+            require(result.server_budget_dropped[0] > 0, f"{label}: no budget drop")
+            require(result.server_retried[0] < out["runs"]["trace-chaos"]["retried"],
+                    f"{label}: the budget held no retry back")
     print(f"trace phase: {time.perf_counter() - t0:.1f} s {tag}")
     return out
+
+
+def trace_run_report(kind: str, model, result, launches: int, kernel_ms: float, t: dict,
+                     tag: str) -> dict:
+    """Prints a traced run's line and returns its numbers: its wall,
+    kernel and host time, stream steps, blocks, the run's bound (each
+    launch moves the dense state once, the float operations of its
+    events, and the threefry of its lane-blocks at the timed launch's rate
+    per lane-block, ``t``), paging and events/s."""
+    wall_ms = result.wall_seconds * 1e3
+    blocks = max(result.block_occupancy)
+    report = result.engine_report()["trace"]
+    run_bound_ms = max(
+        launch_bytes_of(model) * launches / PEAK_BYTES_PER_S * 1e3,
+        result.simulated_events * (OPS_PER_STEP_BASE + OPS_PER_STEP_PER_SERVER)
+        / PEAK_F32_OPS_PER_S * 1e3,
+        int_ms(t["int_ops_per_lane_block"] * result.blocks_total,
+               t["alu_ops_per_lane_block"] * result.blocks_total),
+    )
+    print(
+        f"trace {kind} x{REPLICAS}: engine_path {result.engine_path}; wall {wall_ms:.1f} ms, "
+        f"kernel {kernel_ms:.2f} ms ({100 * kernel_ms / wall_ms:.1f}%) in {launches} launches = "
+        f"stream steps, host {wall_ms - kernel_ms:.2f} ms; {blocks} blocks (the most a lane "
+        f"ran), kernel {kernel_ms / blocks:.4f} ms a block against a bound of "
+        f"{run_bound_ms / blocks:.4f} (the run's {run_bound_ms:.4f} ms, "
+        f"{100 * run_bound_ms / kernel_ms:.2f}%); buffer stall "
+        f"{report['buffer_stall_seconds']:.6f} s (fraction {report['stall_fraction']:.6f}), "
+        f"{report['chunks_streamed']} pages uploaded, at most {report['max_resident_chunks']} "
+        f"resident; {result.simulated_events} events = {result.events_per_second:.4g} events/s {tag}"
+    )
+    return {
+        "wall_ms": wall_ms, "kernel_ms": kernel_ms, "host_ms": wall_ms - kernel_ms,
+        "launches": launches, "blocks": blocks, "run_bound_ms": run_bound_ms,
+        "events_per_second": result.events_per_second, **report,
+    }
 
 
 # run_mm1_ensemble as bench.py's bench_kernel calls it: 4,096 customers a
@@ -2948,6 +3072,12 @@ def wide_phase(tag: str) -> dict:
             f"{w['blocks']} blocks (bound {w['bound_ms']:.4f} ms); plain {t['plain_ms']:.3f} "
             f"ms/block {tag}"
         )
+    # Each whole run beside its bound (the dense state moved once, the
+    # float operations of its events, the threefry it counted).
+    for name, w in out["whole"].items():
+        print(f"  {name} whole run: {w['run_ms']:.3f} ms for {w['blocks']} blocks, "
+              f"{100 * w['bound_ms'] / w['run_ms']:.2f}% of its bound {w['bound_ms']:.4f} ms "
+              f"({w['bound_by']}) {tag}")
     out["seconds"] = time.perf_counter() - t0
     print(f"wide phase: {out['seconds']:.1f} s {tag}")
     return out
@@ -3798,13 +3928,18 @@ def main() -> int:
     # Several sources and sinks: the two-tenant service on the main path,
     # the superposed pair (Poisson, and constant at one rate: the tie) and
     # the tenants with telemetry on the chaos-free code, the tenants with
-    # chaos on the chaos code (both in event_step_multi.cu); the consensus
+    # chaos on the chaos code, with and without its telemetry sites, and
+    # with a defense on the whole chaos code (all in event_step_multi.cu);
+    # the consensus
     # instantiations: the defended quorum arm on the main path (blocks 16
     # and 20 lie in and after its cut), the undefended arm, the election
     # storm and stochastic cuts drawn on the salted stream.
     max_abs["multi-lean"] = check_blocks("two-class", two_class_model(), [0, 1, 2, 3, 100])
     max_abs["multi"] = check_blocks(
         "two-class-chaos", two_class_model(chaos=True), [0, 1, 2, 3, 100]
+    )
+    max_abs["multi-defended"] = check_blocks(
+        "two-class-defended", two_class_model(chaos=True, defended=True), [0, 1, 2, 3, 100]
     )
     max_abs["consensus"] = check_blocks("quorum-defended", quorum_model(True), [0, 1, 2, 3, 16, 20])
     extra_abs.update({
@@ -3814,6 +3949,10 @@ def main() -> int:
         ),
         "two-class-telemetry": check_blocks(
             "two-class-telemetry", two_class_model(TWO_CLASS_WINDOW_S), [0, 1, 2, 3, 100]
+        ),
+        "two-class-chaos-telemetry": check_blocks(
+            "two-class-chaos-telemetry", two_class_model(TWO_CLASS_WINDOW_S, chaos=True),
+            [0, 1, 2, 3, 100],
         ),
         "quorum-undefended": check_blocks("quorum-undefended", quorum_model(False), [0, 1, 2, 3, 16, 20]),
         "election-bully": check_blocks("election-bully", election_model("bully"), [0, 1, 2, 3]),
@@ -3858,6 +3997,9 @@ def main() -> int:
         ),
         "multi-lean": check_whole_run("two-class", two_class_model()),
         "multi": check_whole_run("two-class-chaos", two_class_model(chaos=True)),
+        "multi-defended": check_whole_run(
+            "two-class-defended", two_class_model(chaos=True, defended=True)
+        ),
         "consensus": check_whole_run(
             "quorum-defended", quorum_model(True), max_events=QUORUM_MAX_EVENTS
         ),
@@ -3885,6 +4027,9 @@ def main() -> int:
         ),
         "multi-lean": time_blocks(two_class_model(), "two-class"),
         "multi": time_blocks(two_class_model(chaos=True), "two-class-chaos"),
+        "multi-defended": time_blocks(
+            two_class_model(chaos=True, defended=True), "two-class-defended"
+        ),
         "consensus": time_blocks(quorum_model(True), "quorum-defended"),
     }
     for shape, t in timings.items():
@@ -4043,7 +4188,7 @@ def main() -> int:
             }
             for shape in (
                 "mm1", "chain", "router", "graph", "families", "profile", "chaos", "telemetry",
-                "resilience", "multi-lean", "multi", "consensus",
+                "resilience", "multi-lean", "multi", "multi-defended", "consensus",
             )
         ] + [
             {
@@ -4059,6 +4204,28 @@ def main() -> int:
                 "bound_by": traces["timing"]["flash"]["bound_by"],
                 "library_ms": None,
             },
+        ] + [
+            # The trace library's MULTI codes: chaos-free (the flash crowd
+            # beside a Poisson source), with chaos (beside it, with a
+            # deadline and a retry at the server) and with every feature's
+            # sites (with a retry budget besides).
+            {
+                "name": f"event_step[{variant}]",
+                "route": "cuda",
+                "source": "happysim_tpu_torch/kernels/csrc/event_step_trace.cu",
+                "replaces": "happysim_tpu/tpu/kernels/event_step.py:312",
+                "launches": traces["runs"][f"trace-{name}"]["launches"],
+                "max_abs_err": traces["max_abs_err"],
+                "ms": traces["timing"][name]["kernel_ms"],
+                "plain_ms": traces["timing"][name]["plain_ms"],
+                "bound_ms": traces["timing"][name]["bound_ms"],
+                "bound_by": traces["timing"][name]["bound_by"],
+                "library_ms": None,
+            }
+            for variant, name in (
+                ("trace-multi-lean", "poisson"), ("trace-multi", "chaos"),
+                ("trace-multi-defended", "defended"),
+            )
         ] + [
             {
                 "name": f"event_step[{variant}]",

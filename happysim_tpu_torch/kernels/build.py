@@ -20,7 +20,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # One library per source: the event-step kernel without telemetry or
 # resilience, its telemetry instantiations, its resilience instantiations,
 # its consensus instantiations, its instantiations for several sources or
-# sinks (with chaos and without), its trace-driven instantiations, its wide
+# sinks (three codes by feature set), its trace-driven instantiations, its wide
 # code, its partitioned instantiations, the standalone draw kernel, the
 # M/M/1 ensemble's Lindley scan and the partitioned executor's window
 # barrier.

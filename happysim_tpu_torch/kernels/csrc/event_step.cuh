@@ -27,7 +27,8 @@
 // source 0's next arrival and sink 0's accumulators, in registers.
 //
 // event_step_kernel<MAXV, GRAPH, EXT, CHAOS, TEL, RES, CON, MULTI, TRC>
-// has seventeen instantiations per server bound:
+// has twenty-five instantiations per server bound in six libraries (the
+// wide and partitioned libraries add their own):
 // - GRAPH = false, the "mm1" and "chain" shapes (lines of servers joined
 //   by free edges, or a source wired straight to the sink): a delivery is
 //   a server arrival or the sink;
@@ -84,20 +85,23 @@
 //   members out of reach (drop-mode fault windows and cut groups) and is
 //   rejected, and retried after a backoff, below the write quorum. The
 //   quorum's dark time and the election are init sweeps, not the step's;
-// - MULTI = true runs several sources or sinks, by feature set: a model
-//   with chaos (and the defenses and the consensus tier, which ride on
-//   it) takes <MAXV, true, true, true, true, true, true, true>, built
-//   from event_step_multi.cu into a fifth library, the whole chaos code
-//   with every feature's sites, each taken only where the model has the
-//   feature (a null leaf, an unset flag); a model without chaos takes
-//   the extended graph code with MULTI, with or without the telemetry
-//   sites (<MAXV, true, true, false, TEL, false, false, true>, in the
-//   same library), at the graph code's register count;
-// - TRC = true (built from event_step_trace.cu into a sixth library, as
-//   <MAXV, true, true, false, TEL, false, false, false, true> for a
-//   single-source traced model without chaos, and as the MULTI code with
-//   it for every other traced model) replays a trace: the traced source's
-//   fire reads its next instant and the arrival's tenant from the two
+// - MULTI = true runs several sources or sinks, by feature set (hs_code),
+//   built from event_step_multi.cu into a fifth library, each code with
+//   or without the telemetry sites: a model without chaos takes the
+//   extended graph code with MULTI (<MAXV, true, true, false, TEL, false,
+//   false, true>), at the graph code's register count; a model with chaos
+//   but neither the defenses nor the consensus tier takes the chaos code
+//   without their sites (<MAXV, true, true, true, TEL, false, false,
+//   true>); a model with a defense or the consensus tier takes the whole
+//   chaos code with every feature's sites (<MAXV, true, true, true, true,
+//   true, true, true>), each taken only where the model has the feature
+//   (a null leaf, an unset flag);
+// - TRC = true (built from event_step_trace.cu into a sixth library)
+//   replays a trace, on the codes of the MULTI library chosen the same way
+//   (with TRC as the ninth argument), and on the extended graph code
+//   without MULTI (<MAXV, true, true, false, TEL, false, false, false,
+//   true>) for a single-source traced model without chaos: the traced
+//   source's fire reads its next instant and the arrival's tenant from the two
 //   resident pages of the trace (HsTrc) instead of drawing a gap, and a
 //   lane enters a block only while its block budget lasts and while the
 //   block cannot read past the resident pages (the stall gate). A stalled
@@ -1877,19 +1881,27 @@ __device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_
 
 // Registers decide how many blocks an SM holds, so whether a launch over
 // 65,536 replicas is one wave: at most 128 a thread keep 512 / HS_THREADS
-// blocks on each of the 132 SMs. The instantiations of up to four servers
-// without the chaos branches fit 128 without spilling and are held to
-// it (the profiled graph measured 0.67x its time at 141), and so is the
-// wide code without them (MAXV = HS_WIDE = 0: its per-server registers
-// are rows in device memory); the chaos instantiations and those of eight
-// servers would spill, which measured slower (the chaos bench 1.15x at
-// 128), and take what the compiler picks.
-#define HS_MIN_BLOCKS(MAXV, CHAOS) \
-  (HS_REG_CAP && (MAXV) <= 4 && !(CHAOS) ? 65536 / (128 * HS_THREADS) : 1)
+// blocks on each of the 132 SMs. Held to it (`CAPPED`):
+// - the instantiations of up to four servers without the chaos branches,
+//   which fit 128 but for the chaos-free MULTI code with the trace and
+//   telemetry (56 bytes of spill stores; the profiled graph measured
+//   0.67x its time at 141), and the wide code without them (MAXV =
+//   HS_WIDE = 0: its per-server registers are rows in device memory);
+// - the MULTI chaos codes (lean, not PRT), whose one wave beats their
+//   spills: two-class-chaos 0.84x its time at 218 registers, at four
+//   servers 0.68x at 166, the traced chaos model 0.73x at 146; the code
+//   with every site 0.92-0.95x on the defended two-class arm at 252,
+//   0.96x on the defended quorum with a second source, 0.74x on the
+//   traced defended model (tools/ab_parent.py against uncapped trees).
+// The other chaos instantiations and the chaos-free ones of eight servers
+// take what the compiler picks (the lean chaos bench measured 1.15x at
+// 128).
+#define HS_MIN_BLOCKS(CAPPED) (HS_REG_CAP && (CAPPED) ? 65536 / (128 * HS_THREADS) : 1)
 
 template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false, bool RES = false,
           bool CON = false, bool MULTI = false, bool TRC = false, bool PRT = false>
-__global__ void __launch_bounds__(HS_THREADS, HS_MIN_BLOCKS(MAXV, CHAOS))
+__global__ void __launch_bounds__(HS_THREADS,
+                                  HS_MIN_BLOCKS(CHAOS ? MULTI && !PRT && MAXV != HS_WIDE : MAXV <= 4))
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   constexpr bool WIDE = MAXV == HS_WIDE;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -2518,6 +2530,40 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     if (a.res.brk_fail_t) stage_out(L.brk_ring, a.res.brk_fail_t + rv * a.res.F, nV * a.res.F);
   }
 }
+
+// The code a launch of the library for several sources or sinks
+// (event_step_multi.cu) or of the trace library (event_step_trace.cu,
+// `trace`) takes, each with the telemetry sites where the model has a
+// spec (args.tel.nW), so a model pays only for the sites it has:
+// - HS_CODE_LINE (the trace library only): one source, one sink, no
+//   chaos: the extended graph code with the trace;
+// - HS_CODE_LEAN: several sources or sinks without chaos: the extended
+//   graph code with MULTI;
+// - HS_CODE_CHAOS: chaos without the defenses or the consensus tier: the
+//   chaos code with MULTI and none of their sites;
+// - HS_CODE_FULL: the defenses or the consensus tier: the chaos code with
+//   MULTI and every feature's sites (the telemetry ones always), each
+//   taken only where the model has the feature.
+// Each of the two libraries exports its choice by name through
+// HS_EVENT_STEP_CODE, which kernels/event_step.py reads to count each
+// code's launches.
+#define HS_CODE_LINE 0
+#define HS_CODE_LEAN 1
+#define HS_CODE_CHAOS 2
+#define HS_CODE_FULL 3
+
+static inline int hs_code(const EventStepArgs& a, bool trace) {
+  if (!a.chaos) return trace && a.nS == 1 && a.nK == 1 ? HS_CODE_LINE : HS_CODE_LEAN;
+  return a.res.on || a.con.on ? HS_CODE_FULL : HS_CODE_CHAOS;
+}
+
+// extern "C" hs_event_step_code(args): the name of the code the launch
+// of `args` takes in a library that picks it by hs_code(args, TRACE).
+#define HS_EVENT_STEP_CODE(TRACE)                                            \
+  extern "C" const char* hs_event_step_code(const EventStepArgs* args) {     \
+    static const char* const names[] = {"line", "lean", "chaos", "full"};    \
+    return names[hs_code(*args, TRACE)];                                     \
+  }
 
 #if defined(__CUDACC__)
 // Dynamic shared memory of a launch: the profile tables, then the row

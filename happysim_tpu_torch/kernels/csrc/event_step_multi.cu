@@ -1,27 +1,46 @@
 // C interface of the event-step kernel's instantiations for several
-// sources or sinks (event_step.cuh with MULTI = true), per server bound:
-// with chaos, the chaos code with the telemetry, resilience and consensus
-// sites, each taken only where the model has the feature; without it, the
-// extended graph code, with or without the telemetry sites, which has none
-// of the chaos code's sites and so none of its registers (the chaos code
-// took 154-242 registers whatever the model had). Every one keeps the
-// sources' next arrivals in a register array and the other sinks'
-// accumulators in device memory. Built with nvcc into a shared library of
-// its own, in parallel with the other event-step libraries, and loaded
-// through ctypes by kernels/event_step.py.
+// sources or sinks (event_step.cuh with MULTI = true), per server bound,
+// by feature set (hs_code, named by hs_event_step_code), each with or
+// without the telemetry sites:
+// - without chaos, the extended graph code, which has none of the chaos
+//   code's sites and so none of its registers;
+// - with chaos but neither the defenses nor the consensus tier, the chaos
+//   code without their sites (two-class-chaos: the 1% loss on the batch
+//   edge and the batch server's deadline);
+// - with a defense or the consensus tier, the chaos code with every
+//   feature's sites, the telemetry ones always, each taken only where the
+//   model has the feature (a null leaf, an unset flag).
+// Every one keeps the sources' next arrivals in a register array and the
+// other sinks' accumulators in device memory. Built with nvcc into a
+// shared library of its own, in parallel with the other event-step
+// libraries, and loaded through ctypes by kernels/event_step.py.
 
 #include "event_step.cuh"
 
-template <int MAXV>
-static void launch(const EventStepArgs& args, cudaStream_t s) {
-  if (args.chaos) {
-    hs_launch(event_step_kernel<MAXV, true, true, true, true, true, true, true>, args, s);
-  } else if (args.tel.nW) {
-    hs_launch(event_step_kernel<MAXV, true, true, false, true, false, false, true>, args, s);
-  } else {
-    hs_launch(event_step_kernel<MAXV, true, true, false, false, false, false, true>, args, s);
+template <int MAXV, bool TEL>
+static void launch_code(const EventStepArgs& args, cudaStream_t s) {
+  switch (hs_code(args, false)) {
+    case HS_CODE_FULL:
+      hs_launch(event_step_kernel<MAXV, true, true, true, true, true, true, true>, args, s);
+      return;
+    case HS_CODE_CHAOS:
+      hs_launch(event_step_kernel<MAXV, true, true, true, TEL, false, false, true>, args, s);
+      return;
+    default:
+      hs_launch(event_step_kernel<MAXV, true, true, false, TEL, false, false, true>, args, s);
   }
 }
+
+template <int MAXV>
+static void launch(const EventStepArgs& args, cudaStream_t s) {
+  if (args.tel.nW) {
+    launch_code<MAXV, true>(args, s);
+  } else {
+    launch_code<MAXV, false>(args, s);
+  }
+}
+
+HS_EVENT_STEP_CODE(false)
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int hs_event_step(const EventStepArgs* args, void* stream) {

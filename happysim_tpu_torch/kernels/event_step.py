@@ -37,14 +37,18 @@ the telemetry sites. Every model with network partitions or a quorum
 launches a consensus instantiation: the chaos code plus the partition
 consult and the quorum gate, with or without the telemetry sites and the
 defenses. Every model with several sources or sinks launches an
-instantiation for them: with chaos, the chaos code with every feature's
-sites, each taken where the model has the feature; without, the extended
-graph code with or without the telemetry sites. Nodes no source reaches
-run on any of them. A model with a traced source runs :func:`trace_steps`, one
-launch of the trace instantiations a stream step: the extended graph
-code with the trace's fire and stall gate for a single-source model
-without chaos, defenses or the consensus tier, else the code for several
-sources or sinks with them; its plain version is :func:`plain_trace_steps`.
+instantiation for them, by feature set (the library's
+``hs_event_step_code`` names it), each with or without the telemetry
+sites: without chaos, the extended graph code;
+with chaos but neither the defenses nor the consensus tier, the chaos
+code without their sites; with either, the chaos code with every
+feature's sites, each taken where the model has the feature. Nodes no
+source reaches run on any of them. A model with a traced source runs
+:func:`trace_steps`, one launch of the trace instantiations a stream
+step: the extended graph code with the trace's fire and stall gate for
+a single-source model without chaos, else the code for several sources
+or sinks that its features pick, with the trace; its plain version is
+:func:`plain_trace_steps`.
 A model past one of the lean instantiations' tables in the argument
 struct (:func:`support.wide_reasons`) launches the wide code instead, with
 or without the trace: the code for several sources or sinks (chaos-free
@@ -68,8 +72,8 @@ The kernel is compiled on first use with ``nvcc`` (:mod:`.build`) into
 ``csrc/event_step_telemetry.cu`` with telemetry,
 ``csrc/event_step_resilience.cu`` with the defenses,
 ``csrc/event_step_consensus.cu`` with partitions or a quorum,
-``csrc/event_step_multi.cu`` with several sources or sinks (with chaos
-and without),
+``csrc/event_step_multi.cu`` with several sources or sinks (three codes
+by feature set),
 ``csrc/event_step_trace.cu`` with a traced source,
 ``csrc/event_step_wide.cu`` past a lean table,
 ``csrc/event_step_partitioned.cu`` for a window of a partitioned run),
@@ -461,6 +465,9 @@ def load_library() -> dict:
                 continue
             lib.hs_event_step.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
             lib.hs_event_step.restype = ctypes.c_int
+            if stem in _CODED:
+                lib.hs_event_step_code.argtypes = [ctypes.POINTER(_Args)]
+                lib.hs_event_step_code.restype = ctypes.c_char_p
             for probe in (
                 "hs_event_step_max_servers", "hs_event_step_max_sources",
                 "hs_event_step_max_profile_grid", "hs_event_step_args_size",
@@ -1207,8 +1214,8 @@ def library_of(args: _Args) -> str:
     code's for a model past one of the lean tables (with or without a
     traced source), else the trace
     one for a model with a traced source, else the one for several
-    sources or sinks (its chaos code for a model with chaos, its
-    chaos-free code for one without), else the consensus one for
+    sources or sinks (its code by feature set), else the consensus one
+    for
     a model with partitions or a quorum, else the resilience one for a
     model with a defense, else the telemetry one for a model with a spec,
     else the kernel without any of them."""
@@ -1227,19 +1234,32 @@ def library_of(args: _Args) -> str:
     return "event_step_telemetry" if args.tel.nW else "event_step"
 
 
+# The libraries that pick a code by feature set and name it
+# (hs_event_step_code, csrc/event_step.cuh's hs_code).
+_CODED = ("event_step_multi", "event_step_trace")
+
+
 def launch(args: _Args, device) -> None:
     """Launch the kernel with ready arguments (:func:`launch_args`) on
     torch's current stream of ``device``, from :func:`library_of`'s
     library; raise on a launch error. Every launch, of one block or of
     many, adds one to ``block_step.launches``, for a traced model to
     ``trace_steps.launches``, for a window of a partitioned run to
-    ``window_steps.launches``."""
-    lib = load_library()[library_of(args)]
+    ``window_steps.launches``; a launch of the library for several
+    sources or sinks or of the trace library also adds one to
+    ``launches_by_code[(library, code, telemetry)]``, the code as the
+    library names it (``hs_event_step_code``: "line", "lean", "chaos" or
+    "full")."""
+    library = library_of(args)
+    lib = load_library()[library]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.hs_event_step(ctypes.byref(args), stream)
     if rc != 0:
         raise RuntimeError(f"event-step kernel launch failed: cudaError {rc}")
+    if library in _CODED:
+        key = (library, lib.hs_event_step_code(ctypes.byref(args)).decode(), bool(args.tel.nW))
+        launches_by_code[key] = launches_by_code.get(key, 0) + 1
     if args.prt.on:
         window_steps.launches += 1
     elif args.trc.on:
@@ -1403,3 +1423,7 @@ def window_steps(
 block_step.launches = 0
 trace_steps.launches = 0
 window_steps.launches = 0
+#: Launches of each code of the library for several sources or sinks and
+#: of the trace library since the dict was last cleared: {(library, code,
+#: telemetry sites): launches}.
+launches_by_code: dict = {}

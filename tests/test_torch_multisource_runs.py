@@ -24,6 +24,14 @@ from happysim_tpu_torch import run_ensemble as t_run  # noqa: E402
 from test_torch_multisource import FLOAT_FIELDS, INT_FIELDS, N_REPLICAS  # noqa: E402
 from test_torch_multisource_models import MULTI_MODELS  # noqa: E402
 
+# The chaos ledger and the budget's (zeros, or empty, for a model without
+# them).
+CHAOS_INT_FIELDS = (
+    "server_outage_dropped", "server_timed_out", "server_retried", "server_fault_dropped",
+    "server_fault_retried", "server_hedged", "server_hedge_wins", "network_lost",
+    "server_budget_dropped",
+)
+
 
 @pytest.mark.parametrize("name", sorted(MULTI_MODELS))
 def test_whole_run_matches_jax_lax_path(name):
@@ -31,7 +39,8 @@ def test_whole_run_matches_jax_lax_path(name):
     declines the model and whose lax scan runs it, at the default event
     budget: integer totals equal per sink and per server (nodes no
     source reaches at zero), the histograms equal, float means within
-    rel 1e-4, and the integer window series equal with telemetry."""
+    rel 1e-4, the chaos ledger equal, and the integer window series
+    equal with telemetry."""
     build = MULTI_MODELS[name]
     max_events = tengine._default_max_events(build(tmodel), None)
     assert max_events == jengine._default_max_events(build(jmodel), None)
@@ -40,7 +49,7 @@ def test_whole_run_matches_jax_lax_path(name):
     got = t_run(build(tmodel), n_replicas=N_REPLICAS, seed=3, max_events=max_events, device="cpu")
     assert expected.engine_path == "scan" and expected.kernel_shape == ""
     assert got.engine_path == "scan"
-    for field in INT_FIELDS:
+    for field in INT_FIELDS + CHAOS_INT_FIELDS:
         assert getattr(got, field) == getattr(expected, field), field
     np.testing.assert_array_equal(got.sink_hist, expected.sink_hist)
     for field in FLOAT_FIELDS:
@@ -66,6 +75,39 @@ def test_two_class_runs_each_tenant_into_its_own_sink():
     assert got.server_completed[3] == 0 and got.server_utilization[3] == 0.0
     assert got.sink_count[1] > 0 and got.sink_count[0] > got.sink_count[1]
     assert got.sink_count[1] <= got.server_completed[2]
+
+
+# Each chaos model with several sources or sinks, and the chaos branches
+# its run must take: {result field: the server it is booked at, or None
+# for a model-wide count}.
+CHAOS_BRANCHES = {
+    "two-class-chaos": {
+        "network_lost": None, "server_timed_out": 2, "server_retried": 2,
+    },
+    "two-class-defended": {
+        "network_lost": None, "server_timed_out": 2, "server_retried": 2,
+        "server_budget_dropped": 2,
+    },
+    "superpose-faulted": {
+        "server_fault_retried": 0, "server_fault_dropped": 0, "server_hedged": 0,
+        "server_hedge_wins": 0,
+    },
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHAOS_BRANCHES))
+def test_chaos_models_take_each_branch(name):
+    """The port's run of each chaos model with several sources or sinks
+    books every chaos branch it names (so the parity tests above compare
+    counts the branches really made), and nothing at the servers that do
+    not retry: two-class's front servers time nothing out."""
+    got = t_run(MULTI_MODELS[name](tmodel), n_replicas=16, seed=3, device="cpu")
+    assert got.engine_path == "scan"
+    for field, server in CHAOS_BRANCHES[name].items():
+        value = getattr(got, field)
+        assert (value if server is None else value[server]) > 0, field
+    if name != "superpose-faulted":
+        assert got.server_timed_out[:2] == [0, 0] and got.server_retried[:2] == [0, 0]
 
 
 @pytest.mark.parametrize("name", ["superpose", "two-class"])

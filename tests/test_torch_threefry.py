@@ -34,7 +34,7 @@ from happysim_tpu_torch.kernels.build import CSRC  # noqa: E402
 from test_torch_chaos_models import CHAOS_MODELS  # noqa: E402
 from test_torch_consensus_models import CONSENSUS_MODELS  # noqa: E402
 from test_torch_event_step import fanout  # noqa: E402
-from test_torch_multisource_models import MULTI_MODELS  # noqa: E402
+from test_torch_multisource_models import MULTI_MODELS, two_class  # noqa: E402
 from test_torch_resilience_models import RESILIENCE_MODELS  # noqa: E402
 from test_torch_telemetry_models import TELEMETRY_MODELS  # noqa: E402
 
@@ -147,14 +147,18 @@ _INSTANTIATIONS = {
     "multi": (4, "true", "true", "true", "true", "true", "true", "true"),
     "multi_lean": (4, "true", "true", "false", "false", "false", "false", "true"),
     "multi_lean_tel": (4, "true", "true", "false", "true", "false", "false", "true"),
+    "multi_chaos": (4, "true", "true", "true", "false", "false", "false", "true"),
+    "multi_chaos_tel": (4, "true", "true", "true", "true", "false", "false", "true"),
 }
 # Where the test holds the launcher's choice for an instantiation's
-# models: the library, then whether its launch takes the chaos code and
-# the telemetry sites (the chaos-free code for several sources or sinks,
-# csrc/event_step_multi.cu's `launch`).
+# models: the library, then the code its launch takes and whether with
+# the telemetry sites (csrc/event_step_multi.cu's `launch`, by
+# event_step.cuh's hs_code, as its hs_event_step_code names it).
 _LIBRARIES = {
-    "multi_lean": ("event_step_multi", False, False),
-    "multi_lean_tel": ("event_step_multi", False, True),
+    "multi_lean": ("event_step_multi", "lean", False),
+    "multi_lean_tel": ("event_step_multi", "lean", True),
+    "multi_chaos": ("event_step_multi", "chaos", False),
+    "multi_chaos_tel": ("event_step_multi", "chaos", True),
 }
 _HOST_MODELS = {
     "mm1": ("mm1", lambda: tmodel.mm1_model(8.0, 10.0, 20.0, warmup_s=5.0)),
@@ -187,6 +191,24 @@ _HOST_MODELS = {
             ("two-class", "multi_lean"), ("two-class-telemetry", "multi_lean_tel"),
             ("profiled", "multi_lean"),
         )
+    },
+    # Several sources or sinks with chaos on the chaos code without the
+    # defenses' and the consensus tier's sites, with the telemetry sites
+    # where the model has a spec, and with a defense on the whole chaos
+    # code (which also runs the chaos models above and here, every site's
+    # switch unset).
+    **{
+        f"multi-chaos-{name}": (instantiation, lambda name=name: MULTI_MODELS[name](tmodel))
+        for name, instantiation in (
+            ("two-class-chaos", "multi_chaos"), ("superpose-faulted", "multi_chaos"),
+        )
+    },
+    "multi-chaos-two-class-chaos-telemetry": ("multi_chaos_tel", lambda: two_class(
+        tmodel, horizon_s=4.0, window_s=0.5, n_front=2, loss_p=0.05, deadline_s=0.25
+    )),
+    **{
+        f"multi-{name}": ("multi", lambda name=name: MULTI_MODELS[name](tmodel))
+        for name in ("two-class-chaos", "superpose-faulted", "two-class-defended")
     },
     **{
         f"consensus-{name}": (instantiation, lambda name=name: CONSENSUS_MODELS[name](tmodel))
@@ -248,7 +270,7 @@ def build_host_kernel(build) -> ctypes.CDLL:
     exported as ``run_<name>(args, threads)`` (see _RUN)."""
     compiler = _compiler()
     (build / "cuda_runtime.h").write_text("")
-    body = [_SHIMS]
+    body = [_SHIMS, "HS_EVENT_STEP_CODE(false)\n"]
     for name, (maxv, *flags) in _INSTANTIATIONS.items():
         body.append(_RUN.format(name=name, maxv=maxv, flags=", ".join(flags)))
     source = build / "host.cpp"
@@ -263,6 +285,8 @@ def build_host_kernel(build) -> ctypes.CDLL:
     for name in _INSTANTIATIONS:
         getattr(lib, f"run_{name}").argtypes = [ctypes.POINTER(event_step._Args), ctypes.c_int]
         getattr(lib, f"run_{name}").restype = ctypes.c_int
+    lib.hs_event_step_code.argtypes = [ctypes.POINTER(event_step._Args)]
+    lib.hs_event_step_code.restype = ctypes.c_char_p
     return lib
 
 
@@ -294,9 +318,12 @@ def test_host_kernel_drawing_its_own_uniforms_matches_the_plain_step(host_kernel
         args = event_step.launch_args(compiled, kernel_state, keys, block, params, halted, draws)
         assert args.block == block and args.keys == keys.data_ptr() and args.n_blocks == 1
         if instantiation in _LIBRARIES:
-            library, chaos, tel = _LIBRARIES[instantiation]
+            library, code, tel = _LIBRARIES[instantiation]
             assert event_step.library_of(args) == library
-            assert (bool(args.chaos), bool(args.tel.nW)) == (chaos, tel)
+            assert (host_kernel.hs_event_step_code(ctypes.byref(args)).decode(),
+                    bool(args.tel.nW)) == (code, tel)
+        if name == "multi-two-class-defended":
+            assert host_kernel.hs_event_step_code(ctypes.byref(args)) == b"full"
         assert run(ctypes.byref(args), 1) == 0
         plain_halted = event_step.plain_block_step(
             compiled, plain_state, event_step.block_uniforms(compiled, keys, block), params
@@ -312,3 +339,4 @@ def test_host_kernel_drawing_its_own_uniforms_matches_the_plain_step(host_kernel
         # at least the steps it took; a halted lane drew nothing.
         assert bool((draws[live] >= 1).all()) and bool((draws[~live] == 0).all())
     assert int(plain_state["events"].min()) > 0
+

@@ -5,10 +5,14 @@ state, keys and resident pages go to both, step after step, and every
 leaf and the halted mask must agree (integer leaves exactly, floats
 within rel 1e-5: host libm against torch's CPU math). The models stall
 lanes at the window's edge, read past the trace's end, stop the trace
-early, spend their block budget, count several tenants, and run the lean
-trace instantiation (with and without telemetry) and the code for
-several sources or sinks and chaos with the trace (one traced source
-on it whose trace ends inside a launch among them)."""
+early, spend their block budget, count several tenants, and run each
+code of the trace library (event_step_trace.cu's `launch`, by
+event_step.cuh's hs_code): the lean single-source code, the chaos-free
+code for several sources or sinks and the MULTI chaos code without the
+defenses' and the consensus tier's sites, each with and without
+telemetry, and the whole MULTI chaos code (one traced source on the
+chaos codes whose trace ends inside a launch among them, and a model
+with several sources and a retry budget, which the launcher gives it)."""
 
 import ctypes
 import subprocess
@@ -30,22 +34,53 @@ from test_torch_threefry import _RUN, _SHIMS, _compiler  # noqa: E402
 from test_torch_trace_models import TRACE_MODELS  # noqa: E402
 
 # (MAXV, GRAPH, EXT, CHAOS, TEL, RES, CON, MULTI, TRC) of the trace
-# library's instantiations (csrc/event_step_trace.cu).
+# library's instantiations (csrc/event_step_trace.cu), and the code and
+# telemetry sites its launcher picks for each (as the library's
+# hs_event_step_code names it; None: the whole chaos code, which the
+# launcher gives only a model with a defense or the consensus tier).
 _INSTANTIATIONS = {
     "lean": (1, "true", "true", "false", "false", "false", "false", "false", "true"),
     "lean_tel": (1, "true", "true", "false", "true", "false", "false", "false", "true"),
+    "multi_lean": (1, "true", "true", "false", "false", "false", "false", "true", "true"),
+    "multi_lean_tel": (1, "true", "true", "false", "true", "false", "false", "true", "true"),
+    "multi_chaos": (1, "true", "true", "true", "false", "false", "false", "true", "true"),
+    "multi_chaos_tel": (1, "true", "true", "true", "true", "false", "false", "true", "true"),
     "multi": (1, "true", "true", "true", "true", "true", "true", "true", "true"),
 }
-# model -> (instantiation, event budget)
+_CODES = {
+    "lean": ("line", False), "lean_tel": ("line", True),
+    "multi_lean": ("lean", False), "multi_lean_tel": ("lean", True),
+    "multi_chaos": ("chaos", False), "multi_chaos_tel": ("chaos", True),
+    "multi": None,
+}
+# model -> (instantiation, event budget); "-budget" runs the model with a
+# budget that runs out, "-telemetry" with 1 s windows of throughput and
+# rates, "-full" on the whole chaos code.
 _MODELS = {
     "flash-regression": ("lean_tel", 8192),
     "zipf-tenants": ("lean_tel", 2048),
     "short-trace": ("lean", 4096),
     "short-trace-budget": ("lean", 160),
-    "trace-poisson": ("multi", 4096),
-    "trace-chaos": ("multi", 4096),
-    "short-trace-chaos": ("multi", 4096),
+    "trace-poisson": ("multi_lean", 4096),
+    "trace-poisson-telemetry": ("multi_lean_tel", 4096),
+    "trace-chaos": ("multi_chaos", 4096),
+    "trace-chaos-telemetry": ("multi_chaos_tel", 4096),
+    "short-trace-chaos": ("multi_chaos", 4096),
+    "trace-chaos-full": ("multi", 4096),
+    "short-trace-chaos-full": ("multi", 4096),
+    "trace-defended": ("multi", 4096),
 }
+
+
+def _model(name: str):
+    """The port's model of a _MODELS case."""
+    base = name
+    for suffix in ("-budget", "-telemetry", "-full"):
+        base = base.removesuffix(suffix)
+    model = TRACE_MODELS[base](tmodel)
+    if name.endswith("-telemetry"):
+        model.telemetry(window_s=1.0, metrics=("throughput", "rates"))
+    return model
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +89,7 @@ def host_kernel(tmp_path_factory):
     run_<name>(args, threads)."""
     build = tmp_path_factory.mktemp("event_step_trace_host")
     (build / "cuda_runtime.h").write_text("")
-    body = [_SHIMS] + [
+    body = [_SHIMS, "HS_EVENT_STEP_CODE(true)\n"] + [
         _RUN.format(name=name, maxv=maxv, flags=", ".join(flags))
         for name, (maxv, *flags) in _INSTANTIATIONS.items()
     ]
@@ -70,6 +105,8 @@ def host_kernel(tmp_path_factory):
     for name in _INSTANTIATIONS:
         getattr(lib, f"run_{name}").argtypes = [ctypes.POINTER(event_step._Args), ctypes.c_int]
         getattr(lib, f"run_{name}").restype = ctypes.c_int
+    lib.hs_event_step_code.argtypes = [ctypes.POINTER(event_step._Args)]
+    lib.hs_event_step_code.restype = ctypes.c_char_p
     return lib
 
 
@@ -104,9 +141,11 @@ def test_host_trace_branch_matches_plain_trace_steps(host_kernel, name):
     """32 replicas through every stream step of a run: the host build of
     the trace branch, 16 lanes a thread block, against plain_trace_steps
     on the same pages, the window moved on by the plain state's least
-    reading cursor as the engine moves it."""
+    reading cursor as the engine moves it; the launcher picks the code
+    the case names (but for the whole chaos code's cases, which run the
+    chaos models on it; the model with a defense takes it)."""
     instantiation, max_events = _MODELS[name]
-    model = TRACE_MODELS[name.replace("-budget", "")](tmodel)
+    model = _model(name)
     compiled = TCompiled(model)
     n, macro, P = 32, compiled.macro, compiled.trace_chunk_len
     n_chunks = -(-max_events // macro)
@@ -125,6 +164,12 @@ def test_host_trace_branch_matches_plain_trace_steps(host_kernel, name):
             compiled, kernel_state, keys, params, pages, base_page * P, n_chunks, halted, draws
         )
         assert event_step.library_of(args) == "event_step_trace"
+        if _CODES[instantiation] is not None:
+            code, tel = _CODES[instantiation]
+            assert (host_kernel.hs_event_step_code(ctypes.byref(args)).decode(),
+                    bool(args.tel.nW)) == (code, tel)
+        if name == "trace-defended":
+            assert host_kernel.hs_event_step_code(ctypes.byref(args)) == b"full"
         assert run(ctypes.byref(args), 16) == 0
         plain_halted = event_step.plain_trace_steps(
             compiled, plain_state, keys, params, pages, base_page * P, n_chunks

@@ -130,6 +130,24 @@ def short_trace_chaos(mod, chunk_len=16):
     return m
 
 
+def trace_defended(mod, chunk_len=16):
+    """trace_poisson's traced flash crowd and Poisson source into a
+    server (25 ms, queue 32) with a 60 ms deadline and one retry at its
+    queue's tail, under a retry budget of 2 tokens a second, bursts of
+    two: several sources with a defense, the whole MULTI chaos code with
+    the trace."""
+    trace = traces_of(mod).flash_crowd_trace(20.0, 80.0, 1.0, 2.0, 4.0, seed=8, chunk_len=chunk_len)
+    m = mod.EnsembleModel(horizon_s=4.0, macro_block=16)
+    poisson = m.source(rate=10.0)
+    traced = m.trace_arrivals(trace)
+    srv = m.server(service_mean=0.025, queue_capacity=32, deadline_s=0.06, max_retries=1)
+    m.connect(poisson, srv)
+    m.connect(traced, srv)
+    m.connect(srv, m.sink())
+    m.retry_budget(ratio=0.0, min_per_s=2.0, burst=2.0)
+    return m
+
+
 # name -> builder(mod); the CPU parity tests and the card's tests run each.
 TRACE_MODELS = {
     "flash-regression": flash_regression,
@@ -140,4 +158,5 @@ TRACE_MODELS = {
     "trace-poisson": trace_poisson,
     "trace-chaos": trace_chaos,
     "short-trace-chaos": short_trace_chaos,
+    "trace-defended": trace_defended,
 }

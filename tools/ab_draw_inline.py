@@ -7,20 +7,29 @@ inlines it elsewhere (event_step.cuh's draw_calls), on one card, in
 one process.
 
     python3 tools/ab_draw_inline.py
+    python3 tools/ab_draw_inline.py --models two-class-chaos,trace-chaos   # those alone
 
-Builds csrc/event_step.cu, event_step_telemetry.cu and
-event_step_resilience.cu the three ways into build/ab/ (nvcc, sm_90a, the flags of kernels/build.py), prints
-ptxas' registers and spills of each, checks that every variant leaves
-the same state bit for bit, and times each variant's kernel per block at
-65,536 replicas on the main path's models (mm1, chain, fanout, chaos,
-the deadline rho sweep, bench.py's telemetry model, the chaos bench with
-its telemetry, bench_resilience's two arms), in turns: default, inline,
-call, call, inline, default. Writes chiprun_out/ab_draw_inline.json. Needs a CUDA
+Builds csrc/event_step.cu, event_step_telemetry.cu,
+event_step_resilience.cu, event_step_multi.cu and event_step_trace.cu
+the three ways into build/ab/ (nvcc, sm_90a, the flags of
+kernels/build.py), prints ptxas' registers and spills of each, checks
+that every variant leaves the same state bit for bit, and times each
+variant's kernel per block at 65,536 replicas on the main path's models
+(mm1, chain, fanout, chaos, the deadline rho sweep, bench.py's telemetry
+model, the chaos bench with its telemetry, bench_resilience's two arms;
+the two-tenant service's chaos arm (at four front servers, and at two:
+four servers in all, tools/ab_models.py) and its defended arm, each code of the library for
+several sources or sinks with chaos; the flash crowd
+beside a Poisson source, and beside it with a deadline and a retry, the
+trace library's chaos-free and chaos MULTI codes, a launch of 20 blocks
+with pages of 2,048 a block), in turns: default, inline, call, call,
+inline, default. Writes chiprun_out/ab_draw_inline.json. Needs a CUDA
 card.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -31,11 +40,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import ab_models  # noqa: E402
 import chip_smoke as smoke  # noqa: E402
 from happysim_tpu_torch.kernels import build, event_step  # noqa: E402
 
 OUT = build.BUILD_DIR / "ab"
-SOURCES = ("event_step", "event_step_telemetry", "event_step_resilience")
+SOURCES = (
+    "event_step", "event_step_telemetry", "event_step_resilience", "event_step_multi",
+    "event_step_trace",
+)
 BLOCKS = 20
 
 
@@ -75,6 +88,14 @@ def launcher(libs: dict):
 def time_variant(model, sweeps, launch) -> tuple:
     compiled, keys, params, state = smoke.fresh_run(model, sweeps)
     halted = torch.empty((smoke.REPLICAS,), dtype=torch.uint8, device="cuda")
+    if compiled.has_trace:
+        # A stream step's launch of 2 blocks, then one of BLOCKS more,
+        # from the first resident pages (no lane stalls: pages of 2,048).
+        pages = smoke.trace_pages(compiled, 0)
+        launch(event_step.trace_launch_args(compiled, state, keys, params, pages, 0, 2, halted))
+        ready = event_step.trace_launch_args(compiled, state, keys, params, pages, 0, 2 + BLOCKS,
+                                             halted)
+        return smoke.elapsed_ms(lambda i: launch(ready), 1) / BLOCKS, state
     for b in range(2):
         launch(event_step.launch_args(compiled, state, keys, b, params, halted))
     ready = [event_step.launch_args(compiled, state, keys, b + 2, params, halted) for b in range(BLOCKS)]
@@ -86,6 +107,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_draw_inline: torch finds no CUDA device", file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--models", default="", help="comma-separated labels to time alone")
+    options = parser.parse_args()
     card = smoke.card_label()
     variants = {
         "default": launcher(compile_variant("default", ())),
@@ -105,9 +129,16 @@ def main() -> int:
         ),
         "resilience-undefended": (smoke.resilience_bench_model(False), smoke.RES_SWEEPS),
         "resilience": (smoke.resilience_bench_model(True), smoke.RES_SWEEPS),
+        "two-class-chaos": (smoke.two_class_model(chaos=True), None),
+        "two-class-defended": (smoke.two_class_model(chaos=True, defended=True), None),
+        "two-class-chaos-4": (ab_models.two_class_chaos_4(smoke), None),
+        "trace-poisson": (smoke.trace_model("flash", smoke.TRACE_LONG_CHUNK, poisson_rate=50.0), None),
+        "trace-chaos": (smoke.trace_model("flash", smoke.TRACE_LONG_CHUNK, **smoke.TRACE_CHAOS), None),
     }
+    keep = options.models.split(",") if options.models else list(models)
     results = {}
-    for label, (model, sweeps) in models.items():
+    for label in keep:
+        model, sweeps = models[label]
         times = {name: [] for name in variants}
         states = {}
         for variant in ("default", "inline", "call", "call", "inline", "default"):

@@ -6,10 +6,12 @@ other; and the partitioned executor's two kernels a window.
     git archive <parent> | tar -x -C build/parent
     python3 tools/ab_parent.py --root build/parent
     python3 tools/ab_parent.py --root build/parent --partitioned   # the rings alone
+    python3 tools/ab_parent.py --root build/variant --models two-class-chaos,trace-chaos
 
 Each turn is a fresh process in its checkout's root, which builds that
 checkout's libraries (kernels/build.py, into its own build/) and runs its
-chip_smoke.time_blocks on the models below at chip_smoke's full width:
+chip_smoke.time_blocks on the models below (two of them built by
+tools/ab_models.py) at chip_smoke's full width:
 the kernel's time per block in a 20-block launch, the plain version's
 and the bound, for models both checkouts run; then, for the models of
 RUNS, chip_smoke.check_whole_run's whole run in one launch (its device
@@ -24,12 +26,19 @@ launches, and where the checkout has partition_barrier.FoldedRing the
 folded launch's the same two ways; then the ring's whole run, WALL_RUNS
 times unfolded (a window and a barrier launch a window) and, where the
 checkout folds, WALL_RUNS times folded, in turns, each from the set-up
-state; and run_partitioned's wall. Prints one line a model with the two
-checkouts' mean kernel ms and their ratio, one a whole run, a few a
+state; and run_partitioned's wall; then, for the traced models of
+TRACES (chip_smoke's flash crowd alone, beside a Poisson source,
+beside it with a deadline and a retry at its server, and with a retry
+budget besides), built and timed by
+this script's own code, the trace library's time per block in a
+20-block launch. Prints one line a model with the two checkouts' mean
+kernel ms and their ratio, one a traced model, one a whole run, a few a
 ring, and the registers and spills ptxas reported for each
 instantiation of each checkout (from the turn that built its
 libraries), and writes chiprun_out/ab_parent.json. ``--partitioned``
-times the rings alone.
+times the rings alone; ``--models`` the models, whole runs and traced
+models of those labels alone (no ring), and ``--out`` names the JSON
+file under chiprun_out/.
 """
 
 from __future__ import annotations
@@ -52,11 +61,33 @@ MODELS = (
     ("resilience", "c.resilience_bench_model(True)", "RES_SWEEPS"),
     ("two-class", "c.two_class_model()", None),
     ("two-class-telemetry", "c.two_class_model(c.TWO_CLASS_WINDOW_S)", None),
+    ("two-class-chaos", "c.two_class_model(chaos=True)", None),
+    # Its chaos arm at two front servers (four servers: the lean
+    # instantiations' MAXV of 4; tools/ab_models.py).
+    ("two-class-chaos-4", "ab_models.two_class_chaos_4(c)", None),
+    # Its defended arm, built the same way in a checkout whose
+    # two_class_model takes no `defended`.
+    ("two-class-defended",
+     "(lambda m: (m.retry_budget(ratio=0.0, min_per_s=0.2, burst=1.0), m)[1])"
+     "(c.two_class_model(chaos=True))", None),
+    # The defended quorum arm with a second source (the whole MULTI chaos
+    # code with the consensus tier; tools/ab_models.py).
+    ("quorum-multi", "ab_models.quorum_two_sources(c)", None),
     ("superpose", "c.superpose_model()", None),
     ("wide-fleet", "c.wide_fleet_model()", None),
 )
 # Models whose whole run (one launch of the main path's budget) is timed.
-RUNS = ("two-class", "wide-fleet")
+RUNS = ("two-class", "two-class-chaos", "wide-fleet")
+# Traced models timed a block (the trace library), built by this
+# script's own code in both checkouts: (label, Poisson rate beside the
+# flash crowd, the server's deadline or None, a retry budget's arguments
+# or None).
+TRACES = (
+    ("trace-flash", 0.0, None, None),
+    ("trace-poisson", 50.0, None, None),
+    ("trace-chaos", 50.0, 0.01, None),
+    ("trace-defended", 50.0, 0.01, {"ratio": 0.0, "min_per_s": 2.0, "burst": 2.0}),
+)
 # Partitioned rings timed a window: (label, chip_smoke's builder).
 RINGS = (
     ("ring", "partitioned_ring_model"),
@@ -72,7 +103,9 @@ WALL_RUNS = 3
 _TURN = """
 import json, sys
 sys.path.insert(0, ".")
+sys.path.insert(1, %r)
 import chip_smoke as c
+import ab_models
 from happysim_tpu_torch.kernels import build
 ptxas = {}
 for stem, (_path, log) in build.build_libraries().items():
@@ -80,6 +113,10 @@ for stem, (_path, log) in build.build_libraries().items():
         ptxas[stem + " " + kernel] = info
 out = {"ptxas": ptxas, "runs": {}, "rings": {}}
 for label, expr, sweeps in %r:
+    try:  # a model this checkout's chip_smoke cannot build is left out
+        eval(expr)
+    except (AttributeError, TypeError):
+        continue
     t = c.time_blocks(eval(expr), label, getattr(c, sweeps) if sweeps else None)
     out[label] = {k: t[k] for k in ("kernel_ms", "plain_ms", "bound_ms")}
     if label in %r:
@@ -172,6 +209,33 @@ def ring_times(model):
 for label, builder in %r:
     if hasattr(c, builder):
         out["rings"][label] = ring_times(getattr(c, builder)())
+
+# The trace library's time a block: chip_smoke's flash crowd (pages of
+# TRACE_LONG_CHUNK, so no lane stalls), with a Poisson source beside it
+# and a deadline at its server, and a retry budget, from its first two
+# blocks, a launch of 20 more blocks, twice, each on its own copy of the
+# state.
+def trace_block_ms(rate, deadline, budget):
+    model = c.EnsembleModel(horizon_s=c.TRACE_HORIZON_S, macro_block=16)
+    retry = {} if deadline is None else {"deadline_s": deadline, "max_retries": 1}
+    srv = model.server(concurrency=4, service_mean=0.004, queue_capacity=64, **retry)
+    if rate:
+        model.connect(model.source(rate=rate), srv)
+    model.connect(model.trace_arrivals(c.bench_trace("flash", c.TRACE_LONG_CHUNK)), srv)
+    model.connect(srv, model.sink())
+    model.telemetry(window_s=c.TRACE_WINDOW_S, metrics=("throughput", "latency", "rates"))
+    if budget is not None:
+        model.retry_budget(**budget)
+    compiled, keys, params, state = c.fresh_run(model)
+    pages = c.trace_pages(compiled, 0)
+    halted = torch.empty((c.REPLICAS,), dtype=torch.uint8, device="cuda")
+    ew.trace_steps(compiled, state, keys, params, pages, 0, 2)
+    states = [{k: v.clone() for k, v in state.items()} for _ in range(2)]
+    args = [ew.trace_launch_args(compiled, st, keys, params, pages, 0, 2 + c.TIMED_BLOCKS, halted)
+            for st in states]
+    return c.launch_ms(args) / (2 * c.TIMED_BLOCKS)
+
+out["traces"] = {label: trace_block_ms(*shape) for label, *shape in %r}
 print("AB " + json.dumps(out))
 """
 
@@ -180,9 +244,12 @@ def us(ms) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.3f} us"
 
 
-def turn(root: Path, models: tuple, runs: tuple) -> dict:
+def turn(root: Path, models: tuple, runs: tuple, traces: tuple, rings: tuple) -> dict:
     done = subprocess.run(
-        [sys.executable, "-c", _TURN % (models, runs, HOLD_CYCLES, WALL_RUNS, RINGS)], cwd=root, capture_output=True,
+        [sys.executable, "-c",
+         _TURN % (str(Path(__file__).resolve().parent), models, runs, HOLD_CYCLES, WALL_RUNS, rings,
+                  traces)],
+        cwd=root, capture_output=True,
         text=True,
     )
     if done.returncode != 0:
@@ -195,20 +262,41 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", required=True, help="the other checkout's root")
     parser.add_argument("--partitioned", action="store_true", help="time the rings alone")
+    parser.add_argument("--models", default="", help="comma-separated labels to time alone")
+    parser.add_argument("--out", default="ab_parent.json", help="the JSON file under chiprun_out/")
     options = parser.parse_args()
     other = Path(options.root).resolve()
-    models, runs = ((), ()) if options.partitioned else (MODELS, RUNS)
+    models, runs, traces = ((), (), ()) if options.partitioned else (MODELS, RUNS, TRACES)
+    rings = RINGS
+    if options.models:
+        keep = set(options.models.split(","))
+        models = tuple(m for m in models if m[0] in keep)
+        runs = tuple(r for r in runs if r in keep)
+        traces = tuple(t for t in traces if t[0] in keep)
+        rings = ()
     here = Path(__file__).resolve().parents[1]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    turns = [(who, turn(root, models, runs))
+    turns = [(who, turn(root, models, runs, traces, rings))
              for who, root in (("other", other), ("this", here), ("this", here), ("other", other))]
     report = {"card": card, "turns": turns}
     for label, *_rest in models:
+        if not all(label in t for _w, t in turns):
+            print(f"{label}: not built in both checkouts")
+            continue
         mean = {
             who: sum(t[label]["kernel_ms"] for w, t in turns if w == who) / 2 for who in ("this", "other")
+        }
+        report[label] = mean
+        print(
+            f"{label}: kernel {mean['this']:.4f} ms/block here, {mean['other']:.4f} in the other "
+            f"checkout ({mean['this'] / mean['other']:.3f}x) [{card}]"
+        )
+    for label, *_rest in traces:
+        mean = {
+            who: sum(t["traces"][label] for w, t in turns if w == who) / 2 for who in ("this", "other")
         }
         report[label] = mean
         print(
@@ -226,7 +314,7 @@ def main() -> int:
             f"{label} whole run: {mean['this']:.3f} ms here ({blocks} blocks), {mean['other']:.3f} "
             f"in the other checkout ({mean['this'] / mean['other']:.3f}x) [{card}]"
         )
-    for label, _builder in RINGS:
+    for label, _builder in rings:
         if not all(label in t["rings"] for _w, t in turns):
             continue
         rings = {who: [t["rings"][label] for w, t in turns if w == who] for who in ("this", "other")}
@@ -280,7 +368,7 @@ def main() -> int:
                   f"{info.get('spill_stores')} B spill stores, {info.get('spill_loads')} B spill loads")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "ab_parent.json").write_text(json.dumps(report, indent=1))
+    (out / options.out).write_text(json.dumps(report, indent=1))
     return 0
 
 

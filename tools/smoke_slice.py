@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The newest checks of chip_smoke.py alone, for a quick check of a
-change to the event-step kernel's MULTI and wide codes:
+change to the event-step kernel's MULTI, trace and wide codes:
 
     python3 tools/smoke_slice.py      # on a machine with one NVIDIA GPU
     python3 tools/smoke_slice.py --partitioned    # the build and the partitioned phase alone
@@ -8,11 +8,15 @@ change to the event-step kernel's MULTI and wide codes:
 Builds the libraries and prints each instantiation's registers and spills,
 then runs chip_smoke's block checks (kernel against plain version, bit for
 bit, at 65,536 replicas) on one model of each earlier instantiation and on
-every variant of the codes for several sources or sinks (chaos-free, with
-telemetry, with chaos) and of the wide code (chaos-free on the fleet, the
-chain and the tenants, the chaos code on the quorum), the whole runs of
-two-class and wide-fleet in one launch against chained one-block
-launches, and chip_smoke's partitioned phase (the window kernel and the
+every code for several sources or sinks (chaos-free, with telemetry,
+with chaos and neither the defenses nor the consensus tier, with and
+without telemetry, with a defense) and of the wide code (chaos-free on the fleet, the chain and
+the tenants, the chaos code on the quorum), its stream checks of the
+trace library's codes against plain_trace_steps (the flash crowd alone,
+beside a Poisson source, beside it with a deadline and a retry at its
+server, and with a retry budget besides), the whole runs of two-class, two-class-chaos, its defended
+arm and wide-fleet in one launch against chained one-block launches, and
+chip_smoke's partitioned phase (the window kernel and the
 barrier against their plain versions window by window on five models,
 the nine-remote ring's wide code and a ring of full transit rows among
 them, and over whole runs on four, a checkpointed ring run, the ring at
@@ -59,6 +63,10 @@ def main() -> int:
         ("two-class-telemetry", c.two_class_model(c.TWO_CLASS_WINDOW_S), [0, 1, 2, 3, 100], None),
         ("superpose-tie", c.superpose_model("constant", (4.0, 4.0)), [0, 1, 2, 3, 80], None),
         ("two-class-chaos", c.two_class_model(chaos=True), [0, 1, 2, 3, 100], None),
+        ("two-class-chaos-telemetry", c.two_class_model(c.TWO_CLASS_WINDOW_S, chaos=True),
+         [0, 1, 2, 3, 100], None),
+        ("two-class-defended", c.two_class_model(chaos=True, defended=True), [0, 1, 2, 3, 100],
+         None),
         ("wide-fleet", c.wide_fleet_model(), [0, 1, 2, 3, 130], None),
         ("wide-chain", c.wide_chain_model(), [0, 1, 2, 3, 200], None),
         ("wide-tenants", c.wide_tenants_model(), [0, 1, 2, 3, 60], None),
@@ -66,7 +74,18 @@ def main() -> int:
     ):
         c.check_blocks(name, model, blocks, sweeps)
     print(f"block checks {time.perf_counter() - start:.1f} s", flush=True)
-    for name, model in (("two-class", c.two_class_model()), ("wide-fleet", c.wide_fleet_model())):
+    start = time.perf_counter()
+    c.check_trace_stream("trace-flash", c.trace_model("flash"), every=8)
+    c.check_trace_stream("trace-poisson", c.trace_model("flash", poisson_rate=50.0), every=8)
+    c.check_trace_stream("trace-chaos", c.trace_model("flash", **c.TRACE_CHAOS), every=8)
+    c.check_trace_stream("trace-defended", c.trace_model("flash", **c.TRACE_DEFENDED), every=8)
+    print(f"stream checks {time.perf_counter() - start:.1f} s", flush=True)
+    for name, model in (
+        ("two-class", c.two_class_model()),
+        ("two-class-chaos", c.two_class_model(chaos=True)),
+        ("two-class-defended", c.two_class_model(chaos=True, defended=True)),
+        ("wide-fleet", c.wide_fleet_model()),
+    ):
         c.check_whole_run(name, model)
     c.partitioned_phase(tag)
     print("slice ok")
