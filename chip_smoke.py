@@ -119,6 +119,8 @@ Phases, each of which must pass (any failure raises and exits nonzero):
      of 2 of 3 servers, servers 1 and 2 cut over [4, 6), backoff retries,
      macro_block 8; the defended arm with a breaker and a retry budget),
      blocks 0-3, 16 and 20 (in and after the cut);
+   - flapping-cuts: the undefended arm with 32 cuts of 0.1 s (one every
+     0.35 s from 0.5 s) in place of its one, blocks 0-3, 8, 12, 16 and 20;
    - election-bully: its scenario B (flapping cuts under a bully
      election, macro_block 8), blocks 0-3;
    - stochastic-partitions: stochastic cuts of two of three servers drawn
@@ -158,8 +160,9 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    resilience kernel) against its undefended arm (the chaos+telemetry
    kernel), and the same model with inert defenses (the resilience kernel
    on the undefended simulation: the defenses' own cost) against it;
-   and the two-tenant service (several sources and sinks) and the defended
-   quorum arm (the consensus instantiation);
+   and the two-tenant service (several sources and sinks), the defended
+   quorum arm (the consensus instantiation) and the flapping cuts (the
+   same code's consults, at 32 cuts of one group);
 5. the main path, run_ensemble on cuda at 65,536 replicas through the
    entry point a user calls, with the launch counts set to 0 just before
    each run and read just after. The event-scan runs name their budget
@@ -608,6 +611,8 @@ TWO_CLASS_BUDGET = {"ratio": 0.0, "min_per_s": 0.2, "burst": 1.0}
 CONSENSUS_HORIZON_S = 12.0
 QUORUM_CUT = (4.0, 6.0)
 QUORUM_MAX_EVENTS, ELECTION_MAX_EVENTS = 1024, 256
+# The flapping cuts: 32 cuts of 0.1 s, one every 0.35 s from 0.5 s.
+FLAP_CUTS = tuple((0.5 + 0.35 * k, 0.6 + 0.35 * k) for k in range(32))
 CUT_HIGH = ((2.0, 4.0), (6.0, 8.0), (10.0, 12.0))
 CUT_MID = ((4.0, 6.0), (8.0, 10.0))
 ELECTION_HEARTBEAT_S, ELECTION_TIMEOUT_S = 0.4, 1.5
@@ -1187,6 +1192,16 @@ def quorum_model(defended: bool) -> EnsembleModel:
     if defended:
         model.circuit_breaker(failure_threshold=3, window_s=0.5, cooldown_s=0.5, half_open_probes=1)
         model.retry_budget(ratio=0.1, min_per_s=0.5, burst=2.0)
+    return model
+
+
+def flapping_cuts_model() -> EnsembleModel:
+    """quorum_model's undefended arm with its one cut replaced by
+    FLAP_CUTS, 32 cuts of 0.1 s of servers 1 and 2 (the quorum lost in
+    each), macro_block 8: a group of many short windows, which the
+    consensus code's consults scan at every arrival and delivery."""
+    model = quorum_model(False)
+    model.network_partitions[0] = dataclasses.replace(model.network_partitions[0], windows=FLAP_CUTS)
     return model
 
 
@@ -3955,6 +3970,9 @@ def main() -> int:
             [0, 1, 2, 3, 100],
         ),
         "quorum-undefended": check_blocks("quorum-undefended", quorum_model(False), [0, 1, 2, 3, 16, 20]),
+        "consensus-flapping": check_blocks(
+            "flapping-cuts", flapping_cuts_model(), [0, 1, 2, 3, 8, 12, 16, 20]
+        ),
         "election-bully": check_blocks("election-bully", election_model("bully"), [0, 1, 2, 3]),
         "stochastic-partitions": check_blocks(
             "stochastic-partitions", stochastic_partition_model(), [0, 1, 2, 3]
@@ -4003,6 +4021,9 @@ def main() -> int:
         "consensus": check_whole_run(
             "quorum-defended", quorum_model(True), max_events=QUORUM_MAX_EVENTS
         ),
+        "consensus-flapping": check_whole_run(
+            "flapping-cuts", flapping_cuts_model(), max_events=QUORUM_MAX_EVENTS
+        ),
     }
 
     timings = {
@@ -4031,6 +4052,7 @@ def main() -> int:
             two_class_model(chaos=True, defended=True), "two-class-defended"
         ),
         "consensus": time_blocks(quorum_model(True), "quorum-defended"),
+        "consensus-flapping": time_blocks(flapping_cuts_model(), "flapping-cuts"),
     }
     for shape, t in timings.items():
         earlier = ""

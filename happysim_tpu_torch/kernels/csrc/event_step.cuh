@@ -163,6 +163,55 @@
 // (nK, 80) histogram and the router/limiter registers, touched once per
 // push, pull or delivery, stay in device memory in the JAX layout, as do
 // the leaves the plan leaves out.
+//
+// The window cache (WC: the trace branch's lean code, one traced source,
+// one sink, no chaos, with the telemetry sites). Every replica replays
+// the same trace, so a warp's lanes sit in one telemetry window almost
+// all the time, and a lane's clock only moves forward; yet each site
+// booked its window cell in the (R, nW, ...) buffers, one 32-byte sector
+// a lane. Here a lane keeps the row of its current window: in registers,
+// the sink's count and latency sum and each server's completions, drops
+// and busy and depth integrals; in the tile, lane-minor, a row of
+// counter pairs for the tenants' arrivals and one for the sink's
+// histogram bins (support.stage_plan sizes them after the scanned
+// rows), each word counting a cell of the cached window in its low 16
+// bits and the same cell of the run's own leaf (trc_arrivals, sink_hist)
+// in its high 16. At each event the window of the event's time is
+// computed; when it is not the cached one the cached row goes back (a
+// sum's value stored, a count added to its cell, a pair's low half added
+// and cleared) and the new window's row comes in (a sum loaded, a count
+// from 0). A site whose window is the cached one books there; any other
+// (a delivery that an edge's latency carries into a later window, an
+// integral's piece in another window) books its cell in device memory,
+// as before. The launch's end puts the window back and adds the pairs'
+// high halves to the run's leaves. A half that reaches 0xFFFF goes to its
+// cell at once, so no count wraps. Exact: a count is an integer sum,
+// whatever the order of its parts. A float sum (the latency sum, an
+// integral) is held in exactly one place at any time, memory or the
+// cache (loaded when its window comes in, stored when it goes), and every
+// addition into it is made where it is held, in the order the events
+// make them; so each cell sees the sequence of roundings the plain step
+// makes, and the bits do not change.
+//
+// The reachability memo (CON). An arrival at a quorum member counted the
+// members in reach by scanning every member's fault windows and every
+// group's partition windows, and a delivery into a group's member scanned
+// its groups' windows again: O(nV (W + nP Wp)) compares an event, for a
+// function of t that changes only at a window's edge. Here a lane keeps,
+// in registers, the mask of cut groups, the count of members in reach and
+// the time until which both hold, the first start or end of any window
+// the scan read (every group's, the drop-mode members' own fault windows
+// and the shared ones they subscribe to) that lies after the time of the
+// scan. The step scans again at the first event whose time has reached
+// that time (and at the launch's first event), and every consult answers
+// from the mask with the groups' constant tables and from the count: a
+// consult's time is its event's. Exact: each window's test
+// (t >= start) & (t < end) is constant on [t0, e), e the first edge after
+// the scan's time t0 (a start after t0 is at or after e, an end after t0
+// too), and a lane's event times never decrease within a launch. The
+// wide code past 32 groups (the mask's bits) and the trace library's code
+// for several sources (where the memo's registers measured slower)
+// scan at every consult.
 
 // The uniforms. The JAX kernel reads a (macro, n_draws) block per replica
 // that the host drew from fold_in(key, block). Here each lane folds each
@@ -213,7 +262,8 @@
 // each window; the windows outside [w(lo) - 1, w(hi) + 1] get +0.0 in
 // JAX's dense form, which leaves the (non-negative) sum unchanged, so the
 // kernel walks only the windows in that range, skips the zero pieces,
-// and stays bit-equal.
+// and stays bit-equal. (The trace branch's lean code books the cached
+// window's pieces in its window cache, above.)
 //
 // Float agreement with the plain version: build with -fmad=false and
 // without --use_fast_math (every torch op is its own kernel, so the
@@ -268,6 +318,16 @@
 // 0 lifts the register cap below (a variant of tools/ab_block_loop.py).
 #ifndef HS_REG_CAP
 #define HS_REG_CAP 1
+#endif
+// 0 books every telemetry site in device memory and scans every window
+// at every consult (the trace branch's lean code without its window
+// cache, the consensus code without its memo): the variant the host
+// tests hold the library's build against bit for bit, and the A/B tools'.
+#ifndef HS_WINDOW_CACHE
+#define HS_WINDOW_CACHE 1
+#endif
+#ifndef HS_REACH_MEMO
+#define HS_REACH_MEMO 1
 #endif
 // The servers the wide code's loops over every server (the search and the
 // depth integral) load at once before they use them.
@@ -324,7 +384,11 @@
 #define HS_ST_BRK_FAIL_T 10
 #define HS_ST_PRT_START 11
 #define HS_ST_PRT_END 12
-#define HS_STAGE_LEAVES 13
+// The window cache's counter pairs (the trace branch's lean code with
+// telemetry): the tenants' row, then the sink's histogram row.
+#define HS_ST_TENANT_PAIRS 13
+#define HS_ST_HIST_PAIRS 14
+#define HS_STAGE_LEAVES 15
 
 // The staging plan: where each leaf's rows sit in a lane's column of the
 // tile (a word offset, -1: in device memory) and the column's words. The
@@ -1012,16 +1076,104 @@ __device__ __forceinline__ void tel_count(int* buf, const HsTel& T, size_t row, 
   if (buf) buf[(row + tel_window(T, t)) * width + i] += 1;
 }
 
+// The window cache's counter pairs (see the head of this file): each word
+// of such a row in the tile counts one cell twice, 16 bits each.
+
+// A lane's column of n counter pairs in the tile at word `off`, zeroed
+// (off < 0: not planned, a null row).
+__device__ __forceinline__ HsRow<uint32_t> pair_row(int off, int n, float* tile) {
+  if (!HS_STAGE_ROWS || off < 0) return HsRow<uint32_t>{nullptr, 1};
+  const int stride = (int)blockDim.x;
+  uint32_t* col = reinterpret_cast<uint32_t*>(tile + off * stride) + threadIdx.x;
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) col[j * stride] = 0u;
+  return HsRow<uint32_t>{col, stride};
+}
+
+// One count into pair j: the launch's half (high) always, the cached
+// window's half (low) where `win`. A half that reaches 0xFFFF goes to its
+// cell at once (`launch`, or `window`), so neither wraps.
+__device__ __forceinline__ void pair_add(const HsRow<uint32_t>& pairs, int j, bool win,
+                                         int* window, int* launch) {
+  uint32_t p = pairs[j] + (win ? 0x10001u : 0x10000u);
+  if ((p & 0xFFFFu) == 0xFFFFu) {
+    *window += 0xFFFF;
+    p -= 0xFFFFu;
+  }
+  if ((p >> 16) == 0xFFFFu) {
+    *launch += 0xFFFF;
+    p -= 0xFFFF0000u;
+  }
+  pairs[j] = p;
+}
+
+// The cached window's halves of n pairs added to their cells in `window`
+// (row r * nW + w of an (R, nW, n) buffer) and cleared. A loop, not
+// unrolled: it sits in the step's loop and runs once a window.
+__device__ __forceinline__ void pairs_flush(const HsRow<uint32_t>& pairs, int n, int* window) {
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) {
+    const uint32_t p = pairs[j];
+    const uint32_t lo = p & 0xFFFFu;
+    if (lo) {
+      window[j] += (int)lo;
+      pairs[j] = p - lo;
+    }
+  }
+}
+
+// Four cells of a histogram row, one 16-byte access (a row starts at a
+// multiple of 80 words, so every quad of it is aligned).
+struct alignas(16) HsQuad {
+  int v[4];
+};
+
+// The histogram's 80 pairs, four at a time: the cached window's halves
+// added to the cells of `window` (null: none) and cleared; with `launch`
+// (the launch's end), the launch's halves added to its cells. A quad of
+// cells is read and written in one access each, and skipped where its
+// halves are all 0.
+__device__ __forceinline__ void hist_flush(const HsRow<uint32_t>& pairs, int* window, int* launch) {
+#pragma unroll 2
+  for (int q = 0; q < HS_HIST_BINS; q += 4) {
+    uint32_t p[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p[k] = pairs[q + k];
+    const uint32_t any = p[0] | p[1] | p[2] | p[3];
+    if (window && (any & 0xFFFFu)) {
+      HsQuad* cell = reinterpret_cast<HsQuad*>(window + q);
+      HsQuad c = *cell;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) c.v[k] += (int)(p[k] & 0xFFFFu);
+      *cell = c;
+      if (!launch) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) pairs[q + k] = p[k] & 0xFFFF0000u;
+      }
+    }
+    if (launch && (any >> 16)) {
+      HsQuad* cell = reinterpret_cast<HsQuad*>(launch + q);
+      HsQuad c = *cell;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) c.v[k] += (int)(p[k] >> 16);
+      *cell = c;
+    }
+  }
+}
+
 // TRC: the traced source's fire (JAX _fire_trace_source). The arrival at
 // the cursor counts for its tenant (and, with TEL, in the window of t),
 // the cursor advances, and the next instant is read from the resident
 // pages: +inf padding past the trace's end, or an instant past
 // stop_after, stops the source. Both offsets are clipped into the window
 // [base, base + 2P), as JAX clips them; the stall gate keeps a firing
-// lane inside it. Returns the source's next arrival.
-template <bool TEL>
+// lane inside it. Returns the source's next arrival. WC: the arrival
+// counts in the tenants' pairs where the plan has them, window `win_w`
+// (the window of t) in their low half.
+template <bool TEL, bool WC = false>
 __device__ __forceinline__ float trace_fire(const EventStepArgs& a, size_t r, size_t tel_row,
-                                            float t, uint32_t& cursor, float stop_after) {
+                                            float t, uint32_t& cursor, float stop_after,
+                                            const HsRow<uint32_t>& pairs, int win_w) {
   const HsTrc& T = a.trc;
   const int span = 2 * T.P;
   const int off = min(max((int)cursor - T.base, 0), span - 1);
@@ -1029,6 +1181,13 @@ __device__ __forceinline__ float trace_fire(const EventStepArgs& a, size_t r, si
   cursor += 1u;
   const int next = min(max((int)cursor - T.base, 0), span - 1);
   const float at = next < T.P ? hs_ldg(T.t0 + next) : hs_ldg(T.t1 + (next - T.P));
+  if constexpr (WC) {
+    if (pairs) {
+      int* window = T.tel_arrivals ? T.tel_arrivals + (tel_row + win_w) * T.nT + tenant : nullptr;
+      pair_add(pairs, tenant, window != nullptr, window, T.arrivals + r * T.nT + tenant);
+      return at > stop_after ? INFINITY : at;
+    }
+  }
   T.arrivals[r * T.nT + tenant] += 1;
   if constexpr (TEL) tel_count(T.tel_arrivals, a.tel, tel_row, T.nT, t, tenant);
   return at > stop_after ? INFINITY : at;
@@ -1038,8 +1197,11 @@ __device__ __forceinline__ float trace_fire(const EventStepArgs& a, size_t r, si
 // spans, each piece times `scale`, added to column i of replica row `row`
 // of an (R, nW, width) float buffer. The windows outside [w(lo) - 1,
 // w(hi) + 1] overlap by nothing, and a zero piece leaves the sum as it is.
+// With the window cache, the piece in the cached window `cw` goes to its
+// cell's value `*cached` instead.
 __device__ __forceinline__ void tel_integral(float* buf, const HsTel& T, size_t row, int width,
-                                             int i, float lo, float hi, float scale) {
+                                             int i, float lo, float hi, float scale,
+                                             int cw = -1, float* cached = nullptr) {
   const int first = max(tel_window(T, lo) - 1, 0);
   const int last = min(tel_window(T, hi) + 1, T.nW - 1);
   for (int w = first; w <= last; ++w) {
@@ -1047,8 +1209,12 @@ __device__ __forceinline__ void tel_integral(float* buf, const HsTel& T, size_t 
     const float w_hi = w == T.nW - 1 ? INFINITY : w_lo + T.window_s;
     const float overlap = fmaxf(fminf(hi, w_hi) - fmaxf(lo, w_lo), 0.0f);
     if (overlap > 0.0f) {
-      float* cell = buf + (row + w) * width + i;
-      *cell = fma_f64(overlap, scale, *cell);
+      if (cached && w == cw) {
+        *cached = fma_f64(overlap, scale, *cached);
+      } else {
+        float* cell = buf + (row + w) * width + i;
+        *cell = fma_f64(overlap, scale, *cell);
+      }
     }
   }
 }
@@ -1090,13 +1256,32 @@ struct Lane {
   int *hedged, *hedge_wins, *net_lost;
   // TEL: this replica's first row (r * nW) of the window buffers
   size_t tel_row;
+  // The window cache (the trace branch's lean code with telemetry; see
+  // the head of this file): the window cached (-1: none yet this launch);
+  // the sink's count and each server's completions and drops added in it
+  // since, and the cells' values of the sink's latency sum and each
+  // server's busy and depth integrals; the tile's rows of counter pairs
+  // (null: not planned, counted in device memory).
+  int win_w;
+  int win_count;
+  float win_sum;
+  HsReg<MAXV, int> win_completed, win_dropped;
+  HsReg<MAXV, float> win_busy, win_depth;
+  HsRow<uint32_t> tenant_pairs, hist_pairs;
   // RES: this replica's first row (r * nV) of the resilience leaves, and
   // its (nV, F) failure rings
   size_t res_row;
   HsRow<float> brk_ring;
-  // CON: this replica's (nP, Wp) partition windows and its counters
+  // CON: this replica's (nP, Wp) partition windows and its counters, and
+  // the reachability memo (reach_scan): bit g of memo_cut, group g cut;
+  // memo_alive, the quorum's reachable members; both as of the last scan,
+  // and true until memo_until, the first window edge after it.
   HsRow<const float> prt_start, prt_end;
   int *net_partitioned, *qrm_dropped;
+  bool memo;  // whether the memo serves this launch (else every consult scans)
+  uint32_t memo_cut;
+  int memo_alive;
+  float memo_until;
   // PRT: this replica's outbox rows and counters, and its transit rows'
   // occupancy bounds
   float *ob_arrival, *ob_created;
@@ -1104,11 +1289,69 @@ struct Lane {
   int drawn;  // threefry evaluations this launch (the block keys' included)
 };
 
+// -- the window cache (WC: the trace branch's lean code with telemetry) -----
+
+// Window w's cells into the cache: the sums' values; the counts start at 0.
+template <int MAXV>
+__device__ __forceinline__ void win_enter(Lane<MAXV>& L, const EventStepArgs& a, int w) {
+  const HsTel& T = a.tel;
+  const size_t row = L.tel_row + w, cell = row * a.nV;
+  L.win_w = w;
+  L.win_count = 0;
+  L.win_sum = T.sink_sum ? T.sink_sum[row] : 0.0f;
+#pragma unroll
+  for (int v = 0; v < MAXV; ++v) {
+    const bool real = v < a.nV;
+    L.win_completed[v] = 0;
+    L.win_dropped[v] = 0;
+    L.win_busy[v] = real && T.busy_int ? T.busy_int[cell + v] : 0.0f;
+    L.win_depth[v] = real && T.depth_int ? T.depth_int[cell + v] : 0.0f;
+  }
+}
+
+// The cached window back to its cells in device memory; at the launch's
+// end (`hist_launch`, the run's histogram row), the histogram pairs'
+// launch halves too, in the same pass.
+template <int MAXV>
+__device__ __forceinline__ void win_flush(Lane<MAXV>& L, const EventStepArgs& a,
+                                          int* hist_launch = nullptr) {
+  if (L.win_w < 0) return;  // no event this launch: every pair is 0
+  const HsTel& T = a.tel;
+  const size_t row = L.tel_row + L.win_w, cell = row * a.nV;
+  if (T.sink_count) T.sink_count[row] += L.win_count;
+  if (T.sink_sum) T.sink_sum[row] = L.win_sum;
+#pragma unroll
+  for (int v = 0; v < MAXV; ++v) {
+    if (v >= a.nV) continue;
+    if (T.completed) T.completed[cell + v] += L.win_completed[v];
+    if (T.dropped) T.dropped[cell + v] += L.win_dropped[v];
+    if (T.busy_int) T.busy_int[cell + v] = L.win_busy[v];
+    if (T.depth_int) T.depth_int[cell + v] = L.win_depth[v];
+  }
+  if (L.tenant_pairs && a.trc.tel_arrivals)
+    pairs_flush(L.tenant_pairs, a.trc.nT, a.trc.tel_arrivals + row * a.trc.nT);
+  if (L.hist_pairs)
+    hist_flush(L.hist_pairs, T.sink_sum ? T.sink_hist + row * HS_HIST_BINS : nullptr, hist_launch);
+}
+
+// The launch's end: the cached window back, and the launch's halves of
+// the pairs to the run's histogram and tenant arrivals.
+template <int MAXV>
+__device__ __forceinline__ void win_close(Lane<MAXV>& L, const EventStepArgs& a, size_t r) {
+  win_flush(L, a, L.hist);
+  for (int j = 0; L.tenant_pairs && j < a.trc.nT; ++j) {
+    const int n = (int)(L.tenant_pairs[j] >> 16);
+    if (n) a.trc.arrivals[r * a.trc.nT + j] += n;
+  }
+}
+
 // _deliver_sink into sink k: only arrivals inside [warmup, horizon] are
 // measured. Sink 0 adds to the lane's registers; MULTI: another sink to
 // its leaves in device memory. TEL: the delivery's count, latency and bin
-// in its arrival window.
-template <int MAXV, bool TEL = false, bool MULTI = false>
+// in its arrival window; WC: through the window cache where that window
+// is the cached one (an edge's latency may carry it to a later one), and
+// the bin through the tile's pairs where the plan has them.
+template <int MAXV, bool TEL = false, bool MULTI = false, bool WC = false>
 __device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs& a, int k,
                                              float arrival, float created) {
   if (arrival >= a.warmup && arrival <= a.horizon) {
@@ -1123,7 +1366,30 @@ __device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs&
       a.sink_sum[i] = a.sink_sum[i] + latency;
       a.sink_sq[i] = fma_f64(latency, latency, a.sink_sq[i]);
     }
-    (MULTI ? L.hist + k * HS_HIST_BINS : L.hist)[hist_bin(latency)] += 1;
+    const int bin = hist_bin(latency);
+    if constexpr (WC) {
+      const HsTel& T = a.tel;
+      const int w = tel_window(T, arrival);
+      const bool cached = w == L.win_w;
+      const size_t cell = L.tel_row + w;
+      if (cached) {
+        L.win_count += 1;
+        L.win_sum = L.win_sum + latency;
+      } else {
+        if (T.sink_count) T.sink_count[cell] += 1;
+        if (T.sink_sum) T.sink_sum[cell] = T.sink_sum[cell] + latency;
+      }
+      int* window = T.sink_sum ? T.sink_hist + cell * HS_HIST_BINS + bin : nullptr;
+      if (L.hist_pairs) {
+        pair_add(L.hist_pairs, bin, cached && window, window, L.hist + bin);
+        if (window && !cached) *window += 1;
+      } else {
+        L.hist[bin] += 1;
+        if (window) *window += 1;
+      }
+      return;
+    }
+    (MULTI ? L.hist + k * HS_HIST_BINS : L.hist)[bin] += 1;
     if constexpr (TEL) {
       const HsTel& T = a.tel;
       if (!T.sink_count && !T.sink_sum) return;
@@ -1132,15 +1398,15 @@ __device__ __forceinline__ void deliver_sink(Lane<MAXV>& L, const EventStepArgs&
       if (T.sink_count) T.sink_count[cell] += 1;
       if (T.sink_sum) {
         T.sink_sum[cell] = T.sink_sum[cell] + latency;
-        T.sink_hist[cell * HS_HIST_BINS + hist_bin(latency)] += 1;
+        T.sink_hist[cell * HS_HIST_BINS + bin] += 1;
       }
     }
   }
 }
 
 // _arrive_server: start in the first free slot, else enqueue at the ring
-// tail, else drop.
-template <int MAXV, bool EXT, bool TEL = false>
+// tail, else drop. WC: the window of t is the cached one.
+template <int MAXV, bool EXT, bool TEL = false, bool WC = false>
 __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs& a, int w,
                                               float t, float created, const HsDraw& u) {
   const int C = a.C, K = a.K;
@@ -1159,7 +1425,13 @@ __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs
     if (t >= a.warmup) {
       put(L.wait_n, w, pick(L.wait_n, w) + 1);
       put(L.busy, w, pick(L.busy, w) + service);
-      if constexpr (TEL) {
+      if constexpr (WC) {
+        if (a.tel.busy_int) {
+          float busy = pick(L.win_busy, w);
+          tel_integral(a.tel.busy_int, a.tel, L.tel_row, a.nV, w, t, done_at, 1.0f, L.win_w, &busy);
+          put(L.win_busy, w, busy);
+        }
+      } else if constexpr (TEL) {
         if (a.tel.busy_int) tel_integral(a.tel.busy_int, a.tel, L.tel_row, a.nV, w, t, done_at, 1.0f);
       }
     }
@@ -1173,7 +1445,11 @@ __device__ __forceinline__ void arrive_server(Lane<MAXV>& L, const EventStepArgs
       put(L.q_len, w, ql + 1);
     } else {
       put(L.dropped, w, pick(L.dropped, w) + 1);
-      if constexpr (TEL) tel_count(a.tel.dropped, a.tel, L.tel_row, a.nV, t, w);
+      if constexpr (WC) {
+        put(L.win_dropped, w, pick(L.win_dropped, w) + 1);
+      } else if constexpr (TEL) {
+        tel_count(a.tel.dropped, a.tel, L.tel_row, a.nV, t, w);
+      }
     }
   }
 }
@@ -1416,26 +1692,89 @@ __device__ __forceinline__ void budget_dropped(const Lane<MAXV>& L, const EventS
 
 // -- consensus (CON) ---------------------------------------------------------
 
-// PartitionTable.consult for server w at t: whether a group holding it is
-// cut (returned), whether one of the cut groups is drop-mode, and the
-// largest delay of the cut ones.
+// Whether server w is in partition group g.
 template <int MAXV>
-__device__ __forceinline__ bool partition_consult(const Lane<MAXV>& L, const EventStepArgs& a, int w,
-                                                  float t, bool& drop, float& delay) {
+__device__ __forceinline__ bool in_group(const EventStepArgs& a, int g, int w) {
+  if constexpr (MAXV == HS_WIDE) {
+    return hs_ldg(a.wide.prt_member + (size_t)g * a.nV + w) != 0;
+  } else {
+    return (a.con.prt_member[g] >> w) & 1;
+  }
+}
+
+// The reachability memo's scan at t: which groups are cut, how many quorum
+// members are reachable (one inside a drop-mode fault window, its own or
+// a subscribed shared one, or in a cut group is not), and the first start
+// or end of any window read that lies after t, until which both answers
+// hold (see the head of this file).
+template <int MAXV>
+__device__ __forceinline__ void reach_scan(Lane<MAXV>& L, const EventStepArgs& a, float t) {
   const HsCon& P = a.con;
+  float until = INFINITY;
+  // Whether t lies in [s, e), noting the window's edges after t.
+  auto inside = [&](float s, float e) {
+    if (s > t) until = fminf(until, s);
+    if (e > t) until = fminf(until, e);
+    return (t >= s) & (t < e);
+  };
+  uint32_t cut = 0;
+  const int nP = L.prt_start ? P.nP : 0;  // a quorum without partition groups has no windows
+  for (int g = 0; g < nP; ++g) {
+    const HsRow<const float> start = L.prt_start + g * P.Wp;
+    const HsRow<const float> end = L.prt_end + g * P.Wp;
+    bool c = false;
+    for (int i = 0; i < P.Wp; ++i) c |= inside(start[i], end[i]);
+    cut |= (uint32_t)c << g;
+  }
+  L.memo_cut = cut;
+  if (P.quorum) {
+    int alive = P.qrm_n;
+    for (int m = 0; m < a.nV; ++m) {
+      if (!hs_bit<MAXV>(P.qrm_member, a.wide.qrm_member, m)) continue;
+      const int flags = HS_SRV(srv_flags, m);
+      bool gone = false;
+      if ((flags & HS_F_FAULTED) && (flags & HS_F_DROP)) {
+        const HsRow<const float> start = L.flt_start + m * a.W;
+        const HsRow<const float> end = L.flt_end + m * a.W;
+        for (int i = 0; i < a.W; ++i) gone |= inside(start[i], end[i]);
+        if (L.flt_sh_start && (flags & HS_F_SHARED)) {
+          for (int i = 0; i < a.W_sh; ++i) gone |= inside(L.flt_sh_start[i], L.flt_sh_end[i]);
+        }
+      }
+      if (!gone && hs_bit<MAXV>(P.touched, a.wide.touched, m)) {
+        for (int g = 0; g < P.nP; ++g) gone |= ((cut >> g) & 1) && in_group<MAXV>(a, g, m);
+      }
+      alive -= gone ? 1 : 0;
+    }
+    L.memo_alive = alive;
+  }
+  L.memo_until = until;
+}
+
+// PartitionTable.consult for server w at t, the lane's clock: whether a
+// group holding it is cut (returned), whether one of the cut groups is
+// drop-mode, and the largest delay of the cut ones. A group's cut state
+// comes from the memo, which the step scans again at the event where the
+// clock reaches its next edge (where the memo does not serve, from the
+// group's windows at every consult).
+template <int MAXV>
+__device__ __forceinline__ bool partition_consult(const Lane<MAXV>& L, const EventStepArgs& a,
+                                                  int w, float t, bool& drop, float& delay) {
+  const HsCon& P = a.con;
+  const bool memo = L.memo;
   bool dark = false;
   drop = false;
   delay = 0.0f;
   for (int g = 0; g < P.nP; ++g) {
-    if constexpr (MAXV == HS_WIDE) {
-      if (!hs_ldg(a.wide.prt_member + (size_t)g * a.nV + w)) continue;
-    } else {
-      if (!((P.prt_member[g] >> w) & 1)) continue;
-    }
-    const HsRow<const float> start = L.prt_start + g * P.Wp;
-    const HsRow<const float> end = L.prt_end + g * P.Wp;
+    if (!in_group<MAXV>(a, g, w)) continue;
     bool cut = false;
-    for (int i = 0; i < P.Wp; ++i) cut |= (t >= start[i]) & (t < end[i]);
+    if (memo) {
+      cut = (L.memo_cut >> g) & 1;
+    } else {
+      const HsRow<const float> start = L.prt_start + g * P.Wp;
+      const HsRow<const float> end = L.prt_end + g * P.Wp;
+      for (int i = 0; i < P.Wp; ++i) cut |= (t >= start[i]) & (t < end[i]);
+    }
     if (!cut) continue;
     dark = true;
     if (HS_ARR(P.prt_drop, prt_drop, g)) {
@@ -1447,11 +1786,12 @@ __device__ __forceinline__ bool partition_consult(const Lane<MAXV>& L, const Eve
   return dark;
 }
 
-// Quorum members reachable at t: one inside a drop-mode fault window (its
-// own or a subscribed shared one) or in a cut partition group is not.
+// Quorum members reachable at t, the lane's clock: from the memo (where
+// it does not serve, counted member by member).
 template <int MAXV>
 __device__ __forceinline__ int quorum_alive(const Lane<MAXV>& L, const EventStepArgs& a, float t) {
   const HsCon& Q = a.con;
+  if (L.memo) return L.memo_alive;
   int alive = Q.qrm_n;
   for (int m = 0; m < a.nV; ++m) {
     if (!hs_bit<MAXV>(Q.qrm_member, a.wide.qrm_member, m)) continue;
@@ -1715,17 +2055,18 @@ __device__ __forceinline__ int route_choice(Lane<MAXV>& L, const EventStepArgs& 
 // before any cut and does not consult.
 // PRT: a remote egress node (reached straight, or as a random router's
 // choice among sinks and remotes) queues the job in the outbox.
+// WC: the sink and the server book through the window cache.
 template <int MAXV, bool GRAPH, bool EXT, bool CHAOS = false, bool TEL = false, bool RES = false,
-          bool CON = false, bool MULTI = false, bool PRT = false>
+          bool CON = false, bool MULTI = false, bool PRT = false, bool WC = false>
 __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, HsRef dest,
                                         float t, float created, const HsDraw& u,
                                         HsLoss loss = HsLoss{0.0f, 0.0f, 0.0f},
                                         int attempt = 0, bool consult = true) {
   if constexpr (!GRAPH) {
     if (dest.kind == HS_SINK) {
-      deliver_sink<MAXV, TEL, MULTI>(L, a, dest.index, t, created);
+      deliver_sink<MAXV, TEL, MULTI, WC>(L, a, dest.index, t, created);
     } else {
-      arrive_server<MAXV, EXT, TEL>(L, a, dest.index, t, created, u);
+      arrive_server<MAXV, EXT, TEL, WC>(L, a, dest.index, t, created, u);
     }
   } else {
     bool park = false;    // chosen by a router with a latency-carrying target edge
@@ -1778,7 +2119,7 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
         }
       }
       if (dest.kind == HS_SINK) {
-        deliver_sink<MAXV, TEL, MULTI>(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat, routed),
+        deliver_sink<MAXV, TEL, MULTI, WC>(L, a, dest.index, edge_arrival(dest, t, u, a.u_lat, routed),
                                        created);
         return;
       }
@@ -1804,7 +2145,7 @@ __device__ __forceinline__ void deliver(Lane<MAXV>& L, const EventStepArgs& a, H
       } else if constexpr (CHAOS) {
         arrive_server_chaos<MAXV, TEL, RES, CON, PRT>(L, a, dest.index, t, created, attempt, u);
       } else {
-        arrive_server<MAXV, EXT, TEL>(L, a, dest.index, t, created, u);
+        arrive_server<MAXV, EXT, TEL, WC>(L, a, dest.index, t, created, u);
       }
       return;
     }
@@ -1892,7 +2233,16 @@ __device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_
 //   servers 0.68x at 166, the traced chaos model 0.73x at 146; the code
 //   with every site 0.92-0.95x on the defended two-class arm at 252,
 //   0.96x on the defended quorum with a second source, 0.74x on the
-//   traced defended model (tools/ab_parent.py against uncapped trees).
+//   traced defended model (tools/ab_parent.py against uncapped trees);
+// - the consensus codes of up to four servers (CON, one source and one
+//   sink; 168-190 registers free) with the defenses or without the
+//   telemetry sites, which ran faster capped despite 244-316 bytes of
+//   spills: the defended quorum 0.978x, 0.956x and 0.955x in three calls
+//   of tools/ab_parent.py against an uncapped tree, the stochastic cuts
+//   0.727x, 0.763x and 0.798x. The code with the telemetry sites and no
+//   defense stays free: capped, the quorum's undefended arm ran 1.017x
+//   (0.930x, 0.941x before), the flapping cuts 0.949x (0.898x, 0.885x)
+//   and the bully election 1.577x (1.353x, 1.459x), no faster in all.
 // The other chaos instantiations and the chaos-free ones of eight servers
 // take what the compiler picks (the lean chaos bench measured 1.15x at
 // 128).
@@ -1901,9 +2251,14 @@ __device__ __forceinline__ float next_event_time(const Lane<MAXV>& L, float src_
 template <int MAXV, bool GRAPH, bool EXT, bool CHAOS, bool TEL = false, bool RES = false,
           bool CON = false, bool MULTI = false, bool TRC = false, bool PRT = false>
 __global__ void __launch_bounds__(HS_THREADS,
-                                  HS_MIN_BLOCKS(CHAOS ? MULTI && !PRT && MAXV != HS_WIDE : MAXV <= 4))
+                                  HS_MIN_BLOCKS(CHAOS ? (MULTI || (CON && MAXV <= 4 && (RES || !TEL))) &&
+                                                            !PRT && MAXV != HS_WIDE
+                                                      : MAXV <= 4))
 event_step_kernel(const __grid_constant__ EventStepArgs a) {
   constexpr bool WIDE = MAXV == HS_WIDE;
+  // The window cache: the trace branch's lean code (one traced source, one
+  // sink, no chaos) with the telemetry sites.
+  constexpr bool WC = HS_WINDOW_CACHE && TEL && TRC && !CHAOS && !MULTI && !PRT && !WIDE;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (EXT) {
     if (a.has_profile) {  // every thread of the block stages, then syncs
@@ -1972,6 +2327,12 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
     L.net_lost = a.net_lost ? a.net_lost + r : nullptr;
   }
   if constexpr (TEL) L.tel_row = (size_t)r * a.tel.nW;
+  L.win_w = -1;
+  L.tenant_pairs = L.hist_pairs = HsRow<uint32_t>{nullptr, 1};
+  if constexpr (WC) {
+    L.tenant_pairs = pair_row(off[HS_ST_TENANT_PAIRS], a.trc.nT, tile);
+    L.hist_pairs = pair_row(off[HS_ST_HIST_PAIRS], HS_HIST_BINS, tile);
+  }
   if constexpr (RES) {
     L.res_row = rv;
     L.brk_ring = stage_in(a.res.brk_fail_t ? a.res.brk_fail_t + rv * a.res.F : nullptr,
@@ -1986,6 +2347,16 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
                          tile);
     L.net_partitioned = P.net_partitioned ? P.net_partitioned + r : nullptr;
     L.qrm_dropped = P.qrm_dropped ? P.qrm_dropped + rv : nullptr;
+    // The memo, where it serves, is scanned at the launch's first event.
+    // It serves the consensus codes but the trace library's code for
+    // several sources, where the registers it holds measured slower on
+    // the models without the tier (tools/ab_parent.py: the traced defended
+    // model 1.063x); its mask holds 32 groups, which bounds the wide
+    // code's groups alone (past them the wide code scans at every consult).
+    L.memo = HS_REACH_MEMO && !(MULTI && TRC) && (!WIDE || P.nP <= 32);
+    L.memo_cut = 0u;
+    L.memo_alive = P.qrm_n;
+    L.memo_until = -INFINITY;
   }
   if constexpr (PRT) {
     const HsPrt& X = a.prt;
@@ -2169,6 +2540,20 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         }
       }
       if (isinf(tn) || tn > limit) break;  // halted: every later step is a no-op
+      if constexpr (CON) {
+        // The reachability memo, scanned again once the clock reaches its
+        // next edge: every consult of this event, at tn, reads it.
+        if (L.memo && !(tn < L.memo_until)) reach_scan(L, a, tn);
+      }
+      if constexpr (WC) {
+        // The cache follows the clock: the last window's cells back, the
+        // window of tn's in.
+        const int w = tel_window(a.tel, tn);
+        if (w != L.win_w) {
+          win_flush(L, a);
+          win_enter(L, a, w);
+        }
+      }
 
       // PRT: the event's row is uniform(fold_in(key, events), (n_draws,)),
       // keyed by the lane's event count before this event.
@@ -2205,8 +2590,14 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         if (a.tel.depth_int) {
 #pragma unroll
           for (int v = 0; v < VB; ++v)
-            if (v < nV && L.q_len[v] > 0)
-              tel_integral(a.tel.depth_int, a.tel, L.tel_row, nV, v, lo, tn, (float)L.q_len[v]);
+            if (v < nV && L.q_len[v] > 0) {
+              if constexpr (WC) {
+                tel_integral(a.tel.depth_int, a.tel, L.tel_row, nV, v, lo, tn, (float)L.q_len[v],
+                             L.win_w, &L.win_depth[v]);
+              } else {
+                tel_integral(a.tel.depth_int, a.tel, L.tel_row, nV, v, lo, tn, (float)L.q_len[v]);
+              }
+            }
         }
       }
       t = tn;
@@ -2226,7 +2617,8 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         if (traced) {
           size_t tel_row = 0;
           if constexpr (TEL) tel_row = L.tel_row;
-          fired = trace_fire<TEL>(a, (size_t)r, tel_row, t, trc_cursor, S.stop_after);
+          fired = trace_fire<TEL, WC>(a, (size_t)r, tel_row, t, trc_cursor, S.stop_after,
+                                      L.tenant_pairs, L.win_w);
         } else {
           const float rate = !MULTI || src == 0 ? rate0 : a.src_rate[src_row + src];
           bool profiled = false;
@@ -2267,7 +2659,11 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
         created = L.slot_created[from * C + from_slot];
         row[from_slot] = INFINITY;
         put(L.completed, from, pick(L.completed, from) + 1);
-        if constexpr (TEL) tel_count(a.tel.completed, a.tel, L.tel_row, nV, t, from);
+        if constexpr (WC) {
+          put(L.win_completed, from, pick(L.win_completed, from) + 1);
+        } else if constexpr (TEL) {
+          tel_count(a.tel.completed, a.tel, L.tel_row, nV, t, from);
+        }
         dest = HS_SRV(srv_ref, from);
         if constexpr (CHAOS) {
           loss = HS_SRV(srv_loss, from);
@@ -2375,7 +2771,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
           deliver<MAXV, GRAPH, EXT, true, TEL, RES, CON, MULTI, PRT>(L, a, dest, t, created, u,
                                                                       loss, attempt, consult);
       } else {
-        deliver<MAXV, GRAPH, EXT, false, TEL, false, false, MULTI, PRT>(L, a, dest, t, created, u);
+        deliver<MAXV, GRAPH, EXT, false, TEL, false, false, MULTI, PRT, WC>(L, a, dest, t, created, u);
       }
 
       if (from >= 0) {
@@ -2448,7 +2844,14 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
             put(L.busy, from, pick(L.busy, from) + service);
             put(L.wsum, from, pick(L.wsum, from) + (t - L.q_enq[from * K + head]));
             put(L.wait_n, from, pick(L.wait_n, from) + 1);
-            if constexpr (TEL) {
+            if constexpr (WC) {
+              if (a.tel.busy_int) {
+                float busy = pick(L.win_busy, from);
+                tel_integral(a.tel.busy_int, a.tel, L.tel_row, nV, from, t, done_at, 1.0f, L.win_w,
+                             &busy);
+                put(L.win_busy, from, busy);
+              }
+            } else if constexpr (TEL) {
               if (a.tel.busy_int)
                 tel_integral(a.tel.busy_int, a.tel, L.tel_row, nV, from, t, done_at, 1.0f);
             }
@@ -2468,6 +2871,7 @@ event_step_kernel(const __grid_constant__ EventStepArgs a) {
   if (a.draws) a.draws[r] = L.drawn;
   if (a.blocks) a.blocks[r] += ran;
   if (ran == 0) return;  // a lane halted on entry changed nothing
+  if constexpr (WC) win_close(L, a, (size_t)r);
 
   if constexpr (TRC) {
     a.trc.cursor[r] = trc_cursor;

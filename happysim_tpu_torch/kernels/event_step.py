@@ -912,8 +912,18 @@ def _stage(expected: dict, args: _Args, R: int, device) -> _Stage:
         for leaf in support.STAGE_LEAVES
         if leaf in expected
     }
+    if window_cached(args):
+        rows.update(tenant_pairs=args.trc.nT, hist_pairs=80)
     offsets, words = support.stage_plan(rows, support.stage_budget(R, table_bytes, sms=sms))
     return _Stage((ctypes.c_int * len(offsets))(*offsets), words)
+
+
+def window_cached(args: _Args) -> bool:
+    """Whether a launch takes the trace branch's lean code with the
+    telemetry sites, which caches its telemetry window (csrc/event_step.cuh's
+    WC): one traced source, one sink, no chaos, a spec, a lean table."""
+    return bool(args.trc.on and not args.chaos and args.nS == 1 and args.nK == 1 and args.tel.nW
+                and not args.wide.on and not args.prt.on)
 
 
 def _check_keys(keys: torch.Tensor, R: int, device) -> None:

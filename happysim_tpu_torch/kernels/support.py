@@ -51,13 +51,18 @@ SMEM_RESERVED_PER_BLOCK = 1024
 #: and an arrival scan, the slot rows a start and a completion scan, the
 #: fault windows an arrival at a faulted server scans, the breaker ring
 #: a trip or a close resets, the partition windows a delivery into a
-#: group's member and an arrival at a quorum member scan.
+#: group's member and an arrival at a quorum member scan; then the two
+#: rows of the window cache's counter pairs (no leaves: the trace
+#: branch's lean code with telemetry counts the tenants' arrivals and the
+#: sink's histogram bins in them, the cached window's and the launch's,
+#: and adds them to the leaves when the window or the launch ends).
 STAGE_LEAVES = (
     "tr_time", "tr_created", "tr_attempt",
     "srv_slot_done", "srv_slot_created", "srv_slot_attempt",
     "flt_start", "flt_end", "flt_sh_start", "flt_sh_end",
     "brk_fail_t",
     "prt_start", "prt_end",
+    "tenant_pairs", "hist_pairs",
 )
 
 #: The lean instantiations' tables in the launch arguments: their

@@ -36,3 +36,19 @@ def quorum_two_sources(c):
     model = c.quorum_model(True)
     model.connect(model.source(rate=2.0), NodeRef(ROUTER, 0))
     return model
+
+
+# 32 cuts of 0.1 s, one every 0.35 s from 0.5 s (chip_smoke.FLAP_CUTS).
+FLAP_CUTS = tuple((0.5 + 0.35 * k, 0.6 + 0.35 * k) for k in range(32))
+
+
+def flapping_cuts(c):
+    """chip_smoke's quorum_model undefended arm with its one cut of
+    servers 1 and 2 replaced by FLAP_CUTS (chip_smoke.flapping_cuts_model,
+    built here from quorum_model so that a checkout without it builds the
+    same model)."""
+    import dataclasses
+
+    model = c.quorum_model(False)
+    model.network_partitions[0] = dataclasses.replace(model.network_partitions[0], windows=FLAP_CUTS)
+    return model

@@ -10,7 +10,7 @@ other; and the partitioned executor's two kernels a window.
 
 Each turn is a fresh process in its checkout's root, which builds that
 checkout's libraries (kernels/build.py, into its own build/) and runs its
-chip_smoke.time_blocks on the models below (two of them built by
+chip_smoke.time_blocks on the models below (three of them built by
 tools/ab_models.py) at chip_smoke's full width:
 the kernel's time per block in a 20-block launch, the plain version's
 and the bound, for models both checkouts run; then, for the models of
@@ -27,11 +27,14 @@ folded launch's the same two ways; then the ring's whole run, WALL_RUNS
 times unfolded (a window and a barrier launch a window) and, where the
 checkout folds, WALL_RUNS times folded, in turns, each from the set-up
 state; and run_partitioned's wall; then, for the traced models of
-TRACES (chip_smoke's flash crowd alone, beside a Poisson source,
-beside it with a deadline and a retry at its server, and with a retry
-budget besides), built and timed by
+TRACES (chip_smoke's flash crowd and diurnal trace alone, the flash
+crowd beside a Poisson source, beside it with a deadline and a retry at
+its server, and with a retry budget besides), built and timed by
 this script's own code, the trace library's time per block in a
-20-block launch. Prints one line a model with the two checkouts' mean
+20-block launch; then, for TRACE_RUNS, the flash crowd's and the diurnal
+trace's whole runs through run_ensemble at the main path's pages of 64
+(chip_smoke.traced_run: every stream step's launch timed, their count,
+the wall). Prints one line a model with the two checkouts' mean
 kernel ms and their ratio, one a traced model, one a whole run, a few a
 ring, and the registers and spills ptxas reported for each
 instantiation of each checkout (from the turn that built its
@@ -73,20 +76,35 @@ MODELS = (
     # The defended quorum arm with a second source (the whole MULTI chaos
     # code with the consensus tier; tools/ab_models.py).
     ("quorum-multi", "ab_models.quorum_two_sources(c)", None),
+    # The consensus code with one source and one sink: the quorum's two
+    # arms, the bully election, the stochastic cuts and the flapping cuts
+    # (tools/ab_models.py).
+    ("quorum-defended", "c.quorum_model(True)", None),
+    ("quorum-undefended", "c.quorum_model(False)", None),
+    ("election-bully", "c.election_model('bully')", None),
+    ("stochastic-partitions", "c.stochastic_partition_model()", None),
+    ("flapping-cuts", "ab_models.flapping_cuts(c)", None),
     ("superpose", "c.superpose_model()", None),
     ("wide-fleet", "c.wide_fleet_model()", None),
+    # The wide chaos code's consensus tier (nine groups).
+    ("wide-quorum", "c.wide_quorum_model()", None),
 )
 # Models whose whole run (one launch of the main path's budget) is timed.
 RUNS = ("two-class", "two-class-chaos", "wide-fleet")
+# Traced models whose whole run at the main path's pages (chip_smoke's
+# trace_model at TRACE_CHUNK_LEN) is timed, every stream step's launch by
+# CUDA events: (label, chip_smoke's trace kind).
+TRACE_RUNS = (("trace-flash run", "flash"), ("trace-diurnal run", "diurnal"))
 # Traced models timed a block (the trace library), built by this
-# script's own code in both checkouts: (label, Poisson rate beside the
-# flash crowd, the server's deadline or None, a retry budget's arguments
-# or None).
+# script's own code in both checkouts: (label, the trace, a Poisson rate
+# beside it, the server's deadline or None, a retry budget's arguments or
+# None).
 TRACES = (
-    ("trace-flash", 0.0, None, None),
-    ("trace-poisson", 50.0, None, None),
-    ("trace-chaos", 50.0, 0.01, None),
-    ("trace-defended", 50.0, 0.01, {"ratio": 0.0, "min_per_s": 2.0, "burst": 2.0}),
+    ("trace-flash", "flash", 0.0, None, None),
+    ("trace-diurnal", "diurnal", 0.0, None, None),
+    ("trace-poisson", "flash", 50.0, None, None),
+    ("trace-chaos", "flash", 50.0, 0.01, None),
+    ("trace-defended", "flash", 50.0, 0.01, {"ratio": 0.0, "min_per_s": 2.0, "burst": 2.0}),
 )
 # Partitioned rings timed a window: (label, chip_smoke's builder).
 RINGS = (
@@ -215,13 +233,13 @@ for label, builder in %r:
 # and a deadline at its server, and a retry budget, from its first two
 # blocks, a launch of 20 more blocks, twice, each on its own copy of the
 # state.
-def trace_block_ms(rate, deadline, budget):
+def trace_block_ms(kind, rate, deadline, budget):
     model = c.EnsembleModel(horizon_s=c.TRACE_HORIZON_S, macro_block=16)
     retry = {} if deadline is None else {"deadline_s": deadline, "max_retries": 1}
     srv = model.server(concurrency=4, service_mean=0.004, queue_capacity=64, **retry)
     if rate:
         model.connect(model.source(rate=rate), srv)
-    model.connect(model.trace_arrivals(c.bench_trace("flash", c.TRACE_LONG_CHUNK)), srv)
+    model.connect(model.trace_arrivals(c.bench_trace(kind, c.TRACE_LONG_CHUNK)), srv)
     model.connect(srv, model.sink())
     model.telemetry(window_s=c.TRACE_WINDOW_S, metrics=("throughput", "latency", "rates"))
     if budget is not None:
@@ -236,6 +254,19 @@ def trace_block_ms(rate, deadline, budget):
     return c.launch_ms(args) / (2 * c.TIMED_BLOCKS)
 
 out["traces"] = {label: trace_block_ms(*shape) for label, *shape in %r}
+
+# The traced runs through run_ensemble at the main path's pages, after one
+# at pages of TRACE_LONG_CHUNK (the process's first pays the pinned
+# allocator's and the side stream's first use): each launch timed.
+trace_runs = %r
+if trace_runs:
+    c.traced_run("warm-up", c.trace_model("flash", c.TRACE_LONG_CHUNK), "")
+out["trace_runs"] = {}
+for label, kind in trace_runs:
+    result, launches, kernel_ms = c.traced_run(label, c.trace_model(kind), "")
+    out["trace_runs"][label] = {"kernel_ms": kernel_ms, "launches": launches,
+                                "wall_ms": result.wall_seconds * 1e3,
+                                "blocks": max(result.block_occupancy)}
 print("AB " + json.dumps(out))
 """
 
@@ -244,11 +275,12 @@ def us(ms) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.3f} us"
 
 
-def turn(root: Path, models: tuple, runs: tuple, traces: tuple, rings: tuple) -> dict:
+def turn(root: Path, models: tuple, runs: tuple, traces: tuple, rings: tuple,
+         trace_runs: tuple) -> dict:
     done = subprocess.run(
         [sys.executable, "-c",
          _TURN % (str(Path(__file__).resolve().parent), models, runs, HOLD_CYCLES, WALL_RUNS, rings,
-                  traces)],
+                  traces, trace_runs)],
         cwd=root, capture_output=True,
         text=True,
     )
@@ -266,20 +298,23 @@ def main() -> int:
     parser.add_argument("--out", default="ab_parent.json", help="the JSON file under chiprun_out/")
     options = parser.parse_args()
     other = Path(options.root).resolve()
-    models, runs, traces = ((), (), ()) if options.partitioned else (MODELS, RUNS, TRACES)
+    models, runs, traces, trace_runs = (
+        ((), (), (), ()) if options.partitioned else (MODELS, RUNS, TRACES, TRACE_RUNS)
+    )
     rings = RINGS
     if options.models:
         keep = set(options.models.split(","))
         models = tuple(m for m in models if m[0] in keep)
         runs = tuple(r for r in runs if r in keep)
         traces = tuple(t for t in traces if t[0] in keep)
+        trace_runs = tuple(t for t in trace_runs if t[0] in keep)
         rings = ()
     here = Path(__file__).resolve().parents[1]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    turns = [(who, turn(root, models, runs, traces, rings))
+    turns = [(who, turn(root, models, runs, traces, rings, trace_runs))
              for who, root in (("other", other), ("this", here), ("this", here), ("other", other))]
     report = {"card": card, "turns": turns}
     for label, *_rest in models:
@@ -302,6 +337,21 @@ def main() -> int:
         print(
             f"{label}: kernel {mean['this']:.4f} ms/block here, {mean['other']:.4f} in the other "
             f"checkout ({mean['this'] / mean['other']:.3f}x) [{card}]"
+        )
+    for label, _kind in trace_runs:
+        mean = {
+            who: {key: sum(t["trace_runs"][label][key] for w, t in turns if w == who) / 2
+                  for key in ("kernel_ms", "wall_ms")}
+            for who in ("this", "other")
+        }
+        report[label] = mean
+        this = turns[1][1]["trace_runs"][label]
+        print(
+            f"{label} at pages of 64: kernel {mean['this']['kernel_ms']:.3f} ms here "
+            f"({this['launches']} launches, {this['blocks']} blocks; wall "
+            f"{mean['this']['wall_ms']:.3f} ms), {mean['other']['kernel_ms']:.3f} in the other "
+            f"checkout (wall {mean['other']['wall_ms']:.3f} ms) "
+            f"({mean['this']['kernel_ms'] / mean['other']['kernel_ms']:.3f}x) [{card}]"
         )
     for label in runs:
         mean = {
