@@ -393,7 +393,24 @@ Phases, each of which must pass (any failure raises and exits nonzero):
    device alone, unfolded and folded, beside their bounds and the plain
    versions' time a window, their state after window 100 equal to the
    kernels'; the folded launches also against the plain versions window
-   by window in each window check.
+   by window in each window check;
+13. the result surface: summary() of the main path's mm1, chaos,
+   resilience (defended), quorum (defended), election (bully),
+   two-class-defended and telemetry runs, each entity's extras equal bit
+   for bit to the result's fields by the JAX engine's rules (names,
+   kinds, order, the conditional extras), with the result's event count,
+   truncated replicas, replicas and horizon, and backend "cuda"; the
+   telemetry run's to_data(), every column of series() but the window
+   starts, sampled at the window starts with the column's values; then
+   the M/M/1 scan and the flash crowd's traced run (after a warm-up run
+   in pages of 2,048) under torch.profiler (CPU and CUDA), their Chrome
+   traces under chiprun_out/traces/: one hs.reduce range, one hs.kernel
+   and one hs.macro_block range a launch (1, and one a stream step: 38),
+   every launch of the event-step kernel in the trace under an hs.kernel
+   range (by its launching call's correlation id), and the device ms
+   under each scope beside the launches' CUDA-event ms; and the host
+   microseconds a record_function range costs with no profiler running,
+   times the ranges of each of the two runs.
 
 The last lines are the kernel table as one JSON object, nvidia-smi's name
 and power limit, and {"ok": true, "device": {...}}. The table lists the
@@ -472,6 +489,7 @@ from happysim_tpu_torch.faults import duty_cycle
 from happysim_tpu_torch.model import FaultSpec, LeaderElectionSpec
 from happysim_tpu_torch.engine import (
     CHECKPOINT_SEGMENTS,
+    PROFILER_SCOPES,
     TRACE_PAGING_FIELDS,
     resume_mismatches,
     _Compiled,
@@ -3832,6 +3850,294 @@ def partitioned_phase(tag: str) -> dict:
     print(f"partitioned phase: {out['seconds']:.1f} s {tag}")
     return out
 
+# The result surface: the summaries and the window series of main-path
+# runs, each run's model, kernel shape, sweeps and budget (for a caller
+# that has not run it, tools/smoke_slice.py --surface).
+SURFACE_RUNS = {
+    "mm1": (lambda: mm1_model(LAM, MU, HORIZON_S, warmup_s=WARMUP_S), "mm1", None, None),
+    "chaos": (chaos_model, "router", CHAOS_SWEEPS, CHAOS_MAX_EVENTS),
+    "resilience-defended": (lambda: resilience_bench_model(True), "mm1", RES_SWEEPS, RES_MAX_EVENTS),
+    "quorum-defended": (lambda: quorum_model(True), "router", None, QUORUM_MAX_EVENTS),
+    "election-bully": (lambda: election_model("bully"), "router", None, ELECTION_MAX_EVENTS),
+    "two-class-defended": (lambda: two_class_model(chaos=True, defended=True), "multi", None, None),
+    "telemetry": (telemetry_model, "mm1", HETERO_SWEEPS, TEL_MAX_EVENTS),
+}
+# A server entity's conditional extras: the summary's key, the result's
+# per-server field.
+SERVER_EXTRAS = {
+    "timed_out": "server_timed_out", "retried": "server_retried",
+    "outage_dropped": "server_outage_dropped", "transit_dropped": "transit_dropped",
+    "fault_dropped": "server_fault_dropped", "fault_retried": "server_fault_retried",
+    "hedged": "server_hedged", "hedge_wins": "server_hedge_wins",
+    "breaker_dropped": "server_breaker_dropped", "breaker_tripped": "breaker_tripped",
+    "shed_dropped": "server_shed_dropped", "budget_dropped": "server_budget_dropped",
+}
+# Device work in a torch.profiler trace.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def same_bits(a, b) -> bool:
+    """Equal values of the same type, floats bit for bit."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, float):
+        return np.float64(a).tobytes() == np.float64(b).tobytes()
+    return a == b
+
+
+def expected_extras(result) -> dict:
+    """Each summary entity's extras, (name, kind) -> dict, read off the
+    result's fields by the JAX engine's rules."""
+    out = {}
+    for i, count in enumerate(result.sink_count):
+        out[(f"sink[{i}]", "Sink")] = {
+            "mean_latency_s": result.sink_mean_latency_s[i], "p50_s": result.sink_p50_s[i],
+            "p99_s": result.sink_p99_s[i],
+        }
+    for i, completed in enumerate(result.server_completed):
+        extra = {
+            "completed": completed, "dropped": result.server_dropped[i],
+            "utilization": result.server_utilization[i], "mean_wait_s": result.server_mean_wait_s[i],
+            "mean_queue_len": result.server_mean_queue_len[i],
+        }
+        fired = {key: getattr(result, field)[i] for key, field in SERVER_EXTRAS.items()
+                 if getattr(result, field) and getattr(result, field)[i]}
+        # Timeouts and retries come as a pair, and hedge wins with hedges.
+        if "timed_out" in fired or "retried" in fired:
+            fired["timed_out"], fired["retried"] = result.server_timed_out[i], result.server_retried[i]
+        fired.pop("hedge_wins", None)
+        if "hedged" in fired:
+            fired["hedge_wins"] = result.server_hedge_wins[i]
+        out[(f"server[{i}]", "Server")] = {**extra, **{k: fired[k] for k in SERVER_EXTRAS if k in fired}}
+    for i, admitted in enumerate(result.limiter_admitted):
+        out[(f"limiter[{i}]", "RateLimiter")] = {"admitted": admitted, "dropped": result.limiter_dropped[i]}
+    chaos = {"network_lost": result.network_lost} if result.network_lost else {}
+    for key in ("fault_dropped", "fault_retried", "hedged", "hedge_wins", "transit_dropped"):
+        if sum(getattr(result, SERVER_EXTRAS[key])):
+            chaos[f"total_{key}"] = sum(getattr(result, SERVER_EXTRAS[key]))
+    if chaos:
+        out[("model", "Chaos")] = chaos
+    if result.resilience_features:
+        res = {"features": ", ".join(result.resilience_features)}
+        for key in ("breaker_tripped", "breaker_dropped", "shed_dropped", "budget_dropped"):
+            if sum(getattr(result, SERVER_EXTRAS[key])):
+                res[f"total_{key}"] = sum(getattr(result, SERVER_EXTRAS[key]))
+        if any(f > 0.0 for f in result.breaker_open_fraction):
+            res["breaker_open_fraction_max"] = max(result.breaker_open_fraction)
+        out[("model", "Resilience")] = res
+    if result.consensus_features:
+        con = {"features": ", ".join(result.consensus_features)}
+        for key, value in (
+            ("network_partitioned", result.network_partitioned),
+            ("total_quorum_dropped", sum(result.server_quorum_dropped)),
+            ("quorum_dark_fraction", result.quorum_dark_fraction),
+            ("leader_changes", result.leader_changes),
+            ("time_without_leader_max", result.time_without_leader_fraction),
+        ):
+            if value:
+                con[key] = value
+        out[("model", "Consensus")] = con
+    engine = {"engine_path": result.engine_path}
+    if result.blocks_total:
+        engine["macro_blocks_run"] = result.blocks_total
+    if result.kernel_decline:
+        engine["kernel_decline"] = result.kernel_decline
+    out[("engine", "Engine")] = engine
+    return out
+
+
+def check_summary(label: str, result) -> int:
+    """summary() of a card run: each entity's extras equal the result's
+    fields bit for bit, by the JAX engine's rules, in its order; the
+    counts, the backend and the horizon the result's. Returns the number
+    of extras compared."""
+    summary = result.summary()
+    head = summary.to_dict()
+    for key, value in (
+        ("events_processed", result.simulated_events), ("truncated_replicas", result.truncated_replicas),
+        ("replicas", result.n_replicas), ("completed", result.truncated_replicas == 0),
+        ("backend", "cuda"), ("start_time_s", 0.0), ("end_time_s", float(result.horizon_s)),
+        ("wall_clock_seconds", result.wall_seconds),
+    ):
+        require(same_bits(head[key], value), f"{label}: summary {key} {head[key]!r}, result {value!r}")
+    expected = expected_extras(result)
+    got = {(e.name, e.kind): e for e in summary.entities}
+    require(list(got) == list(expected), f"{label}: summary entities {list(got)}, expected {list(expected)}")
+    compared = 0
+    for key, extra in expected.items():
+        entity = got[key]
+        require(list(entity.extra) == list(extra), f"{label}: {key} extras {list(entity.extra)}, "
+                f"expected {list(extra)}")
+        for name, value in extra.items():
+            require(same_bits(entity.extra[name], value),
+                    f"{label}: {key} {name} {entity.extra[name]!r}, the result's {value!r}")
+            compared += 1
+        if key[1] == "Sink":
+            index = int(key[0][5:-1])
+            require(entity.events_received == result.sink_count[index], f"{label}: {key} received")
+    return compared
+
+
+def check_to_data(label: str, result) -> int:
+    """to_data() of a card run with telemetry: every column of series()
+    but the window starts, sampled at the window starts, its values the
+    column's; returns the number of series."""
+    series = result.timeseries.series()
+    data = result.timeseries.to_data()
+    require(list(data) == [k for k in series if k != "window_start_s"],
+            f"{label}: to_data keys {sorted(data)} against series()")
+    for name, column in data.items():
+        require(np.array_equal(column.times_s, series["window_start_s"]),
+                f"{label}: {name} sampled off the window starts")
+        require(np.array_equal(np.asarray(column.values), series[name]),
+                f"{label}: {name} values differ from the column")
+    return len(data)
+
+
+def inside(spans: list, t: float) -> bool:
+    return any(lo <= t <= hi for lo, hi in spans)
+
+
+def scope_profile(trace_path: Path) -> dict:
+    """The engine's scopes in a torch.profiler Chrome trace: for each,
+    its host ranges (count, host ms) and the device time of the work
+    launched inside them (a kernel, copy or memset whose launching
+    runtime or driver call, matched by its correlation id, lies in a
+    range; device ms, the union of their intervals); and the event-step
+    kernel's launches, each under an hs.kernel range or not (by its
+    launching call)."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    host = {name: [] for name in PROFILER_SCOPES}
+    for e in spans:
+        if e.get("name") in host and e.get("cat") == "user_annotation":
+            host[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    calls = {
+        e["args"]["correlation"]: e["ts"]
+        for e in spans
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
+    }
+    device = [e for e in spans if e.get("cat") in DEVICE_CATS]
+    out = {}
+    for name in PROFILER_SCOPES:
+        work = [(e["ts"], e["ts"] + e["dur"]) for e in device
+                if inside(host[name], calls.get(e.get("args", {}).get("correlation"), -1.0))]
+        out[name] = {
+            "ranges": len(host[name]),
+            "host_ms": sum(hi - lo for lo, hi in host[name]) / 1e3,
+            "device_ms": sum(hi - lo for lo, hi in merge_intervals(work)) / 1e3,
+            "device_ops": len(work),
+        }
+    steps = [e for e in device if e.get("cat") == "kernel" and "event_step_kernel" in e["name"]]
+    out["event_step_launches"] = len(steps)
+    out["event_step_launches_under_hs.kernel"] = sum(
+        inside(host["hs.kernel"], calls.get(e.get("args", {}).get("correlation"), -1.0)) for e in steps
+    )
+    out["event_step_device_ms"] = sum(e["dur"] for e in steps) / 1e3
+    out["device_ms"] = sum(hi - lo for lo, hi in merge_intervals(
+        [(e["ts"], e["ts"] + e["dur"]) for e in device])) / 1e3
+    return out
+
+
+def merge_intervals(intervals: list) -> list:
+    """Union of (start, end) intervals, sorted and disjoint."""
+    out = []
+    for start, end in sorted(intervals):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
+def profiled(label: str, run, launches_of, tag: str) -> tuple:
+    """``run()`` (a main_path_run or traced_run call, which time each
+    launch by CUDA events) under torch.profiler with the CPU and CUDA
+    activities; its Chrome trace written under chiprun_out/traces/ and
+    read by scope_profile. Checks that the trace holds the run's every
+    launch of the event-step kernel, each under an hs.kernel range, one
+    hs.kernel and one hs.macro_block range a launch, one hs.reduce
+    range; prints the device ms under each scope beside the launches'
+    CUDA-event ms. Returns (the run's return, the profile)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    path = Path("chiprun_out") / "traces" / f"surface_{label}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    scopes = scope_profile(path)
+    launches, kernel_ms = launches_of(out)
+    print(f"surface {label} under torch.profiler: " + "; ".join(
+        f"{name} {scopes[name]['ranges']} ranges, {scopes[name]['device_ms']:.3f} ms on the device "
+        f"({scopes[name]['device_ops']} ops), {scopes[name]['host_ms']:.3f} ms host"
+        for name in PROFILER_SCOPES
+    ) + f"; the event-step kernel {scopes['event_step_launches']} launches in the trace, "
+        f"{scopes['event_step_device_ms']:.3f} ms; by CUDA events {launches} launches, "
+        f"{kernel_ms:.3f} ms; all device work {scopes['device_ms']:.3f} ms {tag}")
+    require(scopes["event_step_launches"] == launches,
+            f"{label}: the profiler saw {scopes['event_step_launches']} of {launches} launches")
+    require(scopes["event_step_launches_under_hs.kernel"] == launches,
+            f"{label}: {launches - scopes['event_step_launches_under_hs.kernel']} launches "
+            "outside an hs.kernel range")
+    expected = {"hs.macro_block": launches, "hs.kernel": launches, "hs.reduce": 1}
+    counts = {name: scopes[name]["ranges"] for name in PROFILER_SCOPES}
+    require(counts == expected, f"{label}: scope ranges {counts}, expected {expected}")
+    return out, {**scopes, "launches": launches, "kernel_ms_cuda_events": kernel_ms}
+
+
+def range_us(n: int = 20000) -> float:
+    """Host microseconds of one torch.profiler.record_function range,
+    entered and left, with no profiler running: the scopes' own cost."""
+    start = time.perf_counter()
+    for _ in range(n):
+        with torch.profiler.record_function("hs.kernel"):
+            pass
+    return (time.perf_counter() - start) / n * 1e6
+
+
+def surface_phase(tag: str, runs: dict) -> dict:
+    """The result surface on the card: the summaries of SURFACE_RUNS'
+    runs (``runs``, or made here) against their fields, the telemetry
+    run's to_data() against its series(), and the M/M/1 scan and the
+    flash crowd's traced run under torch.profiler with the engine's
+    scopes."""
+    t0 = time.perf_counter()
+    out = {"summaries": {}}
+    for label, (build_model, shape, sweeps, max_events) in SURFACE_RUNS.items():
+        if label not in runs:
+            runs[label] = main_path_run(label, build_model(), tag, shape, sweeps, max_events)
+        result = runs[label][0]
+        out["summaries"][label] = check_summary(label, result)
+    out["to_data_series"] = check_to_data("telemetry", runs["telemetry"][0])
+    print("surface: summary() extras equal to the result's fields, bit for bit: " + ", ".join(
+        f"{label} {n}" for label, n in out["summaries"].items()
+    ) + f"; to_data() of telemetry: {out['to_data_series']} series equal to series() {tag}")
+    mm1 = SURFACE_RUNS["mm1"][0]()
+    (result, _launches), out["mm1"] = profiled(
+        "mm1-scan",
+        lambda: main_path_run("mm1-profiled", mm1, tag, "mm1"),
+        lambda run: (run[1], RUN_KERNEL_MS["mm1-profiled"][0]),
+        tag,
+    )
+    traced_run("trace-flash warm-up", trace_model("flash", TRACE_LONG_CHUNK), tag)
+    (result, launches, _ms), out["trace-flash"] = profiled(
+        "trace-flash",
+        lambda: traced_run("trace-flash profiled", trace_model("flash"), tag),
+        lambda run: (run[1], run[2]),
+        tag,
+    )
+    require(launches == result.trace_stream_steps, "trace-flash: launches against stream steps")
+    out["range_us"] = range_us()
+    counts = {label: sum(out[label][name]["ranges"] for name in PROFILER_SCOPES)
+              for label in ("mm1", "trace-flash")}
+    print(f"surface: a range costs {out['range_us']:.3f} us with no profiler running; "
+          + ", ".join(f"{label} {n} ranges, {n * out['range_us'] / 1e3:.4f} ms a run"
+                      for label, n in counts.items()) + f" {tag}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"surface phase: {out['seconds']:.1f} s {tag}")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4190,6 +4496,9 @@ def main() -> int:
     # The partitioned executor, its run driven with both launch counts set
     # to 0 just before (partitioned_phase).
     parts = partitioned_phase(tag)
+    # The result surface: the summaries and window series of the runs
+    # above, and two runs under torch.profiler with the engine's scopes.
+    surface = surface_phase(tag, runs)
 
     print(f"library_ms: {LIBRARY_NOTE}; mm1_scan: none: no single PyTorch call computes the "
           f"Lindley recursion; partitioned and partition_barrier: {PART_LIBRARY_NOTE}")
@@ -4354,6 +4663,7 @@ def main() -> int:
                 },
                 "mesh": meshes,
                 "partitioned": parts,
+                "surface": surface,
                 **kernels,
             },
             indent=1,

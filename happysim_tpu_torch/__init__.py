@@ -29,6 +29,10 @@ this package                       JAX package
 ``opinion.py``                     ``happysim_tpu/tpu/opinion.py``
 ``chain.py``                       ``happysim_tpu/tpu/chain.py``
 ``telemetry.py``                   ``happysim_tpu/tpu/telemetry.py``
+``summary.py``                     ``happysim_tpu/instrumentation/summary.py``
+``data.py``                        ``happysim_tpu/instrumentation/data.py``
+``temporal.py``                    ``Instant`` and ``Duration`` of
+                                   ``happysim_tpu/core/temporal.py``
 ``traces.py``                      ``happysim_tpu/tpu/traces.py``
 ``kernels/support.py``             ``happysim_tpu/tpu/kernels/support.py``
 ``kernels/event_step.py``          ``happysim_tpu/tpu/kernels/event_step.py``
@@ -80,6 +84,15 @@ that cuts the replicas into shards, one launch a shard, on several
 devices, several shards of one device, or the devices of several
 processes joined by ``distributed_initialize``, with the same bits on
 any shard count.
+
+A result's ``summary()`` is the JAX engine's ``SimulationSummary``
+entity for entity, and a timeseries' ``to_data()`` its columns as
+``Data`` series, on the port's own copies of those classes. The scan
+marks its stages with the JAX engine's scope names
+(``engine.PROFILER_SCOPES``, ``engine_report()["profiler_scopes"]``) as
+``torch.profiler.record_function`` ranges: ``hs.macro_block`` around
+each budget call of the event step, ``hs.kernel`` around the kernel's
+launch inside it, ``hs.reduce`` around the reduce over replicas.
 
 The package exports the JAX package's names that it ports. Left out by
 design: ``KERNEL_ENV``, ``pallas_available`` and

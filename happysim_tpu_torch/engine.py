@@ -86,7 +86,9 @@ from happysim_tpu_torch.reduce import (
     shard_sum_i64_limbs,
     sum_i64_limbs,
 )
+from happysim_tpu_torch.summary import EntitySummary, SimulationSummary
 from happysim_tpu_torch.telemetry import EnsembleTimeseries, build_timeseries, window_edges
+from happysim_tpu_torch.temporal import Instant
 
 logger = logging.getLogger("happysim_tpu_torch.engine")
 
@@ -108,6 +110,16 @@ _FAULT_INTEGRAL_CHUNK = 1 << 26
 # chunk. The RNG stream is keyed by (absolute block, row within block), so
 # the length is part of the stream layout.
 RNG_CHUNK = 32
+
+# The torch.profiler ranges (``torch.profiler.record_function``) around
+# the scan's stages, named as the JAX engine names its ``jax.named_scope``
+# annotations: a budget call of the event step a shard (``hs.macro_block``:
+# the one-call scan, each segment, each stream step), the kernel's launch
+# inside it (``hs.kernel``, event_step.block_steps / trace_steps; the CPU's
+# plain step runs outside it) and the reduce over replicas (``hs.reduce``,
+# :func:`reduce_final`). They show in a torch.profiler trace, and under
+# ``torch.autograd.profiler.emit_nvtx()`` as NVTX ranges.
+PROFILER_SCOPES = ("hs.macro_block", "hs.kernel", "hs.reduce")
 
 # Reduce-key encodings (see reduce.py): limb-encoded int counters and
 # fixed-point float sums. reduce_final encodes by these, _build_result
@@ -451,17 +463,139 @@ class EnsembleResult:
     trace_stream_steps: int = 0
     trace_tenant_arrivals: list = dataclasses_field(default_factory=list)
 
-    def summary(self):
-        """Not in the port: the JAX package's ``summary`` builds its host
-        instrumentation's ``SimulationSummary``
-        (``happysim_tpu.instrumentation.summary``), which this package
-        does not carry. Read the result's fields or
-        :meth:`engine_report`."""
-        raise NotImplementedError(
-            "EnsembleResult.summary builds the JAX package's host "
-            "instrumentation SimulationSummary "
-            "(happysim_tpu.instrumentation.summary), which is not part of "
-            "happysim_tpu_torch; read the result's fields or engine_report()"
+    def summary(self) -> SimulationSummary:
+        """The run as a :class:`~happysim_tpu_torch.summary.SimulationSummary`,
+        entity for entity the JAX engine's: each sink, server and limiter
+        with its conditional extras, the model-level ``Chaos`` entity when
+        chaos fired, the ``Resilience`` and ``Consensus`` entities when the
+        model declares those features, and the ``Engine`` entity. Two
+        fields are the port's own: ``backend`` names the device ("cpu" for
+        a run on the CPU, else "cuda"), and the ``Engine`` entity carries
+        ``engine_path``, ``macro_blocks_run`` and ``kernel_decline`` as
+        this result reports them, with no escape hatches (the port has no
+        XLA or Pallas switch). A view of the result's fields: nothing runs
+        on the device."""
+        entities = []
+        for index, count in enumerate(self.sink_count):
+            entities.append(
+                EntitySummary(
+                    name=f"sink[{index}]",
+                    kind="Sink",
+                    events_received=count,
+                    extra={
+                        "mean_latency_s": self.sink_mean_latency_s[index],
+                        "p50_s": self.sink_p50_s[index],
+                        "p99_s": self.sink_p99_s[index],
+                    },
+                )
+            )
+        for index in range(len(self.server_completed)):
+            extra = {
+                "completed": self.server_completed[index],
+                "dropped": self.server_dropped[index],
+                "utilization": self.server_utilization[index],
+                "mean_wait_s": self.server_mean_wait_s[index],
+                "mean_queue_len": self.server_mean_queue_len[index],
+            }
+            if self.server_timed_out[index] or self.server_retried[index]:
+                extra["timed_out"] = self.server_timed_out[index]
+                extra["retried"] = self.server_retried[index]
+            if self.server_outage_dropped[index]:
+                extra["outage_dropped"] = self.server_outage_dropped[index]
+            if self.transit_dropped[index]:
+                extra["transit_dropped"] = self.transit_dropped[index]
+            if self.server_fault_dropped and self.server_fault_dropped[index]:
+                extra["fault_dropped"] = self.server_fault_dropped[index]
+            if self.server_fault_retried and self.server_fault_retried[index]:
+                extra["fault_retried"] = self.server_fault_retried[index]
+            if self.server_hedged and self.server_hedged[index]:
+                extra["hedged"] = self.server_hedged[index]
+                extra["hedge_wins"] = self.server_hedge_wins[index]
+            if self.server_breaker_dropped and self.server_breaker_dropped[index]:
+                extra["breaker_dropped"] = self.server_breaker_dropped[index]
+            if self.breaker_tripped and self.breaker_tripped[index]:
+                extra["breaker_tripped"] = self.breaker_tripped[index]
+            if self.server_shed_dropped and self.server_shed_dropped[index]:
+                extra["shed_dropped"] = self.server_shed_dropped[index]
+            if self.server_budget_dropped and self.server_budget_dropped[index]:
+                extra["budget_dropped"] = self.server_budget_dropped[index]
+            entities.append(EntitySummary(name=f"server[{index}]", kind="Server", extra=extra))
+        for index in range(len(self.limiter_admitted)):
+            entities.append(
+                EntitySummary(
+                    name=f"limiter[{index}]",
+                    kind="RateLimiter",
+                    extra={
+                        "admitted": self.limiter_admitted[index],
+                        "dropped": self.limiter_dropped[index],
+                    },
+                )
+            )
+        # The chaos a run absorbed, over the whole model: present when any
+        # of it fired.
+        chaos_extra = {}
+        if self.network_lost:
+            chaos_extra["network_lost"] = self.network_lost
+        for label, per_server in (
+            ("fault_dropped", self.server_fault_dropped),
+            ("fault_retried", self.server_fault_retried),
+            ("hedged", self.server_hedged),
+            ("hedge_wins", self.server_hedge_wins),
+            ("transit_dropped", self.transit_dropped),
+        ):
+            total = sum(per_server)
+            if total:
+                chaos_extra[f"total_{label}"] = total
+        if chaos_extra:
+            entities.append(EntitySummary(name="model", kind="Chaos", extra=chaos_extra))
+        # The defenses: present whenever the model declares one (a defended
+        # run whose breakers never tripped reads apart from an undefended
+        # run), with the totals that fired.
+        if self.resilience_features:
+            res_extra = {"features": ", ".join(self.resilience_features)}
+            for label, per_server in (
+                ("breaker_tripped", self.breaker_tripped),
+                ("breaker_dropped", self.server_breaker_dropped),
+                ("shed_dropped", self.server_shed_dropped),
+                ("budget_dropped", self.server_budget_dropped),
+            ):
+                total = sum(per_server)
+                if total:
+                    res_extra[f"total_{label}"] = total
+            if self.breaker_open_fraction and any(f > 0.0 for f in self.breaker_open_fraction):
+                res_extra["breaker_open_fraction_max"] = max(self.breaker_open_fraction)
+            entities.append(EntitySummary(name="model", kind="Resilience", extra=res_extra))
+        # The consensus tier, by the same rule.
+        if self.consensus_features:
+            con_extra = {"features": ", ".join(self.consensus_features)}
+            if self.network_partitioned:
+                con_extra["network_partitioned"] = self.network_partitioned
+            total_qrm = sum(self.server_quorum_dropped)
+            if total_qrm:
+                con_extra["total_quorum_dropped"] = total_qrm
+            if self.quorum_dark_fraction > 0.0:
+                con_extra["quorum_dark_fraction"] = self.quorum_dark_fraction
+            if self.leader_changes:
+                con_extra["leader_changes"] = self.leader_changes
+            if self.time_without_leader_fraction > 0.0:
+                con_extra["time_without_leader_max"] = self.time_without_leader_fraction
+            entities.append(EntitySummary(name="model", kind="Consensus", extra=con_extra))
+        engine_extra = {"engine_path": self.engine_path}
+        if self.blocks_total:
+            engine_extra["macro_blocks_run"] = self.blocks_total
+        if self.kernel_decline:
+            engine_extra["kernel_decline"] = self.kernel_decline
+        entities.append(EntitySummary(name="engine", kind="Engine", extra=engine_extra))
+        return SimulationSummary(
+            start_time=Instant.Epoch,
+            end_time=Instant.from_seconds(self.horizon_s),
+            events_processed=self.simulated_events,
+            wall_clock_seconds=self.wall_seconds,
+            entities=entities,
+            completed=self.truncated_replicas == 0,
+            backend="cpu" if self.device_name == "cpu" else "cuda",
+            replicas=self.n_replicas,
+            truncated_replicas=self.truncated_replicas,
         )
 
     def engine_report(self) -> dict:
@@ -494,6 +628,7 @@ class EnsembleResult:
             "padded_lane_fraction": (
                 (padded - self.n_replicas) / padded if padded else 0.0
             ),
+            "profiler_scopes": PROFILER_SCOPES,
             "telemetry_windows": self.timeseries.n_windows if self.timeseries else 0,
             "mesh": {
                 "devices": self.mesh_devices,
@@ -2417,6 +2552,11 @@ def reduce_final(compiled: _Compiled, final, group=None) -> dict:
     shards (:func:`~happysim_tpu_torch.reduce.shard_sum_i64_limbs`,
     :func:`~happysim_tpu_torch.reduce.shard_sum_f32_fixed`), so the
     result is the same bits whatever the shard count."""
+    with torch.profiler.record_function("hs.reduce"):
+        return _reduce_final(compiled, final, group)
+
+
+def _reduce_final(compiled: _Compiled, final, group) -> dict:
     shards = _shards(final)
     device = shards[0]["t"].device
     truncated = None
@@ -2727,9 +2867,10 @@ def _run_ensemble_segmented(
     while chunk_done < n_chunks:
         n_seg = min(seg_chunks, n_chunks - chunk_done)
         for sh in shards:
-            event_step.block_steps(
-                compiled, sh.state, sh.keys, chunk_done, n_seg, sh.params, sh.blocks
-            )
+            with torch.profiler.record_function("hs.macro_block"):
+                event_step.block_steps(
+                    compiled, sh.state, sh.keys, chunk_done, n_seg, sh.params, sh.blocks
+                )
         chunk_done += n_seg
         due = every is not None and _wall.perf_counter() - last_snapshot >= every
         if checkpoint_callback is not None and due and chunk_done < n_chunks:
@@ -2928,10 +3069,11 @@ def _run_ensemble_traced(
             summaries = []
             for sh in shards:
                 state = sh.state
-                halted = event_step.trace_steps(
-                    compiled, state, sh.keys, sh.params, windows[sh.device], base_page * P,
-                    n_chunks,
-                )
+                with torch.profiler.record_function("hs.macro_block"):
+                    halted = event_step.trace_steps(
+                        compiled, state, sh.keys, sh.params, windows[sh.device], base_page * P,
+                        n_chunks,
+                    )
                 reads = (
                     torch.isfinite(state["src_next"][:, ti])
                     & (state["trc_blocks"] < n_chunks)
@@ -3208,9 +3350,10 @@ def run_ensemble(
         # nothing waits for the device before the reduce.
         if n_chunks:
             for sh in shards:
-                event_step.block_steps(
-                    compiled, sh.state, sh.keys, 0, n_chunks, sh.params, sh.blocks
-                )
+                with torch.profiler.record_function("hs.macro_block"):
+                    event_step.block_steps(
+                        compiled, sh.state, sh.keys, 0, n_chunks, sh.params, sh.blocks
+                    )
     else:
         _run_ensemble_segmented(
             compiled, shards,

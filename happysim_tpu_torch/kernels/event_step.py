@@ -1107,7 +1107,8 @@ def block_steps(
     :func:`plain_block_steps`; CUDA tensors make one kernel launch on
     torch's current stream, which draws each block's uniforms itself,
     after the checks of :func:`launch_args`, and raise on any mismatch or
-    launch error. Nothing waits for the device.
+    launch error, inside the profiler range ``hs.kernel``. Nothing waits
+    for the device.
     """
     device = state["t"].device
     _refuse_trace(compiled)
@@ -1116,7 +1117,9 @@ def block_steps(
     if device.type != "cuda":
         raise ValueError(f"event-step kernel: unsupported device {device}")
     halted = torch.empty((state["t"].shape[0],), dtype=torch.uint8, device=device)
-    launch(launch_args(compiled, state, keys, first, params, halted, n_blocks=n, blocks=blocks), device)
+    with torch.profiler.record_function("hs.kernel"):
+        args = launch_args(compiled, state, keys, first, params, halted, n_blocks=n, blocks=blocks)
+        launch(args, device)
     return halted.view(torch.bool)
 
 
@@ -1184,15 +1187,17 @@ def trace_steps(
     ``(R,)`` bool halted mask. CPU tensors run :func:`plain_trace_steps`;
     CUDA tensors make one launch of the trace library on torch's current
     stream, which reads the pages in place, after the checks of
-    :func:`launch_args`, and raise on any mismatch or launch error.
-    Nothing waits for the device."""
+    :func:`launch_args`, and raise on any mismatch or launch error,
+    inside the profiler range ``hs.kernel``. Nothing waits for the
+    device."""
     device = state["t"].device
     if device.type == "cpu":
         return plain_trace_steps(compiled, state, keys, params, pages, base, n_chunks)
     if device.type != "cuda":
         raise ValueError(f"event-step kernel: unsupported device {device}")
     halted = torch.empty((state["t"].shape[0],), dtype=torch.uint8, device=device)
-    launch(trace_launch_args(compiled, state, keys, params, pages, base, n_chunks, halted), device)
+    with torch.profiler.record_function("hs.kernel"):
+        launch(trace_launch_args(compiled, state, keys, params, pages, base, n_chunks, halted), device)
     return halted.view(torch.bool)
 
 

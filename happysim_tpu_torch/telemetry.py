@@ -53,6 +53,8 @@ from typing import Optional
 
 import numpy as np
 
+from happysim_tpu_torch.data import Data
+
 #: Every known metric group, and the default set.
 DEFAULT_METRICS = (
     "throughput",
@@ -333,17 +335,17 @@ class EnsembleTimeseries:
         emit("fault_occupancy", self.fault_occupancy, "server")
         return out
 
-    def to_data(self):
-        """Not in the port: the JAX package's ``to_data`` wraps each
-        column in its host instrumentation stack's ``Data`` series
-        (``happysim_tpu.instrumentation.data``), which this package does
-        not carry. Use :meth:`series` or :meth:`to_dataframe`."""
-        raise NotImplementedError(
-            "EnsembleTimeseries.to_data bridges into the JAX package's host "
-            "instrumentation stack (happysim_tpu.instrumentation.data.Data), "
-            "which is not part of happysim_tpu_torch; use series() or "
-            "to_dataframe()"
-        )
+    def to_data(self) -> dict:
+        """Each column of :meth:`series` but ``window_start_s`` as a
+        :class:`~happysim_tpu_torch.data.Data` series sampled at the window
+        starts, for code that reads ``Data`` (e.g.
+        ``ts.to_data()["sink[0].p99_s"].bucket(...)``)."""
+        times = np.asarray(self.window_start_s, np.float64)
+        return {
+            name: Data.from_arrays(times, values, name=name)
+            for name, values in self.series().items()
+            if name != "window_start_s"
+        }
 
     def to_dataframe(self):
         """The column dict as a pandas ``DataFrame`` (one row per

@@ -8,7 +8,8 @@ against plain_trace_steps over whole traced runs, traced runs on the card
 against the CPU's, and a traced run resumed mid-chunk; the wide code (the
 models past the lean tables) against the plain step and its whole runs
 against chained launches; run_ensemble and run_mm1_ensemble on 4
-shards of the card against 1; and the partitioned executor's window
+shards of the card against 1; the summaries of card runs against the
+CPU's; and the partitioned executor's window
 kernel and barrier against their plain versions, window by window and
 over a whole ring run through run_partitioned.
 
@@ -619,6 +620,54 @@ def test_multisource_and_consensus_on_the_card_match_the_cpu_run(cuda, name):
             assert (left is None) == (right is None), field
             if right is not None and np.asarray(right).dtype.kind == "i":
                 np.testing.assert_array_equal(left, right, err_msg=field)
+
+
+_SUMMARY_MODELS = {
+    "mm1": lambda: mm1_model(8.0, 10.0, 20.0, warmup_s=5.0),
+    "bench-chaos": lambda: CHAOS_MODELS["bench-chaos"](tmodel),
+    "storm-defended": lambda: RESILIENCE_MODELS["storm-defended"](tmodel),
+    "quorum-defended": lambda: CONSENSUS_MODELS["quorum-defended"](tmodel),
+    "two-class-chaos": lambda: MULTI_MODELS["two-class-chaos"](tmodel),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SUMMARY_MODELS))
+def test_summary_on_the_card_matches_the_cpu_run(cuda, name):
+    """summary().to_dict() of run_ensemble on the card against the CPU
+    run of the same model and seed: the same entities and extras keys,
+    every integer equal, the backend "cuda" against "cpu", other floats
+    within rel 1e-5 (the card's float32 log differs from the CPU's by an
+    ulp on some draws). The latency percentiles are bin centres of equal
+    histograms, so equal; on the models of _ULP_HISTOGRAMS a latency may
+    sit in the next bin, so a percentile may move by one bin (a factor
+    10**0.1), as that rule allows."""
+    model = _SUMMARY_MODELS[name]()
+    budget = _default_max_events(model, None)
+    card = run_ensemble(model, n_replicas=256, seed=5, max_events=budget).summary().to_dict()
+    cpu = run_ensemble(model, n_replicas=256, seed=5, device="cpu", max_events=budget)
+    cpu = cpu.summary().to_dict()
+    assert (card.pop("backend"), cpu.pop("backend")) == ("cuda", "cpu")
+    for key in ("wall_clock_seconds", "events_per_second"):
+        card.pop(key), cpu.pop(key)
+    card_entities, cpu_entities = card.pop("entities"), cpu.pop("entities")
+    assert card == cpu
+    # The path fields: the kernel ran on the card, the plain step on the CPU.
+    engine, cpu_engine = card_entities[-1], cpu_entities[-1]
+    assert engine.pop("engine_path") == "scan+cuda" and "kernel_decline" not in engine
+    assert cpu_engine.pop("engine_path") == "scan" and cpu_engine.pop("kernel_decline")
+    assert [list(e) for e in card_entities] == [list(e) for e in cpu_entities]
+    for ours, theirs in zip(card_entities, cpu_entities):
+        for key, value in theirs.items():
+            where = f"{theirs['name']}.{key}"
+            got = ours[key]
+            if isinstance(value, (bool, str, int)):
+                assert got == value, where
+            elif key in ("p50_s", "p99_s") and name in _ULP_HISTOGRAMS:
+                assert abs(np.log10(got / value)) <= 0.1 + 1e-9, where
+            elif key in ("p50_s", "p99_s"):
+                assert got == value, where
+            else:
+                np.testing.assert_allclose(got, value, rtol=1e-5, err_msg=where)
 
 
 # The code of the library for several sources or sinks, or of the trace

@@ -28,6 +28,7 @@ import happysim_tpu_torch.chain, happysim_tpu_torch.kernels.uniform
 import happysim_tpu_torch.mm1, happysim_tpu_torch.opinion, happysim_tpu_torch.kernels.mm1_scan
 import happysim_tpu_torch.traces, happysim_tpu_torch.mesh, happysim_tpu_torch.reduce
 import happysim_tpu_torch.partitioned, happysim_tpu_torch.kernels.partition_barrier
+import happysim_tpu_torch.temporal, happysim_tpu_torch.summary, happysim_tpu_torch.data
 import chip_smoke
 from happysim_tpu_torch.kernels import build
 # One library per source, the resilience, consensus, several-source,

@@ -2,8 +2,8 @@
 every name of JAX's ``happysim_tpu.tpu.__all__`` but those left out by
 design (XLA and Pallas switches, the Pallas dispatch), the mesh's (A.13)
 and the partitioned module's (A.14) included; and the
-result's ``kernel_decline``, the model's ``kernel_supported()`` and the
-result's ``summary()``, which says why it is not in the port.
+result's ``kernel_decline`` and the model's ``kernel_supported()``. The
+result's ``summary()`` is held against JAX's in test_torch_summary.py.
 """
 
 import pytest
@@ -88,9 +88,3 @@ def test_kernel_decline_names_the_bound_past_which_a_model_is():
 
 def test_kernel_supported_on_a_model_within_the_bounds():
     assert tmodel.mm1_model(8.0, 10.0, 5.0).kernel_supported() == (True, "")
-
-
-def test_summary_says_why_it_is_not_in_the_port():
-    result = run_ensemble(tmodel.mm1_model(8.0, 10.0, 5.0), n_replicas=4, device="cpu", max_events=64)
-    with pytest.raises(NotImplementedError, match="SimulationSummary"):
-        result.summary()

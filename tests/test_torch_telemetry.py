@@ -461,13 +461,6 @@ def test_to_dataframe_schema():
     assert result.engine_report()["telemetry_windows"] == 8
 
 
-def test_to_data_names_the_missing_instrumentation_stack():
-    result = t_run(_mm1(1.5), n_replicas=4, seed=3, max_events=100, device="cpu")
-    with pytest.raises(NotImplementedError, match="instrumentation"):
-        result.timeseries.to_data()
-    assert set(result.timeseries.series()) >= {"window_start_s", "sink[0].p50_s"}
-
-
 def test_timeseries_equality_is_field_by_field():
     a = t_run(_mm1(1.5), n_replicas=8, seed=3, max_events=300, device="cpu").timeseries
     b = t_run(_mm1(1.5), n_replicas=8, seed=3, max_events=300, device="cpu").timeseries

@@ -7,6 +7,7 @@ other; and the partitioned executor's two kernels a window.
     python3 tools/ab_parent.py --root build/parent
     python3 tools/ab_parent.py --root build/parent --partitioned   # the rings alone
     python3 tools/ab_parent.py --root build/variant --models two-class-chaos,trace-chaos
+    python3 tools/ab_parent.py --root build/parent --walls      # the host walls alone
 
 Each turn is a fresh process in its checkout's root, which builds that
 checkout's libraries (kernels/build.py, into its own build/) and runs its
@@ -34,14 +35,22 @@ this script's own code, the trace library's time per block in a
 20-block launch; then, for TRACE_RUNS, the flash crowd's and the diurnal
 trace's whole runs through run_ensemble at the main path's pages of 64
 (chip_smoke.traced_run: every stream step's launch timed, their count,
-the wall). Prints one line a model with the two checkouts' mean
+the wall); then, for WALLS, after a warm-up, 2 x HOST_RUNS runs each of
+the M/M/1 scan's run_ensemble wall at chip_smoke's full width (its scan
+budget named) and the flash crowd's traced run's host ms (its wall less
+its launches' CUDA-event ms), in turns with the profiler ranges the
+checkout's engine opens and with torch.profiler.record_function emptied
+(the ranges' own cost; the same code where the engine opens none), for
+which the lines give each checkout's medians and ranges both ways and
+the two checkouts' medians. Prints one line a model with the two
+checkouts' mean
 kernel ms and their ratio, one a traced model, one a whole run, a few a
 ring, and the registers and spills ptxas reported for each
 instantiation of each checkout (from the turn that built its
 libraries), and writes chiprun_out/ab_parent.json. ``--partitioned``
-times the rings alone; ``--models`` the models, whole runs and traced
-models of those labels alone (no ring), and ``--out`` names the JSON
-file under chiprun_out/.
+times the rings alone; ``--walls`` the host walls alone; ``--models``
+the models, whole runs and traced models of those labels alone (no ring),
+and ``--out`` names the JSON file under chiprun_out/.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 # (label, chip_smoke expression building the model, sweeps' name or None)
 MODELS = (
@@ -106,6 +117,14 @@ TRACES = (
     ("trace-chaos", "flash", 50.0, 0.01, None),
     ("trace-defended", "flash", 50.0, 0.01, {"ratio": 0.0, "min_per_s": 2.0, "burst": 2.0}),
 )
+# Host walls timed 2 x HOST_RUNS times a turn: (label, chip_smoke expression
+# building the model, "scan" for run_ensemble's wall on the scan, "trace"
+# for a traced run's wall less its launches' device time).
+WALLS = (
+    ("mm1-scan wall", "c.mm1_model(c.LAM, c.MU, c.HORIZON_S, warmup_s=c.WARMUP_S)", "scan"),
+    ("trace-flash host", "c.trace_model('flash')", "trace"),
+)
+HOST_RUNS = 10
 # Partitioned rings timed a window: (label, chip_smoke's builder).
 RINGS = (
     ("ring", "partitioned_ring_model"),
@@ -267,6 +286,37 @@ for label, kind in trace_runs:
     out["trace_runs"][label] = {"kernel_ms": kernel_ms, "launches": launches,
                                 "wall_ms": result.wall_seconds * 1e3,
                                 "blocks": max(result.block_occupancy)}
+
+# Host walls: a warm-up run, then 2 x HOST_RUNS timed runs of each, in
+# turns (on, off, off, on, ...) with the profiler ranges the checkout's
+# engine opens and with torch.profiler.record_function replaced by an
+# empty context (in a checkout without ranges the two are the same code).
+import contextlib
+real_range = torch.profiler.record_function
+
+def no_range(name, args=None):
+    return contextlib.nullcontext()
+
+def host_ms(label, expr, kind):
+    model = eval(expr)
+    if kind == "scan":
+        budget = c._default_max_events(model, None)
+        return c.run_ensemble(model, n_replicas=c.REPLICAS, max_events=budget).wall_seconds * 1e3
+    result, _launches, kernel_ms = c.traced_run(label, model, "")
+    return result.wall_seconds * 1e3 - kernel_ms
+
+out["walls"] = {}
+for label, expr, kind in %r:
+    host_ms(label, expr, kind)
+    times = {"ranges": [], "no ranges": []}
+    for k in range(2 * %r):
+        off = k %% 4 in (1, 2)
+        torch.profiler.record_function = no_range if off else real_range
+        try:
+            times["no ranges" if off else "ranges"].append(host_ms(label, expr, kind))
+        finally:
+            torch.profiler.record_function = real_range
+    out["walls"][label] = times
 print("AB " + json.dumps(out))
 """
 
@@ -276,11 +326,11 @@ def us(ms) -> str:
 
 
 def turn(root: Path, models: tuple, runs: tuple, traces: tuple, rings: tuple,
-         trace_runs: tuple) -> dict:
+         trace_runs: tuple, walls: tuple) -> dict:
     done = subprocess.run(
         [sys.executable, "-c",
          _TURN % (str(Path(__file__).resolve().parent), models, runs, HOLD_CYCLES, WALL_RUNS, rings,
-                  traces, trace_runs)],
+                  traces, trace_runs, walls, HOST_RUNS)],
         cwd=root, capture_output=True,
         text=True,
     )
@@ -294,27 +344,31 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", required=True, help="the other checkout's root")
     parser.add_argument("--partitioned", action="store_true", help="time the rings alone")
+    parser.add_argument("--walls", action="store_true", help="time the host walls alone")
     parser.add_argument("--models", default="", help="comma-separated labels to time alone")
     parser.add_argument("--out", default="ab_parent.json", help="the JSON file under chiprun_out/")
     options = parser.parse_args()
     other = Path(options.root).resolve()
     models, runs, traces, trace_runs = (
-        ((), (), (), ()) if options.partitioned else (MODELS, RUNS, TRACES, TRACE_RUNS)
+        ((), (), (), ()) if options.partitioned or options.walls
+        else (MODELS, RUNS, TRACES, TRACE_RUNS)
     )
-    rings = RINGS
+    rings = () if options.walls else RINGS
+    host_walls = () if options.partitioned else WALLS
     if options.models:
         keep = set(options.models.split(","))
         models = tuple(m for m in models if m[0] in keep)
         runs = tuple(r for r in runs if r in keep)
         traces = tuple(t for t in traces if t[0] in keep)
         trace_runs = tuple(t for t in trace_runs if t[0] in keep)
+        host_walls = tuple(w for w in host_walls if w[0] in keep)
         rings = ()
     here = Path(__file__).resolve().parents[1]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    turns = [(who, turn(root, models, runs, traces, rings, trace_runs))
+    turns = [(who, turn(root, models, runs, traces, rings, trace_runs, host_walls))
              for who, root in (("other", other), ("this", here), ("this", here), ("other", other))]
     report = {"card": card, "turns": turns}
     for label, *_rest in models:
@@ -352,6 +406,25 @@ def main() -> int:
             f"{mean['this']['wall_ms']:.3f} ms), {mean['other']['kernel_ms']:.3f} in the other "
             f"checkout (wall {mean['other']['wall_ms']:.3f} ms) "
             f"({mean['this']['kernel_ms'] / mean['other']['kernel_ms']:.3f}x) [{card}]"
+        )
+    for label, *_rest in host_walls:
+        times = {(who, form): [x for w, t in turns if w == who for x in t["walls"][label][form]]
+                 for who in ("this", "other") for form in ("ranges", "no ranges")}
+        report[label] = {f"{who}, {form}": xs for (who, form), xs in times.items()}
+        median = {key: float(np.median(xs)) for key, xs in times.items()}
+        for who in ("this", "other"):
+            on, off = times[(who, "ranges")], times[(who, "no ranges")]
+            print(
+                f"{label} ({who} checkout): median {median[(who, 'ranges')]:.3f} ms as it is "
+                f"(range {min(on):.3f}-{max(on):.3f}), {median[(who, 'no ranges')]:.3f} with "
+                f"record_function emptied (range {min(off):.3f}-{max(off):.3f}), "
+                f"{median[(who, 'ranges')] / median[(who, 'no ranges')]:.3f}x; {len(on)} runs "
+                f"each [{card}]"
+            )
+        print(
+            f"{label}: median {median[('this', 'ranges')]:.3f} ms here, "
+            f"{median[('other', 'ranges')]:.3f} in the other checkout "
+            f"({median[('this', 'ranges')] / median[('other', 'ranges')]:.3f}x), in turns [{card}]"
         )
     for label in runs:
         mean = {

@@ -4,6 +4,7 @@ change to the event-step kernel's MULTI, trace, consensus and wide codes:
 
     python3 tools/smoke_slice.py      # on a machine with one NVIDIA GPU
     python3 tools/smoke_slice.py --partitioned    # the build and the partitioned phase alone
+    python3 tools/smoke_slice.py --surface        # the build and the result surface alone
 
 Builds the libraries and prints each instantiation's registers and spills,
 then runs chip_smoke's block checks (kernel against plain version, bit for
@@ -26,7 +27,11 @@ barrier against their plain versions window by window on five models,
 the nine-remote ring's wide code and a ring of full transit rows among
 them, and over whole runs on four, a checkpointed ring run, the ring at
 65,536 lanes through run_partitioned with its gates, and each kernel's
-time a window). Any failure raises.
+time a window). ``--surface`` runs chip_smoke's surface phase instead,
+on main-path runs it makes itself: the summaries against the results'
+fields, to_data() against series(), and the engine's profiler scopes
+over a profiled M/M/1 scan and a profiled flash-crowd run. Any failure
+raises.
 """
 
 import sys
@@ -55,6 +60,10 @@ def main() -> int:
     event_step.load_library()
     if "--partitioned" in sys.argv[1:]:
         c.partitioned_phase(tag)
+        print("slice ok")
+        return 0
+    if "--surface" in sys.argv[1:]:
+        c.surface_phase(tag, {})
         print("slice ok")
         return 0
     start = time.perf_counter()

@@ -13,16 +13,22 @@ happysim_tpu_torch and chip_smoke.py from another checkout (a parent
 commit unpacked into a directory .gitignore lists), so two trees are
 traced in one call on one card.
 
-The host's phases are profiler spans the script wraps around the
-engine's own functions: set-up (``_resolve_params``, ``rng.split``,
-``init_state``, ``replica_halted``), ``launch_args``, ``launch``,
-``reduce_final``, ``_blocks_reduce`` and ``_build_result``; and the host's
-waits for the device (the runtime's synchronize calls and its blocking
-copies, which hold a block loop's early-exit test and the reduce's
-reads). For each, the device idle time that falls inside its spans; the
-rest is "other" (the Python loop and the small torch ops between
-launches). The device is busy
-where a kernel, copy or memset runs; the window is the run_ensemble call.
+The engine's own profiler scopes (``engine.PROFILER_SCOPES``:
+``hs.macro_block`` around each budget call, ``hs.kernel`` around the
+kernel's launch inside it, ``hs.reduce`` around the reduce over
+replicas) are read as they are: for each, its ranges, their host ms, and
+the device ms of the work launched inside them (a kernel, copy or
+memset whose launching call, matched by its correlation id, lies in a
+range). A checkout whose engine has no scopes shows none. The host's
+other phases are profiler spans the script wraps around the engine's
+functions: set-up (``_resolve_params``, ``rng.split``, ``init_state``,
+``replica_halted``), ``_blocks_reduce`` and ``_build_result``; and the
+host's waits for the device (the runtime's synchronize calls and its
+blocking copies, which hold the reduce's reads). For each phase and
+scope, the device idle time that falls inside its spans; the rest is
+"other" (the Python code and the small torch ops between them). The
+device is busy where a kernel, copy or memset runs; the window is the
+run_ensemble call.
 nvidia-smi's clocks, power and temperature are read before and after each
 run. Writes chiprun_out/trace_scan_<tag>.json and a Chrome trace per run
 under chiprun_out/traces/. Needs a CUDA card.
@@ -46,6 +52,9 @@ WAIT_CALLS = (
     "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpyAsync",
 )
 SMI_QUERY = "name,power.limit,clocks.sm,clocks.mem,power.draw,temperature.gpu"
+# The engine's scopes (engine.PROFILER_SCOPES, named here so that a
+# checkout without them reads as one whose scopes are empty).
+ENGINE_SCOPES = ("hs.macro_block", "hs.kernel", "hs.reduce")
 
 
 def smi() -> str:
@@ -122,13 +131,30 @@ def analyse(trace_path: Path) -> dict:
         by_kernel[key] = (n + 1, total + e["dur"])
     host = [e for e in inside if e.get("cat") in HOST_SPAN_CATS]
     waits = [e for e in inside if e.get("cat") == "cuda_runtime" and e.get("name") in WAIT_CALLS]
+    calls = {
+        e["args"]["correlation"]: e["ts"]
+        for e in inside
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
+    }
+    scopes = {}
+    for name in ENGINE_SCOPES:
+        ranges = [(e["ts"], e["ts"] + e["dur"]) for e in host if e["name"] == name]
+        launched = [
+            (e["ts"], e["ts"] + e["dur"]) for e in device
+            if any(lo <= calls.get(e.get("args", {}).get("correlation"), -1.0) <= hi
+                   for lo, hi in ranges)
+        ]
+        own = merge(ranges)
+        scopes[name] = {
+            "ranges": len(ranges),
+            "host_ms": sum(hi - lo for lo, hi in own) / 1e3,
+            "device_ms": sum(hi - lo for lo, hi in merge(launched)) / 1e3,
+            "device_idle_ms": overlap(own, idle) / 1e3,
+        }
     phases = {}
     for label, events_of in (
         ("setup", [e for e in host if e["name"] == "hs.setup"]),
-        ("launch_args", [e for e in host if e["name"] == "hs.launch_args"]),
-        ("launch", [e for e in host if e["name"] == "hs.launch"]),
         ("wait", waits),
-        ("reduce_final", [e for e in host if e["name"] == "hs.reduce_final"]),
         ("blocks_reduce", [e for e in host if e["name"] == "hs.blocks_reduce"]),
         ("build_result", [e for e in host if e["name"] == "hs.build_result"]),
     ):
@@ -155,6 +181,7 @@ def analyse(trace_path: Path) -> dict:
         "device_idle_ms": idle_us / 1e3,
         "device_idle_share": idle_us / (w1 - w0),
         "kernels": {k: {"count": n, "ms": t / 1e3} for k, (n, t) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])},
+        "scopes": scopes,
         "host_phases": phases,
         "idle_outside_named_phases_ms": (idle_us - overlap(named, idle)) / 1e3,
         "cuda_runtime": {k: {"count": n, "ms": t / 1e3} for k, (n, t) in sorted(runtime.items(), key=lambda kv: -kv[1][1])},
@@ -175,15 +202,11 @@ def main() -> int:
         return 2
     import chip_smoke as smoke
     from happysim_tpu_torch import engine, rng, run_ensemble
-    from happysim_tpu_torch.kernels import event_step
 
     wrap(engine, "_resolve_params", "hs.setup")
     wrap(rng, "split", "hs.setup")
     wrap(engine._Compiled, "init_state", "hs.setup")
     wrap(engine._Compiled, "replica_halted", "hs.setup")
-    wrap(event_step, "launch_args", "hs.launch_args")
-    wrap(event_step, "launch", "hs.launch")
-    wrap(engine, "reduce_final", "hs.reduce_final")
     wrap(engine, "_blocks_reduce", "hs.blocks_reduce")
     wrap(engine, "_build_result", "hs.build_result")
 
@@ -233,11 +256,15 @@ def main() -> int:
             f"{k} {v['host_ms']:.2f} ms host / {v['device_idle_ms']:.2f} ms idle"
             for k, v in info["host_phases"].items()
         )
+        scopes = ", ".join(
+            f"{k} x{v['ranges']} {v['host_ms']:.3f} ms host / {v['device_ms']:.3f} ms device"
+            for k, v in info["scopes"].items()
+        )
         top = list(info["kernels"].items())[:3]
         print(
             f"trace {opts.tag} {label}: wall {info['wall_ms_untraced']:.2f} ms untraced, "
             f"{info['window_ms']:.2f} ms traced; device busy {info['device_busy_ms']:.2f} ms, idle "
-            f"{100 * info['device_idle_share']:.1f}%; {phases}; idle elsewhere "
+            f"{100 * info['device_idle_share']:.1f}%; scopes {scopes}; {phases}; idle elsewhere "
             f"{info['idle_outside_named_phases_ms']:.2f} ms; kernels "
             + "; ".join(f"{name[:60]} x{k['count']} {k['ms']:.2f} ms" for name, k in top)
             + f"; smi before [{before}] after [{after}] [{card}]"
